@@ -14,6 +14,12 @@ except ImportError:
     hypothesis_shim.install()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one "
+        "(run on the GPU with `pytest -m cuda tests/test_torch_cuda.py`)")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
