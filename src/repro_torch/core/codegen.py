@@ -5,7 +5,10 @@ that build the factor blocks, followed by one rank-k apply ``M += U Vᵀ``
 per written view.  Every apply goes through
 :func:`repro_torch.kernels.ops.rank_update_batched`, which runs the CUDA
 kernel on the card and its plain version on the CPU, in place on the
-view's own storage.
+view's own storage.  Under a row-local delta carrier, the views the
+compiler proved row-local take
+:func:`repro_torch.kernels.ops.rank_update_rows` instead
+(:func:`build_rowlocal_trigger_fn`).
 
 In-place applies make aliasing matter where the reference (immutable JAX
 arrays) never had to care: a factor block that shares storage with a
@@ -21,10 +24,11 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..kernels import ops
+from ..kernels.rank_update_rows import RowSet
 from . import expr as ex
 from .compiler import Trigger
 from .expr import Expr
-from .factored import ColSlice, HStack
+from .factored import ColSlice, HStack, to_f32
 from .program import Program
 
 Env = Dict[str, torch.Tensor]
@@ -57,7 +61,14 @@ def evaluate(e: Expr, env: Env, binding: Dict[str, int],
         cache[id(x)] = out
         return out
 
-    return go(e)
+    try:
+        return go(e)
+    finally:
+        # ``go`` refers to itself through its closure: left in place, that
+        # cycle keeps ``cache`` and ``env`` — every intermediate tensor —
+        # alive until the garbage collector runs, not until the caller
+        # drops them
+        del go
 
 
 def _eval_node(x: Expr, env: Env, binding, go, device) -> torch.Tensor:
@@ -159,6 +170,23 @@ def trigger_touched_views(trigger: Trigger) -> Tuple[Tuple[str, ...],
     return written, tuple(sorted(read))
 
 
+def _firing_factors(trigger: Trigger, env: Env, views: Env,
+                    written) -> Env:
+    """The contiguous factor blocks of a firing's updates.  The kernels
+    take contiguous factors; a factor that shares storage with a view
+    written in the same firing must not see an earlier update of that
+    firing, so it gets its own copy."""
+    targets = [views[name] for name in written]
+    factors = {}
+    for up in trigger.updates:
+        for name in (up.u, up.v) if up.kind == "lowrank" else (up.d,):
+            f = env[name]
+            if _shares_storage(f, targets):
+                f = f.clone(memory_format=torch.contiguous_format)
+            factors[name] = f.contiguous()
+    return factors
+
+
 def build_trigger_fn(trigger: Trigger, program: Program,
                      binding: Optional[Dict[str, int]] = None,
                      device=None) -> Callable[[Env, torch.Tensor,
@@ -182,17 +210,7 @@ def build_trigger_fn(trigger: Trigger, program: Program,
         cache: Dict[int, torch.Tensor] = {}
         for a in trigger.assigns:
             env[a.name] = evaluate(a.expr, env, binding, cache, device)
-        targets = [views[name] for name in written]
-        factors = {}
-        for up in trigger.updates:
-            for name in (up.u, up.v) if up.kind == "lowrank" else (up.d,):
-                f = env[name]
-                # the kernel takes contiguous factors; a factor that shares
-                # storage with a written view must not see an earlier
-                # update of the same firing, so it gets its own copy
-                if _shares_storage(f, targets):
-                    f = f.clone(memory_format=torch.contiguous_format)
-                factors[name] = f.contiguous()
+        factors = _firing_factors(trigger, env, views, written)
         for up in trigger.updates:
             if up.kind == "lowrank":
                 ops.rank_update_batched(views[up.view], factors[up.u],
@@ -202,6 +220,157 @@ def build_trigger_fn(trigger: Trigger, program: Program,
         return views
 
     run.lowrank_applies = sum(up.kind == "lowrank" for up in trigger.updates)
+    return run
+
+
+# ---------------------------------------------------------------------------
+# row-local trigger execution (row-local carriers, §3–§5 containment)
+# ---------------------------------------------------------------------------
+
+
+def _expr_refs(e: Expr, names) -> bool:
+    """Whether ``e`` references any :class:`~repro_torch.core.expr.Var`
+    in ``names`` (iterative — factor chains can be deep)."""
+    stack = [e]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, ex.Var) and x.name in names:
+            return True
+        stack.extend(x.children)
+    return False
+
+
+def _compact_left_safe(e: Expr, left) -> bool:
+    """Whether a left factor-block expression can be evaluated with the
+    update's **compact** ``(r, k)`` row block bound in place of the dense
+    ``(n, k)`` scattered factor.
+
+    Every constructor that preserves row support also commutes with the
+    row gather — ``(α·L)[rows] = α·L[rows]``, ``(L @ B)[rows] =
+    L[rows] @ B``, and ``Add`` / ``HStack`` / ``ColSlice`` act per row or
+    per column — provided no compact-shaped value reaches a dense
+    position (a ``MatMul`` right operand, a ``Scale`` factor).  ``Zero``
+    is excluded: its shape comes from the binding's dense dims.
+    """
+    if isinstance(e, ex.Var):
+        return e.name in left
+    if isinstance(e, ex.Scale):
+        return (not _expr_refs(e.factor, left)
+                and _compact_left_safe(e.operand, left))
+    if isinstance(e, ex.MatMul):
+        return (_compact_left_safe(e.lhs, left)
+                and not _expr_refs(e.rhs, left))
+    if isinstance(e, ex.Add):
+        return all(_compact_left_safe(t, left) for t in e.terms)
+    if isinstance(e, HStack):
+        return all(_compact_left_safe(b, left) for b in e.blocks)
+    if isinstance(e, ColSlice):
+        return _compact_left_safe(e.operand, left)
+    return False
+
+
+def compact_chain_names(trigger: Trigger):
+    """The trigger's left-factor vars that stay compact end to end, or
+    ``None`` if this trigger cannot run its factor chain compactly.
+
+    A trigger qualifies when every maintained view is a row-local
+    low-rank update and every assign that (transitively) consumes the
+    update's left factor is :func:`_compact_left_safe`: then the whole
+    chain runs on the ``(r, k)`` row block and no dense ``(n, k)``
+    factor is ever made."""
+    if any(up.kind != "lowrank" for up in trigger.updates):
+        return None
+    if any(trigger.carriers.get(up.view) != "row_local"
+           for up in trigger.updates):
+        return None
+    left = {trigger.u_var.name}
+    for a in trigger.assigns:
+        if not _expr_refs(a.expr, left):
+            continue
+        if not _compact_left_safe(a.expr, left):
+            return None
+        left.add(a.name)
+    for up in trigger.updates:
+        if up.u not in left or up.v in left:
+            return None
+    return left
+
+
+def build_rowlocal_trigger_fn(trigger: Trigger, program: Program,
+                              binding: Optional[Dict[str, int]] = None,
+                              device=None, max_fraction: float = 0.25
+                              ) -> Callable:
+    """Stage a trigger for row-local carriers: ``(views, rows, block, V)
+    -> views``, where ``rows`` (r,) are the update's affected rows
+    (strictly increasing), ``block`` its compact ``(r, k)`` left factor
+    and ``V`` its ``(m, k)`` right factor.
+
+    Two regimes:
+
+    * **compact** — when :func:`compact_chain_names` qualifies, ``block``
+      is bound as the update's left factor and the whole chain runs on
+      compact factors; each view is updated by
+      ``ops.rank_update_rows(view, rows, L, R)``.  No dense ``(n, k)``
+      factor is ever made.
+    * **mixed** — otherwise ``block`` is scattered into a dense ``u`` and
+      the chain runs as in :func:`build_trigger_fn`.  Each view the
+      compiler proved row-local takes ``ops.rank_update_rows(view, rows,
+      L[rows], R)``, every other low-rank view the dense
+      ``ops.rank_update_batched``, and a dense update ``view + D``.
+
+    Rows stay exact (no padding).  Every factor is evaluated against the
+    pre-update views before any apply runs, and a factor that shares
+    storage with a written view is copied first, as in
+    :func:`build_trigger_fn`.  The sum ``view[rows] += L Rᵀ`` may round
+    differently from the dense ``view + u vᵀ`` by an ulp.
+    ``run.row_applies`` and ``run.dense_applies`` count the row-kernel
+    and dense-kernel applies per firing.
+    """
+    binding = dict(program.dims if binding is None else binding)
+    written, _ = trigger_touched_views(trigger)
+    x = program.inputs[trigger.input_name]
+    n_in = _dim(x.shape[0], binding)
+    compact = compact_chain_names(trigger) is not None
+    row_views = {up.view for up in trigger.updates if up.kind == "lowrank"
+                 and trigger.carriers.get(up.view) == "row_local"}
+
+    def run(views: Env, rows, block, v) -> Env:
+        dev = views[trigger.input_name].device if device is None else device
+        rows = RowSet.of(rows, n_in)
+        # copies, never views of the caller's arrays
+        block = to_f32(block, dev, copy=True)
+        env: Env = dict(views)
+        if compact:
+            env[trigger.u_var.name] = block
+        else:
+            u = torch.zeros((n_in, block.shape[1]), dtype=torch.float32,
+                            device=dev)
+            u[rows.index(dev)] = block
+            env[trigger.u_var.name] = u
+        env[trigger.v_var.name] = to_f32(v, dev, copy=True)
+        cache: Dict[int, torch.Tensor] = {}
+        for a in trigger.assigns:
+            env[a.name] = evaluate(a.expr, env, binding, cache, dev)
+        factors = _firing_factors(trigger, env, views, written)
+        for up in trigger.updates:
+            if up.kind != "lowrank":
+                views[up.view] = views[up.view] + factors[up.d]
+            elif up.view in row_views:
+                L = factors[up.u]
+                if not compact:
+                    L = L[rows.index(dev)]
+                ops.rank_update_rows(views[up.view], rows, L, factors[up.v],
+                                     max_fraction=max_fraction)
+            else:
+                ops.rank_update_batched(views[up.view], factors[up.u],
+                                        factors[up.v])
+        return views
+
+    run.compact = compact
+    run.row_applies = len([up for up in trigger.updates
+                           if up.view in row_views])
+    run.dense_applies = sum(up.kind == "lowrank" for up in trigger.updates) \
+        - run.row_applies
     return run
 
 

@@ -407,3 +407,300 @@ def pad_factors_to_rank(P: torch.Tensor, Q: torch.Tensor, rank: int
     if K == rank:
         return P, Q
     return F.pad(P, (0, rank - K)), F.pad(Q, (0, rank - K))
+
+
+# ---------------------------------------------------------------------------
+# runtime delta carriers (sparsity-aware containment, §3–§5)
+# ---------------------------------------------------------------------------
+#
+# A carrier describes one concrete update at run time:
+#
+#   * ``LowRankCarrier``  — dense-shaped ``P Qᵀ`` factors (the raw pair);
+#   * ``RowLocalCarrier`` — an affected-row index set plus the compact
+#     row block: ``ΔA = scatter(rows, B) Vᵀ`` touches only ``r`` of
+#     ``n`` rows.  Row support is preserved by exactly the §4 closure the
+#     compiler proves per view (``delta.row_support_preserved``); views
+#     outside it widen the carrier to ``LowRankCarrier`` via
+#     :meth:`~DeltaCarrier.factors`.
+#   * ``NoOpCarrier``     — a delta known to change nothing; the engine
+#     skips its firing.
+#
+# Carriers are host-side numpy values: ranks and row counts stay Python
+# ints, so triggers bucket exactly as for raw pairs.  The engine uploads
+# a carrier's factors to its device only when it fires.
+
+
+class DeltaCarrier:
+    """One concrete factored update ``ΔA`` to an engine input."""
+
+    kind: str = "abstract"
+
+    @property
+    def rank(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def nm(self) -> Tuple[int, int]:
+        """The (n, m) shape of the carried delta."""
+        raise NotImplementedError
+
+    def factors(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Widen to dense-shaped ``(P, Q)`` float32 factors (the oracle
+        representation every carrier must agree with exactly)."""
+        raise NotImplementedError
+
+    def affected_fraction(self) -> float:
+        """Fraction of rows the delta can touch (1.0 unless contained)."""
+        return 1.0
+
+    def norm_bound(self) -> float:
+        """Upper bound on ``‖ΔA‖_F`` (``‖P‖_F · ‖Q‖_F``)."""
+        raise NotImplementedError
+
+    def is_noop(self, tol: float = 0.0) -> bool:
+        """Whether applying this delta is guaranteed to move no view by
+        more than ``tol`` (in delta Frobenius norm)."""
+        return self.norm_bound() <= tol
+
+    def negate(self) -> "DeltaCarrier":
+        """The downdate ``-ΔA``."""
+        P, Q = self.factors()
+        return LowRankCarrier(np.negative(P), Q)
+
+
+def _as_f32_factor(a, name: str) -> np.ndarray:
+    a = np.asarray(a, dtype=np.float32)
+    if a.ndim == 1:
+        a = a[:, None]
+    if a.ndim != 2:
+        raise ex.ShapeError(f"{name} must be 2-D, got shape {a.shape}")
+    return a
+
+
+@dataclass(frozen=True)
+class LowRankCarrier(DeltaCarrier):
+    """Dense-shaped factored delta ``ΔA = P Qᵀ`` — the classic carrier."""
+
+    P: np.ndarray   # (n, k)
+    Q: np.ndarray   # (m, k)
+
+    kind = "low_rank"
+
+    @property
+    def rank(self) -> int:
+        return int(self.P.shape[1])
+
+    @property
+    def nm(self) -> Tuple[int, int]:
+        return int(self.P.shape[0]), int(self.Q.shape[0])
+
+    def factors(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self.P, self.Q
+
+    def norm_bound(self) -> float:
+        return float(np.linalg.norm(self.P)) * float(np.linalg.norm(self.Q))
+
+    def negate(self) -> "LowRankCarrier":
+        return LowRankCarrier(np.negative(self.P), self.Q)
+
+
+@dataclass(frozen=True)
+class RowLocalCarrier(DeltaCarrier):
+    """Row-contained factored delta: ``ΔA = scatter_n(rows, block) @ Vᵀ``.
+
+    ``rows`` is the sorted, duplicate-free affected-row index set
+    (``r`` entries), ``block`` the compact ``(r, k)`` left factor whose
+    i-th row lands on row ``rows[i]``, and ``V`` the dense ``(m, k)``
+    right factor.
+    """
+
+    rows: np.ndarray    # (r,) int32, sorted unique, all < n
+    block: np.ndarray   # (r, k) float32
+    V: np.ndarray       # (m, k) float32
+    n: int              # full row dimension of the carried delta
+
+    kind = "row_local"
+
+    def __post_init__(self):
+        if self.rows.ndim != 1 or self.block.ndim != 2 or self.V.ndim != 2:
+            raise ex.ShapeError(
+                f"row-local carrier dims: rows {self.rows.shape}, "
+                f"block {self.block.shape}, V {self.V.shape}")
+        if self.block.shape[0] != self.rows.shape[0]:
+            raise ex.ShapeError(
+                f"block rows {self.block.shape[0]} != affected rows "
+                f"{self.rows.shape[0]}")
+        if self.block.shape[1] != self.V.shape[1]:
+            raise ex.ShapeError(
+                f"carrier rank mismatch: block {self.block.shape} vs "
+                f"V {self.V.shape}")
+
+    @property
+    def rank(self) -> int:
+        return int(self.block.shape[1])
+
+    @property
+    def rows_touched(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
+    def nm(self) -> Tuple[int, int]:
+        return int(self.n), int(self.V.shape[0])
+
+    def affected_fraction(self) -> float:
+        return self.rows_touched / max(int(self.n), 1)
+
+    def factors(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Widen: scatter the compact block into a dense-shaped P."""
+        P = np.zeros((int(self.n), self.rank), dtype=np.float32)
+        P[self.rows] = self.block
+        return P, self.V
+
+    def norm_bound(self) -> float:
+        return (float(np.linalg.norm(self.block))
+                * float(np.linalg.norm(self.V)))
+
+    def scale(self, factor: float) -> "RowLocalCarrier":
+        """Scalar scale preserves row support exactly (§4 closure)."""
+        return RowLocalCarrier(self.rows, self.block * float(factor),
+                               self.V, self.n)
+
+    def matmul_right(self, W: np.ndarray) -> "RowLocalCarrier":
+        """``ΔA @ W`` preserves row support: only V changes."""
+        W = np.asarray(W, dtype=np.float32)
+        return RowLocalCarrier(self.rows, self.block, W.T @ self.V, self.n)
+
+    def negate(self) -> "RowLocalCarrier":
+        """Negation preserves row support."""
+        return RowLocalCarrier(self.rows, np.negative(self.block),
+                               self.V, self.n)
+
+
+@dataclass(frozen=True)
+class NoOpCarrier(DeltaCarrier):
+    """A delta known (to tolerance) to change nothing — skips firing."""
+
+    n: int
+    m: int
+
+    kind = "noop"
+
+    @property
+    def rank(self) -> int:
+        return 0
+
+    @property
+    def nm(self) -> Tuple[int, int]:
+        return int(self.n), int(self.m)
+
+    def affected_fraction(self) -> float:
+        return 0.0
+
+    def factors(self) -> Tuple[np.ndarray, np.ndarray]:
+        return (np.zeros((int(self.n), 1), np.float32),
+                np.zeros((int(self.m), 1), np.float32))
+
+    def norm_bound(self) -> float:
+        return 0.0
+
+    def is_noop(self, tol: float = 0.0) -> bool:
+        return True
+
+    def negate(self) -> "NoOpCarrier":
+        return self
+
+
+def row_delta_carrier(rows, V, n: int, *, weight: float = 1.0
+                      ) -> RowLocalCarrier:
+    """The row tuple-update carrier: ``ΔA`` adds ``weight · V[:, j]ᵀ`` to
+    row ``rows[j]`` of an ``(n, m)`` input.  ``rows`` is a scalar slot or
+    a duplicate-free index array; ``V`` is ``(m,)`` for one row or
+    ``(m, r)`` column-per-row for several."""
+    rows = np.atleast_1d(np.asarray(rows, dtype=np.int32))
+    V = np.asarray(V, dtype=np.float32)
+    if V.ndim == 1:
+        V = V[:, None]
+    if V.shape[1] != rows.size:
+        raise ex.ShapeError(f"row_delta_carrier: {rows.size} rows but "
+                            f"{V.shape[1]} value columns")
+    block = np.eye(rows.size, dtype=np.float32) * np.float32(weight)
+    order = np.argsort(rows)
+    return RowLocalCarrier(rows[order], block[order], V, n)
+
+
+def as_carrier(u, v=None) -> DeltaCarrier:
+    """Normalize an update to a carrier: a :class:`DeltaCarrier` as it
+    is (``v`` must then be ``None``), or a raw factor pair."""
+    if isinstance(u, DeltaCarrier):
+        if v is not None:
+            raise ValueError("carrier updates take no separate v factor")
+        return u
+    if v is None:
+        raise ValueError("raw factor updates need both u and v")
+    return LowRankCarrier(_as_f32_factor(u, "u"), _as_f32_factor(v, "v"))
+
+
+def detect_row_local(u, v, *, max_fraction: float = 0.5,
+                     noop_tol: float = 0.0) -> DeltaCarrier:
+    """Classify raw ``(u, v)`` factors into the tightest carrier: empty
+    row support of ``u`` (or a delta under ``noop_tol``) is a
+    :class:`NoOpCarrier`, support of at most ``max_fraction`` of the rows
+    a :class:`RowLocalCarrier`, anything wider a :class:`LowRankCarrier`.
+    Exact — zero rows of ``u`` contribute nothing to ``u vᵀ``."""
+    u = _as_f32_factor(u, "u")
+    v = _as_f32_factor(v, "v")
+    rows = np.flatnonzero(np.any(u != 0.0, axis=1)).astype(np.int32)
+    n = u.shape[0]
+    if rows.size == 0:
+        return NoOpCarrier(n, v.shape[0])
+    c: DeltaCarrier
+    if rows.size <= max_fraction * n:
+        c = RowLocalCarrier(rows, u[rows], v, n)
+    else:
+        c = LowRankCarrier(u, v)
+    if noop_tol > 0.0 and c.is_noop(noop_tol):
+        return NoOpCarrier(n, v.shape[0])
+    return c
+
+
+def stack_carriers(carriers: Sequence[DeltaCarrier]) -> DeltaCarrier:
+    """Stack a batch of carriers for one input into a single carrier.
+
+    All-row-local batches stay row-local: rows = sorted union, compact
+    blocks placed in union coordinates, ranks concatenated.  Any
+    dense-shaped member widens the whole stack to
+    :class:`LowRankCarrier`; no-ops contribute nothing.  The stacked rank
+    is ``Σ k_t`` and the dense widening equals stacking the members'
+    factors.
+    """
+    live = [c for c in carriers if c.kind != "noop"]
+    if not live:
+        if not carriers:
+            raise ValueError("empty carrier batch")
+        n, m = carriers[0].nm
+        return NoOpCarrier(n, m)
+    if all(c.kind == "row_local" for c in live):
+        n = live[0].n
+        if any(c.n != n for c in live):
+            raise ex.ShapeError("row-local carriers disagree on n")
+        rows = np.unique(np.concatenate([c.rows for c in live]))
+        rows = rows.astype(np.int32)
+        total_k = sum(c.rank for c in live)
+        block = np.zeros((rows.size, total_k), np.float32)
+        V = np.concatenate([c.V for c in live], axis=1)
+        off = 0
+        for c in live:
+            # positions of the member's rows in the sorted union
+            idx = np.searchsorted(rows, c.rows)
+            block[idx, off:off + c.rank] = c.block
+            off += c.rank
+        return RowLocalCarrier(rows, block, V, n)
+    us, vs = zip(*(c.factors() for c in live))
+    us = [_as_f32_factor(u, "u") for u in us]
+    vs = [_as_f32_factor(v, "v") for v in vs]
+    for u, v in zip(us, vs):
+        if u.shape[1] != v.shape[1]:
+            raise ex.ShapeError(f"update rank mismatch: {u.shape} vs "
+                                f"{v.shape}")
+    return LowRankCarrier(np.concatenate(us, axis=1),
+                          np.concatenate(vs, axis=1))

@@ -5,7 +5,11 @@ per dynamic input.  ``apply_update`` fires a trigger; ``apply_updates``
 coalesces a whole update stream into one batched trigger firing (stacked
 factors, §6 batching); ``enqueue_update`` + ``flush`` queue updates and
 fire them in coalesced batches; ``reevaluate`` is the paper's baseline
-strategy for comparison and validation.
+strategy for comparison and validation.  ``apply_update`` and
+``apply_updates`` also take delta carriers (:mod:`.factored`): a no-op
+carrier skips its firing, a contained row-local carrier fires the
+row-local trigger (:func:`~.codegen.build_rowlocal_trigger_fn`), and any
+other carrier widens to the dense path.
 
 Views are float32 tensors on the engine's device, updated in place by the
 rank-k kernel.  Engines run on the card (``device=None`` means
@@ -23,11 +27,13 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from .codegen import build_evaluator, build_trigger_fn, trigger_flops
-from .compiler import (CompiledProgram, batch_bucket, compile_batched_trigger,
-                       compile_program)
-from .factored import (pad_factors_to_rank, recompress_factors,
-                       stack_update_arrays, to_f32)
+from .codegen import (build_evaluator, build_rowlocal_trigger_fn,
+                      build_trigger_fn, trigger_flops)
+from .compiler import (CompiledProgram, Trigger, batch_bucket,
+                       compile_batched_trigger, compile_program)
+from .factored import (DeltaCarrier, RowLocalCarrier, as_carrier,
+                       pad_factors_to_rank, recompress_factors,
+                       stack_carriers, stack_update_arrays, to_f32)
 from .program import Program
 
 Tensor = torch.Tensor
@@ -79,8 +85,13 @@ class EngineStats:
     updates_timed: int = 0        # logical updates included in trigger_seconds
     trigger_seconds: float = 0.0
     batches_applied: int = 0
-    lowrank_applies: int = 0      # rank-k view applies (kernel launches on
-                                  # the card) over all firings
+    lowrank_applies: int = 0      # dense rank-k view applies (kernel
+                                  # launches on the card) over all firings
+    row_applies: int = 0          # row-local view applies (row-kernel
+                                  # launches on the card)
+    noop_skips: int = 0           # no-op carriers dropped before any firing
+    rowlocal_firings: int = 0     # firings that swept only touched rows
+    widened_carriers: int = 0     # row-local carriers that fell back dense
     recompressions: int = 0
     reevals: int = 0
     reeval_seconds: float = 0.0
@@ -100,12 +111,17 @@ class IncrementalEngine:
                  recompress_tol: float = 1e-6,
                  flush_size: int = 16,
                  flush_age: float = 0.1,
+                 rowlocal_fraction: float = 0.25,
                  device=None):
         """``max_batch_rank`` caps the stacked rank of a batch (QR/SVD
         re-compression past it); ``flush_size`` (stacked rank) and
         ``flush_age`` (seconds since the oldest queued update) are the
         thresholds at which :meth:`enqueue_update` flushes its queue.
-        ``device`` holds every view; ``None`` means the card."""
+        ``rowlocal_fraction`` is the affected-fraction crossover for
+        row-local carriers: one touching at most this fraction of its
+        input's rows fires the row-local trigger, a wider one widens to
+        the dense path.  ``device`` holds every view; ``None`` means the
+        card."""
         self.device = resolve_device(device)
         self.compiled: CompiledProgram = compile_program(
             program, update_ranks, force_rep=force_rep,
@@ -121,6 +137,10 @@ class IncrementalEngine:
         }
         # batched triggers, keyed by (input, bucket rank); built lazily
         self._batched_triggers: Dict[Tuple[str, int], Callable] = {}
+        self._bucket_triggers: Dict[Tuple[str, int], Trigger] = {}
+        # row-local triggers, keyed by (input, bucket rank); built lazily
+        self._rowlocal_fns: Dict[Tuple[str, int], Callable] = {}
+        self.rowlocal_fraction = float(rowlocal_fraction)
         self.max_batch_rank = max_batch_rank
         self.recompress_tol = recompress_tol
         self.flush_size = flush_size
@@ -166,9 +186,18 @@ class IncrementalEngine:
         return {k: v.detach().cpu().numpy() for k, v in self.views.items()}
 
     # -- incremental path ------------------------------------------------------
-    def apply_update(self, input_name: str, u, v,
+    def apply_update(self, input_name: str, u, v=None,
                      block: bool = False) -> Dict[str, Tensor]:
-        """Fire the trigger for ``input_name += u @ v.T``."""
+        """Fire the trigger for ``input_name += u @ v.T``.
+
+        ``u`` may be a :class:`~.factored.DeltaCarrier` instead of a raw
+        left factor (``v`` then stays ``None``): a no-op carrier skips the
+        firing, a row-local carrier under ``rowlocal_fraction`` fires the
+        row-local trigger, and everything else widens to this dense path.
+        """
+        if isinstance(u, DeltaCarrier) or v is None:
+            return self._apply_carrier(input_name, as_carrier(u, v),
+                                       block=block)
         fn = self._trigger_fns.get(input_name)
         if fn is None:
             raise KeyError(f"no trigger for input {input_name!r}; have "
@@ -196,10 +225,11 @@ class IncrementalEngine:
         bucket so ragged batch sizes share one trigger per bucket.  Every
         maintained view is swept ONCE per batch instead of once per update.
         """
-        if input_name not in self.compiled.triggers:
-            raise KeyError(f"no trigger for input {input_name!r}; have "
-                           f"{sorted(self.compiled.triggers)}")
+        self._check_input(input_name)
         updates = list(updates)
+        if any(isinstance(x, DeltaCarrier) for x in updates):
+            return self._apply_carrier_batch(input_name, updates,
+                                             block=block)
         if not updates:
             return self.views
         t0 = time.perf_counter()  # stacking is part of the batch's cost
@@ -223,6 +253,18 @@ class IncrementalEngine:
         self.stats.batches_applied += 1
         return self.views
 
+    def _bucket_trigger(self, input_name: str, bucket: int) -> Trigger:
+        """The trigger IR for (input, stacked-rank bucket)."""
+        base = self.compiled.triggers[input_name]
+        if bucket == base.rank:
+            return base
+        key = (input_name, bucket)
+        trig = self._bucket_triggers.get(key)
+        if trig is None:
+            trig = compile_batched_trigger(self.compiled, input_name, bucket)
+            self._bucket_triggers[key] = trig
+        return trig
+
     def _batched_trigger_fn(self, input_name: str, bucket: int) -> Callable:
         """The trigger for (input, bucket), built on first use."""
         key = (input_name, bucket)
@@ -231,12 +273,133 @@ class IncrementalEngine:
             if bucket == self.compiled.triggers[input_name].rank:
                 fn = self._trigger_fns[input_name]
             else:
-                trig = compile_batched_trigger(self.compiled, input_name,
-                                               bucket)
-                fn = build_trigger_fn(trig, self.program, self.binding,
-                                      self.device)
+                fn = build_trigger_fn(self._bucket_trigger(input_name, bucket),
+                                      self.program, self.binding, self.device)
             self._batched_triggers[key] = fn
         return fn
+
+    # -- sparsity-aware carrier path (factored.DeltaCarrier) ------------------
+    def _check_input(self, input_name: str) -> None:
+        if input_name not in self.compiled.triggers:
+            raise KeyError(f"no trigger for input {input_name!r}; have "
+                           f"{sorted(self.compiled.triggers)}")
+
+    def _rowlocal_ok(self, input_name: str, carrier: DeltaCarrier) -> bool:
+        """Whether a row-local carrier may fire the row-local trigger: its
+        affected fraction is under ``rowlocal_fraction``, and at least one
+        maintained view (not the input itself) is one the compiler proved
+        row-local — otherwise every view widens and the row trigger buys
+        nothing over the dense sweep."""
+        if carrier.affected_fraction() > self.rowlocal_fraction:
+            return False
+        trig = self.compiled.triggers[input_name]
+        return any(trig.carriers.get(up.view) == "row_local"
+                   for up in trig.updates
+                   if up.kind == "lowrank" and up.view != input_name)
+
+    def _rowlocal_trigger_fn(self, input_name: str, bucket: int) -> Callable:
+        """The row-local trigger for (input, rank bucket), built on first
+        use."""
+        key = (input_name, bucket)
+        fn = self._rowlocal_fns.get(key)
+        if fn is None:
+            fn = build_rowlocal_trigger_fn(
+                self._bucket_trigger(input_name, bucket), self.program,
+                self.binding, self.device,
+                max_fraction=self.rowlocal_fraction)
+            self._rowlocal_fns[key] = fn
+        return fn
+
+    def _apply_carrier(self, input_name: str, carrier: DeltaCarrier,
+                       block: bool = False) -> Dict[str, Tensor]:
+        """Dispatch one carrier: no-op → skip, contained row-local →
+        row-local firing, anything else → widen to the dense factored path
+        (``carrier.factors()`` is exact, so widening changes only the
+        traffic)."""
+        self._check_input(input_name)
+        if carrier.kind == "noop":
+            self.stats.noop_skips += 1
+            self.stats.updates_applied += 1
+            if block:
+                _sync(self.device)
+            return self.views
+        if carrier.kind == "row_local":
+            if self._rowlocal_ok(input_name, carrier):
+                return self._apply_rowlocal(input_name, carrier, block=block)
+            self.stats.widened_carriers += 1
+        P, Q = carrier.factors()
+        return self.apply_update(input_name, P, Q, block=block)
+
+    def _apply_rowlocal(self, input_name: str, carrier: RowLocalCarrier,
+                        block: bool = False, t_count: int = 1
+                        ) -> Dict[str, Tensor]:
+        """Fire the row-local trigger for one (possibly stacked) row-local
+        carrier.  The rank is zero-padded to its power-of-two bucket, as
+        for raw pairs; the rows stay exact (eager torch needs no row
+        bucket)."""
+        t0 = time.perf_counter()
+        rows = np.asarray(carrier.rows)
+        B = np.asarray(carrier.block, dtype=np.float32)
+        V = np.asarray(carrier.V, dtype=np.float32)
+        rank = B.shape[1]
+        base = self.compiled.triggers[input_name].rank
+        bucket = rank if rank == base else batch_bucket(rank)
+        if bucket != rank:
+            B = np.pad(B, ((0, 0), (0, bucket - rank)))
+            V = np.pad(V, ((0, 0), (0, bucket - rank)))
+        fn = self._rowlocal_trigger_fn(input_name, bucket)
+        self.views = fn(self.views, rows, B, V)
+        self.stats.row_applies += fn.row_applies
+        self.stats.lowrank_applies += fn.dense_applies
+        if block:
+            _sync(self.device)
+            self.stats.trigger_seconds += time.perf_counter() - t0
+            self.stats.updates_timed += t_count
+        self.stats.updates_applied += t_count
+        self.stats.triggers_fired += 1
+        self.stats.rowlocal_firings += 1
+        if t_count > 1:
+            self.stats.batches_applied += 1
+        return self.views
+
+    def _apply_carrier_batch(self, input_name: str, updates,
+                             block: bool = False) -> Dict[str, Tensor]:
+        """Batched carrier path: drop no-ops, stack the rest
+        (:func:`~.factored.stack_carriers` — union row support while
+        everything stays row-local), and fire once.  A stack that widens
+        — any dense member, or a union past the crossover — expands to
+        factor pairs and takes the ordinary batched path."""
+        carriers =[x if isinstance(x, DeltaCarrier)
+                    else as_carrier(x[0], x[1]) for x in updates]
+        live = [c for c in carriers if c.kind != "noop"]
+        skipped = len(carriers) - len(live)
+        self.stats.noop_skips += skipped
+        self.stats.updates_applied += skipped
+        if not live:
+            if block:
+                _sync(self.device)
+            return self.views
+        stacked = stack_carriers(live)
+        if not (stacked.kind == "row_local"
+                and self._rowlocal_ok(input_name, stacked)):
+            self.stats.widened_carriers += \
+                sum(1 for c in live if c.kind == "row_local")
+            return self.apply_updates(input_name,
+                                      [c.factors() for c in live],
+                                      block=block)
+        if (self.max_batch_rank is not None
+                and stacked.rank > self.max_batch_rank):
+            # QR of the compact block touches only the r affected rows, so
+            # the row support is kept exactly
+            B2, V2 = recompress_factors(torch.from_numpy(stacked.block),
+                                        torch.from_numpy(stacked.V),
+                                        max_rank=self.max_batch_rank,
+                                        tol=self.recompress_tol)
+            stacked = RowLocalCarrier(stacked.rows, B2.numpy(), V2.numpy(),
+                                      stacked.n)
+            self.stats.recompressions += 1
+        return self._apply_rowlocal(input_name, stacked, block=block,
+                                    t_count=len(live))
 
     # -- update queue (serving-path coalescing) --------------------------------
     def enqueue_update(self, input_name: str, u, v
@@ -248,9 +411,7 @@ class IncrementalEngine:
         ``flush_age`` seconds.  Returns the refreshed views on flush, else
         ``None`` (views are stale until the next :meth:`flush`).
         """
-        if input_name not in self.compiled.triggers:
-            raise KeyError(f"no trigger for input {input_name!r}; have "
-                           f"{sorted(self.compiled.triggers)}")
+        self._check_input(input_name)
         u, v = _factor(u, self.device), _factor(v, self.device)
         q = self._pending.setdefault(input_name, [])
         if not q:

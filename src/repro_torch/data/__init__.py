@@ -1,5 +1,7 @@
 """Update-stream generators used to drive the engines."""
 
-from .updates import UpdateStream
+from .updates import (RowLocalStream, UpdateStream, row_local_stream,
+                      zipf_row_stream)
 
-__all__ = ["UpdateStream"]
+__all__ = ["RowLocalStream", "UpdateStream", "row_local_stream",
+           "zipf_row_stream"]

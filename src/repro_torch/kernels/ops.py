@@ -1,17 +1,24 @@
-"""Public rank-update ops, dispatched by the device of the view.
+"""Public kernel ops, dispatched by the device of their tensors.
 
 A CPU tensor takes the plain version in :mod:`.ref`; any other tensor
-takes the CUDA kernel in :mod:`.rank_update`, which launches or raises.
-Both update ``m`` in place and return it.  The CUDA kernel masks ragged
-edges itself, so no block picking or ragged fallback is needed here.
+takes the CUDA kernel (:mod:`.rank_update`, :mod:`.rank_update_rows`,
+:mod:`.dual_matmul`), which launches or raises.  The update ops work in
+place on ``m`` and return it.  The CUDA kernels mask ragged edges
+themselves and take row indices directly, so no block picking, slab plan
+or ragged fallback is needed here.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
+from . import dual_matmul as _cuda_dual
 from . import rank_update as _cuda
+from . import rank_update_rows as _cuda_rows
 from . import ref
+from .rank_update_rows import RowSet
 
 
 def rank_update(m: torch.Tensor, u: torch.Tensor,
@@ -36,3 +43,48 @@ def rank_update_batched(m: torch.Tensor, u: torch.Tensor,
     if m.device.type == "cpu":
         return m.copy_(ref.rank_update_batched(m, u, v))
     return _cuda.rank_update_batched(m, u, v)
+
+
+def rank_update_rows(m: torch.Tensor, rows, block: torch.Tensor,
+                     v: torch.Tensor, *, max_fraction: float = 0.25
+                     ) -> torch.Tensor:
+    """Row-local rank-k view update ``m[rows] += block @ v.T`` in place.
+
+    ``rows`` (r,) are the affected rows (strictly increasing, as a host
+    array or a :class:`RowSet`), ``block`` (r, k) the compact left
+    factor, ``v`` (p, k).  Only the listed rows are read and written.
+    Past ``max_fraction`` of the rows the row sweep buys nothing, so the
+    block is scattered into a dense (n, k) factor and the dense
+    :func:`rank_update` runs instead.
+    """
+    n = m.shape[0]
+    rows = RowSet.of(rows, n)
+    if len(rows) > max_fraction * n:
+        u = torch.zeros((n, v.shape[1]), dtype=torch.float32,
+                        device=m.device)
+        u[rows.index(m.device)] = block
+        return rank_update(m, u, v)
+    if m.device.type == "cpu":
+        return m.copy_(ref.rank_update_rows(m, rows.index(m.device), block,
+                                            v))
+    return _cuda_rows.rank_update_rows(m, rows, block, v)
+
+
+def dual_matmul(a: torch.Tensor, u: torch.Tensor, v: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused ``(a @ u, a.T @ v)`` — one pass over ``a``."""
+    if a.device.type == "cpu":
+        return ref.dual_matmul(a, u, v)
+    return _cuda_dual.dual_matmul(a, u, v)
+
+
+def sherman_morrison_delta(w: torch.Tensor, u: torch.Tensor,
+                           v: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused Sherman–Morrison factored delta (paper §4.1) on the
+    dual-matmul kernel: one pass over W gives both W·u and Wᵀ·v."""
+    u = u.reshape(-1, 1).contiguous()
+    v = v.reshape(-1, 1).contiguous()
+    wu, wtv = dual_matmul(w, u, v)
+    denom = 1.0 + (v.T @ wu)[0, 0]
+    return -wu / denom, wtv

@@ -1,5 +1,5 @@
-"""The port's OLS and matrix-powers apps against the JAX package's, and
-``update`` against ``update_reeval``, at small sizes on the CPU."""
+"""The port's six paper apps against the JAX package's, and ``update``
+against ``update_reeval``, at small sizes on the CPU."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,10 +86,92 @@ def test_update_streams_are_the_same_draws():
 
 
 def test_registry_holds_this_slices_apps():
-    assert tapps.available_apps() == ["matrix_powers", "ols"]
+    assert tapps.available_apps() == [
+        "general_iterative", "gradient_descent", "matrix_powers", "ols",
+        "pagerank", "sums_powers"]
     assert tapps.get_app("ols") is tapps.OLS
+    assert tapps.get_app("pagerank") is tapps.PageRank
     with pytest.raises(KeyError, match="pagerank"):
-        tapps.get_app("pagerank")
+        tapps.get_app("fivm_learning")
+
+
+def _same_inputs(tin, jin):
+    assert set(tin) == set(jin)
+    for k in tin:
+        assert isinstance(tin[k], np.ndarray) and tin[k].dtype == np.float32
+        np.testing.assert_array_equal(tin[k], np.asarray(jin[k]))
+
+
+@pytest.mark.parametrize("model", ["linear", "exp", "skip"])
+def test_sums_of_powers_matches_jax(model):
+    n = 32
+    inputs = tapps.SumsOfPowers.synthesize(n, seed=1)
+    _same_inputs(inputs, japps.SumsOfPowers.synthesize(n, seed=1))
+    _drive(japps.SumsOfPowers(n=n, k=8, model=model, s=2),
+           tapps.SumsOfPowers(n=n, k=8, model=model, s=2, device="cpu"),
+           inputs, tdata.UpdateStream(n=n, m=n, seed=4))
+
+
+@pytest.mark.parametrize("model,with_b", [("exp", True), ("exp", False),
+                                          ("linear", True),
+                                          ("skip", True)])
+def test_general_iterative_matches_jax(model, with_b):
+    n, p = 32, 3
+    inputs = tapps.GeneralIterative.synthesize(n, p, with_b=with_b, seed=2)
+    _same_inputs(inputs, japps.GeneralIterative.synthesize(
+        n, p, with_b=with_b, seed=2))
+    _drive(japps.GeneralIterative(n, p, k=8, model=model, s=2,
+                                  with_b=with_b),
+           tapps.GeneralIterative(n, p, k=8, model=model, s=2,
+                                  with_b=with_b, device="cpu"),
+           inputs, tdata.UpdateStream(n=n, m=n, seed=5))
+
+
+@pytest.mark.parametrize("model", ["linear", "exp"])
+def test_gradient_descent_matches_jax(model):
+    m, n, p = 48, 16, 2
+    inputs = tapps.BatchGradientDescent.synthesize(m, n, p, seed=3)
+    _same_inputs(inputs, japps.BatchGradientDescent.synthesize(
+        m, n, p, seed=3))
+    japp = japps.BatchGradientDescent(m, n, p, k=8, model=model)
+    tapp = tapps.BatchGradientDescent(m, n, p, k=8, model=model,
+                                      device="cpu")
+    _drive(japp, tapp, inputs, tdata.UpdateStream(n=m, m=n, seed=6))
+    delta = np.linspace(-1, 1, n)
+    for a, b in zip(tapp.row_update(5, delta), japp.row_update(5, delta)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+@pytest.mark.parametrize("model", ["linear", "exp"])
+def test_pagerank_edge_updates_match_jax(model):
+    n = 32
+    inputs = tapps.PageRank.synthesize(n, seed=4)
+    _same_inputs(inputs, japps.PageRank.synthesize(n, seed=4))
+    japp = japps.PageRank(n, k=8, model=model)
+    tapp = tapps.PageRank(n, k=8, model=model, device="cpu")
+    japp.initialize(inputs)
+    tapp.initialize(inputs)
+    rng = np.random.default_rng(7)
+    for page in (3, 17, 3):
+        col = rng.random(n).astype(np.float32)
+        col /= col.sum()
+        tu, tv = tapp.edge_update(page, col)
+        ju, jv = japp.edge_update(page, col)
+        assert_close_np(tu, ju)
+        np.testing.assert_array_equal(tv, np.asarray(jv))
+        ta = tapp.update(tu, tv)
+        tb = tapp.update_reeval(tu, tv)
+        ja = japp.update(ju, jv)
+    assert _rel(ta.numpy(), ja) <= TOL
+    assert _rel(ta.numpy(), tb.numpy()) <= TOL
+    np.testing.assert_allclose(tapp.engine.views["M"][:, 3].numpy(), col,
+                               rtol=1e-5, atol=1e-6)
+    for k, v in tapp.engine.views.items():
+        assert _rel(v.numpy(), japp.engine.views[k]) <= TOL, k
+
+
+def assert_close_np(a, b):
+    np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6, atol=1e-7)
 
 
 def test_apps_need_a_device_without_cuda(monkeypatch):

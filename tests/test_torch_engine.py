@@ -265,3 +265,30 @@ def test_no_device_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         tcore.ReevalEngine(prog)
     assert tcore.IncrementalEngine(prog, device="cpu").device.type == "cpu"
+
+
+def test_dropped_engines_free_their_views_without_the_collector():
+    """Evaluation leaves no reference cycle behind: once the caller drops
+    an engine, its views (device memory on the card) go at once, not when
+    the garbage collector next runs."""
+    import gc
+    import weakref
+    inputs = _inputs("powers_exp")
+    prog = tcore.iterative.matrix_powers(8, 32, "exp")
+    te = tcore.IncrementalEngine(prog, device="cpu")
+    tr = tcore.ReevalEngine(prog, device="cpu")
+    ups = _updates((32, 32), 4, seed=13)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        for e in (te, tr):
+            e.initialize(inputs)
+            e.apply_update("A", *ups[0])
+        te.apply_updates("A", ups[1:])
+        te.reevaluate()
+        refs = [weakref.ref(v) for e in (te, tr) for v in e.views.values()]
+        del te, tr, e
+        assert [r for r in refs if r() is not None] == []
+    finally:
+        if enabled:
+            gc.enable()
