@@ -11,7 +11,8 @@ CUDA toolkit.  Phases, each of which raises on failure:
    from the checkout, one ``nvcc`` per source, all started together.
 3. kernels: every CUDA entry against its plain PyTorch version on the card,
    at the main path's shapes plus ragged shapes (and a T > 1 stack), with
-   kernel, plain, library and bound times.
+   kernel, plain, library and bound times; the flash kernels at danube's
+   and starcoder2's attention shapes, windowed, ragged, bf16 and f32.
 4. matrix powers A^16 (n = 10000, exp model, the paper's size): 8 single
    updates, one batch of 16, 20 queued updates with a final flush, all
    replayed through the re-evaluation engine and compared view by view;
@@ -31,6 +32,20 @@ CUDA toolkit.  Phases, each of which raises on failure:
    updates, one batch of 8, 8 queued updates with a flush.
 9. Sherman-Morrison through the dual-matmul kernel on OLS's maintained
    W (8192 x 8192) from phase 5.
+10. serve_danube_full: h2o-danube-1.8b at its published width and depth
+    (24 layers, d_model 2560, bf16, random weights from a seed) on
+    ``ServeEngine``: 8 prompts of 4096 tokens, prefill, 32 greedy decode
+    steps (positions 4096-4127 wrap the 4096-slot ring); prefill ms, decode
+    ms per step, tokens/s, the decode step's byte bound, peak memory; the
+    flash kernels checked again on layer 0's real q/k/v.
+11. serve_danube_f32_exact: the same widths in f32 at 4 layers; every
+    decode step's logits against ``forward``'s at its position over the
+    whole 4128-token sequence (window mask in the prefill kernel against
+    the wrapped ring in the decode kernel), greedy tokens against
+    ``forward``'s argmax.
+12. the incremental logit view Y = H W^T over phase 10's final-norm hidden
+    states (32768 x 2560) and lm_head (32000 x 2560): 8 rank-1 hot-swaps
+    through ``ServeEngine`` and a flush, against H W'^T recomputed.
 
 Every launch count is set to 0 just before a phase drives its engines and
 read just after; the counts of each kernel must equal the applies (or
@@ -79,21 +94,40 @@ CHAIN_ROWS = CHAIN_N // 100
 # phase 7: the general iterative form under 100-row carriers on A
 GI_N, GI_P, GI_K, GI_ROWS = 10000, 128, 16, 100
 
-# fp32 (non-tensor-core) peak and memory rate per part, from NVIDIA's data
-# sheets at the part's full power limit: (name match, TFLOP/s, TB/s).
-PEAKS = (("H100 PCIe", 51.0, 2.0), ("H100 NVL", 60.0, 3.9),
-         ("H100", 67.0, 3.35))
+# phases 10-12: h2o-danube-1.8b serving (arXiv:2401.16818)
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "h2o-danube-1.8b", 8, \
+    4096, 32
+EXACT_LAYERS = 4            # phase 11's depth, cut from 24
+HOT_SWAPS = 8               # phase 12's rank-1 head deltas
+
+# Tolerance of an attention kernel against its plain version.  f32: the
+# kernel tolerance above.  bf16: both are f32 results rounded once to bf16,
+# so they differ by at most one rounding step, <= 2**-7 |x|.
+ATTN_TOL = {"float32": (KERNEL_RTOL, KERNEL_ATOL), "bfloat16": (1e-2, 1e-3)}
+# Phase 11's end-to-end tolerance, |decode - forward| <= ATOL + RTOL |fwd|
+# on every logit: the repo's serving tolerance (tests/test_serve.py:40).
+SERVE_RTOL = SERVE_ATOL = 1e-4
+
+# fp32 (non-tensor-core) peak, memory rate and dense bf16 tensor-core peak
+# per part, from NVIDIA's data sheets at the part's full power limit:
+# (name match, fp32 TFLOP/s, TB/s, bf16 TFLOP/s).
+PEAKS = (("H100 PCIe", 51.0, 2.0, 756.0), ("H100 NVL", 60.0, 3.9, 835.0),
+         ("H100", 67.0, 3.35, 989.0))
 
 SOURCES = {
     "rank_update_batched": "src/repro_torch/kernels/csrc/rank_update.cu",
     "rank_update": "src/repro_torch/kernels/csrc/rank_update.cu",
     "rank_update_rows": "src/repro_torch/kernels/csrc/rank_update_rows.cu",
-    "dual_matmul": "src/repro_torch/kernels/csrc/dual_matmul.cu"}
+    "dual_matmul": "src/repro_torch/kernels/csrc/dual_matmul.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu"}
 REPLACES = {
     "rank_update_batched": "src/repro/kernels/rank_update.py:84",
     "rank_update": "src/repro/kernels/rank_update.py:40",
     "rank_update_rows": "src/repro/kernels/rank_update_rows.py:50",
-    "dual_matmul": "src/repro/kernels/dual_matmul.py:45"}
+    "dual_matmul": "src/repro/kernels/dual_matmul.py:45",
+    "flash_attention": "src/repro/kernels/flash_attention.py:77",
+    "flash_decode": "src/repro/kernels/flash_decode.py:69"}
 
 
 def log(msg: str) -> None:
@@ -108,9 +142,9 @@ def nvidia_smi() -> str:
 
 
 def peaks(name: str):
-    for key, tflops, tbs in PEAKS:
+    for key, tflops, tbs, bf16 in PEAKS:
         if key in name:
-            return key, tflops * 1e12, tbs * 1e12
+            return key, tflops * 1e12, tbs * 1e12, bf16 * 1e12
     raise RuntimeError(f"no data-sheet peaks for {name!r}")
 
 
@@ -144,8 +178,11 @@ def time_ms(fn, target_ms: float = 40.0) -> float:
 
 
 def kernel_modules():
-    from repro_torch.kernels import dual_matmul, rank_update, rank_update_rows
-    return rank_update, rank_update_rows, dual_matmul
+    from repro_torch.kernels import (dual_matmul, flash_attention,
+                                     flash_decode, rank_update,
+                                     rank_update_rows)
+    return (rank_update, rank_update_rows, dual_matmul, flash_attention,
+            flash_decode)
 
 
 def reset_launches() -> None:
@@ -161,23 +198,27 @@ def launches() -> dict:
 
 
 def check_launches(label: str, got: dict, expect: dict) -> None:
+    """Every kernel's launches equal ``expect``'s count (0 if not named)."""
+    expect = {**{name: 0 for name in got}, **expect}
     if got != expect:
         raise AssertionError(f"{label}: kernel launches {got} != the "
                              f"phase's applies {expect}")
 
 
-def check_close(label: str, got, want) -> float:
-    """Raise unless |got - want| <= ATOL + RTOL |want|; max abs err."""
+def check_close(label: str, got, want, rtol: float = KERNEL_RTOL,
+                atol: float = KERNEL_ATOL) -> float:
+    """Raise unless |got - want| <= atol + rtol |want|; max abs err."""
     import torch
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{label}: shape {tuple(got.shape)} or "
                              "non-finite output")
+    got, want = got.float(), want.float()
     err = float((got - want).abs().max()) if got.numel() else 0.0
-    worst = float(((got - want).abs() - KERNEL_RTOL * want.abs()).max()) \
+    worst = float(((got - want).abs() - rtol * want.abs()).max()) \
         if got.numel() else 0.0
-    if worst > KERNEL_ATOL:
+    if worst > atol:
         raise AssertionError(f"{label}: max abs err {err} exceeds atol "
-                             f"{KERNEL_ATOL} + rtol {KERNEL_RTOL} |want|")
+                             f"{atol} + rtol {rtol} |want|")
     return err
 
 
@@ -207,7 +248,7 @@ def check_kernels(flops_peak: float, bytes_peak: float):
     import numpy as np
     import torch
     from repro_torch.kernels import ref
-    cuda_ru, cuda_rows, cuda_dual = kernel_modules()
+    cuda_ru, cuda_rows, cuda_dual = kernel_modules()[:3]
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
 
@@ -305,6 +346,151 @@ def check_kernels(flops_peak: float, bytes_peak: float):
                lib_ms, 4.0 * n * m + 4.0 * k * (2 * n + 2 * m),
                4.0 * n * m * k)
         del a, u, v, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 3, the flash kernels -------------------------------------------------
+
+def attention_pairs(s: int, causal: bool, window) -> int:
+    """Query-key pairs the mask keeps over a length-s sequence."""
+    import numpy as np
+    qp = np.arange(s, dtype=np.int64)
+    hi = qp if causal else np.full(s, s - 1, dtype=np.int64)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros(s, np.int64)
+    return int((hi - lo + 1).sum())
+
+
+def attention_record(entry, shape, err, ms, plain_ms, lib_ms, nbytes, flops,
+                     dtype, bytes_peak, flops_peak, bf16_peak) -> dict:
+    """A kernel record whose operations bound is taken at the peak of the
+    inputs' type (bf16 tensor cores, or fp32 FMA); the fp32 bound is kept
+    beside it."""
+    peak = bf16_peak if dtype == "bfloat16" else flops_peak
+    b_ms, b_by = bound(nbytes, flops, peak, bytes_peak)
+    rec = {"entry": entry, **shape, "dtype": dtype, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bound_fp32_ms": bound(nbytes, flops, flops_peak, bytes_peak)[0],
+           "flops": flops, "bytes": nbytes}
+    log("kernel " + json.dumps(rec))
+    return rec
+
+
+def check_flash_attention(q, k, v, causal, window, peaks_, label,
+                          timed=True) -> dict:
+    """The flash-attention kernel against its plain version (and timed
+    against it and SDPA) on q (B,S,H,hd), k/v (B,S,KV,hd)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as cuda_fa
+    from repro_torch.kernels import ref
+    b, s, h, hd = q.shape
+    dtype = str(q.dtype).replace("torch.", "")
+    got = cuda_fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    err = check_close(f"flash_attention {label}", got, want,
+                      *ATTN_TOL[dtype])
+    del got, want
+    shape = {"b": b, "s": s, "h": h, "kvh": k.shape[2], "hd": hd,
+             "causal": causal, "window": window, "case": label}
+    if not timed:
+        return {"case": label, "max_abs_err": err}
+    ms = time_ms(lambda: cuda_fa.flash_attention(q, k, v, causal=causal,
+                                                  window=window))
+    plain_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=causal,
+                                                   window=window))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None
+    if window is not None and window < s:
+        pos = torch.arange(s, device=q.device)
+        mask = ref.attention_keep(pos, pos, causal=causal, window=window)
+        # SDPA's fused kernels take no mask under enable_gqa (its math
+        # path would build every score), so give it the expanded heads
+        kt, vt = (x.repeat_interleave(h // k.shape[2], dim=1)
+                  for x in (kt, vt))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=mask is None))
+    del kt, vt
+    item = q.element_size()
+    nbytes = item * (2 * q.numel() + 2 * k.numel())
+    flops = 4.0 * b * h * hd * attention_pairs(s, causal, window)
+    return attention_record("flash_attention", shape, err, ms, plain_ms,
+                            lib_ms, nbytes, flops, dtype, *peaks_)
+
+
+def check_flash_decode(q, kc, vc, n_valid, peaks_, label,
+                       timed=True) -> dict:
+    """The flash-decode kernel against its plain version (and timed
+    against it and SDPA) on q (B,H,hd) over caches (B,L,KV,hd)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as cuda_fd
+    from repro_torch.kernels import ref
+    b, h, hd = q.shape
+    dtype = str(q.dtype).replace("torch.", "")
+    got = cuda_fd.flash_decode(q, kc, vc, n_valid)
+    want = ref.flash_decode(q, kc, vc, n_valid)
+    torch.cuda.synchronize()
+    err = check_close(f"flash_decode {label}", got, want, *ATTN_TOL[dtype])
+    if not timed:
+        return {"case": label, "max_abs_err": err}
+    shape = {"b": b, "L": kc.shape[1], "h": h, "kvh": kc.shape[2], "hd": hd,
+             "n_valid": n_valid, "case": label}
+    ms = time_ms(lambda: cuda_fd.flash_decode(q, kc, vc, n_valid))
+    plain_ms = time_ms(lambda: ref.flash_decode(q, kc, vc, n_valid))
+    qt = q[:, :, None]
+    kt, vt = (x[:, :n_valid].transpose(1, 2) for x in (kc, vc))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True))
+    item = q.element_size()
+    nbytes = item * (2 * q.numel() + 2 * b * n_valid * kc.shape[2] * hd)
+    flops = 4.0 * b * h * hd * n_valid
+    return attention_record("flash_decode", shape, err, ms, plain_ms,
+                            lib_ms, nbytes, flops, dtype, *peaks_)
+
+
+def check_flash_kernels(peaks_) -> dict:
+    """Phase 3's flash cases: danube's prefill (B=8, S=4096, H=32, KV=8,
+    hd=80, its 4096 window) in bf16 and, at phase 11's ragged 4128, in
+    f32; starcoder2's heads (H=36, KV=4, hd=128); a window shorter than S;
+    a ragged S; decode over danube's 4096-slot ring at n_valid 1, 2049 and
+    4096 (a wrapped ring is full), bf16 and f32, and starcoder2's."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, device=DEVICE, generator=gen).to(dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {"flash_attention": [], "flash_decode": []}
+    # (label, b, s, h, kvh, hd, window, dtype)
+    for label, b, s, h, kvh, hd, window, dt in [
+            ("danube_prefill_bf16", 8, 4096, 32, 8, 80, 4096, bf16),
+            ("danube_prefill_f32_s4128", 8, 4128, 32, 8, 80, 4096, f32),
+            ("starcoder2_bf16", 2, 4096, 36, 4, 128, None, bf16),
+            ("window1024_bf16", 2, 4096, 32, 8, 80, 1024, bf16),
+            ("ragged_s1000_bf16", 2, 1000, 32, 8, 80, None, bf16)]:
+        q = randn(b, s, h, hd, dtype=dt)
+        k, v = randn(b, s, kvh, hd, dtype=dt), randn(b, s, kvh, hd, dtype=dt)
+        out["flash_attention"].append(check_flash_attention(
+            q, k, v, True, window, peaks_, label))
+        del q, k, v
+        torch.cuda.empty_cache()
+    # (label, b, L, h, kvh, hd, n_valid, dtype)
+    for label, b, L, h, kvh, hd, n_valid, dt in [
+            ("danube_decode_bf16_n1", 8, 4096, 32, 8, 80, 1, bf16),
+            ("danube_decode_bf16_n2049", 8, 4096, 32, 8, 80, 2049, bf16),
+            ("danube_decode_bf16_wrapped", 8, 4096, 32, 8, 80, 4096, bf16),
+            ("danube_decode_f32_wrapped", 8, 4096, 32, 8, 80, 4096, f32),
+            ("starcoder2_decode_bf16", 8, 4096, 36, 4, 128, 4096, bf16)]:
+        q = randn(b, h, hd, dtype=dt)
+        kc, vc = (randn(b, L, kvh, hd, dtype=dt) for _ in range(2))
+        out["flash_decode"].append(check_flash_decode(
+            q, kc, vc, n_valid, peaks_, label))
+        del q, kc, vc
     torch.cuda.empty_cache()
     return out
 
@@ -618,6 +804,273 @@ def phase_sherman_morrison(w, calls: int = 4) -> dict:
     return rec
 
 
+# -- phases 10-12: LM serving -----------------------------------------------------
+
+def serve_engine(n_layers=None, dtype=None, seed=0):
+    """A ServeEngine over h2o-danube-1.8b (random weights from ``seed``)
+    for 8 prompts of 4096 tokens and 32 new ones."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeEngine
+    cfg = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                              dtype=dtype or cfg.dtype)
+    model = LM(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed))
+    return ServeEngine(model, params, batch_size=SERVE_BATCH,
+                       max_seq=SERVE_PROMPT + SERVE_NEW)
+
+
+def serve(eng, prompts):
+    """Prefill and SERVE_NEW greedy decode steps through the engine's
+    entry points; returns (last logits of the prefill, the logits of each
+    step, the tokens, prefill seconds, seconds of each step)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = eng.sample(last)
+    steps, toks, step_s = [], [tok], []
+    for _ in range(SERVE_NEW):
+        t0 = time.perf_counter()
+        logits = eng.decode(tok)
+        tok = eng.sample(logits)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        steps.append(logits)
+        toks.append(tok)
+    return last, steps, torch.stack(toks, dim=1), prefill_s, step_s
+
+
+def layer0_qkv(eng, tokens, pos0: int):
+    """Layer 0's rope'd q, k, v (B, S, heads, hd) for ``tokens`` at
+    positions pos0 .. pos0+S-1: the kernels' real inputs in this run."""
+    import torch
+    from repro_torch.models import attention, layers
+    cfg, params = eng.model.cfg, eng.params
+    bp = {name: {k: v[0] for k, v in leaf.items()}
+          for name, leaf in params["blocks"].items()}
+    tokens = torch.as_tensor(tokens, device=DEVICE).long()
+    x = layers.rmsnorm(bp["ln1"], layers.embed(params["embed"], tokens),
+                       cfg.norm_eps)
+    q, k, v = attention._project_qkv(bp["attn"], cfg, x)
+    pos = torch.arange(pos0, pos0 + tokens.shape[1], device=DEVICE)
+    cos, sin = layers.rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta)
+    return (layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin),
+            v)
+
+
+def flat_params(tree, prefix=""):
+    """(dotted name, tensor) for every leaf of a param tree."""
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            yield from flat_params(leaf, f"{prefix}{name}.")
+        else:
+            yield prefix + name, leaf
+
+
+def device_profile(fn, top: int = 8) -> dict:
+    """Kernel time on the card for one call of ``fn``, by
+    ``torch.profiler``: device ms (summed kernel time), kernels launched,
+    and the kernels that took the most time.  ``device_ms`` is None when
+    the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kern) / 1e3
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    return {"device_ms": total if kern else None,
+            "kernels": sum(e.count for e in kern),
+            "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                    for e in kern[:top]]}
+
+
+def phase_serve_full(peaks_):
+    """Phase 10: h2o-danube-1.8b at published width and depth, bf16.
+    Returns (record, engine, prompts) for phase 12."""
+    import numpy as np
+    import torch
+    eng = serve_engine()
+    cfg = eng.model.cfg
+    prompts = np.random.default_rng(10).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    last, steps, toks, prefill_s, step_s = serve(eng, prompts)
+    got = launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    label = "serve_danube_full"
+    check_launches(label, got, {"flash_attention": cfg.n_layers,
+                                "flash_decode": cfg.n_layers * SERVE_NEW})
+    if last.shape != (SERVE_BATCH, cfg.vocab) or not all(
+            torch.isfinite(x).all() for x in (last, *steps)) \
+            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise AssertionError(f"{label}: non-finite logits or bad tokens")
+    # the kernels against their plain versions on layer 0's real inputs:
+    # the prompts' q/k/v, and the ring after the run with the next query
+    q, k, v = layer0_qkv(eng, prompts, 0)
+    real = [check_flash_attention(q, k, v, True, cfg.sliding_window,
+                                  peaks_, "danube_layer0_prompts",
+                                  timed=False)]
+    del q, k, v
+    q, _, _ = layer0_qkv(eng, toks[:, -1:], eng._pos)
+    kv = eng.cache["kv"]
+    real.append(check_flash_decode(q[:, 0].contiguous(), kv["k"][0],
+                                   kv["v"][0], kv["k"].shape[2], peaks_,
+                                   "danube_layer0_ring", timed=False))
+    # where the time goes: one more prefill and two decode steps under the
+    # profiler (kernel time; the host clock above gives the wall time)
+    prof_prefill = device_profile(lambda: eng.prefill(prompts))
+    tok = toks[:, -1]
+    prof_decode = device_profile(lambda: [eng.decode(tok) for _ in range(2)])
+    if prof_decode["device_ms"] is not None:
+        prof_decode["device_ms"] /= 2
+        prof_decode["kernels"] /= 2
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for name, t in flat_params(eng.params)
+                       if name != "embed.table")
+    kv_bytes = sum(t.numel() * t.element_size() for t in kv.values())
+    decode_ms = 1e3 * statistics.median(step_s)
+    rec = {"phase": label, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "params": sum(t.numel() for _, t in flat_params(eng.params)),
+           "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "new": SERVE_NEW,
+           "launches": got, "prefill_ms": 1e3 * prefill_s,
+           "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_s,
+           "decode_ms_per_step_median": decode_ms,
+           "decode_ms_per_step_first": 1e3 * step_s[0],
+           "decode_tokens_per_s": SERVE_BATCH / decode_ms * 1e3,
+           "decode_bound_ms": (weight_bytes + kv_bytes) / peaks_[0] * 1e3,
+           "decode_bound_bytes": weight_bytes + kv_bytes,
+           "peak_mem_gib": peak, "real_input_checks": real,
+           "profile_prefill": prof_prefill,
+           "profile_decode_per_step": prof_decode}
+    for name, prof, wall_ms in (("prefill", prof_prefill, 1e3 * prefill_s),
+                                ("decode", prof_decode, decode_ms)):
+        if prof["device_ms"] is not None:
+            rec[f"{name}_device_idle_share"] = 1 - prof["device_ms"] / wall_ms
+    log("main " + json.dumps(rec))
+    return rec, eng, prompts
+
+
+def phase_serve_exact() -> dict:
+    """Phase 11: danube's widths in f32 at EXACT_LAYERS layers; decode
+    logits and greedy tokens against forward's over the whole sequence."""
+    import numpy as np
+    import torch
+    eng = serve_engine(n_layers=EXACT_LAYERS, dtype="float32", seed=1)
+    cfg = eng.model.cfg
+    prompts = np.random.default_rng(11).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    last, steps, toks, prefill_s, step_s = serve(eng, prompts)
+    got = launches()
+    label = "serve_danube_f32_exact"
+    check_launches(label, got, {"flash_attention": cfg.n_layers,
+                                "flash_decode": cfg.n_layers * SERVE_NEW})
+    # forward over the prompt and every token fed to a decode step
+    seq = torch.cat([torch.as_tensor(prompts, device=DEVICE).long(),
+                     toks[:, :SERVE_NEW].long()], dim=1)
+    full, _ = eng.model.forward(eng.params, {"tokens": seq})
+    want = full[:, SERVE_PROMPT - 1:]                 # (B, 1 + NEW, V)
+    del full
+    got_logits = torch.stack([last, *steps], dim=1)[:, :want.shape[1]]
+    diff = (got_logits - want).abs()
+    excess = float((diff - SERVE_RTOL * want.abs()).max())
+    if not torch.isfinite(got_logits).all() or excess > SERVE_ATOL:
+        raise AssertionError(f"{label}: decode logits differ from forward's "
+                             f"by {float(diff.max())} (atol {SERVE_ATOL} + "
+                             f"rtol {SERVE_RTOL} |forward|)")
+    # greedy tokens are forward's argmax, up to ties within the tolerance
+    fwd_tok = want.argmax(dim=-1)
+    chosen = want.gather(-1, toks[:, :want.shape[1], None].long())[..., 0]
+    margin = want.max(dim=-1).values - chosen
+    tied = (toks[:, :want.shape[1]].long() != fwd_tok)
+    tol = 2 * (SERVE_ATOL + SERVE_RTOL * want.abs().max(dim=-1).values)
+    if bool((tied & (margin > tol)).any()):
+        raise AssertionError(f"{label}: a greedy token is not forward's "
+                             "argmax")
+    rec = {"phase": label, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "positions": [SERVE_PROMPT - 1, SERVE_PROMPT + SERVE_NEW - 1],
+           "launches": got, "max_abs_err": float(diff.max()),
+           "max_rel_err": float(diff.max() / want.abs().max()),
+           "tolerance": [SERVE_RTOL, SERVE_ATOL],
+           "greedy_mismatches_within_tolerance": int(tied.sum()),
+           "prefill_ms": 1e3 * prefill_s,
+           "decode_ms_per_step_median": 1e3 * statistics.median(step_s),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def phase_logit_view(eng, prompts) -> dict:
+    """Phase 12: the logit view over phase 10's 8 x 4096 final-norm hidden
+    states and its lm_head, under rank-1 hot-swaps through the engine."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import IncrementalLogitView
+    cfg = eng.model.cfg
+    H = eng.model.hidden(eng.params, {"tokens": prompts})
+    H = H.reshape(-1, cfg.d_model).float()
+    W = eng.params["lm_head"]["table"].float()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    view = IncrementalLogitView(H, W)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng.attach_logit_view("lm_head", view)
+    applies0 = view.engine.stats.lowrank_applies
+    rng = np.random.default_rng(12)
+    deltas = [(rng.standard_normal((cfg.vocab, 1)).astype(np.float32) * .01,
+               rng.standard_normal((cfg.d_model, 1)).astype(np.float32)
+               * .01) for _ in range(HOT_SWAPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flushed = [eng.hot_swap("lm_head", u, v) for u, v in deltas]
+    eng.flush_views()
+    Y = eng.view_logits("lm_head")
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t0
+    got = launches()
+    applies = view.engine.stats.lowrank_applies - applies0
+    label = "logit_view_danube"
+    check_launches(label, got, {"rank_update_batched": applies})
+    for u, v in deltas:
+        W += torch.from_numpy(u).to(DEVICE) @ torch.from_numpy(v).to(DEVICE).T
+    t0 = time.perf_counter()
+    want = H @ W.T
+    torch.cuda.synchronize()
+    reeval_s = time.perf_counter() - t0
+    rel = check_views(label, {"Y": Y}, {"Y": want})
+    rec = {"phase": label, "H": list(H.shape), "W": list(W.shape),
+           "Y": list(Y.shape), "hot_swaps": HOT_SWAPS,
+           "flushed_on_enqueue": sum(flushed),
+           "firings": view.engine.stats.triggers_fired,
+           "lowrank_applies": applies, "launches": got,
+           "initialize_s": init_s, "hot_swap_and_flush_s": swap_s,
+           "reeval_matmul_s": reeval_s, "rel_err_vs_reeval": rel,
+           "tolerance": MAIN_TOL,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("main " + json.dumps(rec))
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -641,11 +1094,12 @@ def main() -> int:
     smi = nvidia_smi()
     log(smi)
     kind = torch.cuda.get_device_name(0)
-    part, flops_peak, bytes_peak = peaks(kind)
+    part, flops_peak, bytes_peak, bf16_peak = peaks(kind)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"device: {kind}; peaks from the {part} data sheet: "
-        f"{flops_peak / 1e12} TFLOP/s fp32, {bytes_peak / 1e12} TB/s")
+        f"{flops_peak / 1e12} TFLOP/s fp32, {bytes_peak / 1e12} TB/s, "
+        f"{bf16_peak / 1e12} TFLOP/s bf16 (tensor cores, dense)")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
@@ -662,6 +1116,8 @@ def main() -> int:
 
     # 3. kernels
     shapes = check_kernels(flops_peak, bytes_peak)
+    peaks_ = (bytes_peak, flops_peak, bf16_peak)
+    shapes.update(check_flash_kernels(peaks_))
 
     # 4. matrix powers at the paper's size; 5. OLS at the paper's n range
     n = 10000
@@ -690,19 +1146,31 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     phases.extend(phase_apps())
     phases.append(phase_sherman_morrison(w))
+    del w
+    torch.cuda.empty_cache()
+
+    # 10.-12. LM serving
+    rec, eng, prompts = phase_serve_full(peaks_)
+    phases.append(rec)
+    phases.append(phase_serve_exact())
+    torch.cuda.empty_cache()
+    phases.append(phase_logit_view(eng, prompts))
+    del eng
 
     # the kernels record: per entry, the main path's launches and the
-    # numbers of its headline shape (the most common apply of the path)
+    # numbers of its headline shape (the most common call of the path)
     headline = {"rank_update_batched": (10000, 10000, 1, 16),
                 "rank_update": (10000, 10000, 1, 1),
                 "rank_update_rows": (CHAIN_N, CHAIN_M, CHAIN_ROWS,
                                      CHAIN_RANK),
-                "dual_matmul": (8192, 8192, 1)}
+                "dual_matmul": (8192, 8192, 1),
+                "flash_attention": "danube_prefill_bf16",
+                "flash_decode": "danube_decode_bf16_wrapped"}
     kernels = []
     for entry, recs in shapes.items():
         head = next(r for r in recs
-                    if tuple(r[k] for k in r if k in
-                             ("n", "p", "m", "T", "r", "k"))
+                    if r.get("case", tuple(r[k] for k in r if k in
+                                           ("n", "p", "m", "T", "r", "k")))
                     == headline[entry])
         kernels.append({
             "name": entry, "route": "cuda", "source": SOURCES[entry],
@@ -713,7 +1181,9 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "shape": {k: v for k, v in head.items()
-                      if k in ("n", "p", "m", "T", "r", "k")}})
+                      if k in ("n", "p", "m", "T", "r", "k", "b", "s", "L",
+                               "h", "kvh", "hd", "window", "n_valid",
+                               "dtype")}})
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ shared library with a plain C interface, the first time one of its
 kernels is launched (or all together by :func:`build_all`), and loaded
 with :mod:`ctypes`.  Each library lands in ``_build/`` beside this file
 (ignored by git), named by a hash of its source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.  Nothing is
+edited source (or shared ``csrc/*.cuh`` header) is rebuilt and an
+unchanged one is reused.  Nothing is
 built when a module is imported: :data:`LIBS` stays empty until a launch.
 """
 
@@ -28,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIBS: Dict[str, ctypes.CDLL] = {}    # loaded libraries by source name
 BUILD_LOGS: Dict[str, str] = {}      # nvcc's output (ptxas register counts)
 
-PTR, I32 = ctypes.c_void_p, ctypes.c_int
+PTR, I32, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def sources() -> list:
@@ -50,6 +51,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 

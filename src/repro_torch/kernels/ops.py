@@ -2,7 +2,8 @@
 
 A CPU tensor takes the plain version in :mod:`.ref`; any other tensor
 takes the CUDA kernel (:mod:`.rank_update`, :mod:`.rank_update_rows`,
-:mod:`.dual_matmul`), which launches or raises.  The update ops work in
+:mod:`.dual_matmul`, :mod:`.flash_attention`, :mod:`.flash_decode`), which
+launches or raises.  The update ops work in
 place on ``m`` and return it.  The CUDA kernels mask ragged edges
 themselves and take row indices directly, so no block picking, slab plan
 or ragged fallback is needed here.
@@ -10,11 +11,13 @@ or ragged fallback is needed here.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import dual_matmul as _cuda_dual
+from . import flash_attention as _cuda_fa
+from . import flash_decode as _cuda_fd
 from . import rank_update as _cuda
 from . import rank_update_rows as _cuda_rows
 from . import ref
@@ -88,3 +91,23 @@ def sherman_morrison_delta(w: torch.Tensor, u: torch.Tensor,
     wu, wtv = dual_matmul(w, u, v)
     denom = 1.0 + (v.T @ wu)[0, 0]
     return -wu / denom, wtv
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None
+                    ) -> torch.Tensor:
+    """Softmax attention, q (B, S, H, hd) over k/v (B, S, KV, hd) with
+    grouped-query heads, causal and optionally windowed (keep key kp for
+    query qp iff ``kp <= qp`` and ``kp > qp - window``)."""
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    return _cuda_fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """One decode step's attention: q (B, H, hd) over the first
+    ``n_valid`` slots of the caches (B, L, KV, hd)."""
+    if q.device.type == "cpu":
+        return ref.flash_decode(q, k_cache, v_cache, n_valid)
+    return _cuda_fd.flash_decode(q, k_cache, v_cache, n_valid)

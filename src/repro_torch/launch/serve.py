@@ -1,0 +1,102 @@
+"""Serving entry point: batched generation with the port's ServeEngine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
+        --batch 8 --prompt-len 4096 --max-new 32 [--logit-view]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
+        --reduced --device cpu --batch 2 --prompt-len 16 --max-new 8
+
+Runs on the card unless ``--device cpu`` is given.  Weights are random,
+drawn from ``--seed``.  ``--logit-view`` attaches an incremental lm_head
+logit view over a random corpus, hot-swaps a burst of rank-1 deltas
+through it and prints its health (unguarded: the guard is not ported yet).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..configs import ModelConfig, get_config
+from ..models import LM
+from ..serve import IncrementalLogitView, ServeEngine
+
+# the JAX package's example configs (its launch/train.py)
+EXAMPLES = {
+    "custom-10m": ModelConfig(
+        name="custom-10m", family="dense", n_layers=4, d_model=256,
+        n_heads=4, n_kv_heads=4, d_ff=768, vocab=8192, head_dim=64,
+        mlp_gated=True, dtype="float32", fsdp=False, remat="none",
+        source="example"),
+    "custom-100m": ModelConfig(
+        name="custom-100m", family="dense", n_layers=12, d_model=768,
+        n_heads=12, n_kv_heads=4, d_ff=2048, vocab=32000, head_dim=64,
+        mlp_gated=True, dtype="float32", fsdp=False, remat="none",
+        source="example"),
+}
+
+
+def resolve_config(args) -> ModelConfig:
+    if args.arch in EXAMPLES:
+        return EXAMPLES[args.arch]
+    cfg = get_config(args.arch)
+    return cfg.reduced() if args.reduced else cfg
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="custom-10m")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-seq", type=int, default=None,
+                    help="cache length (default: prompt-len + max-new)")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--logit-view", action="store_true",
+                    help="attach an incremental lm_head logit view, drive "
+                         "hot-swap deltas through it, and print its health")
+    ap.add_argument("--corpus", type=int, default=64,
+                    help="--logit-view corpus size (cached hidden rows)")
+    args = ap.parse_args(argv)
+
+    cfg = resolve_config(args)
+    model = LM(cfg, device=args.device)
+    gen = torch.Generator(device=model.device).manual_seed(args.seed)
+    params = model.init(gen)
+    max_seq = args.max_seq or args.prompt_len + args.max_new
+    eng = ServeEngine(model, params, batch_size=args.batch, max_seq=max_seq,
+                      temperature=args.temperature, seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    if args.logit_view:
+        d = cfg.d_model
+        hidden = rng.standard_normal((args.corpus, d)).astype(np.float32)
+        head = rng.standard_normal((cfg.vocab, d)).astype(np.float32) * 0.02
+        eng.attach_logit_view("lm_head", IncrementalLogitView(
+            hidden, head, device=model.device))
+        for _ in range(8):
+            u = rng.standard_normal((cfg.vocab, 1)).astype(np.float32) * .01
+            v = rng.standard_normal((d, 1)).astype(np.float32) * .01
+            eng.hot_swap("lm_head", u, v)
+        eng.flush_views()
+        logits = eng.view_logits("lm_head")
+        print(f"[serve] logit view: {tuple(logits.shape)} "
+              f"health={eng.view_health()['lm_head']}")
+    prompts = rng.integers(1, cfg.vocab, size=(args.batch, args.prompt_len)
+                           ).astype(np.int32)
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new=args.max_new)
+    dt = time.perf_counter() - t0
+    print(f"[serve] {cfg.name} on {model.device}: generated {out.shape} in "
+          f"{dt:.2f}s ({out.size / dt:.1f} tok/s)")
+    print(out[:, :12])
+
+
+if __name__ == "__main__":
+    main()

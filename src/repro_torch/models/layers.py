@@ -1,0 +1,108 @@
+"""Core layers: norms, embeddings, RoPE, MLPs.
+
+Pure functions over explicit param dicts, the counterparts of the JAX
+package's ``models/layers.py`` with the same f32 cast points: the RMSNorm
+and rope arithmetic runs in f32, activations in f32, and ``unembed`` gives
+f32 logits.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def normal(shape, std: float, dtype, generator: torch.Generator,
+           device) -> Tensor:
+    """N(0, std²) drawn in f32 from ``generator``, cast to ``dtype``."""
+    x = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (x * std).to(dtype)
+
+
+# -- RMSNorm --------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, dtype, device) -> Dict[str, Tensor]:
+    return {"scale": torch.ones(d, dtype=dtype, device=device)}
+
+
+def rmsnorm(params: Dict[str, Tensor], x: Tensor, eps: float = 1e-6
+            ) -> Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * params["scale"].float()).to(x.dtype)
+
+
+# -- embedding / LM head --------------------------------------------------------
+
+
+def init_embedding(vocab: int, d: int, dtype, generator, device
+                   ) -> Dict[str, Tensor]:
+    return {"table": normal((vocab, d), d ** -0.5, dtype, generator, device)}
+
+
+def embed(params: Dict[str, Tensor], tokens: Tensor) -> Tensor:
+    return F.embedding(tokens, params["table"])
+
+
+def unembed(params: Dict[str, Tensor], x: Tensor) -> Tensor:
+    """Logits (B, S, D) @ (V, D)ᵀ → (B, S, V) in f32: the products of the
+    model's type are exact in f32, so this is the reference's
+    ``preferred_element_type=f32``."""
+    return x.float() @ params["table"].float().T
+
+
+# -- rotary position embedding ------------------------------------------------------
+
+
+def rope_angles(positions: Tensor, head_dim: int, theta: float
+                ) -> Tuple[Tensor, Tensor]:
+    """positions (...,) → (cos, sin) of shape (..., head_dim // 2), f32."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
+    """x (B, S, H, hd); cos/sin (B, S, hd//2) or (S, hd//2)."""
+    half = x.shape[-1] // 2
+    if cos.dim() == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# -- MLP (SwiGLU / plain GeLU) ---------------------------------------------------------
+
+
+def init_mlp(d: int, d_ff: int, gated: bool, dtype, generator, device
+             ) -> Dict[str, Tensor]:
+    p = {"w_in": normal((d, d_ff), d ** -0.5, dtype, generator, device),
+         "w_out": normal((d_ff, d), d_ff ** -0.5, dtype, generator, device)}
+    if gated:
+        p["w_gate"] = normal((d, d_ff), d ** -0.5, dtype, generator, device)
+    return p
+
+
+def mlp(params: Dict[str, Tensor], x: Tensor, gated: bool) -> Tensor:
+    h = x @ params["w_in"]
+    if gated:
+        g = x @ params["w_gate"]
+        h = F.silu(g.float()).to(h.dtype) * h
+    else:
+        # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
+    return h @ params["w_out"]

@@ -1,0 +1,144 @@
+"""Batched serving engine: prefill + decode with a KV cache.
+
+Fixed-batch slots, greedy or temperature sampling, per-slot stop handling,
+and one decode step for the whole batch.  ``launch/serve.py`` drives it.
+
+Incremental logit views (LINVIEW's serving integration) attach here:
+hot-swap deltas to a head are queued on its view and coalesced, so a burst
+of T adapter updates costs one batched trigger firing per view.  This
+slice serves unguarded, in-process views; the reference's ``degrade``
+(guard), ``attach_fleet``, ``replan_views`` and checkpoint hooks wait for
+``guard/``, ``fleet/``, ``plan/`` and ``dist/`` (ROADMAP.md Queue 1).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..models.model import LM
+from .incremental_views import IncrementalLogitView
+
+
+@dataclass
+class ServeEngine:
+    model: LM
+    params: Any
+    batch_size: int = 8
+    max_seq: int = 2048
+    temperature: float = 0.0
+    seed: int = 0
+    _logit_views: Dict[str, IncrementalLogitView] = field(
+        default_factory=dict, init=False)
+
+    def __post_init__(self):
+        if self.model.cfg.encoder_only:
+            raise ValueError("encoder-only model has no decode step")
+        self.cache = self.model.init_cache(self.batch_size, self.max_seq)
+        self._gen = torch.Generator(device=self.model.device)
+        self._gen.manual_seed(self.seed)
+        self._pos = 0
+
+    def prefill(self, prompts) -> torch.Tensor:
+        """Fill the cache from the prompts in one batched pass.
+
+        prompts: (B, S) ints → last-token logits (B, V).
+        """
+        b, s = prompts.shape
+        if b != self.batch_size:
+            raise ValueError(f"{b} prompts for {self.batch_size} slots")
+        logits, self.cache = self.model.prefill(
+            self.params, {"tokens": prompts}, max_seq=self.max_seq)
+        self._pos = s
+        return logits[:, -1, :]
+
+    def decode(self, tokens) -> torch.Tensor:
+        """One decode step for the whole batch at the current position:
+        tokens (B,) → logits (B, V)."""
+        tokens = torch.as_tensor(tokens, device=self.model.device)
+        logits, self.cache = self.model.decode_step(
+            self.params, self.cache, tokens.reshape(-1, 1), self._pos)
+        self._pos += 1
+        return logits[:, 0, :]
+
+    def sample(self, logits: torch.Tensor) -> torch.Tensor:
+        """(B, V) logits → (B,) int32 tokens: argmax, or a draw from
+        softmax(logits / temperature) with the engine's seeded generator."""
+        if self.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax(logits.float() / self.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self._gen)[:, 0].to(
+            torch.int32)
+
+    def generate(self, prompts, max_new: int = 32,
+                 stop_token: Optional[int] = None) -> np.ndarray:
+        """Prefill, then ``max_new`` tokens per slot: (B, max_new) int32
+        (fewer columns if every slot hit ``stop_token``)."""
+        tok = self.sample(self.prefill(prompts))
+        out: List[np.ndarray] = []
+        done = np.zeros(self.batch_size, bool)
+        for _ in range(max_new):
+            host = tok.cpu().numpy()
+            out.append(host)
+            if stop_token is not None:
+                done |= host == stop_token
+                if done.all():
+                    break
+            tok = self.sample(self.decode(tok))
+        return np.stack(out, axis=1)
+
+    # -- incremental logit views ------------------------------------------------
+    def attach_logit_view(self, weight_path: str,
+                          view: IncrementalLogitView) -> None:
+        """Register a view maintained for the weight at ``weight_path``
+        (e.g. ``"lm_head"``)."""
+        if not IncrementalLogitView.covers(weight_path):
+            raise ValueError(
+                f"{weight_path!r} is behind a nonlinearity; its cached "
+                f"views cannot be maintained exactly — re-encode instead")
+        self._logit_views[weight_path] = view
+
+    def hot_swap(self, weight_path: str, u, v) -> bool:
+        """Route a low-rank weight delta ``W += u vᵀ`` to the cached corpus
+        view of ``weight_path``.  Swapping the delta into ``self.params``
+        is the caller's job.  Returns True if this enqueue flushed the
+        view (its logits are fresh now)."""
+        if weight_path not in self._logit_views:
+            raise KeyError(f"no logit view attached for {weight_path!r}; "
+                           f"have {sorted(self._logit_views)}")
+        return self._logit_views[weight_path].submit_head_update(u, v)
+
+    def flush_views(self) -> None:
+        """Force all pending hot-swap deltas into the maintained views."""
+        for view in self._logit_views.values():
+            view.flush()
+
+    def view_logits(self, weight_path: str) -> torch.Tensor:
+        return self._logit_views[weight_path].logits
+
+    def view_health(self) -> Dict[str, Dict[str, Any]]:
+        """Per-view serving health; unguarded views always serve fresh."""
+        return {path: {"breaker": None, "serving": "fresh",
+                       "staleness_s": 0.0} for path in self._logit_views}
+
+
+def make_serve_step(model: LM):
+    """The decode entry point: one token for the whole batch."""
+
+    def serve_step(params, cache, token, pos):
+        return model.decode_step(params, cache, token, pos)
+
+    return serve_step
+
+
+def make_prefill_step(model: LM):
+    """The prefill entry point: full forward, returns logits."""
+
+    def prefill_step(params, batch):
+        logits, _ = model.forward(params, batch)
+        return logits
+
+    return prefill_step

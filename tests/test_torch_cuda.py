@@ -13,6 +13,8 @@ from repro_torch.core import (IncrementalEngine, NoOpCarrier, Program, dim,
                               matmul)
 from repro_torch.data import UpdateStream, row_local_stream
 from repro_torch.kernels import dual_matmul as cuda_dual
+from repro_torch.kernels import flash_attention as cuda_fa
+from repro_torch.kernels import flash_decode as cuda_fd
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rank_update as cuda_ru
 from repro_torch.kernels import rank_update_rows as cuda_rows
@@ -172,3 +174,65 @@ def test_carrier_engine_on_card_matches_cpu(cuda, regime):
         got = gpu.views[k].cpu()
         scale = float(v.abs().max()) or 1.0
         assert float((got - v).abs().max()) / scale <= 1e-5, k
+
+
+# bf16 outputs of the kernel and the plain version are both f32 results
+# rounded once to bf16, so they differ by at most one rounding step
+# (<= 2**-7 |x|); f32 outputs differ only in summation order
+ATTN_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
+            torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kvh,hd,causal,window", [
+    (2, 200, 4, 4, 80, True, None),     # group 1, ragged S
+    (1, 256, 8, 2, 128, True, None),    # group 4
+    (2, 130, 36, 4, 128, True, None),   # group 9 (starcoder2's heads)
+    (1, 300, 8, 2, 80, True, 70),       # window shorter than S
+    (2, 64, 4, 1, 64, False, None),     # full attention
+    (1, 97, 4, 4, 32, False, 16)])      # windowed, not causal
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh, hd,
+                                              causal, window):
+    g = torch.Generator(device=cuda).manual_seed(s + h + hd)
+    q, k, v = (torch.randn(b, s, n, hd, device=cuda, generator=g
+                           ).to(dtype) for n in (h, kvh, kvh))
+    before = cuda_fa.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert cuda_fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype
+    torch.testing.assert_close(
+        got, ref.flash_attention(q, k, v, causal=causal, window=window),
+        **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,L,h,kvh,hd,n_valid", [
+    (2, 256, 4, 4, 80, 1),         # group 1, one valid slot
+    (8, 1024, 32, 8, 80, 513),     # danube's heads, a ragged prefix
+    (2, 512, 36, 4, 128, 512),     # group 9, a full (wrapped) ring
+    (1, 1000, 8, 2, 128, 999)])
+def test_flash_decode_kernel_matches_plain(cuda, dtype, b, L, h, kvh, hd,
+                                           n_valid):
+    g = torch.Generator(device=cuda).manual_seed(L + h + n_valid)
+    q = torch.randn(b, h, hd, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(b, L, kvh, hd, device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    before = cuda_fd.LAUNCHES["flash_decode"]
+    got = ops.flash_decode(q, k, v, n_valid)
+    assert cuda_fd.LAUNCHES["flash_decode"] == before + 1
+    torch.testing.assert_close(got, ref.flash_decode(q, k, v, n_valid),
+                               **ATTN_TOL[dtype])
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 8, 4, 80, device=cuda)
+    with pytest.raises(TypeError):
+        cuda_fa.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="head_dim"):
+        cuda_fa.flash_attention(q[..., :72].contiguous(),
+                                q[..., :72].contiguous(),
+                                q[..., :72].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_fa.flash_attention(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError, match="n_valid"):
+        cuda_fd.flash_decode(q[:, 0], q, q, 9)

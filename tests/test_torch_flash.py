@@ -1,0 +1,122 @@
+"""The port's plain flash attention and flash decoding (what the CUDA
+kernels are held against on the card, and what CPU tensors take) against
+the JAX package: its Pallas kernels in interpret mode, its oracles, and
+the model's ``blockwise_attention`` and decode attention.  Tolerance
+2e-3, the reference's own for these kernels (``tests/test_kernels.py``)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.models.attention import blockwise_attention
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_decode import TILE, split_plan
+
+from conftest import assert_close
+
+TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+def _normal(rng, *shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+# (h, h_kv, d, s, extra): tests/test_kernels.py's decode shapes, plus
+# danube's heads (head_dim 80, group 4) and a group of 9
+@pytest.mark.parametrize("h,hkv,d,s,extra", [
+    (8, 2, 64, 512, 0), (4, 4, 32, 256, 100), (16, 1, 64, 1024, 5),
+    (8, 8, 128, 256, 0), (32, 8, 80, 256, 31), (36, 4, 128, 128, 127)])
+def test_flash_decode_matches_pallas(h, hkv, d, s, extra, rng):
+    q, k, v = _normal(rng, h, d), _normal(rng, s, hkv, d), \
+        _normal(rng, s, hkv, d)
+    n_valid = s - extra
+    got = ops.flash_decode(torch.from_numpy(q)[None],
+                           torch.from_numpy(k)[None],
+                           torch.from_numpy(v)[None], n_valid)[0].numpy()
+    ln = jnp.asarray(n_valid, jnp.int32)
+    assert_close(got, jax_ops.flash_decode(q, k, v, ln), **TOL)
+    assert_close(got, jax_ref.flash_decode(q, k, v, ln), **TOL)
+
+
+def test_flash_decode_matches_the_models_decode_einsum(rng):
+    """A batch of sequences against the reference's decode attention
+    arithmetic (grouped einsum, NEG_INF mask past n_valid)."""
+    b, L, h, kvh, d, n_valid = 3, 40, 8, 2, 80, 29
+    q = _normal(rng, b, h, d)
+    k, v = _normal(rng, b, L, kvh, d), _normal(rng, b, L, kvh, d)
+    qf = jnp.asarray(q).reshape(b, kvh, h // kvh, d)
+    logits = jnp.einsum("bkgd,bskd->bkgs", qf, k) * d ** -0.5
+    logits = jnp.where(jnp.arange(L) < n_valid, logits, -1e30)
+    p = jnp.exp(logits - logits.max(-1, keepdims=True))
+    want = jnp.einsum("bkgs,bskd->bkgd", p / p.sum(-1, keepdims=True), v)
+    got = ref.flash_decode(*map(torch.from_numpy, (q, k, v)), n_valid)
+    assert_close(got.numpy(), want.reshape(b, h, d), **TOL)
+
+
+@pytest.mark.parametrize("s,hd,causal,bq,bk", [
+    (256, 64, True, 128, 128), (512, 32, True, 256, 128),
+    (256, 64, False, 64, 256), (384, 128, True, 128, 128),
+    (256, 80, True, 128, 128)])
+def test_flash_attention_matches_pallas(s, hd, causal, bq, bk, rng):
+    q, k, v = (_normal(rng, s, hd) for _ in range(3))
+    got = ops.flash_attention(*(torch.from_numpy(x)[None, :, None]
+                                for x in (q, k, v)), causal=causal)
+    got = got[0, :, 0].numpy()
+    assert_close(got, flash_attention_pallas(q, k, v, bq=bq, bk=bk,
+                                             causal=causal, interpret=True),
+                 **TOL)
+    assert_close(got, jax_ref.flash_attention(q, k, v, causal=causal), **TOL)
+
+
+# (b, s, h, kvh, hd, causal, window): the reference test's multi-head case,
+# then grouped heads, head_dim 80, sliding windows and ragged lengths --
+# held against blockwise_attention only (the Pallas kernel has no window)
+@pytest.mark.parametrize("b,s,h,kvh,hd,causal,window", [
+    (2, 256, 4, 4, 64, True, None), (2, 96, 8, 2, 80, True, None),
+    (1, 100, 32, 8, 80, True, 16), (2, 64, 9, 1, 32, False, None),
+    (1, 77, 4, 2, 32, True, 77), (1, 50, 4, 1, 32, False, 8)])
+def test_flash_attention_matches_blockwise(b, s, h, kvh, hd, causal, window,
+                                           rng):
+    q = _normal(rng, b, s, h, hd)
+    k, v = _normal(rng, b, s, kvh, hd), _normal(rng, b, s, kvh, hd)
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal, window=window)
+    want = blockwise_attention(q, k, v, causal=causal, window=window,
+                               q_chunk=32, kv_chunk=16)
+    assert_close(got.numpy(), want, **TOL)
+    if kvh == h and window is None:
+        assert_close(got.numpy(), jax_ops.flash_attention(
+            q, k, v, causal=causal, bq=64, bk=64), **TOL)
+
+
+def test_flash_attention_query_chunks_agree(rng):
+    q, k, v = (torch.from_numpy(_normal(rng, 1, 70, 4, 32)) for _ in range(3))
+    whole = ref.flash_attention(q, k, v, window=20)
+    for q_chunk in (1, 16, 33):
+        torch.testing.assert_close(
+            ref.flash_attention(q, k, v, window=20, q_chunk=q_chunk), whole)
+
+
+def test_flash_attention_keeps_bf16(rng):
+    q, k, v = (torch.from_numpy(_normal(rng, 1, 40, 4, 32)).bfloat16()
+               for _ in range(3))
+    out = ops.flash_attention(q, k, v)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.flash_attention(
+        q.float(), k.float(), v.float()), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("b,kvh,n_valid,sms", [
+    (8, 8, 4096, 132), (8, 8, 1, 132), (8, 8, 2049, 132), (1, 1, 100, 132),
+    (1, 4, 4096, 132), (64, 8, 65, 132), (2, 2, 5000, 16)])
+def test_decode_split_plan_covers_the_valid_slots(b, kvh, n_valid, sms):
+    chunk, nsplit = split_plan(b, kvh, n_valid, sms)
+    assert chunk % TILE == 0
+    # every split holds a valid slot, and together they hold them all
+    assert (nsplit - 1) * chunk < n_valid <= nsplit * chunk
+    # and there are no more of them than cover the SMs four times
+    assert nsplit <= max(1, -(-4 * sms // (b * kvh)))

@@ -19,7 +19,15 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.codegen",
            "repro_torch.apps.sums_powers",
            "repro_torch.apps.general_iterative",
            "repro_torch.apps.gradient_descent", "repro_torch.apps.pagerank",
-           "repro_torch.data", "repro_torch.data.updates"]
+           "repro_torch.data", "repro_torch.data.updates",
+           "repro_torch.kernels.flash_attention",
+           "repro_torch.kernels.flash_decode", "repro_torch.configs",
+           "repro_torch.configs.base", "repro_torch.models",
+           "repro_torch.models.layers", "repro_torch.models.attention",
+           "repro_torch.models.model", "repro_torch.models.weights",
+           "repro_torch.serve", "repro_torch.serve.engine",
+           "repro_torch.serve.incremental_views", "repro_torch.launch",
+           "repro_torch.launch.serve"]
 
 PROBE = """
 import importlib, sys
@@ -32,7 +40,8 @@ from repro_torch.kernels import cuda_build
 assert cuda_build.LIBS == {}, f"built at import: {sorted(cuda_build.LIBS)}"
 assert cuda_build.BUILD_LOGS == {}, "nvcc ran at import"
 assert sorted(cuda_build.sources()) == [
-    "dual_matmul", "rank_update", "rank_update_rows"], cuda_build.sources()
+    "dual_matmul", "flash_attention", "flash_decode", "rank_update",
+    "rank_update_rows"], cuda_build.sources()
 print("BAD", bad)
 """
 
