@@ -12,7 +12,9 @@ CUDA toolkit.  Phases, each of which raises on failure:
 3. kernels: every CUDA entry against its plain PyTorch version on the card,
    at the main path's shapes plus ragged shapes (and a T > 1 stack), with
    kernel, plain, library and bound times; the flash kernels at danube's
-   and starcoder2's attention shapes, windowed, ragged, bf16 and f32.
+   and starcoder2's attention shapes, windowed, ragged, bf16 and f32 (the
+   prefill kernel's records with its achieved TFLOP/s and share of the
+   bf16 tensor-core peak).
 4. matrix powers A^16 (n = 10000, exp model, the paper's size): 8 single
    updates, one batch of 16, 20 queued updates with a final flush, all
    replayed through the re-evaluation engine and compared view by view;
@@ -37,7 +39,9 @@ CUDA toolkit.  Phases, each of which raises on failure:
     ``ServeEngine``: 8 prompts of 4096 tokens, prefill, 32 greedy decode
     steps (positions 4096-4127 wrap the 4096-slot ring); prefill ms, decode
     ms per step, tokens/s, the decode step's byte bound, peak memory; the
-    flash kernels checked again on layer 0's real q/k/v.
+    flash kernels checked again on layer 0's real q/k/v; one more prefill
+    and two decode steps under ``torch.profiler`` (device time, idle share,
+    and the bf16 tensor-core attention kernel's time and launches).
 11. serve_danube_f32_exact: the same widths in f32 at 4 layers; every
     decode step's logits against ``forward``'s at its position over the
     whole 4128-token sequence (window mask in the prefill kernel against
@@ -101,8 +105,10 @@ EXACT_LAYERS = 4            # phase 11's depth, cut from 24
 HOT_SWAPS = 8               # phase 12's rank-1 head deltas
 
 # Tolerance of an attention kernel against its plain version.  f32: the
-# kernel tolerance above.  bf16: both are f32 results rounded once to bf16,
-# so they differ by at most one rounding step, <= 2**-7 |x|.
+# kernel tolerance above.  bf16: the plain versions keep p in f32, the
+# decode kernel too, and the prefill kernel carries p as two bf16 terms
+# (about 2^-17 |p|); each output is rounded once to bf16, so they differ
+# by at most one rounding step, <= 2**-7 |x|.
 ATTN_TOL = {"float32": (KERNEL_RTOL, KERNEL_ATOL), "bfloat16": (1e-2, 1e-3)}
 # Phase 11's end-to-end tolerance, |decode - forward| <= ATOL + RTOL |fwd|
 # on every logit: the repo's serving tolerance (tests/test_serve.py:40).
@@ -121,6 +127,9 @@ SOURCES = {
     "dual_matmul": "src/repro_torch/kernels/csrc/dual_matmul.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu"}
+# the bf16 prefill kernel's name in csrc/flash_attention.cu, as the
+# profiler lists it
+FLASH_BF16_KERNEL = "flash_attention_bf16_mma"
 REPLACES = {
     "rank_update_batched": "src/repro/kernels/rank_update.py:84",
     "rank_update": "src/repro/kernels/rank_update.py:40",
@@ -373,6 +382,10 @@ def attention_record(entry, shape, err, ms, plain_ms, lib_ms, nbytes, flops,
            "bound_ms": b_ms, "bound_by": b_by,
            "bound_fp32_ms": bound(nbytes, flops, flops_peak, bytes_peak)[0],
            "flops": flops, "bytes": nbytes}
+    if entry == "flash_attention":
+        # achieved rate: the tensor cores are in use above the fp32 peak
+        rec["tflops"] = flops / (ms * 1e-3) / 1e12
+        rec["bf16_peak_frac"] = flops / (ms * 1e-3) / bf16_peak
     log("kernel " + json.dumps(rec))
     return rec
 
@@ -455,8 +468,8 @@ def check_flash_decode(q, kc, vc, n_valid, peaks_, label,
 def check_flash_kernels(peaks_) -> dict:
     """Phase 3's flash cases: danube's prefill (B=8, S=4096, H=32, KV=8,
     hd=80, its 4096 window) in bf16 and, at phase 11's ragged 4128, in
-    f32; starcoder2's heads (H=36, KV=4, hd=128); a window shorter than S;
-    a ragged S; decode over danube's 4096-slot ring at n_valid 1, 2049 and
+    bf16 and f32; starcoder2's heads (H=36, KV=4, hd=128); a window
+    shorter than S; a ragged S; decode over danube's 4096-slot ring at n_valid 1, 2049 and
     4096 (a wrapped ring is full), bf16 and f32, and starcoder2's."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -469,6 +482,7 @@ def check_flash_kernels(peaks_) -> dict:
     # (label, b, s, h, kvh, hd, window, dtype)
     for label, b, s, h, kvh, hd, window, dt in [
             ("danube_prefill_bf16", 8, 4096, 32, 8, 80, 4096, bf16),
+            ("danube_prefill_bf16_s4128", 8, 4128, 32, 8, 80, 4096, bf16),
             ("danube_prefill_f32_s4128", 8, 4128, 32, 8, 80, 4096, f32),
             ("starcoder2_bf16", 2, 4096, 36, 4, 128, None, bf16),
             ("window1024_bf16", 2, 4096, 32, 8, 80, 1024, bf16),
@@ -873,10 +887,11 @@ def flat_params(tree, prefix=""):
             yield prefix + name, leaf
 
 
-def device_profile(fn, top: int = 8) -> dict:
+def device_profile(fn, top: int = 8, match=()) -> dict:
     """Kernel time on the card for one call of ``fn``, by
     ``torch.profiler``: device ms (summed kernel time), kernels launched,
-    and the kernels that took the most time.  ``device_ms`` is None when
+    the kernels that took the most time, and [ms, launches] of the kernels
+    whose names hold each string of ``match``.  ``device_ms`` is None when
     the profiler saw no device activity."""
     import torch
     from torch.autograd import DeviceType
@@ -893,7 +908,11 @@ def device_profile(fn, top: int = 8) -> dict:
     return {"device_ms": total if kern else None,
             "kernels": sum(e.count for e in kern),
             "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
-                    for e in kern[:top]]}
+                    for e in kern[:top]],
+            "match": {m: [sum(e.self_device_time_total for e in kern
+                              if m in e.key) / 1e3,
+                          sum(e.count for e in kern if m in e.key)]
+                      for m in match}}
 
 
 def phase_serve_full(peaks_):
@@ -932,7 +951,14 @@ def phase_serve_full(peaks_):
                                    "danube_layer0_ring", timed=False))
     # where the time goes: one more prefill and two decode steps under the
     # profiler (kernel time; the host clock above gives the wall time)
-    prof_prefill = device_profile(lambda: eng.prefill(prompts))
+    prof_prefill = device_profile(lambda: eng.prefill(prompts),
+                                  match=(FLASH_BF16_KERNEL,))
+    if prof_prefill["device_ms"] is not None and \
+            prof_prefill["match"][FLASH_BF16_KERNEL][1] != cfg.n_layers:
+        raise AssertionError(
+            f"{label}: the profiled prefill ran {FLASH_BF16_KERNEL} "
+            f"{prof_prefill['match'][FLASH_BF16_KERNEL][1]} times, not "
+            f"{cfg.n_layers}")
     tok = toks[:, -1]
     prof_decode = device_profile(lambda: [eng.decode(tok) for _ in range(2)])
     if prof_decode["device_ms"] is not None:

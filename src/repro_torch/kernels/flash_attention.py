@@ -5,6 +5,8 @@ Binding for ``csrc/flash_attention.cu``, built and loaded by
 ``flash_attention_pallas`` (``src/repro/kernels/flash_attention.py:77``)
 and computes the reference model's ``blockwise_attention``: causal or full
 attention, an optional sliding window, grouped-query heads read in place.
+bf16 inputs run on the tensor cores (``mma.sync``, with p carried into
+P V as two bf16 terms); f32 inputs run on the fp32 FMA pipes.
 
 The entry launches on the current CUDA stream, allocates only its output
 and never falls back to the plain version: anything the kernel does not

@@ -176,21 +176,49 @@ def test_carrier_engine_on_card_matches_cpu(cuda, regime):
         assert float((got - v).abs().max()) / scale <= 1e-5, k
 
 
-# bf16 outputs of the kernel and the plain version are both f32 results
-# rounded once to bf16, so they differ by at most one rounding step
-# (<= 2**-7 |x|); f32 outputs differ only in summation order
+# f32 outputs of the kernel and the plain version differ only in summation
+# order.  In bf16 the plain version keeps p in f32, the decode kernel too,
+# and the prefill kernel carries p as two bf16 terms (hi + lo, about 2^-17
+# |p|); each output is rounded once to bf16, so they differ by about one
+# rounding step, <= 2**-7 |x|.  A single bf16 rounding of p, as the
+# reference's blockwise_attention makes, would not fit: see
+# tests/test_torch_flash.py.
 ATTN_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
             torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
 
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,h,kvh,hd,causal,window", [
+# (b, s, h, kvh, hd, causal, window), in f32 and bf16
+_FLASH_BOTH = [
     (2, 200, 4, 4, 80, True, None),     # group 1, ragged S
     (1, 256, 8, 2, 128, True, None),    # group 4
     (2, 130, 36, 4, 128, True, None),   # group 9 (starcoder2's heads)
     (1, 300, 8, 2, 80, True, 70),       # window shorter than S
     (2, 64, 4, 1, 64, False, None),     # full attention
-    (1, 97, 4, 4, 32, False, 16)])      # windowed, not causal
+    (1, 97, 4, 4, 32, False, 16)]       # windowed, not causal
+# bf16 only: the tensor-core kernel's tiles (128 query rows, 64 keys) at
+# every head dim, lengths inside, at and across a tile, windows of 1 and
+# shorter than a key tile, full attention, groups 1, 4 and 9
+_FLASH_BF16 = [
+    (1, 200, 4, 1, 32, True, None),     # hd 32, group 4
+    (1, 200, 8, 2, 64, True, None),     # hd 64
+    (1, 300, 8, 2, 96, True, None),     # hd 96
+    (2, 1, 8, 2, 80, True, None),       # S = 1
+    (1, 15, 4, 4, 64, True, None),      # S = 15, less than a tile
+    (1, 64, 8, 2, 80, True, None),      # S = one key tile
+    (1, 65, 8, 2, 128, True, None),     # one key past it
+    (2, 1000, 32, 8, 80, True, None),   # danube's heads, ragged S
+    (1, 2048, 8, 2, 80, False, None),   # 16 query tiles, full attention
+    (1, 1000, 8, 2, 96, False, None),   # full attention, ragged
+    (1, 300, 8, 2, 80, True, 1),        # window 1: each row keeps itself
+    (1, 100, 4, 4, 32, False, 1),       # window 1, not causal
+    (2, 500, 8, 2, 80, True, 40),       # window shorter than a key tile
+    (1, 1000, 36, 4, 80, True, 100),    # group 9, windowed
+    (1, 4128, 32, 8, 80, True, 4096)]   # danube's S = 4128 and window
+
+
+@pytest.mark.parametrize(
+    "dtype,b,s,h,kvh,hd,causal,window",
+    [(dt, *c) for dt in (torch.float32, torch.bfloat16) for c in _FLASH_BOTH]
+    + [(torch.bfloat16, *c) for c in _FLASH_BF16])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh, hd,
                                               causal, window):
     g = torch.Generator(device=cuda).manual_seed(s + h + hd)

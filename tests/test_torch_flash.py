@@ -110,6 +110,51 @@ def test_flash_attention_keeps_bf16(rng):
         q.float(), k.float(), v.float()), rtol=1e-2, atol=1e-2)
 
 
+def _bf16_attention_pair(rng, b, s, h, kvh, causal, window):
+    """The reference's blockwise attention and the plain version on the
+    same bf16 inputs at danube's head_dim 80, as f32 arrays, and
+    sum_k p_k |v_k| / l from the f32 softmax."""
+    q = _normal(rng, b, s, h, 80)
+    k, v = _normal(rng, b, s, kvh, 80), _normal(rng, b, s, kvh, 80)
+    want = blockwise_attention(*(jnp.asarray(x, jnp.bfloat16)
+                                 for x in (q, k, v)),
+                               causal=causal, window=window, q_chunk=64,
+                               kv_chunk=64)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    got = ref.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    pv_abs = ref.flash_attention(tq.float(), tk.float(), tv.float().abs(),
+                                 causal=causal, window=window)
+    return (got.float().numpy(), np.asarray(want, np.float32),
+            pv_abs.numpy())
+
+
+# (b, s, h, kvh, causal, window): danube's GQA 4 with a window, without,
+# its 32 / 8 heads, and full attention
+@pytest.mark.parametrize("b,s,h,kvh,causal,window", [
+    (1, 256, 8, 2, True, 100), (1, 512, 8, 2, True, None),
+    (2, 128, 32, 8, True, 64), (1, 256, 8, 2, False, None)])
+def test_flash_attention_bf16_p_rounding_bound(b, s, h, kvh, causal, window,
+                                               rng):
+    """The reference's blockwise attention in bf16 rounds p to bf16 before
+    P V (attention.py:155); the plain version keeps p in f32.  They differ
+    by what one rounding of p allows, 2^-8 sum_k p_k |v_k| / l, plus each
+    output's own rounding, 2^-8 |x|."""
+    got, want, pv_abs = _bf16_attention_pair(rng, b, s, h, kvh, causal,
+                                             window)
+    bound = 1.01 * 2.0 ** -8 * (pv_abs + np.abs(got) + np.abs(want)) + 1e-5
+    assert (np.abs(got - want) <= bound).all()
+
+
+def test_card_bf16_tolerance_does_not_admit_a_bf16_p(rng):
+    """Where a few keys carry a row, one bf16 rounding of p moves outputs
+    past the bf16 tolerance the card tests hold the CUDA kernel to (rtol
+    1e-2, atol 1e-3) -- which is why the kernel carries p as two bf16
+    terms, and why the plain version keeps p in f32."""
+    got, want, _ = _bf16_attention_pair(rng, 1, 256, 8, 2, True, 100)
+    assert not np.allclose(got, want, rtol=1e-2, atol=1e-3)
+
+
 @pytest.mark.parametrize("b,kvh,n_valid,sms", [
     (8, 8, 4096, 132), (8, 8, 1, 132), (8, 8, 2049, 132), (1, 1, 100, 132),
     (1, 4, 4096, 132), (64, 8, 65, 132), (2, 2, 5000, 16)])
