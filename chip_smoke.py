@@ -11,7 +11,9 @@ CUDA toolkit.  Phases, each of which raises on failure:
    from the checkout, one ``nvcc`` per source, all started together.
 3. kernels: every CUDA entry against its plain PyTorch version on the card,
    at the main path's shapes plus ragged shapes (and a T > 1 stack), with
-   kernel, plain, library and bound times; the flash kernels at danube's
+   kernel, plain, library and bound times, the achieved fp32 TFLOP/s and
+   the kernel's time over the library call's (the dense kernel at every K
+   of matrix powers' batch of 16); the flash kernels at danube's
    and starcoder2's attention shapes, windowed, ragged, bf16 and f32 (the
    prefill kernel's records with its achieved TFLOP/s and share of the
    bf16 tensor-core peak).
@@ -56,7 +58,8 @@ read just after; the counts of each kernel must equal the applies (or
 calls) the phase made.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
-record and ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
+record (``rank_update_batched``'s with its launches over phases 4-9 and 12
+by K = T*k) and ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
 checkout, the script prints no result and exits non-zero.
 """
 
@@ -206,6 +209,12 @@ def launches() -> dict:
     return out
 
 
+def dense_ranks() -> dict:
+    """rank_update_batched's launches since the last reset, by K = T*k."""
+    from repro_torch.kernels import rank_update
+    return dict(sorted(rank_update.RANKS["rank_update_batched"].items()))
+
+
 def check_launches(label: str, got: dict, expect: dict) -> None:
     """Every kernel's launches equal ``expect``'s count (0 if not named)."""
     expect = {**{name: 0 for name in got}, **expect}
@@ -266,17 +275,20 @@ def check_kernels(flops_peak: float, bytes_peak: float):
 
     def record(entry, shape, err, ms, plain_ms, lib_ms, nbytes, flops):
         b_ms, b_by = bound(nbytes, flops, flops_peak, bytes_peak)
+        # achieved fp32 rate, and the kernel's time over the library call's
         rec = {"entry": entry, **shape, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-               "bound_by": b_by}
+               "bound_by": b_by, "tflops": flops / (ms * 1e-3) / 1e12,
+               "vs_library": ms / lib_ms}
         log("kernel " + json.dumps(rec))
         out[entry].append(rec)
 
     out = {name: [] for name in SOURCES}
 
-    # (n, p, T, k): the main path's applies (matrix powers views, OLS X and
-    # Z/W), a ragged shape, and T > 1 stacks
-    batched_cases = [(10000, 10000, 1, K) for K in (1, 16, 64, 256)] + [
+    # (n, p, T, k): the main path's applies (matrix powers' views at every K
+    # of a batch of 16, OLS X and Z/W), a ragged shape, and T > 1 stacks
+    batched_cases = [(10000, 10000, 1, K)
+                     for K in (1, 16, 32, 64, 128, 256)] + [
         (8192, 8192, 1, 2), (8192, 8192, 1, 32),
         (16384, 8192, 1, 1), (16384, 8192, 1, 16),
         (37, 101, 1, 5), (1000, 777, 4, 3), (10000, 10000, 16, 1)]
@@ -555,7 +567,7 @@ def drive(label: str, app, inputs, stream,
         ree.apply_update(name, u, v, block=True)
         reeval_s.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    got = launches()
+    got, ranks = launches(), dense_ranks()
     check_launches(label, got, {"rank_update_batched": applies,
                                 "rank_update": total,
                                 "rank_update_rows": 0, "dual_matmul": 0})
@@ -565,6 +577,7 @@ def drive(label: str, app, inputs, stream,
                                      for k, v in eng.views.items()},
            "initialize_s": init_s, "firings": firings,
            "lowrank_applies": applies, "launches": got,
+           "dense_ranks": ranks,
            "updates": {"single": n_single, "batch": n_batch,
                        "queued": n_queued},
            "apply_update_s_first": single_s[0],
@@ -655,7 +668,7 @@ def drive_carriers(label: str, eng, ree, name: str, steps, widened=None
     for ps in pairs:
         for p in ps:
             reeval_s.append(timed(lambda: ree.apply_update(name, *p)))
-    got = launches()
+    got, ranks = launches(), dense_ranks()
     d = {k: v - stats0[k] for k, v in vars(eng.stats).items()
          if isinstance(v, int)}
     firings = sum(len(cs) if kind != "batch" else 1 for kind, cs in steps)
@@ -676,7 +689,7 @@ def drive_carriers(label: str, eng, ree, name: str, steps, widened=None
     per_update = {path: {k: statistics.median(v) for k, v in ts.items()}
                   for path, ts in times.items() if ts}
     rec = {"phase": label, "firings": firings, "engine_counts": d,
-           "launches": got, "rows_touched": {
+           "launches": got, "dense_ranks": ranks, "rows_touched": {
                kind: [stack_carriers(cs).rows_touched] if kind == "batch"
                else [c.rows_touched for c in cs] for kind, cs in steps},
            "seconds_per_update_median": per_update,
@@ -1073,7 +1086,7 @@ def phase_logit_view(eng, prompts) -> dict:
     Y = eng.view_logits("lm_head")
     torch.cuda.synchronize()
     swap_s = time.perf_counter() - t0
-    got = launches()
+    got, ranks = launches(), dense_ranks()
     applies = view.engine.stats.lowrank_applies - applies0
     label = "logit_view_danube"
     check_launches(label, got, {"rank_update_batched": applies})
@@ -1089,6 +1102,7 @@ def phase_logit_view(eng, prompts) -> dict:
            "flushed_on_enqueue": sum(flushed),
            "firings": view.engine.stats.triggers_fired,
            "lowrank_applies": applies, "launches": got,
+           "dense_ranks": ranks,
            "initialize_s": init_s, "hot_swap_and_flush_s": swap_s,
            "reeval_matmul_s": reeval_s, "rel_err_vs_reeval": rel,
            "tolerance": MAIN_TOL,
@@ -1192,6 +1206,16 @@ def main() -> int:
                 "dual_matmul": (8192, 8192, 1),
                 "flash_attention": "danube_prefill_bf16",
                 "flash_decode": "danube_decode_bf16_wrapped"}
+    # rank_update_batched's launches over phases 4-9 and 12 by K, so that
+    # each K's gap to its bound can be weighed by its launches
+    by_k = {}
+    for ph in phases:
+        for K, count in ph.get("dense_ranks", {}).items():
+            by_k[K] = by_k.get(K, 0) + count
+    if sum(by_k.values()) != sum(ph["launches"]["rank_update_batched"]
+                                 for ph in phases):
+        raise AssertionError(f"launches by K {by_k} do not sum to the "
+                             "launches of rank_update_batched")
     kernels = []
     for entry, recs in shapes.items():
         head = next(r for r in recs
@@ -1210,6 +1234,8 @@ def main() -> int:
                       if k in ("n", "p", "m", "T", "r", "k", "b", "s", "L",
                                "h", "kvh", "hd", "window", "n_valid",
                                "dtype")}})
+        if entry == "rank_update_batched":
+            kernels[-1]["launches_by_K"] = dict(sorted(by_k.items()))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

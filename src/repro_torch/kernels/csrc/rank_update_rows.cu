@@ -22,7 +22,7 @@
 // SXM data sheet, 700 W) it is memory-bound below k ~ 80; the main path's
 // k runs from 1 to 16 (rank-8 carriers in a bucket of 16 when stacked).
 //
-// Design: the 64x64 output tile of rank_update.cu with a row map.
+// Design: a 64x64 output tile over the listed rows (a row map).
 //   * one block of 256 threads per (64 listed rows) x (64 columns) tile;
 //     the tile's 64 row ids are staged in shared memory once;
 //   * each thread owns a 4x4 register tile at listed rows ty + 16*i and

@@ -14,13 +14,15 @@ Entries and the TPU kernels they replace:
 
 Both work in place on ``m``, launch on the current CUDA stream, allocate
 nothing and never fall back to a plain version: anything the kernel does
-not take raises.  ``LAUNCHES`` counts the launches of each entry; a run
-that must prove it went through the kernels resets it with
-:func:`reset_launches` and reads it afterwards.
+not take raises.  ``LAUNCHES`` counts the launches of each entry and
+``RANKS`` the same launches by their inner dimension K = T·k; a run that
+must prove it went through the kernels resets both with
+:func:`reset_launches` and reads them afterwards.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict
 
 import torch
@@ -28,6 +30,7 @@ import torch
 from . import cuda_build
 
 LAUNCHES: Dict[str, int] = {"rank_update": 0, "rank_update_batched": 0}
+RANKS: Dict[str, Counter] = {name: Counter() for name in LAUNCHES}
 
 _SIGNATURES = {
     "rank_update_batched_f32": [cuda_build.PTR] * 3 + [cuda_build.I32] * 4
@@ -40,6 +43,7 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        RANKS[name].clear()
 
 
 _MAX_GRID_Y = 65535 * 64   # rows: gridDim.y is at most 65535 tiles of 64
@@ -79,9 +83,9 @@ def _check(m: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _launch(entry: str, cname: str, m: torch.Tensor, u: torch.Tensor,
-            v: torch.Tensor, *sizes: int) -> torch.Tensor:
+            v: torch.Tensor, rank: int, *sizes: int) -> torch.Tensor:
     """Launch C entry ``cname`` on m's current stream, raise on a refused
-    launch, and count it under ``entry``."""
+    launch, and count it under ``entry`` and its inner dimension ``rank``."""
     lib = cuda_build.library("rank_update", _SIGNATURES)
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream(m.device).cuda_stream
@@ -89,6 +93,7 @@ def _launch(entry: str, cname: str, m: torch.Tensor, u: torch.Tensor,
                                    *sizes, stream)
     cuda_build.check_launch(cname, code)
     LAUNCHES[entry] += 1
+    RANKS[entry][rank] += 1
     return m
 
 
@@ -106,7 +111,7 @@ def rank_update_batched(m: torch.Tensor, u: torch.Tensor,
     if n == 0 or p == 0 or t * k == 0:
         return m
     return _launch("rank_update_batched", "rank_update_batched_f32", m, u, v,
-                   n, p, t, k)
+                   t * k, n, p, t, k)
 
 
 def rank_update(m: torch.Tensor, u: torch.Tensor,
@@ -122,4 +127,4 @@ def rank_update(m: torch.Tensor, u: torch.Tensor,
     k = u.shape[1]
     if n == 0 or p == 0 or k == 0:
         return m
-    return _launch("rank_update", "rank_update_f32", m, u, v, n, p, k)
+    return _launch("rank_update", "rank_update_f32", m, u, v, k, n, p, k)

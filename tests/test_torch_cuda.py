@@ -4,6 +4,9 @@ Marked ``cuda``: each test skips without a CUDA device.  On the GPU:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -34,20 +37,48 @@ def _close(got, want):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("n,p,t,k", [(64, 64, 1, 1), (100, 37, 1, 5),
-                                     (130, 257, 3, 7), (1000, 999, 2, 40),
-                                     (5, 1, 1, 17)])
-def test_kernel_matches_plain(cuda, n, p, t, k):
+# The largest K = T*k that csrc/rank_update.cu gives its streaming tile;
+# past it the compute tile runs.
+KSTREAM = int(re.search(r"constexpr int KSTREAM = (\d+);",
+                        (Path(cuda_ru.__file__).parent / "csrc" /
+                         "rank_update.cu").read_text()).group(1))
+
+# (n, p, T, k, misaligned): misaligned puts M at a 4-byte storage offset
+_DENSE = [(64, 64, 1, 1), (100, 37, 1, 5), (130, 257, 3, 7),
+          (1000, 999, 2, 40), (5, 1, 1, 17),
+          (300, 260, 1, KSTREAM),           # both sides of the crossover
+          (300, 260, 1, KSTREAM + 1),
+          (260, 390, 1, 300),               # a ragged compute tile
+          (333, 200, 5, 13),                # chunks that cross t
+          (1000, 1000, 16, 1),              # T = 16 rank-1 pairs
+          (333, 517, 1, 96)]                # p % 4 != 0, compute tile
+_MISALIGNED = [(300, 256, 1, 16), (300, 256, 1, 96)]
+
+
+@pytest.mark.parametrize(
+    "n,p,t,k,misaligned",
+    [pytest.param(*c, False, id="-".join(map(str, c))) for c in _DENSE]
+    + [pytest.param(*c, True, id="-".join(map(str, c)) + "-misaligned")
+       for c in _MISALIGNED])
+def test_kernel_matches_plain(cuda, n, p, t, k, misaligned):
     g = torch.Generator(device=cuda).manual_seed(n + p + k)
     m = torch.randn(n, p, device=cuda, generator=g)
     u = torch.randn(t, n, k, device=cuda, generator=g)
     v = torch.randn(t, p, k, device=cuda, generator=g)
+
+    def target():
+        if not misaligned:
+            return m.clone()
+        out = torch.empty(n * p + 1, device=cuda)[1:].view(n, p)
+        assert out.is_contiguous() and out.data_ptr() % 16 != 0
+        return out.copy_(m)
+
     before = cuda_ru.LAUNCHES["rank_update_batched"]
-    got = ops.rank_update_batched(m.clone(), u, v)
+    got = ops.rank_update_batched(target(), u, v)
     assert cuda_ru.LAUNCHES["rank_update_batched"] == before + 1
     _close(got, ref.rank_update_batched(m, u, v))
     if t == 1:
-        _close(ops.rank_update(m.clone(), u[0], v[0]),
+        _close(ops.rank_update(target(), u[0], v[0]),
                ref.rank_update(m, u[0], v[0]))
 
 

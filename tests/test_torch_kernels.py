@@ -71,6 +71,25 @@ def test_two_dimensional_factors_are_the_single_stack(rng):
     assert_close(a.numpy(), b.numpy())
 
 
+@pytest.mark.parametrize("t,k", [(16, 1), (3, 7), (2, 40)])
+def test_stack_is_one_flat_contraction(t, k, rng):
+    """A (T, n, k) stack is the (n, T*k) factor whose flat column kk is
+    column kk % k of U_(kk / k): the index map the CUDA kernel walks."""
+    n, p = 37, 29
+    m, u, v = _data(rng, n, p, k, t)
+    stacked = ops.rank_update_batched(torch.from_numpy(m.copy()),
+                                      torch.from_numpy(u), torch.from_numpy(v))
+    tu, tv = torch.from_numpy(u), torch.from_numpy(v)
+    flat = ops.rank_update(torch.from_numpy(m.copy()),
+                           tu.permute(1, 0, 2).reshape(n, t * k),
+                           tv.permute(1, 0, 2).reshape(p, t * k))
+    assert_close(stacked.numpy(), flat.numpy())
+    want = jax_ops.rank_update_batched(jnp.asarray(m), jnp.asarray(u),
+                                       jnp.asarray(v))
+    assert_close(stacked.numpy(), want)
+    assert_close(flat.numpy(), want)
+
+
 def _launches():
     return {**cuda_ru.LAUNCHES, **cuda_rows.LAUNCHES, **cuda_dual.LAUNCHES}
 
