@@ -66,6 +66,7 @@ checkout, the script prints no result and exits non-zero.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -187,6 +188,19 @@ def time_ms(fn, target_ms: float = 40.0) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ptxas_lines(text: str):
+    """(kernel instance, line) for each register and spill line of
+    ``ptxas -v`` output; the instance is its mangled name shortened."""
+    entry = "?"
+    for line in text.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            entry = re.sub(r"^_ZN\d+_GLOBAL__N_1\d+|^_Z\d+", "",
+                           found.group(1)).split("EEv")[0]
+        elif "registers" in line or "spill" in line:
+            yield entry, line.strip()
 
 
 def kernel_modules():
@@ -383,7 +397,8 @@ def attention_pairs(s: int, causal: bool, window) -> int:
 
 
 def attention_record(entry, shape, err, ms, plain_ms, lib_ms, nbytes, flops,
-                     dtype, bytes_peak, flops_peak, bf16_peak) -> dict:
+                     dtype, bytes_peak, flops_peak, bf16_peak,
+                     log_it=True) -> dict:
     """A kernel record whose operations bound is taken at the peak of the
     inputs' type (bf16 tensor cores, or fp32 FMA); the fp32 bound is kept
     beside it."""
@@ -398,7 +413,8 @@ def attention_record(entry, shape, err, ms, plain_ms, lib_ms, nbytes, flops,
         # achieved rate: the tensor cores are in use above the fp32 peak
         rec["tflops"] = flops / (ms * 1e-3) / 1e12
         rec["bf16_peak_frac"] = flops / (ms * 1e-3) / bf16_peak
-    log("kernel " + json.dumps(rec))
+    if log_it:
+        log("kernel " + json.dumps(rec))
     return rec
 
 
@@ -446,35 +462,90 @@ def check_flash_attention(q, k, v, causal, window, peaks_, label,
                             lib_ms, nbytes, flops, dtype, *peaks_)
 
 
+def host_us(fn, reps: int = 200) -> float:
+    """Host microseconds per call of ``fn``: the time to enqueue ``reps``
+    calls back to back (the card drains them afterwards)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e6
+
+
+def device_ms_per_call(fn, match=None, reps: int = 20):
+    """(busy, summed) device ms per call of ``fn`` from ``torch.profiler``:
+    the union of the intervals of the kernels whose names hold ``match``
+    (else of all kernels), and the sum of their times; None when the
+    profiler saw no device activity."""
+    prof = device_profile(lambda: [fn() for _ in range(reps)],
+                          match=(match,) if match else ())
+    if prof["device_ms"] is None:
+        return None, None
+    if match:
+        summed, _, busy = prof["match"][match]
+    else:
+        summed, busy = prof["device_ms"], prof["busy_ms"]
+    return busy / reps, summed / reps
+
+
 def check_flash_decode(q, kc, vc, n_valid, peaks_, label,
                        timed=True) -> dict:
-    """The flash-decode kernel against its plain version (and timed
-    against it and SDPA) on q (B,H,hd) over caches (B,L,KV,hd)."""
+    """The flash-decode kernel against its plain version, with n_valid as
+    an int and as a device tensor (the decode step's form; the two agree
+    bit for bit, and so do repeated calls), and timed against the plain
+    version and SDPA: CUDA events over back-to-back calls (``ms``), the
+    profiler's kernel time (``device_ms``) and the host's enqueue time
+    (``host_us``), the last two for SDPA as well."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as cuda_fd
     from repro_torch.kernels import ref
     b, h, hd = q.shape
     dtype = str(q.dtype).replace("torch.", "")
-    got = cuda_fd.flash_decode(q, kc, vc, n_valid)
+    n_t = torch.tensor(n_valid, dtype=torch.int32, device=q.device)
+    got = cuda_fd.flash_decode(q, kc, vc, n_t)
     want = ref.flash_decode(q, kc, vc, n_valid)
     torch.cuda.synchronize()
     err = check_close(f"flash_decode {label}", got, want, *ATTN_TOL[dtype])
+    for again in (cuda_fd.flash_decode(q, kc, vc, n_valid),
+                  cuda_fd.flash_decode(q, kc, vc, n_t)):
+        if not torch.equal(again, got):
+            raise AssertionError(f"flash_decode {label}: two calls differ")
+    del got, want
     if not timed:
         return {"case": label, "max_abs_err": err}
     shape = {"b": b, "L": kc.shape[1], "h": h, "kvh": kc.shape[2], "hd": hd,
              "n_valid": n_valid, "case": label}
-    ms = time_ms(lambda: cuda_fd.flash_decode(q, kc, vc, n_valid))
-    plain_ms = time_ms(lambda: ref.flash_decode(q, kc, vc, n_valid))
+
+    def kernel():
+        return cuda_fd.flash_decode(q, kc, vc, n_t)
+
     qt = q[:, :, None]
     kt, vt = (x[:, :n_valid].transpose(1, 2) for x in (kc, vc))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, enable_gqa=True))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+
+    ms = time_ms(kernel)
+    plain_ms = time_ms(lambda: ref.flash_decode(q, kc, vc, n_t))
+    lib_ms = time_ms(library)
     item = q.element_size()
     nbytes = item * (2 * q.numel() + 2 * b * n_valid * kc.shape[2] * hd)
     flops = 4.0 * b * h * hd * n_valid
-    return attention_record("flash_decode", shape, err, ms, plain_ms,
-                            lib_ms, nbytes, flops, dtype, *peaks_)
+    rec = attention_record("flash_decode", shape, err, ms, plain_ms, lib_ms,
+                           nbytes, flops, dtype, *peaks_, log_it=False)
+    busy, summed = device_ms_per_call(kernel, "flash_decode")
+    lib_busy, lib_summed = device_ms_per_call(library)
+    rec.update({"device_ms": busy, "kernel_sum_ms": summed,
+                "host_us": host_us(kernel), "library_device_ms": lib_busy,
+                "library_kernel_sum_ms": lib_summed,
+                "library_host_us": host_us(library)})
+    log("kernel " + json.dumps(rec))
+    return rec
 
 
 def check_flash_kernels(peaks_) -> dict:
@@ -900,12 +971,26 @@ def flat_params(tree, prefix=""):
             yield prefix + name, leaf
 
 
+def busy_ms(events) -> float:
+    """ms in which at least one of the kernel ``events`` ran: the union of
+    their intervals (a kernel launched as a programmatic dependent starts
+    while the one before it drains, so summed times count that twice)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
+
+
 def device_profile(fn, top: int = 8, match=()) -> dict:
     """Kernel time on the card for one call of ``fn``, by
-    ``torch.profiler``: device ms (summed kernel time), kernels launched,
-    the kernels that took the most time, and [ms, launches] of the kernels
-    whose names hold each string of ``match``.  ``device_ms`` is None when
-    the profiler saw no device activity."""
+    ``torch.profiler``: device ms (summed kernel time), busy ms (the union
+    of the kernels' intervals), kernels launched, the kernels that took the
+    most time, and [summed ms, launches, busy ms] of the kernels whose
+    names hold each string of ``match``.  ``device_ms`` and ``busy_ms``
+    are None when the profiler saw no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -916,15 +1001,18 @@ def device_profile(fn, top: int = 8, match=()) -> dict:
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in kern) / 1e3
     kern.sort(key=lambda e: -e.self_device_time_total)
     return {"device_ms": total if kern else None,
+            "busy_ms": busy_ms(events) if kern else None,
             "kernels": sum(e.count for e in kern),
             "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
                     for e in kern[:top]],
             "match": {m: [sum(e.self_device_time_total for e in kern
                               if m in e.key) / 1e3,
-                          sum(e.count for e in kern if m in e.key)]
+                          sum(e.count for e in kern if m in e.key),
+                          busy_ms([e for e in events if m in e.name])]
                       for m in match}}
 
 
@@ -973,10 +1061,13 @@ def phase_serve_full(peaks_):
             f"{prof_prefill['match'][FLASH_BF16_KERNEL][1]} times, not "
             f"{cfg.n_layers}")
     tok = toks[:, -1]
-    prof_decode = device_profile(lambda: [eng.decode(tok) for _ in range(2)])
+    prof_decode = device_profile(lambda: [eng.decode(tok) for _ in range(2)],
+                                 match=("flash_decode",))
     if prof_decode["device_ms"] is not None:
-        prof_decode["device_ms"] /= 2
-        prof_decode["kernels"] /= 2
+        for key in ("device_ms", "busy_ms", "kernels"):
+            prof_decode[key] /= 2
+        prof_decode["match"] = {k: [x / 2 for x in v]
+                                for k, v in prof_decode["match"].items()}
     weight_bytes = sum(t.numel() * t.element_size()
                        for name, t in flat_params(eng.params)
                        if name != "embed.table")
@@ -999,7 +1090,7 @@ def phase_serve_full(peaks_):
     for name, prof, wall_ms in (("prefill", prof_prefill, 1e3 * prefill_s),
                                 ("decode", prof_decode, decode_ms)):
         if prof["device_ms"] is not None:
-            rec[f"{name}_device_idle_share"] = 1 - prof["device_ms"] / wall_ms
+            rec[f"{name}_device_idle_share"] = 1 - prof["busy_ms"] / wall_ms
     log("main " + json.dumps(rec))
     return rec, eng, prompts
 
@@ -1150,9 +1241,8 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s for "
         f"{json.dumps(build_s)}")
     for name, text in sorted(cuda_build.BUILD_LOGS.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+        for entry, line in ptxas_lines(text):
+            log(f"ptxas {name} {entry}: {line}")
 
     # 3. kernels
     shapes = check_kernels(flops_peak, bytes_peak)
@@ -1236,6 +1326,11 @@ def main() -> int:
                                "dtype")}})
         if entry == "rank_update_batched":
             kernels[-1]["launches_by_K"] = dict(sorted(by_k.items()))
+        for key in ("device_ms", "kernel_sum_ms", "host_us",
+                    "library_device_ms", "library_kernel_sum_ms",
+                    "library_host_us"):
+            if key in head:
+                kernels[-1][key] = head[key]
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

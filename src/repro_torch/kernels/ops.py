@@ -11,7 +11,7 @@ or ragged fallback is needed here.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -105,9 +105,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, n_valid: int) -> torch.Tensor:
+                 v_cache: torch.Tensor,
+                 n_valid: Union[int, torch.Tensor]) -> torch.Tensor:
     """One decode step's attention: q (B, H, hd) over the first
-    ``n_valid`` slots of the caches (B, L, KV, hd)."""
+    ``n_valid`` slots of the caches (B, L, KV, hd); ``n_valid`` an int or
+    a one-element int32 tensor on q's device (read there)."""
     if q.device.type == "cpu":
         return ref.flash_decode(q, k_cache, v_cache, n_valid)
     return _cuda_fd.flash_decode(q, k_cache, v_cache, n_valid)

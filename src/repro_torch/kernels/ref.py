@@ -6,7 +6,7 @@ the CUDA kernels are held against on the card.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -103,20 +103,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, n_valid: int) -> torch.Tensor:
+                 v_cache: torch.Tensor,
+                 n_valid: Union[int, torch.Tensor]) -> torch.Tensor:
     """Plain version of kernels.flash_decode: one query token per sequence
     over the first ``n_valid`` cache slots, f32 scores, softmax and
     products, output in q's dtype.
 
     q (B, H, hd), caches (B, L, KV, hd); each group of H / KV query heads
-    shares its KV head.
+    shares its KV head.  ``n_valid`` is an int or a one-element int tensor
+    on q's device; slots at or past it are masked (``arange(L) < n_valid``,
+    as the reference's decode attention masks), not sliced, so nothing is
+    read back to the host.
     """
     b, h, hd = q.shape
-    kvh = k_cache.shape[2]
+    L, kvh = k_cache.shape[1], k_cache.shape[2]
     qf = q.float().reshape(b, kvh, h // kvh, hd)
-    kf = k_cache[:, :n_valid].float()
-    vf = v_cache[:, :n_valid].float()
-    scores = torch.einsum("bkgd,bskd->bkgs", qf, kf) * hd ** -0.5
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p, vf)
+    scores = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float()) \
+        * hd ** -0.5
+    keep = torch.arange(L, device=q.device) < n_valid
+    p = torch.softmax(scores.masked_fill(~keep, float("-inf")), dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return out.reshape(b, h, hd).to(q.dtype)

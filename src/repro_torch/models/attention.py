@@ -101,9 +101,12 @@ def cache_slot(cfg, cache_len: int, pos: int) -> Tuple[int, int]:
 
 
 def decode_attention(params: Dict[str, Tensor], cfg, x: Tensor,
-                     cache: Dict[str, Tensor], pos: int
-                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """One-token decode. x (B, 1, D); cache k/v (B, L, KV, hd); pos an int.
+                     cache: Dict[str, Tensor], slot: int, pos: Tensor,
+                     n_valid: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One-token decode. x (B, 1, D); cache k/v (B, L, KV, hd); ``slot``
+    the host int :func:`cache_slot` gives for this position; ``pos`` (1,)
+    and ``n_valid`` () int tensors on x's device, made once per step by
+    :meth:`LM.decode_step` (the reference traces both as scalars).
 
     Writes this token's rope'd k/v into its slot IN PLACE (the reference
     returns a new cache; here the one cache is updated, which saves a
@@ -113,11 +116,9 @@ def decode_attention(params: Dict[str, Tensor], cfg, x: Tensor,
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)
-    cos, sin = layers.rope_angles(
-        torch.tensor([pos], device=x.device), hd, cfg.rope_theta)
+    cos, sin = layers.rope_angles(pos, hd, cfg.rope_theta)
     q = layers.apply_rope(q, cos, sin)
     k = layers.apply_rope(k, cos, sin)
-    slot, n_valid = cache_slot(cfg, cache["k"].shape[1], pos)
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
     out = ops.flash_decode(q[:, 0].contiguous(), cache["k"], cache["v"],

@@ -158,15 +158,23 @@ class LM:
                     ) -> Tuple[Tensor, Params]:
         """One decode step. token (B, 1) ints; pos an int.  Writes the
         token's k/v into ``cache`` in place.  Returns (logits (B, 1, V),
-        cache)."""
+        cache).
+
+        The position and the valid slot count go to the device once per
+        step, in one int32 tensor, which every layer's rope and
+        flash-decode kernel read there."""
         cfg = self.cfg
         tokens = torch.as_tensor(token, device=self.device).long()
         x = layers.embed(params["embed"], tokens)
         kc, vc = cache["kv"]["k"], cache["kv"]["v"]
+        pos = int(pos)
+        slot, n_valid = attention.cache_slot(cfg, kc.shape[2], pos)
+        step = torch.tensor([pos, n_valid], dtype=torch.int32,
+                            device=self.device)
         for i, bp in enumerate(self._blocks(params)):
             a, _ = attention.decode_attention(
                 bp["attn"], cfg, layers.rmsnorm(bp["ln1"], x, cfg.norm_eps),
-                {"k": kc[i], "v": vc[i]}, int(pos))
+                {"k": kc[i], "v": vc[i]}, slot, step[:1], step[1])
             x = self._block(bp, x, a)
         x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return self.logits(params, x), cache

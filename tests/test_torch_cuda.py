@@ -264,23 +264,71 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh, hd,
         **ATTN_TOL[dtype])
 
 
+def _decode_inputs(device, dtype, b, L, h, kvh, hd, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(*shape, device=device, generator=g).to(dtype)
+                 for shape in ((b, h, hd), (b, L, kvh, hd), (b, L, kvh, hd)))
+
+
+@pytest.mark.parametrize("n_form", ["int", "tensor"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,L,h,kvh,hd,n_valid", [
     (2, 256, 4, 4, 80, 1),         # group 1, one valid slot
     (8, 1024, 32, 8, 80, 513),     # danube's heads, a ragged prefix
     (2, 512, 36, 4, 128, 512),     # group 9, a full (wrapped) ring
-    (1, 1000, 8, 2, 128, 999)])
-def test_flash_decode_kernel_matches_plain(cuda, dtype, b, L, h, kvh, hd,
-                                           n_valid):
-    g = torch.Generator(device=cuda).manual_seed(L + h + n_valid)
-    q = torch.randn(b, h, hd, device=cuda, generator=g).to(dtype)
-    k, v = (torch.randn(b, L, kvh, hd, device=cuda, generator=g).to(dtype)
-            for _ in range(2))
+    (1, 1000, 8, 2, 128, 999),
+    (2, 300, 16, 1, 64, 300),      # group 16
+    (3, 200, 8, 2, 32, 77),        # head_dim 32
+    (1, 700, 8, 1, 64, 650),       # head_dim 64, group 8
+    (2, 333, 12, 4, 96, 200)])     # head_dim 96, group 3
+def test_flash_decode_kernel_matches_plain(cuda, n_form, dtype, b, L, h, kvh,
+                                           hd, n_valid):
+    q, k, v = _decode_inputs(cuda, dtype, b, L, h, kvh, hd, L + h + n_valid)
+    n = n_valid if n_form == "int" else torch.tensor(
+        n_valid, dtype=torch.int32, device=cuda)
     before = cuda_fd.LAUNCHES["flash_decode"]
-    got = ops.flash_decode(q, k, v, n_valid)
+    got = ops.flash_decode(q, k, v, n)
     assert cuda_fd.LAUNCHES["flash_decode"] == before + 1
+    assert got.dtype == dtype
     torch.testing.assert_close(got, ref.flash_decode(q, k, v, n_valid),
                                **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_is_deterministic(cuda, dtype):
+    """The splits merge in a fixed order: two calls agree bit for bit, and
+    the int and tensor forms of n_valid too."""
+    q, k, v = _decode_inputs(cuda, dtype, 8, 4096, 32, 8, 80, 7)
+    first = ops.flash_decode(q, k, v, 3001)
+    n = torch.tensor([3001], dtype=torch.int32, device=cuda)
+    for _ in range(2):
+        assert torch.equal(ops.flash_decode(q, k, v, n), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_replays_in_a_cuda_graph(cuda, dtype):
+    """One call captured in a CUDA graph, replayed after writing other
+    n_valid into its tensor: the launch depends on the cache's shape only,
+    and the kernel reads n_valid on the card."""
+    L = 4096
+    q, k, v = _decode_inputs(cuda, dtype, 2, L, 32, 8, 80, 11)
+    n = torch.tensor(L, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.flash_decode(q, k, v, n)            # warm-up: build and load
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = cuda_fd.LAUNCHES["flash_decode"]
+    with torch.cuda.graph(graph):
+        out = ops.flash_decode(q, k, v, n)
+    assert cuda_fd.LAUNCHES["flash_decode"] == before + 1
+    for n_valid in (1, 2049, L):
+        n.fill_(n_valid)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref.flash_decode(q, k, v, n_valid),
+                                   **ATTN_TOL[dtype])
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):
@@ -295,3 +343,8 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
         cuda_fa.flash_attention(q.transpose(1, 2), q, q)
     with pytest.raises(ValueError, match="n_valid"):
         cuda_fd.flash_decode(q[:, 0], q, q, 9)
+    with pytest.raises(ValueError, match="n_valid"):
+        cuda_fd.flash_decode(q[:, 0], q, q, torch.tensor(3, device=cuda))
+    with pytest.raises(ValueError, match="n_valid"):
+        cuda_fd.flash_decode(q[:, 0], q, q, torch.tensor(3,
+                                                         dtype=torch.int32))

@@ -14,7 +14,7 @@ from repro.kernels import ref as jax_ref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models.attention import blockwise_attention
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_decode import TILE, split_plan
+from repro_torch.kernels.flash_decode import MAX_SPLITS, TILE, split_plan
 
 from conftest import assert_close
 
@@ -40,6 +40,26 @@ def test_flash_decode_matches_pallas(h, hkv, d, s, extra, rng):
     ln = jnp.asarray(n_valid, jnp.int32)
     assert_close(got, jax_ops.flash_decode(q, k, v, ln), **TOL)
     assert_close(got, jax_ref.flash_decode(q, k, v, ln), **TOL)
+
+
+# the same six shapes, n_valid given as a 0-d int32 tensor (the form the
+# decode step passes, read on the device) and as a (1,) one
+@pytest.mark.parametrize("h,hkv,d,s,extra", [
+    (8, 2, 64, 512, 0), (4, 4, 32, 256, 100), (16, 1, 64, 1024, 5),
+    (8, 8, 128, 256, 0), (32, 8, 80, 256, 31), (36, 4, 128, 128, 127)])
+def test_flash_decode_takes_n_valid_as_a_tensor(h, hkv, d, s, extra, rng):
+    q, k, v = _normal(rng, h, d), _normal(rng, s, hkv, d), \
+        _normal(rng, s, hkv, d)
+    n_valid = s - extra
+    tq, tk, tv = (torch.from_numpy(x)[None] for x in (q, k, v))
+    by_int = ops.flash_decode(tq, tk, tv, n_valid)
+    for n in (torch.tensor(n_valid, dtype=torch.int32),
+              torch.tensor([n_valid], dtype=torch.int32)):
+        torch.testing.assert_close(ops.flash_decode(tq, tk, tv, n), by_int,
+                                   rtol=0, atol=0)
+    ln = jnp.asarray(n_valid, jnp.int32)
+    assert_close(by_int[0].numpy(), jax_ops.flash_decode(
+        q, k, v, ln, interpret=True), **TOL)
 
 
 def test_flash_decode_matches_the_models_decode_einsum(rng):
@@ -155,13 +175,18 @@ def test_card_bf16_tolerance_does_not_admit_a_bf16_p(rng):
     assert not np.allclose(got, want, rtol=1e-2, atol=1e-3)
 
 
-@pytest.mark.parametrize("b,kvh,n_valid,sms", [
+@pytest.mark.parametrize("b,groups,L,sms", [
     (8, 8, 4096, 132), (8, 8, 1, 132), (8, 8, 2049, 132), (1, 1, 100, 132),
     (1, 4, 4096, 132), (64, 8, 65, 132), (2, 2, 5000, 16)])
-def test_decode_split_plan_covers_the_valid_slots(b, kvh, n_valid, sms):
-    chunk, nsplit = split_plan(b, kvh, n_valid, sms)
-    assert chunk % TILE == 0
-    # every split holds a valid slot, and together they hold them all
-    assert (nsplit - 1) * chunk < n_valid <= nsplit * chunk
-    # and there are no more of them than cover the SMs four times
-    assert nsplit <= max(1, -(-4 * sms // (b * kvh)))
+def test_decode_split_plan_covers_the_valid_slots(b, groups, L, sms):
+    """The plan depends on the cache's length only, not on n_valid: its
+    splits cover all L slots (the kernel shares the valid slots' tiles
+    among the same splits on the device)."""
+    for per_sm in (1, 2):
+        chunk, nsplit = split_plan(b, groups, L, sms, per_sm)
+        assert chunk % TILE == 0
+        # every split holds a slot of the cache, together all of them
+        assert (nsplit - 1) * chunk < L <= nsplit * chunk
+        # and no more blocks than fill the SMs per_sm times (one wave)
+        assert nsplit <= min(MAX_SPLITS,
+                             max(1, per_sm * sms // (b * groups)))
