@@ -197,7 +197,8 @@ def ptxas_lines(text: str):
     for line in text.splitlines():
         found = re.search(r"Compiling entry function '(\w+)'", line)
         if found:
-            entry = re.sub(r"^_ZN\d+_GLOBAL__N_1\d+|^_Z\d+", "",
+            entry = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_"
+                           r"[0-9a-f]{8}(?:\d+tc)?\d+|^_Z\d+", "",
                            found.group(1)).split("EEv")[0]
         elif "registers" in line or "spill" in line:
             yield entry, line.strip()
@@ -1049,7 +1050,7 @@ def phase_serve_full(peaks_):
     kv = eng.cache["kv"]
     real.append(check_flash_decode(q[:, 0].contiguous(), kv["k"][0],
                                    kv["v"][0], kv["k"].shape[2], peaks_,
-                                   "danube_layer0_ring", timed=False))
+                                   "danube_layer0_ring"))
     # where the time goes: one more prefill and two decode steps under the
     # profiler (kernel time; the host clock above gives the wall time)
     prof_prefill = device_profile(lambda: eng.prefill(prompts),

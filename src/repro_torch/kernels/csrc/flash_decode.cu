@@ -23,9 +23,9 @@
 // value), and the launches are fixed by the cache's shape: grid (nsplit,
 // KV / heads a block, B), nsplit chosen by the host from B, KV, L and the
 // SM count.  Each block reads n_valid and takes every nsplit-th tile of the
-// valid slots (INTERLEAVE: at each step the blocks of a batch row read
-// neighbouring tiles, so the grid sweeps the cache together); a split with
-// no tile loads nothing and reports m = -inf, l = 0.  So the same launches
+// valid slots (at each step the blocks of a batch row read neighbouring
+// tiles, so the grid sweeps the cache together); a split with no tile loads
+// nothing and reports m = -inf, l = 0.  So the same launches
 // serve every step and can be captured in a CUDA graph.
 //
 // bf16 caches (flash_decode_bf16_mma, the serving path): one block of
@@ -62,11 +62,13 @@
 // sum_i 2^(m_i - M) acc_i / sum_i 2^(m_i - M) l_i, a split with l = 0
 // weighed 0.  The output is the same, bit for bit, from run to run.
 // (Merging in the last block to finish, by an atomic counter, or in a
-// thread-block cluster's shared memory measured slower:
+// thread-block cluster's shared memory measured slower, and so did runs of
+// consecutive tiles and a merge launched after the split pass has ended:
 // tools/torch_flash_decode_variants.py, PERF.md.)
 //
 // tools/torch_flash_decode_variants.py rebuilds this file with other
-// values of the constants below and times them side by side.
+// values of the constants below, or other text, and times them side by
+// side.
 
 #include <math.h>
 
@@ -105,6 +107,45 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// The split pass's blocks let the merge's blocks be placed once each has
+// done its loads (the merge waits for the whole pass at griddepcontrol.wait).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// A block's partial from its warps' partials, merged in a fixed order: row
+// r = head * g + gi of bacc [nheads * g][hd] and bml [nheads * g][2] (m, l)
+// takes warps w = head, head + nheads, ... below warps, whose row gi is
+// pacc [w * wrows + gi][hd] and wml [w * wrows + gi][2]; a warp with
+// m = -inf (no valid key) weighs 0.
+__device__ void merge_warps(const float* pacc, const float* wml, int warps,
+                            int wrows, int nheads, int g, int hd,
+                            float* bacc, float* bml) {
+  for (int idx = threadIdx.x; idx < nheads * g * hd; idx += blockDim.x) {
+    const int r = idx / hd;
+    const int d = idx - r * hd;
+    const int head = r / g;
+    const int gi = r - head * g;
+    float mx = -INFINITY;
+    for (int w = head; w < warps; w += nheads)
+      mx = fmaxf(mx, wml[(w * wrows + gi) * 2]);
+    float num = 0.f, den = 0.f;
+    for (int w = head; w < warps; w += nheads) {
+      const float mw = wml[(w * wrows + gi) * 2];
+      if (mw != -INFINITY) {
+        const float wt = exp2_approx(mw - mx);
+        num = fmaf(wt, pacc[(w * wrows + gi) * hd + d], num);
+        den = fmaf(wt, wml[(w * wrows + gi) * 2 + 1], den);
+      }
+    }
+    bacc[idx] = num;
+    if (d == 0) {
+      bml[r * 2] = mx;
+      bml[r * 2 + 1] = den;
+    }
+  }
+}
+
 // The end of a split: its block's partial for KV heads kv0 ..
 // kv0+nheads-1 -- bacc [nheads * g][hd] and bml [nheads * g][2] (m, l) in
 // shared memory -- goes to the workspace for flash_decode_merge.
@@ -130,10 +171,9 @@ __device__ void write_partial(const float* bacc, const float* bml,
 // The merge: one thread an output element of out (b, h, hd), over the
 // nsplit partials of its query head in split order: M = max m_i, then
 // out = sum_i w_i acc_i / sum_i w_i l_i with w_i = 2^(m_i - M) (0 where
-// l_i = 0).  Launched as a programmatic dependent of the split pass (PDL):
-// its blocks are placed while the split pass drains and wait here for its
+// l_i = 0).  Launched as a programmatic dependent of the split pass: its
+// blocks are placed while the split pass drains and wait here for its
 // results.
-constexpr bool PDL = true;
 constexpr int MERGE_THREADS = 256;
 
 template <typename T>
@@ -167,12 +207,9 @@ flash_decode_merge(const float* __restrict__ ws, T* __restrict__ out, int b,
   out[idx] = attn::from_f32<T>(den > 0.f ? num / den : 0.f);
 }
 
-// This block's tiles of the valid slots: with INTERLEAVE, split s takes
-// tiles s, s + nsplit, ... (at each step the blocks read neighbouring
-// tiles, so the whole grid sweeps the cache together); otherwise an equal
-// run of consecutive tiles.
-constexpr bool INTERLEAVE = true;
-
+// This block's tiles of the valid slots: split s takes tiles s,
+// s + nsplit, ... (at each step the blocks read neighbouring tiles, so the
+// whole grid sweeps the cache together).
 struct Run {
   int n;       // valid slots
   int nt;      // tiles of this split
@@ -186,16 +223,9 @@ __device__ __forceinline__ Run split_run(const int* n_valid_dev,
   Run r;
   r.n = n_valid_dev ? min(max(*n_valid_dev, 0), L) : n_valid_host;
   const int tiles = (r.n + bks - 1) / bks;
-  if (INTERLEAVE) {
-    r.nt = split < tiles ? (tiles - split + nsplit - 1) / nsplit : 0;
-    r.first = split;
-    r.stride = nsplit;
-  } else {
-    const int per = (tiles + nsplit - 1) / nsplit;
-    r.nt = max(0, min(per, tiles - split * per));
-    r.first = split * per;
-    r.stride = 1;
-  }
+  r.nt = split < tiles ? (tiles - split + nsplit - 1) / nsplit : 0;
+  r.first = split;
+  r.stride = nsplit;
   return r;
 }
 
@@ -458,7 +488,7 @@ flash_decode_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ kc,
       }
     }
   }
-  if (PDL) asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  launch_dependents();
   if (wph == 1) {
     // the warp holds its head's whole partial: rows fr, fr + 8 below g
     const int64_t row0 =
@@ -511,29 +541,7 @@ flash_decode_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   // each head's partial: its warps (w = hw, hw + kvb, ...) merged in order
   float* bacc = wml + TC_WARPS * 16 * 2;           // [kvb * g][HD]
   float* bml = bacc + kvb * g * HD;                // [kvb * g][2]
-  for (int idx = tid; idx < kvb * g * HD; idx += TC_THREADS) {
-    const int r = idx / HD;
-    const int d = idx - r * HD;
-    const int head = r / g;
-    const int gi = r - head * g;
-    float mx = -INFINITY;
-    for (int w = head; w < TC_WARPS; w += kvb)
-      mx = fmaxf(mx, wml[(w * 16 + gi) * 2]);
-    float num = 0.f, den = 0.f;
-    for (int w = head; w < TC_WARPS; w += kvb) {
-      const float mw = wml[(w * 16 + gi) * 2];
-      if (mw != -INFINITY) {
-        const float wt = exp2_approx(mw - mx);
-        num = fmaf(wt, pacc[(w * 16 + gi) * HD + d], num);
-        den = fmaf(wt, wml[(w * 16 + gi) * 2 + 1], den);
-      }
-    }
-    bacc[idx] = num;
-    if (d == 0) {
-      bml[r * 2] = mx;
-      bml[r * 2 + 1] = den;
-    }
-  }
+  merge_warps(pacc, wml, TC_WARPS, 16, kvb, g, HD, bacc, bml);
   __syncthreads();
   write_partial(bacc, bml, ws, b, kv0, kvb, h, kvh, HD, split, nsplit);
 }
@@ -745,7 +753,7 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ kc,
       }
     }
   }
-  if (PDL) asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  launch_dependents();
   cp_async_wait<0>();
   __syncthreads();   // the ring is free: reuse it for the warps' partials
 
@@ -773,28 +781,7 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ kc,
   // the block's partial, warps merged in order
   float* bacc = wml + WARPS * G * 2;               // [g][HD]
   float* bml = bacc + g * HD;                      // [g][2]
-  for (int idx = tid; idx < g * HD; idx += THREADS) {
-    const int gi = idx / HD;
-    const int d = idx - gi * HD;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wml[(w * G + gi) * 2]);
-    float num = 0.f, den = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float mw = wml[(w * G + gi) * 2];
-      if (mw != -INFINITY) {
-        const float wt = exp2_approx(mw - mx);
-        num = fmaf(wt, pacc[(w * G + gi) * HD + d], num);
-        den = fmaf(wt, wml[(w * G + gi) * 2 + 1], den);
-      }
-    }
-    bacc[idx] = num;
-    if (d == 0) {
-      bml[gi * 2] = mx;
-      bml[gi * 2 + 1] = den;
-    }
-  }
+  merge_warps(pacc, wml, WARPS, G, 1, g, HD, bacc, bml);
   __syncthreads();
   write_partial(bacc, bml, ws, b, kv, 1, h, kvh, HD, split, nsplit);
 }
@@ -842,7 +829,7 @@ int launch(void (*kern)(KArgs...), int threads, int smem, int groups,
   cfg.blockDim = dim3(MERGE_THREADS);
   cfg.stream = a.stream;
   cfg.attrs = &attr;
-  cfg.numAttrs = PDL ? 1 : 0;
+  cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, flash_decode_merge<T>,
                                  (const float*)a.ws, static_cast<T*>(a.out),
                                  a.b, a.h, a.kvh, hd, a.nsplit);

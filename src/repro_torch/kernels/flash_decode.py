@@ -118,11 +118,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
             out.data_ptr(), ws.data_ptr(), n_ptr, n_host, b, L, h, kvh, hd,
             nsplit, int(dtype == torch.bfloat16), hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
-    if q.device.index == torch.cuda.current_device():
+    with torch.cuda.device(q.device):
         code = lib.flash_decode_fwd(*args)
-    else:
-        with torch.cuda.device(q.device):
-            code = lib.flash_decode_fwd(*args)
     cuda_build.check_launch("flash_decode_fwd", code)
     LAUNCHES["flash_decode"] += 1
     return out

@@ -49,6 +49,14 @@ _REFILL = """    if (t + TC_STAGES - 1 < run.nt) load_tile(t + TC_STAGES - 1);
     cp_async_commit();"""
 
 _EPILOGUE = "  if (wph == 1) {\n"
+_INTERLEAVED = """  r.nt = split < tiles ? (tiles - split + nsplit - 1) / nsplit : 0;
+  r.first = split;
+  r.stride = nsplit;"""
+_BLOCKED = """  const int per = (tiles + nsplit - 1) / nsplit;
+  r.nt = max(0, min(per, tiles - split * per));
+  r.first = split * per;
+  r.stride = 1;"""
+_LAUNCH_DEPENDENTS = '''asm volatile("griddepcontrol.launch_dependents;\\n" ::: "memory");'''
 
 
 def _set(text: str, value: int):
@@ -64,9 +72,11 @@ VARIANTS = {
     "w8h4": [_set(_WARPS, 8)],
     "w8h4_ring2": [_set(_WARPS, 8), _set(_STAGES, 2)],
     "w8h8": [_set(_WARPS, 8), _set(_HEADS, 8)],
-    "blocked": [("constexpr bool INTERLEAVE = true;",
-                 "constexpr bool INTERLEAVE = false;")],
-    "no_pdl": [("constexpr bool PDL = true;", "constexpr bool PDL = false;")],
+    # each split an equal run of consecutive tiles, not every nsplit-th
+    "blocked": [(_INTERLEAVED, _BLOCKED)],
+    # the merge launched after the split pass has ended
+    "no_pdl": [(_LAUNCH_DEPENDENTS, ""),
+               ("cfg.numAttrs = 1;", "cfg.numAttrs = 0;")],
     # probes, not kernels: the stream without the arithmetic, the
     # arithmetic on whatever shared memory holds without the stream, and
     # the split pass without its epilogue (partials and merge)
