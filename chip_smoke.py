@@ -16,7 +16,8 @@ CUDA toolkit.  Phases, each of which raises on failure:
    of matrix powers' batch of 16); the flash kernels at danube's
    and starcoder2's attention shapes, windowed, ragged, bf16 and f32 (the
    prefill kernel's records with its achieved TFLOP/s and share of the
-   bf16 tensor-core peak).
+   bf16 tensor-core peak); the row kernel also cold (rotating RowSets),
+   by the profiler, and its host time.
 4. matrix powers A^16 (n = 10000, exp model, the paper's size): 8 single
    updates, one batch of 16, 20 queued updates with a final flush, all
    replayed through the re-evaluation engine and compared view by view;
@@ -65,6 +66,7 @@ checkout, the script prints no result and exits non-zero.
 
 from __future__ import annotations
 
+import itertools
 import json
 import re
 import statistics
@@ -91,6 +93,9 @@ KERNEL_RTOL = KERNEL_ATOL = 2e-4
 MAIN_TOL = 1e-3
 
 UPDATES_SINGLE, UPDATES_BATCH, UPDATES_QUEUED = 8, 16, 20
+# phase 3's cold row timings rotate over at least this many RowSets, and
+# over enough to touch twice the H100's 50 MB L2 where the view is large
+ROW_COLD_SETS, L2_BYTES = 8, 50 * 2 ** 20
 # the four apps of phase 8 run at n = 10000 with fewer updates, to keep
 # the script short
 APP_N, APP_UPDATES = 10000, (4, 8, 8)
@@ -288,12 +293,14 @@ def check_kernels(flops_peak: float, bytes_peak: float):
     def randn(*shape):
         return torch.randn(*shape, device=DEVICE, generator=gen)
 
-    def record(entry, shape, err, ms, plain_ms, lib_ms, nbytes, flops):
+    def record(entry, shape, err, ms, plain_ms, lib_ms, nbytes, flops,
+               **times):
         b_ms, b_by = bound(nbytes, flops, flops_peak, bytes_peak)
         # achieved fp32 rate, and the kernel's time over the library call's
         rec = {"entry": entry, **shape, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "tflops": flops / (ms * 1e-3) / 1e12,
+               **times, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "tflops": flops / (ms * 1e-3) / 1e12,
                "vs_library": ms / lib_ms}
         log("kernel " + json.dumps(rec))
         out[entry].append(rec)
@@ -338,7 +345,14 @@ def check_kernels(flops_peak: float, bytes_peak: float):
 
     # (n, p, r, k): phase 6's applies to X and to Y1, Y2 (one carrier, and
     # a stacked batch of about 16 x 1 % of the rows at rank 128), phase 7's
-    # to A and S2 and to T1 (one carrier, a batch of 8), a ragged shape
+    # to A and S2 and to T1 (one carrier, a batch of 8), a ragged shape.
+    # ms and device_ms are warm: every launch on the same rows, which stay
+    # in L2 where they fit.  cold_ms and cold_device_ms rotate over
+    # ROW_COLD_SETS or more RowSets with their own blocks, touching at least
+    # twice the L2 where the view is large enough, as the engine's carriers
+    # touch other rows every firing.  device_ms is the profiler's kernel
+    # time, host_us the binding's enqueue time: where the kernel is shorter
+    # than the host's work, ms is the host's.
     rng = np.random.default_rng(0)
     row_cases = [(CHAIN_N, CHAIN_M, CHAIN_ROWS, CHAIN_RANK),
                  (CHAIN_N, CHAIN_K, CHAIN_ROWS, CHAIN_RANK),
@@ -347,9 +361,14 @@ def check_kernels(flops_peak: float, bytes_peak: float):
                  (GI_N, GI_N, 8 * GI_ROWS, 8), (37, 101, 5, 3)]
     for n, p, r, k in row_cases:
         m0 = randn(n, p)
-        rows = cuda_rows.RowSet(np.sort(rng.choice(n, r, replace=False)), n)
-        block = randn(r, k)
         v = randn(p, k)
+        count = max(ROW_COLD_SETS,
+                    min(64, -(-2 * L2_BYTES // (4 * r * p))))
+        sets = [(cuda_rows.RowSet(np.sort(rng.choice(n, r, replace=False)),
+                                  n), randn(r, k)) for _ in range(count)]
+        for rs, _ in sets:   # each set's ids uploaded before any timing
+            rs.ids(m0.device)
+        rows, block = sets[0]
         idx = rows.index(DEVICE)
         want = ref.rank_update_rows(m0, idx, block, v)
         got = cuda_rows.rank_update_rows(m0.clone(), rows, block, v)
@@ -357,13 +376,25 @@ def check_kernels(flops_peak: float, bytes_peak: float):
         err = check_close(f"rank_update_rows {(n, p, r, k)}", got, want)
         del want, got
         work = m0.clone()
-        ms = time_ms(lambda: cuda_rows.rank_update_rows(work, rows, block, v))
+        turn = itertools.count()
+
+        def warm():
+            cuda_rows.rank_update_rows(work, rows, block, v)
+
+        def cold():
+            cuda_rows.rank_update_rows(work, *sets[next(turn) % count], v)
+
+        ms = time_ms(warm)
+        times = {"cold_ms": time_ms(cold),
+                 "device_ms": device_ms_per_call(warm, reps=40)[1],
+                 "cold_device_ms": device_ms_per_call(cold, reps=40)[1],
+                 "host_us": host_us(warm), "cold_sets": count}
         plain_ms = time_ms(lambda: ref.rank_update_rows(m0, idx, block, v))
         lib_ms = time_ms(lambda: work.index_add_(0, idx, block @ v.T))
         record("rank_update_rows", {"n": n, "p": p, "r": r, "k": k}, err, ms,
                plain_ms, lib_ms, 8.0 * r * p + 4.0 * k * (r + p) + 4.0 * r,
-               2.0 * r * p * k)
-        del m0, block, v, work
+               2.0 * r * p * k, **times)
+        del m0, v, sets, rows, block, work
 
     # (n, m, k): phase 9's W (8192^2, k = 1) and ragged shapes
     for n, m, k in [(8192, 8192, 1), (1000, 777, 5), (37, 101, 1)]:

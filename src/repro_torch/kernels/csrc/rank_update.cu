@@ -8,393 +8,33 @@
 //     -> entry rank_update_f32, the T = 1 case of the same kernel.
 //
 // Layout: M is (n, p) row-major; U is the stack (T, n, k) and V the stack
-// (T, p, k), both contiguous.  The kernel walks the stack through strides
-// (U_t starts at u + t*n*k), so the wrapper never reshapes or copies the
-// factors; a 2-D (n, K) factor pair is the T = 1 stack with k = K.
+// (T, p, k), both contiguous; a 2-D (n, K) factor pair is the T = 1 stack
+// with k = K.  Row i of U updates row i of M (the DenseRows map).
 //
 // Bound on the card: with K = T*k the op moves 8*n*p + 4*K*(n + p) bytes
 // (M read once and written once, each factor read once) and does 2*n*p*K
 // FLOPs.  At 3.35 TB/s and 67 TFLOP/s fp32 (H100 SXM data sheet, 700 W) it
 // is memory-bound below K ~ 80 and FLOP-bound above.  The main path's K
 // runs from 1 (a rank-1 update to the input) to 256 (the top view of
-// matrix powers under a T = 16 batch), so both regimes occur.  Plain fp32
-// FMA throughout (no TF32, no tensor cores); the sum is M + (sum U V^T):
-// the products are accumulated from zero and M is added once at the end.
+// matrix powers under a T = 16 batch), so both regimes occur.
 //
-// Design.  One launch per call; the C entry picks one of two tiles from K
-// and from M's alignment.
-//   * One flat contraction.  The stack is walked as one inner dimension of
-//     K = T*k columns, flat column kk being column kk % k of U_(kk / k); a
-//     staged chunk may cross a boundary of t.  T = 16 rank-1 pairs cost
-//     what one rank-16 pair costs (a loop that restarted its chunks at
-//     every t ran 16 chunks with one useful column each, behind 32
-//     barriers).
-//   * Factor staging is coalesced and asynchronous.  For a fixed t a tile's
-//     row panel of U_t (its rows x all k columns) is one contiguous run of
-//     floats, and so is V_t's.  Loaders give neighbouring threads
-//     neighbouring addresses of that run and store each element with a
-//     4-byte cp.async (zero-filled past every edge) into a k-major shared
-//     layout [kk][rows + 4], so the inner loops read float4s without bank
-//     conflicts.  (A loader that gave neighbouring threads neighbouring
-//     rows read one 4-byte word of a 32-byte sector per thread at k >= 8.)
-//   * Compute tile, K > KSTREAM (the FLOP-bound regime): 128 x 128 outputs
-//     per block of 256 threads, an 8 x 8 register tile per thread laid out
-//     as 2 x 2 sub-tiles of 4 x 4, so each step of kk takes 4 LDS.128 for
-//     64 FMAs (a 4 x 4 tile fed by scalar loads took 8 for 16 and was bound
-//     by shared-memory issue).  A warp is 4 x 8 threads: its A loads touch
-//     4 distinct float4s and its B loads 8.  Chunks of 16 flat columns go
-//     through a 2-stage cp.async ring, one barrier a stage, so the copy of
-//     chunk c + 1 overlaps the FMAs of chunk c (one buffer and two barriers
-//     a chunk waited on global latency every 16 columns).  M's tile is
-//     prefetched into L2 once the ring is filled (before it, the first chunk
-//     queues behind the prefetches) and read as float4 in the epilogue,
-//     added to the sums and written once.  __launch_bounds__(256,
-//     2) holds it to 128 registers, with no spill.
-//   * Streaming tile, K <= KSTREAM (the byte-bound regime): 64 x 128
-//     outputs per block of 256 threads; each thread owns 8 rows x 4
-//     columns of M as float4s.  The whole K panel of U and V fits in shared
-//     memory and is staged once; then each step of kk takes 2 broadcast
-//     LDS.128 of U and 1 of V for 32 FMAs.  At K <= KM_FIRST the thread
-//     issues M's loads before the staging, so M's latency overlaps the
-//     factor work; above it the factors go first, so the FMAs start
-//     without waiting for them behind M's loads.  A warp covers 512
-//     contiguous bytes of a row of M (a half-warp of 4-byte accesses
-//     covered 64).
-//   * Edges and alignment.  Rows, columns and flat columns past the edge
-//     are masked or zero-filled, so any n, p, T, k is taken.  M moves as
-//     float4 only where p % 4 == 0 and M's pointer is 16-byte aligned;
-//     otherwise (p = 1 views, a view at an odd storage offset) the same
-//     tiles move it as masked scalars.
+// Design: the two tiles of rank_update_tiles.cuh (a streaming tile for the
+// byte-bound regime, a 128 x 128 FMA tile with a cp.async ring for the
+// FLOP-bound one); the header describes them.
 //
-// KSTREAM, KM_FIRST and the compute tile's ring were chosen from
-// measurement on the card (tools/torch_rank_update_variants.py times the
-// choices side by side at the main path's shapes; PERF.md): the streaming
-// tile is faster through K = 40 and the compute tile from K = 48, below the
+// KSTREAM and KM_FIRST were chosen from measurement on the card
+// (tools/torch_rank_update_variants.py; PERF.md): the streaming tile is
+// faster through K = 40 and the compute tile from K = 48, below the
 // roofline crossover (K ~ 80), because neither tile overlaps its FMAs with
 // M's traffic fully.
 
-#include <climits>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rank_update_tiles.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int KSTREAM = 40;   // largest K that takes the streaming tile
 constexpr int KM_FIRST = 16;  // largest K whose M loads precede the staging
-
-// compute tile: 128 x 128 outputs, 16 flat columns a stage, 2 stages
-constexpr int CBM = 128, CBN = 128, CBK = 16, STAGES = 2;
-constexpr int CLD = CBM + 4;  // shared row: 528 bytes, 16-byte aligned
-constexpr size_t CSMEM = 2 * STAGES * CBK * CLD * sizeof(float);
-static_assert(CBM == CBN, "one loader fills the U and V panels together");
-static_assert(THREADS % CBK == 0 && CBM % (THREADS / CBK) == 0,
-              "each thread stages one flat column of CBM / (THREADS / CBK) "
-              "rows");
-
-// streaming tile: 64 x 128 outputs, 8 rows x 4 columns a thread
-constexpr int SROWS = 8, SBM = SROWS * (THREADS / 32), SBN = 128;
-constexpr int SLDU = SBM + 4, SLDV = SBN + 4;
-static_assert(SBN == 4 * 32, "a warp owns 128 columns of 8 rows");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 4-byte asynchronous copy global -> shared; writes 0 when !ok (src is then
-// not read)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void prefetch_l2(const float* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-
-// loads of M kept in program order (asm volatile), so the streaming tile's
-// loads are in flight before the factors are staged
-__device__ __forceinline__ float4 ld_m4(const float* p) {
-  float4 x;
-  asm volatile("ld.global.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
-               : "l"(p));
-  return x;
-}
-
-__device__ __forceinline__ float ld_m1(const float* p) {
-  float x;
-  asm volatile("ld.global.f32 %0, [%1];\n" : "=f"(x) : "l"(p));
-  return x;
-}
-
-// -- compute tile -------------------------------------------------------------
-
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS, 2)
-rank_update_compute(float* __restrict__ m, const float* __restrict__ u,
-                    const float* __restrict__ v, int n, int p, int t, int k) {
-  extern __shared__ __align__(16) float csmem[];
-  float(*us)[CBK][CLD] = reinterpret_cast<float(*)[CBK][CLD]>(csmem);
-  float(*vs)[CBK][CLD] =
-      reinterpret_cast<float(*)[CBK][CLD]>(csmem + STAGES * CBK * CLD);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  // rows 4*ty + i and 64 + 4*ty + i, columns 4*tx + j and 64 + 4*tx + j
-  const int ty = (warp / 2) * 4 + lane / 8;
-  const int tx = (warp % 2) * 8 + lane % 8;
-  const int row0 = blockIdx.y * CBM;
-  const int col0 = blockIdx.x * CBN;
-
-  // The loader stages flat column kk0 + lc of rows lr + 16 j (j < 8) of
-  // both panels; (ft, fc) is that flat column as (t, column of U_t).  The
-  // CBK threads of a row read 4 * CBK contiguous bytes of it when k >= CBK.
-  const int lc = tid % CBK, lr = tid / CBK;
-  int ft = lc / k, fc = lc % k;
-  auto load_stage = [&](int buf) {
-    const bool kin = ft < t;
-    const float* ub = u + ((int64_t)ft * n + row0 + lr) * k + fc;
-    const float* vb = v + ((int64_t)ft * p + col0 + lr) * k + fc;
-#pragma unroll
-    for (int j = 0; j < CBM / (THREADS / CBK); ++j) {
-      const int r = lr + (THREADS / CBK) * j;
-      const int64_t off = (int64_t)(THREADS / CBK) * j * k;
-      const bool oku = kin && row0 + r < n;
-      const bool okv = kin && col0 + r < p;
-      cp_async4(&us[buf][lc][r], oku ? ub + off : u, oku);
-      cp_async4(&vs[buf][lc][r], okv ? vb + off : v, okv);
-    }
-    fc += CBK;
-    if (fc >= k) {
-      ft += fc / k;
-      fc %= k;
-    }
-  };
-
-  const int nch = (t * k + CBK - 1) / CBK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nch) load_stage(s);
-    cp_async_commit();
-  }
-
-  // warm M's tile (128 rows x 4 lines of 128 bytes) in L2 for the
-  // epilogue, once the ring's first chunks are requested: prefetches issued
-  // before them delay the first chunk behind M's traffic
-  for (int q = tid; q < CBM * 4; q += THREADS) {
-    const int r = row0 + q / 4, c = col0 + (q % 4) * 32;
-    if (r < n && c < p) prefetch_l2(m + (int64_t)r * p + c);
-  }
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int ch = 0; ch < nch; ++ch) {
-    // chunk ch has landed; every thread is past chunk ch - 1, whose
-    // buffer the next load reuses
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (ch + STAGES - 1 < nch) load_stage((ch + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const int buf = ch % STAGES;
-#pragma unroll
-    for (int kk = 0; kk < CBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&us[buf][kk][4 * ty]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&us[buf][kk][64 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&vs[buf][kk][4 * tx]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&vs[buf][kk][64 + 4 * tx]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-
-  // epilogue: M read once, M + sums written once; a warp covers 4 rows x
-  // 128 contiguous bytes per access
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = row0 + (i / 4) * 64 + 4 * ty + i % 4;
-    if (r >= n) continue;
-    float* row = m + (int64_t)r * p;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = col0 + 64 * h + 4 * tx;
-      if (VEC) {
-        if (c < p) {
-          float4 x = *reinterpret_cast<const float4*>(row + c);
-          x.x += acc[i][4 * h];
-          x.y += acc[i][4 * h + 1];
-          x.z += acc[i][4 * h + 2];
-          x.w += acc[i][4 * h + 3];
-          *reinterpret_cast<float4*>(row + c) = x;
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c + j < p) row[c + j] += acc[i][4 * h + j];
-      }
-    }
-  }
-}
-
-// -- streaming tile -----------------------------------------------------------
-
-// Stage rows [row0, row0 + ROWS) of every factor of the stack (rows of
-// length k, row stride k, factor stride rows_total * k) into dst[kk][ld].
-// The block walks the stack in memory order, element e = (s * ROWS + r) * k
-// + c: each t's panel is one contiguous run of ROWS * k floats, read by
-// neighbouring threads at neighbouring addresses, and no thread idles when
-// a panel is shorter than the block (k = 1).
-template <int ROWS>
-__device__ __forceinline__ void stage_panel(float* dst, int ld,
-                                            const float* __restrict__ src,
-                                            int rows_total, int row0, int t,
-                                            int k, int tid) {
-  static_assert((ROWS & (ROWS - 1)) == 0, "q splits into (s, r) by shifts");
-  const int q_step = THREADS / k, c_step = THREADS % k;
-  int q = tid / k, c = tid % k;   // e = q * k + c with q = s * ROWS + r
-  for (int e = tid; e < t * ROWS * k; e += THREADS) {
-    const int s = q / ROWS, r = q % ROWS;
-    const bool ok = row0 + r < rows_total;
-    cp_async4(dst + (s * k + c) * ld + r,
-              ok ? src + ((int64_t)s * rows_total + row0 + r) * k + c : src,
-              ok);
-    q += q_step;
-    c += c_step;
-    if (c >= k) {
-      c -= k;
-      ++q;
-    }
-  }
-}
-
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS, 2)
-rank_update_stream(float* __restrict__ m, const float* __restrict__ u,
-                   const float* __restrict__ v, int n, int p, int t, int k) {
-  extern __shared__ __align__(16) float smem[];
-  const int kdim = t * k;
-  float* us = smem;                 // [K][SLDU]
-  float* vs = smem + kdim * SLDU;   // [K][SLDV]
-
-  const int tid = threadIdx.x;
-  const int cx = tid % 32, ry = tid / 32;
-  const int row0 = blockIdx.y * SBM + SROWS * ry;
-  const int c = blockIdx.x * SBN + 4 * cx;
-
-  // 1. this thread's 8 x 4 elements of M, and 2. the whole K panel of U
-  // and V, staged once.  At K <= KM_FIRST M's loads go first (they are the
-  // critical path); above it the factors go first, so that the FMAs do not
-  // wait for the factors behind M's loads.
-  float mv[SROWS][4];
-  auto load_m = [&]() {
-#pragma unroll
-    for (int i = 0; i < SROWS; ++i) {
-      const int r = row0 + i;
-      const float* src = m + (int64_t)r * p + c;
-      if (VEC) {
-        const float4 x = (r < n && c < p) ? ld_m4(src)
-                                          : make_float4(0.f, 0.f, 0.f, 0.f);
-        mv[i][0] = x.x;
-        mv[i][1] = x.y;
-        mv[i][2] = x.z;
-        mv[i][3] = x.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mv[i][j] = (r < n && c + j < p) ? ld_m1(src + j) : 0.f;
-      }
-    }
-  };
-  auto stage = [&]() {
-    stage_panel<SBM>(us, SLDU, u, n, blockIdx.y * SBM, t, k, tid);
-    stage_panel<SBN>(vs, SLDV, v, p, blockIdx.x * SBN, t, k, tid);
-    cp_async_commit();
-  };
-  if (kdim <= KM_FIRST) {
-    load_m();
-    stage();
-  } else {
-    stage();
-    load_m();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // 3. the sums: 2 broadcast LDS.128 of U and 1 LDS.128 of V for 32 FMAs
-  float acc[SROWS][4];
-#pragma unroll
-  for (int i = 0; i < SROWS; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < kdim; ++kk) {
-    const float4 a0 =
-        *reinterpret_cast<const float4*>(us + kk * SLDU + SROWS * ry);
-    const float4 a1 =
-        *reinterpret_cast<const float4*>(us + kk * SLDU + SROWS * ry + 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(vs + kk * SLDV + 4 * cx);
-    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float b[4] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-    for (int i = 0; i < SROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-
-  // 4. M + sums, written once
-#pragma unroll
-  for (int i = 0; i < SROWS; ++i) {
-    const int r = row0 + i;
-    if (r >= n) continue;
-    float* dst = m + (int64_t)r * p + c;
-    if (VEC) {
-      if (c < p)
-        *reinterpret_cast<float4*>(dst) =
-            make_float4(mv[i][0] + acc[i][0], mv[i][1] + acc[i][1],
-                        mv[i][2] + acc[i][2], mv[i][3] + acc[i][3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (c + j < p) dst[j] = mv[i][j] + acc[i][j];
-    }
-  }
-}
-
-// A block asks for more than 48 KB of dynamic shared memory only by opting
-// in (a streaming tile at K > 61, a deeper compute ring).
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                   float* m, const float* u, const float* v, int n, int p,
-                   int t, int k) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid, THREADS, smem, stream>>>(m, u, v, n, p, t, k);
-  return cudaGetLastError();
-}
+constexpr int SROWS = 8;      // rows of M a thread of the streaming tile owns
 
 }  // namespace
 
@@ -403,23 +43,8 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
 extern "C" int rank_update_batched_f32(float* m, const float* u,
                                        const float* v, int n, int p, int t,
                                        int k, void* stream) {
-  const int64_t kdim = (int64_t)t * k;
-  if (kdim > INT_MAX - CBK) return (int)cudaErrorInvalidValue;
-  const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(m) % 16 == 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (kdim <= KSTREAM) {
-    const dim3 grid((p + SBN - 1) / SBN, (n + SBM - 1) / SBM);
-    const size_t smem = (size_t)kdim * (SLDU + SLDV) * sizeof(float);
-    return (int)(vec ? launch(rank_update_stream<true>, grid, smem, s, m, u,
-                              v, n, p, t, k)
-                     : launch(rank_update_stream<false>, grid, smem, s, m, u,
-                              v, n, p, t, k));
-  }
-  const dim3 grid((p + CBN - 1) / CBN, (n + CBM - 1) / CBM);
-  return (int)(vec ? launch(rank_update_compute<true>, grid, CSMEM, s, m, u,
-                            v, n, p, t, k)
-                   : launch(rank_update_compute<false>, grid, CSMEM, s, m, u,
-                            v, n, p, t, k));
+  return rank_update_tiles<KSTREAM, KM_FIRST, SROWS>(m, u, v, n, p, t, k,
+                                                     DenseRows{}, stream);
 }
 
 // M (n, p) += U (n, k) V (p, k)^T: the T = 1 entry.

@@ -7,9 +7,12 @@ Binding for ``csrc/rank_update_rows.cu``, built and loaded by
 The TPU kernel swept whole row slabs named by a padded slab-id list and
 read a dense ``(n, k)`` left factor.  This kernel takes the affected row
 indices and the compact ``(r, k)`` block directly, so there is no slab
-plan and no padding.  The rows are a :class:`RowSet`: checked once on the
-host (strictly increasing, inside ``[0, n)``, so no two tiles write one
-row) and uploaded once per device, however many views a firing updates.
+plan and no padding: it is the dense kernel's two tiles
+(``csrc/rank_update_tiles.cuh``) with the block as the left factor and M's
+rows looked up through the ids.  The rows are a :class:`RowSet`: checked
+once on the host (strictly increasing, inside ``[0, n)``, so no two tiles
+write one row) and uploaded once per device, however many views a firing
+updates.
 
 The entry works in place on ``m``, launches on the current CUDA stream,
 allocates nothing and never falls back to a plain version.  ``LAUNCHES``
@@ -32,8 +35,6 @@ _SIGNATURES = {
     "rank_update_rows_f32": [cuda_build.PTR] * 4 + [cuda_build.I32] * 3
     + [cuda_build.PTR],
 }
-
-_MAX_GRID_Y = 65535 * 64   # listed rows: gridDim.y is at most 65535 tiles
 
 
 def reset_launches() -> None:
@@ -112,9 +113,9 @@ def rank_update_rows(m: torch.Tensor, rows: RowSet, block: torch.Tensor,
         raise ValueError(f"shapes m {(n, p)}, {len(rows)} rows of {rows.n}, "
                          f"block {(r, k)}, v {tuple(v.shape)} are not (n,p), "
                          "r of n, (r,k), (p,k)")
-    if r > _MAX_GRID_Y or max(n, p, k) >= 2 ** 31:
-        raise ValueError(f"{r} rows or m {(n, p)} is past the kernel's grid "
-                         "or its int32 sizes")
+    if max(n, p, k) >= 2 ** 31:
+        raise ValueError(f"m {(n, p)} or k = {k} is past the kernel's int32 "
+                         "sizes")
     if r == 0 or p == 0 or k == 0:
         return m
     ids = rows.ids(m.device)

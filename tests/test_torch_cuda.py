@@ -119,23 +119,61 @@ def test_engine_on_card_matches_cpu(cuda, app):
         assert float((g - v).abs().max()) / scale <= 1e-5, k
 
 
-@pytest.mark.parametrize("n,p,r,k", [(64, 64, 1, 1), (1000, 37, 70, 5),
-                                     (5000, 130, 64, 16), (300, 1, 65, 40)])
-def test_row_kernel_matches_plain(cuda, n, p, r, k):
+# The row entry's crossovers in csrc/rank_update_rows.cu: the largest k whose
+# M loads precede the staging, and the largest k on the streaming tile.
+_ROWS_CU = (Path(cuda_rows.__file__).parent / "csrc" /
+            "rank_update_rows.cu").read_text()
+ROWS_KM_FIRST, ROWS_KSTREAM = (
+    int(re.search(rf"constexpr int {name} = (\d+);", _ROWS_CU).group(1))
+    for name in ("KM_FIRST", "KSTREAM"))
+
+# (n, p, r, k, layout): k on both sides of each crossover, p = 1, 3, 130
+# (M as masked scalars) and 384 (M as float4); "offset" puts M at a 4-byte
+# storage offset, "wide" lists more rows than 65535 tiles of 64 (the limit
+# of a grid that put the listed rows on gridDim.y)
+_ROW_KS = sorted({1, 8, 16, 17, 40, 41, 128, 256, ROWS_KM_FIRST,
+                  ROWS_KM_FIRST + 1, ROWS_KSTREAM, ROWS_KSTREAM + 1})
+_ROWS = [(64, 64, 1, 1), (1000, 37, 70, 5), (5000, 130, 64, 16),
+         (300, 1, 65, 40)] + [(3000, p, 300, k) for p in (1, 3, 130, 384)
+                              for k in _ROW_KS]
+_ROWS_LAYOUT = [(1000, 384, 300, 8, "offset"), (1000, 384, 300, 128, "offset"),
+                (65535 * 64 + 5000, 4, 65535 * 64 + 100, 8, "wide")]
+
+
+@pytest.mark.parametrize(
+    "n,p,r,k,layout",
+    [pytest.param(*c, "contiguous", id="-".join(map(str, c))) for c in _ROWS]
+    + [pytest.param(*c, id="-".join(map(str, c))) for c in _ROWS_LAYOUT])
+def test_row_kernel_matches_plain(cuda, n, p, r, k, layout):
     g = torch.Generator(device=cuda).manual_seed(n + r)
     m = torch.randn(n, p, device=cuda, generator=g)
     block = torch.randn(r, k, device=cuda, generator=g)
     v = torch.randn(p, k, device=cuda, generator=g)
     rows = np.sort(np.random.default_rng(r).choice(n, r, replace=False))
     rs = cuda_rows.RowSet(rows, n)
+    want = ref.rank_update_rows(m, rs.index(cuda), block, v)
+
+    # M alone, or at element 1 of a flat buffer between two sentinels
+    buf = torch.full((n * p + 2,), 7.0, device=cuda)
+    target = m.clone()
+    if layout == "offset":
+        target = buf[1:-1].view(n, p).copy_(m)
+        assert target.is_contiguous() and target.data_ptr() % 16 != 0
     before = cuda_rows.LAUNCHES["rank_update_rows"]
-    got = cuda_rows.rank_update_rows(m.clone(), rs, block, v)
+    got = cuda_rows.rank_update_rows(target, rs, block, v)
     assert cuda_rows.LAUNCHES["rank_update_rows"] == before + 1
-    _close(got, ref.rank_update_rows(m, rs.index(cuda), block, v))
+    _close(got, want)
+    # rows outside the set keep their bytes, and so does the buffer around M
+    keep = torch.ones(n, dtype=torch.bool, device=cuda)
+    keep[rs.index(cuda)] = False
+    assert torch.equal(got[keep], m[keep])
+    assert float(buf[0]) == float(buf[-1]) == 7.0
+    if layout == "wide":
+        return
     # past max_fraction the op takes the dense kernel
     dense = cuda_ru.LAUNCHES["rank_update"]
     _close(ops.rank_update_rows(m.clone(), rows, block, v, max_fraction=0.0),
-           ref.rank_update_rows(m, rs.index(cuda), block, v))
+           want)
     assert cuda_ru.LAUNCHES["rank_update"] == dense + 1
 
 

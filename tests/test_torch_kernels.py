@@ -132,9 +132,14 @@ def test_cpu_ops_launch_no_kernel(rng):
 # ---------------------------------------------------------------------------
 
 # (n, p, r, k): one slab, several slabs, ragged p, the dense fallback past
-# max_fraction (r > n / 4), a single row
+# max_fraction (r > n / 4), a single row; then the JAX wrapper's slab
+# kernel at the CUDA row entry's wide ranks (k = 41: its compute tile,
+# k = 128: phase 6's stacked batch) and narrow views (p = 1, 3: M moved as
+# masked scalars on the card)
 ROW_SHAPES = [(256, 128, 5, 2), (1024, 64, 40, 3), (512, 37, 9, 1),
-              (64, 16, 20, 2), (300, 20, 1, 4)]
+              (64, 16, 20, 2), (300, 20, 1, 4),
+              (4096, 1, 3, 41), (4096, 3, 3, 128), (4096, 3, 2, 41),
+              (4096, 1, 2, 128)]
 
 
 def _row_data(rng, n, p, r, k):
@@ -167,7 +172,8 @@ def test_rank_update_rows_matches_jax(n, p, r, k, rng):
 
 
 @pytest.mark.parametrize("n,p,r,k", [(4096, 128, 3, 2), (8192, 64, 6, 3),
-                                     (4096, 40, 2, 1)])
+                                     (4096, 40, 2, 1), (4096, 3, 3, 128),
+                                     (4096, 1, 2, 41)])
 def test_plain_rows_match_the_slab_kernel(n, p, r, k, rng):
     """The plain version against rank_update_rows_pallas itself, run in
     interpret mode on the slab plan the JAX wrapper makes."""
