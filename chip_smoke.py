@@ -17,7 +17,8 @@ CUDA toolkit.  Phases, each of which raises on failure:
    and starcoder2's attention shapes, windowed, ragged, bf16 and f32 (the
    prefill kernel's records with its achieved TFLOP/s and share of the
    bf16 tensor-core peak); the row kernel also cold (rotating RowSets),
-   by the profiler, and its host time.
+   by the profiler, and its host time; the dual kernel and the library
+   pair by the profiler and their host times.
 4. matrix powers A^16 (n = 10000, exp model, the paper's size): 8 single
    updates, one batch of 16, 20 queued updates with a final flush, all
    replayed through the re-evaluation engine and compared view by view;
@@ -36,7 +37,8 @@ CUDA toolkit.  Phases, each of which raises on failure:
    general iterative form at n = 10000 on the dense path: 4 single
    updates, one batch of 8, 8 queued updates with a flush.
 9. Sherman-Morrison through the dual-matmul kernel on OLS's maintained
-   W (8192 x 8192) from phase 5.
+   W (8192 x 8192) from phase 5: the first call's seconds apart from the
+   median of the warm ones, and the dual kernels' device time a call.
 10. serve_danube_full: h2o-danube-1.8b at its published width and depth
     (24 layers, d_model 2560, bf16, random weights from a seed) on
     ``ServeEngine``: 8 prompts of 4096 tokens, prefill, 32 greedy decode
@@ -396,7 +398,12 @@ def check_kernels(flops_peak: float, bytes_peak: float):
                2.0 * r * p * k, **times)
         del m0, v, sets, rows, block, work
 
-    # (n, m, k): phase 9's W (8192^2, k = 1) and ragged shapes
+    # (n, m, k): phase 9's W (8192^2, k = 1) and ragged shapes.  device_ms
+    # is the union of the kernels' intervals under the profiler (the final
+    # sum is a programmatic dependent launch), kernel_sum_ms their summed
+    # time, host_us the binding's enqueue time; where the kernels take less
+    # than the host, ms (events) reads the host.  The same for the library
+    # pair.
     for n, m, k in [(8192, 8192, 1), (1000, 777, 5), (37, 101, 1)]:
         a = randn(n, m)
         u = randn(m, k)
@@ -406,12 +413,24 @@ def check_kernels(flops_peak: float, bytes_peak: float):
         torch.cuda.synchronize()
         err = max(check_close(f"dual_matmul {(n, m, k)} {name}", g, w)
                   for name, g, w in zip("PQ", got, want))
-        ms = time_ms(lambda: cuda_dual.dual_matmul(a, u, v))
+
+        def kernel():
+            cuda_dual.dual_matmul(a, u, v)
+
+        def library():
+            return a @ u, a.T @ v
+
+        ms = time_ms(kernel)
         plain_ms = time_ms(lambda: ref.dual_matmul(a, u, v))
-        lib_ms = time_ms(lambda: (a @ u, a.T @ v))
+        lib_ms = time_ms(library)
+        busy, summed = device_ms_per_call(kernel, "dual_", reps=40)
+        lib_busy, lib_summed = device_ms_per_call(library, reps=40)
         record("dual_matmul", {"n": n, "m": m, "k": k}, err, ms, plain_ms,
                lib_ms, 4.0 * n * m + 4.0 * k * (2 * n + 2 * m),
-               4.0 * n * m * k)
+               4.0 * n * m * k, device_ms=busy, kernel_sum_ms=summed,
+               host_us=host_us(kernel), library_device_ms=lib_busy,
+               library_kernel_sum_ms=lib_summed,
+               library_host_us=host_us(library))
         del a, u, v, got, want
     torch.cuda.empty_cache()
     return out
@@ -914,10 +933,12 @@ def phase_sherman_morrison(w, calls: int = 4) -> dict:
            for _ in range(calls)]
     torch.cuda.synchronize()
     reset_launches()
-    t0 = time.perf_counter()
-    outs = [ops.sherman_morrison_delta(w, u, v) for u, v in uvs]
-    torch.cuda.synchronize()
-    seconds = (time.perf_counter() - t0) / calls
+    outs, seconds = [], []
+    for u, v in uvs:
+        t0 = time.perf_counter()
+        outs.append(ops.sherman_morrison_delta(w, u, v))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
     got = launches()
     check_launches("sherman_morrison", got, {
         "dual_matmul": calls, "rank_update_batched": 0, "rank_update": 0,
@@ -927,9 +948,19 @@ def phase_sherman_morrison(w, calls: int = 4) -> dict:
         wl, wr = ref.sherman_morrison_delta(w, u, v)
         err = max(err, check_close("sherman_morrison L", l, wl),
                   check_close("sherman_morrison R", r, wr))
+    # after the counted calls: the dual kernels' device time a call (the
+    # union of their intervals) and the whole call's, by the profiler
+    u, v = uvs[-1]
+    dual_ms = device_ms_per_call(
+        lambda: ops.sherman_morrison_delta(w, u, v), "dual_", reps=10)[0]
+    call_ms = device_ms_per_call(
+        lambda: ops.sherman_morrison_delta(w, u, v), reps=10)[0]
     rec = {"phase": f"sherman_morrison_w{n}", "calls": calls,
-           "launches": got, "seconds_per_call": seconds,
-           "max_abs_err": err}
+           "launches": got, "seconds_per_call": sum(seconds) / calls,
+           "first_call_s": seconds[0],
+           "warm_median_s": statistics.median(seconds[1:]),
+           "dual_device_ms_per_call": dual_ms,
+           "call_device_ms": call_ms, "max_abs_err": err}
     log("main " + json.dumps(rec))
     return rec
 

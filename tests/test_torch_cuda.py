@@ -177,19 +177,40 @@ def test_row_kernel_matches_plain(cuda, n, p, r, k, layout):
     assert cuda_ru.LAUNCHES["rank_update"] == dense + 1
 
 
-@pytest.mark.parametrize("n,m,k", [(64, 64, 1), (1000, 777, 1), (33, 4097, 3),
-                                   (300, 64, 9), (1, 1, 1)])
-def test_dual_kernel_matches_plain(cuda, n, m, k):
+# (n, m, k, misaligned): the main path's 8192^2 at k = 1 and 8, phase 3's
+# ragged shapes, the kernel's tile edges (a block's strip is 1024 columns, a
+# warp's part 128, a ring stage 4 rows, a band at least 8 rows), k past one
+# chunk of 8 (9, 17), m % 4 != 0 and A at a 4-byte storage offset (both
+# take the 4-byte copies), n or m of 1
+_DUAL = [(64, 64, 1), (1000, 777, 1), (33, 4097, 3), (300, 64, 9), (1, 1, 1),
+         (8192, 8192, 1), (8192, 8192, 8), (1000, 777, 5), (37, 101, 1),
+         (33, 1025, 1), (9, 130, 9), (70, 1030, 17), (5, 1, 8), (1, 300, 5),
+         (3000, 1, 1)]
+_DUAL_MISALIGNED = [(8192, 8192, 1), (1000, 776, 5), (64, 2048, 9)]
+
+
+@pytest.mark.parametrize(
+    "n,m,k,misaligned",
+    [pytest.param(*c, False, id="-".join(map(str, c))) for c in _DUAL]
+    + [pytest.param(*c, True, id="-".join(map(str, c)) + "-offset")
+       for c in _DUAL_MISALIGNED])
+def test_dual_kernel_matches_plain(cuda, n, m, k, misaligned):
     g = torch.Generator(device=cuda).manual_seed(n + m + k)
-    a = torch.randn(n, m, device=cuda, generator=g)
+    base = torch.randn(n * m + 1, device=cuda, generator=g)
+    a = (base[1:] if misaligned else base[:-1]).view(n, m)
+    assert (a.data_ptr() % 16 != 0) == misaligned
     u = torch.randn(m, k, device=cuda, generator=g)
     v = torch.randn(n, k, device=cuda, generator=g)
     before = cuda_dual.LAUNCHES["dual_matmul"]
     got = ops.dual_matmul(a, u, v)
     assert cuda_dual.LAUNCHES["dual_matmul"] == before + 1
-    for x, y in zip(got, ref.dual_matmul(a, u, v)):
-        _close(x, y)
+    # the plain version in float64: at 8192^2 two fp32 summation orders of
+    # a sum that cancels to near 0 can differ by more than the tolerance
+    for x, y in zip(got, ref.dual_matmul(a.double(), u.double(),
+                                         v.double())):
+        _close(x.double(), y)
     again = ops.dual_matmul(a, u, v)
+    assert cuda_dual.LAUNCHES["dual_matmul"] == before + 2
     for x, y in zip(got, again):   # fixed summation order: bit for bit
         assert torch.equal(x, y)
     w = torch.eye(n, device=cuda) + 0.01 * a[:, :n] if m >= n else None

@@ -11,6 +11,7 @@ import torch
 
 import repro_torch.core.sherman_morrison as sm
 from repro.kernels import ops as jax_ops
+from repro.kernels.dual_matmul import dual_matmul_pallas
 from repro.kernels import ref as jax_ref
 from repro.kernels.rank_update_rows import (rank_update_rows_pallas,
                                             rank_update_rows_ref)
@@ -221,8 +222,13 @@ def test_row_set_uploads_once_and_checks_its_view():
 # ---------------------------------------------------------------------------
 
 
+# (n, m, k): the first four as before; then the CUDA kernel's tile edges
+# that its card tests use (a block's strip is 1024 columns, a warp's part
+# 128, k in chunks of 8), with m % 4 != 0 and n or m of 1
 @pytest.mark.parametrize("n,m,k", [(64, 128, 1), (96, 512, 3), (37, 101, 1),
-                                   (40, 24, 9)])
+                                   (40, 24, 9), (33, 1025, 1), (9, 130, 9),
+                                   (20, 1030, 17), (50, 777, 5), (5, 1, 8),
+                                   (1, 300, 5)])
 def test_dual_matmul_matches_jax(n, m, k, rng):
     a = rng.normal(size=(n, m)).astype(np.float32)
     u = rng.normal(size=(m, k)).astype(np.float32)
@@ -231,9 +237,15 @@ def test_dual_matmul_matches_jax(n, m, k, rng):
     want = jax_ops.dual_matmul(jnp.asarray(a), jnp.asarray(u), jnp.asarray(v))
     oracle = jax_ref.dual_matmul(jnp.asarray(a), jnp.asarray(u),
                                  jnp.asarray(v))
-    for g, w, o in zip(got, want, oracle):
+    # the Pallas kernel itself, in interpret mode, on panels that divide m
+    # (where none of 256, 128 does, one panel of all m columns)
+    bn = next((b for b in (256, 128) if m % b == 0), m)
+    pallas = dual_matmul_pallas(jnp.asarray(a), jnp.asarray(u),
+                                jnp.asarray(v), bn=bn, interpret=True)
+    for g, w, o, pk in zip(got, want, oracle, pallas):
         assert_close(g.numpy(), w)
         assert_close(g.numpy(), o)
+        assert_close(g.numpy(), np.asarray(pk))
 
 
 @pytest.mark.parametrize("n", [64, 100])
