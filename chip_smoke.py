@@ -54,15 +54,35 @@ CUDA toolkit.  Phases, each of which raises on failure:
     ``forward``'s argmax.
 12. the incremental logit view Y = H W^T over phase 10's final-norm hidden
     states (32768 x 2560) and lm_head (32000 x 2560): 8 rank-1 hot-swaps
-    through ``ServeEngine`` and a flush, against H W'^T recomputed.
+    through ``ServeEngine`` with a re-plan of the view after the first 4
+    (the queue must survive it) and a flush, against H W'^T recomputed.
+13. planned maintenance (``repro_torch.plan``), each engine against
+    re-evaluation and its launches against its applies (only the
+    incremental views of a planned firing reach the kernel):
+    a. calibration: ``calibrate_cost_scale`` on PageRank (n = 10000,
+       k = 16; probe rank 32, best of 9) and ``calibrate_op_cost_scales``
+       at n = 512 and n = 4096;
+    b. PageRank with phase 8's edge stream unplanned, planned at a's
+       cost scale (per view, and chain-aware), and planless under the
+       cost flush policy (per-view
+       strategies, in-firing re-evaluations, seconds per update; the
+       re-evaluation engine's beside them);
+    c. OLS (16384 x 8192) planned for batches of 16 read once in 10^4
+       firings: Z lazy, skipped by a batch, refreshed by reading beta;
+    d. matrix powers A^16 (n = 10000) with every view hybrid at rank 32
+       under four batches of 16: every second batch re-evaluates;
+    e. phase 6's compact chain and carriers under a plan for rank-8
+       carriers on 1 % of the rows: still on the row kernel;
+    f. a second planned PageRank engine on b's trigger cache builds no
+       trigger fn.
 
 Every launch count is set to 0 just before a phase drives its engines and
 read just after; the counts of each kernel must equal the applies (or
 calls) the phase made.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
-record (``rank_update_batched``'s with its launches over phases 4-9 and 12
-by K = T*k) and ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
+record (``rank_update_batched``'s with its launches over phases 4-9, 12
+and 13 by K = T*k) and ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
 checkout, the script prints no result and exits non-zero.
 """
 
@@ -95,6 +115,8 @@ KERNEL_RTOL = KERNEL_ATOL = 2e-4
 MAIN_TOL = 1e-3
 
 UPDATES_SINGLE, UPDATES_BATCH, UPDATES_QUEUED = 8, 16, 20
+# phases 4 and 13d: matrix powers; phases 5 and 13c: OLS (m x n, p = 1)
+POWERS_N, OLS_M, OLS_N = 10000, 16384, 8192
 # phase 3's cold row timings rotate over at least this many RowSets, and
 # over enough to touch twice the H100's 50 MB L2 where the view is large
 ROW_COLD_SETS, L2_BYTES = 8, 50 * 2 ** 20
@@ -1215,6 +1237,7 @@ def phase_logit_view(eng, prompts) -> dict:
     states and its lm_head, under rank-1 hot-swaps through the engine."""
     import numpy as np
     import torch
+    from repro_torch.plan import WorkloadDescriptor
     from repro_torch.serve import IncrementalLogitView
     cfg = eng.model.cfg
     H = eng.model.hidden(eng.params, {"tokens": prompts})
@@ -1235,7 +1258,16 @@ def phase_logit_view(eng, prompts) -> dict:
                * .01) for _ in range(HOT_SWAPS)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    flushed = [eng.hot_swap("lm_head", u, v) for u, v in deltas]
+    half = HOT_SWAPS // 2
+    flushed = [eng.hot_swap("lm_head", u, v) for u, v in deltas[:half]]
+    # a re-plan mid-stream: the queued deltas survive it and flush under
+    # the new plan
+    pending = view.pending_updates
+    plan = view.replan(WorkloadDescriptor(batch_size=HOT_SWAPS))
+    if view.pending_updates != pending or view.engine.plan is not plan:
+        raise AssertionError(f"replan dropped the queue: {pending} -> "
+                             f"{view.pending_updates} pending")
+    flushed += [eng.hot_swap("lm_head", u, v) for u, v in deltas[half:]]
     eng.flush_views()
     Y = eng.view_logits("lm_head")
     torch.cuda.synchronize()
@@ -1254,6 +1286,8 @@ def phase_logit_view(eng, prompts) -> dict:
     rec = {"phase": label, "H": list(H.shape), "W": list(W.shape),
            "Y": list(Y.shape), "hot_swaps": HOT_SWAPS,
            "flushed_on_enqueue": sum(flushed),
+           "replan_after": half, "pending_at_replan": pending,
+           "replanned": {n: vp.strategy for n, vp in plan.views.items()},
            "firings": view.engine.stats.triggers_fired,
            "lowrank_applies": applies, "launches": got,
            "dense_ranks": ranks,
@@ -1263,6 +1297,294 @@ def phase_logit_view(eng, prompts) -> dict:
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     log("main " + json.dumps(rec))
     return rec
+
+
+# -- phase 13: planned maintenance ----------------------------------------------
+
+def view_strategies(eng) -> dict:
+    """Each view's strategy under ``eng``'s plan."""
+    return {n: vp.strategy for n, vp in sorted(eng.plan.views.items())}
+
+
+def phase_calibrate() -> dict:
+    """13a: the planner's cost model calibrated on the card — the sweep's
+    cost per FLOP over re-evaluation's on PageRank (n = 10000, k = 16;
+    the reference's probe: rank 32, best of 9), and the op kinds' costs
+    per FLOP over a matmul's at n = 512 and n = 4096."""
+    import torch
+    from repro_torch.apps.pagerank import PageRank, build_pagerank_program
+    from repro_torch.core import IncrementalEngine
+    from repro_torch.plan import (TriggerCache, calibrate_cost_scale,
+                                  calibrate_op_cost_scales)
+    prog = build_pagerank_program(APP_N, 16)
+    inputs = PageRank.synthesize(APP_N, seed=0)
+    cache, made = TriggerCache(), []
+
+    def make():
+        made.append(IncrementalEngine(prog, {"M": 1}, trigger_cache=cache))
+        return made[-1]
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    scale = calibrate_cost_scale(make, inputs, "M", trigger_cache=cache)
+    scale_s = time.perf_counter() - t0
+    got, ranks = launches(), dense_ranks()
+    check_launches("plan_calibrate", got, {"rank_update_batched": sum(
+        e.stats.lowrank_applies for e in made)})
+    del made
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ops = {n: calibrate_op_cost_scales(n) for n in (512, 4096)}
+    ops_s = time.perf_counter() - t0
+    rec = {"phase": f"plan_calibrate_pagerank_n{APP_N}_k16",
+           "cost_scale": scale, "probe_rank": 32, "samples": 9,
+           "cost_scale_s": scale_s,
+           "op_cost_scales": {f"n{n}": v for n, v in ops.items()},
+           "op_cost_scales_s": ops_s, "launches": got, "dense_ranks": ranks}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def phase_plan_pagerank(cost_scale: float) -> list:
+    """13b and 13f: PageRank (n = 10000, k = 16, phase 8's edge stream)
+    unplanned, planned at the calibrated cost scale (per view, and with
+    the shared delta chain priced in), and planless under the cost flush
+    policy, each held against re-evaluation; then a second planned engine
+    on the first one's trigger cache, which must build nothing."""
+    import torch
+    from repro_torch.apps import PageRank
+    from repro_torch.plan import TriggerCache, WorkloadDescriptor
+    n = APP_N
+    pr = PageRank.synthesize(n, seed=0)
+    cache = TriggerCache()
+    ways = {"unplanned": {},
+            "planned": {"plan": WorkloadDescriptor(cost_scale=cost_scale),
+                        "trigger_cache": cache},
+            "planned_chain_aware": {
+                "plan": WorkloadDescriptor(cost_scale=cost_scale,
+                                           chain_aware=True),
+                "trigger_cache": TriggerCache()},
+            "cost_policy": {"flush_policy": "cost"}}
+    recs, planned = [], None
+    for way, kw in ways.items():
+        app = PageRank(n=n, k=16, **kw)
+        rec = drive(f"plan_pagerank_n{n}_k16_{way}", app, pr,
+                    EdgeStream(app, n, seed=6), APP_UPDATES)
+        eng = app.engine
+        rec["plan_reevals"] = eng.stats.plan_reevals
+        if eng.plan is not None:
+            rec["strategies"] = view_strategies(eng)
+        elif way == "cost_policy":
+            rec["cost_flush_rank"] = eng.cost_flush_rank("M")
+            rec["reevaluated_at_rank"] = {
+                r: sorted(eng._plan_decision("M", r)[0]) for r in (1, 8)}
+        log("main " + json.dumps({k: rec[k] for k in (
+            "phase", "plan_reevals", "strategies", "cost_flush_rank",
+            "reevaluated_at_rank") if k in rec}))
+        recs.append(rec)
+        if way == "planned":
+            planned = app
+        else:
+            del app
+        torch.cuda.empty_cache()
+
+    # 13f: a second planned engine on the same cache rebuilds nothing
+    misses = cache.misses
+    app = PageRank(n=n, k=16, plan=planned.engine.plan, trigger_cache=cache)
+    app.engine.initialize(pr)
+    stream = EdgeStream(app, n, seed=16)
+    ups = [stream.next_update() for _ in range(1 + APP_UPDATES[1])]
+    torch.cuda.synchronize()
+    reset_launches()
+    app.engine.apply_update("M", *ups[0], block=True)
+    app.engine.apply_updates("M", ups[1:], block=True)
+    got, ranks = launches(), dense_ranks()
+    label = f"plan_trigger_cache_pagerank_n{n}"
+    check_launches(label, got, {
+        "rank_update_batched": app.engine.stats.lowrank_applies})
+    same = app.engine._trigger_fns["M"] is planned.engine._trigger_fns["M"]
+    if cache.misses != misses or not same:
+        raise AssertionError(f"{label}: the second engine built "
+                             f"{cache.misses - misses} trigger fns "
+                             f"(same base fn: {same})")
+    rec = {"phase": label, "misses_before": misses,
+           "misses_after": cache.misses, "hits": cache.hits,
+           "same_trigger_fn": same, "launches": got, "dense_ranks": ranks}
+    log("main " + json.dumps(rec))
+    recs.append(rec)
+    del app, planned
+    torch.cuda.empty_cache()
+    return recs
+
+
+def stacked(ups):
+    """One (n, T) x (m, T) pair from T rank-1 updates."""
+    import numpy as np
+    return (np.concatenate([u for u, _ in ups], axis=1),
+            np.concatenate([v for _, v in ups], axis=1))
+
+
+def phase_plan_ols() -> dict:
+    """13c: OLS (16384 x 8192, p = 1) planned for batches of 16 read once
+    in 10^4 firings: Z goes lazy, a batch of 16 skips it, and reading
+    beta refreshes it exactly."""
+    import torch
+    from repro_torch.apps import OLS
+    from repro_torch.data import UpdateStream
+    from repro_torch.plan import TriggerCache, WorkloadDescriptor
+    m_rows, n_cols = OLS_M, OLS_N
+    inputs, _ = OLS.synthesize(m_rows, n_cols, 1, seed=0)
+    app = OLS(m_rows, n_cols, 1, trigger_cache=TriggerCache(),
+              plan=WorkloadDescriptor(batch_size=UPDATES_BATCH,
+                                      reads_per_firing=1e-4))
+    eng, label = app.engine, f"plan_ols_m{m_rows}_n{n_cols}_p1_lazy"
+    if eng.plan.lazy_views() != frozenset({"Z"}):
+        raise AssertionError(f"{label}: lazy views "
+                             f"{sorted(eng.plan.lazy_views())}, not Z")
+    app.initialize(inputs)
+    del inputs
+    stream = UpdateStream(n=m_rows, m=n_cols, seed=13)
+    ups = [stream.next_update() for _ in range(UPDATES_BATCH)]
+    torch.cuda.synchronize()
+    reset_launches()
+    batch_s = timed(lambda: eng.apply_updates("X", ups, block=True))
+    stale = sorted(eng._stale)
+    if eng.stats.lazy_skips <= 0 or stale != ["Z"]:
+        raise AssertionError(f"{label}: {eng.stats.lazy_skips} lazy skips, "
+                             f"stale {stale}")
+    read_s = timed(lambda: eng.output("beta"))
+    if eng._stale:
+        raise AssertionError(f"{label}: output() left {eng._stale} stale")
+    app.reeval.apply_update("X", *stacked(ups), block=True)
+    got, ranks = launches(), dense_ranks()
+    check_launches(label, got, {
+        "rank_update_batched": eng.stats.lowrank_applies, "rank_update": 1})
+    rel = check_views(label, eng.views, app.reeval.views)
+    rec = {"phase": label, "strategies": view_strategies(eng),
+           "lazy": sorted(eng.plan.lazy_views()),
+           "lazy_skips": eng.stats.lazy_skips, "stale_after_batch": stale,
+           "reads": eng.stats.reads,
+           "apply_updates_s_per_update": batch_s / len(ups),
+           "output_refresh_s": read_s,
+           "lowrank_applies": eng.stats.lowrank_applies, "launches": got,
+           "dense_ranks": ranks, "rel_err_vs_reeval": rel,
+           "tolerance": MAIN_TOL}
+    log("main " + json.dumps(rec))
+    del app
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_plan_powers() -> dict:
+    """13d: matrix powers A^16 (n = 10000, exp) with every view hybrid at
+    threshold rank 32 (the reference test's construction), under four
+    batches of 16: every second batch re-evaluates every view."""
+    from dataclasses import replace
+    import torch
+    from repro_torch.apps import MatrixPowers
+    from repro_torch.apps.matrix_powers import build_powers_program
+    from repro_torch.data import UpdateStream
+    from repro_torch.plan import (MaintenancePlan, TriggerCache,
+                                  WorkloadDescriptor, plan_program)
+    n, threshold, batches = POWERS_N, 32, 4
+    base = plan_program(build_powers_program(k=16, n=n, model="exp"),
+                        WorkloadDescriptor())
+    plan = MaintenancePlan(base.fingerprint, base.workload, {
+        v: replace(vp, strategy="hybrid", threshold_rank=threshold)
+        for v, vp in base.views.items()})
+    app = MatrixPowers(n=n, k=16, model="exp", plan=plan,
+                       trigger_cache=TriggerCache())
+    eng, label = app.engine, f"plan_matrix_powers_n{n}_k16_hybrid{threshold}"
+    app.initialize(MatrixPowers.synthesize(n, seed=0))
+    stream = UpdateStream(n=n, m=n, seed=14)
+    ups = [[stream.next_update() for _ in range(UPDATES_BATCH)]
+           for _ in range(batches)]
+    torch.cuda.synchronize()
+    reset_launches()
+    reevals, seconds = [], []
+    for batch in ups:
+        before = eng.stats.plan_reevals
+        seconds.append(timed(lambda: eng.apply_updates("A", batch,
+                                                       block=True)))
+        reevals.append(eng.stats.plan_reevals - before)
+    views = len(plan.views)
+    if reevals != [0, views] * (batches // 2) \
+            or eng.stats.plan_reevals != 2 * views:
+        raise AssertionError(f"{label}: re-evaluated views per batch "
+                             f"{reevals}, expected every second batch to "
+                             f"re-evaluate all {views}")
+    app.reeval.apply_update("A", *stacked([uv for b in ups for uv in b]),
+                            block=True)
+    got, ranks = launches(), dense_ranks()
+    check_launches(label, got, {
+        "rank_update_batched": eng.stats.lowrank_applies, "rank_update": 1})
+    rel = check_views(label, eng.views, app.reeval.views)
+    rec = {"phase": label, "views": views, "reevals_per_batch": reevals,
+           "plan_reevals": eng.stats.plan_reevals,
+           "batch_s": seconds, "lowrank_applies": eng.stats.lowrank_applies,
+           "launches": got, "dense_ranks": ranks, "rel_err_vs_reeval": rel,
+           "tolerance": MAIN_TOL}
+    log("main " + json.dumps(rec))
+    del app
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_plan_compact(unplanned: dict) -> dict:
+    """13e: phase 6's compact chain and carriers under a plan priced for
+    rank-8 carriers on 1 % of the rows: the carriers still take the row
+    kernel, as many firings as in phase 6's unplanned run."""
+    import torch
+    from repro_torch.core import IncrementalEngine, ReevalEngine
+    from repro_torch.data import row_local_stream, zipf_row_stream
+    from repro_torch.plan import TriggerCache, WorkloadDescriptor
+    n, m, k, rank = CHAIN_N, CHAIN_M, CHAIN_K, CHAIN_RANK
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    inputs = {"X": torch.randn(n, m, device=DEVICE, generator=g),
+              "W1": torch.randn(m, k, device=DEVICE, generator=g) / m ** 0.5,
+              "W2": torch.randn(k, k, device=DEVICE, generator=g) / k ** 0.5}
+    prog = chain_program(n, m, k)
+    eng = IncrementalEngine(prog, {"X": rank}, trigger_cache=TriggerCache(),
+                            plan=WorkloadDescriptor(update_rank=rank,
+                                                    affected_fraction=0.01))
+    ree = ReevalEngine(prog)
+    for e in (eng, ree):
+        e.initialize(inputs)
+    del inputs
+    s = row_local_stream(n, CHAIN_ROWS, m=m, rank=rank, seed=1)
+    z = zipf_row_stream(n, m, 1.5, seed=2, rows_touched=CHAIN_ROWS)
+    steps = [("single", [s.next_carrier() for _ in range(8)]),
+             ("batch", [s.next_carrier() for _ in range(16)]),
+             ("zipf", [z.next_carrier() for _ in range(8)])]
+    label = f"plan_rowlocal_compact_chain_n{n}_m{m}_K{k}"
+    rec = drive_carriers(label, eng, ree, "X", steps)
+    want = unplanned["engine_counts"]["rowlocal_firings"]
+    if rec["engine_counts"]["rowlocal_firings"] != want:
+        raise AssertionError(f"{label}: {rec['engine_counts']} row-local "
+                             f"firings, the unplanned run made {want}")
+    rec["strategies"] = view_strategies(eng)
+    rec["row_local_views"] = sorted(v for v, vp in eng.plan.views.items()
+                                    if vp.row_local)
+    log("main " + json.dumps({k: rec[k] for k in (
+        "phase", "strategies", "row_local_views")}))
+    del eng, ree
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_plan(compact: dict) -> list:
+    """Phase 13: planned maintenance at full width (13a-13f)."""
+    import torch
+    t0 = time.perf_counter()
+    recs = [phase_calibrate()]
+    recs += phase_plan_pagerank(recs[0]["cost_scale"])
+    recs.append(phase_plan_ols())
+    recs.append(phase_plan_powers())
+    recs.append(phase_plan_compact(compact))
+    torch.cuda.reset_peak_memory_stats()
+    log(f"phase 13: {time.perf_counter() - t0:.2f} s")
+    return recs
 
 
 def main() -> int:
@@ -1313,17 +1635,17 @@ def main() -> int:
     shapes.update(check_flash_kernels(peaks_))
 
     # 4. matrix powers at the paper's size; 5. OLS at the paper's n range
-    n = 10000
-    phases = [drive("matrix_powers_n10000_k16_exp",
+    n = POWERS_N
+    phases = [drive(f"matrix_powers_n{n}_k16_exp",
                     MatrixPowers(n=n, k=16, model="exp"),
                     MatrixPowers.synthesize(n, seed=0),
                     UpdateStream(n=n, m=n, seed=1))]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    m_rows, n_cols = 16384, 8192
+    m_rows, n_cols = OLS_M, OLS_N
     inputs, _ = OLS.synthesize(m_rows, n_cols, 1, seed=0)
     ols = OLS(m_rows, n_cols, 1)
-    phases.append(drive("ols_m16384_n8192_p1", ols, inputs,
+    phases.append(drive(f"ols_m{m_rows}_n{n_cols}_p1", ols, inputs,
                         UpdateStream(n=m_rows, m=n_cols, seed=1)))
     w = ols.engine.views["W"]
     del ols, inputs
@@ -1331,7 +1653,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
 
     # 6.-7. row-local carriers; 8. the other apps; 9. Sherman-Morrison
-    phases.append(phase_compact())
+    compact = phase_compact()
+    phases.append(compact)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     phases.append(phase_mixed())
@@ -1348,7 +1671,11 @@ def main() -> int:
     phases.append(phase_serve_exact())
     torch.cuda.empty_cache()
     phases.append(phase_logit_view(eng, prompts))
-    del eng
+    del eng, prompts
+    torch.cuda.empty_cache()
+
+    # 13. planned maintenance
+    phases.extend(phase_plan(compact))
 
     # the kernels record: per entry, the main path's launches and the
     # numbers of its headline shape (the most common call of the path)
@@ -1359,7 +1686,7 @@ def main() -> int:
                 "dual_matmul": (8192, 8192, 1),
                 "flash_attention": "danube_prefill_bf16",
                 "flash_decode": "danube_decode_bf16_wrapped"}
-    # rank_update_batched's launches over phases 4-9 and 12 by K, so that
+    # rank_update_batched's launches over phases 4-9, 12 and 13 by K, so that
     # each K's gap to its bound can be weighed by its launches
     by_k = {}
     for ph in phases:

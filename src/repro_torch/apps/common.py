@@ -38,20 +38,22 @@ class AppEngines:
 class App:
     """Base: subclasses set ``self.program`` and ``self.update_input``.
 
-    Both engines live on ``device`` (``None`` means the card)."""
+    Both engines live on ``device`` (``None`` means the card); the other
+    keywords (``plan``, ``flush_policy``, ``trigger_cache``, ...) go to
+    the :class:`IncrementalEngine`."""
 
     program: Program
     update_input: str
 
     def __init__(self, program: Program, update_input: str, rank: int = 1,
                  force_rep: Optional[str] = None, sequential_sm: bool = False,
-                 device=None):
+                 device=None, **engine_kw):
         self.program = program
         self.update_input = update_input
         self.rank = rank
         self.engine = IncrementalEngine(
             program, {update_input: rank}, force_rep=force_rep,
-            sequential_sm=sequential_sm, device=device)
+            sequential_sm=sequential_sm, device=device, **engine_kw)
         self.device = self.engine.device
         self.reeval = ReevalEngine(program, device=self.device)
 

@@ -11,6 +11,20 @@ carrier skips its firing, a contained row-local carrier fires the
 row-local trigger (:func:`~.codegen.build_rowlocal_trigger_fn`), and any
 other carrier widens to the dense path.
 
+With ``plan=`` (:mod:`repro_torch.plan`) every firing executes a
+cost-based **maintenance plan**: per view, factored delta propagation
+while it wins, in-firing re-evaluation past the §7 crossover, a
+rank/staleness hybrid in between, and lazy (recompute-on-read) refresh
+for unmaterialized intermediates.  Built triggers are shared across
+engine instances through the plan trigger cache.  Engines with
+``flush_policy="cost"`` and no plan still get the per-view re-evaluation
+fallback: a firing whose stacked rank puts some view past its crossover
+re-evaluates that view instead of sweeping it.  Only the incremental
+views of a planned firing go through the rank-k kernel; a re-evaluated
+view is recomputed by the program's own products (``torch.matmul``,
+``torch.linalg.inv``), as the reference recomputes it outside any Pallas
+kernel.
+
 Views are float32 tensors on the engine's device, updated in place by the
 rank-k kernel.  Engines run on the card (``device=None`` means
 ``"cuda"``) unless the caller passes ``device="cpu"``; they never move to
@@ -21,14 +35,15 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..kernels import ops
-from .codegen import (build_evaluator, build_rowlocal_trigger_fn,
-                      build_trigger_fn, trigger_flops)
+from .codegen import (_own, build_evaluator, build_planned_trigger_fn,
+                      build_rowlocal_trigger_fn, build_trigger_fn, evaluate,
+                      trigger_flops)
 from .compiler import (CompiledProgram, Trigger, batch_bucket,
                        compile_batched_trigger, compile_program)
 from .factored import (DeltaCarrier, RowLocalCarrier, as_carrier,
@@ -95,6 +110,16 @@ class EngineStats:
     recompressions: int = 0
     reevals: int = 0
     reeval_seconds: float = 0.0
+    plan_reevals: int = 0         # views re-evaluated inside planned firings
+    lazy_skips: int = 0           # unmaterialized views left stale by firings
+    replans: int = 0              # adaptive plan hot-swaps
+    # FLOPs behind the timed seconds above — the observed wall-clock
+    # rates (trigger_seconds/sweep_flops_timed vs
+    # reeval_seconds/reeval_flops_timed) are what
+    # AdaptivePlanner.refit_from_stats turns into an online cost_scale
+    sweep_flops_timed: float = 0.0
+    reeval_flops_timed: float = 0.0
+    reads: int = 0                # output() calls (the read-rate signal)
 
     def per_update_seconds(self) -> float:
         return self.trigger_seconds / max(self.updates_timed, 1)
@@ -111,17 +136,34 @@ class IncrementalEngine:
                  recompress_tol: float = 1e-6,
                  flush_size: int = 16,
                  flush_age: float = 0.1,
+                 flush_policy: str = "fixed",
                  rowlocal_fraction: float = 0.25,
+                 plan=None,
+                 trigger_cache=None,
                  device=None):
         """``max_batch_rank`` caps the stacked rank of a batch (QR/SVD
-        re-compression past it); ``flush_size`` (stacked rank) and
-        ``flush_age`` (seconds since the oldest queued update) are the
-        thresholds at which :meth:`enqueue_update` flushes its queue.
+        re-compression past it).  ``flush_policy`` picks how
+        :meth:`enqueue_update` decides to flush: ``"fixed"`` trips on
+        ``flush_size`` (stacked rank); ``"cost"`` asks the §4/§7 cost
+        model instead — the queue flushes at :meth:`cost_flush_rank`, the
+        first stacked rank where some maintained view stops answering
+        ``"stacked"``, and the flushed firing re-evaluates any view whose
+        crossover the stacked rank did pass.  Under both, ``flush_age``
+        (seconds since the oldest queued update) bounds the latency.
         ``rowlocal_fraction`` is the affected-fraction crossover for
         row-local carriers: one touching at most this fraction of its
         input's rows fires the row-local trigger, a wider one widens to
-        the dense path.  ``device`` holds every view; ``None`` means the
-        card."""
+        the dense path.
+
+        ``plan`` attaches a :class:`repro_torch.plan.MaintenancePlan`
+        (or a :class:`~repro_torch.plan.WorkloadDescriptor` to plan here,
+        or an :class:`~repro_torch.plan.AdaptivePlanner` for online
+        re-planning); planned engines share built triggers through
+        ``trigger_cache`` (default: the process-global
+        :func:`repro_torch.plan.global_trigger_cache`).  ``device`` holds
+        every view; ``None`` means the card."""
+        if flush_policy not in ("fixed", "cost"):
+            raise ValueError(f"unknown flush_policy {flush_policy!r}")
         self.device = resolve_device(device)
         self.compiled: CompiledProgram = compile_program(
             program, update_ranks, force_rep=force_rep,
@@ -130,25 +172,232 @@ class IncrementalEngine:
         self.binding = dict(self.program.dims)
         self._evaluator = build_evaluator(self.program, self.binding,
                                           self.device)
+        self.rowlocal_fraction = float(rowlocal_fraction)
+        # planned execution state (repro_torch.plan)
+        self.plan = None
+        self.planner = None
+        self._cache_ns: Optional[Tuple] = None
+        self._trigger_cache = trigger_cache
+        self._accum_rank: Dict[str, int] = {}   # hybrid staleness counters
+        self._stale: set = set()                # lazy views awaiting refresh
+        self._view_costs: Dict[str, List[Tuple[str, Tuple[int, int],
+                                               float]]] = {}
+        if plan is not None:
+            self._attach_plan(plan)
         self._trigger_fns: Dict[str, Callable] = {
-            name: build_trigger_fn(trig, self.program, self.binding,
-                                   self.device)
+            name: self._cached_build(
+                ("base", name, trig.rank),
+                lambda trig=trig: build_trigger_fn(
+                    trig, self.program, self.binding, self.device))
             for name, trig in self.compiled.triggers.items()
         }
         # batched triggers, keyed by (input, bucket rank); built lazily
         self._batched_triggers: Dict[Tuple[str, int], Callable] = {}
         self._bucket_triggers: Dict[Tuple[str, int], Trigger] = {}
+        # planned triggers, keyed by (input, bucket, reeval, lazy)
+        self._planned_fns: Dict[Tuple, Callable] = {}
         # row-local triggers, keyed by (input, bucket rank); built lazily
         self._rowlocal_fns: Dict[Tuple[str, int], Callable] = {}
-        self.rowlocal_fraction = float(rowlocal_fraction)
         self.max_batch_rank = max_batch_rank
         self.recompress_tol = recompress_tol
         self.flush_size = flush_size
         self.flush_age = flush_age
+        self.flush_policy = flush_policy
+        self._cost_flush_rank: Dict[str, int] = {}
         self._pending: Dict[str, List[Tuple[Tensor, Tensor]]] = {}
         self._pending_since: Dict[str, float] = {}
         self.views: Dict[str, Tensor] = {}
         self.stats = EngineStats()
+
+    # -- maintenance plans (repro_torch.plan) ----------------------------------
+    def _attach_plan(self, plan) -> None:
+        from ..plan import AdaptivePlanner, WorkloadDescriptor, plan_for_engine
+        if isinstance(plan, WorkloadDescriptor):
+            plan = plan_for_engine(self, plan)
+        if isinstance(plan, AdaptivePlanner):
+            self.planner = plan
+            plan = plan.bind(self.compiled, self.binding)
+        self.set_plan(plan)
+
+    def set_plan(self, plan) -> None:
+        """Hot-swap the maintenance plan.
+
+        Pending queues, hybrid staleness counters and lazy-view staleness
+        all survive the swap — a re-plan changes how future firings
+        refresh views, never the values they produce — so a serving
+        engine can adopt a re-plan mid-stream without dropping its
+        staleness contract.  Raises ``ValueError`` if the plan was priced
+        for a different (program, dims) fingerprint, and
+        ``NotImplementedError`` for what the port cannot execute yet: a
+        view of depth ``order >= 2`` (the deferred cascade, ROADMAP.md
+        Queue 1 item 7) or a mesh key (Queue 1 item 12).  Neither is ever
+        run at first order instead.
+        """
+        from ..plan import global_trigger_cache, program_fingerprint
+        fp = program_fingerprint(self.program, self.binding)
+        if plan.fingerprint != fp:
+            raise ValueError(
+                f"plan fingerprint {plan.fingerprint} does not match this "
+                f"engine's program ({fp}); plans are not portable across "
+                f"program structures or dimension bindings")
+        deep = sorted(n for n, vp in plan.views.items() if vp.order > 1)
+        if deep:
+            raise NotImplementedError(
+                f"plan assigns delta depth >= 2 to {deep}: the port has no "
+                f"deferred cascade yet (ROADMAP.md Queue 1 item 7)")
+        if plan.mesh_key is not None:
+            raise NotImplementedError(
+                "plan carries a mesh key: the port has no sharded engine "
+                "yet (ROADMAP.md Queue 1 item 12)")
+        if self._trigger_cache is None:
+            self._trigger_cache = global_trigger_cache()
+        self.plan = plan
+        if self.planner is not None and self.planner.plan is not plan:
+            # keep the attached adaptive planner's baseline in sync so
+            # its next drift check does not silently revert a hot-swap
+            self.planner.adopt(plan)
+
+    def _cache_key(self, tail: Tuple) -> Tuple:
+        """A shared-cache key: the program's fingerprint, the device (a
+        trigger fn closes over it) and the compile options, then
+        ``tail``."""
+        if self._cache_ns is None:
+            from ..plan import program_fingerprint
+            dev = self.device
+            index = dev.index
+            if index is None and dev.type == "cuda":
+                index = torch.cuda.current_device()
+            self._cache_ns = (
+                program_fingerprint(self.program, self.binding),
+                dev.type, index, self.compiled.force_rep,
+                self.compiled.sequential_sm)
+        return self._cache_ns + tail
+
+    def _cached_build(self, tail: Tuple, builder: Callable) -> Callable:
+        """Build a trigger fn through the shared cache (identical keys
+        across engine instances reuse the callable); without a cache,
+        just build it."""
+        if self._trigger_cache is None:
+            return builder()
+        return self._trigger_cache.get_or_build(self._cache_key(tail),
+                                                builder)
+
+    def _factored_view_costs(self, input_name: str
+                             ) -> List[Tuple[str, Tuple[int, int], float]]:
+        """(view, shape, reeval FLOPs) per factored-maintained view of
+        one trigger; cached per input (used on every cost-policy
+        firing)."""
+        cached = self._view_costs.get(input_name)
+        if cached is None:
+            from .cost import expr_cost, shape_of
+            trig = self.compiled.triggers[input_name]
+            by_name = {s.target.name: s for s in self.program.statements}
+            cached = []
+            for up in trig.updates:
+                st = by_name.get(up.view)
+                if up.kind != "lowrank" or st is None:
+                    continue
+                cached.append((up.view, shape_of(st.target, self.binding),
+                               expr_cost(st.expr, self.binding).flops))
+            self._view_costs[input_name] = cached
+        return cached
+
+    def _plan_decision(self, input_name: str, rank: int
+                       ) -> Tuple[FrozenSet[str], FrozenSet[str]]:
+        """(views to re-evaluate, views to lazily skip) for a firing of
+        ``input_name`` at stacked rank ``rank``."""
+        if self.plan is not None:
+            reeval, lazy = self.plan.decide(rank, self._accum_rank)
+        elif self.flush_policy == "cost":
+            # planless cost-policy engines still get the per-view §7
+            # fallback: re-evaluate any view the stacked rank pushed past
+            # its crossover instead of sweeping it
+            from .cost import batched_strategy
+            reeval = frozenset(
+                name for name, shape, re in
+                self._factored_view_costs(input_name)
+                if batched_strategy(shape, rank, rank, re) == "reeval")
+            lazy = frozenset()
+        else:
+            return frozenset(), frozenset()
+        targets = {up.view
+                   for up in self.compiled.triggers[input_name].updates}
+        # keep the partition scoped to this trigger's targets, EXCEPT
+        # that a lazy view left stale by an earlier firing (possibly of a
+        # different input's trigger) must stay visible so the planned
+        # codegen pulls it into the recompute closure when a view
+        # re-evaluated here reads it — otherwise the in-firing reeval
+        # would silently consume the stale value
+        return reeval & targets, (lazy & targets) | (self._stale & lazy)
+
+    def _planned_trigger_fn(self, input_name: str, bucket: int,
+                            reeval: FrozenSet[str], lazy: FrozenSet[str]
+                            ) -> Callable:
+        """The planned trigger for (input, bucket, partition), built on
+        first use through the shared cache."""
+        key = (input_name, bucket, tuple(sorted(reeval)),
+               tuple(sorted(lazy)))
+        fn = self._planned_fns.get(key)
+        if fn is None:
+            fn = self._cached_build(
+                ("planned",) + key,
+                lambda: build_planned_trigger_fn(
+                    self._bucket_trigger(input_name, bucket), self.program,
+                    self.binding, self.device, reeval_views=reeval,
+                    lazy_views=lazy))
+            self._planned_fns[key] = fn
+        return fn
+
+    def _fire(self, input_name: str, bucket: int, P: Tensor,
+              Q: Tensor) -> None:
+        """One (possibly planned) trigger firing at stacked rank
+        ``bucket``: partition the views per the plan (or the cost
+        policy), execute, and keep the hybrid and lazy bookkeeping
+        current.  Only the fn's incremental applies count as
+        ``lowrank_applies``."""
+        reeval, lazy = self._plan_decision(input_name, bucket)
+        if not reeval and not lazy:
+            fn = self._batched_trigger_fn(input_name, bucket)
+            self.views = fn(self.views, P, Q)
+            self.stats.lowrank_applies += fn.lowrank_applies
+            if self.plan is not None:
+                for up in self.compiled.triggers[input_name].updates:
+                    self._accum_rank[up.view] = \
+                        self._accum_rank.get(up.view, 0) + bucket
+            return
+        fn = self._planned_trigger_fn(input_name, bucket, reeval, lazy)
+        self.views = fn(self.views, P, Q)
+        self.stats.lowrank_applies += fn.lowrank_applies
+        recomputed = set(fn.recomputes)
+        # count only plan-DIRECTED re-evaluations; recomputed also holds
+        # lazy views pulled into the recompute closure for exactness
+        self.stats.plan_reevals += len(reeval)
+        self.stats.lazy_skips += len(fn.skipped)
+        self._stale |= set(fn.skipped)
+        self._stale -= recomputed
+        for name in fn.incr_views:
+            self._accum_rank[name] = self._accum_rank.get(name, 0) + bucket
+        for name in recomputed:
+            self._accum_rank[name] = 0
+
+    def refresh(self, block: bool = False) -> Dict[str, Tensor]:
+        """Recompute lazily-materialized views left stale by planned
+        firings, in program order so stale ancestors refresh first; each
+        gets storage of its own."""
+        if not self._stale:
+            return self.views
+        for st in self.program.statements:
+            name = st.target.name
+            if name in self._stale:
+                val = evaluate(st.expr, self.views, self.binding,
+                               device=self.device)
+                self.views[name] = _own(val, [t for k, t in
+                                              self.views.items()
+                                              if k != name])
+        if block:
+            _sync(self.device)
+        self._stale.clear()
+        return self.views
 
     # -- lifecycle -----------------------------------------------------------
     def initialize(self, inputs: Dict[str, object]) -> Dict[str, Tensor]:
@@ -163,6 +412,8 @@ class IncrementalEngine:
         self.views = {**owned, **computed}
         self._pending.clear()
         self._pending_since.clear()
+        self._stale.clear()
+        self._accum_rank.clear()
         return dict(computed)
 
     def load_views(self, views: Dict[str, object]) -> Dict[str, Tensor]:
@@ -178,6 +429,8 @@ class IncrementalEngine:
                                   self.device)
         self._pending.clear()
         self._pending_since.clear()
+        self._stale.clear()
+        self._accum_rank.clear()
         return self.views
 
     def views_numpy(self) -> Dict[str, np.ndarray]:
@@ -194,24 +447,26 @@ class IncrementalEngine:
         left factor (``v`` then stays ``None``): a no-op carrier skips the
         firing, a row-local carrier under ``rowlocal_fraction`` fires the
         row-local trigger, and everything else widens to this dense path.
+        On a planned (or cost-policy) engine the firing executes the
+        plan's per-view partition.
         """
         if isinstance(u, DeltaCarrier) or v is None:
             return self._apply_carrier(input_name, as_carrier(u, v),
                                        block=block)
-        fn = self._trigger_fns.get(input_name)
-        if fn is None:
-            raise KeyError(f"no trigger for input {input_name!r}; have "
-                           f"{sorted(self.compiled.triggers)}")
+        self._check_input(input_name)
+        rank = self.compiled.triggers[input_name].rank
         t0 = time.perf_counter()
         u, v = _factor(u, self.device), _factor(v, self.device)
-        self.views = fn(self.views, u, v)
-        self.stats.lowrank_applies += fn.lowrank_applies
+        self._fire(input_name, rank, u, v)
         if block:
             _sync(self.device)
             self.stats.trigger_seconds += time.perf_counter() - t0
             self.stats.updates_timed += 1
+            self.stats.sweep_flops_timed += self._sweep_flops(input_name,
+                                                              rank)
         self.stats.updates_applied += 1
         self.stats.triggers_fired += 1
+        self._observe_firing(input_name, rank, 1)
         return self.views
 
     def apply_updates(self, input_name: str, updates: Sequence[Tuple],
@@ -235,23 +490,50 @@ class IncrementalEngine:
         t0 = time.perf_counter()  # stacking is part of the batch's cost
         t_count = len(updates)
         P, Q = stack_update_arrays(updates, self.device)
+        stacked_rank = P.shape[1]
         if self.max_batch_rank is not None and P.shape[1] > self.max_batch_rank:
             P, Q = recompress_factors(P, Q, max_rank=self.max_batch_rank,
                                       tol=self.recompress_tol)
             self.stats.recompressions += 1
         bucket = batch_bucket(P.shape[1])
         P, Q = pad_factors_to_rank(P, Q, bucket)
-        fn = self._batched_trigger_fn(input_name, bucket)
-        self.views = fn(self.views, P, Q)
-        self.stats.lowrank_applies += fn.lowrank_applies
+        self._fire(input_name, bucket, P, Q)
         if block:
             _sync(self.device)
             self.stats.trigger_seconds += time.perf_counter() - t0
             self.stats.updates_timed += t_count
+            self.stats.sweep_flops_timed += self._sweep_flops(input_name,
+                                                              bucket)
         self.stats.updates_applied += t_count
         self.stats.triggers_fired += 1
         self.stats.batches_applied += 1
+        self._observe_firing(input_name, stacked_rank, t_count)
         return self.views
+
+    def _sweep_flops(self, input_name: str, rank: int) -> float:
+        """FLOPs of one factored sweep over this trigger's maintained
+        views at stacked rank ``rank`` — the denominator behind
+        ``stats.trigger_seconds`` that online cost_scale refitting
+        (:meth:`repro_torch.plan.AdaptivePlanner.refit_from_stats`)
+        divides by."""
+        return sum(2.0 * rank * n * m for _, (n, m), _
+                   in self._factored_view_costs(input_name))
+
+    def _observe_firing(self, input_name: str, stacked_rank: int,
+                        t_count: int,
+                        affected_fraction: Optional[float] = None) -> None:
+        """Report one firing to the attached adaptive planner (every
+        path: single, batched, row-local), adopting a re-plan if due.
+        Row-local firings also report their affected fraction."""
+        if self.planner is None:
+            return
+        self.planner.observe(input_name, stacked_rank, t_count,
+                             affected_fraction=affected_fraction)
+        self.planner.refit_from_stats(self.stats)
+        new_plan = self.planner.maybe_replan()
+        if new_plan is not None:
+            self.set_plan(new_plan)
+            self.stats.replans += 1
 
     def _bucket_trigger(self, input_name: str, bucket: int) -> Trigger:
         """The trigger IR for (input, stacked-rank bucket)."""
@@ -273,8 +555,11 @@ class IncrementalEngine:
             if bucket == self.compiled.triggers[input_name].rank:
                 fn = self._trigger_fns[input_name]
             else:
-                fn = build_trigger_fn(self._bucket_trigger(input_name, bucket),
-                                      self.program, self.binding, self.device)
+                fn = self._cached_build(
+                    ("batched", input_name, bucket),
+                    lambda: build_trigger_fn(
+                        self._bucket_trigger(input_name, bucket),
+                        self.program, self.binding, self.device))
             self._batched_triggers[key] = fn
         return fn
 
@@ -286,16 +571,30 @@ class IncrementalEngine:
 
     def _rowlocal_ok(self, input_name: str, carrier: DeltaCarrier) -> bool:
         """Whether a row-local carrier may fire the row-local trigger: its
-        affected fraction is under ``rowlocal_fraction``, and at least one
+        affected fraction is under ``rowlocal_fraction``, at least one
         maintained view (not the input itself) is one the compiler proved
         row-local — otherwise every view widens and the row trigger buys
-        nothing over the dense sweep."""
-        if carrier.affected_fraction() > self.rowlocal_fraction:
+        nothing over the dense sweep — and the plan's partition is empty
+        (a firing the plan wants to re-evaluate or skip goes through the
+        planned dense firing).  When *every* maintained view is row-local
+        the plan (or §7) decision is priced at the containment-scaled
+        rank ``ceil(rank · frac)``: a row sweep touches ``r·m`` elements
+        where the dense sweep the crossover was solved for touches
+        ``n·m``.  Triggers with any widened view keep the full-rank
+        price: those views really do pay the dense sweep."""
+        frac = carrier.affected_fraction()
+        if frac > self.rowlocal_fraction:
             return False
         trig = self.compiled.triggers[input_name]
-        return any(trig.carriers.get(up.view) == "row_local"
-                   for up in trig.updates
-                   if up.kind == "lowrank" and up.view != input_name)
+        kinds = [trig.carriers.get(up.view) for up in trig.updates
+                 if up.kind == "lowrank" and up.view != input_name]
+        if not any(kd == "row_local" for kd in kinds):
+            return False
+        rank = max(carrier.rank, 1)
+        if all(kd == "row_local" for kd in kinds):
+            rank = max(1, int(np.ceil(rank * frac)))
+        reeval, lazy = self._plan_decision(input_name, rank)
+        return not reeval and not lazy
 
     def _rowlocal_trigger_fn(self, input_name: str, bucket: int) -> Callable:
         """The row-local trigger for (input, rank bucket), built on first
@@ -303,10 +602,12 @@ class IncrementalEngine:
         key = (input_name, bucket)
         fn = self._rowlocal_fns.get(key)
         if fn is None:
-            fn = build_rowlocal_trigger_fn(
-                self._bucket_trigger(input_name, bucket), self.program,
-                self.binding, self.device,
-                max_fraction=self.rowlocal_fraction)
+            fn = self._cached_build(
+                ("rowlocal", input_name, bucket, self.rowlocal_fraction),
+                lambda: build_rowlocal_trigger_fn(
+                    self._bucket_trigger(input_name, bucket), self.program,
+                    self.binding, self.device,
+                    max_fraction=self.rowlocal_fraction))
             self._rowlocal_fns[key] = fn
         return fn
 
@@ -351,16 +652,35 @@ class IncrementalEngine:
         self.views = fn(self.views, rows, B, V)
         self.stats.row_applies += fn.row_applies
         self.stats.lowrank_applies += fn.dense_applies
+        if self.plan is not None:
+            for up in self.compiled.triggers[input_name].updates:
+                self._accum_rank[up.view] = \
+                    self._accum_rank.get(up.view, 0) + bucket
         if block:
             _sync(self.device)
             self.stats.trigger_seconds += time.perf_counter() - t0
             self.stats.updates_timed += t_count
+            self.stats.sweep_flops_timed += self._rowlocal_sweep_flops(
+                input_name, bucket, len(rows))
         self.stats.updates_applied += t_count
         self.stats.triggers_fired += 1
         self.stats.rowlocal_firings += 1
         if t_count > 1:
             self.stats.batches_applied += 1
+        self._observe_firing(input_name, rank, t_count,
+                             affected_fraction=carrier.affected_fraction())
         return self.views
+
+    def _rowlocal_sweep_flops(self, input_name: str, rank: int,
+                              r: int) -> float:
+        """FLOPs of one row-local sweep: row-local views pay
+        ``2·rank·r·m``, widened views the full ``2·rank·n·m``."""
+        trig = self.compiled.triggers[input_name]
+        total = 0.0
+        for name, (n, m), _ in self._factored_view_costs(input_name):
+            rows_eff = r if trig.carriers.get(name) == "row_local" else n
+            total += 2.0 * rank * rows_eff * m
+        return total
 
     def _apply_carrier_batch(self, input_name: str, updates,
                              block: bool = False) -> Dict[str, Tensor]:
@@ -406,10 +726,12 @@ class IncrementalEngine:
                        ) -> Optional[Dict[str, Tensor]]:
         """Queue ``input_name += u @ v.T`` for the next coalesced flush.
 
-        Flushes automatically when the pending stacked rank reaches
-        ``flush_size`` or the oldest queued update is older than
-        ``flush_age`` seconds.  Returns the refreshed views on flush, else
-        ``None`` (views are stale until the next :meth:`flush`).
+        Flushes automatically per the engine's ``flush_policy`` —
+        ``"fixed"``: the pending stacked rank reaches ``flush_size``;
+        ``"cost"``: it reaches :meth:`cost_flush_rank`; both: the oldest
+        queued update is older than ``flush_age`` seconds.  Returns the
+        refreshed views on flush, else ``None`` (views are stale until
+        the next :meth:`flush`).
         """
         self._check_input(input_name)
         u, v = _factor(u, self.device), _factor(v, self.device)
@@ -428,15 +750,42 @@ class IncrementalEngine:
         return time.perf_counter() - self._pending_since[input_name]
 
     def maybe_flush(self, input_name: str) -> Optional[Dict[str, Tensor]]:
-        """Flush one input's queue if its rank or age threshold is met."""
-        if self.pending_age(input_name) >= self.flush_age \
-                or self.pending_rank(input_name) >= self.flush_size:
+        """Flush one input's queue if the active policy says so: its age
+        past ``flush_age``, or its stacked rank at ``flush_size``
+        (``"fixed"``) or :meth:`cost_flush_rank` (``"cost"``).  Flushing
+        at the crossover does not by itself re-evaluate the losing view —
+        it bounds the stacked rank; the flushed firing then makes the
+        per-view choice (:meth:`_fire`)."""
+        if self.pending_age(input_name) >= self.flush_age:
+            return self.flush(input_name)
+        threshold = (self.cost_flush_rank(input_name)
+                     if self.flush_policy == "cost" else self.flush_size)
+        if self.pending_rank(input_name) >= threshold:
             return self.flush(input_name)
         return None
 
+    def cost_flush_rank(self, input_name: str) -> int:
+        """The stacked rank at which the ``"cost"`` policy flushes: one
+        past the smallest §7 crossover of the trigger's factored views
+        (the first integer K with reeval_flops < 2·K·n·m).  Cached per
+        input; a trigger with no factored view falls back to
+        ``flush_size``."""
+        cached = self._cost_flush_rank.get(input_name)
+        if cached is None:
+            firsts = [int(reeval / (2.0 * n * m)) + 1
+                      for _, (n, m), reeval
+                      in self._factored_view_costs(input_name)]
+            cached = min(firsts) if firsts else self.flush_size
+            self._cost_flush_rank[input_name] = cached
+        return cached
+
     def flush(self, input_name: Optional[str] = None,
               block: bool = False) -> Dict[str, Tensor]:
-        """Apply all pending updates (for one input, or every input)."""
+        """Apply all pending updates (for one input, or every input).
+
+        The exactness point before a read: also recomputes any lazily
+        maintained views that planned firings left stale, so every view
+        in :attr:`views` is current when this returns."""
         names = [input_name] if input_name is not None else \
             [n for n, q in self._pending.items() if q]
         for name in names:
@@ -447,6 +796,8 @@ class IncrementalEngine:
                 self.apply_updates(name, q, block=block)
             self._pending.pop(name, None)
             self._pending_since.pop(name, None)
+        if self._stale:
+            self.refresh(block=block)
         return self.views
 
     # -- baseline path ---------------------------------------------------------
@@ -459,12 +810,23 @@ class IncrementalEngine:
         if block:
             _sync(self.device)
             self.stats.reeval_seconds += time.perf_counter() - t0
+            self.stats.reeval_flops_timed += self.reeval_flops()
         self.views.update(computed)
+        self._stale.clear()
+        self._accum_rank.clear()
         self.stats.reevals += 1
         return dict(computed)
 
     # -- introspection -----------------------------------------------------------
     def output(self, name: Optional[str] = None) -> Tensor:
+        """A view, exact: a read point, so stale lazy views are
+        refreshed first; counts ``stats.reads`` (and tells an adaptive
+        planner)."""
+        self.stats.reads += 1
+        if self.planner is not None:
+            self.planner.observe_read()
+        if self._stale:
+            self.refresh()
         name = name or self.program.output_names()[0]
         return self.views[name]
 

@@ -5,10 +5,11 @@ and one decode step for the whole batch.  ``launch/serve.py`` drives it.
 
 Incremental logit views (LINVIEW's serving integration) attach here:
 hot-swap deltas to a head are queued on its view and coalesced, so a burst
-of T adapter updates costs one batched trigger firing per view.  This
-slice serves unguarded, in-process views; the reference's ``degrade``
-(guard), ``attach_fleet``, ``replan_views`` and checkpoint hooks wait for
-``guard/``, ``fleet/``, ``plan/`` and ``dist/`` (ROADMAP.md Queue 1).
+of T adapter updates costs one batched trigger firing per view, and
+:meth:`ServeEngine.replan_views` hot-swaps a maintenance plan into every
+view.  The port serves unguarded, in-process views; the reference's
+``degrade`` (guard), ``attach_fleet`` and checkpoint hooks wait for
+``guard/``, ``fleet/`` and ``dist/`` (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -118,6 +119,18 @@ class ServeEngine:
 
     def view_logits(self, weight_path: str) -> torch.Tensor:
         return self._logit_views[weight_path].logits
+
+    def replan_views(self, workload) -> Dict[str, Any]:
+        """Hot-swap a cost-based maintenance re-plan into every attached
+        logit view (e.g. when the adapter-delta traffic profile shifts).
+
+        ``workload`` is a :class:`repro_torch.plan.WorkloadDescriptor`;
+        each view prices its own plan against it.  Pending queued deltas
+        survive the swap and flush on the unchanged thresholds under the
+        new plan.  Returns {weight_path: installed plan}.
+        """
+        return {path: view.replan(workload)
+                for path, view in self._logit_views.items()}
 
     def view_health(self) -> Dict[str, Dict[str, Any]]:
         """Per-view serving health; unguarded views always serve fresh."""

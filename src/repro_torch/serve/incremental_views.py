@@ -14,8 +14,9 @@ triggers and rank-update kernel drive the analytics and serving paths.
 
 Exact only for views linear in the updated weight (lm-head, classifier,
 embedding-projection layers); :meth:`IncrementalLogitView.covers` says
-which updates are maintainable.  Cost-based re-planning (``replan``)
-waits for ``plan/`` (ROADMAP.md Queue 1 item 8).
+which updates are maintainable.  :meth:`IncrementalLogitView.replan`
+hot-swaps a cost-based maintenance plan (:mod:`repro_torch.plan`) into
+the view's engine without dropping its queued deltas.
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ class IncrementalLogitView:
 
     def __init__(self, hidden, head, rank: int = 1, flush_size: int = 16,
                  flush_age: float = 0.05,
-                 max_batch_rank: Optional[int] = None, device=None):
+                 max_batch_rank: Optional[int] = None, plan=None,
+                 device=None):
         m, d = hidden.shape
         p, d2 = head.shape
         if d != d2:
@@ -58,8 +60,25 @@ class IncrementalLogitView:
         prog = build_logit_view_program(m, d, p)
         self.engine = IncrementalEngine(
             prog, {"W": rank, "H": rank}, max_batch_rank=max_batch_rank,
-            flush_size=flush_size, flush_age=flush_age, device=device)
+            flush_size=flush_size, flush_age=flush_age, plan=plan,
+            device=device)
         self.engine.initialize({"H": hidden, "W": head})
+
+    def replan(self, workload):
+        """Hot-swap a cost-based maintenance re-plan for this view.
+
+        ``workload`` is a :class:`repro_torch.plan.WorkloadDescriptor`
+        (or a ready :class:`~repro_torch.plan.MaintenancePlan`).  The
+        staleness contract survives the swap: pending queued hot-swap
+        deltas are kept (they flush under the *new* plan on the same
+        ``flush_size``/``flush_age`` thresholds).  Returns the installed
+        plan.
+        """
+        from ..plan import MaintenancePlan, plan_for_engine
+        plan = (workload if isinstance(workload, MaintenancePlan)
+                else plan_for_engine(self.engine, workload))
+        self.engine.set_plan(plan)
+        return plan
 
     @property
     def logits(self) -> torch.Tensor:

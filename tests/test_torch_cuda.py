@@ -119,6 +119,62 @@ def test_engine_on_card_matches_cpu(cuda, app):
         assert float((g - v).abs().max()) / scale <= 1e-5, k
 
 
+def _hybrid_plan(engine, threshold):
+    """Every view hybrid at ``threshold``: batches of 2 sweep, re-evaluate,
+    sweep, ... (the construction of tests/test_planner.py)."""
+    from dataclasses import replace
+    from repro_torch.plan import (MaintenancePlan, WorkloadDescriptor,
+                                  plan_for_engine)
+    base = plan_for_engine(engine, WorkloadDescriptor())
+    return MaintenancePlan(base.fingerprint, base.workload, {
+        n: replace(vp, strategy="hybrid", threshold_rank=threshold)
+        for n, vp in base.views.items()})
+
+
+@pytest.mark.parametrize("app", ["ols", "matrix_powers"])
+def test_planned_engine_on_card_matches_cpu(cuda, app):
+    """A hybrid plan on the card against the same plan on the CPU port;
+    the dense kernel launches once per incremental view apply, never for
+    a view re-evaluated inside the firing."""
+    from repro_torch.plan import TriggerCache
+    if app == "ols":
+        inputs, _ = OLS.synthesize(96, 24, 2, seed=0)
+        make = lambda device: OLS(96, 24, 2, device=device)
+        shape = (96, 24)
+    else:
+        inputs = MatrixPowers.synthesize(64, seed=0)
+        make = lambda device: MatrixPowers(n=64, k=8, device=device)
+        shape = (64, 64)
+    stream = UpdateStream(n=shape[0], m=shape[1], seed=2)
+    batches = [[stream.next_update() for _ in range(2)] for _ in range(4)]
+    engines = {}
+    for device in ("cuda", "cpu"):
+        base = make(device)
+        eng = IncrementalEngine(base.program, {base.update_input: 1},
+                                plan=_hybrid_plan(base.engine, 4),
+                                trigger_cache=TriggerCache(), device=device)
+        eng.initialize(inputs)
+        engines[device] = (eng, base.update_input)
+    gpu, name = engines["cuda"]
+    cpu, _ = engines["cpu"]
+    before = cuda_ru.LAUNCHES["rank_update_batched"]
+    for batch in batches:
+        gpu.apply_updates(name, batch)
+        cpu.apply_updates(name, batch)
+    torch.cuda.synchronize()
+    launched = cuda_ru.LAUNCHES["rank_update_batched"] - before
+    assert gpu.stats.plan_reevals == cpu.stats.plan_reevals == \
+        2 * len(gpu.plan.views)
+    assert launched == gpu.stats.lowrank_applies == \
+        cpu.stats.lowrank_applies
+    fns = list(gpu._planned_fns.values())
+    assert fns and all(fn.lowrank_applies == 1 for fn in fns)  # the input
+    for k, v in cpu.views.items():
+        g = gpu.views[k].cpu()
+        scale = float(v.abs().max()) or 1.0
+        assert float((g - v).abs().max()) / scale <= 1e-5, k
+
+
 # The row entry's crossovers in csrc/rank_update_rows.cu: the largest k whose
 # M loads precede the staging, and the largest k on the streaming tile.
 _ROWS_CU = (Path(cuda_rows.__file__).parent / "csrc" /

@@ -27,7 +27,9 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.codegen",
            "repro_torch.models.model", "repro_torch.models.weights",
            "repro_torch.serve", "repro_torch.serve.engine",
            "repro_torch.serve.incremental_views", "repro_torch.launch",
-           "repro_torch.launch.serve"]
+           "repro_torch.launch.serve", "repro_torch.plan",
+           "repro_torch.plan.planner", "repro_torch.plan.trigger_cache",
+           "repro_torch.plan.adaptive", "repro_torch.plan.calibrate"]
 
 PROBE = """
 import importlib, sys
