@@ -1256,26 +1256,39 @@ def phase_logit_view(eng, prompts) -> dict:
     deltas = [(rng.standard_normal((cfg.vocab, 1)).astype(np.float32) * .01,
                rng.standard_normal((cfg.d_model, 1)).astype(np.float32)
                * .01) for _ in range(HOT_SWAPS)]
+    label = "logit_view_danube"
+    half = HOT_SWAPS // 2
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    half = HOT_SWAPS // 2
     flushed = [eng.hot_swap("lm_head", u, v) for u, v in deltas[:half]]
-    # a re-plan mid-stream: the queued deltas survive it and flush under
-    # the new plan
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t0
+    # a re-plan mid-stream, timed on its own: the queued deltas survive
+    # it, and the new plan keeps Y incremental, so the flush still runs
+    # the dense kernel at K = HOT_SWAPS
     pending = view.pending_updates
+    t0 = time.perf_counter()
     plan = view.replan(WorkloadDescriptor(batch_size=HOT_SWAPS))
+    replan_s = time.perf_counter() - t0
     if view.pending_updates != pending or view.engine.plan is not plan:
         raise AssertionError(f"replan dropped the queue: {pending} -> "
                              f"{view.pending_updates} pending")
+    if plan.views["Y"].strategy != "incremental":
+        raise AssertionError(f"{label}: the replan maintains Y by "
+                             f"{plan.views['Y'].strategy!r}")
+    t0 = time.perf_counter()
     flushed += [eng.hot_swap("lm_head", u, v) for u, v in deltas[half:]]
     eng.flush_views()
     Y = eng.view_logits("lm_head")
     torch.cuda.synchronize()
-    swap_s = time.perf_counter() - t0
+    swap_s += time.perf_counter() - t0
     got, ranks = launches(), dense_ranks()
     applies = view.engine.stats.lowrank_applies - applies0
-    label = "logit_view_danube"
     check_launches(label, got, {"rank_update_batched": applies})
+    if view.engine.stats.plan_reevals or not ranks.get(HOT_SWAPS):
+        raise AssertionError(f"{label}: {view.engine.stats.plan_reevals} "
+                             f"views re-evaluated, dense launches by K "
+                             f"{ranks}")
     for u, v in deltas:
         W += torch.from_numpy(u).to(DEVICE) @ torch.from_numpy(v).to(DEVICE).T
     t0 = time.perf_counter()
@@ -1292,6 +1305,7 @@ def phase_logit_view(eng, prompts) -> dict:
            "lowrank_applies": applies, "launches": got,
            "dense_ranks": ranks,
            "initialize_s": init_s, "hot_swap_and_flush_s": swap_s,
+           "replan_s": replan_s,
            "reeval_matmul_s": reeval_s, "rel_err_vs_reeval": rel,
            "tolerance": MAIN_TOL,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -1377,11 +1391,9 @@ def phase_plan_pagerank(cost_scale: float) -> list:
             rec["strategies"] = view_strategies(eng)
         elif way == "cost_policy":
             rec["cost_flush_rank"] = eng.cost_flush_rank("M")
-            rec["reevaluated_at_rank"] = {
-                r: sorted(eng._plan_decision("M", r)[0]) for r in (1, 8)}
         log("main " + json.dumps({k: rec[k] for k in (
-            "phase", "plan_reevals", "strategies", "cost_flush_rank",
-            "reevaluated_at_rank") if k in rec}))
+            "phase", "plan_reevals", "strategies", "cost_flush_rank")
+            if k in rec}))
         recs.append(rec)
         if way == "planned":
             planned = app
@@ -1449,13 +1461,12 @@ def phase_plan_ols() -> dict:
     torch.cuda.synchronize()
     reset_launches()
     batch_s = timed(lambda: eng.apply_updates("X", ups, block=True))
-    stale = sorted(eng._stale)
-    if eng.stats.lazy_skips <= 0 or stale != ["Z"]:
-        raise AssertionError(f"{label}: {eng.stats.lazy_skips} lazy skips, "
-                             f"stale {stale}")
+    if eng.stats.lazy_skips <= 0:
+        raise AssertionError(f"{label}: {eng.stats.lazy_skips} lazy skips")
+    # the read refreshes Z: check_views below holds it to re-evaluation
     read_s = timed(lambda: eng.output("beta"))
-    if eng._stale:
-        raise AssertionError(f"{label}: output() left {eng._stale} stale")
+    if eng.stats.reads != 1:
+        raise AssertionError(f"{label}: {eng.stats.reads} reads counted")
     app.reeval.apply_update("X", *stacked(ups), block=True)
     got, ranks = launches(), dense_ranks()
     check_launches(label, got, {
@@ -1463,7 +1474,7 @@ def phase_plan_ols() -> dict:
     rel = check_views(label, eng.views, app.reeval.views)
     rec = {"phase": label, "strategies": view_strategies(eng),
            "lazy": sorted(eng.plan.lazy_views()),
-           "lazy_skips": eng.stats.lazy_skips, "stale_after_batch": stale,
+           "lazy_skips": eng.stats.lazy_skips,
            "reads": eng.stats.reads,
            "apply_updates_s_per_update": batch_s / len(ups),
            "output_refresh_s": read_s,

@@ -15,9 +15,10 @@ arrays) never had to care: a factor block that shares storage with a
 view written in the same firing would be read after the apply changed it,
 so such a factor is cloned before any apply runs.
 
-A planned firing (:func:`build_planned_trigger_fn`) keeps that contract
-and adds one more: a view re-evaluated inside the firing gets storage of
-its own, as every view of :func:`build_evaluator` does.
+A firing under a maintenance plan (:func:`build_trigger_fn` with
+``reeval_views`` / ``lazy_views``) keeps that contract and adds one
+more: a view re-evaluated inside the firing gets storage of its own, as
+every view of :func:`build_evaluator` does.
 """
 
 from __future__ import annotations
@@ -128,6 +129,22 @@ def _own(val: torch.Tensor, others) -> torch.Tensor:
     return val
 
 
+def recompute(statements, views: Env, binding: Dict[str, int],
+              device=None) -> Env:
+    """Re-evaluate ``statements`` in program order against ``views`` and
+    store each result in ``views`` (updated and returned), so a statement
+    sees the values its predecessors just recomputed.  One fresh CSE
+    cache serves the whole pass; each result gets storage of its own, so
+    a later in-place apply to one view never writes through to another.
+    """
+    cache: Dict[int, torch.Tensor] = {}
+    for st in statements:
+        name = st.target.name
+        val = evaluate(st.expr, views, binding, cache, device)
+        views[name] = _own(val, [t for k, t in views.items() if k != name])
+    return views
+
+
 # ---------------------------------------------------------------------------
 # program re-evaluation (the paper's baseline strategy)
 # ---------------------------------------------------------------------------
@@ -138,29 +155,22 @@ def build_evaluator(program: Program,
                     device=None) -> Callable[[Env], Env]:
     """Full re-evaluation: returns {view name: value} for all statements.
 
-    Every returned view owns contiguous storage of its own: a statement
-    that evaluates to an input, another view, or a transpose of one
-    (``.T`` is a torch view) is copied, so the in-place applies of a
-    later firing never write through to a second name.
+    Every returned view owns contiguous storage of its own
+    (:func:`recompute`), so the in-place applies of a later firing never
+    write through to a second name.
     """
     binding = dict(program.dims if binding is None else binding)
 
     def run(inputs: Env) -> Env:
-        env: Env = dict(inputs)
-        cache: Dict[int, torch.Tensor] = {}
-        out: Env = {}
-        for st in program.statements:
-            val = _own(evaluate(st.expr, env, binding, cache, device),
-                       list(inputs.values()) + list(out.values()))
-            env[st.target.name] = val
-            out[st.target.name] = val
-        return out
+        env = recompute(program.statements, dict(inputs), binding, device)
+        return {st.target.name: env[st.target.name]
+                for st in program.statements}
 
     return run
 
 
 # ---------------------------------------------------------------------------
-# trigger execution (the incremental strategy)
+# trigger execution (incremental, or per view under a maintenance plan)
 # ---------------------------------------------------------------------------
 
 
@@ -198,40 +208,118 @@ def _firing_factors(updates, env: Env, views: Env, written) -> Env:
     return factors
 
 
+def planned_trigger_sets(trigger: Trigger, program: Program,
+                         reeval_views=(), lazy_views=()):
+    """Partition a trigger's work under a maintenance plan.
+
+    ``reeval_views`` are re-evaluated from their defining statements
+    inside the firing (the §7 fallback for views whose delta lost to
+    recomputation); ``lazy_views`` are skipped entirely (unmaterialized
+    intermediates, recomputed on read) — unless a re-evaluated view's
+    statement reads them, in which case they are pulled into the
+    recompute closure so re-evaluation stays exact.
+
+    Returns ``(kept_assigns, kept_updates, recompute_stmts, skipped)``:
+    the dead-code-eliminated factor-block assigns and ``+=`` updates
+    that still run incrementally, the statements to re-evaluate in
+    program order, and the lazy views this firing leaves stale.
+    """
+    reeval = set(reeval_views)
+    lazy = set(lazy_views) - reeval
+    if trigger.input_name in reeval or trigger.input_name in lazy:
+        raise ValueError(
+            f"input {trigger.input_name!r} is the base fact: it cannot be "
+            f"re-evaluated or left unmaterialized")
+    kept_updates = [up for up in trigger.updates
+                    if up.view not in reeval and up.view not in lazy]
+    # recompute closure, discovered right-to-left: a lazy view is
+    # recomputed only if a later recomputed statement reads it
+    needed: set = set()
+    recompute_names: set = set()
+    for st in reversed(program.statements):
+        name = st.target.name
+        if name in reeval or (name in lazy and name in needed):
+            recompute_names.add(name)
+            needed |= set(st.expr.free_vars())
+    recompute = [st for st in program.statements
+                 if st.target.name in recompute_names]
+    skipped = tuple(sorted(lazy - recompute_names))
+    # assign DCE, same direction: keep only blocks the kept updates
+    # (transitively) reference
+    need: set = set()
+    for up in kept_updates:
+        need |= {x for x in (up.u, up.v, up.d) if x}
+    kept_assigns: List[Assign] = []
+    for a in reversed(trigger.assigns):
+        if a.name in need:
+            kept_assigns.append(a)
+            need |= set(a.expr.free_vars())
+    kept_assigns.reverse()
+    return kept_assigns, kept_updates, recompute, skipped
+
+
 def build_trigger_fn(trigger: Trigger, program: Program,
                      binding: Optional[Dict[str, int]] = None,
-                     device=None) -> Callable[[Env, torch.Tensor,
-                                               torch.Tensor], Env]:
+                     device=None, *, reeval_views=(), lazy_views=()
+                     ) -> Callable[[Env, torch.Tensor, torch.Tensor], Env]:
     """Stage a trigger into ``(views, U, V) -> views``.
 
-    ``views`` must contain the input matrices and every maintained view.
-    All factor blocks are evaluated against the pre-update views (the
-    delta derivation's contract), then each low-rank update runs the
-    rank-k kernel in place on its view; a dense (hybrid) update replaces
-    the view with ``view + D``.  The dict is updated and returned.
-    ``run.lowrank_applies`` is the number of rank-k applies per firing.
+    ``views`` must contain the input matrices and every maintained view;
+    the dict is updated and returned.  Under a maintenance plan,
+    ``reeval_views`` are re-evaluated inside the firing and
+    ``lazy_views`` skipped (:func:`planned_trigger_sets`); with both
+    empty every view is maintained incrementally.
+
+    Execution order keeps the firing exact with in-place applies:
+
+    1. every kept factor block is evaluated against the *old* views (the
+       delta derivation's contract), and a factor that shares storage
+       with a view the firing writes is copied — all before any apply;
+    2. the surviving updates land: a low-rank one through
+       ``ops.rank_update_batched`` in place on its view, a dense (hybrid)
+       one as ``view + D``;
+    3. the re-evaluated statements run through :func:`recompute` against
+       the updated store (the assign-phase cache holds pre-update
+       values).
+
+    Run attributes: ``reeval_views``, ``recomputes`` (re-evaluated plus
+    pulled-in lazy views), ``skipped`` (lazy views left stale),
+    ``incr_views`` and ``lowrank_applies`` (the incremental views'
+    rank-k applies — the kernel launches of one firing on the card).
     """
     binding = dict(program.dims if binding is None else binding)
-    written, _ = trigger_touched_views(trigger)
+    assigns, updates, statements, skipped = planned_trigger_sets(
+        trigger, program, reeval_views, lazy_views)
+    written = tuple(dict.fromkeys(up.view for up in updates))
 
     def run(views: Env, u: torch.Tensor, v: torch.Tensor) -> Env:
         env: Env = dict(views)
         env[trigger.u_var.name] = u
         env[trigger.v_var.name] = v
         cache: Dict[int, torch.Tensor] = {}
-        for a in trigger.assigns:
+        for a in assigns:
             env[a.name] = evaluate(a.expr, env, binding, cache, device)
-        factors = _firing_factors(trigger.updates, env, views, written)
-        for up in trigger.updates:
+        factors = _firing_factors(updates, env, views, written)
+        del env, cache
+        for up in updates:
             if up.kind == "lowrank":
                 ops.rank_update_batched(views[up.view], factors[up.u],
                                         factors[up.v])
             else:
                 views[up.view] = views[up.view] + factors[up.d]
-        return views
+        del factors
+        return recompute(statements, views, binding, device)
 
-    run.lowrank_applies = sum(up.kind == "lowrank" for up in trigger.updates)
+    run.reeval_views = tuple(sorted(reeval_views))
+    run.recomputes = tuple(st.target.name for st in statements)
+    run.skipped = skipped
+    run.incr_views = tuple(up.view for up in updates)
+    run.lowrank_applies = sum(up.kind == "lowrank" for up in updates)
     return run
+
+
+# the reference's name for a firing built under a plan
+build_planned_trigger_fn = build_trigger_fn
 
 
 # ---------------------------------------------------------------------------
@@ -382,124 +470,6 @@ def build_rowlocal_trigger_fn(trigger: Trigger, program: Program,
                            if up.view in row_views])
     run.dense_applies = sum(up.kind == "lowrank" for up in trigger.updates) \
         - run.row_applies
-    return run
-
-
-# ---------------------------------------------------------------------------
-# planned trigger execution (repro_torch.plan: per-view strategy in one firing)
-# ---------------------------------------------------------------------------
-
-
-def planned_trigger_sets(trigger: Trigger, program: Program,
-                         reeval_views=(), lazy_views=()):
-    """Partition a trigger's work under a maintenance plan.
-
-    ``reeval_views`` are re-evaluated from their defining statements
-    inside the firing (the §7 fallback for views whose delta lost to
-    recomputation); ``lazy_views`` are skipped entirely (unmaterialized
-    intermediates, recomputed on read) — unless a re-evaluated view's
-    statement reads them, in which case they are pulled into the
-    recompute closure so re-evaluation stays exact.
-
-    Returns ``(kept_assigns, kept_updates, recompute_stmts, skipped)``:
-    the dead-code-eliminated factor-block assigns and ``+=`` updates
-    that still run incrementally, the statements to re-evaluate in
-    program order, and the lazy views this firing leaves stale.
-    """
-    reeval = set(reeval_views)
-    lazy = set(lazy_views) - reeval
-    if trigger.input_name in reeval or trigger.input_name in lazy:
-        raise ValueError(
-            f"input {trigger.input_name!r} is the base fact: it cannot be "
-            f"re-evaluated or left unmaterialized")
-    kept_updates = [up for up in trigger.updates
-                    if up.view not in reeval and up.view not in lazy]
-    # recompute closure, discovered right-to-left: a lazy view is
-    # recomputed only if a later recomputed statement reads it
-    needed: set = set()
-    recompute_names: set = set()
-    for st in reversed(program.statements):
-        name = st.target.name
-        if name in reeval or (name in lazy and name in needed):
-            recompute_names.add(name)
-            needed |= set(st.expr.free_vars())
-    recompute = [st for st in program.statements
-                 if st.target.name in recompute_names]
-    skipped = tuple(sorted(lazy - recompute_names))
-    # assign DCE, same direction: keep only blocks the kept updates
-    # (transitively) reference
-    need: set = set()
-    for up in kept_updates:
-        need |= {x for x in (up.u, up.v, up.d) if x}
-    kept_assigns: List[Assign] = []
-    for a in reversed(trigger.assigns):
-        if a.name in need:
-            kept_assigns.append(a)
-            need |= set(a.expr.free_vars())
-    kept_assigns.reverse()
-    return kept_assigns, kept_updates, recompute, skipped
-
-
-def build_planned_trigger_fn(trigger: Trigger, program: Program,
-                             binding: Optional[Dict[str, int]] = None,
-                             device=None, *, reeval_views=(), lazy_views=()
-                             ) -> Callable[[Env, torch.Tensor,
-                                            torch.Tensor], Env]:
-    """Stage one *planned* firing: incremental updates for the winning
-    views, in-firing re-evaluation for the losing ones, lazy skip for
-    unmaterialized intermediates — the same ``(views, U, V) -> views``
-    contract as :func:`build_trigger_fn`.
-
-    Execution order keeps the firing exact with in-place applies:
-
-    1. every kept factor block is evaluated against the *old* views (the
-       delta derivation's contract), and a factor that shares storage
-       with a view the firing writes is copied — all before any apply;
-    2. the surviving ``+=`` updates land, in place, through
-       ``ops.rank_update_batched``;
-    3. the re-evaluated statements run **in program order** against the
-       updated store with a fresh CSE cache (the assign-phase cache holds
-       pre-update values), and each result gets storage of its own.
-
-    Run attributes: ``reeval_views``, ``recomputes`` (re-evaluated plus
-    pulled-in lazy views), ``skipped`` (lazy views left stale),
-    ``incr_views`` and ``lowrank_applies`` (the incremental views'
-    rank-k applies — the kernel launches of one firing on the card).
-    """
-    binding = dict(program.dims if binding is None else binding)
-    assigns, updates, recompute, skipped = planned_trigger_sets(
-        trigger, program, reeval_views, lazy_views)
-    written = tuple(dict.fromkeys(up.view for up in updates))
-
-    def run(views: Env, u: torch.Tensor, v: torch.Tensor) -> Env:
-        env: Env = dict(views)
-        env[trigger.u_var.name] = u
-        env[trigger.v_var.name] = v
-        cache: Dict[int, torch.Tensor] = {}
-        for a in assigns:
-            env[a.name] = evaluate(a.expr, env, binding, cache, device)
-        factors = _firing_factors(updates, env, views, written)
-        del env, cache
-        for up in updates:
-            if up.kind == "lowrank":
-                ops.rank_update_batched(views[up.view], factors[up.u],
-                                        factors[up.v])
-            else:
-                views[up.view] = views[up.view] + factors[up.d]
-        del factors
-        rcache: Dict[int, torch.Tensor] = {}
-        for st in recompute:
-            name = st.target.name
-            val = evaluate(st.expr, views, binding, rcache, device)
-            views[name] = _own(val, [t for k, t in views.items()
-                                     if k != name])
-        return views
-
-    run.reeval_views = tuple(sorted(reeval_views))
-    run.recomputes = tuple(st.target.name for st in recompute)
-    run.skipped = skipped
-    run.incr_views = tuple(up.view for up in updates)
-    run.lowrank_applies = sum(up.kind == "lowrank" for up in updates)
     return run
 
 

@@ -41,9 +41,8 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from .codegen import (_own, build_evaluator, build_planned_trigger_fn,
-                      build_rowlocal_trigger_fn, build_trigger_fn, evaluate,
-                      trigger_flops)
+from .codegen import (build_evaluator, build_rowlocal_trigger_fn,
+                      build_trigger_fn, recompute, trigger_flops)
 from .compiler import (CompiledProgram, Trigger, batch_bucket,
                        compile_batched_trigger, compile_program)
 from .factored import (DeltaCarrier, RowLocalCarrier, as_carrier,
@@ -184,18 +183,14 @@ class IncrementalEngine:
                                                float]]] = {}
         if plan is not None:
             self._attach_plan(plan)
+        # trigger IR per (input, bucket rank) and trigger fns per (input,
+        # bucket, reeval, lazy); built lazily, the base ranks' up front
+        self._bucket_triggers: Dict[Tuple[str, int], Trigger] = {}
+        self._planned_fns: Dict[Tuple, Callable] = {}
         self._trigger_fns: Dict[str, Callable] = {
-            name: self._cached_build(
-                ("base", name, trig.rank),
-                lambda trig=trig: build_trigger_fn(
-                    trig, self.program, self.binding, self.device))
+            name: self._planned_trigger_fn(name, trig.rank)
             for name, trig in self.compiled.triggers.items()
         }
-        # batched triggers, keyed by (input, bucket rank); built lazily
-        self._batched_triggers: Dict[Tuple[str, int], Callable] = {}
-        self._bucket_triggers: Dict[Tuple[str, int], Trigger] = {}
-        # planned triggers, keyed by (input, bucket, reeval, lazy)
-        self._planned_fns: Dict[Tuple, Callable] = {}
         # row-local triggers, keyed by (input, bucket rank); built lazily
         self._rowlocal_fns: Dict[Tuple[str, int], Callable] = {}
         self.max_batch_rank = max_batch_rank
@@ -331,22 +326,30 @@ class IncrementalEngine:
         return reeval & targets, (lazy & targets) | (self._stale & lazy)
 
     def _planned_trigger_fn(self, input_name: str, bucket: int,
-                            reeval: FrozenSet[str], lazy: FrozenSet[str]
+                            reeval: FrozenSet[str] = frozenset(),
+                            lazy: FrozenSet[str] = frozenset()
                             ) -> Callable:
-        """The planned trigger for (input, bucket, partition), built on
-        first use through the shared cache."""
+        """The trigger fn for (input, bucket, partition), built on first
+        use through the shared cache.  An empty partition maintains every
+        view incrementally."""
         key = (input_name, bucket, tuple(sorted(reeval)),
                tuple(sorted(lazy)))
         fn = self._planned_fns.get(key)
         if fn is None:
             fn = self._cached_build(
-                ("planned",) + key,
-                lambda: build_planned_trigger_fn(
+                ("trigger",) + key,
+                lambda: build_trigger_fn(
                     self._bucket_trigger(input_name, bucket), self.program,
                     self.binding, self.device, reeval_views=reeval,
                     lazy_views=lazy))
             self._planned_fns[key] = fn
         return fn
+
+    def _accumulate(self, views, rank: int) -> None:
+        """Hybrid staleness: ``views`` took an incremental update of
+        stacked rank ``rank``."""
+        for name in views:
+            self._accum_rank[name] = self._accum_rank.get(name, 0) + rank
 
     def _fire(self, input_name: str, bucket: int, P: Tensor,
               Q: Tensor) -> None:
@@ -356,15 +359,6 @@ class IncrementalEngine:
         current.  Only the fn's incremental applies count as
         ``lowrank_applies``."""
         reeval, lazy = self._plan_decision(input_name, bucket)
-        if not reeval and not lazy:
-            fn = self._batched_trigger_fn(input_name, bucket)
-            self.views = fn(self.views, P, Q)
-            self.stats.lowrank_applies += fn.lowrank_applies
-            if self.plan is not None:
-                for up in self.compiled.triggers[input_name].updates:
-                    self._accum_rank[up.view] = \
-                        self._accum_rank.get(up.view, 0) + bucket
-            return
         fn = self._planned_trigger_fn(input_name, bucket, reeval, lazy)
         self.views = fn(self.views, P, Q)
         self.stats.lowrank_applies += fn.lowrank_applies
@@ -375,8 +369,10 @@ class IncrementalEngine:
         self.stats.lazy_skips += len(fn.skipped)
         self._stale |= set(fn.skipped)
         self._stale -= recomputed
-        for name in fn.incr_views:
-            self._accum_rank[name] = self._accum_rank.get(name, 0) + bucket
+        # hybrid staleness is kept under a plan or a partition, as in
+        # the reference: a plain unplanned firing leaves it alone
+        if self.plan is not None or reeval or lazy:
+            self._accumulate(fn.incr_views, bucket)
         for name in recomputed:
             self._accum_rank[name] = 0
 
@@ -386,14 +382,9 @@ class IncrementalEngine:
         gets storage of its own."""
         if not self._stale:
             return self.views
-        for st in self.program.statements:
-            name = st.target.name
-            if name in self._stale:
-                val = evaluate(st.expr, self.views, self.binding,
-                               device=self.device)
-                self.views[name] = _own(val, [t for k, t in
-                                              self.views.items()
-                                              if k != name])
+        recompute([st for st in self.program.statements
+                   if st.target.name in self._stale],
+                  self.views, self.binding, self.device)
         if block:
             _sync(self.device)
         self._stale.clear()
@@ -547,22 +538,6 @@ class IncrementalEngine:
             self._bucket_triggers[key] = trig
         return trig
 
-    def _batched_trigger_fn(self, input_name: str, bucket: int) -> Callable:
-        """The trigger for (input, bucket), built on first use."""
-        key = (input_name, bucket)
-        fn = self._batched_triggers.get(key)
-        if fn is None:
-            if bucket == self.compiled.triggers[input_name].rank:
-                fn = self._trigger_fns[input_name]
-            else:
-                fn = self._cached_build(
-                    ("batched", input_name, bucket),
-                    lambda: build_trigger_fn(
-                        self._bucket_trigger(input_name, bucket),
-                        self.program, self.binding, self.device))
-            self._batched_triggers[key] = fn
-        return fn
-
     # -- sparsity-aware carrier path (factored.DeltaCarrier) ------------------
     def _check_input(self, input_name: str) -> None:
         if input_name not in self.compiled.triggers:
@@ -653,9 +628,9 @@ class IncrementalEngine:
         self.stats.row_applies += fn.row_applies
         self.stats.lowrank_applies += fn.dense_applies
         if self.plan is not None:
-            for up in self.compiled.triggers[input_name].updates:
-                self._accum_rank[up.view] = \
-                    self._accum_rank.get(up.view, 0) + bucket
+            self._accumulate((up.view for up in
+                              self.compiled.triggers[input_name].updates),
+                             bucket)
         if block:
             _sync(self.device)
             self.stats.trigger_seconds += time.perf_counter() - t0

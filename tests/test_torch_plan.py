@@ -256,12 +256,12 @@ def test_planned_engine_matches_jax_and_reeval(prog_name, plan_kind,
     if plan_kind == "reeval":
         assert te.stats.plan_reevals > 0
     # the kernel runs only for the incremental views (and the input)
-    fn = next(iter(te._planned_fns.values()), None)
-    if fn is not None:
-        incr = sum(up.kind == "lowrank" for up in
-                   te._bucket_trigger(inp, 4 if t_batch == 3 else 8).updates
-                   if up.view in fn.incr_views)
-        assert te.stats.lowrank_applies == fn.lowrank_applies == incr
+    bucket = 4 if t_batch == 3 else 8
+    (fn,) = [f for (_, b, _, _), f in te._planned_fns.items() if b == bucket]
+    incr = sum(up.kind == "lowrank" for up in
+               te._bucket_trigger(inp, bucket).updates
+               if up.view in fn.incr_views)
+    assert te.stats.lowrank_applies == fn.lowrank_applies == incr
 
 
 @pytest.mark.parametrize("prog_name", ["ols", "powers"])
@@ -557,8 +557,8 @@ def test_trigger_cache_no_rebuild_on_second_engine():
     assert cache.misses == misses == len(cache)
     assert cache.hits > 0
     assert eng2._trigger_fns["X"] is eng1._trigger_fns["X"]
-    assert (eng2._batched_trigger_fn("X", 8)
-            is eng1._batched_trigger_fn("X", 8))
+    assert (eng2._planned_trigger_fn("X", 8)
+            is eng1._planned_trigger_fn("X", 8))
     # the key carries the device: a CPU engine's entries are its own
     assert eng1._cache_key(())[1:3] == ("cpu", None)
     # different sizes -> different fingerprint -> no false sharing
