@@ -75,19 +75,46 @@ CUDA toolkit.  Phases, each of which raises on failure:
        carriers on 1 % of the rows: still on the row kernel;
     f. a second planned PageRank engine on b's trigger cache builds no
        trigger fn.
+14. guarded maintenance (``repro_torch.guard``), each engine against
+    re-evaluation and its launches against its applies (a guarded firing's
+    applies run the out-of-place entry, its fused commit one
+    ``select_commit`` a written view):
+    a. matrix powers A^16 (n = 10000, exp; phase 4's cell) unguarded,
+       guarded on the fused path, guarded on the snapshot path (a static
+       plan) and clone-then-apply (each firing clones the views it
+       writes, applies in place, checks its outputs): single updates, a
+       batch of 16 and 8 queued updates on one stream;
+    b. a's fused engine under chaos (poison 0.05, trigger raise 0.03),
+       64 firings at a seed where both fire: the counters, a raised
+       firing's rollback onto its very pre-firing tensors, the views
+       against re-evaluation; a NaN planted in a view sets the
+       out-of-place entry's flag and the commit keeps the store bit for
+       bit;
+    c. phase 6's compact chain, guarded against unguarded single row-local
+       firings, the touched rows' saved bytes, an overflowing carrier
+       rolled back with its rows restored bit for bit;
+    d. a's cell under a drift sentinel (probe every 8) and an adaptive
+       planner: the probe's time, a perturbed view found, healed and
+       counted by the planner, and the planner's online cost-scale refit;
+    e. phase 12's logit view under a ``DegradePolicy``: 8 hot-swaps and a
+       flush against phase 12's, the peak memory of the out-of-place Y, a
+       flush forced to fail (chaos) served from the last-good snapshot
+       bit for bit, ``view_health`` degraded, then the recovery flushing
+       the backlog exactly.
 
 Every launch count is set to 0 just before a phase drives its engines and
 read just after; the counts of each kernel must equal the applies (or
 calls) the phase made.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
-record (``rank_update_batched``'s with its launches over phases 4-9, 12
-and 13 by K = T*k) and ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
+record (``rank_update_batched``'s with its launches over phases 4-9 and
+12-14 by K = T*k) and ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
 checkout, the script prints no result and exits non-zero.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import re
@@ -159,7 +186,9 @@ SOURCES = {
     "rank_update_rows": "src/repro_torch/kernels/csrc/rank_update_rows.cu",
     "dual_matmul": "src/repro_torch/kernels/csrc/dual_matmul.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
-    "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu"}
+    "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
+    "rank_update_batched_out": "src/repro_torch/kernels/csrc/rank_update.cu",
+    "select_commit": "src/repro_torch/kernels/csrc/select_commit.cu"}
 # the bf16 prefill kernel's name in csrc/flash_attention.cu, as the
 # profiler lists it
 FLASH_BF16_KERNEL = "flash_attention_bf16_mma"
@@ -169,7 +198,11 @@ REPLACES = {
     "rank_update_rows": "src/repro/kernels/rank_update_rows.py:50",
     "dual_matmul": "src/repro/kernels/dual_matmul.py:45",
     "flash_attention": "src/repro/kernels/flash_attention.py:77",
-    "flash_decode": "src/repro/kernels/flash_decode.py:69"}
+    "flash_decode": "src/repro/kernels/flash_decode.py:69",
+    # both TPU entries, out of place: every apply of a guarded firing
+    "rank_update_batched_out": "src/repro/kernels/rank_update.py:84",
+    # no Pallas kernel: the reference's fused jnp.where select-commit
+    "select_commit": "src/repro/guard/__init__.py:316"}
 
 
 def log(msg: str) -> None:
@@ -236,9 +269,9 @@ def ptxas_lines(text: str):
 def kernel_modules():
     from repro_torch.kernels import (dual_matmul, flash_attention,
                                      flash_decode, rank_update,
-                                     rank_update_rows)
+                                     rank_update_rows, select_commit)
     return (rank_update, rank_update_rows, dual_matmul, flash_attention,
-            flash_decode)
+            flash_decode, select_commit)
 
 
 def reset_launches() -> None:
@@ -366,6 +399,74 @@ def check_kernels(flops_peak: float, bytes_peak: float):
         record(entry, {"n": n, "p": p, "T": t, "k": k}, err, ms, plain_ms,
                lib_ms, 8.0 * n * p + 4.0 * K * (n + p), 2.0 * n * p * K)
         del m0, u, v, u2, v2, work
+
+    # the out-of-place entry (every apply of a guarded firing) at matrix
+    # powers' K of single updates and batches, and a ragged shape: held
+    # to the plain version and, bit for bit, to the in-place entry, its
+    # source untouched and its flag clear; the library call is an
+    # out-of-place torch.addmm
+    for n, p, k in [(10000, 10000, K) for K in (1, 16, 64, 256)] + [
+            (37, 101, 5)]:
+        m0 = randn(n, p)
+        u = randn(1, n, k)
+        v = randn(1, p, k)
+        src = m0.clone()
+        flag = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+        got = cuda_ru.rank_update_batched_out(m0, u, v, flag)
+        same = torch.equal(got, cuda_ru.rank_update_batched(src.clone(), u,
+                                                            v))
+        want, bad = ref.rank_update_batched_out(m0, u, v)
+        torch.cuda.synchronize()
+        err = check_close(f"rank_update_batched_out {(n, p, k)}", got, want)
+        if not same or int(flag) != int(bad) or not torch.equal(m0, src):
+            raise AssertionError(f"rank_update_batched_out {(n, p, k)}: "
+                                 f"bitwise in-place {same}, flag "
+                                 f"{int(flag)}, source kept "
+                                 f"{torch.equal(m0, src)}")
+        del got, want, src
+        ms = time_ms(lambda: cuda_ru.rank_update_batched_out(m0, u, v, flag))
+        plain_ms = time_ms(lambda: ref.rank_update_batched_out(m0, u, v))
+        lib_ms = time_ms(lambda: torch.addmm(m0, u[0], v[0].T))
+        record("rank_update_batched_out", {"n": n, "p": p, "T": 1, "k": k},
+               err, ms, plain_ms, lib_ms, 8.0 * n * p + 4.0 * k * (n + p),
+               2.0 * n * p * k)
+        del m0, u, v
+
+    # select_commit at matrix powers' view size: a clean firing (flags
+    # clear: the launch, whose every block reads the flags and returns)
+    # and a failed one (old copied over new, bit for bit); the plain
+    # version is torch.where over the flags, the library call one
+    # torch.where on a ready predicate
+    n = 10000
+    old, new = randn(n, n), randn(n, n)
+    keep = new.clone()
+    clean = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+    failed = torch.tensor([0, 1], dtype=torch.int32, device=DEVICE)
+    cuda_sel = kernel_modules()[5]
+    cuda_sel.select_commit(clean, old, new)
+    kept = torch.equal(new, keep)
+    cuda_sel.select_commit(failed, old, new)
+    torch.cuda.synchronize()
+    if not kept or not torch.equal(new, ref.select_commit(failed, old,
+                                                           keep)):
+        raise AssertionError(f"select_commit: clean kept new {kept}, "
+                             "failed gave old bit for bit "
+                             f"{torch.equal(new, old)}")
+    for case, flags, nbytes in (("clean", clean, 8.0),
+                                ("failed", failed, 8.0 * n * n + 8.0)):
+        ok = ~flags.bool().any()
+
+        def kernel():
+            cuda_sel.select_commit(flags, old, new)
+
+        ms = time_ms(kernel)
+        plain_ms = time_ms(lambda: ref.select_commit(flags, old, new))
+        lib_ms = time_ms(lambda: torch.where(ok, new, old))
+        busy, summed = device_ms_per_call(kernel, "select_commit", reps=40)
+        record("select_commit", {"n": n, "p": n, "case": case}, 0.0, ms,
+               plain_ms, lib_ms, nbytes, 0.0, device_ms=busy,
+               kernel_sum_ms=summed, host_us=host_us(kernel))
+    del old, new, keep
 
     # (n, p, r, k): phase 6's applies to X and to Y1, Y2 (one carrier, and
     # a stacked batch of about 16 x 1 % of the rows at rank 128), phase 7's
@@ -1232,9 +1333,11 @@ def phase_serve_exact() -> dict:
     return rec
 
 
-def phase_logit_view(eng, prompts) -> dict:
+def phase_logit_view(eng, prompts):
     """Phase 12: the logit view over phase 10's 8 x 4096 final-norm hidden
-    states and its lm_head, under rank-1 hot-swaps through the engine."""
+    states and its lm_head, under rank-1 hot-swaps through the engine.
+    Returns the record, H, and W with the hot-swaps added (phase 14e's
+    view starts from them)."""
     import numpy as np
     import torch
     from repro_torch.plan import WorkloadDescriptor
@@ -1310,7 +1413,7 @@ def phase_logit_view(eng, prompts) -> dict:
            "tolerance": MAIN_TOL,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     log("main " + json.dumps(rec))
-    return rec
+    return rec, H, W
 
 
 # -- phase 13: planned maintenance ----------------------------------------------
@@ -1598,6 +1701,520 @@ def phase_plan(compact: dict) -> list:
     return recs
 
 
+# -- phase 14: guarded maintenance ------------------------------------------------
+
+def clone_then_apply(eng) -> None:
+    """Make ``eng`` (unguarded) fire transactionally without the
+    out-of-place entry: each firing first clones the views it writes,
+    applies in place, then checks its outputs with a host read and puts
+    the clones back on failure.  The baseline the out-of-place design is
+    measured against (phase 14a); not a path of the port."""
+    from repro_torch.guard import check_finite
+    inner = eng._fire_inner
+
+    def fire(input_name, bucket, P, Q):
+        written = dict.fromkeys(
+            up.view for up in eng._bucket_trigger(input_name, bucket).updates)
+        saved = {n: eng.views[n].clone() for n in written}
+        inner(input_name, bucket, P, Q)
+        if check_finite(eng.views, written) is not None:
+            eng.views.update(saved)
+
+    eng._fire_inner = fire
+
+
+def drive_guarded(label: str, app, ups, single: int, batches: int,
+                  batch: int, queues: int, queued: int) -> dict:
+    """One matrix-powers engine through ``single`` updates (the first a
+    warm-up, then the median), ``batches`` batches of ``batch`` and
+    ``queues`` rounds of ``queued`` queued updates with a flush (the
+    median per update of each), each ending in a synchronize; returns the
+    times, the launches and the counts the launches must equal."""
+    import torch
+    eng = app.engine
+    firings0 = eng.stats.triggers_fired
+    applies0 = eng.stats.lowrank_applies
+    fused = eng._guard_fast_path
+    it = iter(ups)
+    torch.cuda.synchronize()
+    reset_launches()
+    single_s = [timed(lambda: eng.apply_update("A", *next(it)))
+                for _ in range(single)]
+    batch_s = [timed(lambda: eng.apply_updates(
+        "A", [next(it) for _ in range(batch)])) / batch
+        for _ in range(batches)]
+
+    def queue():
+        for _ in range(queued):
+            eng.enqueue_update("A", *next(it))
+        eng.flush()
+    queued_s = [timed(queue) / queued for _ in range(queues)]
+    if eng.guard is not None:
+        eng.guard.sync()
+    got, ranks = launches(), dense_ranks()
+    firings = eng.stats.triggers_fired - firings0
+    applies = eng.stats.lowrank_applies - applies0
+    written = len({up.view for up in eng.compiled.triggers["A"].updates})
+    entry = ("rank_update_batched_out" if eng._out_of_place
+             else "rank_update_batched")
+    check_launches(label, got, {
+        entry: applies,
+        "select_commit": written * firings if fused else 0})
+    rec = {"variant": label, "fused": fused, "firings": firings,
+           "lowrank_applies": applies, "launches": got, "dense_ranks": ranks,
+           "apply_update_s_first": single_s[0],
+           "apply_update_s_median": statistics.median(single_s[1:]),
+           "apply_updates_s_per_update": statistics.median(batch_s),
+           "apply_updates_s_per_update_runs": batch_s,
+           "enqueue_flush_s_per_update": statistics.median(queued_s),
+           "enqueue_flush_s_per_update_runs": queued_s}
+    if eng.guard is not None:
+        rec["guard_stats"] = dataclasses.asdict(eng.guard.stats)
+    return rec
+
+
+def phase_guard_powers():
+    """14a: matrix powers A^16 (n = 10000, exp; phase 4's cell) unguarded,
+    guarded on the fused path, guarded on the snapshot path (a static
+    all-incremental plan) and clone-then-apply, on one update stream:
+    8 single updates after a warm-up, three batches of 16, two rounds of
+    8 queued; every engine's views against one re-evaluation of the
+    stream.  Returns the record and the four apps by way."""
+    import torch
+    from repro_torch.apps import MatrixPowers
+    from repro_torch.data import UpdateStream
+    from repro_torch.guard import GuardConfig
+    from repro_torch.plan import TriggerCache, static_plan
+    n, single, batches, batch, queues, queued = POWERS_N, 9, 3, \
+        UPDATES_BATCH, 2, 8
+    inputs = MatrixPowers.synthesize(n, seed=0)
+    stream = UpdateStream(n=n, m=n, seed=21)
+    ups = [stream.next_update()
+           for _ in range(single + batches * batch + queues * queued)]
+    ways = ("unguarded", "guarded_fused", "guarded_snapshot",
+            "clone_then_apply")
+    apps, recs = {}, []
+    for way in ways:
+        kw = {"guard": GuardConfig()} if way.startswith("guarded") else {}
+        if way == "guarded_snapshot":
+            kw["trigger_cache"] = TriggerCache()
+        app = MatrixPowers(n=n, k=16, model="exp", **kw)
+        if way == "guarded_snapshot":
+            app.engine.set_plan(static_plan(app.engine, "incremental"))
+        if way == "clone_then_apply":
+            clone_then_apply(app.engine)
+        app.engine.initialize(inputs)
+        recs.append(drive_guarded(f"guard_powers_{way}", app, ups, single,
+                                  batches, batch, queues, queued))
+        apps[way] = app
+    ree = apps["unguarded"].reeval
+    ree.initialize(inputs)
+    ree.apply_update("A", *stacked(ups), block=True)
+    for way, rec in zip(ways, recs):
+        rec["rel_err_vs_reeval"] = check_views(f"guard_powers_{way}",
+                                              apps[way].engine.views,
+                                              ree.views)
+    base = recs[0]
+    for rec in recs[1:]:
+        rec["over_unguarded"] = {
+            key: rec[key] / base[key] for key in (
+                "apply_update_s_median", "apply_updates_s_per_update",
+                "enqueue_flush_s_per_update")}
+    by_k = {}
+    for r in recs:
+        for K, count in r["dense_ranks"].items():
+            by_k[K] = by_k.get(K, 0) + count
+    rec = {"phase": f"guard_matrix_powers_n{n}_k16_exp", "ways": recs,
+           "tolerance": MAIN_TOL, "dense_ranks": by_k,
+           "launches": {k: sum(r["launches"][k] for r in recs)
+                        for k in recs[0]["launches"]}}
+    log("main " + json.dumps(rec))
+    return rec, apps
+
+
+def chaos_seed(n: int, firings: int, poison_p: float, raise_p: float):
+    """The first seed under which a fused guarded engine's ``firings``
+    single updates of (n, 1) factors are both poisoned and raised at, and
+    the index of the first firing that raises.  Found by the monkey's own
+    draws on host arrays of the same shapes: the engine makes the same
+    calls in the same order."""
+    import numpy as np
+    from repro_torch.guard import ChaosConfig, ChaosError
+    dummy = np.zeros((n, 1), np.float32)
+    for seed in range(1000):
+        monkey = ChaosConfig(seed=seed, poison_p=poison_p,
+                             trigger_raise_p=raise_p).monkey()
+        first = None
+        for i in range(firings):
+            monkey.poison_update(dummy, dummy)
+            try:
+                monkey.maybe_raise_in_trigger()
+            except ChaosError:
+                first = i if first is None else first
+        if monkey.poisoned and monkey.raises:
+            return seed, first
+    raise AssertionError("no seed poisons and raises")
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two float32 tensors (NaN included)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def phase_guard_chaos(app) -> dict:
+    """14b: matrix powers at n = 10000 on the fused path under chaos
+    (poison 0.05, trigger raise 0.03), 64 firings at a seed where both
+    fire; one raised firing held to a rollback onto its very pre-firing
+    tensors; the views against re-evaluation of the maintained input;
+    then a NaN planted in a view: the out-of-place entry's flag is set
+    and the select-commit leaves the store bit-identical."""
+    import torch
+    from repro_torch.data import UpdateStream
+    from repro_torch.guard import ChaosConfig
+    from repro_torch.kernels import ops
+    n, firings = POWERS_N, 64
+    seed, first = chaos_seed(n, firings, 0.05, 0.03)
+    eng = app.engine
+    eng.chaos = ChaosConfig(seed=seed, poison_p=0.05,
+                            trigger_raise_p=0.03).monkey()
+    eng.guard.sync()
+    g0 = dataclasses.asdict(eng.guard.stats)
+    stream = UpdateStream(n=n, m=n, seed=22)
+    label = f"guard_chaos_matrix_powers_n{n}"
+    torch.cuda.synchronize()
+    reset_launches()
+    applies0 = eng.stats.lowrank_applies
+    t0 = time.perf_counter()
+    rollback = None
+    for i in range(firings):
+        uv = stream.next_update()
+        if i == first:
+            before = dict(eng.views)
+            clones = {k: t.clone() for k, t in before.items()}
+            eng.apply_update("A", *uv)
+            rollback = all(eng.views[k] is t and same_bits(t, clones[k])
+                           for k, t in before.items())
+            del clones
+        else:
+            eng.apply_update("A", *uv)
+    eng.guard.sync()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launches()
+    g = {k: v - g0[k] for k, v in dataclasses.asdict(eng.guard.stats).items()
+         if k != "max_drift"}
+    ch = eng.chaos
+    ok = (g["quarantined"] == ch.poisoned and g["rollbacks"] == ch.raises
+          and g["admitted"] + g["quarantined"] == firings and rollback
+          and all(bool(torch.isfinite(t).all()) for t in eng.views.values()))
+    if not ok:
+        raise AssertionError(f"{label}: guard {g}, poisoned {ch.poisoned}, "
+                             f"raises {ch.raises}, rollback {rollback}")
+    applies = eng.stats.lowrank_applies - applies0
+    written = len({up.view for up in eng.compiled.triggers["A"].updates})
+    check_launches(label, got, {
+        "rank_update_batched_out": applies,
+        "select_commit": written * (firings - ch.raises)})
+    eng.chaos = None
+    want = eng._evaluator({"A": eng.views["A"]})
+    rel = check_views(label, eng.views, want)
+    del want
+    # a NaN in a view's kernel input: the flag, then the select puts the
+    # pre-firing store back bit for bit (the NaN included)
+    flag = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    top = eng.compiled.program.statements[-1].target.name
+    eng.views[top][n // 3, n // 7] = float("nan")
+    u, v = stream.next_update()
+    uu = torch.from_numpy(u).to(DEVICE)
+    out = ops.rank_update_batched_out(eng.views[top], uu[None],
+                                      torch.from_numpy(v).to(DEVICE)[None],
+                                      flag)
+    del out
+    before = {k: t.clone() for k, t in eng.views.items()}
+    rollbacks = eng.guard.stats.rollbacks
+    eng.apply_update("A", u, v)
+    eng.guard.sync()
+    kept = all(same_bits(eng.views[k], t) for k, t in before.items())
+    if int(flag) != 1 or not kept or \
+            eng.guard.stats.rollbacks != rollbacks + 1:
+        raise AssertionError(f"{label}: NaN in {top}: flag {int(flag)}, "
+                             f"store kept {kept}")
+    del before
+    rec = {"phase": label, "seed": seed, "firings": firings,
+           "first_raise": first, "poisoned": ch.poisoned,
+           "raises": ch.raises, "guard": g, "rollback_same_tensors": rollback,
+           "seconds_per_firing": seconds / firings, "launches": got,
+           "lowrank_applies": applies, "rel_err_vs_reeval": rel,
+           "tolerance": MAIN_TOL, "nan_flag": int(flag),
+           "nan_store_bit_identical": kept}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def phase_guard_rows() -> dict:
+    """14c: phase 6's compact chain (n = 2^20, m = 384, K = 256) under
+    rank-8 carriers on 1 % of the rows, unguarded and guarded (the
+    snapshot path: touched rows saved, in-place row kernel); then a
+    carrier whose rows overflow, rolled back onto the same tensors with
+    the touched rows restored bit for bit."""
+    import torch
+    from repro_torch.core import IncrementalEngine
+    from repro_torch.data import row_local_stream
+    from repro_torch.guard import GuardConfig
+    n, m, k, rank = CHAIN_N, CHAIN_M, CHAIN_K, CHAIN_RANK
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    inputs = {"X": torch.randn(n, m, device=DEVICE, generator=g),
+              "W1": torch.randn(m, k, device=DEVICE, generator=g) / m ** 0.5,
+              "W2": torch.randn(k, k, device=DEVICE, generator=g) / k ** 0.5}
+    prog = chain_program(n, m, k)
+    engines = {"unguarded": IncrementalEngine(prog, {"X": rank}),
+               "guarded": IncrementalEngine(prog, {"X": rank},
+                                            guard=GuardConfig())}
+    for e in engines.values():
+        e.initialize(inputs)
+    del inputs
+    s = row_local_stream(n, CHAIN_ROWS, m=m, rank=rank, seed=31)
+    carriers = [s.next_carrier() for _ in range(9)]
+    label = f"guard_rowlocal_compact_chain_n{n}_m{m}_K{k}"
+    times = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    for way, e in engines.items():
+        ts = [timed(lambda: e.apply_update("X", c)) for c in carriers]
+        times[way] = statistics.median(ts[1:])
+    got = launches()
+    applies = sum(e.stats.row_applies for e in engines.values())
+    check_launches(label, got, {"rank_update_rows": applies})
+    eng = engines["guarded"]
+    rel = check_views(label, eng.views, engines["unguarded"].views)
+    if eng.stats.rowlocal_firings != len(carriers):
+        raise AssertionError(f"{label}: {eng.stats.rowlocal_firings} "
+                             "row-local guarded firings")
+    fn = next(iter(eng._rowlocal_fns.values()))
+    r = int(carriers[0].rows_touched)
+    saved_bytes = sum(4 * r * eng.views[v].shape[1] + 8 * r
+                      for v in fn.row_views)
+    # an overflowing carrier: the row kernel writes inf into its rows, the
+    # output check reads them, and the rollback scatters them back
+    bad = s.next_carrier()
+    bad.block[:] = 1e38
+    bad.V[:] = 10.0                     # 8 x 1e39 per touched entry: inf
+    before = dict(eng.views)
+    clones = {k: t.clone() for k, t in before.items()}
+    rollbacks = eng.guard.stats.rollbacks
+    rb_s = timed(lambda: eng.apply_update("X", bad))
+    restored = all(eng.views[k] is t and same_bits(t, clones[k])
+                   for k, t in before.items())
+    if not restored or eng.guard.stats.rollbacks != rollbacks + 1:
+        raise AssertionError(f"{label}: the overflowing carrier's rollback "
+                             f"restored the rows: {restored}")
+    del clones, before
+    rec = {"phase": label, "carriers": len(carriers), "rows_touched": r,
+           "single_s_median": times,
+           "guarded_over_unguarded": times["guarded"] / times["unguarded"],
+           "row_views": list(fn.row_views),
+           "saved_row_bytes": saved_bytes, "rollback_s": rb_s,
+           "rollback_rows_bit_identical": restored, "launches": got,
+           "rel_err_vs_unguarded": rel, "tolerance": MAIN_TOL}
+    log("main " + json.dumps(rec))
+    del engines, eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_guard_sentinel() -> dict:
+    """14d: 14a's cell under a drift sentinel (probe every 8 firings) with
+    an adaptive planner attached: the probe's time, a view perturbed past
+    the tolerance, its recovery and the planner's drift count, and what
+    the planner's online ``refit_from_stats`` picks."""
+    import torch
+    from repro_torch.apps import MatrixPowers
+    from repro_torch.data import UpdateStream
+    from repro_torch.guard import GuardConfig, SentinelConfig
+    from repro_torch.plan import AdaptivePlanner, TriggerCache
+    n = POWERS_N
+    app = MatrixPowers(n=n, k=16, model="exp", guard=GuardConfig(
+        sentinel=SentinelConfig(probe_every=8)), plan=AdaptivePlanner(),
+        trigger_cache=TriggerCache())
+    eng = app.engine
+    app.initialize(MatrixPowers.synthesize(n, seed=0))
+    stream = UpdateStream(n=n, m=n, seed=23)
+    sen = eng.guard.sentinel
+    label = f"guard_sentinel_matrix_powers_n{n}"
+    torch.cuda.synchronize()
+    reset_launches()
+    for _ in range(8):                  # the eighth firing probes
+        eng.apply_update("A", *stream.next_update(), block=True)
+    probes0, clean = sen.probes, dict(sen.last_drift)
+    probe_s = min(timed(lambda: sen.probe(eng)) for _ in range(3))
+    drifted = "P4"
+    eng.views[drifted] = eng.views[drifted] + 1.0
+    for _ in range(8):                  # the next probe finds and heals it
+        eng.apply_update("A", *stream.next_update(), block=True)
+    found = dict(sen.last_drift)
+    eng.reevaluate(block=True)
+    scale = eng.planner.refit_from_stats(eng.stats)
+    new_plan = eng.planner.maybe_replan()
+    got = launches()
+    check_launches(label, got, {
+        "rank_update_batched_out": eng.stats.lowrank_applies})
+    ok = (sen.recoveries == 1 and eng.planner.drift_counts.get(drifted) == 1
+          and found[drifted] > sen.config.tol
+          and max(clean.values()) <= sen.config.tol)
+    if not ok:
+        raise AssertionError(f"{label}: recoveries {sen.recoveries}, drift "
+                             f"counts {eng.planner.drift_counts}, drifts "
+                             f"{found}")
+    want = eng._evaluator({"A": eng.views["A"]})
+    rel = check_views(label, eng.views, want)
+    rec = {"phase": label, "probes": sen.probes, "probe_s": probe_s,
+           "probes_before_perturbation": probes0, "clean_drift": clean,
+           "perturbed": drifted, "drift_found": found,
+           "recoveries": sen.recoveries,
+           "drift_counts": eng.planner.drift_counts,
+           "replans": eng.stats.replans,
+           "refit_cost_scale": scale,
+           "strategies_after_refit": ({v: vp.strategy for v, vp in
+                                       sorted(new_plan.views.items())}
+                                      if new_plan is not None else
+                                      view_strategies(eng)),
+           "launches": got, "rel_err_vs_reeval": rel,
+           "tolerance": MAIN_TOL}
+    log("main " + json.dumps(rec))
+    del app, eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def swap_rounds(eng, deltas, rounds: int):
+    """``rounds`` rounds of len(deltas) / rounds hot-swaps and a flush
+    through ``eng`` (a ServeEngine), each timed to a synchronize; returns
+    the seconds of each and the most device memory a round added."""
+    import torch
+    per = len(deltas) // rounds
+    seconds, extra = [], 0.0
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for u, v in deltas[r * per:(r + 1) * per]:
+            eng.hot_swap("lm_head", u, v)
+        eng.flush_views()
+        eng.view_logits("lm_head")
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        extra = max(extra, torch.cuda.max_memory_allocated() - before)
+    return seconds, extra / 2 ** 30
+
+
+def phase_degraded_view(eng, H, W0, phase12: dict) -> dict:
+    """14e: phase 12's logit view (Y = H W^T, 32768 x 32000 f32) on the
+    same ServeEngine: rounds of 8 hot-swaps and a flush unguarded (in
+    place), then under a DegradePolicy (the view's engine out of place),
+    with the memory a round adds; then a flush forced to fail (chaos):
+    the degraded read is the pre-failure logits bit for bit and
+    ``view_health`` reads the open breaker; once the breaker half-opens,
+    the recovery flushes the backlog exactly."""
+    import numpy as np
+    import torch
+    from repro_torch.guard import ChaosConfig, DegradePolicy
+    from repro_torch.serve import IncrementalLogitView
+    cfg = eng.model.cfg
+    label = "guard_degraded_logit_view_danube"
+    rounds = 3
+    W = W0.clone()
+    view = IncrementalLogitView(H, W)
+    eng.degrade = None
+    eng.attach_logit_view("lm_head", view)
+    rng = np.random.default_rng(14)
+    deltas = [(rng.standard_normal((cfg.vocab, 1)).astype(np.float32) * .01,
+               rng.standard_normal((cfg.d_model, 1)).astype(np.float32)
+               * .01) for _ in range((2 * rounds + 1) * HOT_SWAPS)]
+    plain, guarded = deltas[:rounds * HOT_SWAPS], \
+        deltas[rounds * HOT_SWAPS:2 * rounds * HOT_SWAPS]
+    torch.cuda.synchronize()
+    reset_launches()
+    applies0 = view.engine.stats.lowrank_applies
+    plain_s, plain_gib = swap_rounds(eng, plain, rounds)
+    inplace = view.engine.stats.lowrank_applies - applies0
+    eng.degrade = DegradePolicy(max_retries=1, backoff_base=0.0,
+                                breaker_threshold=1, breaker_reset=0.25)
+    eng.attach_logit_view("lm_head", view)      # now wrapped, out of place
+    guarded_s, guarded_gib = swap_rounds(eng, guarded, rounds)
+    good = eng.view_logits("lm_head")
+    good_copy = good.clone()
+    # the next flush fails: the view degrades to its last-good logits
+    view.engine.chaos = ChaosConfig(trigger_raise_p=1.0).monkey()
+    for u, v in deltas[2 * rounds * HOT_SWAPS:]:
+        eng.hot_swap("lm_head", u, v)
+    eng.flush_views()
+    health = eng.view_health()["lm_head"]
+    served = eng.view_logits("lm_head")
+    degraded = (health["breaker"] == "open"
+                and health["serving"] == "snapshot"
+                and served is good and same_bits(served, good_copy)
+                and view.pending_updates == HOT_SWAPS)
+    del good_copy
+    if not degraded:
+        raise AssertionError(f"{label}: health {health}, pending "
+                             f"{view.pending_updates}")
+    view.engine.chaos = None
+    time.sleep(0.3)                     # past breaker_reset: half-open
+    eng.flush_views()
+    recovered = eng.view_health()["lm_head"]
+    Y = eng.view_logits("lm_head")
+    torch.cuda.synchronize()
+    got, ranks = launches(), dense_ranks()
+    applies = view.engine.stats.lowrank_applies - applies0
+    check_launches(label, got, {"rank_update_batched": inplace,
+                                "rank_update_batched_out": applies - inplace})
+    if recovered["serving"] != "fresh" or view.pending_updates:
+        raise AssertionError(f"{label}: after recovery {recovered}")
+    for u, v in deltas:
+        W += torch.from_numpy(u).to(DEVICE) @ \
+            torch.from_numpy(v).to(DEVICE).T
+    rel = check_views(label, {"Y": Y}, {"Y": H @ W.T})
+    rec = {"phase": label, "Y": list(Y.shape), "hot_swaps": HOT_SWAPS,
+           "rounds": rounds,
+           "unguarded_hot_swap_and_flush_s": plain_s,
+           "guarded_hot_swap_and_flush_s": guarded_s,
+           "guarded_over_unguarded": statistics.median(guarded_s)
+           / statistics.median(plain_s),
+           "phase12_hot_swap_and_flush_s": phase12["hot_swap_and_flush_s"],
+           "unguarded_round_extra_gib": plain_gib,
+           "guarded_round_extra_gib": guarded_gib,
+           "health_degraded": health, "health_recovered": recovered,
+           "launches": got, "dense_ranks": ranks, "lowrank_applies": applies,
+           "rel_err_vs_reeval": rel, "tolerance": MAIN_TOL}
+    log("main " + json.dumps(rec))
+    del view, Y, served, good
+    eng._logit_views.clear()
+    eng._view_guards.clear()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_guard(serve) -> list:
+    """Phase 14: guarded maintenance (``repro_torch.guard``) at full
+    width: 14a-d on matrix powers and the compact chain, 14e on the
+    logit view."""
+    import torch
+    t0 = time.perf_counter()
+    rec, apps = phase_guard_powers()
+    recs = [rec]
+    recs.append(phase_guard_chaos(apps["guarded_fused"]))
+    del apps, rec
+    torch.cuda.empty_cache()
+    recs.append(phase_guard_rows())
+    recs.append(phase_guard_sentinel())
+    recs.append(phase_degraded_view(*serve))
+    log(f"phase 14: {time.perf_counter() - t0:.2f} s")
+    return recs
+
+
 def main() -> int:
     try:
         import torch
@@ -1681,12 +2298,18 @@ def main() -> int:
     phases.append(rec)
     phases.append(phase_serve_exact())
     torch.cuda.empty_cache()
-    phases.append(phase_logit_view(eng, prompts))
-    del eng, prompts
+    rec, H, W = phase_logit_view(eng, prompts)
+    phases.append(rec)
+    del prompts
     torch.cuda.empty_cache()
 
     # 13. planned maintenance
     phases.extend(phase_plan(compact))
+
+    # 14. guarded maintenance (14e on phase 12's view and server)
+    phases.extend(phase_guard((eng, H, W, rec)))
+    del eng, H, W, rec
+    torch.cuda.empty_cache()
 
     # the kernels record: per entry, the main path's launches and the
     # numbers of its headline shape (the most common call of the path)
@@ -1696,8 +2319,10 @@ def main() -> int:
                                      CHAIN_RANK),
                 "dual_matmul": (8192, 8192, 1),
                 "flash_attention": "danube_prefill_bf16",
-                "flash_decode": "danube_decode_bf16_wrapped"}
-    # rank_update_batched's launches over phases 4-9, 12 and 13 by K, so that
+                "flash_decode": "danube_decode_bf16_wrapped",
+                "rank_update_batched_out": (10000, 10000, 1, 16),
+                "select_commit": "clean"}
+    # rank_update_batched's launches over phases 4-9 and 12-14 by K, so that
     # each K's gap to its bound can be weighed by its launches
     by_k = {}
     for ph in phases:

@@ -19,6 +19,15 @@ A firing under a maintenance plan (:func:`build_trigger_fn` with
 ``reeval_views`` / ``lazy_views``) keeps that contract and adds one
 more: a view re-evaluated inside the firing gets storage of its own, as
 every view of :func:`build_evaluator` does.
+
+A guarded (transactional) firing is built with ``out_of_place=True``:
+every dense low-rank apply goes through
+:func:`repro_torch.kernels.ops.rank_update_batched_out`, which leaves the
+view alone and returns the updated one in new storage.  Then no apply of
+the firing writes a tensor that existed before it, as no apply of the
+reference's immutable arrays does, and the pre-firing store survives as
+the firing's rollback (:mod:`repro_torch.guard.txn`).  Row-local views
+stay on the in-place row kernel; the guard saves their touched rows.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from __future__ import annotations
 import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..kernels import ops
@@ -106,12 +116,46 @@ def _eval_node(x: Expr, env: Env, binding, go, device) -> torch.Tensor:
         a = go(x.operand)
         if a.shape == (1, 1):
             return 1.0 / a
-        return torch.linalg.inv(a)
+        # as jnp.linalg.inv: a singular or non-finite operand gives
+        # non-finite entries, never an error (and no host sync to check)
+        return torch.linalg.inv_ex(a).inverse
     if isinstance(x, HStack):
         return torch.cat([go(b) for b in x.blocks], dim=1)
     if isinstance(x, ColSlice):
         return go(x.operand)[:, x.col:x.col + 1]
     raise TypeError(f"cannot evaluate {type(x).__name__}")
+
+
+@functools.lru_cache(maxsize=256)
+def _finite_check(names: Tuple[str, ...]) -> Callable:
+    def check(views: Env, rows: Optional[Dict[str, torch.Tensor]] = None):
+        ends = []
+        for name in names:
+            x = views[name]
+            if rows and name in rows:
+                x = x.index_select(0, rows[name])
+            # one read of x; a NaN reaches both ends, ±inf one of them
+            ends.append(torch.stack(torch.aminmax(x)) if x.numel() else
+                        torch.zeros(2, device=x.device))
+        ends = torch.stack(ends).cpu().numpy()
+        return np.isfinite(ends).all(axis=1)
+    return check
+
+
+def build_finite_check(names) -> Callable:
+    """Finiteness probe over the views in ``names``.
+
+    Returns ``fn(views, rows=None) -> bool[len(names)]`` (True =
+    all-finite) as a host array: one ``aminmax`` a view, queued back to
+    back, and one device sync that reads their ends for the whole set —
+    the post-firing output
+    validation (:func:`repro_torch.guard.txn.check_finite`) runs this on
+    every guarded snapshot-path firing.  ``rows`` maps a view name to an
+    int64 row index: that view is probed on those rows only (a row-local
+    firing's touched rows).  Cached on the name tuple; views may hold
+    extra keys.
+    """
+    return _finite_check(tuple(names))
 
 
 def _shares_storage(x: torch.Tensor, others) -> bool:
@@ -260,7 +304,8 @@ def planned_trigger_sets(trigger: Trigger, program: Program,
 
 def build_trigger_fn(trigger: Trigger, program: Program,
                      binding: Optional[Dict[str, int]] = None,
-                     device=None, *, reeval_views=(), lazy_views=()
+                     device=None, *, reeval_views=(), lazy_views=(),
+                     out_of_place: bool = False
                      ) -> Callable[[Env, torch.Tensor, torch.Tensor], Env]:
     """Stage a trigger into ``(views, U, V) -> views``.
 
@@ -282,31 +327,46 @@ def build_trigger_fn(trigger: Trigger, program: Program,
        the updated store (the assign-phase cache holds pre-update
        values).
 
+    With ``out_of_place`` every low-rank apply is
+    ``views[name] = ops.rank_update_batched_out(views[name], U, V,
+    nonfinite)`` instead: the firing then writes no tensor that existed
+    before it, so no factor needs a copy, and ``run(views, U, V,
+    nonfinite)`` takes an optional one-element int32 flag on the views'
+    device that the applies set when a value they store is not finite.
+
     Run attributes: ``reeval_views``, ``recomputes`` (re-evaluated plus
     pulled-in lazy views), ``skipped`` (lazy views left stale),
     ``incr_views`` and ``lowrank_applies`` (the incremental views'
-    rank-k applies — the kernel launches of one firing on the card).
+    rank-k applies — the kernel launches of one firing on the card),
+    ``written`` (every view the firing stores, in order) and
+    ``unflagged`` (those of them that no flagged apply stores: dense and
+    re-evaluated views).
     """
     binding = dict(program.dims if binding is None else binding)
     assigns, updates, statements, skipped = planned_trigger_sets(
         trigger, program, reeval_views, lazy_views)
     written = tuple(dict.fromkeys(up.view for up in updates))
 
-    def run(views: Env, u: torch.Tensor, v: torch.Tensor) -> Env:
+    def run(views: Env, u: torch.Tensor, v: torch.Tensor,
+            nonfinite: Optional[torch.Tensor] = None) -> Env:
         env: Env = dict(views)
         env[trigger.u_var.name] = u
         env[trigger.v_var.name] = v
         cache: Dict[int, torch.Tensor] = {}
         for a in assigns:
             env[a.name] = evaluate(a.expr, env, binding, cache, device)
-        factors = _firing_factors(updates, env, views, written)
+        factors = _firing_factors(updates, env, views,
+                                  () if out_of_place else written)
         del env, cache
         for up in updates:
-            if up.kind == "lowrank":
+            if up.kind != "lowrank":
+                views[up.view] = views[up.view] + factors[up.d]
+            elif out_of_place:
+                views[up.view] = ops.rank_update_batched_out(
+                    views[up.view], factors[up.u], factors[up.v], nonfinite)
+            else:
                 ops.rank_update_batched(views[up.view], factors[up.u],
                                         factors[up.v])
-            else:
-                views[up.view] = views[up.view] + factors[up.d]
         del factors
         return recompute(statements, views, binding, device)
 
@@ -315,6 +375,10 @@ def build_trigger_fn(trigger: Trigger, program: Program,
     run.skipped = skipped
     run.incr_views = tuple(up.view for up in updates)
     run.lowrank_applies = sum(up.kind == "lowrank" for up in updates)
+    run.written = tuple(dict.fromkeys(written + run.recomputes))
+    flagged = {up.view for up in updates if up.kind == "lowrank"}
+    run.unflagged = tuple(n for n in run.written
+                          if n not in flagged or n in run.recomputes)
     return run
 
 
@@ -397,8 +461,8 @@ def compact_chain_names(trigger: Trigger):
 
 def build_rowlocal_trigger_fn(trigger: Trigger, program: Program,
                               binding: Optional[Dict[str, int]] = None,
-                              device=None, max_fraction: float = 0.25
-                              ) -> Callable:
+                              device=None, max_fraction: float = 0.25,
+                              out_of_place: bool = False) -> Callable:
     """Stage a trigger for row-local carriers: ``(views, rows, block, V)
     -> views``, where ``rows`` (r,) are the update's affected rows
     (strictly increasing), ``block`` its compact ``(r, k)`` left factor
@@ -423,7 +487,10 @@ def build_rowlocal_trigger_fn(trigger: Trigger, program: Program,
     :func:`build_trigger_fn`.  The sum ``view[rows] += L Rᵀ`` may round
     differently from the dense ``view + u vᵀ`` by an ulp.
     ``run.row_applies`` and ``run.dense_applies`` count the row-kernel
-    and dense-kernel applies per firing.
+    and dense-kernel applies per firing; ``run.row_views`` names the views
+    the row kernel updates in place.  With ``out_of_place`` the dense
+    applies go through ``ops.rank_update_batched_out`` (as in
+    :func:`build_trigger_fn`); the row applies stay in place.
     """
     binding = dict(program.dims if binding is None else binding)
     written, _ = trigger_touched_views(trigger)
@@ -460,12 +527,16 @@ def build_rowlocal_trigger_fn(trigger: Trigger, program: Program,
                     L = L[rows.index(dev)]
                 ops.rank_update_rows(views[up.view], rows, L, factors[up.v],
                                      max_fraction=max_fraction)
+            elif out_of_place:
+                views[up.view] = ops.rank_update_batched_out(
+                    views[up.view], factors[up.u], factors[up.v])
             else:
                 ops.rank_update_batched(views[up.view], factors[up.u],
                                         factors[up.v])
         return views
 
     run.compact = compact
+    run.row_views = tuple(sorted(row_views))
     run.row_applies = len([up for up in trigger.updates
                            if up.view in row_views])
     run.dense_applies = sum(up.kind == "lowrank" for up in trigger.updates) \

@@ -22,13 +22,19 @@ fallback: a firing whose stacked rank puts some view past its crossover
 re-evaluates that view instead of sweeping it.  Only the incremental
 views of a planned firing go through the rank-k kernel; a re-evaluated
 view is recomputed by the program's own products (``torch.matmul``,
-``torch.linalg.inv``), as the reference recomputes it outside any Pallas
+``torch.linalg.inv_ex``), as the reference recomputes it outside any Pallas
 kernel.
 
 Views are float32 tensors on the engine's device, updated in place by the
 rank-k kernel.  Engines run on the card (``device=None`` means
 ``"cuda"``) unless the caller passes ``device="cpu"``; they never move to
 the CPU on their own.
+
+With ``guard=`` (:mod:`repro_torch.guard`) every admission point
+validates and quarantines updates, and every firing is transactional:
+a guarded engine writes out of place (the rank-k kernel's out-of-place
+entry), so a failed firing rolls back to the very pre-firing tensors.
+``chaos=`` injects seeded faults so those paths run.
 """
 
 from __future__ import annotations
@@ -75,6 +81,16 @@ def _factor(x, device) -> Tensor:
     if t.dim() == 1:
         t = t[:, None]
     return t.contiguous()
+
+
+def _queued(x, device):
+    """An update factor as the queue keeps it: a tensor moves to the
+    engine's device, anything else stays on the host as a float32 numpy
+    array (as the reference queues it); both (n, k)."""
+    if isinstance(x, torch.Tensor):
+        return _factor(x, device)
+    x = np.asarray(x, dtype=np.float32)
+    return x[:, None] if x.ndim == 1 else x
 
 
 def _owned_views(values: Dict[str, object], device) -> Dict[str, Tensor]:
@@ -139,6 +155,8 @@ class IncrementalEngine:
                  rowlocal_fraction: float = 0.25,
                  plan=None,
                  trigger_cache=None,
+                 guard=None,
+                 chaos=None,
                  device=None):
         """``max_batch_rank`` caps the stacked rank of a batch (QR/SVD
         re-compression past it).  ``flush_policy`` picks how
@@ -160,7 +178,17 @@ class IncrementalEngine:
         re-planning); planned engines share built triggers through
         ``trigger_cache`` (default: the process-global
         :func:`repro_torch.plan.global_trigger_cache`).  ``device`` holds
-        every view; ``None`` means the card."""
+        every view; ``None`` means the card.
+
+        ``guard`` attaches the :mod:`repro_torch.guard` failure-containment
+        layer (a :class:`~repro_torch.guard.GuardConfig`, or ``True`` for
+        the defaults): update validation + quarantine at every admission
+        point, transactional firings (out-of-place applies, output
+        validation, atomic rollback), and an optional drift sentinel.
+        ``chaos`` (a :class:`~repro_torch.guard.ChaosConfig` or a shared
+        :class:`~repro_torch.guard.ChaosMonkey`) injects deterministic
+        faults — update poisoning and in-trigger raises — so the guard's
+        recovery paths are exercised, not trusted."""
         if flush_policy not in ("fixed", "cost"):
             raise ValueError(f"unknown flush_policy {flush_policy!r}")
         self.device = resolve_device(device)
@@ -172,6 +200,24 @@ class IncrementalEngine:
         self._evaluator = build_evaluator(self.program, self.binding,
                                           self.device)
         self.rowlocal_fraction = float(rowlocal_fraction)
+        self.flush_policy = flush_policy
+        # failure containment (repro_torch.guard), imported lazily so the
+        # core <-> guard layering stays one-directional at module load.
+        # A transactional guard builds every firing out of place
+        # (codegen.build_trigger_fn): its rollback is the pre-firing store.
+        self.chaos = None
+        self.guard = None
+        self._out_of_place = False
+        self._cow_rows = False     # copy row-local views before a row apply
+        if chaos is not None:
+            from ..guard import as_monkey
+            self.chaos = as_monkey(chaos)
+        if guard is not None:
+            from ..guard import EngineGuard, GuardConfig
+            if guard is True:
+                guard = GuardConfig()
+            self.guard = EngineGuard(guard, self)
+            self._out_of_place = guard.transactional
         # planned execution state (repro_torch.plan)
         self.plan = None
         self.planner = None
@@ -197,12 +243,34 @@ class IncrementalEngine:
         self.recompress_tol = recompress_tol
         self.flush_size = flush_size
         self.flush_age = flush_age
-        self.flush_policy = flush_policy
         self._cost_flush_rank: Dict[str, int] = {}
         self._pending: Dict[str, List[Tuple[Tensor, Tensor]]] = {}
         self._pending_since: Dict[str, float] = {}
         self.views: Dict[str, Tensor] = {}
         self.stats = EngineStats()
+        self._set_fast_path()
+
+    def _set_fast_path(self) -> None:
+        """Whether guarded firings take the fused path (out-of-place
+        applies, device flags and the select-commit kernel, no host sync)
+        — admission can then defer its own finite screen into it.
+        Planned and cost-policy firings take the snapshot path, as in the
+        reference."""
+        self._guard_fast_path = (
+            self.guard is not None and self.guard.fused_path_ok
+            and self.plan is None and self.flush_policy != "cost")
+
+    def _write_out_of_place(self) -> None:
+        """Build every firing out of place from now on, and copy each
+        row-local view before its in-place row apply, so no firing writes
+        a tensor that existed before it: a reference to a view is then a
+        snapshot no later firing moves
+        (:class:`~repro_torch.guard.GuardedView`)."""
+        if not self._out_of_place:
+            self._out_of_place = True
+            self._planned_fns.clear()
+            self._rowlocal_fns.clear()
+        self._cow_rows = True
 
     # -- maintenance plans (repro_torch.plan) ----------------------------------
     def _attach_plan(self, plan) -> None:
@@ -247,6 +315,7 @@ class IncrementalEngine:
         if self._trigger_cache is None:
             self._trigger_cache = global_trigger_cache()
         self.plan = plan
+        self._set_fast_path()   # planned firings leave the fused path
         if self.planner is not None and self.planner.plan is not plan:
             # keep the attached adaptive planner's baseline in sync so
             # its next drift check does not silently revert a hot-swap
@@ -331,17 +400,17 @@ class IncrementalEngine:
                             ) -> Callable:
         """The trigger fn for (input, bucket, partition), built on first
         use through the shared cache.  An empty partition maintains every
-        view incrementally."""
+        view incrementally.  A guarded engine's fns write out of place."""
         key = (input_name, bucket, tuple(sorted(reeval)),
                tuple(sorted(lazy)))
         fn = self._planned_fns.get(key)
         if fn is None:
             fn = self._cached_build(
-                ("trigger",) + key,
+                ("trigger",) + key + (self._out_of_place,),
                 lambda: build_trigger_fn(
                     self._bucket_trigger(input_name, bucket), self.program,
                     self.binding, self.device, reeval_views=reeval,
-                    lazy_views=lazy))
+                    lazy_views=lazy, out_of_place=self._out_of_place))
             self._planned_fns[key] = fn
         return fn
 
@@ -351,8 +420,25 @@ class IncrementalEngine:
         for name in views:
             self._accum_rank[name] = self._accum_rank.get(name, 0) + rank
 
-    def _fire(self, input_name: str, bucket: int, P: Tensor,
-              Q: Tensor) -> None:
+    def _fire(self, input_name: str, bucket: int, P: Tensor, Q: Tensor,
+              screened: bool = False) -> None:
+        """One trigger firing, transactional when the engine is guarded
+        (:meth:`repro_torch.guard.EngineGuard.fire`: the fused fast path,
+        or snapshot → (chaos) → execute → validate outputs → commit, with
+        an atomic rollback on any failure).  ``screened=True`` promises
+        the factors already passed the host NaN/Inf screen (batch
+        admission), so the fast path drops its device screen of them."""
+        if self.guard is not None:
+            return self.guard.fire(self, input_name, bucket, P, Q,
+                                   screened=screened)
+        if self.chaos is not None:
+            # unguarded chaos: the injected fault propagates, exactly as
+            # a real kernel error would without the guard layer
+            self.chaos.maybe_raise_in_trigger()
+        return self._fire_inner(input_name, bucket, P, Q)
+
+    def _fire_inner(self, input_name: str, bucket: int, P: Tensor,
+                    Q: Tensor) -> None:
         """One (possibly planned) trigger firing at stacked rank
         ``bucket``: partition the views per the plan (or the cost
         policy), execute, and keep the hybrid and lazy bookkeeping
@@ -446,9 +532,19 @@ class IncrementalEngine:
                                        block=block)
         self._check_input(input_name)
         rank = self.compiled.triggers[input_name].rank
+        if self.chaos is not None:
+            u, v = self.chaos.poison_update(u, v)
+        if self.guard is not None:
+            admitted = self.guard.admit(input_name, u, v,
+                                        defer_finite=self._guard_fast_path)
+            if admitted is None:
+                return self.views
+            u, v = admitted
         t0 = time.perf_counter()
+        u0, v0 = u, v
         u, v = _factor(u, self.device), _factor(v, self.device)
-        self._fire(input_name, rank, u, v)
+        if not self._fire_guarded(input_name, rank, u, v, u0, v0):
+            return self.views
         if block:
             _sync(self.device)
             self.stats.trigger_seconds += time.perf_counter() - t0
@@ -458,7 +554,25 @@ class IncrementalEngine:
         self.stats.updates_applied += 1
         self.stats.triggers_fired += 1
         self._observe_firing(input_name, rank, 1)
+        if self.guard is not None:
+            self.guard.after_firing(self)
         return self.views
+
+    def _fire_guarded(self, input_name: str, bucket: int, P: Tensor,
+                      Q: Tensor, P0, Q0, screened: bool = False) -> bool:
+        """:meth:`_fire`; on a guarded engine a rolled-back firing's
+        factors (``P0``, ``Q0``: as admitted, before padding) go to the
+        guard's quarantine and False is returned."""
+        if self.guard is None:
+            self._fire(input_name, bucket, P, Q)
+            return True
+        from ..guard.txn import FiringAborted
+        try:
+            self._fire(input_name, bucket, P, Q, screened=screened)
+        except FiringAborted as e:
+            self.guard.on_abort(input_name, P0, Q0, e.reason)
+            return False
+        return True
 
     def apply_updates(self, input_name: str, updates: Sequence[Tuple],
                       block: bool = False) -> Dict[str, Tensor]:
@@ -476,19 +590,38 @@ class IncrementalEngine:
         if any(isinstance(x, DeltaCarrier) for x in updates):
             return self._apply_carrier_batch(input_name, updates,
                                              block=block)
+        if self.chaos is not None:
+            updates = [self.chaos.poison_update(u, v) for u, v in updates]
         if not updates:
             return self.views
-        t0 = time.perf_counter()  # stacking is part of the batch's cost
+        t0 = time.perf_counter()  # admission and stacking are part of the
+        # batch's cost: the guard's fast path stacks once, as it screens
+        P = Q = None
+        if self.guard is not None:
+            stacked = self.guard.admit_batch_stacked(input_name, updates)
+            if stacked is not None:
+                P, Q = (_factor(x, self.device) for x in stacked)
+            else:
+                # careful walk: one poisoned update quarantines alone and
+                # the healthy remainder still batches
+                updates = self.guard.admit_batch(input_name, updates)
+                if not updates:
+                    return self.views
         t_count = len(updates)
-        P, Q = stack_update_arrays(updates, self.device)
+        if P is None:
+            P, Q = stack_update_arrays(updates, self.device)
         stacked_rank = P.shape[1]
         if self.max_batch_rank is not None and P.shape[1] > self.max_batch_rank:
             P, Q = recompress_factors(P, Q, max_rank=self.max_batch_rank,
                                       tol=self.recompress_tol)
             self.stats.recompressions += 1
+        P0, Q0 = P, Q  # pre-padding factors (what a rollback quarantines)
         bucket = batch_bucket(P.shape[1])
         P, Q = pad_factors_to_rank(P, Q, bucket)
-        self._fire(input_name, bucket, P, Q)
+        # batch admission already screened the factors
+        if not self._fire_guarded(input_name, bucket, P, Q, P0, Q0,
+                                  screened=True):
+            return self.views
         if block:
             _sync(self.device)
             self.stats.trigger_seconds += time.perf_counter() - t0
@@ -499,6 +632,8 @@ class IncrementalEngine:
         self.stats.triggers_fired += 1
         self.stats.batches_applied += 1
         self._observe_firing(input_name, stacked_rank, t_count)
+        if self.guard is not None:
+            self.guard.after_firing(self)
         return self.views
 
     def _sweep_flops(self, input_name: str, rank: int) -> float:
@@ -578,11 +713,13 @@ class IncrementalEngine:
         fn = self._rowlocal_fns.get(key)
         if fn is None:
             fn = self._cached_build(
-                ("rowlocal", input_name, bucket, self.rowlocal_fraction),
+                ("rowlocal", input_name, bucket, self.rowlocal_fraction,
+                 self._out_of_place),
                 lambda: build_rowlocal_trigger_fn(
                     self._bucket_trigger(input_name, bucket), self.program,
                     self.binding, self.device,
-                    max_fraction=self.rowlocal_fraction))
+                    max_fraction=self.rowlocal_fraction,
+                    out_of_place=self._out_of_place))
             self._rowlocal_fns[key] = fn
         return fn
 
@@ -607,16 +744,28 @@ class IncrementalEngine:
         return self.apply_update(input_name, P, Q, block=block)
 
     def _apply_rowlocal(self, input_name: str, carrier: RowLocalCarrier,
-                        block: bool = False, t_count: int = 1
-                        ) -> Dict[str, Tensor]:
+                        block: bool = False, t_count: int = 1,
+                        poisoned: bool = False) -> Dict[str, Tensor]:
         """Fire the row-local trigger for one (possibly stacked) row-local
-        carrier.  The rank is zero-padded to its power-of-two bucket, as
-        for raw pairs; the rows stay exact (eager torch needs no row
-        bucket)."""
-        t0 = time.perf_counter()
+        carrier: chaos poisoning and guard admission run on the compact
+        ``(block, V)`` factors (``poisoned``: the batch path already
+        poisoned each member), then the rank is zero-padded to its
+        power-of-two bucket, as for raw pairs; the rows stay exact (eager
+        torch needs no row bucket)."""
         rows = np.asarray(carrier.rows)
         B = np.asarray(carrier.block, dtype=np.float32)
         V = np.asarray(carrier.V, dtype=np.float32)
+        if self.chaos is not None and not poisoned:
+            B, V = (np.asarray(x, dtype=np.float32)
+                    for x in self.chaos.poison_update(B, V))
+        if self.guard is not None:
+            admitted = self.guard.admit_carrier(input_name, rows, B, V,
+                                                count=t_count)
+            if admitted is None:
+                return self.views
+            B, V = admitted
+        t0 = time.perf_counter()
+        B0, V0 = B, V  # pre-padding (what an abort keeps)
         rank = B.shape[1]
         base = self.compiled.triggers[input_name].rank
         bucket = rank if rank == base else batch_bucket(rank)
@@ -624,7 +773,22 @@ class IncrementalEngine:
             B = np.pad(B, ((0, 0), (0, bucket - rank)))
             V = np.pad(V, ((0, 0), (0, bucket - rank)))
         fn = self._rowlocal_trigger_fn(input_name, bucket)
-        self.views = fn(self.views, rows, B, V)
+        if self._cow_rows:
+            for name in fn.row_views:
+                self.views[name] = self.views[name].clone()
+        if self.guard is not None:
+            from ..guard.txn import FiringAborted
+            try:
+                self.guard.fire_rowlocal(self, input_name, fn, rows, B, V)
+            except FiringAborted as e:
+                P0 = np.zeros((int(carrier.nm[0]), B0.shape[1]), np.float32)
+                P0[rows] = B0
+                self.guard.on_abort(input_name, P0, V0, e.reason)
+                return self.views
+        else:
+            if self.chaos is not None:
+                self.chaos.maybe_raise_in_trigger()
+            self.views = fn(self.views, rows, B, V)
         self.stats.row_applies += fn.row_applies
         self.stats.lowrank_applies += fn.dense_applies
         if self.plan is not None:
@@ -644,6 +808,8 @@ class IncrementalEngine:
             self.stats.batches_applied += 1
         self._observe_firing(input_name, rank, t_count,
                              affected_fraction=carrier.affected_fraction())
+        if self.guard is not None:
+            self.guard.after_firing(self)
         return self.views
 
     def _rowlocal_sweep_flops(self, input_name: str, rank: int,
@@ -682,6 +848,14 @@ class IncrementalEngine:
             return self.apply_updates(input_name,
                                       [c.factors() for c in live],
                                       block=block)
+        if self.chaos is not None:
+            # one poison gate a member, compactly: the draws of the dense
+            # batched path
+            live = [RowLocalCarrier(c.rows, *(
+                np.asarray(x, dtype=np.float32)
+                for x in self.chaos.poison_update(c.block, c.V)), c.n)
+                for c in live]
+            stacked = stack_carriers(live)
         if (self.max_batch_rank is not None
                 and stacked.rank > self.max_batch_rank):
             # QR of the compact block touches only the r affected rows, so
@@ -694,7 +868,7 @@ class IncrementalEngine:
                                       stacked.n)
             self.stats.recompressions += 1
         return self._apply_rowlocal(input_name, stacked, block=block,
-                                    t_count=len(live))
+                                    t_count=len(live), poisoned=True)
 
     # -- update queue (serving-path coalescing) --------------------------------
     def enqueue_update(self, input_name: str, u, v
@@ -709,7 +883,14 @@ class IncrementalEngine:
         the next :meth:`flush`).
         """
         self._check_input(input_name)
-        u, v = _factor(u, self.device), _factor(v, self.device)
+        u, v = _queued(u, self.device), _queued(v, self.device)
+        if self.chaos is not None:
+            u, v = self.chaos.poison_update(u, v)
+        if self.guard is not None:
+            admitted = self.guard.admit(input_name, u, v)
+            if admitted is None:
+                return None
+            u, v = admitted
         q = self._pending.setdefault(input_name, [])
         if not q:
             self._pending_since[input_name] = time.perf_counter()

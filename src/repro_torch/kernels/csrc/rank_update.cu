@@ -5,14 +5,20 @@
 //   * rank_update_batched_pallas  (src/repro/kernels/rank_update.py:84)
 //     -> entry rank_update_batched_f32, the engine's every low-rank apply;
 //   * rank_update_pallas          (src/repro/kernels/rank_update.py:40)
-//     -> entry rank_update_f32, the T = 1 case of the same kernel.
+//     -> entry rank_update_f32, the T = 1 case of the same kernel;
+//   * both, out of place: entry rank_update_batched_out_f32,
+//     dst = src + sum_t U_t V_t^T with a flag set when a stored value is
+//     not finite, every low-rank apply of a guarded (transactional) firing.
+//     The reference needs no such entry: its arrays are immutable, so the
+//     pre-firing view survives every apply (src/repro/guard/txn.py:55).
 //
 // Layout: M is (n, p) row-major; U is the stack (T, n, k) and V the stack
 // (T, p, k), both contiguous; a 2-D (n, K) factor pair is the T = 1 stack
 // with k = K.  Row i of U updates row i of M (the DenseRows map).
 //
 // Bound on the card: with K = T*k the op moves 8*n*p + 4*K*(n + p) bytes
-// (M read once and written once, each factor read once) and does 2*n*p*K
+// (M read once and written once, each factor read once; out of place: src
+// read once and dst written once, the same bytes) and does 2*n*p*K
 // FLOPs.  At 3.35 TB/s and 67 TFLOP/s fp32 (H100 SXM data sheet, 700 W) it
 // is memory-bound below K ~ 80 and FLOP-bound above.  The main path's K
 // runs from 1 (a rank-1 update to the input) to 256 (the top view of
@@ -51,4 +57,19 @@ extern "C" int rank_update_batched_f32(float* m, const float* u,
 extern "C" int rank_update_f32(float* m, const float* u, const float* v,
                                int n, int p, int k, void* stream) {
   return rank_update_batched_f32(m, u, v, n, p, 1, k, stream);
+}
+
+// dst (n, p) = src (n, p) + sum_t U[t] (n, k) V[t]^T, launched on `stream`:
+// the in-place entry's tiles and arithmetic with the source and the
+// destination apart, so dst is bitwise what the in-place entry leaves in M.
+// *nonfinite (when not null) is set to 1 if any value stored to dst is not
+// finite; it is never cleared.  The caller checks shapes and that src, dst
+// and the factors do not overlap.
+extern "C" int rank_update_batched_out_f32(const float* src, float* dst,
+                                           const float* u, const float* v,
+                                           int* nonfinite, int n, int p,
+                                           int t, int k, void* stream) {
+  return rank_update_tiles<KSTREAM, KM_FIRST, SROWS>(
+      dst, u, v, n, p, t, k, DenseRows{}, stream,
+      OutOfPlace{src, nonfinite});
 }

@@ -1,5 +1,5 @@
 // The tiles of the rank-k view updates for Hopper (sm_90a): f32 in, f32 FMA
-// accumulation, in place on M.
+// accumulation, in place on M or out of place.
 //
 //   M[row(i), :] += sum_t U_t[i, :] V_t^T     for the n rows i of the panel
 //
@@ -9,6 +9,15 @@
 //     updates M's row rows[i]; the block is U with n := r and T := 1.
 // Only M's addresses go through the map: the factor panels, the arithmetic
 // and its order are the same for both.
+//
+// Where M is read and stored is a second parameter, Io.  InPlace reads and
+// writes M itself (every in-place entry).  OutOfPlace reads a source and
+// stores  dst = src + sum U V^T  to a distinct destination, with the same
+// arithmetic in the same order, so its values are bitwise those of the
+// in-place entry; its epilogue also raises a flag when any value it stores
+// is not finite (a warp ballot, then one atomicOr per warp that saw one).
+// The guarded engine's transactional firings take it: the pre-firing view
+// stays untouched for a rollback, and the flag is the output check.
 //
 // Layout: M is (rows of M, p) row-major; U is the stack (T, n, k) and V the
 // stack (T, p, k), both contiguous.  The tiles walk the stack through
@@ -193,13 +202,51 @@ struct ListedRows {
   }
 };
 
+// -- where M is read and stored ----------------------------------------------
+
+// M read from and stored to m: the in-place entries.  Empty, so their code
+// is what it was before the out-of-place entry existed.
+struct InPlace {
+  static constexpr bool FLAG = false;
+  __device__ __forceinline__ const float* src(const float* m) const {
+    return m;
+  }
+  bool aligned16() const { return true; }
+  __device__ __forceinline__ void report(bool) const {}
+};
+
+// M read from `from`, the sums stored to the kernel's m (a distinct tensor
+// of the same shape); *nonfinite (when not null) is set to 1 by any warp
+// that stored a value that is not finite.
+struct OutOfPlace {
+  const float* from;
+  int* nonfinite;
+  static constexpr bool FLAG = true;
+  __device__ __forceinline__ const float* src(const float*) const {
+    return from;
+  }
+  bool aligned16() const {
+    return reinterpret_cast<uintptr_t>(from) % 16 == 0;
+  }
+  __device__ __forceinline__ void report(bool bad) const {
+    if (__ballot_sync(0xffffffffu, bad) != 0u && threadIdx.x % 32 == 0 &&
+        nonfinite != nullptr)
+      atomicOr(nonfinite, 1);
+  }
+};
+
+// not inf and not nan: the exponent is not all ones
+__device__ __forceinline__ bool not_finite(float x) {
+  return (__float_as_uint(x) & 0x7f800000u) == 0x7f800000u;
+}
+
 // -- compute tile -------------------------------------------------------------
 
-template <bool VEC, class Map>
+template <bool VEC, class Map, class Io>
 __global__ void __launch_bounds__(THREADS, 2)
 rank_update_compute(float* __restrict__ m, const float* __restrict__ u,
                     const float* __restrict__ v, int n, int p, int t, int k,
-                    Map map) {
+                    Map map, Io io) {
   extern __shared__ __align__(16) float csmem[];
   float(*us)[CBK][CLD] = reinterpret_cast<float(*)[CBK][CLD]>(csmem);
   float(*vs)[CBK][CLD] =
@@ -253,7 +300,7 @@ rank_update_compute(float* __restrict__ m, const float* __restrict__ u,
   for (int q = tid; q < CBM * 4; q += THREADS) {
     const int i = q / 4, c = col0 + (q % 4) * 32;
     if (row0 + i < n && c < p)
-      prefetch_l2(m + (int64_t)map.row(ids, row0, i) * p + c);
+      prefetch_l2(io.src(m) + (int64_t)map.row(ids, row0, i) * p + c);
   }
 
   float acc[8][8];
@@ -289,30 +336,41 @@ rank_update_compute(float* __restrict__ m, const float* __restrict__ u,
 
   // epilogue: M read once, M + sums written once; a warp covers 4 rows x
   // 128 contiguous bytes per access
+  bool bad = false;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int li = (i / 4) * 64 + 4 * ty + i % 4;
     if (row0 + li >= n) continue;
-    float* row = m + (int64_t)map.row(ids, row0, li) * p;
+    const int64_t off = (int64_t)map.row(ids, row0, li) * p;
+    const float* srow = io.src(m) + off;
+    float* row = m + off;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = col0 + 64 * h + 4 * tx;
       if (VEC) {
         if (c < p) {
-          float4 x = *reinterpret_cast<const float4*>(row + c);
+          float4 x = *reinterpret_cast<const float4*>(srow + c);
           x.x += acc[i][4 * h];
           x.y += acc[i][4 * h + 1];
           x.z += acc[i][4 * h + 2];
           x.w += acc[i][4 * h + 3];
           *reinterpret_cast<float4*>(row + c) = x;
+          if (Io::FLAG)
+            bad |= not_finite(x.x) | not_finite(x.y) | not_finite(x.z) |
+                   not_finite(x.w);
         }
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (c + j < p) row[c + j] += acc[i][4 * h + j];
+          if (c + j < p) {
+            const float x = srow[c + j] + acc[i][4 * h + j];
+            row[c + j] = x;
+            if (Io::FLAG) bad |= not_finite(x);
+          }
       }
     }
   }
+  io.report(bad);
 }
 
 // -- streaming tile -----------------------------------------------------------
@@ -346,11 +404,11 @@ __device__ __forceinline__ void stage_panel(float* dst, int ld,
   }
 }
 
-template <bool VEC, int KM_FIRST, int SROWS, class Map>
+template <bool VEC, int KM_FIRST, int SROWS, class Map, class Io>
 __global__ void __launch_bounds__(THREADS, 16 / SROWS)
 rank_update_stream(float* __restrict__ m, const float* __restrict__ u,
                    const float* __restrict__ v, int n, int p, int t, int k,
-                   Map map) {
+                   Map map, Io io) {
   static_assert(SROWS % 4 == 0, "a thread's rows are read as float4s");
   constexpr int SBM = stream_rows(SROWS), SLDU = SBM + 4;
   extern __shared__ __align__(16) float smem[];
@@ -375,7 +433,8 @@ rank_update_stream(float* __restrict__ m, const float* __restrict__ u,
 #pragma unroll
     for (int i = 0; i < SROWS; ++i) {
       const int r = row0 + i;
-      const float* src = m + (int64_t)map.row(ids, i0, li0 + i) * p + c;
+      const float* src =
+          io.src(m) + (int64_t)map.row(ids, i0, li0 + i) * p + c;
       if (VEC) {
         const float4 x = (r < n && c < p) ? ld_m4(src)
                                           : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -435,66 +494,79 @@ rank_update_stream(float* __restrict__ m, const float* __restrict__ u,
   }
 
   // 4. M + sums, written once
+  bool bad = false;
 #pragma unroll
   for (int i = 0; i < SROWS; ++i) {
     const int r = row0 + i;
     if (r >= n) continue;
     float* dst = m + (int64_t)map.row(ids, i0, li0 + i) * p + c;
     if (VEC) {
-      if (c < p)
-        *reinterpret_cast<float4*>(dst) =
+      if (c < p) {
+        const float4 x =
             make_float4(mv[i][0] + acc[i][0], mv[i][1] + acc[i][1],
                         mv[i][2] + acc[i][2], mv[i][3] + acc[i][3]);
+        *reinterpret_cast<float4*>(dst) = x;
+        if (Io::FLAG)
+          bad |= not_finite(x.x) | not_finite(x.y) | not_finite(x.z) |
+                 not_finite(x.w);
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (c + j < p) dst[j] = mv[i][j] + acc[i][j];
+        if (c + j < p) {
+          dst[j] = mv[i][j] + acc[i][j];
+          if (Io::FLAG) bad |= not_finite(mv[i][j] + acc[i][j]);
+        }
     }
   }
+  io.report(bad);
 }
 
 // A block asks for more than 48 KB of dynamic shared memory only by opting
 // in (a streaming tile at K > 61, a deeper compute ring).
-template <typename Kernel, class Map>
+template <typename Kernel, class Map, class Io>
 cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
                    float* m, const float* u, const float* v, int n, int p,
-                   int t, int k, Map map) {
+                   int t, int k, Map map, Io io) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid, THREADS, smem, stream>>>(m, u, v, n, p, t, k, map);
+  kernel<<<grid, THREADS, smem, stream>>>(m, u, v, n, p, t, k, map, io);
   return cudaGetLastError();
 }
 
 // M[map(i)] (i < n) += sum_t U[t] (n, k) V[t]^T, one launch on `stream`:
 // the streaming tile (SROWS rows a thread) through K = T*k = KSTREAM, the
-// compute tile above it.  Returns the launch's cudaGetLastError() (0 on
-// success).
-template <int KSTREAM, int KM_FIRST, int SROWS, class Map>
+// compute tile above it; out of place (dst m, source in io) under
+// Io = OutOfPlace.  Returns the launch's cudaGetLastError() (0 on success).
+template <int KSTREAM, int KM_FIRST, int SROWS, class Map, class Io = InPlace>
 int rank_update_tiles(float* m, const float* u, const float* v, int n, int p,
-                      int t, int k, Map map, void* stream) {
+                      int t, int k, Map map, void* stream, Io io = Io{}) {
   const int64_t kdim = (int64_t)t * k;
   if (kdim > INT_MAX - CBK) return (int)cudaErrorInvalidValue;
-  const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(m) % 16 == 0;
+  const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(m) % 16 == 0 &&
+                   io.aligned16();
   const cudaStream_t s = (cudaStream_t)stream;
   if (kdim <= KSTREAM) {
     constexpr int SBM = stream_rows(SROWS);
     const dim3 grid = Map::grid((n + SBM - 1) / SBM, (p + SBN - 1) / SBN);
     const size_t smem = (size_t)kdim * (SBM + 4 + SLDV) * sizeof(float) +
                         SBM * Map::ID_BYTES;
-    return (int)(vec ? launch(rank_update_stream<true, KM_FIRST, SROWS, Map>,
-                              grid, smem, s, m, u, v, n, p, t, k, map)
-                     : launch(rank_update_stream<false, KM_FIRST, SROWS, Map>,
-                              grid, smem, s, m, u, v, n, p, t, k, map));
+    return (int)(vec ? launch(rank_update_stream<true, KM_FIRST, SROWS, Map,
+                                                 Io>,
+                              grid, smem, s, m, u, v, n, p, t, k, map, io)
+                     : launch(rank_update_stream<false, KM_FIRST, SROWS, Map,
+                                                 Io>,
+                              grid, smem, s, m, u, v, n, p, t, k, map, io));
   }
   const dim3 grid = Map::grid((n + CBM - 1) / CBM, (p + CBN - 1) / CBN);
   const size_t smem = CSMEM + CBM * Map::ID_BYTES;
-  return (int)(vec ? launch(rank_update_compute<true, Map>, grid, smem, s, m,
-                            u, v, n, p, t, k, map)
-                   : launch(rank_update_compute<false, Map>, grid, smem, s,
-                            m, u, v, n, p, t, k, map));
+  return (int)(vec ? launch(rank_update_compute<true, Map, Io>, grid, smem, s,
+                            m, u, v, n, p, t, k, map, io)
+                   : launch(rank_update_compute<false, Map, Io>, grid, smem,
+                            s, m, u, v, n, p, t, k, map, io));
 }
 
 }  // namespace

@@ -2,9 +2,10 @@
 
 A CPU tensor takes the plain version in :mod:`.ref`; any other tensor
 takes the CUDA kernel (:mod:`.rank_update`, :mod:`.rank_update_rows`,
-:mod:`.dual_matmul`, :mod:`.flash_attention`, :mod:`.flash_decode`), which
-launches or raises.  The update ops work in
-place on ``m`` and return it.  The CUDA kernels mask ragged edges
+:mod:`.dual_matmul`, :mod:`.flash_attention`, :mod:`.flash_decode`,
+:mod:`.select_commit`), which launches or raises.  The update ops work in
+place on ``m`` and return it, except :func:`rank_update_batched_out`, which
+returns a new tensor.  The CUDA kernels mask ragged edges
 themselves and take row indices directly, so no block picking, slab plan
 or ragged fallback is needed here.
 """
@@ -21,6 +22,7 @@ from . import flash_decode as _cuda_fd
 from . import rank_update as _cuda
 from . import rank_update_rows as _cuda_rows
 from . import ref
+from . import select_commit as _cuda_select
 from .rank_update_rows import RowSet
 
 
@@ -46,6 +48,35 @@ def rank_update_batched(m: torch.Tensor, u: torch.Tensor,
     if m.device.type == "cpu":
         return m.copy_(ref.rank_update_batched(m, u, v))
     return _cuda.rank_update_batched(m, u, v)
+
+
+def rank_update_batched_out(m: torch.Tensor, u: torch.Tensor,
+                            v: torch.Tensor,
+                            nonfinite: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """``m + Σ_t u[t] @ v[t].T`` in a new tensor, ``m`` untouched — the
+    out-of-place apply of a guarded firing.  ``nonfinite`` (one int32 on
+    m's device) is set to 1 when a value of the result is not finite and
+    never cleared.  Factors as :func:`rank_update_batched`."""
+    if u.dim() == 2:
+        u = u[None]
+        v = v[None]
+    if m.device.type == "cpu":
+        out, bad = ref.rank_update_batched_out(m, u, v)
+        if nonfinite is not None:
+            nonfinite.bitwise_or_(bad.to(torch.int32))
+        return out
+    return _cuda.rank_update_batched_out(m, u, v, nonfinite)
+
+
+def select_commit(flags: torch.Tensor, old: torch.Tensor,
+                  new: torch.Tensor) -> torch.Tensor:
+    """``new`` := ``old`` in place when any of the int32 ``flags`` is
+    nonzero, else ``new`` as it is: a guarded firing's commit or
+    rollback, decided on the device without a host sync."""
+    if new.device.type == "cpu":
+        return new.copy_(ref.select_commit(flags, old, new))
+    return _cuda_select.select_commit(flags, old, new)
 
 
 def rank_update_rows(m: torch.Tensor, rows, block: torch.Tensor,

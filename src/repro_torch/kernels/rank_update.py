@@ -5,15 +5,19 @@ Binding for ``csrc/rank_update.cu``, built and loaded by
 
 Entries and the TPU kernels they replace:
 
-==========================  ==================================================
-``rank_update_batched``     ``rank_update_batched_pallas``
-                            (``src/repro/kernels/rank_update.py:84``)
-``rank_update``             ``rank_update_pallas``
-                            (``src/repro/kernels/rank_update.py:40``)
-==========================  ==================================================
+===========================  =================================================
+``rank_update_batched``      ``rank_update_batched_pallas``
+                             (``src/repro/kernels/rank_update.py:84``)
+``rank_update``              ``rank_update_pallas``
+                             (``src/repro/kernels/rank_update.py:40``)
+``rank_update_batched_out``  both, out of place (a guarded firing's applies)
+===========================  =================================================
 
-Both work in place on ``m``, launch on the current CUDA stream, allocate
-nothing and never fall back to a plain version: anything the kernel does
+The first two work in place on ``m``; ``rank_update_batched_out`` leaves
+``m`` alone and returns ``m + Σ_t u[t] v[t]ᵀ`` in a new tensor, bitwise
+what the in-place entry would leave in ``m``, and sets a flag on the card
+when a value it stores is not finite.  All launch on the current CUDA
+stream and never fall back to a plain version: anything the kernel does
 not take raises.  ``LAUNCHES`` counts the launches of each entry and
 ``RANKS`` the same launches by their inner dimension K = T·k; a run that
 must prove it went through the kernels resets both with
@@ -23,13 +27,14 @@ must prove it went through the kernels resets both with
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from . import cuda_build
 
-LAUNCHES: Dict[str, int] = {"rank_update": 0, "rank_update_batched": 0}
+LAUNCHES: Dict[str, int] = {"rank_update": 0, "rank_update_batched": 0,
+                            "rank_update_batched_out": 0}
 RANKS: Dict[str, Counter] = {name: Counter() for name in LAUNCHES}
 
 _SIGNATURES = {
@@ -37,6 +42,8 @@ _SIGNATURES = {
     + [cuda_build.PTR],
     "rank_update_f32": [cuda_build.PTR] * 3 + [cuda_build.I32] * 3
     + [cuda_build.PTR],
+    "rank_update_batched_out_f32": [cuda_build.PTR] * 5
+    + [cuda_build.I32] * 4 + [cuda_build.PTR],
 }
 
 
@@ -72,8 +79,9 @@ def check_operands(out: torch.Tensor, inplace: bool = True,
                              "in-place kernel would read what it writes")
 
 
-def _check(m: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> None:
-    check_operands(m, u=u, v=v)
+def _check(m: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+           inplace: bool = True) -> None:
+    check_operands(m, inplace, u=u, v=v)
     if m.dim() != 2:
         raise ValueError(f"m must be 2-D, got shape {tuple(m.shape)}")
     n, p = m.shape
@@ -82,19 +90,26 @@ def _check(m: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> None:
                          "kernel's grid or its int32 sizes")
 
 
-def _launch(entry: str, cname: str, m: torch.Tensor, u: torch.Tensor,
-            v: torch.Tensor, rank: int, *sizes: int) -> torch.Tensor:
-    """Launch C entry ``cname`` on m's current stream, raise on a refused
-    launch, and count it under ``entry`` and its inner dimension ``rank``."""
+def _launch(entry: str, cname: str, m: torch.Tensor, rank: int,
+            *args: int) -> None:
+    """Launch C entry ``cname`` with ``args`` (pointers and sizes) and m's
+    current stream, raise on a refused launch, and count it under
+    ``entry`` and its inner dimension ``rank``."""
     lib = cuda_build.library("rank_update", _SIGNATURES)
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream(m.device).cuda_stream
-        code = getattr(lib, cname)(m.data_ptr(), u.data_ptr(), v.data_ptr(),
-                                   *sizes, stream)
+        code = getattr(lib, cname)(*args, stream)
     cuda_build.check_launch(cname, code)
     LAUNCHES[entry] += 1
     RANKS[entry][rank] += 1
-    return m
+
+
+def _check_stack(m: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> None:
+    n, p = m.shape
+    if u.dim() != 3 or v.dim() != 3 or u.shape[0] != v.shape[0] \
+            or u.shape[1] != n or v.shape[1] != p or u.shape[2] != v.shape[2]:
+        raise ValueError(f"shapes m {tuple(m.shape)}, u {tuple(u.shape)}, "
+                         f"v {tuple(v.shape)} are not (n,p), (T,n,k), (T,p,k)")
 
 
 def rank_update_batched(m: torch.Tensor, u: torch.Tensor,
@@ -102,16 +117,44 @@ def rank_update_batched(m: torch.Tensor, u: torch.Tensor,
     """``m += Σ_t u[t] @ v[t].T`` in place; m (n, p), u (T, n, k),
     v (T, p, k), all float32, contiguous, on one CUDA device."""
     _check(m, u, v)
+    _check_stack(m, u, v)
     n, p = m.shape
-    if u.dim() != 3 or v.dim() != 3 or u.shape[0] != v.shape[0] \
-            or u.shape[1] != n or v.shape[1] != p or u.shape[2] != v.shape[2]:
-        raise ValueError(f"shapes m {tuple(m.shape)}, u {tuple(u.shape)}, "
-                         f"v {tuple(v.shape)} are not (n,p), (T,n,k), (T,p,k)")
     t, _, k = u.shape
     if n == 0 or p == 0 or t * k == 0:
         return m
-    return _launch("rank_update_batched", "rank_update_batched_f32", m, u, v,
-                   t * k, n, p, t, k)
+    _launch("rank_update_batched", "rank_update_batched_f32", m, t * k,
+            m.data_ptr(), u.data_ptr(), v.data_ptr(), n, p, t, k)
+    return m
+
+
+def rank_update_batched_out(m: torch.Tensor, u: torch.Tensor,
+                            v: torch.Tensor,
+                            nonfinite: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """``m + Σ_t u[t] @ v[t].T`` in a new tensor, ``m`` untouched; shapes
+    and types as :func:`rank_update_batched`.  ``nonfinite``, a one-element
+    int32 tensor on m's device, is set to 1 (never cleared) when a value
+    of the result is not finite; ``None`` skips the flag.  The factors
+    may share storage with ``m``: it is only read."""
+    _check(m, u, v, inplace=False)
+    _check_stack(m, u, v)
+    if nonfinite is not None and (
+            nonfinite.device != m.device or nonfinite.dtype != torch.int32
+            or nonfinite.numel() != 1):
+        raise ValueError("nonfinite must be one int32 element on "
+                         f"{m.device}, got {nonfinite.dtype} "
+                         f"{tuple(nonfinite.shape)} on {nonfinite.device}")
+    n, p = m.shape
+    t, _, k = u.shape
+    out = torch.empty_like(m)
+    if n == 0 or p == 0:
+        return out
+    if t * k == 0:
+        return out.copy_(m)
+    _launch("rank_update_batched_out", "rank_update_batched_out_f32", m,
+            t * k, m.data_ptr(), out.data_ptr(), u.data_ptr(), v.data_ptr(),
+            0 if nonfinite is None else nonfinite.data_ptr(), n, p, t, k)
+    return out
 
 
 def rank_update(m: torch.Tensor, u: torch.Tensor,
@@ -127,4 +170,6 @@ def rank_update(m: torch.Tensor, u: torch.Tensor,
     k = u.shape[1]
     if n == 0 or p == 0 or k == 0:
         return m
-    return _launch("rank_update", "rank_update_f32", m, u, v, k, n, p, k)
+    _launch("rank_update", "rank_update_f32", m, k, m.data_ptr(),
+            u.data_ptr(), v.data_ptr(), n, p, k)
+    return m

@@ -24,6 +24,23 @@ def rank_update_batched(m: torch.Tensor, u: torch.Tensor,
     return m + torch.einsum("tnk,tpk->np", u, v)
 
 
+def rank_update_batched_out(m: torch.Tensor, u: torch.Tensor,
+                            v: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernels.rank_update_batched_out: ``m + Σ_t u[t] @
+    v[t].T`` in a new tensor, and a bool scalar that is True when a value
+    of it is not finite (the kernel's flag)."""
+    out = rank_update_batched(m, u, v)
+    return out, ~torch.isfinite(out).all()
+
+
+def select_commit(flags: torch.Tensor, old: torch.Tensor,
+                  new: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernels.select_commit: ``torch.where(ok, new,
+    old)`` with ``ok`` true iff every flag is zero."""
+    return torch.where(~flags.bool().any(), new, old)
+
+
 def rank_update_rows(m: torch.Tensor, rows: torch.Tensor, block: torch.Tensor,
                      v: torch.Tensor) -> torch.Tensor:
     """Plain version of kernels.rank_update_rows: ``m`` with

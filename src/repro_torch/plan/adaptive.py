@@ -47,6 +47,8 @@ class AdaptivePlanner:
         self._reads = 0
         self._since_replan = 0
         self._force_replan = False
+        #: per-view count of sentinel-reported drift recoveries
+        self.drift_counts: Dict[str, int] = {}
         self.replans = 0
         self.plan: Optional[MaintenancePlan] = None
         self._compiled = None
@@ -141,7 +143,18 @@ class AdaptivePlanner:
                              reads_per_firing=self._reads / self._firings)
         return fitted
 
-    # -- external signals (stats) ----------------------------------------------
+    # -- external signals (guard / stats) ---------------------------------------
+    def note_drift(self, names) -> None:
+        """The drift sentinel re-evaluated ``names`` back to exactness:
+        their incremental maintenance is numerically too aggressive for
+        this workload.  Record it and force a re-plan at the next
+        firing (bypassing the drift-tolerance gate) so the pricing can
+        react — e.g. a refitted rank distribution tipping the repeat
+        offender to hybrid/re-evaluation."""
+        for n in names:
+            self.drift_counts[n] = self.drift_counts.get(n, 0) + 1
+        self._force_replan = True
+
     def refit_from_stats(self, stats) -> Optional[float]:
         """Refit ``cost_scale`` online from an engine's measured rates.
 
@@ -172,8 +185,8 @@ class AdaptivePlanner:
     def maybe_replan(self) -> Optional[MaintenancePlan]:
         """Re-plan if due and drifted; returns the new plan only when a
         per-view choice actually changed (else ``None``).  A pending
-        :meth:`refit_from_stats` signal forces the re-plan regardless of
-        cadence or rank drift."""
+        :meth:`note_drift` / :meth:`refit_from_stats` signal forces the
+        re-plan regardless of cadence or rank drift."""
         force, self._force_replan = self._force_replan, False
         if (not self.bound or self.plan is None
                 or (self._since_replan < self.replan_every and not force)):

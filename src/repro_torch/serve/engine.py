@@ -7,9 +7,11 @@ Incremental logit views (LINVIEW's serving integration) attach here:
 hot-swap deltas to a head are queued on its view and coalesced, so a burst
 of T adapter updates costs one batched trigger firing per view, and
 :meth:`ServeEngine.replan_views` hot-swaps a maintenance plan into every
-view.  The port serves unguarded, in-process views; the reference's
-``degrade`` (guard), ``attach_fleet`` and checkpoint hooks wait for
-``guard/``, ``fleet/`` and ``dist/`` (ROADMAP.md Queue 1).
+view.  With ``degrade`` (a :class:`repro_torch.guard.DegradePolicy`) every
+attached view is wrapped in a :class:`~repro_torch.guard.GuardedView`:
+retried, breaker-gated refreshes and a last-good snapshot served while
+the breaker is open.  The reference's ``attach_fleet`` and checkpoint
+hooks wait for ``fleet/`` and ``dist/`` (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -32,8 +34,13 @@ class ServeEngine:
     max_seq: int = 2048
     temperature: float = 0.0
     seed: int = 0
+    #: optional :class:`repro_torch.guard.DegradePolicy` — wraps every
+    #: attached logit view in retry + circuit-breaker + last-good-snapshot
+    #: serving
+    degrade: Optional[Any] = None
     _logit_views: Dict[str, IncrementalLogitView] = field(
         default_factory=dict, init=False)
+    _view_guards: Dict[str, Any] = field(default_factory=dict, init=False)
 
     def __post_init__(self):
         if self.model.cfg.encoder_only:
@@ -101,6 +108,9 @@ class ServeEngine:
                 f"{weight_path!r} is behind a nonlinearity; its cached "
                 f"views cannot be maintained exactly — re-encode instead")
         self._logit_views[weight_path] = view
+        if self.degrade is not None:
+            from ..guard import GuardedView
+            self._view_guards[weight_path] = GuardedView(view, self.degrade)
 
     def hot_swap(self, weight_path: str, u, v) -> bool:
         """Route a low-rank weight delta ``W += u vᵀ`` to the cached corpus
@@ -110,14 +120,32 @@ class ServeEngine:
         if weight_path not in self._logit_views:
             raise KeyError(f"no logit view attached for {weight_path!r}; "
                            f"have {sorted(self._logit_views)}")
+        guard = self._view_guards.get(weight_path)
+        if guard is not None:
+            # retried + breaker-gated: a repeatedly failing refresh trips
+            # the breaker and the view degrades to its last-good snapshot
+            return guard.submit(u, v)
         return self._logit_views[weight_path].submit_head_update(u, v)
 
     def flush_views(self) -> None:
-        """Force all pending hot-swap deltas into the maintained views."""
-        for view in self._logit_views.values():
-            view.flush()
+        """Force all pending hot-swap deltas into the maintained views.
+        Guarded views retry with backoff; a view whose breaker is open
+        stays on its snapshot (see :meth:`view_health`) instead of
+        raising."""
+        for path, view in self._logit_views.items():
+            guard = self._view_guards.get(path)
+            if guard is not None:
+                guard.flush()
+            else:
+                view.flush()
 
     def view_logits(self, weight_path: str) -> torch.Tensor:
+        """One view's logits at bounded staleness: fresh when healthy,
+        the last-good snapshot when degraded (unguarded views read
+        straight through)."""
+        guard = self._view_guards.get(weight_path)
+        if guard is not None:
+            return guard.read()
         return self._logit_views[weight_path].logits
 
     def replan_views(self, workload) -> Dict[str, Any]:
@@ -133,9 +161,16 @@ class ServeEngine:
                 for path, view in self._logit_views.items()}
 
     def view_health(self) -> Dict[str, Dict[str, Any]]:
-        """Per-view serving health; unguarded views always serve fresh."""
-        return {path: {"breaker": None, "serving": "fresh",
-                       "staleness_s": 0.0} for path in self._logit_views}
+        """Per-view serving health: breaker state, staleness bound,
+        retry/degradation counters (``{"serving": "fresh"}`` for
+        unguarded views)."""
+        out: Dict[str, Dict[str, Any]] = {}
+        for path in self._logit_views:
+            guard = self._view_guards.get(path)
+            out[path] = (guard.health() if guard is not None
+                         else {"breaker": None, "serving": "fresh",
+                               "staleness_s": 0.0})
+        return out
 
 
 def make_serve_step(model: LM):

@@ -463,3 +463,120 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="n_valid"):
         cuda_fd.flash_decode(q[:, 0], q, q, torch.tensor(3,
                                                          dtype=torch.int32))
+
+
+# -- the guard on the card: the out-of-place entry and the select-commit -----
+
+@pytest.mark.parametrize("n,p,k", [(10000, 10000, K) for K in (1, 16, 64, 256)]
+                         + [(37, 101, K) for K in (1, 16, 64, 256)])
+def test_out_of_place_entry_equals_in_place_bitwise(cuda, n, p, k):
+    from repro_torch.kernels import select_commit as cuda_sel  # noqa: F401
+    g = torch.Generator(device=cuda).manual_seed(n + k)
+    m = torch.randn(n, p, device=cuda, generator=g)
+    u = torch.randn(1, n, k, device=cuda, generator=g)
+    v = torch.randn(1, p, k, device=cuda, generator=g)
+    src = m.clone()
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = cuda_ru.LAUNCHES["rank_update_batched_out"]
+    out = ops.rank_update_batched_out(m, u, v, flag)
+    assert cuda_ru.LAUNCHES["rank_update_batched_out"] == before + 1
+    want = ops.rank_update_batched(src.clone(), u, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)       # bitwise: the same tiles and order
+    assert torch.equal(m, src)          # src untouched
+    assert int(flag) == 0
+
+
+@pytest.mark.parametrize("where", ["u", "v", "m", "overflow", "none"])
+def test_out_of_place_flag_iff_nonfinite_stored(cuda, where):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for n, p, k in ((300, 260, 8), (300, 260, 96), (37, 101, 3)):
+        m = torch.randn(n, p, device=cuda, generator=g)
+        u = torch.randn(n, k, device=cuda, generator=g)
+        v = torch.randn(p, k, device=cuda, generator=g)
+        if where == "u":
+            u[n // 2, 0] = float("nan")
+        elif where == "v":
+            v[p - 1, k - 1] = float("inf")
+        elif where == "m":
+            m[n - 1, p - 1] = float("-inf")
+        elif where == "overflow":
+            u[:] = 1e38
+            v[:] = 10.0
+        flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+        out = ops.rank_update_batched_out(m, u, v, flag)
+        torch.cuda.synchronize()
+        assert int(flag) == int(not bool(torch.isfinite(out).all())), \
+            (where, n, p, k)
+        assert int(flag) == (where != "none")
+
+
+def test_select_commit_restores_bitwise_and_exits_early_when_clean(cuda):
+    from repro_torch.kernels import select_commit as cuda_sel
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for shape in ((10000, 10000), (37, 101), (5,)):
+        old = torch.randn(*shape, device=cuda, generator=g)
+        new = torch.randn(*shape, device=cuda, generator=g)
+        keep = new.clone()
+        clean = torch.zeros(2, dtype=torch.int32, device=cuda)
+        before = cuda_sel.LAUNCHES["select_commit"]
+        ops.select_commit(clean, old, new)
+        torch.cuda.synchronize()
+        assert cuda_sel.LAUNCHES["select_commit"] == before + 1
+        assert torch.equal(new, keep)            # clean: nothing moved
+        failed = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+        ops.select_commit(failed, old, new)
+        torch.cuda.synchronize()
+        assert torch.equal(new, old)             # failed: old, bitwise
+    with pytest.raises(ValueError):
+        ops.select_commit(clean, new, new)       # shared storage
+
+
+@pytest.mark.parametrize("path", ["fused", "snapshot"])
+@pytest.mark.parametrize("app", ["ols", "matrix_powers"])
+def test_guarded_engine_on_card_matches_cpu(cuda, app, path):
+    from repro_torch.guard import ChaosConfig, GuardConfig
+    from repro_torch.kernels import select_commit as cuda_sel
+    from repro_torch.plan import static_plan
+    if app == "ols":
+        inputs, _ = OLS.synthesize(96, 24, 2, seed=0)
+        mk = lambda **kw: OLS(96, 24, 2, **kw)  # noqa: E731
+        shape = (96, 24)
+    else:
+        inputs = MatrixPowers.synthesize(64, seed=0)
+        mk = lambda **kw: MatrixPowers(n=64, k=8, **kw)  # noqa: E731
+        shape = (64, 64)
+    stream = UpdateStream(n=shape[0], m=shape[1], seed=1)
+    ups = [stream.next_update() for _ in range(40)]
+    engines = []
+    for device in ("cuda", "cpu"):
+        eng = mk(device=device, guard=GuardConfig(), chaos=ChaosConfig(
+            seed=3, poison_p=0.1, trigger_raise_p=0.1)).engine
+        if path == "snapshot":
+            eng.set_plan(static_plan(eng, "incremental"))
+        eng.initialize(inputs)
+        engines.append(eng)
+    gpu, cpu = engines
+    out0 = cuda_ru.LAUNCHES["rank_update_batched_out"]
+    sel0 = cuda_sel.LAUNCHES["select_commit"]
+    name = "X" if app == "ols" else "A"
+    for eng in engines:
+        for u, v in ups[:24]:
+            eng.apply_update(name, u, v)
+        eng.apply_updates(name, ups[24:32])
+        for u, v in ups[32:]:
+            eng.enqueue_update(name, u, v)
+        eng.flush()
+        eng.guard.sync()
+    assert cuda_ru.LAUNCHES["rank_update_batched_out"] - out0 == \
+        gpu.stats.lowrank_applies > 0
+    assert (cuda_sel.LAUNCHES["select_commit"] > sel0) == (path == "fused")
+    assert gpu.chaos.poisoned == cpu.chaos.poisoned > 0
+    assert gpu.chaos.raises == cpu.chaos.raises > 0
+    assert gpu.guard.stats == cpu.guard.stats, \
+        [q.reason for q in gpu.guard.quarantine]
+    for k, v in cpu.views.items():
+        g = gpu.views[k].cpu()
+        assert bool(torch.isfinite(g).all()), k
+        scale = float(v.abs().max()) or 1.0
+        assert float((g - v).abs().max()) / scale <= 1e-5, k

@@ -29,7 +29,11 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.codegen",
            "repro_torch.serve.incremental_views", "repro_torch.launch",
            "repro_torch.launch.serve", "repro_torch.plan",
            "repro_torch.plan.planner", "repro_torch.plan.trigger_cache",
-           "repro_torch.plan.adaptive", "repro_torch.plan.calibrate"]
+           "repro_torch.plan.adaptive", "repro_torch.plan.calibrate",
+           "repro_torch.kernels.select_commit", "repro_torch.guard",
+           "repro_torch.guard.validate", "repro_torch.guard.chaos",
+           "repro_torch.guard.txn", "repro_torch.guard.sentinel",
+           "repro_torch.guard.degrade"]
 
 PROBE = """
 import importlib, sys
@@ -43,7 +47,7 @@ assert cuda_build.LIBS == {}, f"built at import: {sorted(cuda_build.LIBS)}"
 assert cuda_build.BUILD_LOGS == {}, "nvcc ran at import"
 assert sorted(cuda_build.sources()) == [
     "dual_matmul", "flash_attention", "flash_decode", "rank_update",
-    "rank_update_rows"], cuda_build.sources()
+    "rank_update_rows", "select_commit"], cuda_build.sources()
 print("BAD", bad)
 """
 

@@ -113,10 +113,8 @@ VARIANTS = {
     # the streaming tile's M moved with evict-first (.cs) loads and stores
     "stream_cs": [
         ("tiles", "ld.global.v4.f32", "ld.global.cs.v4.f32"),
-        ("tiles", "        *reinterpret_cast<float4*>(dst) =\n"
-         "            make_float4(",
-         "        __stcs(reinterpret_cast<float4*>(dst), make_float4("),
-        ("tiles", "mv[i][3] + acc[i][3]);", "mv[i][3] + acc[i][3]));")],
+        ("tiles", "        *reinterpret_cast<float4*>(dst) = x;",
+         "        __stcs(reinterpret_cast<float4*>(dst), x);")],
 }
 
 # (n, p, T, k): matrix powers' applies at n = 10000 (K = 1 ... 256 under a
@@ -199,7 +197,9 @@ def build(tmp: Path, names, parent) -> dict:
 
 def sass(so: Path) -> dict:
     """The dense kernels' SASS in ``so``, by tile and M's access (VEC), as
-    lists of instructions without addresses or encodings."""
+    lists of instructions without addresses or encodings; the
+    out-of-place instances (``OutOfPlace``) under their own ``_out``
+    keys, so the in-place ones are compared with in-place ones."""
     from repro_torch.kernels import cuda_build
     tool = Path(cuda_build._nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(so)], check=True,
@@ -210,6 +210,8 @@ def sass(so: Path) -> dict:
             r"Function : \S*(rank_update_(?:compute|stream)ILb[01])", line)
         if "Function : " in line:
             fn = found.group(1) if found else None
+            if fn and "OutOfPlace" in line:
+                fn += "_out"
             if fn:
                 out[fn] = []
         elif fn:
