@@ -101,6 +101,33 @@ CUDA toolkit.  Phases, each of which raises on failure:
        flush forced to fail (chaos) served from the last-good snapshot
        bit for bit, ``view_health`` degraded, then the recovery flushing
        the backlog exactly.
+15. the multi-tenant fleet (``repro_torch.fleet``), every tenant engine
+    on the card and out of place, its launches against the applies of
+    every firing that ran:
+    a. 8 logit-view tenants behind phase 10's server, each over its own
+       4096 of phase 12's hidden states and a seeded copy of lm_head
+       (Y 4096 x 32000): rank-1 hot-swaps of card tensors through
+       ``ServeEngine.hot_swap`` into the fleet, ``flush_views`` and
+       ``view_logits``; per update against the same 8 guarded engines
+       driven one after another with identical groups (3 rounds in
+       turns), bring-up on the shared trigger cache against cold
+       per-tenant engines (one miss a key, 7 hits), every tenant bit for
+       bit against its engine and within MAIN_TOL of H_i W_i^T;
+    b. chaos acceptance on a virtual clock: 4 matrix-powers tenants (A^16,
+       n = 10000), OLS (16384 x 8192) and phase 6's compact chain (rank-8
+       carriers logged as carriers), 200 submissions under worker crashes,
+       lease expiry, slow workers and poison at a seed where crash, expiry
+       and poison all fire (found by the same drive on tiny CPU tenants):
+       exactly once, bit-identical isolated replays, within MAIN_TOL of
+       re-evaluation, replays onto the very pre-claim tensors; per-claim
+       ms by tenant kind; one more row-local claim under the profiler with
+       the copy of its row views that out-of-place writing costs;
+    c. a cold, sheddable matrix-powers tenant (n = 10000) in the degraded
+       and shedding tiers: shed decisions, its deltas folded on the card
+       and one re-evaluation on read, against an incremental engine;
+    d. a's tenants under four live worker threads on the real clock, then
+       a drain: every store bit for bit against a deterministic drive of
+       its commit log (the launch counters are exact under threads).
 
 Every launch count is set to 0 just before a phase drives its engines and
 read just after; the counts of each kernel must equal the applies (or
@@ -108,7 +135,7 @@ calls) the phase made.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record (``rank_update_batched``'s with its launches over phases 4-9 and
-12-14 by K = T*k) and ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
+12-15 by K = T*k) and ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
 checkout, the script prints no result and exits non-zero.
 """
 
@@ -163,6 +190,10 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "h2o-danube-1.8b", 8, \
     4096, 32
 EXACT_LAYERS = 4            # phase 11's depth, cut from 24
 HOT_SWAPS = 8               # phase 12's rank-1 head deltas
+# phase 15: 8 logit-view tenants, each over its own 4096 of phase 12's
+# 32768 hidden states; 3 timed rounds of 8 hot-swaps a tenant; 15b's
+# chaos drive makes 200 submissions
+FLEET_TENANTS, FLEET_ROWS, FLEET_ROUNDS, FLEET_SUBMISSIONS = 8, 4096, 3, 200
 
 # Tolerance of an attention kernel against its plain version.  f32: the
 # kernel tolerance above.  bf16: the plain versions keep p in f32, the
@@ -2215,6 +2246,629 @@ def phase_guard(serve) -> list:
     return recs
 
 
+# -- phase 15: the multi-tenant fleet ---------------------------------------------
+
+def replay_groups(eng, updates: dict, groups) -> None:
+    """Feed ``updates`` ({lsn: (u, v) or carrier}) to ``eng`` in
+    ``groups``, the firing groups of a tenant's ``commit_log``."""
+    for name, lsns in groups:
+        eng.apply_updates(name, [updates[lsn] for lsn in lsns])
+
+
+def fleet_bits(label: str, tenant, eng) -> None:
+    """A tenant's committed store against ``eng``'s views, bit for bit."""
+    bad = [k for k, t in tenant.committed_views.items()
+           if not same_bits(t, eng.views[k])]
+    if bad:
+        raise AssertionError(f"{label}: committed views {bad} differ from "
+                             "the isolated replay")
+
+
+def phase_fleet_logit(eng, H, W) -> tuple:
+    """15a: 8 logit-view tenants behind the server, each over its own 4096
+    of phase 12's hidden states and its own seeded copy of lm_head, under
+    rank-1 hot-swaps through ``ServeEngine.hot_swap`` (card tensors) and
+    ``flush_views``; against the same 8 guarded engines driven one after
+    another with identical groups.  Returns the record, the fleet, the
+    baseline engines, the tenants' inputs and the deltas so far (15d
+    goes on from them)."""
+    import torch
+    from repro_torch.core import IncrementalEngine
+    from repro_torch.fleet import FleetConfig, FleetScheduler, TenantSpec
+    from repro_torch.guard import GuardConfig
+    from repro_torch.plan import TriggerCache
+    from repro_torch.serve import build_logit_view_program
+    cfg = eng.model.cfg
+    n_t, rows, d, p = FLEET_TENANTS, FLEET_ROWS, cfg.d_model, cfg.vocab
+    label = f"fleet_logit_views_danube_{n_t}x{rows}"
+    prog = build_logit_view_program(rows, d, p)
+    inputs = []
+    for i in range(n_t):
+        g = torch.Generator(device=DEVICE).manual_seed(1500 + i)
+        inputs.append({"H": H[i * rows:(i + 1) * rows],
+                       "W": W + 1e-3 * torch.randn(p, d, device=DEVICE,
+                                                   generator=g)})
+    g = torch.Generator(device=DEVICE).manual_seed(1515)
+
+    def group():
+        return [[(torch.randn(p, 1, device=DEVICE, generator=g) * .01,
+                  torch.randn(d, 1, device=DEVICE, generator=g) * .01)
+                 for _ in range(HOT_SWAPS)] for _ in range(n_t)]
+    deltas = [group() for _ in range(1 + FLEET_ROUNDS)]
+    torch.cuda.synchronize()
+    reset_launches()
+    # bring-up: cold per-tenant engines (own caches) against fleet
+    # tenants on one shared cache, each then firing its first group
+    t0 = time.perf_counter()
+    base = []
+    for i in range(n_t):
+        e = IncrementalEngine(prog, {"W": 1}, guard=GuardConfig(),
+                              trigger_cache=TriggerCache())
+        e.initialize(inputs[i])
+        e.apply_updates("W", deltas[0][i])
+        e.guard.sync()
+        base.append(e)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet = FleetScheduler(FleetConfig(lease_ttl=30.0))
+    paths = {f"lm_head.{i}": f"lm{i}" for i in range(n_t)}
+    for i in range(n_t):
+        fleet.add_tenant(TenantSpec(f"lm{i}", prog, {"W": 1},
+                                    max_claim_rank=HOT_SWAPS,
+                                    queue_capacity=4 * HOT_SWAPS),
+                         inputs[i])
+    eng.attach_fleet(fleet, paths)
+    for j in range(HOT_SWAPS):
+        for i in range(n_t):
+            eng.hot_swap(f"lm_head.{i}", *deltas[0][i][j])
+    eng.flush_views()
+    torch.cuda.synchronize()
+    shared_s = time.perf_counter() - t0
+    cache = fleet.registry.trigger_cache.stats()
+    if cache["misses"] != cache["entries"] or \
+            cache["hits"] != (n_t - 1) * cache["misses"]:
+        raise AssertionError(f"{label}: trigger cache {cache}: not one miss "
+                             f"a key and {n_t - 1} hits")
+
+    submit_s = []
+
+    def fleet_round(r):
+        t0 = time.perf_counter()
+        for j in range(HOT_SWAPS):
+            for i in range(n_t):
+                if not eng.hot_swap(f"lm_head.{i}", *deltas[r][i][j]):
+                    raise AssertionError(f"{label}: a hot-swap was refused")
+        submit_s.append((time.perf_counter() - t0) / (n_t * HOT_SWAPS))
+        eng.flush_views()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / (n_t * HOT_SWAPS)
+
+    def base_round(r):
+        t0 = time.perf_counter()
+        for i, e in enumerate(base):
+            e.apply_updates("W", deltas[r][i])
+            e.guard.sync()          # the per-tenant settle a commit implies
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / (n_t * HOT_SWAPS)
+    fleet_s, base_s = [], []
+    for r in range(1, 1 + FLEET_ROUNDS):   # in turns, alternating the lead
+        if r % 2:
+            fleet_s.append(fleet_round(r))
+            base_s.append(base_round(r))
+        else:
+            base_s.append(base_round(r))
+            fleet_s.append(fleet_round(r))
+    got = launches()
+    tenants = [fleet.registry.get(f"lm{i}") for i in range(n_t)]
+    applies = sum(t.engine.stats.lowrank_applies + e.stats.lowrank_applies
+                  for t, e in zip(tenants, base))
+    firings = sum(t.engine.stats.triggers_fired + e.stats.triggers_fired
+                  for t, e in zip(tenants, base))
+    check_launches(label, got, {"rank_update_batched_out": applies,
+                                "select_commit": 2 * firings})
+    rel = {}
+    for i, (t, e) in enumerate(zip(tenants, base)):
+        groups = [tuple(range(k * HOT_SWAPS + 1, (k + 1) * HOT_SWAPS + 1))
+                  for k in range(1 + FLEET_ROUNDS)]
+        if [lsns for _, lsns in t.commit_log] != groups or \
+                t.stats.committed_updates != HOT_SWAPS * (1 + FLEET_ROUNDS):
+            raise AssertionError(f"{label}: lm{i} commit log "
+                                 f"{t.commit_log}, stats {t.stats}")
+        fleet_bits(f"{label} lm{i}", t, e)
+        Wi = inputs[i]["W"].clone()
+        for r in range(1 + FLEET_ROUNDS):
+            for u, v in deltas[r][i]:
+                Wi += u @ v.T
+        rel[f"lm{i}"] = check_views(
+            f"{label} lm{i}", {"Y": eng.view_logits(f"lm_head.{i}")},
+            {"Y": inputs[i]["H"] @ Wi.T})["Y"]
+        del Wi
+    rec = {"phase": label, "tenants": n_t, "H": [rows, d], "W": [p, d],
+           "hot_swaps_a_round": HOT_SWAPS, "rounds": FLEET_ROUNDS,
+           "fleet_s_per_update": fleet_s, "engines_s_per_update": base_s,
+           "fleet_submit_s_per_update": submit_s,
+           "fleet_over_engines": [f / b for f, b in zip(fleet_s, base_s)],
+           "fleet_over_engines_median": statistics.median(
+               f / b for f, b in zip(fleet_s, base_s)),
+           "bring_up_shared_cache_s": shared_s, "bring_up_cold_s": cold_s,
+           "trigger_cache": cache,
+           "fleet_stats": fleet.fleet_stats(), "launches": got,
+           "lowrank_applies": applies, "firings": firings,
+           "rel_err_vs_reeval": rel, "tolerance": MAIN_TOL,
+           "bit_identical_to_isolated_engines": True}
+    log("main " + json.dumps(rec))
+    return rec, fleet, base, inputs, deltas
+
+
+def phase_fleet_live(eng, fleet, base, inputs, deltas) -> dict:
+    """15d: 15a's tenants under four live worker threads on the real
+    clock: a round of hot-swaps while they run, then ``flush_views``
+    (a drain that waits on the workers); every committed store against
+    its 15a engine driven deterministically through the same groups,
+    bit for bit, and the launches against the applies (the counters are
+    exact under threads)."""
+    import torch
+    n_t = FLEET_TENANTS
+    label = f"fleet_live_threads_danube_{n_t}x{FLEET_ROWS}"
+    tenants = [fleet.registry.get(f"lm{i}") for i in range(n_t)]
+    done = [len(t.commit_log) for t in tenants]
+    s0 = [(t.engine.stats.lowrank_applies, t.engine.stats.triggers_fired)
+          for t in tenants]
+    p, d = tenants[0].engine.views["W"].shape
+    g = torch.Generator(device=DEVICE).manual_seed(1516)
+    live = [[(torch.randn(p, 1, device=DEVICE, generator=g) * .01,
+              torch.randn(d, 1, device=DEVICE, generator=g) * .01)
+             for _ in range(2 * HOT_SWAPS)] for _ in range(n_t)]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    fleet.start(workers=4)
+    try:
+        for j in range(2 * HOT_SWAPS):
+            for i in range(n_t):
+                eng.hot_swap(f"lm_head.{i}", *live[i][j])
+        eng.flush_views()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        fleet.stop()
+    got = launches()
+    applies = sum(t.engine.stats.lowrank_applies - a
+                  for t, (a, _) in zip(tenants, s0))
+    firings = sum(t.engine.stats.triggers_fired - f
+                  for t, (_, f) in zip(tenants, s0))
+    check_launches(label, got, {"rank_update_batched_out": applies,
+                                "select_commit": 2 * firings})
+    sizes = []
+    first = 1 + HOT_SWAPS * (1 + FLEET_ROUNDS)
+    for i, (t, e) in enumerate(zip(tenants, base)):
+        groups = t.commit_log[done[i]:]
+        sizes.extend(len(lsns) for _, lsns in groups)
+        replay_groups(e, {first + j: uv for j, uv in enumerate(live[i])},
+                      groups)
+        if t.dirty() or t.stats.committed_updates != \
+                HOT_SWAPS * (3 + FLEET_ROUNDS):
+            raise AssertionError(f"{label}: lm{i} {t.health()}")
+        fleet_bits(f"{label} lm{i}", t, e)
+    rec = {"phase": label, "workers": 4, "updates": 2 * HOT_SWAPS * n_t,
+           "seconds": seconds, "s_per_update": seconds / (2 * HOT_SWAPS * n_t),
+           "claims": len(sizes), "claim_sizes": sorted(sizes),
+           "fleet_stats": fleet.fleet_stats(), "launches": got,
+           "lowrank_applies": applies, "firings": firings,
+           "bit_identical_to_deterministic_drive": True}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def fleet_chaos_tenants(full: bool) -> list:
+    """15b's tenants: (id, kind, program, ranks, input maker, update
+    maker), at full width, or tiny on the CPU (the chaos seed search)."""
+    import torch
+    from repro_torch.apps.matrix_powers import build_powers_program
+    from repro_torch.apps.ols import build_ols_program
+    from repro_torch.data import UpdateStream, row_local_stream
+    dev = DEVICE if full else "cpu"
+    n, (m, k) = (POWERS_N, (OLS_M, OLS_N)) if full else (16, (32, 8))
+    # the tiny chain keeps Y1 and Y2 factored under rank-8 carriers
+    cn, cm, ck = (CHAIN_N, CHAIN_M, CHAIN_K) if full else (1024, 64, 32)
+
+    def randn(seed, *shape, scale=1.0):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(*shape, device=dev, generator=g) * scale
+
+    def powers(seed):
+        return lambda: {"A": randn(seed, n, n, scale=0.9 / n ** 0.5)}
+
+    def ols():
+        X = randn(1600, m, k)
+        return {"X": X, "Y": X @ randn(1601, k, 1) + randn(1602, m, 1,
+                                                           scale=0.1)}
+
+    def chain():
+        return {"X": randn(1610, cn, cm), "W1": randn(1611, cm, ck,
+                                                      scale=cm ** -0.5),
+                "W2": randn(1612, ck, ck, scale=ck ** -0.5)}
+    out = []
+    for i in range(4):
+        s = UpdateStream(n=n, m=n, seed=1620 + i)
+        out.append((f"powers{i}", "matrix_powers",
+                    build_powers_program(k=16, n=n, model="exp"), {"A": 1},
+                    powers(1590 + i), lambda s=s: ("A", s.next_update())))
+    s = UpdateStream(n=m, m=k, seed=1630)
+    out.append(("ols", "ols", build_ols_program(m, k, 1), {"X": 1}, ols,
+                lambda s=s: ("X", s.next_update())))
+    c = row_local_stream(cn, max(1, cn // 100), m=cm, rank=CHAIN_RANK,
+                         seed=1640)
+    out.append(("chain", "rowlocal_compact_chain", chain_program(cn, cm, ck),
+                {"X": CHAIN_RANK}, chain,
+                lambda c=c: ("X", (c.next_carrier(),))))
+    return out
+
+
+def fleet_chaos_drive(full: bool, seed: int, instrument=None) -> tuple:
+    """15b's drive: the tenants of :func:`fleet_chaos_tenants` behind one
+    fleet on a virtual clock under ``ChaosConfig(seed)``'s worker faults
+    and poison, FLEET_SUBMISSIONS submissions to tenants drawn from a
+    seeded stream, a deterministic drive every 25.
+    ``instrument(fleet, specs)`` runs once the tenants are in.  Returns
+    the fleet, the logged payloads by tenant and LSN, the admitted counts,
+    the outcomes and the tenants' specs."""
+    import numpy as np
+    from repro_torch.fleet import (FleetConfig, FleetScheduler,
+                                   OverloadPolicy, TenantSpec)
+    from repro_torch.guard import ChaosConfig
+
+    class VClock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+        def sleep(self, dt):
+            self.t += dt
+    vc = VClock()
+    fleet = FleetScheduler(
+        FleetConfig(lease_ttl=1.0, overload=OverloadPolicy(
+            degraded_at=0.7, shedding_at=0.9, cold_after_s=1e9),
+            chaos=ChaosConfig(seed=seed, worker_crash_p=0.1,
+                              lease_expiry_p=0.1, slow_worker_p=0.05,
+                              slow_worker_s=1.5, poison_p=0.02)),
+        clock=vc, sleep=vc.sleep)
+    specs = fleet_chaos_tenants(full)
+    for tid, kind, prog, ranks, make, _ in specs:
+        fleet.add_tenant(TenantSpec(
+            tid, prog, ranks, slo_s=0.5, queue_capacity=64,
+            engine_opts={} if full else {"device": "cpu"}), make())
+    if instrument is not None:
+        instrument(fleet, specs)
+    rng = np.random.default_rng(seed + 1650)
+    logged = {tid: {} for tid, *_ in specs}
+    admitted = dict.fromkeys(logged, 0)
+    outcomes = {}
+
+    def drain():
+        for k, n in fleet.run_until_idle(
+                workers=3, on_stall=lambda: vc.sleep(1.1)).items():
+            outcomes[k] = outcomes.get(k, 0) + n
+    for step in range(FLEET_SUBMISSIONS):
+        tid, _, _, _, _, nxt = specs[int(rng.integers(len(specs)))]
+        name, upd = nxt()
+        if fleet.submit(tid, name, *upd) == "admitted":
+            admitted[tid] += 1
+            entry = fleet.registry.get(tid).log.pending(0)[-1]
+            logged[tid][entry.lsn] = entry.payload()
+        vc.sleep(0.01)
+        if step % 25 == 24:
+            drain()
+    drain()
+    return fleet, logged, admitted, outcomes, specs
+
+
+def fleet_chaos_seed() -> int:
+    """The first seed under which 15b's drive crashes a worker, expires a
+    lease and poisons an update, found by the same drive on tiny CPU
+    tenants: the fleet's chaos draws follow its claims and submissions,
+    not the tenants' widths."""
+    for seed in range(100):
+        ch = fleet_chaos_drive(False, seed)[0].chaos
+        if ch.worker_crashes and ch.lease_expiries and ch.poisoned:
+            return seed
+    raise AssertionError("no seed crashes, expires and poisons")
+
+
+def claim_profile(fn, top: int = 10) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall ms, the card's
+    kernels and copies (summed ms, count) and the host's operations by
+    self time, each the ``top`` largest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+    dev = sorted((e for e in ka if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)
+    host = sorted((e for e in ka if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    return {"wall_ms": wall,
+            "device_ms": sum(e.self_device_time_total for e in dev) / 1e3,
+            "device": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                       for e in dev[:top]],
+            "host": [[e.key[:50], e.self_cpu_time_total / 1e3, e.count]
+                     for e in host[:top]]}
+
+
+def phase_fleet_chaos(bytes_peak: float) -> dict:
+    """15b: chaos acceptance at full width on the deterministic drive (4
+    matrix-powers tenants, OLS, the compact row-local chain); exactly
+    once, bit-identical isolated replays, exact against re-evaluation,
+    replays onto the very pre-claim tensors, launches against the
+    applies of every firing that ran; per-claim ms by tenant kind; then
+    one more row-local claim under the profiler with the copy-on-write
+    of its row views."""
+    import torch
+    from repro_torch.core import IncrementalEngine
+    from repro_torch.guard import GuardConfig
+    t0 = time.perf_counter()
+    seed = fleet_chaos_seed()
+    search_s = time.perf_counter() - t0
+    label = "fleet_chaos_powers_ols_chain"
+    claims, replays, fired = {}, [], {}
+
+    def count_applies(eng, acc) -> None:
+        """Add each firing's applies to ``acc`` as it runs, before any
+        rollback of the claim restores the engine's counters."""
+        written = {name: len({up.view for up in trig.updates})
+                   for name, trig in eng.compiled.triggers.items()}
+        inner = eng.apply_updates
+        depth = [0]     # a widened carrier batch calls apply_updates again
+
+        def apply_updates(name, updates, block=False):
+            st = eng.stats
+            s0 = (st.lowrank_applies, st.row_applies, st.triggers_fired,
+                  st.rowlocal_firings)
+            depth[0] += 1
+            try:
+                out = inner(name, updates, block=block)
+            finally:
+                depth[0] -= 1
+            if depth[0]:
+                return out
+            acc["dense"] += st.lowrank_applies - s0[0]
+            acc["rows"] += st.row_applies - s0[1]
+            if eng._guard_fast_path:
+                acc["fused"] += written[name] * (
+                    st.triggers_fired - s0[2]
+                    - (st.rowlocal_firings - s0[3]))
+            return out
+        eng.apply_updates = apply_updates
+
+    def instrument(fleet, specs) -> None:
+        kinds = {tid: kind for tid, kind, *_ in specs}
+        for tid in kinds:
+            fired[tid] = {"dense": 0, "rows": 0, "fused": 0}
+            count_applies(fleet.registry.get(tid).engine, fired[tid])
+        inner = fleet._fire_claim
+
+        def fire_claim(tenant, lease, reeval=False):
+            # a replay restores the dead claim's snapshot: it must hold the
+            # very tensors the tenant last committed
+            if (tenant.inflight is not None
+                    and tenant.inflight.token != lease.token):
+                snap = tenant.inflight.snapshot.views
+                replays.append(all(snap[k] is v for k, v in
+                                   tenant.committed_views.items()))
+            t0 = time.perf_counter()
+            res = "crashed"
+            try:
+                res = inner(tenant, lease, reeval=reeval)
+                return res
+            finally:
+                torch.cuda.synchronize()
+                claims.setdefault(kinds[tenant.spec.tenant_id], {}) \
+                    .setdefault(res, []).append(
+                        (time.perf_counter() - t0) * 1e3)
+        fleet._fire_claim = fire_claim
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    fleet, logged, admitted, outcomes, specs = fleet_chaos_drive(
+        True, seed, instrument)
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    got = launches()
+    check_launches(label, got, {
+        "rank_update_batched_out": sum(a["dense"] for a in fired.values()),
+        "rank_update_rows": sum(a["rows"] for a in fired.values()),
+        "select_commit": sum(a["fused"] for a in fired.values())})
+    ch = fleet.chaos
+    stats = fleet.fleet_stats()
+    if not (ch.worker_crashes and ch.lease_expiries and ch.poisoned
+            and replays and all(replays) and fired["chain"]["rows"]
+            and stats["replays"] + stats["fenced_aborts"] > 0):
+        raise AssertionError(f"{label}: chaos {stats.get('chaos')}, crashes "
+                             f"{ch.worker_crashes}, replays {replays}")
+    rel = {}
+    for tid, kind, prog, ranks, make, _ in specs:
+        t = fleet.registry.get(tid)
+        if t.dirty() or t.stats.committed_updates != admitted[tid] \
+                or t.applied_lsn != admitted[tid]:
+            raise AssertionError(f"{label}: {tid} admitted {admitted[tid]}"
+                                 f", {t.stats}, {t.health()}")
+        ref = IncrementalEngine(prog, ranks, guard=GuardConfig())
+        ref._write_out_of_place()
+        inputs = make()
+        ref.initialize(inputs)
+        del inputs
+        replay_groups(ref, logged[tid], t.commit_log)
+        fleet_bits(f"{label} {tid}", t, ref)
+        del ref
+        want = t.engine._evaluator({k: t.committed_views[k]
+                                    for k in prog.inputs})
+        rel[tid] = check_views(f"{label} {tid}", t.committed_views, want)
+        del want
+        torch.cuda.empty_cache()
+    # one more row-local claim under the profiler: the copy of the row
+    # views (out of place), the guard's row gathers, the row kernel
+    fleet.chaos = None
+    chain = fleet.registry.get("chain")
+    ceng = chain.engine
+    # the profiled claim fires one carrier: the base rank's trigger
+    fn = ceng._rowlocal_trigger_fn("X", ceng.compiled.triggers["X"].rank)
+    cow_bytes = 2 * sum(4 * ceng.views[v].numel() for v in fn.row_views)
+    cow_ms = time_ms(lambda: [ceng.views[v].clone() for v in fn.row_views],
+                     target_ms=20.0)
+    claim_ms = {k: {r: {"n": len(v), "median": statistics.median(v),
+                        "min": min(v), "max": max(v)}
+                    for r, v in by.items()} for k, by in claims.items()}
+    name, upd = specs[-1][5]()
+    fleet.submit("chain", name, *upd)
+    before = dict(ceng.views)
+    prof = claim_profile(lambda: fleet.run_claim("profiled"))
+    if [v for v in fn.row_views if ceng.views[v] is before[v]]:
+        raise AssertionError(f"{label}: the row-local claim wrote a row view "
+                             "in place")
+    del before
+    rec = {"phase": label, "seed": seed, "seed_search_s": search_s,
+           "submissions": FLEET_SUBMISSIONS, "admitted": admitted,
+           "outcomes": outcomes, "drive_s": drive_s,
+           "chaos": {"worker_crashes": ch.worker_crashes,
+                     "lease_expiries": ch.lease_expiries,
+                     "slowdowns": ch.slowdowns, "poisoned": ch.poisoned},
+           "replays": stats["replays"], "fenced_aborts":
+           stats["fenced_aborts"], "replays_onto_pre_claim_tensors":
+           len(replays), "leases": stats["leases"],
+           "trigger_cache": stats["trigger_cache"],
+           "claim_ms": claim_ms,
+           "fired": fired, "launches": got,
+           "cow_row_views": list(fn.row_views), "cow_bytes": cow_bytes,
+           "cow_ms": cow_ms, "cow_bound_ms": cow_bytes / bytes_peak * 1e3,
+           "rowlocal_claim_profile": prof,
+           "rel_err_vs_reeval": rel, "tolerance": MAIN_TOL,
+           "bit_identical_to_isolated_replays": True}
+    log("main " + json.dumps(rec))
+    del fleet, chain, ceng, fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_fleet_overload() -> dict:
+    """15c: one cold, sheddable matrix-powers tenant (n = 10000) beside a
+    reserved one pushed into the degraded and shedding tiers: its pending
+    deltas fold into A on the card and it re-evaluates once, on read,
+    within MAIN_TOL of an incremental engine fed the same updates; the
+    shed decisions counted."""
+    import torch
+    from repro_torch.apps.matrix_powers import build_powers_program
+    from repro_torch.core import IncrementalEngine
+    from repro_torch.data import UpdateStream
+    from repro_torch.fleet import (FleetConfig, FleetScheduler,
+                                   OverloadPolicy, TenantSpec)
+    n = POWERS_N
+    label = f"fleet_overload_matrix_powers_n{n}"
+    clock = {"t": 0.0}
+    fleet = FleetScheduler(
+        FleetConfig(lease_ttl=1.0, overload=OverloadPolicy(
+            degraded_at=0.5, shedding_at=0.75, cold_after_s=2.0)),
+        clock=lambda: clock["t"])
+    prog = build_powers_program(k=16, n=n, model="exp")
+    g = torch.Generator(device=DEVICE).manual_seed(1700)
+    A = torch.randn(n, n, device=DEVICE, generator=g) * (0.9 / n ** 0.5)
+    cold = fleet.add_tenant(TenantSpec("cold", prog, {"A": 1},
+                                       queue_capacity=4), {"A": A})
+    vip = fleet.add_tenant(TenantSpec("vip", prog, {"A": 1},
+                                      queue_capacity=4, sheddable=False),
+                           {"A": A})
+    s = UpdateStream(n=n, m=n, seed=1701)
+    ups = [s.next_update() for _ in range(9)]
+    torch.cuda.synchronize()
+    reset_launches()
+    clock["t"] += 3.0                   # both tenants go cold
+    decisions = [fleet.submit("cold", "A", *uv) for uv in ups[:4]]
+    tier_after_cold = fleet.tier()
+    decisions += [fleet.submit("vip", "A", *uv) for uv in ups[4:6]]
+    tier_after_vip = fleet.tier()
+    decisions += [fleet.submit("cold", "A", *uv) for uv in ups[6:8]]
+    decisions.append(fleet.submit("vip", "A", *ups[8]))
+    shed = decisions.count("shed")
+    if (tier_after_cold, tier_after_vip, cold.mode) != \
+            ("degraded", "shedding", "reeval_on_read") or shed != 2:
+        raise AssertionError(f"{label}: tiers {tier_after_cold}, "
+                             f"{tier_after_vip}, mode {cold.mode}, "
+                             f"decisions {decisions}")
+    s0 = (vip.engine.stats.lowrank_applies, vip.engine.stats.triggers_fired)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fleet.read("cold")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    fleet.run_until_idle(on_stall=lambda: clock.__setitem__(
+        "t", clock["t"] + 1.1))
+    inc = IncrementalEngine(prog, {"A": 1})
+    inc.initialize({"A": A})
+    del A
+    inc.apply_updates("A", ups[:4])
+    torch.cuda.synchronize()
+    got, ranks = launches(), dense_ranks()
+    vip_applies = vip.engine.stats.lowrank_applies - s0[0]
+    vip_firings = vip.engine.stats.triggers_fired - s0[1]
+    written = len({up.view for up in vip.engine.compiled.triggers["A"]
+                   .updates})
+    check_launches(label, got, {
+        "rank_update_batched": inc.stats.lowrank_applies,
+        "rank_update_batched_out": vip_applies,
+        "select_commit": written * vip_firings})
+    if cold.stats.reeval_on_read != 1 or cold.dirty() or vip.dirty() or \
+            cold.engine.stats.reevals != 1:
+        raise AssertionError(f"{label}: cold {cold.stats}, vip "
+                             f"{vip.health()}")
+    rel = check_views(label, cold.committed_views, inc.views)
+    rec = {"phase": label, "decisions": decisions, "shed": shed,
+           "tier_after_cold": tier_after_cold,
+           "tier_after_vip": tier_after_vip,
+           "reeval_on_read": cold.stats.reeval_on_read,
+           "commit_log": cold.commit_log, "read_s": read_s,
+           "launches": got, "dense_ranks": ranks,
+           "rel_err_vs_incremental": rel, "tolerance": MAIN_TOL}
+    log("main " + json.dumps(rec))
+    del fleet, cold, vip, inc
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_fleet(serve, bytes_peak: float) -> list:
+    """Phase 15: the multi-tenant fleet (``repro_torch.fleet``) at full
+    width on one card: 15a the logit-view tenants behind the server, 15b
+    chaos acceptance, 15c overload, 15d 15a's tenants under live
+    workers."""
+    import torch
+    eng, H, W = serve
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec, fleet, base, inputs, deltas = phase_fleet_logit(eng, H, W)
+    recs = [rec]
+    recs.append(phase_fleet_live(eng, fleet, base, inputs, deltas))
+    del fleet, base, inputs, deltas, rec
+    eng._fleet, eng._fleet_tenants = None, {}
+    torch.cuda.empty_cache()
+    recs.append(phase_fleet_chaos(bytes_peak))
+    recs.append(phase_fleet_overload())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    seconds = time.perf_counter() - t0
+    for r in recs:
+        r["phase15_peak_mem_gib"] = peak
+    log(f"phase 15: {seconds:.2f} s, peak memory {peak:.2f} GiB")
+    return recs
+
+
 def main() -> int:
     try:
         import torch
@@ -2308,7 +2962,12 @@ def main() -> int:
 
     # 14. guarded maintenance (14e on phase 12's view and server)
     phases.extend(phase_guard((eng, H, W, rec)))
-    del eng, H, W, rec
+    del rec
+    torch.cuda.empty_cache()
+
+    # 15. the multi-tenant fleet (15a and 15d behind phase 10's server)
+    phases.extend(phase_fleet((eng, H, W), bytes_peak))
+    del eng, H, W
     torch.cuda.empty_cache()
 
     # the kernels record: per entry, the main path's launches and the
@@ -2322,7 +2981,7 @@ def main() -> int:
                 "flash_decode": "danube_decode_bf16_wrapped",
                 "rank_update_batched_out": (10000, 10000, 1, 16),
                 "select_commit": "clean"}
-    # rank_update_batched's launches over phases 4-9 and 12-14 by K, so that
+    # rank_update_batched's launches over phases 4-9 and 12-15 by K, so that
     # each K's gap to its bound can be weighed by its launches
     by_k = {}
     for ph in phases:

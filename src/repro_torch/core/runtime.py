@@ -773,14 +773,19 @@ class IncrementalEngine:
             B = np.pad(B, ((0, 0), (0, bucket - rank)))
             V = np.pad(V, ((0, 0), (0, bucket - rank)))
         fn = self._rowlocal_trigger_fn(input_name, bucket)
+        originals = {}
         if self._cow_rows:
             for name in fn.row_views:
+                originals[name] = self.views[name]
                 self.views[name] = self.views[name].clone()
         if self.guard is not None:
             from ..guard.txn import FiringAborted
             try:
                 self.guard.fire_rowlocal(self, input_name, fn, rows, B, V)
             except FiringAborted as e:
+                # the rollback restored the copies' rows; hand back the
+                # very pre-firing tensors, as a dense rollback does
+                self.views.update(originals)
                 P0 = np.zeros((int(carrier.nm[0]), B0.shape[1]), np.float32)
                 P0[rows] = B0
                 self.guard.on_abort(input_name, P0, V0, e.reason)

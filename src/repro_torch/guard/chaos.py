@@ -24,9 +24,8 @@ code paths:
     (the fault-tolerance controller's, in ``dist/``, not ported yet:
     timeout eviction and the supervisor restart loop must recover);
   * ``worker_crash_p`` — kill a fleet refresh worker *between* firing
-    and commit (the fleet's lease reclaim, in ``fleet/``, not ported
-    yet: roll back the uncommitted work and replay it from the tenant's
-    update log);
+    and commit (:mod:`repro_torch.fleet`'s lease reclaim must roll back
+    the uncommitted work and replay it from the tenant's update log);
   * ``lease_expiry_p`` — force-expire a worker's lease mid-claim (its
     commit must be fenced off and its work rolled back — the
     slow-worker-loses-the-race case, compressed);

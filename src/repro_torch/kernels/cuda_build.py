@@ -8,6 +8,10 @@ with :mod:`ctypes`.  Each library lands in ``_build/`` beside this file
 edited source (or shared ``csrc/*.cuh`` header) is rebuilt and an
 unchanged one is reused.  Nothing is
 built when a module is imported: :data:`LIBS` stays empty until a launch.
+
+Threads may launch kernels side by side (the fleet's live workers): a
+lock makes the first use of a source build and load it once, and
+:func:`count_launch` keeps every binding's launch counts exact.
 """
 
 from __future__ import annotations
@@ -17,7 +21,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence
 
@@ -30,6 +36,9 @@ LIBS: Dict[str, ctypes.CDLL] = {}    # loaded libraries by source name
 BUILD_LOGS: Dict[str, str] = {}      # nvcc's output (ptxas register counts)
 
 PTR, I32, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+_LOAD_LOCK = threading.Lock()    # one build and one load per source
+_COUNT_LOCK = threading.Lock()   # the bindings' launch counters
 
 
 def sources() -> list:
@@ -90,17 +99,33 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use.
     ``signatures`` maps each C entry to its argument types; every entry
-    returns the launch's ``cudaError_t`` as an int."""
+    returns the launch's ``cudaError_t`` as an int.  Safe from several
+    threads: the first caller builds and loads, the others wait for it."""
     lib = LIBS.get(name)
-    if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        for entry, argtypes in signatures.items():
-            fn = getattr(lib, entry)
-            fn.argtypes = list(argtypes)
-            fn.restype = I32
-        LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = LIBS.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            for entry, argtypes in signatures.items():
+                fn = getattr(lib, entry)
+                fn.argtypes = list(argtypes)
+                fn.restype = I32
+            LIBS[name] = lib
     return lib
+
+
+def count_launch(launches: Dict[str, int], entry: str,
+                 ranks: Optional[Dict[str, Counter]] = None,
+                 rank: int = 0) -> None:
+    """Count one launch of ``entry`` in ``launches`` (and, with ``ranks``,
+    one of inner dimension ``rank``); exact when threads launch at once."""
+    with _COUNT_LOCK:
+        launches[entry] += 1
+        if ranks is not None:
+            ranks[entry][rank] += 1
 
 
 def check_launch(entry: str, code: int) -> None:

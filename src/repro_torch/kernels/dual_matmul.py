@@ -102,5 +102,5 @@ def _launch(lib, a, u, v, n, m, k, index):
                                ws.data_ptr() if floats else None, n, m, k,
                                stream)
     cuda_build.check_launch("dual_matmul_f32", code)
-    LAUNCHES["dual_matmul"] += 1
+    cuda_build.count_launch(LAUNCHES, "dual_matmul")
     return p, q

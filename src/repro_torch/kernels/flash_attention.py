@@ -93,5 +93,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             h, kvh, hd, int(causal), window or 0,
             int(dtype == torch.bfloat16), hd ** -0.5, stream)
     cuda_build.check_launch("flash_attention_fwd", code)
-    LAUNCHES["flash_attention"] += 1
+    cuda_build.count_launch(LAUNCHES, "flash_attention")
     return out

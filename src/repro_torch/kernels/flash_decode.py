@@ -121,5 +121,5 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     with torch.cuda.device(q.device):
         code = lib.flash_decode_fwd(*args)
     cuda_build.check_launch("flash_decode_fwd", code)
-    LAUNCHES["flash_decode"] += 1
+    cuda_build.count_launch(LAUNCHES, "flash_decode")
     return out

@@ -100,8 +100,7 @@ def _launch(entry: str, cname: str, m: torch.Tensor, rank: int,
         stream = torch.cuda.current_stream(m.device).cuda_stream
         code = getattr(lib, cname)(*args, stream)
     cuda_build.check_launch(cname, code)
-    LAUNCHES[entry] += 1
-    RANKS[entry][rank] += 1
+    cuda_build.count_launch(LAUNCHES, entry, RANKS, rank)
 
 
 def _check_stack(m: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> None:

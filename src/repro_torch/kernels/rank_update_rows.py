@@ -126,5 +126,5 @@ def rank_update_rows(m: torch.Tensor, rows: RowSet, block: torch.Tensor,
                                         block.data_ptr(), v.data_ptr(),
                                         r, p, k, stream)
     cuda_build.check_launch("rank_update_rows_f32", code)
-    LAUNCHES["rank_update_rows"] += 1
+    cuda_build.count_launch(LAUNCHES, "rank_update_rows")
     return m

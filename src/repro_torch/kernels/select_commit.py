@@ -61,5 +61,5 @@ def select_commit(flags: torch.Tensor, old: torch.Tensor,
                                      old.data_ptr(), new.data_ptr(),
                                      new.numel(), stream)
     cuda_build.check_launch("select_commit_f32", code)
-    LAUNCHES["select_commit"] += 1
+    cuda_build.count_launch(LAUNCHES, "select_commit")
     return new

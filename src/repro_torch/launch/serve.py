@@ -4,11 +4,17 @@
         --batch 8 --prompt-len 4096 --max-new 32 [--logit-view]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
         --reduced --device cpu --batch 2 --prompt-len 16 --max-new 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch custom-10m \
+        --device cpu --fleet 2 --fleet-workers 2
 
 Runs on the card unless ``--device cpu`` is given.  Weights are random,
 drawn from ``--seed``.  ``--logit-view`` attaches an incremental lm_head
 logit view over a random corpus, hot-swaps a burst of rank-1 deltas
-through it and prints its health (unguarded: the guard is not ported yet).
+through it and prints its health.  ``--fleet N`` serves N logit-view
+tenants over the model's lm_head widths through
+:mod:`repro_torch.fleet` (live lease-claimed refresh workers, admission
+control, a shared trigger cache) and prints each view's health and the
+fleet's stats.
 """
 
 from __future__ import annotations
@@ -46,6 +52,46 @@ def resolve_config(args) -> ModelConfig:
     return cfg.reduced() if args.reduced else cfg
 
 
+def serve_fleet(eng: ServeEngine, cfg: ModelConfig, args, rng) -> None:
+    """N tenants, each its own corpus logit view over lm_head, refreshed
+    by a shared pool of live lease-coordinated workers; same-shape
+    tenants share built triggers through the fleet's cache."""
+    from ..fleet import FleetConfig, FleetScheduler, TenantSpec
+    from ..serve import build_logit_view_program
+    d, p = cfg.d_model, cfg.vocab
+    dev = eng.model.device
+    fleet = FleetScheduler(FleetConfig(lease_ttl=0.5,
+                                       workers=args.fleet_workers))
+    tenant_of = {}
+    for i in range(args.fleet):
+        tid = f"tenant-{i}"
+        inputs = {
+            "H": rng.standard_normal((args.corpus, d)).astype(np.float32),
+            "W": rng.standard_normal((p, d)).astype(np.float32) * .02,
+        }
+        fleet.add_tenant(TenantSpec(
+            tid, build_logit_view_program(args.corpus, d, p), {"W": 1},
+            slo_s=0.25, quota_rate=200.0, quota_burst=32,
+            engine_opts={"device": dev}), inputs)
+        tenant_of[f"lm_head.{i}"] = tid
+    eng.attach_fleet(fleet, tenant_of)
+    fleet.start()
+    try:
+        for _ in range(8):
+            for path in tenant_of:
+                u = rng.standard_normal((p, 1)).astype(np.float32) * .01
+                v = rng.standard_normal((d, 1)).astype(np.float32) * .01
+                eng.hot_swap(path, u, v)
+        eng.flush_views()
+        for path in tenant_of:
+            logits = eng.view_logits(path)
+            print(f"[serve] fleet view {path}: {tuple(logits.shape)} "
+                  f"health={eng.view_health()[path]}")
+        print(f"[serve] fleet stats: {fleet.fleet_stats()}")
+    finally:
+        fleet.stop()
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="custom-10m")
@@ -63,7 +109,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="attach an incremental lm_head logit view, drive "
                          "hot-swap deltas through it, and print its health")
     ap.add_argument("--corpus", type=int, default=64,
-                    help="--logit-view corpus size (cached hidden rows)")
+                    help="--logit-view / --fleet corpus size (cached "
+                         "hidden rows)")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="serve N fleet tenants (one logit view each) "
+                         "through repro_torch.fleet: lease-claimed refresh "
+                         "workers, admission control, shared trigger "
+                         "cache; prints fleet health + stats")
+    ap.add_argument("--fleet-workers", type=int, default=2)
     args = ap.parse_args(argv)
 
     cfg = resolve_config(args)
@@ -88,6 +141,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         logits = eng.view_logits("lm_head")
         print(f"[serve] logit view: {tuple(logits.shape)} "
               f"health={eng.view_health()['lm_head']}")
+    if args.fleet > 0:
+        serve_fleet(eng, cfg, args, rng)
     prompts = rng.integers(1, cfg.vocab, size=(args.batch, args.prompt_len)
                            ).astype(np.int32)
     t0 = time.perf_counter()

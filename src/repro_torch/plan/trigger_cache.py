@@ -23,21 +23,33 @@ one (tests).
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict
 from typing import Callable, Dict, Optional, Tuple
 
 
 class TriggerCache:
     """Thread-safe (key → trigger callable) map with hit/miss counters.
     Keys are hashable tuples; values are the callables the codegen
-    builders produce.  Every access holds the lock; ``get_or_build``
-    builds outside it (building is slow) and lets the first writer win.
+    builders produce.
+
+    Fleet workers read AND populate this concurrently (N tenants share
+    one cache), so every access — including ``len``/``in``/``stats`` —
+    holds the lock; ``get_or_build`` builds outside it (building is slow)
+    and lets the first writer win.  ``capacity`` bounds the entry count
+    with LRU eviction (``None`` = unbounded, the default): a multi-tenant
+    service over many distinct programs must not grow built-trigger state
+    without bound.
     """
 
-    def __init__(self):
-        self._fns: Dict[Tuple, Callable] = {}
+    def __init__(self, capacity: Optional[int] = None):
+        if capacity is not None and capacity < 1:
+            raise ValueError(f"capacity must be ≥ 1, got {capacity}")
+        self.capacity = capacity
+        self._fns: "OrderedDict[Tuple, Callable]" = OrderedDict()
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        self.evictions = 0
 
     def get_or_build(self, key: Tuple, builder: Callable[[], Callable]
                      ) -> Callable:
@@ -47,19 +59,51 @@ class TriggerCache:
             fn = self._fns.get(key)
             if fn is not None:
                 self.hits += 1
+                self._fns.move_to_end(key)
                 return fn
         fn = builder()  # build outside the lock: compiling the IR is slow
         with self._lock:
             won = self._fns.setdefault(key, fn)
+            self._fns.move_to_end(key)
             if won is fn:
                 self.misses += 1
+                self._evict_over_capacity()
             else:
                 self.hits += 1
         return won
 
+    def _evict_over_capacity(self) -> None:
+        # caller holds the lock
+        while self.capacity is not None and len(self._fns) > self.capacity:
+            self._fns.popitem(last=False)
+            self.evictions += 1
+
+    def evict(self, key: Tuple) -> bool:
+        """Drop one entry (e.g. a retired tenant's program); True if it
+        was present.  The callable itself stays valid for holders — only
+        future lookups rebuild."""
+        with self._lock:
+            return self._fns.pop(key, None) is not None
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._fns)
+
+    def __contains__(self, key: Tuple) -> bool:
+        with self._lock:
+            return key in self._fns
+
+    def clear(self) -> None:
+        with self._lock:
+            self._fns.clear()
+            self.hits = 0
+            self.misses = 0
+            self.evictions = 0
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"entries": len(self._fns), "hits": self.hits,
+                    "misses": self.misses, "evictions": self.evictions}
 
 
 _GLOBAL = TriggerCache()

@@ -10,8 +10,11 @@ of T adapter updates costs one batched trigger firing per view, and
 view.  With ``degrade`` (a :class:`repro_torch.guard.DegradePolicy`) every
 attached view is wrapped in a :class:`~repro_torch.guard.GuardedView`:
 retried, breaker-gated refreshes and a last-good snapshot served while
-the breaker is open.  The reference's ``attach_fleet`` and checkpoint
-hooks wait for ``fleet/`` and ``dist/`` (ROADMAP.md Queue 1).
+the breaker is open.  :meth:`ServeEngine.attach_fleet` backs views by a
+multi-tenant :class:`repro_torch.fleet.FleetScheduler` instead: hot-swap
+deltas enter a tenant's update log through admission control, and reads
+serve the tenant's committed snapshot.  The reference's checkpoint hooks
+wait for ``dist/`` (ROADMAP.md Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ class ServeEngine:
     _logit_views: Dict[str, IncrementalLogitView] = field(
         default_factory=dict, init=False)
     _view_guards: Dict[str, Any] = field(default_factory=dict, init=False)
+    _fleet: Optional[Any] = field(default=None, init=False)
+    _fleet_tenants: Dict[str, str] = field(default_factory=dict, init=False)
 
     def __post_init__(self):
         if self.model.cfg.encoder_only:
@@ -112,14 +117,53 @@ class ServeEngine:
             from ..guard import GuardedView
             self._view_guards[weight_path] = GuardedView(view, self.degrade)
 
+    def attach_fleet(self, fleet, tenant_of: Dict[str, str]) -> None:
+        """Back logit views by a shared multi-tenant fleet service.
+
+        ``fleet`` is a :class:`repro_torch.fleet.FleetScheduler`;
+        ``tenant_of`` maps weight paths to tenant ids already registered
+        in it (over :func:`~repro_torch.serve.incremental_views.
+        build_logit_view_program` programs).  Hot-swap deltas for these
+        paths go through the fleet's admission control into the tenant's
+        update log (so they survive worker crashes), reads come from the
+        tenant's committed snapshot, and :meth:`view_health` reports the
+        tenant's lease/breaker/staleness state.  Paths may be fleet- or
+        locally-backed side by side; fleet routing wins where both
+        exist."""
+        for path, tenant_id in tenant_of.items():
+            if not IncrementalLogitView.covers(path):
+                raise ValueError(
+                    f"{path!r} is behind a nonlinearity; its cached "
+                    f"views cannot be maintained exactly")
+            fleet.registry.get(tenant_id)   # raises on unknown tenant
+        self._fleet = fleet
+        self._fleet_tenants.update(tenant_of)
+
+    def _fleet_paths(self):
+        """The weight paths backed by the attached fleet (none before
+        :meth:`attach_fleet`)."""
+        return self._fleet_tenants if self._fleet is not None else {}
+
+    def _fleet_tenant(self, weight_path: str) -> Optional[str]:
+        """The fleet tenant backing ``weight_path``, or None."""
+        return self._fleet_paths().get(weight_path)
+
     def hot_swap(self, weight_path: str, u, v) -> bool:
         """Route a low-rank weight delta ``W += u vᵀ`` to the cached corpus
         view of ``weight_path``.  Swapping the delta into ``self.params``
         is the caller's job.  Returns True if this enqueue flushed the
-        view (its logits are fresh now)."""
+        view (its logits are fresh now); for a fleet-backed path, True if
+        the fleet admitted the delta (its refresh is asynchronous, bounded
+        by the tenant's SLO), False on throttling or shedding.  The
+        factors go to the fleet as they are: card tensors stay on the
+        card."""
+        tenant_id = self._fleet_tenant(weight_path)
+        if tenant_id is not None:
+            return self._fleet.submit(tenant_id, "W", u, v) == "admitted"
         if weight_path not in self._logit_views:
             raise KeyError(f"no logit view attached for {weight_path!r}; "
-                           f"have {sorted(self._logit_views)}")
+                           f"have {sorted(self._logit_views)} and fleet "
+                           f"paths {sorted(self._fleet_paths())}")
         guard = self._view_guards.get(weight_path)
         if guard is not None:
             # retried + breaker-gated: a repeatedly failing refresh trips
@@ -131,18 +175,25 @@ class ServeEngine:
         """Force all pending hot-swap deltas into the maintained views.
         Guarded views retry with backoff; a view whose breaker is open
         stays on its snapshot (see :meth:`view_health`) instead of
-        raising."""
+        raising.  Fleet-backed paths drain their tenants (inline, or by
+        waiting on the fleet's live workers)."""
         for path, view in self._logit_views.items():
             guard = self._view_guards.get(path)
             if guard is not None:
                 guard.flush()
             else:
                 view.flush()
+        if self._fleet_paths():
+            self._fleet.drain(self._fleet_tenants.values())
 
     def view_logits(self, weight_path: str) -> torch.Tensor:
         """One view's logits at bounded staleness: fresh when healthy,
         the last-good snapshot when degraded (unguarded views read
-        straight through)."""
+        straight through); a fleet-backed path reads its tenant's
+        committed snapshot."""
+        tenant_id = self._fleet_tenant(weight_path)
+        if tenant_id is not None:
+            return self._fleet.read(tenant_id, "Y")
         guard = self._view_guards.get(weight_path)
         if guard is not None:
             return guard.read()
@@ -170,6 +221,9 @@ class ServeEngine:
             out[path] = (guard.health() if guard is not None
                          else {"breaker": None, "serving": "fresh",
                                "staleness_s": 0.0})
+        for path in self._fleet_paths():
+            out[path] = self._fleet.registry.get(
+                self._fleet_tenants[path]).health()
         return out
 
 

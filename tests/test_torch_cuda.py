@@ -580,3 +580,67 @@ def test_guarded_engine_on_card_matches_cpu(cuda, app, path):
         assert bool(torch.isfinite(g).all()), k
         scale = float(v.abs().max()) or 1.0
         assert float((g - v).abs().max()) / scale <= 1e-5, k
+
+
+def test_fleet_threads_on_card_match_cpu(cuda):
+    """A small mixed fleet on the card (the tenants' default device) under
+    four live worker threads: every admitted update committed once, the
+    out-of-place entry launched once per apply of every firing, and each
+    tenant's committed views equal a CPU engine replaying its commit log
+    within f32 parity."""
+    from repro_torch.apps.matrix_powers import build_powers_program
+    from repro_torch.apps.ols import build_ols_program
+    from repro_torch.fleet import FleetConfig, FleetScheduler, TenantSpec
+    from repro_torch.guard import GuardConfig
+    from repro_torch.serve import build_logit_view_program
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((48, 48)).astype(np.float32)
+    a *= 0.5 / max(abs(np.linalg.eigvals(a)))
+    tenants = {
+        "logit0": (build_logit_view_program(64, 32, 96), "W", {
+            "H": rng.standard_normal((64, 32)).astype(np.float32),
+            "W": rng.standard_normal((96, 32)).astype(np.float32)}),
+        "logit1": (build_logit_view_program(64, 32, 96), "W", {
+            "H": rng.standard_normal((64, 32)).astype(np.float32),
+            "W": rng.standard_normal((96, 32)).astype(np.float32)}),
+        "ols": (build_ols_program(96, 24, 2), "X", {
+            "X": rng.standard_normal((96, 24)).astype(np.float32),
+            "Y": rng.standard_normal((96, 2)).astype(np.float32)}),
+        "powers": (build_powers_program(k=4, n=48, model="exp"), "A",
+                   {"A": a}),
+    }
+    fleet = FleetScheduler(FleetConfig(lease_ttl=120.0, workers=4))
+    for tid, (prog, name, inputs) in tenants.items():
+        fleet.add_tenant(TenantSpec(tid, prog, {name: 1},
+                                    max_claim_rank=4), inputs)
+    assert all(t.engine.device.type == "cuda" for t in fleet.registry)
+    out0 = cuda_ru.LAUNCHES["rank_update_batched_out"]
+    logged = {tid: {} for tid in tenants}
+    fleet.start()
+    try:
+        for i in range(48):
+            tid = sorted(tenants)[i % 4]
+            prog, name, inputs = tenants[tid]
+            n, m = inputs[name].shape
+            u = (rng.standard_normal((n, 1)) * 0.05).astype(np.float32)
+            v = (rng.standard_normal((m, 1)) * 0.05).astype(np.float32)
+            assert fleet.submit(tid, name, u, v) == "admitted"
+            logged[tid][len(logged[tid]) + 1] = (u, v)
+        fleet.drain(timeout_s=300.0)
+    finally:
+        fleet.stop()
+    applies = 0
+    for tid, (prog, name, inputs) in tenants.items():
+        t = fleet.registry.get(tid)
+        assert t.stats.committed_updates == 12 and not t.dirty()
+        applies += t.engine.stats.lowrank_applies
+        cpu = IncrementalEngine(prog, {name: 1}, guard=GuardConfig(),
+                                device="cpu")
+        cpu.initialize(inputs)
+        for _, lsns in t.commit_log:
+            cpu.apply_updates(name, [logged[tid][l] for l in lsns])
+        for k, want in cpu.views.items():
+            got = t.committed_views[k].cpu()
+            scale = float(want.abs().max()) or 1.0
+            assert float((got - want).abs().max()) / scale <= 1e-5, (tid, k)
+    assert cuda_ru.LAUNCHES["rank_update_batched_out"] - out0 == applies > 0

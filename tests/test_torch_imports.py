@@ -33,7 +33,9 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.codegen",
            "repro_torch.kernels.select_commit", "repro_torch.guard",
            "repro_torch.guard.validate", "repro_torch.guard.chaos",
            "repro_torch.guard.txn", "repro_torch.guard.sentinel",
-           "repro_torch.guard.degrade"]
+           "repro_torch.guard.degrade", "repro_torch.fleet",
+           "repro_torch.fleet.lease", "repro_torch.fleet.admission",
+           "repro_torch.fleet.tenant", "repro_torch.fleet.scheduler"]
 
 PROBE = """
 import importlib, sys
