@@ -128,6 +128,36 @@ CUDA toolkit.  Phases, each of which raises on failure:
     d. a's tenants under four live worker threads on the real clock, then
        a drain: every store bit for bit against a deterministic drive of
        its commit log (the launch counters are exact under threads).
+16. the higher-order deferred cascade and the learning views
+    (``order=``, ``repro_torch.fivm``), each engine's launches against its
+    applies (a firing that only banks launches nothing; a fold, one
+    out-of-place apply a banked input and one a low-rank apply of its
+    sweep):
+    a. matrix powers A^16 (n = 10000, exp; phase 4's cell) first order,
+       order 2 at window 8, order 3 at window 4 and only P16 at depth 2,
+       in turns on one stream of rank-8 batches, 64 firings read every 8,
+       then 64 read every 64, each segment ending in a flush against
+       re-evaluation: ms an update, folds, sweeps, re-evaluations, fold
+       applies, read ms, the memory the window base holds;
+    b. a guarded order-2 engine under chaos at a seed where a fold raises
+       (found by the same drive on a tiny CPU engine, whose counters the
+       card's must equal): the fold rolled back onto the very pre-fold
+       views and cascade state, re-folded bitwise as a fresh evaluation;
+    c. a depth-2 plan adopted at construction, an adaptive planner's swap
+       to depth mid-stream (a stream in a rank-8 subspace, so the window's
+       re-compression at its cap is exact), a lazy plus deferred plan
+       refused;
+    d. two order-2 matrix-powers tenants and a first-order control under
+       15b's chaos: exactly once, the tiny CPU drive's admitted counts
+       and commit logs, bit for bit against same-order replays, after a
+       fold barrier within MAIN_TOL of first-order replays;
+    e. the Δ² view of P2 = A·A against 2·d·d;
+    f. a ring RingSpec(256, 1, 2^20, 2 slots, proj 64) bootstrapped with
+       seeded rows, 1024 labeled events at order 1 and at order 2 (ingest
+       µs an event, read ms, ridge against batch_ridge in float64,
+       insert-then-delete, k-means centroids, the row kernel at order 1),
+       a fleet-hosted ring tenant's staleness against its SLO, and
+       ``python -m repro_torch.launch.serve --fivm`` at this size.
 
 Every launch count is set to 0 just before a phase drives its engines and
 read just after; the counts of each kernel must equal the applies (or
@@ -135,8 +165,8 @@ calls) the phase made.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record (``rank_update_batched``'s with its launches over phases 4-9 and
-12-15 by K = T*k) and ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
-checkout, the script prints no result and exits non-zero.
+12-16 by K = T*k) and ``{"ok": true, "device": {...}}``.  Without CUDA,
+or outside a checkout, the script prints no result and exits non-zero.
 """
 
 from __future__ import annotations
@@ -144,6 +174,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -194,6 +225,32 @@ HOT_SWAPS = 8               # phase 12's rank-1 head deltas
 # 32768 hidden states; 3 timed rounds of 8 hot-swaps a tenant; 15b's
 # chaos drive makes 200 submissions
 FLEET_TENANTS, FLEET_ROWS, FLEET_ROUNDS, FLEET_SUBMISSIONS = 8, 4096, 3, 200
+# phase 16: matrix powers (POWERS_N) under rank-HO_RANK batches, HO_FIRINGS
+# firings a segment, one segment for each read cadence; 16b's guarded
+# drive; 16c's adaptive firings; 16d's fleet submissions
+HO_RANK, HO_FIRINGS, HO_READS = 8, 64, (8, 64)
+HO_GUARD_FIRINGS, HO_ADAPTIVE_FIRINGS, HO_FLEET_SUBMISSIONS = 24, 24, 120
+HO_FLEET_OPTS = {f"powers{i}": {"order": 2, "fold_window": 4}
+                 for i in range(2)}
+# 16e: Δ²(A·A) against 2·d·d, both one rank-1 product in fp32, relative to
+# the view's largest entry
+DELTA2_TOL = 1e-5
+# 16f: the learning views' ring.  Width and capacity match phase 6's
+# n = 2^20 (chosen here, not taken from the F-IVM paper); FIVM_BOOT seeded
+# rows, FIVM_EVENTS labeled events read every FIVM_READ_EVERY, a fleet
+# tenant fed FIVM_FLEET_EVENTS under a FIVM_SLO-second staleness SLO
+FIVM_FEATURES, FIVM_CAPACITY, FIVM_BOOT = 256, 2 ** 20, 4096
+FIVM_EVENTS, FIVM_READ_EVERY, FIVM_FLEET_EVENTS = 1024, 128, 256
+FIVM_LAM, FIVM_CLUSTERS, FIVM_SLO = 0.1, 4, 0.5
+# Ridge coefficients against batch_ridge in float64 on the live rows, as
+# max |B - B64| / max |B64|: G sums >= 4096 rows in fp32 on the card and
+# the solve is well conditioned (G about FIVM_BOOT times the identity),
+# so a few 1e-6; a lost or doubled event moves B by more than 1e-3
+FIVM_TOL = 1e-4
+# insert-then-delete against the ring before, relative to each view's
+# largest entry: the reference's 1e-6 (tests/test_fivm.py), widened for
+# the card's rank-k applies summing in another order
+FIVM_RESTORE_TOL = 1e-5
 
 # Tolerance of an attention kernel against its plain version.  f32: the
 # kernel tolerance above.  bf16: the plain versions keep p in f32, the
@@ -2461,6 +2518,35 @@ def phase_fleet_live(eng, fleet, base, inputs, deltas) -> dict:
     return rec
 
 
+def count_applies(eng, acc) -> None:
+    """Add each firing's applies to ``acc`` as it runs, before any
+    rollback of the claim restores the engine's counters."""
+    written = {name: len({up.view for up in trig.updates})
+               for name, trig in eng.compiled.triggers.items()}
+    inner = eng.apply_updates
+    depth = [0]     # a widened carrier batch calls apply_updates again
+
+    def apply_updates(name, updates, block=False):
+        st = eng.stats
+        s0 = (st.lowrank_applies, st.row_applies, st.triggers_fired,
+              st.rowlocal_firings)
+        depth[0] += 1
+        try:
+            out = inner(name, updates, block=block)
+        finally:
+            depth[0] -= 1
+        if depth[0]:
+            return out
+        acc["dense"] += st.lowrank_applies - s0[0]
+        acc["rows"] += st.row_applies - s0[1]
+        if eng._guard_fast_path:
+            acc["fused"] += written[name] * (
+                st.triggers_fired - s0[2]
+                - (st.rowlocal_firings - s0[3]))
+        return out
+    eng.apply_updates = apply_updates
+
+
 def fleet_chaos_tenants(full: bool) -> list:
     """15b's tenants: (id, kind, program, ranks, input maker, update
     maker), at full width, or tiny on the CPU (the chaos seed search)."""
@@ -2506,14 +2592,17 @@ def fleet_chaos_tenants(full: bool) -> list:
     return out
 
 
-def fleet_chaos_drive(full: bool, seed: int, instrument=None) -> tuple:
-    """15b's drive: the tenants of :func:`fleet_chaos_tenants` behind one
-    fleet on a virtual clock under ``ChaosConfig(seed)``'s worker faults
-    and poison, FLEET_SUBMISSIONS submissions to tenants drawn from a
-    seeded stream, a deterministic drive every 25.
-    ``instrument(fleet, specs)`` runs once the tenants are in.  Returns
-    the fleet, the logged payloads by tenant and LSN, the admitted counts,
-    the outcomes and the tenants' specs."""
+def fleet_chaos_drive(full: bool, seed: int, instrument=None,
+                      tenants=None, submissions: int = FLEET_SUBMISSIONS,
+                      engine_opts=None) -> tuple:
+    """15b's drive: the tenants of ``tenants(full)`` (by default
+    :func:`fleet_chaos_tenants`; ``engine_opts`` maps a tenant to its
+    engine's keywords) behind one fleet on a virtual clock under
+    ``ChaosConfig(seed)``'s worker faults and poison, ``submissions``
+    submissions to tenants drawn from a seeded stream, a deterministic
+    drive every 25.  ``instrument(fleet, specs)`` runs once the tenants
+    are in.  Returns the fleet, the logged payloads by tenant and LSN,
+    the admitted counts, the outcomes and the tenants' specs."""
     import numpy as np
     from repro_torch.fleet import (FleetConfig, FleetScheduler,
                                    OverloadPolicy, TenantSpec)
@@ -2535,11 +2624,14 @@ def fleet_chaos_drive(full: bool, seed: int, instrument=None) -> tuple:
                               lease_expiry_p=0.1, slow_worker_p=0.05,
                               slow_worker_s=1.5, poison_p=0.02)),
         clock=vc, sleep=vc.sleep)
-    specs = fleet_chaos_tenants(full)
+    specs = (tenants or fleet_chaos_tenants)(full)
     for tid, kind, prog, ranks, make, _ in specs:
-        fleet.add_tenant(TenantSpec(
-            tid, prog, ranks, slo_s=0.5, queue_capacity=64,
-            engine_opts={} if full else {"device": "cpu"}), make())
+        opts = dict((engine_opts or {}).get(tid, {}))
+        if not full:
+            opts["device"] = "cpu"
+        fleet.add_tenant(TenantSpec(tid, prog, ranks, slo_s=0.5,
+                                    queue_capacity=64, engine_opts=opts),
+                         make())
     if instrument is not None:
         instrument(fleet, specs)
     rng = np.random.default_rng(seed + 1650)
@@ -2551,7 +2643,7 @@ def fleet_chaos_drive(full: bool, seed: int, instrument=None) -> tuple:
         for k, n in fleet.run_until_idle(
                 workers=3, on_stall=lambda: vc.sleep(1.1)).items():
             outcomes[k] = outcomes.get(k, 0) + n
-    for step in range(FLEET_SUBMISSIONS):
+    for step in range(submissions):
         tid, _, _, _, _, nxt = specs[int(rng.integers(len(specs)))]
         name, upd = nxt()
         if fleet.submit(tid, name, *upd) == "admitted":
@@ -2620,34 +2712,6 @@ def phase_fleet_chaos(bytes_peak: float) -> dict:
     search_s = time.perf_counter() - t0
     label = "fleet_chaos_powers_ols_chain"
     claims, replays, fired = {}, [], {}
-
-    def count_applies(eng, acc) -> None:
-        """Add each firing's applies to ``acc`` as it runs, before any
-        rollback of the claim restores the engine's counters."""
-        written = {name: len({up.view for up in trig.updates})
-                   for name, trig in eng.compiled.triggers.items()}
-        inner = eng.apply_updates
-        depth = [0]     # a widened carrier batch calls apply_updates again
-
-        def apply_updates(name, updates, block=False):
-            st = eng.stats
-            s0 = (st.lowrank_applies, st.row_applies, st.triggers_fired,
-                  st.rowlocal_firings)
-            depth[0] += 1
-            try:
-                out = inner(name, updates, block=block)
-            finally:
-                depth[0] -= 1
-            if depth[0]:
-                return out
-            acc["dense"] += st.lowrank_applies - s0[0]
-            acc["rows"] += st.row_applies - s0[1]
-            if eng._guard_fast_path:
-                acc["fused"] += written[name] * (
-                    st.triggers_fired - s0[2]
-                    - (st.rowlocal_firings - s0[3]))
-            return out
-        eng.apply_updates = apply_updates
 
     def instrument(fleet, specs) -> None:
         kinds = {tid: kind for tid, kind, *_ in specs}
@@ -2869,6 +2933,819 @@ def phase_fleet(serve, bytes_peak: float) -> list:
     return recs
 
 
+# -- phase 16: the deferred cascade and the learning views --------------------
+
+def count_fold_applies(eng, acc: dict) -> None:
+    """Add the dense applies each window fold of ``eng`` makes (its
+    banked inputs and its sweep) to ``acc["fold"]``."""
+    inner = eng._fold
+
+    def fold(upto):
+        a0 = eng.stats.lowrank_applies
+        try:
+            inner(upto)
+        finally:
+            acc["fold"] += eng.stats.lowrank_applies - a0
+    eng._fold = fold
+
+
+def ho_input(n: int, seed: int, device=None) -> dict:
+    """Matrix powers' input A (spectral radius about 0.9), drawn on
+    ``device`` (the script's, by default) from ``seed``."""
+    import torch
+    device = device or DEVICE
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {"A": torch.randn(n, n, device=device, generator=g)
+            * (0.9 / n ** 0.5)}
+
+
+def plus_updates(A, ups):
+    """``A + Σ u vᵀ`` over the rank-1 updates ``ups``, summed in f64 on
+    the card and returned in f32: the re-evaluation engine's input."""
+    import torch
+    P, Q = stacked(ups)
+    P = torch.from_numpy(P).to(DEVICE, torch.float64)
+    Q = torch.from_numpy(Q).to(DEVICE, torch.float64)
+    return (A.double() + P @ Q.T).float()
+
+
+def ho_engine(n: int, order, fold_window: int = 8, **kw):
+    """Matrix powers A^16 (exp) at ``order`` (an int, a {view: depth}
+    dict, or None for first order) on the card."""
+    from repro_torch.apps.matrix_powers import build_powers_program
+    from repro_torch.core import IncrementalEngine
+    return IncrementalEngine(build_powers_program(k=16, n=n, model="exp"),
+                             {"A": 1}, order=order, fold_window=fold_window,
+                             **kw)
+
+
+def fold_counters(eng) -> dict:
+    st = eng.stats
+    return {"folds": st.folds, "fold_sweeps": st.fold_sweeps,
+            "fold_reevals": st.fold_reevals, "fold_aborts": st.fold_aborts,
+            "recompressions": st.recompressions}
+
+
+def reeval_views(eng, A) -> dict:
+    """Every view of ``eng``'s program re-evaluated from the input A."""
+    return {"A": A, **eng._evaluator({"A": A})}
+
+
+def phase_ho_powers() -> dict:
+    """16a: matrix powers A^16 (n = 10000, exp; phase 4's cell) under
+    rank-8 ``apply_updates`` batches, first order and on the deferred
+    cascade (order 2 at window 8, order 3 at window 4, only the output
+    view at depth 2), driven in turns on one stream: HO_FIRINGS firings a
+    segment, read every 8 firings in the first segment and every 64 in
+    the second; after each segment every engine is flushed and held
+    against the re-evaluation of the stream."""
+    import torch
+    from repro_torch.data import UpdateStream
+    n = POWERS_N
+    out_view = "P16"
+    variants = {
+        "first_order": {"order": None},
+        "order2_w8": {"order": 2, "fold_window": 8},
+        # the window's full rank (16 firings x rank 8): a cap below a
+        # window's numerical rank would truncate it
+        "order3_w4": {"order": 3, "fold_window": 4, "max_fold_rank": 128},
+        "mixed_p16_d2": {"order": {out_view: 2}, "fold_window": 8}}
+    inputs = ho_input(n, 1600)
+    engines, folds, mem = {}, {}, {}
+    for name, kw in variants.items():
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        eng = ho_engine(n, **kw)
+        eng.initialize(inputs)
+        folds[name] = {"fold": 0}
+        count_fold_applies(eng, folds[name])
+        engines[name] = eng
+        torch.cuda.synchronize()
+        mem[name] = {"views_gib": (torch.cuda.memory_allocated() - m0)
+                     / 2 ** 30}
+    A = inputs.pop("A")
+    stream = UpdateStream(n=n, m=n, seed=1601)
+    runs, by_k, total = [], {}, {}
+    for cadence in HO_READS:
+        batches = [[stream.next_update() for _ in range(HO_RANK)]
+                   for _ in range(HO_FIRINGS)]
+        for name, eng in engines.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            m0 = torch.cuda.memory_allocated()
+            reset_launches()
+            s0, c0 = dataclasses.replace(eng.stats), fold_counters(eng)
+            f0 = folds[name]["fold"]
+            read_s = []
+            t0 = time.perf_counter()
+            for i, ups in enumerate(batches):
+                eng.apply_updates("A", ups)
+                if (i + 1) % cadence == 0:
+                    r0 = time.perf_counter()
+                    eng.output()
+                    torch.cuda.synchronize()
+                    read_s.append(time.perf_counter() - r0)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got, ranks = launches(), dense_ranks()
+            applies = eng.stats.lowrank_applies - s0.lowrank_applies
+            fold_applies = folds[name]["fold"] - f0
+            entry = ("rank_update_batched_out" if eng._out_of_place
+                     else "rank_update_batched")
+            check_launches(f"ho_powers {name} reads/{cadence}", got,
+                           {entry: applies})
+            if eng._deferred and name != "mixed_p16_d2" \
+                    and applies != fold_applies:
+                raise AssertionError(f"ho_powers {name}: a banking firing "
+                                     f"launched ({applies} applies, "
+                                     f"{fold_applies} in folds)")
+            c1 = fold_counters(eng)
+            runs.append({
+                "variant": name, "reads_every": cadence,
+                "firings": HO_FIRINGS, "updates": HO_FIRINGS * HO_RANK,
+                "ms_per_update": seconds * 1e3 / (HO_FIRINGS * HO_RANK),
+                "read_ms": [s * 1e3 for s in read_s],
+                "counters": {k: c1[k] - c0[k] for k in c1},
+                "lowrank_applies": applies, "fold_applies": fold_applies,
+                "launches": got, "dense_ranks": ranks,
+                "peak_extra_gib": (torch.cuda.max_memory_allocated() - m0)
+                / 2 ** 30})
+            for K, count in ranks.items():
+                by_k[K] = by_k.get(K, 0) + count
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+        A = plus_updates(A, [uv for ups in batches for uv in ups])
+        want = reeval_views(engines["first_order"], A)
+        for name, eng in engines.items():
+            eng.flush()
+            runs.append({"variant": name, "after_reads_every": cadence,
+                         "rel_err_vs_reeval": check_views(
+                             f"ho_powers {name} reads/{cadence}",
+                             eng.views, want)})
+        del want
+    base = {r["reads_every"]: r["ms_per_update"] for r in runs
+            if r.get("variant") == "first_order" and "reads_every" in r}
+    for r in runs:
+        if "reads_every" in r:
+            r["over_first_order"] = r["ms_per_update"] / \
+                base[r["reads_every"]]
+    for name, eng in engines.items():
+        mem[name]["totals"] = fold_counters(eng)
+    rec = {"phase": f"ho_matrix_powers_n{n}_k16_exp", "rank": HO_RANK,
+           "runs": runs, "memory": mem, "tolerance": MAIN_TOL,
+           "launches": total, "dense_ranks": by_k}
+    log("main " + json.dumps(rec))
+    del engines, A
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ho_guard_drive(n: int, seed: int, device: str, instrument=None):
+    """16b's drive: an order-2 guarded matrix-powers engine at window 4
+    under chaos trigger raises, HO_GUARD_FIRINGS single updates.
+    Returns the engine and the admitted updates."""
+    from repro_torch.data import UpdateStream
+    from repro_torch.guard import ChaosConfig, GuardConfig
+    eng = ho_engine(n, 2, fold_window=4, guard=GuardConfig(),
+                    chaos=ChaosConfig(seed=seed, trigger_raise_p=0.15),
+                    device=device)
+    eng.initialize(ho_input(n, 1610, device))
+    if instrument is not None:
+        instrument(eng)
+    stream = UpdateStream(n=n, m=n, seed=1602)
+    admitted = []
+    for _ in range(HO_GUARD_FIRINGS):
+        u, v = stream.next_update()
+        aborted = eng.guard.stats.aborted_firings
+        eng.apply_update("A", u, v)
+        if eng.guard.stats.aborted_firings == aborted:
+            admitted.append((u, v))
+    eng.flush()
+    return eng, admitted
+
+
+def ho_counters(eng) -> dict:
+    g = eng.guard.stats
+    return {"folds": eng.stats.folds, "fold_aborts": eng.stats.fold_aborts,
+            "folded_views": eng.stats.fold_sweeps + eng.stats.fold_reevals,
+            "raises": eng.chaos.raises, "rollbacks": g.rollbacks,
+            "aborted_firings": g.aborted_firings, "admitted": g.admitted}
+
+
+def ho_guard_seed() -> tuple:
+    """The first seed under which 16b's drive raises in a fold (and in a
+    firing), found by the same drive on a tiny CPU engine: the chaos
+    draws follow firings and folds, not widths.  Returns the seed and the
+    tiny drive's counters."""
+    for seed in range(200):
+        eng, _ = ho_guard_drive(16, seed, "cpu")
+        c = ho_counters(eng)
+        if c["fold_aborts"] and c["aborted_firings"] and \
+                c["folds"] > c["fold_aborts"]:
+            return seed, c
+    raise AssertionError("no seed raises in a fold")
+
+
+def phase_ho_guard() -> dict:
+    """16b: the guarded cascade at n = 10000 under chaos at a seed where a
+    fold raises: the fold rolled back (views and cascade state the very
+    pre-fold objects, bit for bit), re-folded by re-evaluation exactly,
+    the counters the tiny CPU drive's, the views against re-evaluation of
+    the admitted updates."""
+    import torch
+    seed, cpu = ho_guard_seed()
+    label = f"ho_guard_matrix_powers_n{POWERS_N}"
+    seen = {"restores": 0, "exact": [], "fold": 0}
+
+    def instrument(eng):
+        inner_fold, inner_restore = eng._fold, eng._cascade_restore
+        count_fold_applies(eng, seen)
+
+        def fold(upto):
+            seen["pre"] = (eng._cascade_snapshot(), dict(eng.views))
+            aborts = eng.stats.fold_aborts
+            try:
+                inner_fold(upto)
+            finally:
+                seen.pop("pre")
+            if eng.stats.fold_aborts > aborts:
+                # the re-fold re-evaluated the deferred views: exactly
+                # what a fresh evaluation of the current input gives
+                want = eng._evaluator({"A": eng.views["A"]})
+                seen["exact"].append(all(same_bits(eng.views[k], t)
+                                         for k, t in want.items()))
+                del want
+
+        def restore(snap):
+            inner_restore(snap)
+            if "pre" not in seen:
+                return        # a firing's rollback, not a fold's
+            (factors, base, firings, _), views = seen["pre"]
+            now = eng._cascade_snapshot()
+            same = (now[2] == firings
+                    and all(a is b for o in factors
+                            for k in factors[o]
+                            for a, b in zip(now[0][o][k], factors[o][k]))
+                    and all(now[1][o][k] is base[o][k]
+                            for o in base for k in base[o])
+                    and all(eng.views[k] is t for k, t in views.items()))
+            seen["restores"] += 1
+            seen.setdefault("rolled_back_bit_for_bit", []).append(same)
+        eng._fold = fold
+        eng._cascade_restore = restore
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    eng, admitted = ho_guard_drive(POWERS_N, seed, DEVICE, instrument)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launches()
+    card = ho_counters(eng)
+    rolled = seen.get("rolled_back_bit_for_bit", [])
+    if card != cpu or not card["fold_aborts"] or not rolled \
+            or not all(rolled) or not seen["exact"] \
+            or not all(seen["exact"]):
+        raise AssertionError(f"{label}: card {card} vs cpu {cpu}, rolled "
+                             f"back {rolled}, exact re-fold {seen['exact']}")
+    A = plus_updates(ho_input(POWERS_N, 1610)["A"], admitted)
+    rel = check_views(label, eng.views, reeval_views(eng, A))
+    del A
+    # every out-of-place apply: the committed firings' and the folds'
+    # (an aborted firing or fold raised before its first apply)
+    check_launches(label, got, {"rank_update_batched_out":
+                                eng.stats.lowrank_applies})
+    rec = {"phase": label, "seed": seed, "firings": HO_GUARD_FIRINGS,
+           "counters": card, "cpu_counters": cpu,
+           "fold_applies": seen["fold"],
+           "rolled_back_bit_for_bit": rolled,
+           "refold_exact": seen["exact"], "seconds": seconds,
+           "launches": got, "rel_err_vs_reeval": rel,
+           "tolerance": MAIN_TOL}
+    log("main " + json.dumps(rec))
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def subspace_stream(n: int, rank: int, seed: int):
+    """Rank-1 updates u vᵀ whose u and v stay in fixed rank-``rank``
+    bases: any window of them has numerical rank <= ``rank``, so the
+    cascade's re-compression at its rank cap is exact."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    U = rng.standard_normal((n, rank)).astype(np.float32) / n ** 0.5
+    V = rng.standard_normal((n, rank)).astype(np.float32) * 0.05
+
+    def nxt():
+        a = rng.standard_normal((rank, 1)).astype(np.float32)
+        b = rng.standard_normal((rank, 1)).astype(np.float32)
+        return U @ a, V @ b
+    return nxt
+
+
+def phase_ho_plans() -> dict:
+    """16c: plans with depth at n = 10000.  A depth-2 plan for every view
+    adopted at construction (window 8, rank-8 batches); an adaptive
+    planner that sees batches of 16 rank-1 updates and no reads re-plans
+    to depth 2 mid-stream (window 8: the window passes the rank cap of 64
+    and the cap is what amortizes a fold, so the stream stays in a rank-8
+    subspace, where the re-compression at the cap is exact); a plan
+    mixing a lazy and a deferred view is refused.  Both engines against
+    re-evaluation, their launches against their applies."""
+    import torch
+    from dataclasses import replace
+    from repro_torch.data import UpdateStream
+    from repro_torch.plan import (AdaptivePlanner, TriggerCache,
+                                  WorkloadDescriptor, plan_program)
+    n = POWERS_N
+    inputs = ho_input(n, 1620)
+    compiled = ho_engine(n, None, device="cpu").compiled
+    base = plan_program(compiled, WorkloadDescriptor(update_rank=1))
+    deep = replace(base, views={k: replace(vp, strategy="incremental",
+                                           threshold_rank=None,
+                                           materialize=True, order=2)
+                                for k, vp in base.views.items()})
+    names = sorted(deep.views)
+    bad = replace(deep, views={**deep.views, names[0]: replace(
+        deep.views[names[0]], materialize=False, order=1)})
+    try:
+        ho_engine(n, None, plan=bad, device="cpu")
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("ho_plans: a lazy plus deferred plan was "
+                             "accepted")
+    stream = UpdateStream(n=n, m=n, seed=1621)
+    deep_batches = [[stream.next_update() for _ in range(HO_RANK)]
+                    for _ in range(16)]
+    nxt = subspace_stream(n, 8, seed=1622)
+    adaptive_batches = [[nxt() for _ in range(16)]
+                        for _ in range(HO_ADAPTIVE_FIRINGS)]
+    ways = {"deep_plan": (deep, deep_batches),
+            "adaptive": (AdaptivePlanner(
+                WorkloadDescriptor(update_rank=1, max_order=2,
+                                   fold_window=8),
+                replan_every=6, drift_tol=0.2), adaptive_batches)}
+    recs, total, by_k = {}, {}, {}
+    for way, (plan, batches) in ways.items():
+        torch.cuda.synchronize()
+        reset_launches()
+        eng = ho_engine(n, None, fold_window=8, plan=plan,
+                        trigger_cache=TriggerCache())
+        eng.initialize(inputs)
+        # the firings before an adaptive swap to depth apply in place
+        swapped_at, in_place = (None, 0) if way == "adaptive" else (0, 0)
+        t0 = time.perf_counter()
+        for i, batch in enumerate(batches):
+            eng.apply_updates("A", batch)
+            if swapped_at is None and eng._deferred:
+                swapped_at, in_place = i + 1, eng.stats.lowrank_applies
+        eng.output()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got, ranks = launches(), dense_ranks()
+        if swapped_at is None or eng._deferred != set(deep.views) \
+                or not eng._out_of_place:
+            raise AssertionError(f"ho_plans {way}: orders "
+                                 f"{eng._view_orders}")
+        check_launches(f"ho_plans {way}", got, {
+            "rank_update_batched": in_place, "rank_update_batched_out":
+            eng.stats.lowrank_applies - in_place})
+        A = plus_updates(inputs["A"], [uv for b in batches for uv in b])
+        recs[way] = {
+            "swapped_at_firing": swapped_at, "orders": eng._view_orders,
+            "replans": eng.stats.replans, "firings": len(batches),
+            "seconds": seconds, "ms_per_update":
+            seconds * 1e3 / sum(len(b) for b in batches),
+            "counters": fold_counters(eng), "launches": got,
+            "dense_ranks": ranks,
+            "rel_err_vs_reeval": check_views(f"ho_plans {way}", eng.views,
+                                             reeval_views(eng, A))}
+        for K, count in ranks.items():
+            by_k[K] = by_k.get(K, 0) + count
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        del eng, A
+        torch.cuda.empty_cache()
+    rec = {"phase": f"ho_plans_matrix_powers_n{n}", **recs,
+           "lazy_plus_deferred_refused": refused, "tolerance": MAIN_TOL,
+           "launches": total, "dense_ranks": by_k}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def ho_fleet_tenants(full: bool) -> list:
+    """16d's tenants, in :func:`fleet_chaos_tenants`' shape: three
+    matrix-powers tenants, at full width or tiny on the CPU (the seed
+    search); HO_FLEET_OPTS puts the first two at order 2."""
+    from repro_torch.apps.matrix_powers import build_powers_program
+    from repro_torch.data import UpdateStream
+    dev = DEVICE if full else "cpu"
+    n = POWERS_N if full else 16
+    out = []
+    for i in range(3):
+        s = UpdateStream(n=n, m=n, seed=1660 + i)
+        out.append((f"powers{i}", "matrix_powers",
+                    build_powers_program(k=16, n=n, model="exp"), {"A": 1},
+                    lambda i=i: ho_input(n, 1670 + i, dev),
+                    lambda s=s: ("A", s.next_update())))
+    return out
+
+
+def ho_fleet_drive(full: bool, seed: int, instrument=None) -> tuple:
+    """16d's drive: 15b's, over :func:`ho_fleet_tenants`."""
+    return fleet_chaos_drive(full, seed, instrument, tenants=ho_fleet_tenants,
+                             submissions=HO_FLEET_SUBMISSIONS,
+                             engine_opts=HO_FLEET_OPTS)
+
+
+def ho_fleet_seed() -> tuple:
+    """The first seed under which 16d's drive crashes a worker, expires a
+    lease, poisons an update and folds both deferred tenants, found on
+    tiny CPU tenants; returns it with the tiny drive's admitted counts
+    and commit logs."""
+    for seed in range(100):
+        fleet, _, admitted, _, specs = ho_fleet_drive(False, seed)
+        ch = fleet.chaos
+        folded = all(fleet.registry.get(tid).engine.stats.folds
+                     for tid in HO_FLEET_OPTS)
+        if ch.worker_crashes and ch.lease_expiries and ch.poisoned \
+                and folded:
+            return seed, admitted, {tid: fleet.registry.get(tid).commit_log
+                                    for tid, *_ in specs}
+    raise AssertionError("no seed crashes, expires, poisons and folds")
+
+
+def phase_ho_fleet() -> dict:
+    """16d: two order-2 tenants and a first-order control under 15b's
+    chaos at n = 10000: exactly once; the admitted counts and commit
+    logs of the tiny CPU drive at the seed; every committed store bit for
+    bit against an isolated same-order replay; after a fold barrier,
+    within MAIN_TOL of a first-order replay of the same commit groups."""
+    import torch
+    from repro_torch.core import IncrementalEngine
+    from repro_torch.guard import GuardConfig
+    seed, cpu_admitted, cpu_logs = ho_fleet_seed()
+    label = "ho_fleet_powers"
+    fired = {}
+
+    def instrument(fleet, specs):
+        for tid in fleet.registry.ids():
+            fired[tid] = {"dense": 0, "rows": 0, "fused": 0}
+            count_applies(fleet.registry.get(tid).engine, fired[tid])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    fleet, logged, admitted, _, specs = ho_fleet_drive(True, seed,
+                                                       instrument)
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    got = launches()
+    check_launches(label, got, {
+        "rank_update_batched_out": sum(a["dense"] for a in fired.values()),
+        "select_commit": sum(a["fused"] for a in fired.values())})
+    if admitted != cpu_admitted:
+        raise AssertionError(f"{label}: admitted {admitted}, the CPU "
+                             f"drive's at the same seed {cpu_admitted}")
+    rel, counters = {}, {}
+    for tid, _, prog, ranks, make, _ in specs:
+        opts = HO_FLEET_OPTS.get(tid, {})
+        t = fleet.registry.get(tid)
+        if t.dirty() or t.stats.committed_updates != admitted[tid] \
+                or t.commit_log != cpu_logs[tid] \
+                or bool(opts) != bool(t.engine._deferred):
+            raise AssertionError(f"{label}: {tid} admitted {admitted[tid]}"
+                                 f", {t.stats}")
+        inputs = make()
+        ref = IncrementalEngine(prog, ranks, guard=GuardConfig(), **opts)
+        ref._write_out_of_place()
+        ref.initialize(inputs)
+        replay_groups(ref, logged[tid], t.commit_log)
+        fleet_bits(f"{label} {tid}", t, ref)
+        del ref
+        counters[tid] = fold_counters(t.engine)
+        views = t.engine.flush()             # the fold barrier
+        first = IncrementalEngine(prog, ranks, guard=GuardConfig())
+        first.initialize(inputs)
+        replay_groups(first, logged[tid], t.commit_log)
+        rel[tid] = check_views(f"{label} {tid} vs first order", views,
+                               first.views)
+        del first, views, inputs
+        torch.cuda.empty_cache()
+    ch = fleet.chaos
+    stats = fleet.fleet_stats()
+    if not (ch.worker_crashes and ch.lease_expiries and ch.poisoned
+            and all(counters[t]["folds"] for t in ("powers0", "powers1"))):
+        raise AssertionError(f"{label}: chaos {stats.get('chaos')}, "
+                             f"counters {counters}")
+    rec = {"phase": label, "seed": seed, "drive_s": drive_s,
+           "submissions": HO_FLEET_SUBMISSIONS, "admitted": admitted,
+           "chaos": {"worker_crashes": ch.worker_crashes,
+                     "lease_expiries": ch.lease_expiries,
+                     "slowdowns": ch.slowdowns, "poisoned": ch.poisoned},
+           "replays": stats["replays"],
+           "fenced_aborts": stats["fenced_aborts"],
+           "fold_counters": counters, "fired": fired, "launches": got,
+           "rel_err_vs_first_order": rel, "tolerance": MAIN_TOL,
+           "bit_identical_to_isolated_replays": True}
+    log("main " + json.dumps(rec))
+    del fleet
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_ho_delta() -> dict:
+    """16e: the Δ² view of P2 = A·A at n = 10000: zero-initialized by
+    ``materialize_delta_views``, one firing of ``delta_trigger_fn("A",
+    2)`` under a rank-1 d = u vᵀ, held against 2·d·d computed apart as
+    2·u (vᵀu) vᵀ; both are one rank-1 product in fp32, so they agree to
+    a few ulps of the view's largest entry (DELTA2_TOL)."""
+    import numpy as np
+    import torch
+    from repro_torch.apps.matrix_powers import build_powers_program
+    from repro_torch.core import IncrementalEngine
+    n = POWERS_N
+    eng = IncrementalEngine(build_powers_program(k=2, n=n, model="exp"),
+                            {"A": 1}, order=2)
+    eng.initialize(ho_input(n, 1690))
+    names = eng.materialize_delta_views("A", 2)
+    fn = eng.delta_trigger_fn("A", 2)
+    rng = np.random.default_rng(1691)
+    u = (rng.standard_normal((n, 1)) * 0.01).astype(np.float32)
+    v = (rng.standard_normal((n, 1)) * 0.01).astype(np.float32)
+    before = dict(eng.views)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn(dict(eng.views), u, v)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = launches()
+    check_launches("ho_delta2", got, {"rank_update_batched_out":
+                                      fn.lowrank_applies})
+    uu = torch.from_numpy(u).to(DEVICE)
+    vv = torch.from_numpy(v).to(DEVICE)
+    want = 2.0 * (uu * float(vv.T @ uu)) @ vv.T
+    d2 = out[names[0]]
+    scale = float(want.abs().max())
+    rel = float((d2 - want).abs().max()) / scale
+    untouched = all(eng.views[k] is t for k, t in before.items()) and \
+        not bool(eng.views[names[0]].any())
+    if names != ("__d2__P2",) or rel > DELTA2_TOL or not untouched:
+        raise AssertionError(f"ho_delta2: {names}, rel err {rel}, store "
+                             f"untouched {untouched}")
+    rec = {"phase": f"ho_delta2_P2_n{n}", "views": list(names), "ms": ms,
+           "rel_err_vs_2dd": rel, "tolerance": DELTA2_TOL,
+           "max_abs": scale, "launches": got}
+    log("main " + json.dumps(rec))
+    del eng, out, want, d2, before
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fivm_oracle_live(boot_X, boot_Y, stream):
+    """The live rows (slot order) of a bootstrapped ring after a labeled
+    stream, built on the host from the events: the bootstrap rows 0..b-1,
+    then the stream's live slots (all above them)."""
+    import numpy as np
+    slots = stream.live_slots
+    X = np.concatenate([boot_X] + [stream._live[s][0][None]
+                                   for s in slots])
+    Y = np.concatenate([boot_Y] + [stream._live[s][1][None]
+                                   for s in slots])
+    return X, Y
+
+
+def drive_ring(ring, solver, events, read_every: int) -> dict:
+    """Apply ``events`` one by one, reading (fold plus ``solver``'s ridge
+    re-solve) every ``read_every``; returns ingest µs an event and read
+    ms."""
+    import torch
+    ingest, reads = 0.0, []
+    for i in range(0, len(events), read_every):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ring.apply_events(events[i:i + read_every])
+        torch.cuda.synchronize()
+        ingest += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        solver.coefficients()
+        reads.append((time.perf_counter() - t0) * 1e3)
+    return {"ingest_us_per_event": ingest * 1e6 / len(events),
+            "read_ms": reads, "read_ms_median": statistics.median(reads)}
+
+
+def phase_fivm() -> dict:
+    """16f: a ring RingSpec(256, 1, 2^20, 2 slots, proj 64) bootstrapped
+    with FIVM_BOOT seeded rows, then FIVM_EVENTS labeled events (churn
+    0.3) at order 1 and at order 2 in turns: ingest µs an event, read ms
+    (fold plus ridge re-solve); ridge against batch_ridge on the live
+    rows in float64; insert-then-delete restoring the ring; k-means
+    centroids against batch_kmeans on the live rows built on the host; the
+    row kernel's launches at order 1; a fleet-hosted ring tenant under
+    live workers, its staleness against its SLO; then ``python -m
+    repro_torch.launch.serve --fivm`` at this size."""
+    import numpy as np
+    import torch
+    from repro_torch.data import LabeledUpdate, labeled_stream
+    from repro_torch.fivm import (KMeansSolver, RidgeSolver, Ring, RingSpec,
+                                  batch_kmeans, batch_ridge)
+    from repro_torch.fivm.registry import RingRegistry, submit_event
+    from repro_torch.fleet import FleetConfig, FleetScheduler
+    from repro_torch.plan import TriggerCache
+    spec = RingSpec(features=FIVM_FEATURES, targets=1,
+                    capacity=FIVM_CAPACITY, model_slots=2, proj_dim=64)
+    rng = np.random.default_rng(1700)
+    boot_X = rng.standard_normal((FIVM_BOOT, spec.features)
+                                 ).astype(np.float32)
+    w = rng.standard_normal((spec.features, 1)).astype(np.float32)
+    boot_Y = (boot_X @ w + 0.01 * rng.standard_normal(
+        (FIVM_BOOT, 1))).astype(np.float32)
+    recs, total, by_k = {}, {}, {}
+    for order in (1, 2):
+        label = f"fivm_order{order}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ring = Ring(spec, order=None if order == 1 else 2,
+                    trigger_cache=TriggerCache())
+        ring.bootstrap(boot_X, boot_Y)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        solver = RidgeSolver(ring, lam=FIVM_LAM)
+        solver.coefficients()                     # the first solve
+        stream = labeled_stream(spec.features, capacity=spec.capacity,
+                                churn=0.3, seed=1701)
+        events = stream.events(FIVM_EVENTS)
+        s0 = dataclasses.replace(ring.stats)
+        reset_launches()
+        timing = drive_ring(ring, solver, events, FIVM_READ_EVERY)
+        torch.cuda.synchronize()
+        got, ranks = launches(), dense_ranks()
+        st = ring.stats
+        applies = st.lowrank_applies - s0.lowrank_applies
+        rows = st.row_applies - s0.row_applies
+        entry = ("rank_update_batched_out" if ring.engine._out_of_place
+                 else "rank_update_batched")
+        check_launches(label, got, {entry: applies,
+                                    "rank_update_rows": rows})
+        if (order == 1) != (rows > 0) or \
+                (order == 2 and (st.rowlocal_firings or not st.folds)):
+            raise AssertionError(f"{label}: row applies {rows}, folds "
+                                 f"{st.folds}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        for K, count in ranks.items():
+            by_k[K] = by_k.get(K, 0) + count
+        B = solver.coefficients()
+        Xl, Yl = ring.live_data()
+        Xo, Yo = fivm_oracle_live(boot_X, boot_Y, stream)
+        # the live rows: exact at order 1 (each row written once a window);
+        # a window that deletes and re-inserts one slot sums its one-hot
+        # columns in the kernel's order, within an ulp of |x|
+        live_err = float(max(np.abs(Xl - Xo).max(), np.abs(Yl - Yo).max())) \
+            if Xl.shape == Xo.shape and Yl.shape == Yo.shape else np.inf
+        B_batch = batch_ridge(Xo, Yo, FIVM_LAM)
+        ridge_err = float(np.abs(B - B_batch).max()
+                          / max(float(np.abs(B_batch).max()), 1.0))
+        before = ring.read("G", "XY", "s", "c", "YY", "XP")
+        x = rng.standard_normal(spec.features).astype(np.float32)
+        y = rng.standard_normal(1).astype(np.float32)
+        slot = FIVM_BOOT      # never used by the stream (it fills from
+        #                      the top of the capacity down)
+        ring.apply(LabeledUpdate("insert", slot, x, y))
+        moved = float(np.abs(ring.gram() - before["G"]).max())
+        ring.apply(LabeledUpdate("delete", slot, x, y))
+        after = ring.read("G", "XY", "s", "c", "YY", "XP")
+        restore = {k: float(np.abs(after[k] - before[k]).max()
+                            / max(float(np.abs(before[k]).max()), 1.0))
+                   for k in before}
+        t0 = time.perf_counter()
+        km = KMeansSolver(ring, FIVM_CLUSTERS, seed=1)
+        C = km.fit()
+        C_batch, _ = batch_kmeans(Xo, FIVM_CLUSTERS, seed=1)
+        km_s = time.perf_counter() - t0
+        km_err = float(np.abs(C - C_batch).max())
+        ok = (live_err <= 1e-5 and ridge_err <= FIVM_TOL and moved > 1e-3
+              and max(restore.values()) <= FIVM_RESTORE_TOL
+              and km_err <= 1e-5)
+        recs[label] = {
+            "bootstrap_s": boot_s, **timing, "events": FIVM_EVENTS,
+            "read_every": FIVM_READ_EVERY, "live": int(Xl.shape[0]),
+            "folds": st.folds, "fold_reevals": st.fold_reevals,
+            "rowlocal_firings": st.rowlocal_firings,
+            "row_applies": rows, "lowrank_applies": applies,
+            "launches": got, "dense_ranks": ranks,
+            "live_rows_max_abs_err": live_err,
+            "ridge_rel_err_vs_batch_f64": ridge_err,
+            "ridge_strategies": solver.stats.strategy_log[-4:],
+            "insert_moved_G": moved, "insert_delete_rel_resid": restore,
+            "kmeans_err": km_err, "kmeans_inertia": km.inertia,
+            "kmeans_s": km_s,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if not ok:
+            raise AssertionError(f"{label}: {recs[label]}")
+        del ring, solver, km, Xl, Yl
+        torch.cuda.empty_cache()
+    # the fleet face: a guarded ring tenant under live workers, the same
+    # carriers as Ring.apply, its staleness sampled at every submission
+    fleet = FleetScheduler(FleetConfig(lease_ttl=5.0, workers=2))
+    reg = RingRegistry(TriggerCache())
+    reg.add_fleet_tenant(fleet, spec, "fivm-ring", slo_s=FIVM_SLO,
+                         queue_capacity=4 * FIVM_FLEET_EVENTS)
+    tenant = fleet.registry.get("fivm-ring")
+    stream = labeled_stream(spec.features, capacity=spec.capacity,
+                            churn=0.3, seed=1702)
+    events = stream.events(FIVM_FLEET_EVENTS)
+    fired = {"dense": 0, "rows": 0, "fused": 0}
+    count_applies(tenant.engine, fired)
+    stale = []
+    torch.cuda.synchronize()
+    reset_launches()
+    fleet.start()
+    try:
+        t0 = time.perf_counter()
+        decisions = []
+        for ev in events:
+            decisions.extend(submit_event(fleet, "fivm-ring",
+                                          spec.capacity, ev))
+            stale.append(tenant.staleness())
+        fleet.drain(["fivm-ring"], timeout_s=600.0)
+        fleet_s = time.perf_counter() - t0
+    finally:
+        fleet.stop()
+    torch.cuda.synchronize()
+    got = launches()
+    check_launches("fivm_fleet", got, {
+        "rank_update_batched_out": fired["dense"],
+        "rank_update_rows": fired["rows"], "select_commit": fired["fused"]})
+    G = fleet.read_views("fivm-ring")["G"].cpu().numpy()
+    Xo = np.stack([stream._live[s][0] for s in stream.live_slots]) \
+        if stream.live_slots else np.zeros((0, spec.features), np.float32)
+    G_err = float(np.abs(G - Xo.T.astype(np.float64) @ Xo).max()
+                  / max(float(np.abs(G).max()), 1.0))
+    health = fleet.tenant_health()[0]
+    if set(decisions) != {"admitted"} or tenant.dirty() or \
+            tenant.stats.committed_updates != 3 * FIVM_FLEET_EVENTS or \
+            G_err > FIVM_TOL:
+        raise AssertionError(f"fivm_fleet: {health}, G err {G_err}")
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    recs["fleet_ring_tenant"] = {
+        "events": FIVM_FLEET_EVENTS, "seconds": fleet_s,
+        "firings_per_s": 3 * FIVM_FLEET_EVENTS / fleet_s,
+        "staleness_max_s": max(stale),
+        "staleness_p50_s": statistics.median(stale), "slo_s": FIVM_SLO,
+        "within_slo": max(stale) <= FIVM_SLO, "fired": fired,
+        "G_rel_err_vs_f64": G_err, "health": health, "launches": got}
+    del fleet, reg, tenant
+    torch.cuda.empty_cache()
+    # the serving CLI at this size, in a process of its own
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--fivm",
+         "--fivm-features", str(FIVM_FEATURES),
+         "--fivm-capacity", str(FIVM_CAPACITY)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    if cli.returncode != 0:
+        raise AssertionError(f"serve --fivm exited {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    recs["serve_cli"] = {"seconds": time.perf_counter() - t0,
+                         "stdout": cli.stdout.strip().splitlines()[-2:]}
+    rec = {"phase": f"fivm_f{FIVM_FEATURES}_c{FIVM_CAPACITY}", **recs,
+           "ridge_tolerance": FIVM_TOL,
+           "restore_tolerance": FIVM_RESTORE_TOL, "launches": total,
+           "dense_ranks": by_k}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def phase_ho() -> list:
+    """Phase 16: the higher-order deferred cascade and the learning views
+    (``repro_torch.fivm``) at full width on one card."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    recs, peak = [], 0.0
+    for part, fn in (("16a", phase_ho_powers), ("16b", phase_ho_guard),
+                     ("16c", phase_ho_plans), ("16d", phase_ho_fleet),
+                     ("16e", phase_ho_delta),
+                     ("16f", phase_fivm)):
+        t1 = time.perf_counter()
+        recs.append(fn())
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        log(f"phase {part}: {time.perf_counter() - t1:.2f} s")
+    seconds = time.perf_counter() - t0
+    for r in recs:
+        r["phase16_peak_mem_gib"] = peak
+    log(f"phase 16: {seconds:.2f} s, peak memory {peak:.2f} GiB")
+    return recs
+
+
 def main() -> int:
     try:
         import torch
@@ -2970,6 +3847,10 @@ def main() -> int:
     del eng, H, W
     torch.cuda.empty_cache()
 
+    # 16. the higher-order deferred cascade and the learning views
+    phases.extend(phase_ho())
+    torch.cuda.empty_cache()
+
     # the kernels record: per entry, the main path's launches and the
     # numbers of its headline shape (the most common call of the path)
     headline = {"rank_update_batched": (10000, 10000, 1, 16),
@@ -2981,7 +3862,7 @@ def main() -> int:
                 "flash_decode": "danube_decode_bf16_wrapped",
                 "rank_update_batched_out": (10000, 10000, 1, 16),
                 "select_commit": "clean"}
-    # rank_update_batched's launches over phases 4-9 and 12-15 by K, so that
+    # rank_update_batched's launches over phases 4-9 and 12-16 by K, so that
     # each K's gap to its bound can be weighed by its launches
     by_k = {}
     for ph in phases:

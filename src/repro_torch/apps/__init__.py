@@ -11,6 +11,7 @@ from .sums_powers import build_sums_program, SumsOfPowers
 from .general_iterative import build_general_program, GeneralIterative
 from .pagerank import build_pagerank_program, PageRank
 from .gradient_descent import build_bgd_program, BatchGradientDescent
+from .fivm_learning import FivmLearning
 
 for _name, _cls in (("ols", OLS), ("matrix_powers", MatrixPowers),
                     ("sums_powers", SumsOfPowers),
@@ -28,4 +29,5 @@ __all__ = [
     "build_general_program", "GeneralIterative",
     "build_pagerank_program", "PageRank",
     "build_bgd_program", "BatchGradientDescent",
+    "FivmLearning",
 ]

@@ -35,6 +35,14 @@ validates and quarantines updates, and every firing is transactional:
 a guarded engine writes out of place (the rank-k kernel's out-of-place
 entry), so a failed firing rolls back to the very pre-firing tensors.
 ``chaos=`` injects seeded faults so those paths run.
+
+With ``order=`` views of depth >= 2 are maintained by the **deferred
+cascade**: their window of updates is banked in factored form and folded
+— one stacked sweep from the window-start store, or a re-evaluation —
+every ``fold_window**(depth-1)`` firings or at the next read.  The window
+base is a reference snapshot of the store, so an engine with a deferred
+view writes out of place, as a guarded one does: no later firing moves a
+tensor the base holds.
 """
 
 from __future__ import annotations
@@ -50,7 +58,8 @@ from ..kernels import ops
 from .codegen import (build_evaluator, build_rowlocal_trigger_fn,
                       build_trigger_fn, recompute, trigger_flops)
 from .compiler import (CompiledProgram, Trigger, batch_bucket,
-                       compile_batched_trigger, compile_program)
+                       compile_batched_trigger, compile_delta_trigger,
+                       compile_program)
 from .factored import (DeltaCarrier, RowLocalCarrier, as_carrier,
                        pad_factors_to_rank, recompress_factors,
                        stack_carriers, stack_update_arrays, to_f32)
@@ -134,6 +143,11 @@ class EngineStats:
     # AdaptivePlanner.refit_from_stats turns into an online cost_scale
     sweep_flops_timed: float = 0.0
     reeval_flops_timed: float = 0.0
+    # deferred-cascade (depth >= 2) maintenance counters
+    folds: int = 0                # window folds (all tiers folded = 1)
+    fold_sweeps: int = 0          # views folded via one stacked sweep
+    fold_reevals: int = 0         # views folded via re-evaluation
+    fold_aborts: int = 0          # folds rolled back, then redone
     reads: int = 0                # output() calls (the read-rate signal)
 
     def per_update_seconds(self) -> float:
@@ -157,6 +171,9 @@ class IncrementalEngine:
                  trigger_cache=None,
                  guard=None,
                  chaos=None,
+                 order=None,
+                 fold_window: int = 8,
+                 max_fold_rank: Optional[int] = 64,
                  device=None):
         """``max_batch_rank`` caps the stacked rank of a batch (QR/SVD
         re-compression past it).  ``flush_policy`` picks how
@@ -188,15 +205,42 @@ class IncrementalEngine:
         ``chaos`` (a :class:`~repro_torch.guard.ChaosConfig` or a shared
         :class:`~repro_torch.guard.ChaosMonkey`) injects deterministic
         faults — update poisoning and in-trigger raises — so the guard's
-        recovery paths are exercised, not trusted."""
+        recovery paths are exercised, not trusted.
+
+        ``order`` turns on higher-order (deferred-cascade) maintenance:
+        an int applies the depth to every view, a ``{view: depth}`` dict
+        assigns per view.  Views of effective depth ``o >= 2`` are not
+        swept per firing; their window of updates accumulates in factored
+        form and is **folded** — one stacked sweep (or re-evaluation,
+        whichever the §7 crossover prefers) from the window-start base —
+        every ``fold_window**(o-1)`` firings or at the next read.  Depth
+        assignments are resolved so a producer view is never staler than
+        its consumers.  ``max_fold_rank`` caps the stacked window rank by
+        QR/SVD re-compression (lossy past the window's numerical rank).
+        When a maintenance ``plan`` carries per-view ``order`` fields,
+        the plan's depths are authoritative."""
         if flush_policy not in ("fixed", "cost"):
             raise ValueError(f"unknown flush_policy {flush_policy!r}")
         self.device = resolve_device(device)
+        if isinstance(order, dict):
+            requested_orders = {k: int(v) for k, v in order.items()}
+            compile_order = max([1, *requested_orders.values()])
+        elif order is not None:
+            compile_order = max(1, int(order))
+            requested_orders = None   # every view, filled after compile
+        else:
+            compile_order, requested_orders = 1, {}
         self.compiled: CompiledProgram = compile_program(
             program, update_ranks, force_rep=force_rep,
-            sequential_sm=sequential_sm)
+            sequential_sm=sequential_sm, order=compile_order)
         self.program = self.compiled.program
         self.binding = dict(self.program.dims)
+        names = {st.target.name for st in self.program.statements}
+        if requested_orders is None:
+            requested_orders = dict.fromkeys(names, compile_order)
+        elif set(requested_orders) - names:
+            raise KeyError(f"order assigns unknown views: "
+                           f"{sorted(set(requested_orders) - names)}")
         self._evaluator = build_evaluator(self.program, self.binding,
                                           self.device)
         self.rowlocal_fraction = float(rowlocal_fraction)
@@ -227,18 +271,16 @@ class IncrementalEngine:
         self._stale: set = set()                # lazy views awaiting refresh
         self._view_costs: Dict[str, List[Tuple[str, Tuple[int, int],
                                                float]]] = {}
-        if plan is not None:
-            self._attach_plan(plan)
         # trigger IR per (input, bucket rank) and trigger fns per (input,
         # bucket, reeval, lazy); built lazily, the base ranks' up front
         self._bucket_triggers: Dict[Tuple[str, int], Trigger] = {}
         self._planned_fns: Dict[Tuple, Callable] = {}
-        self._trigger_fns: Dict[str, Callable] = {
-            name: self._planned_trigger_fn(name, trig.rank)
-            for name, trig in self.compiled.triggers.items()
-        }
         # row-local triggers, keyed by (input, bucket rank); built lazily
         self._rowlocal_fns: Dict[Tuple[str, int], Callable] = {}
+        # Δᵈ triggers, keyed by (input, depth, bucket); window folds'
+        # sweeps, keyed by (input, bucket, lazy)
+        self._delta_fns: Dict[Tuple[str, int, int], Callable] = {}
+        self._fold_fns: Dict[Tuple, Callable] = {}
         self.max_batch_rank = max_batch_rank
         self.recompress_tol = recompress_tol
         self.flush_size = flush_size
@@ -248,17 +290,33 @@ class IncrementalEngine:
         self._pending_since: Dict[str, float] = {}
         self.views: Dict[str, Tensor] = {}
         self.stats = EngineStats()
+        # deferred-cascade state (_adopt_orders fills it; a plan with
+        # depths replaces it)
+        self.fold_window = max(2, int(fold_window))
+        self.max_fold_rank = max_fold_rank
+        self._view_orders: Dict[str, int] = {}
+        self._deferred: FrozenSet[str] = frozenset()
+        self._tiers: Tuple[int, ...] = ()
+        self._adopt_orders(requested_orders)
+        if plan is not None:
+            self._attach_plan(plan)
+        self._trigger_fns: Dict[str, Callable] = {
+            name: self._planned_trigger_fn(name, trig.rank)
+            for name, trig in self.compiled.triggers.items()
+        }
         self._set_fast_path()
 
     def _set_fast_path(self) -> None:
         """Whether guarded firings take the fused path (out-of-place
         applies, device flags and the select-commit kernel, no host sync)
         — admission can then defer its own finite screen into it.
-        Planned and cost-policy firings take the snapshot path, as in the
-        reference."""
+        Planned and cost-policy firings, and engines with deferred views
+        (their window state lives on the host), take the snapshot path,
+        as in the reference."""
         self._guard_fast_path = (
             self.guard is not None and self.guard.fused_path_ok
-            and self.plan is None and self.flush_policy != "cost")
+            and self.plan is None and self.flush_policy != "cost"
+            and not self._deferred)
 
     def _write_out_of_place(self) -> None:
         """Build every firing out of place from now on, and copy each
@@ -266,11 +324,299 @@ class IncrementalEngine:
         a tensor that existed before it: a reference to a view is then a
         snapshot no later firing moves
         (:class:`~repro_torch.guard.GuardedView`)."""
+        self._apply_out_of_place()
+        self._cow_rows = True
+
+    def _apply_out_of_place(self) -> None:
+        """Build every dense apply out of place from now on (the guard,
+        the fleet and the deferred cascade need it; nothing turns it
+        back off)."""
         if not self._out_of_place:
             self._out_of_place = True
             self._planned_fns.clear()
             self._rowlocal_fns.clear()
-        self._cow_rows = True
+
+    # -- higher-order (deferred-cascade) maintenance --------------------------
+    def _resolve_view_orders(self, requested: Dict[str, int]
+                             ) -> Dict[str, int]:
+        """Effective per-view depth: a producer may never be staler than
+        its consumers, so each view's requested depth is clamped to the
+        minimum effective depth of the views that read it (inputs are
+        always first-order)."""
+        names = {st.target.name for st in self.program.statements}
+        consumers: Dict[str, List[str]] = {}
+        for st in self.program.statements:
+            for vname in st.expr.free_vars():
+                if vname in names and vname != st.target.name:
+                    consumers.setdefault(vname, []).append(st.target.name)
+        eff: Dict[str, int] = {}
+        for st in reversed(self.program.statements):
+            name = st.target.name
+            o = max(1, int(requested.get(name, 1)))
+            for c in consumers.get(name, ()):
+                o = min(o, eff[c])
+            eff[name] = o
+        return eff
+
+    def _window(self, o: int) -> int:
+        return max(1, self.fold_window ** (o - 1))
+
+    def _adopt_orders(self, requested: Dict[str, int]) -> None:
+        """Set (or hot-swap) the per-view depth assignment.
+
+        Pending windows are folded under the OLD depths first so no
+        accumulated update is lost, then the cascade state and the
+        trigger-cache namespace (which carries the order signature) are
+        rebuilt.  An engine with a deferred view writes out of place:
+        the window base is a reference snapshot of the store."""
+        eff = self._resolve_view_orders(requested)
+        if self._view_orders == eff:
+            return
+        if self._tiers and self.views and self._cascade_pending():
+            self._fold(self._tiers[-1])
+        self._view_orders = eff
+        self._deferred = frozenset(n for n, o in eff.items() if o >= 2)
+        self._tiers = tuple(sorted({o for o in eff.values() if o >= 2}))
+        self._cascade_rebase_all()
+        self._cache_ns = None
+        if self._tiers:
+            self._apply_out_of_place()
+
+    def _cascade_pending(self) -> bool:
+        return any(fs for o in self._tiers
+                   for fs in self._tier_factors[o].values())
+
+    def _cascade_rebase_all(self) -> None:
+        """Empty every window and rebase it on the current store."""
+        self._pending_input: Dict[str, List[Tuple[Tensor, Tensor]]] = {}
+        self._fold_prestacked: Dict[str, Tuple] = {}
+        self._tier_factors: Dict[int, Dict[str, List]] = \
+            {o: {} for o in self._tiers}
+        self._tier_firings: Dict[int, int] = dict.fromkeys(self._tiers, 0)
+        self._tier_base: Dict[int, Dict[str, Tensor]] = \
+            {o: dict(self.views) for o in self._tiers}
+
+    def _cascade_snapshot(self):
+        """Cascade state for transactional rollback (window factors,
+        window-start bases, firing counters, banked input factors) —
+        reference copies only.  The banked inputs are part of it (the
+        reference's snapshot leaves them out): a rolled-back claim of an
+        unguarded deferred fleet tenant would otherwise bank its updates
+        twice."""
+        if not self._tiers:
+            return None
+        return ({o: {k: list(v) for k, v in self._tier_factors[o].items()}
+                 for o in self._tiers},
+                {o: dict(self._tier_base[o]) for o in self._tiers},
+                dict(self._tier_firings),
+                {k: list(v) for k, v in self._pending_input.items()})
+
+    def _cascade_restore(self, snap) -> None:
+        if snap is None:
+            return
+        factors, base, firings, pending = snap
+        self._tier_factors = {o: {k: list(v) for k, v in factors[o].items()}
+                              for o in factors}
+        self._tier_base = {o: dict(base[o]) for o in base}
+        self._tier_firings = dict(firings)
+        self._pending_input = {k: list(v) for k, v in pending.items()}
+
+    def _cascade_accumulate(self, input_name: str, pairs,
+                            defer_input: bool = False) -> None:
+        """Append one admitted firing's (pre-padding) factors to every
+        tier's window, re-compressing at the rank cap on the device, then
+        fold any tier whose window is due.  ``pairs`` is the firing's
+        update list (a whole batch still ticks each window once).  With
+        ``defer_input`` the factors are also banked — exactly, outside
+        any rank cap — for :meth:`_apply_pending_inputs` to apply to the
+        input at the next fold."""
+        norm = [(_factor(u, self.device), _factor(v, self.device))
+                for u, v in pairs]
+        if defer_input:
+            self._pending_input.setdefault(input_name, []).extend(norm)
+        for o in self._tiers:
+            fs = self._tier_factors[o].setdefault(input_name, [])
+            fs.extend(norm)
+            self._tier_firings[o] += 1
+            if (self.max_fold_rank is not None
+                    and sum(a.shape[1] for a, _ in fs) > self.max_fold_rank):
+                P, Q = stack_update_arrays(fs, self.device)
+                self._tier_factors[o][input_name] = [recompress_factors(
+                    P, Q, max_rank=self.max_fold_rank,
+                    tol=self.recompress_tol)]
+                self.stats.recompressions += 1
+        self._maybe_fold()
+
+    def _inputs_deferrable(self, input_name: str) -> bool:
+        """True when nothing this trigger maintains needs to be current
+        between folds: every maintained target is a deferred (depth >= 2)
+        view and no guard, chaos or plan expects a per-firing transaction
+        or partition.  The firing then banks its factors — no stacking,
+        no padding, no kernel launch — and the input apply itself becomes
+        part of the fold."""
+        if not self._tiers or self.guard is not None \
+                or self.chaos is not None or self.plan is not None \
+                or self.planner is not None:
+            return False
+        targets = {up.view for up in
+                   self.compiled.triggers[input_name].updates}
+        return (targets - {input_name}) <= self._deferred
+
+    def _apply_pending_inputs(self) -> Dict[str, Tuple]:
+        """Materialize deferred input state: one out-of-place apply of
+        the dense kernel per input stacks everything banked since the
+        last fold.  The banked factors are exact (never rank-capped), so
+        the input is bitwise a function of the update stream alone —
+        replay engines folding on the same cadence reproduce it.  Returns
+        the stacked factors per input (``(P, Q, n_pairs)``) so the fold's
+        sweep can reuse them instead of re-stacking the same window."""
+        stacked: Dict[str, Tuple] = {}
+        for input_name, pairs in self._pending_input.items():
+            if not pairs:
+                continue
+            P, Q = stack_update_arrays(pairs, self.device)
+            self.views[input_name] = ops.rank_update_batched_out(
+                self.views[input_name], P, Q)
+            self.stats.lowrank_applies += 1
+            stacked[input_name] = (P, Q, len(pairs))
+            pairs.clear()
+        return stacked
+
+    def _maybe_fold(self) -> None:
+        due = [o for o in self._tiers
+               if self._tier_firings[o] >= self._window(o)]
+        if due:
+            self._fold(max(due))
+
+    def _fold(self, upto: int) -> None:
+        """Fold the pending windows of every tier <= ``upto``, lowest
+        first (a tier's fold reads its ancestors' *current* values, and
+        lower tiers are never staler than higher ones).
+
+        Guarded engines run the fold transactionally: snapshot → (chaos)
+        → fold → finite-check, with rollback and an exact re-evaluation
+        fallback on failure — a fold is a firing as far as containment
+        is concerned."""
+        tiers = [o for o in self._tiers if o <= upto]
+        if not tiers:
+            return
+        # deferred-input engines bank the raw input factors per firing;
+        # the fold is where the input state materializes
+        self._fold_prestacked = self._apply_pending_inputs()
+        guarded = self.guard is not None and self.guard.config.transactional
+        if guarded or self.chaos is not None:
+            from ..guard.txn import (FiringAborted, check_finite,
+                                     restore_snapshot, take_snapshot)
+            snap = take_snapshot(self) if guarded else None
+            try:
+                if self.chaos is not None:
+                    self.chaos.maybe_raise_in_trigger()
+                folded: set = set()
+                for o in tiers:
+                    folded |= self._fold_tier(o)
+                if guarded and folded:
+                    reason = check_finite(self.views, folded)
+                    if reason is not None:
+                        raise FiringAborted(reason, "<fold>", "validate")
+            except Exception:
+                if snap is None:
+                    raise  # unguarded chaos: propagate like a kernel error
+                restore_snapshot(self, snap)
+                self.stats.fold_aborts += 1
+                self.guard.stats.rollbacks += 1
+                # exact, chaos-free fallback: re-evaluate the deferred
+                # views from their (current) ancestors
+                for o in tiers:
+                    self._fold_tier(o, force_reeval=True)
+        else:
+            for o in tiers:
+                self._fold_tier(o)
+        self._fold_prestacked = {}
+        self.stats.folds += 1
+
+    def _fold_tier(self, o: int, force_reeval: bool = False) -> set:
+        """Fold one tier's window and rebase it on the resulting store.
+        Returns the set of view names the fold wrote."""
+        targets = {n for n, oo in self._view_orders.items() if oo == o}
+        touched = [n for n, fs in self._tier_factors.get(o, {}).items()
+                   if fs]
+        folded: set = set()
+        if targets and touched:
+            affected: set = set()
+            for input_name in touched:
+                affected |= {up.view for up in
+                             self.compiled.triggers[input_name].updates}
+            affected &= targets
+            if affected:
+                if force_reeval or len(touched) > 1:
+                    # a window over several inputs interleaves their
+                    # updates; re-evaluation from the current ancestors
+                    # is the always-exact fold for any mix
+                    folded = self._fold_reeval(affected)
+                else:
+                    folded = self._fold_sweep(o, touched[0], affected)
+        self._tier_factors[o] = {}
+        self._tier_firings[o] = 0
+        self._tier_base[o] = dict(self.views)
+        self._stale -= targets
+        return folded
+
+    def _fold_reeval(self, affected: set) -> set:
+        """Re-evaluate the program from the current inputs and write back
+        the ``affected`` views only (replay engines fold through the same
+        path, so their stores stay bit for bit)."""
+        computed = self._evaluator({k: self.views[k]
+                                    for k in self.program.inputs})
+        for name in affected:
+            self.views[name] = computed[name]
+        self.stats.fold_reevals += len(affected)
+        return set(affected)
+
+    def _fold_sweep(self, o: int, input_name: str, affected: set) -> set:
+        """Single-input window fold: stack the window's factors and sweep
+        each affected view ONCE from the tier's window-start base (the
+        trigger's pre-update contract makes this exact), falling back to
+        re-evaluation per view past its §7 crossover at the window rank.
+        The sweep's trigger fn leaves the input alone (the window base
+        holds the window-start input; the current one is already
+        there)."""
+        from .cost import batched_strategy
+        fs = self._tier_factors[o][input_name]
+        pre = self._fold_prestacked.get(input_name)
+        if pre is not None and pre[2] == len(fs):
+            # this tier's window is exactly the pending-input set the fold
+            # just applied (both are "every update since time X"
+            # append-only logs, so equal length means equal content)
+            P, Q = pre[0], pre[1]
+        else:
+            P, Q = stack_update_arrays(fs, self.device)
+        r = int(P.shape[1])
+        costs = {name: (shape, re) for name, shape, re
+                 in self._factored_view_costs(input_name)}
+        sweep: set = set()
+        reeval: set = set()
+        for name in affected:
+            info = costs.get(name)
+            if info is not None and \
+                    batched_strategy(info[0], r, r, info[1]) == "stacked":
+                sweep.add(name)
+            else:
+                reeval.add(name)   # dense-rep views have no factored sweep
+        if sweep:
+            bucket = batch_bucket(r)
+            Pb, Qb = pad_factors_to_rank(P, Q, bucket)
+            trig_targets = {up.view for up in
+                            self.compiled.triggers[input_name].updates}
+            lazy = frozenset((trig_targets - {input_name}) - sweep)
+            fn = self._fold_trigger_fn(input_name, bucket, lazy)
+            out = fn(dict(self._tier_base[o]), Pb, Qb)
+            self.stats.lowrank_applies += fn.lowrank_applies
+            for name in sweep:
+                self.views[name] = out[name]
+            self.stats.fold_sweeps += len(sweep)
+        if reeval:
+            self._fold_reeval(reeval)
+        return sweep | reeval
 
     # -- maintenance plans (repro_torch.plan) ----------------------------------
     def _attach_plan(self, plan) -> None:
@@ -289,12 +635,13 @@ class IncrementalEngine:
         all survive the swap — a re-plan changes how future firings
         refresh views, never the values they produce — so a serving
         engine can adopt a re-plan mid-stream without dropping its
-        staleness contract.  Raises ``ValueError`` if the plan was priced
-        for a different (program, dims) fingerprint, and
-        ``NotImplementedError`` for what the port cannot execute yet: a
-        view of depth ``order >= 2`` (the deferred cascade, ROADMAP.md
-        Queue 1 item 7) or a mesh key (Queue 1 item 12).  Neither is ever
-        run at first order instead.
+        staleness contract.  A plan with per-view depths is authoritative
+        for the deferred cascade: its orders are adopted (pending windows
+        fold under the old depths first).  Raises ``ValueError`` if the
+        plan was priced for a different (program, dims) fingerprint, or
+        assigns depth >= 2 while leaving a view unmaterialized, and
+        ``NotImplementedError`` for a mesh key (ROADMAP.md Queue 1 item
+        12), which is never run on one device instead.
         """
         from ..plan import global_trigger_cache, program_fingerprint
         fp = program_fingerprint(self.program, self.binding)
@@ -303,18 +650,26 @@ class IncrementalEngine:
                 f"plan fingerprint {plan.fingerprint} does not match this "
                 f"engine's program ({fp}); plans are not portable across "
                 f"program structures or dimension bindings")
-        deep = sorted(n for n, vp in plan.views.items() if vp.order > 1)
-        if deep:
-            raise NotImplementedError(
-                f"plan assigns delta depth >= 2 to {deep}: the port has no "
-                f"deferred cascade yet (ROADMAP.md Queue 1 item 7)")
         if plan.mesh_key is not None:
             raise NotImplementedError(
                 "plan carries a mesh key: the port has no sharded engine "
                 "yet (ROADMAP.md Queue 1 item 12)")
+        plan_orders = {name: int(vp.order or 1)
+                       for name, vp in plan.views.items()}
+        deep = any(o > 1 for o in plan_orders.values())
+        if deep and any(not vp.materialize for vp in plan.views.values()):
+            raise ValueError(
+                "a plan assigning depth >= 2 must materialize every view: "
+                "deferred folds sweep from window-start base snapshots, "
+                "which lazy (recompute-on-read) views would leave "
+                "inconsistent")
         if self._trigger_cache is None:
             self._trigger_cache = global_trigger_cache()
         self.plan = plan
+        if deep:
+            self._adopt_orders(plan_orders)
+        elif self._deferred:
+            self._adopt_orders({})   # re-plan back down to first order
         self._set_fast_path()   # planned firings leave the fused path
         if self.planner is not None and self.planner.plan is not plan:
             # keep the attached adaptive planner's baseline in sync so
@@ -323,8 +678,10 @@ class IncrementalEngine:
 
     def _cache_key(self, tail: Tuple) -> Tuple:
         """A shared-cache key: the program's fingerprint, the device (a
-        trigger fn closes over it) and the compile options, then
-        ``tail``."""
+        trigger fn closes over it), the compile options, the compiled
+        delta depth and the per-view deferral signature (an order-2
+        engine must never reuse, or poison, a first-order engine's fns in
+        a shared cache), then ``tail``."""
         if self._cache_ns is None:
             from ..plan import program_fingerprint
             dev = self.device
@@ -334,7 +691,9 @@ class IncrementalEngine:
             self._cache_ns = (
                 program_fingerprint(self.program, self.binding),
                 dev.type, index, self.compiled.force_rep,
-                self.compiled.sequential_sm)
+                self.compiled.sequential_sm, self.compiled.order,
+                tuple(sorted((n, o) for n, o in self._view_orders.items()
+                             if o > 1)))
         return self._cache_ns + tail
 
     def _cached_build(self, tail: Tuple, builder: Callable) -> Callable:
@@ -382,8 +741,15 @@ class IncrementalEngine:
                 self._factored_view_costs(input_name)
                 if batched_strategy(shape, rank, rank, re) == "reeval")
             lazy = frozenset()
-        else:
+        elif not self._deferred:
             return frozenset(), frozenset()
+        else:
+            reeval, lazy = frozenset(), frozenset()
+        if self._deferred:
+            # deferred (depth >= 2) views are never swept per firing:
+            # they skip like lazy views and are refreshed by window folds
+            reeval = reeval - self._deferred
+            lazy = lazy | self._deferred
         targets = {up.view
                    for up in self.compiled.triggers[input_name].updates}
         # keep the partition scoped to this trigger's targets, EXCEPT
@@ -400,7 +766,8 @@ class IncrementalEngine:
                             ) -> Callable:
         """The trigger fn for (input, bucket, partition), built on first
         use through the shared cache.  An empty partition maintains every
-        view incrementally.  A guarded engine's fns write out of place."""
+        view incrementally.  A guarded or deferred engine's fns write out
+        of place."""
         key = (input_name, bucket, tuple(sorted(reeval)),
                tuple(sorted(lazy)))
         fn = self._planned_fns.get(key)
@@ -412,6 +779,23 @@ class IncrementalEngine:
                     self.binding, self.device, reeval_views=reeval,
                     lazy_views=lazy, out_of_place=self._out_of_place))
             self._planned_fns[key] = fn
+        return fn
+
+    def _fold_trigger_fn(self, input_name: str, bucket: int,
+                         lazy: FrozenSet[str]) -> Callable:
+        """A window fold's sweep for (input, bucket): the views not in
+        ``lazy`` incrementally, out of place, and not the input's own
+        update (the fold sweeps from a base whose input it discards)."""
+        key = (input_name, bucket, tuple(sorted(lazy)))
+        fn = self._fold_fns.get(key)
+        if fn is None:
+            fn = self._cached_build(
+                ("fold",) + key,
+                lambda: build_trigger_fn(
+                    self._bucket_trigger(input_name, bucket), self.program,
+                    self.binding, self.device, lazy_views=lazy,
+                    out_of_place=True, skip_input=True))
+            self._fold_fns[key] = fn
         return fn
 
     def _accumulate(self, views, rank: int) -> None:
@@ -465,7 +849,11 @@ class IncrementalEngine:
     def refresh(self, block: bool = False) -> Dict[str, Tensor]:
         """Recompute lazily-materialized views left stale by planned
         firings, in program order so stale ancestors refresh first; each
-        gets storage of its own."""
+        gets storage of its own.  On a deferred-cascade engine this is a
+        read point: any pending window is folded first, so every deferred
+        view is exact on return."""
+        if self._tiers and self._cascade_pending():
+            self._fold(self._tiers[-1])
         if not self._stale:
             return self.views
         recompute([st for st in self.program.statements
@@ -491,6 +879,7 @@ class IncrementalEngine:
         self._pending_since.clear()
         self._stale.clear()
         self._accum_rank.clear()
+        self._cascade_rebase_all()
         return dict(computed)
 
     def load_views(self, views: Dict[str, object]) -> Dict[str, Tensor]:
@@ -508,6 +897,7 @@ class IncrementalEngine:
         self._pending_since.clear()
         self._stale.clear()
         self._accum_rank.clear()
+        self._cascade_rebase_all()
         return self.views
 
     def views_numpy(self) -> Dict[str, np.ndarray]:
@@ -532,6 +922,16 @@ class IncrementalEngine:
                                        block=block)
         self._check_input(input_name)
         rank = self.compiled.triggers[input_name].rank
+        if self._tiers and self._inputs_deferrable(input_name):
+            # deferred-input fast path: bank the factors and return — the
+            # fold materializes the input along with the views
+            self._cascade_accumulate(input_name, [(u, v)],
+                                     defer_input=True)
+            self.stats.updates_applied += 1
+            self.stats.triggers_fired += 1
+            if block:
+                _sync(self.device)
+            return self.views
         if self.chaos is not None:
             u, v = self.chaos.poison_update(u, v)
         if self.guard is not None:
@@ -545,6 +945,8 @@ class IncrementalEngine:
         u, v = _factor(u, self.device), _factor(v, self.device)
         if not self._fire_guarded(input_name, rank, u, v, u0, v0):
             return self.views
+        if self._tiers:
+            self._cascade_accumulate(input_name, [(u, v)])
         if block:
             _sync(self.device)
             self.stats.trigger_seconds += time.perf_counter() - t0
@@ -594,6 +996,18 @@ class IncrementalEngine:
             updates = [self.chaos.poison_update(u, v) for u, v in updates]
         if not updates:
             return self.views
+        if self._tiers and self._inputs_deferrable(input_name):
+            # deferred-input fast path: every maintained target of this
+            # trigger is folded from the window anyway, so the firing banks
+            # its factors and launches nothing; a read (or a due fold)
+            # first materializes the pending input state
+            self._cascade_accumulate(input_name, updates, defer_input=True)
+            self.stats.updates_applied += len(updates)
+            self.stats.triggers_fired += 1
+            self.stats.batches_applied += 1
+            if block:
+                _sync(self.device)
+            return self.views
         t0 = time.perf_counter()  # admission and stacking are part of the
         # batch's cost: the guard's fast path stacks once, as it screens
         P = Q = None
@@ -622,6 +1036,8 @@ class IncrementalEngine:
         if not self._fire_guarded(input_name, bucket, P, Q, P0, Q0,
                                   screened=True):
             return self.views
+        if self._tiers:
+            self._cascade_accumulate(input_name, [(P0, Q0)])
         if block:
             _sync(self.device)
             self.stats.trigger_seconds += time.perf_counter() - t0
@@ -691,7 +1107,12 @@ class IncrementalEngine:
         rank ``ceil(rank · frac)``: a row sweep touches ``r·m`` elements
         where the dense sweep the crossover was solved for touches
         ``n·m``.  Triggers with any widened view keep the full-rank
-        price: those views really do pay the dense sweep."""
+        price: those views really do pay the dense sweep.  An engine with
+        deferred views widens every carrier into its window: a fold sweeps
+        from a base snapshot, so there is no row-local path at depth >= 2
+        (the dense path is its oracle)."""
+        if self._tiers:
+            return False
         frac = carrier.affected_fraction()
         if frac > self.rowlocal_fraction:
             return False
@@ -740,8 +1161,23 @@ class IncrementalEngine:
             if self._rowlocal_ok(input_name, carrier):
                 return self._apply_rowlocal(input_name, carrier, block=block)
             self.stats.widened_carriers += 1
-        P, Q = carrier.factors()
+        P, Q = self._widen(carrier)
         return self.apply_update(input_name, P, Q, block=block)
+
+    def _widen(self, carrier: DeltaCarrier):
+        """A carrier's dense factors.  A row-local carrier's scattered
+        ``P`` is made on the engine's device (zeros and an index write)
+        rather than on the host and uploaded — at 2²⁰ rows that is 4 MB a
+        rank a carrier; its values are the host widening's, bit for
+        bit."""
+        if carrier.kind != "row_local":
+            return carrier.factors()
+        block = to_f32(carrier.block, self.device)
+        P = torch.zeros((int(carrier.n), block.shape[1]),
+                        dtype=torch.float32, device=self.device)
+        P[torch.as_tensor(carrier.rows, dtype=torch.long,
+                          device=self.device)] = block
+        return P, to_f32(carrier.V, self.device)
 
     def _apply_rowlocal(self, input_name: str, carrier: RowLocalCarrier,
                         block: bool = False, t_count: int = 1,
@@ -851,7 +1287,7 @@ class IncrementalEngine:
             self.stats.widened_carriers += \
                 sum(1 for c in live if c.kind == "row_local")
             return self.apply_updates(input_name,
-                                      [c.factors() for c in live],
+                                      [self._widen(c) for c in live],
                                       block=block)
         if self.chaos is not None:
             # one poison gate a member, compactly: the draws of the dense
@@ -957,7 +1393,7 @@ class IncrementalEngine:
                 self.apply_updates(name, q, block=block)
             self._pending.pop(name, None)
             self._pending_since.pop(name, None)
-        if self._stale:
+        if self._stale or (self._tiers and self._cascade_pending()):
             self.refresh(block=block)
         return self.views
 
@@ -965,6 +1401,7 @@ class IncrementalEngine:
     def reevaluate(self, block: bool = False) -> Dict[str, Tensor]:
         """The paper's re-evaluation strategy: recompute from the current
         inputs (which the triggers have been keeping up to date)."""
+        self._apply_pending_inputs()  # deferred-input engines: make current
         inputs = {k: self.views[k] for k in self.program.inputs}
         t0 = time.perf_counter()
         computed = self._evaluator(inputs)
@@ -975,6 +1412,7 @@ class IncrementalEngine:
         self.views.update(computed)
         self._stale.clear()
         self._accum_rank.clear()
+        self._cascade_rebase_all()  # windows are void: every view is current
         self.stats.reevals += 1
         return dict(computed)
 
@@ -982,11 +1420,12 @@ class IncrementalEngine:
     def output(self, name: Optional[str] = None) -> Tensor:
         """A view, exact: a read point, so stale lazy views are
         refreshed first; counts ``stats.reads`` (and tells an adaptive
-        planner)."""
+        planner).  On a deferred-cascade engine every pending window is
+        folded first."""
         self.stats.reads += 1
         if self.planner is not None:
             self.planner.observe_read()
-        if self._stale:
+        if self._stale or (self._tiers and self._cascade_pending()):
             self.refresh()
         name = name or self.program.output_names()[0]
         return self.views[name]
@@ -994,6 +1433,64 @@ class IncrementalEngine:
     def trigger_flops(self, input_name: str) -> float:
         return trigger_flops(self.compiled.triggers[input_name], self.program,
                              self.binding)
+
+    # -- materialized Δᵈ views (symbolic hierarchy) ---------------------------
+    def delta_trigger_fn(self, input_name: str, depth: int,
+                         rank: Optional[int] = None) -> Callable:
+        """The trigger maintaining the ``__d{depth}__V`` views, ``(views,
+        U, V) -> views``, out of place (the caller's store is left
+        alone).  Its shared-cache key carries the depth (and the engine
+        namespace the order signature), so a depth-2 trigger never reuses
+        a first-order fn."""
+        if rank is None:
+            rank = self.compiled.triggers[input_name].rank
+        bucket = batch_bucket(rank)
+        if depth == 1:
+            return self._planned_trigger_fn(input_name, bucket)
+        key = (input_name, depth, bucket)
+        fn = self._delta_fns.get(key)
+        if fn is None:
+            fn = self._cached_build(("delta",) + key,
+                                    lambda: self._build_delta(*key))
+            self._delta_fns[key] = fn
+        return fn
+
+    def _build_delta(self, input_name: str, depth: int, bucket: int
+                     ) -> Callable:
+        fire = build_trigger_fn(
+            compile_delta_trigger(self.compiled, input_name, depth, bucket),
+            self.program, self.binding, self.device, out_of_place=True)
+        device = self.device
+
+        def run(views: Dict[str, Tensor], u, v) -> Dict[str, Tensor]:
+            # factors as the engine's own paths take them: numpy or
+            # tensors, 1-D or (n, k)
+            return fire(views, _factor(u, device), _factor(v, device))
+
+        run.lowrank_applies = fire.lowrank_applies
+        return run
+
+    def materialize_delta_views(self, input_name: str, depth: int,
+                                rank: Optional[int] = None
+                                ) -> Tuple[str, ...]:
+        """Zero-initialize the ΔᵈV auxiliary views the depth-``depth``
+        trigger for ``input_name`` maintains; returns their names."""
+        from .cost import shape_of
+        if rank is None:
+            rank = self.compiled.triggers[input_name].rank
+        trig = compile_delta_trigger(self.compiled, input_name, depth,
+                                     batch_bucket(rank))
+        by_name = {st.target.name: st.target
+                   for st in self.program.statements}
+        names = []
+        for up in trig.updates:
+            n, m = shape_of(by_name[up.view.split("__", 2)[-1]],
+                            self.binding)
+            if up.view not in self.views:
+                self.views[up.view] = torch.zeros(
+                    (n, m), dtype=torch.float32, device=self.device)
+            names.append(up.view)
+        return tuple(names)
 
     def reeval_flops(self) -> float:
         from .cost import _expr_cost_shared

@@ -1,7 +1,9 @@
 """Update-stream generators used to drive the engines."""
 
-from .updates import (RowLocalStream, UpdateStream, row_local_stream,
+from .updates import (LabeledStream, LabeledUpdate, RowLocalStream,
+                      UpdateStream, labeled_stream, row_local_stream,
                       zipf_row_stream)
 
-__all__ = ["RowLocalStream", "UpdateStream", "row_local_stream",
+__all__ = ["LabeledStream", "LabeledUpdate", "RowLocalStream",
+           "UpdateStream", "labeled_stream", "row_local_stream",
            "zipf_row_stream"]

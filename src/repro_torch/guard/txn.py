@@ -20,8 +20,9 @@ the touched rows (``index_select``), rollback scatters them back
 (``index_copy_``), and the output check reads only them.
 
 The snapshot also captures the engine's host-side firing bookkeeping
-(hybrid staleness counters, lazy-stale set, and a copy of
-``EngineStats``) so an aborted firing is invisible there too.  The price
+(hybrid staleness counters, lazy-stale set, a copy of ``EngineStats``,
+and on a higher-order engine its deferred-cascade windows) so an aborted
+firing is invisible there too.  The price
 is memory: one extra view per written view while a firing runs.
 """
 
@@ -65,6 +66,9 @@ class FiringSnapshot:
     stats: object  # copied EngineStats dataclass
     rows: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = field(
         default_factory=dict)
+    # deferred-cascade window state (higher-order engines): pending window
+    # factors, window-start base snapshots, firing counters, banked inputs
+    cascade: Optional[tuple] = None
 
 
 def take_snapshot(engine, row_views=(), rows=None) -> FiringSnapshot:
@@ -81,7 +85,8 @@ def take_snapshot(engine, row_views=(), rows=None) -> FiringSnapshot:
                           accum_rank=dict(engine._accum_rank),
                           stale=set(engine._stale),
                           stats=dataclasses.replace(engine.stats),
-                          rows=saved)
+                          rows=saved,
+                          cascade=engine._cascade_snapshot())
 
 
 def restore_snapshot(engine, snap: FiringSnapshot) -> None:
@@ -95,6 +100,8 @@ def restore_snapshot(engine, snap: FiringSnapshot) -> None:
     engine._stale = snap.stale
     for f in dataclasses.fields(type(engine.stats)):
         setattr(engine.stats, f.name, getattr(snap.stats, f.name))
+    if snap.cascade is not None:
+        engine._cascade_restore(snap.cascade)
 
 
 def changed_views(snap: FiringSnapshot,

@@ -6,6 +6,8 @@
         --reduced --device cpu --batch 2 --prompt-len 16 --max-new 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch custom-10m \
         --device cpu --fleet 2 --fleet-workers 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --fivm \
+        [--device cpu] [--fivm-features 256 --fivm-capacity 1048576]
 
 Runs on the card unless ``--device cpu`` is given.  Weights are random,
 drawn from ``--seed``.  ``--logit-view`` attaches an incremental lm_head
@@ -14,7 +16,10 @@ through it and prints its health.  ``--fleet N`` serves N logit-view
 tenants over the model's lm_head widths through
 :mod:`repro_torch.fleet` (live lease-claimed refresh workers, admission
 control, a shared trigger cache) and prints each view's health and the
-fleet's stats.
+fleet's stats.  ``--fivm`` serves the learning views
+(:mod:`repro_torch.fivm`) instead of generating tokens: a gram ring at
+``order=2`` (ingest banks, each read folds and re-solves), then the same
+ring shape as a fleet tenant with its staleness against the SLO.
 """
 
 from __future__ import annotations
@@ -92,6 +97,59 @@ def serve_fleet(eng: ServeEngine, cfg: ModelConfig, args, rng) -> None:
         fleet.stop()
 
 
+def serve_fivm(args) -> None:
+    """Models-as-views serving (docs/fivm.md): data arrival and model
+    refresh are decoupled — ingest banks factored deltas into the ring's
+    deferred windows, each read folds and re-solves — and the same ring
+    shape runs as a fleet tenant so staleness is accounted against the
+    tenant SLO."""
+    from ..apps import get_app
+    from ..data import labeled_stream
+    from ..fivm.registry import RingRegistry, submit_event
+    from ..fleet import FleetConfig, FleetScheduler
+
+    app = get_app("fivm_learning")(
+        features=args.fivm_features, capacity=args.fivm_capacity,
+        order=2, churn=0.3, seed=args.seed, device=args.device)
+    app.ingest(8)
+    app.refresh()          # first build and solve outside the ledger
+    out = app.serve_demo(bursts=args.fivm_bursts,
+                         burst_size=args.fivm_burst_size)
+    print(f"[serve] fivm decoupled ring on {app.device}: {out['events']} "
+          f"events ({out['live']:.0f} live), "
+          f"ingest {out['ingest_us_per_event']:.0f} us/event, "
+          f"reads {[f'{t:.1f}ms' for t in out['read_ms']]}, "
+          f"folds={out['folds']} strategies={out['strategies']}")
+
+    # fleet-hosted ring tenant: same carriers, lease-claimed refresh, SLO
+    # staleness accounting
+    spec = app.spec
+    fleet = FleetScheduler(FleetConfig(lease_ttl=0.5,
+                                       workers=args.fleet_workers))
+    reg = RingRegistry()
+    reg.add_fleet_tenant(fleet, spec, "fivm-ring", slo_s=0.5,
+                         engine_opts={"device": app.device})
+    stream = labeled_stream(spec.features, targets=spec.targets,
+                            capacity=spec.capacity, churn=0.3,
+                            seed=args.seed + 1)
+    fleet.start()
+    try:
+        t0 = time.perf_counter()
+        n = args.fivm_bursts * args.fivm_burst_size
+        for ev in stream.events(n):
+            submit_event(fleet, "fivm-ring", spec.capacity, ev)
+        fleet.drain(["fivm-ring"])
+        dt = time.perf_counter() - t0
+        G = fleet.read_views("fivm-ring")["G"]
+        health = fleet.tenant_health()[0]
+        print(f"[serve] fivm fleet tenant: {n} events in {dt:.2f}s "
+              f"({3 * n / dt:.0f} firings/s), G={tuple(G.shape)}, "
+              f"staleness={health['staleness_s']:.3f}s "
+              f"(slo={health['slo_s']}s) health={health}")
+    finally:
+        fleet.stop()
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="custom-10m")
@@ -117,7 +175,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "workers, admission control, shared trigger "
                          "cache; prints fleet health + stats")
     ap.add_argument("--fleet-workers", type=int, default=2)
+    ap.add_argument("--fivm", action="store_true",
+                    help="serve the repro_torch.fivm learning views "
+                         "instead of token generation: a maintained gram "
+                         "ring in decoupled (order=2, bank-on-ingest, "
+                         "fold-on-read) mode, plus a fleet-hosted ring "
+                         "tenant with SLO staleness accounting")
+    ap.add_argument("--fivm-features", type=int, default=24)
+    ap.add_argument("--fivm-capacity", type=int, default=256)
+    ap.add_argument("--fivm-bursts", type=int, default=8)
+    ap.add_argument("--fivm-burst-size", type=int, default=48)
     args = ap.parse_args(argv)
+
+    if args.fivm:
+        serve_fivm(args)
+        return
 
     cfg = resolve_config(args)
     model = LM(cfg, device=args.device)

@@ -87,12 +87,13 @@ def test_update_streams_are_the_same_draws():
 
 def test_registry_holds_this_slices_apps():
     assert tapps.available_apps() == [
-        "general_iterative", "gradient_descent", "matrix_powers", "ols",
-        "pagerank", "sums_powers"]
+        "fivm_learning", "general_iterative", "gradient_descent",
+        "matrix_powers", "ols", "pagerank", "sums_powers"]
     assert tapps.get_app("ols") is tapps.OLS
     assert tapps.get_app("pagerank") is tapps.PageRank
+    assert tapps.get_app("fivm_learning") is tapps.FivmLearning
     with pytest.raises(KeyError, match="pagerank"):
-        tapps.get_app("fivm_learning")
+        tapps.get_app("nope")
 
 
 def _same_inputs(tin, jin):

@@ -644,3 +644,72 @@ def test_fleet_threads_on_card_match_cpu(cuda):
             scale = float(want.abs().max()) or 1.0
             assert float((got - want).abs().max()) / scale <= 1e-5, (tid, k)
     assert cuda_ru.LAUNCHES["rank_update_batched_out"] - out0 == applies > 0
+
+
+@pytest.mark.parametrize("order", [2, 3, "mixed"])
+def test_deferred_engine_on_card_matches_cpu(cuda, order):
+    """A small higher-order engine on the card: banking launches nothing,
+    each fold launches the out-of-place entry once per banked input and
+    once per low-rank apply of its sweep, and the views equal the CPU
+    port's under the same stream within f32 parity, with equal fold
+    counters."""
+    inputs = MatrixPowers.synthesize(64, seed=0)
+    prog = MatrixPowers(n=64, k=8, device="cpu").program
+    out = prog.output_names()[0]
+    opts = {"order": {out: 2}} if order == "mixed" else {"order": order}
+    stream = UpdateStream(n=64, m=64, seed=1)
+    batches = [[stream.next_update() for _ in range(4)] for _ in range(12)]
+    engines = []
+    for device in ("cuda", "cpu"):
+        eng = IncrementalEngine(prog, {"A": 1}, fold_window=4, device=device,
+                                **opts)
+        eng.initialize(inputs)
+        engines.append(eng)
+    gpu, cpu = engines
+    out0 = cuda_ru.LAUNCHES["rank_update_batched_out"]
+    in0 = cuda_ru.LAUNCHES["rank_update_batched"]
+    for i, ups in enumerate(batches):
+        for eng in engines:
+            eng.apply_updates("A", ups)
+            if i % 5 == 4:
+                eng.output()
+    for eng in engines:
+        eng.flush()
+    torch.cuda.synchronize()
+    assert cuda_ru.LAUNCHES["rank_update_batched"] == in0   # out of place
+    assert cuda_ru.LAUNCHES["rank_update_batched_out"] - out0 == \
+        gpu.stats.lowrank_applies > 0
+    for k in ("folds", "fold_sweeps", "fold_reevals", "lowrank_applies"):
+        assert getattr(gpu.stats, k) == getattr(cpu.stats, k), k
+    assert gpu.stats.folds > 0
+    for k, v in cpu.views.items():
+        g = gpu.views[k].cpu()
+        scale = float(v.abs().max()) or 1.0
+        assert float((g - v).abs().max()) / scale <= 1e-5, k
+
+
+def test_deferred_ring_on_card_matches_cpu(cuda):
+    """An order-2 fivm ring on the card (its widened carriers made there)
+    against the CPU port's, and its ridge model against batch retrain."""
+    from repro_torch.data import labeled_stream
+    from repro_torch.fivm import RidgeSolver, Ring, RingSpec, batch_ridge
+    from repro_torch.plan import TriggerCache
+    spec = RingSpec(features=16, targets=1, capacity=4096, model_slots=1,
+                    proj_dim=8)
+    events = labeled_stream(16, capacity=4096, churn=0.3,
+                            seed=2).events(200)
+    rings = [Ring(spec, order=2, fold_window=4, device=d,
+                  trigger_cache=TriggerCache()) for d in ("cuda", "cpu")]
+    for ring in rings:
+        ring.apply_events(events)
+    gpu, cpu = rings
+    assert gpu.stats.folds == cpu.stats.folds > 0
+    assert gpu.stats.rowlocal_firings == 0
+    for name in ("G", "XY", "s", "c", "XP"):
+        want = cpu.view(name)
+        got = gpu.view(name)
+        scale = max(float(np.abs(want).max()), 1.0)
+        assert float(np.abs(got - want).max()) / scale <= 1e-5, name
+    B = RidgeSolver(gpu, lam=0.1).coefficients()
+    Xl, Yl = gpu.live_data()
+    assert np.abs(B - batch_ridge(Xl, Yl, 0.1)).max() < 1e-4

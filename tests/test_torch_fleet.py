@@ -1217,3 +1217,118 @@ def test_fleet_matches_jax_fleet(scenario, seed):
     if scenario == "carriers":
         eng = tf.registry.get("chain").engine
         assert eng.stats.rowlocal_firings > 0 and eng.stats.row_applies > 0
+
+
+# ---------------------------------------------------------------------------
+# higher-order (deferred-cascade) tenants under fleet chaos
+# ---------------------------------------------------------------------------
+
+
+def _ho_fleet(pkg, seed):
+    """The reference's higher-order fleet scenario through one package:
+    two order-2 matrix-powers tenants, a first-order control and two
+    logit tenants, 150 submissions under worker crashes, lease expiry
+    and poison.  Returns (fleet, decisions, logged updates by tenant and
+    LSN, admitted counts, inputs by tenant)."""
+    if pkg == "jax":
+        from repro.apps.matrix_powers import build_powers_program
+        fl, gd, spec_of, logit = jfleet, jguard, jfleet.TenantSpec, jax_logit
+    else:
+        from repro_torch.apps.matrix_powers import build_powers_program
+        fl, gd, spec_of, logit = tfleet, tguard, _spec, \
+            build_logit_view_program
+    vc = VClock()
+    fleet = fl.FleetScheduler(
+        fl.FleetConfig(lease_ttl=1.0,
+                       chaos=gd.ChaosConfig(seed=seed, worker_crash_p=0.15,
+                                            lease_expiry_p=0.1,
+                                            poison_p=0.02)),
+        clock=vc, sleep=vc.sleep)
+    shapes, tenant_inputs = {}, {}
+    rng0 = np.random.default_rng(99)
+    for i in range(3):   # two deferred tenants + one first-order control
+        tid = f"pow{i}"
+        a = rng0.standard_normal((10, 10)).astype(np.float32)
+        a *= 0.5 / max(abs(np.linalg.eigvals(a)))
+        opts = {"order": 2, "fold_window": 2} if i < 2 else {}
+        fleet.add_tenant(spec_of(tid, build_powers_program(k=4, n=10,
+                                                           model="exp"),
+                                 {"A": 1}, max_claim_rank=4,
+                                 engine_opts=opts), {"A": a})
+        shapes[tid] = ("A", (10, 10))
+        tenant_inputs[tid] = {"A": a}
+    for i, (m, d, p) in enumerate([(8, 4, 5), (6, 3, 4)]):
+        tid = f"logit{i}"
+        _, inputs = _logit_tenant(m, d, p, seed=i)
+        fleet.add_tenant(spec_of(tid, logit(m, d, p), {"W": 1},
+                                 max_claim_rank=4), inputs)
+        shapes[tid] = ("W", (p, d))
+        tenant_inputs[tid] = inputs
+    tids = sorted(shapes)
+    rng = np.random.default_rng(seed + 5)
+    by_lsn = {tid: {} for tid in tids}
+    admitted = {tid: 0 for tid in tids}
+    decisions = []
+    for step in range(150):
+        tid = tids[int(rng.integers(len(tids)))]
+        input_name, (n, m) = shapes[tid]
+        u, v = _rank1(rng, n, m, scale=0.02)
+        decisions.append(fleet.submit(tid, input_name, u, v))
+        if decisions[-1] == ADMITTED:
+            admitted[tid] += 1
+            entry = fleet.registry.get(tid).log.pending(0)[-1]
+            by_lsn[tid][entry.lsn] = entry.payload()
+        vc.advance(0.01)
+        if step % 25 == 24:
+            fleet.run_until_idle(workers=3,
+                                 on_stall=lambda: vc.advance(1.1))
+    fleet.run_until_idle(workers=3, on_stall=lambda: vc.advance(1.1))
+    return fleet, decisions, by_lsn, admitted, tenant_inputs
+
+
+@pytest.mark.parametrize("seed", CHAOS_SEEDS)
+def test_fleet_higher_order_chaos_bit_identical_and_exact(seed):
+    """Two tenants on order-2 engines (``TenantSpec.engine_opts``) under
+    fleet chaos: exactly-once commits; committed stores bit for bit
+    against same-order isolated replays (an aborted or replayed claim
+    never ticks a window twice); after a fold barrier, within 5e-6 of a
+    first-order replay; and the JAX fleet's decisions, commit logs,
+    tenant stats and fold counters under the same seed."""
+    jfl, jdec, _, _, _ = _ho_fleet("jax", seed)
+    fleet, decisions, by_lsn, admitted, tenant_inputs = \
+        _ho_fleet("torch", seed)
+    assert decisions == jdec
+    assert fleet.registry.get("pow0").engine._deferred
+    assert not fleet.registry.get("pow2").engine._deferred
+    assert fleet.chaos.worker_crashes + fleet.chaos.lease_expiries > 0
+    for tid in sorted(tenant_inputs):
+        tenant, jt = fleet.registry.get(tid), jfl.registry.get(tid)
+        assert tenant.commit_log == jt.commit_log, tid
+        assert dataclasses.asdict(tenant.stats) == \
+            dataclasses.asdict(jt.stats), tid
+        for k in ("folds", "fold_sweeps", "fold_reevals", "fold_aborts"):
+            assert getattr(tenant.engine.stats, k) == \
+                getattr(jt.engine.stats, k), (tid, k)
+        assert not tenant.dirty()
+        assert tenant.stats.committed_updates == admitted[tid], tid
+        ref = _replay_reference(tenant, tenant_inputs[tid], by_lsn[tid])
+        assert max_abs_diff(tenant.committed_views, ref.views) == 0.0, tid
+        # fold barrier, then the first-order differential: two float32
+        # maintenance paths (per-firing sweeps against window folds)
+        # drift apart by a few ulps per firing
+        views = dict(tenant.engine.flush())
+        first = IncrementalEngine(tenant.spec.program,
+                                  tenant.spec.update_ranks,
+                                  guard=GuardConfig() if tenant.spec.guarded
+                                  else None, **CPU)
+        first.initialize(tenant_inputs[tid])
+        for input_name, lsns in tenant.commit_log:
+            first.apply_updates(input_name, [by_lsn[tid][l] for l in lsns])
+        for st in tenant.spec.program.statements:
+            name = st.target.name
+            want = first.views[name].double()
+            err = float((views[name].double() - want).abs().max()) / max(
+                float(want.abs().max()), 1.0)
+            assert err <= 5e-6, f"{tid}/{name}: {err:.2e}"
+    assert fleet.registry.get("pow0").engine.stats.folds > 0 or \
+        fleet.registry.get("pow1").engine.stats.folds > 0

@@ -899,3 +899,134 @@ def test_refit_through_engine_firing_path():
     assert eng.stats.reeval_flops_timed > 0
     scale = eng.planner.refit_from_stats(eng.stats)
     assert scale is not None and scale > 0
+
+
+# ---------------------------------------------------------------------------
+# higher-order (deferred-cascade) engines under the guard
+# ---------------------------------------------------------------------------
+
+
+def _ho_pair(n, data_seed, chaos, order=2, fold_window=2):
+    """(JAX engine, port engine): guarded matrix powers (k = 4, exp) at
+    ``order``, under the same chaos config (a keyword dict), on the same
+    stable input."""
+    rng = np.random.default_rng(data_seed)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    a *= 0.5 / max(abs(np.linalg.eigvals(a)))
+    out = []
+    for pkg, core, prog, extra in (
+            (jg, jcore, jax_powers(k=4, n=n, model="exp"), {}),
+            (tg, tcore, torch_powers(k=4, n=n, model="exp"),
+             {"device": "cpu"})):
+        eng = core.IncrementalEngine(
+            prog, order=order, fold_window=fold_window,
+            guard=pkg.GuardConfig(),
+            chaos=pkg.ChaosConfig(**chaos), **extra)
+        eng.initialize({"A": a})
+        out.append(eng)
+    return out, a
+
+
+def test_deferred_engine_never_takes_guard_fast_path():
+    """The fused path keeps no host snapshot; a deferred cascade carries
+    host window state, so it must stay off."""
+    prog = torch_powers(k=4, n=12, model="exp")
+    eng = tcore.IncrementalEngine(prog, order=2, fold_window=2,
+                                  guard=tg.GuardConfig(), device="cpu")
+    assert not eng._guard_fast_path
+    assert tcore.IncrementalEngine(prog, guard=tg.GuardConfig(),
+                                   device="cpu")._guard_fast_path
+
+
+def test_higher_order_fault_rolls_back_cascade_bit_identically():
+    """An aborted firing on an order-2 engine restores the views (the
+    very tensors) AND the cascade window; the counters equal JAX's."""
+    (je, te), _ = _ho_pair(12, 2, dict(seed=0, trigger_raise_p=1.0),
+                           fold_window=4)
+    rng = np.random.default_rng(2)
+    rng.standard_normal((12, 12))
+    before_cascade = te._cascade_snapshot()
+    before_views = dict(te.views)
+    u = rng.standard_normal((12, 1)).astype(np.float32) * 0.01
+    v = rng.standard_normal((12, 1)).astype(np.float32) * 0.01
+    out = te.apply_update("A", u, v)
+    je.apply_update("A", u, v)
+    for k, arr in before_views.items():
+        assert out[k] is arr, f"{k}: rollback must restore the same tensor"
+    factors, base, firings, _ = te._cascade_snapshot()
+    bf_factors, bf_base, bf_firings, _ = before_cascade
+    assert firings == bf_firings
+    assert {o: {k: len(v) for k, v in fs.items()}
+            for o, fs in factors.items()} == \
+        {o: {k: len(v) for k, v in fs.items()}
+         for o, fs in bf_factors.items()}
+    assert all(base[o][k] is bf_base[o][k] for o in base for k in base[o])
+    assert te.guard.stats.rollbacks == 1 and te.stats.folds == 0
+    _same(je, te)
+
+
+@pytest.mark.parametrize("seed", CHAOS_SEEDS)
+def test_fold_abort_refolds_exactly(seed):
+    """Chaos raised inside a fold rolls it back and re-folds through the
+    exact re-evaluation; the same seed gives the JAX engine's counters,
+    and the views stay exact and at parity."""
+    (je, te), _ = _ho_pair(12, seed, dict(seed=seed, trigger_raise_p=0.35))
+    it = iter(UpdateStream(n=12, m=12, scale=0.01, seed=seed))
+    for _ in range(30):
+        u, v = next(it)
+        je.apply_update("A", u, v)
+        te.apply_update("A", u, v)
+    je.flush()
+    te.flush()
+    assert te.chaos.raises == je.chaos.raises > 0, \
+        "chaos never fired — test is vacuous"
+    for k in ("folds", "fold_sweeps", "fold_reevals", "fold_aborts"):
+        assert getattr(te.stats, k) == getattr(je.stats, k), k
+    assert te.stats.folds > 0
+    assert all(bool(torch.isfinite(x).all()) for x in te.views.values())
+    ref_views = _reference_views(te)
+    for st in te.program.statements:
+        name = st.target.name
+        assert _rel(_np(te.views[name]), _np(ref_views[name])) <= 1e-5, name
+    _same(je, te)
+
+
+@pytest.mark.parametrize("seed", CHAOS_SEEDS)
+def test_higher_order_chaos_matches_first_order_replay(seed):
+    """An order-2 guarded engine under poison and trigger chaos stays
+    exactly-once: it matches a clean first-order port engine replaying
+    only the committed updates (the input bit for bit), and the JAX
+    engine's counters under the same seed."""
+    (je, te), a = _ho_pair(16, seed, dict(seed=seed, poison_p=0.05,
+                                          poison_kind="nan",
+                                          trigger_raise_p=0.05),
+                           fold_window=3)
+    it = iter(UpdateStream(n=16, m=16, scale=0.005, seed=seed))
+    applied, n_updates = [], 60
+    for _ in range(n_updates):
+        u, v = next(it)
+        before = te.guard.stats.admitted
+        aborted = te.guard.stats.aborted_firings
+        je.apply_update("A", u, v)
+        te.apply_update("A", u, v)
+        if (te.guard.stats.admitted > before
+                and te.guard.stats.aborted_firings == aborted):
+            applied.append((u, v))
+    for e in (je, te):
+        e.flush()
+        e.guard.sync()
+    g = te.guard.stats
+    assert te.chaos.poisoned > 0, "chaos never fired — test is vacuous"
+    assert g.admitted + g.quarantined == n_updates
+    assert len(applied) == g.admitted - g.aborted_firings
+    replay = tcore.IncrementalEngine(torch_powers(k=4, n=16, model="exp"),
+                                     device="cpu")
+    replay.initialize({"A": a})
+    for u, v in applied:
+        replay.apply_update("A", u, v)
+    for st in te.program.statements:
+        name = st.target.name
+        assert _rel(_np(te.views[name]), _np(replay.views[name])) <= 1e-5
+    assert torch.equal(te.views["A"], replay.views["A"])
+    assert te.stats.folds == je.stats.folds
+    _same(je, te)

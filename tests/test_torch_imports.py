@@ -35,7 +35,11 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.codegen",
            "repro_torch.guard.txn", "repro_torch.guard.sentinel",
            "repro_torch.guard.degrade", "repro_torch.fleet",
            "repro_torch.fleet.lease", "repro_torch.fleet.admission",
-           "repro_torch.fleet.tenant", "repro_torch.fleet.scheduler"]
+           "repro_torch.fleet.tenant", "repro_torch.fleet.scheduler",
+           "repro_torch.train", "repro_torch.train.grad_compression",
+           "repro_torch.fivm", "repro_torch.fivm.ring",
+           "repro_torch.fivm.solvers", "repro_torch.fivm.registry",
+           "repro_torch.apps.fivm_learning"]
 
 PROBE = """
 import importlib, sys

@@ -313,24 +313,42 @@ def test_recomputed_view_owns_its_storage():
     _assert_views(eng.views, ree.views, "alias reeval")
 
 
-# -- plans the port cannot execute yet ----------------------------------------
+# -- plans with depth, and plans the port cannot execute yet -------------------
 
 
 def test_depth_two_plan_raises_not_run_at_first_order():
+    """A plan with per-view depths is adopted as the JAX engine adopts it
+    (never dropped to first order without a trace), and a depth plan that
+    leaves a view unmaterialized raises."""
     eng = _ols_engine()
     plan = plan_for_engine(eng, WorkloadDescriptor())
     deep = replace(plan, views={**plan.views, "W": replace(
         plan.views["W"], order=2)})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eng.set_plan(deep)
-    assert eng.plan is None
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _ols_engine(plan=deep)
-    # the planner's own depth assignment is refused the same way
-    _, tprog = _programs("powers")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        IncrementalEngine(tprog, device="cpu", plan=WorkloadDescriptor(
-            **WORKLOADS["max_order2_rare_reads"]))
+    eng.set_plan(deep)
+    assert eng.plan is deep
+    jeng = jcore.IncrementalEngine(jax_ols(96, 48, 1))
+    jeng.set_plan(jplan.MaintenancePlan.from_json(deep.to_json()))
+    assert eng._view_orders == jeng._view_orders
+    assert _ols_engine(plan=deep)._view_orders == jeng._view_orders
+    # the planner's own depth assignment runs at depth, exactly as JAX's
+    jprog, tprog = _programs("powers")
+    wl = WORKLOADS["max_order2_rare_reads"]
+    te = IncrementalEngine(tprog, device="cpu",
+                           plan=WorkloadDescriptor(**wl))
+    je = jcore.IncrementalEngine(jprog, plan=jplan.WorkloadDescriptor(**wl))
+    assert te._view_orders == je._view_orders
+    assert te._deferred and te._deferred == je._deferred
+    for e in (te, je):
+        e.initialize(_inputs("powers"))
+        for u, v in _updates(48, 48, 5):
+            e.apply_update("A", u, v)
+        e.flush()
+    assert te.stats.folds == je.stats.folds > 0
+    _assert_views(te.views, je.views, "port vs JAX at depth 2")
+    lazy = replace(deep, views={**deep.views, "Z": replace(
+        deep.views["Z"], materialize=False)})
+    with pytest.raises(ValueError, match="materialize"):
+        _ols_engine(plan=lazy)
 
 
 def test_mesh_raises_naming_item_12():
