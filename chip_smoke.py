@@ -239,7 +239,7 @@ DELTA2_TOL = 1e-5
 # n = 2^20 (chosen here, not taken from the F-IVM paper); FIVM_BOOT seeded
 # rows, FIVM_EVENTS labeled events read every FIVM_READ_EVERY, a fleet
 # tenant fed FIVM_FLEET_EVENTS under a FIVM_SLO-second staleness SLO
-FIVM_FEATURES, FIVM_CAPACITY, FIVM_BOOT = 256, 2 ** 20, 4096
+FIVM_FEATURES, FIVM_CAPACITY, FIVM_BOOT, FIVM_PROJ = 256, 2 ** 20, 4096, 64
 FIVM_EVENTS, FIVM_READ_EVERY, FIVM_FLEET_EVENTS = 1024, 128, 256
 FIVM_LAM, FIVM_CLUSTERS, FIVM_SLO = 0.1, 4, 0.5
 # Ridge coefficients against batch_ridge in float64 on the live rows, as
@@ -251,6 +251,11 @@ FIVM_TOL = 1e-4
 # largest entry: the reference's 1e-6 (tests/test_fivm.py), widened for
 # the card's rank-k applies summing in another order
 FIVM_RESTORE_TOL = 1e-5
+# the maintained XP against X·R computed apart in float64 from the ring's
+# own X and R, relative to its largest entry: each row of XP is one fp32
+# dot product of 256 terms (a few 1e-7); a row the row kernel misses,
+# doubles or writes to the wrong place moves it by O(1)
+FIVM_XP_TOL = 1e-5
 
 # Tolerance of an attention kernel against its plain version.  f32: the
 # kernel tolerance above.  bf16: the plain versions keep p in f32, the
@@ -367,10 +372,18 @@ def reset_launches() -> None:
         mod.reset_launches()
 
 
+# rank_update_batched_out's launches by K = T*k, summed over every read of
+# the counts after a main-path drive (launches()); phase 3's comparisons
+# are never read, since each drive resets the counts first
+OUT_RANKS: dict = {}
+
+
 def launches() -> dict:
     out = {}
     for mod in kernel_modules():
         out.update(mod.LAUNCHES)
+    for K, count in out_ranks().items():
+        OUT_RANKS[K] = OUT_RANKS.get(K, 0) + count
     return out
 
 
@@ -378,6 +391,13 @@ def dense_ranks() -> dict:
     """rank_update_batched's launches since the last reset, by K = T*k."""
     from repro_torch.kernels import rank_update
     return dict(sorted(rank_update.RANKS["rank_update_batched"].items()))
+
+
+def out_ranks() -> dict:
+    """rank_update_batched_out's launches since the last reset, by K."""
+    from repro_torch.kernels import rank_update
+    return dict(sorted(
+        rank_update.RANKS["rank_update_batched_out"].items()))
 
 
 def check_launches(label: str, got: dict, expect: dict) -> None:
@@ -453,11 +473,13 @@ def check_kernels(flops_peak: float, bytes_peak: float):
     out = {name: [] for name in SOURCES}
 
     # (n, p, T, k): the main path's applies (matrix powers' views at every K
-    # of a batch of 16, OLS X and Z/W), a ragged shape, and T > 1 stacks
+    # of a batch of 16, OLS X and Z/W, phase 16f's ring at order 1: G at
+    # K = 2, Y and W at K = 1), a ragged shape, and T > 1 stacks
     batched_cases = [(10000, 10000, 1, K)
                      for K in (1, 16, 32, 64, 128, 256)] + [
         (8192, 8192, 1, 2), (8192, 8192, 1, 32),
         (16384, 8192, 1, 1), (16384, 8192, 1, 16),
+        (FIVM_FEATURES, FIVM_FEATURES, 1, 2), (FIVM_CAPACITY, 1, 1, 1),
         (37, 101, 1, 5), (1000, 777, 4, 3), (10000, 10000, 16, 1)]
     single_cases = [(10000, 10000, 1), (16384, 8192, 1), (37, 101, 5)]
     cases = [("rank_update_batched", c) for c in batched_cases] + \
@@ -488,13 +510,20 @@ def check_kernels(flops_peak: float, bytes_peak: float):
                lib_ms, 8.0 * n * p + 4.0 * K * (n + p), 2.0 * n * p * K)
         del m0, u, v, u2, v2, work
 
-    # the out-of-place entry (every apply of a guarded firing) at matrix
-    # powers' K of single updates and batches, and a ragged shape: held
-    # to the plain version and, bit for bit, to the in-place entry, its
-    # source untouched and its flag clear; the library call is an
-    # out-of-place torch.addmm
-    for n, p, k in [(10000, 10000, K) for K in (1, 16, 64, 256)] + [
-            (37, 101, 5)]:
+    # the out-of-place entry (every apply of a guarded firing, and of a
+    # deferred engine's firings and folds) at matrix powers' K: single
+    # updates and batches (a rank-1 firing's chain at K = 1, 2, 4, 8, 16,
+    # as 16b's window-4 folds), phase 16a's banked inputs (K = 32, 64, 128)
+    # and its fold sweeps, whose chain doubles K at each power (64 x 2^4
+    # for order 2, 128 x 2^4 for order 3); phase 16f's banked X, Y and W
+    # applies at order 2 (two or three events a window); and a ragged
+    # shape.  Each is held to the plain version and, bit for bit, to the
+    # in-place entry, its source untouched and its flag clear; the
+    # library call is an out-of-place torch.addmm
+    for n, p, k in [(10000, 10000, K) for K in (
+            1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)] + [
+            (FIVM_CAPACITY, FIVM_FEATURES, K) for K in (2, 3)] + [
+            (FIVM_CAPACITY, 1, K) for K in (2, 3)] + [(37, 101, 5)]:
         m0 = randn(n, p)
         u = randn(1, n, k)
         v = randn(1, p, k)
@@ -558,7 +587,8 @@ def check_kernels(flops_peak: float, bytes_peak: float):
 
     # (n, p, r, k): phase 6's applies to X and to Y1, Y2 (one carrier, and
     # a stacked batch of about 16 x 1 % of the rows at rank 128), phase 7's
-    # to A and S2 and to T1 (one carrier, a batch of 8), a ragged shape.
+    # to A and S2 and to T1 (one carrier, a batch of 8), phase 16f's ring
+    # at order 1 (one event's row of X and of XP = X·R), a ragged shape.
     # ms and device_ms are warm: every launch on the same rows, which stay
     # in L2 where they fit.  cold_ms and cold_device_ms rotate over
     # ROW_COLD_SETS or more RowSets with their own blocks, touching at least
@@ -571,7 +601,9 @@ def check_kernels(flops_peak: float, bytes_peak: float):
                  (CHAIN_N, CHAIN_K, CHAIN_ROWS, CHAIN_RANK),
                  (CHAIN_N, CHAIN_M, 15 * CHAIN_ROWS, 16 * CHAIN_RANK),
                  (GI_N, GI_N, GI_ROWS, 1), (GI_N, GI_P, GI_ROWS, 1),
-                 (GI_N, GI_N, 8 * GI_ROWS, 8), (37, 101, 5, 3)]
+                 (GI_N, GI_N, 8 * GI_ROWS, 8),
+                 (FIVM_CAPACITY, FIVM_FEATURES, 1, 1),
+                 (FIVM_CAPACITY, FIVM_PROJ, 1, 1), (37, 101, 5, 3)]
     for n, p, r, k in row_cases:
         m0 = randn(n, p)
         v = randn(p, k)
@@ -3047,7 +3079,7 @@ def phase_ho_powers() -> dict:
                     read_s.append(time.perf_counter() - r0)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            got, ranks = launches(), dense_ranks()
+            got, ranks, oranks = launches(), dense_ranks(), out_ranks()
             applies = eng.stats.lowrank_applies - s0.lowrank_applies
             fold_applies = folds[name]["fold"] - f0
             entry = ("rank_update_batched_out" if eng._out_of_place
@@ -3067,7 +3099,7 @@ def phase_ho_powers() -> dict:
                 "read_ms": [s * 1e3 for s in read_s],
                 "counters": {k: c1[k] - c0[k] for k in c1},
                 "lowrank_applies": applies, "fold_applies": fold_applies,
-                "launches": got, "dense_ranks": ranks,
+                "launches": got, "dense_ranks": ranks, "out_ranks": oranks,
                 "peak_extra_gib": (torch.cuda.max_memory_allocated() - m0)
                 / 2 ** 30})
             for K, count in ranks.items():
@@ -3554,7 +3586,8 @@ def phase_fivm() -> dict:
     from repro_torch.fleet import FleetConfig, FleetScheduler
     from repro_torch.plan import TriggerCache
     spec = RingSpec(features=FIVM_FEATURES, targets=1,
-                    capacity=FIVM_CAPACITY, model_slots=2, proj_dim=64)
+                    capacity=FIVM_CAPACITY, model_slots=2,
+                    proj_dim=FIVM_PROJ)
     rng = np.random.default_rng(1700)
     boot_X = rng.standard_normal((FIVM_BOOT, spec.features)
                                  ).astype(np.float32)
@@ -3581,7 +3614,7 @@ def phase_fivm() -> dict:
         reset_launches()
         timing = drive_ring(ring, solver, events, FIVM_READ_EVERY)
         torch.cuda.synchronize()
-        got, ranks = launches(), dense_ranks()
+        got, ranks, oranks = launches(), dense_ranks(), out_ranks()
         st = ring.stats
         applies = st.lowrank_applies - s0.lowrank_applies
         rows = st.row_applies - s0.row_applies
@@ -3605,6 +3638,12 @@ def phase_fivm() -> dict:
         # columns in the kernel's order, within an ulp of |x|
         live_err = float(max(np.abs(Xl - Xo).max(), np.abs(Yl - Yo).max())) \
             if Xl.shape == Xo.shape and Yl.shape == Yo.shape else np.inf
+        # XP, which the row kernel writes at order 1, against X·R
+        views = ring.engine.views
+        xp_want = views["X"].double() @ views["R"].double()
+        xp_err = float((views["XP"].double() - xp_want).abs().max()
+                       / max(float(xp_want.abs().max()), 1.0))
+        del views, xp_want
         B_batch = batch_ridge(Xo, Yo, FIVM_LAM)
         ridge_err = float(np.abs(B - B_batch).max()
                           / max(float(np.abs(B_batch).max()), 1.0))
@@ -3627,6 +3666,7 @@ def phase_fivm() -> dict:
         km_s = time.perf_counter() - t0
         km_err = float(np.abs(C - C_batch).max())
         ok = (live_err <= 1e-5 and ridge_err <= FIVM_TOL and moved > 1e-3
+              and xp_err <= FIVM_XP_TOL
               and max(restore.values()) <= FIVM_RESTORE_TOL
               and km_err <= 1e-5)
         recs[label] = {
@@ -3635,8 +3675,9 @@ def phase_fivm() -> dict:
             "folds": st.folds, "fold_reevals": st.fold_reevals,
             "rowlocal_firings": st.rowlocal_firings,
             "row_applies": rows, "lowrank_applies": applies,
-            "launches": got, "dense_ranks": ranks,
+            "launches": got, "dense_ranks": ranks, "out_ranks": oranks,
             "live_rows_max_abs_err": live_err,
+            "XP_rel_err_vs_X_R_f64": xp_err,
             "ridge_rel_err_vs_batch_f64": ridge_err,
             "ridge_strategies": solver.stats.strategy_log[-4:],
             "insert_moved_G": moved, "insert_delete_rel_resid": restore,
@@ -3715,7 +3756,8 @@ def phase_fivm() -> dict:
                          "stdout": cli.stdout.strip().splitlines()[-2:]}
     rec = {"phase": f"fivm_f{FIVM_FEATURES}_c{FIVM_CAPACITY}", **recs,
            "ridge_tolerance": FIVM_TOL,
-           "restore_tolerance": FIVM_RESTORE_TOL, "launches": total,
+           "restore_tolerance": FIVM_RESTORE_TOL,
+           "xp_tolerance": FIVM_XP_TOL, "launches": total,
            "dense_ranks": by_k}
     log("main " + json.dumps(rec))
     return rec
@@ -3872,6 +3914,11 @@ def main() -> int:
                                  for ph in phases):
         raise AssertionError(f"launches by K {by_k} do not sum to the "
                              "launches of rank_update_batched")
+    # the out-of-place entry's, read at every main-path drive (phases 14-16)
+    if sum(OUT_RANKS.values()) != sum(
+            ph["launches"]["rank_update_batched_out"] for ph in phases):
+        raise AssertionError(f"launches by K {OUT_RANKS} do not sum to the "
+                             "launches of rank_update_batched_out")
     kernels = []
     for entry, recs in shapes.items():
         head = next(r for r in recs
@@ -3892,6 +3939,12 @@ def main() -> int:
                                "dtype")}})
         if entry == "rank_update_batched":
             kernels[-1]["launches_by_K"] = dict(sorted(by_k.items()))
+        if entry == "rank_update_batched_out":
+            kernels[-1]["launches_by_K"] = dict(sorted(OUT_RANKS.items()))
+        if entry in ("rank_update_batched", "rank_update_batched_out"):
+            # the K that phase 3 held against the plain version, any shape
+            kernels[-1]["checked_K"] = sorted(
+                {r["T"] * r["k"] for r in recs})
         for key in ("device_ms", "kernel_sum_ms", "host_us",
                     "library_device_ms", "library_kernel_sum_ms",
                     "library_host_us"):

@@ -305,7 +305,7 @@ def planned_trigger_sets(trigger: Trigger, program: Program,
 def build_trigger_fn(trigger: Trigger, program: Program,
                      binding: Optional[Dict[str, int]] = None,
                      device=None, *, reeval_views=(), lazy_views=(),
-                     out_of_place: bool = False, skip_input: bool = False
+                     out_of_place: bool = False
                      ) -> Callable[[Env, torch.Tensor, torch.Tensor], Env]:
     """Stage a trigger into ``(views, U, V) -> views``.
 
@@ -333,8 +333,6 @@ def build_trigger_fn(trigger: Trigger, program: Program,
     before it, so no factor needs a copy, and ``run(views, U, V,
     nonfinite)`` takes an optional one-element int32 flag on the views'
     device that the applies set when a value they store is not finite.
-    ``skip_input`` drops the input's own update (a deferred window's fold
-    sweeps the views from a base whose input it does not need).
 
     Run attributes: ``reeval_views``, ``recomputes`` (re-evaluated plus
     pulled-in lazy views), ``skipped`` (lazy views left stale),
@@ -347,8 +345,6 @@ def build_trigger_fn(trigger: Trigger, program: Program,
     binding = dict(program.dims if binding is None else binding)
     assigns, updates, statements, skipped = planned_trigger_sets(
         trigger, program, reeval_views, lazy_views)
-    if skip_input:
-        updates = [up for up in updates if up.view != trigger.input_name]
     written = tuple(dict.fromkeys(up.view for up in updates))
 
     def run(views: Env, u: torch.Tensor, v: torch.Tensor,

@@ -444,9 +444,11 @@ class DeltaCarrier:
         """The (n, m) shape of the carried delta."""
         raise NotImplementedError
 
-    def factors(self) -> Tuple[np.ndarray, np.ndarray]:
+    def factors(self, device=None):
         """Widen to dense-shaped ``(P, Q)`` float32 factors (the oracle
-        representation every carrier must agree with exactly)."""
+        representation every carrier must agree with exactly): numpy
+        arrays, or float32 tensors on ``device`` when one is given, with
+        the same values bit for bit."""
         raise NotImplementedError
 
     def affected_fraction(self) -> float:
@@ -494,8 +496,10 @@ class LowRankCarrier(DeltaCarrier):
     def nm(self) -> Tuple[int, int]:
         return int(self.P.shape[0]), int(self.Q.shape[0])
 
-    def factors(self) -> Tuple[np.ndarray, np.ndarray]:
-        return self.P, self.Q
+    def factors(self, device=None):
+        if device is None:
+            return self.P, self.Q
+        return to_f32(self.P, device), to_f32(self.Q, device)
 
     def norm_bound(self) -> float:
         return float(np.linalg.norm(self.P)) * float(np.linalg.norm(self.Q))
@@ -550,11 +554,19 @@ class RowLocalCarrier(DeltaCarrier):
     def affected_fraction(self) -> float:
         return self.rows_touched / max(int(self.n), 1)
 
-    def factors(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Widen: scatter the compact block into a dense-shaped P."""
-        P = np.zeros((int(self.n), self.rank), dtype=np.float32)
-        P[self.rows] = self.block
-        return P, self.V
+    def factors(self, device=None):
+        """Widen: scatter the compact block into a dense-shaped P.  On a
+        ``device`` P is made there (zeros and an index write), not on the
+        host and uploaded: at 2²⁰ rows that is 4 MB a rank."""
+        if device is None:
+            P = np.zeros((int(self.n), self.rank), dtype=np.float32)
+            P[self.rows] = self.block
+            return P, self.V
+        P = torch.zeros((int(self.n), self.rank), dtype=torch.float32,
+                        device=device)
+        P[torch.as_tensor(self.rows, dtype=torch.long,
+                          device=device)] = to_f32(self.block, device)
+        return P, to_f32(self.V, device)
 
     def norm_bound(self) -> float:
         return (float(np.linalg.norm(self.block))
@@ -596,9 +608,12 @@ class NoOpCarrier(DeltaCarrier):
     def affected_fraction(self) -> float:
         return 0.0
 
-    def factors(self) -> Tuple[np.ndarray, np.ndarray]:
-        return (np.zeros((int(self.n), 1), np.float32),
-                np.zeros((int(self.m), 1), np.float32))
+    def factors(self, device=None):
+        P = np.zeros((int(self.n), 1), np.float32)
+        Q = np.zeros((int(self.m), 1), np.float32)
+        if device is None:
+            return P, Q
+        return to_f32(P, device), to_f32(Q, device)
 
     def norm_bound(self) -> float:
         return 0.0

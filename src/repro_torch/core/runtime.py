@@ -277,10 +277,8 @@ class IncrementalEngine:
         self._planned_fns: Dict[Tuple, Callable] = {}
         # row-local triggers, keyed by (input, bucket rank); built lazily
         self._rowlocal_fns: Dict[Tuple[str, int], Callable] = {}
-        # Δᵈ triggers, keyed by (input, depth, bucket); window folds'
-        # sweeps, keyed by (input, bucket, lazy)
+        # Δᵈ triggers, keyed by (input, depth, bucket)
         self._delta_fns: Dict[Tuple[str, int, int], Callable] = {}
-        self._fold_fns: Dict[Tuple, Callable] = {}
         self.max_batch_rank = max_batch_rank
         self.recompress_tol = recompress_tol
         self.flush_size = flush_size
@@ -468,7 +466,7 @@ class IncrementalEngine:
         last fold.  The banked factors are exact (never rank-capped), so
         the input is bitwise a function of the update stream alone —
         replay engines folding on the same cadence reproduce it.  Returns
-        the stacked factors per input (``(P, Q, n_pairs)``) so the fold's
+        the stacked factors per input (``(P, Q, pairs)``) so the fold's
         sweep can reuse them instead of re-stacking the same window."""
         stacked: Dict[str, Tuple] = {}
         for input_name, pairs in self._pending_input.items():
@@ -478,7 +476,7 @@ class IncrementalEngine:
             self.views[input_name] = ops.rank_update_batched_out(
                 self.views[input_name], P, Q)
             self.stats.lowrank_applies += 1
-            stacked[input_name] = (P, Q, len(pairs))
+            stacked[input_name] = (P, Q, list(pairs))
             pairs.clear()
         return stacked
 
@@ -576,17 +574,17 @@ class IncrementalEngine:
         """Single-input window fold: stack the window's factors and sweep
         each affected view ONCE from the tier's window-start base (the
         trigger's pre-update contract makes this exact), falling back to
-        re-evaluation per view past its §7 crossover at the window rank.
-        The sweep's trigger fn leaves the input alone (the window base
-        holds the window-start input; the current one is already
-        there)."""
+        re-evaluation per view past its §7 crossover at the window rank."""
         from .cost import batched_strategy
         fs = self._tier_factors[o][input_name]
         pre = self._fold_prestacked.get(input_name)
-        if pre is not None and pre[2] == len(fs):
-            # this tier's window is exactly the pending-input set the fold
-            # just applied (both are "every update since time X"
-            # append-only logs, so equal length means equal content)
+        if pre is not None and len(pre[2]) == len(fs) and all(
+                a is pa and b is pb
+                for (a, b), (pa, pb) in zip(fs, pre[2])):
+            # this tier's window holds the very factors the fold just
+            # applied to the input.  Equal length alone is not enough: a
+            # window re-compressed at the rank cap, or older than the
+            # last fold of a lower tier, can count as many entries
             P, Q = pre[0], pre[1]
         else:
             P, Q = stack_update_arrays(fs, self.device)
@@ -607,8 +605,10 @@ class IncrementalEngine:
             Pb, Qb = pad_factors_to_rank(P, Q, bucket)
             trig_targets = {up.view for up in
                             self.compiled.triggers[input_name].updates}
-            lazy = frozenset((trig_targets - {input_name}) - sweep)
-            fn = self._fold_trigger_fn(input_name, bucket, lazy)
+            maintained = {st.target.name for st in self.program.statements}
+            lazy = frozenset((maintained & trig_targets) - sweep)
+            fn = self._planned_trigger_fn(input_name, bucket,
+                                          frozenset(), lazy)
             out = fn(dict(self._tier_base[o]), Pb, Qb)
             self.stats.lowrank_applies += fn.lowrank_applies
             for name in sweep:
@@ -779,23 +779,6 @@ class IncrementalEngine:
                     self.binding, self.device, reeval_views=reeval,
                     lazy_views=lazy, out_of_place=self._out_of_place))
             self._planned_fns[key] = fn
-        return fn
-
-    def _fold_trigger_fn(self, input_name: str, bucket: int,
-                         lazy: FrozenSet[str]) -> Callable:
-        """A window fold's sweep for (input, bucket): the views not in
-        ``lazy`` incrementally, out of place, and not the input's own
-        update (the fold sweeps from a base whose input it discards)."""
-        key = (input_name, bucket, tuple(sorted(lazy)))
-        fn = self._fold_fns.get(key)
-        if fn is None:
-            fn = self._cached_build(
-                ("fold",) + key,
-                lambda: build_trigger_fn(
-                    self._bucket_trigger(input_name, bucket), self.program,
-                    self.binding, self.device, lazy_views=lazy,
-                    out_of_place=True, skip_input=True))
-            self._fold_fns[key] = fn
         return fn
 
     def _accumulate(self, views, rank: int) -> None:
@@ -1161,23 +1144,8 @@ class IncrementalEngine:
             if self._rowlocal_ok(input_name, carrier):
                 return self._apply_rowlocal(input_name, carrier, block=block)
             self.stats.widened_carriers += 1
-        P, Q = self._widen(carrier)
+        P, Q = carrier.factors(self.device)
         return self.apply_update(input_name, P, Q, block=block)
-
-    def _widen(self, carrier: DeltaCarrier):
-        """A carrier's dense factors.  A row-local carrier's scattered
-        ``P`` is made on the engine's device (zeros and an index write)
-        rather than on the host and uploaded — at 2²⁰ rows that is 4 MB a
-        rank a carrier; its values are the host widening's, bit for
-        bit."""
-        if carrier.kind != "row_local":
-            return carrier.factors()
-        block = to_f32(carrier.block, self.device)
-        P = torch.zeros((int(carrier.n), block.shape[1]),
-                        dtype=torch.float32, device=self.device)
-        P[torch.as_tensor(carrier.rows, dtype=torch.long,
-                          device=self.device)] = block
-        return P, to_f32(carrier.V, self.device)
 
     def _apply_rowlocal(self, input_name: str, carrier: RowLocalCarrier,
                         block: bool = False, t_count: int = 1,
@@ -1287,7 +1255,7 @@ class IncrementalEngine:
             self.stats.widened_carriers += \
                 sum(1 for c in live if c.kind == "row_local")
             return self.apply_updates(input_name,
-                                      [self._widen(c) for c in live],
+                                      [c.factors(self.device) for c in live],
                                       block=block)
         if self.chaos is not None:
             # one poison gate a member, compactly: the draws of the dense

@@ -713,3 +713,18 @@ def test_deferred_ring_on_card_matches_cpu(cuda):
     B = RidgeSolver(gpu, lam=0.1).coefficients()
     Xl, Yl = gpu.live_data()
     assert np.abs(B - batch_ridge(Xl, Yl, 0.1)).max() < 1e-4
+
+
+def test_carrier_widening_on_card_equals_host_widening(cuda):
+    """A row-local carrier widened on the card (the engine's path when
+    it cannot fire the row kernel) equals the host widening bit for bit,
+    at a scale where the scattered rows are far apart."""
+    from repro_torch.core.factored import RowLocalCarrier
+    rng = np.random.default_rng(0)
+    n = 2 ** 20
+    rows = np.sort(rng.choice(n, 64, replace=False)).astype(np.int32)
+    c = RowLocalCarrier(rows, rng.standard_normal((64, 3)).astype(np.float32),
+                        rng.standard_normal((256, 3)).astype(np.float32), n)
+    for h, d in zip(c.factors(), c.factors(cuda)):
+        assert d.device.type == "cuda" and d.dtype == torch.float32
+        assert torch.equal(d.cpu(), torch.from_numpy(h))

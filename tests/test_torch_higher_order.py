@@ -598,7 +598,8 @@ def test_mixed_depth_base_snapshot_is_never_moved(seed):
 def test_banking_launches_nothing_and_a_fold_counts_its_applies():
     """A firing that only banks applies nothing; a fold applies the dense
     kernel once per banked input and once per low-rank apply of its
-    sweep."""
+    sweep, which is the firing's own trigger fn (the input's apply
+    included, its result discarded, as the reference's fold does)."""
     tprog = tapps.build_powers_program(4, 48)
     rng = np.random.default_rng(5)
     inputs = _gen_inputs(tprog, rng, {"A": 0.05})
@@ -616,8 +617,8 @@ def test_banking_launches_nothing_and_a_fold_counts_its_applies():
     eng.apply_update("A", *one[3])
     assert eng.stats.folds == 1
     assert eng.stats.fold_sweeps == len(_stmts(tprog))
-    sweep = eng._fold_trigger_fn("A", 4, frozenset())
-    assert sweep.lowrank_applies == len(_stmts(tprog))   # the input's not
+    sweep = eng._planned_trigger_fn("A", 4)
+    assert sweep.lowrank_applies == len(_stmts(tprog)) + 1
     assert eng.stats.lowrank_applies == 1 + sweep.lowrank_applies
     assert not any(eng._pending_input.values())
 
@@ -647,3 +648,31 @@ def test_snapshot_restores_banked_inputs():
         e.flush()
     assert eng.stats.folds == clean.stats.folds > 0
     assert max_abs_diff(eng.views, clean.views) == 0.0
+
+
+def test_recompressed_tier3_window_sweeps_its_own_factors():
+    """Tiers 2 and 3 under single rank-8 updates at the default rank cap
+    of 64: at the 9th firing the tier-3 window (rank 72) is re-compressed
+    to one entry, and the banked inputs hold one pair (tier 2 folded at
+    the 8th).  Equal length is then no proof of equal content: a read
+    must sweep tier 3 with its whole window, not with the 9th firing's
+    factors alone, and match re-evaluation."""
+    tprog = tapps.build_powers_program(16, 48)
+    rng = np.random.default_rng(23)
+    inputs = _gen_inputs(tprog, rng, {"A": 0.2})
+    order = {"P2": 2, "P4": 2, "P8": 2, "P16": 3}
+    eng = IncrementalEngine(tprog, order=order, fold_window=4, **CPU)
+    ref = ReevalEngine(tprog, **CPU)
+    for e in (eng, ref):
+        e.initialize(inputs)
+    for _ in range(9):
+        u = (rng.standard_normal((48, 8)) * 0.02).astype(np.float32)
+        v = (rng.standard_normal((48, 8)) * 0.02).astype(np.float32)
+        eng.apply_update("A", u, v)
+        ref.apply_update("A", u, v)
+    assert eng.stats.recompressions >= 1
+    assert len(eng._tier_factors[3]["A"]) == 1
+    assert sum(len(p) for p in eng._pending_input.values()) == 1
+    eng.output()
+    assert eng.stats.fold_sweeps > 0
+    _assert_views(eng.views, ref.views, _stmts(tprog), 1e-6, "tier 3: ")

@@ -132,6 +132,31 @@ def test_carrier_methods_match_jax(seed):
     assert tn.is_noop() and tn.negate() is tn
 
 
+def _widening_carriers(seed):
+    rng = np.random.default_rng(seed)
+    rows = np.sort(rng.choice(30, 5, replace=False)).astype(np.int32)
+    block = rng.standard_normal((5, 2)).astype(np.float32)
+    V = rng.standard_normal((7, 2)).astype(np.float32)
+    P, Q = (rng.standard_normal((30, 3)).astype(np.float32),
+            rng.standard_normal((7, 3)).astype(np.float32))
+    return [tf.RowLocalCarrier(rows, block, V, 30), tf.LowRankCarrier(P, Q),
+            tf.NoOpCarrier(30, 7)]
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2])
+def test_carrier_widening_on_a_device_equals_the_host_widening(kind):
+    """``factors(device)`` (a row-local carrier's P built where the
+    engine runs: zeros and an index write) holds the host widening's
+    values bit for bit, as float32 tensors on that device."""
+    c = _widening_carriers(kind)[kind]
+    host = c.factors()
+    dev = c.factors("cpu")
+    for h, d in zip(host, dev):
+        assert isinstance(h, np.ndarray) and isinstance(d, torch.Tensor)
+        assert d.dtype == torch.float32 and d.device.type == "cpu"
+        np.testing.assert_array_equal(d.numpy(), h)
+
+
 def test_row_delta_and_as_carrier_match_jax():
     V = np.arange(12, dtype=np.float32).reshape(4, 3)
     for weight in (1.0, -1.0):
