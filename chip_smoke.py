@@ -18,7 +18,9 @@ CUDA toolkit.  Phases, each of which raises on failure:
    prefill kernel's records with its achieved TFLOP/s and share of the
    bf16 tensor-core peak); the row kernel also cold (rotating RowSets),
    by the profiler, and its host time; the dual kernel and the library
-   pair by the profiler and their host times.
+   pair by the profiler and their host times; the flash kernels also at
+   phase 17's shapes (paligemma's prefix of 256 and head dim 256, bf16
+   and f32; hubert's full attention; qwen2-moe's and qwen3-moe's heads).
 4. matrix powers A^16 (n = 10000, exp model, the paper's size): 8 single
    updates, one batch of 16, 20 queued updates with a final flush, all
    replayed through the re-evaluation engine and compared view by view;
@@ -158,6 +160,27 @@ CUDA toolkit.  Phases, each of which raises on failure:
        insert-then-delete, k-means centroids, the row kernel at order 1),
        a fleet-hosted ring tenant's staleness against its SLO, and
        ``python -m repro_torch.launch.serve --fivm`` at this size.
+17. the moe, vlm and audio families at published widths, bf16, each
+    run's launches one flash_attention a layer for its prefill or forward
+    and one flash_decode a layer a step; seconds of each part, its peak
+    memory:
+    a. qwen2-moe-a2.7b (24 layers, 60 experts top-4 and 4 shared, 14.3 B
+       params) behind the ServeEngine: 8 prompts of 1024 tokens, 32
+       greedy steps; one decode step and one prefill split by the
+       profiler (attention, router and dispatch, expert products,
+       combine, shared expert, head); an f32 cut of 4 layers at the same
+       widths (B = 2, 256 tokens, 32 steps, T*k <= 4096 so nothing is
+       dropped): decode logits and greedy tokens against forward's;
+    b. qwen3-moe-235b-a22b at full width, 2 of its 94 layers (128
+       experts top-8, decode at a group of 16): prefill and 8 steps;
+    c. paligemma-3b (hd 256, MQA) through LM.prefill on 256 patches and
+       768 tokens, then 32 LM.decode_step calls; an f32 cut of 4 layers:
+       prefill logits against forward's, decode logits against a longer
+       forward's over the tokens fed, and a patch perturbed at the end of
+       the prefix moving the logits at position 0;
+    d. hubert-xlarge's encoder (48 layers, full attention) over 8 x 1024
+       frames; an f32 cut of 4 layers on the card against the same cut
+       on the CPU (the plain versions).
 
 Every launch count is set to 0 just before a phase drives its engines and
 read just after; the counts of each kernel must equal the applies (or
@@ -171,7 +194,9 @@ or outside a checkout, the script prints no result and exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -219,7 +244,7 @@ GI_N, GI_P, GI_K, GI_ROWS = 10000, 128, 16, 100
 # phases 10-12: h2o-danube-1.8b serving (arXiv:2401.16818)
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "h2o-danube-1.8b", 8, \
     4096, 32
-EXACT_LAYERS = 4            # phase 11's depth, cut from 24
+EXACT_LAYERS = 4            # phase 11's depth, cut from 24; phase 17's cuts
 HOT_SWAPS = 8               # phase 12's rank-1 head deltas
 # phase 15: 8 logit-view tenants, each over its own 4096 of phase 12's
 # 32768 hidden states; 3 timed rounds of 8 hot-swaps a tenant; 15b's
@@ -256,6 +281,27 @@ FIVM_RESTORE_TOL = 1e-5
 # dot product of 256 terms (a few 1e-7); a row the row kernel misses,
 # doubles or writes to the wrong place moves it by O(1)
 FIVM_XP_TOL = 1e-5
+
+# phase 17: the transformer families at published widths.  17a serves
+# qwen2-moe-a2.7b (hf:Qwen/Qwen1.5-MoE-A2.7B) at full depth on prompts of
+# 1024 tokens (the head's f32 logits at every prefill position would take
+# 20 GB at 8 x 4096); its f32 cut keeps T*k <= 4096 in forward and decode,
+# so both take the dense-safe capacity and drop nothing
+MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_NEW = "qwen2-moe-a2.7b", 8, 1024, 32
+MOE_CUT_BATCH, MOE_CUT_PROMPT = 2, 256
+# 17b: qwen3-moe-235b-a22b at full width, 2 of its 94 layers (all 94 take
+# 470 GB in bf16)
+QWEN3_ARCH, QWEN3_LAYERS, QWEN3_BATCH, QWEN3_PROMPT, QWEN3_NEW = \
+    "qwen3-moe-235b-a22b", 2, 4, 512, 8
+# 17c: paligemma-3b, 256 image patches and 768 text tokens, 32 decode steps
+# in a cache of VLM_MAX_SEQ slots; its f32 cut on VLM_CUT_TEXT tokens
+VLM_ARCH, VLM_BATCH, VLM_PATCHES, VLM_TEXT, VLM_NEW = "paligemma-3b", 4, \
+    256, 768, 32
+VLM_MAX_SEQ = VLM_PATCHES + VLM_TEXT + VLM_NEW
+VLM_CUT_BATCH, VLM_CUT_TEXT = 2, 256
+# 17d: hubert-xlarge's encoder over 8 x 1024 frames; its f32 cut on 2
+AUDIO_ARCH, AUDIO_BATCH, AUDIO_FRAMES, AUDIO_CUT_BATCH = "hubert-xlarge", \
+    8, 1024, 2
 
 # Tolerance of an attention kernel against its plain version.  f32: the
 # kernel tolerance above.  bf16: the plain versions keep p in f32, the
@@ -681,13 +727,16 @@ def check_kernels(flops_peak: float, bytes_peak: float):
 
 # -- phase 3, the flash kernels -------------------------------------------------
 
-def attention_pairs(s: int, causal: bool, window) -> int:
-    """Query-key pairs the mask keeps over a length-s sequence."""
+def attention_pairs(s: int, causal: bool, window, prefix: int = 0) -> int:
+    """Query-key pairs the mask keeps over a length-s sequence: under the
+    causal mask query qp keeps keys up to qp, or up to prefix - 1 inside
+    the prefix (the prefix's square is counted whole), then the window."""
     import numpy as np
     qp = np.arange(s, dtype=np.int64)
-    hi = qp if causal else np.full(s, s - 1, dtype=np.int64)
+    hi = np.where(qp < prefix, prefix - 1, qp) if causal \
+        else np.full(s, s - 1, dtype=np.int64)
     lo = np.maximum(0, qp - window + 1) if window else np.zeros(s, np.int64)
-    return int((hi - lo + 1).sum())
+    return int(np.maximum(0, hi - lo + 1).sum())
 
 
 def attention_record(entry, shape, err, ms, plain_ms, lib_ms, nbytes, flops,
@@ -713,34 +762,36 @@ def attention_record(entry, shape, err, ms, plain_ms, lib_ms, nbytes, flops,
 
 
 def check_flash_attention(q, k, v, causal, window, peaks_, label,
-                          timed=True) -> dict:
+                          timed=True, prefix=0) -> dict:
     """The flash-attention kernel against its plain version (and timed
-    against it and SDPA) on q (B,S,H,hd), k/v (B,S,KV,hd)."""
+    against it and SDPA) on q (B,S,H,hd), k/v (B,S,KV,hd), the first
+    ``prefix`` positions bidirectional under the causal mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as cuda_fa
     from repro_torch.kernels import ref
     b, s, h, hd = q.shape
     dtype = str(q.dtype).replace("torch.", "")
-    got = cuda_fa.flash_attention(q, k, v, causal=causal, window=window)
-    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    opts = dict(causal=causal, window=window, prefix_len=prefix)
+    got = cuda_fa.flash_attention(q, k, v, **opts)
+    want = ref.flash_attention(q, k, v, **opts)
     torch.cuda.synchronize()
     err = check_close(f"flash_attention {label}", got, want,
                       *ATTN_TOL[dtype])
     del got, want
     shape = {"b": b, "s": s, "h": h, "kvh": k.shape[2], "hd": hd,
-             "causal": causal, "window": window, "case": label}
+             "causal": causal, "window": window, "prefix": prefix,
+             "case": label}
     if not timed:
         return {"case": label, "max_abs_err": err}
-    ms = time_ms(lambda: cuda_fa.flash_attention(q, k, v, causal=causal,
-                                                  window=window))
-    plain_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=causal,
-                                                   window=window))
+    ms = time_ms(lambda: cuda_fa.flash_attention(q, k, v, **opts))
+    plain_ms = time_ms(lambda: ref.flash_attention(q, k, v, **opts))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     mask = None
-    if window is not None and window < s:
+    if (window is not None and window < s) or (causal and prefix > 0):
+        # the explicit keep-mask: a window, or the prefix-LM term
         pos = torch.arange(s, device=q.device)
-        mask = ref.attention_keep(pos, pos, causal=causal, window=window)
+        mask = ref.attention_keep(pos, pos, **opts)
         # SDPA's fused kernels take no mask under enable_gqa (its math
         # path would build every score), so give it the expanded heads
         kt, vt = (x.repeat_interleave(h // k.shape[2], dim=1)
@@ -751,7 +802,7 @@ def check_flash_attention(q, k, v, causal, window, peaks_, label,
     del kt, vt
     item = q.element_size()
     nbytes = item * (2 * q.numel() + 2 * k.numel())
-    flops = 4.0 * b * h * hd * attention_pairs(s, causal, window)
+    flops = 4.0 * b * h * hd * attention_pairs(s, causal, window, prefix)
     return attention_record("flash_attention", shape, err, ms, plain_ms,
                             lib_ms, nbytes, flops, dtype, *peaks_)
 
@@ -846,8 +897,13 @@ def check_flash_kernels(peaks_) -> dict:
     """Phase 3's flash cases: danube's prefill (B=8, S=4096, H=32, KV=8,
     hd=80, its 4096 window) in bf16 and, at phase 11's ragged 4128, in
     bf16 and f32; starcoder2's heads (H=36, KV=4, hd=128); a window
-    shorter than S; a ragged S; decode over danube's 4096-slot ring at n_valid 1, 2049 and
-    4096 (a wrapped ring is full), bf16 and f32, and starcoder2's."""
+    shorter than S; a ragged S; decode over danube's 4096-slot ring at
+    n_valid 1, 2049 and 4096 (a wrapped ring is full), bf16 and f32, and
+    starcoder2's.  Phase 17's shapes: paligemma's prefill (B=4, S=1024,
+    H=8, KV=1, hd=256, a prefix of 256) in bf16 and f32, hubert's (H=KV=16,
+    hd=80, full attention) and qwen2-moe's (H=KV=16, hd=128); decode for
+    qwen2-moe, qwen3-moe (a group of 16) and paligemma (hd 256, bf16 and
+    f32, L = n_valid = 1056)."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(1)
 
@@ -856,18 +912,28 @@ def check_flash_kernels(peaks_) -> dict:
 
     bf16, f32 = torch.bfloat16, torch.float32
     out = {"flash_attention": [], "flash_decode": []}
-    # (label, b, s, h, kvh, hd, window, dtype)
-    for label, b, s, h, kvh, hd, window, dt in [
-            ("danube_prefill_bf16", 8, 4096, 32, 8, 80, 4096, bf16),
-            ("danube_prefill_bf16_s4128", 8, 4128, 32, 8, 80, 4096, bf16),
-            ("danube_prefill_f32_s4128", 8, 4128, 32, 8, 80, 4096, f32),
-            ("starcoder2_bf16", 2, 4096, 36, 4, 128, None, bf16),
-            ("window1024_bf16", 2, 4096, 32, 8, 80, 1024, bf16),
-            ("ragged_s1000_bf16", 2, 1000, 32, 8, 80, None, bf16)]:
+    # (label, b, s, h, kvh, hd, window, dtype, causal, prefix)
+    for label, b, s, h, kvh, hd, window, dt, causal, prefix in [
+            ("danube_prefill_bf16", 8, 4096, 32, 8, 80, 4096, bf16, True, 0),
+            ("danube_prefill_bf16_s4128", 8, 4128, 32, 8, 80, 4096, bf16,
+             True, 0),
+            ("danube_prefill_f32_s4128", 8, 4128, 32, 8, 80, 4096, f32,
+             True, 0),
+            ("starcoder2_bf16", 2, 4096, 36, 4, 128, None, bf16, True, 0),
+            ("window1024_bf16", 2, 4096, 32, 8, 80, 1024, bf16, True, 0),
+            ("ragged_s1000_bf16", 2, 1000, 32, 8, 80, None, bf16, True, 0),
+            ("paligemma_prefill_bf16", VLM_BATCH, VLM_PATCHES + VLM_TEXT, 8,
+             1, 256, None, bf16, True, VLM_PATCHES),
+            ("paligemma_prefill_f32", VLM_BATCH, VLM_PATCHES + VLM_TEXT, 8,
+             1, 256, None, f32, True, VLM_PATCHES),
+            ("hubert_prefill_bf16", AUDIO_BATCH, AUDIO_FRAMES, 16, 16, 80,
+             None, bf16, False, 0),
+            ("qwen2_moe_prefill_bf16", MOE_BATCH, MOE_PROMPT, 16, 16, 128,
+             None, bf16, True, 0)]:
         q = randn(b, s, h, hd, dtype=dt)
         k, v = randn(b, s, kvh, hd, dtype=dt), randn(b, s, kvh, hd, dtype=dt)
         out["flash_attention"].append(check_flash_attention(
-            q, k, v, True, window, peaks_, label))
+            q, k, v, causal, window, peaks_, label, prefix=prefix))
         del q, k, v
         torch.cuda.empty_cache()
     # (label, b, L, h, kvh, hd, n_valid, dtype)
@@ -876,7 +942,15 @@ def check_flash_kernels(peaks_) -> dict:
             ("danube_decode_bf16_n2049", 8, 4096, 32, 8, 80, 2049, bf16),
             ("danube_decode_bf16_wrapped", 8, 4096, 32, 8, 80, 4096, bf16),
             ("danube_decode_f32_wrapped", 8, 4096, 32, 8, 80, 4096, f32),
-            ("starcoder2_decode_bf16", 8, 4096, 36, 4, 128, 4096, bf16)]:
+            ("starcoder2_decode_bf16", 8, 4096, 36, 4, 128, 4096, bf16),
+            ("qwen2_moe_decode_bf16", MOE_BATCH, MOE_PROMPT + MOE_NEW, 16,
+             16, 128, MOE_PROMPT + MOE_NEW, bf16),
+            ("qwen3_moe_decode_bf16", QWEN3_BATCH, QWEN3_PROMPT + QWEN3_NEW,
+             64, 4, 128, QWEN3_PROMPT + QWEN3_NEW, bf16),
+            ("paligemma_decode_bf16", VLM_BATCH, VLM_MAX_SEQ, 8, 1, 256,
+             VLM_MAX_SEQ, bf16),
+            ("paligemma_decode_f32", VLM_BATCH, VLM_MAX_SEQ, 8, 1, 256,
+             VLM_MAX_SEQ, f32)]:
         q = randn(b, h, hd, dtype=dt)
         kc, vc = (randn(b, L, kvh, hd, dtype=dt) for _ in range(2))
         out["flash_decode"].append(check_flash_decode(
@@ -1227,8 +1301,8 @@ def serve_engine(n_layers=None, dtype=None, seed=0):
                        max_seq=SERVE_PROMPT + SERVE_NEW)
 
 
-def serve(eng, prompts):
-    """Prefill and SERVE_NEW greedy decode steps through the engine's
+def serve(eng, prompts, new: int = SERVE_NEW):
+    """Prefill and ``new`` greedy decode steps through the engine's
     entry points; returns (last logits of the prefill, the logits of each
     step, the tokens, prefill seconds, seconds of each step)."""
     import torch
@@ -1239,7 +1313,7 @@ def serve(eng, prompts):
     prefill_s = time.perf_counter() - t0
     tok = eng.sample(last)
     steps, toks, step_s = [], [tok], []
-    for _ in range(SERVE_NEW):
+    for _ in range(new):
         t0 = time.perf_counter()
         logits = eng.decode(tok)
         tok = eng.sample(logits)
@@ -1424,33 +1498,44 @@ def phase_serve_exact() -> dict:
     full, _ = eng.model.forward(eng.params, {"tokens": seq})
     want = full[:, SERVE_PROMPT - 1:]                 # (B, 1 + NEW, V)
     del full
-    got_logits = torch.stack([last, *steps], dim=1)[:, :want.shape[1]]
+    rec = {"phase": label, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "positions": [SERVE_PROMPT - 1, SERVE_PROMPT + SERVE_NEW - 1],
+           "launches": got,
+           **check_decode(label, torch.stack([last, *steps], dim=1), toks,
+                          want),
+           "prefill_ms": 1e3 * prefill_s,
+           "decode_ms_per_step_median": 1e3 * statistics.median(step_s),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def check_decode(label, got_logits, toks, want) -> dict:
+    """Decode logits (B, >= n, V) against forward's ``want`` (B, n, V) at
+    the same positions, within |got - want| <= SERVE_ATOL + SERVE_RTOL
+    |want| on every logit; the greedy tokens (B, >= n) are forward's
+    argmax, up to ties within twice that tolerance."""
+    import torch
+    n = want.shape[1]
+    got_logits = got_logits[:, :n]
     diff = (got_logits - want).abs()
     excess = float((diff - SERVE_RTOL * want.abs()).max())
     if not torch.isfinite(got_logits).all() or excess > SERVE_ATOL:
         raise AssertionError(f"{label}: decode logits differ from forward's "
                              f"by {float(diff.max())} (atol {SERVE_ATOL} + "
                              f"rtol {SERVE_RTOL} |forward|)")
-    # greedy tokens are forward's argmax, up to ties within the tolerance
     fwd_tok = want.argmax(dim=-1)
-    chosen = want.gather(-1, toks[:, :want.shape[1], None].long())[..., 0]
+    chosen = want.gather(-1, toks[:, :n, None].long())[..., 0]
     margin = want.max(dim=-1).values - chosen
-    tied = (toks[:, :want.shape[1]].long() != fwd_tok)
+    tied = (toks[:, :n].long() != fwd_tok)
     tol = 2 * (SERVE_ATOL + SERVE_RTOL * want.abs().max(dim=-1).values)
     if bool((tied & (margin > tol)).any()):
         raise AssertionError(f"{label}: a greedy token is not forward's "
                              "argmax")
-    rec = {"phase": label, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-           "positions": [SERVE_PROMPT - 1, SERVE_PROMPT + SERVE_NEW - 1],
-           "launches": got, "max_abs_err": float(diff.max()),
-           "max_rel_err": float(diff.max() / want.abs().max()),
-           "tolerance": [SERVE_RTOL, SERVE_ATOL],
-           "greedy_mismatches_within_tolerance": int(tied.sum()),
-           "prefill_ms": 1e3 * prefill_s,
-           "decode_ms_per_step_median": 1e3 * statistics.median(step_s),
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    log("main " + json.dumps(rec))
-    return rec
+    return {"max_abs_err": float(diff.max()),
+            "max_rel_err": float(diff.max() / want.abs().max()),
+            "tolerance": [SERVE_RTOL, SERVE_ATOL],
+            "greedy_mismatches_within_tolerance": int(tied.sum())}
 
 
 def phase_logit_view(eng, prompts):
@@ -3788,6 +3873,462 @@ def phase_ho() -> list:
     return recs
 
 
+# -- phase 17: the transformer families at full width ---------------------------
+
+def family_lm(arch: str, n_layers=None, dtype=None, seed: int = 0):
+    """(LM on the card, random params from ``seed``) for ``arch`` at its
+    published widths, cut to ``n_layers`` and cast to ``dtype`` when
+    given."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                              dtype=dtype or cfg.dtype)
+    model = LM(cfg)
+    return model, model.init(torch.Generator(device=DEVICE).manual_seed(seed))
+
+
+def family_batch(cfg, batch: int, seq: int, seed: int) -> dict:
+    """The port's synthetic batch of ``seq`` positions (a vlm's patches
+    included), numpy."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import synth_batch
+    return synth_batch(cfg, ShapeConfig("chip", seq, batch, "prefill"),
+                       seed=seed)
+
+
+def param_bytes(params, skip=()) -> int:
+    return sum(t.numel() * t.element_size()
+               for name, t in flat_params(params) if name not in skip)
+
+
+def decode_read_bytes(model, params, cache_len: int, batch: int) -> int:
+    """Bytes a decode step must read at least: every block's weights (all
+    experts: the dispatch multiplies each at its capacity), the final norm,
+    the head's table, and the KV caches of ``cache_len`` slots, each
+    once."""
+    cfg = model.cfg
+    skip = {"frontend.w", "frontend.b"}
+    if not cfg.tie_embeddings:
+        skip.add("embed.table")      # one row a token
+    kv = 2 * cfg.n_layers * batch * cache_len * cfg.n_kv_heads \
+        * cfg.resolved_head_dim * model.dtype.itemsize
+    return param_bytes(params, skip) + kv
+
+
+@contextlib.contextmanager
+def annotated(parts):
+    """Each (owner, attribute, label) of ``parts`` called inside a
+    profiler range named ``label`` while the block runs."""
+    import torch
+    saved = []
+    for owner, attr, label in parts:
+        fn = getattr(owner, attr)
+
+        def wrapped(*args, _fn=fn, _label=label, **kw):
+            with torch.profiler.record_function(_label):
+                return _fn(*args, **kw)
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, wrapped)
+    try:
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def moe_split(fn, attention_fn: str) -> dict:
+    """One call of ``fn`` (a MoE prefill or decode step) under the
+    profiler, its kernel time split by the port's functions: attention
+    (``attention_fn`` of every layer: projections, rope and the flash
+    kernel), router and dispatch, the expert products, combine, the
+    shared expert, the head, and the rest (embedding, norms,
+    residuals)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import attention, moe
+    from repro_torch.models.model import LM
+    parts = [(attention, attention_fn, "attention"),
+             (moe, "_route", "router_dispatch"),
+             (moe, "_dispatch", "router_dispatch"),
+             (moe, "_experts", "expert_products"),
+             (moe, "_combine", "combine"),
+             (moe, "_shared_expert", "shared_expert"),
+             (LM, "logits", "head")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with annotated(parts), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = list(prof.events())
+    labels = {label for _, _, label in parts}
+    # the device's kernels, not the ranges record_function marks there
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in labels
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        return {"device_ms": None, "wall_ms_profiled": wall_ms}
+    split = {}
+    for _, _, label in parts:
+        split[label] = sum(e.device_time_total for e in events
+                           if e.device_type == DeviceType.CPU
+                           and e.name == label) / 1e3
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    split["other"] = device_ms - sum(split.values())
+    return {"device_ms": device_ms, "busy_ms": busy_ms(kernels),
+            "kernels": len(kernels), "split_ms": split,
+            "wall_ms_profiled": wall_ms}
+
+
+def launch_record(label: str, model, steps: int) -> dict:
+    """The launches since the last reset, checked: one flash_attention a
+    layer for the prefill or forward, one flash_decode a layer a step,
+    nothing else."""
+    got = launches()
+    n = model.cfg.n_layers
+    check_launches(label, got, {"flash_attention": n,
+                                "flash_decode": n * steps})
+    return got
+
+
+def check_finite(label: str, *tensors) -> None:
+    import torch
+    if not all(bool(torch.isfinite(t).all()) for t in tensors):
+        raise AssertionError(f"{label}: non-finite logits")
+
+
+def phase_moe_serve(peaks_) -> dict:
+    """17a: qwen2-moe-a2.7b at full width and depth in bf16 behind the
+    ServeEngine: MOE_BATCH prompts of MOE_PROMPT tokens, MOE_NEW greedy
+    steps, then one step split by the profiler."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import ServeEngine
+    label = "moe_qwen2_full"
+    model, params = family_lm(MOE_ARCH)
+    cfg = model.cfg
+    eng = ServeEngine(model, params, batch_size=MOE_BATCH,
+                      max_seq=MOE_PROMPT + MOE_NEW)
+    prompts = family_batch(cfg, MOE_BATCH, MOE_PROMPT, 17)["tokens"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    last, steps, toks, prefill_s, step_s = serve(eng, prompts, MOE_NEW)
+    got = launch_record(label, model, MOE_NEW)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_finite(label, last, *steps)
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise AssertionError(f"{label}: a token outside the vocabulary")
+    del last, steps
+    # one step again under the profiler, re-decoding the last position
+    # (the cache is full)
+    eng._pos -= 1
+    split = moe_split(lambda: eng.decode(toks[:, -1]), "decode_attention")
+    # a second prefill, warm, with its own peak, then one more profiled
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.prefill(prompts)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prefill_split = moe_split(lambda: eng.prefill(prompts),
+                              "attention_block")
+    read = decode_read_bytes(model, params, MOE_PROMPT + MOE_NEW, MOE_BATCH)
+    decode_ms = 1e3 * statistics.median(step_s)
+    rec = {"phase": label, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype,
+           "params": sum(t.numel() for _, t in flat_params(params)),
+           "param_gb": param_bytes(params) / 1e9,
+           "batch": MOE_BATCH, "prompt": MOE_PROMPT, "new": MOE_NEW,
+           "launches": got, "prefill_ms": 1e3 * prefill_s,
+           "prefill_ms_warm": 1e3 * warm_s,
+           "prefill_tokens_per_s": MOE_BATCH * MOE_PROMPT / warm_s,
+           "decode_ms_per_step_median": decode_ms,
+           "decode_ms_per_step_first": 1e3 * step_s[0],
+           "decode_tokens_per_s": MOE_BATCH / decode_ms * 1e3,
+           "decode_bound_ms": read / peaks_[0] * 1e3,
+           "decode_bound_bytes": read,
+           "allocated_before_gib": before, "peak_mem_gib": peak,
+           "prefill_peak_mem_gib": warm_peak, "profile_decode_step": split,
+           "profile_prefill": prefill_split}
+    if split["device_ms"] is not None:
+        # against the unprofiled wall times, as phase 10's
+        rec["decode_device_idle_share"] = 1 - split["busy_ms"] / decode_ms
+        rec["prefill_device_idle_share"] = \
+            1 - prefill_split["busy_ms"] / (1e3 * warm_s)
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def phase_moe_exact() -> dict:
+    """17a's cut: qwen2-moe-a2.7b's widths in f32 at EXACT_LAYERS layers;
+    decode logits and greedy tokens against forward's over the whole
+    sequence.  T*k stays <= 4096, so neither drops a pair."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    from repro_torch.models import moe
+    label = "moe_qwen2_f32_exact"
+    model, params = family_lm(MOE_ARCH, EXACT_LAYERS, "float32", seed=1)
+    cfg = model.cfg
+    seq_len = MOE_CUT_PROMPT + MOE_NEW
+    if MOE_CUT_BATCH * seq_len * cfg.moe.top_k > 4096:
+        raise AssertionError(f"{label}: forward would drop pairs")
+    eng = ServeEngine(model, params, batch_size=MOE_CUT_BATCH,
+                      max_seq=seq_len)
+    prompts = family_batch(cfg, MOE_CUT_BATCH, MOE_CUT_PROMPT, 18)["tokens"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    last, steps, toks, prefill_s, step_s = serve(eng, prompts, MOE_NEW)
+    got = launch_record(label, model, MOE_NEW)
+    seq = torch.cat([torch.as_tensor(prompts, device=DEVICE).long(),
+                     toks[:, :MOE_NEW].long()], dim=1)
+    full, aux = model.forward(params, {"tokens": seq})
+    want = full[:, MOE_CUT_PROMPT - 1:]
+    rec = {"phase": label, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "batch": MOE_CUT_BATCH, "prompt": MOE_CUT_PROMPT,
+           "new": MOE_NEW, "capacity_forward": moe._capacity(
+               MOE_CUT_BATCH * seq_len, cfg),
+           "positions": [MOE_CUT_PROMPT - 1, seq_len - 1], "launches": got,
+           **check_decode(label, torch.stack([last, *steps], dim=1), toks,
+                          want),
+           "aux": float(aux),
+           "prefill_ms": 1e3 * prefill_s,
+           "decode_ms_per_step_median": 1e3 * statistics.median(step_s),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if not rec["aux"] > 0:
+        raise AssertionError(f"{label}: router loss {rec['aux']} is not > 0")
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def phase_moe_wide() -> dict:
+    """17b: qwen3-moe-235b-a22b at full width, QWEN3_LAYERS layers, bf16:
+    128 routed experts top-8, no shared expert, decode at a group of 16."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    label = "moe_qwen3_full_width"
+    model, params = family_lm(QWEN3_ARCH, QWEN3_LAYERS)
+    cfg = model.cfg
+    eng = ServeEngine(model, params, batch_size=QWEN3_BATCH,
+                      max_seq=QWEN3_PROMPT + QWEN3_NEW)
+    prompts = family_batch(cfg, QWEN3_BATCH, QWEN3_PROMPT, 19)["tokens"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    last, steps, toks, prefill_s, step_s = serve(eng, prompts, QWEN3_NEW)
+    got = launch_record(label, model, QWEN3_NEW)
+    check_finite(label, last, *steps)
+    rec = {"phase": label, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype, "group": cfg.n_heads // cfg.n_kv_heads,
+           "param_gb": param_bytes(params) / 1e9,
+           "batch": QWEN3_BATCH, "prompt": QWEN3_PROMPT, "new": QWEN3_NEW,
+           "launches": got, "prefill_ms": 1e3 * prefill_s,
+           "decode_ms_per_step_median": 1e3 * statistics.median(step_s),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def vlm_generate(model, params, batch: dict, new: int, max_seq: int):
+    """LM.prefill over the image prefix and text, then ``new`` greedy
+    LM.decode_step calls; returns (prefill logits (B, S, V), the logits of
+    each step, the fed tokens (B, new), prefill s, step s)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    s0 = logits.shape[1]
+    tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    steps, fed, step_s = [], [], []
+    for i in range(new):
+        t0 = time.perf_counter()
+        fed.append(tok)
+        step, cache = model.decode_step(params, cache, tok, s0 + i)
+        tok = step[:, -1].argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        steps.append(step[:, 0])
+    return logits, steps, torch.cat(fed, dim=1), prefill_s, step_s
+
+
+def phase_vlm_serve(peaks_) -> dict:
+    """17c: paligemma-3b at full width and depth in bf16 through
+    LM.prefill and LM.decode_step (the reference's ServeEngine passes
+    tokens only, so it prefills no image)."""
+    import torch
+    label = "vlm_paligemma_full"
+    model, params = family_lm(VLM_ARCH)
+    cfg = model.cfg
+    batch = family_batch(cfg, VLM_BATCH, VLM_PATCHES + VLM_TEXT, 20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    logits, steps, fed, prefill_s, step_s = vlm_generate(
+        model, params, batch, VLM_NEW, VLM_MAX_SEQ)
+    got = launch_record(label, model, VLM_NEW)
+    check_finite(label, logits[:, -1], *steps)
+    decode_ms = 1e3 * statistics.median(step_s)
+    read = decode_read_bytes(model, params, VLM_MAX_SEQ, VLM_BATCH)
+    rec = {"phase": label, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype, "param_gb": param_bytes(params) / 1e9,
+           "batch": VLM_BATCH, "patches": VLM_PATCHES, "text": VLM_TEXT,
+           "new": VLM_NEW, "max_seq": VLM_MAX_SEQ, "launches": got,
+           "prefill_ms": 1e3 * prefill_s,
+           "decode_ms_per_step_median": decode_ms,
+           "decode_bound_ms": read / peaks_[0] * 1e3,
+           "decode_bound_bytes": read,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def phase_vlm_exact() -> dict:
+    """17c's cut: paligemma-3b's widths in f32 at EXACT_LAYERS layers:
+    prefill logits against forward's, each decode step's against a longer
+    forward over the tokens fed, and a patch perturbed at the end of the
+    prefix moves the logits at position 0."""
+    import torch
+    label = "vlm_paligemma_f32_exact"
+    model, params = family_lm(VLM_ARCH, EXACT_LAYERS, "float32", seed=1)
+    cfg = model.cfg
+    s0 = VLM_PATCHES + VLM_CUT_TEXT
+    batch = family_batch(cfg, VLM_CUT_BATCH, s0, 21)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    logits, steps, fed, prefill_s, step_s = vlm_generate(
+        model, params, batch, VLM_NEW, s0 + VLM_NEW)
+    got = launch_record(label, model, VLM_NEW)
+    full, _ = model.forward(params, batch)
+    prefill = check_decode(f"{label} prefill", logits, logits.argmax(-1),
+                           full)
+    longer = dict(batch, tokens=torch.cat(
+        [torch.as_tensor(batch["tokens"], device=DEVICE).long(), fed],
+        dim=1))
+    full_ext, _ = model.forward(params, longer)
+    want = full_ext[:, s0:]                      # position s0 + i: step i
+    decode = check_decode(label, torch.stack(steps, dim=1), torch.cat(
+        [fed[:, 1:], torch.stack(steps, 1)[:, -1:].argmax(-1)], dim=1),
+        want)
+    moved = dict(batch, patches=batch["patches"].copy())
+    moved["patches"][:, -1] += 3.0
+    moved_logits, _ = model.forward(params, moved)
+    shift = float((moved_logits[:, 0] - full[:, 0]).abs().max())
+    if not shift > 1e-6:
+        raise AssertionError(f"{label}: the last patch does not reach "
+                             f"position 0 (max shift {shift})")
+    rec = {"phase": label, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "batch": VLM_CUT_BATCH, "patches": VLM_PATCHES,
+           "text": VLM_CUT_TEXT, "new": VLM_NEW, "launches": got,
+           "prefill_vs_forward": prefill,
+           "prefill_bitwise_equal": bool(torch.equal(logits, full)),
+           "decode_vs_longer_forward": decode,
+           "prefix_shift_at_position_0": shift,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def phase_audio() -> list:
+    """17d: hubert-xlarge's encoder at full width and depth in bf16 over
+    AUDIO_BATCH x AUDIO_FRAMES frames (full attention), then its f32 cut on
+    the card against the same cut on the CPU (the plain versions)."""
+    import torch
+    label = "audio_hubert_full"
+    model, params = family_lm(AUDIO_ARCH)
+    cfg = model.cfg
+    batch = family_batch(cfg, AUDIO_BATCH, AUDIO_FRAMES, 22)
+    frames = {"frames": batch["frames"]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, frames)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    got = launch_record(label, model, 0)
+    check_finite(label, logits)
+    if logits.shape != (AUDIO_BATCH, AUDIO_FRAMES, cfg.vocab):
+        raise AssertionError(f"{label}: logits {tuple(logits.shape)}")
+    t0 = time.perf_counter()
+    model.forward(params, frames)
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    recs = [{"phase": label, "arch": cfg.name, "n_layers": cfg.n_layers,
+             "dtype": cfg.dtype,
+             "param_gb": param_bytes(params) / 1e9,
+             "batch": AUDIO_BATCH, "frames": AUDIO_FRAMES, "launches": got,
+             "forward_ms_first": 1e3 * forward_s,
+             "forward_ms": 1e3 * again_s,
+             "frames_per_s": AUDIO_BATCH * AUDIO_FRAMES / again_s,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}]
+    log("main " + json.dumps(recs[-1]))
+    del model, params, logits
+
+    from repro_torch.models import LM
+    label = "audio_hubert_f32_card_vs_cpu"
+    model, params = family_lm(AUDIO_ARCH, EXACT_LAYERS, "float32", seed=1)
+    frames = {"frames": batch["frames"][:AUDIO_CUT_BATCH]}
+    reset_launches()
+    card, _ = model.forward(params, frames)
+    got = launch_record(label, model, 0)
+    cpu_params = {}
+    for name, t in flat_params(params):
+        node = cpu_params
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.cpu()
+    plain, _ = LM(model.cfg, device="cpu").forward(cpu_params, frames)
+    err = check_close(label, card.cpu(), plain, SERVE_RTOL, SERVE_ATOL)
+    recs.append({"phase": label, "n_layers": EXACT_LAYERS,
+                 "dtype": "float32", "batch": AUDIO_CUT_BATCH,
+                 "frames": AUDIO_FRAMES, "launches": got,
+                 "max_abs_err": err, "tolerance": [SERVE_RTOL, SERVE_ATOL]})
+    log("main " + json.dumps(recs[-1]))
+    return recs
+
+
+def phase_families(peaks_) -> list:
+    """Phase 17: the moe, vlm and audio families at full width on one
+    card."""
+    import torch
+    gc.collect()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    recs, peak = [], 0.0
+    for part, fn in (("17a", lambda: [phase_moe_serve(peaks_),
+                                      phase_moe_exact()]),
+                     ("17b", lambda: [phase_moe_wide()]),
+                     ("17c", lambda: [phase_vlm_serve(peaks_),
+                                      phase_vlm_exact()]),
+                     ("17d", phase_audio)):
+        # earlier phases' engines sit in reference cycles until the
+        # collector runs: collect them before the part, not inside it
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        recs.extend(fn())
+        peak = max(peak, max(r["peak_mem_gib"] for r in recs
+                             if "peak_mem_gib" in r))
+        log(f"phase {part}: {time.perf_counter() - t1:.2f} s")
+    seconds = time.perf_counter() - t0
+    log(f"phase 17: {seconds:.2f} s, peak memory {peak:.2f} GiB "
+        f"(allocated before it: {before:.2f} GiB)")
+    return recs
+
+
 def main() -> int:
     try:
         import torch
@@ -3891,6 +4432,10 @@ def main() -> int:
 
     # 16. the higher-order deferred cascade and the learning views
     phases.extend(phase_ho())
+    torch.cuda.empty_cache()
+
+    # 17. the moe, vlm and audio families at full width
+    phases.extend(phase_families(peaks_))
     torch.cuda.empty_cache()
 
     # the kernels record: per entry, the main path's launches and the

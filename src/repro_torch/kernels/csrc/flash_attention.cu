@@ -1,7 +1,7 @@
 // Flash attention forward (prefill and full-sequence forward) for Hopper
-// (sm_90a): causal or full softmax attention with an optional sliding
-// window, grouped-query heads read natively, f32 inputs or bf16 inputs, f32
-// online softmax and accumulation, output in the input type.
+// (sm_90a): causal, prefix-LM or full softmax attention with an optional
+// sliding window, grouped-query heads read natively, f32 inputs or bf16
+// inputs, f32 online softmax and accumulation, output in the input type.
 //
 // Replaces the Pallas TPU kernel of the reference package:
 //   * flash_attention_pallas  (src/repro/kernels/flash_attention.py:77)
@@ -11,11 +11,21 @@
 //
 // Layout: q (B, S, H, HD), k and v (B, S, KV, HD), out (B, S, H, HD), all
 // contiguous; query head h reads KV head h / (H / KV) in place (no repeat).
-// Keep key kp for query qp iff kp <= qp (causal) and kp > qp - window (when
-// a window is given) -- the predicate of _mask_block (attention.py:83).
+// Keep key kp for query qp iff kp <= qp or both lie in the prefix, qp < P
+// and kp < P (causal; P = 0 for none), and kp > qp - window (when a window
+// is given) -- the predicate of _mask_block (attention.py:83).  Under the
+// causal mask a query keeps every key up to key_limit(qp): qp, or P - 1
+// inside the prefix.  That limit never falls as qp grows, so the live key
+// tiles of a block, the tiles a warp skips and the tiles it masks all
+// follow from the limits of its first and last rows, as they follow from
+// the diagonal without a prefix; a query tile inside the prefix visits
+// every key tile of the prefix.
 //
-// Bound on the card: 4 * B * H * HD * (kept query-key pairs) FLOPs (two
-// products) against reading q, k, v once and writing out once.  At S = 4096
+// Head dims 32, 64, 80, 96, 128 and 256.
+//
+// Bound on the card: 4 * B * H * HD * (kept query-key pairs, the prefix's
+// square included) FLOPs (two products) against reading q, k, v once and
+// writing out once.  At S = 4096
 // it is FLOP-bound by far (~0.69 TFLOP per danube layer at B = 8).  The
 // entry takes one of two kernels by the input type:
 //
@@ -27,7 +37,10 @@
 //     rows of every head start first;
 //   * the Q tile is copied once by cp.async into bf16 shared memory and
 //     brought into registers by ldmatrix.x4 as A fragments (HD / 16 k16
-//     steps), held for the whole key loop;
+//     steps), held for the whole key loop -- up to head dim 128.  At 256
+//     the O accumulators alone take 128 registers a thread and the 64 of
+//     Q's fragments would spill, so each k16 step re-reads its fragment
+//     from the Q tile by ldmatrix (Q_IN_REGS);
 //   * 64-key K and V tiles live in bf16 shared memory in a double-buffered
 //     ring filled by cp.async.cg (16 bytes a thread, rows past S zero-filled
 //     by src-size 0): the copies of tile j + 1 are issued before the math on
@@ -53,7 +66,8 @@
 //     2^-8 (p / l) |v|, past the bf16 tolerance (1e-3 + 1e-2 |x|) against
 //     the f32 softmax wherever a few keys carry the row;
 //   * the mask predicate is evaluated only on the tiles a warp's rows cut
-//     (the diagonal, the window's lower edge, keys past S); a warp skips
+//     (the diagonal or the prefix's edge, the window's lower edge, keys
+//     past S); a warp skips
 //     the math of tiles wholly masked for its rows, and key tiles wholly
 //     above the block's diagonal or before its window are never loaded;
 //   * O / l is rounded to bf16, staged through the warp's rows of the Q
@@ -75,8 +89,9 @@
 //   * P goes through shared memory, transposed, into O += P V; each thread
 //     owns the same 4 rows of O and HD / 8 of its columns, so alpha never
 //     leaves the thread.  p stays f32;
-//   * K tiles wholly above the diagonal or wholly outside the window are
-//     never loaded; rows and keys past S are masked (any S is taken).
+//   * K tiles wholly above the diagonal (past key_limit of the tile's last
+//     row) or wholly outside the window are never loaded; rows and keys
+//     past S are masked (any S is taken).
 
 #include <math.h>
 
@@ -89,6 +104,12 @@ constexpr int BK = 64;         // keys per staged tile
 constexpr int THREADS = 128;
 constexpr int TS = BQ + 4;     // row stride of the transposed Q, K, P tiles
 static_assert(BQ == BK, "Q and K tiles share the transposed row stride");
+
+// The last key query qp keeps under the causal mask, before the window:
+// qp, or the prefix's last key P - 1 for a query inside the prefix.
+__device__ __forceinline__ int key_limit(int qp, int prefix) {
+  return qp < prefix ? prefix - 1 : qp;
+}
 
 template <int N>
 __device__ __forceinline__ void load_vec(const float* p, float* out);
@@ -112,7 +133,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int s,
-                       int h, int kvh, int causal, int window, float scale) {
+                       int h, int kvh, int causal, int window, int prefix,
+                       float scale) {
   // columns of O per thread: NJ groups of VW neighbours, 8 * VW apart
   constexpr int VW = (HD % 32 == 0) ? 4 : 2;
   constexpr int NJ = HD / (8 * VW);
@@ -150,11 +172,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < NJ * VW; ++e) o[i][e] = 0.f;
   }
 
-  // live key tiles: not wholly above the diagonal, not wholly before the
-  // window of the tile's first row
+  // live key tiles: not wholly past the key limit of the tile's last row,
+  // not wholly before the window of its first row
   const int q_last = min(q0 + BQ, s) - 1;
   int kt_end = (s + BK - 1) / BK;
-  if (causal) kt_end = min(kt_end, q_last / BK + 1);
+  if (causal) kt_end = min(kt_end, key_limit(q_last, prefix) / BK + 1);
   int kt_begin = 0;
   if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
 
@@ -191,7 +213,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int kp = k0 + 4 * c + (j & 3) + 32 * (j >> 2);
-        const bool keep = kp < s && (!causal || kp <= qp) &&
+        const bool keep = kp < s && (!causal || kp <= key_limit(qp, prefix)) &&
                           (window <= 0 || kp > qp - window);
         sc[i][j] = keep ? sc[i][j] * scale : -INFINITY;
         mx = fmaxf(mx, sc[i][j]);
@@ -259,8 +281,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s, int h, int kvh, int causal, int window, float scale,
-           cudaStream_t stream) {
+           int s, int h, int kvh, int causal, int window, int prefix,
+           float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   auto kern = flash_attention_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -270,20 +292,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), s, h, kvh, causal,
-      window, scale);
+      window, prefix, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
-             int b, int s, int h, int kvh, int causal, int window,
+             int b, int s, int h, int kvh, int causal, int window, int prefix,
              float scale, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, out, b, s, h, kvh, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, b, s, h, kvh, causal, window, scale, stream);
-    case 80: return launch<T, 80>(q, k, v, out, b, s, h, kvh, causal, window, scale, stream);
-    case 96: return launch<T, 96>(q, k, v, out, b, s, h, kvh, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, b, s, h, kvh, causal, window, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
+    case 96: return launch<T, 96>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -396,10 +419,13 @@ flash_attention_bf16_mma(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ out,
                          int s, int h, int kvh, int causal, int window,
-                         float scale_log2) {
+                         int prefix, float scale_log2) {
   constexpr int LD = HD + 8;     // row stride of every shared tile
   constexpr int KSTEPS = HD / 16;
   constexpr int NT = HD / 8;     // n8 tiles of O
+  // Q's A fragments held in registers for the whole key loop, or re-read
+  // from the Q tile at each k16 step (where they and O would not fit)
+  constexpr bool Q_IN_REGS = HD <= 128;
   static_assert(KSTEPS * 16 == HD, "head_dim must be a multiple of 16");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -423,11 +449,11 @@ flash_attention_bf16_mma(const bf16* __restrict__ q,
   const bf16* vb = v + ((int64_t)b * s * kvh + kv_head) * HD;
   bf16* ob = out + ((int64_t)b * s * h + head) * HD;
 
-  // live key tiles: not wholly above the block's diagonal, not wholly
-  // before the window of its first row
+  // live key tiles: not wholly past the key limit of the block's last row,
+  // not wholly before the window of its first row
   const int q_last = min(q0 + BQ, s) - 1;
   int kt_end = (s + BK - 1) / BK;
-  if (causal) kt_end = min(kt_end, q_last / BK + 1);
+  if (causal) kt_end = min(kt_end, key_limit(q_last, prefix) / BK + 1);
   int kt_begin = 0;
   if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
 
@@ -442,12 +468,12 @@ flash_attention_bf16_mma(const bf16* __restrict__ q,
   // Q's A fragments: ldmatrix.x4 matrices (rows 0-7, 8-15) x (cols 0-7,
   // 8-15) of each k16 step; lane l gives the address of row l % 16,
   // column 8 (l / 16)
-  uint32_t qf[KSTEPS][4];
-  {
-    const uint32_t base =
-        smem_addr(qs + (16 * warp + (lane & 15)) * LD + (lane >> 4) * 8);
+  const uint32_t qbase =
+      smem_addr(qs + (16 * warp + (lane & 15)) * LD + (lane >> 4) * 8);
+  uint32_t qf[Q_IN_REGS ? KSTEPS : 1][4];
+  if constexpr (Q_IN_REGS) {
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) ldmatrix_x4(qf[kk], base + kk * 32);
+    for (int kk = 0; kk < KSTEPS; ++kk) ldmatrix_x4(qf[kk], qbase + kk * 32);
   }
 
   float o[NT][4];
@@ -482,7 +508,7 @@ flash_attention_bf16_mma(const bf16* __restrict__ q,
 
     const int k0 = kt * BK;
     // tiles wholly masked for this warp's rows (or a warp past S)
-    if (qw >= s || (causal && k0 > qw + 15) ||
+    if (qw >= s || (causal && k0 > key_limit(qw + 15, prefix)) ||
         (window > 0 && k0 + BK - 1 <= qw - window))
       continue;
 
@@ -494,18 +520,26 @@ flash_attention_bf16_mma(const bf16* __restrict__ q,
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
     const uint32_t kaddr = smem_addr(ks + buf * BK * LD + k_off);
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(qa, qbase + kk * 32);
+      }
 #pragma unroll
       for (int jp = 0; jp < BK / 16; ++jp) {
         uint32_t bf[4];
         ldmatrix_x4(bf, kaddr + (jp * 16 * LD + kk * 16) * 2);
-        mma_bf16(sc[2 * jp], qf[kk], bf[0], bf[1]);
-        mma_bf16(sc[2 * jp + 1], qf[kk], bf[2], bf[3]);
+        mma_bf16(sc[2 * jp], qa, bf[0], bf[1]);
+        mma_bf16(sc[2 * jp + 1], qa, bf[2], bf[3]);
       }
+    }
 
     // the mask, on tiles the warp's rows cut only
     const bool interior = k0 + BK <= s &&
-                          (!causal || k0 + BK - 1 <= qw) &&
+                          (!causal || k0 + BK - 1 <= key_limit(qw, prefix)) &&
                           (window <= 0 || k0 > qw + 15 - window);
     if (!interior) {
 #pragma unroll
@@ -514,7 +548,8 @@ flash_attention_bf16_mma(const bf16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int kp = k0 + 8 * j + 2 * t + (e & 1);
           const int qp = qw + g + 8 * (e >> 1);
-          const bool keep = kp < s && (!causal || kp <= qp) &&
+          const bool keep = kp < s &&
+                            (!causal || kp <= key_limit(qp, prefix)) &&
                             (window <= 0 || kp > qp - window);
           if (!keep) sc[j][e] = -INFINITY;
         }
@@ -606,10 +641,10 @@ flash_attention_bf16_mma(const bf16* __restrict__ q,
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s, int h, int kvh, int causal, int window, float scale,
-           cudaStream_t stream) {
+           int s, int h, int kvh, int causal, int window, int prefix,
+           float scale, cudaStream_t stream) {
   // two blocks an SM (at most 128 registers a thread) where the Q, S and
-  // O fragments fit; one above
+  // O fragments fit; one above (at head dim 256 shared memory holds one)
   constexpr int MIN_BLOCKS = HD <= 80 ? 2 : 1;
   constexpr size_t smem = smem_bytes<HD>();
   auto kern = flash_attention_bf16_mma<HD, MIN_BLOCKS>;
@@ -620,19 +655,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), s, h, kvh,
-      causal, window, scale * 1.4426950408889634f);
+      causal, window, prefix, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
-             int b, int s, int h, int kvh, int causal, int window,
+             int b, int s, int h, int kvh, int causal, int window, int prefix,
              float scale, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<32>(q, k, v, out, b, s, h, kvh, causal, window, scale, stream);
-    case 64: return launch<64>(q, k, v, out, b, s, h, kvh, causal, window, scale, stream);
-    case 80: return launch<80>(q, k, v, out, b, s, h, kvh, causal, window, scale, stream);
-    case 96: return launch<96>(q, k, v, out, b, s, h, kvh, causal, window, scale, stream);
-    case 128: return launch<128>(q, k, v, out, b, s, h, kvh, causal, window, scale, stream);
+    case 32: return launch<32>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
+    case 64: return launch<64>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
+    case 80: return launch<80>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
+    case 96: return launch<96>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
+    case 128: return launch<128>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
+    case 256: return launch<256>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -642,18 +678,20 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // out = softmax(q k^T * scale, masked) v for q (b, s, h, hd), k and v
-// (b, s, kvh, hd); causal 0/1, window <= 0 for none, bf16 1 for bfloat16
-// tensors (0: float32).  head_dim is one of 32, 64, 80, 96, 128.  Launched
-// on `stream`; returns the launch's cudaError_t (0 on success).
+// (b, s, kvh, hd); causal 0/1, window <= 0 for none, prefix the prefix-LM
+// length P (0 for none; read only when causal), bf16 1 for bfloat16
+// tensors (0: float32).  head_dim is one of 32, 64, 80, 96, 128, 256.
+// Launched on `stream`; returns the launch's cudaError_t (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int b, int s,
                                    int h, int kvh, int hd, int causal,
-                                   int window, int bf16, float scale,
-                                   void* stream) {
+                                   int window, int prefix, int bf16,
+                                   float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (prefix < 0) return (int)cudaErrorInvalidValue;
   if (bf16)
     return tc::dispatch(hd, q, k, v, out, b, s, h, kvh, causal, window,
-                        scale, st);
+                        prefix, scale, st);
   return dispatch<float>(hd, q, k, v, out, b, s, h, kvh, causal, window,
-                         scale, st);
+                         prefix, scale, st);
 }

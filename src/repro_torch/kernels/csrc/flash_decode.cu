@@ -47,11 +47,19 @@
 //     from the accumulators as three bf16 terms hi + mid + lo, which hold
 //     the f32 p to about 2^-24: p stays f32 to its own rounding.  So each
 //     K and V element is read from shared memory once, by ldmatrix.
+// Head dim 256 (paligemma): one warp's O accumulators alone take 128
+// registers a thread, so the query group's fragments do not stay in
+// registers beside them: the block stages its heads' query groups in
+// shared memory once and each k16 step reads its fragment by ldmatrix, the
+// copies' offsets are computed per tile rather than held, and the ring has
+// two stages, so that ring and query groups fit the block's shared memory
+// (TcPlan::Q_SMEM).
 // f32 caches (flash_decode_f32, the exact path) stay on the fp32 FMA
 // pipes: one block of THREADS threads per (split, KV head, batch), a ring
 // of STAGES tiles of BK slots; LPK lanes a key read each K chunk once and
 // multiply it into all G query heads of the group (float4 broadcasts of the
-// queries); a lane owns 4 output dims of all G heads for P V.
+// queries); a lane owns 4 output dims of all G heads for P V, 8 above head
+// dim 128 (a warp's 32 lanes then cover a row of 256).
 //
 // Each split writes the partial (acc, m, l) of each of its heads -- the TPU
 // kernel's own running state -- to a workspace: a warp that owns its head
@@ -248,11 +256,17 @@ struct TcPlan {
   static constexpr int ROWS = 16 * TC_UNITS * TC_WARPS;  // (head, slot) rows
   static constexpr int COPIES = ROWS * NCH / TC_THREADS; // a thread, K or V
   static constexpr int STAGE = 2 * ROWS * LD;            // elements, K and V
-  static constexpr int RING = TC_STAGES * STAGE * 2;
+  // the query groups in shared memory, not registers, above head dim 128
+  static constexpr bool Q_SMEM = HD > 128;
+  static constexpr int STAGES = Q_SMEM ? 2 : TC_STAGES;
+  static constexpr int RING = STAGES * STAGE * 2;
   // after the loop: the warps' partials and the block's, [16 rows][HD + 2]
   // a warp and at most as many for the block's kvb * g <= 16 TC_WARPS rows
   static constexpr int EPI = 8 * TC_WARPS * 16 * (HD + 2);
-  static constexpr int SMEM = RING > EPI ? RING : EPI;
+  static constexpr int BIG = RING > EPI ? RING : EPI;
+  // the block's query groups, [TC_HEADS][16][LD] bf16, past ring and EPI
+  static constexpr int QS = Q_SMEM ? TC_HEADS * 16 * LD * 2 : 0;
+  static constexpr int SMEM = BIG + QS;
   static_assert(KSTEPS * 16 == HD && COPIES * TC_THREADS == ROWS * NCH,
                 "head dim");
   static_assert(TC_WARPS % TC_HEADS == 0 && (TC_HEADS & (TC_HEADS - 1)) == 0,
@@ -334,43 +348,72 @@ flash_decode_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ kc,
 
   // this thread's copies of a tile, the same in every tile: (slot, source
   // offset from the tile's first slot, shared offset); neighbouring threads
-  // take neighbouring 16 bytes of a slot's run of kvb * HD elements
-  int cp_slot[P::COPIES], cp_src[P::COPIES], cp_dst[P::COPIES];
-#pragma unroll
-  for (int i = 0; i < P::COPIES; ++i) {
+  // take neighbouring 16 bytes of a slot's run of kvb * HD elements.  Held
+  // in registers up to head dim 128, computed per tile above.
+  struct Copy {
+    int slot, src, dst;
+  };
+  auto copy_of = [&](int i) {
     const int e = tid + i * TC_THREADS;
     const int slot = e / (kvb * P::NCH);
     const int rem = e - slot * kvb * P::NCH;
     const int head = rem / P::NCH;
     const int c = rem - head * P::NCH;
-    cp_slot[i] = slot;
-    cp_src[i] = head * HD + c * 8;
-    cp_dst[i] = (head * bks + slot) * P::LD + c * 8;
+    return Copy{slot, head * HD + c * 8, (head * bks + slot) * P::LD + c * 8};
+  };
+  Copy held[P::Q_SMEM ? 1 : P::COPIES];
+  if constexpr (!P::Q_SMEM) {
+#pragma unroll
+    for (int i = 0; i < P::COPIES; ++i) held[i] = copy_of(i);
   }
   auto load_tile = [&](int t) {
-    bf16* kd = ring + (t % TC_STAGES) * P::STAGE;
+    bf16* kd = ring + (t % P::STAGES) * P::STAGE;
     bf16* vd = kd + P::ROWS * P::LD;
     const int pos0 = (run.first + t * run.stride) * bks;
 #pragma unroll
     for (int i = 0; i < P::COPIES; ++i) {
-      const int pos = pos0 + cp_slot[i];
+      Copy cp;
+      if constexpr (P::Q_SMEM) {
+        cp = copy_of(i);
+      } else {
+        cp = held[i];
+      }
+      const int pos = pos0 + cp.slot;
       const bool valid = pos < run.n;
-      const int64_t off = valid ? pos * slot_row + cp_src[i] : 0;
-      cp_async16(smem_addr(kd + cp_dst[i]), kb + off, valid);
-      cp_async16(smem_addr(vd + cp_dst[i]), vb + off, valid);
+      const int64_t off = valid ? pos * slot_row + cp.src : 0;
+      cp_async16(smem_addr(kd + cp.dst), kb + off, valid);
+      cp_async16(smem_addr(vd + cp.dst), vb + off, valid);
     }
   };
 
 #pragma unroll
-  for (int s = 0; s < TC_STAGES - 1; ++s) {
+  for (int s = 0; s < P::STAGES - 1; ++s) {
     if (s < run.nt) load_tile(s);
     cp_async_commit();
   }
 
-  // the query group's A fragments, straight from global memory: a0 row fr,
-  // a1 row fr + 8, columns 2 fc of each k16 step; a2, a3 columns 8 + 2 fc
-  uint32_t qf[P::KSTEPS][4];
-  {
+  // the query group's A fragments: a0 row fr, a1 row fr + 8, columns 2 fc
+  // of each k16 step; a2, a3 columns 8 + 2 fc.  Straight from global
+  // memory into registers, or (Q_SMEM) the block's kvb groups into shared
+  // memory, rows past g zero, read by ldmatrix at each step: lane l gives
+  // the address of row l % 16, column 8 (l / 16)
+  uint32_t qf[P::Q_SMEM ? 1 : P::KSTEPS][4];
+  bf16* qsm = reinterpret_cast<bf16*>(smem + P::BIG);   // [kvb][16][LD]
+  const uint32_t qbase =
+      smem_addr(qsm + (hw * 16 + (lane & 15)) * P::LD + (lane >> 4) * 8);
+  if constexpr (P::Q_SMEM) {
+    const bf16* qb = q + ((int64_t)b * h + (int64_t)kv0 * g) * HD;
+    for (int e = tid; e < kvb * 16 * P::NCH; e += TC_THREADS) {
+      const int row = e / P::NCH;          // head * 16 + query of its group
+      const int c = e - row * P::NCH;
+      const int head = row >> 4, gi = row & 15;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (gi < g)
+        x = *reinterpret_cast<const uint4*>(qb + (head * g + gi) * HD + c * 8);
+      *reinterpret_cast<uint4*>(qsm + row * P::LD + c * 8) = x;
+    }
+    // visible to every warp at the loop's first barrier
+  } else {
     const bf16* qb = q + ((int64_t)b * h + (int64_t)kv * g) * HD + 2 * fc;
 #pragma unroll
     for (int kk = 0; kk < P::KSTEPS; ++kk)
@@ -403,11 +446,11 @@ flash_decode_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   const int row_w = (hw * bks + slot_w) * P::LD;   // the warp's first row
 
   for (int t = 0; t < run.nt; ++t) {
-    cp_async_wait<TC_STAGES - 2>();
+    cp_async_wait<P::STAGES - 2>();
     __syncthreads();   // tile t is in; every warp is done with tile t - 1
-    if (t + TC_STAGES - 1 < run.nt) load_tile(t + TC_STAGES - 1);
+    if (t + P::STAGES - 1 < run.nt) load_tile(t + P::STAGES - 1);
     cp_async_commit();
-    const bf16* ks = ring + (t % TC_STAGES) * P::STAGE + row_w;
+    const bf16* ks = ring + (t % P::STAGES) * P::STAGE + row_w;
     const bf16* vs = ks + P::ROWS * P::LD;
     const uint32_t kaddr = smem_addr(ks + k_off);
     const uint32_t vaddr = smem_addr(vs + v_off);
@@ -420,12 +463,20 @@ flash_decode_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ kc,
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
+      // all k16 steps unrolled, but four at a time at head dim 256, where
+      // the full unroll spills
+#pragma unroll (P::Q_SMEM ? 4 : P::KSTEPS)
       for (int kk = 0; kk < P::KSTEPS; ++kk) {
-        uint32_t bf[4];
+        uint32_t qa[4], bf[4];
+        if constexpr (P::Q_SMEM) {
+          ldmatrix_x4(qa, qbase + kk * 32);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        }
         ldmatrix_x4(bf, kaddr + (u * 16 * P::LD + kk * 16) * 2);
-        mma_bf16(sc[0], qf[kk], bf[0], bf[1]);
-        mma_bf16(sc[1], qf[kk], bf[2], bf[3]);
+        mma_bf16(sc[0], qa, bf[0], bf[1]);
+        mma_bf16(sc[1], qa, bf[2], bf[3]);
       }
       if (pos0 + 16 > run.n) {
 #pragma unroll
@@ -572,8 +623,10 @@ struct Plan {
   static constexpr int SPAN = 4 * LPK;                      // words
   static constexpr int SPANS = (HD + SPAN - 1) / SPAN;
   static constexpr int LD = (SPANS % 2 ? SPANS : SPANS + 1) * SPAN;
-  // P V: 4 output dims a lane, D lanes a row, KS key subsets a warp
-  static constexpr int D = HD / 4;
+  // P V: VD output dims a lane (4, or 8 above head dim 128), D lanes a
+  // row, KS key subsets a warp
+  static constexpr int VD = HD > 128 ? 8 : 4;
+  static constexpr int D = HD / VD;
   static constexpr int KS = 32 / D;
   static constexpr int PV_STEPS = (KB + KS - 1) / KS;
   // shared memory (bytes): the ring, reused after the loop for the warps'
@@ -584,7 +637,7 @@ struct Plan {
   static constexpr int QS = 4 * G * HD;
   static constexpr int PS = 4 * WARPS * KB * G;
   static constexpr int SMEM = BIG + QS + PS;
-  static_assert(NCH * 4 == HD && D <= 32, "head dim");
+  static_assert(NCH * 4 == HD && D * VD == HD && D <= 32, "head dim");
   static_assert(KPW * WARPS == BK && (KPW >= 16 ? KPW % 16 == 0 : 32 % KPW == 0),
                 "tile");
   static_assert(G % 4 == 0, "group");
@@ -649,17 +702,17 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ kc,
 
   // per-warp online softmax state: m warp-uniform, l per lane (each key
   // counted by its first lane), acc per lane for its dims and key subset
-  float m[G], lp[G], acc[G][4];
+  float m[G], lp[G], acc[G][P::VD];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
     m[gi] = -INFINITY;
     lp[gi] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[gi][e] = 0.f;
+    for (int e = 0; e < P::VD; ++e) acc[gi][e] = 0.f;
   }
   const int kl = lane / P::LPK;    // key of this lane in a batch (scores)
   const int sub = lane % P::LPK;
-  const int pc = lane % P::D;      // P V: dims pc * 4 .. +4
+  const int pc = lane % P::D;      // P V: dims pc * VD .. +VD
   const int pk = lane / P::D;      // P V: key subset
   float* pw = ps + warp * P::KB * G;
 
@@ -728,15 +781,22 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ kc,
 #pragma unroll
       for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[gi][e] *= alpha[gi];
+        for (int e = 0; e < P::VD; ++e) acc[gi][e] *= alpha[gi];
       if (pk < P::KS) {
 #pragma unroll
         for (int jj = 0; jj < P::PV_STEPS; ++jj) {
           const int j = pk + jj * P::KS;
           if (P::KB % P::KS == 0 || j < P::KB) {
-            const float4 v4 = *reinterpret_cast<const float4*>(
-                vs + (key0 + j) * P::LD + pc * 4);
-            const float vf[4] = {v4.x, v4.y, v4.z, v4.w};
+            float vf[P::VD];
+#pragma unroll
+            for (int c4 = 0; c4 < P::VD / 4; ++c4) {
+              const float4 v4 = *reinterpret_cast<const float4*>(
+                  vs + (key0 + j) * P::LD + pc * P::VD + 4 * c4);
+              vf[4 * c4] = v4.x;
+              vf[4 * c4 + 1] = v4.y;
+              vf[4 * c4 + 2] = v4.z;
+              vf[4 * c4 + 3] = v4.w;
+            }
             const float4* pv = reinterpret_cast<const float4*>(pw + j * G);
 #pragma unroll
             for (int g4 = 0; g4 < G / 4; ++g4) {
@@ -745,7 +805,7 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ kc,
 #pragma unroll
               for (int i = 0; i < 4; ++i)
 #pragma unroll
-                for (int e = 0; e < 4; ++e)
+                for (int e = 0; e < P::VD; ++e)
                   acc[4 * g4 + i][e] = fmaf(pj[i], vf[e], acc[4 * g4 + i][e]);
             }
           }
@@ -764,12 +824,12 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ kc,
   for (int gi = 0; gi < G; ++gi) {
     const float lw = attn::group_sum<32>(lp[gi]);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < P::VD; ++e) {
       float x = acc[gi][e];
 #pragma unroll
       for (int k = 1; k < P::KS; ++k)
         x += __shfl_sync(0xffffffffu, acc[gi][e], (lane + k * P::D) & 31);
-      if (lane < P::D) pacc[(warp * G + gi) * HD + lane * 4 + e] = x;
+      if (lane < P::D) pacc[(warp * G + gi) * HD + lane * P::VD + e] = x;
     }
     if (lane == 0) {
       wml[(warp * G + gi) * 2] = m[gi];
@@ -866,6 +926,7 @@ int f32_by_head_dim(int hd, const Args& a) {
     case 80: return launch_f32<80, G>(a);
     case 96: return launch_f32<96, G>(a);
     case 128: return launch_f32<128, G>(a);
+    case 256: return launch_f32<256, G>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -877,6 +938,7 @@ int bf16_by_head_dim(int hd, const Args& a) {
     case 80: return launch_bf16<80>(a);
     case 96: return launch_bf16<96>(a);
     case 128: return launch_bf16<128>(a);
+    case 256: return launch_bf16<256>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -887,7 +949,8 @@ int bf16_by_head_dim(int hd, const Args& a) {
 // caches k, v (b, L, kvh, hd), where n = *n_valid_dev clamped to [0, L]
 // when n_valid_dev is not null (read on the card), else n_valid (1 <= n_valid
 // <= L).  nsplit (1 .. 64) splits per (batch, block of KV heads); ws
-// holds b * h * nsplit * (hd + 2) floats.  h / kvh <= 16; head_dim one of 32, 64, 80, 96, 128; bf16 1
+// holds b * h * nsplit * (hd + 2) floats.  h / kvh <= 16; head_dim one of
+// 32, 64, 80, 96, 128, 256; bf16 1
 // for bfloat16 tensors.  Launched on `stream`; returns the first launch
 // error (0 on success).
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,

@@ -3,8 +3,10 @@
 Binding for ``csrc/flash_attention.cu``, built and loaded by
 :mod:`.cuda_build` the first time the kernel is launched.  It replaces
 ``flash_attention_pallas`` (``src/repro/kernels/flash_attention.py:77``)
-and computes the reference model's ``blockwise_attention``: causal or full
-attention, an optional sliding window, grouped-query heads read in place.
+and computes the reference model's ``blockwise_attention``: causal,
+prefix-LM (bidirectional over the first ``prefix_len`` positions, causal
+after) or full attention, an optional sliding window, grouped-query heads
+read in place.
 bf16 inputs run on the tensor cores (``mma.sync``, with p carried into
 P V as two bf16 terms); f32 inputs run on the fp32 FMA pipes.
 
@@ -24,10 +26,10 @@ from . import cuda_build
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (32, 64, 80, 96, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
 _SIGNATURES = {"flash_attention_fwd": [cuda_build.PTR] * 4
-               + [cuda_build.I32] * 8 + [cuda_build.F32, cuda_build.PTR]}
+               + [cuda_build.I32] * 9 + [cuda_build.F32, cuda_build.PTR]}
 
 
 def reset_launches() -> None:
@@ -65,11 +67,12 @@ def check_heads(h: int, kvh: int, hd: int) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """Softmax attention of q (B, S, H, hd) over k, v (B, S, KV, hd); keep
-    key kp for query qp iff ``kp <= qp`` (causal) and ``kp > qp - window``
-    (when a window is given).  Returns (B, S, H, hd) in q's type."""
+    key kp for query qp iff ``kp <= qp`` or ``qp, kp < prefix_len``
+    (causal), and ``kp > qp - window`` (when a window is given).  Returns
+    (B, S, H, hd) in q's type."""
     dtype = check_attention_operands(q=q, k=k, v=v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
@@ -80,6 +83,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_heads(h, kvh, hd)
     if window is not None and window < 1:
         raise ValueError(f"window {window} must be at least 1")
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len {prefix_len} is negative")
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} past the kernel's grid")
     out = torch.empty_like(q)
@@ -90,7 +95,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-            h, kvh, hd, int(causal), window or 0,
+            h, kvh, hd, int(causal), window or 0, prefix_len,
             int(dtype == torch.bfloat16), hd ** -0.5, stream)
     cuda_build.check_launch("flash_attention_fwd", code)
     cuda_build.count_launch(LAUNCHES, "flash_attention")

@@ -125,14 +125,18 @@ def sherman_morrison_delta(w: torch.Tensor, u: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: Optional[int] = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """Softmax attention, q (B, S, H, hd) over k/v (B, S, KV, hd) with
-    grouped-query heads, causal and optionally windowed (keep key kp for
-    query qp iff ``kp <= qp`` and ``kp > qp - window``)."""
+    grouped-query heads, causal (with an optional bidirectional prefix of
+    ``prefix_len`` positions) or full, optionally windowed: keep key kp
+    for query qp iff ``kp <= qp`` or ``qp, kp < prefix_len`` (causal), and
+    ``kp > qp - window``."""
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
-    return _cuda_fa.flash_attention(q, k, v, causal=causal, window=window)
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   prefix_len=prefix_len)
+    return _cuda_fa.flash_attention(q, k, v, causal=causal, window=window,
+                                    prefix_len=prefix_len)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,

@@ -72,14 +72,21 @@ def sherman_morrison_delta(w: torch.Tensor, u: torch.Tensor,
 
 
 def attention_keep(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
-                   window: Optional[int]) -> torch.Tensor:
-    """(q, k) keep-mask: ``kp <= qp`` when causal, and ``kp > qp - window``
-    when a window is given (the reference's ``_mask_block`` without the
-    VLM prefix)."""
+                   window: Optional[int], prefix_len: int = 0
+                   ) -> torch.Tensor:
+    """(q, k) keep-mask, the reference's ``_mask_block``: when causal,
+    ``kp <= qp``, or both inside the prefix (``qp < prefix_len`` and
+    ``kp < prefix_len``: the VLM's bidirectional image prefix); then
+    ``kp > qp - window`` when a window is given."""
     qp = q_pos[:, None]
     kp = k_pos[None, :]
-    keep = kp <= qp if causal else torch.ones(
-        (q_pos.numel(), k_pos.numel()), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        keep = kp <= qp
+        if prefix_len > 0:
+            keep = keep | ((qp < prefix_len) & (kp < prefix_len))
+    else:
+        keep = torch.ones((q_pos.numel(), k_pos.numel()), dtype=torch.bool,
+                          device=q_pos.device)
     if window is not None:
         keep = keep & (kp > qp - window)
     return keep
@@ -87,7 +94,8 @@ def attention_keep(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
-                    q_chunk: Optional[int] = None) -> torch.Tensor:
+                    q_chunk: Optional[int] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """Plain version of kernels.flash_attention: softmax attention with
     f32 scores, softmax and products, output in q's dtype.
 
@@ -112,7 +120,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q1 = min(s, q0 + q_chunk)
         qc = qf[:, :, :, q0:q1].reshape(b, kvh, g * (q1 - q0), hd)
         scores = (qc @ kt).view(b, kvh, g, q1 - q0, s) * hd ** -0.5
-        keep = attention_keep(pos[q0:q1], pos, causal=causal, window=window)
+        keep = attention_keep(pos[q0:q1], pos, causal=causal, window=window,
+                              prefix_len=prefix_len)
         scores = scores.masked_fill(~keep, float("-inf"))
         p = torch.softmax(scores, dim=-1).view(b, kvh, g * (q1 - q0), s)
         out[:, :, :, q0:q1] = (p @ vf).view(b, kvh, g, q1 - q0, hd)

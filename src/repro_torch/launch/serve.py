@@ -4,6 +4,8 @@
         --batch 8 --prompt-len 4096 --max-new 32 [--logit-view]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
         --reduced --device cpu --batch 2 --prompt-len 16 --max-new 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
+        --batch 8 --prompt-len 1024 --max-new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch custom-10m \
         --device cpu --fleet 2 --fleet-workers 2
     PYTHONPATH=src python -m repro_torch.launch.serve --fivm \

@@ -2,8 +2,10 @@
 attention kernel and the cached one-token decode on the flash-decode
 kernel (:mod:`repro_torch.kernels.ops`).
 
-Masking: causal, or full, with an optional sliding window (h2o-danube).
-The reference's prefix-LM mask (paligemma) waits for the vlm family.
+Masking: causal, prefix-LM (paligemma: bidirectional over the image
+prefix, causal after), or full (hubert), with an optional sliding window
+(h2o-danube).  A decoded token attends every valid cache slot, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -55,19 +57,17 @@ def attention_block(params: Dict[str, Tensor], cfg, x: Tensor,
     """Full-sequence attention (forward, prefill): x (B,S,D) → (B,S,D).
 
     ``return_kv=True`` also returns the rope'd (k, v), so a batched
-    prefill fills the decode cache in the same pass.
+    prefill fills the decode cache in the same pass.  ``prefix_len`` keys
+    the first positions bidirectionally under the causal mask.
     """
-    if prefix_len > 0:
-        raise NotImplementedError(
-            "prefix-LM attention (the vlm family) is not ported yet: "
-            "ROADMAP.md Queue 1 item 13")
     hd = cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)
     cos, sin = layers.rope_angles(positions, hd, cfg.rope_theta)
     q = layers.apply_rope(q, cos, sin)
     k = layers.apply_rope(k, cos, sin)
     out = ops.flash_attention(q, k, v, causal=causal,
-                              window=cfg.sliding_window)
+                              window=cfg.sliding_window,
+                              prefix_len=prefix_len)
     out = out.reshape(x.shape[0], x.shape[1], -1) @ params["wo"]
     if return_kv:
         return out, (k, v)

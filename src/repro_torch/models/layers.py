@@ -1,4 +1,4 @@
-"""Core layers: norms, embeddings, RoPE, MLPs.
+"""Core layers: norms, embeddings, RoPE, MLPs, the frontend projector.
 
 Pure functions over explicit param dicts, the counterparts of the JAX
 package's ``models/layers.py`` with the same f32 cast points: the RMSNorm
@@ -106,3 +106,18 @@ def mlp(params: Dict[str, Tensor], x: Tensor, gated: bool) -> Tensor:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
     return h @ params["w_out"]
+
+
+# -- linear frontend projector (VLM patch / audio frame stubs) ------------------
+
+
+def init_frontend_proj(in_dim: int, d: int, dtype, generator, device
+                       ) -> Dict[str, Tensor]:
+    return {"w": normal((in_dim, d), in_dim ** -0.5, dtype, generator,
+                        device),
+            "b": torch.zeros(d, dtype=dtype, device=device)}
+
+
+def frontend_proj(params: Dict[str, Tensor], x: Tensor) -> Tensor:
+    """x (B, S, in_dim) in the params' type → (B, S, D): ``x @ w + b``."""
+    return x @ params["w"] + params["b"].to(x.dtype)

@@ -58,7 +58,8 @@ class ServeEngine:
     def prefill(self, prompts) -> torch.Tensor:
         """Fill the cache from the prompts in one batched pass.
 
-        prompts: (B, S) ints → last-token logits (B, V).
+        prompts: (B, S) ints → last-token logits (B, V).  Tokens only, as
+        the reference's: a vlm's image prefix goes through ``LM.prefill``.
         """
         b, s = prompts.shape
         if b != self.batch_size:

@@ -465,6 +465,107 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
                                                          dtype=torch.int32))
 
 
+
+# (b, s, h, kvh, hd, window, prefix), causal: the prefix-LM term inside,
+# at and across the query and key tiles, with and without a window, and
+# head dim 256 (paligemma's heads: MQA, a group of 8)
+_FLASH_PREFIX = [
+    (1, 300, 8, 2, 80, None, 100),      # prefix inside a query tile
+    (1, 300, 8, 2, 64, None, 128),      # prefix at a bf16 query tile
+    (2, 200, 4, 4, 32, None, 64),       # prefix at a key tile
+    (1, 200, 8, 2, 80, 40, 150),        # window shorter than the prefix
+    (1, 97, 4, 1, 128, None, 97),       # prefix the whole sequence
+    (1, 70, 4, 1, 64, None, 1),         # prefix of one
+    (2, 1024, 8, 1, 256, None, 256),    # paligemma's prefill
+    (1, 333, 8, 1, 256, None, 0),       # hd 256, causal, ragged
+    (1, 150, 8, 1, 256, 50, 70)]        # hd 256, windowed prefix
+
+
+@pytest.mark.parametrize(
+    "dtype,b,s,h,kvh,hd,window,prefix",
+    [(dt, *c) for dt in (torch.float32, torch.bfloat16)
+     for c in _FLASH_PREFIX])
+def test_flash_attention_prefix_and_head_dim_256_match_plain(
+        cuda, dtype, b, s, h, kvh, hd, window, prefix):
+    g = torch.Generator(device=cuda).manual_seed(s + h + hd + prefix)
+    q, k, v = (torch.randn(b, s, n, hd, device=cuda, generator=g
+                           ).to(dtype) for n in (h, kvh, kvh))
+    before = cuda_fa.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True, window=window,
+                              prefix_len=prefix)
+    assert cuda_fa.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(
+        got, ref.flash_attention(q, k, v, causal=True, window=window,
+                                 prefix_len=prefix), **ATTN_TOL[dtype])
+    # full attention takes no prefix
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, causal=False, prefix_len=prefix),
+        ref.flash_attention(q, k, v, causal=False), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("n_form", ["int", "tensor"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,L,h,kvh,hd,n_valid", [
+    (4, 1056, 8, 1, 256, 1056),    # paligemma's decode: MQA, a group of 8
+    (4, 1056, 8, 1, 256, 257),
+    (2, 300, 16, 4, 256, 1),       # hd 256, four KV heads a block
+    (1, 200, 32, 2, 256, 199),     # hd 256, group 16
+    (8, 1024, 16, 16, 128, 1000),  # qwen2-moe's decode
+    (8, 520, 64, 4, 128, 520)])    # qwen3-moe's decode: a group of 16
+def test_flash_decode_head_dim_256_matches_plain(cuda, n_form, dtype, b, L,
+                                                 h, kvh, hd, n_valid):
+    q, k, v = _decode_inputs(cuda, dtype, b, L, h, kvh, hd, L + h + n_valid)
+    n = n_valid if n_form == "int" else torch.tensor(
+        n_valid, dtype=torch.int32, device=cuda)
+    before = cuda_fd.LAUNCHES["flash_decode"]
+    got = ops.flash_decode(q, k, v, n)
+    assert cuda_fd.LAUNCHES["flash_decode"] == before + 1
+    torch.testing.assert_close(got, ref.flash_decode(q, k, v, n_valid),
+                               **ATTN_TOL[dtype])
+    assert torch.equal(ops.flash_decode(q, k, v, n), got)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "paligemma-3b",
+                                  "hubert-xlarge"])
+def test_lm_families_on_card_match_cpu(cuda, arch):
+    """moe, vlm and audio LMs on the card against the same LM on the CPU
+    (the plain versions), f32, reduced widths: forward logits and router
+    loss, and for the decoders prefill and 8 decode steps, to 1e-4."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import synth_batch
+    from repro_torch.models import LM
+    cfg = get_config(arch).reduced()
+    gpu, cpu = LM(cfg, device="cuda"), LM(cfg, device="cpu")
+    gp = gpu.init(torch.Generator(device=cuda).manual_seed(0))
+    cp = {}
+    stack = [(gp, cp)]
+    while stack:      # the same weights on the CPU
+        src, dst = stack.pop()
+        for key, leaf in src.items():
+            if isinstance(leaf, dict):
+                dst[key] = {}
+                stack.append((leaf, dst[key]))
+            else:
+                dst[key] = leaf.cpu()
+    batch = synth_batch(cfg, ShapeConfig("t", 80, 2, "train"), seed=1)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    launches = cuda_fa.LAUNCHES["flash_attention"]
+    (gl, ga), (cl, ca) = gpu.forward(gp, batch), cpu.forward(cp, batch)
+    assert cuda_fa.LAUNCHES["flash_attention"] == launches + cfg.n_layers
+    torch.testing.assert_close(gl.cpu(), cl, **tol)
+    torch.testing.assert_close(ga.cpu(), ca, rtol=1e-5, atol=1e-7)
+    if cfg.encoder_only:
+        return
+    s0 = 80           # the batch's positions, a vlm's image prefix included
+    (gl, gc), (cl, cc) = (m.prefill(p, batch, s0 + 8)
+                          for m, p in ((gpu, gp), (cpu, cp)))
+    torch.testing.assert_close(gl.cpu(), cl, **tol)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 8))
+    for i in range(8):
+        gl, gc = gpu.decode_step(gp, gc, toks[:, i:i + 1], s0 + i)
+        cl, cc = cpu.decode_step(cp, cc, toks[:, i:i + 1], s0 + i)
+        torch.testing.assert_close(gl.cpu(), cl, **tol)
+
 # -- the guard on the card: the out-of-place entry and the select-commit -----
 
 @pytest.mark.parametrize("n,p,k", [(10000, 10000, K) for K in (1, 16, 64, 256)]

@@ -20,6 +20,7 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.codegen",
            "repro_torch.apps.general_iterative",
            "repro_torch.apps.gradient_descent", "repro_torch.apps.pagerank",
            "repro_torch.data", "repro_torch.data.updates",
+           "repro_torch.data.pipeline", "repro_torch.models.moe",
            "repro_torch.kernels.flash_attention",
            "repro_torch.kernels.flash_decode", "repro_torch.configs",
            "repro_torch.configs.base", "repro_torch.models",

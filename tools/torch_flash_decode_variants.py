@@ -45,7 +45,7 @@ _HEADS = "constexpr int TC_HEADS = 4;"
 _COMPUTE = "for (int u = 0; u < TC_UNITS; ++u) {"
 _PROLOGUE = """    if (s < run.nt) load_tile(s);
     cp_async_commit();"""
-_REFILL = """    if (t + TC_STAGES - 1 < run.nt) load_tile(t + TC_STAGES - 1);
+_REFILL = """    if (t + P::STAGES - 1 < run.nt) load_tile(t + P::STAGES - 1);
     cp_async_commit();"""
 
 _EPILOGUE = "  if (wph == 1) {\n"

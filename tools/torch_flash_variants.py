@@ -35,42 +35,10 @@ _SPLIT_PV = """\
         mma_bf16(o[2 * np + 1], lo, bf[2], bf[3]);
         mma_bf16(o[2 * np + 1], hi, bf[2], bf[3]);"""
 _MIN_BLOCKS = "constexpr int MIN_BLOCKS = HD <= 80 ? 2 : 1;"
-_Q_FRAGMENTS = """\
-  uint32_t qf[KSTEPS][4];
-  {
-    const uint32_t base =
-        smem_addr(qs + (16 * warp + (lane & 15)) * LD + (lane >> 4) * 8);
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) ldmatrix_x4(qf[kk], base + kk * 32);
-  }
-"""
-_S_LOOP = """\
-    for (int kk = 0; kk < KSTEPS; ++kk)
-#pragma unroll
-      for (int jp = 0; jp < BK / 16; ++jp) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, kaddr + (jp * 16 * LD + kk * 16) * 2);
-        mma_bf16(sc[2 * jp], qf[kk], bf[0], bf[1]);
-        mma_bf16(sc[2 * jp + 1], qf[kk], bf[2], bf[3]);
-      }
-"""
 # Q's fragments re-read from shared memory at every k16 step of every tile
-_Q_SMEM = [(_Q_FRAGMENTS, """\
-  const uint32_t qbase =
-      smem_addr(qs + (16 * warp + (lane & 15)) * LD + (lane >> 4) * 8);
-"""), (_S_LOOP, """\
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t qf[4];
-      ldmatrix_x4(qf, qbase + kk * 32);
-#pragma unroll
-      for (int jp = 0; jp < BK / 16; ++jp) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, kaddr + (jp * 16 * LD + kk * 16) * 2);
-        mma_bf16(sc[2 * jp], qf, bf[0], bf[1]);
-        mma_bf16(sc[2 * jp + 1], qf, bf[2], bf[3]);
-      }
-    }
-""")]
+# at every head dim (the kernel does so above head dim 128 only)
+_Q_SMEM = [("constexpr bool Q_IN_REGS = HD <= 128;",
+            "constexpr bool Q_IN_REGS = false;")]
 
 VARIANTS = {
     "checkout": [],
@@ -121,7 +89,7 @@ def build(tmp: Path) -> dict:
                 print(f"ptxas {name} {inst}: " + " | ".join(
                     x.strip() for x in lines[i + 2:i + 4]), flush=True)
         fn = ctypes.CDLL(str(tmp / f"{name}.so")).flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         entries[name] = fn
@@ -150,7 +118,7 @@ def main() -> int:
             def launch(fn):
                 code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), b, s, h, kvh, hd, 1, window or 0,
-                          1, hd ** -0.5,
+                          0, 1, hd ** -0.5,
                           torch.cuda.current_stream().cuda_stream)
                 if code:
                     raise RuntimeError(f"launch failed with {code}")
