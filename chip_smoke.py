@@ -901,9 +901,12 @@ def check_flash_kernels(peaks_) -> dict:
     n_valid 1, 2049 and 4096 (a wrapped ring is full), bf16 and f32, and
     starcoder2's.  Phase 17's shapes: paligemma's prefill (B=4, S=1024,
     H=8, KV=1, hd=256, a prefix of 256) in bf16 and f32, hubert's (H=KV=16,
-    hd=80, full attention) and qwen2-moe's (H=KV=16, hd=128); decode for
-    qwen2-moe, qwen3-moe (a group of 16) and paligemma (hd 256, bf16 and
-    f32, L = n_valid = 1056)."""
+    hd=80, full attention), qwen2-moe's (H=KV=16, hd=128) and qwen3-moe's
+    (H=64, KV=4, hd=128); decode for qwen2-moe, qwen3-moe (a group of 16)
+    and paligemma (hd 256, bf16 and f32, L = n_valid = 1056); and phase
+    17's f32 cuts at their own shapes: qwen2-moe's prefill and forward
+    (S=256, 288) and decode (L = n_valid = 288), paligemma's forward (S=544,
+    prefix 256) and decode (L = n_valid = 544), hubert's (S=1024, full)."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(1)
 
@@ -929,7 +932,18 @@ def check_flash_kernels(peaks_) -> dict:
             ("hubert_prefill_bf16", AUDIO_BATCH, AUDIO_FRAMES, 16, 16, 80,
              None, bf16, False, 0),
             ("qwen2_moe_prefill_bf16", MOE_BATCH, MOE_PROMPT, 16, 16, 128,
-             None, bf16, True, 0)]:
+             None, bf16, True, 0),
+            ("qwen3_moe_prefill_bf16", QWEN3_BATCH, QWEN3_PROMPT, 64, 4,
+             128, None, bf16, True, 0),
+            ("qwen2_moe_cut_prefill_f32", MOE_CUT_BATCH, MOE_CUT_PROMPT, 16,
+             16, 128, None, f32, True, 0),
+            ("qwen2_moe_cut_forward_f32", MOE_CUT_BATCH,
+             MOE_CUT_PROMPT + MOE_NEW, 16, 16, 128, None, f32, True, 0),
+            ("paligemma_cut_forward_f32", VLM_CUT_BATCH,
+             VLM_PATCHES + VLM_CUT_TEXT + VLM_NEW, 8, 1, 256, None, f32,
+             True, VLM_PATCHES),
+            ("hubert_cut_f32", AUDIO_CUT_BATCH, AUDIO_FRAMES, 16, 16, 80,
+             None, f32, False, 0)]:
         q = randn(b, s, h, hd, dtype=dt)
         k, v = randn(b, s, kvh, hd, dtype=dt), randn(b, s, kvh, hd, dtype=dt)
         out["flash_attention"].append(check_flash_attention(
@@ -950,7 +964,13 @@ def check_flash_kernels(peaks_) -> dict:
             ("paligemma_decode_bf16", VLM_BATCH, VLM_MAX_SEQ, 8, 1, 256,
              VLM_MAX_SEQ, bf16),
             ("paligemma_decode_f32", VLM_BATCH, VLM_MAX_SEQ, 8, 1, 256,
-             VLM_MAX_SEQ, f32)]:
+             VLM_MAX_SEQ, f32),
+            ("qwen2_moe_cut_decode_f32", MOE_CUT_BATCH,
+             MOE_CUT_PROMPT + MOE_NEW, 16, 16, 128, MOE_CUT_PROMPT + MOE_NEW,
+             f32),
+            ("paligemma_cut_decode_f32", VLM_CUT_BATCH,
+             VLM_PATCHES + VLM_CUT_TEXT + VLM_NEW, 8, 1, 256,
+             VLM_PATCHES + VLM_CUT_TEXT + VLM_NEW, f32)]:
         q = randn(b, h, hd, dtype=dt)
         kc, vc = (randn(b, L, kvh, hd, dtype=dt) for _ in range(2))
         out["flash_decode"].append(check_flash_decode(
@@ -3903,18 +3923,21 @@ def param_bytes(params, skip=()) -> int:
                for name, t in flat_params(params) if name not in skip)
 
 
-def decode_read_bytes(model, params, cache_len: int, batch: int) -> int:
-    """Bytes a decode step must read at least: every block's weights (all
-    experts: the dispatch multiplies each at its capacity), the final norm,
-    the head's table, and the KV caches of ``cache_len`` slots, each
-    once."""
+def decode_read_bytes(model, params, prompt: int, steps: int,
+                      batch: int) -> int:
+    """Bytes the median of ``steps`` decode steps after a ``prompt``-long
+    prefill must read at least: every block's weights (all experts: the
+    dispatch multiplies each at its capacity), the final norm, the head's
+    table, and the KV caches' valid slots (step i attends prompt + i + 1),
+    each once."""
     cfg = model.cfg
     skip = {"frontend.w", "frontend.b"}
     if not cfg.tie_embeddings:
         skip.add("embed.table")      # one row a token
-    kv = 2 * cfg.n_layers * batch * cache_len * cfg.n_kv_heads \
+    n_valid = statistics.median(range(prompt + 1, prompt + steps + 1))
+    kv = 2 * cfg.n_layers * batch * n_valid * cfg.n_kv_heads \
         * cfg.resolved_head_dim * model.dtype.itemsize
-    return param_bytes(params, skip) + kv
+    return int(param_bytes(params, skip) + kv)
 
 
 @contextlib.contextmanager
@@ -4040,7 +4063,7 @@ def phase_moe_serve(peaks_) -> dict:
     warm_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prefill_split = moe_split(lambda: eng.prefill(prompts),
                               "attention_block")
-    read = decode_read_bytes(model, params, MOE_PROMPT + MOE_NEW, MOE_BATCH)
+    read = decode_read_bytes(model, params, MOE_PROMPT, MOE_NEW, MOE_BATCH)
     decode_ms = 1e3 * statistics.median(step_s)
     rec = {"phase": label, "arch": cfg.name, "n_layers": cfg.n_layers,
            "dtype": cfg.dtype,
@@ -4178,7 +4201,8 @@ def phase_vlm_serve(peaks_) -> dict:
     got = launch_record(label, model, VLM_NEW)
     check_finite(label, logits[:, -1], *steps)
     decode_ms = 1e3 * statistics.median(step_s)
-    read = decode_read_bytes(model, params, VLM_MAX_SEQ, VLM_BATCH)
+    read = decode_read_bytes(model, params, VLM_PATCHES + VLM_TEXT, VLM_NEW,
+                             VLM_BATCH)
     rec = {"phase": label, "arch": cfg.name, "n_layers": cfg.n_layers,
            "dtype": cfg.dtype, "param_gb": param_bytes(params) / 1e9,
            "batch": VLM_BATCH, "patches": VLM_PATCHES, "text": VLM_TEXT,

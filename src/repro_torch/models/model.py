@@ -29,8 +29,6 @@ Params = Dict[str, Any]
 Tensor = torch.Tensor
 
 FAMILIES = ("dense", "moe", "vlm", "audio")
-#: families with a KV-cache decode step (audio is an encoder)
-DECODE_FAMILIES = ("dense", "moe", "vlm")
 
 
 class LM:
@@ -178,7 +176,7 @@ class LM:
 
     # -- decode ---------------------------------------------------------------
     def _check_decoder(self, what: str) -> None:
-        if self.cfg.family not in DECODE_FAMILIES:
+        if self.cfg.encoder_only:
             raise ValueError(f"{self.cfg.name} ({self.cfg.family}) is an "
                              f"encoder: it has no {what}")
 

@@ -99,10 +99,8 @@ def _dispatch(xt: Tensor, top_p: Tensor, top_e: Tensor, n_exp: int,
     prob_of_slot = torch.zeros(trash + 1, dtype=torch.float32,
                                device=xt.device)
     prob_of_slot[slot] = top_p.reshape(-1)
-    filled = torch.zeros(trash + 1, dtype=torch.bool, device=xt.device)
-    filled[slot] = True
     tok_of_slot, prob_of_slot = tok_of_slot[:trash], prob_of_slot[:trash]
-    buf = xt[tok_of_slot.clamp(max=t - 1)] * filled[:trash, None].to(
+    buf = xt[tok_of_slot.clamp(max=t - 1)] * (tok_of_slot < t)[:, None].to(
         xt.dtype)
     return buf.view(n_exp, cap, d), tok_of_slot, prob_of_slot
 

@@ -478,7 +478,9 @@ _FLASH_PREFIX = [
     (1, 70, 4, 1, 64, None, 1),         # prefix of one
     (2, 1024, 8, 1, 256, None, 256),    # paligemma's prefill
     (1, 333, 8, 1, 256, None, 0),       # hd 256, causal, ragged
-    (1, 150, 8, 1, 256, 50, 70)]        # hd 256, windowed prefix
+    (1, 150, 8, 1, 256, 50, 70),        # hd 256, windowed prefix
+    (1, 512, 64, 4, 128, None, 0),      # qwen3-moe's heads: a group of 16
+    (2, 288, 16, 16, 128, None, 0)]     # qwen2-moe's f32 cut, ragged
 
 
 @pytest.mark.parametrize(
