@@ -20,7 +20,8 @@ CUDA toolkit.  Phases, each of which raises on failure:
    by the profiler, and its host time; the dual kernel and the library
    pair by the profiler and their host times; the flash kernels also at
    phase 17's shapes (paligemma's prefix of 256 and head dim 256, bf16
-   and f32; hubert's full attention; qwen2-moe's and qwen3-moe's heads).
+   and f32; hubert's full attention; qwen2-moe's and qwen3-moe's heads)
+   and phase 18's (zamba2's shared block: head dim 64, a group of 1).
 4. matrix powers A^16 (n = 10000, exp model, the paper's size): 8 single
    updates, one batch of 16, 20 queued updates with a final flush, all
    replayed through the re-evaluation engine and compared view by view;
@@ -181,6 +182,23 @@ CUDA toolkit.  Phases, each of which raises on failure:
     d. hubert-xlarge's encoder (48 layers, full attention) over 8 x 1024
        frames; an f32 cut of 4 layers on the card against the same cut
        on the CPU (the plain versions).
+18. the hybrid and ssm families at published widths and depths, bf16,
+    seconds of each part and its peak memory:
+    a. zamba2-1.2b (38 Mamba2 layers; the shared attention + MLP block
+       after each of 6 groups of 6): a forward over 8 x 2048 tokens (the
+       chunked SSD scan, one flash_attention a group), cold and warm;
+       the ServeEngine on 8 prompts of 256 tokens prefilled token by
+       token, then 32 greedy steps (one flash_decode a group a step);
+       one step split by the profiler (Mamba2 in_proj, conv + state
+       update, gate + norm + out_proj; shared attention, MLP, head,
+       other) against its byte bound (weights, states read and written,
+       the valid KV slots); an f32 cut of 7 layers (a group and a tail
+       of 1) at B = 2: the prefill's and every step's logits against
+       forward over the 288 tokens, and the card's forward against the
+       CPU's on the same weights;
+    b. xlstm-350m (3 groups of 7 mLSTM blocks and an sLSTM block; no
+       attention, so no flash kernel): the same drive, split into mLSTM,
+       sLSTM and head; its f32 cut of 8 layers (one group).
 
 Every launch count is set to 0 just before a phase drives its engines and
 read just after; the counts of each kernel must equal the applies (or
@@ -302,6 +320,20 @@ VLM_CUT_BATCH, VLM_CUT_TEXT = 2, 256
 # 17d: hubert-xlarge's encoder over 8 x 1024 frames; its f32 cut on 2
 AUDIO_ARCH, AUDIO_BATCH, AUDIO_FRAMES, AUDIO_CUT_BATCH = "hubert-xlarge", \
     8, 1024, 2
+
+# phase 18: the recurrent families at published widths, bf16.  18a serves
+# zamba2-1.2b (arXiv:2411.15242), 18b xlstm-350m (arXiv:2405.04517), both
+# at full depth: a forward over RECUR_BATCH x RECUR_FWD_SEQ tokens, then
+# the ServeEngine on RECUR_BATCH prompts of RECUR_PROMPT tokens stepped
+# token by token (host-bound: a decode step each) and RECUR_NEW greedy
+# steps in a cache of RECUR_MAX_SEQ slots
+ZAMBA_ARCH, XLSTM_ARCH = "zamba2-1.2b", "xlstm-350m"
+RECUR_BATCH, RECUR_FWD_SEQ, RECUR_PROMPT, RECUR_NEW, RECUR_MAX_SEQ = \
+    8, 2048, 256, 32, 512
+# their f32 cuts at the same widths: zamba2 at 7 layers (one group of 6
+# and a tail of 1, so both paths run), xlstm at 8 (one group of 7 + 1)
+ZAMBA_CUT_LAYERS, XLSTM_CUT_LAYERS, RECUR_CUT_BATCH = 7, 8, 2
+RECUR_CUT_SEQ = RECUR_PROMPT + RECUR_NEW
 
 # Tolerance of an attention kernel against its plain version.  f32: the
 # kernel tolerance above.  bf16: the plain versions keep p in f32, the
@@ -906,7 +938,11 @@ def check_flash_kernels(peaks_) -> dict:
     and paligemma (hd 256, bf16 and f32, L = n_valid = 1056); and phase
     17's f32 cuts at their own shapes: qwen2-moe's prefill and forward
     (S=256, 288) and decode (L = n_valid = 288), paligemma's forward (S=544,
-    prefix 256) and decode (L = n_valid = 544), hubert's (S=1024, full)."""
+    prefix 256) and decode (L = n_valid = 544), hubert's (S=1024, full).
+    Phase 18's: zamba2's shared block at head dim 64, a group of 1, its
+    forward (B=8, S=2048, H=KV=32) in bf16 and its cut's (B=2, S=288) in
+    f32; decode over its 512-slot cache at n_valid 288 in bf16 and over
+    the cut's full 288-slot cache in f32."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(1)
 
@@ -943,7 +979,11 @@ def check_flash_kernels(peaks_) -> dict:
              VLM_PATCHES + VLM_CUT_TEXT + VLM_NEW, 8, 1, 256, None, f32,
              True, VLM_PATCHES),
             ("hubert_cut_f32", AUDIO_CUT_BATCH, AUDIO_FRAMES, 16, 16, 80,
-             None, f32, False, 0)]:
+             None, f32, False, 0),
+            ("zamba2_forward_bf16", RECUR_BATCH, RECUR_FWD_SEQ, 32, 32, 64,
+             None, bf16, True, 0),
+            ("zamba2_cut_forward_f32", RECUR_CUT_BATCH, RECUR_CUT_SEQ, 32,
+             32, 64, None, f32, True, 0)]:
         q = randn(b, s, h, hd, dtype=dt)
         k, v = randn(b, s, kvh, hd, dtype=dt), randn(b, s, kvh, hd, dtype=dt)
         out["flash_attention"].append(check_flash_attention(
@@ -970,7 +1010,11 @@ def check_flash_kernels(peaks_) -> dict:
              f32),
             ("paligemma_cut_decode_f32", VLM_CUT_BATCH,
              VLM_PATCHES + VLM_CUT_TEXT + VLM_NEW, 8, 1, 256,
-             VLM_PATCHES + VLM_CUT_TEXT + VLM_NEW, f32)]:
+             VLM_PATCHES + VLM_CUT_TEXT + VLM_NEW, f32),
+            ("zamba2_decode_bf16", RECUR_BATCH, RECUR_MAX_SEQ, 32, 32, 64,
+             RECUR_PROMPT + RECUR_NEW, bf16),
+            ("zamba2_cut_decode_f32", RECUR_CUT_BATCH, RECUR_CUT_SEQ, 32, 32,
+             64, RECUR_CUT_SEQ, f32)]:
         q = randn(b, h, hd, dtype=dt)
         kc, vc = (randn(b, L, kvh, hd, dtype=dt) for _ in range(2))
         out["flash_decode"].append(check_flash_decode(
@@ -3969,18 +4013,25 @@ def moe_split(fn, attention_fn: str) -> dict:
     kernel), router and dispatch, the expert products, combine, the
     shared expert, the head, and the rest (embedding, norms,
     residuals)."""
+    from repro_torch.models import attention, moe
+    from repro_torch.models.model import LM
+    return range_split(fn, [(attention, attention_fn, "attention"),
+                            (moe, "_route", "router_dispatch"),
+                            (moe, "_dispatch", "router_dispatch"),
+                            (moe, "_experts", "expert_products"),
+                            (moe, "_combine", "combine"),
+                            (moe, "_shared_expert", "shared_expert"),
+                            (LM, "logits", "head")])
+
+
+def range_split(fn, parts) -> dict:
+    """One call of ``fn`` under the profiler, its kernel time split by
+    the ``parts`` (owner, attribute, label) it calls, which must not nest,
+    and the rest ("other"); with the device's busy time (the union of the
+    kernels' intervals) and the kernels launched."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import attention, moe
-    from repro_torch.models.model import LM
-    parts = [(attention, attention_fn, "attention"),
-             (moe, "_route", "router_dispatch"),
-             (moe, "_dispatch", "router_dispatch"),
-             (moe, "_experts", "expert_products"),
-             (moe, "_combine", "combine"),
-             (moe, "_shared_expert", "shared_expert"),
-             (LM, "logits", "head")]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with annotated(parts), profile(activities=[ProfilerActivity.CPU,
@@ -4306,14 +4357,7 @@ def phase_audio() -> list:
     reset_launches()
     card, _ = model.forward(params, frames)
     got = launch_record(label, model, 0)
-    cpu_params = {}
-    for name, t in flat_params(params):
-        node = cpu_params
-        *path, leaf = name.split(".")
-        for key in path:
-            node = node.setdefault(key, {})
-        node[leaf] = t.cpu()
-    plain, _ = LM(model.cfg, device="cpu").forward(cpu_params, frames)
+    plain, _ = LM(model.cfg, device="cpu").forward(cpu_copy(params), frames)
     err = check_close(label, card.cpu(), plain, SERVE_RTOL, SERVE_ATOL)
     recs.append({"phase": label, "n_layers": EXACT_LAYERS,
                  "dtype": "float32", "batch": AUDIO_CUT_BATCH,
@@ -4350,6 +4394,209 @@ def phase_families(peaks_) -> list:
     seconds = time.perf_counter() - t0
     log(f"phase 17: {seconds:.2f} s, peak memory {peak:.2f} GiB "
         f"(allocated before it: {before:.2f} GiB)")
+    return recs
+
+
+# -- phase 18: the recurrent families at full width ----------------------------
+
+def cpu_copy(params):
+    """The same param tree on the CPU."""
+    return {k: cpu_copy(v) if isinstance(v, dict) else v.cpu()
+            for k, v in params.items()}
+
+
+def attention_groups(cfg) -> int:
+    """Applications of the hybrid's shared attention block (one a group
+    of attn_every Mamba2 blocks), each one flash_attention a forward and
+    one flash_decode a step; 0 for the ssm family."""
+    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+
+
+def recurrent_step_bytes(model, params, cache, n_valid: float) -> int:
+    """Bytes a decode step must move at least: every block's weights, the
+    final norm and the head's table once (the embedding: one row a
+    token), every recurrent state read and written once, and the
+    ``n_valid`` valid KV slots of each shared-block application read
+    once."""
+    skip = set() if model.cfg.tie_embeddings else {"embed.table"}
+    states = sum(t.numel() * t.element_size()
+                 for name, t in flat_params(cache)
+                 if not name.startswith("kv."))
+    kv = 0
+    if "kv" in cache:
+        k = cache["kv"]["k"]                      # (G, B, L, KV, hd)
+        kv = 2 * k.shape[0] * k.shape[1] * n_valid * k.shape[3] \
+            * k.shape[4] * k.element_size()
+    return int(param_bytes(params, skip) + 2 * states + kv)
+
+
+def recurrent_serve(arch: str, peaks_, parts, seed: int) -> list:
+    """18a / 18b: ``arch`` at full width and depth in bf16: a forward over
+    RECUR_BATCH x RECUR_FWD_SEQ tokens (cold, then warm); the ServeEngine
+    with RECUR_PROMPT tokens prefilled token by token and RECUR_NEW greedy
+    steps; one more step split by the profiler over ``parts``."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    model, params = family_lm(arch)
+    cfg = model.cfg
+    label = f"{cfg.family}_{arch}_full"
+    groups = attention_groups(cfg)
+    tokens = family_batch(cfg, RECUR_BATCH, RECUR_FWD_SEQ, seed)["tokens"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = launches()
+    check_launches(f"{label} forward", got, {"flash_attention": groups})
+    check_finite(label, logits)
+    if logits.shape != (RECUR_BATCH, RECUR_FWD_SEQ, cfg.vocab):
+        raise AssertionError(f"{label}: logits {tuple(logits.shape)}")
+    del logits
+    t0 = time.perf_counter()
+    model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    recs = [{"phase": f"{label}_forward", "arch": cfg.name,
+             "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+             "params": sum(t.numel() for _, t in flat_params(params)),
+             "param_gb": param_bytes(params) / 1e9, "batch": RECUR_BATCH,
+             "seq": RECUR_FWD_SEQ, "launches": got,
+             "forward_ms_first": 1e3 * first_s, "forward_ms": 1e3 * warm_s,
+             "forward_tokens_per_s": RECUR_BATCH * RECUR_FWD_SEQ / warm_s,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}]
+    log("main " + json.dumps(recs[-1]))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ServeEngine(model, params, batch_size=RECUR_BATCH,
+                      max_seq=RECUR_MAX_SEQ)
+    prompts = family_batch(cfg, RECUR_BATCH, RECUR_PROMPT, seed + 1)[
+        "tokens"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    last, steps, toks, prefill_s, step_s = serve(eng, prompts, RECUR_NEW)
+    got = launches()
+    check_launches(label, got, {"flash_decode": groups * (RECUR_PROMPT
+                                                          + RECUR_NEW)})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_finite(label, last, *steps)
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise AssertionError(f"{label}: a token outside the vocabulary")
+    del last, steps
+    # one step again under the profiler, from the last position
+    eng._pos -= 1
+    split = range_split(lambda: eng.decode(toks[:, -1]), parts)
+    n_valid = statistics.median(range(RECUR_PROMPT + 1,
+                                      RECUR_PROMPT + RECUR_NEW + 1))
+    read = recurrent_step_bytes(model, params, eng.cache, n_valid)
+    decode_ms = 1e3 * statistics.median(step_s)
+    rec = {"phase": label, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype, "batch": RECUR_BATCH, "prompt": RECUR_PROMPT,
+           "new": RECUR_NEW, "max_seq": RECUR_MAX_SEQ, "launches": got,
+           "prefill_ms": 1e3 * prefill_s,
+           "prefill_tokens_per_s": RECUR_BATCH * RECUR_PROMPT / prefill_s,
+           "prefill_ms_per_position": 1e3 * prefill_s / RECUR_PROMPT,
+           "decode_ms_per_step_median": decode_ms,
+           "decode_ms_per_step_first": 1e3 * step_s[0],
+           "decode_tokens_per_s": RECUR_BATCH / decode_ms * 1e3,
+           "decode_bound_ms": read / peaks_[0] * 1e3,
+           "decode_bound_bytes": read,
+           "state_bytes": sum(t.numel() * t.element_size()
+                              for name, t in flat_params(eng.cache)
+                              if not name.startswith("kv.")),
+           "allocated_before_gib": before, "peak_mem_gib": peak,
+           "profile_decode_step": split}
+    if split["device_ms"] is not None:
+        rec["decode_device_idle_share"] = 1 - split["busy_ms"] / decode_ms
+    log("main " + json.dumps(rec))
+    recs.append(rec)
+    return recs
+
+
+def recurrent_exact(arch: str, n_layers: int, seed: int) -> dict:
+    """The f32 cut of ``arch`` at its widths and ``n_layers`` layers:
+    RECUR_CUT_BATCH prompts of RECUR_PROMPT tokens prefilled token by
+    token and RECUR_NEW greedy steps, every step's logits and greedy token
+    against forward's over the RECUR_CUT_SEQ tokens fed, and the card's
+    forward against the CPU port's on the same weights."""
+    import torch
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeEngine
+    model, params = family_lm(arch, n_layers, "float32", seed=seed)
+    cfg = model.cfg
+    label = f"{cfg.family}_{arch}_f32_exact"
+    groups = attention_groups(cfg)
+    eng = ServeEngine(model, params, batch_size=RECUR_CUT_BATCH,
+                      max_seq=RECUR_CUT_SEQ)
+    prompts = family_batch(cfg, RECUR_CUT_BATCH, RECUR_PROMPT, seed + 1)[
+        "tokens"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    last, steps, toks, prefill_s, step_s = serve(eng, prompts, RECUR_NEW)
+    seq = torch.cat([torch.as_tensor(prompts, device=DEVICE).long(),
+                     toks[:, :RECUR_NEW].long()], dim=1)
+    full, _ = model.forward(params, {"tokens": seq})
+    got = launches()
+    check_launches(label, got, {"flash_attention": groups,
+                                "flash_decode": groups * RECUR_CUT_SEQ})
+    checked = check_decode(label, torch.stack([last, *steps], dim=1), toks,
+                           full[:, RECUR_PROMPT - 1:])
+    plain, _ = LM(cfg, device="cpu").forward(cpu_copy(params),
+                                             {"tokens": seq.cpu()})
+    err = check_close(f"{label} card vs cpu", full.cpu(), plain, SERVE_RTOL,
+                      SERVE_ATOL)
+    rec = {"phase": label, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "batch": RECUR_CUT_BATCH, "prompt": RECUR_PROMPT,
+           "new": RECUR_NEW, "launches": got, **checked,
+           "forward_vs_cpu_max_abs_err": err,
+           "prefill_ms": 1e3 * prefill_s,
+           "decode_ms_per_step_median": 1e3 * statistics.median(step_s),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def phase_recurrent(peaks_) -> list:
+    """Phase 18: the hybrid and ssm families at full width on one card,
+    each decode step split by the port's functions."""
+    import torch
+    from repro_torch.models import attention, layers, ssm, xlstm
+    from repro_torch.models.model import LM
+    zamba_parts = [(ssm, "_project", "mamba2_in_proj"),
+                   (ssm, "_state_step", "mamba2_conv_state"),
+                   (ssm, "_output", "mamba2_out_proj"),
+                   (attention, "decode_attention", "shared_attention"),
+                   (layers, "mlp", "mlp"), (LM, "logits", "head")]
+    xlstm_parts = [(xlstm, "mlstm_decode_step", "mlstm"),
+                   (xlstm, "slstm_decode_step", "slstm"),
+                   (LM, "logits", "head")]
+    log(f"phase 18b: {XLSTM_ARCH} has no attention: no flash kernel runs")
+    t0 = time.perf_counter()
+    recs, peak = [], 0.0
+    for part, fn in (
+            ("18a", lambda: [*recurrent_serve(ZAMBA_ARCH, peaks_,
+                                              zamba_parts, 25),
+                             recurrent_exact(ZAMBA_ARCH, ZAMBA_CUT_LAYERS,
+                                             27)]),
+            ("18b", lambda: [*recurrent_serve(XLSTM_ARCH, peaks_,
+                                              xlstm_parts, 29),
+                             recurrent_exact(XLSTM_ARCH, XLSTM_CUT_LAYERS,
+                                             31)])):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        recs.extend(fn())
+        peak = max(peak, max(r["peak_mem_gib"] for r in recs))
+        log(f"phase {part}: {time.perf_counter() - t1:.2f} s")
+    log(f"phase 18: {time.perf_counter() - t0:.2f} s, peak memory "
+        f"{peak:.2f} GiB")
     return recs
 
 
@@ -4460,6 +4707,10 @@ def main() -> int:
 
     # 17. the moe, vlm and audio families at full width
     phases.extend(phase_families(peaks_))
+    torch.cuda.empty_cache()
+
+    # 18. the hybrid and ssm families at full width
+    phases.extend(phase_recurrent(peaks_))
     torch.cuda.empty_cache()
 
     # the kernels record: per entry, the main path's launches and the

@@ -6,13 +6,16 @@
         --reduced --device cpu --batch 2 --prompt-len 16 --max-new 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
         --batch 8 --prompt-len 1024 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+        --batch 8 --prompt-len 256 --max-new 32       # or xlstm-350m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch custom-10m \
         --device cpu --fleet 2 --fleet-workers 2
     PYTHONPATH=src python -m repro_torch.launch.serve --fivm \
         [--device cpu] [--fivm-features 256 --fivm-capacity 1048576]
 
 Runs on the card unless ``--device cpu`` is given.  Weights are random,
-drawn from ``--seed``.  ``--logit-view`` attaches an incremental lm_head
+drawn from ``--seed``.  The recurrent families (zamba2, xlstm) prefill
+token by token.  ``--logit-view`` attaches an incremental lm_head
 logit view over a random corpus, hot-swaps a burst of rank-1 deltas
 through it and prints its health.  ``--fleet N`` serves N logit-view
 tenants over the model's lm_head widths through

@@ -1,18 +1,27 @@
-"""LM assembly for the transformer families: dense, moe, vlm and audio.
+"""LM assembly: one :class:`LM` for all ten architectures.
 
-The counterpart of the JAX package's ``models/model.py`` :class:`LM` for
-the families that share its ``params["blocks"]`` stack: embed, ``n_layers``
-blocks of RMSNorm → attention → residual → RMSNorm → MLP or MoE →
-residual, final RMSNorm, head.  A vlm (paligemma) puts its projected
-image patches before the text and attends bidirectionally over them; an
-audio encoder (hubert) projects frames, attends without a causal mask and
-has no decode step.  Per-layer parameters stay stacked along a leading
-layer axis, as in the reference, so its params map over one to one
-(:mod:`.weights`).  The hybrid and ssm families raise: ROADMAP.md Queue 1
-item 13.
+The counterpart of the JAX package's ``models/model.py`` :class:`LM`.
+Families:
+
+- dense / moe: embed, ``n_layers`` blocks of RMSNorm → attention →
+  residual → RMSNorm → MLP or MoE → residual, final RMSNorm, head;
+- vlm (paligemma): projected image patches before the text, attended
+  bidirectionally (prefix-LM);
+- audio (hubert): projected frames, no causal mask, no decode step;
+- hybrid (zamba2): a Mamba2 backbone in groups of ``attn_every`` blocks,
+  each group followed by ONE weight-shared attention + MLP block (its own
+  KV cache at each application), then a tail of Mamba2 blocks;
+- ssm (xlstm): groups of ``mlstm_per_slstm`` mLSTM blocks and one sLSTM
+  block.
+
+Parameters stay stacked along leading layer axes under the reference's
+names (``blocks``; ``mamba_groups`` (G, attn_every, ...), ``mamba_tail``,
+``shared_attn``; ``mlstm_groups`` (G, per, ...), ``slstm``), so its params
+map over leaf by leaf (:mod:`.weights`).
 
 Every method is a pure function of the params it is given, except that
-:meth:`LM.decode_step` writes the new token's k/v into the cache in place.
+:meth:`LM.decode_step` writes the new token's k/v and the recurrent
+states into the cache in place.
 """
 
 from __future__ import annotations
@@ -23,23 +32,24 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.runtime import resolve_device
-from . import attention, layers, moe
+from . import attention, layers, moe, ssm, xlstm
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
 
-FAMILIES = ("dense", "moe", "vlm", "audio")
+#: the families whose params are one ``blocks`` stack of transformer blocks
+TRANSFORMER = ("dense", "moe", "vlm", "audio")
+#: the recurrent families: no batched prefill, the cache holds states
+RECURRENT = ("hybrid", "ssm")
+FAMILIES = TRANSFORMER + RECURRENT
 
 
 class LM:
-    """Config-driven transformer on ``device`` (``None``: the card)."""
+    """Config-driven model on ``device`` (``None``: the card)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-                f"port runs the {', '.join(FAMILIES)} families (ROADMAP.md "
-                "Queue 1 item 13)")
+            raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
         self.cfg = cfg
         self.dtype = layers.DTYPES[cfg.dtype]
         self.device = resolve_device(device)
@@ -48,7 +58,8 @@ class LM:
     def init(self, generator: torch.Generator) -> Params:
         """Random params drawn from ``generator`` (on ``self.device``), at
         the reference's scales: N(0, 1/fan_in) weights, unit norms, zero
-        biases and shared-expert gates."""
+        biases and shared-expert gates; the recurrent blocks' gate and
+        decay leaves in f32 (:mod:`.ssm`, :mod:`.xlstm`)."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
         p: Params = {"embed": layers.init_embedding(cfg.vocab, cfg.d_model,
                                                     dt, generator, dev),
@@ -59,8 +70,27 @@ class LM:
         if cfg.frontend_dim:
             p["frontend"] = layers.init_frontend_proj(
                 cfg.frontend_dim, cfg.d_model, dt, generator, dev)
-        blocks = [self._init_block(generator) for _ in range(cfg.n_layers)]
-        p["blocks"] = _stack(blocks)
+        if cfg.family in TRANSFORMER:
+            p["blocks"] = _stack([self._init_block(generator)
+                                  for _ in range(cfg.n_layers)])
+        elif cfg.family == "hybrid":
+            groups, tail = self._zamba_layout()
+            p["mamba_groups"] = _stack([
+                _stack([self._init_mamba_block(generator)
+                        for _ in range(cfg.attn_every)])
+                for _ in range(groups)])
+            if tail:
+                p["mamba_tail"] = _stack([self._init_mamba_block(generator)
+                                          for _ in range(tail)])
+            p["shared_attn"] = self._init_block(generator)
+        else:
+            groups, per = self._xlstm_layout()
+            p["mlstm_groups"] = _stack([
+                _stack([self._init_mlstm_block(generator)
+                        for _ in range(per)])
+                for _ in range(groups)])
+            p["slstm"] = _stack([self._init_slstm_block(generator)
+                                 for _ in range(groups)])
         return p
 
     def _init_block(self, generator) -> Params:
@@ -74,6 +104,34 @@ class LM:
             p["mlp"] = layers.init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_gated,
                                        dt, generator, dev)
         return p
+
+    def _init_mamba_block(self, generator) -> Params:
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        return {"ln": layers.init_rmsnorm(cfg.d_model, dt, dev),
+                "mixer": ssm.init_mamba2(cfg, dt, generator, dev)}
+
+    def _init_mlstm_block(self, generator) -> Params:
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        return {"ln": layers.init_rmsnorm(cfg.d_model, dt, dev),
+                "mixer": xlstm.init_mlstm(cfg, dt, generator, dev)}
+
+    def _init_slstm_block(self, generator) -> Params:
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        return {"ln": layers.init_rmsnorm(cfg.d_model, dt, dev),
+                "cell": xlstm.init_slstm(cfg, dt, generator, dev)}
+
+    def _zamba_layout(self) -> Tuple[int, int]:
+        """(groups of ``attn_every`` Mamba2 blocks, Mamba2 blocks after
+        the last group): zamba2-1.2b's 38 layers are 6 groups of 6 and a
+        tail of 2."""
+        groups = self.cfg.n_layers // self.cfg.attn_every
+        return groups, self.cfg.n_layers - groups * self.cfg.attn_every
+
+    def _xlstm_layout(self) -> Tuple[int, int]:
+        """(groups, mLSTM blocks a group); each group ends in one sLSTM
+        block: xlstm-350m's 24 layers are 3 groups of 7 + 1."""
+        per = self.cfg.xlstm.mlstm_per_slstm
+        return self.cfg.n_layers // (per + 1), per
 
     def _blocks(self, params: Params):
         """Layer i's params, as views into the stacked leaves."""
@@ -104,6 +162,10 @@ class LM:
         router losses summed, 0 without MoE)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family == "hybrid":
+            return self._zamba_backbone(params, x, positions, causal), aux
+        if cfg.family == "ssm":
+            return self._xlstm_backbone(params, x), aux
         for bp in self._blocks(params):
             a = attention.attention_block(
                 bp["attn"], cfg, layers.rmsnorm(bp["ln1"], x, cfg.norm_eps),
@@ -112,6 +174,45 @@ class LM:
             if block_aux is not None:
                 aux = aux + block_aux
         return x, aux
+
+    def _mamba(self, bp: Params, x: Tensor) -> Tensor:
+        return x + ssm.mamba2_block(
+            bp["mixer"], self.cfg,
+            layers.rmsnorm(bp["ln"], x, self.cfg.norm_eps))
+
+    def _zamba_backbone(self, params: Params, x: Tensor, positions: Tensor,
+                        causal: bool) -> Tensor:
+        cfg = self.cfg
+        groups, tail = self._zamba_layout()
+        shared = params["shared_attn"]
+        for g in range(groups):
+            group = _index(params["mamba_groups"], g)
+            for i in range(cfg.attn_every):
+                x = self._mamba(_index(group, i), x)
+            # the weight-shared attention block, the same params each time
+            a = attention.attention_block(
+                shared["attn"], cfg,
+                layers.rmsnorm(shared["ln1"], x, cfg.norm_eps), positions,
+                causal=causal)
+            x, _ = self._block(shared, x, a)
+        for i in range(tail):
+            x = self._mamba(_index(params["mamba_tail"], i), x)
+        return x
+
+    def _xlstm_backbone(self, params: Params, x: Tensor) -> Tensor:
+        cfg = self.cfg
+        groups, per = self._xlstm_layout()
+        for g in range(groups):
+            group = _index(params["mlstm_groups"], g)
+            for i in range(per):
+                bp = _index(group, i)
+                x = x + xlstm.mlstm_block(
+                    bp["mixer"], cfg,
+                    layers.rmsnorm(bp["ln"], x, cfg.norm_eps))
+            sp = _index(params["slstm"], g)
+            x = x + xlstm.slstm_block(
+                sp["cell"], cfg, layers.rmsnorm(sp["ln"], x, cfg.norm_eps))
+        return x
 
     def _input(self, batch: Dict, name: str) -> Tensor:
         return torch.as_tensor(batch[name], device=self.device)
@@ -176,18 +277,43 @@ class LM:
 
     # -- decode ---------------------------------------------------------------
     def _check_decoder(self, what: str) -> None:
+        """Raise for an encoder (audio), which has no ``what``: no cache,
+        no prefill and no decode step."""
         if self.cfg.encoder_only:
             raise ValueError(f"{self.cfg.name} ({self.cfg.family}) is an "
                              f"encoder: it has no {what}")
 
     def init_cache(self, batch: int, max_seq: int) -> Params:
-        """{"kv": {"k", "v"}} of shape (n_layers, B, L, KV, hd), zeroed."""
+        """The zeroed decode cache, leaves stacked as the params are:
+
+        - transformer families: {"kv": {"k", "v"}}, (n_layers, B, L, KV,
+          hd);
+        - hybrid: {"mamba": {"conv", "ssm"}} (G, attn_every, B, ...),
+          {"kv"} (G, B, L, KV, hd), one cache for each application of the
+          shared block, and {"mamba_tail"} (tail, B, ...) when there is a
+          tail;
+        - ssm: {"mlstm": {"conv", "s", "n", "m"}} (G, per, B, ...) and
+          {"slstm": {"c", "n", "h", "m"}} (G, B, D).
+        """
         self._check_decoder("decode cache")
-        one = attention.init_kv_cache(self.cfg, batch, max_seq, self.dtype,
-                                      self.device)
-        n = self.cfg.n_layers
-        return {"kv": {name: x.new_zeros((n,) + tuple(x.shape))
-                       for name, x in one.items()}}
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        if cfg.family == "ssm":
+            groups, per = self._xlstm_layout()
+            return {"mlstm": _stacked_zeros(
+                        xlstm.init_mlstm_state(cfg, batch, dt, dev),
+                        (groups, per)),
+                    "slstm": _stacked_zeros(
+                        xlstm.init_slstm_state(cfg, batch, dev), (groups,))}
+        kv = attention.init_kv_cache(cfg, batch, max_seq, dt, dev)
+        if cfg.family != "hybrid":
+            return {"kv": _stacked_zeros(kv, (cfg.n_layers,))}
+        groups, tail = self._zamba_layout()
+        state = ssm.init_mamba2_state(cfg, batch, dt, dev)
+        cache = {"mamba": _stacked_zeros(state, (groups, cfg.attn_every)),
+                 "kv": _stacked_zeros(kv, (groups,))}
+        if tail:
+            cache["mamba_tail"] = _stacked_zeros(state, (tail,))
+        return cache
 
     def prefill(self, params: Params, batch: Dict, max_seq: int
                 ) -> Tuple[Tensor, Params]:
@@ -198,6 +324,11 @@ class LM:
         """
         cfg = self.cfg
         self._check_decoder("prefill with a cache")
+        if cfg.family in RECURRENT:
+            raise NotImplementedError(
+                f"batched prefill-with-cache for family {cfg.family} uses "
+                "the recurrent decode path instead (ServeEngine.prefill "
+                "steps it token by token)")
         x, positions, prefix = self.embed_inputs(params, batch)
         b, s, _ = x.shape
         cache = self.init_cache(b, max_seq)
@@ -222,28 +353,85 @@ class LM:
     def decode_step(self, params: Params, cache: Params, token, pos: int
                     ) -> Tuple[Tensor, Params]:
         """One decode step. token (B, 1) ints; pos an int.  Writes the
-        token's k/v into ``cache`` in place.  Returns (logits (B, 1, V),
-        cache).
+        token's k/v and the recurrent states into ``cache`` in place, so
+        its storage stays fixed from step to step.  Returns (logits
+        (B, 1, V), cache).
 
         The position and the valid slot count go to the device once per
-        step, in one int32 tensor, which every layer's rope and
+        step, in one int32 tensor, which every attention layer's rope and
         flash-decode kernel read there."""
         cfg = self.cfg
         self._check_decoder("decode step")
         x = self._embed_tokens(params, torch.as_tensor(token,
                                                        device=self.device))
-        kc, vc = cache["kv"]["k"], cache["kv"]["v"]
-        pos = int(pos)
-        slot, n_valid = attention.cache_slot(cfg, kc.shape[2], pos)
-        step = torch.tensor([pos, n_valid], dtype=torch.int32,
-                            device=self.device)
-        for i, bp in enumerate(self._blocks(params)):
-            a, _ = attention.decode_attention(
-                bp["attn"], cfg, layers.rmsnorm(bp["ln1"], x, cfg.norm_eps),
-                {"k": kc[i], "v": vc[i]}, slot, step[:1], step[1])
-            x, _ = self._block(bp, x, a)
+        if cfg.family == "ssm":
+            x = self._xlstm_decode(params, cache, x)
+        else:
+            kc, vc = cache["kv"]["k"], cache["kv"]["v"]
+            pos = int(pos)
+            slot, n_valid = attention.cache_slot(cfg, kc.shape[2], pos)
+            step = torch.tensor([pos, n_valid], dtype=torch.int32,
+                                device=self.device)
+
+            def attend(bp, x, i):
+                a, _ = attention.decode_attention(
+                    bp["attn"], cfg,
+                    layers.rmsnorm(bp["ln1"], x, cfg.norm_eps),
+                    {"k": kc[i], "v": vc[i]}, slot, step[:1], step[1])
+                return self._block(bp, x, a)[0]
+
+            if cfg.family == "hybrid":
+                x = self._zamba_decode(params, cache, x, attend)
+            else:
+                for i, bp in enumerate(self._blocks(params)):
+                    x = attend(bp, x, i)
         x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return self.logits(params, x), cache
+
+    def _mamba_step(self, bp: Params, x: Tensor, state: Params) -> Tensor:
+        m, _ = ssm.mamba2_decode_step(
+            bp["mixer"], self.cfg,
+            layers.rmsnorm(bp["ln"], x, self.cfg.norm_eps), state)
+        return x + m
+
+    def _zamba_decode(self, params: Params, cache: Params, x: Tensor,
+                      attend) -> Tensor:
+        """The hybrid's step: each group's Mamba2 blocks, then the shared
+        block on the group's own KV cache (``attend(block, x, g)``), then
+        the tail."""
+        groups, tail = self._zamba_layout()
+        for g in range(groups):
+            group = _index(params["mamba_groups"], g)
+            states = _index(cache["mamba"], g)
+            for i in range(self.cfg.attn_every):
+                x = self._mamba_step(_index(group, i), x,
+                                     _index(states, i))
+            x = attend(params["shared_attn"], x, g)
+        for i in range(tail):
+            x = self._mamba_step(_index(params["mamba_tail"], i), x,
+                                 _index(cache["mamba_tail"], i))
+        return x
+
+    def _xlstm_decode(self, params: Params, cache: Params, x: Tensor
+                      ) -> Tensor:
+        cfg = self.cfg
+        groups, per = self._xlstm_layout()
+        for g in range(groups):
+            group = _index(params["mlstm_groups"], g)
+            states = _index(cache["mlstm"], g)
+            for i in range(per):
+                bp = _index(group, i)
+                m, _ = xlstm.mlstm_decode_step(
+                    bp["mixer"], cfg,
+                    layers.rmsnorm(bp["ln"], x, cfg.norm_eps),
+                    _index(states, i))
+                x = x + m
+            sp = _index(params["slstm"], g)
+            s, _ = xlstm.slstm_decode_step(
+                sp["cell"], cfg, layers.rmsnorm(sp["ln"], x, cfg.norm_eps),
+                _index(cache["slstm"], g))
+            x = x + s
+        return x
 
 
 def _stack(trees):
@@ -252,6 +440,13 @@ def _stack(trees):
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
+
+
+def _stacked_zeros(tree, lead: Tuple[int, ...]):
+    """Zeros shaped as each leaf of ``tree`` behind the ``lead`` axes."""
+    if isinstance(tree, dict):
+        return {k: _stacked_zeros(v, lead) for k, v in tree.items()}
+    return tree.new_zeros(lead + tuple(tree.shape))
 
 
 def _index(tree, i: int):

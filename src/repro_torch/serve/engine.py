@@ -1,4 +1,4 @@
-"""Batched serving engine: prefill + decode with a KV cache.
+"""Batched serving engine: prefill + decode with KV and recurrent caches.
 
 Fixed-batch slots, greedy or temperature sampling, per-slot stop handling,
 and one decode step for the whole batch.  ``launch/serve.py`` drives it.
@@ -25,7 +25,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..models.model import LM
+from ..models.model import LM, RECURRENT
 from .incremental_views import IncrementalLogitView
 
 
@@ -56,7 +56,13 @@ class ServeEngine:
         self._pos = 0
 
     def prefill(self, prompts) -> torch.Tensor:
-        """Fill the cache from the prompts in one batched pass.
+        """Fill the cache from the prompts.
+
+        The transformer families take one batched pass; the recurrent
+        families (hybrid, ssm) step their states through ``decode_step``
+        token by token at positions 0..S-1, from a zeroed cache (the
+        reference steps from whatever the engine's cache holds, so its
+        second prefill continues the first's state).
 
         prompts: (B, S) ints → last-token logits (B, V).  Tokens only, as
         the reference's: a vlm's image prefix goes through ``LM.prefill``.
@@ -64,10 +70,18 @@ class ServeEngine:
         b, s = prompts.shape
         if b != self.batch_size:
             raise ValueError(f"{b} prompts for {self.batch_size} slots")
-        logits, self.cache = self.model.prefill(
-            self.params, {"tokens": prompts}, max_seq=self.max_seq)
+        if self.model.cfg.family not in RECURRENT:
+            logits, self.cache = self.model.prefill(
+                self.params, {"tokens": prompts}, max_seq=self.max_seq)
+            self._pos = s
+            return logits[:, -1, :]
+        _zero_(self.cache)
+        tokens = torch.as_tensor(prompts, device=self.model.device)
+        for t in range(s):
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache, tokens[:, t:t + 1], t)
         self._pos = s
-        return logits[:, -1, :]
+        return logits[:, 0, :]
 
     def decode(self, tokens) -> torch.Tensor:
         """One decode step for the whole batch at the current position:
@@ -226,6 +240,15 @@ class ServeEngine:
             out[path] = self._fleet.registry.get(
                 self._fleet_tenants[path]).health()
         return out
+
+
+def _zero_(tree) -> None:
+    """Zero every tensor of a cache tree in place."""
+    for leaf in tree.values():
+        if isinstance(leaf, dict):
+            _zero_(leaf)
+        else:
+            leaf.zero_()
 
 
 def make_serve_step(model: LM):

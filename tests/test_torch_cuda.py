@@ -339,7 +339,8 @@ _FLASH_BOTH = [
     (2, 130, 36, 4, 128, True, None),   # group 9 (starcoder2's heads)
     (1, 300, 8, 2, 80, True, 70),       # window shorter than S
     (2, 64, 4, 1, 64, False, None),     # full attention
-    (1, 97, 4, 4, 32, False, 16)]       # windowed, not causal
+    (1, 97, 4, 4, 32, False, 16),       # windowed, not causal
+    (2, 288, 32, 32, 64, True, None)]   # zamba2's f32 cut: hd 64, group 1
 # bf16 only: the tensor-core kernel's tiles (128 query rows, 64 keys) at
 # every head dim, lengths inside, at and across a tile, windows of 1 and
 # shorter than a key tile, full attention, groups 1, 4 and 9
@@ -358,7 +359,8 @@ _FLASH_BF16 = [
     (1, 100, 4, 4, 32, False, 1),       # window 1, not causal
     (2, 500, 8, 2, 80, True, 40),       # window shorter than a key tile
     (1, 1000, 36, 4, 80, True, 100),    # group 9, windowed
-    (1, 4128, 32, 8, 80, True, 4096)]   # danube's S = 4128 and window
+    (1, 4128, 32, 8, 80, True, 4096),   # danube's S = 4128 and window
+    (8, 2048, 32, 32, 64, True, None)]  # zamba2's forward: hd 64, group 1
 
 
 @pytest.mark.parametrize(
@@ -395,7 +397,9 @@ def _decode_inputs(device, dtype, b, L, h, kvh, hd, seed):
     (2, 300, 16, 1, 64, 300),      # group 16
     (3, 200, 8, 2, 32, 77),        # head_dim 32
     (1, 700, 8, 1, 64, 650),       # head_dim 64, group 8
-    (2, 333, 12, 4, 96, 200)])     # head_dim 96, group 3
+    (2, 333, 12, 4, 96, 200),      # head_dim 96, group 3
+    (8, 512, 32, 32, 64, 288),     # zamba2's decode: hd 64, group 1
+    (2, 288, 32, 32, 64, 288)])    # zamba2's f32 cut, a full cache
 def test_flash_decode_kernel_matches_plain(cuda, n_form, dtype, b, L, h, kvh,
                                            hd, n_valid):
     q, k, v = _decode_inputs(cuda, dtype, b, L, h, kvh, hd, L + h + n_valid)
@@ -567,6 +571,42 @@ def test_lm_families_on_card_match_cpu(cuda, arch):
         gl, gc = gpu.decode_step(gp, gc, toks[:, i:i + 1], s0 + i)
         cl, cc = cpu.decode_step(cp, cc, toks[:, i:i + 1], s0 + i)
         torch.testing.assert_close(gl.cpu(), cl, **tol)
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-350m"])
+def test_recurrent_families_on_card_match_cpu(cuda, arch):
+    """hybrid and ssm LMs on the card against the same LM on the CPU, f32,
+    reduced widths: forward logits, then the ServeEngine's token-by-token
+    prefill and 8 decode steps, to 1e-4; the hybrid's shared block
+    launches each flash kernel once a group."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeEngine
+    cfg = get_config(arch).reduced()
+    gpu, cpu = LM(cfg, device="cuda"), LM(cfg, device="cpu")
+    gp = gpu.init(torch.Generator(device=cuda).manual_seed(0))
+    cp = _to_cpu(gp)
+    groups = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 45))
+    tol = dict(rtol=1e-4, atol=1e-4)
+    launches = cuda_fa.LAUNCHES["flash_attention"]
+    gl, _ = gpu.forward(gp, {"tokens": toks})
+    assert cuda_fa.LAUNCHES["flash_attention"] == launches + groups
+    torch.testing.assert_close(gl.cpu(), cpu.forward(cp, {"tokens": toks})[0],
+                               **tol)
+    geng, ceng = (ServeEngine(m, p, batch_size=2, max_seq=64)
+                  for m, p in ((gpu, gp), (cpu, cp)))
+    launches = cuda_fd.LAUNCHES["flash_decode"]
+    torch.testing.assert_close(geng.prefill(toks[:, :37]).cpu(),
+                               ceng.prefill(toks[:, :37]), **tol)
+    for i in range(37, 45):
+        torch.testing.assert_close(geng.decode(toks[:, i]).cpu(),
+                                   ceng.decode(toks[:, i]), **tol)
+    assert cuda_fd.LAUNCHES["flash_decode"] == launches + 45 * groups
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
 
 # -- the guard on the card: the out-of-place entry and the select-commit -----
 

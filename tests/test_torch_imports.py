@@ -26,6 +26,7 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.codegen",
            "repro_torch.configs.base", "repro_torch.models",
            "repro_torch.models.layers", "repro_torch.models.attention",
            "repro_torch.models.model", "repro_torch.models.weights",
+           "repro_torch.models.ssm", "repro_torch.models.xlstm",
            "repro_torch.serve", "repro_torch.serve.engine",
            "repro_torch.serve.incremental_views", "repro_torch.launch",
            "repro_torch.launch.serve", "repro_torch.plan",

@@ -163,18 +163,32 @@ def test_bf16_params_hand_over_exactly():
                              torch.float32)["w"].dtype == torch.float32
 
 
-def test_other_families_are_not_ported():
-    """hybrid (zamba2) and ssm (xlstm) still raise; the transformer
-    families build (tests/test_torch_models.py holds them to JAX)."""
-    recurrent = [a for a, cfg in ARCHS.items()
-                 if cfg.family in ("hybrid", "ssm")]
-    assert sorted(recurrent) == ["xlstm-350m", "zamba2-1.2b"]
-    for arch in recurrent:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            LM(ARCHS[arch].reduced(), device="cpu")
+def test_every_family_builds():
+    """All ten configs build (hybrid and ssm since their port, which
+    tests/test_torch_recurrent.py holds to JAX), each as its family, and
+    every decoder takes a decode step from its own init at reduced
+    width."""
+    assert sorted({cfg.family for cfg in ARCHS.values()}) == [
+        "audio", "dense", "hybrid", "moe", "ssm", "vlm"]
     for arch, cfg in ARCHS.items():
-        if arch not in recurrent:
-            assert LM(cfg.reduced(), device="cpu").cfg.family == cfg.family
+        model = LM(cfg.reduced(), device="cpu")
+        assert model.cfg.family == cfg.family
+        if cfg.encoder_only:
+            continue
+        params = model.init(torch.Generator().manual_seed(0))
+        cache = model.init_cache(1, 4)
+        logits, _ = model.decode_step(params, cache, [[1]], 0)
+        assert logits.shape == (1, 1, cfg.reduced().vocab), arch
+        assert torch.isfinite(logits).all(), arch
+
+
+def test_other_families_are_not_ported():
+    """A family outside the reference's six raises, as the reference's
+    ``LM.init`` does."""
+    cfg = dataclasses.replace(ARCHS["h2o-danube-1.8b"].reduced(),
+                              family="diffusion")
+    with pytest.raises(ValueError, match="unknown family 'diffusion'"):
+        LM(cfg, device="cpu")
 
 
 def test_logit_view_matches_jax_under_head_and_corpus_updates(rng):
