@@ -21,7 +21,14 @@ CUDA toolkit.  Phases, each of which raises on failure:
    pair by the profiler and their host times; the flash kernels also at
    phase 17's shapes (paligemma's prefix of 256 and head dim 256, bf16
    and f32; hubert's full attention; qwen2-moe's and qwen3-moe's heads)
-   and phase 18's (zamba2's shared block: head dim 64, a group of 1).
+   and phase 18's (zamba2's shared block: head dim 64, a group of 1), and
+   at two dense configs no phase serves (command-r-plus-104b's group of
+   12, qwen1.5-32b's 40 heads); the dense entries' skinny tile (views of
+   p < 17 columns: the learning views' 2^20 x 1-3, PageRank's and OLS's
+   vectors at K = 1, 2^20 x 8 and x 16) and the row entry at p = 1 (its
+   skinny tile takes p < 4), each also by the profiler beside addmm's;
+   then every CUDA entry, given an operand that requires grad, raises (no
+   backward yet) and launches nothing.
 4. matrix powers A^16 (n = 10000, exp model, the paper's size): 8 single
    updates, one batch of 16, 20 queued updates with a final flush, all
    replayed through the re-evaluation engine and compared view by view;
@@ -206,7 +213,9 @@ calls) the phase made.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record (``rank_update_batched``'s with its launches over phases 4-9 and
-12-16 by K = T*k) and ``{"ok": true, "device": {...}}``.  Without CUDA,
+12-16 by K = T*k; the rank-update entries' by M's columns p, and the
+dense entries' on the skinny tile by K) and ``{"ok": true, "device":
+{...}}``.  Without CUDA,
 or outside a checkout, the script prints no result and exits non-zero.
 """
 
@@ -450,18 +459,30 @@ def reset_launches() -> None:
         mod.reset_launches()
 
 
-# rank_update_batched_out's launches by K = T*k, summed over every read of
+# rank_update_batched_out's launches by K = T*k, the rank-update entries'
+# launches by M's columns p (BY_P) and the dense entries' launches on the
+# skinny tile (p < PSKINNY) by K (SKINNY_K), summed over every read of
 # the counts after a main-path drive (launches()); phase 3's comparisons
 # are never read, since each drive resets the counts first
 OUT_RANKS: dict = {}
+BY_P: dict = {}
+SKINNY_K: dict = {}
 
 
 def launches() -> dict:
+    from repro_torch.kernels import rank_update, rank_update_rows
     out = {}
     for mod in kernel_modules():
         out.update(mod.LAUNCHES)
     for K, count in out_ranks().items():
         OUT_RANKS[K] = OUT_RANKS.get(K, 0) + count
+    for counters, into in ((rank_update.COLS, BY_P),
+                           (rank_update_rows.COLS, BY_P),
+                           (rank_update.SKINNY_RANKS, SKINNY_K)):
+        for entry, counter in counters.items():
+            tally = into.setdefault(entry, {})
+            for key, count in counter.items():
+                tally[key] = tally.get(key, 0) + count
     return out
 
 
@@ -523,6 +544,80 @@ def check_views(label: str, got: dict, want: dict) -> dict:
 
 # -- phase 3 ------------------------------------------------------------------
 
+def skinny_times(kernel, library) -> dict:
+    """A skinny-tile shape's kernel and library times by the profiler (the
+    kernel's ms by events reads the binding's host time below ~30 us)."""
+    return {"device_ms": device_ms_per_call(kernel, reps=40)[1],
+            "library_device_ms": device_ms_per_call(library, reps=40)[1],
+            "host_us": host_us(kernel)}
+
+
+def check_grad_refusal() -> dict:
+    """Each CUDA entry, given an operand that requires grad under grad
+    mode, raises (it has no backward yet) and launches nothing; under
+    no_grad the same call launches once."""
+    import torch
+    from repro_torch.kernels import ops
+    (cuda_ru, cuda_rows, cuda_dual, cuda_fa, cuda_fd,
+     cuda_sel) = kernel_modules()
+
+    def f(*shape, grad=False):
+        return torch.randn(*shape, device=DEVICE).requires_grad_(grad)
+
+    calls = {
+        "rank_update": lambda g: cuda_ru.rank_update(
+            f(64, 1), f(64, 2, grad=g), f(1, 2)),
+        "rank_update_batched": lambda g: cuda_ru.rank_update_batched(
+            f(64, 8), f(1, 64, 2), f(1, 8, 2, grad=g)),
+        "rank_update_batched_out": lambda g: cuda_ru.rank_update_batched_out(
+            f(64, 3, grad=g), f(1, 64, 2), f(1, 3, 2)),
+        "rank_update_rows": lambda g: cuda_rows.rank_update_rows(
+            f(64, 1), cuda_rows.RowSet([1, 4], 64), f(2, 2, grad=g),
+            f(1, 2)),
+        "dual_matmul": lambda g: cuda_dual.dual_matmul(
+            f(64, 8, grad=g), f(8, 1), f(64, 1)),
+        "flash_attention": lambda g: cuda_fa.flash_attention(
+            f(1, 8, 2, 64, grad=g), f(1, 8, 2, 64), f(1, 8, 2, 64)),
+        "flash_decode": lambda g: cuda_fd.flash_decode(
+            f(1, 2, 64), f(1, 8, 2, 64, grad=g), f(1, 8, 2, 64), 8),
+        "select_commit": lambda g: cuda_sel.select_commit(
+            torch.zeros(1, dtype=torch.int32, device=DEVICE),
+            f(4, 4, grad=g), f(4, 4))}
+
+    def counts():   # read apart from launches(): no main-path drive
+        return {k: c for mod in kernel_modules()
+                for k, c in mod.LAUNCHES.items()}
+
+    reset_launches()
+    refused = {}
+    for entry, call in calls.items():
+        try:
+            call(True)
+            refused[entry] = False
+        except RuntimeError as err:
+            refused[entry] = "no backward yet" in str(err)
+    before = counts()
+    with torch.no_grad():
+        for call in calls.values():
+            call(True)
+    torch.cuda.synchronize()
+    after = counts()
+    # the plain versions on the CPU still differentiate
+    u = torch.randn(16, 2, requires_grad=True)
+    ops.rank_update(torch.zeros(16, 1), u, torch.ones(1, 2)).sum().backward()
+    rec = {"phase": "grad_refusal", "refused": refused,
+           "launches_refused": {e: before[e] for e in calls},
+           "launches_no_grad": {e: after[e] - before[e] for e in calls},
+           "cpu_grad_ok": bool(torch.equal(u.grad, torch.ones(16, 2)))}
+    log("grad " + json.dumps(rec))
+    if not all(refused.values()) or any(before[e] for e in calls) or any(
+            after[e] - before[e] != 1 for e in calls) \
+            or not rec["cpu_grad_ok"]:
+        raise AssertionError(f"grad refusal: {rec}")
+    reset_launches()
+    return rec
+
+
 def check_kernels(flops_peak: float, bytes_peak: float):
     """Each CUDA entry against its plain version at the given shapes.
     Returns {entry: [per-shape records]}."""
@@ -559,7 +654,19 @@ def check_kernels(flops_peak: float, bytes_peak: float):
         (16384, 8192, 1, 1), (16384, 8192, 1, 16),
         (FIVM_FEATURES, FIVM_FEATURES, 1, 2), (FIVM_CAPACITY, 1, 1, 1),
         (37, 101, 1, 5), (1000, 777, 4, 3), (10000, 10000, 16, 1)]
-    single_cases = [(10000, 10000, 1), (16384, 8192, 1), (37, 101, 5)]
+    # the skinny tile (p < 17): phase 16f's 2^20 x 1 Y and W at K = 1-3
+    # (the main path's only launches below 17 columns) and views of 2 and 3
+    # columns, a T = 16 stack of rank-1 pairs and K = 64 at 2^20 x 1, the
+    # p = 1 programs' vectors (PageRank's 10000 x 1, OLS's 8192 x 1; their
+    # engines re-evaluate those views, so they take no launch) at K = 1,
+    # and views of 8 and 16 columns (PSKINNY = 17)
+    batched_cases += [(FIVM_CAPACITY, p, 1, K) for p in (1, 2, 3)
+                      for K in (1, 2, 3) if (p, K) != (1, 1)] + [
+        (FIVM_CAPACITY, 1, 16, 1), (FIVM_CAPACITY, 1, 1, 64),
+        (APP_N, 1, 1, 1), (OLS_N, 1, 1, 1),
+        (FIVM_CAPACITY, 8, 1, 3), (FIVM_CAPACITY, 16, 1, 32)]
+    single_cases = [(10000, 10000, 1), (16384, 8192, 1), (37, 101, 5),
+                    (FIVM_CAPACITY, 1, 1), (OLS_N, 1, 1)]
     cases = [("rank_update_batched", c) for c in batched_cases] + \
             [("rank_update", (n, p, 1, k)) for n, p, k in single_cases]
     for entry, (n, p, t, k) in cases:
@@ -585,7 +692,10 @@ def check_kernels(flops_peak: float, bytes_peak: float):
         plain_ms = time_ms(lambda: plain(m0, *args))
         lib_ms = time_ms(lambda: work.addmm_(u2, v2.T))
         record(entry, {"n": n, "p": p, "T": t, "k": k}, err, ms, plain_ms,
-               lib_ms, 8.0 * n * p + 4.0 * K * (n + p), 2.0 * n * p * K)
+               lib_ms, 8.0 * n * p + 4.0 * K * (n + p), 2.0 * n * p * K,
+               **(skinny_times(lambda: kernel(work, *args),
+                               lambda: work.addmm_(u2, v2.T))
+                  if p < cuda_ru.PSKINNY else {}))
         del m0, u, v, u2, v2, work
 
     # the out-of-place entry (every apply of a guarded firing, and of a
@@ -601,7 +711,8 @@ def check_kernels(flops_peak: float, bytes_peak: float):
     for n, p, k in [(10000, 10000, K) for K in (
             1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)] + [
             (FIVM_CAPACITY, FIVM_FEATURES, K) for K in (2, 3)] + [
-            (FIVM_CAPACITY, 1, K) for K in (2, 3)] + [(37, 101, 5)]:
+            (FIVM_CAPACITY, p, K) for p in (1, 2, 3) for K in (1, 2, 3)] + [
+            (FIVM_CAPACITY, 1, 64), (37, 101, 5)]:
         m0 = randn(n, p)
         u = randn(1, n, k)
         v = randn(1, p, k)
@@ -624,7 +735,10 @@ def check_kernels(flops_peak: float, bytes_peak: float):
         lib_ms = time_ms(lambda: torch.addmm(m0, u[0], v[0].T))
         record("rank_update_batched_out", {"n": n, "p": p, "T": 1, "k": k},
                err, ms, plain_ms, lib_ms, 8.0 * n * p + 4.0 * k * (n + p),
-               2.0 * n * p * k)
+               2.0 * n * p * k, **(skinny_times(
+                   lambda: cuda_ru.rank_update_batched_out(m0, u, v, flag),
+                   lambda: torch.addmm(m0, u[0], v[0].T))
+                  if p < cuda_ru.PSKINNY else {}))
         del m0, u, v
 
     # select_commit at matrix powers' view size: a clean firing (flags
@@ -681,7 +795,11 @@ def check_kernels(flops_peak: float, bytes_peak: float):
                  (GI_N, GI_N, GI_ROWS, 1), (GI_N, GI_P, GI_ROWS, 1),
                  (GI_N, GI_N, 8 * GI_ROWS, 8),
                  (FIVM_CAPACITY, FIVM_FEATURES, 1, 1),
-                 (FIVM_CAPACITY, FIVM_PROJ, 1, 1), (37, 101, 5, 3)]
+                 (FIVM_CAPACITY, FIVM_PROJ, 1, 1), (37, 101, 5, 3),
+                 # the skinny tile: one event's row of a 2^20 x 1 view, and
+                 # phase 6's carriers on a 2^20 x 1 view
+                 (FIVM_CAPACITY, 1, 1, 1),
+                 (CHAIN_N, 1, CHAIN_ROWS, CHAIN_RANK)]
     for n, p, r, k in row_cases:
         m0 = randn(n, p)
         v = randn(p, k)
@@ -942,7 +1060,10 @@ def check_flash_kernels(peaks_) -> dict:
     Phase 18's: zamba2's shared block at head dim 64, a group of 1, its
     forward (B=8, S=2048, H=KV=32) in bf16 and its cut's (B=2, S=288) in
     f32; decode over its 512-slot cache at n_valid 288 in bf16 and over
-    the cut's full 288-slot cache in f32."""
+    the cut's full 288-slot cache in f32.  Two dense configs that no phase
+    serves, at hd 128 in bf16 and f32: command-r-plus-104b (H=96, KV=8, a
+    group of 12) and qwen1.5-32b (H=KV=40), prefill at B=2, S=2048 and
+    decode at B=8, L=n_valid=4096."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(1)
 
@@ -983,7 +1104,17 @@ def check_flash_kernels(peaks_) -> dict:
             ("zamba2_forward_bf16", RECUR_BATCH, RECUR_FWD_SEQ, 32, 32, 64,
              None, bf16, True, 0),
             ("zamba2_cut_forward_f32", RECUR_CUT_BATCH, RECUR_CUT_SEQ, 32,
-             32, 64, None, f32, True, 0)]:
+             32, 64, None, f32, True, 0),
+            # two dense configs no phase serves: command-r-plus-104b (a
+            # group of 12) and qwen1.5-32b (H = KV = 40), hd 128
+            ("command_r_prefill_bf16", 2, 2048, 96, 8, 128, None, bf16,
+             True, 0),
+            ("command_r_prefill_f32", 2, 2048, 96, 8, 128, None, f32, True,
+             0),
+            ("qwen15_32b_prefill_bf16", 2, 2048, 40, 40, 128, None, bf16,
+             True, 0),
+            ("qwen15_32b_prefill_f32", 2, 2048, 40, 40, 128, None, f32,
+             True, 0)]:
         q = randn(b, s, h, hd, dtype=dt)
         k, v = randn(b, s, kvh, hd, dtype=dt), randn(b, s, kvh, hd, dtype=dt)
         out["flash_attention"].append(check_flash_attention(
@@ -1014,7 +1145,11 @@ def check_flash_kernels(peaks_) -> dict:
             ("zamba2_decode_bf16", RECUR_BATCH, RECUR_MAX_SEQ, 32, 32, 64,
              RECUR_PROMPT + RECUR_NEW, bf16),
             ("zamba2_cut_decode_f32", RECUR_CUT_BATCH, RECUR_CUT_SEQ, 32, 32,
-             64, RECUR_CUT_SEQ, f32)]:
+             64, RECUR_CUT_SEQ, f32),
+            ("command_r_decode_bf16", 8, 4096, 96, 8, 128, 4096, bf16),
+            ("command_r_decode_f32", 8, 4096, 96, 8, 128, 4096, f32),
+            ("qwen15_32b_decode_bf16", 8, 4096, 40, 40, 128, 4096, bf16),
+            ("qwen15_32b_decode_f32", 8, 4096, 40, 40, 128, 4096, f32)]:
         q = randn(b, h, hd, dtype=dt)
         kc, vc = (randn(b, L, kvh, hd, dtype=dt) for _ in range(2))
         out["flash_decode"].append(check_flash_decode(
@@ -4646,6 +4781,7 @@ def main() -> int:
     shapes = check_kernels(flops_peak, bytes_peak)
     peaks_ = (bytes_peak, flops_peak, bf16_peak)
     shapes.update(check_flash_kernels(peaks_))
+    check_grad_refusal()
 
     # 4. matrix powers at the paper's size; 5. OLS at the paper's n range
     n = POWERS_N
@@ -4757,6 +4893,16 @@ def main() -> int:
                       if k in ("n", "p", "m", "T", "r", "k", "b", "s", "L",
                                "h", "kvh", "hd", "window", "n_valid",
                                "dtype")}})
+        if entry in BY_P:
+            # the main path's launches by M's columns p (p < PSKINNY: the
+            # skinny tile), and the dense entries' skinny launches by K
+            kernels[-1]["launches_by_p"] = dict(sorted(BY_P[entry].items()))
+            if sum(BY_P[entry].values()) != kernels[-1]["launches"]:
+                log(f"{entry}: launches by p {BY_P[entry]} do not sum to "
+                    f"its {kernels[-1]['launches']} launches")
+            if SKINNY_K.get(entry):
+                kernels[-1]["skinny_launches_by_K"] = dict(
+                    sorted(SKINNY_K[entry].items()))
         if entry == "rank_update_batched":
             kernels[-1]["launches_by_K"] = dict(sorted(by_k.items()))
         if entry == "rank_update_batched_out":

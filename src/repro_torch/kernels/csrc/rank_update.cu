@@ -19,20 +19,27 @@
 // Bound on the card: with K = T*k the op moves 8*n*p + 4*K*(n + p) bytes
 // (M read once and written once, each factor read once; out of place: src
 // read once and dst written once, the same bytes) and does 2*n*p*K
-// FLOPs.  At 3.35 TB/s and 67 TFLOP/s fp32 (H100 SXM data sheet, 700 W) it
-// is memory-bound below K ~ 80 and FLOP-bound above.  The main path's K
+// FLOPs.  At 3.35 TB/s and 67 TFLOP/s fp32 (H100 SXM data sheet, 700 W) a
+// square view is memory-bound below K ~ 80 and FLOP-bound above; a view
+// of p columns does at most p / 2 FLOPs a byte of U, so a narrow one
+// (p < ~40) is memory-bound at every K.  The main path's K
 // runs from 1 (a rank-1 update to the input) to 256 (the top view of
 // matrix powers under a T = 16 batch), so both regimes occur.
 //
-// Design: the two tiles of rank_update_tiles.cuh (a streaming tile for the
-// byte-bound regime, a 128 x 128 FMA tile with a cp.async ring for the
-// FLOP-bound one); the header describes them.
+// Design: the three tiles of rank_update_tiles.cuh (a streaming tile for
+// the byte-bound regime, a 128 x 128 FMA tile with a cp.async ring for the
+// FLOP-bound one, and a skinny tile for views of p < PSKINNY columns, which
+// are byte-bound at every K); the header describes them.
 //
 // KSTREAM and KM_FIRST were chosen from measurement on the card
 // (tools/torch_rank_update_variants.py; PERF.md): the streaming tile is
 // faster through K = 40 and the compute tile from K = 48, below the
 // roofline crossover (K ~ 80), because neither tile overlaps its FMAs with
-// M's traffic fully.
+// M's traffic fully.  PSKINNY likewise: at 2^20 rows the skinny tile beat
+// the other two at p = 1, 2, 3, 4, 8 and 16 (by 1.2-19x) and lost at
+// p = 32, at K = 3 and 32; views of 4-16 columns take it from SK_WIDE_ROWS
+// = 65536 rows (rank_update_tiles.cuh), since at 10000 rows the other
+// tiles' grids won at K = 3.
 
 #include "rank_update_tiles.cuh"
 
@@ -41,6 +48,7 @@ namespace {
 constexpr int KSTREAM = 40;   // largest K that takes the streaming tile
 constexpr int KM_FIRST = 16;  // largest K whose M loads precede the staging
 constexpr int SROWS = 8;      // rows of M a thread of the streaming tile owns
+constexpr int PSKINNY = 17;   // p below it takes the skinny tile, at any K
 
 }  // namespace
 
@@ -49,8 +57,8 @@ constexpr int SROWS = 8;      // rows of M a thread of the streaming tile owns
 extern "C" int rank_update_batched_f32(float* m, const float* u,
                                        const float* v, int n, int p, int t,
                                        int k, void* stream) {
-  return rank_update_tiles<KSTREAM, KM_FIRST, SROWS>(m, u, v, n, p, t, k,
-                                                     DenseRows{}, stream);
+  return rank_update_tiles<KSTREAM, KM_FIRST, SROWS, PSKINNY>(
+      m, u, v, n, p, t, k, DenseRows{}, stream);
 }
 
 // M (n, p) += U (n, k) V (p, k)^T: the T = 1 entry.
@@ -69,7 +77,7 @@ extern "C" int rank_update_batched_out_f32(const float* src, float* dst,
                                            const float* u, const float* v,
                                            int* nonfinite, int n, int p,
                                            int t, int k, void* stream) {
-  return rank_update_tiles<KSTREAM, KM_FIRST, SROWS>(
+  return rank_update_tiles<KSTREAM, KM_FIRST, SROWS, PSKINNY>(
       dst, u, v, n, p, t, k, DenseRows{}, stream,
       OutOfPlace{src, nonfinite});
 }

@@ -24,11 +24,12 @@
 // rank-8 carriers, so both regimes occur.
 //
 // Design: the dense kernel's problem with one change, M's row of listed row
-// i is rows[i].  So it is the two tiles of rank_update_tiles.cuh with the
+// i is rows[i].  So it is the tiles of rank_update_tiles.cuh with the
 // ListedRows map: the compact block is the factor panel with n := r and
 // T := 1, staged coalesced as the dense U is, and only M's addresses go
 // through the tile's row ids, staged in shared memory once.  Only the
-// listed rows of M are read or written.
+// listed rows of M are read or written.  Views of p < PSKINNY columns take
+// the skinny tile, where each thread reads and writes its listed rows.
 
 #include "rank_update_tiles.cuh"
 
@@ -42,6 +43,8 @@ namespace {
 constexpr int KSTREAM = 40;   // largest k that takes the streaming tile
 constexpr int KM_FIRST = 16;  // largest k whose M loads precede the staging
 constexpr int SROWS = 4;      // rows of M a thread of the streaming tile owns
+constexpr int PSKINNY = 4;    // p below it takes the skinny tile, at any K
+                              // (the row tiles were not measured wider)
 
 }  // namespace
 
@@ -57,6 +60,6 @@ extern "C" int rank_update_rows_f32(float* m, const int* rows,
                             stream_rows(SROWS);
   if (r > INT_MAX - CBM || row_tiles * col_tiles > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  return rank_update_tiles<KSTREAM, KM_FIRST, SROWS>(
+  return rank_update_tiles<KSTREAM, KM_FIRST, SROWS, PSKINNY>(
       m, block, v, r, p, 1, k, ListedRows{rows, (int)col_tiles}, stream);
 }

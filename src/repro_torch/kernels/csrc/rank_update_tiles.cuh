@@ -26,8 +26,8 @@
 // M + (sum U V^T): the products are accumulated from zero and M is added
 // once at the end.
 //
-// Design.  One launch per call; the entry picks one of two tiles from
-// K = T*k and from M's alignment.
+// Design.  One launch per call; the entry picks one of three tiles from
+// p, from K = T*k and from M's alignment.
 //   * One flat contraction.  The stack is walked as one inner dimension of
 //     K = T*k columns, flat column kk being column kk % k of U_(kk / k); a
 //     staged chunk may cross a boundary of t.  T = 16 rank-1 pairs cost
@@ -78,10 +78,69 @@
 //     float4 only where p % 4 == 0 and M's pointer is 16-byte aligned;
 //     otherwise (p = 1 views, a view at an odd storage offset) the same
 //     tiles move it as masked scalars.
+//   * Skinny tile, p < PSKINNY at every K (vector views: OLS's p = 1
+//     program, PageRank's rank vector, the learning views' 2^20 x 1 Y and
+//     W; and views of a few columns).  Narrow views waste the two tiles
+//     above: a warp owns 128 columns, 4 a lane, so at p = 1 only 8 of 256
+//     threads do work, the 128-wide V panel is zero-fill, and M moves as
+//     masked scalars.  The op does 2 p K FLOPs for each 4 K bytes of a row
+//     of U, p / 2 FLOP/byte, far below the card's ~20, so one streaming
+//     pass of U and M is the bound at every K.  The tile:
+//       - each thread owns ROWS whole rows of M (all p columns; rows
+//         tid + 256 i of the tile), so every thread works at any p;
+//       - a persistent grid: gridDim.x fills the SMs (blocks an SM from
+//         the occupancy API) and a block walks the row tiles tile0,
+//         tile0 + gridDim.x, ...; each tile's K is cut into chunks of BK
+//         flat columns, and the block's (tile, chunk) items go through a
+//         STAGES cp.async ring, one barrier an item, so the next tiles'
+//         loads are in flight while a chunk is summed;
+//       - geometries (SkinnyGeom) picked at launch: through K =
+//         SK_KSMALL the whole K is one chunk and a thread owns 8 rows
+//         (through K = 4) or 4 for p <= 3 (tiles of 2048 or 1024 rows
+//         keep many rows' loads in flight) where such tiles fill the SMs,
+//         else 1 row (as for wider views, whose runs of M are longer;
+//         those take the tile from SK_WIDE_ROWS rows); above it a
+//         thread owns 1 row and a chunk is 32 columns, so each row of U
+//         is read in 128-byte runs (chunks of 8 read 32-byte pieces of
+//         rows 4 KB apart: 1.9 TB/s on an H100 at K = 1024).  Views of p <= 3
+//         and of 4 <= p < PSKINNY are instantiated apart (PMAX 3 or
+//         PSKINNY - 1 sums a row), so the vectors keep few registers;
+//       - U's chunk lands as [row][column] with a row stride ULD chosen
+//         for conflict-free reads (ULD / 4 odd for LDS.128, ULD odd for
+//         LDS.32).  For each t the tile's rows of U_t are one contiguous
+//         run of floats, so neighbouring threads copy neighbouring
+//         addresses: 16-byte cp.async where k % 4 == 0 and U is 16-byte
+//         aligned, 4-byte otherwise (k = 1-3; those stacks are short).  A
+//         chunk crosses t slices like the other tiles' (a T = 16, k = 1
+//         stack's chunk is 16 runs of rows, one a slice, as a k = 16
+//         pair's is one run of rows x 16 columns), and K in the
+//         thousands streams chunk by chunk; ring slots are sized at
+//         launch from min(K, BK), so a K = 1 tile takes few bytes of
+//         shared memory and more blocks fit an SM;
+//       - V's p x chunk columns sit in shared memory beside U's, read as
+//         broadcasts;
+//       - M is read once and written once.  Under DenseRows a tile's rows
+//         of M are one contiguous run of rows * p floats: it is staged
+//         with the tile's first chunk by 16-byte cp.async, with 4-byte
+//         copies at a head and a tail where the run is not 16-byte
+//         aligned (a p = 1 view at an odd storage offset), kept at the
+//         run's own offset mod 16 in shared memory; the sums are added in
+//         place there and the run is stored back as float4s (scalar head
+//         and tail at the destination's alignment) after the next
+//         barrier.  Run buffers rotate over STAGES + 1 tiles, so a
+//         run waiting to be stored is never the one being refilled.
+//         Under ListedRows each listed row is read and written by its
+//         owner thread alone; the tile's ids are staged into the same
+//         buffer with its first chunk.
+//     Arithmetic as the other tiles: each sum starts at zero and takes
+//     fmaf in flat-kk order, and M is added once at the end, so this tile
+//     gives their bits, and out of place the in-place entry's.
 //
-// KSTREAM, KM_FIRST and SROWS are template parameters of each entry, chosen
-// from measurement on the card (tools/torch_rank_update_variants.py times
-// the choices side by side at the main path's shapes; PERF.md).
+// KSTREAM, KM_FIRST, SROWS and PSKINNY are template parameters of each
+// entry, and SK_KSMALL and the skinny geometries constants here, chosen
+// from measurement on the card
+// (tools/torch_rank_update_variants.py times the choices side by side at
+// the main path's shapes; PERF.md).
 
 #pragma once
 
@@ -111,17 +170,59 @@ __host__ __device__ constexpr int stream_rows(int srows) {
   return srows * (THREADS / 32);
 }
 
+// skinny tile geometry: ROWS rows of M a thread, BK flat columns a chunk,
+// STAGES chunks in a block's ring, at least MINB blocks an SM (the
+// register cap)
+template <int ROWS_, int BK_, int STAGES_, int MINB_>
+struct SkinnyGeom {
+  static constexpr int ROWS = ROWS_, BK = BK_, STAGES = STAGES_;
+  static constexpr int MINB = MINB_;
+  static constexpr int BM = ROWS * THREADS;   // rows a tile
+  static_assert(BK % 8 == 0 && STAGES >= 2,
+                "a full chunk's 16-byte row stride BK + 4 is 4 mod 8");
+  static_assert((BM & (BM - 1)) == 0, "rows of a tile by shifts");
+};
+// K <= SK_KSMALL: the whole K is one chunk, and big tiles keep many rows'
+// loads in flight (for p <= 3: SkTiny through K = SK_KTINY, SkSmall above,
+// whose smaller tiles fit shared memory; SkWide, one row a thread, for the
+// wider views, whose runs of M are longer); above it, long runs of each
+// row (128 bytes a chunk) keep the reads of U in whole lines (SkLarge)
+constexpr int SK_KTINY = 4, SK_KSMALL = 8;
+// views of 4 <= p < PSKINNY columns take the skinny tile from this many
+// rows; below it (a few dozen of its tiles) the streaming and compute
+// tiles' grids spread their rows over more blocks
+constexpr int SK_WIDE_ROWS = 65536;
+using SkTiny = SkinnyGeom<8, 8, 2, 2>;
+using SkSmall = SkinnyGeom<4, 8, 3, 4>;
+using SkWide = SkinnyGeom<1, 8, 3, 4>;
+using SkLarge = SkinnyGeom<1, 32, 2, 4>;
+// a skinny launch takes n <= INT_MAX - SK_MARGIN (row offsets in int)
+constexpr int SK_MARGIN = 4096;
+static_assert(SkTiny::BM + SkLarge::BM <= SK_MARGIN &&
+                  SkSmall::BM + SkLarge::BM <= SK_MARGIN &&
+                  SkWide::BM + SkLarge::BM <= SK_MARGIN,
+              "a tile's first row past n stays an int");
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // 4-byte asynchronous copy global -> shared; writes 0 when !ok (src is then
 // not read)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 4 : 0));
+}
+
+// 16-byte asynchronous copy global -> shared, both addresses 16-byte
+// aligned; writes 0 when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -159,6 +260,8 @@ __device__ __forceinline__ float ld_m1(const float* p) {
 // on gridDim.x; nothing is staged.
 struct DenseRows {
   static constexpr size_t ID_BYTES = 0;   // shared bytes a tile row takes
+  // a tile's rows of M are one run of floats (the skinny tile stages it)
+  static constexpr bool CONTIGUOUS = true;
   static dim3 grid(int row_tiles, int col_tiles) {
     return dim3(col_tiles, row_tiles);
   }
@@ -166,6 +269,8 @@ struct DenseRows {
   __device__ __forceinline__ int col_tile() const { return blockIdx.x; }
   template <int ROWS>
   __device__ __forceinline__ void stage(int*, int, int, int) const {}
+  template <int BM>
+  __device__ __forceinline__ void stage_async(int*, int, int, int) const {}
   __device__ __forceinline__ int row(const int*, int i0, int i) const {
     return i0 + i;
   }
@@ -179,6 +284,7 @@ struct ListedRows {
   const int* rows;
   int col_tiles;
   static constexpr size_t ID_BYTES = sizeof(int);
+  static constexpr bool CONTIGUOUS = false;
   static dim3 grid(int row_tiles, int col_tiles) {
     return dim3(row_tiles * col_tiles);
   }
@@ -196,6 +302,14 @@ struct ListedRows {
     static_assert(ROWS <= THREADS, "one thread stages one id");
     if (tid < ROWS) ids[tid] = i0 + tid < n ? rows[i0 + tid] : 0;
     __syncthreads();
+  }
+  // the skinny tile's ids of listed rows [i0, i0 + BM), by cp.async in
+  // the caller's group (0 past the last listed row)
+  template <int BM>
+  __device__ __forceinline__ void stage_async(int* ids, int i0, int n,
+                                              int tid) const {
+    for (int r = tid; r < BM; r += THREADS)
+      cp_async4(ids + r, i0 + r < n ? rows + i0 + r : rows, i0 + r < n);
   }
   __device__ __forceinline__ int row(const int* ids, int, int i) const {
     return ids[i];
@@ -522,6 +636,296 @@ rank_update_stream(float* __restrict__ m, const float* __restrict__ u,
   io.report(bad);
 }
 
+// -- skinny tile ----------------------------------------------------------------
+
+// The ring's shared layout for a launch, in floats: each of G::STAGES slots
+// holds U's chunk [G::BM][uld] and V's [p][vld]; each of G::STAGES + 1 tile
+// buffers holds a tile's run of M (rows * p floats at its offset mod 16) or
+// its row ids.  Every region starts 16-byte aligned.
+template <class G>
+struct SkinnyLayout {
+  int uld;   // U's row stride: odd for 4-byte reads, 4 x odd for float4s
+  int vld;   // V's row stride: a full chunk's columns rounded up to 4
+  int usz, vsz, tsz;
+  __host__ __device__ SkinnyLayout(int kdim, int p, bool u16) {
+    const int cw = kdim < G::BK ? kdim : G::BK;   // a full chunk's columns
+    uld = u16 ? ((cw / 4) % 2 ? cw : cw + 4) : (cw | 1);
+    vld = (cw + 3) & ~3;
+    usz = (G::BM * uld + 3) & ~3;
+    vsz = p * vld;
+    tsz = G::BM * p + 4;
+  }
+  __host__ __device__ size_t bytes() const {
+    return ((size_t)G::STAGES * (usz + vsz) + (size_t)(G::STAGES + 1) * tsz) *
+           sizeof(float);
+  }
+};
+
+// Stage the run src[0, len) into dst[h + e] by cp.async, h = src's offset
+// in floats mod 4, so that dst and src agree mod 16 bytes: 16-byte copies
+// of the aligned body, 4-byte copies of at most 3 floats at each end.
+__device__ __forceinline__ void stage_run(float* dst, const float* src,
+                                          int len, int tid) {
+  const int h = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  const int head = min(len, (4 - h) & 3);
+  const int quads = (len - head) >> 2, tail = head + 4 * quads;
+  if (tid < head)
+    cp_async4(dst + h + tid, src + tid, true);
+  else if (tid >= 4 && tid - 4 < len - tail)
+    cp_async4(dst + h + tail + tid - 4, src + tail + tid - 4, true);
+  for (int q = tid; q < quads; q += THREADS)
+    cp_async16(dst + h + head + 4 * q, src + head + 4 * q, true);
+}
+
+// Store buf[0, len) (shared) to the run dst[0, len): float4 stores where dst
+// is 16-byte aligned, scalar stores of at most 3 floats at each end.
+__device__ __forceinline__ void store_run(float* dst, const float* buf,
+                                          int len, int tid) {
+  const int h = (int)((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+  const int head = min(len, (4 - h) & 3);
+  const int quads = (len - head) >> 2, tail = head + 4 * quads;
+  if (tid < head)
+    dst[tid] = buf[tid];
+  else if (tid >= 4 && tid - 4 < len - tail)
+    dst[tail + tid - 4] = buf[tail + tid - 4];
+  for (int q = tid; q < quads; q += THREADS) {
+    const float* b = buf + head + 4 * q;
+    *reinterpret_cast<float4*>(dst + head + 4 * q) =
+        make_float4(b[0], b[1], b[2], b[3]);
+  }
+}
+
+// p <= PMAX columns; U16: U's chunks by 16-byte copies (k % 4 == 0, U
+// 16-byte aligned).  A persistent grid over row tiles of G::BM rows.
+template <int PMAX, bool U16, class G, class Map, class Io>
+__global__ void __launch_bounds__(THREADS, G::MINB)
+rank_update_skinny(float* __restrict__ m, const float* __restrict__ u,
+                   const float* __restrict__ v, int n, int p, int t, int k,
+                   Map map, Io io) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int kdim = t * k;
+  const SkinnyLayout<G> lay(kdim, p, U16);
+  float* us = smem;                              // [G::STAGES][usz]
+  float* vs = us + G::STAGES * lay.usz;          // [G::STAGES][vsz]
+  float* ts = vs + G::STAGES * lay.vsz;          // [G::STAGES + 1][tsz]
+  const float* src = io.src(m);
+
+  const int nch = (kdim + G::BK - 1) / G::BK;
+  const int tiles = (n + G::BM - 1) / G::BM;
+  const int ntile = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                    (int)gridDim.x;
+  const int64_t items = (int64_t)ntile * nch;
+  auto tile_row0 = [&](int j) {
+    return ((int)blockIdx.x + j * (int)gridDim.x) * G::BM;
+  };
+
+  // item g = (tile j, chunk ch) into ring slot g % G::STAGES; a tile's
+  // first chunk also brings its run of M or its row ids
+  auto issue = [&](int64_t g) {
+    const int j = (int)(g / nch), ch = (int)(g % nch);
+    const int i0 = tile_row0(j), rows = min(G::BM, n - i0);
+    float* ub = us + (int)(g % G::STAGES) * lay.usz;
+    float* vb = vs + (int)(g % G::STAGES) * lay.vsz;
+    if (ch == 0) {
+      float* tb = ts + (j % (G::STAGES + 1)) * lay.tsz;
+      if (Map::CONTIGUOUS)
+        stage_run(tb, src + (int64_t)i0 * p, rows * p, tid);
+      else
+        map.template stage_async<G::BM>(reinterpret_cast<int*>(tb), i0, n,
+                                          tid);
+    }
+    // the chunk's flat columns [kk0, kk1), one piece of U_tt and V_tt for
+    // each t slice they cross: columns [c, c + w) of U_tt's tile rows
+    const int kk0 = ch * G::BK, kk1 = min(kdim, kk0 + G::BK);
+    if (!U16 && k == 1) {
+      // a stack of rank-1 pairs: the chunk is kk1 - kk0 slices, each a
+      // run of the tile's rows of U_kk (and p floats of V_kk)
+      const int w = kk1 - kk0;
+      const float* ubase = u + (int64_t)kk0 * n + i0;
+      for (int e = tid; e < G::BM * w; e += THREADS) {
+        const int sl = e / G::BM, r = e % G::BM;
+        const bool ok = r < rows;
+        cp_async4(ub + r * lay.uld + sl,
+                  ok ? ubase + (int64_t)sl * n + r : u, ok);
+      }
+      for (int e = tid; e < p * w; e += THREADS) {
+        const int sl = e / p, jj = e - sl * p;
+        cp_async4(vb + jj * lay.vld + sl, v + (int64_t)(kk0 + sl) * p + jj,
+                  true);
+      }
+      return;
+    }
+    for (int kk = kk0; kk < kk1;) {
+      const int tt = kk / k, c = kk - tt * k, w = min(k - c, kk1 - kk);
+      const int col = kk - kk0;
+      const float* ubase = u + ((int64_t)tt * n + i0) * k + c;
+      // the piece's units (16 or 4 bytes) in memory order: unit q of row
+      // r, stepped without a division per unit
+      const int ur = U16 ? w / 4 : w;
+      const int dr = THREADS / ur, dq = THREADS - dr * ur;
+      int r = tid / ur, q = tid - r * ur;
+      for (int e = tid; e < G::BM * ur; e += THREADS) {
+        const bool ok = r < rows;
+        if (U16)
+          cp_async16(ub + r * lay.uld + col + 4 * q,
+                     ok ? ubase + (int64_t)r * k + 4 * q : u, ok);
+        else
+          cp_async4(ub + r * lay.uld + col + q,
+                    ok ? ubase + (int64_t)r * k + q : u, ok);
+        r += dr;
+        q += dq;
+        if (q >= ur) {
+          q -= ur;
+          ++r;
+        }
+      }
+      const float* vbase = v + (int64_t)tt * p * k + c;
+      for (int e = tid; e < p * w; e += THREADS) {
+        const int jj = e / w, q = e - jj * w;
+        cp_async4(vb + jj * lay.vld + col + q, vbase + (int64_t)jj * k + q,
+                  true);
+      }
+      kk += w;
+    }
+  };
+
+  for (int s = 0; s < G::STAGES - 1; ++s) {
+    if (s < items) issue(s);
+    cp_async_commit();
+  }
+
+  float acc[G::ROWS][PMAX], mv[G::ROWS][PMAX];
+  bool bad = false;
+  int pending = -1;   // tile whose run of M waits to be stored (DenseRows)
+  auto store_pending = [&]() {
+    const int i0 = tile_row0(pending), rows = min(G::BM, n - i0);
+    const float* run = src + (int64_t)i0 * p;
+    store_run(m + (int64_t)i0 * p,
+              ts + (pending % (G::STAGES + 1)) * lay.tsz +
+                  ((reinterpret_cast<uintptr_t>(run) >> 2) & 3),
+              rows * p, tid);
+  };
+
+  for (int64_t g = 0; g < items; ++g) {
+    // item g has landed; every thread is past item g - 1, whose slot the
+    // next issue reuses, and has added its sums into the pending run
+    cp_async_wait<G::STAGES - 2>();
+    __syncthreads();
+    if (Map::CONTIGUOUS && pending >= 0) {
+      store_pending();
+      pending = -1;
+    }
+    if (g + G::STAGES - 1 < items) issue(g + G::STAGES - 1);
+    cp_async_commit();
+
+    const int j = (int)(g / nch), ch = (int)(g % nch);
+    const int i0 = tile_row0(j), rows = min(G::BM, n - i0);
+    float* tb = ts + (j % (G::STAGES + 1)) * lay.tsz;
+    const float* ub = us + (int)(g % G::STAGES) * lay.usz;
+    const float* vb = vs + (int)(g % G::STAGES) * lay.vsz;
+    if (ch == 0) {
+#pragma unroll
+      for (int i = 0; i < G::ROWS; ++i)
+#pragma unroll
+        for (int jj = 0; jj < PMAX; ++jj) acc[i][jj] = 0.f;
+      if (!Map::CONTIGUOUS) {   // the owner's listed rows, read once
+        const int* ids = reinterpret_cast<const int*>(tb);
+#pragma unroll
+        for (int i = 0; i < G::ROWS; ++i) {
+          const int r = tid + THREADS * i;
+#pragma unroll
+          for (int jj = 0; jj < PMAX; ++jj)
+            if (r < rows && jj < p)
+              mv[i][jj] = ld_m1(src + (int64_t)ids[r] * p + jj);
+        }
+      }
+    }
+
+    // the chunk's columns in flat-kk order
+    const int cw = min(G::BK, kdim - ch * G::BK);
+    if (U16) {
+#pragma unroll
+      for (int q = 0; q < G::BK / 4; ++q) {
+        if (4 * q >= cw) break;
+        float4 a[G::ROWS];
+#pragma unroll
+        for (int i = 0; i < G::ROWS; ++i)
+          a[i] = *reinterpret_cast<const float4*>(
+              ub + (tid + THREADS * i) * lay.uld + 4 * q);
+        // one column of V at a time: four flat columns, in order, into
+        // each of its sums
+#pragma unroll
+        for (int jj = 0; jj < PMAX; ++jj) {
+          if (jj >= p) break;
+          const float4 b =
+              *reinterpret_cast<const float4*>(vb + jj * lay.vld + 4 * q);
+#pragma unroll
+          for (int i = 0; i < G::ROWS; ++i) {
+            acc[i][jj] = fmaf(a[i].x, b.x, acc[i][jj]);
+            acc[i][jj] = fmaf(a[i].y, b.y, acc[i][jj]);
+            acc[i][jj] = fmaf(a[i].z, b.z, acc[i][jj]);
+            acc[i][jj] = fmaf(a[i].w, b.w, acc[i][jj]);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < G::BK; ++c) {
+        if (c >= cw) break;
+        float a[G::ROWS];
+#pragma unroll
+        for (int i = 0; i < G::ROWS; ++i)
+          a[i] = ub[(tid + THREADS * i) * lay.uld + c];
+#pragma unroll
+        for (int jj = 0; jj < PMAX; ++jj) {
+          if (jj >= p) break;
+          const float b = vb[jj * lay.vld + c];
+#pragma unroll
+          for (int i = 0; i < G::ROWS; ++i)
+            acc[i][jj] = fmaf(a[i], b, acc[i][jj]);
+        }
+      }
+    }
+
+    if (ch == nch - 1) {   // M + sums, once
+      const int h =
+          (int)((reinterpret_cast<uintptr_t>(src + (int64_t)i0 * p) >> 2) &
+                3);
+#pragma unroll
+      for (int i = 0; i < G::ROWS; ++i) {
+        const int r = tid + THREADS * i;
+        if (r >= rows) continue;
+        if (Map::CONTIGUOUS) {
+          float* mr = tb + h + r * p;
+#pragma unroll
+          for (int jj = 0; jj < PMAX; ++jj)
+            if (jj < p) {
+              const float x = mr[jj] + acc[i][jj];
+              mr[jj] = x;
+              if (Io::FLAG) bad |= not_finite(x);
+            }
+        } else {
+          float* dst = m + (int64_t)reinterpret_cast<const int*>(tb)[r] * p;
+#pragma unroll
+          for (int jj = 0; jj < PMAX; ++jj)
+            if (jj < p) {
+              const float x = mv[i][jj] + acc[i][jj];
+              dst[jj] = x;
+              if (Io::FLAG) bad |= not_finite(x);
+            }
+        }
+      }
+      if (Map::CONTIGUOUS) pending = j;
+    }
+  }
+  if (Map::CONTIGUOUS) {
+    __syncthreads();
+    if (pending >= 0) store_pending();
+  }
+  io.report(bad);
+}
+
 // A block asks for more than 48 KB of dynamic shared memory only by opting
 // in (a streaming tile at K > 61, a deeper compute ring).
 template <typename Kernel, class Map, class Io>
@@ -537,21 +941,101 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+// The skinny tile for p <= PMAX: as many blocks as the SMs hold at once
+// (at most one a row tile), each walking its row tiles.
+template <int PMAX, bool U16, class G, class Map, class Io>
+cudaError_t launch_skinny(float* m, const float* u, const float* v, int n,
+                          int p, int t, int k, Map map, cudaStream_t stream,
+                          Io io, int sms) {
+  const auto kernel = rank_update_skinny<PMAX, U16, G, Map, Io>;
+  const size_t smem = SkinnyLayout<G>(t * k, p, U16).bytes();
+  // blocks an SM holds, by KB of shared memory (one card kind a process)
+  static int per_sm[240];
+  const size_t kb = (smem + 1023) / 1024;
+  if (kb >= 240) return cudaErrorInvalidValue;
+  if (kb > 48) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kb * 1024);
+    if (err != cudaSuccess) return err;
+  }
+  if (per_sm[kb] == 0) {
+    int blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, THREADS, kb * 1024);
+    if (err != cudaSuccess) return err;
+    if (blocks < 1) return cudaErrorInvalidConfiguration;
+    per_sm[kb] = blocks;
+  }
+  const int tiles = (n + G::BM - 1) / G::BM;
+  const int grid = tiles < sms * per_sm[kb] ? tiles : sms * per_sm[kb];
+  kernel<<<grid, THREADS, smem, stream>>>(m, u, v, n, p, t, k, map, io);
+  return cudaGetLastError();
+}
+
+template <int PMAX, class G, class Map, class Io>
+cudaError_t launch_skinny_u(float* m, const float* u, const float* v, int n,
+                            int p, int t, int k, Map map, cudaStream_t s,
+                            Io io, int sms) {
+  const bool u16 = k % 4 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0;
+  return u16 ? launch_skinny<PMAX, true, G>(m, u, v, n, p, t, k, map, s, io,
+                                            sms)
+             : launch_skinny<PMAX, false, G>(m, u, v, n, p, t, k, map, s, io,
+                                             sms);
+}
+
+// The skinny tile for p <= PMAX.  Through K = SK_KSMALL: geometry GT
+// (through K = SK_KTINY) or GS where their tiles fill the SMs at least
+// once, else the one-row tiles of SkWide; above it SkLarge.  U's chunks
+// by 16-byte copies where k % 4 == 0 and U is aligned.
+template <int PMAX, class GT, class GS, class Map, class Io>
+cudaError_t launch_skinny_k(float* m, const float* u, const float* v, int n,
+                            int p, int t, int k, Map map, cudaStream_t s,
+                            Io io) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t kdim = (int64_t)t * k;
+  if (kdim <= SK_KTINY && n >= (int64_t)GT::BM * sms)
+    return launch_skinny_u<PMAX, GT>(m, u, v, n, p, t, k, map, s, io, sms);
+  if (kdim <= SK_KSMALL && n >= (int64_t)GS::BM * sms)
+    return launch_skinny_u<PMAX, GS>(m, u, v, n, p, t, k, map, s, io, sms);
+  if (kdim <= SK_KSMALL)
+    return launch_skinny_u<PMAX, SkWide>(m, u, v, n, p, t, k, map, s, io,
+                                         sms);
+  return launch_skinny_u<PMAX, SkLarge>(m, u, v, n, p, t, k, map, s, io, sms);
+}
+
 // M[map(i)] (i < n) += sum_t U[t] (n, k) V[t]^T, one launch on `stream`:
-// the streaming tile (SROWS rows a thread) through K = T*k = KSTREAM, the
-// compute tile above it; out of place (dst m, source in io) under
-// Io = OutOfPlace.  Returns the launch's cudaGetLastError() (0 on success).
-template <int KSTREAM, int KM_FIRST, int SROWS, class Map, class Io = InPlace>
+// the skinny tile for p < PSKINNY; else the streaming tile (SROWS rows a
+// thread) through K = T*k = KSTREAM, the compute tile above it; out of
+// place (dst m, source in io) under Io = OutOfPlace.  Returns the launch's
+// cudaGetLastError() (0 on success; cudaErrorInvalidValue for sizes past
+// the tile's grid).
+template <int KSTREAM, int KM_FIRST, int SROWS, int PSKINNY, class Map,
+          class Io = InPlace>
 int rank_update_tiles(float* m, const float* u, const float* v, int n, int p,
                       int t, int k, Map map, void* stream, Io io = Io{}) {
+  static_assert(PSKINNY >= 4, "p = 1, 2 and 3 take the skinny tile");
   const int64_t kdim = (int64_t)t * k;
   if (kdim > INT_MAX - CBK) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (p < PSKINNY && (p <= 3 || n >= SK_WIDE_ROWS)) {
+    if (n > INT_MAX - SK_MARGIN) return (int)cudaErrorInvalidValue;
+    if (p <= 3)
+      return (int)launch_skinny_k<3, SkTiny, SkSmall>(m, u, v, n, p, t, k,
+                                                      map, s, io);
+    if constexpr (PSKINNY > 4)
+      return (int)launch_skinny_k<PSKINNY - 1, SkWide, SkWide>(
+          m, u, v, n, p, t, k, map, s, io);
+  }
   const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(m) % 16 == 0 &&
                    io.aligned16();
-  const cudaStream_t s = (cudaStream_t)stream;
   if (kdim <= KSTREAM) {
     constexpr int SBM = stream_rows(SROWS);
     const dim3 grid = Map::grid((n + SBM - 1) / SBM, (p + SBN - 1) / SBN);
+    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)kdim * (SBM + 4 + SLDV) * sizeof(float) +
                         SBM * Map::ID_BYTES;
     return (int)(vec ? launch(rank_update_stream<true, KM_FIRST, SROWS, Map,
@@ -562,6 +1046,7 @@ int rank_update_tiles(float* m, const float* u, const float* v, int n, int p,
                               grid, smem, s, m, u, v, n, p, t, k, map, io));
   }
   const dim3 grid = Map::grid((n + CBM - 1) / CBM, (p + CBN - 1) / CBN);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = CSMEM + CBM * Map::ID_BYTES;
   return (int)(vec ? launch(rank_update_compute<true, Map, Io>, grid, smem, s,
                             m, u, v, n, p, t, k, map, io)

@@ -12,6 +12,11 @@ built when a module is imported: :data:`LIBS` stays empty until a launch.
 Threads may launch kernels side by side (the fleet's live workers): a
 lock makes the first use of a source build and load it once, and
 :func:`count_launch` keeps every binding's launch counts exact.
+
+No kernel here has a backward yet, and each writes its output through a
+raw pointer, so its result carries no ``grad_fn``: every binding calls
+:func:`refuse_grad` first, which raises instead of letting a gradient
+through a kernel come out as zero with no error.
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ import threading
 import time
 from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -117,15 +124,35 @@ def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     return lib
 
 
+def refuse_grad(entry: str, *operands) -> None:
+    """Raise when autograd would have to differentiate CUDA entry
+    ``entry``: grad mode is on and an operand requires grad.  Called
+    before any other check, so it holds on any device."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad
+            for x in operands):
+        raise RuntimeError(
+            f"{entry}: an operand requires grad, but the CUDA kernel has no "
+            "backward yet (K1, ROADMAP Queue 2), so its output would carry "
+            "no gradient; call it under torch.no_grad() or on tensors that "
+            "do not require grad")
+
+
 def count_launch(launches: Dict[str, int], entry: str,
                  ranks: Optional[Dict[str, Counter]] = None,
-                 rank: int = 0) -> None:
+                 rank: int = 0,
+                 extra: Sequence[Tuple[Dict[str, Counter], int]] = ()
+                 ) -> None:
     """Count one launch of ``entry`` in ``launches`` (and, with ``ranks``,
-    one of inner dimension ``rank``); exact when threads launch at once."""
+    one of inner dimension ``rank``; for each ``(counters, key)`` of
+    ``extra``, one in ``counters[entry][key]``, as the launches by p);
+    exact when threads launch at once."""
     with _COUNT_LOCK:
         launches[entry] += 1
         if ranks is not None:
             ranks[entry][rank] += 1
+        for counters, key in extra:
+            counters[entry][key] += 1
 
 
 def check_launch(entry: str, code: int) -> None:

@@ -13,7 +13,8 @@ buffer per device and stream, grown to the largest call, since a call
 writes and reads its partials in its stream's order.  The entry launches on
 the current CUDA stream and never falls back to a plain version.
 ``LAUNCHES`` counts its calls (one per call, whatever the kernels it
-takes).
+takes).  An operand that requires grad under grad mode raises: the kernel
+has no backward yet.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ def dual_matmul(a: torch.Tensor, u: torch.Tensor, v: torch.Tensor
     """``(a @ u, a.T @ v)``; a (n, m), u (m, k), v (n, k), all float32,
     contiguous, on one CUDA device.  Returns new (n, k) and (m, k)
     tensors."""
+    cuda_build.refuse_grad("dual_matmul", a, u, v)
     check_operands(a, inplace=False, u=u, v=v)
     if a.dim() != 2 or u.dim() != 2 or v.dim() != 2:
         raise ValueError(f"shapes a {tuple(a.shape)}, u {tuple(u.shape)}, "

@@ -12,7 +12,9 @@ P V as two bf16 terms); f32 inputs run on the fp32 FMA pipes.
 
 The entry launches on the current CUDA stream, allocates only its output
 and never falls back to the plain version: anything the kernel does not
-take raises.  ``LAUNCHES`` counts its launches.
+take raises, and so does an operand that requires grad under grad mode
+(no backward yet: the output would carry no ``grad_fn``).  ``LAUNCHES``
+counts its launches.
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     key kp for query qp iff ``kp <= qp`` or ``qp, kp < prefix_len``
     (causal), and ``kp > qp - window`` (when a window is given).  Returns
     (B, S, H, hd) in q's type."""
+    cuda_build.refuse_grad("flash_attention", q, k, v)
     dtype = check_attention_operands(q=q, k=k, v=v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:

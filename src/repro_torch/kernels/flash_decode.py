@@ -17,7 +17,8 @@ up to :data:`BLOCK_KV_HEADS` heads; an f32 cache on the FMA pipes.  The
 partial ``(acc, m, l)`` of the splits are merged in a fixed order by a
 second launch; one call counts once in ``LAUNCHES``.  The entry launches
 on the current CUDA stream, allocates its output and one workspace with
-``torch.empty``, and never falls back to the plain version.
+``torch.empty``, and never falls back to the plain version.  An operand
+that requires grad under grad mode raises: the kernel has no backward yet.
 """
 
 from __future__ import annotations
@@ -83,6 +84,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     caches (B, L, KV, hd).  ``n_valid``: an int in [1, L], or an int32
     tensor of shape () or (1,) on q's device (read on the card, clamped to
     [0, L]).  Returns (B, H, hd) in q's type."""
+    cuda_build.refuse_grad("flash_decode", q, k_cache, v_cache)
     dtype = check_attention_operands(q=q, k_cache=k_cache, v_cache=v_cache)
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
             or k_cache.shape[0] != q.shape[0] \

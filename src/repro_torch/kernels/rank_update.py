@@ -18,10 +18,13 @@ The first two work in place on ``m``; ``rank_update_batched_out`` leaves
 what the in-place entry would leave in ``m``, and sets a flag on the card
 when a value it stores is not finite.  All launch on the current CUDA
 stream and never fall back to a plain version: anything the kernel does
-not take raises.  ``LAUNCHES`` counts the launches of each entry and
-``RANKS`` the same launches by their inner dimension K = T·k; a run that
-must prove it went through the kernels resets both with
-:func:`reset_launches` and reads them afterwards.
+not take raises, and so does an operand that requires grad under grad mode
+(the kernel has no backward yet).  ``LAUNCHES`` counts the launches of
+each entry, ``RANKS`` the same launches by their inner dimension K = T·k,
+``COLS`` by M's columns p, and ``SKINNY_RANKS`` by K those that took the
+skinny tile (:func:`takes_skinny`); a run that must prove it went through
+the kernels resets them with :func:`reset_launches` and reads them
+afterwards.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from . import cuda_build
 LAUNCHES: Dict[str, int] = {"rank_update": 0, "rank_update_batched": 0,
                             "rank_update_batched_out": 0}
 RANKS: Dict[str, Counter] = {name: Counter() for name in LAUNCHES}
+COLS: Dict[str, Counter] = {name: Counter() for name in LAUNCHES}
+SKINNY_RANKS: Dict[str, Counter] = {name: Counter() for name in LAUNCHES}
 
 _SIGNATURES = {
     "rank_update_batched_f32": [cuda_build.PTR] * 3 + [cuda_build.I32] * 4
@@ -51,9 +56,37 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
         RANKS[name].clear()
+        COLS[name].clear()
+        SKINNY_RANKS[name].clear()
 
 
-_MAX_GRID_Y = 65535 * 64   # rows: gridDim.y is at most 65535 tiles of 64
+# The tiles of csrc/rank_update.cu (its constexprs and those of
+# rank_update_tiles.cuh; a test holds them equal): p < 4, and p < PSKINNY
+# from SKINNY_WIDE_ROWS rows, takes the skinny tile, whose persistent grid
+# walks its row tiles (n up to SKINNY_ROWS short of int32); else K <=
+# KSTREAM the streaming tile and above it the compute tile, whose row tiles
+# of STREAM_ROWS and COMPUTE_ROWS rows lie on gridDim.y (at most 65535).
+PSKINNY = 17
+SKINNY_WIDE_ROWS = 65536
+KSTREAM = 40
+SKINNY_ROWS = 4096
+STREAM_ROWS = 64
+COMPUTE_ROWS = 128
+_INT32_MAX = 2 ** 31 - 1
+
+
+def takes_skinny(n: int, p: int) -> bool:
+    """Whether an (n, p) view takes the skinny tile."""
+    return p < 4 or (p < PSKINNY and n >= SKINNY_WIDE_ROWS)
+
+
+def max_rows(p: int, kdim: int) -> int:
+    """The most rows of M the tile that takes p columns and K = ``kdim``
+    launches over (a view of 4 <= p < PSKINNY columns past the other
+    tiles' grids is on the skinny tile)."""
+    if p < PSKINNY:
+        return _INT32_MAX - SKINNY_ROWS
+    return 65535 * (STREAM_ROWS if kdim <= KSTREAM else COMPUTE_ROWS)
 
 
 def check_operands(out: torch.Tensor, inplace: bool = True,
@@ -79,28 +112,35 @@ def check_operands(out: torch.Tensor, inplace: bool = True,
                              "in-place kernel would read what it writes")
 
 
-def _check(m: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+def _check(entry: str, m: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
            inplace: bool = True) -> None:
+    cuda_build.refuse_grad(entry, m, u, v)
     check_operands(m, inplace, u=u, v=v)
     if m.dim() != 2:
         raise ValueError(f"m must be 2-D, got shape {tuple(m.shape)}")
     n, p = m.shape
-    if n > _MAX_GRID_Y or max((p, *u.shape, *v.shape)) >= 2 ** 31:
+    kdim = u.shape[0] * u.shape[2] if u.dim() == 3 else \
+        u.shape[-1] if u.dim() else 0
+    if n > max_rows(p, kdim) or max((p, *u.shape, *v.shape)) >= 2 ** 31:
         raise ValueError(f"m {(n, p)} or u {tuple(u.shape)} is past the "
-                         "kernel's grid or its int32 sizes")
+                         "grid of the tile that takes it, or the kernel's "
+                         "int32 sizes")
 
 
 def _launch(entry: str, cname: str, m: torch.Tensor, rank: int,
             *args: int) -> None:
     """Launch C entry ``cname`` with ``args`` (pointers and sizes) and m's
     current stream, raise on a refused launch, and count it under
-    ``entry`` and its inner dimension ``rank``."""
+    ``entry``, its inner dimension ``rank`` and m's columns."""
     lib = cuda_build.library("rank_update", _SIGNATURES)
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream(m.device).cuda_stream
         code = getattr(lib, cname)(*args, stream)
     cuda_build.check_launch(cname, code)
-    cuda_build.count_launch(LAUNCHES, entry, RANKS, rank)
+    n, p = m.shape
+    cuda_build.count_launch(
+        LAUNCHES, entry, RANKS, rank,
+        extra=[(COLS, p)] + [(SKINNY_RANKS, rank)] * takes_skinny(n, p))
 
 
 def _check_stack(m: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> None:
@@ -115,7 +155,7 @@ def rank_update_batched(m: torch.Tensor, u: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
     """``m += Σ_t u[t] @ v[t].T`` in place; m (n, p), u (T, n, k),
     v (T, p, k), all float32, contiguous, on one CUDA device."""
-    _check(m, u, v)
+    _check("rank_update_batched", m, u, v)
     _check_stack(m, u, v)
     n, p = m.shape
     t, _, k = u.shape
@@ -135,7 +175,7 @@ def rank_update_batched_out(m: torch.Tensor, u: torch.Tensor,
     int32 tensor on m's device, is set to 1 (never cleared) when a value
     of the result is not finite; ``None`` skips the flag.  The factors
     may share storage with ``m``: it is only read."""
-    _check(m, u, v, inplace=False)
+    _check("rank_update_batched_out", m, u, v, inplace=False)
     _check_stack(m, u, v)
     if nonfinite is not None and (
             nonfinite.device != m.device or nonfinite.dtype != torch.int32
@@ -160,7 +200,7 @@ def rank_update(m: torch.Tensor, u: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
     """``m += u @ v.T`` in place; m (n, p), u (n, k), v (p, k), all
     float32, contiguous, on one CUDA device."""
-    _check(m, u, v)
+    _check("rank_update", m, u, v)
     n, p = m.shape
     if u.dim() != 2 or v.dim() != 2 or u.shape[0] != n or v.shape[0] != p \
             or u.shape[1] != v.shape[1]:

@@ -15,12 +15,15 @@ write one row) and uploaded once per device, however many views a firing
 updates.
 
 The entry works in place on ``m``, launches on the current CUDA stream,
-allocates nothing and never falls back to a plain version.  ``LAUNCHES``
-counts its launches.
+allocates nothing and never falls back to a plain version; an operand that
+requires grad under grad mode raises (the kernel has no backward yet).
+``LAUNCHES`` counts its launches and ``COLS`` the same launches by M's
+columns p (p < 4 takes the skinny tile).
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict
 
 import numpy as np
@@ -30,6 +33,7 @@ from . import cuda_build
 from .rank_update import check_operands
 
 LAUNCHES: Dict[str, int] = {"rank_update_rows": 0}
+COLS: Dict[str, Counter] = {name: Counter() for name in LAUNCHES}
 
 _SIGNATURES = {
     "rank_update_rows_f32": [cuda_build.PTR] * 4 + [cuda_build.I32] * 3
@@ -40,6 +44,7 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        COLS[name].clear()
 
 
 class RowSet:
@@ -100,6 +105,7 @@ def rank_update_rows(m: torch.Tensor, rows: RowSet, block: torch.Tensor,
     """``m[rows] += block @ v.T`` in place; m (n, p), rows a
     :class:`RowSet` of r rows of m, block (r, k), v (p, k), all float32,
     contiguous, on one CUDA device."""
+    cuda_build.refuse_grad("rank_update_rows", m, block, v)
     check_operands(m, block=block, v=v)
     if not isinstance(rows, RowSet):
         raise TypeError("rows must be a RowSet (checked on the host)")
@@ -126,5 +132,5 @@ def rank_update_rows(m: torch.Tensor, rows: RowSet, block: torch.Tensor,
                                         block.data_ptr(), v.data_ptr(),
                                         r, p, k, stream)
     cuda_build.check_launch("rank_update_rows_f32", code)
-    cuda_build.count_launch(LAUNCHES, "rank_update_rows")
+    cuda_build.count_launch(LAUNCHES, "rank_update_rows", extra=[(COLS, p)])
     return m

@@ -10,7 +10,8 @@ when a flag on the card says the firing failed, so a clean firing moves
 no bytes and the host never waits for the verdict.
 
 The entry works in place on ``new``, launches on the current CUDA stream,
-allocates nothing and never falls back to a plain version.  ``LAUNCHES``
+allocates nothing and never falls back to a plain version; an operand that
+requires grad under grad mode raises (no backward yet).  ``LAUNCHES``
 counts its launches.
 """
 
@@ -43,6 +44,7 @@ def select_commit(flags: torch.Tensor, old: torch.Tensor,
     ``new`` unchanged; in place on ``new``, which is returned.  ``old``
     and ``new`` are float32 tensors of one shape, contiguous, on the
     device of ``flags``, in storage of their own."""
+    cuda_build.refuse_grad("select_commit", old, new)
     check_operands(new, old=old)
     if old.shape != new.shape:
         raise ValueError(f"old {tuple(old.shape)} and new "

@@ -21,6 +21,7 @@ from repro_torch.kernels import flash_decode as cuda_fd
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rank_update as cuda_ru
 from repro_torch.kernels import rank_update_rows as cuda_rows
+from repro_torch.kernels import select_commit as cuda_sel
 
 pytestmark = pytest.mark.cuda
 
@@ -52,7 +53,27 @@ _DENSE = [(64, 64, 1, 1), (100, 37, 1, 5), (130, 257, 3, 7),
           (333, 200, 5, 13),                # chunks that cross t
           (1000, 1000, 16, 1),              # T = 16 rank-1 pairs
           (333, 517, 1, 96)]                # p % 4 != 0, compute tile
-_MISALIGNED = [(300, 256, 1, 16), (300, 256, 1, 96)]
+# the skinny tile (p < PSKINNY: 1, 2, 3 and the wider views' instances at
+# 4, 8, 16) at K on both sides of KSTREAM and of its small geometry's 8,
+# one chunk and many (K = 300: 10 chunks of 32), 4-byte copies (k = 1, 3,
+# 41) and 16-byte ones (k = 4, 40, 300, 1024), T > 1 stacks whose chunks
+# cross t, ragged tails of its tiles, and 2^20 rows over a full
+# persistent grid
+_DENSE += [(n, p, t, k) for p in (1, 2, 3) for n, t, k in (
+    (1000, 1, 1), (1000, 1, 3), (1000, 1, 40), (1000, 1, 41),
+    (1000, 1, 300), (777, 3, 1), (777, 16, 1), (333, 5, 13), (600, 2, 4),
+    (5000, 2, 1024), (2 ** 20 + 3, 1, 3))]
+# (views of 4-16 columns take it from SKINNY_WIDE_ROWS rows, the other
+# tiles below)
+_WIDE_N = cuda_ru.SKINNY_WIDE_ROWS
+_DENSE += [(n, p, t, k) for p in (4, 8, 16) for n, t, k in (
+    (1000, 1, 3), (1000, 1, 41), (_WIDE_N, 1, 3), (_WIDE_N + 5, 1, 8),
+    (_WIDE_N + 5, 1, 41), (_WIDE_N + 5, 16, 1), (_WIDE_N + 5, 5, 13),
+    (2 ** 20 + 5, 1, 32))]
+_MISALIGNED = [(300, 256, 1, 16), (300, 256, 1, 96), (300, 1, 1, 16),
+               (1001, 1, 3, 1), (1001, 1, 1, 300), (999, 3, 1, 3),
+               (2 ** 20, 1, 1, 2), (999, 5, 1, 3), (_WIDE_N + 1, 5, 1, 3),
+               (_WIDE_N + 1, 16, 1, 300)]
 
 
 @pytest.mark.parametrize(
@@ -93,6 +114,130 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         cuda_ru.rank_update(m, u.cpu(), u)
     with pytest.raises(ValueError, match="shares storage"):
         cuda_ru.rank_update(m, m.view(-1)[:16].view(8, 2), u)
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("t,k", [(1, 1), (1, 3), (3, 1), (1, 8), (1, 40),
+                                 (1, 41), (16, 1), (2, 96), (1, 300)])
+def test_skinny_tile_gives_the_wide_tiles_bits(cuda, p, t, k):
+    """Column j of a p < PSKINNY view is the same fmaf chain as column j of
+    the view widened to PSKINNY columns (the streaming or compute tile):
+    bit for bit, in place and out of place."""
+    g = torch.Generator(device=cuda).manual_seed(p + t + k)
+    n = 3000 if p < 4 else cuda_ru.SKINNY_WIDE_ROWS + 3
+    wide_p = cuda_ru.PSKINNY
+    assert cuda_ru.takes_skinny(n, p) and not cuda_ru.takes_skinny(n, wide_p)
+    m = torch.randn(n, wide_p, device=cuda, generator=g)
+    u = torch.randn(t, n, k, device=cuda, generator=g)
+    v = torch.randn(t, wide_p, k, device=cuda, generator=g)
+    wide = ops.rank_update_batched(m.clone(), u, v)
+    before = cuda_ru.SKINNY_RANKS["rank_update_batched"][t * k]
+    narrow = ops.rank_update_batched(m[:, :p].contiguous(), u,
+                                     v[:, :p].contiguous())
+    assert cuda_ru.SKINNY_RANKS["rank_update_batched"][t * k] == before + 1
+    out = ops.rank_update_batched_out(m[:, :p].contiguous(), u,
+                                      v[:, :p].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(narrow, wide[:, :p])
+    assert torch.equal(out, narrow)
+
+
+def test_skinny_tile_takes_misaligned_factors_and_sources(cuda):
+    """k % 4 == 0 with U at a 4-byte offset (4-byte copies), and an
+    out-of-place source and destination at different offsets mod 16."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n, p, t, k = 5000, 3, 2, 8
+    m = torch.randn(n, p, device=cuda, generator=g)
+    u = torch.empty(t * n * k + 1, device=cuda)[1:].view(t, n, k)
+    u.copy_(torch.randn(t, n, k, device=cuda, generator=g))
+    v = torch.randn(t, p, k, device=cuda, generator=g)
+    assert u.data_ptr() % 16 != 0
+    want = ref.rank_update_batched(m, u, v)
+    _close(ops.rank_update_batched(m.clone(), u, v), want)
+    src = torch.empty(n * p + 2, device=cuda)[2:].view(n, p).copy_(m)
+    assert src.data_ptr() % 16 == 8
+    out = ops.rank_update_batched_out(src, u, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.rank_update_batched(m.clone(), u, v))
+    assert torch.equal(src, m)
+
+
+def test_dense_row_limit_follows_the_tile(cuda):
+    """Past 65535 tiles of 64 rows a p < PSKINNY view still runs (the
+    skinny tile's grid walks its tiles); a view of PSKINNY columns runs
+    only on the compute tile, whose row tiles are 128 rows, and is refused
+    on the streaming tile."""
+    n = 65535 * 64 + 5000
+    g = torch.Generator(device=cuda).manual_seed(4)
+    wide = cuda_ru.PSKINNY
+    for p, k, runs in ((1, 3, True), (wide - 1, 41, True), (wide, 8, False),
+                       (wide, 41, True)):
+        m = torch.randn(n, p, device=cuda, generator=g)
+        u = torch.randn(n, k, device=cuda, generator=g)
+        v = torch.randn(p, k, device=cuda, generator=g)
+        assert (n <= cuda_ru.max_rows(p, k)) == runs
+        if runs:
+            _close(ops.rank_update(m.clone(), u, v),
+                   ref.rank_update(m, u, v))
+        else:
+            with pytest.raises(ValueError, match="grid"):
+                ops.rank_update(m, u, v)
+        del m, u, v
+
+
+def _entry_calls(device):
+    """One call of every CUDA entry on tensors of ``device``, each as a
+    function of the operands' requires_grad."""
+    def f(*shape):
+        return torch.randn(*shape, device=device)
+
+    def req(x, grad):
+        return x.requires_grad_(grad)
+
+    return {
+        "rank_update": lambda g: cuda_ru.rank_update(
+            f(16, 8), req(f(16, 2), g), f(8, 2)),
+        "rank_update_batched": lambda g: cuda_ru.rank_update_batched(
+            f(16, 8), f(1, 16, 2), req(f(1, 8, 2), g)),
+        "rank_update_batched_out": lambda g: cuda_ru.rank_update_batched_out(
+            req(f(16, 8), g), f(1, 16, 2), f(1, 8, 2)),
+        "rank_update_rows": lambda g: cuda_rows.rank_update_rows(
+            f(16, 8), cuda_rows.RowSet([1, 4], 16), req(f(2, 2), g),
+            f(8, 2)),
+        "dual_matmul": lambda g: cuda_dual.dual_matmul(
+            req(f(16, 8), g), f(8, 2), f(16, 2)),
+        "flash_attention": lambda g: cuda_fa.flash_attention(
+            req(f(1, 8, 2, 64), g), f(1, 8, 2, 64), f(1, 8, 2, 64)),
+        "flash_decode": lambda g: cuda_fd.flash_decode(
+            f(1, 2, 64), req(f(1, 8, 2, 64), g), f(1, 8, 2, 64), 8),
+        "select_commit": lambda g: cuda_sel.select_commit(
+            torch.zeros(1, dtype=torch.int32, device=device),
+            req(f(4, 4), g), f(4, 4)),
+    }
+
+
+def _all_launches():
+    return {**cuda_ru.LAUNCHES, **cuda_rows.LAUNCHES, **cuda_dual.LAUNCHES,
+            **cuda_fa.LAUNCHES, **cuda_fd.LAUNCHES, **cuda_sel.LAUNCHES}
+
+
+@pytest.mark.parametrize("entry", list(_entry_calls("cpu")))
+def test_cuda_entry_refuses_grad_on_the_card(cuda, entry):
+    """With an operand that requires grad under grad mode the entry raises
+    before it launches (it has no backward); under no_grad, or with no
+    operand requiring grad, it launches once."""
+    call = _entry_calls(cuda)[entry]
+    before = _all_launches()
+    with pytest.raises(RuntimeError, match="no backward yet"):
+        call(True)
+    assert _all_launches() == before
+    with torch.no_grad():
+        call(True)
+    with torch.inference_mode():
+        call(False)
+    call(False)
+    torch.cuda.synchronize()
+    assert _all_launches()[entry] == before[entry] + 3
 
 
 @pytest.mark.parametrize("app", ["ols", "matrix_powers"])
@@ -193,7 +338,13 @@ _ROWS = [(64, 64, 1, 1), (1000, 37, 70, 5), (5000, 130, 64, 16),
          (300, 1, 65, 40)] + [(3000, p, 300, k) for p in (1, 3, 130, 384)
                               for k in _ROW_KS]
 _ROWS_LAYOUT = [(1000, 384, 300, 8, "offset"), (1000, 384, 300, 128, "offset"),
-                (65535 * 64 + 5000, 4, 65535 * 64 + 100, 8, "wide")]
+                (65535 * 64 + 5000, 4, 65535 * 64 + 100, 8, "wide"),
+                # the skinny tile: M at an odd offset, 4-byte rows
+                # scattered over 2^20, more than one persistent wave
+                (1000, 1, 300, 8, "offset"), (1000, 3, 300, 41, "offset"),
+                (2 ** 20, 1, 10485, 1, "contiguous"),
+                (2 ** 20, 3, 157275, 128, "contiguous"),
+                (65535 * 64 + 5000, 1, 65535 * 64 + 100, 3, "wide")]
 
 
 @pytest.mark.parametrize(
@@ -340,7 +491,9 @@ _FLASH_BOTH = [
     (1, 300, 8, 2, 80, True, 70),       # window shorter than S
     (2, 64, 4, 1, 64, False, None),     # full attention
     (1, 97, 4, 4, 32, False, 16),       # windowed, not causal
-    (2, 288, 32, 32, 64, True, None)]   # zamba2's f32 cut: hd 64, group 1
+    (2, 288, 32, 32, 64, True, None),   # zamba2's f32 cut: hd 64, group 1
+    (1, 1000, 96, 8, 128, True, None),  # command-r-plus-104b: group 12
+    (1, 1000, 40, 40, 128, True, None)]  # qwen1.5-32b: H = KV = 40
 # bf16 only: the tensor-core kernel's tiles (128 query rows, 64 keys) at
 # every head dim, lengths inside, at and across a tile, windows of 1 and
 # shorter than a key tile, full attention, groups 1, 4 and 9
@@ -399,7 +552,9 @@ def _decode_inputs(device, dtype, b, L, h, kvh, hd, seed):
     (1, 700, 8, 1, 64, 650),       # head_dim 64, group 8
     (2, 333, 12, 4, 96, 200),      # head_dim 96, group 3
     (8, 512, 32, 32, 64, 288),     # zamba2's decode: hd 64, group 1
-    (2, 288, 32, 32, 64, 288)])    # zamba2's f32 cut, a full cache
+    (2, 288, 32, 32, 64, 288),     # zamba2's f32 cut, a full cache
+    (4, 2048, 96, 8, 128, 1900),   # command-r-plus-104b: group 12
+    (4, 2048, 40, 40, 128, 2048)])  # qwen1.5-32b: H = KV = 40
 def test_flash_decode_kernel_matches_plain(cuda, n_form, dtype, b, L, h, kvh,
                                            hd, n_valid):
     q, k, v = _decode_inputs(cuda, dtype, b, L, h, kvh, hd, L + h + n_valid)
@@ -611,7 +766,13 @@ def _to_cpu(tree):
 # -- the guard on the card: the out-of-place entry and the select-commit -----
 
 @pytest.mark.parametrize("n,p,k", [(10000, 10000, K) for K in (1, 16, 64, 256)]
-                         + [(37, 101, K) for K in (1, 16, 64, 256)])
+                         + [(37, 101, K) for K in (1, 16, 64, 256)]
+                         + [(2 ** 20, p, K) for p in (1, 3)
+                            for K in (1, 2, 3, 16, 256)]
+                         + [(1001, p, K) for p in (1, 3, 8, 16)
+                            for K in (1, 41, 2048)]
+                         + [(cuda_ru.SKINNY_WIDE_ROWS + 7, p, K)
+                            for p in (4, 16) for K in (1, 3, 41)])
 def test_out_of_place_entry_equals_in_place_bitwise(cuda, n, p, k):
     from repro_torch.kernels import select_commit as cuda_sel  # noqa: F401
     g = torch.Generator(device=cuda).manual_seed(n + k)
@@ -633,7 +794,10 @@ def test_out_of_place_entry_equals_in_place_bitwise(cuda, n, p, k):
 @pytest.mark.parametrize("where", ["u", "v", "m", "overflow", "none"])
 def test_out_of_place_flag_iff_nonfinite_stored(cuda, where):
     g = torch.Generator(device=cuda).manual_seed(5)
-    for n, p, k in ((300, 260, 8), (300, 260, 96), (37, 101, 3)):
+    for n, p, k in ((300, 260, 8), (300, 260, 96), (37, 101, 3),
+                    (3000, 1, 3), (3000, 1, 96), (3000, 3, 8),
+                    (2 ** 20, 3, 2), (3000, 16, 8), (70000, 16, 8),
+                    (70000, 8, 96)):
         m = torch.randn(n, p, device=cuda, generator=g)
         u = torch.randn(n, k, device=cuda, generator=g)
         v = torch.randn(p, k, device=cuda, generator=g)

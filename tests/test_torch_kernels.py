@@ -1,9 +1,13 @@
 """The port's kernel ops on CPU tensors (the plain PyTorch versions)
 against the JAX package's ops (Pallas, interpret mode) and its oracles,
-and the CUDA entries' refusal of anything but CUDA tensors."""
+the CUDA entries' refusal of anything but CUDA tensors and of operands
+that require grad, and the gradients the CPU ops still give."""
 
 import importlib
+import re
+from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,10 +19,14 @@ from repro.kernels.dual_matmul import dual_matmul_pallas
 from repro.kernels import ref as jax_ref
 from repro.kernels.rank_update_rows import (rank_update_rows_pallas,
                                             rank_update_rows_ref)
+from repro.models.attention import blockwise_attention
 from repro_torch.kernels import dual_matmul as cuda_dual
+from repro_torch.kernels import flash_attention as cuda_fa
+from repro_torch.kernels import flash_decode as cuda_fd
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rank_update as cuda_ru
 from repro_torch.kernels import rank_update_rows as cuda_rows
+from repro_torch.kernels import select_commit as cuda_sel
 from repro_torch.kernels.rank_update_rows import RowSet
 
 # repro.core exports a function of the same name as this module
@@ -26,8 +34,12 @@ jax_sm = importlib.import_module("repro.core.sherman_morrison")
 
 from conftest import assert_close
 
-# (n, p, k): aligned, ragged (the JAX wrapper takes its oracle there), p = 1
-SHAPES = [(64, 64, 1), (128, 64, 4), (96, 160, 3), (37, 101, 5), (50, 1, 2)]
+# (n, p, k): aligned, ragged (the JAX wrapper takes its oracle there), p = 1;
+# then views of 2 and 3 columns (the CUDA skinny tile) at k on both sides of
+# 40 (K = T*k also past it at T = 3)
+SHAPES = [(64, 64, 1), (128, 64, 4), (96, 160, 3), (37, 101, 5), (50, 1, 2),
+          (600, 2, 3), (600, 2, 40), (600, 2, 41), (600, 3, 13),
+          (600, 3, 40), (700, 3, 41)]
 
 
 def _data(rng, n, p, k, t=None):
@@ -92,27 +104,121 @@ def test_stack_is_one_flat_contraction(t, k, rng):
 
 
 def _launches():
-    return {**cuda_ru.LAUNCHES, **cuda_rows.LAUNCHES, **cuda_dual.LAUNCHES}
+    return {**cuda_ru.LAUNCHES, **cuda_rows.LAUNCHES, **cuda_dual.LAUNCHES,
+            **cuda_fa.LAUNCHES, **cuda_fd.LAUNCHES, **cuda_sel.LAUNCHES}
 
 
-@pytest.mark.parametrize("entry", ["rank_update", "rank_update_batched",
-                                   "rank_update_rows", "dual_matmul"])
+def _entry_call(entry, rng, grad=False):
+    """(call, m): a call of CUDA entry ``entry`` on CPU tensors made from
+    ``rng``, its first float operand requiring grad when ``grad``, and the
+    tensor it would write."""
+    m, u, v = _data(rng, 16, 8, 2)
+    tm, tu, tv = (torch.from_numpy(x.copy()) for x in (m, u, v))
+    tu.requires_grad_(grad)
+    q = torch.from_numpy(rng.normal(size=(1, 8, 2, 64)).astype(np.float32))
+    q.requires_grad_(grad)
+    calls = {
+        "rank_update": lambda: cuda_ru.rank_update(tm, tu, tv),
+        "rank_update_batched": lambda: cuda_ru.rank_update_batched(
+            tm, tu[None], tv[None]),
+        "rank_update_batched_out": lambda: cuda_ru.rank_update_batched_out(
+            tm, tu[None], tv[None]),
+        "rank_update_rows": lambda: cuda_rows.rank_update_rows(
+            tm, RowSet([1, 4], 16), tu[:2], tv),
+        "dual_matmul": lambda: cuda_dual.dual_matmul(tm, tv, tu),
+        "flash_attention": lambda: cuda_fa.flash_attention(q, q, q),
+        "flash_decode": lambda: cuda_fd.flash_decode(q[:, 0], q, q, 8),
+        "select_commit": lambda: cuda_sel.select_commit(
+            torch.ones(1, dtype=torch.int32), tu, tm[:, :2].contiguous()),
+    }
+    return calls[entry], tm, m
+
+
+_ENTRIES = ["rank_update", "rank_update_batched", "rank_update_batched_out",
+            "rank_update_rows", "dual_matmul", "flash_attention",
+            "flash_decode", "select_commit"]
+
+
+@pytest.mark.parametrize("entry", _ENTRIES)
 def test_cuda_entry_refuses_cpu_tensors(entry, rng):
     """Called directly on CPU tensors, the CUDA entry raises: it never
     substitutes the plain version, launches nothing and leaves m as is."""
-    m, u, v = _data(rng, 16, 8, 2, None if entry != "rank_update_batched"
-                    else 1)
-    tm, tu, tv = (torch.from_numpy(x.copy()) for x in (m, u, v))
+    call, tm, m = _entry_call(entry, rng)
     before = _launches()
     with pytest.raises(ValueError, match="CUDA"):
-        if entry == "rank_update_rows":
-            cuda_rows.rank_update_rows(tm, RowSet([1, 4], 16), tu[:2], tv)
-        elif entry == "dual_matmul":
-            cuda_dual.dual_matmul(tm, tv, tu)
-        else:
-            getattr(cuda_ru, entry)(tm, tu, tv)
+        call()
     np.testing.assert_array_equal(tm.numpy(), m)
     assert _launches() == before
+
+
+@pytest.mark.parametrize("entry", _ENTRIES)
+def test_cuda_entry_refuses_operands_that_require_grad(entry, rng):
+    """Under grad mode an operand that requires grad makes the CUDA entry
+    raise first, before its device checks (it has no backward, so its
+    output would carry no gradient): nothing launches and m is as it was.
+    Under no_grad the same call gets to the device check."""
+    call, tm, m = _entry_call(entry, rng, grad=True)
+    before = _launches()
+    with pytest.raises(RuntimeError, match=f"{entry}: .*no backward yet"):
+        call()
+    np.testing.assert_array_equal(tm.numpy(), m)
+    assert _launches() == before
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        call()
+
+
+def test_cpu_ops_still_differentiate_through_the_plain_versions(rng):
+    """On CPU tensors ops.rank_update and ops.flash_attention run ref.py,
+    which autograd differentiates: d sum(m + u vᵀ) / du = 1 vᵀ summed, and
+    attention's gradients equal jax.grad of the reference's
+    blockwise_attention."""
+    m, u, v = _data(rng, 16, 8, 2)
+    tu = torch.from_numpy(u).requires_grad_(True)
+    tv = torch.from_numpy(v).requires_grad_(True)
+    out = ops.rank_update(torch.from_numpy(m.copy()), tu, tv)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert_close(tu.grad.numpy(), np.ones((16, 8)) @ v)
+    assert_close(tv.grad.numpy(), np.ones((8, 16)) @ u)
+
+    q, k, w = (rng.normal(size=(1, 40, h, 32)).astype(np.float32)
+               for h in (4, 2, 2))
+    dout = rng.normal(size=(1, 40, 4, 32)).astype(np.float32)
+    tq, tk, tw = (torch.from_numpy(x).requires_grad_(True)
+                  for x in (q, k, w))
+    att = ops.flash_attention(tq, tk, tw, causal=True, window=16)
+    (att * torch.from_numpy(dout)).sum().backward()
+
+    def loss(q, k, w):
+        return (blockwise_attention(q, k, w, causal=True, window=16,
+                                    q_chunk=16, kv_chunk=16) * dout).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, w)))
+    for got, exp in zip((tq.grad, tk.grad, tw.grad), want):
+        assert_close(got.numpy(), exp)
+
+
+def test_tile_limits_mirror_the_cuda_sources():
+    """The binding's crossovers and tile rows (which decide the rows of M
+    a launch may cover) are the constants of csrc/."""
+    csrc = Path(cuda_ru.__file__).parent / "csrc"
+    dense = (csrc / "rank_update.cu").read_text()
+    tiles = (csrc / "rank_update_tiles.cuh").read_text()
+
+    def const(text, name):
+        return int(re.search(rf"\b{name} = (\d+)[,;]", text).group(1))
+
+    assert cuda_ru.PSKINNY == const(dense, "PSKINNY")
+    assert cuda_ru.SKINNY_WIDE_ROWS == const(tiles, "SK_WIDE_ROWS")
+    assert cuda_ru.KSTREAM == const(dense, "KSTREAM")
+    assert cuda_ru.STREAM_ROWS == 8 * const(dense, "SROWS")
+    assert cuda_ru.COMPUTE_ROWS == const(tiles, "CBM")
+    assert cuda_ru.SKINNY_ROWS == const(tiles, "SK_MARGIN")
+    assert const(tiles, "THREADS") == 256
+    p = cuda_ru.PSKINNY
+    assert cuda_ru.max_rows(p - 1, 2048) > 65535 * 128
+    assert cuda_ru.max_rows(p, cuda_ru.KSTREAM) == 65535 * 64
+    assert cuda_ru.max_rows(p, cuda_ru.KSTREAM + 1) == 65535 * 128
 
 
 def test_cpu_ops_launch_no_kernel(rng):
@@ -135,12 +241,14 @@ def test_cpu_ops_launch_no_kernel(rng):
 # (n, p, r, k): one slab, several slabs, ragged p, the dense fallback past
 # max_fraction (r > n / 4), a single row; then the JAX wrapper's slab
 # kernel at the CUDA row entry's wide ranks (k = 41: its compute tile,
-# k = 128: phase 6's stacked batch) and narrow views (p = 1, 3: M moved as
-# masked scalars on the card)
+# k = 128: phase 6's stacked batch) and narrow views (p = 1, 2, 3 at k on
+# both sides of 40: the card's skinny tile)
 ROW_SHAPES = [(256, 128, 5, 2), (1024, 64, 40, 3), (512, 37, 9, 1),
               (64, 16, 20, 2), (300, 20, 1, 4),
               (4096, 1, 3, 41), (4096, 3, 3, 128), (4096, 3, 2, 41),
-              (4096, 1, 2, 128)]
+              (4096, 1, 2, 128),
+              (4096, 2, 9, 40), (4096, 2, 9, 41), (4096, 3, 17, 40),
+              (2048, 1, 5, 1)]
 
 
 def _row_data(rng, n, p, r, k):

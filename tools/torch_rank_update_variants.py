@@ -4,7 +4,7 @@ GPU: the dense entry (``rank_update_batched_f32``) and the row entry
 (``rank_update_rows_f32``).
 
     python3 tools/torch_rank_update_variants.py [--parent ROOT]
-        [--entries dense,rows] [VARIANT ...]
+        [--entries dense,skinny,rows] [VARIANT ...]
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit.  Each variant is the sources ``rank_update.cu``,
@@ -19,12 +19,17 @@ git-ignored ``_parent/``), so old and new kernels are timed in one call.
 
 The ``*_all`` variants move one crossover (``KSTREAM`` or ``KM_FIRST``) of
 one entry so that every K takes one side of it: side by side they show where
-the two sides cross.  For each variant the script prints each kernel
-instance's registers and spills, then times every entry at the main path's
-shapes (``DENSE_SHAPES``, ``ROW_SHAPES``: ``chip_smoke.py``'s and a k sweep
-around the crossovers) by CUDA events over a run of launches after
-warm-ups, in rounds (``--rounds``, 4 by default; variants in turn, then
-in reverse, and so on):
+the two sides cross.  The ``pskinny*`` variants move the dense entry's
+``PSKINNY`` (views of fewer columns take the skinny tile), ``ktiny2`` and
+``ksmall16`` its ``SK_KTINY`` and ``SK_KSMALL``, ``widerows0`` its
+``SK_WIDE_ROWS`` and ``skt_*``, ``sks_*``, ``skw_*`` and ``skl_*``
+(``_R_BK_S_B``) its geometries (rows a thread, flat columns a chunk,
+stages of its ring, blocks an SM).  For each variant the script prints
+each kernel instance's registers and spills, then times every entry at the
+main path's shapes (``DENSE_SHAPES``, ``ROW_SHAPES``: ``chip_smoke.py``'s
+and a k sweep around the crossovers) by CUDA events over a run of launches
+after warm-ups, in rounds (``--rounds``, 4 by default; variants in turn,
+then in reverse, and so on):
 
 * ``ms`` (warm): every launch on one M with the same operands, so the rows
   it touches stay in the 50 MB L2 where they fit;
@@ -38,7 +43,12 @@ in reverse, and so on):
 
 Beside them: one library call on the same operands (``addmm_``;
 ``index_add_`` of ``block @ v.T``), the bound, and the output held against
-the plain version at the kernel tolerance (rtol = atol = 2e-4).  The last
+the plain version at the kernel tolerance (rtol = atol = 2e-4) and, bit for
+bit, against the first variant's output (``same_bits``: with ``--parent``,
+the parent's).  The ``skinny`` entries time the dense entry in place and
+out of place (``rank_update_batched_out_f32``, whose library call is an
+out-of-place ``torch.addmm``) at views of p = 1-32 columns
+(``SKINNY_SHAPES``, ``--skinny``).  The last
 lines (``summary``) give each variant's time over the first variant's at
 every shape, each time the median over the rounds.  A variant whose text
 no longer matches the source raises.  First, each variant's dense kernels
@@ -77,6 +87,11 @@ _IDS = "  map.template stage<CBM>(ids, row0, n, tid);\n"
 _FILL = "  const int nch = (t * k + CBK - 1) / CBK;\n"
 _PREFETCH = "  // warm M's tile (128 rows x 4 lines of 128 bytes) in L2 for " \
     "the\n"
+_PSKINNY = "constexpr int PSKINNY = 17;"
+_SK = {"t": "using SkTiny = SkinnyGeom<8, 8, 2, 2>;",
+       "s": "using SkSmall = SkinnyGeom<4, 8, 3, 4>;",
+       "w": "using SkWide = SkinnyGeom<1, 8, 3, 4>;",
+       "l": "using SkLarge = SkinnyGeom<1, 32, 2, 4>;"}
 # name -> [(file, old text, new text)]
 VARIANTS = {
     "checkout": [],
@@ -115,13 +130,53 @@ VARIANTS = {
         ("tiles", "ld.global.v4.f32", "ld.global.cs.v4.f32"),
         ("tiles", "        *reinterpret_cast<float4*>(dst) = x;",
          "        __stcs(reinterpret_cast<float4*>(dst), x);")],
+    # the dense entry's PSKINNY: views of p < PSKINNY columns take the
+    # skinny tile
+    **{f"pskinny{n}": [("dense", _PSKINNY, f"constexpr int PSKINNY = {n};")]
+       for n in (4, 5, 9, 33)},
+    # SK_KTINY and SK_KSMALL, the largest K on the tiny and small
+    # geometries
+    # SK_WIDE_ROWS: views of 4 <= p < PSKINNY columns on the skinny tile
+    # at any n, or never
+    "widerows0": [("tiles", "constexpr int SK_WIDE_ROWS = 65536;",
+                   "constexpr int SK_WIDE_ROWS = 0;")],
+    "ktiny2": [("tiles", "SK_KTINY = 4, SK_KSMALL = 8;",
+                "SK_KTINY = 2, SK_KSMALL = 8;")],
+    "ksmall16": [("tiles", "SK_KTINY = 4, SK_KSMALL = 8;",
+                  "SK_KTINY = 4, SK_KSMALL = 16;")],
 }
+# and, by name, the skinny tile's geometries: skt_R_BK_S_B (K <= 4, p <=
+# 3), sks_R_BK_S_B (small K, p <= 3), skw_R_BK_S_B (small K, wider views)
+# and skl_R_BK_S_B (large K) set
+# SkinnyGeom<R, BK, S, B>: rows a thread, flat columns a chunk, ring
+# stages, blocks an SM the registers are held to
+_GEOM = re.compile(r"sk([tswl])_(\d+)_(\d+)_(\d+)_(\d+)$")
 
 # (n, p, T, k): matrix powers' applies at n = 10000 (K = 1 ... 256 under a
 # batch of 16), OLS's Z/W at 8192, and a T = 16 stack of rank-1 pairs
 DENSE_SHAPES = [(10000, 10000, 1, K)
                 for K in (1, 16, 24, 32, 40, 48, 64, 96, 128, 256)] \
     + [(8192, 8192, 1, 32), (10000, 10000, 16, 1)]
+# (n, p, T, k, out of place): the skinny tile's shapes, the learning views'
+# 2^20 x 1 Y and W (K = 1-3, in place and out of place), 2^20 x 2 and x 3,
+# a T = 16 stack against a k = 16 pair, K = 64 and 1024 (many chunks), the
+# apps' vectors (OLS's 8192 x 1, PageRank's 10000 x 1), then the PSKINNY
+# crossover: p = 1, 2, 3, 4, 8, 16, 32 at K = 3 and 32 (--skinny picks
+# the main shapes, the crossover or both)
+SKINNY_MAIN = [(2 ** 20, 1, 1, K, out) for K in (1, 2, 3)
+                 for out in (False, True)] \
+    + [(2 ** 20, p, 1, K, out) for p in (2, 3) for K in (1, 2, 3)
+       for out in (False, True)] \
+    + [(2 ** 20, 1, 16, 1, False), (2 ** 20, 1, 1, 16, False),
+       (2 ** 20, 1, 1, 64, False), (2 ** 20, 1, 1, 1024, False),
+       (8192, 1, 1, 1, False), (8192, 1, 1, 16, False),
+       (10000, 1, 1, 1, False), (10000, 1, 1, 16, False)]
+SKINNY_CROSSOVER = [(2 ** 20, p, 1, K, False) for K in (3, 32)
+                    for p in (1, 2, 3, 4, 8, 16, 32)] \
+    + [(n, p, 1, K, False) for n in (10000, 32768, 65536, 262144)
+       for K in (3, 32) for p in (4, 8, 16)]
+SKINNY_SHAPES = {"main": SKINNY_MAIN, "crossover": SKINNY_CROSSOVER,
+                 "all": SKINNY_MAIN + SKINNY_CROSSOVER}
 # (n, p, r, k): chip_smoke.py's row cases (phase 6's X, Y1/Y2 and stacked
 # batch, phase 7's A/S2, T1 and batch, a ragged shape), then k around the
 # crossovers at phase 6's single-carrier shape
@@ -134,10 +189,21 @@ L2_BYTES = 50 * 2 ** 20         # H100's L2
 TOL = 2e-4
 
 
+def variant(part: str) -> list:
+    """The text edits of one variant name (listed, or a geometry)."""
+    geom = _GEOM.match(part)
+    if geom:
+        which, *nums = geom.groups()
+        old = _SK[which]
+        return [("tiles", old, old.split("<")[0] + "<" + ", ".join(nums)
+                 + ">;")]
+    return VARIANTS[part]
+
+
 def edits(name: str) -> list:
     """The text edits of variant ``name``; ``a+b`` is variant a's edits,
     then b's."""
-    return [e for part in name.split("+") for e in VARIANTS[part]]
+    return [e for part in name.split("+") for e in variant(part)]
 
 
 def sources(name: str) -> dict:
@@ -186,6 +252,11 @@ def build(tmp: Path, names, parent) -> dict:
             fn = so.rank_update_batched_f32
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
                 + [ctypes.c_void_p]
+            out = so.rank_update_batched_out_f32
+            out.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+                + [ctypes.c_void_p]
+            out.restype = ctypes.c_int
+            entries[name, "rank_update_out"] = out
         else:
             fn = so.rank_update_rows_f32
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
@@ -330,6 +401,7 @@ def dense_cases(names, rounds, entries, results):
         ptrs = [(w.data_ptr(), o[1].data_ptr(), o[2].data_ptr())
                 for w, o in zip(work, ops)]
 
+        firsts = {}
         for rnd, order in enumerate(orders(names, rounds)):
             for name in order:
                 fn = entries[name, "rank_update"]
@@ -337,12 +409,92 @@ def dense_cases(names, rounds, entries, results):
                 launch(fn, out.data_ptr(), u.data_ptr(), v.data_ptr())
                 torch.cuda.synchronize()
                 check(f"{name} dense {(n, p, t, k)}", out, want)
+                firsts.setdefault(name, out)
                 times = timings(lambda: launch(fn, *ptrs[0]), rotation(
                     [lambda q=q: launch(fn, *q) for q in ptrs]), reps)
                 emit(results, name, rnd, "dense",
                      {"n": n, "p": p, "T": t, "k": k}, times, flops,
-                     bound, lib_ms, "addmm_ms")
-        del ops, m0, u, v, u2, v2, want, work, out
+                     bound, lib_ms, "addmm_ms", same_bits=torch.equal(
+                         out, firsts.get(names[0], out)))
+        del ops, m0, u, v, u2, v2, want, work, out, firsts
+        torch.cuda.empty_cache()
+
+
+def skinny_cases(names, rounds, entries, results, shapes):
+    """The dense entry at SKINNY_SHAPES, in place or out of place; the
+    library call is ``addmm_`` or an out-of-place ``torch.addmm``, timed
+    by events and by the profiler (``addmm_device_ms``)."""
+    import torch
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    stream = torch.cuda.current_stream().cuda_stream
+    for n, p, t, k, out_of_place in SKINNY_SHAPES[shapes]:
+        K = t * k
+        ops = [(torch.randn(n, p, device="cuda", generator=gen),
+                torch.randn(t, n, k, device="cuda", generator=gen),
+                torch.randn(t, p, k, device="cuda", generator=gen))
+               for _ in range(2)]
+        m0, u, v = ops[0]
+        want = ref.rank_update_batched(m0, u, v)
+        u2 = u.permute(1, 0, 2).reshape(n, K).contiguous()
+        v2 = v.permute(1, 0, 2).reshape(p, K).contiguous()
+        work = [m.clone() for m, _, _ in ops]
+        dst = [torch.empty_like(m) for m, _, _ in ops]
+        flops = 2.0 * n * p * K
+        bound = bound_ms(8.0 * n * p + 4.0 * K * (n + p), flops)
+        reps = max(20, min(400, int(40 / max(bound, 0.02))))
+        if out_of_place:
+            def library():
+                return torch.addmm(m0, u2, v2.T)
+        else:
+            def library():
+                return work[0].addmm_(u2, v2.T)
+        lib_ms = time_ms(library, reps)
+        lib_device_ms = device_ms(library, min(reps, 50))
+
+        def launch(fn, *ptrs):
+            code = fn(*ptrs, 0, n, p, t, k, stream) if out_of_place \
+                else fn(*ptrs, n, p, t, k, stream)
+            if code:
+                raise RuntimeError(f"launch failed with {code}")
+
+        if out_of_place:   # src, dst, u, v, then the (absent) flag
+            ptrs = [(o[0].data_ptr(), d.data_ptr(), o[1].data_ptr(),
+                     o[2].data_ptr()) for o, d in zip(ops, dst)]
+        else:
+            ptrs = [(w.data_ptr(), o[1].data_ptr(), o[2].data_ptr())
+                    for w, o in zip(work, ops)]
+        key = "rank_update_out" if out_of_place else "rank_update"
+        firsts = {}
+        for rnd, order in enumerate(orders(names, rounds)):
+            for name in order:
+                fn = entries[name, key]
+                res = m0.clone()
+                try:   # a geometry may not fit this p in shared memory
+                    if out_of_place:
+                        res = torch.empty_like(m0)
+                        launch(fn, m0.data_ptr(), res.data_ptr(),
+                               u.data_ptr(), v.data_ptr())
+                    else:
+                        launch(fn, res.data_ptr(), u.data_ptr(),
+                               v.data_ptr())
+                except RuntimeError as err:
+                    print(json.dumps({"variant": name, "entry": "skinny",
+                                      "shape": [n, p, t, k, out_of_place],
+                                      "refused": str(err)}), flush=True)
+                    continue
+                torch.cuda.synchronize()
+                check(f"{name} skinny {(n, p, t, k, out_of_place)}", res,
+                      want)
+                firsts.setdefault(name, res)
+                times = timings(lambda: launch(fn, *ptrs[0]), rotation(
+                    [lambda q=q: launch(fn, *q) for q in ptrs]), reps)
+                emit(results, name, rnd, "skinny_out" if out_of_place
+                     else "skinny", {"n": n, "p": p, "T": t, "k": k},
+                     times, flops, bound, lib_ms, "addmm_ms",
+                     same_bits=torch.equal(res, firsts.get(names[0], res)),
+                     addmm_device_ms=lib_device_ms)
+        del ops, m0, u, v, u2, v2, want, work, dst, res, firsts
         torch.cuda.empty_cache()
 
 
@@ -395,14 +547,20 @@ def row_cases(names, rounds, entries, results):
 
 
 def emit(results, name, rnd, entry, shape, times, flops, bound, lib_ms,
-         lib_key) -> None:
+         lib_key, **extra) -> None:
     ms = times["ms"]
     rec = {"variant": name, "round": rnd, "entry": entry, **shape, **times,
            "tflops": flops / ms / 1e9, "bound_ms": bound, lib_key: lib_ms,
-           "vs_library": ms / lib_ms, "within_tolerance": True}
+           "vs_library": ms / lib_ms, "within_tolerance": True, **extra}
     print(json.dumps(rec), flush=True)
     key = (entry, tuple(v for k, v in shape.items() if k != "cold_sets"))
-    results.setdefault(key, {}).setdefault(name, []).append(times)
+    slot = results.setdefault(key, {})
+    slot.setdefault(name, []).append(times)
+    slot.setdefault("_meta", {"bound_ms": bound, lib_key: lib_ms, **{
+        k: v for k, v in extra.items() if k != "same_bits"}})
+    if "same_bits" in extra:   # bit for bit in every round
+        bits = slot.setdefault("_bits", {})
+        bits[name] = bits.get(name, True) and extra["same_bits"]
 
 
 def summary(names, results) -> None:
@@ -415,6 +573,7 @@ def summary(names, results) -> None:
                for name in names if name in by}
         print("summary " + json.dumps({
             "entry": entry, "shape": shape, "base": base,
+            **by.get("_meta", {}), "same_bits": by.get("_bits", {}),
             **{name: {**t, **{f"{key}_vs_base": t[key] / med[base][key]
                               for key in t}}
                for name, t in med.items()}}), flush=True)
@@ -425,8 +584,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="root of another checkout, built as "
                     "the variant 'parent' and timed first")
-    ap.add_argument("--entries", default="dense,rows",
-                    help="comma-separated: dense, rows")
+    ap.add_argument("--entries", default="dense,skinny,rows",
+                    help="comma-separated: dense, skinny, rows")
+    ap.add_argument("--skinny", choices=sorted(SKINNY_SHAPES),
+                    default="all", help="the skinny entry's shapes: the "
+                    "main path's, the PSKINNY crossover, or all")
     ap.add_argument("--rounds", type=int, default=4,
                     help="rounds of all variants (default 4)")
     ap.add_argument("variants", nargs="*")
@@ -437,7 +599,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     names = args.variants or list(VARIANTS)
     unknown = [n for n in names
-               if any(part not in VARIANTS for part in n.split("+"))]
+               if any(part not in VARIANTS and not _GEOM.match(part)
+                      for part in n.split("+"))]
     if unknown:
         raise SystemExit(f"unknown variants {unknown}; known: "
                          f"{', '.join(VARIANTS)}")
@@ -453,6 +616,8 @@ def main() -> int:
         wanted = args.entries.split(",")
         if "dense" in wanted:
             dense_cases(names, args.rounds, entries, results)
+        if "skinny" in wanted:
+            skinny_cases(names, args.rounds, entries, results, args.skinny)
         if "rows" in wanted:
             row_cases(names, args.rounds, entries, results)
     summary(names, results)
