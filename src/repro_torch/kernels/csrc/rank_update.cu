@@ -35,11 +35,10 @@
 // (tools/torch_rank_update_variants.py; PERF.md): the streaming tile is
 // faster through K = 40 and the compute tile from K = 48, below the
 // roofline crossover (K ~ 80), because neither tile overlaps its FMAs with
-// M's traffic fully.  PSKINNY likewise: at 2^20 rows the skinny tile beat
-// the other two at p = 1, 2, 3, 4, 8 and 16 (by 1.2-19x) and lost at
-// p = 32, at K = 3 and 32; views of 4-16 columns take it from SK_WIDE_ROWS
-// = 65536 rows (rank_update_tiles.cuh), since at 10000 rows the other
-// tiles' grids won at K = 3.
+// M's traffic fully.  PSKINNY = 4 gives the skinny tile p = 1, 2 and 3,
+// where it beat the other two by 3-19x at 2^20 rows.  It also beat them at
+// p = 4-16 from 65536 rows (by 1.2-3.9x; PERF.md), but no path launches
+// such views, so they keep the other tiles.
 
 #include "rank_update_tiles.cuh"
 
@@ -48,7 +47,7 @@ namespace {
 constexpr int KSTREAM = 40;   // largest K that takes the streaming tile
 constexpr int KM_FIRST = 16;  // largest K whose M loads precede the staging
 constexpr int SROWS = 8;      // rows of M a thread of the streaming tile owns
-constexpr int PSKINNY = 17;   // p below it takes the skinny tile, at any K
+constexpr int PSKINNY = 4;    // p below it takes the skinny tile, at any K
 
 }  // namespace
 

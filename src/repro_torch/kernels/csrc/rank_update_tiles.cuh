@@ -80,7 +80,7 @@
 //     tiles move it as masked scalars.
 //   * Skinny tile, p < PSKINNY at every K (vector views: OLS's p = 1
 //     program, PageRank's rank vector, the learning views' 2^20 x 1 Y and
-//     W; and views of a few columns).  Narrow views waste the two tiles
+//     W; and views of 2 or 3 columns).  Narrow views waste the two tiles
 //     above: a warp owns 128 columns, 4 a lane, so at p = 1 only 8 of 256
 //     threads do work, the 128-wide V panel is zero-fill, and M moves as
 //     masked scalars.  The op does 2 p K FLOPs for each 4 K bytes of a row
@@ -94,17 +94,14 @@
 //         flat columns, and the block's (tile, chunk) items go through a
 //         STAGES cp.async ring, one barrier an item, so the next tiles'
 //         loads are in flight while a chunk is summed;
-//       - geometries (SkinnyGeom) picked at launch: through K =
-//         SK_KSMALL the whole K is one chunk and a thread owns 8 rows
-//         (through K = 4) or 4 for p <= 3 (tiles of 2048 or 1024 rows
-//         keep many rows' loads in flight) where such tiles fill the SMs,
-//         else 1 row (as for wider views, whose runs of M are longer;
-//         those take the tile from SK_WIDE_ROWS rows); above it a
-//         thread owns 1 row and a chunk is 32 columns, so each row of U
-//         is read in 128-byte runs (chunks of 8 read 32-byte pieces of
-//         rows 4 KB apart: 1.9 TB/s on an H100 at K = 1024).  Views of p <= 3
-//         and of 4 <= p < PSKINNY are instantiated apart (PMAX 3 or
-//         PSKINNY - 1 sums a row), so the vectors keep few registers;
+//       - two geometries (SkinnyGeom) picked at launch: through K =
+//         SK_KTINY, where its tiles fill the SMs, the whole K is one chunk
+//         and a thread owns 8 rows (tiles of 2048 rows keep many rows'
+//         loads in flight); else a thread owns 1 row and a chunk is 32
+//         columns, so each row of U is read in 128-byte runs (chunks of 8
+//         read 32-byte pieces of rows 4 KB apart: 1.9 TB/s on an H100 at
+//         K = 1024).  A thread sums PSKINNY - 1 columns a row at most, so
+//         the vectors keep few registers;
 //       - U's chunk lands as [row][column] with a row stride ULD chosen
 //         for conflict-free reads (ULD / 4 odd for LDS.128, ULD odd for
 //         LDS.32).  For each t the tile's rows of U_t are one contiguous
@@ -137,13 +134,14 @@
 //     gives their bits, and out of place the in-place entry's.
 //
 // KSTREAM, KM_FIRST, SROWS and PSKINNY are template parameters of each
-// entry, and SK_KSMALL and the skinny geometries constants here, chosen
+// entry, and SK_KTINY and the skinny geometries constants here, chosen
 // from measurement on the card
 // (tools/torch_rank_update_variants.py times the choices side by side at
 // the main path's shapes; PERF.md).
 
 #pragma once
 
+#include <atomic>
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -182,25 +180,16 @@ struct SkinnyGeom {
                 "a full chunk's 16-byte row stride BK + 4 is 4 mod 8");
   static_assert((BM & (BM - 1)) == 0, "rows of a tile by shifts");
 };
-// K <= SK_KSMALL: the whole K is one chunk, and big tiles keep many rows'
-// loads in flight (for p <= 3: SkTiny through K = SK_KTINY, SkSmall above,
-// whose smaller tiles fit shared memory; SkWide, one row a thread, for the
-// wider views, whose runs of M are longer); above it, long runs of each
-// row (128 bytes a chunk) keep the reads of U in whole lines (SkLarge)
-constexpr int SK_KTINY = 4, SK_KSMALL = 8;
-// views of 4 <= p < PSKINNY columns take the skinny tile from this many
-// rows; below it (a few dozen of its tiles) the streaming and compute
-// tiles' grids spread their rows over more blocks
-constexpr int SK_WIDE_ROWS = 65536;
+// K <= SK_KTINY (where its tiles fill the SMs): the whole K is one chunk,
+// and big tiles keep many rows' loads in flight (SkTiny); else long runs
+// of each row (128 bytes a chunk) keep the reads of U in whole lines
+// (SkLarge)
+constexpr int SK_KTINY = 4;
 using SkTiny = SkinnyGeom<8, 8, 2, 2>;
-using SkSmall = SkinnyGeom<4, 8, 3, 4>;
-using SkWide = SkinnyGeom<1, 8, 3, 4>;
 using SkLarge = SkinnyGeom<1, 32, 2, 4>;
 // a skinny launch takes n <= INT_MAX - SK_MARGIN (row offsets in int)
 constexpr int SK_MARGIN = 4096;
-static_assert(SkTiny::BM + SkLarge::BM <= SK_MARGIN &&
-                  SkSmall::BM + SkLarge::BM <= SK_MARGIN &&
-                  SkWide::BM + SkLarge::BM <= SK_MARGIN,
+static_assert(SkTiny::BM + SkLarge::BM <= SK_MARGIN,
               "a tile's first row past n stays an int");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -941,33 +930,38 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// The skinny tile for p <= PMAX: as many blocks as the SMs hold at once
-// (at most one a row tile), each walking its row tiles.
+// The skinny tile for p <= PMAX: as many blocks as the SMs of device `dev`
+// hold at once (at most one a row tile), each walking its row tiles.
 template <int PMAX, bool U16, class G, class Map, class Io>
 cudaError_t launch_skinny(float* m, const float* u, const float* v, int n,
                           int p, int t, int k, Map map, cudaStream_t stream,
-                          Io io, int sms) {
+                          Io io, int dev, int sms) {
   const auto kernel = rank_update_skinny<PMAX, U16, G, Map, Io>;
   const size_t smem = SkinnyLayout<G>(t * k, p, U16).bytes();
-  // blocks an SM holds, by KB of shared memory (one card kind a process)
-  static int per_sm[240];
+  // blocks an SM holds, by device and KB of shared memory, from the
+  // occupancy API once; host threads that launch side by side may both
+  // fill an entry, with the same value (relaxed atomics); devices past
+  // SK_DEVICES ask at every launch
+  constexpr int SK_DEVICES = 16, SK_KB = 240;
+  static std::atomic<int> per_sm[SK_DEVICES][SK_KB];
   const size_t kb = (smem + 1023) / 1024;
-  if (kb >= 240) return cudaErrorInvalidValue;
+  if (kb >= SK_KB) return cudaErrorInvalidValue;
   if (kb > 48) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kb * 1024);
     if (err != cudaSuccess) return err;
   }
-  if (per_sm[kb] == 0) {
-    int blocks = 0;
+  std::atomic<int>* cached = dev < SK_DEVICES ? &per_sm[dev][kb] : nullptr;
+  int blocks = cached ? cached->load(std::memory_order_relaxed) : 0;
+  if (blocks == 0) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, kernel, THREADS, kb * 1024);
     if (err != cudaSuccess) return err;
     if (blocks < 1) return cudaErrorInvalidConfiguration;
-    per_sm[kb] = blocks;
+    if (cached) cached->store(blocks, std::memory_order_relaxed);
   }
   const int tiles = (n + G::BM - 1) / G::BM;
-  const int grid = tiles < sms * per_sm[kb] ? tiles : sms * per_sm[kb];
+  const int grid = tiles < sms * blocks ? tiles : sms * blocks;
   kernel<<<grid, THREADS, smem, stream>>>(m, u, v, n, p, t, k, map, io);
   return cudaGetLastError();
 }
@@ -975,19 +969,18 @@ cudaError_t launch_skinny(float* m, const float* u, const float* v, int n,
 template <int PMAX, class G, class Map, class Io>
 cudaError_t launch_skinny_u(float* m, const float* u, const float* v, int n,
                             int p, int t, int k, Map map, cudaStream_t s,
-                            Io io, int sms) {
+                            Io io, int dev, int sms) {
   const bool u16 = k % 4 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0;
   return u16 ? launch_skinny<PMAX, true, G>(m, u, v, n, p, t, k, map, s, io,
-                                            sms)
+                                            dev, sms)
              : launch_skinny<PMAX, false, G>(m, u, v, n, p, t, k, map, s, io,
-                                             sms);
+                                             dev, sms);
 }
 
-// The skinny tile for p <= PMAX.  Through K = SK_KSMALL: geometry GT
-// (through K = SK_KTINY) or GS where their tiles fill the SMs at least
-// once, else the one-row tiles of SkWide; above it SkLarge.  U's chunks
-// by 16-byte copies where k % 4 == 0 and U is aligned.
-template <int PMAX, class GT, class GS, class Map, class Io>
+// The skinny tile for p <= PMAX on the current device: SkTiny through K =
+// SK_KTINY where its tiles fill the SMs at least once, else SkLarge.  U's
+// chunks by 16-byte copies where k % 4 == 0 and U is aligned.
+template <int PMAX, class Map, class Io>
 cudaError_t launch_skinny_k(float* m, const float* u, const float* v, int n,
                             int p, int t, int k, Map map, cudaStream_t s,
                             Io io) {
@@ -996,15 +989,11 @@ cudaError_t launch_skinny_k(float* m, const float* u, const float* v, int n,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int64_t kdim = (int64_t)t * k;
-  if (kdim <= SK_KTINY && n >= (int64_t)GT::BM * sms)
-    return launch_skinny_u<PMAX, GT>(m, u, v, n, p, t, k, map, s, io, sms);
-  if (kdim <= SK_KSMALL && n >= (int64_t)GS::BM * sms)
-    return launch_skinny_u<PMAX, GS>(m, u, v, n, p, t, k, map, s, io, sms);
-  if (kdim <= SK_KSMALL)
-    return launch_skinny_u<PMAX, SkWide>(m, u, v, n, p, t, k, map, s, io,
-                                         sms);
-  return launch_skinny_u<PMAX, SkLarge>(m, u, v, n, p, t, k, map, s, io, sms);
+  if ((int64_t)t * k <= SK_KTINY && n >= (int64_t)SkTiny::BM * sms)
+    return launch_skinny_u<PMAX, SkTiny>(m, u, v, n, p, t, k, map, s, io,
+                                         dev, sms);
+  return launch_skinny_u<PMAX, SkLarge>(m, u, v, n, p, t, k, map, s, io, dev,
+                                        sms);
 }
 
 // M[map(i)] (i < n) += sum_t U[t] (n, k) V[t]^T, one launch on `stream`:
@@ -1021,14 +1010,9 @@ int rank_update_tiles(float* m, const float* u, const float* v, int n, int p,
   const int64_t kdim = (int64_t)t * k;
   if (kdim > INT_MAX - CBK) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (p < PSKINNY && (p <= 3 || n >= SK_WIDE_ROWS)) {
+  if (p < PSKINNY) {
     if (n > INT_MAX - SK_MARGIN) return (int)cudaErrorInvalidValue;
-    if (p <= 3)
-      return (int)launch_skinny_k<3, SkTiny, SkSmall>(m, u, v, n, p, t, k,
-                                                      map, s, io);
-    if constexpr (PSKINNY > 4)
-      return (int)launch_skinny_k<PSKINNY - 1, SkWide, SkWide>(
-          m, u, v, n, p, t, k, map, s, io);
+    return (int)launch_skinny_k<PSKINNY - 1>(m, u, v, n, p, t, k, map, s, io);
   }
   const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(m) % 16 == 0 &&
                    io.aligned16();

@@ -61,13 +61,12 @@ def reset_launches() -> None:
 
 
 # The tiles of csrc/rank_update.cu (its constexprs and those of
-# rank_update_tiles.cuh; a test holds them equal): p < 4, and p < PSKINNY
-# from SKINNY_WIDE_ROWS rows, takes the skinny tile, whose persistent grid
-# walks its row tiles (n up to SKINNY_ROWS short of int32); else K <=
-# KSTREAM the streaming tile and above it the compute tile, whose row tiles
-# of STREAM_ROWS and COMPUTE_ROWS rows lie on gridDim.y (at most 65535).
-PSKINNY = 17
-SKINNY_WIDE_ROWS = 65536
+# rank_update_tiles.cuh; a test holds them equal): p < PSKINNY takes the
+# skinny tile, whose persistent grid walks its row tiles (n up to
+# SKINNY_ROWS short of int32); else K <= KSTREAM the streaming tile and
+# above it the compute tile, whose row tiles of STREAM_ROWS and
+# COMPUTE_ROWS rows lie on gridDim.y (at most 65535).
+PSKINNY = 4
 KSTREAM = 40
 SKINNY_ROWS = 4096
 STREAM_ROWS = 64
@@ -75,16 +74,15 @@ COMPUTE_ROWS = 128
 _INT32_MAX = 2 ** 31 - 1
 
 
-def takes_skinny(n: int, p: int) -> bool:
-    """Whether an (n, p) view takes the skinny tile."""
-    return p < 4 or (p < PSKINNY and n >= SKINNY_WIDE_ROWS)
+def takes_skinny(p: int) -> bool:
+    """Whether a view of p columns takes the skinny tile."""
+    return p < PSKINNY
 
 
 def max_rows(p: int, kdim: int) -> int:
     """The most rows of M the tile that takes p columns and K = ``kdim``
-    launches over (a view of 4 <= p < PSKINNY columns past the other
-    tiles' grids is on the skinny tile)."""
-    if p < PSKINNY:
+    launches over."""
+    if takes_skinny(p):
         return _INT32_MAX - SKINNY_ROWS
     return 65535 * (STREAM_ROWS if kdim <= KSTREAM else COMPUTE_ROWS)
 
@@ -137,10 +135,10 @@ def _launch(entry: str, cname: str, m: torch.Tensor, rank: int,
         stream = torch.cuda.current_stream(m.device).cuda_stream
         code = getattr(lib, cname)(*args, stream)
     cuda_build.check_launch(cname, code)
-    n, p = m.shape
+    p = m.shape[1]
     cuda_build.count_launch(
         LAUNCHES, entry, RANKS, rank,
-        extra=[(COLS, p)] + [(SKINNY_RANKS, rank)] * takes_skinny(n, p))
+        extra=[(COLS, p)] + [(SKINNY_RANKS, rank)] * takes_skinny(p))
 
 
 def _check_stack(m: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> None:

@@ -53,27 +53,18 @@ _DENSE = [(64, 64, 1, 1), (100, 37, 1, 5), (130, 257, 3, 7),
           (333, 200, 5, 13),                # chunks that cross t
           (1000, 1000, 16, 1),              # T = 16 rank-1 pairs
           (333, 517, 1, 96)]                # p % 4 != 0, compute tile
-# the skinny tile (p < PSKINNY: 1, 2, 3 and the wider views' instances at
-# 4, 8, 16) at K on both sides of KSTREAM and of its small geometry's 8,
-# one chunk and many (K = 300: 10 chunks of 32), 4-byte copies (k = 1, 3,
-# 41) and 16-byte ones (k = 4, 40, 300, 1024), T > 1 stacks whose chunks
-# cross t, ragged tails of its tiles, and 2^20 rows over a full
-# persistent grid
+# the skinny tile (p < PSKINNY: 1, 2, 3) at K on both sides of KSTREAM and
+# of its tiny geometry's 4, one chunk and many (K = 300: 10 chunks of 32),
+# 4-byte copies (k = 1, 3, 41) and 16-byte ones (k = 4, 40, 300, 1024),
+# T > 1 stacks whose chunks cross t, ragged tails of its tiles, and 2^20
+# rows over a full persistent grid
 _DENSE += [(n, p, t, k) for p in (1, 2, 3) for n, t, k in (
     (1000, 1, 1), (1000, 1, 3), (1000, 1, 40), (1000, 1, 41),
     (1000, 1, 300), (777, 3, 1), (777, 16, 1), (333, 5, 13), (600, 2, 4),
     (5000, 2, 1024), (2 ** 20 + 3, 1, 3))]
-# (views of 4-16 columns take it from SKINNY_WIDE_ROWS rows, the other
-# tiles below)
-_WIDE_N = cuda_ru.SKINNY_WIDE_ROWS
-_DENSE += [(n, p, t, k) for p in (4, 8, 16) for n, t, k in (
-    (1000, 1, 3), (1000, 1, 41), (_WIDE_N, 1, 3), (_WIDE_N + 5, 1, 8),
-    (_WIDE_N + 5, 1, 41), (_WIDE_N + 5, 16, 1), (_WIDE_N + 5, 5, 13),
-    (2 ** 20 + 5, 1, 32))]
 _MISALIGNED = [(300, 256, 1, 16), (300, 256, 1, 96), (300, 1, 1, 16),
                (1001, 1, 3, 1), (1001, 1, 1, 300), (999, 3, 1, 3),
-               (2 ** 20, 1, 1, 2), (999, 5, 1, 3), (_WIDE_N + 1, 5, 1, 3),
-               (_WIDE_N + 1, 16, 1, 300)]
+               (2 ** 20, 1, 1, 2)]
 
 
 @pytest.mark.parametrize(
@@ -116,17 +107,18 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         cuda_ru.rank_update(m, m.view(-1)[:16].view(8, 2), u)
 
 
-@pytest.mark.parametrize("p", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("p", [1, 2, 3])
 @pytest.mark.parametrize("t,k", [(1, 1), (1, 3), (3, 1), (1, 8), (1, 40),
                                  (1, 41), (16, 1), (2, 96), (1, 300)])
 def test_skinny_tile_gives_the_wide_tiles_bits(cuda, p, t, k):
     """Column j of a p < PSKINNY view is the same fmaf chain as column j of
     the view widened to PSKINNY columns (the streaming or compute tile):
-    bit for bit, in place and out of place."""
+    bit for bit, in place and out of place, on both of its geometries
+    (K <= 4 over enough rows to fill the SMs with its tiny tiles)."""
     g = torch.Generator(device=cuda).manual_seed(p + t + k)
-    n = 3000 if p < 4 else cuda_ru.SKINNY_WIDE_ROWS + 3
+    n = 2 ** 19 + 3 if t * k <= 4 else 3000
     wide_p = cuda_ru.PSKINNY
-    assert cuda_ru.takes_skinny(n, p) and not cuda_ru.takes_skinny(n, wide_p)
+    assert cuda_ru.takes_skinny(p) and not cuda_ru.takes_skinny(wide_p)
     m = torch.randn(n, wide_p, device=cuda, generator=g)
     u = torch.randn(t, n, k, device=cuda, generator=g)
     v = torch.randn(t, wide_p, k, device=cuda, generator=g)
@@ -769,10 +761,8 @@ def _to_cpu(tree):
                          + [(37, 101, K) for K in (1, 16, 64, 256)]
                          + [(2 ** 20, p, K) for p in (1, 3)
                             for K in (1, 2, 3, 16, 256)]
-                         + [(1001, p, K) for p in (1, 3, 8, 16)
-                            for K in (1, 41, 2048)]
-                         + [(cuda_ru.SKINNY_WIDE_ROWS + 7, p, K)
-                            for p in (4, 16) for K in (1, 3, 41)])
+                         + [(1001, p, K) for p in (1, 3)
+                            for K in (1, 41, 2048)])
 def test_out_of_place_entry_equals_in_place_bitwise(cuda, n, p, k):
     from repro_torch.kernels import select_commit as cuda_sel  # noqa: F401
     g = torch.Generator(device=cuda).manual_seed(n + k)
@@ -796,8 +786,7 @@ def test_out_of_place_flag_iff_nonfinite_stored(cuda, where):
     g = torch.Generator(device=cuda).manual_seed(5)
     for n, p, k in ((300, 260, 8), (300, 260, 96), (37, 101, 3),
                     (3000, 1, 3), (3000, 1, 96), (3000, 3, 8),
-                    (2 ** 20, 3, 2), (3000, 16, 8), (70000, 16, 8),
-                    (70000, 8, 96)):
+                    (2 ** 20, 3, 2)):
         m = torch.randn(n, p, device=cuda, generator=g)
         u = torch.randn(n, k, device=cuda, generator=g)
         v = torch.randn(p, k, device=cuda, generator=g)

@@ -209,7 +209,6 @@ def test_tile_limits_mirror_the_cuda_sources():
         return int(re.search(rf"\b{name} = (\d+)[,;]", text).group(1))
 
     assert cuda_ru.PSKINNY == const(dense, "PSKINNY")
-    assert cuda_ru.SKINNY_WIDE_ROWS == const(tiles, "SK_WIDE_ROWS")
     assert cuda_ru.KSTREAM == const(dense, "KSTREAM")
     assert cuda_ru.STREAM_ROWS == 8 * const(dense, "SROWS")
     assert cuda_ru.COMPUTE_ROWS == const(tiles, "CBM")

@@ -20,11 +20,10 @@ git-ignored ``_parent/``), so old and new kernels are timed in one call.
 The ``*_all`` variants move one crossover (``KSTREAM`` or ``KM_FIRST``) of
 one entry so that every K takes one side of it: side by side they show where
 the two sides cross.  The ``pskinny*`` variants move the dense entry's
-``PSKINNY`` (views of fewer columns take the skinny tile), ``ktiny2`` and
-``ksmall16`` its ``SK_KTINY`` and ``SK_KSMALL``, ``widerows0`` its
-``SK_WIDE_ROWS`` and ``skt_*``, ``sks_*``, ``skw_*`` and ``skl_*``
-(``_R_BK_S_B``) its geometries (rows a thread, flat columns a chunk,
-stages of its ring, blocks an SM).  For each variant the script prints
+``PSKINNY`` (views of fewer columns take the skinny tile), and ``skt_*``
+and ``skl_*`` (``_R_BK_S_B``) set the skinny tile's two geometries (rows a
+thread, flat columns a chunk, stages of its ring, blocks an SM); ``a+b``
+applies both.  For each variant the script prints
 each kernel instance's registers and spills, then times every entry at the
 main path's shapes (``DENSE_SHAPES``, ``ROW_SHAPES``: ``chip_smoke.py``'s
 and a k sweep around the crossovers) by CUDA events over a run of launches
@@ -87,10 +86,8 @@ _IDS = "  map.template stage<CBM>(ids, row0, n, tid);\n"
 _FILL = "  const int nch = (t * k + CBK - 1) / CBK;\n"
 _PREFETCH = "  // warm M's tile (128 rows x 4 lines of 128 bytes) in L2 for " \
     "the\n"
-_PSKINNY = "constexpr int PSKINNY = 17;"
+_PSKINNY = "constexpr int PSKINNY = 4;"
 _SK = {"t": "using SkTiny = SkinnyGeom<8, 8, 2, 2>;",
-       "s": "using SkSmall = SkinnyGeom<4, 8, 3, 4>;",
-       "w": "using SkWide = SkinnyGeom<1, 8, 3, 4>;",
        "l": "using SkLarge = SkinnyGeom<1, 32, 2, 4>;"}
 # name -> [(file, old text, new text)]
 VARIANTS = {
@@ -131,26 +128,15 @@ VARIANTS = {
         ("tiles", "        *reinterpret_cast<float4*>(dst) = x;",
          "        __stcs(reinterpret_cast<float4*>(dst), x);")],
     # the dense entry's PSKINNY: views of p < PSKINNY columns take the
-    # skinny tile
+    # skinny tile (the crossover: p = 4, 8, 16 and 32 on it)
     **{f"pskinny{n}": [("dense", _PSKINNY, f"constexpr int PSKINNY = {n};")]
-       for n in (4, 5, 9, 33)},
-    # SK_KTINY and SK_KSMALL, the largest K on the tiny and small
-    # geometries
-    # SK_WIDE_ROWS: views of 4 <= p < PSKINNY columns on the skinny tile
-    # at any n, or never
-    "widerows0": [("tiles", "constexpr int SK_WIDE_ROWS = 65536;",
-                   "constexpr int SK_WIDE_ROWS = 0;")],
-    "ktiny2": [("tiles", "SK_KTINY = 4, SK_KSMALL = 8;",
-                "SK_KTINY = 2, SK_KSMALL = 8;")],
-    "ksmall16": [("tiles", "SK_KTINY = 4, SK_KSMALL = 8;",
-                  "SK_KTINY = 4, SK_KSMALL = 16;")],
+       for n in (5, 9, 17, 33)},
 }
-# and, by name, the skinny tile's geometries: skt_R_BK_S_B (K <= 4, p <=
-# 3), sks_R_BK_S_B (small K, p <= 3), skw_R_BK_S_B (small K, wider views)
-# and skl_R_BK_S_B (large K) set
+# and, by name, the skinny tile's geometries: skt_R_BK_S_B (K <= 4, where
+# its tiles fill the SMs) and skl_R_BK_S_B (the rest) set
 # SkinnyGeom<R, BK, S, B>: rows a thread, flat columns a chunk, ring
 # stages, blocks an SM the registers are held to
-_GEOM = re.compile(r"sk([tswl])_(\d+)_(\d+)_(\d+)_(\d+)$")
+_GEOM = re.compile(r"sk([tl])_(\d+)_(\d+)_(\d+)_(\d+)$")
 
 # (n, p, T, k): matrix powers' applies at n = 10000 (K = 1 ... 256 under a
 # batch of 16), OLS's Z/W at 8192, and a T = 16 stack of rank-1 pairs
