@@ -16,8 +16,10 @@ CUDA toolkit.  Phases, each of which raises on failure:
    of matrix powers' batch of 16); the flash kernels at danube's
    and starcoder2's attention shapes, windowed, ragged, bf16 and f32 (the
    prefill kernel's records with its achieved TFLOP/s and share of the
-   bf16 tensor-core peak); the row kernel also cold (rotating RowSets),
-   by the profiler, and its host time; the dual kernel and the library
+   bf16 tensor-core peak; an f32 record's operations bound at three split
+   TF32 products, a third of the TF32 peak, the fp32 FMA bound beside
+   it); the row kernel also cold (rotating RowSets), by the profiler, and
+   its host time; the dual kernel and the library
    pair by the profiler and their host times; the flash kernels also at
    phase 17's shapes (paligemma's prefix of 256 and head dim 256, bf16
    and f32; hubert's full attention; qwen2-moe's and qwen3-moe's heads)
@@ -354,11 +356,13 @@ ATTN_TOL = {"float32": (KERNEL_RTOL, KERNEL_ATOL), "bfloat16": (1e-2, 1e-3)}
 # on every logit: the repo's serving tolerance (tests/test_serve.py:40).
 SERVE_RTOL = SERVE_ATOL = 1e-4
 
-# fp32 (non-tensor-core) peak, memory rate and dense bf16 tensor-core peak
-# per part, from NVIDIA's data sheets at the part's full power limit:
-# (name match, fp32 TFLOP/s, TB/s, bf16 TFLOP/s).
-PEAKS = (("H100 PCIe", 51.0, 2.0, 756.0), ("H100 NVL", 60.0, 3.9, 835.0),
-         ("H100", 67.0, 3.35, 989.0))
+# fp32 (non-tensor-core) peak, memory rate and dense bf16 and TF32
+# tensor-core peaks per part, from NVIDIA's data sheets at the part's full
+# power limit: (name match, fp32 TFLOP/s, TB/s, bf16 TFLOP/s, TF32
+# TFLOP/s).
+PEAKS = (("H100 PCIe", 51.0, 2.0, 756.0, 378.0),
+         ("H100 NVL", 60.0, 3.9, 835.0, 417.5),
+         ("H100", 67.0, 3.35, 989.0, 495.0))
 
 SOURCES = {
     "rank_update_batched": "src/repro_torch/kernels/csrc/rank_update.cu",
@@ -397,9 +401,9 @@ def nvidia_smi() -> str:
 
 
 def peaks(name: str):
-    for key, tflops, tbs, bf16 in PEAKS:
+    for key, tflops, tbs, bf16, tf32 in PEAKS:
         if key in name:
-            return key, tflops * 1e12, tbs * 1e12, bf16 * 1e12
+            return key, tflops * 1e12, tbs * 1e12, bf16 * 1e12, tf32 * 1e12
     raise RuntimeError(f"no data-sheet peaks for {name!r}")
 
 
@@ -440,7 +444,7 @@ def ptxas_lines(text: str):
         found = re.search(r"Compiling entry function '(\w+)'", line)
         if found:
             entry = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_"
-                           r"[0-9a-f]{8}(?:\d+tc)?\d+|^_Z\d+", "",
+                           r"[0-9a-f]{8}(?:\d+(?:tc|tf32x3))?\d+|^_Z\d+", "",
                            found.group(1)).split("EEv")[0]
         elif "registers" in line or "spill" in line:
             yield entry, line.strip()
@@ -888,12 +892,13 @@ def attention_pairs(s: int, causal: bool, window, prefix: int = 0) -> int:
 
 
 def attention_record(entry, shape, err, ms, plain_ms, lib_ms, nbytes, flops,
-                     dtype, bytes_peak, flops_peak, bf16_peak,
+                     dtype, bytes_peak, flops_peak, bf16_peak, tf32_peak,
                      log_it=True) -> dict:
-    """A kernel record whose operations bound is taken at the peak of the
-    inputs' type (bf16 tensor cores, or fp32 FMA); the fp32 bound is kept
-    beside it."""
-    peak = bf16_peak if dtype == "bfloat16" else flops_peak
+    """A kernel record whose operations bound is taken at the least time
+    the card can do the inputs' products in: bf16 on the tensor cores, or
+    f32-exact as three split TF32 products (a third of the TF32 peak); the
+    bound at the fp32 FMA peak is kept beside it."""
+    peak = bf16_peak if dtype == "bfloat16" else tf32_peak / 3
     b_ms, b_by = bound(nbytes, flops, peak, bytes_peak)
     rec = {"entry": entry, **shape, "dtype": dtype, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -4756,12 +4761,13 @@ def main() -> int:
     smi = nvidia_smi()
     log(smi)
     kind = torch.cuda.get_device_name(0)
-    part, flops_peak, bytes_peak, bf16_peak = peaks(kind)
+    part, flops_peak, bytes_peak, bf16_peak, tf32_peak = peaks(kind)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"device: {kind}; peaks from the {part} data sheet: "
         f"{flops_peak / 1e12} TFLOP/s fp32, {bytes_peak / 1e12} TB/s, "
-        f"{bf16_peak / 1e12} TFLOP/s bf16 (tensor cores, dense)")
+        f"{bf16_peak / 1e12} TFLOP/s bf16 and {tf32_peak / 1e12} TF32 "
+        "(tensor cores, dense)")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
@@ -4777,7 +4783,7 @@ def main() -> int:
 
     # 3. kernels
     shapes = check_kernels(flops_peak, bytes_peak)
-    peaks_ = (bytes_peak, flops_peak, bf16_peak)
+    peaks_ = (bytes_peak, flops_peak, bf16_peak, tf32_peak)
     shapes.update(check_flash_kernels(peaks_))
     check_grad_refusal()
 

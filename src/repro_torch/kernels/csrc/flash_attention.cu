@@ -74,24 +74,59 @@
 //     tile and written with coalesced 16-byte stores; rows past S are not
 //     written.
 //
-// f32 -> flash_attention_kernel, on the fp32 FMA pipes (tensor cores with
-// bf16 or TF32 operands would not keep the f32 path's 1e-4 exactness):
-//   * one block of 128 threads per (query tile of 64 rows, head, batch);
-//     tiles are launched last-first, so the long causal rows start first;
-//   * the Q tile is staged once, transposed, in f32 shared memory; each
-//     64-key K tile (transposed) and V tile (row-major) is staged in turn;
-//   * thread (r, c) = (tid / 8, tid % 8) owns rows 4r..4r+3 of the tile and
-//     score columns 4c..4c+3 and 32+4c..32+4c+3, read as float4s, so one
-//     shared load feeds 4-8 FMAs;
-//   * the online softmax (running max m, sum l, rescale alpha) is reduced
-//     over the 8 lanes of a row with shuffles; a row with no kept key yet
-//     keeps m = -inf and adds nothing (no exp(-inf - -inf));
-//   * P goes through shared memory, transposed, into O += P V; each thread
-//     owns the same 4 rows of O and HD / 8 of its columns, so alpha never
-//     leaves the thread.  p stays f32;
-//   * K tiles wholly above the diagonal (past key_limit of the tile's last
-//     row) or wholly outside the window are never loaded; rows and keys
-//     past S are masked (any S is taken).
+// f32 -> flash_attention_3xtf32, on the TF32 tensor cores with split
+// operands (the same FlashAttention-2 design).  One TF32 product rounds
+// each operand to 10 mantissa bits and moves an output by about 5e-4 |v|,
+// past the f32 path's 2e-4; so every operand x goes in as two TF32 terms,
+// big = x rounded to TF32 and small = x - big (exact in f32), and each
+// product is the three products small.big + big.small + big.big,
+// small.small (2^-22 |ab|) dropped: about 21 bits of each operand, each
+// product of two TF32 values exact in f32.  Three products at 495 TFLOP/s
+// make 165 TFLOP/s of f32-exact work, 2.5x the fp32 FMA pipes:
+//   * mma.sync.m16n8k8 (tf32); blocks of 8 warps, each warp on an m16
+//     strip of query rows.  Two geometries: 128-row blocks, a strip a warp,
+//     where their grid covers the SMs 1.5 times (WIDE); else 64-row blocks
+//     whose two warps of a strip take one half of every key tile each,
+//     their softmax states merged at the end through shared memory: twice
+//     the blocks and half the keys a warp on a small grid, whose warps
+//     otherwise run alone on their schedulers.  Head dim 256 takes the
+//     64-row blocks always (its tiles fill shared memory).  Query tiles
+//     are launched last-first;
+//   * the split: big = (bits + 0x1000) & ~0x1fff, cvt.rna.tf32.f32's
+//     rounding for a finite x in 2 instructions (cvt.rna takes 4, with its
+//     guard for inf and NaN), and small goes in unrounded: the mma reads
+//     its top 19 bits, leaving out less than 2^-21 |x|.  Each warp splits
+//     the K and V fragments it reads, in registers (3 instructions an
+//     element); Q is split once.  The products of a run of k8 steps are
+//     summed from zero in the mma's accumulator and then added into S or
+//     O by FADD (QK_RUN, PV_RUN): the accumulator's own sums over a whole
+//     head dim and key range were 5-10x less exact;
+//   * Q K^T: within each k8 step the contraction index is permuted, k = t
+//     <-> head dim 2t and k = t + 4 <-> 2t + 1, for Q and K alike, so a
+//     lane reads each fragment pair as one 64-bit load.  Q's split
+//     fragments are read from global memory once and held in registers up
+//     to head dim 128; at 256 they and O would not fit, and each k8 step
+//     re-reads Q from a tile in shared memory and splits it;
+//   * K and V tiles (64 keys; 32 at head dim 256) live in f32 shared
+//     memory, row-major [key][hd], in a double-buffered ring filled by
+//     cp.async.cg (16 bytes a thread, rows past S zero-filled): tile j + 1
+//     is requested before the math on tile j, behind one __syncthreads a
+//     tile.  K rows lie HD + 8 floats apart, V rows HD + 4, so the 64-bit
+//     K reads (row g, columns 2t, 2t + 1) and the 32-bit V reads (rows 2t
+//     and 2t + 1, column g) are free of bank conflicts at every head dim;
+//   * the online softmax is the bf16 kernel's (exp2 in log2 units on the
+//     accumulators, a row with no kept key keeping m = -inf);
+//   * P V without shuffles or shared memory: the S accumulator of keys
+//     8j .. 8j + 7 (lane holds columns 2t, 2t + 1 of rows g, g + 8) is
+//     P's A fragment in place when the k index of the product is taken as
+//     a permutation of those keys, k = t <-> key 2t and k = t + 4 <-> key
+//     2t + 1; V's B fragment is read at the same keys (b0 = V[2t][g], b1 =
+//     V[2t + 1][g]).  p is split in registers; l sums the f32 p;
+//   * masks as in the bf16 kernel: the predicate only on tiles a warp's
+//     rows cut, key tiles wholly past the block's last key limit or
+//     before its window never loaded, rows and keys past S masked;
+//   * O / l is written from the accumulators as float2 stores (each row's
+//     32-byte runs whole); rows past S are not written.
 
 #include <math.h>
 
@@ -99,216 +134,10 @@
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per staged tile
-constexpr int THREADS = 128;
-constexpr int TS = BQ + 4;     // row stride of the transposed Q, K, P tiles
-static_assert(BQ == BK, "Q and K tiles share the transposed row stride");
-
 // The last key query qp keeps under the causal mask, before the window:
 // qp, or the prefix's last key P - 1 for a query inside the prefix.
 __device__ __forceinline__ int key_limit(int qp, int prefix) {
   return qp < prefix ? prefix - 1 : qp;
-}
-
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float* out);
-template <>
-__device__ __forceinline__ void load_vec<2>(const float* p, float* out) {
-  const float2 x = *reinterpret_cast<const float2*>(p);
-  out[0] = x.x; out[1] = x.y;
-}
-template <>
-__device__ __forceinline__ void load_vec<4>(const float* p, float* out) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-}
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * HD * TS + BK * HD + BK * TS);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int s,
-                       int h, int kvh, int causal, int window, int prefix,
-                       float scale) {
-  // columns of O per thread: NJ groups of VW neighbours, 8 * VW apart
-  constexpr int VW = (HD % 32 == 0) ? 4 : 2;
-  constexpr int NJ = HD / (8 * VW);
-  static_assert(NJ * 8 * VW == HD, "head_dim must be a multiple of 16");
-
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;            // [HD][TS]  Q tile, transposed
-  float* ks = qs + HD * TS;    // [HD][TS]  K tile, transposed
-  float* vs = ks + HD * TS;    // [BK][HD]  V tile
-  float* pt = vs + BK * HD;    // [BK][TS]  P tile, transposed
-
-  const int tid = threadIdx.x;
-  const int r = tid >> 3;
-  const int c = tid & 7;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kv_head = head / (h / kvh);
-  const int64_t q_row = (int64_t)h * HD;     // elements between positions
-  const int64_t kv_row = (int64_t)kvh * HD;
-  const T* qb = q + ((int64_t)b * s * h + head) * HD;
-  const T* kb = k + ((int64_t)b * s * kvh + kv_head) * HD;
-  const T* vb = v + ((int64_t)b * s * kvh + kv_head) * HD;
-  T* ob = out + ((int64_t)b * s * h + head) * HD;
-
-  attn::load_tile_transposed<T, HD, THREADS>(qb, q_row, q0, s, BQ, qs, TS);
-
-  float o[4][NJ * VW];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < NJ * VW; ++e) o[i][e] = 0.f;
-  }
-
-  // live key tiles: not wholly past the key limit of the tile's last row,
-  // not wholly before the window of its first row
-  const int q_last = min(q0 + BQ, s) - 1;
-  int kt_end = (s + BK - 1) / BK;
-  if (causal) kt_end = min(kt_end, key_limit(q_last, prefix) / BK + 1);
-  int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();   // the previous tile's K, V and P are consumed
-    attn::load_tile_transposed<T, HD, THREADS>(kb, kv_row, k0, s, BK, ks, TS);
-    attn::load_tile_rows<T, HD, THREADS>(vb, kv_row, k0, s, BK, vs);
-    __syncthreads();
-
-    // S = Q K^T on this thread's 4 x 8 scores
-    float sc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float a[4], bk[8];
-      load_vec<4>(qs + d * TS + 4 * r, a);
-      load_vec<4>(ks + d * TS + 4 * c, bk);
-      load_vec<4>(ks + d * TS + 32 + 4 * c, bk + 4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sc[i][j] = fmaf(a[i], bk[j], sc[i][j]);
-    }
-
-    // mask, online softmax, rescale O
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + 4 * r + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kp = k0 + 4 * c + (j & 3) + 32 * (j >> 2);
-        const bool keep = kp < s && (!causal || kp <= key_limit(qp, prefix)) &&
-                          (window <= 0 || kp > qp - window);
-        sc[i][j] = keep ? sc[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      mx = attn::group_max<8>(mx);
-      const float m_new = fmaxf(m[i], mx);
-      float alpha = 1.f;
-      float sum = 0.f;
-      if (m_new != -INFINITY) {
-        alpha = expf(m[i] - m_new);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          sc[i][j] = expf(sc[i][j] - m_new);
-          sum += sc[i][j];
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
-      }
-      sum = attn::group_sum<8>(sum);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < NJ * VW; ++e) o[i][e] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 4 * c + (j & 3) + 32 * (j >> 2);
-      *reinterpret_cast<float4*>(pt + col * TS + 4 * r) =
-          make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
-    }
-    __syncthreads();
-
-    // O += P V
-#pragma unroll 2
-    for (int kc = 0; kc < BK; ++kc) {
-      float p[4];
-      load_vec<4>(pt + kc * TS + 4 * r, p);
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        float vv[VW];
-        load_vec<VW>(vs + kc * HD + jj * 8 * VW + c * VW, vv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < VW; ++e)
-            o[i][jj * VW + e] = fmaf(p[i], vv[e], o[i][jj * VW + e]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int pos = q0 + 4 * r + i;
-    if (pos >= s) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-      for (int e = 0; e < VW; ++e)
-        ob[pos * q_row + jj * 8 * VW + c * VW + e] =
-            attn::from_f32<T>(o[i][jj * VW + e] / denom);
-  }
-}
-
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s, int h, int kvh, int causal, int window, int prefix,
-           float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  auto kern = flash_attention_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((s + BQ - 1) / BQ, h, b);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), s, h, kvh, causal,
-      window, prefix, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
-             int b, int s, int h, int kvh, int causal, int window, int prefix,
-             float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
-    case 80: return launch<T, 80>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
-    case 96: return launch<T, 96>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -675,6 +504,456 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// f32: the split-TF32 tensor-core kernel
+
+namespace tf32x3 {
+
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::exp2_approx;
+using tc::smem_addr;
+
+// Geometry of a block: 8 warps, each on a strip of 16 query rows and BKW
+// keys of each BK-key K / V tile.  Without KSPLIT the 8 warps take 8
+// strips (128 rows) and whole tiles; with it, 4 strips (64 rows), and the
+// warps of a strip's pair each take one half of every tile, their partial
+// softmax sums merged at the end.
+template <int HD, bool KSPLIT>
+struct Tile {
+  static constexpr int THREADS = 256;
+  static constexpr int STRIPS = KSPLIT ? 4 : 8;
+  static constexpr int BQ = 16 * STRIPS;
+  static constexpr int BK = HD <= 128 ? 64 : 32;
+  static constexpr int BKW = KSPLIT ? BK / 2 : BK;
+  static constexpr int LDK = HD + 8;   // row stride of K and Q tiles
+  static constexpr int LDV = HD + 4;   // row stride of V tiles
+  // Q's split fragments held in registers for the whole key loop, or
+  // re-read from a Q tile at each k8 step (where they and O would not fit)
+  static constexpr bool Q_IN_REGS = HD <= 128;
+  static constexpr size_t SMEM =
+      sizeof(float) * (2 * BK * (LDK + LDV) + (Q_IN_REGS ? 0 : BQ * LDK));
+  // k8 steps whose products a run sums from zero in the mma's accumulator
+  // before an f32 add takes the run into S or O.  On an H100 a running
+  // sum kept in the accumulator over a whole head dim and key range came
+  // out 5-10x further from the plain version than the FMA kernel's sums,
+  // and moved a 4-layer f32 forward's logits by 2e-4 (phase 11's limit is
+  // 1e-4): the accumulator's adds are not the FADD's round-to-nearest.  Q K^T runs
+  // half a head dim where Q's fragments are in registers (2 k8 steps at
+  // 256, whose run's fragments are read from the Q tile), P V 16 keys.
+  static constexpr int QK_RUN = Q_IN_REGS ? HD / 16 : 2;
+  static constexpr int PV_RUN = 2;
+  static_assert(sizeof(float) * BQ * (HD + 2) <= SMEM,
+                "the halves' merge fits in the ring");
+};
+
+// x = big + small as the mma takes them (it reads the top 19 bits of a
+// TF32 operand's 32).  big is x rounded to TF32, to nearest with ties away
+// from zero: 0x1000 added to the bits, the low 13 cleared -- what
+// cvt.rna.tf32.f32 gives for a finite x, in 2 instructions where cvt.rna
+// takes 4 (its guard for inf and NaN).  small = x - big is exact in f32,
+// |small| <= 2^-11 |x|, and goes in unrounded: the mma's truncation of it
+// leaves out less than 2^-21 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// c += a b for a 16x8 TF32 A fragment, an 8x8 TF32 B fragment (b0, b1)
+// and a 16x8 f32 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b for split A (ab, as) and the B pair (b0, b1), split here: the
+// small terms' products first, then big.big.
+__device__ __forceinline__ void mma_split(float (&c)[4],
+                                          const uint32_t (&ab)[4],
+                                          const uint32_t (&as)[4], float b0,
+                                          float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  mma_tf32(c, as, bb0, bb1);
+  mma_tf32(c, ab, bs0, bs1);
+  mma_tf32(c, ab, bb0, bb1);
+}
+
+__device__ __forceinline__ void add4(float (&c)[4], const float (&d)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += d[e];
+}
+
+// Start copying rows pos0 .. pos0 + ROWS - 1 of a (rows x HD) f32 matrix
+// whose rows lie `row_stride` elements apart into dst[row * LD + d]; rows
+// at or past `limit` are zero-filled.
+template <int HD, int ROWS, int LD, int THREADS>
+__device__ __forceinline__ void load_tile_async(const float* __restrict__ src,
+                                                int64_t row_stride, int pos0,
+                                                int limit, float* dst) {
+  constexpr int CPR = HD / 4;   // 16-byte chunks per row
+#pragma unroll
+  for (int e = threadIdx.x; e < ROWS * CPR; e += THREADS) {
+    const int row = e / CPR;
+    const int col = (e % CPR) * 4;
+    const int pos = pos0 + row;
+    const bool valid = pos < limit;
+    cp_async16(smem_addr(dst + row * LD + col),
+               src + (valid ? pos * row_stride + col : 0), valid);
+  }
+}
+
+template <int HD, bool KSPLIT>
+__global__ void __launch_bounds__(256, 1)
+flash_attention_3xtf32(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       int s, int h, int kvh, int causal, int window,
+                       int prefix, float scale_log2) {
+  using G = Tile<HD, KSPLIT>;
+  constexpr int THREADS = G::THREADS, BQ = G::BQ, BK = G::BK, BKW = G::BKW;
+  constexpr int LDK = G::LDK, LDV = G::LDV;
+  constexpr int QK_RUN = G::QK_RUN, PV_RUN = G::PV_RUN;
+  constexpr int KSTEPS = HD / 8;   // k8 steps of Q K^T
+  constexpr int NT = HD / 8;       // n8 tiles of O
+  static_assert(KSTEPS * 8 == HD, "head_dim must be a multiple of 8");
+  static_assert(KSTEPS % QK_RUN == 0 && BKW / 8 % PV_RUN == 0,
+                "runs must cut the k8 steps evenly");
+
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                  // [2][BK][LDK]
+  float* vs = ks + 2 * BK * LDK;     // [2][BK][LDV]
+  float* qs = vs + 2 * BK * LDV;     // [BQ][LDK], unless Q_IN_REGS
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;       // fragment row (and row + 8)
+  const int t = lane & 3;        // fragment column pair
+  const int strip = warp % G::STRIPS;
+  const int half = warp / G::STRIPS;   // the warp's keys of each tile
+  const int head = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int qw = q0 + 16 * strip;   // the warp's first query row
+  const int kv_head = head / (h / kvh);
+  const int64_t q_row = (int64_t)h * HD;
+  const int64_t kv_row = (int64_t)kvh * HD;
+  const float* qb = q + ((int64_t)b * s * h + head) * HD;
+  const float* kb = k + ((int64_t)b * s * kvh + kv_head) * HD;
+  const float* vb = v + ((int64_t)b * s * kvh + kv_head) * HD;
+  float* ob = out + ((int64_t)b * s * h + head) * HD;
+
+  // live key tiles: not wholly past the key limit of the block's last row,
+  // not wholly before the window of its first row
+  const int q_last = min(q0 + BQ, s) - 1;
+  int kt_end = (s + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, key_limit(q_last, prefix) / BK + 1);
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+
+  if constexpr (!G::Q_IN_REGS) {
+    load_tile_async<HD, BQ, LDK, THREADS>(qb, q_row, q0, s, qs);
+  }
+  load_tile_async<HD, BK, LDK, THREADS>(kb, kv_row, kt_begin * BK, s, ks);
+  load_tile_async<HD, BK, LDV, THREADS>(vb, kv_row, kt_begin * BK, s, vs);
+  cp_async_commit();
+
+  // Q's A fragment of k8 step kk: a0 = (row g, hd 2t), a1 = (g + 8, 2t),
+  // a2 = (g, 2t + 1), a3 = (g + 8, 2t + 1), split once
+  uint32_t qbf[G::Q_IN_REGS ? KSTEPS : 1][4];
+  uint32_t qsf[G::Q_IN_REGS ? KSTEPS : 1][4];
+  if constexpr (G::Q_IN_REGS) {
+    const float2 zero = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const int col = 8 * kk + 2 * t;
+      const float2 x0 = qw + g < s ? *reinterpret_cast<const float2*>(
+                                         qb + (qw + g) * q_row + col)
+                                   : zero;
+      const float2 x1 = qw + g + 8 < s ? *reinterpret_cast<const float2*>(
+                                             qb + (qw + g + 8) * q_row + col)
+                                       : zero;
+      split_tf32(x0.x, qbf[kk][0], qsf[kk][0]);
+      split_tf32(x1.x, qbf[kk][1], qsf[kk][1]);
+      split_tf32(x0.y, qbf[kk][2], qsf[kk][2]);
+      split_tf32(x1.y, qbf[kk][3], qsf[kk][3]);
+    }
+  }
+  const float* qrow = qs + (16 * strip + g) * LDK + 2 * t;
+
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};   // rows g and g + 8, log2 units
+  float l[2] = {0.f, 0.f};               // this thread's columns only
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    cp_async_wait<0>();   // tile kt (and the Q tile) is in
+    __syncthreads();      // ... for every thread; the other buffer is free
+    if (kt + 1 < kt_end) {
+      load_tile_async<HD, BK, LDK, THREADS>(kb, kv_row, (kt + 1) * BK, s,
+                                            ks + (buf ^ 1) * BK * LDK);
+      load_tile_async<HD, BK, LDV, THREADS>(vb, kv_row, (kt + 1) * BK, s,
+                                            vs + (buf ^ 1) * BK * LDV);
+    }
+    cp_async_commit();
+
+    const int k0 = kt * BK + half * BKW;   // the warp's first key
+    // keys wholly masked for this warp's rows (or a warp past S)
+    if (qw >= s || k0 >= s || (causal && k0 > key_limit(qw + 15, prefix)) ||
+        (window > 0 && k0 + BKW - 1 <= qw - window))
+      continue;
+
+    // S = Q K^T: BKW / 8 n8 tiles, runs of QK_RUN k8 steps; K's pair (b0,
+    // b1) = K[key g][hd 2t, 2t + 1] of each k8 step, one 64-bit read
+    float sc[BKW / 8][4];
+#pragma unroll
+    for (int j = 0; j < BKW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    const float* krow =
+        ks + buf * BK * LDK + (half * BKW + g) * LDK + 2 * t;
+#pragma unroll
+    for (int kr = 0; kr < KSTEPS; kr += QK_RUN) {
+      uint32_t qbig[QK_RUN][4], qsmall[QK_RUN][4];
+#pragma unroll
+      for (int r = 0; r < QK_RUN; ++r) {
+        const int kk = kr + r;
+        if constexpr (G::Q_IN_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            qbig[r][e] = qbf[kk][e];
+            qsmall[r][e] = qsf[kk][e];
+          }
+        } else {
+          const float2 x0 = *reinterpret_cast<const float2*>(qrow + 8 * kk);
+          const float2 x1 =
+              *reinterpret_cast<const float2*>(qrow + 8 * LDK + 8 * kk);
+          split_tf32(x0.x, qbig[r][0], qsmall[r][0]);
+          split_tf32(x1.x, qbig[r][1], qsmall[r][1]);
+          split_tf32(x0.y, qbig[r][2], qsmall[r][2]);
+          split_tf32(x1.y, qbig[r][3], qsmall[r][3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BKW / 8; ++j) {
+        float ds[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < QK_RUN; ++r) {
+          const float2 kp = *reinterpret_cast<const float2*>(
+              krow + 8 * j * LDK + 8 * (kr + r));
+          mma_split(ds, qbig[r], qsmall[r], kp.x, kp.y);
+        }
+        add4(sc[j], ds);
+      }
+    }
+
+    // the mask, on keys the warp's rows cut only
+    const bool interior = k0 + BKW <= s &&
+                          (!causal || k0 + BKW - 1 <= key_limit(qw, prefix)) &&
+                          (window <= 0 || k0 > qw + 15 - window);
+    if (!interior) {
+#pragma unroll
+      for (int j = 0; j < BKW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + 8 * j + 2 * t + (e & 1);
+          const int qp = qw + g + 8 * (e >> 1);
+          const bool keep = kp < s &&
+                            (!causal || kp <= key_limit(qp, prefix)) &&
+                            (window <= 0 || kp > qp - window);
+          if (!keep) sc[j][e] = -INFINITY;
+        }
+    }
+
+    // online softmax on the accumulators: rows g (e = 0, 1), g + 8 (2, 3)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BKW / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(sc[j][0], sc[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[j][2], sc[j][3]));
+    }
+    float alpha[2], neg_m[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = attn::group_max<4>(mx[r]);
+      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+      // a row with no kept key yet keeps m = -inf: its p = exp2(-inf) = 0
+      // and alpha = 0 leave its zero state as it is
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = exp2_approx(m[r] - m_use);
+      m[r] = m_new;
+      neg_m[r] = -m_use;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BKW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = exp2_approx(fmaf(sc[j][e], scale_log2, neg_m[e >> 1]));
+        rs[e >> 1] += sc[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V: keys 8kk .. 8kk + 7 are k8 step kk, k = t <-> key 2t and
+    // k = t + 4 <-> key 2t + 1, so P's A fragment is S's accumulator
+    // (a0, a1, a2, a3) = (sc[0], sc[2], sc[1], sc[3]); V's pair (b0, b1) =
+    // V[key 2t, 2t + 1][hd g] of each n8 tile; runs of PV_RUN k8 steps
+    const float* vrow =
+        vs + buf * BK * LDV + (half * BKW + 2 * t) * LDV + g;
+#pragma unroll
+    for (int kr = 0; kr < BKW / 8; kr += PV_RUN) {
+      uint32_t pbig[PV_RUN][4], psmall[PV_RUN][4];
+#pragma unroll
+      for (int r = 0; r < PV_RUN; ++r) {
+        split_tf32(sc[kr + r][0], pbig[r][0], psmall[r][0]);
+        split_tf32(sc[kr + r][2], pbig[r][1], psmall[r][1]);
+        split_tf32(sc[kr + r][1], pbig[r][2], psmall[r][2]);
+        split_tf32(sc[kr + r][3], pbig[r][3], psmall[r][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < PV_RUN; ++r) {
+          const float* vk = vrow + 8 * (kr + r) * LDV + 8 * n;
+          mma_split(dp, pbig[r], psmall[r], vk[0], vk[LDV]);
+        }
+        add4(o[n], dp);
+      }
+    }
+  }
+
+  // rows g and g + 8: the whole row's l and, with KSPLIT, the two halves
+  // merged by the first: the second's m, l and O through shared memory
+  // (the ring's, free once every warp is past the loop)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = attn::group_sum<4>(l[r]);
+  if constexpr (KSPLIT) {
+    float* mo = smem;                     // [BQ][HD]: the second half's O
+    float* ml = smem + BQ * HD;           // [BQ][2]: its m and l
+    const int row0 = 16 * strip + g;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (half == 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float* orow = mo + (row0 + 8 * r) * HD + 2 * t;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          *reinterpret_cast<float2*>(orow + 8 * n) =
+              make_float2(o[n][2 * r], o[n][2 * r + 1]);
+        if (t == 0)
+          *reinterpret_cast<float2*>(ml + 2 * (row0 + 8 * r)) =
+              make_float2(m[r], l[r]);
+      }
+    }
+    __syncthreads();
+    if (half == 1) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 other = *reinterpret_cast<const float2*>(
+          ml + 2 * (row0 + 8 * r));
+      const float m_new = fmaxf(m[r], other.x);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float a0 = exp2_approx(m[r] - m_use);
+      const float a1 = exp2_approx(other.x - m_use);
+      l[r] = l[r] * a0 + other.y * a1;
+      const float* orow = mo + (row0 + 8 * r) * HD + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 x = *reinterpret_cast<const float2*>(orow + 8 * n);
+        o[n][2 * r] = o[n][2 * r] * a0 + x.x * a1;
+        o[n][2 * r + 1] = o[n][2 * r + 1] * a0 + x.y * a1;
+      }
+    }
+  }
+
+  // epilogue: O / l, rows g and g + 8, columns 2t, 2t + 1 of each n8 tile
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pos = qw + g + 8 * r;
+    if (pos >= s) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    float* orow = ob + pos * q_row + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+  }
+}
+
+template <int HD, bool KSPLIT>
+int launch(const void* q, const void* k, const void* v, void* out, int b,
+           int s, int h, int kvh, int causal, int window, int prefix,
+           float scale, cudaStream_t stream) {
+  using G = Tile<HD, KSPLIT>;
+  auto kern = flash_attention_3xtf32<HD, KSPLIT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(h, b, (s + G::BQ - 1) / G::BQ);
+  kern<<<grid, G::THREADS, G::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), s, h, kvh,
+      causal, window, prefix, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+// The device's SM count, read once a device.
+int sm_count() {
+  static int counts[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
+
+// 128-row blocks where their grid covers the SMs WIDE / 2 times, else
+// 64-row blocks whose warps split the keys (twice the blocks, each warp
+// half the keys, where the grid is small).
+constexpr int WIDE = 3;
+
+int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
+             int b, int s, int h, int kvh, int causal, int window, int prefix,
+             float scale, cudaStream_t stream) {
+  const bool wide =
+      2 * (int64_t)((s + 127) / 128) * h * b >= WIDE * sm_count();
+#define FA_LAUNCH(D, KSPLIT) \
+  launch<D, KSPLIT>(q, k, v, out, b, s, h, kvh, causal, window, prefix, \
+                    scale, stream)
+  switch (hd) {
+    case 32: return wide ? FA_LAUNCH(32, false) : FA_LAUNCH(32, true);
+    case 64: return wide ? FA_LAUNCH(64, false) : FA_LAUNCH(64, true);
+    case 80: return wide ? FA_LAUNCH(80, false) : FA_LAUNCH(80, true);
+    case 96: return wide ? FA_LAUNCH(96, false) : FA_LAUNCH(96, true);
+    case 128: return wide ? FA_LAUNCH(128, false) : FA_LAUNCH(128, true);
+    case 256: return FA_LAUNCH(256, true);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FA_LAUNCH
+}
+
+}  // namespace tf32x3
+
 }  // namespace
 
 // out = softmax(q k^T * scale, masked) v for q (b, s, h, hd), k and v
@@ -692,6 +971,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (bf16)
     return tc::dispatch(hd, q, k, v, out, b, s, h, kvh, causal, window,
                         prefix, scale, st);
-  return dispatch<float>(hd, q, k, v, out, b, s, h, kvh, causal, window,
-                         prefix, scale, st);
+  return tf32x3::dispatch(hd, q, k, v, out, b, s, h, kvh, causal, window,
+                          prefix, scale, st);
 }

@@ -8,7 +8,9 @@ prefix-LM (bidirectional over the first ``prefix_len`` positions, causal
 after) or full attention, an optional sliding window, grouped-query heads
 read in place.
 bf16 inputs run on the tensor cores (``mma.sync``, with p carried into
-P V as two bf16 terms); f32 inputs run on the fp32 FMA pipes.
+P V as two bf16 terms); f32 inputs run on the TF32 tensor cores with
+split operands (each operand as two TF32 terms, three ``mma.sync``
+products for each, which keeps the f32 path's 2e-4 tolerance).
 
 The entry launches on the current CUDA stream, allocates only its output
 and never falls back to the plain version: anything the kernel does not

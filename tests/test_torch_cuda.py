@@ -465,9 +465,12 @@ def test_carrier_engine_on_card_matches_cpu(cuda, regime):
         assert float((got - v).abs().max()) / scale <= 1e-5, k
 
 
-# f32 outputs of the kernel and the plain version differ only in summation
-# order.  In bf16 the plain version keeps p in f32, the decode kernel too,
-# and the prefill kernel carries p as two bf16 terms (hi + lo, about 2^-17
+# f32 outputs of the kernel and the plain version differ in summation
+# order and, the prefill kernel's products being three split TF32
+# products, by what the split leaves out (about 2^-21 of each operand;
+# tests/test_torch_flash.py shows why one TF32 product would not fit).  In
+# bf16 the plain version keeps p in f32, the decode kernel too, and the
+# prefill kernel carries p as two bf16 terms (hi + lo, about 2^-17
 # |p|); each output is rounded once to bf16, so they differ by about one
 # rounding step, <= 2**-7 |x|.  A single bf16 rounding of p, as the
 # reference's blockwise_attention makes, would not fit: see
@@ -524,6 +527,46 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh, hd,
     torch.testing.assert_close(
         got, ref.flash_attention(q, k, v, causal=causal, window=window),
         **ATTN_TOL[dtype])
+
+
+# f32 only: the split-TF32 kernel's two geometries (blocks of 128 query
+# rows where ceil(S / 128) * H * B reaches 1.5 times the SMs -- 198 on an
+# H100 SXM's 132 -- else of 64 rows whose warps split each key tile; head
+# dim 256 always the latter), a ragged S
+# (not a multiple of the 64-key tile, or of 32 at head dim 256) at every
+# head dim, and windows that leave rows of a warp with no kept key in a
+# tile the warp reads (rows 70-79 of window 5 in key tile 0)
+_FLASH_F32 = [
+    (1, 256, 16, 16, 128, True, None),   # 32 tiles of 128 rows: 64
+    (2, 1024, 16, 16, 128, True, None),  # 256: 128
+    (1, 640, 33, 11, 80, True, None),    # 165: 64
+    (1, 768, 33, 11, 80, True, None),    # 198: 128
+    (1, 100, 4, 4, 32, True, None),      # ragged at each head dim
+    (1, 161, 8, 2, 64, True, None),
+    (2, 333, 8, 2, 80, False, None),
+    (1, 77, 4, 1, 96, True, None),
+    (3, 650, 8, 4, 128, True, None),
+    (1, 545, 8, 1, 256, True, None),
+    (1, 300, 8, 2, 80, True, 5),         # window 5
+    (1, 200, 4, 4, 256, True, 20),       # window 20 over 32-key tiles
+    (1, 150, 4, 1, 64, False, 3)]        # window 3, not causal
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd,causal,window", _FLASH_F32)
+def test_flash_attention_f32_kernel_matches_plain_and_repeats(
+        cuda, b, s, h, kvh, hd, causal, window):
+    g = torch.Generator(device=cuda).manual_seed(s + h + hd)
+    q, k, v = (torch.randn(b, s, n, hd, device=cuda, generator=g)
+               for n in (h, kvh, kvh))
+    before = cuda_fa.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert cuda_fa.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(
+        got, ref.flash_attention(q, k, v, causal=causal, window=window),
+        **ATTN_TOL[torch.float32])
+    # a second call gives the same bits
+    assert torch.equal(ops.flash_attention(q, k, v, causal=causal,
+                                           window=window), got)
 
 
 def _decode_inputs(device, dtype, b, L, h, kvh, hd, seed):

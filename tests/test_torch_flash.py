@@ -175,6 +175,92 @@ def test_card_bf16_tolerance_does_not_admit_a_bf16_p(rng):
     assert not np.allclose(got, want, rtol=1e-2, atol=1e-3)
 
 
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: 0x1000 added
+    to the f32 bits, then the low 13 cleared (to nearest, ties away)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+            ).view(np.float32)
+
+
+def _tf32_read(x):
+    """x as the tensor cores read an f32 pattern given as a TF32 operand:
+    its top 19 bits, the low 13 cleared (truncation)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, products):
+    """a @ b with TF32 operands, as the f32 prefill kernel forms it on the
+    tensor cores: one product of the rounded operands, or three of the
+    split ones, x = big + small with big = tf32(x) and small = x - big
+    (exact in f32) passed unrounded, so the mma reads it truncated:
+    small.big + big.small + big.big (small.small dropped).  Each product
+    of two TF32 values is exact in f32, as in the accumulator."""
+    if products == 1:
+        return _tf32(a) @ _tf32(b)
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32_read(a - a_big), _tf32_read(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _tf32_attention(q, k, v, causal, window, prefix, products):
+    """Plain softmax attention of numpy q (B,S,H,hd) over k, v (B,S,KV,hd)
+    whose Q K^T and P V are ``_tf32_matmul`` products: p = exp(s - max)
+    goes into P V unnormalized, as the kernel's does, and l sums the f32
+    p."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    kt = np.repeat(k, g, axis=2).transpose(0, 2, 3, 1)
+    vt = np.repeat(v, g, axis=2).transpose(0, 2, 1, 3)
+    scores = _tf32_matmul(q.transpose(0, 2, 1, 3), kt, products) \
+        * np.float32(hd ** -0.5)
+    pos = torch.arange(s)
+    keep = ref.attention_keep(pos, pos, causal=causal, window=window,
+                              prefix_len=prefix).numpy()
+    scores = np.where(keep, scores, np.float32(-np.inf))
+    p = np.exp(scores - scores.max(-1, keepdims=True)).astype(np.float32)
+    l = p.sum(-1, keepdims=True)
+    out = _tf32_matmul(p, vt, products) / np.maximum(l, np.float32(1e-30))
+    return out.transpose(0, 2, 1, 3)
+
+
+# (b, s, h, kvh, hd, causal, window, prefix): causal, prefix-LM with GQA,
+# a window with GQA, full attention, at head dims 64, 80 and 256
+_SPLIT_CASES = [
+    (1, 96, 4, 4, 64, True, None, 0), (1, 80, 4, 2, 80, True, None, 32),
+    (2, 64, 4, 1, 64, True, 16, 0), (1, 72, 2, 2, 80, False, None, 0),
+    (1, 48, 2, 1, 256, True, None, 16), (1, 40, 2, 2, 256, False, 8, 0)]
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd,causal,window,prefix", _SPLIT_CASES)
+def test_flash_attention_split_tf32_matches_jax(b, s, h, kvh, hd, causal,
+                                                window, prefix, rng):
+    """The f32 prefill kernel's arithmetic, three split TF32 products for
+    Q K^T and for P V, holds the reference's blockwise attention within
+    the card's f32 tolerance (rtol = atol = 2e-4)."""
+    q = _normal(rng, b, s, h, hd)
+    k, v = _normal(rng, b, s, kvh, hd), _normal(rng, b, s, kvh, hd)
+    want = blockwise_attention(q, k, v, causal=causal, window=window,
+                               prefix_len=prefix, q_chunk=32, kv_chunk=16)
+    assert_close(_tf32_attention(q, k, v, causal, window, prefix, 3), want,
+                 rtol=2e-4, atol=2e-4)
+
+
+def test_card_f32_tolerance_does_not_admit_one_tf32_product(rng):
+    """One TF32 product (each operand rounded once to 10 mantissa bits)
+    moves outputs past the f32 tolerance the card tests hold the kernel to
+    -- which is why the kernel takes three products of split operands."""
+    q = _normal(rng, 1, 256, 4, 128)
+    k, v = _normal(rng, 1, 256, 4, 128), _normal(rng, 1, 256, 4, 128)
+    want = np.asarray(blockwise_attention(q, k, v, q_chunk=64, kv_chunk=64))
+    one = _tf32_attention(q, k, v, True, None, 0, 1)
+    assert not np.allclose(one, want, rtol=2e-4, atol=2e-4)
+    # the same inputs, three products: inside it
+    assert_close(_tf32_attention(q, k, v, True, None, 0, 3), want,
+                 rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.parametrize("b,groups,L,sms", [
     (8, 8, 4096, 132), (8, 8, 1, 132), (8, 8, 2049, 132), (1, 1, 100, 132),
     (1, 4, 4096, 132), (64, 8, 65, 132), (2, 2, 5000, 16)])

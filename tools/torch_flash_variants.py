@@ -1,26 +1,56 @@
 #!/usr/bin/env python3
-"""Side-by-side timing of build variants of the bf16 flash-attention kernel
-on one GPU.
+"""Side-by-side timing of build variants of the flash-attention prefill
+kernels on one GPU: the f32 entry (the split-TF32 kernel) and the bf16
+entry (the bf16 tensor-core kernel).
 
-    python3 tools/torch_flash_variants.py
+    python3 tools/torch_flash_variants.py [--parent ROOT]
+        [--dtypes f32,bf16] [--rounds N] [VARIANT ...]
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit.  Each variant is ``src/repro_torch/kernels/csrc/
 flash_attention.cu`` with a few lines of its text replaced (``VARIANTS``
-below; ``checkout`` is the file as it is), compiled with the port's own
-``nvcc`` flags into a temporary directory, all builds started together.
-For each variant the script prints the bf16 kernel instances' registers
-and spills, then times the bf16 entry (CUDA events over 20 launches after
-3 warm-ups) at danube's prefill shape (B=8, S=4096, H=32, KV=8, hd=80,
-window 4096), starcoder2's heads (B=2, H=36, KV=4, hd=128) and a ragged
-S = 1000, in two rounds of all variants in turn, and holds each output
-against the plain version at the bf16 tolerance (rtol 1e-2, atol 1e-3).
-A variant whose text no longer matches the source raises.
+below; ``checkout`` is the file as it is), compiled beside
+``attention_common.cuh`` with the port's own ``nvcc`` flags into a
+temporary directory, all builds started together.  ``--parent ROOT`` adds
+the variant ``parent``: the same library built from the sources under ROOT
+(another checkout, e.g. the parent commit unpacked with ``git archive``
+into the git-ignored ``_parent/``), so old and new kernels run in one
+call.  Without variant names the script runs ``checkout`` and every
+variant of the dtypes asked for.
+
+For each variant the script prints every kernel instance's registers and
+spills (``ptxas``), then, from ``cuobjdump -sass``, each f32 instance's
+tensor-core instructions by kind (``HMMA.1688.F32.TF32`` is the split-TF32
+product) and whether each bf16 instance's SASS is the first variant's
+instruction for instruction (with ``--parent``: the parent's).  Then it
+times the entry at every shape of its dtype (``F32_SHAPES``: every f32
+shape of ``chip_smoke.py``'s phase 3; ``BF16_SHAPES``) in rounds
+(``--rounds``, 4 by default; variants in turn, then in reverse: parent,
+change, change, parent), each by CUDA events over a run of launches after
+warm-ups (``ms``) and by ``torch.profiler``, the kernel alone
+(``device_ms``).  Beside them, once a shape: SDPA's time (its fused
+kernels where it takes one: an explicit keep-mask for a window or the
+prefix, with the heads expanded), the plain version's, the bound (f32:
+the split-TF32 rate, 495 / 3 TFLOP/s, and the FMA peak, 67; bf16: 989;
+3.35 TB/s) and each output held against the plain version at the entry's
+tolerance (f32 rtol = atol = 2e-4; bf16 rtol 1e-2, atol 1e-3) and, bit for
+bit, against the first variant's.  A variant that must fail the tolerance
+(``one_tf32``) raises if it does not, and so do ``checkout`` and
+``parent`` if they fail it.  ``--rounds 0`` builds, reads the SASS and
+checks every variant once, with no timing.  The last lines (``summary``)
+give each variant's median times over the rounds and their ratios to the
+first variant's.  A variant whose text no longer matches the source
+raises.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import json
+import re
+import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -29,6 +59,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
 
+CSRC = Path("src/repro_torch/kernels/csrc")
+SOURCE, HEADER = "flash_attention.cu", "attention_common.cuh"
+F32_PART = "namespace tf32x3 {"   # where the f32 kernel's code begins
+
+# -- the bf16 kernel's variants ----------------------------------------------
 _SPLIT_PV = """\
         mma_bf16(o[2 * np], lo, bf[0], bf[1]);
         mma_bf16(o[2 * np], hi, bf[0], bf[1]);
@@ -39,9 +74,7 @@ _MIN_BLOCKS = "constexpr int MIN_BLOCKS = HD <= 80 ? 2 : 1;"
 # at every head dim (the kernel does so above head dim 128 only)
 _Q_SMEM = [("constexpr bool Q_IN_REGS = HD <= 128;",
             "constexpr bool Q_IN_REGS = false;")]
-
-VARIANTS = {
-    "checkout": [],
+VARIANTS_BF16 = {
     # p as one bf16 term, as the reference rounds it: fails the tolerance
     "single_p": [(_SPLIT_PV, """\
         mma_bf16(o[2 * np], hi, bf[0], bf[1]);
@@ -50,32 +83,193 @@ VARIANTS = {
                    ("sc[j][e] = exp2_approx(", "sc[j][e] = exp2f(")],
     "one_block_hd80": [(_MIN_BLOCKS,
                         "constexpr int MIN_BLOCKS = HD <= 64 ? 2 : 1;")],
-    "four_warps": [("constexpr int WARPS = 8;", "constexpr int WARPS = 4;")],
+    "four_warps_bf16": [("constexpr int WARPS = 8;",
+                         "constexpr int WARPS = 4;")],
     "q_smem": _Q_SMEM,
     "q_smem_two_blocks": _Q_SMEM + [(_MIN_BLOCKS,
                                      "constexpr int MIN_BLOCKS = 2;")],
 }
 
-# (b, s, h, kvh, hd, window), all causal
-SHAPES = [(8, 4096, 32, 8, 80, 4096), (2, 4096, 36, 4, 128, None),
-          (2, 1000, 32, 8, 80, None)]
+# -- the f32 (split-TF32) kernel's variants ----------------------------------
+_PRODUCTS = """\
+  mma_tf32(c, as, bb0, bb1);
+  mma_tf32(c, ab, bs0, bs1);
+  mma_tf32(c, ab, bb0, bb1);"""
+_QK_RUN = "  static constexpr int QK_RUN = Q_IN_REGS ? HD / 16 : 2;\n"
+_PV_RUN = "  static constexpr int PV_RUN = 2;\n"
+# S's and O's running sums kept in the mma's accumulator
+_QK_TC = [("        float ds[4] = {0.f, 0.f, 0.f, 0.f};\n",
+           "        float (&ds)[4] = sc[j];\n"),
+          ("        add4(sc[j], ds);\n", "")]
+_PV_TC = [("        float dp[4] = {0.f, 0.f, 0.f, 0.f};\n",
+           "        float (&dp)[4] = o[n];\n"),
+          ("        add4(o[n], dp);\n", "")]
+_WIDE = "constexpr int WIDE = 3;"
+_SPLIT = """\
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));"""
+_LOADER = """\
+  for (int e = threadIdx.x; e < ROWS * CPR; e += THREADS) {
+    const int row = e / CPR;
+    const int col = (e % CPR) * 4;"""
+# design point 5, the other placement of the split: one pass a tile writes
+# big over the ring's K and V tile in place and small into planes of its
+# own, behind one more barrier; the warps read both and split nothing.
+# (Head dim 256's planes do not fit beside its ring and Q tile: refused.)
+_PRESPLIT = """\
+// c += a b for split A (ab, as) and a B pair split already (big, small).
+__device__ __forceinline__ void mma_presplit(float (&c)[4],
+                                             const uint32_t (&ab)[4],
+                                             const uint32_t (&as)[4],
+                                             float2 big, float2 small) {
+  mma_tf32(c, as, __float_as_uint(big.x), __float_as_uint(big.y));
+  mma_tf32(c, ab, __float_as_uint(small.x), __float_as_uint(small.y));
+  mma_tf32(c, ab, __float_as_uint(big.x), __float_as_uint(big.y));
+}
+
+// Start copying rows pos0 .. pos0 + ROWS - 1 of a (rows x HD) f32"""
+_SPLIT_PASS = """\
+    cp_async_commit();
+    {
+      float* kt_ = ks + buf * BK * LDK;
+      float* vt_ = vs + buf * BK * LDV;
+      for (int e = threadIdx.x; e < BK * HD; e += THREADS) {
+        const int r = e / HD, c = e % HD;
+        uint32_t bg, sm;
+        split_tf32(kt_[r * LDK + c], bg, sm);
+        kt_[r * LDK + c] = __uint_as_float(bg);
+        kss[r * LDK + c] = __uint_as_float(sm);
+        split_tf32(vt_[r * LDV + c], bg, sm);
+        vt_[r * LDV + c] = __uint_as_float(bg);
+        vss[r * LDV + c] = __uint_as_float(sm);
+      }
+      __syncthreads();
+    }
+
+    const int k0 = kt * BK + half * BKW;"""
+SPLIT_SMEM = [
+    ("      sizeof(float) * (2 * BK * (LDK + LDV) + (Q_IN_REGS ? 0 : BQ * LDK));",
+     "      sizeof(float) * (3 * BK * (LDK + LDV) + (Q_IN_REGS ? 0 : BQ * LDK));"),
+    ("  float* qs = vs + 2 * BK * LDV;     // [BQ][LDK], unless Q_IN_REGS\n",
+     "  float* qs = vs + 2 * BK * LDV;     // [BQ][LDK], unless Q_IN_REGS\n"
+     "  float* kss = qs + (G::Q_IN_REGS ? 0 : BQ * LDK);\n"
+     "  float* vss = kss + BK * LDK;\n"),
+    ("// Start copying rows pos0 .. pos0 + ROWS - 1 of a (rows x HD) f32",
+     _PRESPLIT),
+    ("    cp_async_commit();\n\n    const int k0 = kt * BK + half * BKW;",
+     _SPLIT_PASS),
+    ("          mma_split(ds, qbig[r], qsmall[r], kp.x, kp.y);",
+     "          const float2 kq = *reinterpret_cast<const float2*>(\n"
+     "              kss + (half * BKW + g) * LDK + 2 * t + 8 * j * LDK"
+     " + 8 * (kr + r));\n"
+     "          mma_presplit(ds, qbig[r], qsmall[r], kp, kq);"),
+    ("          mma_split(dp, pbig[r], psmall[r], vk[0], vk[LDV]);",
+     "          const float* vq =\n"
+     "              vss + (half * BKW + 8 * (kr + r) + 2 * t) * LDV + g"
+     " + 8 * n;\n"
+     "          mma_presplit(dp, pbig[r], psmall[r],\n"
+     "                       make_float2(vk[0], vk[LDV]),\n"
+     "                       make_float2(vq[0], vq[LDV]));"),
+]
+VARIANTS_F32 = {
+    # one TF32 product of the rounded operands: fails the tolerance
+    "one_tf32": [(_PRODUCTS, "  mma_tf32(c, ab, bb0, bb1);")],
+    # the running sums of S, or of S and O, kept in the mma's accumulator,
+    # as against runs of QK_RUN / PV_RUN k8 steps from zero added into them
+    # by FADD; or runs of one k8 step
+    "qk_tc": _QK_TC,
+    "tc_accumulate": _QK_TC + _PV_TC,
+    "run1": [(_QK_RUN, "  static constexpr int QK_RUN = 1;\n"),
+             (_PV_RUN, "  static constexpr int PV_RUN = 1;\n")],
+    # Q K^T in runs of 2 k8 steps at every head dim
+    "qk_run2": [(_QK_RUN, "  static constexpr int QK_RUN = 2;\n")],
+    # both terms rounded by cvt.rna.tf32.f32 (4 instructions for big, its
+    # guard for inf and NaN, 2 more for small), as against the integer
+    # rounding of big and small passed unrounded
+    "cvt_rna": [(_SPLIT, "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(big) : "
+                 "\"f\"(x));\n  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : "
+                 "\"=r\"(small)\n      : \"f\"(x - __uint_as_float(big)));")],
+    "split_smem": SPLIT_SMEM,
+    "bk32": [("  static constexpr int BK = HD <= 128 ? 64 : 32;",
+              "  static constexpr int BK = 32;")],
+    # one geometry at every shape: 64-row blocks with the keys split, or
+    # 128-row blocks (head dim 256 keeps 64)
+    "split_keys_all": [(_WIDE, "constexpr int WIDE = 1 << 20;")],
+    "rows128_all": [(_WIDE, "constexpr int WIDE = 0;")],
+    # probes (wrong results): one product of the raw operands, no split;
+    # no exp in the softmax; no K / V (and head dim 256's Q) tile copies
+    "probe_no_split": [(
+        "  uint32_t bb0, bs0, bb1, bs1;\n  split_tf32(b0, bb0, bs0);\n"
+        "  split_tf32(b1, bb1, bs1);\n" + _PRODUCTS,
+        "  mma_tf32(c, ab, __float_as_uint(b0), __float_as_uint(b1));")],
+    "probe_no_exp": [(
+        "        sc[j][e] = exp2_approx(fmaf(sc[j][e], scale_log2, "
+        "neg_m[e >> 1]));",
+        "        sc[j][e] = fmaf(sc[j][e], scale_log2, neg_m[e >> 1]);")],
+    "probe_no_loads": [(_LOADER, _LOADER.replace("e < ROWS * CPR", "e < 0"))],
+}
+VARIANTS = {"checkout": [], **VARIANTS_F32, **VARIANTS_BF16}
+MUST_FAIL = {"one_tf32", "single_p"}
+OWN = {"f32": VARIANTS_F32, "bf16": VARIANTS_BF16}
+
+# (label, b, s, h, kvh, hd, window, causal, prefix): every f32 shape of
+# chip_smoke.py's phase 3 (phase 11's danube cut; phase 17's paligemma
+# prefill and the f32 cuts of 17a, 17c, 17d; phase 18a's zamba2 cut; the
+# two dense configs no phase serves)
+F32_SHAPES = [
+    ("danube_prefill_f32_s4128", 8, 4128, 32, 8, 80, 4096, True, 0),
+    ("paligemma_prefill_f32", 4, 1024, 8, 1, 256, None, True, 256),
+    ("qwen2_moe_cut_prefill_f32", 2, 256, 16, 16, 128, None, True, 0),
+    ("qwen2_moe_cut_forward_f32", 2, 288, 16, 16, 128, None, True, 0),
+    ("paligemma_cut_forward_f32", 2, 544, 8, 1, 256, None, True, 256),
+    ("hubert_cut_f32", 2, 1024, 16, 16, 80, None, False, 0),
+    ("zamba2_cut_forward_f32", 2, 288, 32, 32, 64, None, True, 0),
+    ("command_r_prefill_f32", 2, 2048, 96, 8, 128, None, True, 0),
+    ("qwen15_32b_prefill_f32", 2, 2048, 40, 40, 128, None, True, 0)]
+# danube's prefill, starcoder2's heads and a ragged S, all causal
+BF16_SHAPES = [
+    ("danube_prefill_bf16", 8, 4096, 32, 8, 80, 4096, True, 0),
+    ("starcoder2_bf16", 2, 4096, 36, 4, 128, None, True, 0),
+    ("ragged_s1000_bf16", 2, 1000, 32, 8, 80, None, True, 0)]
+SHAPES = {"f32": F32_SHAPES, "bf16": BF16_SHAPES}
+TOL = {"f32": (2e-4, 2e-4), "bf16": (1e-2, 1e-3)}
+# H100 SXM data sheet, 700 W: TF32 and bf16 tensor cores (dense), fp32
+# FMA, memory
+TF32_TFLOPS, BF16_TFLOPS, FP32_TFLOPS, TBS = 495.0, 989.0, 67.0, 3.35
 
 
-def build(tmp: Path) -> dict:
+def sources(name: str) -> str:
+    """The text of ``flash_attention.cu`` in variant ``name``; ``a+b`` is
+    variant a's edits, then b's.  An f32 variant edits the f32 kernel's
+    part of the file (from ``F32_PART`` on), a bf16 variant the rest;
+    each text it replaces occurs there exactly once."""
+    head, sep, tail = (ROOT / CSRC / SOURCE).read_text().partition(F32_PART)
+    parts = {"bf16": head, "f32": sep + tail}
+    for part in name.split("+"):
+        key = "f32" if part in VARIANTS_F32 else "bf16"
+        for old, new in VARIANTS[part]:
+            if parts[key].count(old) != 1:
+                raise ValueError(f"variant {name}: text not found once in "
+                                 f"the {key} kernel's part:\n{old}")
+            parts[key] = parts[key].replace(old, new)
+    return parts["bf16"] + parts["f32"]
+
+
+def build(tmp: Path, names, parent) -> dict:
     from repro_torch.kernels import cuda_build
-    source = (cuda_build.CSRC / "flash_attention.cu").read_text()
     procs = {}
-    for name, edits in VARIANTS.items():
-        text = source
-        for old, new in edits:
-            if old not in text:
-                raise ValueError(f"variant {name}: text not found:\n{old}")
-            text = text.replace(old, new)
-        src = tmp / f"{name}.cu"
-        src.write_text(text)
+    for name in names:
+        d = tmp / name
+        d.mkdir()
+        src = Path(parent) / CSRC if name == "parent" else ROOT / CSRC
+        shutil.copy(src / HEADER, d / HEADER)
+        if name == "parent":
+            shutil.copy(src / SOURCE, d / SOURCE)
+        else:
+            (d / SOURCE).write_text(sources(name))
         procs[name] = subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
-             str(cuda_build.CSRC), "-o", str(tmp / f"{name}.so"), str(src)],
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+             str(d / "lib.so"), str(d / SOURCE)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     entries = {}
     for name, proc in procs.items():
@@ -84,11 +278,12 @@ def build(tmp: Path) -> dict:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "Compiling" in line and "bf16_mma" in line:
-                inst = line.split("bf16_mma")[1].split("EEEv")[0]
+            if "Compiling entry function" in line:
+                inst = short(line.split("'")[1])
                 print(f"ptxas {name} {inst}: " + " | ".join(
-                    x.strip() for x in lines[i + 2:i + 4]), flush=True)
-        fn = ctypes.CDLL(str(tmp / f"{name}.so")).flash_attention_fwd
+                    x.strip() for x in lines[i + 1:i + 4]
+                    if "registers" in x or "spill" in x), flush=True)
+        fn = ctypes.CDLL(str(tmp / name / "lib.so")).flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -96,55 +291,257 @@ def build(tmp: Path) -> dict:
     return entries
 
 
+def short(mangled: str) -> str:
+    """A kernel instance's mangled name without its anonymous namespace
+    (which names the source file) and its parameter list."""
+    name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", mangled)
+    return name.split("EEv")[0]
+
+
+def sass(so: Path) -> dict:
+    """Every kernel's SASS in ``so``, by short name, as lists of
+    instructions without addresses or encodings."""
+    from repro_torch.kernels import cuda_build
+    tool = Path(cuda_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(so)], check=True,
+                          capture_output=True, text=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            fn = short(found.group(1))
+            out[fn] = []
+        elif fn:
+            ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?);", line)
+            if ins:
+                out[fn].append(ins.group(1).strip())
+    return out
+
+
+def report_sass(tmp: Path, names) -> None:
+    """Each f32 instance's tensor-core instructions by kind, and whether
+    each bf16 instance is the first variant's instruction for
+    instruction."""
+    codes = {name: sass(tmp / name / "lib.so") for name in names}
+    base = codes[names[0]]
+    for name in names:
+        for fn, ins in sorted(codes[name].items()):
+            if "bf16" in fn:
+                if name != names[0]:
+                    same = base.get(fn) == ins
+                    print(f"sass {name} vs {names[0]} {fn}: {len(ins)} / "
+                          f"{len(base.get(fn, []))} instructions, "
+                          f"{'identical' if same else 'different'}",
+                          flush=True)
+                continue
+            kinds = {}
+            for i in ins:
+                op = i.split()[0] if not i.startswith("@") else i.split()[1]
+                if op.startswith(("HMMA", "FFMA", "MUFU", "LDS", "LDGSTS",
+                                  "F2F", "FADD")):
+                    kinds[op] = kinds.get(op, 0) + 1
+            print(f"sass {name} {fn}: {len(ins)} instructions, "
+                  + json.dumps(dict(sorted(kinds.items()))), flush=True)
+
+
+def attention_pairs(s, causal, window, prefix) -> int:
+    import numpy as np
+    qp = np.arange(s, dtype=np.int64)
+    hi = np.where(qp < prefix, prefix - 1, qp) if causal \
+        else np.full(s, s - 1, dtype=np.int64)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros(s, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def time_ms(fn, reps: int) -> float:
+    import torch
+    for _ in range(3):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, per_call: bool = False) -> float:
+    """Mean time on the card of the one kernel ``fn`` launches, by
+    torch.profiler: the host's launch time and the gaps between kernels
+    excluded; the mean over the launches the profiler recorded (it may
+    miss some), and a second window if it recorded none.  ``per_call``:
+    the time of all the kernels a call launches, over ``reps`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        count = sum(e.count for e in events)
+        if count:
+            return sum(e.self_device_time_total for e in events) / 1e3 \
+                / (reps if per_call else count)
+    raise RuntimeError("the profiler recorded no kernel")
+
+
+def orders(names: list, rounds: int) -> list:
+    return [names if rnd % 2 == 0 else names[::-1] for rnd in range(rounds)]
+
+
+def run_shapes(dtype, names, rounds, entries, results) -> None:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    rtol, atol = TOL[dtype]
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    for label, b, s, h, kvh, hd, window, causal, prefix in SHAPES[dtype]:
+        q, k, v = (torch.randn(b, s, n, hd, device="cuda", generator=gen
+                               ).to(tdt) for n in (h, kvh, kvh))
+        opts = dict(causal=causal, window=window, prefix_len=prefix)
+        want = ref.flash_attention(q, k, v, **opts).float()
+        flops = 4.0 * b * h * hd * attention_pairs(s, causal, window,
+                                                    prefix)
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        peak = TF32_TFLOPS / 3 if dtype == "f32" else BF16_TFLOPS
+        meta = {"flops": flops,
+                "bound_ms": max(nbytes / TBS / 1e9, flops / peak / 1e9),
+                "bound_fp32_ms": max(nbytes / TBS / 1e9,
+                                     flops / FP32_TFLOPS / 1e9)}
+        reps = max(5, min(200, int(40 / max(meta["bound_ms"] * 4, 0.01))))
+        if rounds:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            mask = None
+            if (window is not None and window < s) or (causal and prefix):
+                pos = torch.arange(s, device="cuda")
+                mask = ref.attention_keep(pos, pos, **opts)
+                kt, vt = (x.repeat_interleave(h // kvh, dim=1)
+                          for x in (kt, vt))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask,
+                    is_causal=causal and mask is None,
+                    enable_gqa=mask is None)
+            meta["sdpa_ms"] = time_ms(sdpa, reps)
+            meta["sdpa_device_ms"] = device_ms(sdpa, min(reps, 20),
+                                               per_call=True)
+            meta["plain_ms"] = time_ms(
+                lambda: ref.flash_attention(q, k, v, **opts),
+                max(3, reps // 10))
+            del qt, kt, vt, mask
+        out = torch.empty_like(q)
+
+        def launch(fn):
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), b, s, h, kvh, hd, int(causal),
+                      window or 0, prefix, int(dtype == "bf16"),
+                      hd ** -0.5, stream)
+            if code:
+                raise RuntimeError(f"launch failed with {code}")
+
+        firsts = {}
+        for rnd, order in enumerate(orders(names, max(rounds, 1))):
+            for name in order:
+                fn = entries[name]
+                try:   # a variant may not fit a head dim in shared memory
+                    launch(fn)
+                except RuntimeError as err:
+                    print(json.dumps({"variant": name, "case": label,
+                                      "refused": str(err)}), flush=True)
+                    continue
+                torch.cuda.synchronize()
+                got = out.float()
+                excess = float(((got - want).abs() - rtol * want.abs()
+                                ).max())
+                within = excess <= atol
+                if name in MUST_FAIL and within:
+                    raise AssertionError(f"{name} {label} is within the "
+                                         "tolerance it must fail")
+                if name in ("checkout", "parent") and not within:
+                    raise AssertionError(f"{name} {label} is outside the "
+                                         "tolerance")
+                firsts.setdefault(name, got.clone())
+                rec = {"variant": name, "round": rnd, "case": label,
+                       "max_abs_err": float((got - want).abs().max()),
+                       "within_tolerance": within,
+                       "same_bits": bool(torch.equal(
+                           got, firsts.get(names[0], got)))}
+                if rounds:
+                    rec["ms"] = time_ms(lambda: launch(fn), reps)
+                    rec["device_ms"] = device_ms(lambda: launch(fn),
+                                                 min(reps, 20))
+                    rec["tflops"] = flops / rec["device_ms"] / 1e9
+                    slot = results.setdefault(label, {"_meta": meta})
+                    slot.setdefault(name, []).append(
+                        {k: rec[k] for k in ("ms", "device_ms")})
+                print(json.dumps({**rec, **meta}), flush=True)
+        del q, k, v, want, out, firsts
+        torch.cuda.empty_cache()
+
+
+def summary(names, results) -> None:
+    base = names[0]
+    for label, by in results.items():
+        med = {name: {key: statistics.median(x[key] for x in by[name])
+                      for key in by[name][0]}
+               for name in names if name in by}
+        print("summary " + json.dumps({
+            "case": label, "base": base, **by["_meta"],
+            **{name: {**t, **{f"{key}_vs_base": t[key] / med[base][key]
+                              for key in t if base in med}}
+               for name, t in med.items()}}), flush=True)
+
+
 def main() -> int:
     import torch
-    from repro_torch.kernels import ref
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="root of another checkout, built as "
+                    "the variant 'parent' and run first")
+    ap.add_argument("--dtypes", default="f32",
+                    help="comma-separated: f32, bf16 (default f32)")
+    ap.add_argument("--rounds", type=int, default=4,
+                    help="rounds of all variants (default 4; 0: build, "
+                    "read the SASS and check once, no timing)")
+    ap.add_argument("variants", nargs="*")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_flash_variants: no CUDA device", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtypes = args.dtypes.split(",")
+    names = args.variants or ["checkout"] + [
+        n for d in dtypes
+        for n in OWN[d]]
+    unknown = [n for n in names
+               if any(part not in VARIANTS for part in n.split("+"))]
+    if unknown:
+        raise SystemExit(f"unknown variants {unknown}; known: "
+                         f"{', '.join(VARIANTS)}")
+    if args.parent:
+        names = ["parent"] + names
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
+    results: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
-        entries = build(Path(tmp))
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        for b, s, h, kvh, hd, window in SHAPES:
-            q, k, v = (torch.randn(b, s, n, hd, device="cuda", generator=gen
-                                   ).bfloat16() for n in (h, kvh, kvh))
-            want = ref.flash_attention(q, k, v, window=window).float()
-            flops = 4.0 * b * h * hd * (s * (s + 1) // 2)
-            out = torch.empty_like(q)
-
-            def launch(fn):
-                code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), b, s, h, kvh, hd, 1, window or 0,
-                          0, 1, hd ** -0.5,
-                          torch.cuda.current_stream().cuda_stream)
-                if code:
-                    raise RuntimeError(f"launch failed with {code}")
-
-            for _ in range(2):
-                for name, fn in entries.items():
-                    launch(fn)
-                    torch.cuda.synchronize()
-                    diff = (out.float() - want).abs()
-                    excess = float((diff - 1e-2 * want.abs()).max())
-                    for _ in range(3):
-                        launch(fn)
-                    start, end = (torch.cuda.Event(enable_timing=True)
-                                  for _ in range(2))
-                    start.record()
-                    for _ in range(20):
-                        launch(fn)
-                    end.record()
-                    torch.cuda.synchronize()
-                    ms = start.elapsed_time(end) / 20
-                    print(f"{(b, s, h, kvh, hd)} {name:18s} ms {ms:.4f} "
-                          f"TFLOP/s {flops / ms / 1e9:.1f} max abs err "
-                          f"{float(diff.max()):.3g} within tolerance "
-                          f"{excess <= 1e-3}", flush=True)
-            del q, k, v, want, out
-            torch.cuda.empty_cache()
+        entries = build(Path(tmp), names, args.parent)
+        report_sass(Path(tmp), names)
+        for dtype in dtypes:
+            # a dtype's shapes run the parent, the checkout and its own
+            # kernel's variants
+            mine = [n for n in names if n in ("parent", "checkout") or all(
+                part in OWN[dtype] for part in n.split("+"))]
+            run_shapes(dtype, mine, args.rounds, entries, results)
+    summary(names, results)
     return 0
 
 
