@@ -28,9 +28,20 @@ CUDA toolkit.  Phases, each of which raises on failure:
    12, qwen1.5-32b's 40 heads); the dense entries' skinny tile (views of
    p < 4 columns: the learning views' 2^20 x 1-3, PageRank's and OLS's
    vectors at K = 1) and the row entry's at p = 1, each also by the
-   profiler beside addmm's;
-   then every CUDA entry, given an operand that requires grad, raises (no
-   backward yet) and launches nothing.
+   profiler beside addmm's; K1, the flash-attention backward
+   (``K1_CASES``: the training path's shapes, danube's S = 4128 under its
+   window, the prefix at head dim 256, full attention, groups of 1, 4, 12
+   and 16), through the autograd Function against torch.autograd through
+   the plain attention (f32 at the kernel tolerance; bf16 within the
+   bound derived from the roundings, ref.flash_attention_bwd_bf16_bound),
+   a second call bit for bit, the forward with the row log-sum-exp giving
+   the forward's out bit for bit, each timed beside the plain versions
+   and SDPA's forward and backward (its backend named), with the bound of
+   the five products;
+   then every CUDA entry but flash_attention, given an operand that
+   requires grad, raises (no backward yet) and launches nothing;
+   flash_attention differentiates, launching the forward with LSE once
+   and K1 once.
 4. matrix powers A^16 (n = 10000, exp model, the paper's size): 8 single
    updates, one batch of 16, 20 queued updates with a final flush, all
    replayed through the re-evaluation engine and compared view by view;
@@ -208,6 +219,24 @@ CUDA toolkit.  Phases, each of which raises on failure:
     b. xlstm-350m (3 groups of 7 mLSTM blocks and an sLSTM block; no
        attention, so no flash kernel): the same drive, split into mLSTM,
        sLSTM and head; its f32 cut of 8 layers (one group).
+19. the training path:
+    a. h2o-danube-1.8b at full width and depth in bf16 (remat "block"),
+       ``make_train_step`` with AdamW on 8 sequences of 4096 tokens a
+       step (the train_4k shape's global batch of 256 cut for one card)
+       in 2 microbatches: a warm-up step, then 4 timed steps on one fixed
+       batch (wall ms, tokens/s; the loss must fall, the gradient norm
+       stay finite and every master weight move), the forward with LSE
+       and K1's launches against the config's count (twice and once a
+       layer a microbatch), peak memory, the model FLOPs' share of the
+       bf16 peak, and one more step split by the profiler (forward
+       blocks, head + cross-entropy forward and backward, recompute, K1,
+       the rest of the backward, optimizer);
+    b. each family's f32 cut (danube 4 layers at B = 2, S = 1024;
+       qwen2-moe at S = 520, past the dense-safe capacity; paligemma and
+       hubert as phase 17's cuts, hubert at S = 1024; zamba2 and xlstm as
+       phase 18's) takes one step on the card: its loss within 1e-4
+       relative and every gradient leaf within MAIN_TOL of its largest
+       entry of the same cut's on the CPU, the flash launches counted.
 
 Every launch count is set to 0 just before a phase drives its engines and
 read just after; the counts of each kernel must equal the applies (or
@@ -216,7 +245,8 @@ calls) the phase made.
 The last two lines of standard output are the ``{"kernels": [...]}``
 record (``rank_update_batched``'s with its launches over phases 4-9 and
 12-16 by K = T*k; the rank-update entries' by M's columns p, and the
-dense entries' on the skinny tile by K) and ``{"ok": true, "device":
+dense entries' on the skinny tile by K; the forward with LSE and K1 at
+phase 19's danube shape) and ``{"ok": true, "device":
 {...}}``.  Without CUDA,
 or outside a checkout, the script prints no result and exits non-zero.
 """
@@ -228,6 +258,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import os
 import re
 import statistics
@@ -370,6 +401,10 @@ SOURCES = {
     "rank_update_rows": "src/repro_torch/kernels/csrc/rank_update_rows.cu",
     "dual_matmul": "src/repro_torch/kernels/csrc/dual_matmul.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_fwd_lse":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "rank_update_batched_out": "src/repro_torch/kernels/csrc/rank_update.cu",
     "select_commit": "src/repro_torch/kernels/csrc/select_commit.cu"}
@@ -382,6 +417,12 @@ REPLACES = {
     "rank_update_rows": "src/repro/kernels/rank_update_rows.py:50",
     "dual_matmul": "src/repro/kernels/dual_matmul.py:45",
     "flash_attention": "src/repro/kernels/flash_attention.py:77",
+    # the same Pallas forward, also writing its row statistics (which the
+    # Pallas kernel computes and its wrapper drops)
+    "flash_attention_fwd_lse": "src/repro/kernels/flash_attention.py:77",
+    # no Pallas backward: XLA differentiates blockwise_attention, the
+    # reference's training path
+    "flash_attention_bwd": "src/repro/models/attention.py:99",
     "flash_decode": "src/repro/kernels/flash_decode.py:69",
     # both TPU entries, out of place: every apply of a guarded firing
     "rank_update_batched_out": "src/repro/kernels/rank_update.py:84",
@@ -557,9 +598,11 @@ def skinny_times(kernel, library) -> dict:
 
 
 def check_grad_refusal() -> dict:
-    """Each CUDA entry, given an operand that requires grad under grad
-    mode, raises (it has no backward yet) and launches nothing; under
-    no_grad the same call launches once."""
+    """Each CUDA entry but flash_attention, given an operand that requires
+    grad under grad mode, raises (it has no backward yet) and launches
+    nothing; flash_attention differentiates: under grad mode it launches
+    the forward with the row log-sum-exp once, and its gradient the
+    backward (K1) once.  Under no_grad every call launches once."""
     import torch
     from repro_torch.kernels import ops
     (cuda_ru, cuda_rows, cuda_dual, cuda_fa, cuda_fd,
@@ -595,11 +638,19 @@ def check_grad_refusal() -> dict:
     reset_launches()
     refused = {}
     for entry, call in calls.items():
+        if entry == "flash_attention":
+            continue
         try:
             call(True)
             refused[entry] = False
         except RuntimeError as err:
             refused[entry] = "no backward yet" in str(err)
+    refused_counts = counts()
+    out = calls["flash_attention"](True)
+    out.backward(torch.randn_like(out))
+    torch.cuda.synchronize()
+    differentiated = {k: c - refused_counts[k] for k, c in counts().items()
+                      if k.startswith("flash_attention")}
     before = counts()
     with torch.no_grad():
         for call in calls.values():
@@ -610,12 +661,16 @@ def check_grad_refusal() -> dict:
     u = torch.randn(16, 2, requires_grad=True)
     ops.rank_update(torch.zeros(16, 1), u, torch.ones(1, 2)).sum().backward()
     rec = {"phase": "grad_refusal", "refused": refused,
-           "launches_refused": {e: before[e] for e in calls},
+           "launches_refused": {e: refused_counts[e] for e in refused},
+           "flash_attention_grad_launches": differentiated,
            "launches_no_grad": {e: after[e] - before[e] for e in calls},
            "cpu_grad_ok": bool(torch.equal(u.grad, torch.ones(16, 2)))}
     log("grad " + json.dumps(rec))
-    if not all(refused.values()) or any(before[e] for e in calls) or any(
+    if not all(refused.values()) or any(refused_counts.values()) or any(
             after[e] - before[e] != 1 for e in calls) \
+            or differentiated != {"flash_attention": 0,
+                                  "flash_attention_fwd_lse": 1,
+                                  "flash_attention_bwd": 1} \
             or not rec["cpu_grad_ok"]:
         raise AssertionError(f"grad refusal: {rec}")
     reset_launches()
@@ -914,6 +969,25 @@ def attention_record(entry, shape, err, ms, plain_ms, lib_ms, nbytes, flops,
     return rec
 
 
+def sdpa_inputs(q, k, v, causal, window, prefix):
+    """SDPA's operands for the flash kernels' function: q, k, v as (B,
+    heads, S, hd) and the keep-mask, None where ``is_causal`` and
+    ``enable_gqa`` express it; SDPA's fused kernels take no mask under
+    enable_gqa (its math path would build every score), so a window or
+    the prefix-LM term gets the explicit mask and the expanded heads."""
+    import torch
+    from repro_torch.kernels import ref
+    s, h, kvh = q.shape[1], q.shape[2], k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None
+    if (window is not None and window < s) or (causal and prefix > 0):
+        pos = torch.arange(s, device=q.device)
+        mask = ref.attention_keep(pos, pos, causal=causal, window=window,
+                                  prefix_len=prefix)
+        kt, vt = (x.repeat_interleave(h // kvh, dim=1) for x in (kt, vt))
+    return qt, kt, vt, mask
+
+
 def check_flash_attention(q, k, v, causal, window, peaks_, label,
                           timed=True, prefix=0) -> dict:
     """The flash-attention kernel against its plain version (and timed
@@ -939,16 +1013,7 @@ def check_flash_attention(q, k, v, causal, window, peaks_, label,
         return {"case": label, "max_abs_err": err}
     ms = time_ms(lambda: cuda_fa.flash_attention(q, k, v, **opts))
     plain_ms = time_ms(lambda: ref.flash_attention(q, k, v, **opts))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    mask = None
-    if (window is not None and window < s) or (causal and prefix > 0):
-        # the explicit keep-mask: a window, or the prefix-LM term
-        pos = torch.arange(s, device=q.device)
-        mask = ref.attention_keep(pos, pos, **opts)
-        # SDPA's fused kernels take no mask under enable_gqa (its math
-        # path would build every score), so give it the expanded heads
-        kt, vt = (x.repeat_interleave(h // k.shape[2], dim=1)
-                  for x in (kt, vt))
+    qt, kt, vt, mask = sdpa_inputs(q, k, v, causal, window, prefix)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
         enable_gqa=mask is None))
@@ -1159,6 +1224,189 @@ def check_flash_kernels(peaks_) -> dict:
             q, kc, vc, n_valid, peaks_, label))
         del q, kc, vc
     torch.cuda.empty_cache()
+    return out
+
+
+def sdpa_backend(fn) -> str:
+    """Which of SDPA's kernels ``fn`` ran, by the names the profiler
+    lists: flash, efficient (memory-efficient, CUTLASS), cudnn or math."""
+    names = " ".join(r[0] for r in device_profile(fn, top=50)["top"])
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
+                         ("fmha", "efficient"), ("cutlass", "efficient")):
+        if key in names.lower():
+            return backend
+    return "math"
+
+
+def check_flash_bwd(q, k, v, dout, causal, window, peaks_, label,
+                    prefix=0) -> tuple:
+    """K1 and the forward with the row log-sum-exp on q (B,S,H,hd), k/v
+    (B,S,KV,hd) and the upstream gradient ``dout``: the forward's out bit
+    for bit flash_attention_fwd's and its lse within the kernel tolerance
+    of the plain version's; the gradients through the FlashAttention
+    Function against torch.autograd through ref.flash_attention on the
+    same card tensors (f32: the kernel tolerance; bf16: the bound of
+    ref.flash_attention_bwd_bf16_bound, derived from the rounding of the
+    inputs and outputs).  Timed beside the plain versions and SDPA's
+    forward and backward (``enable_gqa``; the expanded heads and an
+    explicit mask where the mask needs one), naming the backend SDPA ran.
+    Returns the (forward with LSE, backward) records."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as cuda_fa
+    from repro_torch.kernels import ref
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    dtype = str(q.dtype).replace("torch.", "")
+    opts = dict(causal=causal, window=window, prefix_len=prefix)
+    out, lse = cuda_fa.flash_attention_fwd_lse(q, k, v, **opts)
+    if not torch.equal(out, cuda_fa.flash_attention(q, k, v, **opts)):
+        raise AssertionError(f"flash_attention_fwd_lse {label}: out is not "
+                             "flash_attention_fwd's bit for bit")
+    fwd_err = check_close(f"flash_attention_fwd_lse {label} lse", lse,
+                          ref.flash_attention_lse(q, k, v, **opts)[1])
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    cuda_fa.flash_attention(*leaves, **opts).backward(dout)
+    got = [x.grad for x in leaves]
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref.flash_attention(*plain, **opts).backward(dout)
+    want = [x.grad for x in plain]
+    del leaves, plain
+    torch.cuda.synchronize()
+    errs = []
+    if dtype == "float32":
+        for name, a, w in zip("qkv", got, want):
+            errs.append(check_close(f"flash_attention_bwd {label} d{name}",
+                                    a, w))
+    else:
+        bounds = ref.flash_attention_bwd_bf16_bound(q, k, v, out, dout, lse,
+                                                    got, want, **opts)
+        for name, a, w, bnd in zip("qkv", got, want, bounds):
+            diff = (a.float() - w.float()).abs()
+            if not bool(torch.isfinite(a).all()) or bool((diff > bnd).any()):
+                raise AssertionError(
+                    f"flash_attention_bwd {label} d{name}: max abs err "
+                    f"{float(diff.max())} past the bf16 bound at "
+                    f"{float((diff / bnd).max())} of it")
+            errs.append(float(diff.max()))
+        del bounds
+    del got, want
+    again = cuda_fa.flash_attention_bwd(q, k, v, out, dout, lse, **opts)
+    if not all(torch.equal(x, y) for x, y in zip(
+            again, cuda_fa.flash_attention_bwd(q, k, v, out, dout, lse,
+                                               **opts))):
+        raise AssertionError(f"flash_attention_bwd {label}: two calls "
+                             "differ")
+    del again
+    shape = {"b": b, "s": s, "h": h, "kvh": kvh, "hd": hd, "causal": causal,
+             "window": window, "prefix": prefix, "case": label}
+    qt, kt, vt, mask = sdpa_inputs(q, k, v, causal, window, prefix)
+    lq, lk, lv = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            lq, lk, lv, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=mask is None)
+
+    lib_out = sdpa()
+    gt = dout.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(lib_out, (lq, lk, lv), gt,
+                                   retain_graph=True)
+
+    recs = []
+    fwd_ms = time_ms(lambda: cuda_fa.flash_attention_fwd_lse(q, k, v,
+                                                             **opts))
+    fwd_plain = time_ms(lambda: ref.flash_attention_lse(q, k, v, **opts))
+    fwd_lib = time_ms(sdpa)
+    item = q.element_size()
+    pairs = attention_pairs(s, causal, window, prefix)
+    nbytes = item * (2 * q.numel() + 2 * k.numel()) + 4 * b * h * s
+    recs.append(attention_record(
+        "flash_attention_fwd_lse", shape, fwd_err, fwd_ms, fwd_plain,
+        fwd_lib, nbytes, 4.0 * b * h * hd * pairs, dtype, *peaks_))
+    bwd_ms = time_ms(lambda: cuda_fa.flash_attention_bwd(q, k, v, out, dout,
+                                                         lse, **opts))
+    bwd_plain = time_ms(lambda: ref.flash_attention_bwd(q, k, v, out, dout,
+                                                        lse, **opts))
+    bwd_lib = time_ms(sdpa_bwd)
+    backend = sdpa_backend(sdpa_bwd)
+    nbytes = item * (6 * q.numel() + 4 * k.numel()) + 4 * b * h * s
+    flops = 10.0 * b * h * hd * pairs
+    rec = attention_record("flash_attention_bwd", shape, max(errs), bwd_ms,
+                           bwd_plain, bwd_lib, nbytes, flops, dtype,
+                           *peaks_, log_it=False)
+    rec.update({"errs_dq_dk_dv": errs, "tflops": flops / bwd_ms / 1e9,
+                "library": f"sdpa backward ({backend})",
+                "library_kernel": backend})
+    log("kernel " + json.dumps(rec))
+    recs.append(rec)
+    del lib_out, lq, lk, lv, out, lse
+    return tuple(recs)
+
+
+# (label, b, s, h, kvh, hd, window, dtype, causal, prefix): the training
+# path's shapes (phase 19: danube at full width, B = 4 a microbatch; the
+# f32 cuts' attention), then phase 3's forward shapes that the training
+# path does not reach: danube's S = 4128 under its 4096 window (B cut to
+# 2), a window of 1024, a ragged S, the prefix at head dim 256, full
+# attention, groups of 1, 12 and 16
+TRAIN_BATCH, TRAIN_MICRO, TRAIN_SEQ = 8, 2, 4096
+CUT_TRAIN_SEQ = 1024   # the f32 dense and audio cuts' S in phase 19b
+# the f32 moe cut's S in phase 19b: T*k = 4160 > 4096 pairs, so it takes
+# the capacity-factor dispatch a training batch takes (phase 17's S = 256
+# takes the dense-safe capacity, every expert a slot for every pair: 60x
+# the expert products, 84 s of the CPU side's loss and gradients)
+MOE_TRAIN_SEQ = 520
+K1_CASES = [
+    ("danube_train_bf16", TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 32, 8, 80,
+     4096, "bfloat16", True, 0),
+    ("danube_cut_train_f32", 2, CUT_TRAIN_SEQ, 32, 8, 80, 4096, "float32",
+     True, 0),
+    ("qwen2_moe_cut_train_f32", MOE_CUT_BATCH, MOE_TRAIN_SEQ, 16, 16, 128,
+     None, "float32", True, 0),
+    ("paligemma_cut_train_f32", VLM_CUT_BATCH, VLM_PATCHES + VLM_CUT_TEXT, 8,
+     1, 256, None, "float32", True, VLM_PATCHES),
+    ("hubert_cut_train_f32", AUDIO_CUT_BATCH, CUT_TRAIN_SEQ, 16, 16, 80,
+     None, "float32", False, 0),
+    ("zamba2_cut_train_f32", RECUR_CUT_BATCH, RECUR_CUT_SEQ, 32, 32, 64,
+     None, "float32", True, 0),
+    ("danube_f32_s4128", 2, 4128, 32, 8, 80, 4096, "float32", True, 0),
+    ("danube_bf16_s4128", 2, 4128, 32, 8, 80, 4096, "bfloat16", True, 0),
+    ("window1024_bf16", 2, 4096, 32, 8, 80, 1024, "bfloat16", True, 0),
+    ("ragged_s1000_bf16", 2, 1000, 32, 8, 80, None, "bfloat16", True, 0),
+    ("paligemma_prefill_bf16", VLM_BATCH, VLM_PATCHES + VLM_TEXT, 8, 1, 256,
+     None, "bfloat16", True, VLM_PATCHES),
+    ("hubert_prefill_bf16", AUDIO_BATCH, AUDIO_FRAMES, 16, 16, 80, None,
+     "bfloat16", False, 0),
+    ("zamba2_forward_bf16", RECUR_BATCH, RECUR_FWD_SEQ, 32, 32, 64, None,
+     "bfloat16", True, 0),
+    ("qwen3_moe_prefill_bf16", QWEN3_BATCH, QWEN3_PROMPT, 64, 4, 128, None,
+     "bfloat16", True, 0),
+    ("command_r_prefill_bf16", 2, 2048, 96, 8, 128, None, "bfloat16", True,
+     0)]
+
+
+def check_flash_bwd_kernels(peaks_) -> dict:
+    """Phase 3's K1 cases (``K1_CASES``), each with the forward with LSE:
+    {entry: [records]}."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    out = {"flash_attention_fwd_lse": [], "flash_attention_bwd": []}
+    for label, b, s, h, kvh, hd, window, dt, causal, prefix in K1_CASES:
+        dtype = getattr(torch, dt)
+        q, dout = (torch.randn(b, s, h, hd, device=DEVICE,
+                               generator=gen).to(dtype) for _ in range(2))
+        k, v = (torch.randn(b, s, kvh, hd, device=DEVICE,
+                            generator=gen).to(dtype) for _ in range(2))
+        fwd, bwd = check_flash_bwd(q, k, v, dout, causal, window, peaks_,
+                                   label, prefix=prefix)
+        out["flash_attention_fwd_lse"].append(fwd)
+        out["flash_attention_bwd"].append(bwd)
+        del q, k, v, dout
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1545,12 +1793,13 @@ def layer0_qkv(eng, tokens, pos0: int):
 
 
 def flat_params(tree, prefix=""):
-    """(dotted name, tensor) for every leaf of a param tree."""
-    for name, leaf in tree.items():
-        if isinstance(leaf, dict):
-            yield from flat_params(leaf, f"{prefix}{name}.")
+    """(dotted name, tensor) for every leaf of a param tree, in sorted-key
+    order (``repro_torch.train.optimizer.leaves``')."""
+    for name in sorted(tree):
+        if isinstance(tree[name], dict):
+            yield from flat_params(tree[name], f"{prefix}{name}.")
         else:
-            yield prefix + name, leaf
+            yield prefix + name, tree[name]
 
 
 def busy_ms(events) -> float:
@@ -4738,6 +4987,295 @@ def phase_recurrent(peaks_) -> list:
     return recs
 
 
+# -- phase 19: the training path ----------------------------------------------
+
+# 19a: h2o-danube-1.8b at full width and depth in bf16 (remat "block", its
+# config's), the train_4k shape's 4096-token sequences with the global
+# batch of 256 cut to TRAIN_BATCH a step in TRAIN_MICRO microbatches;
+# TRAIN_STEPS timed steps after one warm-up step, on one fixed batch, at
+# a learning rate under which the loss falls step by step from the random
+# init (3e-4 diverged at the second step; 3e-5 and 1e-5 fell, then
+# oscillated)
+TRAIN_STEPS, TRAIN_LR = 4, 3e-6
+# 19b: each family's f32 cut (phase 11's, 17's and 18's depths and
+# batches; the dense and audio cuts at S = CUT_TRAIN_SEQ and the moe cut
+# at MOE_TRAIN_SEQ, so that the CPU side takes seconds) takes one step on
+# the card, its loss and gradients held against the same cut's on the CPU
+# (the plain versions): the loss to TRAIN_LOSS_RTOL relative, each
+# gradient leaf to MAIN_TOL of its
+# largest entry (fp32 sums in other orders over up to 4096-token
+# batches; a wrong mask, group sum or scale moves a leaf by far more)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_CUTS = [(SERVE_ARCH, EXACT_LAYERS, 2, CUT_TRAIN_SEQ),
+              (MOE_ARCH, EXACT_LAYERS, MOE_CUT_BATCH, MOE_TRAIN_SEQ),
+              (VLM_ARCH, EXACT_LAYERS, VLM_CUT_BATCH,
+               VLM_PATCHES + VLM_CUT_TEXT),
+              (AUDIO_ARCH, EXACT_LAYERS, AUDIO_CUT_BATCH, CUT_TRAIN_SEQ),
+              (ZAMBA_ARCH, ZAMBA_CUT_LAYERS, RECUR_CUT_BATCH, RECUR_CUT_SEQ),
+              (XLSTM_ARCH, XLSTM_CUT_LAYERS, RECUR_CUT_BATCH,
+               RECUR_CUT_SEQ)]
+
+
+def attention_layers(cfg) -> int:
+    """Attention applications of one forward: every block of the
+    transformer families, one a group of the hybrid's, none for ssm."""
+    from repro_torch.models.model import TRANSFORMER
+    return cfg.n_layers if cfg.family in TRANSFORMER \
+        else attention_groups(cfg)
+
+
+def model_flops(cfg, params, batch: int, seq: int) -> float:
+    """FLOPs of one training step's products: 6 per matrix weight (the
+    embedding table excluded: it is gathered) a token, and attention's two
+    products three times (forward, and the backward's twice) over the
+    pairs the mask keeps."""
+    matmul = sum(t.numel() for name, t in flat_params(params)
+                 if t.dim() >= 2 and name != "embed.table")
+    if cfg.tie_embeddings:
+        matmul += params["embed"]["table"].numel()
+    pairs = attention_pairs(seq, True, cfg.sliding_window)
+    attn = 12.0 * attention_layers(cfg) * batch * cfg.n_heads \
+        * cfg.resolved_head_dim * pairs
+    return 6.0 * matmul * batch * seq + attn
+
+
+def train_split(fn) -> dict:
+    """One call of ``fn`` (a dense model's train step) under the profiler,
+    its kernel time split: the forward's blocks, the head and
+    cross-entropy forward and backward, the blocks' recompute (the
+    checkpointed blocks run again inside the backward), the flash
+    backward's kernels, the rest of the backward, the optimizer, and
+    the rest (embedding, final norm, gradient sums).  Ranges by
+    ``record_function``: a block on the main thread is the forward's, on
+    the autograd engine's thread the recompute; the head's backward nodes
+    are those whose sequence numbers its forward ops recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as model_mod
+    from repro_torch.train import train_step as train_mod
+    parts = [(model_mod.LM, "_layer", "block"),
+             (model_mod.LM, "logits", "head_ce"),
+             (model_mod, "_cross_entropy", "head_ce"),
+             (train_mod, "adamw_update", "optimizer")]
+    labels = {label for _, _, label in parts}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with annotated(parts), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = list(prof.events())
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in labels
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        return {"device_ms": None, "wall_ms_profiled": wall_ms}
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    ranges = [e for e in cpu if e.name in labels]
+    head = [r for r in ranges if r.name == "head_ce"]
+    main = head[0].thread
+
+    def dev(evs):
+        return sum(e.device_time_total for e in evs) / 1e3
+
+    def inside(e, rs):
+        return any(r.thread == e.thread
+                   and r.time_range.start <= e.time_range.start
+                   and e.time_range.end <= r.time_range.end for r in rs)
+
+    seqs = {e.sequence_nr for e in cpu if e.thread == main
+            and getattr(e, "sequence_nr", -1) >= 0 and inside(e, head)}
+    nodes = [e for e in cpu
+             if e.name.startswith("autograd::engine::evaluate_function")]
+    split = {
+        "forward_blocks": dev(r for r in ranges
+                              if r.name == "block" and r.thread == main),
+        "head_ce_forward": dev(head),
+        "recompute": dev(r for r in ranges
+                         if r.name == "block" and r.thread != main),
+        "flash_attention_bwd": sum(e.self_device_time_total for e in kernels
+                                   if "flash_bwd" in e.name) / 1e3,
+        "head_ce_backward": dev(e for e in nodes if e.sequence_nr in seqs),
+        "optimizer": dev(r for r in ranges if r.name == "optimizer")}
+    split["backward_other"] = dev(nodes) - split["recompute"] \
+        - split["flash_attention_bwd"] - split["head_ce_backward"]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    split["other"] = device_ms - sum(split.values())
+    return {"device_ms": device_ms, "busy_ms": busy_ms(kernels),
+            "kernels": len(kernels), "split_ms": split,
+            "head_ce_backward_nodes": sum(1 for e in nodes
+                                          if e.sequence_nr in seqs),
+            "wall_ms_profiled": wall_ms}
+
+
+def phase_train_full(peaks_) -> dict:
+    """19a: h2o-danube-1.8b trains at full width and depth in bf16 through
+    ``make_train_step`` (AdamW, microbatches, remat "block"): a warm-up
+    step, then TRAIN_STEPS timed steps on one fixed batch, whose loss must
+    fall, with a finite gradient norm, every param moved and the flash
+    kernels' launches as the config predicts (the forward with LSE twice a
+    layer a microbatch: the forward and the recompute; K1 once); then one
+    more step under the profiler."""
+    import torch
+    from repro_torch.train import (TrainState, adamw_init, make_train_step,
+                                   require_grad)
+    label = "train_danube_full"
+    bf16_peak = peaks_[2]
+    torch.cuda.reset_peak_memory_stats()
+    model, params = family_lm(SERVE_ARCH, seed=41)
+    cfg = model.cfg
+    state = TrainState(require_grad(params), adamw_init(params),
+                       torch.Generator(device=DEVICE).manual_seed(42))
+    # the f32 master weights move every step (a bf16 norm scale of 1.0
+    # may not, under steps of about lr)
+    first = {name: leaf.detach().flatten()[:1024].to(torch.float32, copy=True)
+             for name, leaf in flat_params(params)}
+    batch = family_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 43)
+    step = make_train_step(model, lr=TRAIN_LR, warmup=1, total_steps=100,
+                           microbatches=TRAIN_MICRO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    warm_loss = float(metrics["loss"])
+    warm_s = time.perf_counter() - t0
+    reset_launches()
+    losses, norms, step_s = [], [], []
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        log(f"train step {i + 1}: {1e3 * step_s[-1]:.1f} ms, "
+            f"{tokens / step_s[-1]:.1f} tokens/s, loss {losses[-1]:.6f}, "
+            f"grad_norm {norms[-1]:.6f}")
+    got = launches()
+    n_att = attention_layers(cfg) * TRAIN_MICRO * TRAIN_STEPS
+    check_launches(label, got, {"flash_attention_fwd_lse": 2 * n_att,
+                                "flash_attention_bwd": n_att})
+    moved = sum(1 for name, leaf in flat_params(state.opt.master)
+                if not torch.equal(leaf.flatten()[:1024], first[name]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops = model_flops(cfg, state.params, TRAIN_BATCH, TRAIN_SEQ)
+    median_s = statistics.median(step_s)
+    split = train_split(lambda: step(state, batch))
+    rec = {"phase": label, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype, "remat": cfg.remat, "batch": TRAIN_BATCH,
+           "microbatches": TRAIN_MICRO, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+           "reduced": {"global_batch": "256 -> 8 sequences a step (2 "
+                                       "microbatches of 4), one card"},
+           "warmup_loss": warm_loss, "warmup_s": warm_s, "losses": losses,
+           "grad_norms": norms, "step_ms": [1e3 * s for s in step_s],
+           "tokens_per_s_median": tokens / median_s,
+           "params_moved": moved, "params": len(first),
+           "launches": got, "peak_mem_gib": peak,
+           "model_flops_per_step": flops,
+           "model_flops_share_of_bf16_peak": flops / median_s / bf16_peak,
+           "profiled_step": split}
+    log(f"train: model FLOPs {flops:.4e} a step, "
+        f"{flops / median_s / 1e12:.2f} TFLOP/s, "
+        f"{flops / median_s / bf16_peak:.4f} of the bf16 peak; peak memory "
+        f"{peak:.2f} GiB")
+    log(f"train split (device ms): {json.dumps(split)}")
+    log("main " + json.dumps(rec))
+    if not (losses[-1] < losses[0] and all(map(math.isfinite, norms))
+            and moved == len(first)):
+        raise AssertionError(f"{label}: the loss did not fall, a grad norm "
+                             f"is not finite or a param did not move: {rec}")
+    return rec
+
+
+def train_cut(arch: str, n_layers: int, batch: int, seq: int,
+              seed: int) -> dict:
+    """19b: the f32 cut of ``arch`` takes one train step on the card: its
+    loss and gradients (``LM.loss`` and autograd, through the CUDA flash
+    kernels and K1) against the same cut's on the CPU (the plain
+    versions), then AdamW on the card with them."""
+    import torch
+    from repro_torch.models import LM
+    from repro_torch.train import adamw_init, adamw_update, require_grad
+    from repro_torch.train.optimizer import tree_map
+    model, params = family_lm(arch, n_layers, "float32", seed=seed)
+    cfg = model.cfg
+    label = f"train_{cfg.family}_{arch}_f32_exact"
+    cparams = require_grad(cpu_copy(params))
+    require_grad(params)
+    data = family_batch(cfg, batch, seq, seed + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    names, leaves = zip(*flat_params(params))
+    loss, _ = model.loss(params, data)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    got = launches()
+    n_att = attention_layers(cfg)
+    check_launches(label, got, {"flash_attention_fwd_lse": 2 * n_att,
+                                "flash_attention_bwd": n_att})
+    t0 = time.perf_counter()
+    closs, _ = LM(cfg, device="cpu").loss(cparams, data)
+    cgrads = torch.autograd.grad(closs, [x for _, x in flat_params(
+        cparams)], allow_unused=True, materialize_grads=True)
+    cpu_s = time.perf_counter() - t0
+    loss, closs = loss.detach(), closs.detach()
+    loss_rel = abs(float(loss) - float(closs)) / abs(float(closs))
+    worst, worst_leaf = 0.0, None
+    for name, g, c in zip(names, grads, cgrads):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: gradient {name} not finite")
+        rel = float((g.cpu() - c).abs().max()) / (float(c.abs().max())
+                                                  or 1.0)
+        if rel >= worst:
+            worst, worst_leaf = rel, name
+    it = iter(grads)
+    params, opt, metrics = adamw_update(tree_map(lambda _: next(it), params),
+                                        adamw_init(params), params, lr=1e-3)
+    rec = {"phase": label, "arch": arch, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype, "remat": cfg.remat, "batch": batch,
+           "seq": seq, "loss": float(loss), "loss_cpu": float(closs),
+           "loss_rel_err": loss_rel, "grad_leaves": len(names),
+           "grad_worst_rel_err": worst, "grad_worst_leaf": worst_leaf,
+           "grad_norm": float(metrics["grad_norm"]), "launches": got,
+           "card_loss_and_grads_s": card_s, "cpu_loss_and_grads_s": cpu_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("main " + json.dumps(rec))
+    if loss_rel > TRAIN_LOSS_RTOL or worst > MAIN_TOL \
+            or not math.isfinite(rec["grad_norm"]):
+        raise AssertionError(f"{label}: card against CPU: loss {loss_rel} "
+                             f"(limit {TRAIN_LOSS_RTOL}), gradient "
+                             f"{worst_leaf} {worst} (limit {MAIN_TOL})")
+    return rec
+
+
+def phase_train(peaks_) -> list:
+    """Phase 19: the training path on the card (19a danube at full width
+    and depth in bf16; 19b every family's f32 cut against the CPU)."""
+    import torch
+    t0 = time.perf_counter()
+    recs = []
+    for part, fn in (("19a", lambda: [phase_train_full(peaks_)]),
+                     *((f"19b {arch}", lambda a=arch, n=n, b=b, s=s, i=i:
+                        [train_cut(a, n, b, s, 51 + 2 * i)])
+                       for i, (arch, n, b, s) in enumerate(TRAIN_CUTS))):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        recs.extend(fn())
+        log(f"phase {part}: {time.perf_counter() - t1:.2f} s")
+    log(f"phase 19: {time.perf_counter() - t0:.2f} s, peak memory "
+        f"{max(r['peak_mem_gib'] for r in recs):.2f} GiB")
+    return recs
+
+
 def main() -> int:
     try:
         import torch
@@ -4785,6 +5323,7 @@ def main() -> int:
     shapes = check_kernels(flops_peak, bytes_peak)
     peaks_ = (bytes_peak, flops_peak, bf16_peak, tf32_peak)
     shapes.update(check_flash_kernels(peaks_))
+    shapes.update(check_flash_bwd_kernels(peaks_))
     check_grad_refusal()
 
     # 4. matrix powers at the paper's size; 5. OLS at the paper's n range
@@ -4853,6 +5392,10 @@ def main() -> int:
     phases.extend(phase_recurrent(peaks_))
     torch.cuda.empty_cache()
 
+    # 19. the training path
+    phases.extend(phase_train(peaks_))
+    torch.cuda.empty_cache()
+
     # the kernels record: per entry, the main path's launches and the
     # numbers of its headline shape (the most common call of the path)
     headline = {"rank_update_batched": (10000, 10000, 1, 16),
@@ -4861,6 +5404,8 @@ def main() -> int:
                                      CHAIN_RANK),
                 "dual_matmul": (8192, 8192, 1),
                 "flash_attention": "danube_prefill_bf16",
+                "flash_attention_fwd_lse": "danube_train_bf16",
+                "flash_attention_bwd": "danube_train_bf16",
                 "flash_decode": "danube_decode_bf16_wrapped",
                 "rank_update_batched_out": (10000, 10000, 1, 16),
                 "select_commit": "clean"}

@@ -6,18 +6,23 @@ drawn draw for draw as the reference draws it, so both packages see the
 same tokens, patches and frames.  Tokens are Zipf-distributed unigrams
 with a short motif copied later in the sequence; a vlm batch carries
 ``patches`` (B, n_patches, frontend_dim) before its text, an audio batch
-``frames`` (B, S, frontend_dim) with masked-prediction targets.  The
-reference's dry-run specs and its prefetching training loader wait for
-the training slice (ROADMAP.md Queue 1 item 13).
+``frames`` (B, S, frontend_dim) with masked-prediction targets.
+:class:`TokenPipeline` prefetches them on a thread for a training loop.
+The reference's dry-run specs (``make_batch_specs``) wait for the
+dry-run (ROADMAP.md Queue 1 item 14b).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import queue
+import threading
+from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
+from ..core.runtime import resolve_device
 
 
 def _rng_for_step(seed: int, step: int, host: int) -> np.random.Generator:
@@ -69,3 +74,56 @@ def synth_batch(cfg: ModelConfig, shape: ShapeConfig, *, seed: int = 0,
             "mask": mask,
         }
     return {"tokens": synth_tokens(rng, b, s, cfg.vocab)}
+
+
+class TokenPipeline:
+    """Double-buffered iterator over :func:`synth_batch`'s batches
+    ``start_step``, ``start_step + 1``, ..., as dicts of tensors on
+    ``device`` (``None``: the card; raises without one): a daemon thread
+    draws and uploads up to ``prefetch`` of them ahead.  :meth:`close`
+    stops the thread (and joins it); the iterator then stops too."""
+
+    def __init__(self, cfg: ModelConfig, shape: ShapeConfig, *,
+                 seed: int = 0, start_step: int = 0, host: int = 0,
+                 num_hosts: int = 1, prefetch: int = 2, device=None):
+        self.device = resolve_device(device)
+        self.cfg, self.shape = cfg, shape
+        self.seed, self.host, self.num_hosts = seed, host, num_hosts
+        self.step = start_step
+        self._q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._producer,
+                                        args=(start_step,), daemon=True)
+        self._thread.start()
+
+    def _producer(self, step: int) -> None:
+        while not self._stop.is_set():
+            batch = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in synth_batch(
+                         self.cfg, self.shape, seed=self.seed, step=step,
+                         host=self.host, num_hosts=self.num_hosts).items()}
+            while not self._stop.is_set():
+                try:
+                    self._q.put(batch, timeout=0.1)
+                    step += 1
+                    break
+                except queue.Full:
+                    continue
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        while not self._stop.is_set():
+            try:
+                out = self._q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            self.step += 1
+            return out
+        raise StopIteration
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Stop the producer and wait for it (at most ``timeout`` s)."""
+        self._stop.set()
+        self._thread.join(timeout)

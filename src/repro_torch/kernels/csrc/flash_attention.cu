@@ -140,6 +140,16 @@ __device__ __forceinline__ int key_limit(int qp, int prefix) {
   return qp < prefix ? prefix - 1 : qp;
 }
 
+// Row pos's log-sum-exp in the scaled-score domain, from its running max
+// m (log2 units) and its whole sum l = sum 2^(s * scale_log2 - m): (m +
+// log2 l) ln 2, -inf for a row with no kept key (m = -inf, l = 0).  One
+// lane of the row's quad (t == 0) writes it; rows past s are not written.
+__device__ __forceinline__ void store_lse(float* lse, int64_t row0, int s,
+                                          int pos, int t, float m, float l) {
+  if (t == 0 && pos < s)
+    lse[row0 * s + pos] = (m + log2f(l)) * 0.6931471805599453f;
+}
+
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernel
 
@@ -242,13 +252,14 @@ __device__ __forceinline__ void load_tile_async(const bf16* __restrict__ src,
   }
 }
 
-template <int HD, int MIN_BLOCKS>
+template <int HD, int MIN_BLOCKS, bool WRITE_LSE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_attention_bf16_mma(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ out,
                          int s, int h, int kvh, int causal, int window,
-                         int prefix, float scale_log2) {
+                         int prefix, float scale_log2,
+                         float* __restrict__ lse) {
   constexpr int LD = HD + 8;     // row stride of every shared tile
   constexpr int KSTEPS = HD / 16;
   constexpr int NT = HD / 8;     // n8 tiles of O
@@ -447,8 +458,12 @@ flash_attention_bf16_mma(const bf16* __restrict__ q,
   // (read only by this warp, before the loop), then 16-byte stores
   float inv[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-    inv[r] = 1.f / fmaxf(attn::group_sum<4>(l[r]), 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    const float lr = attn::group_sum<4>(l[r]);
+    inv[r] = 1.f / fmaxf(lr, 1e-30f);
+    if constexpr (WRITE_LSE) store_lse(lse, (int64_t)b * h + head, s,
+                                       qw + g + 8 * r, t, m[r], lr);
+  }
   bf16* os = qs + 16 * warp * LD;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
@@ -468,15 +483,15 @@ flash_attention_bf16_mma(const bf16* __restrict__ q,
   }
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s, int h, int kvh, int causal, int window, int prefix,
-           float scale, cudaStream_t stream) {
+template <int HD, bool WRITE_LSE>
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b, int s, int h, int kvh, int causal, int window,
+           int prefix, float scale, cudaStream_t stream) {
   // two blocks an SM (at most 128 registers a thread) where the Q, S and
   // O fragments fit; one above (at head dim 256 shared memory holds one)
   constexpr int MIN_BLOCKS = HD <= 80 ? 2 : 1;
   constexpr size_t smem = smem_bytes<HD>();
-  auto kern = flash_attention_bf16_mma<HD, MIN_BLOCKS>;
+  auto kern = flash_attention_bf16_mma<HD, MIN_BLOCKS, WRITE_LSE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -484,22 +499,28 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), s, h, kvh,
-      causal, window, prefix, scale * 1.4426950408889634f);
+      causal, window, prefix, scale * 1.4426950408889634f, lse);
   return (int)cudaGetLastError();
 }
 
 int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
-             int b, int s, int h, int kvh, int causal, int window, int prefix,
-             float scale, cudaStream_t stream) {
+             float* lse, int b, int s, int h, int kvh, int causal,
+             int window, int prefix, float scale, cudaStream_t stream) {
+#define FA_LAUNCH(D)                                                        \
+  (lse ? launch<D, true>(q, k, v, out, lse, b, s, h, kvh, causal, window,  \
+                         prefix, scale, stream)                            \
+       : launch<D, false>(q, k, v, out, lse, b, s, h, kvh, causal, window, \
+                          prefix, scale, stream))
   switch (hd) {
-    case 32: return launch<32>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
-    case 64: return launch<64>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
-    case 80: return launch<80>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
-    case 96: return launch<96>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
-    case 128: return launch<128>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
-    case 256: return launch<256>(q, k, v, out, b, s, h, kvh, causal, window, prefix, scale, stream);
+    case 32: return FA_LAUNCH(32);
+    case 64: return FA_LAUNCH(64);
+    case 80: return FA_LAUNCH(80);
+    case 96: return FA_LAUNCH(96);
+    case 128: return FA_LAUNCH(128);
+    case 256: return FA_LAUNCH(256);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FA_LAUNCH
 }
 
 }  // namespace tc
@@ -609,13 +630,14 @@ __device__ __forceinline__ void load_tile_async(const float* __restrict__ src,
   }
 }
 
-template <int HD, bool KSPLIT>
+template <int HD, bool KSPLIT, bool WRITE_LSE>
 __global__ void __launch_bounds__(256, 1)
 flash_attention_3xtf32(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        int s, int h, int kvh, int causal, int window,
-                       int prefix, float scale_log2) {
+                       int prefix, float scale_log2,
+                       float* __restrict__ lse) {
   using G = Tile<HD, KSPLIT>;
   constexpr int THREADS = G::THREADS, BQ = G::BQ, BK = G::BK, BKW = G::BKW;
   constexpr int LDK = G::LDK, LDV = G::LDV;
@@ -876,6 +898,7 @@ flash_attention_3xtf32(const float* __restrict__ q,
       const float a0 = exp2_approx(m[r] - m_use);
       const float a1 = exp2_approx(other.x - m_use);
       l[r] = l[r] * a0 + other.y * a1;
+      if constexpr (WRITE_LSE) m[r] = m_new;
       const float* orow = mo + (row0 + 8 * r) * HD + 2 * t;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
@@ -890,6 +913,8 @@ flash_attention_3xtf32(const float* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int pos = qw + g + 8 * r;
+    if constexpr (WRITE_LSE) store_lse(lse, (int64_t)b * h + head, s, pos,
+                                       t, m[r], l[r]);
     if (pos >= s) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     float* orow = ob + pos * q_row + 2 * t;
@@ -900,12 +925,12 @@ flash_attention_3xtf32(const float* __restrict__ q,
   }
 }
 
-template <int HD, bool KSPLIT>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s, int h, int kvh, int causal, int window, int prefix,
-           float scale, cudaStream_t stream) {
+template <int HD, bool KSPLIT, bool WRITE_LSE>
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b, int s, int h, int kvh, int causal, int window,
+           int prefix, float scale, cudaStream_t stream) {
   using G = Tile<HD, KSPLIT>;
-  auto kern = flash_attention_3xtf32<HD, KSPLIT>;
+  auto kern = flash_attention_3xtf32<HD, KSPLIT, WRITE_LSE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -913,7 +938,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   kern<<<grid, G::THREADS, G::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), s, h, kvh,
-      causal, window, prefix, scale * 1.4426950408889634f);
+      causal, window, prefix, scale * 1.4426950408889634f, lse);
   return (int)cudaGetLastError();
 }
 
@@ -933,13 +958,15 @@ int sm_count() {
 constexpr int WIDE = 3;
 
 int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
-             int b, int s, int h, int kvh, int causal, int window, int prefix,
-             float scale, cudaStream_t stream) {
+             float* lse, int b, int s, int h, int kvh, int causal,
+             int window, int prefix, float scale, cudaStream_t stream) {
   const bool wide =
       2 * (int64_t)((s + 127) / 128) * h * b >= WIDE * sm_count();
-#define FA_LAUNCH(D, KSPLIT) \
-  launch<D, KSPLIT>(q, k, v, out, b, s, h, kvh, causal, window, prefix, \
-                    scale, stream)
+#define FA_LAUNCH(D, KSPLIT)                                               \
+  (lse ? launch<D, KSPLIT, true>(q, k, v, out, lse, b, s, h, kvh, causal,  \
+                                 window, prefix, scale, stream)            \
+       : launch<D, KSPLIT, false>(q, k, v, out, lse, b, s, h, kvh, causal, \
+                                  window, prefix, scale, stream))
   switch (hd) {
     case 32: return wide ? FA_LAUNCH(32, false) : FA_LAUNCH(32, true);
     case 64: return wide ? FA_LAUNCH(64, false) : FA_LAUNCH(64, true);
@@ -969,8 +996,28 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   if (prefix < 0) return (int)cudaErrorInvalidValue;
   if (bf16)
-    return tc::dispatch(hd, q, k, v, out, b, s, h, kvh, causal, window,
+    return tc::dispatch(hd, q, k, v, out, nullptr, b, s, h, kvh, causal,
+                        window, prefix, scale, st);
+  return tf32x3::dispatch(hd, q, k, v, out, nullptr, b, s, h, kvh, causal,
+                          window, prefix, scale, st);
+}
+
+// flash_attention_fwd that also writes each row's log-sum-exp, lse (b, h,
+// s) f32: log sum_k exp(q.k * scale) over the row's kept keys, in the
+// scaled-score domain (-inf for a row that keeps none), which the
+// backward (flash_attention_bwd.cu) reads to recompute P.  The same
+// kernels, instantiated with WRITE_LSE; flash_attention_fwd's instances
+// are unchanged.
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
+                                       const void* v, void* out, float* lse,
+                                       int b, int s, int h, int kvh, int hd,
+                                       int causal, int window, int prefix,
+                                       int bf16, float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (prefix < 0 || lse == nullptr) return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return tc::dispatch(hd, q, k, v, out, lse, b, s, h, kvh, causal, window,
                         prefix, scale, st);
-  return tf32x3::dispatch(hd, q, k, v, out, b, s, h, kvh, causal, window,
-                          prefix, scale, st);
+  return tf32x3::dispatch(hd, q, k, v, out, lse, b, s, h, kvh, causal,
+                          window, prefix, scale, st);
 }

@@ -13,8 +13,9 @@ Threads may launch kernels side by side (the fleet's live workers): a
 lock makes the first use of a source build and load it once, and
 :func:`count_launch` keeps every binding's launch counts exact.
 
-No kernel here has a backward yet, and each writes its output through a
-raw pointer, so its result carries no ``grad_fn``: every binding calls
+Each kernel writes its output through a raw pointer, so its result
+carries no ``grad_fn``.  Flash attention alone has a backward (its
+binding's autograd Function); every other binding calls
 :func:`refuse_grad` first, which raises instead of letting a gradient
 through a kernel come out as zero with no error.
 """
@@ -133,9 +134,8 @@ def refuse_grad(entry: str, *operands) -> None:
             for x in operands):
         raise RuntimeError(
             f"{entry}: an operand requires grad, but the CUDA kernel has no "
-            "backward yet (K1, ROADMAP Queue 2), so its output would carry "
-            "no gradient; call it under torch.no_grad() or on tensors that "
-            "do not require grad")
+            "backward yet, so its output would carry no gradient; call it "
+            "under torch.no_grad() or on tensors that do not require grad")
 
 
 def count_launch(launches: Dict[str, int], entry: str,

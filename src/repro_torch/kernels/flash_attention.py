@@ -1,7 +1,9 @@
-"""CUDA flash attention forward (the prefill and full-sequence hot path).
+"""CUDA flash attention: the forward (the prefill and full-sequence hot
+path) and its backward (the training path).
 
-Binding for ``csrc/flash_attention.cu``, built and loaded by
-:mod:`.cuda_build` the first time the kernel is launched.  It replaces
+Bindings for ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``,
+built and loaded by :mod:`.cuda_build` the first time a kernel is
+launched.  The forward replaces
 ``flash_attention_pallas`` (``src/repro/kernels/flash_attention.py:77``)
 and computes the reference model's ``blockwise_attention``: causal,
 prefix-LM (bidirectional over the first ``prefix_len`` positions, causal
@@ -12,28 +14,42 @@ P V as two bf16 terms); f32 inputs run on the TF32 tensor cores with
 split operands (each operand as two TF32 terms, three ``mma.sync``
 products for each, which keeps the f32 path's 2e-4 tolerance).
 
-The entry launches on the current CUDA stream, allocates only its output
-and never falls back to the plain version: anything the kernel does not
-take raises, and so does an operand that requires grad under grad mode
-(no backward yet: the output would carry no ``grad_fn``).  ``LAUNCHES``
-counts its launches.
+Under grad mode, with an operand that requires grad, :func:`flash_attention`
+runs :class:`FlashAttention`: its forward launches
+:func:`flash_attention_fwd_lse` (the same kernels, also writing each row's
+log-sum-exp) and its backward :func:`flash_attention_bwd` (K1: dQ, dK and
+dV on the FMA pipes, f32 arithmetic, the GQA sum inside the kernel).
+Otherwise (serving) it launches the forward alone, as before.
+
+Each entry launches on the current CUDA stream, allocates only its outputs
+(and the backward its row scratch) and never falls back to the plain
+version: anything a kernel does not take raises.  ``LAUNCHES`` counts each
+entry's launches by name.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from . import cuda_build
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0,
+                            "flash_attention_fwd_lse": 0,
+                            "flash_attention_bwd": 0}
 
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
-_SIGNATURES = {"flash_attention_fwd": [cuda_build.PTR] * 4
-               + [cuda_build.I32] * 9 + [cuda_build.F32, cuda_build.PTR]}
+_FWD_SIGNATURES = {
+    "flash_attention_fwd": [cuda_build.PTR] * 4 + [cuda_build.I32] * 9
+    + [cuda_build.F32, cuda_build.PTR],
+    "flash_attention_fwd_lse": [cuda_build.PTR] * 5 + [cuda_build.I32] * 9
+    + [cuda_build.F32, cuda_build.PTR]}
+_BWD_SIGNATURES = {
+    "flash_attention_bwd": [cuda_build.PTR] * 10 + [cuda_build.I32] * 9
+    + [cuda_build.F32, cuda_build.PTR]}
 
 
 def reset_launches() -> None:
@@ -70,15 +86,13 @@ def check_heads(h: int, kvh: int, hd: int) -> None:
         raise ValueError(f"head_dim {hd} is not one of {HEAD_DIMS}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    prefix_len: int = 0) -> torch.Tensor:
-    """Softmax attention of q (B, S, H, hd) over k, v (B, S, KV, hd); keep
-    key kp for query qp iff ``kp <= qp`` or ``qp, kp < prefix_len``
-    (causal), and ``kp > qp - window`` (when a window is given).  Returns
-    (B, S, H, hd) in q's type."""
-    cuda_build.refuse_grad("flash_attention", q, k, v)
-    dtype = check_attention_operands(q=q, k=k, v=v)
+def _check_call(q, k, v, window, prefix_len, **more
+                ) -> Tuple[torch.dtype, Tuple[int, int, int, int, int]]:
+    """The checks every entry makes: operands (q, k, v and ``more``) on
+    one CUDA device in one type, contiguous and aligned; the shapes q
+    (B,S,H,hd), k and v (B,S,KV,hd); the heads, window, prefix and grid.
+    Returns (type, (b, s, h, kvh, hd))."""
+    dtype = check_attention_operands(q=q, k=k, v=v, **more)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -92,16 +106,125 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"prefix_len {prefix_len} is negative")
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} past the kernel's grid")
+    return dtype, (b, s, h, kvh, hd)
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
+    """Softmax attention of q (B, S, H, hd) over k, v (B, S, KV, hd); keep
+    key kp for query qp iff ``kp <= qp`` or ``qp, kp < prefix_len``
+    (causal), and ``kp > qp - window`` (when a window is given).  Returns
+    (B, S, H, hd) in q's type.  Under grad mode with an operand that
+    requires grad it runs :class:`FlashAttention` on the CUDA kernels (the
+    forward with the row log-sum-exp, then K1); otherwise it launches the
+    forward alone."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, prefix_len,
+                                    flash_attention_fwd_lse,
+                                    flash_attention_bwd)
+    dtype, (b, s, h, kvh, hd) = _check_call(q, k, v, window, prefix_len)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = cuda_build.library("flash_attention", _SIGNATURES)
+    lib = cuda_build.library("flash_attention", _FWD_SIGNATURES)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
             h, kvh, hd, int(causal), window or 0, prefix_len,
-            int(dtype == torch.bfloat16), hd ** -0.5, stream)
+            int(dtype == torch.bfloat16), hd ** -0.5, _stream(q))
     cuda_build.check_launch("flash_attention_fwd", code)
     cuda_build.count_launch(LAUNCHES, "flash_attention")
     return out
+
+
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            prefix_len: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention`'s forward that also returns each row's
+    log-sum-exp of the kept scaled scores, lse (B, H, S) f32 (the
+    backward's input); ``out`` is bit for bit the forward's."""
+    dtype, (b, s, h, kvh, hd) = _check_call(q, k, v, window, prefix_len)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    lib = cuda_build.library("flash_attention", _FWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        code = lib.flash_attention_fwd_lse(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, s, h, kvh, hd, int(causal), window or 0,
+            prefix_len, int(dtype == torch.bfloat16), hd ** -0.5,
+            _stream(q))
+    cuda_build.check_launch("flash_attention_fwd_lse", code)
+    cuda_build.count_launch(LAUNCHES, "flash_attention_fwd_lse")
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None, prefix_len: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1: (dq, dk, dv) of :func:`flash_attention` given the upstream
+    gradient ``dout`` and the forward's ``out`` and ``lse``
+    (:func:`flash_attention_fwd_lse`), in the operands' type; dk and dv
+    summed over each KV head's query group."""
+    dtype, (b, s, h, kvh, hd) = _check_call(q, k, v, window, prefix_len,
+                                            out=out, dout=dout)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be q's {tuple(q.shape)}")
+    if lse.dtype != torch.float32 or lse.shape != (b, h, s) \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous f32 (B, H, S) = "
+                         f"{(b, h, s)} on {q.device}, not {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty_like(lse)
+    lib = cuda_build.library("flash_attention_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        code = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, kvh, hd,
+            int(causal), window or 0, prefix_len,
+            int(dtype == torch.bfloat16), hd ** -0.5, _stream(q))
+    cuda_build.check_launch("flash_attention_bwd", code)
+    cuda_build.count_launch(LAUNCHES, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a backward: ``forward`` computes (out, lse) with
+    ``fwd`` and saves q, k, v, out and lse; ``backward`` makes the upstream
+    gradient contiguous and hands it with them to ``bwd``.  The pair is
+    :func:`flash_attention_fwd_lse` and :func:`flash_attention_bwd` on the
+    card, or the plain versions (``ref.flash_attention_lse``,
+    ``ref.flash_attention_bwd``), which the CPU tests run through this very
+    Function."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int],
+                prefix_len: int, fwd: Callable, bwd: Callable):
+        opts = dict(causal=causal, window=window, prefix_len=prefix_len)
+        out, lse = fwd(q, k, v, **opts)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts, ctx.bwd = opts, bwd
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = ctx.bwd(q, k, v, out, dout.contiguous(), lse,
+                             **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None

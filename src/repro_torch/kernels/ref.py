@@ -104,28 +104,146 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a time (by default as many as keep one chunk's scores near 2**28
     values), so no (S x S) score matrix per head is ever whole.
     """
+    return flash_attention_lse(q, k, v, causal=causal, window=window,
+                               q_chunk=q_chunk, prefix_len=prefix_len)[0]
+
+
+def _chunk(b: int, h: int, s: int, q_chunk: Optional[int]) -> int:
+    """Query rows a chunk: as many as keep one chunk's scores near 2**28
+    values, unless given."""
+    return q_chunk or max(1, min(s, 2 ** 28 // max(1, b * h * s)))
+
+
+def _grouped(q: torch.Tensor, kvh: int, dtype) -> torch.Tensor:
+    """(B, S, H, hd) → (B, KV, g, S, hd) in ``dtype``: query head h reads
+    KV head h // g."""
+    b, s, h, hd = q.shape
+    return q.to(dtype).reshape(b, s, kvh, h // kvh, hd).permute(0, 2, 3, 1, 4)
+
+
+def _ungrouped(x: torch.Tensor, dtype) -> torch.Tensor:
+    """(B, KV, g, S, hd) → (B, S, H, hd) in ``dtype``."""
+    b, kvh, g, s, hd = x.shape
+    return x.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, hd).to(dtype)
+
+
+def _masked_scores(qc, kt, q0, q1, s, causal, window, prefix_len):
+    """A chunk's scaled scores (B, KV, g, q1 - q0, S), -inf where masked,
+    and the chunk's keep-mask (q1 - q0, S)."""
+    b, kvh, g, rows, hd = qc.shape
+    scores = (qc.reshape(b, kvh, g * rows, hd) @ kt).view(
+        b, kvh, g, rows, s) * hd ** -0.5
+    pos = torch.arange(s, device=qc.device)
+    keep = attention_keep(pos[q0:q1], pos, causal=causal, window=window,
+                          prefix_len=prefix_len)
+    return scores.masked_fill(~keep, float("-inf")), keep
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        q_chunk: Optional[int] = None, prefix_len: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernels.flash_attention_fwd_lse: (out in q's type,
+    lse (B, H, S)), lse the log-sum-exp of each row's kept scaled scores
+    (-inf for a row with none; it carries no gradient, so autograd keeps
+    no more than :func:`flash_attention` needs).  Computed in f32, or in
+    float64 for float64 operands (the tests' gradcheck)."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
-    g = h // kvh
-    if q_chunk is None:
-        q_chunk = max(1, min(s, 2 ** 28 // max(1, b * h * s)))
-    # (B, KV, g, S, hd) queries against (B, KV, S, hd) keys: GQA by shape
-    qf = q.float().reshape(b, s, kvh, g, hd).permute(0, 2, 3, 1, 4)
-    kt = k.float().permute(0, 2, 3, 1)            # (B, KV, hd, S)
-    vf = v.float().permute(0, 2, 1, 3)            # (B, KV, S, hd)
-    pos = torch.arange(s, device=q.device)
-    out = torch.empty((b, kvh, g, s, hd), dtype=torch.float32,
-                      device=q.device)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    q_chunk = _chunk(b, h, s, q_chunk)
+    qf = _grouped(q, kvh, acc)
+    kt = k.to(acc).permute(0, 2, 3, 1)             # (B, KV, hd, S)
+    vf = v.to(acc).permute(0, 2, 1, 3)             # (B, KV, S, hd)
+    out = torch.empty(qf.shape, dtype=acc, device=q.device)
+    lse = torch.empty(qf.shape[:4], dtype=acc, device=q.device)
     for q0 in range(0, s, q_chunk):
         q1 = min(s, q0 + q_chunk)
-        qc = qf[:, :, :, q0:q1].reshape(b, kvh, g * (q1 - q0), hd)
-        scores = (qc @ kt).view(b, kvh, g, q1 - q0, s) * hd ** -0.5
-        keep = attention_keep(pos[q0:q1], pos, causal=causal, window=window,
-                              prefix_len=prefix_len)
-        scores = scores.masked_fill(~keep, float("-inf"))
-        p = torch.softmax(scores, dim=-1).view(b, kvh, g * (q1 - q0), s)
-        out[:, :, :, q0:q1] = (p @ vf).view(b, kvh, g, q1 - q0, hd)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+        scores, _ = _masked_scores(qf[:, :, :, q0:q1], kt, q0, q1, s,
+                                   causal, window, prefix_len)
+        with torch.no_grad():
+            lse[:, :, :, q0:q1] = torch.logsumexp(scores, dim=-1)
+        p = torch.softmax(scores, dim=-1).flatten(2, 3)
+        out[:, :, :, q0:q1] = (p @ vf).view(b, kvh, -1, q1 - q0, hd)
+    return _ungrouped(out, q.dtype), lse.reshape(b, h, s)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, causal: bool = True,
+                        window: Optional[int] = None,
+                        q_chunk: Optional[int] = None, prefix_len: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of kernels.flash_attention_bwd: (dq, dk, dv) in the
+    operands' types, the explicit formula the kernel computes, in f32 (or
+    float64) and query chunks: P = exp(S scale - lse) on kept pairs (0
+    elsewhere), delta = rowsum(dout * out), dS = P (dout Vᵀ - delta)
+    scale, dq = dS K, dk = Σ_group dSᵀ Q, dv = Σ_group Pᵀ dout."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    acc = torch.promote_types(q.dtype, torch.float32)
+    q_chunk = _chunk(b, h, s, q_chunk)
+    qf, of, dof = (_grouped(x, kvh, acc) for x in (q, out, dout))
+    kf = k.to(acc).permute(0, 2, 1, 3)             # (B, KV, S, hd)
+    vf = v.to(acc).permute(0, 2, 1, 3)
+    kt = kf.transpose(-1, -2)
+    lse = lse.to(acc).reshape(qf.shape[:4])
+    delta = (dof * of).sum(-1)                     # (B, KV, g, S)
+    dq = torch.empty(qf.shape, dtype=acc, device=q.device)
+    dk = torch.zeros(kf.shape, dtype=acc, device=q.device)
+    dv = torch.zeros(vf.shape, dtype=acc, device=q.device)
+    for q0 in range(0, s, q_chunk):
+        q1 = min(s, q0 + q_chunk)
+        qc, doc = qf[:, :, :, q0:q1], dof[:, :, :, q0:q1]
+        scores, keep = _masked_scores(qc, kt, q0, q1, s, causal, window,
+                                      prefix_len)
+        p = torch.where(keep, torch.exp(scores - lse[:, :, :, q0:q1, None]),
+                        0.0)
+        dp = doc @ vf[:, :, None].transpose(-1, -2)
+        ds = p * (dp - delta[:, :, :, q0:q1, None]) * hd ** -0.5
+        dq[:, :, :, q0:q1] = ds @ kf[:, :, None]
+        dk += torch.einsum("bkgqs,bkgqd->bksd", ds, qc)
+        dv += torch.einsum("bkgqs,bkgqd->bksd", p, doc)
+    return (_ungrouped(dq, q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def flash_attention_bwd_bf16_bound(q, k, v, out, dout, lse, grads, want,
+                                   causal: bool = True,
+                                   window: Optional[int] = None,
+                                   prefix_len: int = 0):
+    """Per-element bounds on |grads - want| for bf16 operands, where
+    ``grads`` are K1's (dq, dk, dv) and ``want`` the plain gradient through
+    autograd (:func:`flash_attention` on the same bf16 q, k, v; dout and
+    the forward's bf16 out as given).  Both do f32 arithmetic on the same
+    bf16 values and round each gradient to bf16 once.  They differ in
+    three ways:
+
+    - delta: K1 sums dout * out over the bf16 out, autograd over the f32
+      out before its rounding (at most 2^-8 |out| away: bf16 keeps 8
+      significant bits), so delta moves by δ ≤ 1.01 2^-8 Σ_d |dout||out|,
+      and with it dS = P (dP - delta) scale by P δ scale: dq by scale δ
+      (P |k|), dk by scale Pᵀ (δ |q|) summed over the group, dv not at all;
+    - the roundings to bf16 of the two unrounded gradients a and b:
+      |rnd(a) - rnd(b)| ≤ |a - b| + 2^-8 (|rnd(a)| + |rnd(b)|) (1 + 2^-7);
+    - f32 sums in other orders: what the f32 kernel is held to, 2e-4 +
+      2e-4 |want|.
+
+    Returns one bound tensor for each of dq, dk, dv (f32)."""
+    f32 = torch.float32
+    qf, kf, vf, of, dof = (x.to(f32) for x in (q, k, v, out, dout))
+    opts = dict(causal=causal, window=window, prefix_len=prefix_len)
+    scale = q.shape[-1] ** -0.5
+    shift = 1.01 * 2.0 ** -8 * (dof.abs() * of.abs()).sum(-1, keepdim=True)
+    e_dq = scale * shift * flash_attention(qf, kf, kf.abs(), **opts)
+    e_dk = scale * flash_attention_bwd(qf, kf, vf, of, shift * qf.abs(),
+                                       lse, **opts)[2]
+    bounds = []
+    for g, w, e in zip(grads, want, (e_dq, e_dk, 0.0)):
+        g, w = g.to(f32), w.to(f32)
+        bounds.append(1.01 * (e + 2.0 ** -8 * (g.abs() + w.abs()))
+                      + 2e-4 + 2e-4 * w.abs())
+    return tuple(bounds)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,

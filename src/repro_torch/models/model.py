@@ -21,7 +21,10 @@ map over leaf by leaf (:mod:`.weights`).
 
 Every method is a pure function of the params it is given, except that
 :meth:`LM.decode_step` writes the new token's k/v and the recurrent
-states into the cache in place.
+states into the cache in place.  :meth:`LM.loss` is the training
+objective; under ``cfg.remat`` other than ``"none"`` each block of a pass
+that autograd records runs under ``torch.utils.checkpoint`` (its
+activations recomputed in the backward), which moves memory, not values.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.runtime import resolve_device
@@ -139,6 +143,35 @@ class LM:
             yield _index(params["blocks"], i)
 
     # -- forward --------------------------------------------------------------
+    def _remat(self, fn):
+        """``fn`` recomputed in the backward, as the reference's
+        ``_maybe_remat`` wraps each scanned block in ``jax.checkpoint``:
+        under ``cfg.remat`` "block", "full" (or "attn") the call runs
+        inside a non-reentrant ``torch.utils.checkpoint``, which keeps only
+        the block's inputs and recomputes the rest (JAX's policies differ
+        in which products "block" and "attn" save; here every policy
+        recomputes the whole block).  A call that autograd does not record
+        (grad mode off, or no tensor argument requiring grad) runs ``fn``
+        as it is."""
+        if self.cfg.remat == "none":
+            return fn
+
+        def wrapped(*args):
+            if torch.is_grad_enabled() and _requires_grad(args):
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
+        return wrapped
+
+    def _layer(self, bp: Params, x: Tensor, positions: Tensor, causal: bool,
+               prefix_len: int) -> Tuple[Tensor, Optional[Tensor]]:
+        """One transformer block: attention, then :meth:`_block`."""
+        a = attention.attention_block(
+            bp["attn"], self.cfg,
+            layers.rmsnorm(bp["ln1"], x, self.cfg.norm_eps), positions,
+            causal=causal, prefix_len=prefix_len)
+        return self._block(bp, x, a, return_aux=True)
+
     def _block(self, bp: Params, h: Tensor, attn_out: Tensor,
                return_aux: bool = False) -> Tuple[Tensor, Optional[Tensor]]:
         """The residual tail of a block, after its attention output; with
@@ -166,11 +199,9 @@ class LM:
             return self._zamba_backbone(params, x, positions, causal), aux
         if cfg.family == "ssm":
             return self._xlstm_backbone(params, x), aux
+        layer = self._remat(self._layer)
         for bp in self._blocks(params):
-            a = attention.attention_block(
-                bp["attn"], cfg, layers.rmsnorm(bp["ln1"], x, cfg.norm_eps),
-                positions, causal=causal, prefix_len=prefix_len)
-            x, block_aux = self._block(bp, x, a, return_aux=True)
+            x, block_aux = layer(bp, x, positions, causal, prefix_len)
             if block_aux is not None:
                 aux = aux + block_aux
         return x, aux
@@ -180,38 +211,50 @@ class LM:
             bp["mixer"], self.cfg,
             layers.rmsnorm(bp["ln"], x, self.cfg.norm_eps))
 
+    def _shared_part(self, bp: Params, x: Tensor, positions: Tensor,
+                     causal: bool) -> Tensor:
+        """The hybrid's weight-shared attention + MLP block."""
+        a = attention.attention_block(
+            bp["attn"], self.cfg,
+            layers.rmsnorm(bp["ln1"], x, self.cfg.norm_eps), positions,
+            causal=causal)
+        return self._block(bp, x, a)[0]
+
     def _zamba_backbone(self, params: Params, x: Tensor, positions: Tensor,
                         causal: bool) -> Tensor:
         cfg = self.cfg
         groups, tail = self._zamba_layout()
-        shared = params["shared_attn"]
+        mamba, shared = self._remat(self._mamba), \
+            self._remat(self._shared_part)
         for g in range(groups):
             group = _index(params["mamba_groups"], g)
             for i in range(cfg.attn_every):
-                x = self._mamba(_index(group, i), x)
-            # the weight-shared attention block, the same params each time
-            a = attention.attention_block(
-                shared["attn"], cfg,
-                layers.rmsnorm(shared["ln1"], x, cfg.norm_eps), positions,
-                causal=causal)
-            x, _ = self._block(shared, x, a)
+                x = mamba(_index(group, i), x)
+            # the weight-shared block, the same params each time (autograd
+            # sums their gradients over the groups)
+            x = shared(params["shared_attn"], x, positions, causal)
         for i in range(tail):
-            x = self._mamba(_index(params["mamba_tail"], i), x)
+            x = mamba(_index(params["mamba_tail"], i), x)
         return x
 
+    def _mlstm(self, bp: Params, x: Tensor) -> Tensor:
+        return x + xlstm.mlstm_block(
+            bp["mixer"], self.cfg,
+            layers.rmsnorm(bp["ln"], x, self.cfg.norm_eps))
+
+    def _slstm(self, sp: Params, x: Tensor) -> Tensor:
+        return x + xlstm.slstm_block(
+            sp["cell"], self.cfg,
+            layers.rmsnorm(sp["ln"], x, self.cfg.norm_eps))
+
     def _xlstm_backbone(self, params: Params, x: Tensor) -> Tensor:
-        cfg = self.cfg
         groups, per = self._xlstm_layout()
+        mlstm, slstm = self._remat(self._mlstm), self._remat(self._slstm)
         for g in range(groups):
             group = _index(params["mlstm_groups"], g)
             for i in range(per):
-                bp = _index(group, i)
-                x = x + xlstm.mlstm_block(
-                    bp["mixer"], cfg,
-                    layers.rmsnorm(bp["ln"], x, cfg.norm_eps))
-            sp = _index(params["slstm"], g)
-            x = x + xlstm.slstm_block(
-                sp["cell"], cfg, layers.rmsnorm(sp["ln"], x, cfg.norm_eps))
+                x = mlstm(_index(group, i), x)
+            x = slstm(_index(params["slstm"], g), x)
         return x
 
     def _input(self, batch: Dict, name: str) -> Tensor:
@@ -274,6 +317,27 @@ class LM:
         """Full-sequence forward → (logits (B, S, V) f32, aux_loss)."""
         h, aux = self._hidden(params, batch)
         return self.logits(params, h), aux
+
+    # -- loss -------------------------------------------------------------------
+    def loss(self, params: Params, batch: Dict
+             ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """The training objective → (total, {"ce", "aux"}): the mean
+        next-token cross-entropy (a vlm's text positions only, after its
+        ``n_patches`` image positions; audio: the cross-entropy of the
+        frames' ``targets``, averaged over its ``mask``), plus the blocks'
+        router loss."""
+        cfg = self.cfg
+        logits, aux = self.forward(params, batch)
+        if cfg.family == "audio":
+            mask = self._input(batch, "mask").float()
+            ce = _cross_entropy(logits, self._input(batch, "targets"))
+            loss = (ce * mask).sum() / mask.sum().clamp_min(1.0)
+        else:
+            if cfg.family == "vlm":
+                logits = logits[:, cfg.n_patches:]
+            tokens = self._input(batch, "tokens")
+            loss = _cross_entropy(logits[:, :-1], tokens[:, 1:]).mean()
+        return loss + aux, {"ce": loss, "aux": aux}
 
     # -- decode ---------------------------------------------------------------
     def _check_decoder(self, what: str) -> None:
@@ -432,6 +496,26 @@ class LM:
                 _index(cache["slstm"], g))
             x = x + s
         return x
+
+
+def _cross_entropy(logits: Tensor, targets: Tensor) -> Tensor:
+    """Per-position cross-entropy ``logsumexp(logits) - logits[target]``,
+    in f32."""
+    logits = logits.float()
+    true = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - true
+
+
+def _requires_grad(tree) -> bool:
+    """Whether a tensor in ``tree`` (nested tuples, lists and dicts)
+    requires grad."""
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return any(_requires_grad(v) for v in tree)
+    return False
 
 
 def _stack(trees):

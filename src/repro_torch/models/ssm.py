@@ -122,11 +122,14 @@ def chunked_ssd(x: Tensor, dt: Tensor, a_log: Tensor, bmat: Tensor,
 
     # intra-chunk: scores[b,c,t,u,h] = (C_t·B_u)·exp(LA_t − LA_u)·dt_u,
     # u ≤ t.  Above the diagonal LA_t − LA_u > 0 and exp may reach inf:
-    # select it away, never multiply it by a 0/1 mask (inf·0 is NaN).
+    # select -inf there before the exp, never multiply inf by a 0/1 mask
+    # (inf·0 is NaN) nor select it away after the exp (its gradient,
+    # 0·inf, is NaN: the reference's jnp.where(tri, exp(decay), 0) gives
+    # NaN gradients wherever the decay overflows).
     g = torch.einsum("bctn,bcun->bctu", cc, bc)              # (B,nc,L,L)
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (B,nc,t,u,H)
     tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
-    w = torch.where(tri[None, None, :, :, None], decay.exp(), 0.0)
+    w = torch.where(tri[None, None, :, :, None], decay, float("-inf")).exp()
     del decay
     scores = g[..., None] * w * dtc[:, :, None, :, :]
     del w

@@ -27,12 +27,16 @@ def _leaf(x, device, dtype) -> torch.Tensor:
 
 def params_from_numpy(tree: Any, device=None, dtype=None) -> Any:
     """The nested dict ``tree`` with every array leaf as a torch tensor on
-    ``device`` (``None``: the card), cast to ``dtype`` when given."""
+    ``device`` (``None``: the card), cast to ``dtype`` when given; None
+    leaves (a compression state's raw leaves) stay None.  The optimizer's
+    and the compression's states come over leaf by leaf too
+    (``repro_torch.train.opt_state_from_numpy``,
+    ``compression_state_from_numpy``)."""
     device = resolve_device(device)
 
     def go(t):
         if isinstance(t, dict):
             return {k: go(v) for k, v in t.items()}
-        return _leaf(t, device, dtype)
+        return None if t is None else _leaf(t, device, dtype)
 
     return go(tree)

@@ -217,12 +217,27 @@ def _all_launches():
 def test_cuda_entry_refuses_grad_on_the_card(cuda, entry):
     """With an operand that requires grad under grad mode the entry raises
     before it launches (it has no backward); under no_grad, or with no
-    operand requiring grad, it launches once."""
+    operand requiring grad, it launches once.  flash_attention has a
+    backward (K1): under grad mode it launches the forward with the row
+    log-sum-exp once, and its gradient the backward once."""
     call = _entry_calls(cuda)[entry]
     before = _all_launches()
-    with pytest.raises(RuntimeError, match="no backward yet"):
-        call(True)
-    assert _all_launches() == before
+    if entry == "flash_attention":
+        out = call(True)
+        assert out.grad_fn is not None
+        out.sum().backward()
+        torch.cuda.synchronize()
+        after = _all_launches()
+        assert after["flash_attention_fwd_lse"] == \
+            before["flash_attention_fwd_lse"] + 1
+        assert after["flash_attention_bwd"] == \
+            before["flash_attention_bwd"] + 1
+        assert after[entry] == before[entry]
+        before = after
+    else:
+        with pytest.raises(RuntimeError, match="no backward yet"):
+            call(True)
+        assert _all_launches() == before
     with torch.no_grad():
         call(True)
     with torch.inference_mode():
@@ -567,6 +582,113 @@ def test_flash_attention_f32_kernel_matches_plain_and_repeats(
     # a second call gives the same bits
     assert torch.equal(ops.flash_attention(q, k, v, causal=causal,
                                            window=window), got)
+
+
+# (b, s, h, kvh, hd, causal, window, prefix): K1 at every head dim, the
+# causal mask, windows (shorter than a key tile, and danube's 4096 at S =
+# 4128), the prefix (inside and past a tile, under a window, at hd 256),
+# full attention, groups 1, 2, 4, 12 and 16, ragged S
+_FLASH_BWD = [
+    (2, 200, 4, 4, 32, True, None, 0),
+    (1, 300, 8, 2, 64, True, 40, 0),
+    (2, 333, 8, 2, 80, True, None, 0),
+    (1, 257, 8, 2, 96, True, None, 100),
+    (1, 190, 12, 1, 128, True, 33, 70),
+    (1, 545, 8, 1, 256, True, None, 256),
+    (1, 150, 8, 4, 80, False, None, 0),
+    (1, 97, 4, 4, 64, False, 9, 0),
+    (1, 512, 64, 4, 128, True, None, 0),
+    (1, 4128, 8, 2, 80, True, 4096, 0)]
+
+
+@pytest.mark.parametrize(
+    "dtype,b,s,h,kvh,hd,causal,window,prefix",
+    [(dt, *c) for dt in (torch.float32, torch.bfloat16) for c in _FLASH_BWD])
+def test_flash_attention_bwd_matches_plain(cuda, dtype, b, s, h, kvh, hd,
+                                           causal, window, prefix):
+    """K1 through the autograd Function against torch.autograd through
+    ref.flash_attention on the same card tensors: f32 at 2e-4; bf16
+    within ref.flash_attention_bwd_bf16_bound, derived from the rounding
+    of the inputs and outputs.  The forward with the row log-sum-exp gives
+    flash_attention_fwd's out bit for bit, and its lse is ref's."""
+    g = torch.Generator(device=cuda).manual_seed(s + h + hd + prefix)
+    q, k, v, dout = (torch.randn(b, s, n, hd, device=cuda, generator=g
+                                 ).to(dtype) for n in (h, kvh, kvh, h))
+    opts = dict(causal=causal, window=window, prefix_len=prefix)
+    out, lse = cuda_fa.flash_attention_fwd_lse(q, k, v, **opts)
+    assert torch.equal(out, cuda_fa.flash_attention(q, k, v, **opts))
+    torch.testing.assert_close(lse, ref.flash_attention_lse(q, k, v,
+                                                            **opts)[1],
+                               rtol=2e-4, atol=2e-4)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = dict(cuda_fa.LAUNCHES)
+    ops.flash_attention(*leaves, **opts).backward(dout)
+    assert cuda_fa.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    got = [x.grad for x in leaves]
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref.flash_attention(*plain, **opts).backward(dout)
+    want = [x.grad for x in plain]
+    if dtype == torch.float32:
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+    else:
+        bounds = ref.flash_attention_bwd_bf16_bound(q, k, v, out, dout, lse,
+                                                    got, want, **opts)
+        for a, w, bound in zip(got, want, bounds):
+            assert a.dtype == torch.bfloat16
+            assert ((a.float() - w.float()).abs() <= bound).all()
+    # deterministic: a second backward gives the same bits
+    again = cuda_fa.flash_attention_bwd(q, k, v, out, dout, lse, **opts)
+    for a, b_ in zip(again, cuda_fa.flash_attention_bwd(q, k, v, out, dout,
+                                                        lse, **opts)):
+        assert torch.equal(a, b_)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """A dense LM (remat "block") takes one train step on the card and on
+    the CPU from the same weights: the loss to 1e-4 relative, the gradient
+    norm and every updated leaf's moment to 1e-3 of its largest entry (the
+    engine's MAIN_TOL), and the forward with LSE twice a layer, the
+    backward once."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import synth_batch
+    from repro_torch.models import LM
+    from repro_torch.train import (TrainState, adamw_init, make_train_step,
+                                   require_grad)
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b").reduced(),
+                              remat="block")
+    gpu, cpu = LM(cfg, device="cuda"), LM(cfg, device="cpu")
+    gp = gpu.init(torch.Generator(device=cuda).manual_seed(0))
+    cp = require_grad(_to_cpu(gp))
+    require_grad(gp)
+    batch = synth_batch(cfg, ShapeConfig("t", 96, 2, "train"), seed=1)
+    before = dict(cuda_fa.LAUNCHES)
+    states = []
+    for model, params in ((gpu, gp), (cpu, cp)):
+        step = make_train_step(model, lr=1e-3, warmup=1, total_steps=10)
+        states.append(step(TrainState(params, adamw_init(params),
+                                      torch.Generator()), batch))
+    assert cuda_fa.LAUNCHES["flash_attention_fwd_lse"] == \
+        before["flash_attention_fwd_lse"] + 2 * cfg.n_layers
+    assert cuda_fa.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + cfg.n_layers
+    (gs, gm), (cs, cm) = states
+    assert abs(float(gm["loss"]) - float(cm["loss"])) <= \
+        1e-4 * abs(float(cm["loss"]))
+    assert abs(float(gm["grad_norm"]) - float(cm["grad_norm"])) <= \
+        1e-3 * float(cm["grad_norm"])
+    stack = [(gs.opt.m, cs.opt.m)]
+    while stack:
+        a, b = stack.pop()
+        for key in b:
+            if isinstance(b[key], dict):
+                stack.append((a[key], b[key]))
+            else:
+                scale = float(b[key].abs().max()) or 1.0
+                assert float((a[key].cpu() - b[key]).abs().max()) \
+                    <= 1e-3 * scale, key
 
 
 def _decode_inputs(device, dtype, b, L, h, kvh, hd, seed):

@@ -4,6 +4,7 @@ the JAX package: its Pallas kernels in interpret mode, its oracles, and
 the model's ``blockwise_attention`` and decode attention.  Tolerance
 2e-3, the reference's own for these kernels (``tests/test_kernels.py``)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,7 +13,8 @@ import torch
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.kernels.flash_attention import flash_attention_pallas
-from repro.models.attention import blockwise_attention
+from repro.models.attention import _mask_block, blockwise_attention
+from repro_torch.kernels import flash_attention as cuda_fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_decode import MAX_SPLITS, TILE, split_plan
 
@@ -276,3 +278,105 @@ def test_decode_split_plan_covers_the_valid_slots(b, groups, L, sms):
         # and no more blocks than fill the SMs per_sm times (one wave)
         assert nsplit <= min(MAX_SPLITS,
                              max(1, per_sm * sms // (b * groups)))
+
+
+# -- the backward (K1) and the forward's row log-sum-exp ----------------------
+
+# (b, s, h, kvh, hd, causal, window, prefix): causal, windowed, the prefix
+# (alone and under a window), full attention with and without a window;
+# groups 1, 2 and 4; head dims 32 and 64
+_BWD = [(2, 40, 4, 4, 32, True, None, 0), (1, 50, 4, 2, 64, True, 16, 0),
+        (2, 45, 8, 2, 32, True, None, 12), (1, 60, 4, 1, 64, True, 20, 30),
+        (1, 33, 4, 1, 32, False, None, 0), (2, 37, 4, 2, 64, False, 9, 0)]
+BWD_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _bwd_inputs(rng, b, s, h, kvh, hd):
+    return (_normal(rng, b, s, h, hd), _normal(rng, b, s, kvh, hd),
+            _normal(rng, b, s, kvh, hd), _normal(rng, b, s, h, hd))
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd,causal,window,prefix", _BWD)
+def test_flash_attention_bwd_and_lse_match_autograd_and_jax(
+        b, s, h, kvh, hd, causal, window, prefix, rng):
+    """ref.flash_attention_bwd (the formula K1 computes) against
+    torch.autograd through ref.flash_attention and jax.grad of the
+    reference's blockwise_attention; ref.flash_attention_lse's out against
+    ref.flash_attention and its lse against jax.nn.logsumexp of the
+    masked scaled scores."""
+    q, k, v, dout = _bwd_inputs(rng, b, s, h, kvh, hd)
+    opts = dict(causal=causal, window=window, prefix_len=prefix)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
+    out, lse = ref.flash_attention_lse(tq, tk, tv, **opts)
+    torch.testing.assert_close(out, ref.flash_attention(tq, tk, tv, **opts))
+    got = ref.flash_attention_bwd(tq, tk, tv, out, tdo, lse, **opts)
+
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    (ref.flash_attention(*leaves, **opts) * tdo).sum().backward()
+
+    def loss(q, k, v):
+        return (blockwise_attention(q, k, v, q_chunk=16, kv_chunk=16,
+                                    **opts) * dout).sum()
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        *map(jnp.asarray, (q, k, v)))
+    for g, a, w in zip(got, leaves, want):
+        assert g.shape == a.shape and g.dtype == torch.float32
+        assert_close(g.numpy(), a.grad.numpy(), **BWD_TOL)
+        assert_close(g.numpy(), w, **BWD_TOL)
+
+    pos = jnp.arange(s)
+    keep = _mask_block(pos, pos, causal=causal, window=window,
+                       prefix_len=prefix)
+    scores = jnp.einsum("bqkgd,bskd->bkgqs",
+                        jnp.asarray(q).reshape(b, s, kvh, h // kvh, hd),
+                        jnp.asarray(k)) * hd ** -0.5
+    jlse = jax.nn.logsumexp(jnp.where(keep, scores, -jnp.inf), axis=-1)
+    assert_close(lse.numpy(), np.asarray(jlse).reshape(b, h, s), **BWD_TOL)
+
+
+@pytest.mark.parametrize("causal,window,prefix", [
+    (True, None, 0), (True, 3, 0), (True, 2, 4), (False, 2, 0)])
+def test_flash_attention_function_gradchecks_over_the_plain_versions(
+        causal, window, prefix, rng):
+    """The FlashAttention autograd Function the card runs, here over the
+    plain versions in float64: torch.autograd.gradcheck against finite
+    differences, grouped heads (a group of 2)."""
+    q, k, v, _ = (torch.from_numpy(x).double().requires_grad_(True)
+                  for x in _bwd_inputs(rng, 1, 6, 2, 1, 4))
+
+    def fn(q, k, v):
+        return cuda_fa.FlashAttention.apply(
+            q, k, v, causal, window, prefix, ref.flash_attention_lse,
+            ref.flash_attention_bwd)
+
+    assert fn(q, k, v).dtype == torch.float64
+    assert torch.autograd.gradcheck(fn, (q, k, v))
+
+
+def test_flash_attention_bf16_gradient_bound(rng):
+    """The bound the card holds K1's bf16 gradients to
+    (ref.flash_attention_bwd_bf16_bound), derived from the rounding of the
+    inputs and outputs: K1's formula on bf16 operands, with delta from
+    the bf16 out, stays inside it against autograd's gradient, which takes
+    delta from the f32 out before its rounding; without its delta term
+    the bound is too tight for dq (so the term is not slack)."""
+    b, s, h, kvh, hd = 1, 256, 8, 2, 64
+    q, k, v, dout = (torch.from_numpy(x).bfloat16()
+                     for x in _bwd_inputs(rng, b, s, h, kvh, hd))
+    opts = dict(causal=True, window=100, prefix_len=0)
+    out, lse = ref.flash_attention_lse(q, k, v, **opts)
+    assert out.dtype == torch.bfloat16
+    got = ref.flash_attention_bwd(q, k, v, out, dout, lse, **opts)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    (ref.flash_attention(*leaves, **opts).float() * dout.float()).sum(
+        ).backward()
+    want = [x.grad for x in leaves]
+    bounds = ref.flash_attention_bwd_bf16_bound(q, k, v, out, dout, lse,
+                                                got, want, **opts)
+    for g, w, bound in zip(got, want, bounds):
+        assert g.dtype == w.dtype == torch.bfloat16
+        assert ((g.float() - w.float()).abs() <= bound).all()
+    slack = 2.0 ** -8 * (got[0].float().abs() + want[0].float().abs())
+    assert ((got[0].float() - want[0].float()).abs()
+            > slack + 2e-4 + 2e-4 * want[0].float().abs()).any()

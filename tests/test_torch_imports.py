@@ -39,6 +39,7 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.codegen",
            "repro_torch.fleet.lease", "repro_torch.fleet.admission",
            "repro_torch.fleet.tenant", "repro_torch.fleet.scheduler",
            "repro_torch.train", "repro_torch.train.grad_compression",
+           "repro_torch.train.optimizer", "repro_torch.train.train_step",
            "repro_torch.fivm", "repro_torch.fivm.ring",
            "repro_torch.fivm.solvers", "repro_torch.fivm.registry",
            "repro_torch.apps.fivm_learning"]
@@ -54,7 +55,8 @@ from repro_torch.kernels import cuda_build
 assert cuda_build.LIBS == {}, f"built at import: {sorted(cuda_build.LIBS)}"
 assert cuda_build.BUILD_LOGS == {}, "nvcc ran at import"
 assert sorted(cuda_build.sources()) == [
-    "dual_matmul", "flash_attention", "flash_decode", "rank_update",
+    "dual_matmul", "flash_attention", "flash_attention_bwd",
+    "flash_decode", "rank_update",
     "rank_update_rows", "select_commit"], cuda_build.sources()
 print("BAD", bad)
 """

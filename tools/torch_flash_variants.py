@@ -21,8 +21,10 @@ variant of the dtypes asked for.
 For each variant the script prints every kernel instance's registers and
 spills (``ptxas``), then, from ``cuobjdump -sass``, each f32 instance's
 tensor-core instructions by kind (``HMMA.1688.F32.TF32`` is the split-TF32
-product) and whether each bf16 instance's SASS is the first variant's
-instruction for instruction (with ``--parent``: the parent's).  Then it
+product) and whether each instance's SASS is the first variant's
+instruction for instruction (with ``--parent``: the parent's; the
+forward's instances that also write the row log-sum-exp are ``new``
+against a parent without them).  Then it
 times the entry at every shape of its dtype (``F32_SHAPES``: every f32
 shape of ``chip_smoke.py``'s phase 3; ``BF16_SHAPES``) in rounds
 (``--rounds``, 4 by default; variants in turn, then in reverse: parent,
@@ -293,9 +295,14 @@ def build(tmp: Path, names, parent) -> dict:
 
 def short(mangled: str) -> str:
     """A kernel instance's mangled name without its anonymous namespace
-    (which names the source file) and its parameter list."""
+    (which names the source file) and its parameter list.  The forward
+    without the row log-sum-exp (a third template argument, WRITE_LSE =
+    false) goes by its name from before the flag, so that a parent
+    without it compares with it."""
     name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", mangled)
-    return name.split("EEv")[0]
+    name = name.split("EEv")[0]
+    args = re.findall(r"L[a-z]\d+E", name)
+    return name[:-4] if len(args) == 3 and args[-1] == "Lb0E" else name
 
 
 def sass(so: Path) -> dict:
@@ -319,20 +326,21 @@ def sass(so: Path) -> dict:
 
 
 def report_sass(tmp: Path, names) -> None:
-    """Each f32 instance's tensor-core instructions by kind, and whether
-    each bf16 instance is the first variant's instruction for
-    instruction."""
+    """Whether each instance is the first variant's instruction for
+    instruction (``new`` where the first has no such instance: the
+    forward with the row log-sum-exp against a parent without it), and
+    each f32 instance's tensor-core instructions by kind."""
     codes = {name: sass(tmp / name / "lib.so") for name in names}
     base = codes[names[0]]
     for name in names:
         for fn, ins in sorted(codes[name].items()):
+            if name != names[0]:
+                same = ("new" if fn not in base else
+                        "identical" if base[fn] == ins else "different")
+                print(f"sass {name} vs {names[0]} {fn}: {len(ins)} / "
+                      f"{len(base.get(fn, []))} instructions, {same}",
+                      flush=True)
             if "bf16" in fn:
-                if name != names[0]:
-                    same = base.get(fn) == ins
-                    print(f"sass {name} vs {names[0]} {fn}: {len(ins)} / "
-                          f"{len(base.get(fn, []))} instructions, "
-                          f"{'identical' if same else 'different'}",
-                          flush=True)
                 continue
             kinds = {}
             for i in ins:
