@@ -33,13 +33,14 @@ CUDA toolkit.  Phases, each of which raises on failure:
    window, the prefix at head dim 256, full attention, groups of 1, 4, 12
    and 16), through the autograd Function against torch.autograd through
    the plain attention (f32 at the kernel tolerance; bf16 within the
-   bound derived from the roundings, ref.flash_attention_bwd_bf16_bound),
+   bound derived from the roundings, tests/flash_bounds.py),
    a second call bit for bit, the forward with the row log-sum-exp giving
    the forward's out bit for bit, each timed beside the plain versions
    and SDPA's forward and backward (its backend named), with the bound of
    the five products;
    then every CUDA entry but flash_attention, given an operand that
-   requires grad, raises (no backward yet) and launches nothing;
+   requires grad, raises (no backward yet; the forward with LSE and K1:
+   not differentiable) and launches nothing;
    flash_attention differentiates, launching the forward with LSE once
    and K1 once.
 4. matrix powers A^16 (n = 10000, exp model, the paper's size): 8 single
@@ -599,10 +600,11 @@ def skinny_times(kernel, library) -> dict:
 
 def check_grad_refusal() -> dict:
     """Each CUDA entry but flash_attention, given an operand that requires
-    grad under grad mode, raises (it has no backward yet) and launches
-    nothing; flash_attention differentiates: under grad mode it launches
-    the forward with the row log-sum-exp once, and its gradient the
-    backward (K1) once.  Under no_grad every call launches once."""
+    grad under grad mode, raises (it has no backward yet; the forward with
+    LSE and K1 are not differentiable themselves) and launches nothing;
+    flash_attention differentiates: under grad mode it launches the
+    forward with the row log-sum-exp once, and its gradient the backward
+    (K1) once.  Under no_grad every call launches once."""
     import torch
     from repro_torch.kernels import ops
     (cuda_ru, cuda_rows, cuda_dual, cuda_fa, cuda_fd,
@@ -625,6 +627,11 @@ def check_grad_refusal() -> dict:
             f(64, 8, grad=g), f(8, 1), f(64, 1)),
         "flash_attention": lambda g: cuda_fa.flash_attention(
             f(1, 8, 2, 64, grad=g), f(1, 8, 2, 64), f(1, 8, 2, 64)),
+        "flash_attention_fwd_lse": lambda g: cuda_fa.flash_attention_fwd_lse(
+            f(1, 8, 2, 64), f(1, 8, 2, 64, grad=g), f(1, 8, 2, 64)),
+        "flash_attention_bwd": lambda g: cuda_fa.flash_attention_bwd(
+            f(1, 8, 2, 64), f(1, 8, 2, 64), f(1, 8, 2, 64), f(1, 8, 2, 64),
+            f(1, 8, 2, 64, grad=g), torch.zeros(1, 2, 8, device=DEVICE)),
         "flash_decode": lambda g: cuda_fd.flash_decode(
             f(1, 2, 64), f(1, 8, 2, 64, grad=g), f(1, 8, 2, 64), 8),
         "select_commit": lambda g: cuda_sel.select_commit(
@@ -644,7 +651,8 @@ def check_grad_refusal() -> dict:
             call(True)
             refused[entry] = False
         except RuntimeError as err:
-            refused[entry] = "no backward yet" in str(err)
+            refused[entry] = ("not differentiable" if entry.startswith(
+                "flash_attention") else "no backward yet") in str(err)
     refused_counts = counts()
     out = calls["flash_attention"](True)
     out.backward(torch.randn_like(out))
@@ -1246,13 +1254,14 @@ def check_flash_bwd(q, k, v, dout, causal, window, peaks_, label,
     of the plain version's; the gradients through the FlashAttention
     Function against torch.autograd through ref.flash_attention on the
     same card tensors (f32: the kernel tolerance; bf16: the bound of
-    ref.flash_attention_bwd_bf16_bound, derived from the rounding of the
+    tests/flash_bounds.py, derived from the rounding of the
     inputs and outputs).  Timed beside the plain versions and SDPA's
     forward and backward (``enable_gqa``; the expanded heads and an
     explicit mask where the mask needs one), naming the backend SDPA ran.
     Returns the (forward with LSE, backward) records."""
     import torch
     import torch.nn.functional as F
+    from flash_bounds import flash_attention_bwd_bf16_bound
     from repro_torch.kernels import flash_attention as cuda_fa
     from repro_torch.kernels import ref
     b, s, h, hd = q.shape
@@ -1279,8 +1288,8 @@ def check_flash_bwd(q, k, v, dout, causal, window, peaks_, label,
             errs.append(check_close(f"flash_attention_bwd {label} d{name}",
                                     a, w))
     else:
-        bounds = ref.flash_attention_bwd_bf16_bound(q, k, v, out, dout, lse,
-                                                    got, want, **opts)
+        bounds = flash_attention_bwd_bf16_bound(q, k, v, out, dout, lse,
+                                                got, want, **opts)
         for name, a, w, bnd in zip("qkv", got, want, bounds):
             diff = (a.float() - w.float()).abs()
             if not bool(torch.isfinite(a).all()) or bool((diff > bnd).any()):
@@ -1332,7 +1341,8 @@ def check_flash_bwd(q, k, v, dout, causal, window, peaks_, label,
                                                         lse, **opts))
     bwd_lib = time_ms(sdpa_bwd)
     backend = sdpa_backend(sdpa_bwd)
-    nbytes = item * (6 * q.numel() + 4 * k.numel()) + 4 * b * h * s
+    # q, out, dout read and dq written; k, v read and dk, dv written; lse
+    nbytes = item * (4 * q.numel() + 4 * k.numel()) + 4 * b * h * s
     flops = 10.0 * b * h * hd * pairs
     rec = attention_record("flash_attention_bwd", shape, max(errs), bwd_ms,
                            bwd_plain, bwd_lib, nbytes, flops, dtype,
@@ -5045,10 +5055,12 @@ def train_split(fn) -> dict:
     cross-entropy forward and backward, the blocks' recompute (the
     checkpointed blocks run again inside the backward), the flash
     backward's kernels, the rest of the backward, the optimizer, and
-    the rest (embedding, final norm, gradient sums).  Ranges by
-    ``record_function``: a block on the main thread is the forward's, on
-    the autograd engine's thread the recompute; the head's backward nodes
-    are those whose sequence numbers its forward ops recorded."""
+    the rest (embedding, final norm, gradient sums).  A partition: each
+    kernel goes to the innermost ``record_function`` range or autograd
+    node around its launch (K1's by name).  A block on the main thread is
+    the forward's, on the autograd engine's thread the recompute; the
+    head's backward nodes are those whose sequence numbers its forward
+    ops recorded on the main thread."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -5073,40 +5085,55 @@ def train_split(fn) -> dict:
     if not kernels:
         return {"device_ms": None, "wall_ms_profiled": wall_ms}
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
-    ranges = [e for e in cpu if e.name in labels]
-    head = [r for r in ranges if r.name == "head_ce"]
+    head = [e for e in cpu if e.name == "head_ce"]
     main = head[0].thread
-
-    def dev(evs):
-        return sum(e.device_time_total for e in evs) / 1e3
 
     def inside(e, rs):
         return any(r.thread == e.thread
                    and r.time_range.start <= e.time_range.start
                    and e.time_range.end <= r.time_range.end for r in rs)
 
+    # the head's backward nodes: those whose forward ops ran in a head
+    # range on the main thread (sequence numbers count per thread)
     seqs = {e.sequence_nr for e in cpu if e.thread == main
             and getattr(e, "sequence_nr", -1) >= 0 and inside(e, head)}
-    nodes = [e for e in cpu
-             if e.name.startswith("autograd::engine::evaluate_function")]
-    split = {
-        "forward_blocks": dev(r for r in ranges
-                              if r.name == "block" and r.thread == main),
-        "head_ce_forward": dev(head),
-        "recompute": dev(r for r in ranges
-                         if r.name == "block" and r.thread != main),
-        "flash_attention_bwd": sum(e.self_device_time_total for e in kernels
-                                   if "flash_bwd" in e.name) / 1e3,
-        "head_ce_backward": dev(e for e in nodes if e.sequence_nr in seqs),
-        "optimizer": dev(r for r in ranges if r.name == "optimizer")}
-    split["backward_other"] = dev(nodes) - split["recompute"] \
-        - split["flash_attention_bwd"] - split["head_ce_backward"]
+
+    def part(e) -> str:
+        """The part a launch belongs to: that of its innermost enclosing
+        range or autograd node, so each kernel counts once."""
+        while e is not None:
+            if e.name == "block":
+                return "forward_blocks" if e.thread == main else "recompute"
+            if e.name == "head_ce":
+                return "head_ce_forward"
+            if e.name == "optimizer":
+                return "optimizer"
+            if e.name.startswith("autograd::engine::evaluate_function"):
+                return ("head_ce_backward" if e.sequence_nr in seqs
+                        and e.fwd_thread == main else "backward_other")
+            e = e.cpu_parent
+        return "other"
+
+    split = dict.fromkeys(
+        ("forward_blocks", "head_ce_forward", "recompute",
+         "flash_attention_bwd", "head_ce_backward", "optimizer",
+         "backward_other", "other"), 0.0)
+    nodes = set()
+    for e in cpu:
+        for kern in e.kernels:
+            if kern.name in labels:   # a range's own span on the card
+                continue
+            key = "flash_attention_bwd" if "flash_bwd" in kern.name \
+                else part(e)
+            split[key] += kern.duration / 1e3
+            if key == "head_ce_backward":
+                nodes.add(id(e))
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    split["other"] = device_ms - sum(split.values())
     return {"device_ms": device_ms, "busy_ms": busy_ms(kernels),
             "kernels": len(kernels), "split_ms": split,
-            "head_ce_backward_nodes": sum(1 for e in nodes
-                                          if e.sequence_nr in seqs),
+            # kernels the profiler tied to no launch on the host
+            "unlinked_ms": device_ms - sum(split.values()),
+            "head_ce_backward_launches": len(nodes),
             "wall_ms_profiled": wall_ms}
 
 
@@ -5291,6 +5318,7 @@ def main() -> int:
               "root of a checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(SRC.parent / "tests"))   # tests/flash_bounds.py
     from repro_torch.apps import OLS, MatrixPowers
     from repro_torch.data import UpdateStream
     from repro_torch.kernels import cuda_build

@@ -125,7 +125,8 @@ def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     return lib
 
 
-def refuse_grad(entry: str, *operands) -> None:
+def refuse_grad(entry: str, *operands,
+                reason: str = "the CUDA kernel has no backward yet") -> None:
     """Raise when autograd would have to differentiate CUDA entry
     ``entry``: grad mode is on and an operand requires grad.  Called
     before any other check, so it holds on any device."""
@@ -133,9 +134,9 @@ def refuse_grad(entry: str, *operands) -> None:
             isinstance(x, torch.Tensor) and x.requires_grad
             for x in operands):
         raise RuntimeError(
-            f"{entry}: an operand requires grad, but the CUDA kernel has no "
-            "backward yet, so its output would carry no gradient; call it "
-            "under torch.no_grad() or on tensors that do not require grad")
+            f"{entry}: an operand requires grad, but {reason}, so its output "
+            "would carry no gradient; call it under torch.no_grad() or on "
+            "tensors that do not require grad")
 
 
 def count_launch(launches: Dict[str, int], entry: str,

@@ -52,6 +52,10 @@ _BWD_SIGNATURES = {
     + [cuda_build.F32, cuda_build.PTR]}
 
 
+# why the forward with LSE and the backward refuse grad
+_RAW = "this entry is not differentiable (flash_attention is)"
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -150,7 +154,11 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention`'s forward that also returns each row's
     log-sum-exp of the kept scaled scores, lse (B, H, S) f32 (the
-    backward's input); ``out`` is bit for bit the forward's."""
+    backward's input); ``out`` is bit for bit the forward's.  Not
+    differentiable itself: under grad mode an operand that requires grad
+    raises (:func:`flash_attention` differentiates)."""
+    cuda_build.refuse_grad("flash_attention_fwd_lse", q, k, v,
+                           reason=_RAW)
     dtype, (b, s, h, kvh, hd) = _check_call(q, k, v, window, prefix_len)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -176,7 +184,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K1: (dq, dk, dv) of :func:`flash_attention` given the upstream
     gradient ``dout`` and the forward's ``out`` and ``lse``
     (:func:`flash_attention_fwd_lse`), in the operands' type; dk and dv
-    summed over each KV head's query group."""
+    summed over each KV head's query group.  Not differentiable itself
+    (no second derivative): under grad mode an operand that requires grad
+    raises."""
+    cuda_build.refuse_grad("flash_attention_bwd", q, k, v, out, dout, lse,
+                           reason=_RAW)
     dtype, (b, s, h, kvh, hd) = _check_call(q, k, v, window, prefix_len,
                                             out=out, dout=dout)
     if out.shape != q.shape or dout.shape != q.shape:
@@ -211,7 +223,8 @@ class FlashAttention(torch.autograd.Function):
     :func:`flash_attention_fwd_lse` and :func:`flash_attention_bwd` on the
     card, or the plain versions (``ref.flash_attention_lse``,
     ``ref.flash_attention_bwd``), which the CPU tests run through this very
-    Function."""
+    Function.  Differentiable once: a second derivative
+    (``create_graph=True``) raises instead of cutting the graph."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int],
@@ -223,6 +236,7 @@ class FlashAttention(torch.autograd.Function):
         return out
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = ctx.bwd(q, k, v, out, dout.contiguous(), lse,

@@ -104,8 +104,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a time (by default as many as keep one chunk's scores near 2**28
     values), so no (S x S) score matrix per head is ever whole.
     """
-    return flash_attention_lse(q, k, v, causal=causal, window=window,
-                               q_chunk=q_chunk, prefix_len=prefix_len)[0]
+    return _attention(q, k, v, causal, window, q_chunk, prefix_len,
+                      want_lse=False)[0]
 
 
 def _chunk(b: int, h: int, s: int, q_chunk: Optional[int]) -> int:
@@ -148,6 +148,14 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (-inf for a row with none; it carries no gradient, so autograd keeps
     no more than :func:`flash_attention` needs).  Computed in f32, or in
     float64 for float64 operands (the tests' gradcheck)."""
+    return _attention(q, k, v, causal, window, q_chunk, prefix_len,
+                      want_lse=True)
+
+
+def _attention(q, k, v, causal, window, q_chunk, prefix_len, want_lse):
+    """:func:`flash_attention_lse`; without ``want_lse`` no log-sum-exp is
+    taken and lse is None, so :func:`flash_attention` runs no more than
+    the softmax and its products."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     acc = torch.promote_types(q.dtype, torch.float32)
@@ -156,16 +164,19 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kt = k.to(acc).permute(0, 2, 3, 1)             # (B, KV, hd, S)
     vf = v.to(acc).permute(0, 2, 1, 3)             # (B, KV, S, hd)
     out = torch.empty(qf.shape, dtype=acc, device=q.device)
-    lse = torch.empty(qf.shape[:4], dtype=acc, device=q.device)
+    lse = torch.empty(qf.shape[:4], dtype=acc, device=q.device) \
+        if want_lse else None
     for q0 in range(0, s, q_chunk):
         q1 = min(s, q0 + q_chunk)
         scores, _ = _masked_scores(qf[:, :, :, q0:q1], kt, q0, q1, s,
                                    causal, window, prefix_len)
-        with torch.no_grad():
-            lse[:, :, :, q0:q1] = torch.logsumexp(scores, dim=-1)
+        if want_lse:
+            with torch.no_grad():
+                lse[:, :, :, q0:q1] = torch.logsumexp(scores, dim=-1)
         p = torch.softmax(scores, dim=-1).flatten(2, 3)
         out[:, :, :, q0:q1] = (p @ vf).view(b, kvh, -1, q1 - q0, hd)
-    return _ungrouped(out, q.dtype), lse.reshape(b, h, s)
+    return (_ungrouped(out, q.dtype),
+            lse.reshape(b, h, s) if want_lse else None)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -206,44 +217,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dv += torch.einsum("bkgqs,bkgqd->bksd", p, doc)
     return (_ungrouped(dq, q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
             dv.permute(0, 2, 1, 3).to(v.dtype))
-
-
-def flash_attention_bwd_bf16_bound(q, k, v, out, dout, lse, grads, want,
-                                   causal: bool = True,
-                                   window: Optional[int] = None,
-                                   prefix_len: int = 0):
-    """Per-element bounds on |grads - want| for bf16 operands, where
-    ``grads`` are K1's (dq, dk, dv) and ``want`` the plain gradient through
-    autograd (:func:`flash_attention` on the same bf16 q, k, v; dout and
-    the forward's bf16 out as given).  Both do f32 arithmetic on the same
-    bf16 values and round each gradient to bf16 once.  They differ in
-    three ways:
-
-    - delta: K1 sums dout * out over the bf16 out, autograd over the f32
-      out before its rounding (at most 2^-8 |out| away: bf16 keeps 8
-      significant bits), so delta moves by δ ≤ 1.01 2^-8 Σ_d |dout||out|,
-      and with it dS = P (dP - delta) scale by P δ scale: dq by scale δ
-      (P |k|), dk by scale Pᵀ (δ |q|) summed over the group, dv not at all;
-    - the roundings to bf16 of the two unrounded gradients a and b:
-      |rnd(a) - rnd(b)| ≤ |a - b| + 2^-8 (|rnd(a)| + |rnd(b)|) (1 + 2^-7);
-    - f32 sums in other orders: what the f32 kernel is held to, 2e-4 +
-      2e-4 |want|.
-
-    Returns one bound tensor for each of dq, dk, dv (f32)."""
-    f32 = torch.float32
-    qf, kf, vf, of, dof = (x.to(f32) for x in (q, k, v, out, dout))
-    opts = dict(causal=causal, window=window, prefix_len=prefix_len)
-    scale = q.shape[-1] ** -0.5
-    shift = 1.01 * 2.0 ** -8 * (dof.abs() * of.abs()).sum(-1, keepdim=True)
-    e_dq = scale * shift * flash_attention(qf, kf, kf.abs(), **opts)
-    e_dk = scale * flash_attention_bwd(qf, kf, vf, of, shift * qf.abs(),
-                                       lse, **opts)[2]
-    bounds = []
-    for g, w, e in zip(grads, want, (e_dq, e_dk, 0.0)):
-        g, w = g.to(f32), w.to(f32)
-        bounds.append(1.01 * (e + 2.0 ** -8 * (g.abs() + w.abs()))
-                      + 2e-4 + 2e-4 * w.abs())
-    return tuple(bounds)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,

@@ -23,6 +23,8 @@ from repro_torch.kernels import rank_update as cuda_ru
 from repro_torch.kernels import rank_update_rows as cuda_rows
 from repro_torch.kernels import select_commit as cuda_sel
 
+from flash_bounds import flash_attention_bwd_bf16_bound
+
 pytestmark = pytest.mark.cuda
 
 
@@ -608,7 +610,7 @@ def test_flash_attention_bwd_matches_plain(cuda, dtype, b, s, h, kvh, hd,
                                            causal, window, prefix):
     """K1 through the autograd Function against torch.autograd through
     ref.flash_attention on the same card tensors: f32 at 2e-4; bf16
-    within ref.flash_attention_bwd_bf16_bound, derived from the rounding
+    within flash_attention_bwd_bf16_bound, derived from the rounding
     of the inputs and outputs.  The forward with the row log-sum-exp gives
     flash_attention_fwd's out bit for bit, and its lse is ref's."""
     g = torch.Generator(device=cuda).manual_seed(s + h + hd + prefix)
@@ -633,8 +635,8 @@ def test_flash_attention_bwd_matches_plain(cuda, dtype, b, s, h, kvh, hd,
         for a, w in zip(got, want):
             torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
     else:
-        bounds = ref.flash_attention_bwd_bf16_bound(q, k, v, out, dout, lse,
-                                                    got, want, **opts)
+        bounds = flash_attention_bwd_bf16_bound(q, k, v, out, dout, lse,
+                                                got, want, **opts)
         for a, w, bound in zip(got, want, bounds):
             assert a.dtype == torch.bfloat16
             assert ((a.float() - w.float()).abs() <= bound).all()

@@ -19,6 +19,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_decode import MAX_SPLITS, TILE, split_plan
 
 from conftest import assert_close
+from flash_bounds import flash_attention_bwd_bf16_bound
 
 TOL = dict(rtol=2e-3, atol=2e-3)
 
@@ -354,9 +355,26 @@ def test_flash_attention_function_gradchecks_over_the_plain_versions(
     assert torch.autograd.gradcheck(fn, (q, k, v))
 
 
+def test_flash_attention_function_refuses_a_second_derivative(rng):
+    """The Function's backward is differentiable once: a gradient taken
+    with create_graph=True gives the first derivative, and differentiating
+    that raises instead of silently cutting the graph."""
+    q, k, v, _ = (torch.from_numpy(x).double().requires_grad_(True)
+                  for x in _bwd_inputs(rng, 1, 6, 2, 1, 4))
+    out = cuda_fa.FlashAttention.apply(q, k, v, True, None, 0,
+                                       ref.flash_attention_lse,
+                                       ref.flash_attention_bwd)
+    (dq,) = torch.autograd.grad(out.square().sum(), q, create_graph=True)
+    (want,) = torch.autograd.grad(
+        ref.flash_attention(q, k, v).square().sum(), q)
+    assert_close(dq.detach().numpy(), want.numpy())
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dq.sum().backward()
+
+
 def test_flash_attention_bf16_gradient_bound(rng):
     """The bound the card holds K1's bf16 gradients to
-    (ref.flash_attention_bwd_bf16_bound), derived from the rounding of the
+    (flash_attention_bwd_bf16_bound), derived from the rounding of the
     inputs and outputs: K1's formula on bf16 operands, with delta from
     the bf16 out, stays inside it against autograd's gradient, which takes
     delta from the f32 out before its rounding; without its delta term
@@ -372,8 +390,8 @@ def test_flash_attention_bf16_gradient_bound(rng):
     (ref.flash_attention(*leaves, **opts).float() * dout.float()).sum(
         ).backward()
     want = [x.grad for x in leaves]
-    bounds = ref.flash_attention_bwd_bf16_bound(q, k, v, out, dout, lse,
-                                                got, want, **opts)
+    bounds = flash_attention_bwd_bf16_bound(q, k, v, out, dout, lse,
+                                            got, want, **opts)
     for g, w, bound in zip(got, want, bounds):
         assert g.dtype == w.dtype == torch.bfloat16
         assert ((g.float() - w.float()).abs() <= bound).all()

@@ -127,6 +127,10 @@ def _entry_call(entry, rng, grad=False):
             tm, RowSet([1, 4], 16), tu[:2], tv),
         "dual_matmul": lambda: cuda_dual.dual_matmul(tm, tv, tu),
         "flash_attention": lambda: cuda_fa.flash_attention(q, q, q),
+        "flash_attention_fwd_lse": lambda: cuda_fa.flash_attention_fwd_lse(
+            q, q, q),
+        "flash_attention_bwd": lambda: cuda_fa.flash_attention_bwd(
+            q, q, q, q, q, torch.zeros(1, 2, 8)),
         "flash_decode": lambda: cuda_fd.flash_decode(q[:, 0], q, q, 8),
         "select_commit": lambda: cuda_sel.select_commit(
             torch.ones(1, dtype=torch.int32), tu, tm[:, :2].contiguous()),
@@ -136,7 +140,10 @@ def _entry_call(entry, rng, grad=False):
 
 _ENTRIES = ["rank_update", "rank_update_batched", "rank_update_batched_out",
             "rank_update_rows", "dual_matmul", "flash_attention",
+            "flash_attention_fwd_lse", "flash_attention_bwd",
             "flash_decode", "select_commit"]
+# differentiable only through flash_attention's autograd Function
+_RAW_FLASH = ("flash_attention_fwd_lse", "flash_attention_bwd")
 
 
 @pytest.mark.parametrize("entry", _ENTRIES)
@@ -157,12 +164,16 @@ def test_cuda_entry_refuses_operands_that_require_grad(entry, rng):
     raise first, before its device checks (it has no backward, so its
     output would carry no gradient): nothing launches and m is as it was.
     flash_attention has a backward (K1): under grad mode it runs its
-    autograd Function, whose forward gets to the device check.  Under
-    no_grad the same call gets to the device check."""
+    autograd Function, whose forward gets to the device check.  The
+    forward with LSE and K1 itself, which that Function launches, are not
+    differentiable and refuse.  Under no_grad the same call gets to the
+    device check."""
     call, tm, m = _entry_call(entry, rng, grad=True)
     before = _launches()
     with (pytest.raises(ValueError, match="CUDA")
           if entry == "flash_attention" else
+          pytest.raises(RuntimeError, match=f"{entry}: .*not differentiable")
+          if entry in _RAW_FLASH else
           pytest.raises(RuntimeError, match=f"{entry}: .*no backward yet")):
         call()
     np.testing.assert_array_equal(tm.numpy(), m)
