@@ -169,69 +169,16 @@ constexpr size_t smem_bytes() {
   return sizeof(bf16) * (BQ + 4 * BK) * (HD + 8);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros when !valid
-// (src-size 0: nothing is read from src).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c += a b for a 16x16 bf16 A fragment, a 16x8 bf16 B fragment (b0, b1)
-// and a 16x8 f32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x by the special-function unit (relative error about 2^-22; results
-// below 2^-126 flush to 0, and 2^-inf = 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two floats rounded to bf16 in one register, x0 in the low half (the
-// lower column of a fragment).
-__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(x0, x1);
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-
-// Two floats as two bf16 terms each, x = hi + lo to about 2^-17 |x|: hi
-// is x rounded to bf16, lo the remainder (exact in f32) rounded to bf16.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
-}
+using attn::cp_async16;
+using attn::cp_async_commit;
+using attn::cp_async_wait;
+using attn::exp2_approx;
+using attn::ldmatrix_x4;
+using attn::ldmatrix_x4_trans;
+using attn::mma_bf16;
+using attn::pack_bf16;
+using attn::smem_addr;
+using attn::split_bf16;
 
 // Start copying rows pos0 .. pos0 + ROWS - 1 of a (rows x HD) matrix whose
 // rows lie `row_stride` elements apart into dst[row * (HD + 8) + d]; rows
@@ -530,11 +477,11 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
 
 namespace tf32x3 {
 
-using tc::cp_async16;
-using tc::cp_async_commit;
-using tc::cp_async_wait;
-using tc::exp2_approx;
-using tc::smem_addr;
+using attn::cp_async16;
+using attn::cp_async_commit;
+using attn::cp_async_wait;
+using attn::exp2_approx;
+using attn::smem_addr;
 
 // Geometry of a block: 8 warps, each on a strip of 16 query rows and BKW
 // keys of each BK-key K / V tile.  Without KSPLIT the 8 warps take 8

@@ -18,19 +18,28 @@ Under grad mode, with an operand that requires grad, :func:`flash_attention`
 runs :class:`FlashAttention`: its forward launches
 :func:`flash_attention_fwd_lse` (the same kernels, also writing each row's
 log-sum-exp) and its backward :func:`flash_attention_bwd` (K1: dQ, dK and
-dV on the FMA pipes, f32 arithmetic, the GQA sum inside the kernel).
-Otherwise (serving) it launches the forward alone, as before.
+dV, the GQA sum inside the kernel; bf16 on the tensor cores with P and dS
+carried as two bf16 terms, f32 on the FMA pipes).  Otherwise (serving) it
+launches the forward alone, as before.
+
+Where K1's bf16 dK / dV grid (KV heads x batch x key tiles) is under
+:data:`BWD_BLOCKS_PER_SM` blocks an SM, :func:`bwd_split_plan` splits each
+key tile's walk over (head of the group, query tile) into shares balanced
+by kept pairs; the kernel writes f32 partials to a workspace and a second
+launch sums them in a fixed order.
 
 Each entry launches on the current CUDA stream, allocates only its outputs
-(and the backward its row scratch) and never falls back to the plain
-version: anything a kernel does not take raises.  ``LAUNCHES`` counts each
-entry's launches by name.
+(and the backward its row scratch and the split's workspace) and never
+falls back to the plain version: anything a kernel does not take raises.
+``LAUNCHES`` counts each entry's launches by name.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -49,7 +58,19 @@ _FWD_SIGNATURES = {
     + [cuda_build.F32, cuda_build.PTR]}
 _BWD_SIGNATURES = {
     "flash_attention_bwd": [cuda_build.PTR] * 10 + [cuda_build.I32] * 9
-    + [cuda_build.F32, cuda_build.PTR]}
+    + [cuda_build.F32, cuda_build.PTR],
+    "flash_attention_bwd_split": [cuda_build.PTR] * 10
+    + [cuda_build.I32] * 8 + [cuda_build.F32, cuda_build.I32,
+                               cuda_build.I32, cuda_build.PTR,
+                               cuda_build.I32, cuda_build.PTR,
+                               cuda_build.PTR]}
+
+#: K1's bf16 dK / dV tiles by head dim (csrc's DkvPlan): (keys a block,
+#: query rows a step of its walk); the split entry refuses others
+BWD_TILES = {32: (64, 64), 64: (64, 64), 80: (64, 64), 96: (64, 32),
+             128: (64, 32), 256: (64, 32)}
+#: K1's bf16 dK / dV blocks an SM should have: a smaller grid is split
+BWD_BLOCKS_PER_SM = 2
 
 
 # why the forward with LSE and the backward refuse grad
@@ -204,16 +225,120 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     delta = torch.empty_like(lse)
     lib = cuda_build.library("flash_attention_bwd", _BWD_SIGNATURES)
-    with torch.cuda.device(q.device):
-        code = lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    split = None
+    if dtype == torch.bfloat16:
+        split = _bwd_split(q.device, b * kvh, s, h // kvh, hd, causal,
+                           window, prefix_len)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, kvh, hd,
-            int(causal), window or 0, prefix_len,
-            int(dtype == torch.bfloat16), hd ** -0.5, _stream(q))
+            int(causal), window or 0, prefix_len)
+    with torch.cuda.device(q.device):
+        if split is None:
+            code = lib.flash_attention_bwd(
+                *args, int(dtype == torch.bfloat16), hd ** -0.5, _stream(q))
+        else:
+            plan, entries, slots = split
+            bk, bq = BWD_TILES[hd]
+            ws = torch.empty(slots * b * kvh * 2 * bk * hd,
+                             dtype=torch.float32, device=q.device)
+            code = lib.flash_attention_bwd_split(
+                *args, hd ** -0.5, bk, bq, plan.data_ptr(), entries,
+                ws.data_ptr(), _stream(q))
     cuda_build.check_launch("flash_attention_bwd", code)
     cuda_build.count_launch(LAUNCHES, "flash_attention_bwd")
     return dq, dk, dv
+
+
+def bwd_walk_pairs(kt: int, s: int, bk: int, bq: int, causal: bool,
+                   window: Optional[int], prefix_len: int
+                   ) -> Tuple[int, np.ndarray]:
+    """Key tile ``kt``'s walk in K1's dK / dV kernel: (its first query
+    tile, the kept pairs of each query tile it visits with the tile's
+    keys).  The tiles run from the one holding its first query (the
+    tile's first key under the causal mask, or 0 inside the prefix or
+    without the mask) to the one holding its last key + window - 1."""
+    k0, k1 = kt * bk, min(s, kt * bk + bk)
+    q_begin = k0 if causal and k0 >= prefix_len else 0
+    q_end = min(s, k1 - 1 + window) if window else s
+    qt0, qt1 = q_begin // bq, -(-q_end // bq)
+    qp = np.arange(qt0 * bq, qt1 * bq, dtype=np.int64)
+    if causal:
+        hi = np.where(qp < prefix_len, prefix_len - 1, qp)
+    else:
+        hi = np.full_like(qp, s - 1)
+    hi = np.minimum(hi, k1 - 1)
+    lo = np.maximum(k0, qp - window + 1) if window else np.full_like(qp, k0)
+    kept = np.where(qp < s, np.maximum(0, hi - lo + 1), 0)
+    return qt0, kept.reshape(-1, bq).sum(1)
+
+
+def bwd_split_plan(bkv: int, s: int, group: int, bk: int, bq: int,
+                   causal: bool, window: Optional[int], prefix_len: int,
+                   sms: int) -> Optional[Tuple[np.ndarray, int, int]]:
+    """The split of K1's bf16 dK / dV walks for ``bkv`` = B x KV blocks a
+    key tile, or None where the unsplit grid (``bkv`` x key tiles blocks)
+    has :data:`BWD_BLOCKS_PER_SM` blocks an SM of ``sms``.  Key tile kt's
+    walk has items i = head i // nq of the group, query tile i % nq
+    (:func:`bwd_walk_pairs`); its kept pairs decide how many of about
+    ``BWD_BLOCKS_PER_SM * sms`` blocks it takes, and each of its splits is a
+    contiguous run of items holding an equal share of them (item i goes to
+    split ``pairs before i * n // pairs of the tile``).  Returns (plan,
+    entries, slots): plan (int32) holds ``entries`` rows {key tile, first
+    item, end item, workspace slot}, heaviest first, then for each key
+    tile {first slot, slots}; a tile's slots are consecutive, in walk
+    order."""
+    tiles = -(-s // bk)
+    blocks = BWD_BLOCKS_PER_SM * sms
+    if bkv * tiles >= blocks:
+        return None
+    walks = [bwd_walk_pairs(kt, s, bk, bq, causal, window, prefix_len)[1]
+             for kt in range(tiles)]
+    totals = [group * int(w.sum()) for w in walks]
+    quota = max(1, sum(totals)) / max(tiles, blocks // bkv)
+    entries, firsts, slot = [], [], 0
+    for kt, w in enumerate(walks):
+        items = np.tile(w, group)
+        n = int(min(len(items), max(1, -(-totals[kt] // quota))))
+        before = np.concatenate(([0], np.cumsum(items)[:-1]))
+        split = before * n // max(1, totals[kt])
+        starts = np.concatenate(([0], np.flatnonzero(np.diff(split)) + 1))
+        ends = np.concatenate((starts[1:], [len(items)]))
+        firsts.append((slot, len(starts)))
+        for a, e in zip(starts, ends):
+            entries.append((int(items[a:e].sum()), kt, int(a), int(e), slot))
+            slot += 1
+    entries.sort(key=lambda x: (-x[0], x[1], x[2]))
+    plan = np.array([v for x in entries for v in x[1:]]
+                    + [v for x in firsts for v in x], dtype=np.int32)
+    return plan, len(entries), slot
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_split(device: torch.device, bkv: int, s: int, group: int, hd: int,
+               causal: bool, window: Optional[int], prefix_len: int
+               ) -> Optional[Tuple[torch.Tensor, int, int]]:
+    """:func:`bwd_split_plan` for a bf16 call on ``device``, its plan as
+    an int32 tensor there (made once a shape)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    made = bwd_split_plan(bkv, s, group, *BWD_TILES[hd], causal, window,
+                          prefix_len, sms)
+    if made is None:
+        return None
+    plan, entries, slots = made
+    return torch.from_numpy(plan).to(device), entries, slots
+
+
+def bwd_splits(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+               window: Optional[int] = None, prefix_len: int = 0) -> int:
+    """The entries of K1's split plan on these bf16 card operands (its
+    dK / dV blocks for each KV head and batch element), 0 where the grid
+    is not split."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    made = _bwd_split(q.device, b * kvh, s, h // kvh, hd, causal, window,
+                      prefix_len)
+    return 0 if made is None else made[1]
 
 
 class FlashAttention(torch.autograd.Function):

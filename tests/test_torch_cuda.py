@@ -647,6 +647,34 @@ def test_flash_attention_bwd_matches_plain(cuda, dtype, b, s, h, kvh, hd,
         assert torch.equal(a, b_)
 
 
+@pytest.mark.parametrize("b,s,h,kvh,hd,prefix,split", [
+    (1, 545, 8, 1, 256, 256, True), (20, 1024, 4, 1, 64, 0, False),
+    (4, 1024, 8, 1, 256, 256, True), (2, 1000, 32, 8, 80, 0, True)])
+def test_flash_attention_bwd_bf16_split_is_taken_on_small_grids(
+        cuda, b, s, h, kvh, hd, prefix, split):
+    """K1's bf16 dK / dV walk is split where KV x B x key tiles is under
+    two blocks an SM (MQA at hd 256, paligemma's prefill, a ragged S) and
+    not where the grid is large enough: the split and the unsplit kernels
+    both hold the bf16 bound, and a split call repeats bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(s + hd)
+    q, k, v, dout = (torch.randn(b, s, n, hd, device=cuda, generator=g
+                                 ).bfloat16() for n in (h, kvh, kvh, h))
+    opts = dict(causal=True, window=None, prefix_len=prefix)
+    assert (cuda_fa.bwd_splits(q, k, **opts) > 0) == split
+    out, lse = cuda_fa.flash_attention_fwd_lse(q, k, v, **opts)
+    got = cuda_fa.flash_attention_bwd(q, k, v, out, dout, lse, **opts)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref.flash_attention(*leaves, **opts).backward(dout)
+    want = [x.grad for x in leaves]
+    bounds = flash_attention_bwd_bf16_bound(q, k, v, out, dout, lse, got,
+                                            want, **opts)
+    for a, w, bound in zip(got, want, bounds):
+        assert ((a.float() - w.float()).abs() <= bound).all()
+    for a, b_ in zip(got, cuda_fa.flash_attention_bwd(q, k, v, out, dout,
+                                                      lse, **opts)):
+        assert torch.equal(a, b_)
+
+
 def test_train_step_on_card_matches_cpu(cuda):
     """A dense LM (remat "block") takes one train step on the card and on
     the CPU from the same weights: the loss to 1e-4 relative, the gradient

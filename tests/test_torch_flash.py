@@ -398,3 +398,210 @@ def test_flash_attention_bf16_gradient_bound(rng):
     slack = 2.0 ** -8 * (got[0].float().abs() + want[0].float().abs())
     assert ((got[0].float() - want[0].float()).abs()
             > slack + 2e-4 + 2e-4 * want[0].float().abs()).any()
+
+
+# -- K1's bf16 tensor-core arithmetic ----------------------------------------
+
+def _bf16_terms(x: torch.Tensor, n: int) -> list:
+    """f32 x as n bf16 terms, each the remainder so far rounded to bf16
+    (hi = bf16(x), lo = bf16(x - hi), ...), as f32 tensors."""
+    terms, rest = [], x
+    for _ in range(n):
+        terms.append(rest.bfloat16().float())
+        rest = rest - terms[-1]
+    return terms
+
+
+def _k1_bf16(q, k, v, out, dout, lse, causal, window, prefix,
+             p_terms=2, ds_terms=2):
+    """K1's bf16 kernel's arithmetic in plain PyTorch: S = Q K^T and dP =
+    dO V^T from the bf16 operands (products exact, f32 sums), P = exp(S
+    scale - lse) on kept pairs (0 elsewhere), delta from the bf16 out, dS
+    / scale = P (dP - delta); then P and dS / scale as ``p_terms`` /
+    ``ds_terms`` bf16 terms into dV = P^T dO, dK = scale (dS / scale)^T Q
+    (summed over the group) and dQ = scale (dS / scale) K, each term's
+    product summed in f32, each gradient rounded to bf16 once."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+
+    def grouped(x):   # (B, KV, g, S, hd)
+        return x.float().reshape(b, s, kvh, g, hd).permute(0, 2, 3, 1, 4)
+
+    qf, of, dof = grouped(q), grouped(out), grouped(dout)
+    kf, vf = (x.float().permute(0, 2, 1, 3)[:, :, None] for x in (k, v))
+    scale = hd ** -0.5
+    pos = torch.arange(s)
+    keep = ref.attention_keep(pos, pos, causal=causal, window=window,
+                              prefix_len=prefix)
+    lse = lse.reshape(b, kvh, g, s, 1)
+    p = torch.where(keep, torch.exp(qf @ kf.transpose(-1, -2) * scale - lse),
+                    0.0)
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    dv = sum(torch.einsum("bkgqs,bkgqd->bksd", t, dof)
+             for t in _bf16_terms(p, p_terms))
+    ds_split = _bf16_terms(ds, ds_terms)
+    dk = scale * sum(torch.einsum("bkgqs,bkgqd->bksd", t, qf)
+                     for t in ds_split)
+    dq = scale * sum(t @ kf for t in ds_split)
+    return (dq.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).bfloat16(),
+            dk.permute(0, 2, 1, 3).bfloat16(),
+            dv.permute(0, 2, 1, 3).bfloat16())
+
+
+def _k1_bf16_inputs(rng, b, s, h, kvh, hd, cancel=False):
+    """bf16 q, k, v, dout.  ``cancel``: v alternates in sign around one
+    vector a KV head (plus 1 % noise) and dout is 100x larger, so that the
+    attention output nearly cancels -- the bound's delta term, which grows
+    with |out|, then leaves little room -- while dP - delta does not."""
+    q, k, v, dout = _bwd_inputs(rng, b, s, h, kvh, hd)
+    if cancel:
+        sign = np.where(np.arange(s) % 2 == 0, 1.0, -1.0).astype(np.float32)
+        v = sign[None, :, None, None] * _normal(rng, b, 1, kvh, hd) \
+            + 0.01 * v
+        dout = 100.0 * dout
+    return tuple(torch.from_numpy(x).bfloat16() for x in (q, k, v, dout))
+
+
+def _k1_bf16_against_jax(tensors, causal, window, prefix, p_terms=2,
+                         ds_terms=2):
+    """The emulation's gradients on the bf16 tensors, jax.grad of the
+    reference's blockwise_attention in f32 on the same values (rounded to
+    bf16 once), and flash_attention_bwd_bf16_bound's bounds."""
+    q, k, v, dout = tensors
+    opts = dict(causal=causal, window=window, prefix_len=prefix)
+    out, lse = ref.flash_attention_lse(q, k, v, **opts)
+    got = _k1_bf16(q, k, v, out, dout, lse, causal, window, prefix,
+                   p_terms, ds_terms)
+    weights = jnp.asarray(dout.float().numpy())
+
+    def loss(q, k, v):
+        return (blockwise_attention(q, k, v, q_chunk=16, kv_chunk=16,
+                                    **opts) * weights).sum()
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        *(jnp.asarray(x.float().numpy()) for x in (q, k, v)))
+    want = [torch.from_numpy(np.array(w)).bfloat16() for w in want]
+    return got, want, flash_attention_bwd_bf16_bound(
+        q, k, v, out, dout, lse, got, want, **opts)
+
+
+# (b, s, h, kvh, hd, causal, window, prefix, cancel): causal, a window,
+# the prefix, full attention with and without a window; groups 1, 4 and 8;
+# and the inputs whose output cancels (where one bf16 dS fails)
+_K1_BF16 = [(1, 64, 4, 4, 32, True, None, 0, False),
+            (1, 80, 8, 2, 32, True, 24, 0, False),
+            (2, 48, 8, 1, 64, True, None, 16, False),
+            (1, 56, 4, 1, 32, False, None, 0, False),
+            (1, 60, 8, 1, 32, False, 12, 0, False),
+            (1, 128, 4, 1, 64, False, None, 0, True),
+            (1, 128, 8, 2, 32, True, None, 0, True)]
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd,causal,window,prefix,cancel",
+                         _K1_BF16)
+def test_k1_bf16_split_arithmetic_holds_the_bound_against_jax(
+        b, s, h, kvh, hd, causal, window, prefix, cancel, rng):
+    """K1's bf16 tensor-core arithmetic, P and dS as two bf16 terms each,
+    against jax.grad through the reference's blockwise attention on the
+    same bf16 values: inside flash_attention_bwd_bf16_bound, the bound
+    the card holds the kernel to."""
+    tensors = _k1_bf16_inputs(rng, b, s, h, kvh, hd, cancel)
+    got, want, bounds = _k1_bf16_against_jax(tensors, causal, window,
+                                             prefix)
+    for g, w, bound in zip(got, want, bounds):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert ((g.float() - w.float()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("term", ["p", "ds"])
+def test_k1_bound_does_not_admit_a_single_bf16_p_or_ds(term, rng):
+    """One bf16 rounding of P moves dV past the bound (random inputs), and
+    one of dS moves dQ past it (inputs whose output cancels): why the
+    kernel carries both as two terms.  The same inputs with two terms stay
+    inside it."""
+    cancel = term == "ds"
+    tensors = _k1_bf16_inputs(rng, 1, 128, 8, 2, 32, cancel)
+    single = dict(p_terms=1) if term == "p" else dict(ds_terms=1)
+    got, want, bounds = _k1_bf16_against_jax(tensors, True, None, 0,
+                                             **single)
+    index = 2 if term == "p" else 0   # dV, or dQ
+    assert ((got[index].float() - want[index].float()).abs()
+            > bounds[index]).any()
+    got, want, bounds = _k1_bf16_against_jax(tensors, True, None, 0)
+    assert ((got[index].float() - want[index].float()).abs()
+            <= bounds[index]).all()
+
+
+# (bkv, s, group, hd, causal, window, prefix, sms): paligemma's prefill
+# (B = 4, MQA, prefix 256, hd 256), qwen3-moe's (group 16), a ragged S, a
+# window, full attention with a window on a small card, and danube's
+# training shape, whose grid is large enough unsplit
+@pytest.mark.parametrize("bkv,s,group,hd,causal,window,prefix,sms", [
+    (4, 1024, 8, 256, True, None, 256, 132),
+    (16, 512, 16, 128, True, None, 0, 132),
+    (16, 1000, 4, 80, True, None, 0, 132),
+    (2, 700, 4, 64, True, 100, 0, 132),
+    (1, 300, 2, 32, False, 50, 0, 16),
+    (32, 4096, 4, 80, True, 4096, 0, 132)])
+def test_bwd_split_plan_covers_each_walk_once(bkv, s, group, hd, causal,
+                                              window, prefix, sms):
+    """K1's dK / dV split plan: each key tile's walk (head of the group,
+    query tile) covers every query tile holding a kept pair of the tile
+    and is cut into contiguous splits that cover each item exactly once,
+    each split within one item of an equal share of the tile's kept pairs;
+    entries run heaviest first, a tile's slots are consecutive, and the
+    grid comes to about BWD_BLOCKS_PER_SM blocks an SM.  A grid with that
+    many blocks unsplit is not split."""
+    bk, bq = cuda_fa.BWD_TILES[hd]
+    tiles = -(-s // bk)
+    made = cuda_fa.bwd_split_plan(bkv, s, group, bk, bq, causal, window,
+                                  prefix, sms)
+    if bkv * tiles >= cuda_fa.BWD_BLOCKS_PER_SM * sms:
+        assert made is None
+        return
+    plan, entries, slots = made
+    rows = plan[:4 * entries].reshape(entries, 4)
+    firsts = plan[4 * entries:].reshape(tiles, 2)
+    pos = torch.arange(s)
+    keep = ref.attention_keep(pos, pos, causal=causal, window=window,
+                              prefix_len=prefix).numpy()
+    seen_slots, splits = [], []
+    for kt in range(tiles):
+        qt0, pairs = cuda_fa.bwd_walk_pairs(kt, s, bk, bq, causal, window,
+                                            prefix)
+        # the walk's pairs are the mask's, and it misses no kept pair
+        block = keep[:, kt * bk:(kt + 1) * bk].sum(1)
+        by_tile = np.add.reduceat(block, np.arange(0, s, bq))
+        assert (by_tile[qt0:qt0 + len(pairs)] == pairs).all()
+        assert by_tile.sum() == pairs.sum()
+        mine = rows[rows[:, 0] == kt]
+        mine = mine[np.argsort(mine[:, 1])]
+        first, n = firsts[kt]
+        assert n == len(mine) >= 1
+        assert list(mine[:, 3]) == list(range(first, first + n))
+        seen_slots += list(mine[:, 3])
+        # contiguous splits covering items 0 .. group * nq - 1 once
+        items = np.tile(pairs, group)
+        assert mine[0, 1] == 0 and mine[-1, 2] == len(items)
+        assert (mine[1:, 1] == mine[:-1, 2]).all()
+        assert (mine[:, 2] > mine[:, 1]).all()
+        share = items.sum() / n
+        for _, a, e, _ in mine:
+            assert items[a:e].sum() <= share + items.max()
+            splits.append((items[a:e].sum(), items.sum() / len(items),
+                           items.max()))
+    assert sorted(seen_slots) == list(range(slots))
+    work = np.array([sum(np.tile(cuda_fa.bwd_walk_pairs(
+        kt, s, bk, bq, causal, window, prefix)[1], group)[a:e])
+        for kt, a, e, _ in rows])
+    assert (np.diff(work) <= 0).all()   # heaviest first
+    # about BWD_BLOCKS_PER_SM blocks an SM: no split holds more than a
+    # card-wide share of the pairs (or its tile's mean item) and one item
+    want = max(tiles, cuda_fa.BWD_BLOCKS_PER_SM * sms // bkv)
+    assert entries <= want + tiles
+    quota = group * sum(cuda_fa.bwd_walk_pairs(
+        kt, s, bk, bq, causal, window, prefix)[1].sum()
+        for kt in range(tiles)) / want
+    assert all(w <= max(quota, mean) + top for w, mean, top in splits)

@@ -1,48 +1,67 @@
 #!/usr/bin/env python3
-"""Side-by-side timing of build variants of the flash-attention prefill
-kernels on one GPU: the f32 entry (the split-TF32 kernel) and the bf16
-entry (the bf16 tensor-core kernel).
+"""Side-by-side timing of build variants of the flash-attention kernels on
+one GPU: the prefill entry's f32 kernel (split TF32) and bf16 kernel
+(tensor cores), and the backward entry (K1: bf16 on the tensor cores, f32
+on the FMA pipes).
 
     python3 tools/torch_flash_variants.py [--parent ROOT]
-        [--dtypes f32,bf16] [--rounds N] [VARIANT ...]
+        [--entries fwd,bwd] [--dtypes f32,bf16] [--rounds N] [VARIANT ...]
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit.  Each variant is ``src/repro_torch/kernels/csrc/
-flash_attention.cu`` with a few lines of its text replaced (``VARIANTS``
-below; ``checkout`` is the file as it is), compiled beside
-``attention_common.cuh`` with the port's own ``nvcc`` flags into a
-temporary directory, all builds started together.  ``--parent ROOT`` adds
-the variant ``parent``: the same library built from the sources under ROOT
-(another checkout, e.g. the parent commit unpacked with ``git archive``
-into the git-ignored ``_parent/``), so old and new kernels run in one
-call.  Without variant names the script runs ``checkout`` and every
-variant of the dtypes asked for.
+flash_attention.cu`` and ``flash_attention_bwd.cu`` with a few lines of
+their text replaced (``VARIANTS`` below; ``checkout`` is the files as they
+are), each compiled beside ``attention_common.cuh`` with the port's own
+``nvcc`` flags into a temporary directory, all builds started together.
+``--parent ROOT`` adds the variant ``parent``: the same libraries built
+from the sources under ROOT (another checkout, e.g. the parent commit
+unpacked with ``git archive`` into the git-ignored ``_parent/``), so old
+and new kernels run in one call.  Without variant names the script runs
+``checkout`` and every variant of the entries and dtypes asked for.
 
 For each variant the script prints every kernel instance's registers and
-spills (``ptxas``), then, from ``cuobjdump -sass``, each f32 instance's
-tensor-core instructions by kind (``HMMA.1688.F32.TF32`` is the split-TF32
-product) and whether each instance's SASS is the first variant's
-instruction for instruction (with ``--parent``: the parent's; the
-forward's instances that also write the row log-sum-exp are ``new``
-against a parent without them).  Then it
-times the entry at every shape of its dtype (``F32_SHAPES``: every f32
-shape of ``chip_smoke.py``'s phase 3; ``BF16_SHAPES``) in rounds
+spills (``ptxas``), then, from ``cuobjdump -sass``, each instance's
+tensor-core and arithmetic instructions by kind (``HMMA.1688.F32.TF32``
+is the split-TF32 product, ``HMMA.16816.F32.BF16`` the bf16 one) and
+whether each instance's SASS is the first variant's instruction for
+instruction (with ``--parent``: the parent's; instances the first variant
+lacks are ``new``), and a ``sass_check`` line per library: the instances
+identical, different and new.  Then it times each entry asked for
+(``--entries``, ``fwd`` by default) at every shape of its dtypes in rounds
 (``--rounds``, 4 by default; variants in turn, then in reverse: parent,
 change, change, parent), each by CUDA events over a run of launches after
-warm-ups (``ms``) and by ``torch.profiler``, the kernel alone
-(``device_ms``).  Beside them, once a shape: SDPA's time (its fused
-kernels where it takes one: an explicit keep-mask for a window or the
-prefix, with the heads expanded), the plain version's, the bound (f32:
-the split-TF32 rate, 495 / 3 TFLOP/s, and the FMA peak, 67; bf16: 989;
-3.35 TB/s) and each output held against the plain version at the entry's
-tolerance (f32 rtol = atol = 2e-4; bf16 rtol 1e-2, atol 1e-3) and, bit for
-bit, against the first variant's.  A variant that must fail the tolerance
-(``one_tf32``) raises if it does not, and so do ``checkout`` and
-``parent`` if they fail it.  ``--rounds 0`` builds, reads the SASS and
-checks every variant once, with no timing.  The last lines (``summary``)
-give each variant's median times over the rounds and their ratios to the
-first variant's.  A variant whose text no longer matches the source
-raises.
+warm-ups (``ms``) and by ``torch.profiler``, the kernels alone
+(``device_ms``; for the backward the sum of its launches a call, and each
+kernel's share by name).
+
+The forward (``F32_SHAPES``: every f32 shape of ``chip_smoke.py``'s
+phase 3; ``BF16_SHAPES``): beside the variants, once a shape, SDPA's
+time (its fused kernels where it takes one: an explicit keep-mask for a
+window or the prefix, with the heads expanded), the plain version's, the
+bound (f32: the split-TF32 rate, 495 / 3 TFLOP/s, and the FMA peak, 67;
+bf16: 989; 3.35 TB/s) and each output held against the plain version at
+the entry's tolerance (f32 rtol = atol = 2e-4; bf16 rtol 1e-2, atol
+1e-3) and, bit for bit, against the first variant's.  A variant that must
+fail the tolerance (``one_tf32``) raises if it does not, and so do
+``checkout`` and ``parent`` if they fail it.
+
+The backward (``chip_smoke.py``'s ``K1_CASES``, of the dtypes asked
+for): each variant's (dq, dk, dv), given the first variant's forward out
+and lse, against torch.autograd through the plain attention (f32 within
+2e-4; bf16 within ``tests/flash_bounds.py``'s bound, reported as the
+largest fraction of it), bit for bit against a second call; beside them
+the plain backward's time, SDPA's backward (as ``chip_smoke.py`` times
+it) and the bound (the five products at 989 TFLOP/s for bf16, 495 / 3 for
+f32; 3.35 TB/s).  A bf16 call takes the split entry where the binding
+would (``bwd_split_plan``); ``unsplit`` is the checkout's kernels always
+launched unsplit.  ``checkout``, ``unsplit`` and ``parent`` raise if
+they leave the bound or differ from a second call; a variant that must
+leave it (``bwd_one_term``) raises if it does not.
+
+``--rounds 0`` builds, reads the SASS and checks every variant once, with
+no timing.  The last lines (``summary``) give each variant's median
+times over the rounds and their ratios to the first variant's.  A variant
+whose text no longer matches the source raises.
 """
 
 from __future__ import annotations
@@ -63,7 +82,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 CSRC = Path("src/repro_torch/kernels/csrc")
 SOURCE, HEADER = "flash_attention.cu", "attention_common.cuh"
+BWD_SOURCE = "flash_attention_bwd.cu"
 F32_PART = "namespace tf32x3 {"   # where the f32 kernel's code begins
+BWD_PART = "namespace tc {"       # where K1's bf16 kernels' code begins
 
 # -- the bf16 kernel's variants ----------------------------------------------
 _SPLIT_PV = """\
@@ -210,8 +231,60 @@ VARIANTS_F32 = {
         "        sc[j][e] = fmaf(sc[j][e], scale_log2, neg_m[e >> 1]);")],
     "probe_no_loads": [(_LOADER, _LOADER.replace("e < ROWS * CPR", "e < 0"))],
 }
-VARIANTS = {"checkout": [], **VARIANTS_F32, **VARIANTS_BF16}
-MUST_FAIL = {"one_tf32", "single_p"}
+# -- K1's bf16 kernels' variants (flash_attention_bwd.cu) --------------------
+_MMA_SPLIT = """\
+  mma_bf16(c0, lo, bf[0], bf[1]);
+  mma_bf16(c0, hi, bf[0], bf[1]);
+  mma_bf16(c1, lo, bf[2], bf[3]);
+  mma_bf16(c1, hi, bf[2], bf[3]);"""
+_BWD_LOADER = """\
+  for (int e = threadIdx.x; e < ROWS * CPR; e += THREADS) {"""
+_DQ_MIN_BLOCKS = ("  static constexpr int MIN_BLOCKS = HD <= 64 ? 4 : HD <= 80 ? 3 "
+                  ": 1;")
+
+VARIANTS_BWD = {
+    # P and dS as one bf16 term each: fails the bound
+    "bwd_one_term": [(_MMA_SPLIT, """\
+  mma_bf16(c0, hi, bf[0], bf[1]);
+  mma_bf16(c1, hi, bf[2], bf[3]);""")],
+    # geometry: dK / dV query tiles of 32 rows at every head dim (the
+    # split plan is made for the variant's tiles); K and V re-read by
+    # ldmatrix at every step of the dK / dV kernel; 8-warp dQ blocks (128
+    # rows)
+    "bwd_bq32": [("  static constexpr int BQ = HD <= 80 ? 64 : 32;",
+                  "  static constexpr int BQ = 32;")],
+    "bwd_kv_smem": [("  static constexpr bool IN_REGS = HD <= 80;",
+                     "  static constexpr bool IN_REGS = false;")],
+    "bwd_dq_8warps": [("struct DqPlan {\n  static constexpr int WARPS = 4;",
+                       "struct DqPlan {\n  static constexpr int WARPS = 8;")],
+    # 8 strips (128 keys) a dK / dV block up to head dim 128: each Q / dO
+    # tile feeds twice the keys
+    "bwd_dkdv_8strips": [("  static constexpr int STRIPS = 4;",
+                          "  static constexpr int STRIPS = HD <= 128 ? 8 : 4;")],
+    # registers capped so that 2 dQ blocks fit an SM at head dims 32 - 80
+    # (the kernel asks 4 below 80, 3 at 80), or 3 dK / dV blocks
+    "bwd_dq_2blocks": [(_DQ_MIN_BLOCKS, _DQ_MIN_BLOCKS.replace(
+        "? 4 : HD <= 80 ? 3", "? 2 : HD <= 80 ? 2"))],
+    "bwd_dkdv_3blocks": [("__launch_bounds__(DkvPlan<HD>::THREADS)",
+                          "__launch_bounds__(DkvPlan<HD>::THREADS, 3)")],
+    # probes (wrong results): no tile copies (the loads' share); no
+    # products of dV, dK and dQ (the second products' share)
+    "bwd_probe_no_loads": [(_BWD_LOADER,
+                            _BWD_LOADER.replace("e < ROWS * CPR", "e < 0"))],
+    "bwd_probe_no_grad_mma": [(_MMA_SPLIT, """\
+  c0[0] += __uint_as_float(hi[0] ^ lo[1] ^ bf[0] ^ bf[1]);
+  c1[0] += __uint_as_float(hi[2] ^ lo[3] ^ bf[2] ^ bf[3]);""")],
+}
+# K1's checkout kernels launched unsplit at every shape
+UNSPLIT = "unsplit"
+# dK / dV tiles (keys, query rows) of the variants whose tiles are not
+# BWD_TILES[hd]: the split plan is made for them
+BWD_TILES_OF = {"bwd_bq32": lambda hd, tiles: (tiles[0], 32),
+                "bwd_dkdv_8strips": lambda hd, tiles: (
+                    128 if hd <= 128 else 64, tiles[1])}
+VARIANTS = {"checkout": [], UNSPLIT: [], **VARIANTS_F32, **VARIANTS_BF16,
+            **VARIANTS_BWD}
+MUST_FAIL = {"one_tf32", "single_p", "bwd_one_term"}
 OWN = {"f32": VARIANTS_F32, "bf16": VARIANTS_BF16}
 
 # (label, b, s, h, kvh, hd, window, causal, prefix): every f32 shape of
@@ -240,24 +313,43 @@ TOL = {"f32": (2e-4, 2e-4), "bf16": (1e-2, 1e-3)}
 TF32_TFLOPS, BF16_TFLOPS, FP32_TFLOPS, TBS = 495.0, 989.0, 67.0, 3.35
 
 
-def sources(name: str) -> str:
-    """The text of ``flash_attention.cu`` in variant ``name``; ``a+b`` is
-    variant a's edits, then b's.  An f32 variant edits the f32 kernel's
-    part of the file (from ``F32_PART`` on), a bf16 variant the rest;
-    each text it replaces occurs there exactly once."""
+def sources(name: str) -> dict:
+    """The texts of ``flash_attention.cu`` and ``flash_attention_bwd.cu``
+    in variant ``name``, by file name; ``a+b`` is variant a's edits, then
+    b's.  An f32 variant edits the f32 kernel's part of the forward (from
+    ``F32_PART`` on), a bf16 variant the rest, a ``bwd_`` variant K1's
+    bf16 part (from ``BWD_PART`` on); each text it replaces occurs there
+    exactly once."""
     head, sep, tail = (ROOT / CSRC / SOURCE).read_text().partition(F32_PART)
-    parts = {"bf16": head, "f32": sep + tail}
+    bhead, bsep, btail = (ROOT / CSRC / BWD_SOURCE).read_text().partition(
+        BWD_PART)
+    parts = {"bf16": head, "f32": sep + tail, "bwd": bsep + btail}
     for part in name.split("+"):
-        key = "f32" if part in VARIANTS_F32 else "bf16"
+        key = ("f32" if part in VARIANTS_F32 else
+               "bwd" if part in VARIANTS_BWD else "bf16")
         for old, new in VARIANTS[part]:
             if parts[key].count(old) != 1:
                 raise ValueError(f"variant {name}: text not found once in "
-                                 f"the {key} kernel's part:\n{old}")
+                                 f"the {key} kernels' part:\n{old}")
             parts[key] = parts[key].replace(old, new)
-    return parts["bf16"] + parts["f32"]
+    return {SOURCE: parts["bf16"] + parts["f32"],
+            BWD_SOURCE: bhead + parts["bwd"]}
+
+
+def _entry(lib, name: str, argtypes):
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def build(tmp: Path, names, parent) -> dict:
+    """Build both libraries of every variant (all nvcc started together);
+    returns {variant: {entry: function}}, the split entry where the
+    variant has one."""
     from repro_torch.kernels import cuda_build
     procs = {}
     for name in names:
@@ -265,19 +357,18 @@ def build(tmp: Path, names, parent) -> dict:
         d.mkdir()
         src = Path(parent) / CSRC if name == "parent" else ROOT / CSRC
         shutil.copy(src / HEADER, d / HEADER)
-        if name == "parent":
-            shutil.copy(src / SOURCE, d / SOURCE)
-        else:
-            (d / SOURCE).write_text(sources(name))
-        procs[name] = subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-             str(d / "lib.so"), str(d / SOURCE)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    entries = {}
-    for name, proc in procs.items():
+        texts = ({f: (src / f).read_text() for f in (SOURCE, BWD_SOURCE)}
+                 if name == "parent" else sources(name))
+        for f, text in texts.items():
+            (d / f).write_text(text)
+            procs[name, f] = subprocess.Popen(
+                [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                 str(d / f"lib{Path(f).stem}.so"), str(d / f)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for (name, f), proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+            raise RuntimeError(f"nvcc failed on variant {name} {f}:\n{log}")
         lines = log.splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry function" in line:
@@ -285,11 +376,21 @@ def build(tmp: Path, names, parent) -> dict:
                 print(f"ptxas {name} {inst}: " + " | ".join(
                     x.strip() for x in lines[i + 1:i + 4]
                     if "registers" in x or "spill" in x), flush=True)
-        fn = ctypes.CDLL(str(tmp / name / "lib.so")).flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        entries[name] = fn
+    entries = {}
+    for name in names:
+        fwd = ctypes.CDLL(str(tmp / name / "libflash_attention.so"))
+        bwd = ctypes.CDLL(str(tmp / name / "libflash_attention_bwd.so"))
+        entries[name] = {
+            "fwd": _entry(fwd, "flash_attention_fwd",
+                          [P] * 4 + [I] * 9 + [F, P]),
+            "fwd_lse": _entry(fwd, "flash_attention_fwd_lse",
+                              [P] * 5 + [I] * 9 + [F, P]),
+            "bwd": _entry(bwd, "flash_attention_bwd",
+                          [P] * 10 + [I] * 9 + [F, P])}
+        if hasattr(bwd, "flash_attention_bwd_split") and name != UNSPLIT:
+            entries[name]["bwd_split"] = _entry(
+                bwd, "flash_attention_bwd_split",
+                [P] * 10 + [I] * 8 + [F, I, I, P, I, P, P])
     return entries
 
 
@@ -326,30 +427,43 @@ def sass(so: Path) -> dict:
 
 
 def report_sass(tmp: Path, names) -> None:
-    """Whether each instance is the first variant's instruction for
-    instruction (``new`` where the first has no such instance: the
-    forward with the row log-sum-exp against a parent without it), and
-    each f32 instance's tensor-core instructions by kind."""
-    codes = {name: sass(tmp / name / "lib.so") for name in names}
-    base = codes[names[0]]
-    for name in names:
-        for fn, ins in sorted(codes[name].items()):
+    """For each library, whether each instance is the first variant's
+    instruction for instruction (``new`` where the first has no such
+    instance: the forward with the row log-sum-exp against a parent
+    without it, K1's bf16 kernels against a parent with the FMA ones),
+    each instance's tensor-core and arithmetic instructions by kind (the
+    forward's bf16 instances excepted), and a ``sass_check`` line
+    counting them."""
+    for lib in ("libflash_attention.so", "libflash_attention_bwd.so"):
+        codes = {name: sass(tmp / name / lib) for name in names}
+        base = codes[names[0]]
+        for name in names:
+            counts = {"identical": [], "different": [], "new": []}
+            for fn, ins in sorted(codes[name].items()):
+                if name != names[0]:
+                    same = ("new" if fn not in base else
+                            "identical" if base[fn] == ins else "different")
+                    counts[same].append(fn)
+                    print(f"sass {name} vs {names[0]} {fn}: {len(ins)} / "
+                          f"{len(base.get(fn, []))} instructions, {same}",
+                          flush=True)
+                if "bf16_mma" in fn:
+                    continue
+                kinds = {}
+                for i in ins:
+                    op = i.split()[0] if not i.startswith("@") \
+                        else i.split()[1]
+                    if op.startswith(("HMMA", "FFMA", "MUFU", "LDS",
+                                      "LDGSTS", "F2F", "FADD", "LDSM")):
+                        kinds[op] = kinds.get(op, 0) + 1
+                print(f"sass {name} {fn}: {len(ins)} instructions, "
+                      + json.dumps(dict(sorted(kinds.items()))), flush=True)
             if name != names[0]:
-                same = ("new" if fn not in base else
-                        "identical" if base[fn] == ins else "different")
-                print(f"sass {name} vs {names[0]} {fn}: {len(ins)} / "
-                      f"{len(base.get(fn, []))} instructions, {same}",
-                      flush=True)
-            if "bf16" in fn:
-                continue
-            kinds = {}
-            for i in ins:
-                op = i.split()[0] if not i.startswith("@") else i.split()[1]
-                if op.startswith(("HMMA", "FFMA", "MUFU", "LDS", "LDGSTS",
-                                  "F2F", "FADD")):
-                    kinds[op] = kinds.get(op, 0) + 1
-            print(f"sass {name} {fn}: {len(ins)} instructions, "
-                  + json.dumps(dict(sorted(kinds.items()))), flush=True)
+                print("sass_check " + json.dumps(
+                    {"variant": name, "base": names[0], "library": lib,
+                     **{k: len(v) for k, v in counts.items()},
+                     "different_instances": counts["different"]}),
+                    flush=True)
 
 
 def attention_pairs(s, causal, window, prefix) -> int:
@@ -459,7 +573,7 @@ def run_shapes(dtype, names, rounds, entries, results) -> None:
         firsts = {}
         for rnd, order in enumerate(orders(names, max(rounds, 1))):
             for name in order:
-                fn = entries[name]
+                fn = entries[name]["fwd"]
                 try:   # a variant may not fit a head dim in shared memory
                     launch(fn)
                 except RuntimeError as err:
@@ -496,6 +610,175 @@ def run_shapes(dtype, names, rounds, entries, results) -> None:
         torch.cuda.empty_cache()
 
 
+def kernel_ms(fn, reps: int) -> dict:
+    """Mean ms a call of each kernel ``fn`` launches, by name (the
+    template arguments dropped), by torch.profiler over ``reps`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            found = re.search(r"(\w+)<", e.key) or \
+                re.search(r"(\w+)\(", e.key)
+            name = found.group(1) if found else e.key
+            out[name] = out.get(name, 0.0) + \
+                e.self_device_time_total / 1e3 / reps
+    if not out:
+        raise RuntimeError("the profiler recorded no kernel")
+    return out
+
+
+def run_bwd_shapes(dtypes, names, rounds, entries, results) -> None:
+    """K1 at chip_smoke.py's K1_CASES of ``dtypes``: each variant held to
+    the plain gradient and a second call, then timed (module docstring)."""
+    import torch
+    import torch.nn.functional as F
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))
+    import chip_smoke
+    from flash_bounds import flash_attention_bwd_bf16_bound
+    from repro_torch.kernels import flash_attention as cuda_fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, b, s, h, kvh, hd, window, dt, causal, prefix in \
+            chip_smoke.K1_CASES:
+        bf16 = dt == "bfloat16"
+        if ("bf16" if bf16 else "f32") not in dtypes:
+            continue
+        tdt = getattr(torch, dt)
+        q, dout = (torch.randn(b, s, h, hd, device="cuda", generator=gen
+                               ).to(tdt) for _ in range(2))
+        k, v = (torch.randn(b, s, kvh, hd, device="cuda", generator=gen
+                            ).to(tdt) for _ in range(2))
+        opts = dict(causal=causal, window=window, prefix_len=prefix)
+        out = torch.empty_like(q)
+        lse = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+        common = (b, s, h, kvh, hd, int(causal), window or 0, prefix)
+        if entries[names[0]]["fwd_lse"](
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *common, int(bf16), hd ** -0.5, stream):
+            raise RuntimeError("flash_attention_fwd_lse failed")
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        ref.flash_attention(*leaves, **opts).backward(dout)
+        want = [x.grad for x in leaves]
+        del leaves
+        flops = 10.0 * b * h * hd * attention_pairs(s, causal, window,
+                                                     prefix)
+        nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) \
+            + 4 * b * h * s
+        peak = BF16_TFLOPS if bf16 else TF32_TFLOPS / 3
+        meta = {"dtype": dt, "flops": flops,
+                "bound_ms": max(nbytes / TBS / 1e9, flops / peak / 1e9)}
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        delta = torch.empty_like(lse)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common)
+        splits = {}
+        for name in names:
+            tiles = cuda_fa.BWD_TILES[hd]
+            for part in name.split("+"):
+                if part in BWD_TILES_OF:
+                    tiles = BWD_TILES_OF[part](hd, tiles)
+            made = cuda_fa.bwd_split_plan(b * kvh, s, h // kvh, *tiles,
+                                          causal, window, prefix, sms)
+            if bf16 and made is not None and "bwd_split" in entries[name]:
+                plan, n, slots = made
+                splits[name] = (tiles, torch.from_numpy(plan).cuda(), n,
+                                torch.empty(slots * b * kvh * 2 * tiles[0]
+                                            * hd, device="cuda"))
+        meta["split_entries"] = splits["checkout"][2] \
+            if "checkout" in splits else 0
+
+        def launch(name):
+            if name in splits:
+                (bk, bq), plan, n, ws = splits[name]
+                code = entries[name]["bwd_split"](
+                    *args, hd ** -0.5, bk, bq, plan.data_ptr(), n,
+                    ws.data_ptr(), stream)
+            else:
+                code = entries[name]["bwd"](*args, int(bf16), hd ** -0.5,
+                                            stream)
+            if code:
+                raise RuntimeError(f"{name}: launch failed with {code}")
+
+        reps = max(3, min(100, int(40 / max(meta["bound_ms"] * 10, 0.01))))
+        if rounds:
+            qt, kt, vt, mask = chip_smoke.sdpa_inputs(q, k, v, causal,
+                                                      window, prefix)
+            lq, lk, lv = (x.detach().requires_grad_(True)
+                          for x in (qt, kt, vt))
+            lib_out = F.scaled_dot_product_attention(
+                lq, lk, lv, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=mask is None)
+            gt = dout.transpose(1, 2)
+            meta["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                lib_out, (lq, lk, lv), gt, retain_graph=True), reps)
+            meta["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd(
+                q, k, v, out, dout, lse, **opts), 3)
+            del qt, kt, vt, mask, lq, lk, lv, lib_out
+        # the variants edit the bf16 kernels: f32 shapes run the parent's
+        # and the checkout's alone
+        mine = names if bf16 else [n for n in names
+                                   if n in ("parent", "checkout")]
+        for rnd, order in enumerate(orders(mine, max(rounds, 1))):
+            for name in order:
+                rec = {"variant": name, "round": rnd, "case": label}
+                if rnd == 0:
+                    launch(name)
+                    got = (dq.clone(), dk.clone(), dv.clone())
+                    launch(name)
+                    torch.cuda.synchronize()
+                    rec["same_bits_twice"] = all(
+                        torch.equal(a, b_) for a, b_ in zip(got, (dq, dk,
+                                                                  dv)))
+                    if bf16:
+                        bounds = flash_attention_bwd_bf16_bound(
+                            q, k, v, out, dout, lse, got, want, **opts)
+                        frac = max(float(((g.float() - w.float()).abs()
+                                          / bd).max())
+                                   for g, w, bd in zip(got, want, bounds))
+                        del bounds
+                    else:
+                        frac = max(float(((g - w).abs() - 2e-4 * w.abs()
+                                          ).max()) / 2e-4
+                                   for g, w in zip(got, want))
+                    rec["max_abs_err"] = max(float((g.float() - w.float()
+                                                    ).abs().max())
+                                             for g, w in zip(got, want))
+                    rec["of_bound"] = frac
+                    within = frac <= 1.0 and rec["same_bits_twice"]
+                    if name in MUST_FAIL and bf16 and frac <= 1.0:
+                        raise AssertionError(f"{name} {label} is within "
+                                             "the bound it must leave")
+                    if name in ("checkout", "parent", UNSPLIT) \
+                            and not within:
+                        raise AssertionError(f"{name} {label}: {rec}")
+                    del got
+                if rounds:
+                    rec["ms"] = time_ms(lambda: launch(name), reps)
+                    by_kernel = kernel_ms(lambda: launch(name),
+                                          min(reps, 10))
+                    rec["device_ms"] = sum(by_kernel.values())
+                    rec["kernels_ms"] = by_kernel
+                    rec["tflops"] = flops / rec["device_ms"] / 1e9
+                    slot = results.setdefault(label, {"_meta": meta})
+                    slot.setdefault(name, []).append(
+                        {k: rec[k] for k in ("ms", "device_ms")})
+                print(json.dumps({**rec, **meta}), flush=True)
+        del q, k, v, dout, out, lse, want, dq, dk, dv, delta, splits
+        torch.cuda.empty_cache()
+
+
 def summary(names, results) -> None:
     base = names[0]
     for label, by in results.items():
@@ -514,6 +797,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="root of another checkout, built as "
                     "the variant 'parent' and run first")
+    ap.add_argument("--entries", default="fwd",
+                    help="comma-separated: fwd (the prefill entry), bwd "
+                    "(K1) (default fwd)")
     ap.add_argument("--dtypes", default="f32",
                     help="comma-separated: f32, bf16 (default f32)")
     ap.add_argument("--rounds", type=int, default=4,
@@ -525,10 +811,10 @@ def main() -> int:
         print("torch_flash_variants: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    dtypes = args.dtypes.split(",")
+    dtypes, kinds = args.dtypes.split(","), args.entries.split(",")
     names = args.variants or ["checkout"] + [
-        n for d in dtypes
-        for n in OWN[d]]
+        n for d in dtypes for n in OWN[d] if "fwd" in kinds] + (
+        [UNSPLIT, *VARIANTS_BWD] if "bwd" in kinds else [])
     unknown = [n for n in names
                if any(part not in VARIANTS for part in n.split("+"))]
     if unknown:
@@ -543,12 +829,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         entries = build(Path(tmp), names, args.parent)
         report_sass(Path(tmp), names)
-        for dtype in dtypes:
+        for dtype in dtypes if "fwd" in kinds else ():
             # a dtype's shapes run the parent, the checkout and its own
             # kernel's variants
             mine = [n for n in names if n in ("parent", "checkout") or all(
                 part in OWN[dtype] for part in n.split("+"))]
             run_shapes(dtype, mine, args.rounds, entries, results)
+        if "bwd" in kinds:
+            # K1's shapes run the parent, the checkout and K1's variants
+            mine = [n for n in names if n in ("parent", "checkout", UNSPLIT)
+                    or all(part in VARIANTS_BWD for part in n.split("+"))]
+            run_bwd_shapes(dtypes, mine, args.rounds, entries, results)
     summary(names, results)
     return 0
 
