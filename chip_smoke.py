@@ -1257,8 +1257,9 @@ def check_flash_bwd(q, k, v, dout, causal, window, peaks_, label,
     tests/flash_bounds.py, derived from the rounding of the
     inputs and outputs).  Timed beside the plain versions and SDPA's
     forward and backward (``enable_gqa``; the expanded heads and an
-    explicit mask where the mask needs one), naming the backend SDPA ran.
-    Returns the (forward with LSE, backward) records."""
+    explicit mask where the mask needs one), naming the backend SDPA ran;
+    the backward's record counts the split plan's entries (``splits``, 0:
+    unsplit).  Returns the (forward with LSE, backward) records."""
     import torch
     import torch.nn.functional as F
     from flash_bounds import flash_attention_bwd_bf16_bound
@@ -1349,7 +1350,8 @@ def check_flash_bwd(q, k, v, dout, causal, window, peaks_, label,
                            *peaks_, log_it=False)
     rec.update({"errs_dq_dk_dv": errs, "tflops": flops / bwd_ms / 1e9,
                 "library": f"sdpa backward ({backend})",
-                "library_kernel": backend})
+                "library_kernel": backend,
+                "splits": cuda_fa.bwd_splits(q, k, **opts)})
     log("kernel " + json.dumps(rec))
     recs.append(rec)
     del lib_out, lq, lk, lv, out, lse

@@ -477,11 +477,14 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
 
 namespace tf32x3 {
 
+using attn::add4;
 using attn::cp_async16;
 using attn::cp_async_commit;
 using attn::cp_async_wait;
 using attn::exp2_approx;
+using attn::mma_split;
 using attn::smem_addr;
+using attn::split_tf32;
 
 // Geometry of a block: 8 warps, each on a strip of 16 query rows and BKW
 // keys of each BK-key K / V tile.  Without KSPLIT the 8 warps take 8
@@ -515,48 +518,6 @@ struct Tile {
   static_assert(sizeof(float) * BQ * (HD + 2) <= SMEM,
                 "the halves' merge fits in the ring");
 };
-
-// x = big + small as the mma takes them (it reads the top 19 bits of a
-// TF32 operand's 32).  big is x rounded to TF32, to nearest with ties away
-// from zero: 0x1000 added to the bits, the low 13 cleared -- what
-// cvt.rna.tf32.f32 gives for a finite x, in 2 instructions where cvt.rna
-// takes 4 (its guard for inf and NaN).  small = x - big is exact in f32,
-// |small| <= 2^-11 |x|, and goes in unrounded: the mma's truncation of it
-// leaves out less than 2^-21 |x|.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// c += a b for a 16x8 TF32 A fragment, an 8x8 TF32 B fragment (b0, b1)
-// and a 16x8 f32 accumulator.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b for split A (ab, as) and the B pair (b0, b1), split here: the
-// small terms' products first, then big.big.
-__device__ __forceinline__ void mma_split(float (&c)[4],
-                                          const uint32_t (&ab)[4],
-                                          const uint32_t (&as)[4], float b0,
-                                          float b1) {
-  uint32_t bb0, bs0, bb1, bs1;
-  split_tf32(b0, bb0, bs0);
-  split_tf32(b1, bb1, bs1);
-  mma_tf32(c, as, bb0, bb1);
-  mma_tf32(c, ab, bs0, bs1);
-  mma_tf32(c, ab, bb0, bb1);
-}
-
-__device__ __forceinline__ void add4(float (&c)[4], const float (&d)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += d[e];
-}
 
 // Start copying rows pos0 .. pos0 + ROWS - 1 of a (rows x HD) f32 matrix
 // whose rows lie `row_stride` elements apart into dst[row * LD + d]; rows

@@ -91,15 +91,44 @@
 //   Work issued: S and dP in both kernels and two products for each of
 //   dV, dK and dQ, 10 bf16 product units against the 5 of the bound.
 //
-// f32 -> flash_bwd_dq<float>, flash_bwd_dkdv<float>, on the fp32 FMA pipes
-// (67 TFLOP/s at most): tiles in shared memory, 16 x 16 threads each
-// holding a register tile: the S and dP tiles as 4 (or 2) rows x 4 (or 2)
-// strided keys, summed over the head dim in 16-byte shared loads, and the
-// gradient tiles as 4 (or 2) rows x HD / 16 strided columns.  Loads are
-// synchronous (no ring); two blocks an SM hide them where shared memory
-// allows.  The dQ kernel: one block per (64 query rows (32 at head dim
-// 256), head, batch); the dK / dV kernel: one per (64 keys (32 at head dim
-// 256), KV head, batch).
+// f32 -> flash_bwd_dq_3xtf32, flash_bwd_dkdv_3xtf32 (namespace tf32x3),
+// the same backward on the TF32 tensor cores with split operands, as the
+// forward's flash_attention_3xtf32: every operand x goes into
+// mma.sync.m16n8k8 as big = x rounded to TF32 and small = x - big, three
+// products small.big + big.small + big.big (attention_common.cuh's
+// split_tf32 and mma_split), about 21 bits of each operand; one TF32
+// product moves dq, dk or dv past the f32 path's 2e-4:
+//   * the five products: S = Q K^T and dP = dO V^T (recomputed in both
+//     kernels), dQ += dS K, dV += P^T dO and dK += dS^T Q; P and dS are
+//     split in the accumulators' registers, as the forward splits P.  Runs
+//     of k8 steps are summed from zero in the accumulator, then added into
+//     S and dP (half the head dim, at most 8 steps) or dQ, dK and dV (2
+//     steps) by FADD: the accumulator's own sums are less exact;
+//   * operands stay f32 in shared memory, rows HD + 4 floats apart, read
+//     by scalar loads: a strip's A fragments (rows g, g + 8, columns t, t
+//     + 4), the first products' B pairs (row g, columns t, t + 4) and the
+//     second products' B pairs across rows (rows 2t, 2t + 1, column g;
+//     TF32 has no ldmatrix.trans) all fall on distinct banks at every head
+//     dim.  The second products take the first's accumulators as their A
+//     fragments in place, the k index a permutation of the columns (k = t
+//     <-> 2t, k = t + 4 <-> 2t + 1), and read B at the same rows;
+//   * each lane splits the fragments it reads, in registers (3
+//     instructions an element: the splits are most of what is issued);
+//   * blocks of 8 warps, 4 strips of 16 rows, two warps a strip.  dQ
+//     kernel: query strips, each warp on one half of the keys of every K /
+//     V tile (a double-buffered cp.async ring), the halves' dQ summed at
+//     the end through shared memory.  dK / dV kernel: key strips, each
+//     warp on one half of the rows of every query tile (Q, dO, lse and
+//     delta in a double-buffered ring), the halves' dK and dV summed at the
+//     end; at head dim 256 each warp on all the rows and one half of the
+//     strip's dK and dV columns (their 256 registers a thread would not
+//     fit), both computing its S^T and dP^T.  Tiles by head dim (DqPlan,
+//     DkvPlan) fit one block an SM in shared memory;
+//   * small grids split as for bf16 (the same plans, made for f32's
+//     tiles), the partials summed in f32 by tf32x3::flash_bwd_dkdv_sum.
+//   Work issued: S and dP in both kernels and dV, dK and dQ, three TF32
+//   products each, 21 product units against the 5 of the bound (f32 at
+//   495 / 3 TFLOP/s).
 
 #include <math.h>
 
@@ -109,7 +138,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256;   // 16 x 16: ty = tid / 16, tx = tid % 16
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ int key_limit(int qp, int prefix) {
@@ -123,411 +151,83 @@ __device__ __forceinline__ bool kept(int qp, int kp, int s, int causal,
          (window <= 0 || kp > qp - window);
 }
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 16 bytes of T from global memory, as f32 into shared memory at dst.
-template <typename T>
-struct Io;
-template <>
-struct Io<float> {
-  static constexpr int V = 4;   // elements in 16 bytes
-  __device__ static void load(const float* src, float* dst) {
-    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-  }
-  __device__ static float to_f32(float x) { return x; }
-};
-
-// Rows pos0 .. pos0 + ROWS - 1 of a (rows x HD) matrix of T whose rows lie
-// `row_stride` elements apart, as f32 into dst[row * LD + d]; rows at or
-// past `limit` are zeros.
-template <typename T, int HD, int ROWS, int LD>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
-                                          int64_t row_stride, int pos0,
-                                          int limit, float* dst) {
-  constexpr int V = Io<T>::V;
-  constexpr int CPR = HD / V;   // 16-byte chunks a row
-  for (int e = threadIdx.x; e < ROWS * CPR; e += THREADS) {
-    const int row = e / CPR;
-    const int col = (e % CPR) * V;
-    const int pos = pos0 + row;
-    float* d = dst + row * LD + col;
-    if (pos < limit) {
-      Io<T>::load(src + pos * row_stride + col, d);
-    } else {
-#pragma unroll
-      for (int i = 0; i < V; ++i) d[i] = 0.f;
-    }
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, c))));
-}
-
-// s[i][j] = A[r_i] . K[c_j] and dp[i][j] = dO[r_i] . V[c_j] over the head
-// dim, for rows r_i = ty * RM + i of the query tiles (qs, dos) and keys
-// c_j = tx + 16 j of the key tiles (ks, vs), all rows LD floats apart.
-template <int HD, int RM, int CN, int LD>
-__device__ __forceinline__ void scores(const float* qs, const float* dos,
-                                       const float* ks, const float* vs,
-                                       int ty, int tx, float (&s)[RM][CN],
-                                       float (&dp)[RM][CN]) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < HD; d += 4) {
-    float4 qa[RM], da[RM], kb[CN], vb[CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      qa[i] = *reinterpret_cast<const float4*>(qs + (ty * RM + i) * LD + d);
-      da[i] = *reinterpret_cast<const float4*>(dos + (ty * RM + i) * LD + d);
-    }
-#pragma unroll
-    for (int j = 0; j < CN; ++j) {
-      kb[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * LD + d);
-      vb[j] = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * LD + d);
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        s[i][j] = dot4(qa[i], kb[j], s[i][j]);
-        dp[i][j] = dot4(da[i], vb[j], dp[i][j]);
-      }
-  }
-}
-
-// P and dS of the register tile: p = exp(S scale - lse) on kept pairs (0
-// elsewhere), ds = p (dP - delta) scale; lse2 is lse in log2 units (+inf
-// for rows past S).
-template <int RM, int CN>
-__device__ __forceinline__ void softmax_grads(
-    float (&s)[RM][CN], float (&dp)[RM][CN], const float* lse2_s,
-    const float* delta_s, int ty, int tx, int q0, int k0, int s_len,
-    int causal, int window, int prefix, float scale, float scale_log2) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = ty * RM + i;
-    const float l2 = lse2_s[r], dl = delta_s[r];
-#pragma unroll
-    for (int j = 0; j < CN; ++j) {
-      const bool keep =
-          kept(q0 + r, k0 + tx + 16 * j, s_len, causal, window, prefix);
-      const float p = keep ? exp2_approx(fmaf(s[i][j], scale_log2, -l2))
-                           : 0.f;
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - dl) * scale;
-    }
-  }
-}
-
-// Query rows a block's tiles hold and keys a key tile holds, by head dim.
-template <int HD>
-struct DqTile {
-  static constexpr int BQ = HD <= 128 ? 64 : 32;
-  static constexpr int BK = HD <= 80 ? 64 : 32;
-  static constexpr int LD = HD + 4;   // f32 rows: 16-byte aligned, and the
-                                      // 8 rows of a 16-byte phase on
-                                      // distinct banks
-  static constexpr int LDS = BQ + 4;  // dS^T rows
-  static constexpr int RM = BQ / 16, CN = BK / 16, NJ = HD / 16;
-  static constexpr size_t SMEM =
-      sizeof(float) * ((2 * BQ + 2 * BK) * LD + BK * LDS + 2 * BQ);
-};
-
-template <int HD>
-struct DkvTile {
-  static constexpr int BQ = 32;
-  static constexpr int BK = HD <= 128 ? 64 : 32;
-  static constexpr int LD = HD + 4;
-  static constexpr int LDP = BK + 4;  // P and dS rows
-  static constexpr int RM = BQ / 16, CN = BK / 16, RK = BK / 16,
-                       NJ = HD / 16;
-  static constexpr size_t SMEM =
-      sizeof(float) * ((2 * BQ + 2 * BK) * LD + 2 * BQ * LDP + 2 * BQ);
-};
-
-// Each of the tile's rows r < rows: lse2_s[r] = lse in log2 units (+inf
-// past S or for a row that keeps no key, so that its p is 0).
-__device__ __forceinline__ void load_lse(const float* __restrict__ lse_row,
-                                         int q0, int rows, int s,
-                                         float* lse2_s) {
-  for (int r = threadIdx.x; r < rows; r += THREADS) {
-    const float l = q0 + r < s ? lse_row[q0 + r] : INFINITY;
-    lse2_s[r] = isinf(l) ? INFINITY : l * LOG2E;
-  }
-}
-
-// dQ, and delta for flash_bwd_dkdv.
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ out,
-             const T* __restrict__ dout, const float* __restrict__ lse,
-             float* __restrict__ delta, T* __restrict__ dq, int s, int h,
-             int kvh, int causal, int window, int prefix, float scale) {
-  using G = DqTile<HD>;
-  constexpr int BQ = G::BQ, BK = G::BK, LD = G::LD, LDS = G::LDS;
-  constexpr int RM = G::RM, CN = G::CN, NJ = G::NJ;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                  // [BQ][LD]
-  float* dos = qs + BQ * LD;         // [BQ][LD]
-  float* ks = dos + BQ * LD;         // [BK][LD]
-  float* vs = ks + BK * LD;          // [BK][LD]
-  float* dst = vs + BK * LD;         // [BK][LDS]: dS^T
-  float* lse2_s = dst + BK * LDS;    // [BQ]
-  float* delta_s = lse2_s + BQ;      // [BQ]
-
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int head = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // long rows first
-  const int kv_head = head / (h / kvh);
-  const int64_t q_row = (int64_t)h * HD, kv_row = (int64_t)kvh * HD;
-  const int64_t qoff = ((int64_t)b * s * h + head) * HD;
-  const int64_t kvoff = ((int64_t)b * s * kvh + kv_head) * HD;
-  const int64_t rowstat = ((int64_t)b * h + head) * s;   // lse, delta
-  const float scale_log2 = scale * LOG2E;
-
-  load_tile<T, HD, BQ, LD>(q + qoff, q_row, q0, s, qs);
-  load_tile<T, HD, BQ, LD>(dout + qoff, q_row, q0, s, dos);
-  load_lse(lse + rowstat, q0, BQ, s, lse2_s);
-  __syncthreads();
-  // delta = rowsum(dO * O): a warp a row at a time, in f32
-  for (int r = warp; r < BQ; r += THREADS / 32) {
-    float acc = 0.f;
-    if (q0 + r < s) {
-      const T* orow = out + qoff + (q0 + r) * q_row;
-      for (int d = lane; d < HD; d += 32)
-        acc = fmaf(dos[r * LD + d], Io<T>::to_f32(orow[d]), acc);
-    }
-    acc = attn::group_sum<32>(acc);
-    if (lane == 0) {
-      delta_s[r] = acc;
-      if (q0 + r < s) delta[rowstat + q0 + r] = acc;
-    }
-  }
-
-  // the live key tiles: the forward's
-  const int q_last = min(q0 + BQ, s) - 1;
-  int kt_end = (s + BK - 1) / BK;
-  if (causal) kt_end = min(kt_end, key_limit(q_last, prefix) / BK + 1);
-  int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
-
-  float acc[RM][NJ];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();   // the last tile's K and dS^T are read
-    load_tile<T, HD, BK, LD>(k + kvoff, kv_row, k0, s, ks);
-    load_tile<T, HD, BK, LD>(v + kvoff, kv_row, k0, s, vs);
-    __syncthreads();
-    float sc[RM][CN], dp[RM][CN];
-    scores<HD, RM, CN, LD>(qs, dos, ks, vs, ty, tx, sc, dp);
-    softmax_grads<RM, CN>(sc, dp, lse2_s, delta_s, ty, tx, q0, k0, s,
-                          causal, window, prefix, scale, scale_log2);
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j)
-        dst[(tx + 16 * j) * LDS + ty * RM + i] = dp[i][j];
-    __syncthreads();
-    // dQ += dS K: rows ty * RM + i, columns tx + 16 j
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float a[RM], kc[NJ];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = dst[c * LDS + ty * RM + i];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) kc[j] = ks[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], kc[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int pos = q0 + ty * RM + i;
-    if (pos >= s) continue;
-    T* row = dq + qoff + pos * q_row;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) row[tx + 16 * j] = attn::from_f32<T>(acc[i][j]);
-  }
-}
-
-// dK and dV of one key tile, summed over the group's query heads.
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ dk,
-               T* __restrict__ dv, int s, int h, int kvh, int causal,
-               int window, int prefix, float scale) {
-  using G = DkvTile<HD>;
-  constexpr int BQ = G::BQ, BK = G::BK, LD = G::LD, LDP = G::LDP;
-  constexpr int RM = G::RM, CN = G::CN, RK = G::RK, NJ = G::NJ;
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                  // [BK][LD]
-  float* vs = ks + BK * LD;          // [BK][LD]
-  float* qs = vs + BK * LD;          // [BQ][LD]
-  float* dos = qs + BQ * LD;         // [BQ][LD]
-  float* ps = dos + BQ * LD;         // [BQ][LDP]: P
-  float* dss = ps + BQ * LDP;        // [BQ][LDP]: dS
-  float* lse2_s = dss + BQ * LDP;    // [BQ]
-  float* delta_s = lse2_s + BQ;      // [BQ]
-
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int kv_head = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * BK;    // early keys, seen by most rows, first
-  const int g = h / kvh;
-  const int64_t q_row = (int64_t)h * HD, kv_row = (int64_t)kvh * HD;
-  const int64_t kvoff = ((int64_t)b * s * kvh + kv_head) * HD;
-  const float scale_log2 = scale * LOG2E;
-
-  // the query rows that keep one of the tile's keys
-  const int k_last = min(k0 + BK, s) - 1;
-  const int q_begin = causal && k0 >= prefix ? k0 : 0;
-  const int q_end = window > 0 ? min(s, k_last + window) : s;
-
-  load_tile<T, HD, BK, LD>(k + kvoff, kv_row, k0, s, ks);
-  load_tile<T, HD, BK, LD>(v + kvoff, kv_row, k0, s, vs);
-
-  float dka[RK][NJ], dva[RK][NJ];
-#pragma unroll
-  for (int i = 0; i < RK; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dka[i][j] = dva[i][j] = 0.f;
-
-  for (int hh = 0; hh < g; ++hh) {
-    const int head = kv_head * g + hh;
-    const int64_t qoff = ((int64_t)b * s * h + head) * HD;
-    const int64_t rowstat = ((int64_t)b * h + head) * s;
-    for (int q0 = q_begin / BQ * BQ; q0 < q_end; q0 += BQ) {
-      __syncthreads();   // the last tile's Q, dO, P and dS are read
-      load_tile<T, HD, BQ, LD>(q + qoff, q_row, q0, s, qs);
-      load_tile<T, HD, BQ, LD>(dout + qoff, q_row, q0, s, dos);
-      load_lse(lse + rowstat, q0, BQ, s, lse2_s);
-      for (int r = threadIdx.x; r < BQ; r += THREADS)
-        delta_s[r] = q0 + r < s ? delta[rowstat + q0 + r] : 0.f;
-      __syncthreads();
-      float sc[RM][CN], dp[RM][CN];
-      scores<HD, RM, CN, LD>(qs, dos, ks, vs, ty, tx, sc, dp);
-      softmax_grads<RM, CN>(sc, dp, lse2_s, delta_s, ty, tx, q0, k0, s,
-                            causal, window, prefix, scale, scale_log2);
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          ps[(ty * RM + i) * LDP + tx + 16 * j] = sc[i][j];
-          dss[(ty * RM + i) * LDP + tx + 16 * j] = dp[i][j];
-        }
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q: keys ty * RK + i, columns tx + 16 j
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        float pa[RK], da[RK], dor[NJ], qr[NJ];
-#pragma unroll
-        for (int i = 0; i < RK; ++i) {
-          pa[i] = ps[r * LDP + ty * RK + i];
-          da[i] = dss[r * LDP + ty * RK + i];
-        }
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          dor[j] = dos[r * LD + tx + 16 * j];
-          qr[j] = qs[r * LD + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < RK; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            dva[i][j] = fmaf(pa[i], dor[j], dva[i][j]);
-            dka[i][j] = fmaf(da[i], qr[j], dka[i][j]);
-          }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RK; ++i) {
-    const int pos = k0 + ty * RK + i;
-    if (pos >= s) continue;
-    T* krow = dk + kvoff + pos * kv_row;
-    T* vrow = dv + kvoff + pos * kv_row;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      krow[tx + 16 * j] = attn::from_f32<T>(dka[i][j]);
-      vrow[tx + 16 * j] = attn::from_f32<T>(dva[i][j]);
-    }
-  }
-}
-
 template <typename K>
 cudaError_t allow_smem(K kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* out,
-           const void* dout, const float* lse, float* delta, void* dq,
-           void* dk, void* dv, int b, int s, int h, int kvh, int causal,
-           int window, int prefix, float scale, cudaStream_t stream) {
-  using Q = DqTile<HD>;
-  using KV = DkvTile<HD>;
-  auto kq = flash_bwd_dq<T, HD>;
-  auto kkv = flash_bwd_dkdv<T, HD>;
+// 4 bytes from global to shared memory, asynchronously; zero when !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+// Start copying src[pos0 .. pos0 + N - 1] (f32 row statistics) into dst;
+// entries at or past `limit` are zero-filled.
+template <int N, int THREADS>
+__device__ __forceinline__ void load_rows_async(const float* __restrict__ src,
+                                                int pos0, int limit,
+                                                float* dst) {
+  for (int r = threadIdx.x; r < N; r += THREADS) {
+    const bool valid = pos0 + r < limit;
+    cp_async4(attn::smem_addr(dst + r), src + (valid ? pos0 + r : 0), valid);
+  }
+}
+
+// A K1 call: operands of type T, the shape and mask, and a split plan
+// (flash_attention_bwd_split) or none.
+template <typename T>
+struct Args {
+  const T *q, *k, *v, *out, *dout;
+  const float* lse;
+  float* delta;
+  T *dq, *dk, *dv;
+  int b, s, h, kvh, causal, window, prefix;
+  float scale;
+  const int* plan;   // null: no split
+  int nplan;
+  float* ws;
+  cudaStream_t stream;
+};
+
+// K1's launches on a.stream: the dQ kernel kq (grid H x B x query tiles of
+// Q::BQ rows), the dK / dV kernel kkv (KV x B x key tiles of KV::BK keys,
+// or x plan entries) and, with a plan, ksum (KV x B x SUM_PARTS blocks of
+// SUM_THREADS threads a key tile), which sums the partials, as a
+// programmatic dependent launch.  Returns the first failing launch's
+// cudaError_t.
+template <typename Q, typename KV, int SUM_THREADS, int SUM_PARTS,
+          typename T, typename KQ, typename KKV, typename KSUM>
+int launch_k1(const Args<T>& a, KQ kq, KKV kkv, KSUM ksum) {
   cudaError_t err = allow_smem(kq, Q::SMEM);
   if (err == cudaSuccess) err = allow_smem(kkv, KV::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  kq<<<dim3(h, b, (s + Q::BQ - 1) / Q::BQ), THREADS, Q::SMEM, stream>>>(
-      qt, kt, vt, static_cast<const T*>(out), dot, lse, delta,
-      static_cast<T*>(dq), s, h, kvh, causal, window, prefix, scale);
+  kq<<<dim3(a.h, a.b, (a.s + Q::BQ - 1) / Q::BQ), Q::THREADS, Q::SMEM,
+       a.stream>>>(a.q, a.k, a.v, a.out, a.dout, a.lse, a.delta, a.dq, a.s,
+                   a.h, a.kvh, a.causal, a.window, a.prefix, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kkv<<<dim3(kvh, b, (s + KV::BK - 1) / KV::BK), THREADS, KV::SMEM,
-        stream>>>(qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
-                  static_cast<T*>(dv), s, h, kvh, causal, window, prefix,
-                  scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(int hd, const void* q, const void* k, const void* v,
-             const void* out, const void* dout, const float* lse,
-             float* delta, void* dq, void* dk, void* dv, int b, int s, int h,
-             int kvh, int causal, int window, int prefix, float scale,
-             cudaStream_t stream) {
-#define BWD_LAUNCH(D)                                                      \
-  launch<T, D>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, s, h, kvh,   \
-               causal, window, prefix, scale, stream)
-  switch (hd) {
-    case 32: return BWD_LAUNCH(32);
-    case 64: return BWD_LAUNCH(64);
-    case 80: return BWD_LAUNCH(80);
-    case 96: return BWD_LAUNCH(96);
-    case 128: return BWD_LAUNCH(128);
-    case 256: return BWD_LAUNCH(256);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef BWD_LAUNCH
+  const int tiles = (a.s + KV::BK - 1) / KV::BK;
+  kkv<<<dim3(a.kvh, a.b, a.plan ? a.nplan : tiles), KV::THREADS, KV::SMEM,
+        a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv,
+                    reinterpret_cast<const int4*>(a.plan), a.ws, a.s, a.h,
+                    a.kvh, a.causal, a.window, a.prefix, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.plan == nullptr) return (int)err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.kvh, a.b, tiles * SUM_PARTS);
+  cfg.blockDim = dim3(SUM_THREADS);
+  cfg.stream = a.stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, ksum, (const float*)a.ws,
+                                 a.plan + 4 * a.nplan, a.dk, a.dv, a.s,
+                                 a.kvh);
 }
 
 // ---------------------------------------------------------------------------
@@ -584,13 +284,6 @@ struct DkvPlan {
       sizeof(bf16) * (2 * BK + 4 * BQ) * LD + sizeof(float) * 4 * BQ;
 };
 
-// 4 bytes from global to shared memory, asynchronously; zero when !valid.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-
 // Start copying rows pos0 .. pos0 + ROWS - 1 of a (rows x HD) matrix whose
 // rows lie `row_stride` elements apart into dst[row * (HD + 8) + d]; rows
 // at or past `limit` are zero-filled.
@@ -607,18 +300,6 @@ __device__ __forceinline__ void load_tile_async(const bf16* __restrict__ src,
     const bool valid = pos < limit;
     cp_async16(smem_addr(dst + row * (HD + 8) + col),
                src + (valid ? pos * row_stride + col : 0), valid);
-  }
-}
-
-// Start copying src[pos0 .. pos0 + N - 1] (f32 row statistics) into dst;
-// entries at or past `limit` are zero-filled.
-template <int N, int THREADS>
-__device__ __forceinline__ void load_rows_async(const float* __restrict__ src,
-                                                int pos0, int limit,
-                                                float* dst) {
-  for (int r = threadIdx.x; r < N; r += THREADS) {
-    const bool valid = pos0 + r < limit;
-    cp_async4(smem_addr(dst + r), src + (valid ? pos0 + r : 0), valid);
   }
 }
 
@@ -1140,52 +821,10 @@ flash_bwd_dkdv_sum(const float* __restrict__ ws, const int* __restrict__ tiles,
   }
 }
 
-struct Args {
-  const bf16 *q, *k, *v, *out, *dout;
-  const float* lse;
-  float* delta;
-  bf16 *dq, *dk, *dv;
-  int b, s, h, kvh, causal, window, prefix;
-  float scale;
-  const int* plan;   // null: no split
-  int nplan;
-  float* ws;
-  cudaStream_t stream;
-};
-
 template <int HD>
-int launch(const Args& a) {
-  using Q = DqPlan<HD>;
-  using KV = DkvPlan<HD>;
-  auto kq = flash_bwd_dq_mma<HD>;
-  auto kkv = flash_bwd_dkdv_mma<HD>;
-  cudaError_t err = allow_smem(kq, Q::SMEM);
-  if (err == cudaSuccess) err = allow_smem(kkv, KV::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  kq<<<dim3(a.h, a.b, (a.s + Q::BQ - 1) / Q::BQ), Q::THREADS, Q::SMEM,
-       a.stream>>>(a.q, a.k, a.v, a.out, a.dout, a.lse, a.delta, a.dq, a.s,
-                   a.h, a.kvh, a.causal, a.window, a.prefix, a.scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (a.s + KV::BK - 1) / KV::BK;
-  kkv<<<dim3(a.kvh, a.b, a.plan ? a.nplan : tiles), KV::THREADS, KV::SMEM,
-        a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv,
-                    reinterpret_cast<const int4*>(a.plan), a.ws, a.s, a.h,
-                    a.kvh, a.causal, a.window, a.prefix, a.scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || a.plan == nullptr) return (int)err;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.kvh, a.b, tiles);
-  cfg.blockDim = dim3(SUM_THREADS);
-  cfg.stream = a.stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_sum<HD>,
-                                 (const float*)a.ws, a.plan + 4 * a.nplan,
-                                 a.dk, a.dv, a.s, a.kvh);
+int launch(const Args<bf16>& a) {
+  return launch_k1<DqPlan<HD>, DkvPlan<HD>, SUM_THREADS, 1>(
+      a, flash_bwd_dq_mma<HD>, flash_bwd_dkdv_mma<HD>, flash_bwd_dkdv_sum<HD>);
 }
 
 template <int HD>
@@ -1193,9 +832,10 @@ bool takes_tiles(int bk, int bq) {
   return bk == DkvPlan<HD>::BK && bq == DkvPlan<HD>::BQ;
 }
 
-// The head dim's launch, or null for a head dim the kernels do not take
-// (or, with bk > 0, for dK / dV tiles (bk, bq) that are not its own).
-int dispatch(int hd, const Args& a, int bk, int bq) {
+// The head dim's launch, or cudaErrorInvalidValue for a head dim the
+// kernels do not take (or, with bk > 0, for dK / dV tiles (bk, bq) that
+// are not its own).
+int dispatch(int hd, const Args<bf16>& a, int bk, int bq) {
 #define TC_CASE(D) \
   case D: return bk > 0 && !takes_tiles<D>(bk, bq) ? (int)cudaErrorInvalidValue : launch<D>(a);
   switch (hd) {
@@ -1211,6 +851,645 @@ int dispatch(int hd, const Args& a, int bk, int bq) {
 }
 
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// f32: the split-TF32 tensor-core kernels
+
+namespace tf32x3 {
+
+using attn::add4;
+using attn::cp_async16;
+using attn::cp_async_commit;
+using attn::cp_async_wait;
+using attn::exp2_approx;
+using attn::mma_split;
+using attn::smem_addr;
+using attn::split_tf32;
+
+constexpr int THREADS = 256;   // 8 warps: 4 strips of 16 rows, 2 warps a strip
+// k8 steps over key or query rows (dQ, dK, dV) whose products a run sums
+// from zero in the mma's accumulator before an FADD takes it into the
+// gradient
+constexpr int ROW_RUN = 2;
+
+// The dQ kernel's geometry: 4 strips of 16 query rows, the two warps of a
+// strip each on one half (BKW keys) of every K / V tile, their dQ summed at
+// the end.  Tiles of BK keys; rows LD floats apart.
+template <int HD>
+struct DqPlan {
+  static constexpr int THREADS = tf32x3::THREADS;
+  static constexpr int BQ = 64;
+  static constexpr int BK = HD <= 128 ? 64 : 16;
+  static constexpr int BKW = BK / 2;
+  static constexpr int LD = HD + 4;
+  // the Q and dO tiles, two K and two V tiles, the rows' delta
+  static constexpr size_t SMEM =
+      sizeof(float) * ((2 * BQ + 4 * BK) * LD + BQ);
+};
+
+// The dK / dV kernel's geometry: 4 strips of 16 keys (BK = 64), two warps a
+// strip, each on one half (BQW rows) of every query tile of BQ rows, their
+// dK and dV summed at the end -- or, at head dim 256 (HSPLIT), each on all
+// BQ rows and one half (HDW columns) of the strip's dK and dV, whose 256
+// registers a thread would not fit.  kernels/flash_attention.py's
+// BWD_TILES mirrors (BK, BQ); flash_attention_bwd_split refuses a plan
+// made for others.
+template <int HD>
+struct DkvPlan {
+  static constexpr int THREADS = tf32x3::THREADS;
+  static constexpr int STRIPS = 4;
+  static constexpr bool HSPLIT = HD > 128;
+  static constexpr int BK = 16 * STRIPS;
+  static constexpr int BQ = HSPLIT ? 16 : 64;
+  static constexpr int BQW = HSPLIT ? BQ : BQ / 2;
+  static constexpr int HDW = HSPLIT ? HD / 2 : HD;
+  static constexpr int LD = HD + 4;
+  // the K and V tiles, two Q and two dO tiles, two lse and two delta rows
+  static constexpr size_t SMEM =
+      sizeof(float) * ((2 * BK + 4 * BQ) * LD + 4 * BQ);
+  static_assert(HSPLIT || 2 * BK * (HD + 8) <= 4 * BQ * LD,
+                "the halves' merge fits in the ring");
+};
+
+// Start copying rows pos0 .. pos0 + ROWS - 1 of a (rows x HD) f32 matrix
+// whose rows lie `row_stride` elements apart into dst[row * (HD + 4) + d];
+// rows at or past `limit` are zero-filled.
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_tile_async(const float* __restrict__ src,
+                                                int64_t row_stride, int pos0,
+                                                int limit, float* dst) {
+  constexpr int CPR = HD / 4;   // 16-byte chunks per row
+#pragma unroll
+  for (int e = threadIdx.x; e < ROWS * CPR; e += THREADS) {
+    const int row = e / CPR;
+    const int col = (e % CPR) * 4;
+    const int pos = pos0 + row;
+    const bool valid = pos < limit;
+    cp_async16(smem_addr(dst + row * (HD + 4) + col),
+               src + (valid ? pos * row_stride + col : 0), valid);
+  }
+}
+
+// The split A fragment of a strip's k8 step at p = &A[row g][column t]
+// (rows LD floats apart): a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4),
+// a3 = (g + 8, t + 4).
+template <int LD>
+__device__ __forceinline__ void load_split(const float* p, uint32_t (&big)[4],
+                                           uint32_t (&small)[4]) {
+  split_tf32(p[0], big[0], small[0]);
+  split_tf32(p[8 * LD], big[1], small[1]);
+  split_tf32(p[4], big[2], small[2]);
+  split_tf32(p[8 * LD + 4], big[3], small[3]);
+}
+
+// c[j] = A B_j^T over the head dim: A a strip of 16 rows (a = &A[row
+// g][column t]), B_j rows 8 j .. 8 j + 7 of a tile (b = &B[row g][column
+// t]), both rows LD floats apart.  A's split fragments are read a k8 step
+// at a time, B's pairs (row g, columns t and t + 4) split by mma_split;
+// runs of half the head dim (at most 8 k8 steps) are summed from zero in
+// the accumulator and added into c by FADD.
+template <int HD, int LD, int NJ>
+__device__ __forceinline__ void row_products(const float* a, const float* b,
+                                             float (&c)[NJ][4]) {
+  constexpr int RUN = HD / 16 < 8 ? HD / 16 : 8;
+  static_assert(HD / 8 % RUN == 0, "runs must cut the k8 steps evenly");
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+  for (int kr = 0; kr < HD / 8; kr += RUN) {
+    float part[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll
+    for (int kk = kr; kk < kr + RUN; ++kk) {
+      uint32_t ab[4], as[4];
+      load_split<LD>(a + 8 * kk, ab, as);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        mma_split(part[j], ab, as, b[8 * j * LD + 8 * kk],
+                  b[8 * j * LD + 8 * kk + 4]);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) add4(c[j], part[j]);
+  }
+}
+
+// acc[n] += X B_n: X the accumulators of NK n8 tiles (16 rows x 8 NK
+// columns; lane holds columns 2t, 2t + 1 of each) taken as NK k8 steps in
+// place, k = t <-> column 2t and k = t + 4 <-> 2t + 1, split here; B rows
+// 8 kk .. 8 kk + 7 of k8 step kk and columns 8 n .. 8 n + 7 of n8 tile n (b
+// = &B[row 2t][column g], rows LD floats apart): b0 = B[2t][g], b1 =
+// B[2t + 1][g].  Runs of ROW_RUN k8 steps summed from zero, then added.
+template <int LD, int NK, int NT>
+__device__ __forceinline__ void col_products(const float (&x)[NK][4],
+                                             const float* b,
+                                             float (&acc)[NT][4]) {
+  constexpr int RUN = NK < ROW_RUN ? NK : ROW_RUN;
+  static_assert(NK % RUN == 0, "runs must cut the k8 steps evenly");
+#pragma unroll
+  for (int kr = 0; kr < NK; kr += RUN) {
+    uint32_t xb[RUN][4], xs[RUN][4];
+#pragma unroll
+    for (int r = 0; r < RUN; ++r) {
+      split_tf32(x[kr + r][0], xb[r][0], xs[r][0]);
+      split_tf32(x[kr + r][2], xb[r][1], xs[r][1]);
+      split_tf32(x[kr + r][1], xb[r][2], xs[r][2]);
+      split_tf32(x[kr + r][3], xb[r][3], xs[r][3]);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < RUN; ++r) {
+        const float* bp = b + 8 * (kr + r) * LD + 8 * n;
+        mma_split(part, xb[r], xs[r], bp[0], bp[LD]);
+      }
+      add4(acc[n], part);
+    }
+  }
+}
+
+// dQ, and delta for the dK / dV kernel.  Grid (H, B, query tiles).
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ out,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    float* __restrict__ dq, int s, int h, int kvh,
+                    int causal, int window, int prefix, float scale) {
+  using P = DqPlan<HD>;
+  constexpr int BQ = P::BQ, BK = P::BK, BKW = P::BKW, LD = P::LD;
+  constexpr int NJ = BKW / 8;   // n8 tiles of S and dP: the warp's keys
+  constexpr int NT = HD / 8;    // n8 tiles of dQ
+  constexpr int MLD = HD + 8;   // rows of the halves' merge
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                  // [BQ][LD]
+  float* dos = qs + BQ * LD;         // [BQ][LD]
+  float* ks = dos + BQ * LD;         // [2][BK][LD]
+  float* vs = ks + 2 * BK * LD;      // [2][BK][LD]
+  float* dl_s = vs + 2 * BK * LD;    // [BQ]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int strip = warp & 3, half = warp >> 2;
+  const int head = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // long rows first
+  const int qw = q0 + 16 * strip;                     // the warp's strip
+  const int kv_head = head / (h / kvh);
+  const int64_t q_row = (int64_t)h * HD, kv_row = (int64_t)kvh * HD;
+  const int64_t qoff = ((int64_t)b * s * h + head) * HD;
+  const float* kb = k + ((int64_t)b * s * kvh + kv_head) * HD;
+  const float* vb = v + ((int64_t)b * s * kvh + kv_head) * HD;
+  const int64_t rowstat = ((int64_t)b * h + head) * s;   // lse, delta
+  const float scale_log2 = scale * LOG2E;
+
+  // the live key tiles: the forward's
+  const int q_last = min(q0 + BQ, s) - 1;
+  int kt_end = (s + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, key_limit(q_last, prefix) / BK + 1);
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+
+  load_tile_async<HD, BQ>(q + qoff, q_row, q0, s, qs);
+  load_tile_async<HD, BQ>(dout + qoff, q_row, q0, s, dos);
+  cp_async_commit();
+  load_tile_async<HD, BK>(kb, kv_row, kt_begin * BK, s, ks);
+  load_tile_async<HD, BK>(vb, kv_row, kt_begin * BK, s, vs);
+  cp_async_commit();
+  cp_async_wait<1>();   // Q and dO are in
+  __syncthreads();
+
+  // delta = rowsum(dO * O) in f32, a warp on BQ / 8 rows
+  for (int r = warp * (BQ / 8); r < (warp + 1) * (BQ / 8); ++r) {
+    const int pos = q0 + r;
+    float acc = 0.f;
+    if (pos < s) {
+      const float* orow = out + qoff + pos * q_row;
+      for (int d = lane; d < HD; d += 32)
+        acc = fmaf(dos[r * LD + d], orow[d], acc);
+    }
+    acc = attn::group_sum<32>(acc);
+    if (lane == 0) {
+      dl_s[r] = acc;
+      if (pos < s) delta[rowstat + pos] = acc;
+    }
+  }
+  // rows g and g + 8 of the strip: lse in log2 units (+inf past S, so that
+  // p = 0 there; a row inside S keeps its own key, so its lse is finite)
+  // and delta
+  float l2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pos = qw + g + 8 * i;
+    l2[i] = pos < s ? lse[rowstat + pos] * LOG2E : INFINITY;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) dl[i] = dl_s[16 * strip + g + 8 * i];
+
+  const float* qa = qs + (16 * strip + g) * LD + t;
+  const float* da = dos + (16 * strip + g) * LD + t;
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    cp_async_wait<0>();   // tile kt is in
+    __syncthreads();      // ... for every thread; the other buffer is free
+    if (kt + 1 < kt_end) {
+      load_tile_async<HD, BK>(kb, kv_row, (kt + 1) * BK, s,
+                              ks + (buf ^ 1) * BK * LD);
+      load_tile_async<HD, BK>(vb, kv_row, (kt + 1) * BK, s,
+                              vs + (buf ^ 1) * BK * LD);
+    }
+    cp_async_commit();
+
+    const int k0 = kt * BK + half * BKW;   // the warp's first key
+    // keys wholly masked for this warp's rows (or a warp past S)
+    if (qw >= s || k0 >= s || (causal && k0 > key_limit(qw + 15, prefix)) ||
+        (window > 0 && k0 + BKW - 1 <= qw - window))
+      continue;
+
+    // S = Q K^T and dP = dO V^T over the warp's keys
+    const float* ktile = ks + (buf * BK + half * BKW) * LD;
+    const float* vtile = vs + (buf * BK + half * BKW) * LD;
+    float sc[NJ][4], dp[NJ][4];
+    row_products<HD, LD, NJ>(qa, ktile + g * LD + t, sc);
+    row_products<HD, LD, NJ>(da, vtile + g * LD + t, dp);
+
+    // P and dS / scale on the accumulators: rows g (e = 0, 1), g + 8 (2,
+    // 3), keys 8 j + 2 t + (e & 1); the mask on keys the warp's rows cut
+    // only (a select, so that a masked entry's exp never reaches dS)
+    const bool interior = k0 + BKW <= s &&
+                          (!causal || k0 + BKW - 1 <= key_limit(qw, prefix)) &&
+                          (window <= 0 || k0 > qw + 15 - window);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2_approx(fmaf(sc[j][e], scale_log2, -l2[e >> 1]));
+        if (!interior &&
+            !kept(qw + g + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1), s,
+                  causal, window, prefix))
+          p = 0.f;
+        sc[j][e] = p * (dp[j][e] - dl[e >> 1]);
+      }
+
+    // dQ / scale += (dS / scale) K: K[key 2t, 2t + 1][column g]
+    col_products<LD, NJ, NT>(sc, ktile + 2 * t * LD + g, acc);
+  }
+
+  // the halves' dQ summed by the first (the second's through shared
+  // memory, free once every warp is past the loop), scaled and written as
+  // float2 stores; rows past S are not written
+  float* mo = smem;   // [BQ][MLD]
+  const int row0 = 16 * strip + g;
+  cp_async_wait<0>();
+  __syncthreads();
+  if (half == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        *reinterpret_cast<float2*>(mo + (row0 + 8 * r) * MLD + 8 * n + 2 * t) =
+            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pos = qw + g + 8 * r;
+    if (pos >= s) continue;
+    float* row = dq + qoff + pos * q_row + 2 * t;
+    const float* other = mo + (row0 + 8 * r) * MLD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 x = *reinterpret_cast<const float2*>(other + 8 * n);
+      *reinterpret_cast<float2*>(row + 8 * n) =
+          make_float2((acc[n][2 * r] + x.x) * scale,
+                      (acc[n][2 * r + 1] + x.y) * scale);
+    }
+  }
+}
+
+// dK and dV of one key tile, summed over the group's query heads.  Grid
+// (KV, B, key tiles), or (KV, B, plan entries) with a plan: entry z =
+// {key tile, first item, end item, workspace slot} of the tile's walk
+// (item i = head i / nq of the group, query tile i % nq), and then the
+// block writes f32 partials to ws[(slot, b, kv head)][dK, dV][BK][HD].
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_3xtf32(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv,
+                      const int4* __restrict__ plan, float* __restrict__ ws,
+                      int s, int h, int kvh, int causal, int window,
+                      int prefix, float scale) {
+  using P = DkvPlan<HD>;
+  constexpr int BQ = P::BQ, BK = P::BK, BQW = P::BQW, HDW = P::HDW;
+  constexpr int LD = P::LD;
+  constexpr int NJ = BQW / 8;   // n8 tiles of S^T and dP^T: the warp's rows
+  constexpr int NT = HDW / 8;   // n8 tiles of the warp's dK and dV
+  constexpr int MLD = HD + 8;   // rows of the halves' merge
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                   // [BK][LD]
+  float* vs = ks + BK * LD;           // [BK][LD]
+  float* qs = vs + BK * LD;           // [2][BQ][LD]
+  float* dos = qs + 2 * BQ * LD;      // [2][BQ][LD]
+  float* lse_s = dos + 2 * BQ * LD;   // [2][BQ]
+  float* dl_s = lse_s + 2 * BQ;       // [2][BQ]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int strip = warp % P::STRIPS, half = warp / P::STRIPS;
+  const int qh = P::HSPLIT ? 0 : half * BQW;    // the warp's first row
+  const int hc0 = P::HSPLIT ? half * HDW : 0;   // the warp's first column
+  const int kv_head = blockIdx.x, b = blockIdx.y;
+  const int group = h / kvh;
+  int kt = blockIdx.z, i_begin = 0, i_end = -1, slot = 0;
+  if (plan != nullptr) {
+    const int4 e = plan[blockIdx.z];
+    kt = e.x;
+    i_begin = e.y;
+    i_end = e.z;
+    slot = e.w;
+  }
+  const int k0 = kt * BK;
+  const int kw = k0 + 16 * strip;   // the warp's first key
+  const int64_t q_row = (int64_t)h * HD, kv_row = (int64_t)kvh * HD;
+  const int64_t kvoff = ((int64_t)b * s * kvh + kv_head) * HD;
+  const float scale_log2 = scale * LOG2E;
+
+  // the query rows that keep one of the tile's keys, in query tiles
+  const int k_last = min(k0 + BK, s) - 1;
+  const int q_begin = causal && k0 >= prefix ? k0 : 0;
+  const int q_end = window > 0 ? min(s, k_last + window) : s;
+  const int qt0 = q_begin / BQ;
+  const int nq = (q_end + BQ - 1) / BQ - qt0;
+  if (plan == nullptr) i_end = group * nq;
+
+  // start copying item i's Q, dO, lse and delta into stage st
+  auto issue = [&](int i, int st) {
+    const int head = kv_head * group + i / nq;
+    const int q0 = (qt0 + i % nq) * BQ;
+    const int64_t qoff = ((int64_t)b * s * h + head) * HD;
+    const int64_t rowstat = ((int64_t)b * h + head) * s;
+    load_tile_async<HD, BQ>(q + qoff, q_row, q0, s, qs + st * BQ * LD);
+    load_tile_async<HD, BQ>(dout + qoff, q_row, q0, s, dos + st * BQ * LD);
+    load_rows_async<BQ, THREADS>(lse + rowstat, q0, s, lse_s + st * BQ);
+    load_rows_async<BQ, THREADS>(delta + rowstat, q0, s, dl_s + st * BQ);
+  };
+
+  load_tile_async<HD, BK>(k + kvoff, kv_row, k0, s, ks);
+  load_tile_async<HD, BK>(v + kvoff, kv_row, k0, s, vs);
+  cp_async_commit();
+  if (i_begin < i_end) issue(i_begin, 0);
+  cp_async_commit();
+  cp_async_wait<1>();   // K and V are in
+  __syncthreads();
+
+  const float* ka = ks + (16 * strip + g) * LD + t;
+  const float* va = vs + (16 * strip + g) * LD + t;
+  float dka[NT][4], dva[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int i = i_begin; i < i_end; ++i) {
+    const int st = (i - i_begin) & 1;
+    cp_async_wait<0>();   // item i is in
+    __syncthreads();      // ... for every thread; the other stage is free
+    if (i + 1 < i_end) issue(i + 1, st ^ 1);
+    cp_async_commit();
+
+    const int qa = (qt0 + i % nq) * BQ + qh;   // the warp's first query
+    // rows wholly masked for this warp's keys (or a strip or rows past S)
+    if (kw >= s || qa >= s ||
+        (causal && kw > key_limit(min(qa + BQW, s) - 1, prefix)) ||
+        (window > 0 && kw + 15 <= qa - window))
+      continue;
+
+    // S^T = K Q^T over the warp's query rows
+    const float* qtile = qs + (st * BQ + qh) * LD;
+    const float* dtile = dos + (st * BQ + qh) * LD;
+    float sT[NJ][4], dpT[NJ][4];
+    row_products<HD, LD, NJ>(ka, qtile + g * LD + t, sT);
+
+    // P^T on the accumulators: keys g (e = 0, 1), g + 8 (2, 3), query
+    // rows 8 j + 2 t + (e & 1); the mask on tiles the strip cuts (a
+    // select; rows past S, zero-filled, are masked there)
+    const bool interior =
+        kw + 15 < s && qa + BQW <= s &&
+        (!causal || kw + 15 <= key_limit(qa, prefix)) &&
+        (window <= 0 || kw > qa + BQW - 1 - window);
+    const float* ls = lse_s + st * BQ + qh;
+    const float* dls = dl_s + st * BQ + qh;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float2 lr = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+      const float l2[2] = {lr.x * LOG2E, lr.y * LOG2E};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2_approx(fmaf(sT[j][e], scale_log2, -l2[e & 1]));
+        if (!interior &&
+            !kept(qa + 8 * j + 2 * t + (e & 1), kw + g + 8 * (e >> 1), s,
+                  causal, window, prefix))
+          p = 0.f;
+        sT[j][e] = p;
+      }
+    }
+
+    // dP^T = V dO^T, then dS^T / scale = P^T (dP^T - delta)
+    row_products<HD, LD, NJ>(va, dtile + g * LD + t, dpT);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float2 dr = *reinterpret_cast<const float2*>(dls + 8 * j + 2 * t);
+      const float dl[2] = {dr.x, dr.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpT[j][e] = sT[j][e] * (dpT[j][e] - dl[e & 1]);
+    }
+
+    // dV += P^T dO and dK / scale += (dS^T / scale) Q over the warp's
+    // columns: dO and Q at rows 2t, 2t + 1, column g
+    col_products<LD, NJ, NT>(sT, dtile + 2 * t * LD + hc0 + g, dva);
+    col_products<LD, NJ, NT>(dpT, qtile + 2 * t * LD + hc0 + g, dka);
+  }
+
+  const int r0 = 16 * strip + g;   // the lane's rows r0, r0 + 8 of the tile
+  if constexpr (!P::HSPLIT) {
+    // the halves' dK and dV summed by the first, the second's through the
+    // ring (free once every warp is past the loop)
+    float* mk = qs;              // [BK][MLD]: dK
+    float* mv = mk + BK * MLD;   // [BK][MLD]: dV
+    cp_async_wait<0>();
+    __syncthreads();
+    if (half == 1) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int at = (r0 + 8 * r) * MLD + 8 * n + 2 * t;
+          *reinterpret_cast<float2*>(mk + at) =
+              make_float2(dka[n][2 * r], dka[n][2 * r + 1]);
+          *reinterpret_cast<float2*>(mv + at) =
+              make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
+        }
+    }
+    __syncthreads();
+    if (half == 1) return;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int at = (r0 + 8 * r) * MLD + 8 * n + 2 * t;
+        const float2 xk = *reinterpret_cast<const float2*>(mk + at);
+        const float2 xv = *reinterpret_cast<const float2*>(mv + at);
+        dka[n][2 * r] += xk.x;
+        dka[n][2 * r + 1] += xk.y;
+        dva[n][2 * r] += xv.x;
+        dva[n][2 * r + 1] += xv.y;
+      }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] *= scale;
+  // f32 partials for flash_bwd_dkdv_sum, or dK and dV as float2 stores
+  // (rows past S not written)
+  float* kdst = dk + kvoff + k0 * kv_row;
+  float* vdst = dv + kvoff + k0 * kv_row;
+  int64_t stride = kv_row;
+  if (ws != nullptr) {
+    kdst = ws + (((int64_t)slot * gridDim.y + b) * kvh + kv_head) * 2 * BK * HD;
+    vdst = kdst + BK * HD;
+    stride = HD;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (ws == nullptr && k0 + row >= s) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int64_t at = row * stride + hc0 + 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(kdst + at) =
+          make_float2(dka[n][2 * r], dka[n][2 * r + 1]);
+      *reinterpret_cast<float2*>(vdst + at) =
+          make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
+  }
+}
+
+// Blocks a key tile's partials are summed by: its rows split SUM_PARTS
+// ways, so that a small grid's sum runs on more SMs than it has key tiles
+// (paligemma's f32 cut: KV x B x key tiles = 16, 17 slots a tile).
+constexpr int SUM_PARTS = 8;
+
+// dK and dV of rows of key tile z / SUM_PARTS (the part z % SUM_PARTS of
+// its BK rows) from its splits' f32 partials, summed in split order (the
+// same bits at every call).  Grid (KV, B, key tiles x SUM_PARTS); tiles[2
+// kt] is key tile kt's first workspace slot, tiles[2 kt + 1] its number of
+// slots.  Launched as a programmatic dependent of the dK / dV kernel: it
+// waits here for that grid's writes.
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_sum(const float* __restrict__ ws, const int* __restrict__ tiles,
+                   float* __restrict__ dk, float* __restrict__ dv, int s,
+                   int kvh) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  constexpr int BK = DkvPlan<HD>::BK;
+  constexpr int ROWS = BK / SUM_PARTS;   // rows a block sums
+  constexpr int Q4 = HD / 4;             // float4 columns a row
+  const int kv_head = blockIdx.x, b = blockIdx.y;
+  const int kt = blockIdx.z / SUM_PARTS;
+  const int row0 = blockIdx.z % SUM_PARTS * ROWS;
+  const int first = tiles[2 * kt], count = tiles[2 * kt + 1];
+  const int64_t slot_stride = (int64_t)gridDim.y * kvh * 2 * BK * HD;
+  const float* part =
+      ws + (((int64_t)first * gridDim.y + b) * kvh + kv_head) * 2 * BK * HD;
+  const int64_t kv_row = (int64_t)kvh * HD;
+  const int64_t kvoff = ((int64_t)b * s * kvh + kv_head) * HD;
+  for (int e = threadIdx.x; e < 2 * ROWS * Q4; e += THREADS) {
+    const int which = e / (ROWS * Q4);   // 0: dK, 1: dV
+    const int row = row0 + (e / Q4) % ROWS;
+    const int col = (e % Q4) * 4;
+    const int pos = kt * BK + row;
+    if (pos >= s) continue;
+    const float* src = part + which * BK * HD + row * HD + col;
+    float4 acc = *reinterpret_cast<const float4*>(src);
+#pragma unroll 4
+    for (int sp = 1; sp < count; ++sp) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(src + sp * slot_stride);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    *reinterpret_cast<float4*>((which ? dv : dk) + kvoff + pos * kv_row +
+                               col) = acc;
+  }
+}
+
+template <int HD>
+int launch(const Args<float>& a) {
+  return launch_k1<DqPlan<HD>, DkvPlan<HD>, THREADS, SUM_PARTS>(
+      a, flash_bwd_dq_3xtf32<HD>, flash_bwd_dkdv_3xtf32<HD>,
+      flash_bwd_dkdv_sum<HD>);
+}
+
+template <int HD>
+bool takes_tiles(int bk, int bq) {
+  return bk == DkvPlan<HD>::BK && bq == DkvPlan<HD>::BQ;
+}
+
+// The head dim's launch, or cudaErrorInvalidValue for a head dim the
+// kernels do not take (or, with bk > 0, for dK / dV tiles (bk, bq) that
+// are not its own).
+int dispatch(int hd, const Args<float>& a, int bk, int bq) {
+#define F32_CASE(D) \
+  case D: return bk > 0 && !takes_tiles<D>(bk, bq) ? (int)cudaErrorInvalidValue : launch<D>(a);
+  switch (hd) {
+    F32_CASE(32)
+    F32_CASE(64)
+    F32_CASE(80)
+    F32_CASE(96)
+    F32_CASE(128)
+    F32_CASE(256)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef F32_CASE
+}
+
+}  // namespace tf32x3
+
+template <typename T>
+Args<T> args(const void* q, const void* k, const void* v, const void* out,
+             const void* dout, const float* lse, float* delta, void* dq,
+             void* dk, void* dv, int b, int s, int h, int kvh, int causal,
+             int window, int prefix, float scale, const int* plan,
+             int nplan, float* ws, void* stream) {
+  return Args<T>{static_cast<const T*>(q), static_cast<const T*>(k),
+                 static_cast<const T*>(v), static_cast<const T*>(out),
+                 static_cast<const T*>(dout), lse, delta,
+                 static_cast<T*>(dq), static_cast<T*>(dk),
+                 static_cast<T*>(dv), b, s, h, kvh, causal, window, prefix,
+                 scale, plan, nplan, ws, (cudaStream_t)stream};
+}
 
 }  // namespace
 
@@ -1229,43 +1508,41 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int hd, int causal, int window,
                                    int prefix, int is_bf16, float scale,
                                    void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
   if (prefix < 0) return (int)cudaErrorInvalidValue;
-  if (is_bf16) {
-    const tc::Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                     static_cast<const bf16*>(v),
-                     static_cast<const bf16*>(out),
-                     static_cast<const bf16*>(dout), lse, delta,
-                     static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                     static_cast<bf16*>(dv), b, s, h, kvh, causal, window,
-                     prefix, scale, nullptr, 0, nullptr, st};
-    return tc::dispatch(hd, a, 0, 0);
-  }
-  return dispatch<float>(hd, q, k, v, out, dout, lse, delta, dq, dk, dv, b,
-                         s, h, kvh, causal, window, prefix, scale, st);
+  if (is_bf16)
+    return tc::dispatch(hd, args<bf16>(q, k, v, out, dout, lse, delta, dq,
+                                       dk, dv, b, s, h, kvh, causal, window,
+                                       prefix, scale, nullptr, 0, nullptr,
+                                       stream), 0, 0);
+  return tf32x3::dispatch(hd, args<float>(q, k, v, out, dout, lse, delta,
+                                          dq, dk, dv, b, s, h, kvh, causal,
+                                          window, prefix, scale, nullptr, 0,
+                                          nullptr, stream), 0, 0);
 }
 
-// flash_attention_bwd for bfloat16 tensors with the dK / dV kernel's query
-// walk split by a plan (kernels/flash_attention.py's bwd_split_plan, made
-// for dK / dV tiles of bk keys and bq query rows, which must be the
-// kernel's own at this head dim): plan holds nplan entries {key tile,
-// first item, end item, workspace slot}, then {first slot, slots} for each
-// key tile; ws holds (slots) x b x kvh x 2 x bk x hd floats.  Three
-// launches on `stream` (dQ with delta, the splits, their sum).
+// flash_attention_bwd with the dK / dV kernel's query walk split by a plan
+// (kernels/flash_attention.py's bwd_split_plan, made for dK / dV tiles of
+// bk keys and bq query rows, which must be the kernel's own for this type
+// and head dim): plan holds nplan entries {key tile, first item, end item,
+// workspace slot}, then {first slot, slots} for each key tile; ws holds
+// (slots) x b x kvh x 2 x bk x hd floats.  Three launches on `stream` (dQ
+// with delta, the splits, their sum).
 extern "C" int flash_attention_bwd_split(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, int b, int s, int h, int kvh, int hd, int causal, int window,
-    int prefix, float scale, int bk, int bq, const int* plan, int nplan,
-    float* ws, void* stream) {
+    int prefix, int is_bf16, float scale, int bk, int bq, const int* plan,
+    int nplan, float* ws, void* stream) {
   if (prefix < 0 || plan == nullptr || nplan < 1 || nplan > 65535 ||
       ws == nullptr || bk < 1)
     return (int)cudaErrorInvalidValue;
-  const tc::Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                   static_cast<const bf16*>(v), static_cast<const bf16*>(out),
-                   static_cast<const bf16*>(dout), lse, delta,
-                   static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                   static_cast<bf16*>(dv), b, s, h, kvh, causal, window,
-                   prefix, scale, plan, nplan, ws, (cudaStream_t)stream};
-  return tc::dispatch(hd, a, bk, bq);
+  if (is_bf16)
+    return tc::dispatch(hd, args<bf16>(q, k, v, out, dout, lse, delta, dq,
+                                       dk, dv, b, s, h, kvh, causal, window,
+                                       prefix, scale, plan, nplan, ws,
+                                       stream), bk, bq);
+  return tf32x3::dispatch(hd, args<float>(q, k, v, out, dout, lse, delta,
+                                          dq, dk, dv, b, s, h, kvh, causal,
+                                          window, prefix, scale, plan, nplan,
+                                          ws, stream), bk, bq);
 }

@@ -19,14 +19,16 @@ runs :class:`FlashAttention`: its forward launches
 :func:`flash_attention_fwd_lse` (the same kernels, also writing each row's
 log-sum-exp) and its backward :func:`flash_attention_bwd` (K1: dQ, dK and
 dV, the GQA sum inside the kernel; bf16 on the tensor cores with P and dS
-carried as two bf16 terms, f32 on the FMA pipes).  Otherwise (serving) it
+carried as two bf16 terms, f32 on the TF32 tensor cores with split
+operands, three products for each of the five).  Otherwise (serving) it
 launches the forward alone, as before.
 
-Where K1's bf16 dK / dV grid (KV heads x batch x key tiles) is under
-:data:`BWD_BLOCKS_PER_SM` blocks an SM, :func:`bwd_split_plan` splits each
-key tile's walk over (head of the group, query tile) into shares balanced
-by kept pairs; the kernel writes f32 partials to a workspace and a second
-launch sums them in a fixed order.
+Where K1's dK / dV grid (KV heads x batch x key tiles, by the type's tiles
+:data:`BWD_TILES`) is under :data:`BWD_BLOCKS_PER_SM` blocks an SM,
+:func:`bwd_split_plan` splits each key tile's walk over (head of the
+group, query tile) into shares balanced by kept pairs; the kernel writes
+f32 partials to a workspace and a second launch sums them in a fixed
+order.
 
 Each entry launches on the current CUDA stream, allocates only its outputs
 (and the backward its row scratch and the split's workspace) and never
@@ -60,16 +62,20 @@ _BWD_SIGNATURES = {
     "flash_attention_bwd": [cuda_build.PTR] * 10 + [cuda_build.I32] * 9
     + [cuda_build.F32, cuda_build.PTR],
     "flash_attention_bwd_split": [cuda_build.PTR] * 10
-    + [cuda_build.I32] * 8 + [cuda_build.F32, cuda_build.I32,
+    + [cuda_build.I32] * 9 + [cuda_build.F32, cuda_build.I32,
                                cuda_build.I32, cuda_build.PTR,
                                cuda_build.I32, cuda_build.PTR,
                                cuda_build.PTR]}
 
-#: K1's bf16 dK / dV tiles by head dim (csrc's DkvPlan): (keys a block,
-#: query rows a step of its walk); the split entry refuses others
-BWD_TILES = {32: (64, 64), 64: (64, 64), 80: (64, 64), 96: (64, 32),
-             128: (64, 32), 256: (64, 32)}
-#: K1's bf16 dK / dV blocks an SM should have: a smaller grid is split
+#: K1's dK / dV tiles by type and head dim (csrc's tc::DkvPlan for bf16,
+#: tf32x3::DkvPlan for f32): (keys a block, query rows a step of its
+#: walk); the split entry refuses others
+BWD_TILES = {
+    torch.bfloat16: {32: (64, 64), 64: (64, 64), 80: (64, 64), 96: (64, 32),
+                     128: (64, 32), 256: (64, 32)},
+    torch.float32: {32: (64, 64), 64: (64, 64), 80: (64, 64), 96: (64, 64),
+                    128: (64, 64), 256: (64, 16)}}
+#: K1's dK / dV blocks an SM should have: a smaller grid is split
 BWD_BLOCKS_PER_SM = 2
 
 
@@ -225,26 +231,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     delta = torch.empty_like(lse)
     lib = cuda_build.library("flash_attention_bwd", _BWD_SIGNATURES)
-    split = None
-    if dtype == torch.bfloat16:
-        split = _bwd_split(q.device, b * kvh, s, h // kvh, hd, causal,
-                           window, prefix_len)
+    split = _bwd_split(q.device, dtype, b * kvh, s, h // kvh, hd, causal,
+                       window, prefix_len)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, kvh, hd,
-            int(causal), window or 0, prefix_len)
+            int(causal), window or 0, prefix_len,
+            int(dtype == torch.bfloat16), hd ** -0.5)
     with torch.cuda.device(q.device):
         if split is None:
-            code = lib.flash_attention_bwd(
-                *args, int(dtype == torch.bfloat16), hd ** -0.5, _stream(q))
+            code = lib.flash_attention_bwd(*args, _stream(q))
         else:
             plan, entries, slots = split
-            bk, bq = BWD_TILES[hd]
+            bk, bq = BWD_TILES[dtype][hd]
             ws = torch.empty(slots * b * kvh * 2 * bk * hd,
                              dtype=torch.float32, device=q.device)
             code = lib.flash_attention_bwd_split(
-                *args, hd ** -0.5, bk, bq, plan.data_ptr(), entries,
-                ws.data_ptr(), _stream(q))
+                *args, bk, bq, plan.data_ptr(), entries, ws.data_ptr(),
+                _stream(q))
     cuda_build.check_launch("flash_attention_bwd", code)
     cuda_build.count_launch(LAUNCHES, "flash_attention_bwd")
     return dq, dk, dv
@@ -276,7 +280,7 @@ def bwd_walk_pairs(kt: int, s: int, bk: int, bq: int, causal: bool,
 def bwd_split_plan(bkv: int, s: int, group: int, bk: int, bq: int,
                    causal: bool, window: Optional[int], prefix_len: int,
                    sms: int) -> Optional[Tuple[np.ndarray, int, int]]:
-    """The split of K1's bf16 dK / dV walks for ``bkv`` = B x KV blocks a
+    """The split of K1's dK / dV walks for ``bkv`` = B x KV blocks a
     key tile, or None where the unsplit grid (``bkv`` x key tiles blocks)
     has :data:`BWD_BLOCKS_PER_SM` blocks an SM of ``sms``.  Key tile kt's
     walk has items i = head i // nq of the group, query tile i % nq
@@ -315,14 +319,15 @@ def bwd_split_plan(bkv: int, s: int, group: int, bk: int, bq: int,
 
 
 @functools.lru_cache(maxsize=64)
-def _bwd_split(device: torch.device, bkv: int, s: int, group: int, hd: int,
-               causal: bool, window: Optional[int], prefix_len: int
-               ) -> Optional[Tuple[torch.Tensor, int, int]]:
-    """:func:`bwd_split_plan` for a bf16 call on ``device``, its plan as
-    an int32 tensor there (made once a shape)."""
+def _bwd_split(device: torch.device, dtype: torch.dtype, bkv: int, s: int,
+               group: int, hd: int, causal: bool, window: Optional[int],
+               prefix_len: int) -> Optional[Tuple[torch.Tensor, int, int]]:
+    """:func:`bwd_split_plan` for a call on ``device`` with operands of
+    ``dtype`` (its tiles), its plan as an int32 tensor there (made once a
+    shape)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    made = bwd_split_plan(bkv, s, group, *BWD_TILES[hd], causal, window,
-                          prefix_len, sms)
+    made = bwd_split_plan(bkv, s, group, *BWD_TILES[dtype][hd], causal,
+                          window, prefix_len, sms)
     if made is None:
         return None
     plan, entries, slots = made
@@ -331,13 +336,13 @@ def _bwd_split(device: torch.device, bkv: int, s: int, group: int, hd: int,
 
 def bwd_splits(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
                window: Optional[int] = None, prefix_len: int = 0) -> int:
-    """The entries of K1's split plan on these bf16 card operands (its
-    dK / dV blocks for each KV head and batch element), 0 where the grid
-    is not split."""
+    """The entries of K1's split plan on these card operands (its dK /
+    dV blocks for each KV head and batch element), 0 where the grid is
+    not split."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
-    made = _bwd_split(q.device, b * kvh, s, h // kvh, hd, causal, window,
-                      prefix_len)
+    made = _bwd_split(q.device, q.dtype, b * kvh, s, h // kvh, hd, causal,
+                      window, prefix_len)
     return 0 if made is None else made[1]
 
 

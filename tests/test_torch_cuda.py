@@ -675,6 +675,32 @@ def test_flash_attention_bwd_bf16_split_is_taken_on_small_grids(
         assert torch.equal(a, b_)
 
 
+@pytest.mark.parametrize("b,s,h,kvh,hd,prefix,split", [
+    (2, 512, 8, 1, 256, 256, True), (2, 1024, 32, 8, 80, 0, True),
+    (2, 1024, 16, 16, 80, 0, False), (1, 300, 8, 2, 64, 0, True)])
+def test_flash_attention_bwd_f32_split_is_taken_on_small_grids(
+        cuda, b, s, h, kvh, hd, prefix, split):
+    """K1's f32 dK / dV walk is split where KV x B x key tiles (the f32
+    kernels' tiles) is under two blocks an SM -- paligemma's f32 cut (MQA
+    at hd 256, prefix 256), danube's, a ragged S -- and not at hubert's:
+    the split and unsplit kernels hold the plain version within 2e-4, and
+    a split call repeats bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(s + hd + 1)
+    q, k, v, dout = (torch.randn(b, s, n, hd, device=cuda, generator=g)
+                     for n in (h, kvh, kvh, h))
+    opts = dict(causal=True, window=None, prefix_len=prefix)
+    assert (cuda_fa.bwd_splits(q, k, **opts) > 0) == split
+    out, lse = cuda_fa.flash_attention_fwd_lse(q, k, v, **opts)
+    got = cuda_fa.flash_attention_bwd(q, k, v, out, dout, lse, **opts)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref.flash_attention(*leaves, **opts).backward(dout)
+    for a, w in zip(got, [x.grad for x in leaves]):
+        torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+    for a, b_ in zip(got, cuda_fa.flash_attention_bwd(q, k, v, out, dout,
+                                                      lse, **opts)):
+        assert torch.equal(a, b_)
+
+
 def test_train_step_on_card_matches_cpu(cuda):
     """A dense LM (remat "block") takes one train step on the card and on
     the CPU from the same weights: the loss to 1e-4 relative, the gradient

@@ -534,6 +534,86 @@ def test_k1_bound_does_not_admit_a_single_bf16_p_or_ds(term, rng):
             <= bounds[index]).all()
 
 
+# -- K1's f32 split-TF32 arithmetic -------------------------------------------
+
+def _k1_tf32(q, k, v, dout, causal, window, prefix, products):
+    """K1's f32 kernels' arithmetic in numpy on q, dout (B,S,H,hd), k, v
+    (B,S,KV,hd): S = Q K^T and dP = dO V^T, P = exp(S scale - lse) on kept
+    pairs (lse and out from the plain forward), delta = rowsum(dO out),
+    dS = P (dP - delta), then dV = P^T dO, dK = scale dS^T Q (both summed
+    over the group) and dQ = scale dS K -- each of the five products a
+    ``_tf32_matmul`` (``products`` 3: split operands, P and dS split as
+    well; 1: one product of the rounded operands)."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    opts = dict(causal=causal, window=window, prefix_len=prefix)
+    out, lse = ref.flash_attention_lse(*map(torch.from_numpy, (q, k, v)),
+                                       **opts)
+    heads = [x.transpose(0, 2, 1, 3) for x in (q, dout, out.numpy())]
+    qh, doh, oh = heads                                    # (B, H, S, hd)
+    kh, vh = (np.repeat(x, g, axis=2).transpose(0, 2, 1, 3) for x in (k, v))
+    scale = np.float32(hd ** -0.5)
+    pos = torch.arange(s)
+    keep = ref.attention_keep(pos, pos, **opts).numpy()
+    sc = _tf32_matmul(qh, kh.transpose(0, 1, 3, 2), products) * scale
+    p = np.where(keep, np.exp(sc - lse.numpy()[..., None]), 0.0
+                 ).astype(np.float32)
+    dp = _tf32_matmul(doh, vh.transpose(0, 1, 3, 2), products)
+    delta = (doh * oh).sum(-1, keepdims=True, dtype=np.float32)
+    ds = (p * (dp - delta)).astype(np.float32)
+    dq = scale * _tf32_matmul(ds, kh, products)
+    dk = scale * _tf32_matmul(ds.transpose(0, 1, 3, 2), qh, products)
+    dv = _tf32_matmul(p.transpose(0, 1, 3, 2), doh, products)
+
+    def by_kv(x):   # (B, H, S, hd) summed over each group -> (B, S, KV, hd)
+        return x.reshape(b, kvh, g, s, hd).sum(2).transpose(0, 2, 1, 3)
+
+    return dq.transpose(0, 2, 1, 3), by_kv(dk), by_kv(dv)
+
+
+def _jax_grads(q, k, v, dout, causal, window, prefix):
+    """jax.grad of the reference's blockwise attention, weighted by dout."""
+    opts = dict(causal=causal, window=window, prefix_len=prefix)
+
+    def loss(q, k, v):
+        return (blockwise_attention(q, k, v, q_chunk=16, kv_chunk=16,
+                                    **opts) * dout).sum()
+
+    return [np.asarray(w) for w in jax.jit(jax.grad(
+        loss, argnums=(0, 1, 2)))(*map(jnp.asarray, (q, k, v)))]
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd,causal,window,prefix",
+                         _BWD + [(1, 72, 8, 2, 80, True, 24, 0),
+                                 (1, 48, 4, 1, 256, True, None, 16)])
+def test_k1_split_tf32_arithmetic_matches_jax(b, s, h, kvh, hd, causal,
+                                              window, prefix, rng):
+    """K1's f32 tensor-core arithmetic, three split TF32 products for each
+    of S, dP, dQ, dK and dV (P and dS split too), holds jax.grad of the
+    reference's blockwise attention within the card's f32 tolerance (rtol
+    = atol = 2e-4): _BWD's cases, danube's head dim 80 under a window and
+    head dim 256 under the prefix."""
+    q, k, v, dout = _bwd_inputs(rng, b, s, h, kvh, hd)
+    got = _k1_tf32(q, k, v, dout, causal, window, prefix, 3)
+    for g, w in zip(got, _jax_grads(q, k, v, dout, causal, window, prefix)):
+        assert g.shape == w.shape
+        assert_close(g, w, **BWD_TOL)
+
+
+def test_card_f32_tolerance_does_not_admit_a_one_tf32_k1(rng):
+    """One TF32 product of the rounded operands for K1's five products
+    moves dq, dk or dv past the f32 tolerance the card holds the kernels
+    to -- which is why they take three products of split operands; the
+    same inputs with three stay inside it."""
+    args = _bwd_inputs(rng, 1, 256, 4, 2, 128) + (True, None, 0)
+    want = _jax_grads(*args)
+    one = _k1_tf32(*args, 1)
+    assert not all(np.allclose(g, w, **BWD_TOL) for g, w in zip(one, want))
+    for g, w in zip(_k1_tf32(*args, 3), want):
+        assert_close(g, w, **BWD_TOL)
+
+
 # (bkv, s, group, hd, causal, window, prefix, sms): paligemma's prefill
 # (B = 4, MQA, prefix 256, hd 256), qwen3-moe's (group 16), a ragged S, a
 # window, full attention with a window on a small card, and danube's
@@ -547,14 +627,20 @@ def test_k1_bound_does_not_admit_a_single_bf16_p_or_ds(term, rng):
     (32, 4096, 4, 80, True, 4096, 0, 132)])
 def test_bwd_split_plan_covers_each_walk_once(bkv, s, group, hd, causal,
                                               window, prefix, sms):
-    """K1's dK / dV split plan: each key tile's walk (head of the group,
-    query tile) covers every query tile holding a kept pair of the tile
-    and is cut into contiguous splits that cover each item exactly once,
-    each split within one item of an equal share of the tile's kept pairs;
-    entries run heaviest first, a tile's slots are consecutive, and the
-    grid comes to about BWD_BLOCKS_PER_SM blocks an SM.  A grid with that
-    many blocks unsplit is not split."""
-    bk, bq = cuda_fa.BWD_TILES[hd]
+    """K1's dK / dV split plan, for the bf16 kernels' tiles and the f32
+    kernels': each key tile's walk (head of the group, query tile) covers
+    every query tile holding a kept pair of the tile and is cut into
+    contiguous splits that cover each item exactly once, each split within
+    one item of an equal share of the tile's kept pairs; entries run
+    heaviest first, a tile's slots are consecutive, and the grid comes to
+    about BWD_BLOCKS_PER_SM blocks an SM.  A grid with that many blocks
+    unsplit is not split."""
+    for dtype in (torch.bfloat16, torch.float32):
+        _check_split_plan(bkv, s, group, *cuda_fa.BWD_TILES[dtype][hd],
+                          causal, window, prefix, sms)
+
+
+def _check_split_plan(bkv, s, group, bk, bq, causal, window, prefix, sms):
     tiles = -(-s // bk)
     made = cuda_fa.bwd_split_plan(bkv, s, group, bk, bq, causal, window,
                                   prefix, sms)

@@ -2,17 +2,18 @@
 """Side-by-side timing of build variants of the flash-attention kernels on
 one GPU: the prefill entry's f32 kernel (split TF32) and bf16 kernel
 (tensor cores), and the backward entry (K1: bf16 on the tensor cores, f32
-on the FMA pipes).
+on the TF32 tensor cores with split operands).
 
     python3 tools/torch_flash_variants.py [--parent ROOT]
         [--entries fwd,bwd] [--dtypes f32,bf16] [--rounds N] [VARIANT ...]
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit.  Each variant is ``src/repro_torch/kernels/csrc/
-flash_attention.cu`` and ``flash_attention_bwd.cu`` with a few lines of
-their text replaced (``VARIANTS`` below; ``checkout`` is the files as they
-are), each compiled beside ``attention_common.cuh`` with the port's own
-``nvcc`` flags into a temporary directory, all builds started together.
+flash_attention.cu``, ``flash_attention_bwd.cu`` and the header they share,
+``attention_common.cuh`` (whose split-TF32 products both f32 paths use),
+with a few lines of their text replaced (``VARIANTS`` below; ``checkout``
+is the files as they are), each compiled with the port's own ``nvcc``
+flags into a temporary directory, all builds started together.
 ``--parent ROOT`` adds the variant ``parent``: the same libraries built
 from the sources under ROOT (another checkout, e.g. the parent commit
 unpacked with ``git archive`` into the git-ignored ``_parent/``), so old
@@ -46,17 +47,19 @@ fail the tolerance (``one_tf32``) raises if it does not, and so do
 ``checkout`` and ``parent`` if they fail it.
 
 The backward (``chip_smoke.py``'s ``K1_CASES``, of the dtypes asked
-for): each variant's (dq, dk, dv), given the first variant's forward out
-and lse, against torch.autograd through the plain attention (f32 within
-2e-4; bf16 within ``tests/flash_bounds.py``'s bound, reported as the
-largest fraction of it), bit for bit against a second call; beside them
-the plain backward's time, SDPA's backward (as ``chip_smoke.py`` times
-it) and the bound (the five products at 989 TFLOP/s for bf16, 495 / 3 for
-f32; 3.35 TB/s).  A bf16 call takes the split entry where the binding
-would (``bwd_split_plan``); ``unsplit`` is the checkout's kernels always
-launched unsplit.  ``checkout``, ``unsplit`` and ``parent`` raise if
-they leave the bound or differ from a second call; a variant that must
-leave it (``bwd_one_term``) raises if it does not.
+for; each dtype's shapes run its own kernels' variants): each variant's
+(dq, dk, dv), given the first variant's forward out and lse, against
+torch.autograd through the plain attention (f32 within 2e-4; bf16 within
+``tests/flash_bounds.py``'s bound; reported as the largest fraction of
+it), bit for bit against a second call; beside them the plain backward's
+time, SDPA's backward (as ``chip_smoke.py`` times it) and the bound (the
+five products at 989 TFLOP/s for bf16, 495 / 3 for f32; 3.35 TB/s).  A
+call takes the split entry where the binding would (``bwd_split_plan``
+on the dtype's tiles; a parent whose split entry takes bf16 alone runs
+f32 unsplit); ``unsplit`` is the checkout's kernels always launched
+unsplit.  ``checkout``, ``unsplit`` and ``parent`` raise if they leave
+the bound or differ from a second call; a variant that must leave it
+(``bwd_one_term``, ``bwd_f32_one_tf32``) raises if it does not.
 
 ``--rounds 0`` builds, reads the SASS and checks every variant once, with
 no timing.  The last lines (``summary``) give each variant's median
@@ -70,7 +73,6 @@ import argparse
 import ctypes
 import json
 import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -83,8 +85,11 @@ sys.path.insert(0, str(ROOT / "src"))
 CSRC = Path("src/repro_torch/kernels/csrc")
 SOURCE, HEADER = "flash_attention.cu", "attention_common.cuh"
 BWD_SOURCE = "flash_attention_bwd.cu"
-F32_PART = "namespace tf32x3 {"   # where the f32 kernel's code begins
+F32_PART = "namespace tf32x3 {"   # where the f32 kernels' code begins
 BWD_PART = "namespace tc {"       # where K1's bf16 kernels' code begins
+# the split entry of a K1 source that takes f32 too (an older one took
+# bf16 alone)
+SPLIT_TAKES_F32 = "int prefix, int is_bf16, float scale, int bk"
 
 # -- the bf16 kernel's variants ----------------------------------------------
 _SPLIT_PV = """\
@@ -145,9 +150,9 @@ __device__ __forceinline__ void mma_presplit(float (&c)[4],
                                              const uint32_t (&ab)[4],
                                              const uint32_t (&as)[4],
                                              float2 big, float2 small) {
-  mma_tf32(c, as, __float_as_uint(big.x), __float_as_uint(big.y));
-  mma_tf32(c, ab, __float_as_uint(small.x), __float_as_uint(small.y));
-  mma_tf32(c, ab, __float_as_uint(big.x), __float_as_uint(big.y));
+  attn::mma_tf32(c, as, __float_as_uint(big.x), __float_as_uint(big.y));
+  attn::mma_tf32(c, ab, __float_as_uint(small.x), __float_as_uint(small.y));
+  attn::mma_tf32(c, ab, __float_as_uint(big.x), __float_as_uint(big.y));
 }
 
 // Start copying rows pos0 .. pos0 + ROWS - 1 of a (rows x HD) f32"""
@@ -275,17 +280,73 @@ VARIANTS_BWD = {
   c0[0] += __uint_as_float(hi[0] ^ lo[1] ^ bf[0] ^ bf[1]);
   c1[0] += __uint_as_float(hi[2] ^ lo[3] ^ bf[2] ^ bf[3]);""")],
 }
+# -- K1's f32 kernels' variants (flash_attention_bwd.cu, from F32_PART) ----
+_BWD_F32_SECOND = "        mma_split(part, xb[r], xs[r], bp[0], bp[LD]);"
+VARIANTS_BWD_F32 = {
+    # one TF32 product of the rounded operands in all five products: fails
+    # the tolerance
+    "bwd_f32_one_tf32": [("using attn::mma_split;\n", """\
+// one TF32 product of the rounded operands
+__device__ __forceinline__ void mma_split(float (&c)[4],
+                                          const uint32_t (&ab)[4],
+                                          const uint32_t (&)[4], float b0,
+                                          float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  attn::split_tf32(b0, bb0, bs0);
+  attn::split_tf32(b1, bb1, bs1);
+  attn::mma_tf32(c, ab, bb0, bb1);
+}
+""")],
+    # dK / dV: two warps share a strip's columns at head dim 128 too (as
+    # at 256: 16-row query tiles, no spill, S^T and dP^T computed twice)
+    "bwd_f32_hsplit128": [("  static constexpr bool HSPLIT = HD > 128;",
+                           "  static constexpr bool HSPLIT = HD >= 128;")],
+    # the split's sum one block a key tile (as bf16's), its slots' loads
+    # in turn
+    "bwd_f32_sum_whole": [("constexpr int SUM_PARTS = 8;",
+                           "constexpr int SUM_PARTS = 1;"),
+                          ("#pragma unroll 4\n    for (int sp = 1;",
+                           "    for (int sp = 1;")],
+    # probes (wrong results): no tile copies (the loads' share); no dQ, dK
+    # and dV products, their B pairs read but neither split nor multiplied
+    # (the second products' share); one product of the raw operands, B
+    # unsplit (the share of the split's extra products and B's splits)
+    "bwd_f32_probe_no_loads": [(_BWD_LOADER, _BWD_LOADER.replace(
+        "e < ROWS * CPR", "e < 0"))],
+    "bwd_f32_probe_no_second": [(_BWD_F32_SECOND, (
+        "        part[0] += bp[0] + bp[LD] + "
+        "__uint_as_float(xb[r][0] ^ xs[r][3]);"))],
+    "bwd_f32_probe_one_mma": [("using attn::mma_split;\n", """\
+// one product of the raw operands
+__device__ __forceinline__ void mma_split(float (&c)[4],
+                                          const uint32_t (&ab)[4],
+                                          const uint32_t (&)[4], float b0,
+                                          float b1) {
+  attn::mma_tf32(c, ab, __float_as_uint(b0), __float_as_uint(b1));
+}
+""")],
+}
 # K1's checkout kernels launched unsplit at every shape
 UNSPLIT = "unsplit"
 # dK / dV tiles (keys, query rows) of the variants whose tiles are not
-# BWD_TILES[hd]: the split plan is made for them
+# BWD_TILES[dtype][hd]: the split plan is made for them
 BWD_TILES_OF = {"bwd_bq32": lambda hd, tiles: (tiles[0], 32),
                 "bwd_dkdv_8strips": lambda hd, tiles: (
-                    128 if hd <= 128 else 64, tiles[1])}
+                    128 if hd <= 128 else 64, tiles[1]),
+                "bwd_f32_hsplit128": lambda hd, tiles: (
+                    (64, 16) if hd == 128 else tiles)}
 VARIANTS = {"checkout": [], UNSPLIT: [], **VARIANTS_F32, **VARIANTS_BF16,
-            **VARIANTS_BWD}
-MUST_FAIL = {"one_tf32", "single_p", "bwd_one_term"}
+            **VARIANTS_BWD, **VARIANTS_BWD_F32}
+MUST_FAIL = {"one_tf32", "single_p", "bwd_one_term", "bwd_f32_one_tf32"}
 OWN = {"f32": VARIANTS_F32, "bf16": VARIANTS_BF16}
+OWN_BWD = {"f32": VARIANTS_BWD_F32, "bf16": VARIANTS_BWD}
+# the parts of the sources (``sources``) each kind of variant edits: the
+# f32 forward's variants edit its part and the header's split-TF32
+# products, which K1's f32 kernels share
+PARTS = {**{n: ("f32", "common") for n in VARIANTS_F32},
+         **{n: ("bf16",) for n in VARIANTS_BF16},
+         **{n: ("bwd",) for n in VARIANTS_BWD},
+         **{n: ("bwd_f32",) for n in VARIANTS_BWD_F32}}
 
 # (label, b, s, h, kvh, hd, window, causal, prefix): every f32 shape of
 # chip_smoke.py's phase 3 (phase 11's danube cut; phase 17's paligemma
@@ -314,26 +375,29 @@ TF32_TFLOPS, BF16_TFLOPS, FP32_TFLOPS, TBS = 495.0, 989.0, 67.0, 3.35
 
 
 def sources(name: str) -> dict:
-    """The texts of ``flash_attention.cu`` and ``flash_attention_bwd.cu``
-    in variant ``name``, by file name; ``a+b`` is variant a's edits, then
-    b's.  An f32 variant edits the f32 kernel's part of the forward (from
-    ``F32_PART`` on), a bf16 variant the rest, a ``bwd_`` variant K1's
-    bf16 part (from ``BWD_PART`` on); each text it replaces occurs there
-    exactly once."""
+    """The texts of ``flash_attention.cu``, ``flash_attention_bwd.cu`` and
+    ``attention_common.cuh`` in variant ``name``, by file name; ``a+b`` is
+    variant a's edits, then b's.  Each edit replaces a text that occurs
+    exactly once in the parts its kind edits (``PARTS``): the forward's
+    f32 kernel (from ``F32_PART`` on) and the header, the forward's bf16
+    kernel (the rest), K1's bf16 kernels (from ``BWD_PART`` to
+    ``F32_PART``) or K1's f32 kernels (from ``F32_PART`` on)."""
     head, sep, tail = (ROOT / CSRC / SOURCE).read_text().partition(F32_PART)
     bhead, bsep, btail = (ROOT / CSRC / BWD_SOURCE).read_text().partition(
         BWD_PART)
-    parts = {"bf16": head, "f32": sep + tail, "bwd": bsep + btail}
+    btc, fsep, bf32 = btail.partition(F32_PART)
+    parts = {"common": (ROOT / CSRC / HEADER).read_text(), "bf16": head,
+             "f32": sep + tail, "bwd": bsep + btc, "bwd_f32": fsep + bf32}
     for part in name.split("+"):
-        key = ("f32" if part in VARIANTS_F32 else
-               "bwd" if part in VARIANTS_BWD else "bf16")
         for old, new in VARIANTS[part]:
-            if parts[key].count(old) != 1:
+            found = [key for key in PARTS[part] if old in parts[key]]
+            if len(found) != 1 or parts[found[0]].count(old) != 1:
                 raise ValueError(f"variant {name}: text not found once in "
-                                 f"the {key} kernels' part:\n{old}")
-            parts[key] = parts[key].replace(old, new)
+                                 f"the parts {PARTS[part]}:\n{old}")
+            parts[found[0]] = parts[found[0]].replace(old, new)
     return {SOURCE: parts["bf16"] + parts["f32"],
-            BWD_SOURCE: bhead + parts["bwd"]}
+            BWD_SOURCE: bhead + parts["bwd"] + parts["bwd_f32"],
+            HEADER: parts["common"]}
 
 
 def _entry(lib, name: str, argtypes):
@@ -349,18 +413,20 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def build(tmp: Path, names, parent) -> dict:
     """Build both libraries of every variant (all nvcc started together);
     returns {variant: {entry: function}}, the split entry where the
-    variant has one."""
+    variant has one (and ``split_f32``: whether it takes f32)."""
     from repro_torch.kernels import cuda_build
-    procs = {}
+    procs, takes_f32 = {}, {}
     for name in names:
         d = tmp / name
         d.mkdir()
-        src = Path(parent) / CSRC if name == "parent" else ROOT / CSRC
-        shutil.copy(src / HEADER, d / HEADER)
-        texts = ({f: (src / f).read_text() for f in (SOURCE, BWD_SOURCE)}
+        texts = ({f: (Path(parent) / CSRC / f).read_text()
+                  for f in (SOURCE, BWD_SOURCE, HEADER)}
                  if name == "parent" else sources(name))
+        takes_f32[name] = SPLIT_TAKES_F32 in texts[BWD_SOURCE]
         for f, text in texts.items():
             (d / f).write_text(text)
+            if f == HEADER:
+                continue
             procs[name, f] = subprocess.Popen(
                 [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
                  str(d / f"lib{Path(f).stem}.so"), str(d / f)],
@@ -388,9 +454,11 @@ def build(tmp: Path, names, parent) -> dict:
             "bwd": _entry(bwd, "flash_attention_bwd",
                           [P] * 10 + [I] * 9 + [F, P])}
         if hasattr(bwd, "flash_attention_bwd_split") and name != UNSPLIT:
+            entries[name]["split_f32"] = takes_f32[name]
             entries[name]["bwd_split"] = _entry(
                 bwd, "flash_attention_bwd_split",
-                [P] * 10 + [I] * 8 + [F, I, I, P, I, P, P])
+                [P] * 10 + [I] * (9 if takes_f32[name] else 8)
+                + [F, I, I, P, I, P, P])
     return entries
 
 
@@ -685,13 +753,14 @@ def run_bwd_shapes(dtypes, names, rounds, entries, results) -> None:
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common)
         splits = {}
         for name in names:
-            tiles = cuda_fa.BWD_TILES[hd]
+            tiles = cuda_fa.BWD_TILES[tdt][hd]
             for part in name.split("+"):
                 if part in BWD_TILES_OF:
                     tiles = BWD_TILES_OF[part](hd, tiles)
             made = cuda_fa.bwd_split_plan(b * kvh, s, h // kvh, *tiles,
                                           causal, window, prefix, sms)
-            if bf16 and made is not None and "bwd_split" in entries[name]:
+            if made is not None and "bwd_split" in entries[name] and (
+                    bf16 or entries[name]["split_f32"]):
                 plan, n, slots = made
                 splits[name] = (tiles, torch.from_numpy(plan).cuda(), n,
                                 torch.empty(slots * b * kvh * 2 * tiles[0]
@@ -702,9 +771,11 @@ def run_bwd_shapes(dtypes, names, rounds, entries, results) -> None:
         def launch(name):
             if name in splits:
                 (bk, bq), plan, n, ws = splits[name]
+                dtype_arg = (int(bf16),) if entries[name]["split_f32"] \
+                    else ()
                 code = entries[name]["bwd_split"](
-                    *args, hd ** -0.5, bk, bq, plan.data_ptr(), n,
-                    ws.data_ptr(), stream)
+                    *args, *dtype_arg, hd ** -0.5, bk, bq, plan.data_ptr(),
+                    n, ws.data_ptr(), stream)
             else:
                 code = entries[name]["bwd"](*args, int(bf16), hd ** -0.5,
                                             stream)
@@ -726,10 +797,11 @@ def run_bwd_shapes(dtypes, names, rounds, entries, results) -> None:
             meta["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd(
                 q, k, v, out, dout, lse, **opts), 3)
             del qt, kt, vt, mask, lq, lk, lv, lib_out
-        # the variants edit the bf16 kernels: f32 shapes run the parent's
-        # and the checkout's alone
-        mine = names if bf16 else [n for n in names
-                                   if n in ("parent", "checkout")]
+        # a dtype's shapes run the parent, the checkout, unsplit and its
+        # own kernels' variants
+        own = OWN_BWD["bf16" if bf16 else "f32"]
+        mine = [n for n in names if n in ("parent", "checkout", UNSPLIT)
+                or all(part in own for part in n.split("+"))]
         for rnd, order in enumerate(orders(mine, max(rounds, 1))):
             for name in order:
                 rec = {"variant": name, "round": rnd, "case": label}
@@ -757,7 +829,7 @@ def run_bwd_shapes(dtypes, names, rounds, entries, results) -> None:
                                              for g, w in zip(got, want))
                     rec["of_bound"] = frac
                     within = frac <= 1.0 and rec["same_bits_twice"]
-                    if name in MUST_FAIL and bf16 and frac <= 1.0:
+                    if name in MUST_FAIL and frac <= 1.0:
                         raise AssertionError(f"{name} {label} is within "
                                              "the bound it must leave")
                     if name in ("checkout", "parent", UNSPLIT) \
@@ -814,7 +886,8 @@ def main() -> int:
     dtypes, kinds = args.dtypes.split(","), args.entries.split(",")
     names = args.variants or ["checkout"] + [
         n for d in dtypes for n in OWN[d] if "fwd" in kinds] + (
-        [UNSPLIT, *VARIANTS_BWD] if "bwd" in kinds else [])
+        [UNSPLIT] + [n for d in dtypes for n in OWN_BWD[d]]
+        if "bwd" in kinds else [])
     unknown = [n for n in names
                if any(part not in VARIANTS for part in n.split("+"))]
     if unknown:
@@ -836,10 +909,7 @@ def main() -> int:
                 part in OWN[dtype] for part in n.split("+"))]
             run_shapes(dtype, mine, args.rounds, entries, results)
         if "bwd" in kinds:
-            # K1's shapes run the parent, the checkout and K1's variants
-            mine = [n for n in names if n in ("parent", "checkout", UNSPLIT)
-                    or all(part in VARIANTS_BWD for part in n.split("+"))]
-            run_bwd_shapes(dtypes, mine, args.rounds, entries, results)
+            run_bwd_shapes(dtypes, names, args.rounds, entries, results)
     summary(names, results)
     return 0
 
