@@ -238,6 +238,28 @@ CUDA toolkit.  Phases, each of which raises on failure:
        phase 18's) takes one step on the card: its loss within 1e-4
        relative and every gradient leaf within MAIN_TOL of its largest
        entry of the same cut's on the CPU, the flash launches counted.
+20. the training driver, ``repro_torch.launch.train.train``, with
+    checkpoints and supervised restarts, on h2o-danube-1.8b at its
+    published widths in bf16 cut to 4 layers (B = 4, S = 4096), in a
+    temporary directory whose free space is checked first:
+    a. 8 steps, no checkpoints; then the costs of a checkpoint of the
+       end state: the caller's staging, the writer's gather, encode with
+       CRC and write, GB on disk, the staged copy's device memory, and
+       the step's ms without a save and with one in flight;
+    b. the same 8 steps with a checkpoint every 4 and a controller over 2
+       hosts whose host 1 goes silent after the sixth step: 1 restart,
+       steps 4 and 5 replayed, the flash launches the config's for the
+       10 steps run;
+    c. the newest checkpoint restored into a fresh template, bit for bit;
+    d. one step taken twice from the same state (bit-reproducible?), then
+       b's end state against a's, bit for bit if so;
+    e. step 8's payload corrupted by the chaos hook: launch.train resumes
+       from step 4 and ends at a's state;
+    f. ``python -m repro_torch.launch.train`` twice on a checkpoint
+       directory: the second run resumes from step 20;
+    g. phase 11's engine through ``save_checkpoint`` and
+       ``restore_checkpoint``: the params bit for bit, the cache and
+       views reset, greedy tokens equal to a fresh engine's.
 
 Every launch count is set to 0 just before a phase drives its engines and
 read just after; the counts of each kernel must equal the applies (or
@@ -5305,6 +5327,464 @@ def phase_train(peaks_) -> list:
     return recs
 
 
+
+# -- phase 20: the training driver with checkpoints and restarts --------------
+
+# h2o-danube-1.8b at its published widths in bf16 (remat "block", its
+# config's) through repro_torch.launch.train, cut to CKPT_LAYERS of its 24
+# layers: 441.7 M params, so a full checkpoint of the TrainState is 7.07
+# GB on disk (params stored as f32, as the reference stores bf16, plus f32
+# master, m and v) and the staged copy 6.2 GB on the card; at full depth a
+# checkpoint would take 29 GB and the phase writes several.  B x S is
+# phase 19a's microbatch.  CKPT_STEPS steps, a checkpoint every
+# CKPT_SAVE_EVERY; 20b's host 1 goes silent after CKPT_SILENT_AFTER steps;
+# the learning rate keeps the loss finite (phase 19a's).
+CKPT_LAYERS, CKPT_BATCH, CKPT_SEQ = 4, TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ
+CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_SILENT_AFTER, CKPT_LR = 8, 4, 6, TRAIN_LR
+# steps timed without a save, then with one in flight
+CKPT_TIMED_STEPS = 5
+# A resumed run against the uninterrupted one, where a step is not
+# bit-reproducible on the card: each leaf to MAIN_TOL of its largest
+# entry (fp32 sums in other orders over 4 replayed steps; a lost or
+# doubled step moves the moments by far more)
+CKPT_RESUME_TOL = MAIN_TOL
+# 20f: the command users run, twice
+CKPT_CLI = ["--arch", "custom-10m", "--steps", "20", "--save-every", "10"]
+
+
+def clone_state(state):
+    """An owned copy of a TrainState on its device (the generator a new
+    one with the same state)."""
+    import torch
+    from repro_torch.train import OptState, TrainState, require_grad
+    from repro_torch.train.optimizer import tree_map
+
+    def copy(x):
+        return x.detach().clone()
+
+    gen = torch.Generator(device=state.rng.device)
+    gen.set_state(state.rng.get_state())
+    opt = state.opt
+    return TrainState(require_grad(tree_map(copy, state.params)),
+                      OptState(copy(opt.step), tree_map(copy, opt.master),
+                               tree_map(copy, opt.m), tree_map(copy, opt.v)),
+                      gen)
+
+
+def state_diff(got, want) -> dict:
+    """Leaf by leaf (the checkpoint's paths): how many differ in any bit,
+    and the largest |got - want| over the leaf's largest |want|."""
+    import torch
+    from repro_torch.dist.checkpoint import _leaf_paths
+    pg, pw = _leaf_paths(got), _leaf_paths(want)
+    if [p for p, _ in pg] != [p for p, _ in pw]:
+        raise AssertionError("the states have different leaves")
+    unequal, worst, worst_leaf = [], 0.0, None
+    for (path, a), (_, b) in zip(pg, pw):
+        if isinstance(b, torch.Generator):
+            a, b = a.get_state(), b.get_state()
+        elif a.device != b.device or a.dtype != b.dtype:
+            raise AssertionError(f"{path}: {a.device} {a.dtype} against "
+                                 f"{b.device} {b.dtype}")
+        if torch.equal(a, b):
+            continue
+        unequal.append(path)
+        rel = float((a.double() - b.double()).abs().max()) / (
+            float(b.double().abs().max()) or 1.0)
+        if rel >= worst:
+            worst, worst_leaf = rel, path
+    return {"leaves": len(pg), "unequal": len(unequal),
+            "unequal_first": unequal[:4], "worst_rel_err": worst,
+            "worst_leaf": worst_leaf}
+
+
+def drive_train(label: str, cfg, **kw) -> dict:
+    """One call of ``repro_torch.launch.train.train`` on the card, the
+    entry point's own loop; its module's ``synth_batch``,
+    ``make_train_step`` and ``CheckpointManager`` wrapped to record the
+    step of each batch drawn, the state after each step, and the managers
+    it made.  The flash kernels' launches must be the config's for the
+    steps actually run (the forward with LSE twice a layer a step under
+    remat "block", K1 once).  → record, with the final state and the
+    managers under ``_state`` and ``_managers``."""
+    import torch
+    import repro_torch.launch.train as train_mod
+    seen, box, managers = [], {}, []
+    orig = (train_mod.synth_batch, train_mod.make_train_step,
+            train_mod.CheckpointManager)
+
+    def synth(*a, **k):
+        seen.append(k["step"])
+        return orig[0](*a, **k)
+
+    def make(*a, **k):
+        fn = orig[1](*a, **k)
+
+        def step(state, batch):
+            state, metrics = fn(state, batch)
+            box["state"] = state
+            return state, metrics
+        return step
+
+    class Recorded(orig[2]):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            managers.append(self)
+
+    train_mod.synth_batch, train_mod.make_train_step = synth, make
+    train_mod.CheckpointManager = Recorded
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        result = train_mod.train(cfg, steps=CKPT_STEPS, batch=CKPT_BATCH,
+                                 seq=CKPT_SEQ, lr=CKPT_LR, seed=61,
+                                 log_every=1, **kw)
+    finally:
+        (train_mod.synth_batch, train_mod.make_train_step,
+         train_mod.CheckpointManager) = orig
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launches()
+    n_att = attention_layers(cfg) * len(seen)
+    check_launches(label, got, {"flash_attention_fwd_lse": 2 * n_att,
+                                "flash_attention_bwd": n_att})
+    losses = [h["loss"] for h in result["history"]]
+    if not losses or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    return {"phase": label, "steps_run": seen, "launches": got,
+            "restarts": result["restarts"], "phase_after": result["phase"],
+            "ft_events": result["ft_events"], "losses": losses,
+            "ms_per_step": [h["ms_per_step"] for h in result["history"]],
+            "seconds": seconds, "_state": box["state"],
+            "_managers": managers}
+
+
+def spread(values) -> dict:
+    return {"median": statistics.median(values), "min": min(values),
+            "max": max(values), "n": len(values)}
+
+
+def timed_steps(step, state, batch, n: int) -> list:
+    import torch
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def ckpt_costs(cfg, state, directory: Path) -> dict:
+    """20a's end state through a CheckpointManager of its own: the device
+    memory the staged copy adds, the steps' ms without a save and with
+    one in flight (on a copy of the state, stepped in place), the save's
+    parts (the caller's staging; the writer's gather, encode with CRC and
+    write) and GB on disk.  The restore is timed in 20c."""
+    import torch
+    from repro_torch.dist import CheckpointManager
+    from repro_torch.models import LM
+    from repro_torch.train import make_train_step
+    label = "ckpt_costs"
+    model = LM(cfg)
+    step = make_train_step(model, lr=CKPT_LR, warmup=1, total_steps=100)
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in family_batch(
+        cfg, CKPT_BATCH, CKPT_SEQ, 67).items()}
+    work = clone_state(state)
+    reset_launches()
+    timed_steps(step, work, batch, 1)                      # warm
+    plain = timed_steps(step, work, batch, CKPT_TIMED_STEPS)
+    mgr = CheckpointManager(str(directory), async_save=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    mgr.save(CKPT_STEPS, state)
+    staged = torch.cuda.memory_allocated() - before
+    during = timed_steps(step, work, batch, CKPT_TIMED_STEPS)
+    in_flight = not mgr._inflight.done()
+    t0 = time.perf_counter()
+    mgr.wait()
+    waited = time.perf_counter() - t0
+    got = launches()
+    n_att = attention_layers(cfg) * (2 * CKPT_TIMED_STEPS + 1)
+    check_launches(label, got, {"flash_attention_fwd_lse": 2 * n_att,
+                                "flash_attention_bwd": n_att})
+    parts = {k: 1e3 * v for k, v in mgr.last_save_s.items()}
+    nbytes = os.path.getsize(str(directory / f"ckpt_{CKPT_STEPS:08d}.npz"))
+    mgr.close()
+    writer_ms = parts["gather"] + parts["encode"] + parts["write"]
+    rec = {"phase": label, "launches": got,
+           "save_stage_ms": parts["stage"], "writer_ms": writer_ms,
+           "gather_ms": parts["gather"], "encode_crc_ms": parts["encode"],
+           "write_ms": parts["write"], "gb_on_disk": nbytes / 1e9,
+           "write_gb_per_s": nbytes / 1e9 / (parts["write"] / 1e3),
+           "writer_gb_per_s": nbytes / 1e9 / (writer_ms / 1e3),
+           "wait_after_steps_ms": 1e3 * waited,
+           "staged_copy_gib": staged / 2 ** 30,
+           "step_ms_without_save": spread(plain),
+           "step_ms_save_in_flight": spread(during),
+           "save_in_flight_through_the_steps": in_flight}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def phase_ckpt_cli(directory: Path) -> dict:
+    """20f: ``python -m repro_torch.launch.train`` with a checkpoint
+    directory, twice, in subprocesses on the card: the second run resumes
+    from the step the first finished."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *CKPT_CLI,
+           "--ckpt-dir", str(directory)]
+    outs, seconds = [], []
+    reset_launches()   # the subprocesses' launches are their own
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=300)
+        seconds.append(time.perf_counter() - t0)
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd)} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        outs.append(proc.stdout)
+        for line in proc.stdout.splitlines():
+            log(f"  {line}")
+    last = int(CKPT_CLI[CKPT_CLI.index("--steps") + 1])
+    if f"resumed from step {last}" not in outs[1] or "resumed" in outs[0]:
+        raise AssertionError("the second run did not resume from step "
+                             f"{last}:\n{outs[1]}")
+    rec = {"phase": "ckpt_cli", "command": cmd[1:], "seconds": seconds,
+           "launches": launches()}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def phase_ckpt_serve(directory: Path) -> dict:
+    """20g: phase 11's f32 4-layer engine: ``save_checkpoint``, a
+    generation and a logit view attached, the weights moved, then
+    ``restore_checkpoint``: the params bit for bit, the cache, position
+    and views reset, and a greedy generation equal to a fresh engine's on
+    the saved weights."""
+    import numpy as np
+    import torch
+    from repro_torch.dist import CheckpointManager
+    from repro_torch.serve import IncrementalLogitView, ServeEngine
+    from repro_torch.train.optimizer import leaves, tree_map
+    label = "ckpt_serve_danube_f32"
+    eng = serve_engine(n_layers=EXACT_LAYERS, dtype="float32", seed=1)
+    cfg = eng.model.cfg
+    saved = tree_map(lambda x: x.clone(), eng.params)
+    prompts = np.random.default_rng(71).integers(
+        1, cfg.vocab, (SERVE_BATCH, 64)).astype(np.int32)
+    new = 8
+    mgr = CheckpointManager(str(directory), async_save=False)
+    reset_launches()
+    t0 = time.perf_counter()
+    eng.save_checkpoint(mgr, 1)
+    save_s = time.perf_counter() - t0
+    eng.generate(prompts, max_new=new)
+    H = torch.randn(64, cfg.d_model, device=DEVICE)
+    eng.attach_logit_view("lm_head", IncrementalLogitView(
+        H, eng.params["lm_head"]["table"].float(), device=DEVICE))
+    for leaf in leaves(eng.params):
+        leaf.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.restore_checkpoint(mgr)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    diff = state_diff(eng.params, saved)
+    reset = (eng._pos == 0 and not eng._logit_views and not eng._view_guards
+             and not any(bool(x.any()) for x in leaves(eng.cache)))
+    got_tokens = eng.generate(prompts, max_new=new)
+    fresh = ServeEngine(eng.model, saved, batch_size=SERVE_BATCH,
+                        max_seq=eng.max_seq)
+    want_tokens = fresh.generate(prompts, max_new=new)
+    got = launches()
+    check_launches(label, got, {"flash_attention": 3 * cfg.n_layers,
+                                "flash_decode": 3 * cfg.n_layers * new})
+    rec = {"phase": label, "launches": got, "params_diff": diff,
+           "reset": reset, "tokens_equal": bool(np.array_equal(
+               got_tokens, want_tokens)), "save_s": save_s,
+           "restore_s": restore_s}
+    log("main " + json.dumps(rec))
+    if diff["unequal"] or not reset or not rec["tokens_equal"]:
+        raise AssertionError(f"{label}: {rec}")
+    return rec
+
+
+def phase_ckpt() -> list:
+    """Phase 20: the training driver on the card with checkpoints, a
+    supervised restart, a restore round trip, a resume and a recovery
+    drill (20a-20e), its command line (20f) and the serving hooks (20g),
+    in a temporary directory checked for space first and removed at the
+    end."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist import CheckpointManager, FaultTolerantController
+    from repro_torch.dist.fault_tolerance import FaultToleranceConfig
+    from repro_torch.guard import ChaosConfig
+    from repro_torch.models import LM
+    from repro_torch.train import init_train_state, make_train_step
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=CKPT_LAYERS)
+    # a checkpoint: params stored as f32, f32 master, m and v
+    ckpt_bytes = 16 * cfg.param_count()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    # at most two checkpoints on disk at once (20b's steps 4 and 8, or
+    # the cost measurement's one), then 20f's and 20g's (1.8 GB); half
+    # again for slack
+    need = 3 * ckpt_bytes
+    free = shutil.disk_usage(tmp).free
+    log(f"phase 20: {tmp}: {free / 1e9:.1f} GB free, {need / 1e9:.1f} GB "
+        f"needed ({ckpt_bytes / 1e9:.2f} GB a checkpoint of "
+        f"{cfg.param_count() / 1e6:.1f} M params)")
+    recs = []
+    try:
+        if free < need:
+            raise RuntimeError(f"phase 20 needs {need / 1e9:.1f} GB in "
+                               f"{tmp}, {free / 1e9:.1f} GB free")
+        # 20a: uninterrupted, no checkpoint directory
+        a = drive_train("driver_uninterrupted", cfg, resume=False)
+        if a["steps_run"] != list(range(CKPT_STEPS)) or a["restarts"]:
+            raise AssertionError(f"20a: {a}")
+        state_a = a.pop("_state")
+        a.pop("_managers")
+        log("main " + json.dumps(a))
+        recs.append(a)
+        gc.collect()
+        recs.append(ckpt_costs(cfg, state_a, tmp / "costs"))
+        shutil.rmtree(tmp / "costs")
+        gc.collect()
+
+        # 20b: the same steps with checkpoints; host 1 of 2 goes silent
+        # after the sixth step (tests/test_fault_tolerance.py's driver
+        # test: a fake clock, its heartbeat backdated past the timeout)
+        clock = {"t": 0.0}
+        steps_seen = []
+        driver_ckpt = tmp / "driver"
+
+        class SilentHost(FaultTolerantController):
+            def tick(self):
+                steps_seen.append(None)
+                clock["t"] += 0.1
+                if len(steps_seen) == CKPT_SILENT_AFTER:
+                    self._last_seen[1] -= 100.0
+                return super().tick()
+
+        ctl = SilentHost(2, FaultToleranceConfig(heartbeat_timeout=3.0),
+                         clock=lambda: clock["t"])
+        b = drive_train("driver_supervised_restart", cfg,
+                        ckpt_dir=str(driver_ckpt),
+                        save_every=CKPT_SAVE_EVERY, controller=ctl)
+        want_seen = [*range(CKPT_SILENT_AFTER),
+                     *range(CKPT_SAVE_EVERY, CKPT_STEPS)]
+        state_b = b.pop("_state")
+        # the parts of the training driver's last save: blocking, with no
+        # step beside it
+        b["final_save_ms"] = {k: 1e3 * v for k, v in
+                              b.pop("_managers")[0].last_save_s.items()}
+        log("main " + json.dumps(b))
+        if (b["restarts"] != 1 or b["phase_after"] != "running"
+                or not any("failed host 1" in e for e in b["ft_events"])
+                or b["steps_run"] != want_seen):
+            raise AssertionError(f"20b: {b}")
+        recs.append(b)
+
+        # 20c: the newest checkpoint into a fresh template, bit for bit
+        model = LM(cfg)
+        mgr = CheckpointManager(str(driver_ckpt), async_save=False)
+        reset_launches()
+        template = init_train_state(model, torch.Generator(
+            device=DEVICE).manual_seed(73))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = mgr.restore(template)
+        torch.cuda.synchronize()
+        del template
+        c = {"phase": "ckpt_restore_round_trip",
+             "steps": mgr.all_steps(), "restored_step":
+             mgr.last_restored_step, "restore_ms":
+             1e3 * (time.perf_counter() - t0),
+             "diff": state_diff(restored, state_b),
+             "params_require_grad": all(
+                 p.requires_grad and p.is_leaf for _, p in flat_params(
+                     restored.params)),
+             "launches": launches()}
+        log("main " + json.dumps(c))
+        if (c["diff"]["unequal"] or c["restored_step"] != CKPT_STEPS
+                or not c["params_require_grad"]):
+            raise AssertionError(f"20c: {c}")
+        recs.append(c)
+
+        # 20d: is one step bit-reproducible on the card?  Then the
+        # resumed run must equal the uninterrupted one bit for bit
+        step = make_train_step(model, lr=CKPT_LR, warmup=1, total_steps=100)
+        batch = family_batch(cfg, CKPT_BATCH, CKPT_SEQ, 79)
+        reset_launches()
+        twin = clone_state(restored)
+        one, _ = step(restored, batch)
+        two, _ = step(twin, batch)
+        torch.cuda.synchronize()
+        repro = state_diff(one, two)
+        del one, two, twin, restored
+        n_att = attention_layers(cfg) * 2
+        got = launches()
+        check_launches("ckpt_step_twice", got, {
+            "flash_attention_fwd_lse": 2 * n_att,
+            "flash_attention_bwd": n_att})
+        resume = state_diff(state_b, state_a)
+        d = {"phase": "ckpt_resume_against_uninterrupted",
+             "step_bit_reproducible": repro["unequal"] == 0,
+             "step_twice_diff": repro, "resume_diff": resume,
+             "tolerance": (0.0 if repro["unequal"] == 0
+                           else CKPT_RESUME_TOL), "launches": got}
+        log("main " + json.dumps(d))
+        if resume["worst_rel_err"] > d["tolerance"] or (
+                d["step_bit_reproducible"] and resume["unequal"]):
+            raise AssertionError(f"20d: {d}")
+        recs.append(d)
+        del state_b
+        gc.collect()
+
+        # 20e: step 8's payload corrupted by the chaos hook: the training
+        # driver's resume falls back to step 4 and finishes every step
+        monkey = ChaosConfig(seed=83, corrupt_checkpoint_p=1.0).monkey()
+        if not monkey.maybe_corrupt_checkpoint(
+                str(driver_ckpt / f"ckpt_{CKPT_STEPS:08d}.npz")):
+            raise AssertionError("20e: the chaos hook corrupted nothing")
+        e = drive_train("driver_resume_after_corruption", cfg,
+                        ckpt_dir=str(driver_ckpt),
+                        save_every=CKPT_SAVE_EVERY, resume=True,
+                        ft_config=FaultToleranceConfig(
+                            heartbeat_timeout=3600.0))
+        e["restored_step"] = e.pop("_managers")[0].last_restored_step
+        e["diff_to_uninterrupted"] = state_diff(e.pop("_state"), state_a)
+        log("main " + json.dumps(e))
+        if (e["restored_step"] != CKPT_SAVE_EVERY
+                or e["steps_run"] != list(range(CKPT_SAVE_EVERY, CKPT_STEPS))
+                or e["restarts"] or e["diff_to_uninterrupted"][
+                    "worst_rel_err"] > d["tolerance"]
+                or (d["step_bit_reproducible"]
+                    and e["diff_to_uninterrupted"]["unequal"])):
+            raise AssertionError(f"20e: {e}")
+        recs.append(e)
+        del state_a
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 20f: the command line; 20g: the serving hooks
+        recs.append(phase_ckpt_cli(tmp / "cli"))
+        recs.append(phase_ckpt_serve(tmp / "serve"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 20: {time.perf_counter() - t_phase:.2f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return recs
+
+
 def main() -> int:
     try:
         import torch
@@ -5424,6 +5904,11 @@ def main() -> int:
 
     # 19. the training path
     phases.extend(phase_train(peaks_))
+    torch.cuda.empty_cache()
+
+    # 20. the training driver with checkpoints and supervised restarts
+    torch.cuda.reset_peak_memory_stats()
+    phases.extend(phase_ckpt())
     torch.cuda.empty_cache()
 
     # the kernels record: per entry, the main path's launches and the

@@ -653,7 +653,7 @@ class IncrementalEngine:
         if plan.mesh_key is not None:
             raise NotImplementedError(
                 "plan carries a mesh key: the port has no sharded engine "
-                "yet (ROADMAP.md Queue 1 item 12)")
+                "yet (ROADMAP.md Queue 1 item 12b)")
         plan_orders = {name: int(vp.order or 1)
                        for name, vp in plan.views.items()}
         deep = any(o > 1 for o in plan_orders.values())

@@ -18,10 +18,10 @@ code paths:
     firing, standing in for a kernel/device fault (the transactional
     layer must roll back);
   * ``corrupt_checkpoint_p`` — flip bytes in a just-written checkpoint
-    payload (the checkpoint manager's, in ``dist/``, not ported yet:
+    payload (:class:`~repro_torch.dist.checkpoint.CheckpointManager`:
     checksum verification and chain fallback must catch it);
   * ``kill_host_p``    — permanently swallow a host's heartbeats
-    (the fault-tolerance controller's, in ``dist/``, not ported yet:
+    (:class:`~repro_torch.dist.fault_tolerance.FaultTolerantController`:
     timeout eviction and the supervisor restart loop must recover);
   * ``worker_crash_p`` — kill a fleet refresh worker *between* firing
     and commit (:mod:`repro_torch.fleet`'s lease reclaim must roll back

@@ -39,20 +39,10 @@ import torch
 from ..configs import ModelConfig, get_config
 from ..models import LM
 from ..serve import IncrementalLogitView, ServeEngine
+from .train import custom_10m, custom_100m
 
 # the JAX package's example configs (its launch/train.py)
-EXAMPLES = {
-    "custom-10m": ModelConfig(
-        name="custom-10m", family="dense", n_layers=4, d_model=256,
-        n_heads=4, n_kv_heads=4, d_ff=768, vocab=8192, head_dim=64,
-        mlp_gated=True, dtype="float32", fsdp=False, remat="none",
-        source="example"),
-    "custom-100m": ModelConfig(
-        name="custom-100m", family="dense", n_layers=12, d_model=768,
-        n_heads=12, n_kv_heads=4, d_ff=2048, vocab=32000, head_dim=64,
-        mlp_gated=True, dtype="float32", fsdp=False, remat="none",
-        source="example"),
-}
+EXAMPLES = {"custom-10m": custom_10m(), "custom-100m": custom_100m()}
 
 
 def resolve_config(args) -> ModelConfig:

@@ -1,0 +1,249 @@
+"""Training driver: data pipeline → train_step → checkpoints → fault
+tolerance, on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch custom-10m \\
+        --steps 20 --ckpt-dir /path/to/ckpt --save-every 10
+    PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
+        --reduced --device cpu --steps 10 --batch 2 --seq 64
+
+The port of the JAX package's ``launch/train.py``: the same ``[train]``
+lines, the same result dict, the same supervised restart loop.  It runs
+on the card unless ``--device cpu`` (``train(..., device="cpu")``) is
+given; without a card it raises.  The step is the port's eager one,
+updating params and optimizer state in place (the reference jits its
+step with the state donated); the run has one host until the sharded
+``dist/`` (ROADMAP.md Queue 1 item 12b), which ``--mesh local`` waits
+for.  A restart restores the newest intact checkpoint and replays from
+the step it holds, so a resumed run takes the steps of an uninterrupted
+one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Dict, Optional
+
+import torch
+
+from ..configs import ModelConfig, ShapeConfig, get_config
+from ..data.pipeline import synth_batch
+from ..dist.checkpoint import CheckpointCorruptError, CheckpointManager
+from ..dist.fault_tolerance import (FaultToleranceConfig,
+                                    FaultTolerantController, RunPhase,
+                                    TrainingSupervisor)
+from ..models import LM
+from ..train import grad_compression as gc
+from ..train.train_step import init_train_state, make_train_step
+
+MESH_REFUSED = ("the port's training driver runs on one device: a mesh "
+                "waits for the sharded dist/ (ROADMAP.md Queue 1 item 12b)")
+
+
+def custom_100m() -> ModelConfig:
+    """The ~100M end-to-end example config (llama-style dense)."""
+    return ModelConfig(
+        name="custom-100m", family="dense", n_layers=12, d_model=768,
+        n_heads=12, n_kv_heads=4, d_ff=2048, vocab=32000, head_dim=64,
+        mlp_gated=True, dtype="float32", fsdp=False, remat="none",
+        source="example")
+
+
+def custom_10m() -> ModelConfig:
+    """CPU-friendly variant for the checked-in convergence demo."""
+    return ModelConfig(
+        name="custom-10m", family="dense", n_layers=4, d_model=256,
+        n_heads=4, n_kv_heads=4, d_ff=768, vocab=8192, head_dim=64,
+        mlp_gated=True, dtype="float32", fsdp=False, remat="none",
+        source="example")
+
+
+def resolve_config(args) -> ModelConfig:
+    if args.arch == "custom-100m":
+        return custom_100m()
+    if args.arch == "custom-10m":
+        return custom_10m()
+    cfg = get_config(args.arch)
+    return cfg.reduced() if args.reduced else cfg
+
+
+def _new_state(model: LM, seed: int):
+    # looked up through the module, so tests can patch init_train_state
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    return init_train_state(model, gen)
+
+
+def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
+          lr: float = 3e-4, seed: int = 0, ckpt_dir: Optional[str] = None,
+          save_every: int = 100, compression_rank: int = 0,
+          mesh=None, log_every: int = 10, resume: bool = True,
+          controller: Optional[FaultTolerantController] = None,
+          ft_config: Optional[FaultToleranceConfig] = None,
+          chaos=None, device=None) -> Dict:
+    """Train ``cfg`` for ``steps`` steps on ``device`` (``None``: the
+    card) under the fault-tolerance control plane: every step heartbeats
+    the :class:`FaultTolerantController`, and the
+    :class:`TrainingSupervisor` owns the loop — on an eviction or
+    rejoin it restores from the newest checkpoint and continues, on
+    ``HALTED`` it stops.  A healthy single-host run takes exactly the
+    same step sequence as the bare loop it replaced.
+
+    ``controller`` injects a pre-built controller (tests drive failures
+    through it); by default one is built over one host with
+    ``ft_config``.  ``chaos`` (a :class:`repro_torch.guard.ChaosConfig`
+    / ``ChaosMonkey``) threads fault injection through the checkpoint
+    manager (payload corruption) and the controller (host kills) — the
+    chaos-harness entry point for end-to-end recovery drills.  ``mesh``
+    must be None (ROADMAP.md Queue 1 item 12b).
+    """
+    if mesh is not None:
+        raise NotImplementedError(MESH_REFUSED)
+    if chaos is not None:
+        from ..guard.chaos import as_monkey
+        chaos = as_monkey(chaos)
+    model = LM(cfg, device=device)
+    shape = ShapeConfig("train", seq, batch, "train")
+    state = _new_state(model, seed)
+    comp = (gc.init_compression(state.params, rank=compression_rank)
+            if compression_rank else None)
+    step_fn = make_train_step(model, lr=lr, warmup=min(50, steps // 10 + 1),
+                              total_steps=steps, compression=comp)
+
+    mgr = (CheckpointManager(ckpt_dir, async_save=True, chaos=chaos)
+           if ckpt_dir else None)
+    start = 0
+    if mgr and resume and mgr.latest_step() is not None:
+        state = mgr.restore(state, step=mgr.latest_step())
+        # a checksum fallback may have loaded an earlier intact step;
+        # resume from what was actually restored, not what was asked for
+        start = mgr.last_restored_step
+        print(f"[train] resumed from step {start}")
+
+    ctl = controller or FaultTolerantController(
+        n_hosts=1, config=ft_config, chaos=chaos)
+    supervisor = TrainingSupervisor(ctl, save_every=save_every if mgr else 0)
+
+    # the supervisor owns the loop; the closures own the state
+    box = {"state": state, "t_last": time.perf_counter()}
+    history: list = []
+
+    def run_step(t: int) -> float:
+        t0 = time.perf_counter()
+        batch_np = synth_batch(cfg, shape, seed=seed, step=t)
+        box["state"], metrics = step_fn(
+            box["state"], {k: torch.as_tensor(v, device=model.device)
+                           for k, v in batch_np.items()})
+        if (t + 1) % log_every == 0 or t == steps - 1:
+            loss = float(metrics["loss"])
+            dt = (time.perf_counter() - box["t_last"]) / log_every
+            box["t_last"] = time.perf_counter()
+            tok_s = batch * seq / dt
+            print(f"[train] step {t+1:5d} loss {loss:7.4f} "
+                  f"lr {float(metrics['lr']):.2e} "
+                  f"gnorm {float(metrics['grad_norm']):7.3f} "
+                  f"{dt*1e3:7.1f} ms/step {tok_s:9.0f} tok/s",
+                  flush=True)
+            history.append({"step": t + 1, "loss": loss,
+                            "ms_per_step": dt * 1e3})
+        return time.perf_counter() - t0
+
+    def save(t: int) -> None:
+        if mgr:
+            mgr.save(t, box["state"])
+
+    def restore() -> int:
+        if mgr is None or mgr.latest_step() is None:
+            # nothing to restore from: restart the run from scratch
+            box["state"] = _new_state(model, seed)
+            return 0
+        try:
+            box["state"] = mgr.restore(box["state"], step=mgr.latest_step())
+        except CheckpointCorruptError as e:
+            print(f"[train] every checkpoint corrupt ({e}); "
+                  f"restarting from scratch")
+            box["state"] = _new_state(model, seed)
+            history[:] = []
+            return 0
+        # restore() falls back past corrupt checkpoints; replay from the
+        # step it actually loaded, not the newest one on disk
+        s = mgr.last_restored_step
+        # drop log entries from steps the restart will replay, so
+        # history/--out never carry duplicate step records
+        history[:] = [h for h in history if h["step"] <= s]
+        print(f"[train] restart: restored step {s} "
+              f"({len(ctl.alive_hosts())} hosts alive)")
+        return s
+
+    try:
+        restarts = supervisor.run(steps, run_step, save, restore,
+                                  start_step=start)
+        if mgr and ctl.phase != RunPhase.HALTED:
+            mgr.save(steps, box["state"], blocking=True)
+    finally:
+        if mgr:
+            mgr.close()
+    if ctl.phase == RunPhase.HALTED:
+        print(f"[train] HALTED: {ctl.events[-1] if ctl.events else ''}")
+    return {"history": history,
+            "final_loss": history[-1]["loss"] if history else None,
+            "restarts": restarts,
+            "phase": ctl.phase.value,
+            "ft_events": list(ctl.events)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="custom-10m")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="cpu or cuda (default: the card)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--save-every", type=int, default=100)
+    ap.add_argument("--compression-rank", type=int, default=0)
+    ap.add_argument("--mesh", choices=["none", "local"], default="none",
+                    help="local waits for ROADMAP.md Queue 1 item 12b")
+    ap.add_argument("--heartbeat-timeout", type=float, default=30.0)
+    ap.add_argument("--straggler-factor", type=float, default=0.0,
+                    help="evict hosts slower than this × median step time "
+                         "(0 disables)")
+    ap.add_argument("--min-hosts", type=int, default=1)
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--chaos-corrupt-ckpt-p", type=float, default=0.0,
+                    help="probability of corrupting each written "
+                         "checkpoint payload (recovery drill)")
+    ap.add_argument("--chaos-kill-host-p", type=float, default=0.0,
+                    help="per-heartbeat probability of killing a host")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    if args.mesh == "local":
+        raise NotImplementedError(MESH_REFUSED)
+    cfg = resolve_config(args)
+    ft = FaultToleranceConfig(heartbeat_timeout=args.heartbeat_timeout,
+                              straggler_factor=args.straggler_factor,
+                              min_hosts=args.min_hosts)
+    print(f"[train] {cfg.name}: {cfg.param_count()/1e6:.1f}M params, "
+          f"{args.steps} steps, batch {args.batch}×{args.seq}")
+    chaos = None
+    if args.chaos_corrupt_ckpt_p > 0 or args.chaos_kill_host_p > 0:
+        from ..guard.chaos import ChaosConfig
+        chaos = ChaosConfig(seed=args.chaos_seed,
+                            corrupt_checkpoint_p=args.chaos_corrupt_ckpt_p,
+                            kill_host_p=args.chaos_kill_host_p)
+    result = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                   lr=args.lr, ckpt_dir=args.ckpt_dir,
+                   save_every=args.save_every,
+                   compression_rank=args.compression_rank,
+                   ft_config=ft, chaos=chaos, device=args.device)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

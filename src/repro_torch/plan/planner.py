@@ -27,7 +27,7 @@ This module is the port's own copy of the JAX package's planner: pure
 arithmetic over the symbolic program, so a plan and its fingerprint are
 the same string in both packages.  Two things the port cannot execute yet
 are refused rather than planned away: a mesh (``plan_program(mesh=…)``,
-ROADMAP.md Queue 1 item 12), and — in the engine — a view of depth
+ROADMAP.md Queue 1 item 12b), and — in the engine — a view of depth
 ``order >= 2`` (Queue 1 item 7).
 """
 
@@ -359,7 +359,7 @@ def plan_program(compiled, workload: WorkloadDescriptor, *,
     if mesh is not None:
         raise NotImplementedError(
             "plan_program(mesh=...): the port has no sharded engine yet "
-            "(ROADMAP.md Queue 1 item 12, dist/)")
+            "(ROADMAP.md Queue 1 item 12b, the sharded dist/)")
     if isinstance(compiled, Program):
         compiled = compile_program(compiled)
     program = compiled.program

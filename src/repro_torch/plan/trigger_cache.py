@@ -117,9 +117,10 @@ def global_trigger_cache() -> TriggerCache:
 def mesh_cache_key(mesh, axis: Optional[str] = None) -> Optional[Tuple]:
     """Hashable identity of a mesh for trigger-cache keying: ``None``
     without one.  The port has no sharded engine yet, so a mesh has
-    nothing to key and is refused (ROADMAP.md Queue 1 item 12, dist/)."""
+    nothing to key and is refused (ROADMAP.md Queue 1 item 12b, the sharded
+    dist/)."""
     if mesh is None:
         return None
     raise NotImplementedError(
         "mesh_cache_key: the port has no sharded engine yet (ROADMAP.md "
-        "Queue 1 item 12, dist/)")
+        "Queue 1 item 12b, the sharded dist/)")

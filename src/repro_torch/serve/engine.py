@@ -13,8 +13,9 @@ retried, breaker-gated refreshes and a last-good snapshot served while
 the breaker is open.  :meth:`ServeEngine.attach_fleet` backs views by a
 multi-tenant :class:`repro_torch.fleet.FleetScheduler` instead: hot-swap
 deltas enter a tenant's update log through admission control, and reads
-serve the tenant's committed snapshot.  The reference's checkpoint hooks
-wait for ``dist/`` (ROADMAP.md Queue 1 item 12).
+serve the tenant's committed snapshot.  :meth:`ServeEngine.save_checkpoint`
+and :meth:`ServeEngine.restore_checkpoint` persist the weights through a
+:class:`repro_torch.dist.checkpoint.CheckpointManager`.
 """
 
 from __future__ import annotations
@@ -225,6 +226,37 @@ class ServeEngine:
         """
         return {path: view.replan(workload)
                 for path, view in self._logit_views.items()}
+
+    # -- checkpoint hooks ----------------------------------------------------
+    def save_checkpoint(self, manager, step: int,
+                        blocking: bool = False) -> str:
+        """Snapshot the serving weights through a
+        :class:`repro_torch.dist.checkpoint.CheckpointManager`.
+
+        Only ``params`` are persisted: decode caches are per-request
+        transients, and incremental logit views rebuild from the weights
+        they were attached with.  A stream of low-rank hot-swap deltas
+        between saves is exactly the workload the manager's factored
+        incremental checkpoints compress well.
+        """
+        return manager.save(step, self.params, blocking=blocking)
+
+    def restore_checkpoint(self, manager, step: Optional[int] = None
+                           ) -> "ServeEngine":
+        """Load weights from checkpoint ``step`` (default latest) onto the
+        params' devices and reset all weight-derived serving state: the
+        decode cache (KV computed under the old weights must not leak
+        into post-restore requests) and any attached logit views (they
+        may have absorbed hot-swap deltas newer than the checkpoint and
+        cannot be rolled back — re-attach them against the restored
+        weights; a stale ``hot_swap`` call now raises instead of silently
+        diverging)."""
+        self.params = manager.restore(self.params, step=step)
+        self.cache = self.model.init_cache(self.batch_size, self.max_seq)
+        self._pos = 0
+        self._logit_views.clear()
+        self._view_guards.clear()
+        return self
 
     def view_health(self) -> Dict[str, Dict[str, Any]]:
         """Per-view serving health: breaker state, staleness bound,

@@ -1245,3 +1245,95 @@ def test_carrier_widening_on_card_equals_host_widening(cuda):
     for h, d in zip(c.factors(), c.factors(cuda)):
         assert d.device.type == "cuda" and d.dtype == torch.float32
         assert torch.equal(d.cpu(), torch.from_numpy(h))
+
+
+def _card_state(cuda, seed=0):
+    """A reduced danube in bf16 (f32 master, m, v) and its train step on
+    the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b").reduced(),
+                              dtype="bfloat16", remat="block")
+    model = LM(cfg, device="cuda")
+    state = init_train_state(
+        model, torch.Generator(device=cuda).manual_seed(seed))
+    return cfg, state, make_train_step(model, lr=1e-3, warmup=1,
+                                       total_steps=10)
+
+
+def _assert_tree_bits(got, want):
+    from repro_torch.dist.checkpoint import _leaf_paths
+    pg, pw = _leaf_paths(got), _leaf_paths(want)
+    assert [p for p, _ in pg] == [p for p, _ in pw]
+    for (p, a), (_, b) in zip(pg, pw):
+        if isinstance(b, torch.Generator):
+            assert a.device == b.device, p
+            assert torch.equal(a.get_state(), b.get_state()), p
+        else:
+            assert a.device == b.device and a.dtype == b.dtype, p
+            assert torch.equal(a, b), p
+
+
+def test_checkpoint_async_save_on_card_survives_the_in_place_step(
+        cuda, tmp_path, monkeypatch):
+    """A card-side async save, then an in-place train step before the
+    writer gathers: the checkpoint restores the pre-step state bit for
+    bit (bf16 params, f32 master, m and v, the step, the CUDA
+    generator), onto the card, params requiring grad."""
+    import threading
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import synth_batch
+    from repro_torch.dist import CheckpointManager
+    from repro_torch.dist import checkpoint as ckpt
+    cfg, state, step = _card_state(cuda)
+    batch = synth_batch(cfg, ShapeConfig("t", 64, 2, "train"), seed=1)
+    state, _ = step(state, batch)
+    before = ckpt._map_tree(lambda _, x: x if isinstance(
+        x, torch.Generator) else x.detach().clone(), state)
+    before_rng = state.rng.get_state()
+    gate, to_host = threading.Event(), ckpt._to_host
+
+    def gated(leaf):
+        assert gate.wait(60)
+        return to_host(leaf)
+
+    monkeypatch.setattr(ckpt, "_to_host", gated)
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(1, state)
+    state, _ = step(state, batch)
+    torch.rand(4, generator=state.rng, device=cuda)   # the rng moves too
+    assert not torch.equal(state.opt.master["embed"]["table"],
+                           before.opt.master["embed"]["table"])
+    gate.set()
+    template = _card_state(cuda, seed=7)[1]
+    restored = mgr.restore(template)
+    mgr.close()
+    assert torch.equal(restored.rng.get_state(), before_rng)
+    _assert_tree_bits(restored._replace(rng=None), before._replace(rng=None))
+    assert all(p.requires_grad and p.is_leaf
+               for _, p in ckpt._leaf_paths(restored.params))
+    step(restored, batch)     # restored params take the next step
+
+
+def test_checkpoint_round_trips_card_leaves_bit_for_bit(cuda, tmp_path):
+    """bf16, f32 and int32 tensors on the card and a CUDA generator,
+    saved blocking and restored into a zeroed template: the same bits on
+    the card, and the generator draws what the saved one draws next."""
+    from repro_torch.dist import CheckpointManager
+    g = torch.Generator(device=cuda).manual_seed(3)
+    torch.randn(5, generator=g, device=cuda)
+    tree = {"b": torch.randn(33, 17, device=cuda).to(torch.bfloat16),
+            "f": torch.randn(40, 24, device=cuda),
+            "i": torch.tensor(5, dtype=torch.int32, device=cuda),
+            "rng": g}
+    mgr = CheckpointManager(str(tmp_path), async_save=False)
+    mgr.save(0, tree)
+    template = {k: torch.zeros_like(v) for k, v in tree.items()
+                if k != "rng"}
+    template["rng"] = torch.Generator(device=cuda)
+    got = mgr.restore(template)
+    _assert_tree_bits(got, tree)
+    assert torch.equal(torch.rand(9, generator=got["rng"], device=cuda),
+                       torch.rand(9, generator=g, device=cuda))

@@ -42,7 +42,9 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.codegen",
            "repro_torch.train.optimizer", "repro_torch.train.train_step",
            "repro_torch.fivm", "repro_torch.fivm.ring",
            "repro_torch.fivm.solvers", "repro_torch.fivm.registry",
-           "repro_torch.apps.fivm_learning"]
+           "repro_torch.apps.fivm_learning", "repro_torch.dist",
+           "repro_torch.dist.checkpoint", "repro_torch.dist.fault_tolerance",
+           "repro_torch.launch.train"]
 
 PROBE = """
 import importlib, sys
