@@ -260,14 +260,32 @@ CUDA toolkit.  Phases, each of which raises on failure:
     g. phase 11's engine through ``save_checkpoint`` and
        ``restore_checkpoint``: the params bit for bit, the cache and
        views reset, greedy tokens equal to a fresh engine's.
+21. the row-sharded engine (``IncrementalEngine(mesh=...)``,
+    ``repro_torch.dist.ivm_shard``), every firing's rank_update_batched
+    launches equal to its applies on every rank, and the bytes of its
+    collectives:
+    a. a one-rank NCCL mesh in this process: matrix powers A^16
+       (n = 10000) under 3 single updates and a batch of 16, against the
+       single-device engine fed the same stream (SHARD_ONE_TOL) and
+       re-evaluation (MAIN_TOL);
+    b. four gloo ranks in spawned processes sharing the card (rank r on
+       cuda:(r % device_count)), each holding 2500 rows of matrix powers'
+       views: the same stream unplanned, then planned with every view
+       re-evaluated in the firing, one re-evaluation product of two
+       10000^2 views, then OLS (16384 x 8192) row-sharded; each rank's
+       replicated factor blocks bit for bit against rank 0's; rank 0
+       holds every gathered view against the single-device engine and
+       re-evaluation (MAIN_TOL); ms an update (four ranks sharing one
+       card: no scaling figure); the phase's seconds and each rank's peak
+       memory.
 
 Every launch count is set to 0 just before a phase drives its engines and
-read just after; the counts of each kernel must equal the applies (or
-calls) the phase made.
+read just after (in each rank, for phase 21b's spawned ranks); the counts
+of each kernel must equal the applies (or calls) the phase made.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
-record (``rank_update_batched``'s with its launches over phases 4-9 and
-12-16 by K = T*k; the rank-update entries' by M's columns p, and the
+record (``rank_update_batched``'s with its launches over phases 4-9,
+12-16 and 21 by K = T*k; the rank-update entries' by M's columns p, and the
 dense entries' on the skinny tile by K; the forward with LSE and K1 at
 phase 19's danube shape) and ``{"ok": true, "device":
 {...}}``.  Without CUDA,
@@ -399,6 +417,16 @@ RECUR_BATCH, RECUR_FWD_SEQ, RECUR_PROMPT, RECUR_NEW, RECUR_MAX_SEQ = \
 # and a tail of 1, so both paths run), xlstm at 8 (one group of 7 + 1)
 ZAMBA_CUT_LAYERS, XLSTM_CUT_LAYERS, RECUR_CUT_BATCH = 7, 8, 2
 RECUR_CUT_SEQ = RECUR_PROMPT + RECUR_NEW
+
+# phase 21: the row-sharded engine.  21b runs SHARD_WORLD gloo ranks on one
+# card (NCCL takes one rank a card); each engine takes SHARD_SINGLE single
+# updates, then one batch of SHARD_BATCH; a rank that does not report in
+# SHARD_TIMEOUT_S fails the phase
+SHARD_WORLD, SHARD_SINGLE, SHARD_BATCH, SHARD_TIMEOUT_S = 4, 3, 16, 600
+# 21a against the single-device engine, relative to each view's largest
+# entry: the same kernel on the same rows, and every collective of one
+# rank a copy, so equal or within a few ulps
+SHARD_ONE_TOL = 1e-5
 
 # Tolerance of an attention kernel against its plain version.  f32: the
 # kernel tolerance above.  bf16: the plain versions keep p in f32, the
@@ -737,8 +765,13 @@ def check_kernels(flops_peak: float, bytes_peak: float):
     # (n, p, T, k): the main path's applies (matrix powers' views at every K
     # of a batch of 16, OLS X and Z/W, phase 16f's ring at order 1: G at
     # K = 2, Y and W at K = 1), a ragged shape, and T > 1 stacks
+    # phase 21b's shards: a rank's 2500 rows of matrix powers' views (K = 1
+    # at A, 16 at P16 and at A in a batch, 256 at P16 in a batch) and of
+    # OLS's X and Z/W
     batched_cases = [(10000, 10000, 1, K)
                      for K in (1, 16, 32, 64, 128, 256)] + [
+        (2500, 10000, 1, K) for K in (1, 16, 256)] + [
+        (4096, 8192, 1, 1), (2048, 8192, 1, 2)] + [
         (8192, 8192, 1, 2), (8192, 8192, 1, 32),
         (16384, 8192, 1, 1), (16384, 8192, 1, 16),
         (FIVM_FEATURES, FIVM_FEATURES, 1, 2), (FIVM_CAPACITY, 1, 1, 1),
@@ -752,7 +785,8 @@ def check_kernels(flops_peak: float, bytes_peak: float):
                       for K in (1, 2, 3) if (p, K) != (1, 1)] + [
         (FIVM_CAPACITY, 1, 16, 1), (FIVM_CAPACITY, 1, 1, 64),
         (APP_N, 1, 1, 1), (OLS_N, 1, 1, 1)]
-    single_cases = [(10000, 10000, 1), (16384, 8192, 1), (37, 101, 5),
+    single_cases = [(10000, 10000, 1), (2500, 10000, 1), (16384, 8192, 1),
+                    (37, 101, 5),
                     (FIVM_CAPACITY, 1, 1), (OLS_N, 1, 1)]
     cases = [("rank_update_batched", c) for c in batched_cases] + \
             [("rank_update", (n, p, 1, k)) for n, p, k in single_cases]
@@ -5785,6 +5819,452 @@ def phase_ckpt() -> list:
     return recs
 
 
+# -- phase 21: the row-sharded engine -------------------------------------------
+
+def kernel_counts() -> dict:
+    """Every kernel module's launch counters since the last reset, and
+    the rank-update entries' by K, by p and on the skinny tile by K, as
+    plain dicts (a spawned rank sends them to the parent)."""
+    from repro_torch.kernels import rank_update, rank_update_rows
+    out = {"launches": {}, "ranks": {}, "cols": {}, "skinny": {}}
+    for mod in kernel_modules():
+        out["launches"].update(mod.LAUNCHES)
+    for key, counters in (("ranks", rank_update.RANKS),
+                          ("cols", rank_update.COLS),
+                          ("cols", rank_update_rows.COLS),
+                          ("skinny", rank_update.SKINNY_RANKS)):
+        for entry, counter in counters.items():
+            out[key][entry] = dict(counter)
+    return out
+
+
+def merge_counts(total: dict, counts: dict) -> None:
+    """Add a main-path drive's ``kernel_counts()`` (a spawned rank's) to
+    ``total`` and to the kernels record's tallies by p, by skinny K and
+    the out-of-place entry's by K, as ``launches()`` adds the parent's."""
+    for entry, count in counts["launches"].items():
+        total[entry] = total.get(entry, 0) + count
+    for key, into in (("cols", BY_P), ("skinny", SKINNY_K)):
+        for entry, counter in counts[key].items():
+            tally = into.setdefault(entry, {})
+            for k, count in counter.items():
+                tally[k] = tally.get(k, 0) + count
+    for k, count in counts["ranks"].get("rank_update_batched_out",
+                                        {}).items():
+        OUT_RANKS[k] = OUT_RANKS.get(k, 0) + count
+
+
+def shard_stream(n: int, m: int, seed: int) -> list:
+    from repro_torch.data import UpdateStream
+    stream = UpdateStream(n=n, m=m, seed=seed)
+    return [stream.next_update() for _ in range(SHARD_SINGLE + SHARD_BATCH)]
+
+
+def shard_drive(eng, name: str, ups, batches=None) -> list:
+    """Fire ``ups`` on an engine, each of the first SHARD_SINGLE alone and
+    the rest as one batch (or each list of ``batches`` as one batch).
+    Per firing: the dense kernel's launches, which must equal the
+    engine's applies, the collectives' bytes and the blocked ms."""
+    import torch
+    from repro_torch.dist import ivm_shard
+    from repro_torch.kernels import rank_update
+    if batches is None:
+        batches = [[up] for up in ups[:SHARD_SINGLE]] + [ups[SHARD_SINGLE:]]
+        singles = SHARD_SINGLE
+    else:
+        singles = 0
+    out = []
+    for i, group in enumerate(batches):
+        l0 = rank_update.LAUNCHES["rank_update_batched"]
+        a0 = eng.stats.lowrank_applies
+        b0 = dict(ivm_shard.BYTES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i < singles:
+            eng.apply_update(name, *group[0], block=True)
+        else:
+            eng.apply_updates(name, group, block=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = {"updates": len(group), "single": i < singles, "ms": ms,
+               "ms_per_update": ms / len(group),
+               "launches": rank_update.LAUNCHES["rank_update_batched"] - l0,
+               "lowrank_applies": eng.stats.lowrank_applies - a0,
+               "bytes": {k: ivm_shard.BYTES[k] - b0[k]
+                         for k in ivm_shard.BYTES}}
+        if rec["launches"] != rec["lowrank_applies"]:
+            raise AssertionError(f"a firing launched rank_update_batched "
+                                 f"{rec['launches']} times for "
+                                 f"{rec['lowrank_applies']} applies")
+        out.append(rec)
+    return out
+
+
+def shard_compare(label: str, eng, wants: dict) -> dict:
+    """Every view of a mesh engine gathered whole (a collective: every
+    rank calls it) and held, on the rank that has them, against each
+    ``wants[key] = (views, limit)`` relative to the view's largest
+    entry.  Returns {key: {view: rel}}."""
+    import torch
+    rel = {key: {} for key in wants}
+    for name in sorted(eng.views):
+        got = eng.output(name)
+        if not wants:
+            continue
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: view {name} is non-finite")
+        for key, (views, limit) in wants.items():
+            want = views[name]
+            if got.shape != want.shape:
+                raise AssertionError(f"{label}: view {name} is "
+                                     f"{tuple(got.shape)}, {key}'s "
+                                     f"{tuple(want.shape)}")
+            scale = float(want.abs().max()) or 1.0
+            rel[key][name] = float((got - want).abs().max()) / scale
+            if rel[key][name] > limit:
+                raise AssertionError(f"{label}: view {name} differs from "
+                                     f"the {key} engine's by "
+                                     f"{rel[key][name]} > {limit}")
+        del got
+    return rel
+
+
+def shard_replicated_equal(eng, name: str, up, mesh) -> dict:
+    """The factor blocks one more firing of ``eng``'s trigger computes,
+    without an apply: each replicated block against rank 0's, bit for
+    bit (broadcast from rank 0)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import ivm_shard
+    u, v = (torch.as_tensor(x, dtype=torch.float32).reshape(len(x), -1)
+            .to(eng.device) for x in up)
+    vals = ivm_shard.firing_values(eng.compiled.triggers[name], eng.program,
+                                   eng.views, u, v, mesh)
+    reps = [t.reshape(-1) for kind, t in vals.values() if kind == "Rep"]
+    flat = torch.cat(reps)
+    ref = flat.clone()
+    dist.broadcast(ref, src=0, group=mesh.get_group("rows"))
+    return {"blocks": len(reps), "values": flat.numel(),
+            "kinds": {a: kind for a, (kind, _) in vals.items()},
+            "bit_equal": bool(torch.equal(flat, ref))}
+
+
+def phase_shard_one_rank() -> dict:
+    """21a: matrix powers on a one-rank NCCL mesh in this process, against
+    the single-device engine (SHARD_ONE_TOL) and re-evaluation
+    (MAIN_TOL), both on the card and fed the same stream."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.apps import MatrixPowers
+    from repro_torch.core import IncrementalEngine, ReevalEngine
+    from repro_torch.core.iterative import matrix_powers
+    from repro_torch.dist import ivm_shard
+    n = POWERS_N
+    label = f"shard_one_rank_nccl_powers_n{n}_k16"
+    inputs = MatrixPowers.synthesize(n, seed=0)
+    ups = shard_stream(n, n, seed=21)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = DeviceMesh("cuda", torch.arange(1),
+                              mesh_dim_names=("rows",))
+            backend = dist.get_backend(mesh.get_group("rows"))
+            eng = IncrementalEngine(matrix_powers(k=16, n=n, model="exp"),
+                                    mesh=mesh)
+            eng.initialize(inputs)
+            torch.cuda.synchronize()
+            reset_launches()
+            ivm_shard.reset_bytes()
+            firings = shard_drive(eng, "A", ups)
+            got, ranks = launches(), dense_ranks()
+            applies = eng.stats.lowrank_applies
+            check_launches(label, got, {"rank_update_batched": applies})
+            single = IncrementalEngine(
+                matrix_powers(k=16, n=n, model="exp"), device=DEVICE)
+            single.initialize(inputs)
+            shard_drive(single, "A", ups)
+            ree = ReevalEngine(matrix_powers(k=16, n=n, model="exp"),
+                               device=DEVICE)
+            ree.initialize(inputs)
+            for u, v in ups:
+                ree.apply_update("A", u, v)
+            rel = shard_compare(label, eng, {
+                "single_device": (single.views, SHARD_ONE_TOL),
+                "reeval": (ree.views, MAIN_TOL)})
+            fired = eng.stats.triggers_fired
+            del eng, single, ree
+        finally:
+            dist.destroy_process_group()
+    rec = {"phase": label, "backend": backend, "world": 1,
+           "firings": firings, "triggers_fired": fired,
+           "lowrank_applies": applies, "launches": got,
+           "dense_ranks": ranks,
+           "rel_err_vs_single_device": rel["single_device"],
+           "single_device_tolerance": SHARD_ONE_TOL,
+           "rel_err_vs_reeval": rel["reeval"], "tolerance": MAIN_TOL,
+           "seconds": time.perf_counter() - t_phase,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def shard_rank_powers(rank: int, mesh) -> dict:
+    """21b's matrix powers on one rank: the unplanned engine, the planned
+    one (every view re-evaluated in the firing), one re-evaluation
+    product's bytes, and on rank 0 the single-device engine and
+    re-evaluation to hold both against."""
+    import torch
+    from repro_torch.apps import MatrixPowers
+    from repro_torch.core import IncrementalEngine, ReevalEngine
+    from repro_torch.core.iterative import matrix_powers
+    from repro_torch.dist import ivm_shard
+    from repro_torch.plan import TriggerCache, WorkloadDescriptor
+    n = POWERS_N
+    label = f"shard_rank{rank}_powers_n{n}_k16"
+    inputs = MatrixPowers.synthesize(n, seed=0)
+    ups = shard_stream(n, n, seed=21)
+    out = {}
+    eng = IncrementalEngine(matrix_powers(k=16, n=n, model="exp"),
+                            mesh=mesh)
+    t0 = time.perf_counter()
+    eng.initialize(inputs)
+    torch.cuda.synchronize()
+    out["initialize_s"] = time.perf_counter() - t0
+    out["local_shape"] = list(eng.views["P16"].shape)
+    reset_launches()
+    ivm_shard.reset_bytes()
+    out["firings"] = shard_drive(eng, "A", ups)
+    counts = kernel_counts()
+    check_launches(label, counts["launches"],
+                   {"rank_update_batched": eng.stats.lowrank_applies})
+    out["lowrank_applies"] = eng.stats.lowrank_applies
+    out["replicated"] = shard_replicated_equal(eng, "A", ups[0], mesh)
+    planned = IncrementalEngine(matrix_powers(k=16, n=n, model="exp"),
+                                mesh=mesh, trigger_cache=TriggerCache(),
+                                plan=WorkloadDescriptor(batch_size=100000))
+    planned.initialize(inputs)
+    torch.cuda.synchronize()
+    reset_launches()
+    out["planned_firings"] = shard_drive(
+        planned, "A", ups, batches=[ups[:SHARD_SINGLE], ups[SHARD_SINGLE:]])
+    pcounts = kernel_counts()
+    check_launches(label + "_planned", pcounts["launches"],
+                   {"rank_update_batched": planned.stats.lowrank_applies})
+    out["plan_reevals"] = planned.stats.plan_reevals
+    if not out["plan_reevals"]:
+        raise AssertionError(f"{label}: the planned engine re-evaluated "
+                             "no view")
+    ivm_shard.reset_bytes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivm_shard.distributed_reeval_matmul(mesh)(eng.views["A"],
+                                              eng.views["P2"])
+    torch.cuda.synchronize()
+    out["reeval_matmul"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                            "bytes": dict(ivm_shard.BYTES)}
+    wants = {}
+    if rank == 0:
+        single = IncrementalEngine(matrix_powers(k=16, n=n, model="exp"),
+                                   device=DEVICE)
+        single.initialize(inputs)
+        shard_drive(single, "A", ups)
+        ree = ReevalEngine(matrix_powers(k=16, n=n, model="exp"),
+                           device=DEVICE)
+        ree.initialize(inputs)
+        for u, v in ups:
+            ree.apply_update("A", u, v)
+        wants = {"single_device": (single.views, MAIN_TOL),
+                 "reeval": (ree.views, MAIN_TOL)}
+    out["rel_err"] = shard_compare(label, eng, wants)
+    out["planned_rel_err"] = shard_compare(label + "_planned", planned,
+                                           wants)
+    return out, [counts, pcounts]
+
+
+def shard_rank_ols(rank: int, mesh) -> dict:
+    """21b's OLS on one rank, against the single-device engine and
+    re-evaluation on rank 0."""
+    import torch
+    from repro_torch.apps import OLS
+    from repro_torch.apps.ols import build_ols_program
+    from repro_torch.core import IncrementalEngine, ReevalEngine
+    from repro_torch.dist import ivm_shard
+    m_rows, n_cols = OLS_M, OLS_N
+    label = f"shard_rank{rank}_ols_m{m_rows}_n{n_cols}_p1"
+    inputs, _ = OLS.synthesize(m_rows, n_cols, 1, seed=0)
+    ups = shard_stream(m_rows, n_cols, seed=22)
+    out = {}
+    eng = IncrementalEngine(build_ols_program(m_rows, n_cols, 1), mesh=mesh)
+    t0 = time.perf_counter()
+    eng.initialize(inputs)
+    torch.cuda.synchronize()
+    out["initialize_s"] = time.perf_counter() - t0
+    out["local_shapes"] = {k: list(v.shape) for k, v in eng.views.items()}
+    reset_launches()
+    ivm_shard.reset_bytes()
+    out["firings"] = shard_drive(eng, "X", ups)
+    counts = kernel_counts()
+    check_launches(label, counts["launches"],
+                   {"rank_update_batched": eng.stats.lowrank_applies})
+    out["lowrank_applies"] = eng.stats.lowrank_applies
+    out["replicated"] = shard_replicated_equal(eng, "X", ups[0], mesh)
+    wants = {}
+    if rank == 0:
+        single = IncrementalEngine(build_ols_program(m_rows, n_cols, 1),
+                                   device=DEVICE)
+        single.initialize(inputs)
+        shard_drive(single, "X", ups)
+        ree = ReevalEngine(build_ols_program(m_rows, n_cols, 1),
+                           device=DEVICE)
+        ree.initialize(inputs)
+        for u, v in ups:
+            ree.apply_update("X", u, v)
+        wants = {"single_device": (single.views, MAIN_TOL),
+                 "reeval": (ree.views, MAIN_TOL)}
+    out["rel_err"] = shard_compare(label, eng, wants)
+    return out, [counts]
+
+
+def shard_rank(rank: int, world: int, store: str, results) -> None:
+    """One of 21b's ranks, in a spawned process: join the gloo world
+    through the file store ``store`` on ``cuda:(rank % device_count)``,
+    run matrix powers and OLS on the ``("rows",)`` mesh, and put
+    ``(rank, record)`` — or ``(rank, traceback)`` — on ``results``."""
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=world, rank=rank)
+        try:
+            t0 = time.perf_counter()
+            mesh = DeviceMesh("cuda", torch.arange(world),
+                              mesh_dim_names=("rows",))
+            torch.cuda.reset_peak_memory_stats()
+            rec = {"device": f"cuda:{torch.cuda.current_device()}",
+                   "backend": dist.get_backend(mesh.get_group("rows"))}
+            rec["counts"] = []
+            for key, body in (("powers", shard_rank_powers),
+                              ("ols", shard_rank_ols)):
+                rec[key], counts = body(rank, mesh)
+                rec["counts"] += counts
+                gc.collect()
+                torch.cuda.empty_cache()
+            rec["peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                                   / 2 ** 30)
+            rec["seconds"] = time.perf_counter() - t0
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, rec))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        results.put((rank, traceback.format_exc()))
+        raise
+
+
+def phase_shard_four_ranks() -> dict:
+    """21b: SHARD_WORLD gloo ranks in spawned processes, all on this card
+    (NCCL takes one rank a card), each running :func:`shard_rank`.  Every
+    rank's launches must equal its applies and its replicated blocks
+    rank 0's bit for bit; rank 0 holds the gathered views against the
+    single-device engine and re-evaluation.  A rank that fails, or does
+    not report within SHARD_TIMEOUT_S, fails the phase."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import tempfile
+    label = f"shard_{SHARD_WORLD}_ranks_gloo_one_card"
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    t_phase = time.perf_counter()
+    recs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=shard_rank,
+                             args=(r, SHARD_WORLD, f"{tmp}/store", results))
+                 for r in range(SHARD_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + SHARD_TIMEOUT_S
+            while len(recs) < SHARD_WORLD:
+                rank, rec = results.get(
+                    timeout=max(1.0, deadline - time.monotonic()))
+                if isinstance(rec, str):
+                    raise AssertionError(f"{label}: rank {rank} failed:\n"
+                                         f"{rec}")
+                recs[rank] = rec
+        except queue_mod.Empty:
+            raise AssertionError(
+                f"{label}: ranks {sorted(set(range(SHARD_WORLD)) - set(recs))}"
+                f" did not report in {SHARD_TIMEOUT_S} s") from None
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"{label}: rank exit codes {codes}")
+    got, ranks = {}, {}
+    for rank in sorted(recs):
+        for counts in recs[rank].pop("counts"):
+            merge_counts(got, counts)
+            for K, count in counts["ranks"]["rank_update_batched"].items():
+                ranks[K] = ranks.get(K, 0) + count
+        for app in ("powers", "ols"):
+            if not recs[rank][app]["replicated"]["bit_equal"]:
+                raise AssertionError(f"{label}: rank {rank}'s replicated "
+                                     f"{app} blocks differ from rank 0's")
+    applies = sum(r[app]["lowrank_applies"] for r in recs.values()
+                  for app in ("powers", "ols")) + sum(
+        f["lowrank_applies"] for r in recs.values()
+        for f in r["powers"]["planned_firings"])
+    check_launches(label, got, {"rank_update_batched": applies})
+    rec = {"phase": label, "world": SHARD_WORLD,
+           "note": "the ranks time-share one card: times are no scaling "
+                   "figure",
+           "launches": got, "dense_ranks": dict(sorted(ranks.items())),
+           "lowrank_applies": applies, "ranks": recs,
+           "seconds": time.perf_counter() - t_phase}
+    log("main " + json.dumps(rec))
+    return rec
+
+
+def phase_shard() -> list:
+    """21: the row-sharded engine (21a one NCCL rank, 21b four gloo ranks
+    on one card); its seconds and each rank's peak memory."""
+    import torch
+    t0 = time.perf_counter()
+    one = phase_shard_one_rank()
+    gc.collect()
+    torch.cuda.empty_cache()
+    four = phase_shard_four_ranks()
+    for rank, r in sorted(four["ranks"].items()):
+        for app in ("powers", "ols"):
+            ms = [f["ms_per_update"] for f in r[app]["firings"]]
+            log(f"shard rank {rank} ({r['device']}, {r['backend']}, "
+                f"{SHARD_WORLD} ranks sharing one card) {app}: ms an "
+                f"update {ms}, launches a firing "
+                f"{[f['launches'] for f in r[app]['firings']]}, bytes a "
+                f"firing {[f['bytes'] for f in r[app]['firings']]}")
+        log(f"shard rank {rank} reeval matmul of two {POWERS_N}^2 views: "
+            f"{r['powers']['reeval_matmul']}")
+    peak = [round(r["peak_mem_gib"], 2) for _, r in sorted(
+        four["ranks"].items())]
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s; peak GiB: one rank "
+        f"{one['peak_mem_gib']:.2f}, four ranks {peak}")
+    return [one, four]
+
+
 def main() -> int:
     try:
         import torch
@@ -5909,6 +6389,11 @@ def main() -> int:
     # 20. the training driver with checkpoints and supervised restarts
     torch.cuda.reset_peak_memory_stats()
     phases.extend(phase_ckpt())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 21. the row-sharded engine: one NCCL rank, four gloo ranks on the card
+    phases.extend(phase_shard())
     torch.cuda.empty_cache()
 
     # the kernels record: per entry, the main path's launches and the
@@ -5924,7 +6409,7 @@ def main() -> int:
                 "flash_decode": "danube_decode_bf16_wrapped",
                 "rank_update_batched_out": (10000, 10000, 1, 16),
                 "select_commit": "clean"}
-    # rank_update_batched's launches over phases 4-9 and 12-16 by K, so that
+    # rank_update_batched's launches over phases 4-9, 12-16 and 21 by K, so that
     # each K's gap to its bound can be weighed by its launches
     by_k = {}
     for ph in phases:

@@ -236,20 +236,44 @@ def trigger_touched_views(trigger: Trigger) -> Tuple[Tuple[str, ...],
     return written, tuple(sorted(read))
 
 
-def _firing_factors(updates, env: Env, views: Env, written) -> Env:
-    """The contiguous factor blocks of a firing's ``updates``.  The
-    kernels take contiguous factors; a factor that shares storage with a
-    view written in the same firing must not see an earlier update of
-    that firing, so it gets its own copy."""
+def _firing_factors(updates, env: Env, views: Env, written,
+                    place=None) -> List[Tuple[torch.Tensor, ...]]:
+    """The contiguous factor blocks of each of a firing's ``updates``:
+    ``(U, V)`` for a low-rank one, ``(D,)`` for a dense one.  ``place(up,
+    side, f)``, when given, first maps each factor to the layout its apply
+    takes (side 0 is the view's rows, side 1 a low-rank V; a mesh rank's
+    blocks, :mod:`repro_torch.dist.ivm_shard`).  The kernels take
+    contiguous factors; a factor that shares storage with a view written
+    in the same firing must not see an earlier update of that firing, so
+    it gets its own copy, made once for every update that names it."""
     targets = [views[name] for name in written]
-    factors = {}
+    made: Dict[Tuple[str, int], torch.Tensor] = {}
+    factors = []
     for up in updates:
-        for name in (up.u, up.v) if up.kind == "lowrank" else (up.d,):
-            f = env[name]
-            if _shares_storage(f, targets):
-                f = f.clone(memory_format=torch.contiguous_format)
-            factors[name] = f.contiguous()
+        names = (up.u, up.v) if up.kind == "lowrank" else (up.d,)
+        for side, name in enumerate(names):
+            if (name, side) not in made:
+                f = env[name] if place is None else place(up, side, env[name])
+                if _shares_storage(f, targets):
+                    f = f.clone(memory_format=torch.contiguous_format)
+                made[name, side] = f.contiguous()
+        factors.append(tuple(made[name, side]
+                             for side, name in enumerate(names)))
     return factors
+
+
+def _set_run_attrs(run, updates, statements, skipped, reeval_views,
+                   written) -> None:
+    """The run attributes of a trigger fn (:func:`build_trigger_fn`)."""
+    run.reeval_views = tuple(sorted(reeval_views))
+    run.recomputes = tuple(st.target.name for st in statements)
+    run.skipped = skipped
+    run.incr_views = tuple(up.view for up in updates)
+    run.lowrank_applies = sum(up.kind == "lowrank" for up in updates)
+    run.written = tuple(dict.fromkeys(written + run.recomputes))
+    flagged = {up.view for up in updates if up.kind == "lowrank"}
+    run.unflagged = tuple(n for n in run.written
+                          if n not in flagged or n in run.recomputes)
 
 
 def planned_trigger_sets(trigger: Trigger, program: Program,
@@ -358,27 +382,18 @@ def build_trigger_fn(trigger: Trigger, program: Program,
         factors = _firing_factors(updates, env, views,
                                   () if out_of_place else written)
         del env, cache
-        for up in updates:
+        for up, fs in zip(updates, factors):
             if up.kind != "lowrank":
-                views[up.view] = views[up.view] + factors[up.d]
+                views[up.view] = views[up.view] + fs[0]
             elif out_of_place:
                 views[up.view] = ops.rank_update_batched_out(
-                    views[up.view], factors[up.u], factors[up.v], nonfinite)
+                    views[up.view], fs[0], fs[1], nonfinite)
             else:
-                ops.rank_update_batched(views[up.view], factors[up.u],
-                                        factors[up.v])
+                ops.rank_update_batched(views[up.view], fs[0], fs[1])
         del factors
         return recompute(statements, views, binding, device)
 
-    run.reeval_views = tuple(sorted(reeval_views))
-    run.recomputes = tuple(st.target.name for st in statements)
-    run.skipped = skipped
-    run.incr_views = tuple(up.view for up in updates)
-    run.lowrank_applies = sum(up.kind == "lowrank" for up in updates)
-    run.written = tuple(dict.fromkeys(written + run.recomputes))
-    flagged = {up.view for up in updates if up.kind == "lowrank"}
-    run.unflagged = tuple(n for n in run.written
-                          if n not in flagged or n in run.recomputes)
+    _set_run_attrs(run, updates, statements, skipped, reeval_views, written)
     return run
 
 
@@ -518,21 +533,20 @@ def build_rowlocal_trigger_fn(trigger: Trigger, program: Program,
         for a in trigger.assigns:
             env[a.name] = evaluate(a.expr, env, binding, cache, dev)
         factors = _firing_factors(trigger.updates, env, views, written)
-        for up in trigger.updates:
+        for up, fs in zip(trigger.updates, factors):
             if up.kind != "lowrank":
-                views[up.view] = views[up.view] + factors[up.d]
+                views[up.view] = views[up.view] + fs[0]
             elif up.view in row_views:
-                L = factors[up.u]
+                L = fs[0]
                 if not compact:
                     L = L[rows.index(dev)]
-                ops.rank_update_rows(views[up.view], rows, L, factors[up.v],
+                ops.rank_update_rows(views[up.view], rows, L, fs[1],
                                      max_fraction=max_fraction)
             elif out_of_place:
                 views[up.view] = ops.rank_update_batched_out(
-                    views[up.view], factors[up.u], factors[up.v])
+                    views[up.view], fs[0], fs[1])
             else:
-                ops.rank_update_batched(views[up.view], factors[up.u],
-                                        factors[up.v])
+                ops.rank_update_batched(views[up.view], fs[0], fs[1])
         return views
 
     run.compact = compact

@@ -43,6 +43,13 @@ every ``fold_window**(depth-1)`` firings or at the next read.  The window
 base is a reference snapshot of the store, so an engine with a deferred
 view writes out of place, as a guarded one does: no later firing moves a
 tensor the base holds.
+
+With ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``) every view that
+its mesh axis divides is kept row-sharded, and every firing runs through
+the row-sharded trigger (:mod:`repro_torch.dist.ivm_shard`): each rank
+sweeps its own rows with the rank-k kernel, and the factor chain moves
+skinny blocks between the ranks.  Every rank makes the same calls with
+the same updates; ``output`` and ``views_numpy`` gather whole views.
 """
 
 from __future__ import annotations
@@ -174,6 +181,8 @@ class IncrementalEngine:
                  order=None,
                  fold_window: int = 8,
                  max_fold_rank: Optional[int] = 64,
+                 mesh=None,
+                 mesh_axis: Optional[str] = None,
                  device=None):
         """``max_batch_rank`` caps the stacked rank of a batch (QR/SVD
         re-compression past it).  ``flush_policy`` picks how
@@ -218,10 +227,34 @@ class IncrementalEngine:
         its consumers.  ``max_fold_rank`` caps the stacked window rank by
         QR/SVD re-compression (lossy past the window's numerical rank).
         When a maintenance ``plan`` carries per-view ``order`` fields,
-        the plan's depths are authoritative."""
+        the plan's depths are authoritative.
+
+        ``mesh`` (a ``torch.distributed.device_mesh.DeviceMesh`` over a
+        process group the caller set up) row-shards the views over the
+        ranks of its axis ``mesh_axis`` (default: the mesh's first) and
+        runs every firing through
+        :func:`repro_torch.dist.ivm_shard.build_distributed_trigger`.
+        The mesh picks the device (``cuda:(rank % device_count)`` on a
+        ``"cuda"`` mesh); a ``device`` that disagrees raises.  Row-local
+        carriers widen to the dense path and no input is banked, as in
+        the reference."""
         if flush_policy not in ("fixed", "cost"):
             raise ValueError(f"unknown flush_policy {flush_policy!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self._shards = None
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            from ..dist.ivm_shard import Shards
+            self._shards = Shards(mesh, mesh_axis)
+            self.device = self._shards.device
+            want = None if device is None else torch.device(device)
+            if want is not None and (want.type != self.device.type or (
+                    want.index is not None
+                    and want.index != self.device.index)):
+                raise ValueError(f"device {want} disagrees with the mesh's "
+                                 f"{self.device} for this rank")
         if isinstance(order, dict):
             requested_orders = {k: int(v) for k, v in order.items()}
             compile_order = max([1, *requested_orders.values()])
@@ -243,6 +276,14 @@ class IncrementalEngine:
                            f"{sorted(set(requested_orders) - names)}")
         self._evaluator = build_evaluator(self.program, self.binding,
                                           self.device)
+        self._kinds: Dict[str, str] = {}
+        if mesh is not None:
+            from ..dist.ivm_shard import (build_distributed_evaluator,
+                                          view_kinds)
+            self._kinds = view_kinds(self.program, self.binding,
+                                     self._shards.world)
+            self._mesh_evaluator = build_distributed_evaluator(
+                self.program, mesh, axis=mesh_axis, binding=self.binding)
         self.rowlocal_fraction = float(rowlocal_fraction)
         self.flush_policy = flush_policy
         # failure containment (repro_torch.guard), imported lazily so the
@@ -262,6 +303,9 @@ class IncrementalEngine:
                 guard = GuardConfig()
             self.guard = EngineGuard(guard, self)
             self._out_of_place = guard.transactional
+            if mesh is not None and self.guard.sentinel is not None:
+                raise ValueError("the drift sentinel probes whole views; "
+                                 "an engine on a mesh holds row blocks")
         # planned execution state (repro_torch.plan)
         self.plan = None
         self.planner = None
@@ -454,7 +498,7 @@ class IncrementalEngine:
         part of the fold."""
         if not self._tiers or self.guard is not None \
                 or self.chaos is not None or self.plan is not None \
-                or self.planner is not None:
+                or self.planner is not None or self.mesh is not None:
             return False
         targets = {up.view for up in
                    self.compiled.triggers[input_name].updates}
@@ -513,7 +557,7 @@ class IncrementalEngine:
                 for o in tiers:
                     folded |= self._fold_tier(o)
                 if guarded and folded:
-                    reason = check_finite(self.views, folded)
+                    reason = self._agreed(check_finite(self.views, folded))
                     if reason is not None:
                         raise FiringAborted(reason, "<fold>", "validate")
             except Exception:
@@ -563,8 +607,8 @@ class IncrementalEngine:
         """Re-evaluate the program from the current inputs and write back
         the ``affected`` views only (replay engines fold through the same
         path, so their stores stay bit for bit)."""
-        computed = self._evaluator({k: self.views[k]
-                                    for k in self.program.inputs})
+        computed = self._evaluate({k: self.views[k]
+                                   for k in self.program.inputs})
         for name in affected:
             self.views[name] = computed[name]
         self.stats.fold_reevals += len(affected)
@@ -618,6 +662,44 @@ class IncrementalEngine:
             self._fold_reeval(reeval)
         return sweep | reeval
 
+    # -- the mesh (repro_torch.dist.ivm_shard) --------------------------------
+    def _evaluate(self, inputs: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """Every view from ``inputs``: on a mesh, from the local row
+        blocks by the sharded evaluate."""
+        if self.mesh is not None:
+            return self._mesh_evaluator(inputs)
+        return self._evaluator(inputs)
+
+    def _recompute(self, statements) -> None:
+        if self.mesh is not None:
+            from ..dist.ivm_shard import recompute as mesh_recompute
+            mesh_recompute(statements, self.views, self.binding,
+                           self._shards, self._kinds)
+        else:
+            recompute(statements, self.views, self.binding, self.device)
+
+    def _agreed(self, reason: Optional[str]) -> Optional[str]:
+        """A validation verdict every rank of the mesh shares: a firing
+        that failed on one rank's rows rolls back on all of them."""
+        if self.mesh is not None and self._shards.any_rank(reason is not None):
+            return reason or "non-finite output on another rank"
+        return reason
+
+    def _shard(self, views: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        if self.mesh is None:
+            return views
+        from ..dist.ivm_shard import shard_views
+        return shard_views(views, self.mesh, self.mesh_axis)
+
+    def _gather(self, names) -> Dict[str, Tensor]:
+        """Whole views, gathered on a mesh (a collective: every rank
+        calls it with the same names)."""
+        views = {k: self.views[k] for k in names}
+        if self.mesh is None:
+            return views
+        from ..dist.ivm_shard import gather_views
+        return gather_views(views, self.mesh, self._kinds, self.mesh_axis)
+
     # -- maintenance plans (repro_torch.plan) ----------------------------------
     def _attach_plan(self, plan) -> None:
         from ..plan import AdaptivePlanner, WorkloadDescriptor, plan_for_engine
@@ -625,7 +707,8 @@ class IncrementalEngine:
             plan = plan_for_engine(self, plan)
         if isinstance(plan, AdaptivePlanner):
             self.planner = plan
-            plan = plan.bind(self.compiled, self.binding)
+            plan = plan.bind(self.compiled, self.binding, mesh=self.mesh,
+                             mesh_axis=self.mesh_axis)
         self.set_plan(plan)
 
     def set_plan(self, plan) -> None:
@@ -638,22 +721,25 @@ class IncrementalEngine:
         staleness contract.  A plan with per-view depths is authoritative
         for the deferred cascade: its orders are adopted (pending windows
         fold under the old depths first).  Raises ``ValueError`` if the
-        plan was priced for a different (program, dims) fingerprint, or
-        assigns depth >= 2 while leaving a view unmaterialized, and
-        ``NotImplementedError`` for a mesh key (ROADMAP.md Queue 1 item
-        12), which is never run on one device instead.
+        plan was priced for a different (program, dims) fingerprint, for
+        another mesh than this engine's (its ``mesh_key`` is not
+        ``mesh_cache_key(self.mesh, self.mesh_axis)``; ``None`` without
+        a mesh), or assigns depth >= 2 while leaving a view
+        unmaterialized.
         """
-        from ..plan import global_trigger_cache, program_fingerprint
+        from ..plan import (global_trigger_cache, mesh_cache_key,
+                            program_fingerprint)
         fp = program_fingerprint(self.program, self.binding)
         if plan.fingerprint != fp:
             raise ValueError(
                 f"plan fingerprint {plan.fingerprint} does not match this "
                 f"engine's program ({fp}); plans are not portable across "
                 f"program structures or dimension bindings")
-        if plan.mesh_key is not None:
-            raise NotImplementedError(
-                "plan carries a mesh key: the port has no sharded engine "
-                "yet (ROADMAP.md Queue 1 item 12b)")
+        key = mesh_cache_key(self.mesh, self.mesh_axis)
+        if plan.mesh_key != key:
+            raise ValueError(
+                f"plan mesh key {plan.mesh_key} is not this engine's "
+                f"({key}); a plan runs on the mesh it was priced for")
         plan_orders = {name: int(vp.order or 1)
                        for name, vp in plan.views.items()}
         deep = any(o > 1 for o in plan_orders.values())
@@ -678,19 +764,24 @@ class IncrementalEngine:
 
     def _cache_key(self, tail: Tuple) -> Tuple:
         """A shared-cache key: the program's fingerprint, the device (a
-        trigger fn closes over it), the compile options, the compiled
-        delta depth and the per-view deferral signature (an order-2
-        engine must never reuse, or poison, a first-order engine's fns in
-        a shared cache), then ``tail``."""
+        trigger fn closes over it), the mesh key and the process group
+        (a sharded fn closes over the group, which lives only until it
+        is destroyed), the compile options, the compiled delta depth and
+        the per-view deferral signature (an order-2 engine must never
+        reuse, or poison, a first-order engine's fns in a shared cache),
+        then ``tail``."""
         if self._cache_ns is None:
-            from ..plan import program_fingerprint
+            from ..plan import mesh_cache_key, program_fingerprint
             dev = self.device
             index = dev.index
             if index is None and dev.type == "cuda":
                 index = torch.cuda.current_device()
             self._cache_ns = (
                 program_fingerprint(self.program, self.binding),
-                dev.type, index, self.compiled.force_rep,
+                dev.type, index,
+                mesh_cache_key(self.mesh, self.mesh_axis),
+                None if self.mesh is None else id(self._shards.group),
+                self.compiled.force_rep,
                 self.compiled.sequential_sm, self.compiled.order,
                 tuple(sorted((n, o) for n, o in self._view_orders.items()
                              if o > 1)))
@@ -767,19 +858,32 @@ class IncrementalEngine:
         """The trigger fn for (input, bucket, partition), built on first
         use through the shared cache.  An empty partition maintains every
         view incrementally.  A guarded or deferred engine's fns write out
-        of place."""
+        of place.  On a mesh the fn is the row-sharded trigger."""
         key = (input_name, bucket, tuple(sorted(reeval)),
                tuple(sorted(lazy)))
         fn = self._planned_fns.get(key)
         if fn is None:
             fn = self._cached_build(
                 ("trigger",) + key + (self._out_of_place,),
-                lambda: build_trigger_fn(
-                    self._bucket_trigger(input_name, bucket), self.program,
-                    self.binding, self.device, reeval_views=reeval,
-                    lazy_views=lazy, out_of_place=self._out_of_place))
+                lambda: self._build_trigger(
+                    self._bucket_trigger(input_name, bucket), reeval, lazy,
+                    self._out_of_place))
             self._planned_fns[key] = fn
         return fn
+
+    def _build_trigger(self, trig: Trigger, reeval=(), lazy=(),
+                       out_of_place: bool = False) -> Callable:
+        """The single-device trigger fn, or the row-sharded one on a
+        mesh."""
+        if self.mesh is not None:
+            from ..dist.ivm_shard import build_distributed_trigger
+            return build_distributed_trigger(
+                trig, self.program, self.mesh, axis=self.mesh_axis,
+                binding=self.binding, reeval_views=reeval, lazy_views=lazy,
+                out_of_place=out_of_place)
+        return build_trigger_fn(trig, self.program, self.binding,
+                                self.device, reeval_views=reeval,
+                                lazy_views=lazy, out_of_place=out_of_place)
 
     def _accumulate(self, views, rank: int) -> None:
         """Hybrid staleness: ``views`` took an incremental update of
@@ -839,9 +943,8 @@ class IncrementalEngine:
             self._fold(self._tiers[-1])
         if not self._stale:
             return self.views
-        recompute([st for st in self.program.statements
-                   if st.target.name in self._stale],
-                  self.views, self.binding, self.device)
+        self._recompute([st for st in self.program.statements
+                         if st.target.name in self._stale])
         if block:
             _sync(self.device)
         self._stale.clear()
@@ -851,13 +954,18 @@ class IncrementalEngine:
     def initialize(self, inputs: Dict[str, object]) -> Dict[str, Tensor]:
         """Full evaluation of the program; materializes every view.  The
         inputs are copied, so later in-place applies leave the caller's
-        arrays alone."""
+        arrays alone.  On a mesh every rank evaluates the whole program
+        from the same whole inputs, then keeps its row blocks
+        (:func:`repro_torch.dist.ivm_shard.shard_views`); the returned
+        views are this rank's."""
         missing = set(self.program.inputs) - set(inputs)
         if missing:
             raise KeyError(f"missing inputs: {sorted(missing)}")
         owned = _owned_views(inputs, self.device)
         computed = self._evaluator(owned)
-        self.views = {**owned, **computed}
+        self.views = self._shard({**owned, **computed})
+        del owned
+        computed = {k: self.views[k] for k in computed}
         self._pending.clear()
         self._pending_since.clear()
         self._stale.clear()
@@ -874,8 +982,8 @@ class IncrementalEngine:
         missing = required - set(views)
         if missing:
             raise KeyError(f"missing views: {sorted(missing)}")
-        self.views = _owned_views({k: views[k] for k in required},
-                                  self.device)
+        self.views = self._shard(_owned_views(
+            {k: views[k] for k in required}, self.device))
         self._pending.clear()
         self._pending_since.clear()
         self._stale.clear()
@@ -885,8 +993,9 @@ class IncrementalEngine:
 
     def views_numpy(self) -> Dict[str, np.ndarray]:
         """Every view as a host numpy array (the :meth:`load_views`
-        counterpart)."""
-        return {k: v.detach().cpu().numpy() for k, v in self.views.items()}
+        counterpart); whole views, gathered on a mesh."""
+        return {k: v.detach().cpu().numpy()
+                for k, v in self._gather(self.views).items()}
 
     # -- incremental path ------------------------------------------------------
     def apply_update(self, input_name: str, u, v=None,
@@ -1093,8 +1202,10 @@ class IncrementalEngine:
         price: those views really do pay the dense sweep.  An engine with
         deferred views widens every carrier into its window: a fold sweeps
         from a base snapshot, so there is no row-local path at depth >= 2
-        (the dense path is its oracle)."""
-        if self._tiers:
+        (the dense path is its oracle).  An engine on a mesh widens every
+        carrier too: the row-local trigger indexes whole views, a rank
+        holds a row block."""
+        if self._tiers or self.mesh is not None:
             return False
         frac = carrier.affected_fraction()
         if frac > self.rowlocal_fraction:
@@ -1372,7 +1483,7 @@ class IncrementalEngine:
         self._apply_pending_inputs()  # deferred-input engines: make current
         inputs = {k: self.views[k] for k in self.program.inputs}
         t0 = time.perf_counter()
-        computed = self._evaluator(inputs)
+        computed = self._evaluate(inputs)
         if block:
             _sync(self.device)
             self.stats.reeval_seconds += time.perf_counter() - t0
@@ -1389,14 +1500,15 @@ class IncrementalEngine:
         """A view, exact: a read point, so stale lazy views are
         refreshed first; counts ``stats.reads`` (and tells an adaptive
         planner).  On a deferred-cascade engine every pending window is
-        folded first."""
+        folded first.  On a mesh the view is gathered whole on every rank
+        (a collective: every rank reads the same view)."""
         self.stats.reads += 1
         if self.planner is not None:
             self.planner.observe_read()
         if self._stale or (self._tiers and self._cascade_pending()):
             self.refresh()
         name = name or self.program.output_names()[0]
-        return self.views[name]
+        return self._gather([name])[name]
 
     def trigger_flops(self, input_name: str) -> float:
         return trigger_flops(self.compiled.triggers[input_name], self.program,
@@ -1425,9 +1537,9 @@ class IncrementalEngine:
 
     def _build_delta(self, input_name: str, depth: int, bucket: int
                      ) -> Callable:
-        fire = build_trigger_fn(
+        fire = self._build_trigger(
             compile_delta_trigger(self.compiled, input_name, depth, bucket),
-            self.program, self.binding, self.device, out_of_place=True)
+            out_of_place=True)
         device = self.device
 
         def run(views: Dict[str, Tensor], u, v) -> Dict[str, Tensor]:
@@ -1454,6 +1566,8 @@ class IncrementalEngine:
         for up in trig.updates:
             n, m = shape_of(by_name[up.view.split("__", 2)[-1]],
                             self.binding)
+            if self.mesh is not None:
+                n, m = self._shards.block_shape((n, m))
             if up.view not in self.views:
                 self.views[up.view] = torch.zeros(
                     (n, m), dtype=torch.float32, device=self.device)

@@ -333,7 +333,8 @@ class EngineGuard:
             if engine.chaos is not None:
                 engine.chaos.maybe_raise_in_trigger()
             run()
-            reason = self.validate_outputs(snap, engine.views)
+            reason = engine._agreed(self.validate_outputs(snap,
+                                                          engine.views))
             if reason is not None:
                 raise FiringAborted(reason, input_name, "validate")
         except FiringAborted:

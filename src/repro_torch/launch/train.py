@@ -12,7 +12,7 @@ on the card unless ``--device cpu`` (``train(..., device="cpu")``) is
 given; without a card it raises.  The step is the port's eager one,
 updating params and optimizer state in place (the reference jits its
 step with the state donated); the run has one host until the sharded
-``dist/`` (ROADMAP.md Queue 1 item 12b), which ``--mesh local`` waits
+``dist/`` (ROADMAP.md Queue 1 item 12b-ii), which ``--mesh local`` waits
 for.  A restart restores the newest intact checkpoint and replays from
 the step it holds, so a resumed run takes the steps of an uninterrupted
 one.
@@ -38,7 +38,7 @@ from ..train import grad_compression as gc
 from ..train.train_step import init_train_state, make_train_step
 
 MESH_REFUSED = ("the port's training driver runs on one device: a mesh "
-                "waits for the sharded dist/ (ROADMAP.md Queue 1 item 12b)")
+                "waits for the sharded dist/ (ROADMAP.md Queue 1 item 12b-ii)")
 
 
 def custom_100m() -> ModelConfig:
@@ -95,7 +95,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     / ``ChaosMonkey``) threads fault injection through the checkpoint
     manager (payload corruption) and the controller (host kills) — the
     chaos-harness entry point for end-to-end recovery drills.  ``mesh``
-    must be None (ROADMAP.md Queue 1 item 12b).
+    must be None (ROADMAP.md Queue 1 item 12b-ii).
     """
     if mesh is not None:
         raise NotImplementedError(MESH_REFUSED)
@@ -206,7 +206,7 @@ def main(argv=None):
     ap.add_argument("--save-every", type=int, default=100)
     ap.add_argument("--compression-rank", type=int, default=0)
     ap.add_argument("--mesh", choices=["none", "local"], default="none",
-                    help="local waits for ROADMAP.md Queue 1 item 12b")
+                    help="local waits for ROADMAP.md Queue 1 item 12b-ii")
     ap.add_argument("--heartbeat-timeout", type=float, default=30.0)
     ap.add_argument("--straggler-factor", type=float, default=0.0,
                     help="evict hosts slower than this × median step time "

@@ -9,8 +9,8 @@ the experts run as three batched products over (experts, capacity,
 d_model) buffers, and the combine adds each slot's output, weighed by its
 routing probability, back onto its token.  Shared experts (qwen2-moe) add
 a sigmoid-gated SwiGLU MLP.  The reference's mesh path (expert and tensor
-parallelism under ``shard_map``) waits for the sharded ``dist/`` (ROADMAP.md
-Queue 1 item 12b).
+parallelism under ``shard_map``) waits for the LM half of the sharded ``dist/`` (ROADMAP.md
+Queue 1 item 12b-ii).
 
 The reference writes a dropped pair to slot ``E * cap`` and an unfilled
 slot's output to token ``T``, one past the end, under ``mode="drop"``;

@@ -53,12 +53,15 @@ class AdaptivePlanner:
         self.plan: Optional[MaintenancePlan] = None
         self._compiled = None
         self._binding: Optional[Dict[str, int]] = None
+        self._mesh = None
+        self._mesh_axis: Optional[str] = None
 
     # -- binding -------------------------------------------------------------
-    def bind(self, compiled, binding: Optional[Dict[str, int]] = None
-             ) -> MaintenancePlan:
-        """Attach to a compiled program and produce the initial plan.
-        Re-binding to the same fingerprint keeps observation history."""
+    def bind(self, compiled, binding: Optional[Dict[str, int]] = None,
+             mesh=None, mesh_axis: Optional[str] = None) -> MaintenancePlan:
+        """Attach to a compiled program (and the engine's mesh) and
+        produce the initial plan.  Re-binding to the same fingerprint
+        keeps observation history."""
         fp = program_fingerprint(compiled.program, binding)
         if self.plan is not None and self.plan.fingerprint != fp:
             raise ValueError(
@@ -67,9 +70,11 @@ class AdaptivePlanner:
         self._compiled = compiled
         self._binding = dict(compiled.program.dims
                              if binding is None else binding)
+        self._mesh, self._mesh_axis = mesh, mesh_axis
         if self.plan is None:
             self.plan = plan_program(compiled, self.workload,
-                                     binding=self._binding)
+                                     binding=self._binding, mesh=mesh,
+                                     mesh_axis=mesh_axis)
         return self.plan
 
     @property
@@ -204,7 +209,8 @@ class AdaptivePlanner:
                     self.drift_tol * max(expected, 1):
                 return None
         self.workload = fitted
-        new = plan_program(self._compiled, fitted, binding=self._binding)
+        new = plan_program(self._compiled, fitted, binding=self._binding,
+                           mesh=self._mesh, mesh_axis=self._mesh_axis)
         if new.views == self.plan.views:
             self.plan = new  # same choices, fresher pricing
             return None

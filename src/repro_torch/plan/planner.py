@@ -25,10 +25,9 @@ reuse in :mod:`repro_torch.plan.trigger_cache`.  See docs/planner.md.
 
 This module is the port's own copy of the JAX package's planner: pure
 arithmetic over the symbolic program, so a plan and its fingerprint are
-the same string in both packages.  Two things the port cannot execute yet
-are refused rather than planned away: a mesh (``plan_program(mesh=…)``,
-ROADMAP.md Queue 1 item 12b), and — in the engine — a view of depth
-``order >= 2`` (Queue 1 item 7).
+the same string in both packages.  A plan priced with a mesh carries the
+mesh's key (:func:`repro_torch.plan.trigger_cache.mesh_cache_key`), and
+an engine runs it only on that mesh.
 """
 
 from __future__ import annotations
@@ -356,10 +355,6 @@ def plan_program(compiled, workload: WorkloadDescriptor, *,
     materializes every view — fold bases and lazy recomputation do not
     mix.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "plan_program(mesh=...): the port has no sharded engine yet "
-            "(ROADMAP.md Queue 1 item 12b, the sharded dist/)")
     if isinstance(compiled, Program):
         compiled = compile_program(compiled)
     program = compiled.program
@@ -422,9 +417,15 @@ def plan_program(compiled, workload: WorkloadDescriptor, *,
                             views, shapes, reeval_effs)
     _resolve_depths(program, views)
 
+    from .trigger_cache import mesh_cache_key
+    wl = workload
+    if mesh is not None and wl.mesh_shape is None:
+        wl = replace(wl, mesh_shape=tuple(int(s) for s in mesh.shape),
+                     mesh_axes=tuple(mesh.mesh_dim_names))
     return MaintenancePlan(
         fingerprint=program_fingerprint(program, binding),
-        workload=workload, views=views)
+        workload=wl, views=views,
+        mesh_key=mesh_cache_key(mesh, mesh_axis))
 
 
 def _price_depth(workload: WorkloadDescriptor, shape: Tuple[int, int],
@@ -647,8 +648,9 @@ def firing_cost_flops(compiled: CompiledProgram, binding: Dict[str, int],
 
 
 def plan_for_engine(engine, workload: WorkloadDescriptor) -> MaintenancePlan:
-    """Plan against an engine's compiled program and binding."""
-    return plan_program(engine.compiled, workload, binding=engine.binding)
+    """Plan against an engine's compiled program, binding and mesh."""
+    return plan_program(engine.compiled, workload, binding=engine.binding,
+                        mesh=engine.mesh, mesh_axis=engine.mesh_axis)
 
 
 def static_plan(engine, strategy: str,

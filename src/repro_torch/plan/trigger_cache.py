@@ -115,12 +115,17 @@ def global_trigger_cache() -> TriggerCache:
 
 
 def mesh_cache_key(mesh, axis: Optional[str] = None) -> Optional[Tuple]:
-    """Hashable identity of a mesh for trigger-cache keying: ``None``
-    without one.  The port has no sharded engine yet, so a mesh has
-    nothing to key and is refused (ROADMAP.md Queue 1 item 12b, the sharded
-    dist/)."""
+    """Hashable identity of a mesh (a ``torch.distributed``
+    ``DeviceMesh``) for trigger-cache keying: ``None`` without one.
+
+    The mesh's shape by axis name, the row axis, the device type and the
+    ranks in order, as the reference keys on device ids in order: a
+    sharded firing is pinned to that placement, so two meshes of one
+    shape over other ranks (or a permutation) must not share entries,
+    and two meshes over the same ranks do."""
     if mesh is None:
         return None
-    raise NotImplementedError(
-        "mesh_cache_key: the port has no sharded engine yet (ROADMAP.md "
-        "Queue 1 item 12b, the sharded dist/)")
+    names = tuple(mesh.mesh_dim_names)
+    return (tuple(zip(names, (int(s) for s in mesh.shape))),
+            axis or names[0], mesh.device_type,
+            tuple(int(r) for r in mesh.mesh.flatten().tolist()))

@@ -12,7 +12,7 @@ Leaves with fewer than two dims, or a side below ``min_dim``, pass through
 raw.  The learning views' ring (:meth:`repro_torch.fivm.Ring.set_model`)
 reuses :func:`compress_leaf`'s factors as an exact IVM delta when ``ΔB``
 has rank ≤ k.  The sharded all-reduce of factors (``compressed_psum``)
-waits for the sharded ``dist/`` (ROADMAP.md Queue 1 item 12b).
+waits for the sharded ``dist/`` (ROADMAP.md Queue 1 item 12b-ii).
 
 ``init_compression`` takes an explicit ``torch.Generator``: the
 reference seeds each leaf's Q₀ with ``hash(path)``, which changes from

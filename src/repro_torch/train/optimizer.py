@@ -8,7 +8,7 @@ updates are pure functions that return new trees; here
 and the params IN PLACE (the port's convention: a 1.8B-parameter state
 would otherwise be written anew every step) and return them, with the
 reference's values.  The ZeRO-1 sharding axes (``opt_state_axes``) wait
-for the sharded ``dist/`` (ROADMAP.md Queue 1 item 12b).
+for the sharded ``dist/`` (ROADMAP.md Queue 1 item 12b-ii).
 """
 
 from __future__ import annotations

@@ -1337,3 +1337,42 @@ def test_checkpoint_round_trips_card_leaves_bit_for_bit(cuda, tmp_path):
     _assert_tree_bits(got, tree)
     assert torch.equal(torch.rand(9, generator=got["rng"], device=cuda),
                        torch.rand(9, generator=g, device=cuda))
+
+
+@pytest.mark.parametrize("planned", [False, True], ids=["engine", "planned"])
+def test_mesh_engine_on_card_matches_single_device(cuda, tmp_path, planned):
+    """IncrementalEngine on a one-rank NCCL mesh: every firing launches the
+    rank-k kernel once a low-rank apply on the rank's rows, and the views
+    equal the single-device engine's on the card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.core.iterative import matrix_powers
+    from repro_torch.plan import TriggerCache, WorkloadDescriptor
+    n = 512
+    A = MatrixPowers.synthesize(n, seed=0)
+    stream = UpdateStream(n=n, m=n, seed=3)
+    ups = [stream.next_update() for _ in range(6)]
+    kw = ({"plan": WorkloadDescriptor(batch_size=100000),
+           "trigger_cache": TriggerCache()} if planned else {})
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("rows",))
+        engines = [IncrementalEngine(matrix_powers(k=8, n=n, model="exp"),
+                                     mesh=mesh, **kw),
+                   IncrementalEngine(matrix_powers(k=8, n=n, model="exp"),
+                                     device=cuda, **kw)]
+        for eng in engines:
+            eng.initialize(A)
+            cuda_ru.reset_launches()
+            for u, v in ups[:3]:
+                eng.apply_update("A", u, v)
+            eng.apply_updates("A", ups[3:])
+            torch.cuda.synchronize()
+            assert cuda_ru.LAUNCHES["rank_update_batched"] == \
+                eng.stats.lowrank_applies > 0
+        got = {k: engines[0].output(k) for k in engines[1].views}
+        for k, want in engines[1].views.items():
+            torch.testing.assert_close(got[k], want, rtol=1e-5, atol=1e-5)
+    finally:
+        dist.destroy_process_group()

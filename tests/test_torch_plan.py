@@ -6,10 +6,11 @@ JSON, depth pricing and chain-aware pricing included).  Its engine must
 execute a plan as the reference does: for any update stream and any
 plan, planned engine == unplanned engine == re-evaluation within f32
 tolerance, and the same views re-evaluated, skipped and recomputed.  The
-rest mirrors tests/test_planner.py (its two mesh tests aside: the port
-refuses a mesh), plus what only the port has to get right: in-place
-applies against a recomputed view's storage, plans it cannot execute
-yet, and the carrier path under a plan.
+rest mirrors tests/test_planner.py (its two mesh tests are held in
+tests/test_torch_ivm_shard.py against the reference's single-device
+engine), plus what only the port has to get right: in-place applies
+against a recomputed view's storage, a plan's mesh key, and the carrier
+path under a plan.
 """
 
 from dataclasses import replace
@@ -351,17 +352,61 @@ def test_depth_two_plan_raises_not_run_at_first_order():
         _ols_engine(plan=lazy)
 
 
-def test_mesh_raises_naming_item_12():
+def test_mesh_raises_naming_item_12(tmp_path):
+    """A plan runs only on the mesh it was priced for (the refusal of any
+    mesh, ROADMAP.md Queue 1 item 12, was lifted by item 12b-i): set_plan
+    raises ValueError for another mesh's key, on a mesh engine and on a
+    single-device one."""
+    import torch_shard_workers as w
     assert tplan.mesh_cache_key(None) is None
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tplan.mesh_cache_key(object())
-    _, tprog = _programs("ols")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tplan.plan_program(tprog, WorkloadDescriptor(), mesh=object())
+    other = ((("rows", 2),), "rows", "cpu", (0, 1))
     eng = _ols_engine()
     plan = plan_for_engine(eng, WorkloadDescriptor())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        eng.set_plan(replace(plan, mesh_key=(("rows", 1),)))
+    assert plan.mesh_key is None
+    with pytest.raises(ValueError, match="mesh key"):
+        eng.set_plan(replace(plan, mesh_key=other))
+    with w.one_rank_mesh(tmp_path) as mesh:
+        _, tprog = _programs("ols")
+        meng = IncrementalEngine(tprog, mesh=mesh)
+        with pytest.raises(ValueError, match="mesh key"):
+            meng.set_plan(plan)
+        with pytest.raises(ValueError, match="mesh key"):
+            meng.set_plan(replace(plan, mesh_key=other))
+
+
+def test_planned_mesh_engine_honours_its_key(tmp_path):
+    """plan_program(mesh=...) records the mesh's shape, axes and key
+    (JSON round trip included); the planned mesh engine adopts it, keys
+    its trigger cache on it, and matches the single-device planned
+    engine."""
+    import torch_shard_workers as w
+    wl = WorkloadDescriptor(batch_size=100000)
+    with w.one_rank_mesh(tmp_path) as mesh:
+        key = tplan.mesh_cache_key(mesh)
+        assert key == ((("rows", 1),), "rows", "cpu", (0,))
+        assert hash(key) == hash(tplan.mesh_cache_key(mesh, "rows"))
+        _, tprog = _programs("powers")
+        plan = tplan.plan_program(tprog, wl, mesh=mesh)
+        assert plan.mesh_key == key
+        assert plan.workload.mesh_shape == (1,)
+        assert plan.workload.mesh_axes == ("rows",)
+        assert MaintenancePlan.from_json(plan.to_json()) == plan
+        cache = TriggerCache()
+        eng = IncrementalEngine(tprog, mesh=mesh, plan=plan,
+                                trigger_cache=cache)
+        assert eng.plan.mesh_key == key
+        eng.initialize(_inputs("powers"))
+        for u, v in _updates(48, 48, 5):
+            eng.apply_update("A", u, v)
+        assert eng.stats.plan_reevals > 0
+        assert any(key in k for k in cache._fns)
+        got = eng.views_numpy()
+    single = IncrementalEngine(_programs("powers")[1], device="cpu",
+                               plan=wl, trigger_cache=TriggerCache())
+    single.initialize(_inputs("powers"))
+    for u, v in _updates(48, 48, 5):
+        single.apply_update("A", u, v)
+    _assert_views(got, single.views, "mesh vs single-device, planned")
 
 
 # -- planner decisions --------------------------------------------------------
