@@ -29,9 +29,9 @@ CUDA toolkit.  Phases, each of which raises on failure:
    p < 4 columns: the learning views' 2^20 x 1-3, PageRank's and OLS's
    vectors at K = 1) and the row entry's at p = 1, each also by the
    profiler beside addmm's; K1, the flash-attention backward
-   (``K1_CASES``: the training path's shapes, danube's S = 4128 under its
-   window, the prefix at head dim 256, full attention, groups of 1, 4, 12
-   and 16), through the autograd Function against torch.autograd through
+   (``K1_CASES``: the training path's shapes, phase 22's per-rank ones,
+   danube's S = 4128 under its window, the prefix at head dim 256, full
+   attention, groups of 1, 4, 12 and 16), through the autograd Function against torch.autograd through
    the plain attention (f32 at the kernel tolerance; bf16 within the
    bound derived from the roundings, tests/flash_bounds.py),
    a second call bit for bit, the forward with the row log-sum-exp giving
@@ -278,10 +278,33 @@ CUDA toolkit.  Phases, each of which raises on failure:
        re-evaluation (MAIN_TOL); ms an update (four ranks sharing one
        card: no scaling figure); the phase's seconds and each rank's peak
        memory.
+22. the LM half of the sharded dist/ (``repro_torch.dist.sharding``:
+    explicit tensor, expert and data parallelism) on four gloo ranks in
+    spawned processes sharing the card, over a (2, 2) and a (1, 4) mesh,
+    at published widths:
+    a. h2o-danube-1.8b cut to 2 layers, f32, B = 4, S = 512 on (2, 2)
+       (16 query and 4 KV heads a rank): one step's loss and gradients,
+       averaged over the data ranks and gathered whole, against the
+       single-device step's on rank 0 (phase 19b's tolerances);
+    b. the same cut in bf16, B = 4, S = 2048, three steps: ms a step
+       beside the single-device step's at the same global batch,
+       ``sharding.BYTES`` a step (the model axis's reduces, the data
+       axis's gradient mean), the flash launches a rank;
+    c. qwen3-moe-235b-a22b cut to 1 layer, f32 forward on (1, 4) (32
+       experts, 16 query heads and 1 KV head a rank), B = 2, S = 256
+       (T·k = 4096: nothing dropped): the MoE block given the same input
+       against the single device at 2e-4, the logits at the reference
+       test's 5e-3, the tokens whose top-8 experts differ counted;
+    d. b's state saved (gathered, rank 0 writes the reference's format)
+       and restored onto plan_mesh(2, 2)'s (1, 2) sub-mesh of the first
+       two ranks: every leaf bit for bit, then one step;
+    e. ``launch/train.py --mesh local --model-parallel 2`` on the four
+       ranks, custom-10m, 3 steps.
 
 Every launch count is set to 0 just before a phase drives its engines and
-read just after (in each rank, for phase 21b's spawned ranks); the counts
-of each kernel must equal the applies (or calls) the phase made.
+read just after (in each rank, for phases 21b's and 22's spawned ranks);
+the counts of each kernel must equal the applies (or calls) the phase
+made.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record (``rank_update_batched``'s with its launches over phases 4-9,
@@ -423,6 +446,31 @@ RECUR_CUT_SEQ = RECUR_PROMPT + RECUR_NEW
 # updates, then one batch of SHARD_BATCH; a rank that does not report in
 # SHARD_TIMEOUT_S fails the phase
 SHARD_WORLD, SHARD_SINGLE, SHARD_BATCH, SHARD_TIMEOUT_S = 4, 3, 16, 600
+# phase 22: the LM half of the sharded dist/ on LM_SHARD_WORLD gloo ranks
+# sharing the card, over (2, 2) and (1, 4) meshes: danube at full width
+# cut to LM_SHARD_LAYERS, one f32 step at LM_SHARD_EXACT's (B, S) (22a),
+# LM_SHARD_STEP's bf16 steps (22b, saved and restored onto the (1, 2)
+# sub-mesh in 22d); qwen3-moe at full width cut to 1 layer, an f32 forward
+# at LM_SHARD_MOE's (B, S): T·k = 4096, so no pair is dropped (22c); the
+# training driver's --mesh local for LM_SHARD_DRIVER_STEPS steps (22e).
+# Rehearsed on the CPU at the reduced widths with LM_SHARD_REHEARSE's
+# (B, S) and steps.
+LM_SHARD_WORLD, LM_SHARD_LAYERS, LM_SHARD_TIMEOUT_S = 4, 2, 600
+LM_SHARD_EXACT, LM_SHARD_STEP, LM_SHARD_MOE = (4, 512), (4, 2048, 3), \
+    (2, 256)
+LM_SHARD_DRIVER_STEPS = 3
+LM_SHARD_REHEARSE = {"exact": (4, 32), "step": (4, 32, 2), "moe": (2, 32)}
+# 22c's logits against the single device, of max(|logits|, 1): the
+# reference test's bound (tests/test_distributed.py:158)
+LM_SHARD_LOGIT_TOL = 5e-3
+# 22b's bf16 losses on (2, 2) against the single device's at the same
+# global batch, relative, within LM_SHARD_BF16_LOSS_C / sqrt(B·S): the
+# sharded step sums its row-parallel products and its gradients in
+# another order, and the mean loss averages those roundings over B·S
+# tokens.  Sound runs moved it by 1.84e-5 at 4 x 2048 tokens on the card
+# and 1.48e-4 at 4 x 32 on the CPU (PERF.md §6, phase 22): both 1.7e-3
+# times 1/sqrt(B·S); 1e-2 leaves 6x of that
+LM_SHARD_BF16_LOSS_C = 1e-2
 # 21a against the single-device engine, relative to each view's largest
 # entry: the same kernel on the same rows, and every collective of one
 # rank a copy, so equal or within a few ulps
@@ -1195,7 +1243,8 @@ def check_flash_kernels(peaks_) -> dict:
     the cut's full 288-slot cache in f32.  Two dense configs that no phase
     serves, at hd 128 in bf16 and f32: command-r-plus-104b (H=96, KV=8, a
     group of 12) and qwen1.5-32b (H=KV=40), prefill at B=2, S=2048 and
-    decode at B=8, L=n_valid=4096."""
+    decode at B=8, L=n_valid=4096.  Phase 22c's per-rank shape: qwen3-moe's
+    16 query heads and one KV head a rank (B=2, S=256, hd 128) in f32."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(1)
 
@@ -1246,7 +1295,11 @@ def check_flash_kernels(peaks_) -> dict:
             ("qwen15_32b_prefill_bf16", 2, 2048, 40, 40, 128, None, bf16,
              True, 0),
             ("qwen15_32b_prefill_f32", 2, 2048, 40, 40, 128, None, f32,
-             True, 0)]:
+             True, 0),
+            # phase 22c's per-rank shape: qwen3-moe's 16 query heads and
+            # one KV head a rank of (1, 4)
+            ("shard_qwen3_forward_f32", LM_SHARD_MOE[0], LM_SHARD_MOE[1], 16,
+             1, 128, None, f32, True, 0)]:
         q = randn(b, s, h, hd, dtype=dt)
         k, v = randn(b, s, kvh, hd, dtype=dt), randn(b, s, kvh, hd, dtype=dt)
         out["flash_attention"].append(check_flash_attention(
@@ -1453,7 +1506,14 @@ K1_CASES = [
     ("qwen3_moe_prefill_bf16", QWEN3_BATCH, QWEN3_PROMPT, 64, 4, 128, None,
      "bfloat16", True, 0),
     ("command_r_prefill_bf16", 2, 2048, 96, 8, 128, None, "bfloat16", True,
-     0)]
+     0),
+    # phase 22's per-rank shapes: danube's 16 query and 4 KV heads a rank
+    # of (2, 2), two data rows a rank (22b bf16, 22a f32); last, so that
+    # the cases above draw their inputs as before
+    ("shard_danube_train_bf16", LM_SHARD_STEP[0] // 2, LM_SHARD_STEP[1],
+     16, 4, 80, 4096, "bfloat16", True, 0),
+    ("shard_danube_exact_f32", LM_SHARD_EXACT[0] // 2, LM_SHARD_EXACT[1],
+     16, 4, 80, 4096, "float32", True, 0)]
 
 
 def check_flash_bwd_kernels(peaks_) -> dict:
@@ -6265,6 +6325,544 @@ def phase_shard() -> list:
     return [one, four]
 
 
+
+# -- phase 22: the LM half of the sharded dist/ -------------------------------
+
+def lm22_cfg(arch: str, n_layers: int, dtype: str, rehearse: bool):
+    """``arch`` at its published widths (its reduced widths when
+    rehearsing on the CPU), cut to ``n_layers``, in ``dtype``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if rehearse else cfg
+    return dataclasses.replace(cfg, n_layers=n_layers, dtype=dtype)
+
+
+def lm22_tokens(cfg, batch: int, seq: int, seed: int):
+    """The same global batch of tokens on every rank, from ``seed``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq),
+                                         dtype=np.int64))
+
+
+def lm22_gen(device, seed: int):
+    import torch
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def lm22_grads(model, params, batch: dict):
+    """(loss of the global batch, gradients averaged over the data ranks)
+    of the rank's local params (the whole params without a mesh)."""
+    import torch
+    from repro_torch.train.optimizer import leaves, unflatten
+    from repro_torch.train.train_step import data_rows, mean_over_data
+    loss, _ = model.loss(params, data_rows(batch, model.device))
+    grads = torch.autograd.grad(loss, leaves(params), allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), mean_over_data(unflatten(params, grads))
+
+
+def lm22_layer(tree, i: int = 0):
+    """Layer ``i``'s params of a stacked tree."""
+    if isinstance(tree, dict):
+        return {k: lm22_layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def lm22_sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def lm22_heads(cfg, params) -> dict:
+    hd = cfg.resolved_head_dim
+    attn = params["blocks"]["attn"]
+    return {"q_heads": attn["wq"].shape[-1] // hd,
+            "kv_heads": attn["wk"].shape[-1] // hd, "head_dim": hd}
+
+
+class Lm22Counts:
+    """A rank's main-path launches: each sharded drive resets the kernel
+    counters just before it and reads them just after, with the launches
+    its configuration predicts (``expect``); the single-device references
+    between drives are never read."""
+
+    def __init__(self, device):
+        self.device = device
+        self.counts, self.expect = [], {}
+
+    def drive(self, fn, expect: dict):
+        reset_launches()
+        out = fn()
+        lm22_sync(self.device)
+        self.counts.append(kernel_counts())
+        for entry, n in expect.items():
+            self.expect[entry] = self.expect.get(entry, 0) + n
+        return out
+
+
+def lm22_train_launches(cfg, steps: int = 1) -> dict:
+    """A train step's flash launches: the forward with LSE once a layer
+    (twice under remat: the recompute) and K1 once."""
+    fwd = 2 if cfg.remat != "none" else 1
+    n = attention_layers(cfg) * steps
+    return {"flash_attention_fwd_lse": fwd * n, "flash_attention_bwd": n}
+
+
+def lm22_exact(rank: int, mesh, counts: Lm22Counts, rehearse: bool) -> dict:
+    """22a: danube at full width cut to LM_SHARD_LAYERS, f32, on (2, 2):
+    one step's loss and gathered gradients, on rank 0 against the
+    single-device loss and gradients (phase 19b's tolerances)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import (gather_tree, shard_tree,
+                                           use_sharding)
+    from repro_torch.models import LM
+    from repro_torch.train import require_grad
+    cfg = lm22_cfg(SERVE_ARCH, LM_SHARD_LAYERS, "float32", rehearse)
+    b, s = LM_SHARD_REHEARSE["exact"] if rehearse else LM_SHARD_EXACT
+    model = LM(cfg, device=counts.device)
+    batch = {"tokens": lm22_tokens(cfg, b, s, 71)}
+    t0 = time.perf_counter()
+    with use_sharding(mesh):
+        specs = model.param_specs()
+        params = require_grad(shard_tree(
+            model.init(lm22_gen(model.device, 61)), specs))
+        heads = lm22_heads(cfg, params)
+        loss, grads = counts.drive(lambda: lm22_grads(model, params, batch),
+                                   lm22_train_launches(cfg))
+        whole = gather_tree(grads, specs)
+    out = {"batch": b, "seq": s, **heads, "loss": float(loss),
+           "sharded_s": time.perf_counter() - t0}
+    del params, grads
+    if rank == 0:
+        single = require_grad(model.init(lm22_gen(model.device, 61)))
+        want_loss, want = lm22_grads(model, single, batch)
+        out["loss_single"] = float(want_loss)
+        out["loss_rel_err"] = abs(float(loss) - float(want_loss)) / abs(
+            float(want_loss))
+        worst, worst_leaf = 0.0, None
+        got = dict(flat_params(whole))
+        for name, w in flat_params(want):
+            rel = float((got[name] - w).abs().max()) / (
+                float(w.abs().max()) or 1.0)
+            if rel >= worst:
+                worst, worst_leaf = rel, name
+        out.update(grad_leaves=len(got), grad_worst_rel_err=worst,
+                   grad_worst_leaf=worst_leaf)
+        if out["loss_rel_err"] > TRAIN_LOSS_RTOL or worst > MAIN_TOL:
+            raise AssertionError(
+                f"22a: sharded against single device: loss "
+                f"{out['loss_rel_err']} (limit {TRAIN_LOSS_RTOL}), gradient "
+                f"{worst_leaf} {worst} (limit {MAIN_TOL})")
+        del single, want
+    del whole
+    dist.barrier()
+    return out
+
+
+def lm22_step(rank: int, mesh, counts: Lm22Counts, rehearse: bool):
+    """22b: the same cut in bf16 on (2, 2): LM_SHARD_STEP's steps timed,
+    the bytes of each, then on rank 0 the single-device step at the same
+    global batch.  Returns (record, state, model, batch)."""
+    import torch.distributed as dist
+    from repro_torch.dist import sharding
+    from repro_torch.models import LM
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = lm22_cfg(SERVE_ARCH, LM_SHARD_LAYERS, "bfloat16", rehearse)
+    b, s, steps = LM_SHARD_REHEARSE["step"] if rehearse else LM_SHARD_STEP
+    model = LM(cfg, device=counts.device)
+    batch = {"tokens": lm22_tokens(cfg, b, s, 72)}
+    out = {"batch": b, "seq": s, "ms": [], "bytes": [], "loss": []}
+    with sharding.use_sharding(mesh):
+        state = init_train_state(model, lm22_gen(model.device, 62))
+        out.update(lm22_heads(cfg, state.params))
+        step = make_train_step(model)
+        for _ in range(steps):
+            sharding.reset_bytes()
+            lm22_sync(model.device)
+            t0 = time.perf_counter()
+            state, metrics = counts.drive(lambda: step(state, batch),
+                                          lm22_train_launches(cfg))
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["bytes"].append(dict(sharding.BYTES))
+            out["loss"].append(float(metrics["loss"]))
+    out["launches_a_step"] = lm22_train_launches(cfg)
+    if rank == 0:
+        single = init_train_state(model, lm22_gen(model.device, 62))
+        one = make_train_step(model)
+        out["single_ms"], out["single_loss"] = [], []
+        for _ in range(steps):
+            lm22_sync(model.device)
+            t0 = time.perf_counter()
+            single, metrics = one(single, batch)
+            lm22_sync(model.device)
+            out["single_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["single_loss"].append(float(metrics["loss"]))
+        del single, one
+        out["loss_worst_rel_err"] = max(
+            abs(a - b) / abs(b)
+            for a, b in zip(out["loss"], out["single_loss"]))
+        out["loss_tol"] = LM_SHARD_BF16_LOSS_C / math.sqrt(b * s)
+        if not out["loss_worst_rel_err"] <= out["loss_tol"]:
+            raise AssertionError(
+                f"22b: bf16 losses {out['loss']} on (2, 2) against the "
+                f"single device's {out['single_loss']}: relative "
+                f"{out['loss_worst_rel_err']:.3g} > {out['loss_tol']:.3g}")
+    dist.barrier()
+    return out, state, model, batch
+
+
+def lm22_remesh(rank: int, mesh, state, model, batch, counts: Lm22Counts,
+                directory: str) -> dict:
+    """22d: 22b's state saved (gathered, rank 0 writes), restored onto
+    plan_mesh's (1, 2) sub-mesh of the first two ranks (which hold the
+    same model halves as on (2, 2), so their restored blocks must equal
+    22b's bit for bit), and one step there."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import CheckpointManager, sharding
+    from repro_torch.dist.fault_tolerance import plan_mesh
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.train import (init_train_state, make_train_step,
+                                   train_state_specs)
+    mgr = CheckpointManager(directory, async_save=False)
+    saved_step = int(state.opt.step)
+    with sharding.use_sharding(mesh):
+        lm22_sync(model.device)
+        t0 = time.perf_counter()
+        mgr.save(saved_step, state, blocking=True,
+                 specs=train_state_specs(model))
+        out = {"save_s": time.perf_counter() - t0,
+               "plan": plan_mesh(2, 2)}
+    sub = make_elastic_mesh(2, 2, device_type=mesh.device_type)
+    out["mesh"] = [list(sub.shape), list(sub.mesh_dim_names)]
+    if rank < 2:
+        with sharding.use_sharding(sub):
+            fresh = init_train_state(model, lm22_gen(model.device, 63))
+            t0 = time.perf_counter()
+            restored = mgr.restore(fresh, step=saved_step,
+                                   specs=train_state_specs(model))
+            out["restore_s"] = time.perf_counter() - t0
+            del fresh
+            diff = []
+            for key in ("params", "master", "m", "v"):
+                saved = (state.params if key == "params"
+                         else getattr(state.opt, key))
+                back = dict(flat_params(restored.params if key == "params"
+                                        else getattr(restored.opt, key)))
+                diff += [f"{key}.{name}" for name, x in flat_params(saved)
+                         if not torch.equal(x, back[name])]
+            out["leaves_differing"] = diff
+            out["restored_step"] = mgr.last_restored_step
+            if diff or int(restored.opt.step) != saved_step:
+                raise AssertionError(f"22d: restored leaves differ from the "
+                                     f"saved ones: {diff[:8]}")
+            step = make_train_step(model)
+            _, metrics = counts.drive(
+                lambda: step(restored, batch),
+                lm22_train_launches(model.cfg))
+            out["loss"] = float(metrics["loss"])
+            if not math.isfinite(out["loss"]):
+                raise AssertionError(f"22d: loss {out['loss']} after the "
+                                     "restore")
+            del restored
+    dist.barrier()
+    return out
+
+
+def lm22_moe(rank: int, mesh, counts: Lm22Counts, rehearse: bool) -> dict:
+    """22c: qwen3-moe at full width cut to 1 layer, f32, forward on
+    (1, 4): each rank draws the whole params in turn (one whole model on
+    the card at a time) and keeps its blocks; on rank 0 the MoE block,
+    given the same input, against the single device at 2e-4, and the
+    logits at the reference test's 5e-3, with the tokens whose top-k
+    experts differ counted."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import sharding
+    from repro_torch.models import LM, moe
+    from repro_torch.train.train_step import data_rows
+    cfg = lm22_cfg(QWEN3_ARCH, 1, "float32", rehearse)
+    b, s = LM_SHARD_REHEARSE["moe"] if rehearse else LM_SHARD_MOE
+    model = LM(cfg, device=counts.device)
+    batch = {"tokens": lm22_tokens(cfg, b, s, 73)}
+    gen = torch.Generator().manual_seed(74)
+    x = torch.randn(b, s, cfg.d_model, generator=gen).to(model.device)
+    routes = []
+    route = moe._route
+
+    def recording(*args):
+        top_p, top_e, probs = route(*args)
+        routes.append(top_e)
+        return top_p, top_e, probs
+
+    out = {"batch": b, "seq": s}
+    whole0 = None
+    with sharding.use_sharding(mesh) as ctx:
+        specs = model.param_specs()
+        for r in range(dist.get_world_size()):
+            if rank == r:
+                whole = model.init(lm22_gen(model.device, 64))
+                params = sharding.shard_tree(whole, specs)
+                if rank == 0:
+                    whole0 = whole
+                del whole
+                gc.collect()
+                if model.device.type == "cuda":
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        out.update(lm22_heads(cfg, params))
+        out["experts_a_rank"] = params["blocks"]["moe"]["w_in"].shape[1]
+        moe._route = recording
+        try:
+            with torch.no_grad():
+                logits, _ = counts.drive(
+                    lambda: model.forward(params, data_rows(batch,
+                                                            model.device)),
+                    {"flash_attention": attention_layers(cfg)})
+                block = moe.moe_block(lm22_layer(params["blocks"]["moe"]),
+                                      cfg, x)
+                logits = sharding.gather(logits, -1, sharding.MODEL, ctx)
+        finally:
+            moe._route = route
+    sharded_routes = routes[:1]
+    # every rank frees its blocks and cached buffers before rank 0's
+    # reference runs the whole layer (its 128 experts' dense-safe slot
+    # buffers alone take 8 GiB a product)
+    del params
+    gc.collect()
+    if model.device.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        routes.clear()
+        moe._route = recording
+        try:
+            with torch.no_grad():
+                want, _ = model.forward(whole0, batch)
+                want_block = moe.moe_block(
+                    lm22_layer(whole0["blocks"]["moe"]), cfg, x)
+        finally:
+            moe._route = route
+        got_e = sharded_routes[0].sort(dim=-1).values
+        want_e = routes[0].sort(dim=-1).values
+        out["tokens_topk_differ"] = int((got_e != want_e).any(
+            dim=-1).sum())
+        out["tokens"] = int(got_e.shape[0])
+        out["block_rel_err"] = float((block - want_block).abs().max()) / max(
+            float(want_block.abs().max()), 1.0)
+        out["logits_rel_err"] = float((logits - want).abs().max()) / max(
+            float(want.abs().max()), 1.0)
+        if out["block_rel_err"] > KERNEL_RTOL \
+                or out["logits_rel_err"] > LM_SHARD_LOGIT_TOL:
+            raise AssertionError(
+                f"22c: block {out['block_rel_err']} (limit {KERNEL_RTOL}), "
+                f"logits {out['logits_rel_err']} (limit "
+                f"{LM_SHARD_LOGIT_TOL}) against the single device")
+        del whole0, want, want_block
+    del logits, block
+    gc.collect()
+    dist.barrier()
+    return out
+
+
+def lm22_driver(rank: int, world: int, directory: str, counts: Lm22Counts,
+                rehearse: bool) -> dict:
+    """22e: ``launch/train.py --mesh local --model-parallel 2`` on the four
+    ranks for LM_SHARD_DRIVER_STEPS steps, through a file store of its
+    own; rank 0's history."""
+    from repro_torch.launch import train as train_mod
+    steps = LM_SHARD_DRIVER_STEPS
+    args = ["--arch", "custom-10m", "--steps", str(steps), "--batch", "8",
+            "--seq", "128", "--log-every", "1", "--mesh", "local",
+            "--model-parallel", "2",
+            "--init-method", f"file://{directory}/driver_store",
+            "--world-size", str(world), "--rank", str(rank),
+            "--out", f"{directory}/driver.json"]
+    if rehearse:
+        args += ["--device", "cpu"]
+    cfg = train_mod.custom_10m()
+    t0 = time.perf_counter()
+    counts.drive(lambda: train_mod.main(args),
+                 lm22_train_launches(cfg, steps))
+    out = {"seconds": time.perf_counter() - t0}
+    if rank == 0:
+        with open(f"{directory}/driver.json") as f:
+            out["history"] = json.load(f)["history"]
+        if len(out["history"]) != steps or not all(
+                math.isfinite(h["loss"]) for h in out["history"]):
+            raise AssertionError(f"22e: history {out['history']}")
+    return out
+
+
+def lm_shard_rank(rank: int, world: int, store: str, results,
+                  directory: str, rehearse: bool = False) -> None:
+    """One of phase 22's ranks, in a spawned process: join the gloo world
+    through the file store ``store`` on ``cuda:(rank % device_count)``
+    (the CPU when rehearsing), build the (2, 2) and (1, 4) meshes, run
+    22a, 22b, 22d and 22c on them, leave the group, run 22e, and put
+    ``(rank, record)`` — or ``(rank, traceback)`` — on ``results``."""
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        device_type = "cpu" if rehearse else "cuda"
+        if rehearse:
+            torch.set_num_threads(2)
+        else:
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        device = torch.device(device_type, torch.cuda.current_device()
+                              ) if not rehearse else torch.device("cpu")
+        counts = Lm22Counts(device)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=world, rank=rank)
+        rec = {"device": str(device)}
+        t0 = time.perf_counter()
+        try:
+            grid = torch.arange(world)
+            mesh22 = DeviceMesh(device_type, grid.reshape(2, 2),
+                                mesh_dim_names=("data", "model"))
+            mesh14 = DeviceMesh(device_type, grid.reshape(1, 4),
+                                mesh_dim_names=("data", "model"))
+            if not rehearse:
+                torch.cuda.reset_peak_memory_stats()
+            parts = {}
+            t1 = time.perf_counter()
+            rec["22a"] = lm22_exact(rank, mesh22, counts, rehearse)
+            parts["22a"] = time.perf_counter() - t1
+            if rank == 0:
+                log(f"lm shard rank 0 22a ({parts['22a']:.1f} s): "
+                    f"{json.dumps(rec['22a'])}")
+            t1 = time.perf_counter()
+            rec["22b"], state, model, batch = lm22_step(rank, mesh22, counts,
+                                                        rehearse)
+            parts["22b"] = time.perf_counter() - t1
+            if rank == 0:
+                log(f"lm shard rank 0 22b ({parts['22b']:.1f} s): "
+                    f"{json.dumps(rec['22b'])}")
+            t1 = time.perf_counter()
+            rec["22d"] = lm22_remesh(rank, mesh22, state, model, batch,
+                                     counts, f"{directory}/ckpt")
+            parts["22d"] = time.perf_counter() - t1
+            if rank == 0:
+                log(f"lm shard rank 0 22d ({parts['22d']:.1f} s): "
+                    f"{json.dumps(rec['22d'])}")
+            del state, model
+            gc.collect()
+            if not rehearse:
+                torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            rec["22c"] = lm22_moe(rank, mesh14, counts, rehearse)
+            parts["22c"] = time.perf_counter() - t1
+            if rank == 0:
+                log(f"lm shard rank 0 22c ({parts['22c']:.1f} s): "
+                    f"{json.dumps(rec['22c'])}")
+            if not rehearse:
+                rec["peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                                       / 2 ** 30)
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        t1 = time.perf_counter()
+        rec["22e"] = lm22_driver(rank, world, directory, counts, rehearse)
+        parts["22e"] = time.perf_counter() - t1
+        if rank == 0:
+            log(f"lm shard rank 0 22e ({parts['22e']:.1f} s): "
+                f"{json.dumps(rec['22e'])}")
+        rec["part_s"] = parts
+        rec["seconds"] = time.perf_counter() - t0
+        rec["counts"], rec["expect"] = counts.counts, counts.expect
+        results.put((rank, rec))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        results.put((rank, traceback.format_exc()))
+        raise
+
+
+def phase_lm_shard(rehearse: bool = False) -> dict:
+    """Phase 22: LM_SHARD_WORLD gloo ranks in spawned processes, all on
+    this card (NCCL takes one rank a card), each running
+    :func:`lm_shard_rank`: explicit tensor, expert and data parallelism
+    of the transformer families, the elastic re-mesh and the training
+    driver's ``--mesh local``.  Every rank's flash launches must equal
+    what its drives predict.  A rank that fails, or does not report
+    within LM_SHARD_TIMEOUT_S, fails the phase.  ``rehearse`` runs the
+    same drives at the reduced widths on the CPU (no kernel, no launch
+    check)."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import tempfile
+    label = f"lm_shard_{LM_SHARD_WORLD}_ranks_gloo_one_card"
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    t_phase = time.perf_counter()
+    recs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=lm_shard_rank,
+                             args=(r, LM_SHARD_WORLD, f"{tmp}/store",
+                                   results, tmp, rehearse))
+                 for r in range(LM_SHARD_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + LM_SHARD_TIMEOUT_S
+            while len(recs) < LM_SHARD_WORLD:
+                rank, rec = results.get(
+                    timeout=max(1.0, deadline - time.monotonic()))
+                if isinstance(rec, str):
+                    raise AssertionError(f"{label}: rank {rank} failed:\n"
+                                         f"{rec}")
+                recs[rank] = rec
+        except queue_mod.Empty:
+            raise AssertionError(
+                f"{label}: ranks "
+                f"{sorted(set(range(LM_SHARD_WORLD)) - set(recs))} did not "
+                f"report in {LM_SHARD_TIMEOUT_S} s") from None
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"{label}: rank exit codes {codes}")
+    got, expect = {}, {}
+    for rank in sorted(recs):
+        for counts in recs[rank].pop("counts"):
+            merge_counts(got, counts)
+        for entry, n in recs[rank].pop("expect").items():
+            expect[entry] = expect.get(entry, 0) + n
+    if not rehearse:
+        check_launches(label, got, expect)
+    rec = {"phase": label, "world": LM_SHARD_WORLD,
+           "note": "the ranks time-share one card over gloo: times are no "
+                   "scaling figure",
+           "launches": got, "ranks": recs,
+           "seconds": time.perf_counter() - t_phase}
+    log("main " + json.dumps(rec))
+    for rank, r in sorted(recs.items()):
+        b = r["22b"]
+        log(f"lm shard rank {rank} ({r['device']}, {LM_SHARD_WORLD} gloo "
+            f"ranks sharing one card): 22b danube bf16 {b['batch']} x "
+            f"{b['seq']} on (2, 2), {b['q_heads']} query and "
+            f"{b['kv_heads']} KV heads a rank: step ms {b['ms']}"
+            + (f", single device {b['single_ms']}" if "single_ms" in b
+               else "") + f"; bytes a step {b['bytes'][-1]}; launches a "
+            f"step {b['launches_a_step']}; parts {r['part_s']}")
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s; 22a {recs[0]['22a']}"
+        f"; 22c {recs[0]['22c']}; 22d {recs[0]['22d']}; 22e "
+        f"{recs[0]['22e']}; peak GiB "
+        f"{[round(r.get('peak_mem_gib', 0.0), 2) for _, r in sorted(recs.items())]}")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -6394,6 +6992,10 @@ def main() -> int:
 
     # 21. the row-sharded engine: one NCCL rank, four gloo ranks on the card
     phases.extend(phase_shard())
+    torch.cuda.empty_cache()
+
+    # 22. the LM half of the sharded dist/: four gloo ranks on the card
+    phases.append(phase_lm_shard())
     torch.cuda.empty_cache()
 
     # the kernels record: per entry, the main path's launches and the

@@ -7,6 +7,13 @@ trigger firing with only O(n·k) factor traffic, while re-evaluation moves
 whole O(n²) matrices.  The port of the JAX package's ``dist/``, on
 ``torch.distributed``:
 
+  :mod:`~repro_torch.dist.sharding`         the models' placement: the
+                                            reference's logical-axis
+                                            rules and ``resolve_spec``,
+                                            each rank's local blocks, the
+                                            collectives of explicit SPMD
+                                            (tensor, expert and data
+                                            parallelism)
   :mod:`~repro_torch.dist.ivm_shard`        row-sharded execution of
                                             compiled triggers + the
                                             re-eval baseline, with the
@@ -19,21 +26,22 @@ whole O(n²) matrices.  The port of the JAX package's ``dist/``, on
                                             straggler eviction, elastic
                                             mesh replanning, supervised
                                             restarts
-
-The models' sharded placement (``sharding``) waits for ROADMAP.md Queue 1
-item 12b-ii.
 """
 
-from . import checkpoint, fault_tolerance, ivm_shard
+from . import checkpoint, fault_tolerance, ivm_shard, sharding
 from .checkpoint import CheckpointCorruptError, CheckpointManager
 from .fault_tolerance import (FaultToleranceConfig, FaultTolerantController,
                               RunPhase, TrainingSupervisor, plan_mesh)
 from .ivm_shard import (build_distributed_planned_trigger,
                         build_distributed_trigger, distributed_reeval_matmul,
                         gather_views, shard_views)
+from .sharding import (ShardingCtx, current_ctx, named_sharding, resolve_spec,
+                       shard, tree_shardings, use_sharding)
 
 __all__ = [
-    "ivm_shard", "checkpoint", "fault_tolerance",
+    "sharding", "ivm_shard", "checkpoint", "fault_tolerance",
+    "ShardingCtx", "current_ctx", "named_sharding", "resolve_spec",
+    "shard", "tree_shardings", "use_sharding",
     "build_distributed_planned_trigger", "build_distributed_trigger",
     "distributed_reeval_matmul", "gather_views", "shard_views",
     "CheckpointCorruptError", "CheckpointManager",

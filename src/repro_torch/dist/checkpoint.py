@@ -69,6 +69,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import sharding
+
 FORMAT_VERSION = 1
 _PREFIX = "ckpt_"
 
@@ -88,21 +90,35 @@ def _is_namedtuple(x: Any) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def _map_tree(fn: Callable[[str, Any], Any], tree: Any, path: str = ""):
+def _map_tree(fn: Callable[[str, Any], Any], tree: Any, path: str = "",
+              is_leaf: Callable[[Any], bool] = lambda x: False):
     """``tree`` rebuilt with every leaf replaced by ``fn(path, leaf)``,
-    walking it as :func:`_leaf_paths` does; None stays None."""
+    walking it as :func:`_leaf_paths` does; None stays None; a node that
+    ``is_leaf`` accepts is a leaf."""
     if tree is None:
         return None
+    if is_leaf(tree):
+        return fn(path, tree)
     if isinstance(tree, dict):
-        return {k: _map_tree(fn, tree[k], f"{path}[{k!r}]")
+        return {k: _map_tree(fn, tree[k], f"{path}[{k!r}]", is_leaf)
                 for k in sorted(tree)}
     if _is_namedtuple(tree):
-        return type(tree)(*(_map_tree(fn, getattr(tree, f), f"{path}.{f}")
+        return type(tree)(*(_map_tree(fn, getattr(tree, f), f"{path}.{f}",
+                                      is_leaf)
                             for f in tree._fields))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_map_tree(fn, x, f"{path}[{i}]")
+        return type(tree)(_map_tree(fn, x, f"{path}[{i}]", is_leaf)
                           for i, x in enumerate(tree))
     return fn(path, tree)
+
+
+def _spec_paths(specs: Any) -> Dict[str, Any]:
+    """{leaf path: PartitionSpec} of a placement tree that mirrors a
+    checkpointed tree (:func:`repro_torch.train.train_state_specs`)."""
+    out: Dict[str, Any] = {}
+    _map_tree(lambda p, s: out.__setitem__(p, s), specs,
+              is_leaf=sharding.is_axes_leaf)
+    return out
 
 
 def _leaf_paths(tree: Any) -> List[Tuple[str, Any]]:
@@ -164,10 +180,12 @@ def _storage_dtype(x: np.ndarray) -> np.ndarray:
     return x if x.dtype.kind in "fiub" else x.astype(np.float32)
 
 
-def _restore_leaf(template: Any, val: np.ndarray) -> Any:
+def _restore_leaf(template: Any, val: np.ndarray, spec=None) -> Any:
     """``val`` shaped like ``template``: a tensor on its device with its
     dtype and ``requires_grad``; a generator on its device with the
-    saved state; else a numpy array of its dtype and shape."""
+    saved state; else a numpy array of its dtype and shape.  With a
+    ``spec``, ``val`` is the whole leaf and ``template`` this rank's block
+    of it on the active mesh, which is what comes back."""
     if isinstance(template, torch.Generator):
         gen = torch.Generator(device=template.device)
         gen.set_state(torch.from_numpy(
@@ -175,6 +193,12 @@ def _restore_leaf(template: Any, val: np.ndarray) -> Any:
         return gen
     if isinstance(template, torch.Tensor):
         host = torch.from_numpy(np.require(val, requirements=["C", "W"]))
+        if spec is not None:
+            host = sharding.local_block(host, spec)
+            if host.shape != template.shape:
+                raise ValueError(f"a block of {tuple(val.shape)} is "
+                                 f"{tuple(host.shape)} on this rank, the "
+                                 f"template's {tuple(template.shape)}")
         out = host.to(dtype=template.dtype).reshape(template.shape).to(
             template.device)
         return out.requires_grad_(template.requires_grad)
@@ -263,7 +287,14 @@ class CheckpointManager:
                     continue
         return sorted(steps)
 
-    def latest_step(self) -> Optional[int]:
+    def latest_step(self, specs: Any = None) -> Optional[int]:
+        """The newest complete step, or None.  With ``specs`` (a sharded
+        state's placement, as :meth:`restore` takes it) every rank of the
+        mesh calls it: it first waits for rank 0's writes, in flight or
+        not, so that every rank lists the same steps."""
+        if specs is not None:
+            self.wait()
+            sharding.mesh_barrier()
         steps = self.all_steps()
         return steps[-1] if steps else None
 
@@ -280,9 +311,18 @@ class CheckpointManager:
             self._executor.shutdown()
 
     # -- save ---------------------------------------------------------------
-    def save(self, step: int, tree: Any, blocking: bool = False) -> str:
+    def save(self, step: int, tree: Any, blocking: bool = False,
+             specs: Any = None) -> str:
         """Write ``tree`` as checkpoint ``step``; returns the path prefix
         (manifest at ``<path>.json``, payload at ``<path>.npz``).
+
+        With ``specs`` (the tree's placement on the active mesh, e.g.
+        :func:`repro_torch.train.train_state_specs`) ``tree`` holds local
+        blocks: the ranks gather whole leaves (a collective: every rank of
+        the mesh calls ``save``; the ranks off the first coordinate of the
+        axes nothing is split over skip it, holding copies) and rank 0
+        writes the reference's format, which either package restores on
+        one device.  The other ranks write nothing.
 
         The caller thread only *stages* the snapshot: one owned copy per
         leaf, on the leaf's own device (enqueued on the current stream,
@@ -295,6 +335,10 @@ class CheckpointManager:
         (``_base``/``_last_full``) is single-threaded.
         """
         self.wait()
+        if specs is not None:
+            tree = self._gathered(tree, specs)
+            if tree is None:
+                return self._path(step)
         t0 = time.perf_counter()
         staged: Dict[str, Any] = {}
         dtypes: Dict[str, str] = {}
@@ -358,6 +402,19 @@ class CheckpointManager:
         else:
             gather_encode_write()
         return path
+
+    def _gathered(self, tree: Any, specs: Any) -> Any:
+        """Whole leaves on rank 0 (and on the ranks that gather beside
+        it); None on the ranks that write nothing."""
+        ctx = sharding.current_ctx()
+        split = set()
+        sharding.map_axes(lambda s: split.update(sharding.spec_axes(s)),
+                          specs)
+        copies = [a for a in ctx.mesh.mesh_dim_names if a not in split]
+        if ctx.coord(copies):
+            return None
+        whole = sharding.gather_tree(tree, specs, ctx)
+        return whole if ctx.coord(ctx.mesh.mesh_dim_names) == 0 else None
 
     def _encode_incremental(self, step: int, host: Dict[str, np.ndarray],
                             dtypes: Dict[str, str]):
@@ -459,7 +516,8 @@ class CheckpointManager:
                     leaves[p] = base + data[f"lr_p::{p}"] @ data[f"lr_q::{p}"].T
         return leaves
 
-    def restore(self, template: Any, step: Optional[int] = None) -> Any:
+    def restore(self, template: Any, step: Optional[int] = None,
+                specs: Any = None) -> Any:
         """Rebuild checkpoint ``step`` (default: latest) shaped like
         ``template``: the same tree; each leaf is cast to the template
         leaf's dtype and placed on its device, a tensor with the
@@ -470,8 +528,19 @@ class CheckpointManager:
         requested checkpoint is corrupt (or its chain is broken), restore
         falls back to the newest *earlier* step that reconstructs intact
         — ``last_restored_step`` records the step actually loaded, so
-        resuming callers can replay from the right place."""
+        resuming callers can replay from the right place.
+
+        With ``specs`` (the template's placement on the active mesh) the
+        template holds local blocks: every rank of the mesh calls
+        ``restore`` (it first waits for rank 0's writes), reads whole
+        leaves and keeps its blocks of them for the *current* mesh, so a
+        checkpoint written on one mesh restores onto another (an elastic
+        re-mesh) or onto one device."""
         self.wait()
+        spec_at = None
+        if specs is not None:
+            sharding.mesh_barrier()
+            spec_at = _spec_paths(specs)
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -495,7 +564,8 @@ class CheckpointManager:
         def load(p: str, tleaf: Any) -> Any:
             if p not in leaves:
                 raise KeyError(f"checkpoint {step} has no leaf {p!r}")
-            return _restore_leaf(tleaf, leaves[p])
+            return _restore_leaf(tleaf, leaves[p],
+                                 spec_at[p] if spec_at else None)
 
         return _map_tree(load, template)
 

@@ -1,0 +1,572 @@
+"""Mesh-aware placement of the models: logical axes → mesh axes → each
+rank's local block, and the collectives of explicit SPMD.
+
+The port of the JAX package's ``dist/sharding.py``.  The models annotate
+parameters with *logical* axis names (``axes_mlp() -> {"w_in": ("fsdp",
+"ff"), ...}``); this module owns their translation to placement on a
+``torch.distributed.device_mesh.DeviceMesh`` (``launch/mesh.py``):
+
+  * a :class:`ShardingCtx` (mesh + logical→mesh rules) is installed with
+    the :func:`use_sharding` context manager;
+  * :func:`resolve_spec` is the reference's resolution, rule for rule, and
+    returns the port's :class:`PartitionSpec` (a tuple);
+    :func:`named_sharding` / :func:`tree_shardings` pair specs with the
+    mesh, per leaf.
+
+The reference relies on GSPMD: an annotation only constrains placement,
+and the compiler inserts whatever collectives the layout needs.  The
+port's kernels are raw CUDA entries that no tensor subclass dispatches
+through, so the port runs *explicit* SPMD instead (Megatron-style): each
+rank holds the local block of every parameter (:func:`shard_tree`),
+computes on it, and calls the collectives below itself — tensor and
+expert parallelism on the ``model`` axis, data parallelism on the
+``batch`` axes (``pod``, ``data``).  The layers read from their local
+shapes which dimensions are split, so the layout decides, and the
+numbers stay the single-device numbers.  :func:`shard` is therefore the
+identity.
+
+Every rank must issue the same collectives in the same order (the remat
+recompute re-runs the forward's reduces inside the backward, which is
+correct only under that invariant).  An axis of size 1 issues none.
+Every collective adds the bytes a rank puts on the wire, ring counted, to
+:data:`BYTES`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from contextvars import ContextVar
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+
+AxisName = Union[str, None]
+# one logical name may map to several mesh axes (e.g. batch → (pod, data))
+Rules = Dict[str, Union[str, Tuple[str, ...], None]]
+
+# Default logical→mesh rules for the production meshes
+# (("data", "model") single-pod, ("pod", "data", "model") multi-pod).
+# "seq_sp" (Megatron-style sequence parallelism) and "fsdp" are off by
+# default, as in the reference.
+DEFAULT_RULES: Rules = {
+    "batch": ("pod", "data"),
+    "ff": "model",
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "experts": "model",
+    "fsdp": None,
+    "seq_sp": None,
+    "cache_seq": None,
+}
+
+#: the mesh axis that tensor and expert parallelism run on
+MODEL = "model"
+
+#: bytes each rank puts on the wire, ring counted: an all-reduce moves
+#: 2(W−1)/W of its tensor, an all-gather (W−1) local blocks.  By kind
+#: (``all_reduce``, ``all_gather``), by mesh axis (``on_<axis>``: the
+#: model axis's tensor-parallel reduces and the batch axes' gradient
+#: and loss means), ``host_staged`` (the part that gloo ran on card
+#: tensors, which it copies through host memory) and ``calls``.
+BYTES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "host_staged": 0,
+                         "calls": 0}
+
+
+def reset_bytes() -> None:
+    BYTES.clear()
+    BYTES.update(all_reduce=0, all_gather=0, host_staged=0, calls=0)
+
+
+class PartitionSpec(tuple):
+    """One entry a dimension: a mesh axis name, a tuple of them, or None
+    (replicated); trailing Nones are left out, as in JAX's."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+class MeshShape:
+    """A mesh's shape and axis names without a process group: what
+    :func:`resolve_spec` reads, for planning placements (and testing
+    them) on meshes larger than the world.  Every coordinate is 0."""
+
+    device_type = "cpu"
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        self.shape = tuple(int(s) for s in shape)
+        self.mesh_dim_names = tuple(axis_names)
+
+    def get_local_rank(self, axis: str) -> int:
+        return 0
+
+    def get_group(self, axis: str):
+        raise RuntimeError("a MeshShape has no process group")
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a DeviceMesh (or a :class:`MeshShape`)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+@dataclass(frozen=True)
+class ShardingCtx:
+    """Active placement context: a mesh plus logical→mesh axis rules."""
+
+    mesh: Optional[Any] = None
+    rules: Rules = field(default_factory=dict)
+
+    def mesh_axes_for(self, logical: AxisName) -> Tuple[str, ...]:
+        """Mesh axes a logical axis maps to on *this* mesh (may be ())."""
+        if logical is None or self.mesh is None:
+            return ()
+        names = self.mesh.mesh_dim_names
+        if logical in self.rules:
+            mapped = self.rules[logical]
+        elif logical in names:
+            mapped = logical          # direct mesh-axis reference
+        else:
+            mapped = None
+        if mapped is None:
+            return ()
+        if isinstance(mapped, str):
+            mapped = (mapped,)
+        return tuple(a for a in mapped if a in names)
+
+    # -- the rank's place on the mesh (port-only) ---------------------------
+    def size(self, axes: Union[str, Sequence[str]]) -> int:
+        """Ranks along ``axes`` (1 for an axis the mesh lacks)."""
+        if self.mesh is None:
+            return 1
+        sizes = axis_sizes(self.mesh)
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return math.prod(sizes.get(a, 1) for a in axes)
+
+    def coord(self, axes: Union[str, Sequence[str]]) -> int:
+        """This rank's index along ``axes``, the first axis major."""
+        if self.mesh is None:
+            return 0
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        sizes = axis_sizes(self.mesh)
+        idx = 0
+        for a in axes:
+            if a in sizes:
+                idx = idx * sizes[a] + self.mesh.get_local_rank(a)
+        return idx
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the batch is split over (data parallelism)."""
+        return self.mesh_axes_for("batch")
+
+    @property
+    def tp(self) -> int:
+        """Ranks of the tensor / expert parallel (``model``) axis."""
+        return self.size(MODEL)
+
+
+_CTX: ContextVar[ShardingCtx] = ContextVar(
+    "repro_torch_sharding_ctx",
+    default=ShardingCtx(mesh=None, rules=DEFAULT_RULES))
+
+
+def current_ctx() -> ShardingCtx:
+    """The innermost active context (mesh is None outside use_sharding)."""
+    return _CTX.get()
+
+
+@contextlib.contextmanager
+def use_sharding(mesh, rules: Optional[Rules] = None):
+    """Install ``mesh`` (plus optional rule overrides) for the duration.
+
+    >>> with use_sharding(make_local_mesh(2, device_type="cpu")) as ctx:
+    ...     state = init_train_state(model, generator)   # local blocks
+    ...     step = make_train_step(model)
+    """
+    merged = dict(DEFAULT_RULES)
+    if rules:
+        merged.update(rules)
+    with installed(ShardingCtx(mesh=mesh, rules=merged)) as ctx:
+        yield ctx
+
+
+@contextlib.contextmanager
+def installed(ctx: ShardingCtx):
+    """Install ``ctx`` itself for the duration: code that runs in another
+    thread, such as a remat recompute in autograd's device thread (which
+    starts without the caller's context variables), runs under the
+    placement its forward saw."""
+    token = _CTX.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _CTX.reset(token)
+
+
+def resolve_spec(axes: Sequence[AxisName],
+                 shape: Optional[Sequence[int]],
+                 ctx: Optional[ShardingCtx] = None) -> PartitionSpec:
+    """Logical axes (one per dimension) → a PartitionSpec valid on the
+    active mesh.
+
+    Drops (replicates) any dimension whose mapped mesh axes are absent,
+    already claimed by an earlier dimension, or do not divide the
+    dimension size (checked when ``shape`` is given).
+    """
+    ctx = ctx or current_ctx()
+    if ctx.mesh is None:
+        return P()
+    sizes = axis_sizes(ctx.mesh)
+    used: set = set()
+    out = []
+    for i, logical in enumerate(axes):
+        mesh_axes = []
+        for a in ctx.mesh_axes_for(logical):
+            if a in used:
+                continue
+            size = sizes[a]
+            if shape is not None:
+                dim = int(shape[i])
+                span = size * math.prod(sizes[x] for x in mesh_axes)
+                if dim % span != 0 or span > dim:
+                    continue
+            mesh_axes.append(a)
+            used.add(a)
+        if not mesh_axes:
+            out.append(None)
+        elif len(mesh_axes) == 1:
+            out.append(mesh_axes[0])
+        else:
+            out.append(tuple(mesh_axes))
+    while out and out[-1] is None:          # trailing Nones are implicit
+        out.pop()
+    return P(*out)
+
+
+def aligned_spec(axes: Sequence[AxisName], shape: Sequence[int],
+                 units: Sequence[int],
+                 ctx: Optional[ShardingCtx] = None) -> PartitionSpec:
+    """The port's placement: :func:`resolve_spec`, then every dimension
+    whose split would cut one of its ``units`` (``units[i]`` consecutive
+    entries that belong together, such as a head's ``head_dim`` columns of
+    a flattened ``H·hd`` projection) replicated instead.  The reference
+    checks divisibility on entries only, so it splits a single KV head of
+    32 columns into two halves on ``model = 2``; the port never cuts a
+    head (the standard GQA rule: KV heads are replicated when there are
+    fewer of them than model ranks)."""
+    ctx = ctx or current_ctx()
+    spec = list(resolve_spec(axes, shape, ctx))
+    for i, entry in enumerate(spec):
+        if entry is None or units[i] <= 1:
+            continue
+        if (int(shape[i]) // units[i]) % ctx.size(_entry_axes(entry)):
+            spec[i] = None
+    while spec and spec[-1] is None:
+        spec.pop()
+    return P(*spec)
+
+
+def named_sharding(axes: Sequence[AxisName],
+                   shape: Optional[Sequence[int]] = None,
+                   ctx: Optional[ShardingCtx] = None):
+    """(mesh, spec) on the active mesh for one tensor: the placement the
+    reference's ``NamedSharding`` names.  ``named_sharding((), None)`` is
+    the replicated placement (scalars, generators, step counters)."""
+    ctx = ctx or current_ctx()
+    if ctx.mesh is None:
+        raise ValueError("named_sharding needs an active mesh "
+                         "(wrap in use_sharding)")
+    return ctx.mesh, resolve_spec(axes, shape, ctx)
+
+
+def _is_namedtuple(x: Any) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def is_axes_leaf(x: Any) -> bool:
+    """A logical-axes tuple or a PartitionSpec: a leaf of an axes tree."""
+    if isinstance(x, PartitionSpec):
+        return True
+    return (isinstance(x, tuple) and not _is_namedtuple(x) and all(
+        isinstance(e, (str, type(None))) for e in x))
+
+
+def map_axes(fn: Callable, axes_tree: Any, *trees: Any) -> Any:
+    """``fn(axes_leaf, *leaves)`` over an axes tree and like-shaped trees
+    (nested dicts, NamedTuples, lists); a None leaf stays None."""
+    if is_axes_leaf(axes_tree):
+        return fn(axes_tree, *trees)
+    if axes_tree is None:
+        return None
+    if isinstance(axes_tree, dict):
+        return {k: map_axes(fn, axes_tree[k], *(t[k] for t in trees))
+                for k in axes_tree}
+    if _is_namedtuple(axes_tree):
+        return type(axes_tree)(*(
+            map_axes(fn, getattr(axes_tree, f),
+                     *(getattr(t, f) for t in trees))
+            for f in axes_tree._fields))
+    if isinstance(axes_tree, (tuple, list)):
+        return type(axes_tree)(map_axes(fn, a, *(t[i] for t in trees))
+                               for i, a in enumerate(axes_tree))
+    raise TypeError(f"not an axes tree: {axes_tree!r}")
+
+
+def tree_shardings(axes_tree: Any, shapes_tree: Any,
+                   ctx: Optional[ShardingCtx] = None) -> Any:
+    """Map a logical-axes tree + matching tensors (or shapes) → per-leaf
+    ``(mesh, PartitionSpec)`` placements."""
+    ctx = ctx or current_ctx()
+    return map_axes(lambda ax, s: named_sharding(
+        ax, tuple(getattr(s, "shape", s)), ctx), axes_tree, shapes_tree)
+
+
+def shard(x: torch.Tensor, *axes: AxisName) -> torch.Tensor:
+    """The identity.  The reference constrains ``x``'s placement here and
+    lets GSPMD insert collectives; in the port's explicit SPMD, ``x`` is
+    already this rank's local block and the layers call their collectives
+    themselves, so the annotation has nothing left to do."""
+    return x
+
+
+# -- local blocks -----------------------------------------------------------
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec: Sequence) -> Tuple[str, ...]:
+    """Every mesh axis a spec splits some dimension over."""
+    return tuple(a for e in spec for a in _entry_axes(e))
+
+
+def _as_spec(axes, shape, ctx: ShardingCtx) -> PartitionSpec:
+    return axes if isinstance(axes, PartitionSpec) else resolve_spec(
+        axes, shape, ctx)
+
+
+def local_block(x: torch.Tensor, spec: Sequence,
+                ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``spec``: owned
+    storage when anything was cut (a view would keep the whole alive),
+    ``x`` itself when the spec replicates it."""
+    ctx = ctx or current_ctx()
+    out = x
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if not axes:
+            continue
+        parts = ctx.size(axes)
+        step = x.shape[dim] // parts
+        out = out.narrow(dim, ctx.coord(axes) * step, step)
+    return out if out is x else out.contiguous().clone()
+
+
+def shard_tree(full_tree: Any, axes_tree: Any,
+               ctx: Optional[ShardingCtx] = None) -> Any:
+    """The rank's local blocks of a tree of whole tensors.  ``axes_tree``
+    mirrors it with PartitionSpecs (:meth:`LM.param_specs`) or logical
+    axes, resolved against each whole leaf's shape."""
+    ctx = ctx or current_ctx()
+    return map_axes(lambda ax, x: local_block(x, _as_spec(ax, x.shape, ctx),
+                                              ctx), axes_tree, full_tree)
+
+
+def gather(x: torch.Tensor, dim: int, axes: Union[str, Sequence[str]],
+           ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
+    """The blocks of every rank along ``axes`` concatenated along ``dim``
+    in their order (no gradient): the inverse of :func:`local_block` for
+    one dimension."""
+    ctx = ctx or current_ctx()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    for axis in reversed(axes):          # the minor axis first
+        if ctx.size(axis) == 1:
+            continue
+        x = _all_gather(x.detach(), dim, axis, ctx)
+    return x
+
+
+def gather_tree(local_tree: Any, specs: Any,
+                ctx: Optional[ShardingCtx] = None) -> Any:
+    """Whole tensors from a tree of local blocks, by all-gathers along
+    every split dimension.  ``specs`` mirrors the tree with
+    PartitionSpecs (local shapes no longer say what divided); a
+    collective over the spec's axes, so every rank on them calls it."""
+    ctx = ctx or current_ctx()
+
+    def one(spec, x):
+        for dim, entry in enumerate(spec):
+            if _entry_axes(entry):
+                x = gather(x, dim, _entry_axes(entry), ctx)
+        return x
+
+    return map_axes(one, specs, local_tree)
+
+
+# -- collectives ------------------------------------------------------------
+
+
+def _count(kind: str, axis: str, nbytes: float, t: torch.Tensor,
+           group) -> None:
+    nbytes = int(nbytes)
+    BYTES[kind] += nbytes
+    BYTES[f"on_{axis}"] = BYTES.get(f"on_{axis}", 0) + nbytes
+    BYTES["calls"] += 1
+    if t.is_cuda and dist.get_backend(group) == "gloo":
+        BYTES["host_staged"] += nbytes
+
+
+def all_reduce(t: torch.Tensor, axes: Union[str, Sequence[str]],
+               ctx: Optional[ShardingCtx] = None, op=dist.ReduceOp.SUM
+               ) -> torch.Tensor:
+    """``t`` reduced in place over every rank along ``axes`` (one
+    all-reduce an axis of size > 1, in the given order); returns it."""
+    ctx = ctx or current_ctx()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    for axis in axes:
+        world = ctx.size(axis)
+        if world == 1:
+            continue
+        group = ctx.mesh.get_group(axis)
+        dist.all_reduce(t, op=op, group=group)
+        _count("all_reduce", axis,
+               2 * (world - 1) / world * t.numel() * t.element_size(), t,
+               group)
+    return t
+
+
+def _all_gather(x: torch.Tensor, dim: int, axis: str,
+                ctx: ShardingCtx) -> torch.Tensor:
+    world = ctx.size(axis)
+    group = ctx.mesh.get_group(axis)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x, group=group)
+    _count("all_gather", axis, (world - 1) * x.numel() * x.element_size(),
+           x, group)
+    return torch.cat(parts, dim=dim)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward, all-reduce backward: the entry of a model-parallel
+    region, whose ranks each send back part of the input's gradient."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return all_reduce(grad.contiguous().clone(), MODEL, fctx.ctx), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce forward, identity backward: the exit of a model-parallel
+    region, summing its ranks' partial outputs."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        return all_reduce(x.contiguous().clone(), MODEL, ctx)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather forward along ``dim``, the rank's own slice backward."""
+
+    @staticmethod
+    def forward(fctx, x, dim, ctx):
+        fctx.dim, fctx.ctx, fctx.width = dim, ctx, x.shape[dim]
+        return _all_gather(x, dim, MODEL, ctx)
+
+    @staticmethod
+    def backward(fctx, grad):
+        lo = fctx.ctx.coord(MODEL) * fctx.width
+        return grad.narrow(fctx.dim, lo, fctx.width).contiguous(), None, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` entering a model-parallel region (the identity without one).
+
+    Not ``torch.distributed.nn.functional.all_reduce``: its backward
+    all-reduces the gradient again, which would make every gradient
+    upstream ``model``× too large."""
+    ctx = current_ctx()
+    return x if ctx.tp == 1 else _CopyToModel.apply(x, ctx)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the model ranks' partial ``x`` (the identity without a
+    model axis)."""
+    ctx = current_ctx()
+    return x if ctx.tp == 1 else _ReduceFromModel.apply(x, ctx)
+
+
+def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The model ranks' blocks of ``x`` concatenated along ``dim``."""
+    ctx = current_ctx()
+    if ctx.tp == 1:
+        return x
+    return _GatherFromModel.apply(x, dim % x.dim(), ctx)
+
+
+class _BatchMean(torch.autograd.Function):
+    """All-reduce mean over the batch axes forward, identity backward:
+    each rank's gradient is its own shard's term, and the train step's
+    one mean all-reduce of the gradients completes it."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        out = all_reduce(x.contiguous().clone(), ctx.batch_axes, ctx)
+        return out / ctx.size(ctx.batch_axes)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return grad, None
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the data-parallel ranks (see
+    :class:`_BatchMean` for its gradient)."""
+    ctx = current_ctx()
+    return x if ctx.size(ctx.batch_axes) == 1 else _BatchMean.apply(x, ctx)
+
+
+def split_offset(local: int, full: int, axis: str = MODEL,
+                 ctx: Optional[ShardingCtx] = None) -> Tuple[int, int]:
+    """(parts, this rank's offset) of a dimension of ``full`` entries that
+    this rank holds ``local`` of: (1, 0) when whole, (size of ``axis``,
+    coord · local) when split over it."""
+    ctx = ctx or current_ctx()
+    if local == full:
+        return 1, 0
+    parts = ctx.size(axis)
+    if local * parts != full:
+        raise ValueError(f"a local block of {local} of {full} entries is "
+                         f"not 1/{parts} of it")
+    return parts, ctx.coord(axis) * local
+
+
+def mesh_barrier(ctx: Optional[ShardingCtx] = None) -> None:
+    """Wait for every rank of the mesh: an all-reduce of one int over
+    each axis in turn (sequential axes make it a barrier of the whole
+    mesh)."""
+    ctx = ctx or current_ctx()
+    device = "cuda" if ctx.mesh.device_type == "cuda" else "cpu"
+    flag = torch.zeros(1, dtype=torch.int32, device=device)
+    all_reduce(flag, ctx.mesh.mesh_dim_names, ctx)

@@ -6,6 +6,14 @@ Masking: causal, prefix-LM (paligemma: bidirectional over the image
 prefix, causal after), or full (hubert), with an optional sliding window
 (h2o-danube).  A decoded token attends every valid cache slot, as in the
 reference.
+
+Under a mesh the full-sequence path is tensor-parallel over the
+``model`` axis: ``wq`` (and ``wk``/``wv`` when the KV heads divide) hold
+this rank's heads' columns, the flash kernels run on the rank's ``H/m``
+query heads, and ``wo`` is row-parallel, followed by one reduce.  KV
+heads are never cut: with fewer of them than model ranks they stay
+replicated (``dist.sharding.aligned_spec``), and a rank's query heads
+take their KV heads by global index (``head // group``).
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..dist.sharding import copy_to_model, reduce_from_model, split_offset
 from ..kernels import ops
 from . import layers
 
@@ -37,9 +46,31 @@ def init_attention(cfg, dtype, generator, device) -> Dict[str, Tensor]:
     return p
 
 
+def axes_attention(cfg) -> Dict:
+    p = {"wq": ("fsdp", "heads"), "wk": ("fsdp", "kv_heads"),
+         "wv": ("fsdp", "kv_heads"), "wo": ("heads", "fsdp")}
+    if cfg.qkv_bias:
+        p["bq"] = ("heads",)
+        p["bk"] = ("kv_heads",)
+        p["bv"] = ("kv_heads",)
+    return p
+
+
+def head_units(cfg) -> Dict:
+    """Per leaf of :func:`axes_attention`, the entries of each dimension
+    that make one head (``head_dim`` along a flattened ``H·hd``), which
+    a placement must not cut."""
+    hd = cfg.resolved_head_dim
+    p = {"wq": (1, hd), "wk": (1, hd), "wv": (1, hd), "wo": (hd, 1)}
+    if cfg.qkv_bias:
+        p.update(bq=(hd,), bk=(hd,), bv=(hd,))
+    return p
+
+
 def _project_qkv(params: Dict[str, Tensor], cfg, x: Tensor
                  ) -> Tuple[Tensor, Tensor, Tensor]:
-    """x (B, S, D) → q (B, S, H, hd), k and v (B, S, KV, hd)."""
+    """x (B, S, D) → q (B, S, H, hd), k and v (B, S, KV, hd), at the head
+    counts of the params' columns (a rank's local heads on a mesh)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
@@ -47,8 +78,24 @@ def _project_qkv(params: Dict[str, Tensor], cfg, x: Tensor
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
         v = v + params["bv"].to(v.dtype)
-    return (q.view(b, s, cfg.n_heads, hd), k.view(b, s, cfg.n_kv_heads, hd),
-            v.view(b, s, cfg.n_kv_heads, hd))
+    return (q.view(b, s, -1, hd), k.view(b, s, -1, hd),
+            v.view(b, s, -1, hd))
+
+
+def _rank_kv(k: Tensor, v: Tensor, q_lo: int, heads: int, group: int
+             ) -> Tuple[Tensor, Tensor]:
+    """The KV heads that query heads ``q_lo .. q_lo + heads - 1`` read,
+    from replicated (B, S, KV, hd) k and v: a slice when they form equal
+    groups of those heads (the flash kernels' GQA), else each query
+    head's KV head gathered by ``head // group`` (groups of one)."""
+    kv_lo = q_lo // group
+    kv_hi = (q_lo + heads - 1) // group + 1
+    if kv_hi - kv_lo == 1 or (q_lo % group == 0 and heads % group == 0):
+        return (k[:, :, kv_lo:kv_hi].contiguous(),
+                v[:, :, kv_lo:kv_hi].contiguous())
+    idx = torch.div(q_lo + torch.arange(heads, device=k.device), group,
+                    rounding_mode="floor")
+    return k[:, :, idx], v[:, :, idx]
 
 
 def attention_block(params: Dict[str, Tensor], cfg, x: Tensor,
@@ -59,16 +106,36 @@ def attention_block(params: Dict[str, Tensor], cfg, x: Tensor,
     ``return_kv=True`` also returns the rope'd (k, v), so a batched
     prefill fills the decode cache in the same pass.  ``prefix_len`` keys
     the first positions bidirectionally under the causal mask.
+
+    On a mesh with the heads split (``wq`` narrower than ``H·hd``) the
+    block runs this rank's heads and sums the partial outputs of ``wo``
+    over the model axis; replicated ``wk``/``wv`` (and biases) then enter
+    the model region too, since each rank reads only its heads' part of
+    them.  ``return_kv`` gives the k/v that the rank's kernel read.
     """
     hd = cfg.resolved_head_dim
+    heads = params["wq"].shape[1] // hd
+    split = heads != cfg.n_heads
+    if split:
+        _, q_lo = split_offset(heads, cfg.n_heads)
+        x = copy_to_model(x)
+        kv_whole = params["wk"].shape[1] == cfg.n_kv_heads * hd
+        if kv_whole:
+            params = dict(params, **{
+                name: copy_to_model(params[name])
+                for name in ("wk", "wv", "bk", "bv") if name in params})
     q, k, v = _project_qkv(params, cfg, x)
     cos, sin = layers.rope_angles(positions, hd, cfg.rope_theta)
     q = layers.apply_rope(q, cos, sin)
     k = layers.apply_rope(k, cos, sin)
+    if split and kv_whole:
+        k, v = _rank_kv(k, v, q_lo, heads, cfg.n_heads // cfg.n_kv_heads)
     out = ops.flash_attention(q, k, v, causal=causal,
                               window=cfg.sliding_window,
                               prefix_len=prefix_len)
     out = out.reshape(x.shape[0], x.shape[1], -1) @ params["wo"]
+    if split:
+        out = reduce_from_model(out)
     if return_kv:
         return out, (k, v)
     return out
@@ -86,6 +153,13 @@ def init_kv_cache(cfg, batch: int, max_seq: int, dtype, device
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def axes_kv_cache(long_context: bool = False) -> Dict:
+    """The reference's sequence-sharded cache axes (one spec for
+    decode_32k and long_500k)."""
+    return {"k": ("batch", "cache_seq", None, None),
+            "v": ("batch", "cache_seq", None, None)}
 
 
 def cache_slot(cfg, cache_len: int, pos: int) -> Tuple[int, int]:

@@ -3,15 +3,24 @@
 Pure functions over explicit param dicts, the counterparts of the JAX
 package's ``models/layers.py`` with the same f32 cast points: the RMSNorm
 and rope arithmetic runs in f32, activations in f32, and ``unembed`` gives
-f32 logits.
+f32 logits.  Every ``init_*`` has the reference's ``axes_*``: the same
+tree with logical-axis tuples (:mod:`repro_torch.dist.sharding`).
+
+Under a mesh (``use_sharding``) the params are each rank's local blocks
+and the layers read from their shapes what is split over the ``model``
+axis: the embedding is vocab-parallel, the head leaves its logits
+vocab-sharded, the MLP is column-parallel into ``ff`` and row-parallel
+out of it, with one reduce after.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..dist.sharding import copy_to_model, reduce_from_model, split_offset
 
 Tensor = torch.Tensor
 
@@ -33,6 +42,10 @@ def init_rmsnorm(d: int, dtype, device) -> Dict[str, Tensor]:
     return {"scale": torch.ones(d, dtype=dtype, device=device)}
 
 
+def axes_rmsnorm() -> Dict:
+    return {"scale": (None,)}
+
+
 def rmsnorm(params: Dict[str, Tensor], x: Tensor, eps: float = 1e-6
             ) -> Tensor:
     xf = x.float()
@@ -49,15 +62,38 @@ def init_embedding(vocab: int, d: int, dtype, generator, device
     return {"table": normal((vocab, d), d ** -0.5, dtype, generator, device)}
 
 
-def embed(params: Dict[str, Tensor], tokens: Tensor) -> Tensor:
-    return F.embedding(tokens, params["table"])
+def axes_embedding() -> Dict:
+    return {"table": ("vocab", "fsdp")}
 
 
-def unembed(params: Dict[str, Tensor], x: Tensor) -> Tensor:
+def embed(params: Dict[str, Tensor], tokens: Tensor,
+          vocab: Optional[int] = None) -> Tensor:
+    """The tokens' rows of the table.  A table of fewer than ``vocab``
+    rows is this rank's vocab shard: ids outside it look up zeros, and
+    the model ranks' rows are summed (exact: one of them is nonzero)."""
+    table = params["table"]
+    rows = table.shape[0]
+    if vocab is None or rows == vocab:
+        return F.embedding(tokens, table)
+    _, lo = split_offset(rows, vocab)
+    local = tokens - lo
+    inside = (local >= 0) & (local < rows)
+    out = F.embedding(local.clamp(0, rows - 1), table)
+    return reduce_from_model(out * inside[..., None].to(out.dtype))
+
+
+def unembed(params: Dict[str, Tensor], x: Tensor,
+            vocab: Optional[int] = None) -> Tensor:
     """Logits (B, S, D) @ (V, D)ᵀ → (B, S, V) in f32: the products of the
     model's type are exact in f32, so this is the reference's
-    ``preferred_element_type=f32``."""
-    return x.float() @ params["table"].float().T
+    ``preferred_element_type=f32``.  A vocab shard of the table gives
+    this rank's vocab shard of the logits (the input enters the model
+    region: its gradient is summed over the shards)."""
+    table = params["table"]
+    if vocab is not None and table.shape[0] != vocab:
+        split_offset(table.shape[0], vocab)             # checks the block
+        x = copy_to_model(x)
+    return x.float() @ table.float().T
 
 
 # -- rotary position embedding ------------------------------------------------------
@@ -97,7 +133,23 @@ def init_mlp(d: int, d_ff: int, gated: bool, dtype, generator, device
     return p
 
 
-def mlp(params: Dict[str, Tensor], x: Tensor, gated: bool) -> Tensor:
+def axes_mlp(gated: bool) -> Dict:
+    p = {"w_in": ("fsdp", "ff"), "w_out": ("ff", "fsdp")}
+    if gated:
+        p["w_gate"] = ("fsdp", "ff")
+    return p
+
+
+def mlp(params: Dict[str, Tensor], x: Tensor, gated: bool,
+        d_ff: Optional[int] = None) -> Tensor:
+    """SwiGLU (``gated``) or GeLU MLP.  With ``w_in`` narrower than
+    ``d_ff`` (this rank's ``ff`` columns) it runs tensor-parallel: the
+    input enters the model region, and the partial outputs of the
+    row-parallel ``w_out`` are summed."""
+    split = d_ff is not None and params["w_in"].shape[1] != d_ff
+    if split:
+        split_offset(params["w_in"].shape[1], d_ff)     # checks the block
+        x = copy_to_model(x)
     h = x @ params["w_in"]
     if gated:
         g = x @ params["w_gate"]
@@ -105,7 +157,8 @@ def mlp(params: Dict[str, Tensor], x: Tensor, gated: bool) -> Tensor:
     else:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-    return h @ params["w_out"]
+    out = h @ params["w_out"]
+    return reduce_from_model(out) if split else out
 
 
 # -- linear frontend projector (VLM patch / audio frame stubs) ------------------
@@ -116,6 +169,10 @@ def init_frontend_proj(in_dim: int, d: int, dtype, generator, device
     return {"w": normal((in_dim, d), in_dim ** -0.5, dtype, generator,
                         device),
             "b": torch.zeros(d, dtype=dtype, device=device)}
+
+
+def axes_frontend_proj() -> Dict:
+    return {"w": (None, "fsdp"), "b": (None,)}
 
 
 def frontend_proj(params: Dict[str, Tensor], x: Tensor) -> Tensor:

@@ -25,6 +25,14 @@ states into the cache in place.  :meth:`LM.loss` is the training
 objective; under ``cfg.remat`` other than ``"none"`` each block of a pass
 that autograd records runs under ``torch.utils.checkpoint`` (its
 activations recomputed in the backward), which moves memory, not values.
+
+:meth:`LM.param_axes` and :meth:`LM.cache_axes` are the reference's
+logical-axis trees, leaf for leaf; :meth:`LM.param_specs` is the port's
+placement of them on the active mesh (``dist.sharding``).  Under
+``use_sharding`` every method takes each rank's local blocks and runs
+explicit SPMD: tensor and expert parallelism on the ``model`` axis, the
+batch split over the data axes; :meth:`LM.loss` gives the global batch's
+value on every rank.
 """
 
 from __future__ import annotations
@@ -32,10 +40,15 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.runtime import resolve_device
+from ..dist import sharding
+from ..dist.sharding import (MODEL, aligned_spec, all_reduce, batch_mean,
+                             current_ctx, map_axes, reduce_from_model,
+                             spec_axes, split_offset)
 from . import attention, layers, moe, ssm, xlstm
 
 Params = Dict[str, Any]
@@ -46,6 +59,12 @@ TRANSFORMER = ("dense", "moe", "vlm", "audio")
 #: the recurrent families: no batched prefill, the cache holds states
 RECURRENT = ("hybrid", "ssm")
 FAMILIES = TRANSFORMER + RECURRENT
+
+RECURRENT_REFUSED = (
+    "the {family} family on a mesh with model > 1 waits for ROADMAP.md "
+    "Queue 1 item 12b-iii: its projections pack several parts into one "
+    "\"ff\" dimension (Mamba2's in_proj: z, x, B, C and dt), and an "
+    "explicit split of them needs a design of its own")
 
 
 class LM:
@@ -124,6 +143,119 @@ class LM:
         return {"ln": layers.init_rmsnorm(cfg.d_model, dt, dev),
                 "cell": xlstm.init_slstm(cfg, dt, generator, dev)}
 
+    # -- placement ----------------------------------------------------------
+    def param_axes(self) -> Params:
+        """The reference's logical axes of every param leaf: the tree of
+        :meth:`init` with a tuple of logical names (or None) a dimension,
+        the stacked layer axes None."""
+        cfg = self.cfg
+        p: Params = {"embed": layers.axes_embedding(),
+                     "final_norm": layers.axes_rmsnorm()}
+        if not cfg.tie_embeddings:
+            p["lm_head"] = layers.axes_embedding()
+        if cfg.frontend_dim:
+            p["frontend"] = layers.axes_frontend_proj()
+        if cfg.family in TRANSFORMER:
+            p["blocks"] = _stack_axes(self._axes_block())
+        elif cfg.family == "hybrid":
+            _, tail = self._zamba_layout()
+            mamba = {"ln": layers.axes_rmsnorm(),
+                     "mixer": ssm.axes_mamba2(cfg)}
+            p["mamba_groups"] = _stack_axes(_stack_axes(mamba))
+            if tail:
+                p["mamba_tail"] = _stack_axes(mamba)
+            p["shared_attn"] = self._axes_block()
+        else:
+            p["mlstm_groups"] = _stack_axes(_stack_axes(
+                {"ln": layers.axes_rmsnorm(),
+                 "mixer": xlstm.axes_mlstm(cfg)}))
+            p["slstm"] = _stack_axes({"ln": layers.axes_rmsnorm(),
+                                      "cell": xlstm.axes_slstm(cfg)})
+        return p
+
+    def _axes_block(self) -> Params:
+        cfg = self.cfg
+        p = {"ln1": layers.axes_rmsnorm(),
+             "attn": attention.axes_attention(cfg),
+             "ln2": layers.axes_rmsnorm()}
+        if cfg.moe is not None and cfg.family == "moe":
+            p["moe"] = moe.axes_moe(cfg)
+        elif cfg.d_ff > 0:
+            p["mlp"] = layers.axes_mlp(cfg.mlp_gated)
+        return p
+
+    def cache_axes(self, long_context: bool = False) -> Params:
+        """The reference's logical axes of the decode cache's leaves."""
+        fam = self.cfg.family
+        kv = _stack_axes(attention.axes_kv_cache(long_context))
+        if fam in ("dense", "moe", "vlm"):
+            return {"kv": kv}
+        if fam == "hybrid":
+            _, tail = self._zamba_layout()
+            c = {"mamba": _stack_axes(_stack_axes(ssm.axes_mamba2_state())),
+                 "kv": kv}
+            if tail:
+                c["mamba_tail"] = _stack_axes(ssm.axes_mamba2_state())
+            return c
+        if fam == "ssm":
+            return {"mlstm": _stack_axes(_stack_axes(
+                        xlstm.axes_mlstm_state())),
+                    "slstm": _stack_axes(xlstm.axes_slstm_state())}
+        raise ValueError(f"no decode cache for family {fam}")
+
+    def param_shapes(self) -> Params:
+        """The whole params' shapes, from an init on the meta device (no
+        storage, no generator)."""
+        meta = LM(self.cfg, device="meta").init(None)
+        return map_axes(lambda _, x: tuple(x.shape), self.param_axes(), meta)
+
+    def _param_units(self, axes: Params, in_attention: bool = False
+                     ) -> Params:
+        """Per leaf of ``axes``, the entries of each dimension that make
+        one indivisible unit: a head's ``head_dim`` along the attention's
+        flattened head columns, else 1."""
+        heads = attention.head_units(self.cfg)
+        out = {}
+        for k, v in axes.items():
+            if isinstance(v, dict):
+                out[k] = self._param_units(v, k == "attn")
+            else:
+                unit = heads[k] if in_attention else ()
+                out[k] = (1,) * (len(v) - len(unit)) + tuple(unit)
+        return out
+
+    def param_specs(self, ctx=None) -> Params:
+        """The port's placement of every param leaf on the active mesh: the
+        reference's :func:`~repro_torch.dist.sharding.resolve_spec` of
+        :meth:`param_axes`, except that no head is cut
+        (:func:`~repro_torch.dist.sharding.aligned_spec`; an expert never
+        is, the expert dimension being whole experts).  Raises for a
+        recurrent family on a model axis wider than 1 (ROADMAP.md Queue 1
+        item 12b-iii), and for rules that split a parameter over another
+        axis than ``model`` (the layers run their collectives there)."""
+        ctx = ctx or current_ctx()
+        self.check_mesh(ctx)
+        axes = self.param_axes()
+        specs = map_axes(lambda ax, shape, unit: aligned_spec(
+            ax, shape, unit, ctx), axes, self.param_shapes(),
+            self._param_units(axes))
+        bad = set()
+        map_axes(lambda spec: bad.update(set(spec_axes(spec)) - {MODEL}),
+                 specs)
+        if bad:
+            raise NotImplementedError(
+                f"rules that split parameters over {sorted(bad)}: the "
+                "port's layers run tensor parallelism on the model axis "
+                "only")
+        return specs
+
+    def check_mesh(self, ctx=None) -> None:
+        """Raise for a recurrent family on a model axis wider than 1."""
+        ctx = ctx or current_ctx()
+        if ctx.tp > 1 and self.cfg.family in RECURRENT:
+            raise NotImplementedError(
+                RECURRENT_REFUSED.format(family=self.cfg.family))
+
     def _zamba_layout(self) -> Tuple[int, int]:
         """(groups of ``attn_every`` Mamba2 blocks, Mamba2 blocks after
         the last group): zamba2-1.2b's 38 layers are 6 groups of 6 and a
@@ -148,7 +280,8 @@ class LM:
         ``_maybe_remat`` wraps each scanned block in ``jax.checkpoint``:
         under ``cfg.remat`` "block", "full" (or "attn") the call runs
         inside a non-reentrant ``torch.utils.checkpoint``, which keeps only
-        the block's inputs and recomputes the rest (JAX's policies differ
+        the block's inputs and recomputes the rest (under the sharding
+        context of the forward) (JAX's policies differ
         in which products "block" and "attn" save; here every policy
         recomputes the whole block).  A call that autograd does not record
         (grad mode off, or no tensor argument requiring grad) runs ``fn``
@@ -158,7 +291,15 @@ class LM:
 
         def wrapped(*args):
             if torch.is_grad_enabled() and _requires_grad(args):
-                return checkpoint(fn, *args, use_reentrant=False)
+                # the recompute may run in autograd's device thread, which
+                # does not see the caller's placement context: install it
+                ctx = current_ctx()
+
+                def placed(*a):
+                    with sharding.installed(ctx):
+                        return fn(*a)
+
+                return checkpoint(placed, *args, use_reentrant=False)
             return fn(*args)
 
         return wrapped
@@ -185,7 +326,8 @@ class LM:
                 f, aux = f
             h = h + f
         elif "mlp" in bp:
-            h = h + layers.mlp(bp["mlp"], hn, self.cfg.mlp_gated)
+            h = h + layers.mlp(bp["mlp"], hn, self.cfg.mlp_gated,
+                               self.cfg.d_ff)
         return h, aux
 
     def backbone(self, params: Params, x: Tensor, positions: Tensor, *,
@@ -194,6 +336,7 @@ class LM:
         """(B, S, D) → (B, S, D); returns (hidden, aux_loss: the blocks'
         router losses summed, 0 without MoE)."""
         cfg = self.cfg
+        self.check_mesh()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "hybrid":
             return self._zamba_backbone(params, x, positions, causal), aux
@@ -283,7 +426,7 @@ class LM:
             prefix = 0
         else:
             x = layers.embed(params["embed"],
-                             self._input(batch, "tokens").long())
+                             self._input(batch, "tokens").long(), cfg.vocab)
             prefix = 0
         positions = torch.arange(x.shape[1], device=self.device)
         return x, positions, prefix
@@ -292,7 +435,7 @@ class LM:
         """Token embeddings; a vlm's tied head scales them by sqrt(d_model)
         in the params' type (bf16: 45.25 at d_model 2048), as the
         reference's ``jnp.asarray(d ** 0.5, tok.dtype)`` does."""
-        x = layers.embed(params["embed"], tokens.long())
+        x = layers.embed(params["embed"], tokens.long(), self.cfg.vocab)
         if self.cfg.family == "vlm" and self.cfg.tie_embeddings:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         return x
@@ -300,7 +443,7 @@ class LM:
     def logits(self, params: Params, hidden: Tensor) -> Tensor:
         head = params["embed"] if self.cfg.tie_embeddings \
             else params["lm_head"]
-        return layers.unembed(head, hidden)
+        return layers.unembed(head, hidden, self.cfg.vocab)
 
     def _hidden(self, params: Params, batch: Dict) -> Tuple[Tensor, Tensor]:
         cfg = self.cfg
@@ -314,7 +457,9 @@ class LM:
         return self._hidden(params, batch)[0]
 
     def forward(self, params: Params, batch: Dict) -> Tuple[Tensor, Tensor]:
-        """Full-sequence forward → (logits (B, S, V) f32, aux_loss)."""
+        """Full-sequence forward → (logits (B, S, V) f32, aux_loss).  On a
+        mesh: the rank's batch rows and vocab shard of the logits (the
+        reference's ``("batch", None, "vocab")``), the rank's aux."""
         h, aux = self._hidden(params, batch)
         return self.logits(params, h), aux
 
@@ -325,18 +470,34 @@ class LM:
         next-token cross-entropy (a vlm's text positions only, after its
         ``n_patches`` image positions; audio: the cross-entropy of the
         frames' ``targets``, averaged over its ``mask``), plus the blocks'
-        router loss."""
+        router loss.
+
+        On a mesh ``batch`` holds this rank's rows; the cross-entropy is
+        vocab-parallel over the model axis, and the values are the global
+        batch's on every rank (audio's masked mean sums its numerator and
+        its denominator over the data ranks apart; the aux is each data
+        shard's own, averaged).  Each rank's gradient is its own shard's
+        term: the train step's mean over the data ranks completes it."""
         cfg = self.cfg
         logits, aux = self.forward(params, batch)
+        ctx = current_ctx()
+        n_data = ctx.size(ctx.batch_axes)
         if cfg.family == "audio":
             mask = self._input(batch, "mask").float()
-            ce = _cross_entropy(logits, self._input(batch, "targets"))
-            loss = (ce * mask).sum() / mask.sum().clamp_min(1.0)
+            ce = _cross_entropy(logits, self._input(batch, "targets"),
+                                cfg.vocab)
+            den = mask.sum()
+            if n_data > 1:
+                den = all_reduce(den.detach().clone(), ctx.batch_axes, ctx)
+            loss = (ce * mask).sum() * n_data / den.clamp_min(1.0)
         else:
             if cfg.family == "vlm":
                 logits = logits[:, cfg.n_patches:]
             tokens = self._input(batch, "tokens")
-            loss = _cross_entropy(logits[:, :-1], tokens[:, 1:]).mean()
+            loss = _cross_entropy(logits[:, :-1], tokens[:, 1:],
+                                  cfg.vocab).mean()
+        if n_data > 1:
+            loss, aux = batch_mean(torch.stack([loss, aux.float()])).unbind()
         return loss + aux, {"ce": loss, "aux": aux}
 
     # -- decode ---------------------------------------------------------------
@@ -498,12 +659,36 @@ class LM:
         return x
 
 
-def _cross_entropy(logits: Tensor, targets: Tensor) -> Tensor:
+def _cross_entropy(logits: Tensor, targets: Tensor,
+                   vocab: Optional[int] = None) -> Tensor:
     """Per-position cross-entropy ``logsumexp(logits) - logits[target]``,
-    in f32."""
+    in f32.  Logits narrower than ``vocab`` are this rank's vocab shard:
+    the max, the sum of exps and the target's logit are reduced over the
+    model axis."""
     logits = logits.float()
-    true = logits.gather(-1, targets.long()[..., None])[..., 0]
-    return torch.logsumexp(logits, dim=-1) - true
+    width = logits.shape[-1]
+    if vocab is None or width == vocab:
+        true = logits.gather(-1, targets.long()[..., None])[..., 0]
+        return torch.logsumexp(logits, dim=-1) - true
+    _, lo = split_offset(width, vocab)
+    ctx = current_ctx()
+    top = all_reduce(logits.detach().amax(dim=-1), MODEL, ctx,
+                     op=dist.ReduceOp.MAX)
+    local = targets.long() - lo
+    inside = (local >= 0) & (local < width)
+    true = logits.gather(-1, local.clamp(0, width - 1)[..., None])[..., 0]
+    # one reduce of the stacked (sum of exps, target logit)
+    sums = reduce_from_model(torch.stack(
+        [torch.exp(logits - top[..., None]).sum(dim=-1),
+         true * inside.float()]))
+    return torch.log(sums[0]) + top - sums[1]
+
+
+def _stack_axes(axes: Dict) -> Dict:
+    """A leading layer axis (None: layers are never sharded) on every
+    leaf of an axes tree."""
+    return {k: _stack_axes(v) if isinstance(v, dict) else (None,) + v
+            for k, v in axes.items()}
 
 
 def _requires_grad(tree) -> bool:

@@ -8,9 +8,20 @@ ids into expert slots and gathers their activations (no k-fold copy),
 the experts run as three batched products over (experts, capacity,
 d_model) buffers, and the combine adds each slot's output, weighed by its
 routing probability, back onto its token.  Shared experts (qwen2-moe) add
-a sigmoid-gated SwiGLU MLP.  The reference's mesh path (expert and tensor
-parallelism under ``shard_map``) waits for the LM half of the sharded ``dist/`` (ROADMAP.md
-Queue 1 item 12b-ii).
+a sigmoid-gated SwiGLU MLP.
+
+On a mesh (``use_sharding``), the counterpart of the reference's
+``shard_map`` path: tokens arrive split over the batch axes and
+replicated over ``model``; each rank routes its local tokens with the
+replicated router.  When ``model`` divides the expert count the rank
+holds ``E/m`` experts and serves only the pairs routed to them (expert
+parallelism); otherwise every expert's ``expert_d_ff`` is split (tensor
+parallelism inside every expert).  The shared expert follows its own
+specs.  Either way the combine is ONE reduce over ``model``.  Capacity
+is per data shard (``C_local`` from ``T_local``), and the aux loss is
+each shard's own, averaged over the shards by ``LM.loss``: with data
+parallelism, drops and aux follow the reference's per-shard semantics,
+not the single-device values.
 
 The reference writes a dropped pair to slot ``E * cap`` and an unfilled
 slot's output to token ``T``, one past the end, under ``mode="drop"``;
@@ -27,6 +38,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import copy_to_model, reduce_from_model, split_offset
 from . import layers
 
 Tensor = torch.Tensor
@@ -53,6 +65,15 @@ def init_moe(cfg, dtype, generator, device) -> Dict:
     return p
 
 
+def axes_moe(cfg) -> Dict:
+    p = {"router": (None, None), "w_in": ("experts", None, "ff"),
+         "w_gate": ("experts", None, "ff"), "w_out": ("experts", "ff", None)}
+    if cfg.moe.n_shared_experts:
+        p["shared"] = layers.axes_mlp(True)
+        p["shared_gate"] = (None, None)
+    return p
+
+
 def _capacity(n_tokens: int, cfg) -> int:
     """Slots an expert serves: every pair when T·k <= 4096 (decode steps,
     small prompts: nothing is dropped even if all land on one expert),
@@ -74,20 +95,23 @@ def _route(xt_f32: Tensor, router: Tensor, cfg
 
 
 def _dispatch(xt: Tensor, top_p: Tensor, top_e: Tensor, n_exp: int,
-              cap: int) -> Tuple[Tensor, Tensor, Tensor]:
-    """The (token, choice) pairs into expert slots: → (buf (E, cap, D) of
-    the slots' activations, zero where unfilled; tok_of_slot (E·cap,),
-    T where unfilled; prob_of_slot (E·cap,) f32)."""
+              cap: int, offset: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
+    """The (token, choice) pairs routed to experts ``offset .. offset +
+    n_exp - 1`` into their slots: → (buf (n_exp, cap, D) of the slots'
+    activations, zero where unfilled; tok_of_slot (n_exp·cap,), T where
+    unfilled; prob_of_slot (n_exp·cap,) f32)."""
     t, d = xt.shape
     k = top_e.shape[1]
-    flat_e = top_e.reshape(-1)                                  # (T*k,)
+    flat_e = top_e.reshape(-1) - offset                         # (T*k,)
+    mine = (flat_e >= 0) & (flat_e < n_exp)
+    flat_e = torch.where(mine, flat_e, 0)
     # each pair's position among its expert's pairs, in token order: the
     # scan runs along the innermost dimension of an (E, T*k) one-hot, since
     # torch's scan along the outer dimension of (T*k, E) takes one thread a
     # column (6.9 ms at T*k = 32768, E = 60 on an H100)
-    onehot = F.one_hot(flat_e, n_exp).T.contiguous()
+    onehot = (F.one_hot(flat_e, n_exp) * mine[:, None]).T.contiguous()
     pos = ((torch.cumsum(onehot, dim=1) - onehot) * onehot).sum(dim=0)
-    keep = pos < cap
+    keep = mine & (pos < cap)
     trash = n_exp * cap
     slot = torch.where(keep, flat_e * cap + pos, trash)
 
@@ -127,31 +151,62 @@ def _combine(out_buf: Tensor, tok_of_slot: Tensor, prob_of_slot: Tensor,
 
 
 def _shared_expert(xt: Tensor, xt_f32: Tensor, shared: Dict,
-                   shared_gate: Tensor) -> Tensor:
+                   shared_gate: Tensor, partial: bool = False) -> Tensor:
     """The shared experts' SwiGLU, gated by sigmoid(x · shared_gate): (T,
-    D) f32."""
+    D) f32.  ``partial``: this rank's ``shared_d_ff`` columns, so its
+    part of a sum; the gate, computed whole, enters the model region."""
     h = xt @ shared["w_in"]
     g = xt @ shared["w_gate"]
     h = F.silu(g.float()).to(h.dtype) * h
     sh = (h @ shared["w_out"]).float()
-    return sh * torch.sigmoid(xt_f32 @ shared_gate)
+    gate = torch.sigmoid(xt_f32 @ shared_gate)
+    return sh * (copy_to_model(gate) if partial else gate)
 
 
 def moe_block(params: Dict, cfg, x: Tensor, return_aux: bool = False):
-    """x (B, S, D) → (B, S, D) [, the load-balancing loss (f32 scalar)]."""
+    """x (B, S, D) → (B, S, D) [, the load-balancing loss (f32 scalar)].
+
+    The experts' local shapes say how they are placed: ``w_in`` holding
+    fewer than E experts is this rank's run of them (expert parallel),
+    a narrower ``expert_d_ff`` is this rank's columns of every expert.
+    The parts computed from split weights are partial sums, summed by one
+    reduce; their inputs (the tokens, the routing weights, the shared
+    gate) enter the model region, so that their gradients are summed
+    too."""
     b, s, d = x.shape
     e = cfg.moe
-    xt = x.reshape(b * s, d)
+    t = b * s
+    xt = x.reshape(t, d)
     xt_f32 = xt.float()
     top_p, top_e, probs = _route(xt_f32, params["router"], cfg)
+    n_local, ff_local = params["w_in"].shape[0], params["w_in"].shape[2]
+    _, offset = split_offset(n_local, e.n_experts)
+    split_offset(ff_local, e.expert_d_ff)               # checks the block
+    routed_split = n_local != e.n_experts or ff_local != e.expert_d_ff
+    shared = params.get("shared")
+    shared_split = bool(shared) and shared["w_in"].shape[1] != e.shared_d_ff
+    if shared_split:
+        split_offset(shared["w_in"].shape[1], e.shared_d_ff)
+    # one entry into the model region for everything split
+    xc = copy_to_model(xt) if routed_split or shared_split else xt
+    if routed_split:
+        top_p = copy_to_model(top_p)
     buf, tok_of_slot, prob_of_slot = _dispatch(
-        xt, top_p, top_e, e.n_experts, _capacity(b * s, cfg))
+        xc if routed_split else xt, top_p, top_e, n_local,
+        _capacity(t, cfg), offset)
     out = _combine(_experts(buf, params["w_in"], params["w_gate"],
-                            params["w_out"]), tok_of_slot, prob_of_slot,
-                   b * s)
-    if params.get("shared"):
-        out = out + _shared_expert(xt, xt_f32, params["shared"],
-                                   params["shared_gate"])
+                            params["w_out"]), tok_of_slot, prob_of_slot, t)
+    whole = None
+    if shared_split:
+        sh = _shared_expert(xc, xt_f32, shared, params["shared_gate"],
+                            partial=True)
+        out = out + sh if routed_split else reduce_from_model(sh) + out
+    elif shared:
+        whole = _shared_expert(xt, xt_f32, shared, params["shared_gate"])
+    if routed_split:
+        out = reduce_from_model(out)
+    if whole is not None:
+        out = out + whole
     out = out.to(x.dtype).view(b, s, d)
     if not return_aux:
         return out

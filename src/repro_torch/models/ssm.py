@@ -176,6 +176,19 @@ def mamba2_block(params: Dict[str, Tensor], cfg, x: Tensor) -> Tensor:
 # -- decode (recurrent, O(1) per token) -------------------------------------------
 
 
+def axes_mamba2(cfg) -> Dict:
+    """The reference's logical axes of :func:`init_mamba2`'s leaves."""
+    return {"in_proj": ("fsdp", "ff"), "conv_w": (None, "ff"),
+            "conv_b": ("ff",), "dt_bias": (None,), "a_log": (None,),
+            "d_skip": (None,), "norm": layers.axes_rmsnorm(),
+            "out_proj": ("ff", "fsdp")}
+
+
+def axes_mamba2_state() -> Dict:
+    return {"conv": ("batch", None, "ff"),
+            "ssm": ("batch", None, None, None)}
+
+
 def init_mamba2_state(cfg, batch: int, dtype, device) -> Dict[str, Tensor]:
     """Zeroed {"conv": (B, K-1, C) in the model's type, "ssm": (B, H, N,
     P) f32}."""

@@ -163,6 +163,22 @@ def mlstm_block(params: Dict[str, Tensor], cfg, x: Tensor) -> Tensor:
     return y @ params["down"]
 
 
+def axes_mlstm(cfg) -> Dict:
+    """The reference's logical axes of :func:`init_mlstm`'s leaves."""
+    return {"up_l": ("fsdp", "ff"), "up_r": ("fsdp", "ff"),
+            "conv_w": (None, "ff"), "conv_b": ("ff",),
+            "wq": ("heads", None, None), "wk": ("heads", None, None),
+            "wv": ("heads", None, None),
+            "w_igate": (None, "heads"), "b_igate": ("heads",),
+            "w_fgate": (None, "heads"), "b_fgate": ("heads",),
+            "norm": layers.axes_rmsnorm(), "down": ("ff", "fsdp")}
+
+
+def axes_mlstm_state() -> Dict:
+    return {"conv": ("batch", None, "ff"), "s": ("batch", "heads", None, None),
+            "n": ("batch", "heads", None), "m": ("batch", "heads")}
+
+
 def init_mlstm_state(cfg, batch: int, dtype, device) -> Dict[str, Tensor]:
     """Zeroed {"conv": (B, K-1, d_inner) in the model's type, "s": (B, H,
     hd, hd), "n": (B, H, hd), "m": (B, H), f32}."""
@@ -297,6 +313,19 @@ def slstm_block(params: Dict[str, Tensor], cfg, x: Tensor) -> Tensor:
         carry, h_t = _slstm_cell(params, cfg, xw[:, t], carry)
         hs.append(h_t)
     return _slstm_out(params, cfg, torch.stack(hs, dim=1).to(x.dtype))
+
+
+def axes_slstm(cfg) -> Dict:
+    """The reference's logical axes of :func:`init_slstm`'s leaves (its
+    gate weights replicated)."""
+    return {"w_gates": (None, None), "r_gates": ("heads", None, None),
+            "b_gates": (None,), "norm": layers.axes_rmsnorm(),
+            "up_l": ("fsdp", "ff"), "up_r": ("fsdp", "ff"),
+            "down": ("ff", "fsdp")}
+
+
+def axes_slstm_state() -> Dict:
+    return {k: ("batch", None) for k in "cnhm"}
 
 
 def init_slstm_state(cfg, batch: int, device) -> Dict[str, Tensor]:

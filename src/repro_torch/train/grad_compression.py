@@ -11,8 +11,8 @@ with an error-feedback buffer ``E = G − Ĝ`` carried into the next step.
 Leaves with fewer than two dims, or a side below ``min_dim``, pass through
 raw.  The learning views' ring (:meth:`repro_torch.fivm.Ring.set_model`)
 reuses :func:`compress_leaf`'s factors as an exact IVM delta when ``ΔB``
-has rank ≤ k.  The sharded all-reduce of factors (``compressed_psum``)
-waits for the sharded ``dist/`` (ROADMAP.md Queue 1 item 12b-ii).
+has rank ≤ k.  :func:`compressed_psum` all-reduces data-parallel
+gradients by their factors, over one axis of a ``DeviceMesh``.
 
 ``init_compression`` takes an explicit ``torch.Generator``: the
 reference seeds each leaf's Q₀ with ``hash(path)``, which changes from
@@ -26,6 +26,7 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..dist.sharding import ShardingCtx, all_reduce
 from ..models.weights import params_from_numpy
 from .optimizer import tree_map, unflatten
 
@@ -143,3 +144,30 @@ def compression_ratio(compressed) -> float:
             den += int(torch.Size(shape).numel())
     return num / max(den, 1)
 
+
+
+def compressed_psum(mesh, axis: str, grads, state: CompressionState,
+                    rank: int = 4):
+    """All-reduce data-parallel gradients by all-reducing *factors*: the
+    reference's two-round PowerSGD schedule on ``torch.distributed``
+    collectives over the ``axis`` group of ``mesh``.
+
+    Per matrix leaf, on every rank: ``P̄ = Σ_ranks G_r Q₀``, orthonormalise
+    the reduced ``P̄``, ``Q̄ = mean_ranks G_rᵀ P̄``, ``Ĝ = P̄ Q̄ᵀ``: ``k(n +
+    m)`` values on the wire instead of ``n·m``.  Leaves without a ``Q₀``
+    (``state.q`` None) get a plain mean.  Every rank gets the same Ĝ.
+    ``rank`` is implied by ``Q₀``'s columns; it is kept for the
+    reference's signature."""
+    ctx = ShardingCtx(mesh=mesh)
+    world = ctx.size(axis)
+
+    def one(g, q0):
+        if q0 is None:
+            return all_reduce(g.detach().clone(), axis, ctx) / world
+        gm = g.reshape(_matrix_shape(g)).to(torch.float32)
+        p_bar = all_reduce(gm @ q0.to(device=gm.device), axis, ctx)
+        p_orth = _orthonormalize(p_bar)
+        q_bar = all_reduce(gm.T @ p_orth, axis, ctx) / world
+        return (p_orth @ q_bar.T).reshape(g.shape).to(g.dtype)
+
+    return tree_map(one, grads, state.q)

@@ -7,8 +7,10 @@ updates are pure functions that return new trees; here
 :func:`adamw_update` and :func:`sgdm_update` update the state's tensors
 and the params IN PLACE (the port's convention: a 1.8B-parameter state
 would otherwise be written anew every step) and return them, with the
-reference's values.  The ZeRO-1 sharding axes (``opt_state_axes``) wait
-for the sharded ``dist/`` (ROADMAP.md Queue 1 item 12b-ii).
+reference's values.  :func:`opt_state_axes` gives the state the params'
+logical axes, as the reference does; on a mesh the state holds the same
+local blocks as the params, and :func:`global_norm` sums the split
+leaves' squares over the model axis.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..dist import sharding
 from ..models.weights import params_from_numpy
 
 Tensor = torch.Tensor
@@ -79,26 +82,54 @@ def adamw_init(params) -> OptState:
         m=tree_map(_f32_zeros, params), v=tree_map(_f32_zeros, params))
 
 
-def global_norm(tree) -> Tensor:
-    """sqrt of the sum of every leaf's squares, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+def global_norm(tree, specs=None) -> Tensor:
+    """sqrt of the sum of every leaf's squares, in f32.  With ``specs``
+    (the leaves' PartitionSpecs on the active mesh) the tree holds local
+    blocks: the split leaves' sums are added over the model axis, the
+    replicated ones counted once, so every rank clips as one device
+    would."""
+    squares = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    if specs is None or sharding.current_ctx().tp == 1:
+        return torch.sqrt(sum(squares))
+    split = _split_flags(specs)
+    part = sum(q for q, cut in zip(squares, split) if cut)
+    whole = sum(q for q, cut in zip(squares, split) if not cut)
+    if isinstance(part, Tensor):
+        part = sharding.all_reduce(part.detach().clone(), sharding.MODEL)
+    return torch.sqrt(part + whole)
+
+
+def _split_flags(specs) -> list:
+    """Whether each leaf's spec splits it, in :func:`leaves`' order."""
+    if isinstance(specs, dict):
+        return [f for k in sorted(specs) for f in _split_flags(specs[k])]
+    return [bool(sharding.spec_axes(specs))]
+
+
+def opt_state_axes(param_axes) -> Dict:
+    """Logical axes of :class:`OptState` given the params': the master
+    weights and moments take the params' own (the reference's ZeRO-1
+    falls out of its ``fsdp`` rules, which are off by default)."""
+    return {"step": (), "master": param_axes, "m": param_axes,
+            "v": param_axes}
 
 
 @torch.no_grad()
 def adamw_update(grads, state: OptState, params, *, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1,
-                 grad_clip: Optional[float] = 1.0
+                 grad_clip: Optional[float] = 1.0, specs=None
                  ) -> Tuple[Any, OptState, Dict[str, Tensor]]:
     """One AdamW step → (params, state, {"grad_norm"}): the gradients in
     f32, clipped to a global norm of ``grad_clip``, the moments and
     bias corrections in f32, decoupled weight decay on the master weights,
     the params their cast.  ``state.master``, ``state.m``, ``state.v`` and
     ``params`` are updated in place and returned (``state.step`` is a new
-    tensor); the values are the reference's ``adamw_update``'s."""
+    tensor); the values are the reference's ``adamw_update``'s.  On a
+    mesh every tensor is a local block and ``specs`` their placements
+    (:func:`global_norm`)."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs)
     scale = None
     if grad_clip is not None:
         scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),

@@ -6,6 +6,13 @@ The reference returns a pure function for ``jax.jit``; the port's step
 runs eagerly on the model's device (the card unless the model was made
 with ``device="cpu"``) and updates the state's tensors in place, with
 the reference's values (:mod:`.optimizer`).
+
+Under ``use_sharding`` (``dist.sharding``) the state is each rank's local
+blocks (:func:`init_train_state` draws the whole state, as on one device,
+and keeps the rank's blocks), the step takes its data rows of the global
+batch, the gradients get one mean all-reduce over the batch axes, the
+clip norm sums the split leaves over the model axis, and AdamW runs on
+the local blocks.
 """
 
 from __future__ import annotations
@@ -14,10 +21,17 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..dist.sharding import (P, all_reduce, current_ctx, local_block,
+                             shard_tree)
 from ..models.model import LM
 from . import grad_compression as gc
 from .optimizer import (OptState, adamw_init, adamw_update, cosine_schedule,
                         leaves, tree_map, unflatten)
+
+COMPRESSION_REFUSED = (
+    "gradient compression on a mesh with model > 1 waits for ROADMAP.md "
+    "Queue 1 item 12b-iii: a low-rank sketch of a shard is not a shard of "
+    "the sketch")
 
 Tensor = torch.Tensor
 
@@ -30,10 +44,60 @@ class TrainState(NamedTuple):
 
 def init_train_state(model: LM, generator: torch.Generator) -> TrainState:
     """Params drawn from ``generator`` (:meth:`LM.init`), made leaves that
-    require grad, and their AdamW state."""
+    require grad, and their AdamW state.  Under ``use_sharding``: the
+    whole params drawn as on one device, then this rank's blocks of them
+    (:meth:`LM.param_specs`), so that a sharded run starts bit for bit
+    from the single-device params."""
     params = model.init(generator)
+    if current_ctx().mesh is not None:
+        params = shard_tree(params, model.param_specs())
     return TrainState(params=require_grad(params), opt=adamw_init(params),
                       rng=generator)
+
+
+def train_state_specs(model: LM) -> TrainState:
+    """The placement of every leaf of a :class:`TrainState` on the active
+    mesh: the params' specs for the params, master weights and moments
+    (the reference's ``opt_state_axes``), replicated step and generator."""
+    specs = model.param_specs()
+    return TrainState(params=specs, opt=OptState(P(), specs, specs, specs),
+                      rng=P())
+
+
+def data_rows(batch: Dict, device=None) -> Dict:
+    """This rank's rows of a global batch (its coordinate along the batch
+    axes of the active mesh; every row without one), as tensors."""
+    ctx = current_ctx()
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    parts = ctx.size(ctx.batch_axes)
+    if parts == 1:
+        return batch
+    n = next(iter(batch.values())).shape[0]
+    if n % parts:
+        raise ValueError(f"a global batch of {n} rows does not split over "
+                         f"{parts} data ranks")
+    spec = P(ctx.batch_axes)
+    return {k: local_block(v, spec, ctx) for k, v in batch.items()}
+
+
+def mean_over_data(grads):
+    """The gradients' mean over the data ranks: one all-reduce of each
+    dtype's leaves flattened into one buffer (each rank's gradient is its
+    shard's term, :meth:`LM.loss`)."""
+    ctx = current_ctx()
+    parts = ctx.size(ctx.batch_axes)
+    if parts == 1:
+        return grads
+    flat = leaves(grads)
+    out = list(flat)
+    for dtype in sorted({g.dtype for g in flat}, key=str):
+        idx = [i for i, g in enumerate(flat) if g.dtype == dtype]
+        buf = torch.cat([flat[i].reshape(-1) for i in idx])
+        all_reduce(buf, ctx.batch_axes, ctx)
+        buf /= parts
+        for i, piece in zip(idx, buf.split([flat[i].numel() for i in idx])):
+            out[i] = piece.view_as(flat[i])
+    return unflatten(grads, out)
 
 
 def require_grad(params):
@@ -57,8 +121,19 @@ def make_train_step(model: LM, *, lr: float = 3e-4, warmup: int = 100,
     rank-k approximation (the reference's state is not carried from step
     to step, and neither is it here).  The params' leaves must require
     grad (:func:`init_train_state`, :func:`require_grad`); the step
-    updates them and the optimizer state in place."""
+    updates them and the optimizer state in place.
+
+    Under ``use_sharding`` (the state from :func:`init_train_state` in
+    the same context) ``batch`` is the global batch: the step takes its
+    data rows, and the loss it reports is the global batch's.
+    ``compression`` with a model axis wider than 1 raises (ROADMAP.md
+    Queue 1 item 12b-iii); on a data-only mesh it compresses the
+    averaged gradients, as the reference's step does."""
     schedule = cosine_schedule(lr, warmup, total_steps)
+    ctx = current_ctx()
+    if compression is not None and ctx.tp > 1:
+        raise NotImplementedError(COMPRESSION_REFUSED)
+    specs = model.param_specs() if ctx.mesh is not None else None
 
     def single_grads(params, batch) -> Tuple[Tensor, Any]:
         loss, _ = model.loss(params, batch)
@@ -92,17 +167,20 @@ def make_train_step(model: LM, *, lr: float = 3e-4, warmup: int = 100,
 
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict[str, Tensor]]:
+        if specs is not None:
+            batch = data_rows(batch, model.device)
         if microbatches > 1:
             loss, grads = accum_grads(state.params, batch)
         else:
             loss, grads = single_grads(state.params, batch)
+        grads = mean_over_data(grads)
         if compression is not None:
             compressed, _ = gc.compress_tree(grads, compression)
             grads = gc.decompress_tree(compressed)
         step_lr = schedule(state.opt.step + 1)
         params, opt, metrics = adamw_update(
             grads, state.opt, state.params, lr=step_lr,
-            weight_decay=weight_decay, grad_clip=grad_clip)
+            weight_decay=weight_decay, grad_clip=grad_clip, specs=specs)
         return (TrainState(params=params, opt=opt, rng=state.rng),
                 {"loss": loss, "lr": step_lr, **metrics})
 

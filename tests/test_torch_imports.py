@@ -45,7 +45,7 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.codegen",
            "repro_torch.apps.fivm_learning", "repro_torch.dist",
            "repro_torch.dist.checkpoint", "repro_torch.dist.fault_tolerance",
            "repro_torch.launch.train", "repro_torch.dist.ivm_shard",
-           "repro_torch.launch.mesh"]
+           "repro_torch.launch.mesh", "repro_torch.dist.sharding"]
 
 PROBE = """
 import importlib, sys

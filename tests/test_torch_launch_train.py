@@ -6,7 +6,7 @@ test_train_driver_runs_supervisor`` and ``tests/test_system.py::
 test_lm_train_checkpoint_restart_resume``; the training driver's losses
 against the reference's from the same initial state, and the same
 restarts, events and step sequence under the same injected failure; the
-command line's resume; the mesh it refuses.
+command line's resume; what a mesh still refuses.
 """
 
 import contextlib
@@ -205,11 +205,18 @@ def test_command_line_resumes_from_its_checkpoint(tmp_path):
 
 
 def test_a_mesh_is_refused_with_item_12b():
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        train_mod.main(["--mesh", "local", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    """What a mesh still refuses names ROADMAP.md's item 12b-iii: a
+    recurrent family on a model axis wider than 1 (the command line
+    refuses before joining a world) and gradient compression there."""
+    from repro_torch.dist.sharding import MeshShape
+    with pytest.raises(NotImplementedError, match="item 12b-iii"):
+        train_mod.main(["--mesh", "local", "--model-parallel", "2",
+                        "--arch", "zamba2-1.2b", "--reduced", "--device",
+                        "cpu"])
+    mesh = MeshShape((1, 2), ("data", "model"))
+    with pytest.raises(NotImplementedError, match="item 12b-iii"):
         train_mod.train(_cut(train_mod), steps=1, batch=2, seq=8,
-                        mesh=object(), device="cpu")
+                        mesh=mesh, compression_rank=2)
 
 
 def test_driver_runs_on_the_card_by_default():

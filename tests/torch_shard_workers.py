@@ -100,16 +100,18 @@ def one_rank_mesh(tmp_dir):
         dist.destroy_process_group()
 
 
-def spawn_world(world: int, tmp_dir, timeout: float = 300.0) -> dict:
-    """Run :func:`run_rank` on ``world`` spawned ranks; their results by
-    rank.  Raises if a rank fails, or does not report within
-    ``timeout`` seconds (the ranks are then terminated)."""
+def spawn_world(world: int, tmp_dir, timeout: float = 300.0,
+                target=None, extra=()) -> dict:
+    """Run ``target(rank, world, store, queue, *extra)`` (default
+    :func:`run_rank`) on ``world`` spawned ranks; their results by rank.
+    Raises if a rank fails, or does not report within ``timeout`` seconds
+    (the ranks are then terminated)."""
     import multiprocessing as mp
     import queue as queue_mod
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=run_rank,
-                         args=(r, world, f"{tmp_dir}/store", q))
+    procs = [ctx.Process(target=target or run_rank,
+                         args=(r, world, f"{tmp_dir}/store", q) + tuple(extra))
              for r in range(world)]
     for p in procs:
         p.start()

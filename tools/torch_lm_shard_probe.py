@@ -1,0 +1,82 @@
+"""Phase 22 of ``chip_smoke.py`` alone, with phase 3's checks of the flash
+kernels at its per-rank shapes: a quicker run than the whole script when
+only the sharded model path changed.
+
+    python3 tools/torch_lm_shard_probe.py            # on the H100
+    python3 tools/torch_lm_shard_probe.py --rehearse # on the CPU, reduced
+
+Builds every kernel (as the script does), holds the forward with LSE and
+K1 at 22a's and 22b's per-rank shapes and the forward at 22c's against
+their plain versions, timed beside SDPA, then runs phase 22's four gloo
+ranks.  ``--rehearse`` skips the build and the kernel checks and runs
+phase 22's drives at the reduced widths on the CPU.  Prints the card's
+name and power limit first; exits non-zero if a check fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))   # tests/flash_bounds.py
+
+import chip_smoke as cs  # noqa: E402
+
+
+def kernel_checks() -> None:
+    import torch
+    kind = torch.cuda.get_device_name(0)
+    _, flops_peak, bytes_peak, bf16_peak, tf32_peak = cs.peaks(kind)
+    peaks_ = (bytes_peak, flops_peak, bf16_peak, tf32_peak)
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(3)
+    for case in cs.K1_CASES:
+        label, b, s, h, kvh, hd, window, dt, causal, prefix = case
+        if not label.startswith("shard_"):
+            continue
+        dtype = getattr(torch, dt)
+        q, dout = (torch.randn(b, s, h, hd, device=cs.DEVICE,
+                               generator=gen).to(dtype) for _ in range(2))
+        k, v = (torch.randn(b, s, kvh, hd, device=cs.DEVICE,
+                            generator=gen).to(dtype) for _ in range(2))
+        cs.check_flash_bwd(q, k, v, dout, causal, window, peaks_, label,
+                           prefix=prefix)
+    b, s = cs.LM_SHARD_MOE
+    q = torch.randn(b, s, 16, 128, device=cs.DEVICE, generator=gen)
+    k, v = (torch.randn(b, s, 1, 128, device=cs.DEVICE, generator=gen)
+            for _ in range(2))
+    cs.check_flash_attention(q, k, v, True, None, peaks_,
+                             "shard_qwen3_forward_f32")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rehearse", action="store_true")
+    args = ap.parse_args()
+    if args.rehearse:
+        cs.phase_lm_shard(rehearse=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_lm_shard_probe: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import cuda_build
+    cs.log(cs.nvidia_smi())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cuda_build.build_all()
+    cs.log(f"build: {time.perf_counter() - t0:.2f} s")
+    kernel_checks()
+    torch.cuda.empty_cache()
+    cs.phase_lm_shard()
+    cs.log(cs.nvidia_smi())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
