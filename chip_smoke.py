@@ -300,6 +300,23 @@ CUDA toolkit.  Phases, each of which raises on failure:
        two ranks: every leaf bit for bit, then one step;
     e. ``launch/train.py --mesh local --model-parallel 2`` on the four
        ranks, custom-10m, 3 steps.
+23. the roofline walk (``repro_torch.roofline``: every aten op's FLOPs by
+    ``torch.utils.flop_counter``'s formulas and bytes by storage, each
+    kernel entry by its own formula) and the dry-run:
+    a. phase 19a's danube bf16 training step (8 x 4096, 2 microbatches,
+       remat "block") after a warm-up and ROOF_TRAIN_STEPS timed steps,
+       walked on the card and on meta: equal FLOPs, bytes and kernel
+       entries; the walk's bound on one H100 (data sheet), the measured
+       step, their ratio and model_flops_estimate's MFU;
+    b. phase 10's decode step (8 sequences, the 4096-slot ring wrapped)
+       the same way, ROOF_DECODE_STEPS timed;
+    c. a's walked peak (plus what the card held beside the step's
+       arguments) within ROOF_PEAK_TOL of max_memory_allocated;
+    d. ``python -m repro_torch.launch.dryrun`` on ROOF_CELLS (danube and
+       qwen3-moe train_4k on 16x16, command-r-plus decode_32k on
+       2x16x16, zamba2 long_500k refused), each in a process of its own
+       on the CPU, started first: per-chip memory, the three roofline
+       terms and the bottleneck (predictions from the data sheet).
 
 Every launch count is set to 0 just before a phase drives its engines and
 read just after (in each rank, for phases 21b's and 22's spawned ranks);
@@ -310,7 +327,8 @@ The last two lines of standard output are the ``{"kernels": [...]}``
 record (``rank_update_batched``'s with its launches over phases 4-9,
 12-16 and 21 by K = T*k; the rank-update entries' by M's columns p, and the
 dense entries' on the skinny tile by K; the forward with LSE and K1 at
-phase 19's danube shape) and ``{"ok": true, "device":
+phase 19's danube shape; phase 23's flash launches among the rest) and
+``{"ok": true, "device":
 {...}}``.  Without CUDA,
 or outside a checkout, the script prints no result and exits non-zero.
 """
@@ -6863,6 +6881,281 @@ def phase_lm_shard(rehearse: bool = False) -> dict:
     return rec
 
 
+# -- phase 23: the roofline walk and the dry-run --------------------------------
+
+# 23d: the dry-run's cells, each the CLI in a process of its own on the CPU
+# (arch, shape, --mesh, the status it must report)
+ROOF_CELLS = (("h2o-danube-1.8b", "train_4k", "single", "ok"),
+              ("qwen3-moe-235b-a22b", "train_4k", "single", "ok"),
+              ("command-r-plus-104b", "decode_32k", "multi", "ok"),
+              ("zamba2-1.2b", "long_500k", "single", "refused"))
+ROOF_TIMEOUT_S = 300
+# 23a: phase 19a's training step timed after a warm-up; 23b: phase 10's
+# decode step, ROOF_DECODE_STEPS timed
+ROOF_TRAIN_STEPS, ROOF_DECODE_STEPS = 2, 8
+# 23c: the walked peak against torch.cuda.max_memory_allocated, relative
+ROOF_PEAK_TOL = 0.15
+
+
+def roof_dryrun_start(directory: Path) -> list:
+    """23d: the dry-run CLI on every ROOF_CELLS cell, each in a process of
+    its own on the CPU (no card), all started together."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    return [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--results", str(directory),
+         "--force"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for arch, shape, mesh, _ in ROOF_CELLS]
+
+
+def roof_dryrun_finish(procs: list, directory: Path) -> list:
+    """23d: each cell's JSON (its status must be ROOF_CELLS'): per-chip
+    memory, the three roofline terms and the bottleneck."""
+    out = []
+    for (arch, shape, mesh, status), proc in zip(ROOF_CELLS, procs):
+        try:
+            text, _ = proc.communicate(timeout=ROOF_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"dry-run {arch} {shape}: no result in "
+                                 f"{ROOF_TIMEOUT_S} s") from None
+        if proc.returncode:
+            raise AssertionError(f"dry-run {arch} {shape} {mesh}: exit "
+                                 f"{proc.returncode}\n{text[-3000:]}")
+        name = "2x16x16" if mesh == "multi" else "16x16"
+        with open(directory / f"{arch}__{shape}__{name}__baseline.json") \
+                as f:
+            res = json.load(f)
+        if res["status"] != status:
+            raise AssertionError(f"dry-run {arch} {shape} {name}: "
+                                 f"{res['status']}, not {status}: {res}")
+        rec = {"arch": arch, "shape": shape, "mesh": name,
+               "status": res["status"]}
+        if status == "ok":
+            r = res["roofline"]
+            rec.update(
+                walk_s=res["walk_s"],
+                memory_per_chip_gib={k: v / 2 ** 30 for k, v in
+                                     res["memory_analysis"].items()},
+                t_compute_ms=1e3 * r["t_compute"],
+                t_memory_ms=1e3 * r["t_memory"],
+                t_collective_ms=1e3 * r["t_collective"],
+                bottleneck=r["bottleneck"],
+                roofline_fraction=r["roofline_fraction"],
+                entries=res["entries"])
+        else:
+            rec["reason"] = res["reason"]
+        log(f"roofline dry-run (a prediction from the H100 data sheet, "
+            f"not measured): {json.dumps(rec)}")
+        out.append(rec)
+    return out
+
+
+def roof_walk(fn, args):
+    """(walk, output) of one call of ``fn`` under a roofline walk whose
+    arguments are ``args``."""
+    from repro_torch.roofline.op_walk import Walk
+    walk = Walk(args)
+    with walk:
+        out = fn()
+    walk.finish(out)
+    return walk, out
+
+
+def roof_same(label: str, card, meta) -> dict:
+    """The card's walk against meta's: equal FLOPs, bytes and kernel
+    entries (calls, FLOPs and bytes each); the aten ops that differ are
+    named when they do not."""
+    a, b = card.summary(), meta.summary()
+    diff = {k: (a[k], b[k]) for k in ("flops", "bytes", "entries")
+            if a[k] != b[k]}
+    if diff:
+        ops = {k: (card.by_op.get(k), meta.by_op.get(k))
+               for k in sorted(set(card.by_op) | set(meta.by_op))
+               if card.by_op.get(k) != meta.by_op.get(k)}
+        raise AssertionError(f"{label}: the card's walk {diff} differs "
+                             f"from meta's; by aten op {ops}")
+    return {"flops": a["flops"], "bytes": a["bytes"],
+            "entries": a["entries"], "aten_ops": (a["ops"], b["ops"])}
+
+
+def roof_report(walk, cfg, shape, label: str, step_ms: float) -> dict:
+    """The walk's roofline on one H100 (data sheet), the measured step
+    beside its bound, and the model FLOPs' share of the bf16 peak."""
+    from repro_torch.roofline import H100_SXM, analyze_step
+    from repro_torch.roofline.analysis import (model_bytes_estimate,
+                                               model_flops_estimate)
+    flops = model_flops_estimate(cfg, shape)
+    rep = analyze_step(walk, arch=cfg.name, shape=label, mesh_name="1",
+                       chips=1, model_flops=flops,
+                       model_bytes=model_bytes_estimate(cfg, shape))
+    return {"t_compute_ms": 1e3 * rep.t_compute,
+            "t_memory_ms": 1e3 * rep.t_memory, "bottleneck": rep.bottleneck,
+            "t_bound_ms": 1e3 * rep.t_bound, "step_ms": step_ms,
+            "step_over_bound": step_ms / (1e3 * rep.t_bound),
+            "model_flops": flops,
+            "mfu": flops / (step_ms / 1e3) / H100_SXM.peak_flops_bf16,
+            "useful_flops_ratio": rep.useful_flops_ratio,
+            "memory_gib": {k: v / 2 ** 30
+                           for k, v in rep.memory_per_chip.items()}}
+
+
+def phase_roofline() -> dict:
+    """Phase 23: the roofline walk (``repro_torch.roofline``) of the
+    card's steps against meta's, and the dry-run: a. phase 19a's danube
+    bf16 training step (8 x 4096, 2 microbatches) walked on the card
+    and on meta: equal FLOPs, bytes and kernel entries; the walk's bound,
+    the measured step, their ratio, model_flops_estimate's MFU; b. phase
+    10's decode step (8 sequences, the 4096-slot ring wrapped) likewise;
+    c. a's walked peak against max_memory_allocated (within
+    ROOF_PEAK_TOL); d. the dry-run CLI on ROOF_CELLS in processes of
+    their own on the CPU, started first."""
+    import tempfile
+    label = "roofline"
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = roof_dryrun_start(Path(tmp))
+        try:
+            rec = roof_steps()
+        except BaseException:
+            for proc in procs:
+                proc.kill()
+                proc.communicate()
+            raise
+        cells = roof_dryrun_finish(procs, Path(tmp))
+    rec.update(phase=label, dryrun=cells,
+               seconds=time.perf_counter() - t_phase)
+    log("main " + json.dumps(rec))
+    log(f"phase 23: {rec['seconds']:.1f} s")
+    return rec
+
+
+def roof_steps() -> dict:
+    """Phase 23a-c on the card (see :func:`phase_roofline`)."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import LM
+    from repro_torch.serve.engine import make_serve_step
+    from repro_torch.train import (TrainState, adamw_init, make_train_step,
+                                   require_grad)
+    label = "roofline"
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_launches()
+    # a. the training step
+    model, params = family_lm(SERVE_ARCH, seed=61)
+    cfg = model.cfg
+    state = TrainState(require_grad(params), adamw_init(params),
+                       torch.Generator(device=DEVICE).manual_seed(62))
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+             family_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 63).items()}
+    step = make_train_step(model, lr=TRAIN_LR, warmup=1, total_steps=100,
+                           microbatches=TRAIN_MICRO)
+    step(state, batch)
+    times = []
+    for _ in range(ROOF_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    card, out = roof_walk(lambda: step(state, batch), (state, batch))
+    torch.cuda.synchronize()
+    walked_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not math.isfinite(float(out[1]["loss"])):
+        raise AssertionError(f"{label}: the walked step's loss is not "
+                             "finite")
+    del out
+    # c. the walked peak, plus what the card held beside the step's
+    # arguments, against the allocator's peak
+    walked_peak = card.peak_bytes + (base - card.argument_bytes)
+    peak_rel = abs(walked_peak - peak) / peak
+    mmodel = LM(cfg, device="meta")
+    mparams = mmodel.init(None)
+    mstate = TrainState(require_grad(mparams), adamw_init(mparams),
+                        torch.Generator())
+    mbatch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in batch.items()}
+    mstep = make_train_step(mmodel, lr=TRAIN_LR, warmup=1, total_steps=100,
+                            microbatches=TRAIN_MICRO)
+    t0 = time.perf_counter()
+    meta, _ = roof_walk(lambda: mstep(mstate, mbatch), (mstate, mbatch))
+    meta_s = time.perf_counter() - t0
+    train = {"shape": {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                       "microbatches": TRAIN_MICRO, "remat": cfg.remat},
+             **roof_same(f"{label} train", card, meta),
+             **roof_report(card, cfg, ShapeConfig(
+                 "train", TRAIN_SEQ, TRAIN_BATCH, "train"), "phase19a",
+                 statistics.median(times)),
+             "step_ms_all": times, "walked_step_ms": walked_ms,
+             "meta_walk_s": meta_s,
+             "peak": {"walked_gib": walked_peak / 2 ** 30,
+                      "max_memory_allocated_gib": peak / 2 ** 30,
+                      "base_gib": base / 2 ** 30,
+                      "argument_gib": card.argument_bytes / 2 ** 30,
+                      "rel": peak_rel}}
+    log(f"roofline 23a (train): {json.dumps(train)}")
+    del state, batch, mstate, mparams, card, meta
+    gc.collect()
+    torch.cuda.empty_cache()
+    if peak_rel > ROOF_PEAK_TOL:
+        raise AssertionError(f"{label}: the walked peak {walked_peak} is "
+                             f"{peak_rel:.3f} off max_memory_allocated "
+                             f"{peak} (> {ROOF_PEAK_TOL})")
+    # b. the decode step (its params no longer require grad)
+    for leaf in (t for _, t in flat_params(params)):
+        leaf.requires_grad_(False)
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW)
+    token = torch.ones((SERVE_BATCH, 1), dtype=torch.int32, device=DEVICE)
+    serve = make_serve_step(model)
+    pos = SERVE_PROMPT
+    times = []
+    with torch.no_grad():
+        serve(params, cache, token, pos)
+        for i in range(ROOF_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = serve(params, cache, token, pos + 1 + i)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        check_finite(f"{label} decode", logits)
+        card, _ = roof_walk(lambda: serve(params, cache, token, pos),
+                            (params, cache, token))
+        mcache = mmodel.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW)
+        mparams = mmodel.init(None)
+        mtoken = torch.empty((SERVE_BATCH, 1), dtype=torch.int32,
+                             device="meta")
+        meta, _ = roof_walk(lambda: make_serve_step(mmodel)(
+            mparams, mcache, mtoken, pos), (mparams, mcache, mtoken))
+    decode = {"shape": {"batch": SERVE_BATCH,
+                        "cache_slots": cache["kv"]["k"].shape[2],
+                        "pos": pos},
+              **roof_same(f"{label} decode", card, meta),
+              **roof_report(card, cfg, ShapeConfig(
+                  "decode", SERVE_PROMPT, SERVE_BATCH, "decode"),
+                  "phase10_decode", statistics.median(times)),
+              "step_ms_all": times}
+    log(f"roofline 23b (decode): {json.dumps(decode)}")
+    got = launches()
+    n_train = ROOF_TRAIN_STEPS + 2          # warm-up, timed, walked
+    n_att = cfg.n_layers * TRAIN_MICRO * n_train
+    check_launches(label, got, {
+        "flash_attention_fwd_lse": 2 * n_att, "flash_attention_bwd": n_att,
+        "flash_decode": cfg.n_layers * (ROOF_DECODE_STEPS + 2)})
+    del model, params, cache
+    return {"train": train, "decode": decode, "launches": got}
+
+
 def main() -> int:
     try:
         import torch
@@ -6996,6 +7289,10 @@ def main() -> int:
 
     # 22. the LM half of the sharded dist/: four gloo ranks on the card
     phases.append(phase_lm_shard())
+    torch.cuda.empty_cache()
+
+    # 23. the roofline walk on the card and on meta; the dry-run
+    phases.append(phase_roofline())
     torch.cuda.empty_cache()
 
     # the kernels record: per entry, the main path's launches and the

@@ -8,8 +8,7 @@ with a short motif copied later in the sequence; a vlm batch carries
 ``patches`` (B, n_patches, frontend_dim) before its text, an audio batch
 ``frames`` (B, S, frontend_dim) with masked-prediction targets.
 :class:`TokenPipeline` prefetches them on a thread for a training loop.
-The reference's dry-run specs (``make_batch_specs``) wait for the
-dry-run (ROADMAP.md Queue 1 item 14b).
+:func:`make_batch_specs` gives the dry-run meta stand-ins of every input.
 """
 
 from __future__ import annotations
@@ -74,6 +73,27 @@ def synth_batch(cfg: ModelConfig, shape: ShapeConfig, *, seed: int = 0,
             "mask": mask,
         }
     return {"tokens": synth_tokens(rng, b, s, cfg.vocab)}
+
+
+def make_batch_specs(cfg: ModelConfig, shape: ShapeConfig,
+                     dtype=torch.int32) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for every model input of the global batch
+    (the dry-run's pattern): the reference's keys, shapes and dtypes."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(shape_, dt):
+        return torch.empty(shape_, dtype=dt, device="meta")
+
+    if cfg.family == "vlm":
+        text_len = max(16, s - cfg.n_patches)
+        return {"patches": spec((b, cfg.n_patches, cfg.frontend_dim),
+                                torch.float32),
+                "tokens": spec((b, text_len), dtype)}
+    if cfg.family == "audio":
+        return {"frames": spec((b, s, cfg.frontend_dim), torch.float32),
+                "targets": spec((b, s), dtype),
+                "mask": spec((b, s), torch.bool)}
+    return {"tokens": spec((b, s), dtype)}
 
 
 class TokenPipeline:

@@ -54,6 +54,7 @@ from ..core.compiler import Trigger
 from ..core.factored import ColSlice, HStack
 from ..core.program import Program
 from ..kernels import ops
+from ..roofline import kernel_work
 
 Env = Dict[str, torch.Tensor]
 R, REP, T = "R", "Rep", "T"
@@ -134,27 +135,29 @@ class Shards:
                         and dist.get_backend(self.group) == "gloo")
 
     # -- collectives ------------------------------------------------------
-    def _count(self, kind: str, nbytes: float) -> None:
-        BYTES[kind] += int(nbytes)
+    def _count(self, kind: str, operand: torch.Tensor) -> None:
+        """Count one collective of ``operand`` (this rank's block): its
+        ring-counted wire bytes, also to an active roofline walk."""
+        nbytes = kernel_work.collective(kind, self.axis, self.world,
+                                        operand)
+        BYTES[kind] += nbytes
         BYTES["calls"] += 1
         if self._staged:
-            BYTES["host_staged"] += int(nbytes)
+            BYTES["host_staged"] += nbytes
 
     def all_gather(self, local: torch.Tensor) -> torch.Tensor:
         """The row blocks of every rank stacked in rank order."""
         local = local.contiguous()
         parts = [torch.empty_like(local) for _ in range(self.world)]
         dist.all_gather(parts, local, group=self.group)
-        self._count("all_gather", (self.world - 1) * local.numel()
-                    * local.element_size())
+        self._count("all_gather", local)
         return torch.cat(parts, dim=0)
 
     def all_reduce(self, t: torch.Tensor,
                    op=dist.ReduceOp.SUM) -> torch.Tensor:
         t = t.contiguous()
         dist.all_reduce(t, op=op, group=self.group)
-        self._count("all_reduce", 2 * (self.world - 1) / self.world
-                    * t.numel() * t.element_size())
+        self._count("all_reduce", t)
         return t
 
     def any_rank(self, flag: bool) -> bool:

@@ -29,7 +29,8 @@ Every rank must issue the same collectives in the same order (the remat
 recompute re-runs the forward's reduces inside the backward, which is
 correct only under that invariant).  An axis of size 1 issues none.
 Every collective adds the bytes a rank puts on the wire, ring counted, to
-:data:`BYTES`.
+:data:`BYTES`, and reports itself to an active roofline walk
+(:mod:`repro_torch.roofline.op_walk`).
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+
+from ..roofline import kernel_work
 
 AxisName = Union[str, None]
 # one logical name may map to several mesh axes (e.g. batch → (pod, data))
@@ -418,9 +421,11 @@ def gather_tree(local_tree: Any, specs: Any,
 # -- collectives ------------------------------------------------------------
 
 
-def _count(kind: str, axis: str, nbytes: float, t: torch.Tensor,
+def _count(kind: str, axis: str, world: int, t: torch.Tensor,
            group) -> None:
-    nbytes = int(nbytes)
+    """Count one collective of ``t`` (the operand: a rank's block) over
+    the ``world`` ranks of ``axis``."""
+    nbytes = kernel_work.collective(kind, axis, world, t)
     BYTES[kind] += nbytes
     BYTES[f"on_{axis}"] = BYTES.get(f"on_{axis}", 0) + nbytes
     BYTES["calls"] += 1
@@ -441,9 +446,7 @@ def all_reduce(t: torch.Tensor, axes: Union[str, Sequence[str]],
             continue
         group = ctx.mesh.get_group(axis)
         dist.all_reduce(t, op=op, group=group)
-        _count("all_reduce", axis,
-               2 * (world - 1) / world * t.numel() * t.element_size(), t,
-               group)
+        _count("all_reduce", axis, world, t, group)
     return t
 
 
@@ -454,8 +457,7 @@ def _all_gather(x: torch.Tensor, dim: int, axis: str,
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(world)]
     dist.all_gather(parts, x, group=group)
-    _count("all_gather", axis, (world - 1) * x.numel() * x.element_size(),
-           x, group)
+    _count("all_gather", axis, world, x, group)
     return torch.cat(parts, dim=dim)
 
 

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from ..roofline import kernel_work as work
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0,
                             "flash_attention_fwd_lse": 0,
@@ -346,21 +347,44 @@ def bwd_splits(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
     return 0 if made is None else made[1]
 
 
+def meta_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = True, window: Optional[int] = None,
+                 prefix_len: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_fwd_lse` on meta tensors: (out, lse) of the
+    right shapes and types, nothing computed."""
+    b, s, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+def meta_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
+             causal: bool = True, window: Optional[int] = None,
+             prefix_len: int = 0
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_bwd` on meta tensors: (dq, dk, dv)."""
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention with a backward: ``forward`` computes (out, lse) with
     ``fwd`` and saves q, k, v, out and lse; ``backward`` makes the upstream
     gradient contiguous and hands it with them to ``bwd``.  The pair is
     :func:`flash_attention_fwd_lse` and :func:`flash_attention_bwd` on the
-    card, or the plain versions (``ref.flash_attention_lse``,
-    ``ref.flash_attention_bwd``), which the CPU tests run through this very
-    Function.  Differentiable once: a second derivative
+    card, :func:`meta_fwd_lse` and :func:`meta_bwd` on meta, or the plain
+    versions (``ref.flash_attention_lse``, ``ref.flash_attention_bwd``),
+    which the CPU tests run through this very Function.  Each call of the
+    pair runs as a kernel entry (``flash_attention_fwd_lse``,
+    ``flash_attention_bwd``: :func:`~repro_torch.roofline.kernel_work.
+    entry`).  Differentiable once: a second derivative
     (``create_graph=True``) raises instead of cutting the graph."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int],
                 prefix_len: int, fwd: Callable, bwd: Callable):
         opts = dict(causal=causal, window=window, prefix_len=prefix_len)
-        out, lse = fwd(q, k, v, **opts)
+        with work.entry("flash_attention_fwd_lse", work.flash_attention,
+                        q, k, v, lse=True, **opts):
+            out, lse = fwd(q, k, v, **opts)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts, ctx.bwd = opts, bwd
         return out
@@ -369,6 +393,8 @@ class FlashAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = ctx.bwd(q, k, v, out, dout.contiguous(), lse,
-                             **ctx.opts)
+        dout = dout.contiguous()
+        with work.entry("flash_attention_bwd", work.flash_attention_bwd,
+                        q, k, v, **ctx.opts):
+            dq, dk, dv = ctx.bwd(q, k, v, out, dout, lse, **ctx.opts)
         return dq, dk, dv, None, None, None, None, None

@@ -1,13 +1,17 @@
 """Public kernel ops, dispatched by the device of their tensors.
 
-A CPU tensor takes the plain version in :mod:`.ref`; any other tensor
-takes the CUDA kernel (:mod:`.rank_update`, :mod:`.rank_update_rows`,
-:mod:`.dual_matmul`, :mod:`.flash_attention`, :mod:`.flash_decode`,
-:mod:`.select_commit`), which launches or raises.  The update ops work in
-place on ``m`` and return it, except :func:`rank_update_batched_out`, which
-returns a new tensor.  The CUDA kernels mask ragged edges
-themselves and take row indices directly, so no block picking, slab plan
-or ragged fallback is needed here.
+A CPU tensor takes the plain version in :mod:`.ref`; a meta tensor gets
+outputs of the right shape and type and nothing else (the dry-run's
+walk); any other tensor takes the CUDA kernel (:mod:`.rank_update`,
+:mod:`.rank_update_rows`, :mod:`.dual_matmul`, :mod:`.flash_attention`,
+:mod:`.flash_decode`, :mod:`.select_commit`), which launches or raises.
+Each entry runs in :func:`~repro_torch.roofline.kernel_work.entry`:
+under a walk (:mod:`repro_torch.roofline.op_walk`) it counts its own
+FLOPs and bytes by formula and hides the ops inside, whichever branch
+runs.  The update ops work in place on ``m`` and return it, except
+:func:`rank_update_batched_out`, which returns a new tensor.  The CUDA
+kernels mask ragged edges themselves and take row indices directly, so
+no block picking, slab plan or ragged fallback is needed here.
 """
 
 from __future__ import annotations
@@ -23,15 +27,23 @@ from . import rank_update as _cuda
 from . import rank_update_rows as _cuda_rows
 from . import ref
 from . import select_commit as _cuda_select
+from ..roofline import kernel_work as work
 from .rank_update_rows import RowSet
+
+
+def _meta(x: torch.Tensor) -> bool:
+    return x.device.type == "meta"
 
 
 def rank_update(m: torch.Tensor, u: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
     """``m += u @ v.T`` in place — one rank-k view update."""
-    if m.device.type == "cpu":
-        return m.copy_(ref.rank_update(m, u, v))
-    return _cuda.rank_update(m, u, v)
+    with work.entry("rank_update", work.rank_update, m, u, v):
+        if m.device.type == "cpu":
+            return m.copy_(ref.rank_update(m, u, v))
+        if _meta(m):
+            return m
+        return _cuda.rank_update(m, u, v)
 
 
 def rank_update_batched(m: torch.Tensor, u: torch.Tensor,
@@ -45,9 +57,12 @@ def rank_update_batched(m: torch.Tensor, u: torch.Tensor,
     if u.dim() == 2:
         u = u[None]
         v = v[None]
-    if m.device.type == "cpu":
-        return m.copy_(ref.rank_update_batched(m, u, v))
-    return _cuda.rank_update_batched(m, u, v)
+    with work.entry("rank_update_batched", work.rank_update, m, u, v):
+        if m.device.type == "cpu":
+            return m.copy_(ref.rank_update_batched(m, u, v))
+        if _meta(m):
+            return m
+        return _cuda.rank_update_batched(m, u, v)
 
 
 def rank_update_batched_out(m: torch.Tensor, u: torch.Tensor,
@@ -61,12 +76,16 @@ def rank_update_batched_out(m: torch.Tensor, u: torch.Tensor,
     if u.dim() == 2:
         u = u[None]
         v = v[None]
-    if m.device.type == "cpu":
-        out, bad = ref.rank_update_batched_out(m, u, v)
-        if nonfinite is not None:
-            nonfinite.bitwise_or_(bad.to(torch.int32))
-        return out
-    return _cuda.rank_update_batched_out(m, u, v, nonfinite)
+    with work.entry("rank_update_batched_out", work.rank_update, m, u, v,
+                    nonfinite):
+        if m.device.type == "cpu":
+            out, bad = ref.rank_update_batched_out(m, u, v)
+            if nonfinite is not None:
+                nonfinite.bitwise_or_(bad.to(torch.int32))
+            return out
+        if _meta(m):
+            return torch.empty_like(m)
+        return _cuda.rank_update_batched_out(m, u, v, nonfinite)
 
 
 def select_commit(flags: torch.Tensor, old: torch.Tensor,
@@ -74,9 +93,12 @@ def select_commit(flags: torch.Tensor, old: torch.Tensor,
     """``new`` := ``old`` in place when any of the int32 ``flags`` is
     nonzero, else ``new`` as it is: a guarded firing's commit or
     rollback, decided on the device without a host sync."""
-    if new.device.type == "cpu":
-        return new.copy_(ref.select_commit(flags, old, new))
-    return _cuda_select.select_commit(flags, old, new)
+    with work.entry("select_commit", work.select_commit, flags):
+        if new.device.type == "cpu":
+            return new.copy_(ref.select_commit(flags, old, new))
+        if _meta(new):
+            return new
+        return _cuda_select.select_commit(flags, old, new)
 
 
 def rank_update_rows(m: torch.Tensor, rows, block: torch.Tensor,
@@ -98,18 +120,26 @@ def rank_update_rows(m: torch.Tensor, rows, block: torch.Tensor,
                         device=m.device)
         u[rows.index(m.device)] = block
         return rank_update(m, u, v)
-    if m.device.type == "cpu":
-        return m.copy_(ref.rank_update_rows(m, rows.index(m.device), block,
-                                            v))
-    return _cuda_rows.rank_update_rows(m, rows, block, v)
+    with work.entry("rank_update_rows", work.rank_update_rows, m,
+                    len(rows), block, v):
+        if m.device.type == "cpu":
+            return m.copy_(ref.rank_update_rows(m, rows.index(m.device),
+                                                block, v))
+        if _meta(m):
+            return m
+        return _cuda_rows.rank_update_rows(m, rows, block, v)
 
 
 def dual_matmul(a: torch.Tensor, u: torch.Tensor, v: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused ``(a @ u, a.T @ v)`` — one pass over ``a``."""
-    if a.device.type == "cpu":
-        return ref.dual_matmul(a, u, v)
-    return _cuda_dual.dual_matmul(a, u, v)
+    with work.entry("dual_matmul", work.dual_matmul, a, u, v):
+        if a.device.type == "cpu":
+            return ref.dual_matmul(a, u, v)
+        if _meta(a):
+            return (a.new_empty((a.shape[0], u.shape[1])),
+                    a.new_empty((a.shape[1], v.shape[1])))
+        return _cuda_dual.dual_matmul(a, u, v)
 
 
 def sherman_morrison_delta(w: torch.Tensor, u: torch.Tensor,
@@ -131,12 +161,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     grouped-query heads, causal (with an optional bidirectional prefix of
     ``prefix_len`` positions) or full, optionally windowed: keep key kp
     for query qp iff ``kp <= qp`` or ``qp, kp < prefix_len`` (causal), and
-    ``kp > qp - window``."""
-    if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, window=window,
-                                   prefix_len=prefix_len)
-    return _cuda_fa.flash_attention(q, k, v, causal=causal, window=window,
-                                    prefix_len=prefix_len)
+    ``kp > qp - window``.
+
+    Under grad mode with an operand that requires grad, the card runs the
+    ``FlashAttention`` Function (the forward with LSE, then K1); so does
+    meta (on the shapes) and, under a walk, the CPU (on the plain
+    versions), so that a walked step counts the same entries everywhere.
+    Otherwise the CPU differentiates the plain version, as before."""
+    opts = dict(causal=causal, window=window, prefix_len=prefix_len)
+    dev = q.device.type
+    if dev in ("cpu", "meta") and torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)) and (
+            dev == "meta" or work.op_walk.active() is not None):
+        pair = (ref.flash_attention_lse, ref.flash_attention_bwd) \
+            if dev == "cpu" else (_cuda_fa.meta_fwd_lse, _cuda_fa.meta_bwd)
+        return _cuda_fa.FlashAttention.apply(q, k, v, causal, window,
+                                             prefix_len, *pair)
+    if dev not in ("cpu", "meta") and torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)):
+        return _cuda_fa.flash_attention(q, k, v, **opts)
+    with work.entry("flash_attention", work.flash_attention, q, k, v,
+                    **opts):
+        if dev == "cpu":
+            return ref.flash_attention(q, k, v, **opts)
+        if dev == "meta":
+            return torch.empty_like(q)
+        return _cuda_fa.flash_attention(q, k, v, **opts)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -145,6 +195,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     """One decode step's attention: q (B, H, hd) over the first
     ``n_valid`` slots of the caches (B, L, KV, hd); ``n_valid`` an int or
     a one-element int32 tensor on q's device (read there)."""
-    if q.device.type == "cpu":
-        return ref.flash_decode(q, k_cache, v_cache, n_valid)
-    return _cuda_fd.flash_decode(q, k_cache, v_cache, n_valid)
+    with work.entry("flash_decode", work.flash_decode, q, k_cache,
+                    n_valid):
+        if q.device.type == "cpu":
+            return ref.flash_decode(q, k_cache, v_cache, n_valid)
+        if _meta(q):
+            return torch.empty_like(q)
+        return _cuda_fd.flash_decode(q, k_cache, v_cache, n_valid)

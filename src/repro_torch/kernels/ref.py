@@ -122,9 +122,12 @@ def _grouped(q: torch.Tensor, kvh: int, dtype) -> torch.Tensor:
 
 
 def _ungrouped(x: torch.Tensor, dtype) -> torch.Tensor:
-    """(B, KV, g, S, hd) → (B, S, H, hd) in ``dtype``."""
+    """(B, KV, g, S, hd) → (B, S, H, hd) in ``dtype``, contiguous: the
+    kernels' layout (a roofline walk of a step then counts the same
+    copies after it on the CPU as on the card)."""
     b, kvh, g, s, hd = x.shape
-    return x.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, hd).to(dtype)
+    return x.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, hd).to(
+        dtype).contiguous()
 
 
 def _masked_scores(qc, kt, q0, q1, s, causal, window, prefix_len):

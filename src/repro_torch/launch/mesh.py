@@ -11,10 +11,8 @@ groups on every rank.  ``device_type`` is ``"cuda"`` (rank r works on
 Shapes come from :func:`repro_torch.dist.fault_tolerance.plan_mesh`, so
 the launch path and the elastic-resize path (a supervisor replanning
 after an eviction) never disagree about what a valid mesh looks like.
-
-The reference's ``make_production_mesh`` (16×16 on one 256-chip pod,
-2×16×16 on two) needs a 256- or 512-rank world; it waits for the
-dry-run's fake world (ROADMAP.md Queue 1 item 14b).
+:func:`make_production_mesh` needs a world of 256 or 512 ranks: the
+dry-run's fake world (``launch/dryrun.py``) or a real cluster.
 """
 
 from __future__ import annotations
@@ -26,6 +24,7 @@ import torch
 
 from ..dist.fault_tolerance import plan_mesh
 
+POD_CHIPS = 256
 MODEL_PARALLEL = 16
 
 
@@ -45,6 +44,16 @@ def _device_mesh(shape: Tuple[int, ...], axes: Sequence[str],
                          f"{dist.get_world_size()}")
     return DeviceMesh(device_type, torch.arange(n).reshape(shape),
                       mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(multi_pod: bool = False, *,
+                         device_type: str = "cuda"):
+    """16×16 single-pod (256 ranks) or 2×16×16 multi-pod (512 ranks)
+    over the first ranks of the world; raises on a smaller world."""
+    n = 2 * POD_CHIPS if multi_pod else POD_CHIPS
+    shape, axes = plan_mesh(n, MODEL_PARALLEL,
+                            multi_pod_size=POD_CHIPS if multi_pod else None)
+    return _device_mesh(shape, axes, device_type)
 
 
 def make_elastic_mesh(n_devices: int, model_parallel: int = MODEL_PARALLEL,

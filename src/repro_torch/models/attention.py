@@ -7,13 +7,14 @@ prefix, causal after), or full (hubert), with an optional sliding window
 (h2o-danube).  A decoded token attends every valid cache slot, as in the
 reference.
 
-Under a mesh the full-sequence path is tensor-parallel over the
-``model`` axis: ``wq`` (and ``wk``/``wv`` when the KV heads divide) hold
-this rank's heads' columns, the flash kernels run on the rank's ``H/m``
-query heads, and ``wo`` is row-parallel, followed by one reduce.  KV
-heads are never cut: with fewer of them than model ranks they stay
-replicated (``dist.sharding.aligned_spec``), and a rank's query heads
-take their KV heads by global index (``head // group``).
+Under a mesh both paths are tensor-parallel over the ``model`` axis:
+``wq`` (and ``wk``/``wv`` when the KV heads divide) hold this rank's
+heads' columns, the flash kernels run on the rank's ``H/m`` query heads,
+and ``wo`` is row-parallel, followed by one reduce.  KV heads are never
+cut: with fewer of them than model ranks they stay replicated
+(``dist.sharding.aligned_spec``), and a rank's query heads take their KV
+heads by global index (``head // group``).  The decode cache keeps every
+KV head on every rank (the reference's placement).
 """
 
 from __future__ import annotations
@@ -186,16 +187,38 @@ def decode_attention(params: Dict[str, Tensor], cfg, x: Tensor,
     returns a new cache; here the one cache is updated, which saves a
     copy per step) and attends over the valid slots.  Returns
     (out (B, 1, D), cache).
+
+    On a mesh with the heads split the step runs this rank's query heads
+    and sums ``wo``'s partial outputs over the model axis, as
+    :func:`attention_block` does.  The cache keeps every KV head (the
+    reference's ``cache_axes`` split only its batch): replicated
+    ``wk``/``wv`` write all of them and the rank's heads read theirs
+    (:func:`_rank_kv`); split ones write and read the rank's own.
     """
     b = x.shape[0]
     hd = cfg.resolved_head_dim
+    heads = params["wq"].shape[1] // hd
+    split = heads != cfg.n_heads
     q, k, v = _project_qkv(params, cfg, x)
     cos, sin = layers.rope_angles(pos, hd, cfg.rope_theta)
     q = layers.apply_rope(q, cos, sin)
     k = layers.apply_rope(k, cos, sin)
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
-    out = ops.flash_decode(q[:, 0].contiguous(), cache["k"], cache["v"],
-                           n_valid)
-    out = out.reshape(b, 1, cfg.n_heads * hd) @ params["wo"]
+    kc, vc = cache["k"], cache["v"]
+    if k.shape[2] == cfg.n_kv_heads:
+        kc[:, slot] = k[:, 0]
+        vc[:, slot] = v[:, 0]
+        if split:
+            _, q_lo = split_offset(heads, cfg.n_heads)
+            kc, vc = _rank_kv(kc, vc, q_lo, heads,
+                              cfg.n_heads // cfg.n_kv_heads)
+    else:
+        _, kv_lo = split_offset(k.shape[2], cfg.n_kv_heads)
+        own = slice(kv_lo, kv_lo + k.shape[2])
+        kc[:, slot, own] = k[:, 0]
+        vc[:, slot, own] = v[:, 0]
+        kc, vc = kc[:, :, own].contiguous(), vc[:, :, own].contiguous()
+    out = ops.flash_decode(q[:, 0].contiguous(), kc, vc, n_valid)
+    out = out.reshape(b, 1, heads * hd) @ params["wo"]
+    if split:
+        out = reduce_from_model(out)
     return out, cache

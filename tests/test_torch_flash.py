@@ -534,6 +534,20 @@ def test_k1_bound_does_not_admit_a_single_bf16_p_or_ds(term, rng):
             <= bounds[index]).all()
 
 
+def test_k1_bound_holds_the_split_p_at_a_group_of_12(rng):
+    """command-r-plus-104b's group of 12 (the shape where dv once passed
+    the bound before it had K1's split-P term) with cancelling v: P and
+    dS as two bf16 terms stay inside the bound, one bf16 P moves dV past
+    it."""
+    tensors = _k1_bf16_inputs(rng, 1, 128, 24, 2, 32, cancel=True)
+    got, want, bounds = _k1_bf16_against_jax(tensors, True, None, 0)
+    for g, w, bound in zip(got, want, bounds):
+        assert ((g.float() - w.float()).abs() <= bound).all()
+    got, want, bounds = _k1_bf16_against_jax(tensors, True, None, 0,
+                                             p_terms=1)
+    assert ((got[2].float() - want[2].float()).abs() > bounds[2]).any()
+
+
 # -- K1's f32 split-TF32 arithmetic -------------------------------------------
 
 def _k1_tf32(q, k, v, dout, causal, window, prefix, products):

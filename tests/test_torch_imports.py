@@ -45,7 +45,11 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.codegen",
            "repro_torch.apps.fivm_learning", "repro_torch.dist",
            "repro_torch.dist.checkpoint", "repro_torch.dist.fault_tolerance",
            "repro_torch.launch.train", "repro_torch.dist.ivm_shard",
-           "repro_torch.launch.mesh", "repro_torch.dist.sharding"]
+           "repro_torch.launch.mesh", "repro_torch.dist.sharding",
+           "repro_torch.roofline", "repro_torch.roofline.hw",
+           "repro_torch.roofline.analysis", "repro_torch.roofline.op_walk",
+           "repro_torch.roofline.kernel_work",
+           "repro_torch.roofline.report_md", "repro_torch.launch.dryrun"]
 
 PROBE = """
 import importlib, sys

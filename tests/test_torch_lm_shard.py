@@ -192,6 +192,27 @@ def _references(inputs) -> dict:
     return refs
 
 
+# -- the decode step on a mesh ------------------------------------------------
+
+@pytest.mark.parametrize("key,local_wq,local_wk", [
+    ("decode_danube_22", (2, 128, 64), (2, 128, 32)),
+    ("decode_qwen2_14", (2, 128, 32), (2, 128, 32))])
+def test_decode_step_on_a_mesh_matches_single_device(world, key, local_wq,
+                                                     local_wk):
+    """Six decode steps from an empty cache on a mesh against the port's
+    single-device decode of the same params, every rank's logits
+    gathered whole: reduced danube on (2, 2) (2 of 4 query heads a rank,
+    the one KV head replicated in the cache and written by every rank)
+    and reduced qwen2-moe on (1, 4) (a query and a KV head a rank, each
+    rank writing and reading its own KV head of the cache; 6 experts, so
+    tensor parallelism inside each).  2e-4 of the largest logit."""
+    _, res, _, _ = world
+    for rank in range(w.WORLD):
+        got = res[rank][key]
+        assert got["local_wq"] == local_wq and got["local_wk"] == local_wk
+        assert got["max_diff"] <= 2e-4 * max(got["max_logit"], 1.0)
+
+
 # -- the danube train step on (2, 2) ----------------------------------------
 
 

@@ -336,6 +336,43 @@ def _capacity(inputs, mesh) -> dict:
                 "aux": float(batch_mean(aux)), "rank_aux": float(aux)}
 
 
+def _decode(inputs, mesh, key: str, cfg, steps: int = 6) -> dict:
+    """The first ``steps`` tokens of ``inputs[key]`` decoded one a step
+    from an empty cache on ``mesh`` (each rank its data rows, its heads,
+    experts and vocab shard), every step's logits gathered whole, against
+    the single-device decode of the same params: the largest difference
+    and the largest logit."""
+    import torch
+    from repro_torch.dist.sharding import (MODEL, current_ctx, gather,
+                                           shard_tree, use_sharding)
+    from repro_torch.models import LM, params_from_numpy
+    from repro_torch.train.train_step import data_rows
+    case = inputs[key]
+    model = LM(cfg, device="cpu")
+    whole = params_from_numpy(case["params"], "cpu")
+    tokens = torch.as_tensor(case["tokens"][:, :steps])
+    with torch.no_grad():
+        cache = model.init_cache(tokens.shape[0], steps)
+        want = [model.decode_step(whole, cache, tokens[:, i:i + 1], i)[0]
+                for i in range(steps)]
+        with use_sharding(mesh):
+            ctx = current_ctx()
+            params = shard_tree(whole, model.param_specs())
+            rows = data_rows({"tokens": tokens})["tokens"]
+            cache = model.init_cache(rows.shape[0], steps)
+            got = []
+            for i in range(steps):
+                logits, cache = model.decode_step(params, cache,
+                                                  rows[:, i:i + 1], i)
+                got.append(gather(gather(logits, -1, MODEL), 0,
+                                  ctx.batch_axes))
+    return {"max_diff": max(float((g - w).abs().max())
+                            for g, w in zip(got, want)),
+            "max_logit": max(float(w.abs().max()) for w in want),
+            "local_wq": tuple(params["blocks"]["attn"]["wq"].shape),
+            "local_wk": tuple(params["blocks"]["attn"]["wk"].shape)}
+
+
 def _psum(rank: int, inputs) -> dict:
     """compressed_psum over a 1-D ("data",) mesh of the four ranks: the
     same rank-1 gradient on every rank, then a different one on each."""
@@ -400,6 +437,10 @@ def _scenarios(rank: int, inputs, tmp: str) -> dict:
         out[family] = _family(inputs, mesh22, family)
     out["qwen2_14"] = _moe(inputs, mesh14, "qwen2", qwen2_cfg(get_config),
                            grads=True)
+    out["decode_danube_22"] = _decode(inputs, mesh22, "danube",
+                                      danube_cfg(get_config))
+    out["decode_qwen2_14"] = _decode(inputs, mesh14, "qwen2",
+                                     qwen2_cfg(get_config))
     out["psum"] = _psum(rank, inputs)
     out["collectives"] = _collectives(rank, mesh14)
     dist.barrier()

@@ -30,7 +30,8 @@ has now) and, for that case, prints a JSON line an order:
   exact one and its condition.
 
 Prints the card's name and power limit first; exits non-zero when no
-card is there.
+card is there, or when a gradient of either order passes its bound
+(``bound_ratio`` of 1 or more).
 """
 
 from __future__ import annotations
@@ -145,13 +146,18 @@ def main() -> int:
     print(cs.nvidia_smi(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    worst = 0.0
     for name, cases in orders().items():
         tensors, opts = draw(cases)
         rec = {"order": name, "case": CASE, **witness(tensors, opts)}
         print(json.dumps(rec), flush=True)
+        worst = max([worst] + [rec[g]["bound_ratio"]
+                               for g in ("dq", "dk", "dv")])
         del tensors
         torch.cuda.empty_cache()
-    return 0
+    print(json.dumps({"largest_bound_ratio": worst,
+                      "within_bound": worst < 1.0}), flush=True)
+    return 0 if worst < 1.0 else 1
 
 
 if __name__ == "__main__":
