@@ -314,9 +314,39 @@ CUDA toolkit.  Phases, each of which raises on failure:
        arguments) within ROOF_PEAK_TOL of max_memory_allocated;
     d. ``python -m repro_torch.launch.dryrun`` on ROOF_CELLS (danube and
        qwen3-moe train_4k on 16x16, command-r-plus decode_32k on
-       2x16x16, zamba2 long_500k refused), each in a process of its own
-       on the CPU, started first: per-chip memory, the three roofline
-       terms and the bottleneck (predictions from the data sheet).
+       2x16x16, zamba2 long_500k), each in a process of its own on the
+       CPU, started first: per-chip memory, the three roofline terms and
+       the bottleneck (predictions from the data sheet).
+24. the recurrent families and gradient compression on a model axis
+    (Mamba2 and the mLSTM split by whole heads, the sLSTM cell
+    replicated) on four gloo ranks in spawned processes sharing the
+    card, over (2, 2) and (1, 4), zamba2-1.2b at published widths cut to
+    ZAMBA_CUT_LAYERS (one group of 6 and a tail of 1) and xlstm-350m to
+    XLSTM_CUT_LAYERS (7 mLSTM + 1 sLSTM):
+    a. each family f32 on (2, 2), RECUR_SHARD_EXACT's (B, S): one step's
+       loss and gathered gradients against the single device's on rank 0
+       (phase 19b's tolerances), and on a one-rank (1, 1) placement
+       within SHARD_ONE_TOL;
+    b. each family bf16 on (2, 2), RECUR_SHARD_STEP's steps: losses
+       within LM_SHARD_BF16_LOSS_C / sqrt(B·S) of the single device's, ms
+       a step beside its, ``sharding.BYTES`` a step by mesh axis;
+    c. each family f32 on (1, 4): a token-by-token prefill of
+       RECUR_SHARD_PROMPT positions and RECUR_SHARD_NEW greedy steps
+       through ``LM.decode_step`` (the cache placed by
+       ``LM.cache_specs``): logits within SERVE_ATOL + SERVE_RTOL |logit|
+       of the single device's, greedy tokens equal, zamba2's flash_decode
+       launches counted a step;
+    d. rank-RECUR_SHARD_COMP_RANK compression on (2, 2) of a's zamba2
+       gradients: the decompressed gradients against the single device's
+       compression of the whole leaves from the same Q₀ (MAIN_TOL of each
+       leaf's largest entry), the factor bytes on the model axis against
+       their formula;
+    e. b's zamba2 state saved on (2, 2) (gathered, rank 0 writes the
+       reference's format) and restored onto (1, 4): params, master
+       weights and moments bit for bit;
+    f. the training driver (``launch.train.train`` on
+       ``make_local_mesh(2)``) with compression rank 2 for zamba2's cut
+       in bf16, RECUR_SHARD_DRIVER_BATCH, RECUR_SHARD_DRIVER_STEPS steps.
 
 Every launch count is set to 0 just before a phase drives its engines and
 read just after (in each rank, for phases 21b's and 22's spawned ranks);
@@ -489,6 +519,21 @@ LM_SHARD_LOGIT_TOL = 5e-3
 # and 1.48e-4 at 4 x 32 on the CPU (PERF.md §6, phase 22): both 1.7e-3
 # times 1/sqrt(B·S); 1e-2 leaves 6x of that
 LM_SHARD_BF16_LOSS_C = 1e-2
+# phase 24: the recurrent families and compression on a model axis, on
+# LM_SHARD_WORLD gloo ranks sharing the card over (2, 2) and (1, 4), both
+# families at published widths cut to ZAMBA_CUT_LAYERS / XLSTM_CUT_LAYERS:
+# an f32 step at RECUR_SHARD_EXACT's (B, S) (24a, and 24d's gradients),
+# RECUR_SHARD_STEP's bf16 steps (24b, zamba2's saved in 24e), decode of
+# RECUR_SHARD_PROMPT positions and RECUR_SHARD_NEW greedy steps (24c);
+# the driver for zamba2's cut, RECUR_SHARD_DRIVER_STEPS steps (24f).
+# Rehearsed on the CPU at the reduced widths with RECUR_SHARD_REHEARSE's
+# sizes.
+RECUR_SHARD_EXACT, RECUR_SHARD_STEP = (4, 256), (4, 512, 2)
+RECUR_SHARD_PROMPT, RECUR_SHARD_NEW = 32, 8
+RECUR_SHARD_COMP_RANK, RECUR_SHARD_DRIVER_STEPS = 4, 3
+RECUR_SHARD_DRIVER_BATCH = (8, 128)
+RECUR_SHARD_REHEARSE = {"exact": (4, 40), "step": (4, 40, 2),
+                        "decode": (8, 4), "driver": (4, 32)}
 # 21a against the single-device engine, relative to each view's largest
 # entry: the same kernel on the same rows, and every collective of one
 # rank a copy, so equal or within a few ulps
@@ -1317,7 +1362,14 @@ def check_flash_kernels(peaks_) -> dict:
             # phase 22c's per-rank shape: qwen3-moe's 16 query heads and
             # one KV head a rank of (1, 4)
             ("shard_qwen3_forward_f32", LM_SHARD_MOE[0], LM_SHARD_MOE[1], 16,
-             1, 128, None, f32, True, 0)]:
+             1, 128, None, f32, True, 0),
+            # phase 24's per-rank shapes: zamba2's shared block, 16 of its
+            # 32 heads a rank of (2, 2), two data rows a rank (24a f32, 24b
+            # bf16)
+            ("shard_zamba2_exact_f32", RECUR_SHARD_EXACT[0] // 2,
+             RECUR_SHARD_EXACT[1], 16, 16, 64, None, f32, True, 0),
+            ("shard_zamba2_step_bf16", RECUR_SHARD_STEP[0] // 2,
+             RECUR_SHARD_STEP[1], 16, 16, 64, None, bf16, True, 0)]:
         q = randn(b, s, h, hd, dtype=dt)
         k, v = randn(b, s, kvh, hd, dtype=dt), randn(b, s, kvh, hd, dtype=dt)
         out["flash_attention"].append(check_flash_attention(
@@ -1352,7 +1404,15 @@ def check_flash_kernels(peaks_) -> dict:
             ("command_r_decode_bf16", 8, 4096, 96, 8, 128, 4096, bf16),
             ("command_r_decode_f32", 8, 4096, 96, 8, 128, 4096, f32),
             ("qwen15_32b_decode_bf16", 8, 4096, 40, 40, 128, 4096, bf16),
-            ("qwen15_32b_decode_f32", 8, 4096, 40, 40, 128, 4096, f32)]:
+            ("qwen15_32b_decode_f32", 8, 4096, 40, 40, 128, 4096, f32),
+            # phase 24c's: zamba2's 8 of 32 heads a rank of (1, 4), and
+            # the single device's 32, over the whole cache
+            ("shard_zamba2_decode_f32", RECUR_SHARD_EXACT[0],
+             RECUR_SHARD_PROMPT + RECUR_SHARD_NEW, 8, 8, 64,
+             RECUR_SHARD_PROMPT + RECUR_SHARD_NEW, f32),
+            ("zamba2_shard_single_decode_f32", RECUR_SHARD_EXACT[0],
+             RECUR_SHARD_PROMPT + RECUR_SHARD_NEW, 32, 32, 64,
+             RECUR_SHARD_PROMPT + RECUR_SHARD_NEW, f32)]:
         q = randn(b, h, hd, dtype=dt)
         kc, vc = (randn(b, L, kvh, hd, dtype=dt) for _ in range(2))
         out["flash_decode"].append(check_flash_decode(
@@ -1531,7 +1591,21 @@ K1_CASES = [
     ("shard_danube_train_bf16", LM_SHARD_STEP[0] // 2, LM_SHARD_STEP[1],
      16, 4, 80, 4096, "bfloat16", True, 0),
     ("shard_danube_exact_f32", LM_SHARD_EXACT[0] // 2, LM_SHARD_EXACT[1],
-     16, 4, 80, 4096, "float32", True, 0)]
+     16, 4, 80, 4096, "float32", True, 0),
+    # phase 24's: zamba2's shared block with 16 of its 32 heads a rank of
+    # (2, 2), two data rows a rank (24a f32, 24b bf16), the driver's (24f:
+    # four rows of 8 a rank), and the single device's at 24a's and 24b's
+    # batches (rank 0's references)
+    ("shard_zamba2_exact_f32", RECUR_SHARD_EXACT[0] // 2,
+     RECUR_SHARD_EXACT[1], 16, 16, 64, None, "float32", True, 0),
+    ("shard_zamba2_step_bf16", RECUR_SHARD_STEP[0] // 2, RECUR_SHARD_STEP[1],
+     16, 16, 64, None, "bfloat16", True, 0),
+    ("shard_zamba2_driver_bf16", RECUR_SHARD_DRIVER_BATCH[0] // 2,
+     RECUR_SHARD_DRIVER_BATCH[1], 16, 16, 64, None, "bfloat16", True, 0),
+    ("zamba2_shard_single_f32", RECUR_SHARD_EXACT[0], RECUR_SHARD_EXACT[1],
+     32, 32, 64, None, "float32", True, 0),
+    ("zamba2_shard_single_bf16", RECUR_SHARD_STEP[0], RECUR_SHARD_STEP[1],
+     32, 32, 64, None, "bfloat16", True, 0)]
 
 
 def check_flash_bwd_kernels(peaks_) -> dict:
@@ -6716,6 +6790,88 @@ def lm22_driver(rank: int, world: int, directory: str, counts: Lm22Counts,
     return out
 
 
+def gloo_rank_join(rank: int, world: int, store: str, rehearse: bool):
+    """A spawned rank of phases 22 and 24: the port on the path, the rank
+    on ``cuda:(rank % device_count)`` (the CPU when rehearsing), joined
+    to the gloo world through the file store ``store``; returns (device,
+    counts, the (2, 2) mesh, the (1, 4) mesh) over the world."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    device_type = "cpu" if rehearse else "cuda"
+    if rehearse:
+        torch.set_num_threads(2)
+        device = torch.device("cpu")
+    else:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        device = torch.device(device_type, torch.cuda.current_device())
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    grid = torch.arange(world)
+    return (device, Lm22Counts(device),
+            DeviceMesh(device_type, grid.reshape(2, 2),
+                       mesh_dim_names=("data", "model")),
+            DeviceMesh(device_type, grid.reshape(1, 4),
+                       mesh_dim_names=("data", "model")))
+
+
+def gloo_ranks(label: str, target, rehearse: bool) -> tuple:
+    """LM_SHARD_WORLD spawned processes, each running ``target(rank,
+    world, store, results, directory, rehearse)`` in a gloo world of its
+    own file store: (records by rank, the launches their main-path drives
+    counted).  Every rank's launches must equal what its drives expect
+    (not checked when rehearsing).  A rank that fails, or does not report
+    within LM_SHARD_TIMEOUT_S, fails the phase."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import tempfile
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    recs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=target,
+                             args=(r, LM_SHARD_WORLD, f"{tmp}/store",
+                                   results, tmp, rehearse))
+                 for r in range(LM_SHARD_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + LM_SHARD_TIMEOUT_S
+            while len(recs) < LM_SHARD_WORLD:
+                rank, rec = results.get(
+                    timeout=max(1.0, deadline - time.monotonic()))
+                if isinstance(rec, str):
+                    raise AssertionError(f"{label}: rank {rank} failed:\n"
+                                         f"{rec}")
+                recs[rank] = rec
+        except queue_mod.Empty:
+            raise AssertionError(
+                f"{label}: ranks "
+                f"{sorted(set(range(LM_SHARD_WORLD)) - set(recs))} did not "
+                f"report in {LM_SHARD_TIMEOUT_S} s") from None
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"{label}: rank exit codes {codes}")
+    got, expect = {}, {}
+    for rank in sorted(recs):
+        for counts in recs[rank].pop("counts"):
+            merge_counts(got, counts)
+        for entry, n in recs[rank].pop("expect").items():
+            expect[entry] = expect.get(entry, 0) + n
+    if not rehearse:
+        check_launches(label, got, expect)
+    return recs, got
+
+
 def lm_shard_rank(rank: int, world: int, store: str, results,
                   directory: str, rehearse: bool = False) -> None:
     """One of phase 22's ranks, in a spawned process: join the gloo world
@@ -6724,30 +6880,13 @@ def lm_shard_rank(rank: int, world: int, store: str, results,
     22a, 22b, 22d and 22c on them, leave the group, run 22e, and put
     ``(rank, record)`` — or ``(rank, traceback)`` — on ``results``."""
     try:
-        sys.path.insert(0, str(SRC))
+        device, counts, mesh22, mesh14 = gloo_rank_join(rank, world, store,
+                                                        rehearse)
         import torch
         import torch.distributed as dist
-        from torch.distributed.device_mesh import DeviceMesh
-        device_type = "cpu" if rehearse else "cuda"
-        if rehearse:
-            torch.set_num_threads(2)
-        else:
-            torch.cuda.set_device(rank % torch.cuda.device_count())
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-        device = torch.device(device_type, torch.cuda.current_device()
-                              ) if not rehearse else torch.device("cpu")
-        counts = Lm22Counts(device)
-        dist.init_process_group("gloo", init_method=f"file://{store}",
-                                world_size=world, rank=rank)
         rec = {"device": str(device)}
         t0 = time.perf_counter()
         try:
-            grid = torch.arange(world)
-            mesh22 = DeviceMesh(device_type, grid.reshape(2, 2),
-                                mesh_dim_names=("data", "model"))
-            mesh14 = DeviceMesh(device_type, grid.reshape(1, 4),
-                                mesh_dim_names=("data", "model"))
             if not rehearse:
                 torch.cuda.reset_peak_memory_stats()
             parts = {}
@@ -6809,56 +6948,12 @@ def phase_lm_shard(rehearse: bool = False) -> dict:
     :func:`lm_shard_rank`: explicit tensor, expert and data parallelism
     of the transformer families, the elastic re-mesh and the training
     driver's ``--mesh local``.  Every rank's flash launches must equal
-    what its drives predict.  A rank that fails, or does not report
-    within LM_SHARD_TIMEOUT_S, fails the phase.  ``rehearse`` runs the
+    what its drives predict (:func:`gloo_ranks`).  ``rehearse`` runs the
     same drives at the reduced widths on the CPU (no kernel, no launch
     check)."""
-    import multiprocessing as mp
-    import queue as queue_mod
-    import tempfile
     label = f"lm_shard_{LM_SHARD_WORLD}_ranks_gloo_one_card"
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
     t_phase = time.perf_counter()
-    recs = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=lm_shard_rank,
-                             args=(r, LM_SHARD_WORLD, f"{tmp}/store",
-                                   results, tmp, rehearse))
-                 for r in range(LM_SHARD_WORLD)]
-        for p in procs:
-            p.start()
-        try:
-            deadline = time.monotonic() + LM_SHARD_TIMEOUT_S
-            while len(recs) < LM_SHARD_WORLD:
-                rank, rec = results.get(
-                    timeout=max(1.0, deadline - time.monotonic()))
-                if isinstance(rec, str):
-                    raise AssertionError(f"{label}: rank {rank} failed:\n"
-                                         f"{rec}")
-                recs[rank] = rec
-        except queue_mod.Empty:
-            raise AssertionError(
-                f"{label}: ranks "
-                f"{sorted(set(range(LM_SHARD_WORLD)) - set(recs))} did not "
-                f"report in {LM_SHARD_TIMEOUT_S} s") from None
-        finally:
-            for p in procs:
-                p.join(timeout=60)
-                if p.is_alive():
-                    p.terminate()
-                    p.join(timeout=10)
-    codes = [p.exitcode for p in procs]
-    if any(codes):
-        raise AssertionError(f"{label}: rank exit codes {codes}")
-    got, expect = {}, {}
-    for rank in sorted(recs):
-        for counts in recs[rank].pop("counts"):
-            merge_counts(got, counts)
-        for entry, n in recs[rank].pop("expect").items():
-            expect[entry] = expect.get(entry, 0) + n
-    if not rehearse:
-        check_launches(label, got, expect)
+    recs, got = gloo_ranks(label, lm_shard_rank, rehearse)
     rec = {"phase": label, "world": LM_SHARD_WORLD,
            "note": "the ranks time-share one card over gloo: times are no "
                    "scaling figure",
@@ -6888,7 +6983,7 @@ def phase_lm_shard(rehearse: bool = False) -> dict:
 ROOF_CELLS = (("h2o-danube-1.8b", "train_4k", "single", "ok"),
               ("qwen3-moe-235b-a22b", "train_4k", "single", "ok"),
               ("command-r-plus-104b", "decode_32k", "multi", "ok"),
-              ("zamba2-1.2b", "long_500k", "single", "refused"))
+              ("zamba2-1.2b", "long_500k", "single", "ok"))
 ROOF_TIMEOUT_S = 300
 # 23a: phase 19a's training step timed after a warm-up; 23b: phase 10's
 # decode step, ROOF_DECODE_STEPS timed
@@ -6931,22 +7026,17 @@ def roof_dryrun_finish(procs: list, directory: Path) -> list:
         if res["status"] != status:
             raise AssertionError(f"dry-run {arch} {shape} {name}: "
                                  f"{res['status']}, not {status}: {res}")
+        r = res["roofline"]
         rec = {"arch": arch, "shape": shape, "mesh": name,
-               "status": res["status"]}
-        if status == "ok":
-            r = res["roofline"]
-            rec.update(
-                walk_s=res["walk_s"],
-                memory_per_chip_gib={k: v / 2 ** 30 for k, v in
-                                     res["memory_analysis"].items()},
-                t_compute_ms=1e3 * r["t_compute"],
-                t_memory_ms=1e3 * r["t_memory"],
-                t_collective_ms=1e3 * r["t_collective"],
-                bottleneck=r["bottleneck"],
-                roofline_fraction=r["roofline_fraction"],
-                entries=res["entries"])
-        else:
-            rec["reason"] = res["reason"]
+               "status": res["status"], "walk_s": res["walk_s"],
+               "memory_per_chip_gib": {k: v / 2 ** 30 for k, v in
+                                       res["memory_analysis"].items()},
+               "t_compute_ms": 1e3 * r["t_compute"],
+               "t_memory_ms": 1e3 * r["t_memory"],
+               "t_collective_ms": 1e3 * r["t_collective"],
+               "bottleneck": r["bottleneck"],
+               "roofline_fraction": r["roofline_fraction"],
+               "entries": res["entries"]}
         log(f"roofline dry-run (a prediction from the H100 data sheet, "
             f"not measured): {json.dumps(rec)}")
         out.append(rec)
@@ -7156,6 +7246,507 @@ def roof_steps() -> dict:
     return {"train": train, "decode": decode, "launches": got}
 
 
+# -- phase 24: the recurrent families and compression on a model axis --------
+
+RECUR24_ARCHS = ((ZAMBA_ARCH, ZAMBA_CUT_LAYERS), (XLSTM_ARCH,
+                                                  XLSTM_CUT_LAYERS))
+
+
+def recur24_rel(got: dict, want) -> tuple:
+    """(largest relative error, its leaf) of gathered leaves ``got``
+    against a tree ``want``, each relative to the leaf's largest entry."""
+    worst, leaf = 0.0, None
+    for name, w in flat_params(want):
+        rel = float((got[name].to(w.dtype) - w).abs().max()) / (
+            float(w.abs().max()) or 1.0)
+        if rel >= worst:
+            worst, leaf = rel, name
+    return worst, leaf
+
+
+def recur24_heads(model, params) -> dict:
+    """The head-aligned blocks a rank holds."""
+    cfg = model.cfg
+    if cfg.family == "hybrid":
+        mixer = params["mamba_groups"]["mixer"]
+        return {"mamba_heads": mixer["out_proj"].shape[-2]
+                // cfg.ssm.headdim,
+                "in_proj": list(mixer["in_proj"].shape[-2:]),
+                "attn_q_heads": params["shared_attn"]["attn"]["wq"].shape[-1]
+                // cfg.resolved_head_dim}
+    mixer = params["mlstm_groups"]["mixer"]
+    return {"mlstm_heads": mixer["wq"].shape[-3],
+            "slstm_up": params["slstm"]["cell"]["up_l"].shape[-1]}
+
+
+def recur24_comp_bytes(model, ctx, rank: int, min_dim: int) -> int:
+    """24d's factor bytes a rank on the model axis, ring counted, from
+    each compressible leaf's whole shape and split: its last dimension
+    split, one all-reduce of P (n×k); an earlier one, an all-gather of
+    the rank's rows of P and an all-reduce of Q (m×k)."""
+    from repro_torch.dist.sharding import spec_axes
+    specs = dict(flat_params(model.param_specs(ctx)))
+    shapes = dict(flat_params(model.param_shapes()))
+    world, total = ctx.tp, 0
+    for name, spec in specs.items():
+        shape = shapes[name]
+        n, m = math.prod(shape[:-1]), shape[-1]
+        if len(shape) < 2 or min(n, m) < min_dim or not spec_axes(spec):
+            continue
+        if len(spec) == len(shape) and spec[-1] is not None:
+            total += 2 * (world - 1) * n * rank * 4 // world
+        else:
+            total += (world - 1) * (n // world) * rank * 4 \
+                + 2 * (world - 1) * m * rank * 4 // world
+    return total
+
+
+def recur24_exact(rank: int, mesh, counts: Lm22Counts, rehearse: bool
+                  ) -> dict:
+    """24a and 24d: each family f32 on (2, 2), one step's loss and
+    gathered gradients; on rank 0 against the single device's and a
+    one-rank (1, 1) placement's; then zamba2's gradients compressed on
+    the mesh against the single device's compression of the whole."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import (MeshShape, gather_tree,
+                                           shard_tree, use_sharding)
+    from repro_torch.models import LM
+    from repro_torch.train import grad_compression as gcmp
+    from repro_torch.train import require_grad
+    b, s = RECUR_SHARD_REHEARSE["exact"] if rehearse else RECUR_SHARD_EXACT
+    out = {}
+    for arch, layers in RECUR24_ARCHS:
+        cfg = lm22_cfg(arch, layers, "float32", rehearse)
+        model = LM(cfg, device=counts.device)
+        batch = {"tokens": lm22_tokens(cfg, b, s, 81)}
+        rec = {"batch": b, "seq": s, "n_layers": layers}
+        t0 = time.perf_counter()
+        with use_sharding(mesh) as ctx:
+            specs = model.param_specs()
+            params = require_grad(shard_tree(
+                model.init(lm22_gen(model.device, 82)), specs))
+            rec.update(recur24_heads(model, params))
+            loss, grads = counts.drive(
+                lambda: lm22_grads(model, params, batch),
+                lm22_train_launches(cfg))
+            whole = dict(flat_params(gather_tree(grads, specs)))
+            if cfg.family == "hybrid":
+                comp = gcmp.init_compression(
+                    params, rank=RECUR_SHARD_COMP_RANK, min_dim=128,
+                    generator=lm22_gen(model.device, 83),
+                    specs=specs)
+                sharding.reset_bytes()
+                compressed, _ = gcmp.compress_tree(grads, comp, specs)
+                comp_bytes = dict(sharding.BYTES)
+                decompressed = dict(flat_params(gather_tree(
+                    gcmp.decompress_tree(compressed), specs)))
+                want_bytes = recur24_comp_bytes(
+                    model, ctx, RECUR_SHARD_COMP_RANK, 128)
+                del comp, compressed
+        rec.update(loss=float(loss), sharded_s=time.perf_counter() - t0)
+        del params, grads
+        if rank == 0:
+            single = require_grad(model.init(lm22_gen(model.device, 82)))
+            want_loss, want = lm22_grads(model, single, batch)
+            rec["loss_single"] = float(want_loss)
+            rec["loss_rel_err"] = abs(float(loss) - float(want_loss)) / abs(
+                float(want_loss))
+            rec["grad_worst_rel_err"], rec["grad_worst_leaf"] = recur24_rel(
+                whole, want)
+            rec["grad_leaves"] = len(whole)
+            if rec["loss_rel_err"] > TRAIN_LOSS_RTOL \
+                    or rec["grad_worst_rel_err"] > MAIN_TOL:
+                raise AssertionError(
+                    f"24a {arch}: sharded against single device: loss "
+                    f"{rec['loss_rel_err']} (limit {TRAIN_LOSS_RTOL}), "
+                    f"gradient {rec['grad_worst_leaf']} "
+                    f"{rec['grad_worst_rel_err']} (limit {MAIN_TOL})")
+            # one rank: the same placement code on a (1, 1) mesh, which
+            # issues no collective
+            with use_sharding(MeshShape((1, 1), ("data", "model"))):
+                one = require_grad(shard_tree(
+                    model.init(lm22_gen(model.device, 82)),
+                    model.param_specs()))
+                one_loss, one_grads = lm22_grads(model, one, batch)
+            rec["one_rank_rel_err"] = max(
+                abs(float(one_loss) - float(want_loss)) / abs(
+                    float(want_loss)),
+                recur24_rel(dict(flat_params(one_grads)), want)[0])
+            if rec["one_rank_rel_err"] > SHARD_ONE_TOL:
+                raise AssertionError(f"24a {arch}: one rank against the "
+                                     f"single device: "
+                                     f"{rec['one_rank_rel_err']}")
+            del one, one_grads
+            if cfg.family == "hybrid":
+                # the single device's compression of the whole gradients
+                # (the sharded ones, gathered) from the same Q0
+                wgrads = {}
+                for name, g in whole.items():
+                    node = wgrads
+                    *head, last = name.split(".")
+                    for k in head:
+                        node = node.setdefault(k, {})
+                    node[last] = g
+                state = gcmp.init_compression(
+                    wgrads, rank=RECUR_SHARD_COMP_RANK, min_dim=128,
+                    generator=lm22_gen(model.device, 83))
+                want_dec = gcmp.decompress_tree(
+                    gcmp.compress_tree(wgrads, state)[0])
+                worst, leaf = recur24_rel(decompressed, want_dec)
+                rec["compression"] = {
+                    "rank": RECUR_SHARD_COMP_RANK,
+                    "worst_rel_err": worst, "worst_leaf": leaf,
+                    "bytes": comp_bytes, "bytes_predicted": want_bytes,
+                    "leaves_low_rank": sum(
+                        q is not None for _, q in flat_params(state.q))}
+                if worst > MAIN_TOL or comp_bytes.get("on_model") \
+                        != want_bytes or comp_bytes.get("on_data", 0):
+                    raise AssertionError(f"24d: {rec['compression']}")
+                del wgrads, state, want_dec
+            del single, want
+        del whole
+        if cfg.family == "hybrid":
+            del decompressed
+        gc.collect()
+        dist.barrier()
+        out[arch] = rec
+    return out
+
+
+def recur24_step(rank: int, mesh, counts: Lm22Counts, rehearse: bool):
+    """24b: each family bf16 on (2, 2), RECUR_SHARD_STEP's steps timed
+    with the bytes of each, then on rank 0 the single device's at the
+    same global batch.  Returns (records, zamba2's state, model)."""
+    import torch.distributed as dist
+    from repro_torch.dist import sharding
+    from repro_torch.models import LM
+    from repro_torch.train import init_train_state, make_train_step
+    b, s, steps = (RECUR_SHARD_REHEARSE["step"] if rehearse
+                   else RECUR_SHARD_STEP)
+    out, kept = {}, None
+    for arch, layers in RECUR24_ARCHS:
+        cfg = lm22_cfg(arch, layers, "bfloat16", rehearse)
+        model = LM(cfg, device=counts.device)
+        batch = {"tokens": lm22_tokens(cfg, b, s, 84)}
+        rec = {"batch": b, "seq": s, "ms": [], "bytes": [], "loss": []}
+        with sharding.use_sharding(mesh):
+            state = init_train_state(model, lm22_gen(model.device, 85))
+            rec.update(recur24_heads(model, state.params))
+            step = make_train_step(model)
+            for _ in range(steps):
+                sharding.reset_bytes()
+                lm22_sync(model.device)
+                t0 = time.perf_counter()
+                state, metrics = counts.drive(lambda: step(state, batch),
+                                              lm22_train_launches(cfg))
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["bytes"].append(dict(sharding.BYTES))
+                rec["loss"].append(float(metrics["loss"]))
+        rec["launches_a_step"] = lm22_train_launches(cfg)
+        if rank == 0:
+            single = init_train_state(model, lm22_gen(model.device, 85))
+            one = make_train_step(model)
+            rec["single_ms"], rec["single_loss"] = [], []
+            for _ in range(steps):
+                lm22_sync(model.device)
+                t0 = time.perf_counter()
+                single, metrics = one(single, batch)
+                lm22_sync(model.device)
+                rec["single_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["single_loss"].append(float(metrics["loss"]))
+            del single, one
+            rec["loss_worst_rel_err"] = max(
+                abs(x - y) / abs(y)
+                for x, y in zip(rec["loss"], rec["single_loss"]))
+            rec["loss_tol"] = LM_SHARD_BF16_LOSS_C / math.sqrt(b * s)
+            if not rec["loss_worst_rel_err"] <= rec["loss_tol"]:
+                raise AssertionError(
+                    f"24b {arch}: bf16 losses {rec['loss']} on (2, 2) "
+                    f"against the single device's {rec['single_loss']}: "
+                    f"relative {rec['loss_worst_rel_err']:.3g} > "
+                    f"{rec['loss_tol']:.3g}")
+        if cfg.family == "hybrid":
+            kept = (state, model)
+        del state
+        gc.collect()
+        dist.barrier()
+        out[arch] = rec
+    return out, kept
+
+
+def recur24_decode_run(model, params, cache, prompt, steps: int, rows_of,
+                       gather_logits):
+    """A token-by-token prefill of ``prompt``'s positions, then greedy
+    steps to ``steps`` positions in all: every step's logits (whole) and
+    the greedy tokens (whole)."""
+    import torch
+    logits, tokens = [], []
+    token = rows_of(prompt[:, :1])
+    for pos in range(steps):
+        out, cache = model.decode_step(params, cache, token, pos)
+        whole = gather_logits(out)[:, 0]
+        logits.append(whole)
+        if pos + 1 < prompt.shape[1]:
+            token = rows_of(prompt[:, pos + 1:pos + 2])
+        else:
+            nxt = whole.argmax(dim=-1, keepdim=True)
+            tokens.append(nxt[:, 0])
+            token = rows_of(nxt)
+    return torch.stack(logits, dim=1), torch.stack(tokens, dim=1)
+
+
+def recur24_decode(rank: int, mesh, counts: Lm22Counts, rehearse: bool
+                   ) -> dict:
+    """24c: each family f32 on (1, 4), decode through ``LM.decode_step``
+    from a cache placed by ``LM.cache_specs``; on rank 0 against the
+    single device's decode of the same params."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import (MODEL, current_ctx, gather,
+                                           shard_tree, use_sharding)
+    from repro_torch.models import LM
+    from repro_torch.train.train_step import data_rows
+    prompt_len, new = (RECUR_SHARD_REHEARSE["decode"] if rehearse
+                       else (RECUR_SHARD_PROMPT, RECUR_SHARD_NEW))
+    b = RECUR_SHARD_EXACT[0]
+    steps = prompt_len + new
+    out = {}
+    for arch, layers in RECUR24_ARCHS:
+        cfg = lm22_cfg(arch, layers, "float32", rehearse)
+        model = LM(cfg, device=counts.device)
+        prompt = lm22_tokens(cfg, b, prompt_len, 86).to(model.device)
+        rec = {"batch": b, "prompt": prompt_len, "new": new}
+        with torch.no_grad(), use_sharding(mesh):
+            ctx = current_ctx()
+            params = shard_tree(model.init(lm22_gen(model.device, 87)),
+                                model.param_specs())
+            cache = shard_tree(model.init_cache(b, steps),
+                               model.cache_specs(b, steps))
+            rec["cache_local"] = {name: list(t.shape) for name, t in
+                                  flat_params(cache)
+                                  if not name.startswith("kv.")}
+            lm22_sync(model.device)
+            t0 = time.perf_counter()
+            logits, toks = counts.drive(
+                lambda: recur24_decode_run(
+                    model, params, cache, prompt, steps,
+                    lambda t: data_rows({"t": t}, model.device)["t"],
+                    lambda x: gather(gather(x, -1, MODEL), 0,
+                                     ctx.batch_axes)),
+                {"flash_decode": attention_groups(cfg) * steps})
+            lm22_sync(model.device)
+            rec["ms_a_step"] = (time.perf_counter() - t0) * 1e3 / steps
+        rec["launches_a_step"] = {"flash_decode": attention_groups(cfg)}
+        del params, cache
+        if rank == 0:
+            with torch.no_grad():
+                whole = model.init(lm22_gen(model.device, 87))
+                want, want_toks = recur24_decode_run(
+                    model, whole, model.init_cache(b, steps), prompt,
+                    steps, lambda t: t, lambda x: x)
+            diff = (logits - want).abs()
+            rec["max_abs_err"] = float(diff.max())
+            rec["excess"] = float((diff - SERVE_RTOL * want.abs()).max())
+            rec["greedy_equal"] = bool(torch.equal(toks, want_toks))
+            if not torch.isfinite(logits).all() \
+                    or rec["excess"] > SERVE_ATOL or not rec["greedy_equal"]:
+                raise AssertionError(
+                    f"24c {arch}: decode on (1, 4) against the single "
+                    f"device: max |diff| {rec['max_abs_err']}, greedy equal "
+                    f"{rec['greedy_equal']}")
+            del whole, want
+        gc.collect()
+        dist.barrier()
+        out[arch] = rec
+    return out
+
+
+def recur24_ckpt(rank: int, mesh22, mesh14, kept, directory: str) -> dict:
+    """24e: 24b's zamba2 state saved on (2, 2) (gathered, rank 0 writes),
+    restored onto (1, 4): each rank's restored blocks against its blocks
+    of the saved state, gathered whole before the save, bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import CheckpointManager
+    from repro_torch.dist.sharding import (gather_tree, local_block,
+                                           use_sharding)
+    from repro_torch.train import init_train_state, train_state_specs
+    state, model = kept
+    mgr = CheckpointManager(directory, async_save=False)
+    step = int(state.opt.step)
+    with use_sharding(mesh22):
+        specs = train_state_specs(model)
+        whole = {key: gather_tree(
+            state.params if key == "params" else getattr(state.opt, key),
+            specs.params) for key in ("params", "master", "m", "v")}
+        lm22_sync(model.device)
+        t0 = time.perf_counter()
+        mgr.save(step, state, blocking=True, specs=specs)
+        out = {"save_s": time.perf_counter() - t0}
+    del state
+    gc.collect()
+    with use_sharding(mesh14):
+        specs = train_state_specs(model)
+        fresh = init_train_state(model, lm22_gen(model.device, 88))
+        t0 = time.perf_counter()
+        back = mgr.restore(fresh, step=step, specs=specs)
+        out["restore_s"] = time.perf_counter() - t0
+        del fresh
+        spec_at = dict(flat_params(specs.params))
+        differ = []
+        for key in ("params", "master", "m", "v"):
+            got = dict(flat_params(back.params if key == "params"
+                                   else getattr(back.opt, key)))
+            for name, w in flat_params(whole[key]):
+                if not torch.equal(got[name], local_block(w,
+                                                          spec_at[name])):
+                    differ.append(f"{key}.{name}")
+        out.update(leaves_differing=differ, restored_step=int(back.opt.step),
+                   in_proj_local=list(back.params["mamba_groups"]["mixer"][
+                       "in_proj"].shape))
+        if differ or out["restored_step"] != step:
+            raise AssertionError(f"24e: restored on (1, 4), leaves differ "
+                                 f"from the saved ones: {differ[:8]}")
+    del back, whole
+    gc.collect()
+    dist.barrier()
+    return out
+
+
+def recur24_driver(rank: int, world: int, directory: str,
+                   counts: Lm22Counts, rehearse: bool) -> dict:
+    """24f: the training driver, ``launch.train.train``, on a
+    ``make_local_mesh(2)`` of the four ranks (a world of its own file
+    store), zamba2 cut to ZAMBA_CUT_LAYERS in bf16 (its whole depth on
+    four ranks runs out of the card's memory) with compression rank 2,
+    RECUR_SHARD_DRIVER_STEPS steps; rank 0's history."""
+    import torch.distributed as dist
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_local_mesh
+    steps = RECUR_SHARD_DRIVER_STEPS
+    b, s = (RECUR_SHARD_REHEARSE["driver"] if rehearse
+            else RECUR_SHARD_DRIVER_BATCH)
+    cfg = lm22_cfg(ZAMBA_ARCH, ZAMBA_CUT_LAYERS, "bfloat16", rehearse)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{directory}/recur_driver_store",
+        world_size=world, rank=rank)
+    t0 = time.perf_counter()
+    try:
+        mesh = make_local_mesh(2, device_type=counts.device.type)
+        result = counts.drive(
+            lambda: train_mod.train(cfg, steps=steps, batch=b, seq=s,
+                                    compression_rank=2, mesh=mesh,
+                                    log_every=1),
+            lm22_train_launches(cfg, steps))
+    finally:
+        dist.destroy_process_group()
+    out = {"seconds": time.perf_counter() - t0, "batch": b, "seq": s,
+           "n_layers": cfg.n_layers}
+    if rank == 0:
+        out["history"] = result["history"]
+        if len(out["history"]) != steps or not all(
+                math.isfinite(h["loss"]) for h in out["history"]):
+            raise AssertionError(f"24f: history {out['history']}")
+    return out
+
+
+def recur_shard_rank(rank: int, world: int, store: str, results,
+                     directory: str, rehearse: bool = False) -> None:
+    """One of phase 24's ranks, in a spawned process: join the gloo world
+    through ``store`` on ``cuda:(rank % device_count)`` (the CPU when
+    rehearsing), build the (2, 2) and (1, 4) meshes, run 24a-24e, leave
+    the group, run 24f, and put ``(rank, record)`` -- or ``(rank,
+    traceback)`` -- on ``results``."""
+    try:
+        device, counts, mesh22, mesh14 = gloo_rank_join(rank, world, store,
+                                                        rehearse)
+        import torch
+        import torch.distributed as dist
+        rec, parts = {"device": str(device)}, {}
+        t0 = time.perf_counter()
+        try:
+            if not rehearse:
+                torch.cuda.reset_peak_memory_stats()
+            for part, fn in (
+                    ("24a", lambda: recur24_exact(rank, mesh22, counts,
+                                                  rehearse)),
+                    ("24b", lambda: recur24_step(rank, mesh22, counts,
+                                                 rehearse)),
+                    ("24c", lambda: recur24_decode(rank, mesh14, counts,
+                                                   rehearse))):
+                t1 = time.perf_counter()
+                rec[part] = fn()
+                parts[part] = time.perf_counter() - t1
+                if part == "24b":
+                    rec[part], kept = rec[part]
+                if rank == 0:
+                    log(f"recurrent shard rank 0 {part} "
+                        f"({parts[part]:.1f} s): {json.dumps(rec[part])}")
+            t1 = time.perf_counter()
+            rec["24e"] = recur24_ckpt(rank, mesh22, mesh14, kept,
+                                      f"{directory}/recur_ckpt")
+            parts["24e"] = time.perf_counter() - t1
+            del kept
+            if rank == 0:
+                log(f"recurrent shard rank 0 24e ({parts['24e']:.1f} s): "
+                    f"{json.dumps(rec['24e'])}")
+            if not rehearse:
+                rec["peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                                       / 2 ** 30)
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        gc.collect()
+        if not rehearse:
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        rec["24f"] = recur24_driver(rank, world, directory, counts, rehearse)
+        parts["24f"] = time.perf_counter() - t1
+        if rank == 0:
+            log(f"recurrent shard rank 0 24f ({parts['24f']:.1f} s): "
+                f"{json.dumps(rec['24f'])}")
+        rec["part_s"] = parts
+        rec["seconds"] = time.perf_counter() - t0
+        rec["counts"], rec["expect"] = counts.counts, counts.expect
+        results.put((rank, rec))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        results.put((rank, traceback.format_exc()))
+        raise
+
+
+def phase_recur_shard(rehearse: bool = False) -> dict:
+    """Phase 24: LM_SHARD_WORLD gloo ranks in spawned processes, all on
+    this card, each running :func:`recur_shard_rank`: the recurrent
+    families and gradient compression on a model axis, a checkpoint
+    across meshes and the training driver.  Every rank's flash launches
+    must equal what its drives predict (:func:`gloo_ranks`).
+    ``rehearse`` runs the same drives at the reduced widths on the CPU
+    (no kernel, no launch check)."""
+    label = f"recurrent_shard_{LM_SHARD_WORLD}_ranks_gloo_one_card"
+    t_phase = time.perf_counter()
+    recs, got = gloo_ranks(label, recur_shard_rank, rehearse)
+    rec = {"phase": label, "world": LM_SHARD_WORLD,
+           "note": "the ranks time-share one card over gloo: times are no "
+                   "scaling figure",
+           "launches": got, "ranks": recs,
+           "seconds": time.perf_counter() - t_phase}
+    log("main " + json.dumps(rec))
+    for rank, r in sorted(recs.items()):
+        for arch, b in r["24b"].items():
+            log(f"recurrent shard rank {rank} ({r['device']}, "
+                f"{LM_SHARD_WORLD} gloo ranks sharing one card): 24b {arch} "
+                f"bf16 {b['batch']} x {b['seq']} on (2, 2): step ms "
+                f"{b['ms']}" + (f", single device {b['single_ms']}"
+                               if "single_ms" in b else "")
+                + f"; bytes a step {b['bytes'][-1]}; parts {r['part_s']}")
+    log(f"phase 24: {time.perf_counter() - t_phase:.1f} s; peak GiB "
+        f"{[round(r.get('peak_mem_gib', 0.0), 2) for _, r in sorted(recs.items())]}")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -7293,6 +7884,11 @@ def main() -> int:
 
     # 23. the roofline walk on the card and on meta; the dry-run
     phases.append(phase_roofline())
+    torch.cuda.empty_cache()
+
+    # 24. the recurrent families and compression on a model axis: four
+    # gloo ranks on the card
+    phases.append(phase_recur_shard())
     torch.cuda.empty_cache()
 
     # the kernels record: per entry, the main path's launches and the

@@ -23,7 +23,10 @@ expert parallelism on the ``model`` axis, data parallelism on the
 ``batch`` axes (``pod``, ``data``).  The layers read from their local
 shapes which dimensions are split, so the layout decides, and the
 numbers stay the single-device numbers.  :func:`shard` is therefore the
-identity.
+identity.  A dimension that packs several parts (Mamba2's ``in_proj``:
+z, x, B, C, dt) is placed part by part (:class:`Packed`), so that a
+rank's block holds whole heads of each split part beside the replicated
+ones.
 
 Every rank must issue the same collectives in the same order (the remat
 recompute re-runs the forward's reduces inside the backward, which is
@@ -84,6 +87,26 @@ def reset_bytes() -> None:
     BYTES.update(all_reduce=0, all_gather=0, host_staged=0, calls=0)
 
 
+class Packed(tuple):
+    """The placement of a *packed* dimension: parts laid end to end, each
+    ``(width, entry)`` with ``entry`` None (replicated) or what splits it
+    (mesh axes in a :class:`PartitionSpec`, a logical name in an axes
+    tree).  A rank's block of the dimension is every part's block, in the
+    parts' order: Mamba2's ``in_proj`` packs z, x, B, C and dt into one
+    dimension, of which z, x and dt split by heads and B and C stay
+    whole."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, tuple((int(w), e) for w, e in parts))
+
+    @property
+    def width(self) -> int:
+        return sum(w for w, _ in self)
+
+    def __repr__(self) -> str:
+        return f"Packed{tuple.__repr__(self)}"
+
+
 class PartitionSpec(tuple):
     """One entry a dimension: a mesh axis name, a tuple of them, or None
     (replicated); trailing Nones are left out, as in JAX's."""
@@ -101,16 +124,20 @@ P = PartitionSpec
 class MeshShape:
     """A mesh's shape and axis names without a process group: what
     :func:`resolve_spec` reads, for planning placements (and testing
-    them) on meshes larger than the world.  Every coordinate is 0."""
+    them) on meshes larger than the world.  ``coords`` places this rank
+    on the mesh ({axis: index}; 0 on an axis it does not name), which is
+    what :func:`local_block` reads."""
 
     device_type = "cpu"
 
-    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 coords: Optional[Dict[str, int]] = None):
         self.shape = tuple(int(s) for s in shape)
         self.mesh_dim_names = tuple(axis_names)
+        self.coords = dict(coords or {})
 
     def get_local_rank(self, axis: str) -> int:
-        return 0
+        return self.coords.get(axis, 0)
 
     def get_group(self, axis: str):
         raise RuntimeError("a MeshShape has no process group")
@@ -230,26 +257,36 @@ def resolve_spec(axes: Sequence[AxisName],
         return P()
     sizes = axis_sizes(ctx.mesh)
     used: set = set()
-    out = []
-    for i, logical in enumerate(axes):
+
+    def entry(logical, dim: Optional[int], taken: set):
         mesh_axes = []
         for a in ctx.mesh_axes_for(logical):
             if a in used:
                 continue
             size = sizes[a]
-            if shape is not None:
-                dim = int(shape[i])
+            if dim is not None:
                 span = size * math.prod(sizes[x] for x in mesh_axes)
                 if dim % span != 0 or span > dim:
                     continue
             mesh_axes.append(a)
-            used.add(a)
+            taken.add(a)
         if not mesh_axes:
-            out.append(None)
-        elif len(mesh_axes) == 1:
-            out.append(mesh_axes[0])
-        else:
-            out.append(tuple(mesh_axes))
+            return None
+        return mesh_axes[0] if len(mesh_axes) == 1 else tuple(mesh_axes)
+
+    out = []
+    for i, logical in enumerate(axes):
+        if isinstance(logical, Packed):
+            # each part resolves on its own width; the parts of one
+            # dimension may share an axis, later dimensions may not
+            taken: set = set()
+            parts = [(w, entry(name, w, taken)) for w, name in logical]
+            used.update(taken)
+            out.append(Packed(*parts) if any(e for _, e in parts)
+                       else None)
+            continue
+        dim = None if shape is None else int(shape[i])
+        out.append(entry(logical, dim, used))
     while out and out[-1] is None:          # trailing Nones are implicit
         out.pop()
     return P(*out)
@@ -265,13 +302,23 @@ def aligned_spec(axes: Sequence[AxisName], shape: Sequence[int],
     checks divisibility on entries only, so it splits a single KV head of
     32 columns into two halves on ``model = 2``; the port never cuts a
     head (the standard GQA rule: KV heads are replicated when there are
-    fewer of them than model ranks)."""
+    fewer of them than model ranks).  A :class:`Packed` dimension's
+    units are one a part, and each part is held to its own."""
     ctx = ctx or current_ctx()
     spec = list(resolve_spec(axes, shape, ctx))
+
+    def whole_units(width: int, unit: int, entry) -> bool:
+        return unit <= 1 or (width // unit) % ctx.size(
+            _entry_axes(entry)) == 0
+
     for i, entry in enumerate(spec):
-        if entry is None or units[i] <= 1:
-            continue
-        if (int(shape[i]) // units[i]) % ctx.size(_entry_axes(entry)):
+        if isinstance(entry, Packed):
+            # a packed dimension's units are its parts' (one a part)
+            parts = [(w, e if e is None or whole_units(w, u, e) else None)
+                     for (w, e), u in zip(entry, units[i])]
+            spec[i] = Packed(*parts) if any(e for _, e in parts) else None
+        elif entry is not None and not whole_units(int(shape[i]),
+                                                   units[i], entry):
             spec[i] = None
     while spec and spec[-1] is None:
         spec.pop()
@@ -299,8 +346,9 @@ def is_axes_leaf(x: Any) -> bool:
     """A logical-axes tuple or a PartitionSpec: a leaf of an axes tree."""
     if isinstance(x, PartitionSpec):
         return True
-    return (isinstance(x, tuple) and not _is_namedtuple(x) and all(
-        isinstance(e, (str, type(None))) for e in x))
+    return (isinstance(x, tuple) and not _is_namedtuple(x)
+            and not isinstance(x, Packed) and all(
+                isinstance(e, (str, type(None), Packed)) for e in x))
 
 
 def map_axes(fn: Callable, axes_tree: Any, *trees: Any) -> Any:
@@ -347,6 +395,11 @@ def shard(x: torch.Tensor, *axes: AxisName) -> torch.Tensor:
 def _entry_axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
+    if isinstance(entry, Packed):
+        out: Tuple[str, ...] = ()
+        for _, e in entry:
+            out += tuple(a for a in _entry_axes(e) if a not in out)
+        return out
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
@@ -371,10 +424,46 @@ def local_block(x: torch.Tensor, spec: Sequence,
         axes = _entry_axes(entry)
         if not axes:
             continue
+        if isinstance(entry, Packed):
+            out = _packed_block(out, dim, entry, ctx)
+            continue
         parts = ctx.size(axes)
         step = x.shape[dim] // parts
         out = out.narrow(dim, ctx.coord(axes) * step, step)
     return out if out is x else out.contiguous().clone()
+
+
+def _packed_block(x: torch.Tensor, dim: int, packed: Packed,
+                  ctx: ShardingCtx) -> torch.Tensor:
+    """The rank's block of a packed dimension: each part's block, in the
+    parts' order."""
+    if x.shape[dim] != packed.width:
+        raise ValueError(f"a packed dimension of {packed.width} entries "
+                         f"has {x.shape[dim]}")
+    pieces, lo = [], 0
+    for width, entry in packed:
+        piece = x.narrow(dim, lo, width)
+        axes = _entry_axes(entry)
+        if axes:
+            step = width // ctx.size(axes)
+            piece = piece.narrow(dim, ctx.coord(axes) * step, step)
+        pieces.append(piece)
+        lo += width
+    return torch.cat(pieces, dim=dim)
+
+
+def global_shape(shape: Sequence[int], spec: Sequence,
+                 ctx: Optional[ShardingCtx] = None) -> Tuple[int, ...]:
+    """The whole tensor's shape from a local block's ``shape`` under
+    ``spec``."""
+    ctx = ctx or current_ctx()
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        if isinstance(entry, Packed):
+            out[dim] = entry.width
+        elif _entry_axes(entry):
+            out[dim] *= ctx.size(_entry_axes(entry))
+    return tuple(out)
 
 
 def shard_tree(full_tree: Any, axes_tree: Any,
@@ -411,11 +500,44 @@ def gather_tree(local_tree: Any, specs: Any,
 
     def one(spec, x):
         for dim, entry in enumerate(spec):
-            if _entry_axes(entry):
+            if isinstance(entry, Packed):
+                x = gather_packed(x, dim, entry, ctx)
+            elif _entry_axes(entry):
                 x = gather(x, dim, _entry_axes(entry), ctx)
         return x
 
     return map_axes(one, specs, local_tree)
+
+
+def gather_packed(x: torch.Tensor, dim: int, packed: Packed,
+                  ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
+    """The whole packed dimension from every rank's block (no gradient):
+    one all-gather of the blocks, then each split part's blocks in rank
+    order and each replicated part from the first rank's block."""
+    ctx = ctx or current_ctx()
+    axes = _entry_axes(packed)
+    if any(_entry_axes(e) not in ((), axes) for _, e in packed):
+        raise ValueError(f"{packed!r}: its parts split over different axes")
+    return assemble_packed(
+        gather(x, dim, axes, ctx).split(x.shape[dim], dim=dim), dim, packed)
+
+
+def assemble_packed(blocks: Sequence[torch.Tensor], dim: int,
+                    packed: Packed) -> torch.Tensor:
+    """The whole packed dimension from the blocks of every rank along its
+    axes, in rank order: each split part's blocks concatenated, each
+    replicated part from the first block."""
+    world = len(blocks)
+    pieces, lo = [], 0
+    for width, entry in packed:
+        if _entry_axes(entry):
+            step = width // world
+            pieces += [b.narrow(dim, lo, step) for b in blocks]
+        else:
+            step = width
+            pieces.append(blocks[0].narrow(dim, lo, step))
+        lo += step
+    return torch.cat(pieces, dim=dim)
 
 
 # -- collectives ------------------------------------------------------------
@@ -463,16 +585,26 @@ def _all_gather(x: torch.Tensor, dim: int, axis: str,
 
 class _CopyToModel(torch.autograd.Function):
     """Identity forward, all-reduce backward: the entry of a model-parallel
-    region, whose ranks each send back part of the input's gradient."""
+    region, whose ranks each send back part of the input's gradient.
+    With ``cols`` (lo, hi) only those entries of the last dimension
+    entered (the replicated part of a packed block); the rest of the
+    gradient is the rank's own."""
 
     @staticmethod
-    def forward(fctx, x, ctx):
-        fctx.ctx = ctx
+    def forward(fctx, x, ctx, cols):
+        fctx.ctx, fctx.cols = ctx, cols
         return x.view_as(x)
 
     @staticmethod
     def backward(fctx, grad):
-        return all_reduce(grad.contiguous().clone(), MODEL, fctx.ctx), None
+        if fctx.cols is None:
+            return all_reduce(grad.contiguous().clone(), MODEL,
+                              fctx.ctx), None, None
+        lo, hi = fctx.cols
+        grad = grad.clone()
+        grad[..., lo:hi] = all_reduce(grad[..., lo:hi].contiguous(), MODEL,
+                                      fctx.ctx)
+        return grad, None, None
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -486,6 +618,22 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(fctx, grad):
         return grad, None
+
+
+class _SumOverModel(torch.autograd.Function):
+    """All-reduce forward and backward: a sum over the model ranks of which
+    each rank then reads a part of its own (the split-width RMSNorm's sum
+    of squares, the mLSTM's gate partials), so that the gradient of each
+    rank's part is the sum of every rank's reads."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return all_reduce(x.contiguous().clone(), MODEL, ctx)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return all_reduce(grad.contiguous().clone(), MODEL, fctx.ctx), None
 
 
 class _GatherFromModel(torch.autograd.Function):
@@ -502,14 +650,25 @@ class _GatherFromModel(torch.autograd.Function):
         return grad.narrow(fctx.dim, lo, fctx.width).contiguous(), None, None
 
 
-def copy_to_model(x: torch.Tensor) -> torch.Tensor:
-    """``x`` entering a model-parallel region (the identity without one).
+def copy_to_model(x: torch.Tensor,
+                  cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``x`` entering a model-parallel region (the identity without one);
+    with ``cols`` (lo, hi) only ``x[..., lo:hi]`` enters, the replicated
+    part of a rank's packed block.
 
     Not ``torch.distributed.nn.functional.all_reduce``: its backward
     all-reduces the gradient again, which would make every gradient
     upstream ``model``× too large."""
     ctx = current_ctx()
-    return x if ctx.tp == 1 else _CopyToModel.apply(x, ctx)
+    return x if ctx.tp == 1 else _CopyToModel.apply(x, ctx, cols)
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the model ranks' ``x``, which each rank reads only in
+    part (see :class:`_SumOverModel`; the identity without a model
+    axis)."""
+    ctx = current_ctx()
+    return x if ctx.tp == 1 else _SumOverModel.apply(x, ctx)
 
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:

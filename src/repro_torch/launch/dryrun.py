@@ -18,11 +18,8 @@ priced by the ring formulas over their mesh axis.  The reference's
 (the port's step takes its data rows); a prefill or decode cell the
 rank's rows and cache.
 
-Cells skip as the reference skips them (``shape_applicable``).  A cell
-the port refuses on a model axis wider than 1 (the hybrid and ssm
-families: ``RECURRENT_REFUSED``, ROADMAP.md Queue 1 item 12b-iii) is
-``"status": "refused"``: counted apart from failures, it does not make
-the CLI exit non-zero.
+Cells skip as the reference skips them (``shape_applicable``); every
+other cell walks (``"status": "ok"``), the recurrent families' too.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-32b \\
@@ -58,16 +55,13 @@ from ..roofline.analysis import (analyze_step, model_bytes_estimate,
                                  model_flops_estimate)
 from ..roofline.op_walk import Walk
 from ..serve.engine import make_prefill_step, make_serve_step
-from ..train.optimizer import adamw_init, leaves
+from ..train.optimizer import adamw_init
 from ..train.train_step import (TrainState, data_rows, make_train_step,
                                 require_grad)
 from .mesh import POD_CHIPS, make_production_mesh
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
-
-# the roadmap item a refusal cites: such a cell is "refused", not failed
-_REFUSAL = "ROADMAP.md Queue 1 item"
 
 _MESHES: Dict[bool, object] = {}
 
@@ -111,8 +105,7 @@ def production_mesh(multi_pod: bool):
 def build_cell(arch: str, shape_name: str, multi_pod: bool,
                overrides: Optional[Dict] = None) -> Tuple[Walk, Dict]:
     """Rank 0's local blocks of one cell on meta, its step walked: returns
-    (walk, meta).  Raises :class:`SkipCell` for a shape the arch skips,
-    and the port's ``NotImplementedError`` for a refused one."""
+    (walk, meta).  Raises :class:`SkipCell` for a shape the arch skips."""
     cfg = _dryrun_config(get_config(arch), overrides)
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
@@ -137,8 +130,12 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
             long_ctx = shape.seq_len > 100_000
             cache = shard_tree(
                 model.init_cache(shape.global_batch, shape.seq_len),
-                model.cache_axes(long_context=long_ctx))
-            rows = leaves(cache)[0].shape[1]
+                model.cache_specs(shape.global_batch, shape.seq_len,
+                                  long_context=long_ctx))
+            # the rank's rows, as the cache's batch dimension resolves
+            rows = shard_tree({"r": torch.empty(shape.global_batch,
+                                                device="meta")},
+                              {"r": ("batch",)})["r"].shape[0]
             token = torch.empty((rows, 1), dtype=torch.int32,
                                 device="meta")
             args = (params, cache, token, shape.seq_len - 1)
@@ -177,10 +174,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                                 overrides=overrides)
     except SkipCell as e:
         result = {**head, "status": "skipped", "reason": str(e)}
-    except NotImplementedError as e:
-        if _REFUSAL not in str(e):
-            raise
-        result = {**head, "status": "refused", "reason": str(e)}
     else:
         report = analyze_step(
             walk, arch=arch, shape=shape_name, mesh_name=mesh_name,

@@ -8,6 +8,9 @@ tolerance, on one device or on a mesh.
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
         -m repro_torch.launch.train --mesh local --model-parallel 2 \\
         --arch custom-10m --steps 20
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train --mesh local --model-parallel 2 \\
+        --arch zamba2-1.2b --compression-rank 2 --steps 3
 
 The port of the JAX package's ``launch/train.py``: the same ``[train]``
 lines, the same result dict, the same supervised restart loop.  It runs
@@ -21,9 +24,12 @@ steps of an uninterrupted one.
 ``--mesh local`` trains on every rank of the world, ``--model-parallel``
 of them a model group (``launch/mesh.py``'s ``make_local_mesh``), under
 ``use_sharding``: explicit tensor, expert and data parallelism
-(``dist/sharding.py``).  The world comes from ``torchrun``'s environment
-(``python -m torch.distributed.run``) or from ``--init-method`` (a
-``file://`` store) with ``--world-size`` and ``--rank``.  The backend is
+(``dist/sharding.py``), for every family (the recurrent blocks split by
+whole heads), with ``--compression-rank`` compressing each gradient leaf
+as the single device compresses the whole leaf.  The world comes from
+``torchrun``'s environment (``python -m torch.distributed.run``) or from
+``--init-method`` (a ``file://`` store) with ``--world-size`` and
+``--rank``.  The backend is
 gloo on the CPU; on the card NCCL when every rank has a card of its own,
 gloo when ranks share one.  Only rank 0 writes checkpoints (gathered
 whole, in the reference's format) and logs, and every rank takes rank
@@ -52,10 +58,9 @@ from ..dist.fault_tolerance import (FaultToleranceConfig,
 from ..dist.ivm_shard import mesh_device
 from ..dist.sharding import use_sharding
 from ..models import LM
-from ..models.model import RECURRENT, RECURRENT_REFUSED
 from ..train import grad_compression as gc
-from ..train.train_step import (COMPRESSION_REFUSED, init_train_state,
-                                make_train_step, train_state_specs)
+from ..train.train_step import (init_train_state, make_train_step,
+                                train_state_specs)
 
 
 def custom_100m() -> ModelConfig:
@@ -144,11 +149,15 @@ def _train(cfg: ModelConfig, *, steps, batch, seq, lr, seed, ckpt_dir,
     model = LM(cfg, device=device)
     shape = ShapeConfig("train", seq, batch, "train")
     state = _new_state(model, seed)
-    comp = (gc.init_compression(state.params, rank=compression_rank)
-            if compression_rank else None)
+    specs = train_state_specs(model) if mesh is not None else None
+    # Q₀ drawn from the seed, the same on every rank (each keeps its block)
+    comp = (gc.init_compression(
+        state.params, rank=compression_rank,
+        generator=torch.Generator(device=model.device).manual_seed(seed),
+        specs=None if specs is None else specs.params)
+        if compression_rank else None)
     step_fn = make_train_step(model, lr=lr, warmup=min(50, steps // 10 + 1),
                               total_steps=steps, compression=comp)
-    specs = train_state_specs(model) if mesh is not None else None
     lead = mesh is None or dist.get_rank() == 0
 
     mgr = (CheckpointManager(ckpt_dir, async_save=True, chaos=chaos)
@@ -265,17 +274,6 @@ def _agree_phases(ctl: FaultTolerantController, mesh) -> None:
     ctl.tick = agreed
 
 
-def _refusals(cfg: ModelConfig, model_parallel: int,
-              compression_rank: int) -> None:
-    """The mesh runs that wait for ROADMAP.md Queue 1 item 12b-iii, raised
-    before a world is joined."""
-    if model_parallel > 1 and cfg.family in RECURRENT:
-        raise NotImplementedError(RECURRENT_REFUSED.format(
-            family=cfg.family))
-    if model_parallel > 1 and compression_rank:
-        raise NotImplementedError(COMPRESSION_REFUSED)
-
-
 def _join_world(args):
     """The process group and local mesh of ``--mesh local``: the world
     from ``--init-method`` / ``--world-size`` / ``--rank``, else from
@@ -339,7 +337,6 @@ def main(argv=None):
     cfg = resolve_config(args)
     mesh = None
     if args.mesh == "local":
-        _refusals(cfg, args.model_parallel, args.compression_rank)
         mesh = _join_world(args)
     lead = mesh is None or dist.get_rank() == 0
     ft = FaultToleranceConfig(heartbeat_timeout=args.heartbeat_timeout,

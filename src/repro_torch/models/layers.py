@@ -10,7 +10,8 @@ Under a mesh (``use_sharding``) the params are each rank's local blocks
 and the layers read from their shapes what is split over the ``model``
 axis: the embedding is vocab-parallel, the head leaves its logits
 vocab-sharded, the MLP is column-parallel into ``ff`` and row-parallel
-out of it, with one reduce after.
+out of it, with one reduce after, and an RMSNorm over a split width sums
+its squares over the ranks.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import copy_to_model, reduce_from_model, split_offset
+from ..dist.sharding import (copy_to_model, reduce_from_model, split_offset,
+                             sum_over_model)
 
 Tensor = torch.Tensor
 
@@ -46,10 +48,19 @@ def axes_rmsnorm() -> Dict:
     return {"scale": (None,)}
 
 
-def rmsnorm(params: Dict[str, Tensor], x: Tensor, eps: float = 1e-6
-            ) -> Tensor:
+def rmsnorm(params: Dict[str, Tensor], x: Tensor, eps: float = 1e-6,
+            width: Optional[int] = None) -> Tensor:
+    """RMSNorm over the last dimension in f32.  An ``x`` narrower than
+    ``width`` is this rank's slice of a width split over the model axis
+    (with the scale's slice): the sum of squares is summed over the model
+    ranks (:func:`~repro_torch.dist.sharding.sum_over_model`), then the
+    slice is normalised."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    if width is None or x.shape[-1] == width:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+    else:
+        split_offset(x.shape[-1], width)                # checks the slice
+        var = sum_over_model((xf * xf).sum(dim=-1, keepdim=True)) / width
     out = xf * torch.rsqrt(var + eps)
     return (out * params["scale"].float()).to(x.dtype)
 

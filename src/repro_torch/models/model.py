@@ -27,12 +27,13 @@ that autograd records runs under ``torch.utils.checkpoint`` (its
 activations recomputed in the backward), which moves memory, not values.
 
 :meth:`LM.param_axes` and :meth:`LM.cache_axes` are the reference's
-logical-axis trees, leaf for leaf; :meth:`LM.param_specs` is the port's
-placement of them on the active mesh (``dist.sharding``).  Under
-``use_sharding`` every method takes each rank's local blocks and runs
-explicit SPMD: tensor and expert parallelism on the ``model`` axis, the
-batch split over the data axes; :meth:`LM.loss` gives the global batch's
-value on every rank.
+logical-axis trees, leaf for leaf; :meth:`LM.param_specs` and
+:meth:`LM.cache_specs` are the port's placement of them on the active
+mesh (``dist.sharding``), the recurrent blocks and states by whole heads
+(:meth:`LM.placement`).  Under ``use_sharding`` every method takes each
+rank's local blocks and runs explicit SPMD: tensor and expert
+parallelism on the ``model`` axis, the batch split over the data axes;
+:meth:`LM.loss` gives the global batch's value on every rank.
 """
 
 from __future__ import annotations
@@ -59,12 +60,6 @@ TRANSFORMER = ("dense", "moe", "vlm", "audio")
 #: the recurrent families: no batched prefill, the cache holds states
 RECURRENT = ("hybrid", "ssm")
 FAMILIES = TRANSFORMER + RECURRENT
-
-RECURRENT_REFUSED = (
-    "the {family} family on a mesh with model > 1 waits for ROADMAP.md "
-    "Queue 1 item 12b-iii: its projections pack several parts into one "
-    "\"ff\" dimension (Mamba2's in_proj: z, x, B, C and dt), and an "
-    "explicit split of them needs a design of its own")
 
 
 class LM:
@@ -224,21 +219,41 @@ class LM:
                 out[k] = (1,) * (len(v) - len(unit)) + tuple(unit)
         return out
 
-    def param_specs(self, ctx=None) -> Params:
-        """The port's placement of every param leaf on the active mesh: the
-        reference's :func:`~repro_torch.dist.sharding.resolve_spec` of
-        :meth:`param_axes`, except that no head is cut
-        (:func:`~repro_torch.dist.sharding.aligned_spec`; an expert never
-        is, the expert dimension being whole experts).  Raises for a
-        recurrent family on a model axis wider than 1 (ROADMAP.md Queue 1
-        item 12b-iii), and for rules that split a parameter over another
-        axis than ``model`` (the layers run their collectives there)."""
-        ctx = ctx or current_ctx()
-        self.check_mesh(ctx)
+    def placement(self) -> Tuple[Params, Params]:
+        """The port's logical placement of every param leaf: (axes, units),
+        two trees of :meth:`param_axes`' shape.  The axes are the
+        reference's, except the recurrent mixers', which split by whole
+        heads (:func:`.ssm.placement_mamba2`, :func:`.xlstm.placement_mlstm`,
+        :func:`.xlstm.placement_slstm`); a unit is the entries of a
+        dimension that make one head (1 where there is none), which no
+        split may cut."""
         axes = self.param_axes()
+        units = self._param_units(axes)
+        fam = self.cfg.family
+        if fam == "hybrid":
+            mixer = ssm.placement_mamba2(self.cfg)
+            _place(axes, units, ("mamba_groups", "mixer"), mixer, 2)
+            if "mamba_tail" in axes:
+                _place(axes, units, ("mamba_tail", "mixer"), mixer, 1)
+        elif fam == "ssm":
+            _place(axes, units, ("mlstm_groups", "mixer"),
+                   xlstm.placement_mlstm(self.cfg), 2)
+            _place(axes, units, ("slstm", "cell"),
+                   xlstm.placement_slstm(self.cfg), 1)
+        return axes, units
+
+    def param_specs(self, ctx=None) -> Params:
+        """The port's placement of every param leaf on the active mesh:
+        :meth:`placement` resolved as the reference resolves its axes
+        (:func:`~repro_torch.dist.sharding.resolve_spec`), except that no
+        head is cut (:func:`~repro_torch.dist.sharding.aligned_spec`; an
+        expert never is, the expert dimension being whole experts).
+        Raises for rules that split a parameter over another axis than
+        ``model`` (the layers run their collectives there)."""
+        ctx = ctx or current_ctx()
+        axes, units = self.placement()
         specs = map_axes(lambda ax, shape, unit: aligned_spec(
-            ax, shape, unit, ctx), axes, self.param_shapes(),
-            self._param_units(axes))
+            ax, shape, unit, ctx), axes, self.param_shapes(), units)
         bad = set()
         map_axes(lambda spec: bad.update(set(spec_axes(spec)) - {MODEL}),
                  specs)
@@ -249,12 +264,30 @@ class LM:
                 "only")
         return specs
 
-    def check_mesh(self, ctx=None) -> None:
-        """Raise for a recurrent family on a model axis wider than 1."""
+    def cache_specs(self, batch: int, max_seq: int,
+                    long_context: bool = False, ctx=None) -> Params:
+        """The port's placement of the decode cache of :meth:`init_cache`
+        (``batch``, ``max_seq``) on the active mesh: the reference's
+        :meth:`cache_axes` resolved, except the recurrent states', which
+        hold the rank's heads (:func:`.ssm.placement_mamba2_state`,
+        :func:`.xlstm.placement_mlstm_state`).  A sharded decode takes
+        ``shard_tree(init_cache(batch, max_seq), cache_specs(batch,
+        max_seq))``, as a sharded step takes its params."""
         ctx = ctx or current_ctx()
-        if ctx.tp > 1 and self.cfg.family in RECURRENT:
-            raise NotImplementedError(
-                RECURRENT_REFUSED.format(family=self.cfg.family))
+        axes = self.cache_axes(long_context)
+        units = map_axes(lambda ax: (1,) * len(ax), axes)
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            state = ssm.placement_mamba2_state(cfg)
+            _place(axes, units, ("mamba",), state, 2)
+            if "mamba_tail" in axes:
+                _place(axes, units, ("mamba_tail",), state, 1)
+        elif cfg.family == "ssm":
+            _place(axes, units, ("mlstm",), xlstm.placement_mlstm_state(cfg),
+                   2)
+        shapes = LM(cfg, device="meta").init_cache(batch, max_seq)
+        return map_axes(lambda ax, x, unit: aligned_spec(
+            ax, tuple(x.shape), unit, ctx), axes, shapes, units)
 
     def _zamba_layout(self) -> Tuple[int, int]:
         """(groups of ``attn_every`` Mamba2 blocks, Mamba2 blocks after
@@ -336,7 +369,6 @@ class LM:
         """(B, S, D) → (B, S, D); returns (hidden, aux_loss: the blocks'
         router losses summed, 0 without MoE)."""
         cfg = self.cfg
-        self.check_mesh()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "hybrid":
             return self._zamba_backbone(params, x, positions, causal), aux
@@ -682,6 +714,26 @@ def _cross_entropy(logits: Tensor, targets: Tensor,
         [torch.exp(logits - top[..., None]).sum(dim=-1),
          true * inside.float()]))
     return torch.log(sums[0]) + top - sums[1]
+
+
+def _place(axes: Dict, units: Dict, path: Tuple[str, ...],
+           placement: Tuple[Dict, Dict], layers_: int) -> None:
+    """Put a block's (axes, units) placement at ``path`` of the two trees,
+    behind ``layers_`` stacked layer axes (None axes, units of 1)."""
+    ax, un = placement
+    for _ in range(layers_):
+        ax = _stack_axes(ax)
+        un = _stack_units(un)
+    *head, last = path
+    for k in head:
+        axes, units = axes[k], units[k]
+    axes[last], units[last] = ax, un
+
+
+def _stack_units(units: Dict) -> Dict:
+    """A leading layer axis (a unit of 1) on every leaf of a units tree."""
+    return {k: _stack_units(v) if isinstance(v, dict) else (1,) + v
+            for k, v in units.items()}
 
 
 def _stack_axes(axes: Dict) -> Dict:

@@ -13,6 +13,17 @@ kernel does either.
 Single B/C group (the zamba2 config): the heads share B and C.
 ``F.softplus`` returns its input above its threshold of 20, where the
 exact log1p(exp(x)) of ``jax.nn.softplus`` differs by < e^-20.
+
+Under a mesh the block is tensor-parallel over whole Mamba2 heads
+(:func:`placement_mamba2`): a rank's ``in_proj`` block packs its heads'
+z and x columns, the B and C columns (replicated: every rank computes
+them) and its heads' dt columns; ``conv_w`` packs x|B|C the same way;
+the norm is the split-width RMSNorm and ``out_proj`` is row-split, with
+one reduce after.  ``dt_bias``, ``a_log`` and ``d_skip`` stay replicated
+and each rank reads its heads' entries.  The parts read in part (the B
+and C columns, the head-sliced leaves) enter the model region, so their
+gradient is summed over the ranks.  When the heads do not divide the
+model axis, the block is replicated and recomputed on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +33,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import (Packed, copy_to_model, reduce_from_model,
+                             split_offset)
 from . import layers
 
 Tensor = torch.Tensor
@@ -59,26 +72,59 @@ def init_mamba2(cfg, dtype, generator, device) -> Dict[str, Tensor]:
     }
 
 
-def _split_proj(cfg, proj: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """in_proj's output → (z, x|B|C for the conv, dt)."""
+def _local_dims(params: Dict[str, Tensor], cfg) -> Tuple[int, int, int]:
+    """(d_inner, heads, first head) of the block ``params`` holds: the
+    whole block, or a rank's heads under a mesh (``out_proj``'s rows)."""
+    _, h, p, _ = _dims(cfg)
+    heads = params["out_proj"].shape[0] // p
+    return heads * p, heads, split_offset(heads, h)[1]
+
+
+def _region(params: Dict[str, Tensor], cfg, x: Tensor
+            ) -> Tuple[Dict[str, Tensor], Tensor, bool]:
+    """(params, x, split) for the block's body: with the heads split, x
+    and the parts each rank reads in part enter the model region — the B
+    and C columns of ``in_proj``, ``conv_w`` and ``conv_b`` and the
+    head-sliced ``dt_bias``, ``a_log``, ``d_skip``."""
     d_inner, _, _, n = _dims(cfg)
+    dl, heads, lo = _local_dims(params, cfg)
+    if dl == d_inner:
+        return params, x, False
+    entered = {name: copy_to_model(params[name])[lo:lo + heads]
+               for name in ("dt_bias", "a_log", "d_skip")}
+    # B and C follow z and x in in_proj's block, x in conv_w's and conv_b's
+    entered["in_proj"] = copy_to_model(params["in_proj"],
+                                       cols=(2 * dl, 2 * dl + 2 * n))
+    for name in ("conv_w", "conv_b"):
+        entered[name] = copy_to_model(params[name], cols=(dl, dl + 2 * n))
+    return dict(params, **entered), copy_to_model(x), True
+
+
+def _split_proj(cfg, proj: Tensor, d_inner: int
+                ) -> Tuple[Tensor, Tensor, Tensor]:
+    """in_proj's output → (z, x|B|C for the conv, dt), at ``d_inner``
+    (a rank's width under a mesh)."""
+    n = _dims(cfg)[3]
     return (proj[..., :d_inner], proj[..., d_inner:2 * d_inner + 2 * n],
             proj[..., 2 * d_inner + 2 * n:])
 
 
-def _project(params: Dict[str, Tensor], cfg, x: Tensor
+def _project(params: Dict[str, Tensor], cfg, x: Tensor, d_inner: int
              ) -> Tuple[Tensor, Tensor, Tensor]:
     """x (B, S, D) through in_proj → (z, x|B|C, dt), each (B, S, ·)."""
-    return _split_proj(cfg, x @ params["in_proj"])
+    return _split_proj(cfg, x @ params["in_proj"], d_inner)
 
 
-def _output(params: Dict[str, Tensor], cfg, y: Tensor, z: Tensor
-            ) -> Tensor:
+def _output(params: Dict[str, Tensor], cfg, y: Tensor, z: Tensor,
+            split: bool) -> Tensor:
     """The scan's y (B, S, d_inner) gated by SiLU(z) in f32, RMSNorm,
-    out_proj → (B, S, D)."""
+    out_proj → (B, S, D); ``split``: y is a rank's heads, normalised over
+    the whole width, and out_proj's partial outputs are summed."""
     y = y * F.silu(z.float()).to(y.dtype)
-    y = layers.rmsnorm(params["norm"], y, cfg.norm_eps)
-    return y @ params["out_proj"]
+    y = layers.rmsnorm(params["norm"], y, cfg.norm_eps,
+                       width=_dims(cfg)[0])
+    y = y @ params["out_proj"]
+    return reduce_from_model(y) if split else y
 
 
 def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor) -> Tensor:
@@ -161,8 +207,10 @@ def chunked_ssd(x: Tensor, dt: Tensor, a_log: Tensor, bmat: Tensor,
 def mamba2_block(params: Dict[str, Tensor], cfg, x: Tensor) -> Tensor:
     """Full-sequence Mamba2 mixer: x (B, S, D) → (B, S, D)."""
     b, s, _ = x.shape
-    d_inner, h, p, n = _dims(cfg)
-    z, xbc, dt_raw = _project(params, cfg, x)
+    _, _, p, n = _dims(cfg)
+    d_inner, h, _ = _local_dims(params, cfg)
+    params, x, split = _region(params, cfg, x)
+    z, xbc, dt_raw = _project(params, cfg, x, d_inner)
     xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
     xs = xbc[..., :d_inner].reshape(b, s, h, p)
     bmat = xbc[..., d_inner:d_inner + n]
@@ -170,7 +218,7 @@ def mamba2_block(params: Dict[str, Tensor], cfg, x: Tensor) -> Tensor:
     dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None, :])
     y, _ = chunked_ssd(xs, dt, params["a_log"], bmat, cmat, cfg.ssm.chunk)
     y = y + (params["d_skip"][None, None, :, None] * xs.float()).to(y.dtype)
-    return _output(params, cfg, y.reshape(b, s, d_inner), z)
+    return _output(params, cfg, y.reshape(b, s, d_inner), z, split)
 
 
 # -- decode (recurrent, O(1) per token) -------------------------------------------
@@ -184,9 +232,40 @@ def axes_mamba2(cfg) -> Dict:
             "out_proj": ("ff", "fsdp")}
 
 
+def placement_mamba2(cfg) -> Tuple[Dict, Dict]:
+    """The port's placement of :func:`init_mamba2`'s leaves: (logical
+    axes, units: the entries of a dimension that make one head).  z, x
+    and dt split by whole heads and B and C stay whole, one part each of
+    the packed ``in_proj`` and ``conv_w`` (:class:`Packed`); the norm
+    splits with the heads.  The reference's ``"ff"`` cuts ``in_proj``
+    contiguously and replicates the norm."""
+    d_inner, h, p, n = _dims(cfg)
+    proj = Packed((d_inner, "ff"), (d_inner, "ff"), (2 * n, None), (h, "ff"))
+    xbc = Packed((d_inner, "ff"), (2 * n, None))
+    axes = {"in_proj": ("fsdp", proj), "conv_w": (None, xbc),
+            "conv_b": (xbc,), "dt_bias": (None,), "a_log": (None,),
+            "d_skip": (None,), "norm": {"scale": ("ff",)},
+            "out_proj": ("ff", "fsdp")}
+    units = {"in_proj": (1, (p, p, 1, 1)), "conv_w": (1, (p, 1)),
+             "conv_b": ((p, 1),), "dt_bias": (1,), "a_log": (1,),
+             "d_skip": (1,), "norm": {"scale": (p,)}, "out_proj": (p, 1)}
+    return axes, units
+
+
 def axes_mamba2_state() -> Dict:
     return {"conv": ("batch", None, "ff"),
             "ssm": ("batch", None, None, None)}
+
+
+def placement_mamba2_state(cfg) -> Tuple[Dict, Dict]:
+    """The port's placement of the decode state: the conv window packs
+    x|B|C as ``conv_w`` does, and the SSM state holds the rank's heads
+    (the reference replicates it)."""
+    d_inner, _, p, n = _dims(cfg)
+    axes = {"conv": ("batch", None, Packed((d_inner, "ff"), (2 * n, None))),
+            "ssm": ("batch", "ff", None, None)}
+    units = {"conv": (1, 1, (p, 1)), "ssm": (1, 1, 1, 1)}
+    return axes, units
 
 
 def init_mamba2_state(cfg, batch: int, dtype, device) -> Dict[str, Tensor]:
@@ -206,10 +285,13 @@ def mamba2_decode_step(params: Dict[str, Tensor], cfg, x: Tensor,
     """One token: x (B, 1, D) → (B, 1, D) in O(d_inner·N).  Updates
     ``state``'s conv window and SSM state IN PLACE (the reference returns
     new ones), so a stacked cache keeps its storage from step to step.
-    Returns (out, state)."""
-    z, xbc, dt_raw = _project(params, cfg, x)
+    Returns (out, state).  Under a mesh the state holds the rank's heads
+    (:func:`placement_mamba2_state`)."""
+    d_inner = _local_dims(params, cfg)[0]
+    params, x, split = _region(params, cfg, x)
+    z, xbc, dt_raw = _project(params, cfg, x, d_inner)
     y = _state_step(params, cfg, xbc, dt_raw, state)
-    return _output(params, cfg, y.to(x.dtype), z), state
+    return _output(params, cfg, y.to(x.dtype), z, split), state
 
 
 def _state_step(params: Dict[str, Tensor], cfg, xbc: Tensor,
@@ -218,7 +300,8 @@ def _state_step(params: Dict[str, Tensor], cfg, xbc: Tensor,
     xbc (B, 1, C) and dt_raw (B, 1, H) → y (B, 1, d_inner) f32, the skip
     term included."""
     b = xbc.shape[0]
-    d_inner, h, p, n = _dims(cfg)
+    _, _, p, n = _dims(cfg)
+    d_inner, h, _ = _local_dims(params, cfg)
     # conv ring: window = [conv_state, xbc_t]
     win = torch.cat([state["conv"], xbc], dim=1)             # (B,K,C)
     conv_out = torch.einsum("bkc,kc->bc", win, params["conv_w"]) \

@@ -11,6 +11,20 @@ it runs as a Python loop over time.  Plain torch: no Pallas kernel backs
 this module.  The log forget gates are -softplus(-x), as the reference
 writes them; ``F.softplus`` returns its input above its threshold of 20,
 where the exact log1p(exp(x)) of ``jax.nn.softplus`` differs by < e^-20.
+
+Under a mesh the mLSTM is tensor-parallel over whole heads
+(:func:`placement_mlstm`): ``up_l``, ``up_r``, the conv, the headwise
+q/k/v, the norm (the split-width RMSNorm) and ``down`` (row-split, one
+reduce after) hold the rank's heads.  The gates read every head's
+channels, so each rank multiplies its channels by its rows of
+``w_igate`` / ``w_fgate`` for all heads, the (B, S, H) partials are
+summed over the ranks (``sum_over_model``, whose backward sums too: each
+rank reads only its heads), and each rank takes its heads.  The sLSTM
+cell mixes heads in its gates (``_slstm_cell``), so it and its gate
+weights stay replicated and every rank runs the recurrence; its up/down
+projection runs as a tensor-parallel MLP on ``"ff"`` when ``d_up``
+divides the model axis.  Heads that do not divide the model axis leave
+the whole block replicated, recomputed on every rank.
 """
 
 from __future__ import annotations
@@ -20,6 +34,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import (copy_to_model, reduce_from_model, split_offset,
+                             sum_over_model)
 from . import layers
 
 Tensor = torch.Tensor
@@ -135,17 +151,52 @@ def mlstm_chunkwise(q: Tensor, k: Tensor, v: Tensor, log_i: Tensor,
     return torch.stack(hs, dim=1).reshape(b, s, h, hd)[:, :s_orig]
 
 
-def _gates(params: Dict[str, Tensor], cf: Tensor) -> Tuple[Tensor, Tensor]:
-    """(log input gate, log forget gate) from the conv output in f32."""
-    log_i = cf @ params["w_igate"] + params["b_igate"]
-    log_f = -F.softplus(-(cf @ params["w_fgate"] + params["b_fgate"]))
+def _local_heads(params: Dict[str, Tensor], cfg) -> Tuple[int, int]:
+    """(heads, first head) of the mLSTM block ``params`` holds: all of
+    them, or a rank's under a mesh (``wq``'s)."""
+    heads = params["wq"].shape[0]
+    return heads, split_offset(heads, cfg.n_heads)[1]
+
+
+def _gates(params: Dict[str, Tensor], cfg, cf: Tensor
+           ) -> Tuple[Tensor, Tensor]:
+    """(log input gate, log forget gate) from the conv output in f32.
+    With a rank's heads, ``cf`` holds the rank's channels and the gate
+    weights its rows: the partial products of all heads are summed over
+    the model ranks, then the rank's heads taken."""
+    heads, lo = _local_heads(params, cfg)
+    h = cfg.n_heads
+    if heads == h:
+        log_i = cf @ params["w_igate"] + params["b_igate"]
+        log_f = -F.softplus(-(cf @ params["w_fgate"] + params["b_fgate"]))
+        return log_i, log_f
+    pre = sum_over_model(torch.cat([cf @ params["w_igate"],
+                                    cf @ params["w_fgate"]], dim=-1))
+    log_i = pre[..., lo:lo + heads] + params["b_igate"]
+    log_f = -F.softplus(-(pre[..., h + lo:h + lo + heads]
+                          + params["b_fgate"]))
     return log_i, log_f
+
+
+def _mlstm_out(params: Dict[str, Tensor], cfg, y: Tensor, right: Tensor,
+               split: bool) -> Tensor:
+    """The cell's y (B, S, heads·hd) → RMSNorm over d_inner, gated by
+    SiLU(right), ``down`` (its partial outputs summed when ``split``)."""
+    y = layers.rmsnorm(params["norm"], y, cfg.norm_eps,
+                       width=_mlstm_dims(cfg)[0])
+    y = y * F.silu(right.float()).to(y.dtype)
+    y = y @ params["down"]
+    return reduce_from_model(y) if split else y
 
 
 def mlstm_block(params: Dict[str, Tensor], cfg, x: Tensor) -> Tensor:
     """x (B, S, D) → (B, S, D)."""
     b, s, _ = x.shape
-    d_inner, h, hd = _mlstm_dims(cfg)
+    _, h_all, hd = _mlstm_dims(cfg)
+    h = _local_heads(params, cfg)[0]
+    split = h != h_all
+    if split:
+        x = copy_to_model(x)
     left = x @ params["up_l"]
     right = x @ params["up_r"]
     c = _causal_conv(left, params["conv_w"], params["conv_b"])
@@ -154,13 +205,11 @@ def mlstm_block(params: Dict[str, Tensor], cfg, x: Tensor) -> Tensor:
     q = torch.einsum("bshd,hde->bshe", ch, params["wq"])
     k = torch.einsum("bshd,hde->bshe", ch, params["wk"])
     v = torch.einsum("bshd,hde->bshe", lh, params["wv"])
-    log_i, log_f = _gates(params, c.float())
+    log_i, log_f = _gates(params, cfg, c.float())
     y = mlstm_chunkwise(q.float(), k.float(), v.float(), log_i, log_f,
                         cfg.xlstm.chunk)
-    y = y.reshape(b, s, d_inner).to(x.dtype)
-    y = layers.rmsnorm(params["norm"], y, cfg.norm_eps)
-    y = y * F.silu(right.float()).to(y.dtype)
-    return y @ params["down"]
+    y = y.reshape(b, s, h * hd).to(x.dtype)
+    return _mlstm_out(params, cfg, y, right, split)
 
 
 def axes_mlstm(cfg) -> Dict:
@@ -174,9 +223,43 @@ def axes_mlstm(cfg) -> Dict:
             "norm": layers.axes_rmsnorm(), "down": ("ff", "fsdp")}
 
 
+def placement_mlstm(cfg) -> Tuple[Dict, Dict]:
+    """The port's placement of :func:`init_mlstm`'s leaves: (logical
+    axes, units: the entries of a dimension that make one head).  Every
+    head-aligned leaf splits by whole heads on ``"heads"``, the gate
+    weights by their rows (the reference: ``(None, "heads")``, columns),
+    the norm with the heads (the reference replicates it)."""
+    _, _, hd = _mlstm_dims(cfg)
+    axes = {"up_l": ("fsdp", "heads"), "up_r": ("fsdp", "heads"),
+            "conv_w": (None, "heads"), "conv_b": ("heads",),
+            "wq": ("heads", None, None), "wk": ("heads", None, None),
+            "wv": ("heads", None, None),
+            "w_igate": ("heads", None), "b_igate": ("heads",),
+            "w_fgate": ("heads", None), "b_fgate": ("heads",),
+            "norm": {"scale": ("heads",)}, "down": ("heads", "fsdp")}
+    units = {"up_l": (1, hd), "up_r": (1, hd), "conv_w": (1, hd),
+             "conv_b": (hd,), "wq": (1, 1, 1), "wk": (1, 1, 1),
+             "wv": (1, 1, 1), "w_igate": (hd, 1), "b_igate": (1,),
+             "w_fgate": (hd, 1), "b_fgate": (1,), "norm": {"scale": (hd,)},
+             "down": (hd, 1)}
+    return axes, units
+
+
 def axes_mlstm_state() -> Dict:
     return {"conv": ("batch", None, "ff"), "s": ("batch", "heads", None, None),
             "n": ("batch", "heads", None), "m": ("batch", "heads")}
+
+
+def placement_mlstm_state(cfg) -> Tuple[Dict, Dict]:
+    """The port's placement of the mLSTM decode state: every leaf holds
+    the rank's heads (the conv window by whole heads on ``"heads"``)."""
+    _, _, hd = _mlstm_dims(cfg)
+    axes = {"conv": ("batch", None, "heads"),
+            "s": ("batch", "heads", None, None),
+            "n": ("batch", "heads", None), "m": ("batch", "heads")}
+    units = {"conv": (1, 1, hd), "s": (1, 1, 1, 1), "n": (1, 1, 1),
+             "m": (1, 1)}
+    return axes, units
 
 
 def init_mlstm_state(cfg, batch: int, dtype, device) -> Dict[str, Tensor]:
@@ -200,7 +283,11 @@ def mlstm_decode_step(params: Dict[str, Tensor], cfg, x: Tensor,
     head added), and so do the conv window, normaliser and max.  Returns
     (out, state)."""
     b = x.shape[0]
-    d_inner, h, hd = _mlstm_dims(cfg)
+    _, h_all, hd = _mlstm_dims(cfg)
+    h = _local_heads(params, cfg)[0]
+    split = h != h_all
+    if split:
+        x = copy_to_model(x)
     left = (x @ params["up_l"])[:, 0]
     right = (x @ params["up_r"])[:, 0]
     win = torch.cat([state["conv"], left[:, None, :]], dim=1)
@@ -214,7 +301,7 @@ def mlstm_decode_step(params: Dict[str, Tensor], cfg, x: Tensor,
          * hd ** -0.5).float()
     k = torch.einsum("bhd,hde->bhe", ch, params["wk"]).float()
     v = torch.einsum("bhd,hde->bhe", lh, params["wv"]).float()
-    log_i, log_f = _gates(params, c.float())
+    log_i, log_f = _gates(params, cfg, c.float())
 
     m_old = state["m"]
     m_new = torch.maximum(log_f + m_old, log_i)
@@ -233,13 +320,15 @@ def mlstm_decode_step(params: Dict[str, Tensor], cfg, x: Tensor,
     denom = (q * n).sum(dim=-1).abs()
     y = numer / torch.maximum(denom, torch.exp(-m_new))[..., None]
 
-    y = y.reshape(b, 1, d_inner).to(x.dtype)
-    y = layers.rmsnorm(params["norm"], y, cfg.norm_eps)
-    y = y * F.silu(right.float()).to(y.dtype)[:, None, :]
-    return y @ params["down"], state
+    y = y.reshape(b, 1, h * hd).to(x.dtype)
+    return _mlstm_out(params, cfg, y, right[:, None, :], split), state
 
 
 # -- sLSTM ----------------------------------------------------------------------------
+
+
+def _d_up(cfg) -> int:
+    return int(cfg.xlstm.slstm_proj_factor * cfg.d_model)
 
 
 def init_slstm(cfg, dtype, generator, device) -> Dict[str, Tensor]:
@@ -249,7 +338,7 @@ def init_slstm(cfg, dtype, generator, device) -> Dict[str, Tensor]:
     d = cfg.d_model
     h = cfg.n_heads
     hd = d // h
-    d_up = int(cfg.xlstm.slstm_proj_factor * d)
+    d_up = _d_up(cfg)
     f32 = torch.float32
     up = layers.normal((d, d_up), d ** -0.5, dtype, generator, device)
     return {
@@ -294,23 +383,30 @@ def _slstm_out(params: Dict[str, Tensor], cfg, y: Tensor) -> Tensor:
     """The cell's outputs (B, S, D) in the model's type → the block's:
     RMSNorm, then the GeLU-gated up / down projection."""
     y = layers.rmsnorm(params["norm"], y, cfg.norm_eps)
+    split = params["up_l"].shape[1] != _d_up(cfg)
+    if split:
+        split_offset(params["up_l"].shape[1], _d_up(cfg))   # checks it
+        y = copy_to_model(y)
     up = y @ params["up_l"]
     gate = y @ params["up_r"]
     # jax.nn.gelu's default is the tanh approximation
     up = F.gelu(up.float(), approximate="tanh").to(up.dtype) * gate
-    return up @ params["down"]
+    up = up @ params["down"]
+    return reduce_from_model(up) if split else up
 
 
 def slstm_block(params: Dict[str, Tensor], cfg, x: Tensor) -> Tensor:
     """The strictly sequential sLSTM over time: x (B, S, D) → (B, S, D),
     one Python step a position."""
-    b, s, d = x.shape
+    b, _, d = x.shape
     xw = x.float() @ params["w_gates"]
     carry = tuple(torch.zeros(b, d, dtype=torch.float32, device=x.device)
                   for _ in range(4))
     hs = []
-    for t in range(s):
-        carry, h_t = _slstm_cell(params, cfg, xw[:, t], carry)
+    # unbind, not xw[:, t]: the backward stacks the steps' gradients once
+    # (a select's backward writes a whole (B, S, 4D) gradient a step)
+    for xw_t in xw.unbind(1):
+        carry, h_t = _slstm_cell(params, cfg, xw_t, carry)
         hs.append(h_t)
     return _slstm_out(params, cfg, torch.stack(hs, dim=1).to(x.dtype))
 
@@ -322,6 +418,17 @@ def axes_slstm(cfg) -> Dict:
             "b_gates": (None,), "norm": layers.axes_rmsnorm(),
             "up_l": ("fsdp", "ff"), "up_r": ("fsdp", "ff"),
             "down": ("ff", "fsdp")}
+
+
+def placement_slstm(cfg) -> Tuple[Dict, Dict]:
+    """The port's placement of :func:`init_slstm`'s leaves: the cell and
+    its gate weights replicated (the cell mixes heads in its gates;
+    the reference splits ``r_gates`` on ``"heads"``), the up/down
+    projection as the reference places it, by ``"ff"``."""
+    axes = dict(axes_slstm(cfg), r_gates=(None, None, None))
+    units = {k: {"scale": (1,)} if k == "norm" else (1,) * len(v)
+             for k, v in axes.items()}
+    return axes, units
 
 
 def axes_slstm_state() -> Dict:

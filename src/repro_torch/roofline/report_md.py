@@ -1,7 +1,7 @@
 """Render results/dryrun_torch/*.json (``python -m
 repro_torch.launch.dryrun``) into roofline tables, the JAX package's
-``roofline/report_md.py`` rendering; refused cells get a row as skipped
-ones do, each in its own mesh's table.
+``roofline/report_md.py`` rendering; skipped cells get a row with their
+reason, each in its own mesh's table.
 
   PYTHONPATH=src python -m repro_torch.roofline.report_md [tag]
 """
@@ -29,11 +29,10 @@ def render(rows: List[Dict], mesh: str = "16x16") -> str:
     for d in rows:
         if d.get("mesh") != mesh:
             continue
-        if d.get("status") in ("skipped", "refused"):
-            # a refusal's reason up to its roadmap citation
+        if d.get("status") == "skipped":
             reason = d["reason"].split(":")[0]
             out.append(f"| {d['arch']} | {d['shape']} | — | — | — | "
-                       f"{d['status']}: {reason} | — | — | — | — |")
+                       f"skipped: {reason} | — | — | — | — |")
             continue
         r = d["roofline"]
         mem = d["memory_analysis"]

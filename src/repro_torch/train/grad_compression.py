@@ -18,15 +18,37 @@ gradients by their factors, over one axis of a ``DeviceMesh``.
 reference seeds each leaf's Q₀ with ``hash(path)``, which changes from
 process to process, so the tests hand Q₀ over from numpy
 (:func:`compression_state_from_numpy`) rather than reproduce a draw.
+
+On a mesh with a model axis (``specs``: the gradients' placement,
+:meth:`LM.param_specs`) each rank holds local blocks, and a sketch of a
+block is not a block of the sketch: every leaf is compressed as the
+single device compresses the whole leaf.  Compressibility and Q₀ are
+decided on the whole leaf's shape (:func:`init_compression`: a rank's
+Q₀ is its block of the whole Q₀), and the products that span ranks are
+summed over the model axis:
+
+* a leaf split on its last dimension (the collapsed matrix's columns):
+  ``P = Σ_r G_r Q₀_r`` (an all-reduce of n×k; a packed leaf's replicated
+  columns counted once), orthonormalised on every rank, ``Q_r = G_rᵀ P``;
+* a leaf split on an earlier dimension (its collapsed rows interleave by
+  layer): ``P_r = G_r Q₀``, all-gathered into the whole P in global row
+  order and orthonormalised on every rank, each rank keeping its rows,
+  ``Q = Σ_r G_rᵀ P_r`` (an all-reduce of m×k);
+* a replicated leaf compresses on its own.
+
+``Ĝ_r = P_r Q_rᵀ``, and the error buffers have the local shape.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..dist.sharding import ShardingCtx, all_reduce
+from ..dist import sharding
+from ..dist.sharding import (MODEL, P, Packed, ShardingCtx, all_reduce,
+                             current_ctx, gather, global_shape, local_block)
 from ..models.weights import params_from_numpy
 from .optimizer import tree_map, unflatten
 
@@ -37,33 +59,62 @@ class CompressionState(NamedTuple):
 
 
 def _matrix_shape(x) -> Tuple[int, int]:
-    """Collapse leading dims: (a, b, …, z) → (a·b·…, z)."""
-    return int(x.numel() // x.shape[-1]), int(x.shape[-1])
+    """Collapse leading dims: (a, b, …, z) → (a·b·…, z).  ``x`` is a
+    tensor or a shape."""
+    shape = tuple(getattr(x, "shape", x))
+    return int(math.prod(shape[:-1])), int(shape[-1])
 
 
-def _is_compressible(x: torch.Tensor, min_dim: int) -> bool:
-    return x.dim() >= 2 and min(_matrix_shape(x)) >= min_dim
+def _is_compressible(x, min_dim: int) -> bool:
+    shape = tuple(getattr(x, "shape", x))
+    return len(shape) >= 2 and min(_matrix_shape(shape)) >= min_dim
 
 
 def init_compression(params, rank: int = 4, min_dim: int = 128,
-                     generator: Optional[torch.Generator] = None
-                     ) -> CompressionState:
+                     generator: Optional[torch.Generator] = None,
+                     specs=None) -> CompressionState:
     """Q₀ ~ N(0, 1) of shape (m, rank) for every compressible leaf, drawn
     from ``generator`` in :func:`~.optimizer.leaves` order, and zero
-    error buffers; None for the other leaves."""
-    def q_init(p):
-        if not _is_compressible(p, min_dim):
-            return None
-        return torch.randn((_matrix_shape(p)[1], rank), generator=generator,
-                           dtype=torch.float32, device=p.device)
+    error buffers; None for the other leaves.  With ``specs`` (the
+    params' placement on the active mesh) ``params`` are local blocks:
+    compressibility and Q₀ are decided and drawn on each whole leaf, as
+    the single device draws them, the rank keeps its block of Q₀, and the
+    error buffers have the local shape."""
+    whole = (tree_map(lambda p: p.shape, params) if specs is None else
+             tree_map(lambda p, spec: global_shape(p.shape, spec), params,
+                      specs))
 
-    def e_init(p):
+    def q_init(p, shape):
+        if not _is_compressible(shape, min_dim):
+            return None
+        return torch.randn((_matrix_shape(shape)[1], rank),
+                           generator=generator, dtype=torch.float32,
+                           device=p.device)
+
+    def e_init(p, shape):
         return (torch.zeros(_matrix_shape(p), dtype=torch.float32,
                             device=p.device)
-                if _is_compressible(p, min_dim) else None)
+                if _is_compressible(shape, min_dim) else None)
 
-    return CompressionState(q=tree_map(q_init, params),
-                            err=tree_map(e_init, params))
+    q = tree_map(q_init, params, whole)
+    if specs is not None:
+        q = tree_map(_q_block, q, specs, whole)
+    return CompressionState(q=q, err=tree_map(e_init, params, whole))
+
+
+def _last_entry(spec, ndim: int):
+    """The placement of a leaf's last dimension (specs leave out trailing
+    Nones)."""
+    return spec[ndim - 1] if len(spec) == ndim else None
+
+
+def _q_block(q: Optional[torch.Tensor], spec, shape
+             ) -> Optional[torch.Tensor]:
+    """The rank's rows of a whole leaf's Q₀: its block of the leaf's last
+    dimension (Q₀'s rows), under the active mesh."""
+    if q is None:
+        return None
+    return local_block(q, P(_last_entry(spec, len(shape))))
 
 
 def compression_state_from_numpy(state, device=None) -> CompressionState:
@@ -97,25 +148,72 @@ def compress_leaf(g, q0: Optional[torch.Tensor], err):
     return p, q, gm - p @ q.T
 
 
+def compress_leaf_sharded(g: torch.Tensor, q0: Optional[torch.Tensor],
+                          err, spec, ctx: Optional[ShardingCtx] = None):
+    """:func:`compress_leaf` of a rank's block ``g`` of a leaf placed by
+    ``spec`` on the active mesh: ``(P_r, Q_r, new_err)``, the rank's
+    blocks of the whole leaf's factors (``P_r Q_rᵀ`` is its block of Ĝ).
+    Collectives over the model axis when the leaf is split (every rank
+    calls it); a replicated leaf compresses on its own."""
+    ctx = ctx or current_ctx()
+    if q0 is None:
+        return g, None, None
+    split = [d for d, e in enumerate(spec) if e is not None]
+    if not split:
+        return compress_leaf(g, q0, err)
+    dim, entry = split[0], spec[split[0]]
+    last = dim == g.dim() - 1
+    if len(split) > 1 or sharding.spec_axes(spec) != (MODEL,) or (
+            isinstance(entry, Packed) and not last):
+        raise NotImplementedError(
+            f"compression of a leaf placed {spec}: one dimension split on "
+            "the model axis, a packed one last")
+    gm = g.reshape(_matrix_shape(g)).to(torch.float32) + err
+    q0 = q0.to(torch.float32)
+    if last:
+        # columns: P = Σ_r G_r Q₀_r, a packed leaf's replicated columns
+        # counted on the first model rank only
+        own = q0
+        if isinstance(entry, Packed) and ctx.coord(MODEL):
+            own = q0 * torch.cat([
+                torch.full((w // ctx.tp if e else w,), float(bool(e)),
+                           device=q0.device) for w, e in entry])[:, None]
+        p = _orthonormalize(all_reduce(gm @ own, MODEL, ctx))
+        q = gm.T @ p
+    else:
+        # rows, which interleave by the leading dimensions: the whole P in
+        # global row order, each rank keeping its rows
+        k = q0.shape[1]
+        whole = gather((gm @ q0).reshape(*g.shape[:-1], k), dim, MODEL, ctx)
+        p = local_block(_orthonormalize(whole.reshape(-1, k)).reshape(
+            whole.shape), P(*([None] * dim), entry)).reshape(-1, k)
+        q = all_reduce(gm.T @ p, MODEL, ctx)
+    return p, q, gm - p @ q.T
+
+
 def decompress_leaf(g_shape, dtype, p: torch.Tensor,
                     q: torch.Tensor) -> torch.Tensor:
     return (p @ q.T).reshape(g_shape).to(dtype)
 
 
-def compress_tree(grads, state: CompressionState):
+def compress_tree(grads, state: CompressionState, specs=None):
     """→ ((grads, [("raw", g) | ("lowrank", (P, Q, shape, dtype))] in
-    leaf order), new state)."""
+    leaf order), new state).  With ``specs`` (the gradients' placement on
+    the active mesh) the leaves and the state are local blocks, each
+    compressed as its whole leaf is (:func:`compress_leaf_sharded`)."""
     out: List = []
 
-    def one(g, q0, err):
+    def one(g, q0, err, *spec):
         if q0 is None:
             out.append(("raw", g))
             return None, None
-        p, q, err = compress_leaf(g, q0, err)
+        p, q, err = (compress_leaf_sharded(g, q0, err, spec[0]) if spec
+                     else compress_leaf(g, q0, err))
         out.append(("lowrank", (p, q, g.shape, g.dtype)))
         return q, err
 
-    new = tree_map(one, grads, state.q, state.err)
+    rest = () if specs is None else (specs,)
+    new = tree_map(one, grads, state.q, state.err, *rest)
     return (grads, out), CompressionState(
         q=tree_map(lambda x: x[0], new), err=tree_map(lambda x: x[1], new))
 

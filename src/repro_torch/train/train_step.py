@@ -28,11 +28,6 @@ from . import grad_compression as gc
 from .optimizer import (OptState, adamw_init, adamw_update, cosine_schedule,
                         leaves, tree_map, unflatten)
 
-COMPRESSION_REFUSED = (
-    "gradient compression on a mesh with model > 1 waits for ROADMAP.md "
-    "Queue 1 item 12b-iii: a low-rank sketch of a shard is not a shard of "
-    "the sketch")
-
 Tensor = torch.Tensor
 
 
@@ -126,13 +121,13 @@ def make_train_step(model: LM, *, lr: float = 3e-4, warmup: int = 100,
     Under ``use_sharding`` (the state from :func:`init_train_state` in
     the same context) ``batch`` is the global batch: the step takes its
     data rows, and the loss it reports is the global batch's.
-    ``compression`` with a model axis wider than 1 raises (ROADMAP.md
-    Queue 1 item 12b-iii); on a data-only mesh it compresses the
-    averaged gradients, as the reference's step does."""
+    ``compression`` then holds the rank's blocks
+    (:func:`~.grad_compression.init_compression` with the specs) and
+    compresses the averaged gradients, each leaf as the single device
+    compresses the whole leaf (:func:`~.grad_compression.compress_tree`
+    with the specs), as the reference's step does."""
     schedule = cosine_schedule(lr, warmup, total_steps)
     ctx = current_ctx()
-    if compression is not None and ctx.tp > 1:
-        raise NotImplementedError(COMPRESSION_REFUSED)
     specs = model.param_specs() if ctx.mesh is not None else None
 
     def single_grads(params, batch) -> Tuple[Tensor, Any]:
@@ -175,7 +170,7 @@ def make_train_step(model: LM, *, lr: float = 3e-4, warmup: int = 100,
             loss, grads = single_grads(state.params, batch)
         grads = mean_over_data(grads)
         if compression is not None:
-            compressed, _ = gc.compress_tree(grads, compression)
+            compressed, _ = gc.compress_tree(grads, compression, specs)
             grads = gc.decompress_tree(compressed)
         step_lr = schedule(state.opt.step + 1)
         params, opt, metrics = adamw_update(

@@ -6,7 +6,7 @@ test_train_driver_runs_supervisor`` and ``tests/test_system.py::
 test_lm_train_checkpoint_restart_resume``; the training driver's losses
 against the reference's from the same initial state, and the same
 restarts, events and step sequence under the same injected failure; the
-command line's resume; what a mesh still refuses.
+command line's resume; compression's Q₀ drawn from the run's seed.
 """
 
 import contextlib
@@ -204,19 +204,16 @@ def test_command_line_resumes_from_its_checkpoint(tmp_path):
     assert CheckpointManager(str(tmp_path)).all_steps() == [2, 4]
 
 
-def test_a_mesh_is_refused_with_item_12b():
-    """What a mesh still refuses names ROADMAP.md's item 12b-iii: a
-    recurrent family on a model axis wider than 1 (the command line
-    refuses before joining a world) and gradient compression there."""
-    from repro_torch.dist.sharding import MeshShape
-    with pytest.raises(NotImplementedError, match="item 12b-iii"):
-        train_mod.main(["--mesh", "local", "--model-parallel", "2",
-                        "--arch", "zamba2-1.2b", "--reduced", "--device",
-                        "cpu"])
-    mesh = MeshShape((1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="item 12b-iii"):
-        train_mod.train(_cut(train_mod), steps=1, batch=2, seq=8,
-                        mesh=mesh, compression_rank=2)
+def test_compression_draws_q0_from_the_seed():
+    """``--compression-rank`` draws Q₀ from the run's seed (the same on
+    every rank of a mesh, which keeps its blocks: the multi-rank run is
+    ``tests/test_torch_recurrent_shard.py``), so two runs of one seed
+    train the same."""
+    cfg = get_config("zamba2-1.2b").reduced()
+    runs = [train_mod.train(cfg, steps=2, batch=2, seq=16,
+                            compression_rank=2, log_every=1,
+                            device="cpu")["history"] for _ in range(2)]
+    assert [h["loss"] for h in runs[0]] == [h["loss"] for h in runs[1]]
 
 
 def test_driver_runs_on_the_card_by_default():

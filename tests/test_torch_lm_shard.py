@@ -35,7 +35,8 @@ from repro.train import optimizer as jax_opt
 from repro.train.train_step import TrainState as JaxTrainState
 from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.data import synth_batch
-from repro_torch.dist.sharding import MeshShape, ShardingCtx, use_sharding
+from repro_torch.dist.sharding import (MeshShape, P, ShardingCtx,
+                                       local_block, shard_tree, use_sharding)
 from repro_torch.launch import train as train_mod
 from repro_torch.models import LM, params_from_numpy
 from repro_torch.train import (TrainState, adamw_init, init_compression,
@@ -485,35 +486,67 @@ def test_launch_train_mesh_local(world, tmp_path):
             np.testing.assert_allclose(h["loss"], want[h["step"]], **TOL)
 
 
-# -- refusals -------------------------------------------------------------------
+# -- the recurrent families and compression on a model axis ------------------
+# (their multi-rank runs: tests/test_torch_recurrent_shard.py)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-350m"])
-def test_recurrent_families_refuse_model_parallel(arch):
-    """A hybrid or ssm model on a model axis wider than 1 raises and names
-    ROADMAP.md's item 12b-iii; on a data-only mesh it places whole."""
+def test_recurrent_families_place_on_a_model_axis(arch):
+    """A hybrid or ssm model on a model axis wider than 1 places its
+    recurrent blocks by whole heads (Mamba2's in_proj packed, the mLSTM's
+    projections and gates split, the sLSTM cell replicated); on a
+    data-only mesh it places whole."""
     model = LM(get_config(arch).reduced(), device="cpu")
     wide = ShardingCtx(mesh=MeshShape((2, 2), ("data", "model")),
                        rules={"heads": "model", "ff": "model"})
-    with pytest.raises(NotImplementedError, match="item 12b-iii"):
-        model.param_specs(wide)
-    with use_sharding(MeshShape((2, 2), ("data", "model"))):
-        with pytest.raises(NotImplementedError, match="item 12b-iii"):
-            model.backbone(None, torch.zeros(1, 2, 128),
-                           torch.arange(2))
+    specs = dict(_flat(model.param_specs(wide)))
+    if arch == "zamba2-1.2b":
+        packed = specs["mamba_groups.mixer.in_proj"][-1]
+        assert [e for _, e in packed] == ["model", "model", None, "model"]
+        assert specs["mamba_groups.mixer.out_proj"] == (None, None, "model")
+    else:
+        assert specs["mlstm_groups.mixer.up_l"] == (None, None, None,
+                                                    "model")
+        assert specs["mlstm_groups.mixer.w_igate"] == (None, None, "model")
+        assert specs["slstm.cell.r_gates"] == ()
     narrow = ShardingCtx(mesh=MeshShape((4, 1), ("data", "model")),
                          rules={"batch": "data"})
     specs = dict(_flat(model.param_specs(narrow)))
     assert all(spec == () for spec in specs.values())
 
 
-def test_compression_refuses_model_parallel():
-    """Gradient compression on a model axis wider than 1 raises and names
-    item 12b-iii (a low-rank sketch of a shard is not a shard of the
-    sketch)."""
+def test_compression_state_is_the_whole_leaves_blocks():
+    """Compression on a model axis: ``init_compression`` of a rank's local
+    blocks with their specs decides compressibility on the whole leaves
+    and keeps the rank's block of the whole Q₀ the single device draws
+    from the same generator (its rows of the leaf's last dimension), the
+    error buffers at the local shape."""
     model = LM(w.danube_cfg(get_config), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
-    comp = init_compression(params, rank=2)
-    with use_sharding(MeshShape((2, 2), ("data", "model"))):
-        with pytest.raises(NotImplementedError, match="item 12b-iii"):
-            make_train_step(model, compression=comp)
+    whole = init_compression(params, rank=2, min_dim=64,
+                             generator=torch.Generator().manual_seed(4))
+    for coord in range(2):
+        ctx = ShardingCtx(mesh=MeshShape((2, 2), ("data", "model"),
+                                         coords={"model": coord}),
+                          rules={"heads": "model", "ff": "model",
+                                 "vocab": "model", "kv_heads": "model"})
+        with use_sharding(ctx.mesh, ctx.rules):
+            specs = model.param_specs()
+            local = shard_tree(params, specs)
+            got = init_compression(local, rank=2, min_dim=64,
+                                   generator=torch.Generator().manual_seed(
+                                       4), specs=specs)
+        q_got, q_whole = dict(_flat(got.q)), dict(_flat(whole.q))
+        specs, shapes = dict(_flat(specs)), dict(_flat(model.param_shapes()))
+        assert set(q_got) == set(q_whole)
+        for k, q in q_whole.items():
+            assert (q is None) == (q_got[k] is None), k
+            if q is not None:
+                spec = specs[k]
+                last = spec[-1] if len(spec) == len(shapes[k]) else None
+                want = local_block(q, P(last), ctx)
+                assert torch.equal(q_got[k], want), k
+        w_in = dict(_flat(got.q))["blocks.mlp.w_in"]
+        assert w_in.shape == (128, 2)      # the rank's 128 of 256 columns
+        err = dict(_flat(got.err))["blocks.mlp.w_out"]
+        assert err.shape == (2 * 128, 128)  # 2 layers × its 128 rows

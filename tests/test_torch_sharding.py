@@ -156,9 +156,35 @@ KV = {"blocks.attn.wk", "blocks.attn.wv"}
 ALL_ATTN = KV | {"blocks.attn.wq", "blocks.attn.wo", "blocks.attn.bq",
                  "blocks.attn.bk", "blocks.attn.bv"}
 WIDE = ((16, 16), (2, 16, 16))
+NARROW = ((4, 2), (2, 2), (1, 4))
+MAMBA = {f"{stack}.mixer.{leaf}" for stack in ("mamba_groups", "mamba_tail")
+         for leaf in ("in_proj", "conv_w", "conv_b", "norm.scale")}
+MLSTM = "mlstm_groups.mixer."
+# the recurrent families' own placement, where it departs from the
+# reference's, and why (a leaf's name after its block)
+RECURRENT_DEPARTURES = {
+    "hybrid": {
+        # packed: z, x and dt split by whole heads, B and C whole (the
+        # reference cuts the packed dimension contiguously)
+        "in_proj": "packed", "conv_w": "packed", "conv_b": "packed",
+        # split with the heads: the split-width RMSNorm (the reference
+        # replicates it)
+        "norm.scale": "split by heads"},
+    "ssm": {
+        "norm.scale": "split by heads",
+        # the mLSTM's gates by their rows, the channels' heads: partial
+        # products summed over the ranks (the reference splits the
+        # columns)
+        "w_igate": "rows", "w_fgate": "rows",
+        # the sLSTM cell mixes heads in its gates: replicated (the
+        # reference splits its recurrent weights by heads)
+        "r_gates": "replicated",
+        # xlstm's 4 mLSTM heads on model = 16: the head-aligned leaves
+        # replicated (the reference cuts 512-column heads into 128)
+        "up_l": "replicated", "up_r": "replicated", "conv_w": "replicated",
+        "conv_b": "replicated", "down": "replicated"}}
 # every leaf, over all ten configs on the five meshes, where the port's
-# placement departs from the reference's (the recurrent families are
-# refused on model > 1: ROADMAP.md Queue 1 item 12b-iii)
+# placement departs from the reference's
 DEVIATIONS = {
     # 8 KV heads of 80 / 4 of 128 / 8 of 128 on model = 16
     "h2o-danube-1.8b": {m: KV for m in WIDE},
@@ -171,6 +197,23 @@ DEVIATIONS = {
     # 40 and 36 heads on model = 16: the whole attention replicated
     "qwen1.5-32b": {m: ALL_ATTN for m in WIDE},
     "starcoder2-7b": {m: ALL_ATTN for m in WIDE},
+    "zamba2-1.2b": {m: MAMBA for m in MESHES},
+    "xlstm-350m": {
+        **{m: {MLSTM + leaf for leaf in ("w_igate", "w_fgate",
+                                         "norm.scale")} | {
+            "slstm.cell.r_gates"} for m in NARROW},
+        **{m: {MLSTM + leaf for leaf in ("up_l", "up_r", "conv_w",
+                                         "conv_b", "down")}
+           for m in WIDE}},
+}
+# the same for the decode cache at decode_32k and long_500k: Mamba2's conv
+# window packs x|B|C, its SSM state holds the rank's heads (the reference
+# replicates it), the mLSTM's conv window is replicated where its heads
+# do not divide the model axis
+CACHE_DEVIATIONS = {
+    "zamba2-1.2b": {m: {f"{c}.{leaf}" for c in ("mamba", "mamba_tail")
+                        for leaf in ("conv", "ssm")} for m in MESHES},
+    "xlstm-350m": {m: {"mlstm.conv"} for m in WIDE},
 }
 
 
@@ -192,14 +235,12 @@ def test_head_alignment_deviations_reduced(arch, shape):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_head_alignment_deviations_listed(arch):
     """The leaves (``DEVIATIONS``) where the port's placement departs from
-    the reference's on the five meshes: each is an attention projection
-    or bias whose split would cut a head, replicated instead; no
-    placement of the port cuts a head."""
+    the reference's on the five meshes: in the transformer families each
+    is an attention projection or bias whose split would cut a head,
+    replicated instead; in the recurrent families each is one of
+    ``RECURRENT_DEPARTURES``."""
     cfg = get_config(arch)
-    if cfg.family in ("hybrid", "ssm"):
-        with pytest.raises(NotImplementedError, match="item 12b-iii"):
-            _deviations(arch, (4, 2))
-        return
+    recurrent = cfg.family in ("hybrid", "ssm")
     hd = cfg.resolved_head_dim
     full = _flat(LM(cfg, device="cpu").param_shapes())
     for shape in MESHES:
@@ -207,9 +248,115 @@ def test_head_alignment_deviations_listed(arch):
         assert set(dev) == DEVIATIONS.get(arch, {}).get(shape, set()), (
             shape, sorted(dev))
         for path, (ref, spec) in dev.items():
+            if recurrent:
+                leaf = path.split(".mixer.")[-1].split(".cell.")[-1]
+                want = RECURRENT_DEPARTURES[cfg.family][leaf]
+                assert (spec == ()) == (want == "replicated"), (path, spec)
+                continue
             cut = list(ref).index("model")
             assert (full[path][cut] // hd) % shape[-1], path
             assert spec == ()
+
+
+def _cuts_no_head(spec, shape, units, size) -> bool:
+    """Whether every dimension ``spec`` splits gives each of ``size``
+    ranks whole units (a packed dimension: in each part it splits)."""
+    for dim, entry in enumerate(spec):
+        if isinstance(entry, sharding.Packed):
+            parts = [(w, u) for (w, e), u in zip(entry, units[dim]) if e]
+        elif entry is not None:
+            parts = [(shape[dim], units[dim])]
+        else:
+            continue
+        if any(w % u or (w // u) % size for w, u in parts):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_no_placement_cuts_a_head(arch):
+    """On the five meshes every leaf's placement (``LM.param_specs``)
+    gives each model rank whole heads of every dimension it splits (the
+    units of ``LM.placement``), packed dimensions part by part."""
+    model = LM(get_config(arch), device="cpu")
+    axes, units = model.placement()
+    shapes = _flat(model.param_shapes())
+    units = _flat(units)
+    for shape in MESHES:
+        specs = _flat(model.param_specs(_ctxs(shape)[1]))
+        for path, spec in specs.items():
+            assert _cuts_no_head(spec, shapes[path], units[path],
+                                 shape[-1]), (shape, path, spec)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-350m"])
+def test_recurrent_cache_deviations_listed(arch):
+    """The decode cache's leaves (``CACHE_DEVIATIONS``) where the port's
+    placement (``LM.cache_specs``) departs from the reference's
+    ``cache_axes`` resolved, at decode_32k's and long_500k's shapes."""
+    model = LM(get_config(arch), device="cpu")
+    for long_context, (batch, seq) in CACHE.items():
+        axes = _flat(model.cache_axes(long_context))
+        shapes = {k: tuple(v.shape) for k, v in _flat(LM(
+            model.cfg, device="meta").init_cache(batch, seq)).items()}
+        for shape in MESHES:
+            ctx = _ctxs(shape)[1]
+            specs = _flat(model.cache_specs(batch, seq, long_context, ctx))
+            dev = {p for p, spec in specs.items()
+                   if spec != sharding.resolve_spec(axes[p], shapes[p], ctx)}
+            assert dev == CACHE_DEVIATIONS[arch].get(shape, set()), (
+                long_context, shape, sorted(dev))
+
+
+def _blocks_round_trip(whole, spec, shape, names):
+    """Every model rank's local block of ``whole`` (``MeshShape`` at each
+    model coordinate), reassembled: the packed parts with
+    ``assemble_packed``, a plain split by concatenation."""
+    blocks = [sharding.local_block(whole, spec, ShardingCtx(
+        mesh=MeshShape(shape, names, coords={"model": r}),
+        rules=sharding.DEFAULT_RULES)) for r in range(shape[-1])]
+    out = blocks[0]
+    for dim, entry in enumerate(spec):
+        if isinstance(entry, sharding.Packed):
+            out = sharding.assemble_packed(blocks, dim, entry)
+        elif entry is not None:
+            out = torch.cat(blocks, dim=dim)
+    return blocks, out
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-350m"])
+def test_packed_placement_round_trip(arch):
+    """Every param leaf of the family's reduced config, on the five
+    meshes: each model rank's block (packed dimensions part by part) has
+    the local shape the spec gives, and the blocks reassemble the whole
+    leaf exactly; Mamba2's in_proj block is z, x of the rank's heads, B
+    and C, dt of its heads."""
+    cfg = get_config(arch).reduced()
+    model = LM(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    for shape, names in MESHES.items():
+        ctx = _ctxs(shape)[1]
+        specs = model.param_specs(ctx)
+        for path, spec in _flat(specs).items():
+            whole = dict(_flat(params))[path]
+            blocks, back = _blocks_round_trip(whole, spec, shape, names)
+            local = sharding.global_shape(blocks[0].shape, spec, ctx)
+            assert local == tuple(whole.shape), (shape, path)
+            assert torch.equal(back, whole), (shape, path)
+    if arch == "zamba2-1.2b":
+        d_inner, n, h = 256, 16, 8
+        w = params["mamba_tail"]["mixer"]["in_proj"][0]
+        spec = model.param_specs(_ctxs((1, 4))[1])["mamba_tail"]["mixer"][
+            "in_proj"]
+        blocks, _ = _blocks_round_trip(w[None], spec, (1, 4),
+                                       ("data", "model"))
+        r1 = blocks[1][0]
+        q = d_inner // 4
+        assert torch.equal(r1, torch.cat([
+            w[:, q:2 * q], w[:, d_inner + q:d_inner + 2 * q],
+            w[:, 2 * d_inner:2 * d_inner + 2 * n],
+            w[:, 2 * d_inner + 2 * n + h // 4:2 * d_inner + 2 * n
+              + 2 * (h // 4)]], dim=1))
 
 
 def test_local_block_and_axes_helpers():

@@ -78,9 +78,9 @@ def argument_bytes() -> dict:
 
 
 def cells(results: str) -> dict:
-    """A zamba2 cell (refused) and an encoder-only decode cell (skipped)
-    through run_cell; then the CLI on a full danube decode cell, its JSON
-    rendered by report_md."""
+    """A zamba2 cell (walked on a model axis of 16) and an encoder-only
+    decode cell (skipped) through run_cell; then the CLI on a full danube
+    decode cell, its JSON rendered by report_md."""
     from repro_torch.launch import dryrun
     from repro_torch.roofline import report_md
     out = {}

@@ -1,16 +1,19 @@
-"""Phase 22 of ``chip_smoke.py`` alone, with phase 3's checks of the flash
-kernels at its per-rank shapes: a quicker run than the whole script when
-only the sharded model path changed.
+"""Phase 22 or 24 of ``chip_smoke.py`` alone, with phase 3's checks of
+the flash kernels at its per-rank shapes: a quicker run than the whole
+script when only the sharded model path changed.
 
     python3 tools/torch_lm_shard_probe.py            # on the H100
     python3 tools/torch_lm_shard_probe.py --rehearse # on the CPU, reduced
+    python3 tools/torch_lm_shard_probe.py --phase 24 [--rehearse]
 
 Builds every kernel (as the script does), holds the forward with LSE and
-K1 at 22a's and 22b's per-rank shapes and the forward at 22c's against
-their plain versions, timed beside SDPA, then runs phase 22's four gloo
-ranks.  ``--rehearse`` skips the build and the kernel checks and runs
-phase 22's drives at the reduced widths on the CPU.  Prints the card's
-name and power limit first; exits non-zero if a check fails.
+K1 at the phase's per-rank shapes (22: 22a's and 22b's, and the forward
+at 22c's; 24: zamba2's shared block at 24a's, 24b's and 24f's, the
+single device's references, and flash decode at 24c's) against their
+plain versions, timed beside SDPA, then runs the phase's four gloo
+ranks.  ``--rehearse`` skips the build and the kernel checks and runs the
+phase's drives at the reduced widths on the CPU.  Prints the card's name
+and power limit first; exits non-zero if a check fails.
 """
 
 from __future__ import annotations
@@ -28,7 +31,12 @@ sys.path.insert(0, str(ROOT / "tests"))   # tests/flash_bounds.py
 import chip_smoke as cs  # noqa: E402
 
 
-def kernel_checks() -> None:
+# the K1 cases of each phase (chip_smoke.K1_CASES' labels)
+K1_LABELS = {22: ("shard_danube_",),
+             24: ("shard_zamba2_", "zamba2_shard_single_")}
+
+
+def kernel_checks(phase: int) -> None:
     import torch
     kind = torch.cuda.get_device_name(0)
     _, flops_peak, bytes_peak, bf16_peak, tf32_peak = cs.peaks(kind)
@@ -36,7 +44,7 @@ def kernel_checks() -> None:
     gen = torch.Generator(device=cs.DEVICE).manual_seed(3)
     for case in cs.K1_CASES:
         label, b, s, h, kvh, hd, window, dt, causal, prefix = case
-        if not label.startswith("shard_"):
+        if not label.startswith(K1_LABELS[phase]):
             continue
         dtype = getattr(torch, dt)
         q, dout = (torch.randn(b, s, h, hd, device=cs.DEVICE,
@@ -45,6 +53,25 @@ def kernel_checks() -> None:
                             generator=gen).to(dtype) for _ in range(2))
         cs.check_flash_bwd(q, k, v, dout, causal, window, peaks_, label,
                            prefix=prefix)
+    if phase == 24:
+        for label, dtype in (("shard_zamba2_exact_f32", torch.float32),
+                             ("shard_zamba2_step_bf16", torch.bfloat16)):
+            b, s = (cs.RECUR_SHARD_EXACT if "exact" in label
+                    else cs.RECUR_SHARD_STEP[:2])
+            q, k, v = (torch.randn(b // 2, s, 16, 64, device=cs.DEVICE,
+                                   generator=gen).to(dtype)
+                       for _ in range(3))
+            cs.check_flash_attention(q, k, v, True, None, peaks_, label)
+        n = cs.RECUR_SHARD_PROMPT + cs.RECUR_SHARD_NEW
+        for label, h in (("shard_zamba2_decode_f32", 8),
+                         ("zamba2_shard_single_decode_f32", 32)):
+            q = torch.randn(cs.RECUR_SHARD_EXACT[0], h, 64, device=cs.DEVICE,
+                            generator=gen)
+            kc, vc = (torch.randn(cs.RECUR_SHARD_EXACT[0], n, h, 64,
+                                  device=cs.DEVICE, generator=gen)
+                      for _ in range(2))
+            cs.check_flash_decode(q, kc, vc, n, peaks_, label)
+        return
     b, s = cs.LM_SHARD_MOE
     q = torch.randn(b, s, 16, 128, device=cs.DEVICE, generator=gen)
     k, v = (torch.randn(b, s, 1, 128, device=cs.DEVICE, generator=gen)
@@ -56,9 +83,11 @@ def kernel_checks() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse", action="store_true")
+    ap.add_argument("--phase", type=int, choices=(22, 24), default=22)
     args = ap.parse_args()
+    phase = {22: cs.phase_lm_shard, 24: cs.phase_recur_shard}[args.phase]
     if args.rehearse:
-        cs.phase_lm_shard(rehearse=True)
+        phase(rehearse=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -71,9 +100,9 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.build_all()
     cs.log(f"build: {time.perf_counter() - t0:.2f} s")
-    kernel_checks()
+    kernel_checks(args.phase)
     torch.cuda.empty_cache()
-    cs.phase_lm_shard()
+    phase()
     cs.log(cs.nvidia_smi())
     return 0
 

@@ -1,0 +1,76 @@
+"""The wire bytes a rank puts on each mesh axis in one sharded train step,
+predicted on meta: the step runs on a fake world (``torch.distributed``'s
+``"fake"`` backend, which moves nothing) and ``dist.sharding.BYTES``
+counts every collective by the ring formulas, as it counts them on the
+card.  No card, no storage: seconds on the CPU.
+
+    PYTHONPATH=src python3 tools/torch_shard_bytes.py \\
+        --arch zamba2-1.2b --layers 7 --batch 4 --seq 512 --mesh 2,2
+
+Prints one JSON object: the arch, the mesh, and ``BYTES`` after the step
+(``on_model``: the tensor-parallel collectives, ``on_data``: the
+gradient mean).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--mesh", default="2,2", help="data,model")
+    args = ap.parse_args()
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.models import LM
+    from repro_torch.train import (TrainState, adamw_init, make_train_step,
+                                   require_grad)
+
+    shape = tuple(int(x) for x in args.mesh.split(","))
+    world = shape[0] * shape[1]
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(world).reshape(shape),
+                          mesh_dim_names=("data", "model"))
+        cfg = get_config(args.arch)
+        cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers,
+                                  dtype=args.dtype)
+        model = LM(cfg, device="meta")
+        with sharding.use_sharding(mesh):
+            params = require_grad(sharding.shard_tree(model.init(None),
+                                                      model.param_specs()))
+            state = TrainState(params, adamw_init(params), torch.Generator())
+            tokens = torch.zeros(args.batch, args.seq, dtype=torch.int64,
+                                 device="meta")
+            sharding.reset_bytes()
+            make_train_step(model)(state, {"tokens": tokens})
+            nbytes = dict(sharding.BYTES)
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"arch": cfg.name, "n_layers": cfg.n_layers,
+                      "dtype": cfg.dtype, "batch": args.batch,
+                      "seq": args.seq, "mesh": list(shape),
+                      "bytes": nbytes}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
