@@ -232,10 +232,11 @@ CUDA toolkit.  Phases, each of which raises on failure:
        bf16 peak, and one more step split by the profiler (forward
        blocks, head + cross-entropy forward and backward, recompute, K1,
        the rest of the backward, optimizer);
-    b. each family's f32 cut (danube 4 layers at B = 2, S = 1024;
-       qwen2-moe at S = 520, past the dense-safe capacity; paligemma and
-       hubert as phase 17's cuts, hubert at S = 1024; zamba2 and xlstm as
-       phase 18's) takes one step on the card: its loss within 1e-4
+    b. each family's f32 cut (danube 2 layers at B = 2, S = 1024;
+       qwen2-moe 2 layers at S = 520, past the dense-safe capacity;
+       paligemma and hubert 2 layers at phase 17's cuts' batches, hubert
+       at S = 1024; zamba2 and xlstm as phase 18's) takes one step on the
+       card: its loss within 1e-4
        relative and every gradient leaf within MAIN_TOL of its largest
        entry of the same cut's on the CPU, the flash launches counted.
 20. the training driver, ``repro_torch.launch.train.train``, with
@@ -279,9 +280,9 @@ CUDA toolkit.  Phases, each of which raises on failure:
        card: no scaling figure); the phase's seconds and each rank's peak
        memory.
 22. the LM half of the sharded dist/ (``repro_torch.dist.sharding``:
-    explicit tensor, expert and data parallelism) on four gloo ranks in
-    spawned processes sharing the card, over a (2, 2) and a (1, 4) mesh,
-    at published widths:
+    explicit tensor, expert and data parallelism, and the fsdp rule) on
+    four gloo ranks in spawned processes sharing the card, over (2, 2),
+    (1, 4) and (4, 1) meshes, at published widths:
     a. h2o-danube-1.8b cut to 2 layers, f32, B = 4, S = 512 on (2, 2)
        (16 query and 4 KV heads a rank): one step's loss and gradients,
        averaged over the data ranks and gathered whole, against the
@@ -299,7 +300,19 @@ CUDA toolkit.  Phases, each of which raises on failure:
        and restored onto plan_mesh(2, 2)'s (1, 2) sub-mesh of the first
        two ranks: every leaf bit for bit, then one step;
     e. ``launch/train.py --mesh local --model-parallel 2`` on the four
-       ranks, custom-10m, 3 steps.
+       ranks, custom-10m, 3 steps;
+    f. the fsdp rule, ``{"fsdp": "data"}`` (params and optimizer state
+       split over the data axis too, each block gathered whole inside its
+       remat region), a's and b's cut on (2, 2) and (4, 1): a's
+       gradients against a's single device; on (4, 1) one step clipped
+       far below the gradients' norm, its norm and update against the
+       single device's; b's first LM_SHARD_FSDP_STEPS steps, their
+       losses against b's single device, ``sharding.BYTES`` equal to
+       ``tools/torch_shard_bytes.py --rules``'s meta walk (run on the CPU
+       meanwhile), the state's bytes and the peak a rank; the (2, 2)
+       params saved and restored under the default rules, bit for bit;
+       an f32 decode of LM_SHARD_FSDP_DECODE on (2, 2) within the
+       serving bound, greedy tokens equal.
 23. the roofline walk (``repro_torch.roofline``: every aten op's FLOPs by
     ``torch.utils.flop_counter``'s formulas and bytes by storage, each
     kernel entry by its own formula) and the dry-run:
@@ -519,6 +532,20 @@ LM_SHARD_LOGIT_TOL = 5e-3
 # and 1.48e-4 at 4 x 32 on the CPU (PERF.md §6, phase 22): both 1.7e-3
 # times 1/sqrt(B·S); 1e-2 leaves 6x of that
 LM_SHARD_BF16_LOSS_C = 1e-2
+# 22f: the "fsdp" rule, {"fsdp": "data"}: the same danube cut with its
+# params and optimizer state split over the data axis too, each block
+# gathered whole before it runs, on (2, 2) and (4, 1): 22a's f32 gradients
+# (both meshes) and, on (4, 1), one step clipped to LM_SHARD_FSDP_CLIP at
+# learning rate LM_SHARD_FSDP_LR (the clipped gradients under AdamW's eps,
+# where the update is linear in the clip scale, so a wrong global norm
+# moves it); the first LM_SHARD_FSDP_STEPS of 22b's bf16 steps (both
+# meshes; the (2, 2) params saved and restored without the rule); a decode
+# of LM_SHARD_FSDP_DECODE's (B, prompt positions, steps in all) in f32 on
+# (2, 2)
+LM_SHARD_FSDP_RULES = {"fsdp": "data"}
+LM_SHARD_FSDP_CLIP, LM_SHARD_FSDP_LR = 1e-6, 1e-2
+LM_SHARD_FSDP_STEPS = 2
+LM_SHARD_FSDP_DECODE = (4, 4, 8)
 # phase 24: the recurrent families and compression on a model axis, on
 # LM_SHARD_WORLD gloo ranks sharing the card over (2, 2) and (1, 4), both
 # families at published widths cut to ZAMBA_CUT_LAYERS / XLSTM_CUT_LAYERS:
@@ -1307,7 +1334,9 @@ def check_flash_kernels(peaks_) -> dict:
     serves, at hd 128 in bf16 and f32: command-r-plus-104b (H=96, KV=8, a
     group of 12) and qwen1.5-32b (H=KV=40), prefill at B=2, S=2048 and
     decode at B=8, L=n_valid=4096.  Phase 22c's per-rank shape: qwen3-moe's
-    16 query heads and one KV head a rank (B=2, S=256, hd 128) in f32."""
+    16 query heads and one KV head a rank (B=2, S=256, hd 128) in f32;
+    22f's decode (danube's 16 query and 4 KV heads a rank of (2, 2), and
+    the single device's, over a cache of 8 slots) in f32."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(1)
 
@@ -1412,7 +1441,16 @@ def check_flash_kernels(peaks_) -> dict:
              RECUR_SHARD_PROMPT + RECUR_SHARD_NEW, f32),
             ("zamba2_shard_single_decode_f32", RECUR_SHARD_EXACT[0],
              RECUR_SHARD_PROMPT + RECUR_SHARD_NEW, 32, 32, 64,
-             RECUR_SHARD_PROMPT + RECUR_SHARD_NEW, f32)]:
+             RECUR_SHARD_PROMPT + RECUR_SHARD_NEW, f32),
+            # 22f's decode: danube's 16 query and 4 KV heads of (2, 2), two
+            # data rows a rank, and the single device's, over the whole
+            # cache
+            ("shard_danube_fsdp_decode_f32", LM_SHARD_FSDP_DECODE[0] // 2,
+             LM_SHARD_FSDP_DECODE[2], 16, 4, 80, LM_SHARD_FSDP_DECODE[2],
+             f32),
+            ("danube_fsdp_single_decode_f32", LM_SHARD_FSDP_DECODE[0],
+             LM_SHARD_FSDP_DECODE[2], 32, 8, 80, LM_SHARD_FSDP_DECODE[2],
+             f32)]:
         q = randn(b, h, hd, dtype=dt)
         kc, vc = (randn(b, L, kvh, hd, dtype=dt) for _ in range(2))
         out["flash_decode"].append(check_flash_decode(
@@ -1592,6 +1630,12 @@ K1_CASES = [
      16, 4, 80, 4096, "bfloat16", True, 0),
     ("shard_danube_exact_f32", LM_SHARD_EXACT[0] // 2, LM_SHARD_EXACT[1],
      16, 4, 80, 4096, "float32", True, 0),
+    # 22f's on (4, 1): a rank holds all 32 query and 8 KV heads of one of
+    # the four data rows (22b bf16, 22a f32)
+    ("shard_danube_fsdp41_bf16", LM_SHARD_STEP[0] // 4, LM_SHARD_STEP[1],
+     32, 8, 80, 4096, "bfloat16", True, 0),
+    ("shard_danube_fsdp41_f32", LM_SHARD_EXACT[0] // 4, LM_SHARD_EXACT[1],
+     32, 8, 80, 4096, "float32", True, 0),
     # phase 24's: zamba2's shared block with 16 of its 32 heads a rank of
     # (2, 2), two data rows a rank (24a f32, 24b bf16), the driver's (24f:
     # four rows of 8 a rank), and the single device's at 24a's and 24b's
@@ -5217,20 +5261,25 @@ def phase_recurrent(peaks_) -> list:
 # init (3e-4 diverged at the second step; 3e-5 and 1e-5 fell, then
 # oscillated)
 TRAIN_STEPS, TRAIN_LR = 4, 3e-6
-# 19b: each family's f32 cut (phase 11's, 17's and 18's depths and
+# 19b: each family's f32 cut (the transformer families at
+# TRAIN_CUT_LAYERS, phase 18's recurrent depths; phase 17's and 18's
 # batches; the dense and audio cuts at S = CUT_TRAIN_SEQ and the moe cut
 # at MOE_TRAIN_SEQ, so that the CPU side takes seconds) takes one step on
 # the card, its loss and gradients held against the same cut's on the CPU
 # (the plain versions): the loss to TRAIN_LOSS_RTOL relative, each
 # gradient leaf to MAIN_TOL of its
 # largest entry (fp32 sums in other orders over up to 4096-token
-# batches; a wrong mask, group sum or scale moves a leaf by far more)
+# batches; a wrong mask, group sum or scale moves a leaf by far more).
+# The transformer cuts take 2 layers, not phase 11's 4: every leaf kind
+# and kernel call of a block is in each layer, and the CPU sides (81 s of
+# the H100 machine's host at 4 layers) are most of the phase
 TRAIN_LOSS_RTOL = 1e-4
-TRAIN_CUTS = [(SERVE_ARCH, EXACT_LAYERS, 2, CUT_TRAIN_SEQ),
-              (MOE_ARCH, EXACT_LAYERS, MOE_CUT_BATCH, MOE_TRAIN_SEQ),
-              (VLM_ARCH, EXACT_LAYERS, VLM_CUT_BATCH,
+TRAIN_CUT_LAYERS = 2
+TRAIN_CUTS = [(SERVE_ARCH, TRAIN_CUT_LAYERS, 2, CUT_TRAIN_SEQ),
+              (MOE_ARCH, TRAIN_CUT_LAYERS, MOE_CUT_BATCH, MOE_TRAIN_SEQ),
+              (VLM_ARCH, TRAIN_CUT_LAYERS, VLM_CUT_BATCH,
                VLM_PATCHES + VLM_CUT_TEXT),
-              (AUDIO_ARCH, EXACT_LAYERS, AUDIO_CUT_BATCH, CUT_TRAIN_SEQ),
+              (AUDIO_ARCH, TRAIN_CUT_LAYERS, AUDIO_CUT_BATCH, CUT_TRAIN_SEQ),
               (ZAMBA_ARCH, ZAMBA_CUT_LAYERS, RECUR_CUT_BATCH, RECUR_CUT_SEQ),
               (XLSTM_ARCH, XLSTM_CUT_LAYERS, RECUR_CUT_BATCH,
                RECUR_CUT_SEQ)]
@@ -6443,16 +6492,30 @@ def lm22_gen(device, seed: int):
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def lm22_grads(model, params, batch: dict):
+def lm22_grads(model, params, batch: dict, specs=None):
     """(loss of the global batch, gradients averaged over the data ranks)
-    of the rank's local params (the whole params without a mesh)."""
+    of the rank's local params (the whole params without a mesh), placed
+    by ``specs`` (needed under the fsdp rule)."""
     import torch
     from repro_torch.train.optimizer import leaves, unflatten
     from repro_torch.train.train_step import data_rows, mean_over_data
     loss, _ = model.loss(params, data_rows(batch, model.device))
     grads = torch.autograd.grad(loss, leaves(params), allow_unused=True,
                                 materialize_grads=True)
-    return loss.detach(), mean_over_data(unflatten(params, grads))
+    return loss.detach(), mean_over_data(unflatten(params, grads), specs)
+
+
+def lm22_worst(got: dict, want) -> tuple:
+    """(the largest relative error of any leaf, against its largest
+    entry; that leaf) of a whole tree ``got`` ({name: tensor}) against
+    ``want``."""
+    worst, worst_leaf = 0.0, None
+    for name, w in flat_params(want):
+        rel = float((got[name] - w).abs().max()) / (
+            float(w.abs().max()) or 1.0)
+        if rel >= worst:
+            worst, worst_leaf = rel, name
+    return worst, worst_leaf
 
 
 def lm22_layer(tree, i: int = 0):
@@ -6503,10 +6566,13 @@ def lm22_train_launches(cfg, steps: int = 1) -> dict:
     return {"flash_attention_fwd_lse": fwd * n, "flash_attention_bwd": n}
 
 
-def lm22_exact(rank: int, mesh, counts: Lm22Counts, rehearse: bool) -> dict:
+def lm22_exact(rank: int, mesh, counts: Lm22Counts, rehearse: bool
+               ) -> tuple:
     """22a: danube at full width cut to LM_SHARD_LAYERS, f32, on (2, 2):
     one step's loss and gathered gradients, on rank 0 against the
-    single-device loss and gradients (phase 19b's tolerances)."""
+    single-device loss and gradients (phase 19b's tolerances).  Returns
+    (record, rank 0's single-device (loss, gradients), which 22f holds
+    its gradients against; None on the other ranks)."""
     import torch
     import torch.distributed as dist
     from repro_torch.dist.sharding import (gather_tree, shard_tree,
@@ -6529,19 +6595,15 @@ def lm22_exact(rank: int, mesh, counts: Lm22Counts, rehearse: bool) -> dict:
     out = {"batch": b, "seq": s, **heads, "loss": float(loss),
            "sharded_s": time.perf_counter() - t0}
     del params, grads
+    kept = None
     if rank == 0:
         single = require_grad(model.init(lm22_gen(model.device, 61)))
         want_loss, want = lm22_grads(model, single, batch)
         out["loss_single"] = float(want_loss)
         out["loss_rel_err"] = abs(float(loss) - float(want_loss)) / abs(
             float(want_loss))
-        worst, worst_leaf = 0.0, None
         got = dict(flat_params(whole))
-        for name, w in flat_params(want):
-            rel = float((got[name] - w).abs().max()) / (
-                float(w.abs().max()) or 1.0)
-            if rel >= worst:
-                worst, worst_leaf = rel, name
+        worst, worst_leaf = lm22_worst(got, want)
         out.update(grad_leaves=len(got), grad_worst_rel_err=worst,
                    grad_worst_leaf=worst_leaf)
         if out["loss_rel_err"] > TRAIN_LOSS_RTOL or worst > MAIN_TOL:
@@ -6549,10 +6611,11 @@ def lm22_exact(rank: int, mesh, counts: Lm22Counts, rehearse: bool) -> dict:
                 f"22a: sharded against single device: loss "
                 f"{out['loss_rel_err']} (limit {TRAIN_LOSS_RTOL}), gradient "
                 f"{worst_leaf} {worst} (limit {MAIN_TOL})")
-        del single, want
+        kept = (want_loss, want)
+        del single
     del whole
     dist.barrier()
-    return out
+    return out, kept
 
 
 def lm22_step(rank: int, mesh, counts: Lm22Counts, rehearse: bool):
@@ -6569,8 +6632,10 @@ def lm22_step(rank: int, mesh, counts: Lm22Counts, rehearse: bool):
     batch = {"tokens": lm22_tokens(cfg, b, s, 72)}
     out = {"batch": b, "seq": s, "ms": [], "bytes": [], "loss": []}
     with sharding.use_sharding(mesh):
+        base = lm22_peak_reset(model.device)
         state = init_train_state(model, lm22_gen(model.device, 62))
         out.update(lm22_heads(cfg, state.params))
+        out["state_bytes"] = lm22_state_bytes(state)
         step = make_train_step(model)
         for _ in range(steps):
             sharding.reset_bytes()
@@ -6581,6 +6646,7 @@ def lm22_step(rank: int, mesh, counts: Lm22Counts, rehearse: bool):
             out["ms"].append((time.perf_counter() - t0) * 1e3)
             out["bytes"].append(dict(sharding.BYTES))
             out["loss"].append(float(metrics["loss"]))
+    out.update(lm22_peak(model.device, base))
     out["launches_a_step"] = lm22_train_launches(cfg)
     if rank == 0:
         single = init_train_state(model, lm22_gen(model.device, 62))
@@ -6662,6 +6728,332 @@ def lm22_remesh(rank: int, mesh, state, model, batch, counts: Lm22Counts,
                                      "restore")
             del restored
     dist.barrier()
+    return out
+
+
+def lm22_peak_reset(device) -> int:
+    """Reset the card's peak-memory counter (not on the CPU); the bytes
+    allocated now, the baseline of :func:`lm22_peak`."""
+    import torch
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def lm22_peak(device, base: int) -> dict:
+    """The card's peak allocated GiB since :func:`lm22_peak_reset`, and the
+    baseline it started from (nothing on the CPU)."""
+    import torch
+    if device.type != "cuda":
+        return {}
+    torch.cuda.synchronize()
+    return {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "base_gib": base / 2 ** 30}
+
+
+def lm22_state_bytes(state) -> dict:
+    """The bytes a rank holds of a train state: its params' blocks and its
+    master weights and moments (f32)."""
+    from repro_torch.train.optimizer import leaves
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in leaves(tree))
+
+    return {"params": nbytes(state.params),
+            "master_m_v": sum(nbytes(getattr(state.opt, k))
+                              for k in ("master", "m", "v"))}
+
+
+def lm22_fsdp_grads(rank: int, meshes: dict, counts: Lm22Counts,
+                    rehearse: bool, single) -> dict:
+    """22f's f32 part: 22a's gradients under ``{"fsdp": "data"}`` on (2, 2)
+    and (4, 1), gathered whole, on rank 0 against 22a's single device
+    (``single``: its loss and gradients) at 22a's tolerances."""
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import (gather_tree, shard_tree,
+                                           use_sharding)
+    from repro_torch.models import LM
+    from repro_torch.train import require_grad
+    cfg = lm22_cfg(SERVE_ARCH, LM_SHARD_LAYERS, "float32", rehearse)
+    b, s = LM_SHARD_REHEARSE["exact"] if rehearse else LM_SHARD_EXACT
+    model = LM(cfg, device=counts.device)
+    batch = {"tokens": lm22_tokens(cfg, b, s, 71)}
+    out = {}
+    for key, mesh in meshes.items():
+        t0 = time.perf_counter()
+        with use_sharding(mesh, LM_SHARD_FSDP_RULES):
+            specs = model.param_specs()
+            params = require_grad(shard_tree(
+                model.init(lm22_gen(model.device, 61)), specs))
+            rec = {"mesh": key, **lm22_heads(cfg, params),
+                   "d_model_a_rank": params["blocks"]["attn"]["wq"].shape[1]}
+            loss, grads = counts.drive(
+                lambda: lm22_grads(model, params, batch, specs),
+                lm22_train_launches(cfg))
+            whole = gather_tree(grads, specs)
+        rec.update(loss=float(loss), seconds=time.perf_counter() - t0)
+        if rank == 0:
+            want_loss, want = single
+            rec["loss_rel_err"] = abs(float(loss) - float(want_loss)) / abs(
+                float(want_loss))
+            worst, leaf = lm22_worst(dict(flat_params(whole)), want)
+            rec.update(grad_worst_rel_err=worst, grad_worst_leaf=leaf)
+            if rec["loss_rel_err"] > TRAIN_LOSS_RTOL or worst > MAIN_TOL:
+                raise AssertionError(
+                    f"22f {key}: fsdp against single device: loss "
+                    f"{rec['loss_rel_err']} (limit {TRAIN_LOSS_RTOL}), "
+                    f"gradient {leaf} {worst} (limit {MAIN_TOL})")
+        del params, grads, whole
+        gc.collect()
+        dist.barrier()
+        out[key] = rec
+    return out
+
+
+def lm22_fsdp_clip(rank: int, mesh, counts: Lm22Counts,
+                   rehearse: bool) -> dict:
+    """22f's clipped step: the f32 cut under ``{"fsdp": "data"}`` on
+    (4, 1), one step clipped to LM_SHARD_FSDP_CLIP at LM_SHARD_FSDP_LR; on
+    rank 0 its global norm and each leaf's update (the params after the
+    step less before) against the single device's, the update within
+    MAIN_TOL of its largest entry."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import gather_tree, use_sharding
+    from repro_torch.models import LM
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = lm22_cfg(SERVE_ARCH, LM_SHARD_LAYERS, "float32", rehearse)
+    b, s = LM_SHARD_REHEARSE["exact"] if rehearse else LM_SHARD_EXACT
+    model = LM(cfg, device=counts.device)
+    batch = {"tokens": lm22_tokens(cfg, b, s, 71)}
+
+    def stepper():
+        return make_train_step(model, lr=LM_SHARD_FSDP_LR, warmup=1,
+                               grad_clip=LM_SHARD_FSDP_CLIP)
+
+    with use_sharding(mesh, LM_SHARD_FSDP_RULES):
+        specs = model.param_specs()
+        state = init_train_state(model, lm22_gen(model.device, 61))
+        state, metrics = counts.drive(lambda: stepper()(state, batch),
+                                      lm22_train_launches(cfg))
+        whole = gather_tree(state.params, specs)
+    out = {"clip": LM_SHARD_FSDP_CLIP, "lr": LM_SHARD_FSDP_LR,
+           "grad_norm": float(metrics["grad_norm"]),
+           "loss": float(metrics["loss"])}
+    del state
+    if rank == 0:
+        single = init_train_state(model, lm22_gen(model.device, 61))
+        before = {k: v.detach().clone() for k, v in
+                  flat_params(single.params)}
+        single, want = stepper()(single, batch)
+        out["grad_norm_single"] = float(want["grad_norm"])
+        out["grad_norm_rel_err"] = abs(out["grad_norm"] - float(
+            want["grad_norm"])) / float(want["grad_norm"])
+        got = {k: v - before[k] for k, v in flat_params(whole)}
+        delta = {k: v.detach() - before[k] for k, v in
+                 flat_params(single.params)}
+        out["update_worst_rel_err"], out["update_worst_leaf"] = lm22_worst(
+            got, delta)
+        if out["grad_norm"] <= 10 * LM_SHARD_FSDP_CLIP \
+                or out["grad_norm_rel_err"] > TRAIN_LOSS_RTOL \
+                or out["update_worst_rel_err"] > MAIN_TOL:
+            raise AssertionError(f"22f: the clipped step on (4, 1) against "
+                                 f"the single device: {out}")
+        del single, before, got, delta
+    del whole
+    gc.collect()
+    dist.barrier()
+    return out
+
+
+def lm22_fsdp_steps(rank: int, meshes: dict, counts: Lm22Counts,
+                    rehearse: bool, single_loss) -> tuple:
+    """22f's bf16 part: 22b's first LM_SHARD_FSDP_STEPS steps under
+    ``{"fsdp": "data"}`` on (2, 2) and (4, 1), each timed with its bytes,
+    the state's bytes a rank and the card's peak; on rank 0 the losses
+    against 22b's single device (``single_loss``) within 22b's limit.
+    Returns (records, the (2, 2) state, the model)."""
+    import torch.distributed as dist
+    from repro_torch.dist import sharding
+    from repro_torch.models import LM
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = lm22_cfg(SERVE_ARCH, LM_SHARD_LAYERS, "bfloat16", rehearse)
+    b, s, _ = LM_SHARD_REHEARSE["step"] if rehearse else LM_SHARD_STEP
+    steps = LM_SHARD_FSDP_STEPS
+    model = LM(cfg, device=counts.device)
+    batch = {"tokens": lm22_tokens(cfg, b, s, 72)}
+    out, kept = {}, None
+    for key, mesh in meshes.items():
+        rec = {"mesh": key, "batch": b, "seq": s, "ms": [], "bytes": [],
+               "loss": []}
+        with sharding.use_sharding(mesh, LM_SHARD_FSDP_RULES):
+            base = lm22_peak_reset(model.device)
+            state = init_train_state(model, lm22_gen(model.device, 62))
+            rec["state_bytes"] = lm22_state_bytes(state)
+            step = make_train_step(model)
+            for _ in range(steps):
+                sharding.reset_bytes()
+                lm22_sync(model.device)
+                t0 = time.perf_counter()
+                state, metrics = counts.drive(lambda: step(state, batch),
+                                              lm22_train_launches(cfg))
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["bytes"].append(dict(sharding.BYTES))
+                rec["loss"].append(float(metrics["loss"]))
+        rec.update(lm22_peak(model.device, base))
+        if rank == 0:
+            rec["loss_worst_rel_err"] = max(
+                abs(x - y) / abs(y) for x, y in zip(rec["loss"], single_loss))
+            rec["loss_tol"] = LM_SHARD_BF16_LOSS_C / math.sqrt(b * s)
+            if not rec["loss_worst_rel_err"] <= rec["loss_tol"]:
+                raise AssertionError(
+                    f"22f {key}: bf16 losses {rec['loss']} under fsdp "
+                    f"against the single device's {single_loss}: relative "
+                    f"{rec['loss_worst_rel_err']:.3g} > {rec['loss_tol']:.3g}")
+        if key == "22":
+            kept = state
+        del state
+        gc.collect()
+        dist.barrier()
+        out[key] = rec
+    return out, kept, model
+
+
+def lm22_fsdp_ckpt(rank: int, mesh, state, model, directory: str) -> dict:
+    """22f's checkpoint: the params of the (2, 2) fsdp state (the
+    optimizer state's restore across the rule is the CPU tests'; here a
+    full state would take 39 s) saved (gathered, rank 0 writes), restored
+    onto (2, 2) under the default rules; each rank's restored blocks cut
+    over the data axis as the rule cuts them must be its fsdp blocks, bit
+    for bit (the rest of a block is another data rank's, which holds
+    it)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import CheckpointManager, sharding
+    mgr = CheckpointManager(directory, async_save=False)
+    saved_step = int(state.opt.step)
+    with sharding.use_sharding(mesh, LM_SHARD_FSDP_RULES) as ctx:
+        plan = model._fsdp_plan()
+        lm22_sync(model.device)
+        t0 = time.perf_counter()
+        mgr.save(saved_step, state.params, blocking=True,
+                 specs=model.param_specs())
+        out = {"save_s": time.perf_counter() - t0}
+        coord = ctx.coord(ctx.fsdp_axes)
+    with sharding.use_sharding(mesh):
+        fresh = sharding.shard_tree(model.init(lm22_gen(model.device, 63)),
+                                    model.param_specs())
+        t0 = time.perf_counter()
+        restored = mgr.restore(fresh, step=saved_step,
+                               specs=model.param_specs())
+        out["restore_s"] = time.perf_counter() - t0
+        del fresh
+    where = dict(flat_params(plan))
+    back = dict(flat_params(restored))
+    diff = []
+    for name, x in flat_params(state.params):
+        y = back[name]
+        if where[name] is not None:
+            dim = where[name][0] % y.dim()
+            y = y.narrow(dim, coord * x.shape[dim], x.shape[dim])
+        if not torch.equal(x, y):
+            diff.append(name)
+    out.update(leaves_differing=diff, restored_step=mgr.last_restored_step,
+               default_wq=list(restored["blocks"]["attn"]["wq"].shape),
+               fsdp_wq=list(state.params["blocks"]["attn"]["wq"].shape))
+    if diff or mgr.last_restored_step != saved_step:
+        raise AssertionError(f"22f: the fsdp checkpoint restored without "
+                             f"the rule differs: {diff[:8]}")
+    del restored
+    gc.collect()
+    dist.barrier()
+    return out
+
+
+def lm22_fsdp_decode(rank: int, mesh, counts: Lm22Counts,
+                     rehearse: bool) -> dict:
+    """22f's decode: the f32 cut under ``{"fsdp": "data"}`` on (2, 2),
+    LM_SHARD_FSDP_DECODE's prompt positions fed a step at a time, then
+    greedy steps (each block gathered a step); on rank 0 every step's
+    logits within the serving bound of the single device's, greedy tokens
+    equal."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import (MODEL, current_ctx, gather,
+                                           shard_tree, use_sharding)
+    from repro_torch.models import LM
+    from repro_torch.train.train_step import data_rows
+    b, prompt_len, steps = LM_SHARD_FSDP_DECODE
+    cfg = lm22_cfg(SERVE_ARCH, LM_SHARD_LAYERS, "float32", rehearse)
+    model = LM(cfg, device=counts.device)
+    prompt = lm22_tokens(cfg, b, prompt_len, 76).to(model.device)
+    out = {"batch": b, "prompt": prompt_len, "steps": steps}
+    with torch.no_grad(), use_sharding(mesh, LM_SHARD_FSDP_RULES):
+        ctx = current_ctx()
+        params = shard_tree(model.init(lm22_gen(model.device, 77)),
+                            model.param_specs())
+        cache = shard_tree(model.init_cache(b, steps),
+                           model.cache_specs(b, steps))
+        lm22_sync(model.device)
+        t0 = time.perf_counter()
+        logits, toks = counts.drive(
+            lambda: recur24_decode_run(
+                model, params, cache, prompt, steps,
+                lambda t: data_rows({"t": t}, model.device)["t"],
+                lambda x: gather(gather(x, -1, MODEL), 0, ctx.batch_axes)),
+            {"flash_decode": attention_layers(cfg) * steps})
+        lm22_sync(model.device)
+        out["ms_a_step"] = (time.perf_counter() - t0) * 1e3 / steps
+    del params, cache
+    if rank == 0:
+        with torch.no_grad():
+            whole = model.init(lm22_gen(model.device, 77))
+            want, want_toks = recur24_decode_run(
+                model, whole, model.init_cache(b, steps), prompt, steps,
+                lambda t: t, lambda x: x)
+        diff = (logits - want).abs()
+        out["max_abs_err"] = float(diff.max())
+        out["excess"] = float((diff - SERVE_RTOL * want.abs()).max())
+        out["greedy_equal"] = bool(torch.equal(toks, want_toks))
+        if not torch.isfinite(logits).all() or out["excess"] > SERVE_ATOL \
+                or not out["greedy_equal"]:
+            raise AssertionError(
+                f"22f: decode under fsdp on (2, 2) against the single "
+                f"device: max |diff| {out['max_abs_err']}, greedy equal "
+                f"{out['greedy_equal']}")
+        del whole, want
+    gc.collect()
+    dist.barrier()
+    return out
+
+
+def lm22_fsdp(rank: int, mesh22, mesh41, counts: Lm22Counts,
+              rehearse: bool, single, single_loss, directory: str) -> dict:
+    """22f: the fsdp rule on (2, 2) and (4, 1); each part's seconds."""
+    meshes = {"22": mesh22, "41": mesh41}
+    out, parts = {}, {}
+    t0 = time.perf_counter()
+    out["grads"] = lm22_fsdp_grads(rank, meshes, counts, rehearse, single)
+    parts["grads"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["clip"] = lm22_fsdp_clip(rank, mesh41, counts, rehearse)
+    parts["clip"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["steps"], state, model = lm22_fsdp_steps(rank, meshes, counts,
+                                                 rehearse, single_loss)
+    parts["steps"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["ckpt"] = lm22_fsdp_ckpt(rank, mesh22, state, model, directory)
+    parts["ckpt"] = time.perf_counter() - t1
+    del state
+    gc.collect()
+    t1 = time.perf_counter()
+    out["decode"] = lm22_fsdp_decode(rank, mesh22, counts, rehearse)
+    parts["decode"] = time.perf_counter() - t1
+    out["part_s"] = parts
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -6876,14 +7268,19 @@ def lm_shard_rank(rank: int, world: int, store: str, results,
                   directory: str, rehearse: bool = False) -> None:
     """One of phase 22's ranks, in a spawned process: join the gloo world
     through the file store ``store`` on ``cuda:(rank % device_count)``
-    (the CPU when rehearsing), build the (2, 2) and (1, 4) meshes, run
-    22a, 22b, 22d and 22c on them, leave the group, run 22e, and put
-    ``(rank, record)`` — or ``(rank, traceback)`` — on ``results``."""
+    (the CPU when rehearsing), build the (2, 2), (1, 4) and (4, 1)
+    meshes, run 22a, 22b, 22d, 22f and 22c on them, leave the group, run
+    22e, and put ``(rank, record)`` — or ``(rank, traceback)`` — on
+    ``results``."""
     try:
         device, counts, mesh22, mesh14 = gloo_rank_join(rank, world, store,
                                                         rehearse)
         import torch
         import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        mesh41 = DeviceMesh(mesh22.device_type,
+                            torch.arange(world).reshape(4, 1),
+                            mesh_dim_names=("data", "model"))
         rec = {"device": str(device)}
         t0 = time.perf_counter()
         try:
@@ -6891,7 +7288,7 @@ def lm_shard_rank(rank: int, world: int, store: str, results,
                 torch.cuda.reset_peak_memory_stats()
             parts = {}
             t1 = time.perf_counter()
-            rec["22a"] = lm22_exact(rank, mesh22, counts, rehearse)
+            rec["22a"], single = lm22_exact(rank, mesh22, counts, rehearse)
             parts["22a"] = time.perf_counter() - t1
             if rank == 0:
                 log(f"lm shard rank 0 22a ({parts['22a']:.1f} s): "
@@ -6911,6 +7308,18 @@ def lm_shard_rank(rank: int, world: int, store: str, results,
                 log(f"lm shard rank 0 22d ({parts['22d']:.1f} s): "
                     f"{json.dumps(rec['22d'])}")
             del state, model
+            gc.collect()
+            if not rehearse:
+                torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            rec["22f"] = lm22_fsdp(rank, mesh22, mesh41, counts, rehearse,
+                                   single, rec["22b"].get("single_loss"),
+                                   f"{directory}/fsdp_ckpt")
+            parts["22f"] = time.perf_counter() - t1
+            if rank == 0:
+                log(f"lm shard rank 0 22f ({parts['22f']:.1f} s): "
+                    f"{json.dumps(rec['22f'])}")
+            del single
             gc.collect()
             if not rehearse:
                 torch.cuda.empty_cache()
@@ -6942,22 +7351,73 @@ def lm_shard_rank(rank: int, world: int, store: str, results,
         raise
 
 
+def lm22_fsdp_bytes_start(rehearse: bool) -> dict:
+    """22f's bytes predicted on meta: ``tools/torch_shard_bytes.py`` on
+    22b's step under LM_SHARD_FSDP_RULES on (2, 2) and (4, 1), each in a
+    process of its own on the CPU (no card), started together."""
+    b, s, _ = LM_SHARD_REHEARSE["step"] if rehearse else LM_SHARD_STEP
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    tool = Path(__file__).resolve().parent / "tools" / "torch_shard_bytes.py"
+    return {key: subprocess.Popen(
+        [sys.executable, str(tool), "--arch", SERVE_ARCH, "--layers",
+         str(LM_SHARD_LAYERS), "--batch", str(b), "--seq", str(s), "--mesh",
+         mesh, "--rules", json.dumps(LM_SHARD_FSDP_RULES)]
+        + (["--reduced"] if rehearse else []),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for key, mesh in (("22", "2,2"), ("41", "4,1"))}
+
+
+def lm22_fsdp_bytes_check(procs: dict, recs: dict) -> dict:
+    """Every rank's bytes by kind and axis in each of 22f's bf16 steps
+    against the meta walk's (:func:`lm22_fsdp_bytes_start`), equal."""
+    keys = ("all_reduce", "all_gather", "calls", "on_data", "on_model")
+    out = {}
+    for key, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=LM_SHARD_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        if proc.returncode:
+            raise AssertionError(f"22f: torch_shard_bytes.py exited "
+                                 f"{proc.returncode}:\n{stderr[-2000:]}")
+        want = json.loads(stdout.strip().splitlines()[-1])["bytes"]
+        for rank, r in sorted(recs.items()):
+            for i, got in enumerate(r["22f"]["steps"][key]["bytes"]):
+                bad = {k: (got.get(k, 0), want.get(k, 0)) for k in keys
+                       if got.get(k, 0) != want.get(k, 0)}
+                if bad:
+                    raise AssertionError(f"22f {key}: rank {rank} step {i} "
+                                         f"bytes against the meta walk: "
+                                         f"{bad}")
+        out[key] = {k: want.get(k, 0) for k in keys}
+    return out
+
+
 def phase_lm_shard(rehearse: bool = False) -> dict:
     """Phase 22: LM_SHARD_WORLD gloo ranks in spawned processes, all on
     this card (NCCL takes one rank a card), each running
     :func:`lm_shard_rank`: explicit tensor, expert and data parallelism
-    of the transformer families, the elastic re-mesh and the training
-    driver's ``--mesh local``.  Every rank's flash launches must equal
-    what its drives predict (:func:`gloo_ranks`).  ``rehearse`` runs the
-    same drives at the reduced widths on the CPU (no kernel, no launch
-    check)."""
+    of the transformer families, the fsdp rule, the elastic re-mesh and
+    the training driver's ``--mesh local``.  Every rank's flash launches
+    must equal what its drives predict (:func:`gloo_ranks`), and 22f's
+    bytes the meta walk's.  ``rehearse`` runs the same drives at the
+    reduced widths on the CPU (no kernel, no launch check)."""
     label = f"lm_shard_{LM_SHARD_WORLD}_ranks_gloo_one_card"
     t_phase = time.perf_counter()
-    recs, got = gloo_ranks(label, lm_shard_rank, rehearse)
+    meta = lm22_fsdp_bytes_start(rehearse)
+    try:
+        recs, got = gloo_ranks(label, lm_shard_rank, rehearse)
+    except BaseException:
+        for proc in meta.values():
+            proc.kill()
+            proc.wait()
+        raise
+    fsdp_bytes = lm22_fsdp_bytes_check(meta, recs)
     rec = {"phase": label, "world": LM_SHARD_WORLD,
            "note": "the ranks time-share one card over gloo: times are no "
                    "scaling figure",
-           "launches": got, "ranks": recs,
+           "launches": got, "ranks": recs, "fsdp_meta_bytes": fsdp_bytes,
            "seconds": time.perf_counter() - t_phase}
     log("main " + json.dumps(rec))
     for rank, r in sorted(recs.items()):
@@ -6968,10 +7428,16 @@ def phase_lm_shard(rehearse: bool = False) -> dict:
             f"{b['kv_heads']} KV heads a rank: step ms {b['ms']}"
             + (f", single device {b['single_ms']}" if "single_ms" in b
                else "") + f"; bytes a step {b['bytes'][-1]}; launches a "
-            f"step {b['launches_a_step']}; parts {r['part_s']}")
+            f"step {b['launches_a_step']}; state bytes {b['state_bytes']}; "
+            f"peak GiB {b.get('peak_gib')}; parts {r['part_s']}")
+        for key, f in sorted(r["22f"]["steps"].items()):
+            log(f"lm shard rank {rank} 22f fsdp on {key}: step ms {f['ms']}"
+                f"; bytes a step {f['bytes'][-1]}; state bytes "
+                f"{f['state_bytes']}; peak GiB {f.get('peak_gib')}")
     log(f"phase 22: {time.perf_counter() - t_phase:.1f} s; 22a {recs[0]['22a']}"
         f"; 22c {recs[0]['22c']}; 22d {recs[0]['22d']}; 22e "
-        f"{recs[0]['22e']}; peak GiB "
+        f"{recs[0]['22e']}; 22f parts {recs[0]['22f']['part_s']}; 22f "
+        f"meta bytes {fsdp_bytes}; peak GiB "
         f"{[round(r.get('peak_mem_gib', 0.0), 2) for _, r in sorted(recs.items())]}")
     return rec
 

@@ -203,6 +203,13 @@ class ShardingCtx:
         """Ranks of the tensor / expert parallel (``model``) axis."""
         return self.size(MODEL)
 
+    @property
+    def fsdp_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the ``"fsdp"`` rule splits parameters over (()
+        when it is off or its axes are all of size 1)."""
+        axes = self.mesh_axes_for("fsdp")
+        return axes if self.size(axes) > 1 else ()
+
 
 _CTX: ContextVar[ShardingCtx] = ContextVar(
     "repro_torch_sharding_ctx",
@@ -684,6 +691,43 @@ def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     if ctx.tp == 1:
         return x
     return _GatherFromModel.apply(x, dim % x.dim(), ctx)
+
+
+class _GatherFromData(torch.autograd.Function):
+    """All-gather forward along ``dim`` over ``axes`` (the ``"fsdp"``
+    rule's), a reduce-scatter backward: the gradient summed over those
+    axes, of which the rank keeps its own block.  gloo has no
+    reduce-scatter, so the sum is an all-reduce (counted as one, under
+    each axis) followed by the rank's slice."""
+
+    @staticmethod
+    def forward(fctx, x, dim, axes, ctx):
+        fctx.dim, fctx.axes, fctx.ctx = dim, axes, ctx
+        fctx.width = x.shape[dim]
+        return gather(x, dim, axes, ctx)
+
+    @staticmethod
+    def backward(fctx, grad):
+        ctx, width = fctx.ctx, fctx.width
+        summed = all_reduce(grad.contiguous().clone(), fctx.axes, ctx)
+        lo = ctx.coord(fctx.axes) * width
+        return (summed.narrow(fctx.dim, lo, width).contiguous(), None, None,
+                None)
+
+
+def gather_from_data(x: torch.Tensor, dim: int,
+                     axes: Union[str, Sequence[str]]) -> torch.Tensor:
+    """The whole of a parameter block split along ``dim`` over ``axes``
+    (the ``"fsdp"`` rule's mesh axes), for one layer's use: the blocks of
+    every rank on those axes concatenated in their order; its gradient
+    is summed over them and each rank keeps its block (see
+    :class:`_GatherFromData`).  The identity when the axes hold one
+    rank."""
+    ctx = current_ctx()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if ctx.size(axes) == 1:
+        return x
+    return _GatherFromData.apply(x, dim % x.dim(), axes, ctx)
 
 
 class _BatchMean(torch.autograd.Function):

@@ -20,6 +20,11 @@ rank's rows and cache.
 
 Cells skip as the reference skips them (``shape_applicable``); every
 other cell walks (``"status": "ok"``), the recurrent families' too.
+``build_cell`` and ``run_cell`` take the reference's ``rules=`` (placement
+rules over the defaults, e.g. ``{"fsdp": "data"}`` or ``{"fsdp":
+("pod", "data")}``, which split the params and the optimizer state over
+the data axes too) and ``microbatches=``; as in the reference, the CLI
+sets neither, and a run with rules names its cells by ``tag``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-32b \\
@@ -103,9 +108,14 @@ def production_mesh(multi_pod: bool):
 
 
 def build_cell(arch: str, shape_name: str, multi_pod: bool,
-               overrides: Optional[Dict] = None) -> Tuple[Walk, Dict]:
+               overrides: Optional[Dict] = None,
+               rules: Optional[Dict] = None,
+               microbatches: int = 1) -> Tuple[Walk, Dict]:
     """Rank 0's local blocks of one cell on meta, its step walked: returns
-    (walk, meta).  Raises :class:`SkipCell` for a shape the arch skips."""
+    (walk, meta).  ``rules`` override the placement rules (the
+    reference's ``use_sharding(mesh, rules=...)``, e.g. ``{"fsdp":
+    "data"}``), ``microbatches`` splits a train cell's batch.  Raises
+    :class:`SkipCell` for a shape the arch skips."""
     cfg = _dryrun_config(get_config(arch), overrides)
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
@@ -114,13 +124,13 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     mesh = production_mesh(multi_pod)
     model = LM(cfg, device="meta")
     t0 = time.perf_counter()
-    with use_sharding(mesh):
+    with use_sharding(mesh, rules=rules):
         params = shard_tree(model.init(None), model.param_specs())
         if shape.kind == "train":
             state = TrainState(require_grad(params), adamw_init(params),
                                torch.Generator())
             batch = make_batch_specs(cfg, shape)
-            step = make_train_step(model)
+            step = make_train_step(model, microbatches=microbatches)
             args = (state, batch)
         elif shape.kind == "prefill":
             step = make_prefill_step(model)
@@ -157,7 +167,8 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              force: bool = False, overrides: Optional[Dict] = None,
-             tag: str = "baseline", verbose: bool = True,
+             rules: Optional[Dict] = None, tag: str = "baseline",
+             microbatches: int = 1, verbose: bool = True,
              results_dir: str = RESULTS_DIR) -> Dict:
     os.makedirs(results_dir, exist_ok=True)
     mesh_name = "2x16x16" if multi_pod else "16x16"
@@ -171,7 +182,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             "tag": tag}
     try:
         walk, meta = build_cell(arch, shape_name, multi_pod,
-                                overrides=overrides)
+                                overrides=overrides, rules=rules,
+                                microbatches=microbatches)
     except SkipCell as e:
         result = {**head, "status": "skipped", "reason": str(e)}
     else:

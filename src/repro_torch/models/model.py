@@ -47,9 +47,10 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..core.runtime import resolve_device
 from ..dist import sharding
-from ..dist.sharding import (MODEL, aligned_spec, all_reduce, batch_mean,
-                             current_ctx, map_axes, reduce_from_model,
-                             spec_axes, split_offset)
+from ..dist.sharding import (MODEL, P, aligned_spec, all_reduce,
+                             batch_mean, current_ctx, gather_from_data,
+                             map_axes, reduce_from_model, spec_axes,
+                             split_offset)
 from . import attention, layers, moe, ssm, xlstm
 
 Params = Dict[str, Any]
@@ -71,6 +72,9 @@ class LM:
         self.cfg = cfg
         self.dtype = layers.DTYPES[cfg.dtype]
         self.device = resolve_device(device)
+        self._shapes: Optional[Params] = None
+        # the "fsdp" rule's splits, by mesh and rules (:meth:`_fsdp_plan`)
+        self._plans: Dict[Any, Tuple[Any, Optional[Params]]] = {}
 
     # -- init ---------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Params:
@@ -200,9 +204,12 @@ class LM:
 
     def param_shapes(self) -> Params:
         """The whole params' shapes, from an init on the meta device (no
-        storage, no generator)."""
-        meta = LM(self.cfg, device="meta").init(None)
-        return map_axes(lambda _, x: tuple(x.shape), self.param_axes(), meta)
+        storage, no generator), made once a model."""
+        if self._shapes is None:
+            meta = LM(self.cfg, device="meta").init(None)
+            self._shapes = map_axes(lambda _, x: tuple(x.shape),
+                                    self.param_axes(), meta)
+        return self._shapes
 
     def _param_units(self, axes: Params, in_attention: bool = False
                      ) -> Params:
@@ -248,21 +255,88 @@ class LM:
         (:func:`~repro_torch.dist.sharding.resolve_spec`), except that no
         head is cut (:func:`~repro_torch.dist.sharding.aligned_spec`; an
         expert never is, the expert dimension being whole experts).
-        Raises for rules that split a parameter over another axis than
-        ``model`` (the layers run their collectives there)."""
+
+        The layers run tensor parallelism on the ``model`` axis, and the
+        ``"fsdp"`` rule's dimensions split over its own axes (the data
+        axes), which each block gathers whole before it runs
+        (:meth:`_fsdp_plan`).  Raises for a rule that splits a parameter
+        over another axis (``"fsdp"`` on ``model`` too), and for the
+        ``"seq_sp"`` rule, which the port does not yet honour."""
         ctx = ctx or current_ctx()
+        if ctx.mesh_axes_for("seq_sp"):
+            raise NotImplementedError(
+                f"the seq_sp rule (onto {ctx.mesh_axes_for('seq_sp')}) is "
+                "not yet ported: the port runs every position of a "
+                "sequence on each rank")
         axes, units = self.placement()
         specs = map_axes(lambda ax, shape, unit: aligned_spec(
             ax, shape, unit, ctx), axes, self.param_shapes(), units)
-        bad = set()
-        map_axes(lambda spec: bad.update(set(spec_axes(spec)) - {MODEL}),
-                 specs)
+        fsdp, bad = set(ctx.mesh_axes_for("fsdp")) - {MODEL}, set()
+
+        def check(ax, spec):
+            for logical, entry in zip(ax, spec):
+                allowed = fsdp if logical == "fsdp" else {MODEL}
+                bad.update(set(spec_axes(P(entry))) - allowed)
+
+        map_axes(check, axes, specs)
         if bad:
             raise NotImplementedError(
                 f"rules that split parameters over {sorted(bad)}: the "
                 "port's layers run tensor parallelism on the model axis "
+                "and gather the fsdp rule's dimensions over the data axes "
                 "only")
         return specs
+
+    def _fsdp_plan(self, ctx=None) -> Optional[Params]:
+        """Where the ``"fsdp"`` rule splits each param leaf on the active
+        mesh: a tree of :meth:`param_axes`' shape holding (the dimension,
+        counted from the end, so that it holds for one layer's slice of a
+        stacked leaf too; its mesh axes), or None for a leaf it leaves
+        whole; None when it splits nothing (the default rules)."""
+        ctx = ctx or current_ctx()
+        if not ctx.fsdp_axes:
+            return None
+        key = (id(ctx.mesh), repr(sorted(ctx.rules.items())))
+        hit = self._plans.get(key)
+        if hit is not None and hit[0] is ctx.mesh:
+            return hit[1]
+        axes, _ = self.placement()
+
+        def where(ax, spec):
+            for i, (logical, entry) in enumerate(zip(ax, spec)):
+                if logical == "fsdp" and entry is not None:
+                    return i - len(ax), spec_axes(P(entry))
+            return None
+
+        plan = map_axes(where, axes, self.param_specs(ctx))
+        self._plans[key] = (ctx.mesh, plan)
+        return plan
+
+    def _gather(self, tree, *path: str):
+        """``tree``, the params at ``path`` (or one layer's of them), with
+        every leaf the ``"fsdp"`` rule splits gathered whole over its axes
+        (:func:`~repro_torch.dist.sharding.gather_from_data`: its gradient
+        reduce-scattered back), so the block sees the block of the model
+        axis it sees without the rule; ``tree`` itself without it."""
+        plan = self._fsdp_plan()
+        for k in path:
+            if plan is None:
+                break
+            plan = plan[k]
+        return _gathered(tree, plan)
+
+    def _gathering(self, fn, *path: str):
+        """``fn(block_params, *args)`` with its block's params gathered
+        first (:meth:`_gather` at ``path``).  Under :meth:`_remat` the
+        gather runs inside the recomputed region: the recompute gathers
+        again, and no gathered layer outlives its block."""
+        if self._fsdp_plan() is None:
+            return fn
+
+        def gathered(bp, *args):
+            return fn(self._gather(bp, *path), *args)
+
+        return gathered
 
     def cache_specs(self, batch: int, max_seq: int,
                     long_context: bool = False, ctx=None) -> Params:
@@ -272,8 +346,15 @@ class LM:
         hold the rank's heads (:func:`.ssm.placement_mamba2_state`,
         :func:`.xlstm.placement_mlstm_state`).  A sharded decode takes
         ``shard_tree(init_cache(batch, max_seq), cache_specs(batch,
-        max_seq))``, as a sharded step takes its params."""
+        max_seq))``, as a sharded step takes its params.  Raises for the
+        ``"cache_seq"`` rule, which the port does not yet honour (each
+        rank's decode writes and reads every slot of its cache)."""
         ctx = ctx or current_ctx()
+        if ctx.mesh_axes_for("cache_seq"):
+            raise NotImplementedError(
+                f"the cache_seq rule (onto {ctx.mesh_axes_for('cache_seq')})"
+                " is not yet ported: a decode step writes the slot of its "
+                "position and reads every valid slot on each rank")
         axes = self.cache_axes(long_context)
         units = map_axes(lambda ax: (1,) * len(ax), axes)
         cfg = self.cfg
@@ -374,7 +455,7 @@ class LM:
             return self._zamba_backbone(params, x, positions, causal), aux
         if cfg.family == "ssm":
             return self._xlstm_backbone(params, x), aux
-        layer = self._remat(self._layer)
+        layer = self._remat(self._gathering(self._layer, "blocks"))
         for bp in self._blocks(params):
             x, block_aux = layer(bp, x, positions, causal, prefix_len)
             if block_aux is not None:
@@ -399,8 +480,9 @@ class LM:
                         causal: bool) -> Tensor:
         cfg = self.cfg
         groups, tail = self._zamba_layout()
-        mamba, shared = self._remat(self._mamba), \
-            self._remat(self._shared_part)
+        mamba = self._remat(self._gathering(self._mamba, "mamba_groups"))
+        shared = self._remat(self._gathering(self._shared_part,
+                                             "shared_attn"))
         for g in range(groups):
             group = _index(params["mamba_groups"], g)
             for i in range(cfg.attn_every):
@@ -408,6 +490,7 @@ class LM:
             # the weight-shared block, the same params each time (autograd
             # sums their gradients over the groups)
             x = shared(params["shared_attn"], x, positions, causal)
+        mamba = self._remat(self._gathering(self._mamba, "mamba_tail"))
         for i in range(tail):
             x = mamba(_index(params["mamba_tail"], i), x)
         return x
@@ -424,7 +507,8 @@ class LM:
 
     def _xlstm_backbone(self, params: Params, x: Tensor) -> Tensor:
         groups, per = self._xlstm_layout()
-        mlstm, slstm = self._remat(self._mlstm), self._remat(self._slstm)
+        mlstm = self._remat(self._gathering(self._mlstm, "mlstm_groups"))
+        slstm = self._remat(self._gathering(self._slstm, "slstm"))
         for g in range(groups):
             group = _index(params["mlstm_groups"], g)
             for i in range(per):
@@ -446,18 +530,18 @@ class LM:
         cfg = self.cfg
         if cfg.family == "vlm":
             patches = layers.frontend_proj(
-                params["frontend"], self._input(batch, "patches").to(
-                    self.dtype))
+                self._gather(params["frontend"], "frontend"),
+                self._input(batch, "patches").to(self.dtype))
             tok = self._embed_tokens(params, self._input(batch, "tokens"))
             x = torch.cat([patches, tok], dim=1)
             prefix = patches.shape[1]
         elif cfg.family == "audio":
             x = layers.frontend_proj(
-                params["frontend"], self._input(batch, "frames").to(
-                    self.dtype))
+                self._gather(params["frontend"], "frontend"),
+                self._input(batch, "frames").to(self.dtype))
             prefix = 0
         else:
-            x = layers.embed(params["embed"],
+            x = layers.embed(self._gather(params["embed"], "embed"),
                              self._input(batch, "tokens").long(), cfg.vocab)
             prefix = 0
         positions = torch.arange(x.shape[1], device=self.device)
@@ -467,15 +551,16 @@ class LM:
         """Token embeddings; a vlm's tied head scales them by sqrt(d_model)
         in the params' type (bf16: 45.25 at d_model 2048), as the
         reference's ``jnp.asarray(d ** 0.5, tok.dtype)`` does."""
-        x = layers.embed(params["embed"], tokens.long(), self.cfg.vocab)
+        x = layers.embed(self._gather(params["embed"], "embed"),
+                         tokens.long(), self.cfg.vocab)
         if self.cfg.family == "vlm" and self.cfg.tie_embeddings:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         return x
 
     def logits(self, params: Params, hidden: Tensor) -> Tensor:
-        head = params["embed"] if self.cfg.tie_embeddings \
-            else params["lm_head"]
-        return layers.unembed(head, hidden, self.cfg.vocab)
+        name = "embed" if self.cfg.tie_embeddings else "lm_head"
+        return layers.unembed(self._gather(params[name], name), hidden,
+                              self.cfg.vocab)
 
     def _hidden(self, params: Params, batch: Dict) -> Tuple[Tensor, Tensor]:
         cfg = self.cfg
@@ -597,6 +682,7 @@ class LM:
                 "overflow stepwise")
         take = min(s, cache_len)
         for i, bp in enumerate(self._blocks(params)):
+            bp = self._gather(bp, "blocks")
             a, (k, v) = attention.attention_block(
                 bp["attn"], cfg, layers.rmsnorm(bp["ln1"], x, cfg.norm_eps),
                 positions, causal=True, prefix_len=prefix, return_kv=True)
@@ -641,7 +727,7 @@ class LM:
                 x = self._zamba_decode(params, cache, x, attend)
             else:
                 for i, bp in enumerate(self._blocks(params)):
-                    x = attend(bp, x, i)
+                    x = attend(self._gather(bp, "blocks"), x, i)
         x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return self.logits(params, x), cache
 
@@ -661,12 +747,15 @@ class LM:
             group = _index(params["mamba_groups"], g)
             states = _index(cache["mamba"], g)
             for i in range(self.cfg.attn_every):
-                x = self._mamba_step(_index(group, i), x,
-                                     _index(states, i))
-            x = attend(params["shared_attn"], x, g)
+                x = self._mamba_step(
+                    self._gather(_index(group, i), "mamba_groups"), x,
+                    _index(states, i))
+            x = attend(self._gather(params["shared_attn"], "shared_attn"), x,
+                       g)
         for i in range(tail):
-            x = self._mamba_step(_index(params["mamba_tail"], i), x,
-                                 _index(cache["mamba_tail"], i))
+            x = self._mamba_step(
+                self._gather(_index(params["mamba_tail"], i), "mamba_tail"),
+                x, _index(cache["mamba_tail"], i))
         return x
 
     def _xlstm_decode(self, params: Params, cache: Params, x: Tensor
@@ -677,13 +766,13 @@ class LM:
             group = _index(params["mlstm_groups"], g)
             states = _index(cache["mlstm"], g)
             for i in range(per):
-                bp = _index(group, i)
+                bp = self._gather(_index(group, i), "mlstm_groups")
                 m, _ = xlstm.mlstm_decode_step(
                     bp["mixer"], cfg,
                     layers.rmsnorm(bp["ln"], x, cfg.norm_eps),
                     _index(states, i))
                 x = x + m
-            sp = _index(params["slstm"], g)
+            sp = self._gather(_index(params["slstm"], g), "slstm")
             s, _ = xlstm.slstm_decode_step(
                 sp["cell"], cfg, layers.rmsnorm(sp["ln"], x, cfg.norm_eps),
                 _index(cache["slstm"], g))
@@ -768,6 +857,17 @@ def _stacked_zeros(tree, lead: Tuple[int, ...]):
     if isinstance(tree, dict):
         return {k: _stacked_zeros(v, lead) for k, v in tree.items()}
     return tree.new_zeros(lead + tuple(tree.shape))
+
+
+def _gathered(tree, plan):
+    """``tree`` with each leaf that ``plan`` (:meth:`LM._fsdp_plan`'s tree,
+    or a subtree of it) places gathered whole."""
+    if plan is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _gathered(v, plan[k]) for k, v in tree.items()}
+    dim, axes = plan
+    return gather_from_data(tree, dim, axes)
 
 
 def _index(tree, i: int):

@@ -19,21 +19,26 @@ reference seeds each leaf's Q₀ with ``hash(path)``, which changes from
 process to process, so the tests hand Q₀ over from numpy
 (:func:`compression_state_from_numpy`) rather than reproduce a draw.
 
-On a mesh with a model axis (``specs``: the gradients' placement,
-:meth:`LM.param_specs`) each rank holds local blocks, and a sketch of a
-block is not a block of the sketch: every leaf is compressed as the
-single device compresses the whole leaf.  Compressibility and Q₀ are
-decided on the whole leaf's shape (:func:`init_compression`: a rank's
-Q₀ is its block of the whole Q₀), and the products that span ranks are
-summed over the model axis:
+On a mesh (``specs``: the gradients' placement, :meth:`LM.param_specs`)
+each rank holds local blocks, and a sketch of a block is not a block of
+the sketch: every leaf is compressed as the single device compresses the
+whole leaf.  Compressibility and Q₀ are decided on the whole leaf's
+shape (:func:`init_compression`: a rank's Q₀ is its block of the whole
+Q₀), and the products that span ranks are summed over the axes that
+split them (the model axis, and under the ``"fsdp"`` rule the data
+axes):
 
 * a leaf split on its last dimension (the collapsed matrix's columns):
-  ``P = Σ_r G_r Q₀_r`` (an all-reduce of n×k; a packed leaf's replicated
-  columns counted once), orthonormalised on every rank, ``Q_r = G_rᵀ P``;
+  ``P = Σ_r G_r Q₀_r`` (an all-reduce of n×k over the column axes; a
+  packed leaf's replicated columns counted once), orthonormalised on
+  every rank, ``Q_r = G_rᵀ P``;
 * a leaf split on an earlier dimension (its collapsed rows interleave by
-  layer): ``P_r = G_r Q₀``, all-gathered into the whole P in global row
-  order and orthonormalised on every rank, each rank keeping its rows,
-  ``Q = Σ_r G_rᵀ P_r`` (an all-reduce of m×k);
+  layer): ``P_r = G_r Q₀``, all-gathered over the row axes into the whole
+  P in global row order and orthonormalised on every rank, each rank
+  keeping its rows, ``Q = Σ_r G_rᵀ P_r`` (an all-reduce of m×k);
+* a leaf split on both (data on one, model on the other): P summed over
+  the column axes, then gathered over the row axes, Q summed over the
+  row axes;
 * a replicated leaf compresses on its own.
 
 ``Ĝ_r = P_r Q_rᵀ``, and the error buffers have the local shape.
@@ -47,7 +52,7 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..dist import sharding
-from ..dist.sharding import (MODEL, P, Packed, ShardingCtx, all_reduce,
+from ..dist.sharding import (P, Packed, ShardingCtx, all_reduce,
                              current_ctx, gather, global_shape, local_block)
 from ..models.weights import params_from_numpy
 from .optimizer import tree_map, unflatten
@@ -153,41 +158,52 @@ def compress_leaf_sharded(g: torch.Tensor, q0: Optional[torch.Tensor],
     """:func:`compress_leaf` of a rank's block ``g`` of a leaf placed by
     ``spec`` on the active mesh: ``(P_r, Q_r, new_err)``, the rank's
     blocks of the whole leaf's factors (``P_r Q_rᵀ`` is its block of Ĝ).
-    Collectives over the model axis when the leaf is split (every rank
-    calls it); a replicated leaf compresses on its own."""
+    The leaf may be split on its last dimension (the collapsed matrix's
+    columns), on one earlier dimension (its rows), or on both, each over
+    its own axes (the model axis, the ``"fsdp"`` rule's data axes):
+    ``P = G·Q₀`` summed over the column axes, orthonormalised from P
+    gathered over the row axes, ``Q = Gᵀ·P`` summed over the row axes.
+    Collectives over those axes (every rank on them calls it); a
+    replicated leaf compresses on its own."""
     ctx = ctx or current_ctx()
     if q0 is None:
         return g, None, None
     split = [d for d, e in enumerate(spec) if e is not None]
     if not split:
         return compress_leaf(g, q0, err)
-    dim, entry = split[0], spec[split[0]]
-    last = dim == g.dim() - 1
-    if len(split) > 1 or sharding.spec_axes(spec) != (MODEL,) or (
-            isinstance(entry, Packed) and not last):
+    last = g.dim() - 1
+    rows = [d for d in split if d != last]
+    col = spec[last] if last in split else None
+    if len(rows) > 1 or (rows and isinstance(spec[rows[0]], Packed)):
         raise NotImplementedError(
-            f"compression of a leaf placed {spec}: one dimension split on "
-            "the model axis, a packed one last")
+            f"compression of a leaf placed {spec}: at most one earlier "
+            "dimension split, a packed one last")
     gm = g.reshape(_matrix_shape(g)).to(torch.float32) + err
     q0 = q0.to(torch.float32)
-    if last:
-        # columns: P = Σ_r G_r Q₀_r, a packed leaf's replicated columns
-        # counted on the first model rank only
-        own = q0
-        if isinstance(entry, Packed) and ctx.coord(MODEL):
-            own = q0 * torch.cat([
-                torch.full((w // ctx.tp if e else w,), float(bool(e)),
-                           device=q0.device) for w, e in entry])[:, None]
-        p = _orthonormalize(all_reduce(gm @ own, MODEL, ctx))
+    own = q0
+    col_axes = sharding.spec_axes(P(col))
+    if isinstance(col, Packed) and ctx.coord(col_axes):
+        # a packed leaf's replicated columns counted on the first rank only
+        own = q0 * torch.cat([
+            torch.full((w // ctx.size(col_axes) if e else w,),
+                       float(bool(e)), device=q0.device)
+            for w, e in col])[:, None]
+    p = gm @ own
+    if col_axes:
+        p = all_reduce(p, col_axes, ctx)
+    if not rows:
+        p = _orthonormalize(p)
         q = gm.T @ p
     else:
         # rows, which interleave by the leading dimensions: the whole P in
         # global row order, each rank keeping its rows
+        dim, entry = rows[0], spec[rows[0]]
+        row_axes = sharding.spec_axes(P(entry))
         k = q0.shape[1]
-        whole = gather((gm @ q0).reshape(*g.shape[:-1], k), dim, MODEL, ctx)
+        whole = gather(p.reshape(*g.shape[:-1], k), dim, row_axes, ctx)
         p = local_block(_orthonormalize(whole.reshape(-1, k)).reshape(
             whole.shape), P(*([None] * dim), entry)).reshape(-1, k)
-        q = all_reduce(gm.T @ p, MODEL, ctx)
+        q = all_reduce(gm.T @ p, row_axes, ctx)
     return p, q, gm - p @ q.T
 
 

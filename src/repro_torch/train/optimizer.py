@@ -10,7 +10,7 @@ would otherwise be written anew every step) and return them, with the
 reference's values.  :func:`opt_state_axes` gives the state the params'
 logical axes, as the reference does; on a mesh the state holds the same
 local blocks as the params, and :func:`global_norm` sums the split
-leaves' squares over the model axis.
+leaves' squares over the axes that split them.
 """
 
 from __future__ import annotations
@@ -85,31 +85,38 @@ def adamw_init(params) -> OptState:
 def global_norm(tree, specs=None) -> Tensor:
     """sqrt of the sum of every leaf's squares, in f32.  With ``specs``
     (the leaves' PartitionSpecs on the active mesh) the tree holds local
-    blocks: the split leaves' sums are added over the model axis, the
+    blocks: each leaf's sum is added over the axes of size > 1 that its
+    spec splits it over (the model axis, the ``"fsdp"`` rule's data
+    axes, or both: the leaves split alike summed in one all-reduce), the
     replicated ones counted once, so every rank clips as one device
     would."""
     squares = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
-    if specs is None or sharding.current_ctx().tp == 1:
+    ctx = sharding.current_ctx()
+    if specs is None or ctx.mesh is None:
         return torch.sqrt(sum(squares))
-    split = _split_flags(specs)
-    part = sum(q for q, cut in zip(squares, split) if cut)
-    whole = sum(q for q, cut in zip(squares, split) if not cut)
-    if isinstance(part, Tensor):
-        part = sharding.all_reduce(part.detach().clone(), sharding.MODEL)
+    groups: Dict[Tuple[str, ...], list] = {}
+    for q, axes in zip(squares, _split_axes(specs, ctx)):
+        groups.setdefault(axes, []).append(q)
+    whole = sum(groups.pop((), []))
+    if not groups:
+        return torch.sqrt(whole)
+    part = sum(sharding.all_reduce(sum(qs).detach().clone(), axes, ctx)
+               for axes, qs in sorted(groups.items()))
     return torch.sqrt(part + whole)
 
 
-def _split_flags(specs) -> list:
-    """Whether each leaf's spec splits it, in :func:`leaves`' order."""
-    if isinstance(specs, dict):
-        return [f for k in sorted(specs) for f in _split_flags(specs[k])]
-    return [bool(sharding.spec_axes(specs))]
+def _split_axes(specs, ctx) -> list:
+    """The axes of size > 1 that each leaf's spec splits it over, in
+    :func:`leaves`' order."""
+    return [tuple(a for a in sharding.spec_axes(spec) if ctx.size(a) > 1)
+            for spec in leaves(specs)]
 
 
 def opt_state_axes(param_axes) -> Dict:
     """Logical axes of :class:`OptState` given the params': the master
-    weights and moments take the params' own (the reference's ZeRO-1
-    falls out of its ``fsdp`` rules, which are off by default)."""
+    weights and moments take the params' own, as in the reference.  Under
+    the ``"fsdp"`` rule they are split over the data axes with the params
+    (ZeRO: each data rank keeps and updates its block of the state)."""
     return {"step": (), "master": param_axes, "m": param_axes,
             "v": param_axes}
 

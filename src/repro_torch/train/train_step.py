@@ -10,9 +10,12 @@ the reference's values (:mod:`.optimizer`).
 Under ``use_sharding`` (``dist.sharding``) the state is each rank's local
 blocks (:func:`init_train_state` draws the whole state, as on one device,
 and keeps the rank's blocks), the step takes its data rows of the global
-batch, the gradients get one mean all-reduce over the batch axes, the
-clip norm sums the split leaves over the model axis, and AdamW runs on
-the local blocks.
+batch, the gradients get one mean all-reduce over the batch axes (the
+leaves the ``"fsdp"`` rule splits over them were summed there by their
+gathers' reduce-scatters, and are only divided), the clip norm sums
+each split leaf's squares over the axes that split it, and AdamW runs
+on the local blocks: under ``"fsdp"`` the master weights and moments
+are split over the data axes with the params.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..dist.sharding import (P, all_reduce, current_ctx, local_block,
-                             shard_tree)
+                             shard_tree, spec_axes)
 from ..models.model import LM
 from . import grad_compression as gc
 from .optimizer import (OptState, adamw_init, adamw_update, cosine_schedule,
@@ -75,20 +78,37 @@ def data_rows(batch: Dict, device=None) -> Dict:
     return {k: local_block(v, spec, ctx) for k, v in batch.items()}
 
 
-def mean_over_data(grads):
-    """The gradients' mean over the data ranks: one all-reduce of each
-    dtype's leaves flattened into one buffer (each rank's gradient is its
-    shard's term, :meth:`LM.loss`)."""
+def mean_over_data(grads, specs=None):
+    """The gradients' mean over the data ranks: each rank's gradient is
+    its shard's term (:meth:`LM.loss`), so one all-reduce over the batch
+    axes of each dtype's leaves flattened into one buffer, then the
+    division by their ranks.  A leaf that ``specs`` (the gradients'
+    placement, :meth:`LM.param_specs`) splits over batch axes (the
+    ``"fsdp"`` rule's) was already summed over them by its gather's
+    reduce-scatter: it is all-reduced over the other batch axes only, if
+    any, and divided.  Without ``specs`` every leaf is all-reduced, which
+    is wrong for such a leaf, so it raises where the rule splits one."""
     ctx = current_ctx()
-    parts = ctx.size(ctx.batch_axes)
+    batch = ctx.batch_axes
+    parts = ctx.size(batch)
     if parts == 1:
         return grads
     flat = leaves(grads)
+    if specs is None:
+        if set(ctx.fsdp_axes) & set(batch):
+            raise ValueError("the fsdp rule splits gradients over the batch "
+                             "axes: pass their specs")
+        rest = [batch] * len(flat)
+    else:
+        rest = [tuple(a for a in batch if a not in spec_axes(spec))
+                for spec in leaves(specs)]
     out = list(flat)
-    for dtype in sorted({g.dtype for g in flat}, key=str):
-        idx = [i for i, g in enumerate(flat) if g.dtype == dtype]
+    groups = sorted({(str(g.dtype), r) for g, r in zip(flat, rest)})
+    for dtype, axes in groups:
+        idx = [i for i, g in enumerate(flat)
+               if str(g.dtype) == dtype and rest[i] == axes]
         buf = torch.cat([flat[i].reshape(-1) for i in idx])
-        all_reduce(buf, ctx.batch_axes, ctx)
+        all_reduce(buf, axes, ctx)
         buf /= parts
         for i, piece in zip(idx, buf.split([flat[i].numel() for i in idx])):
             out[i] = piece.view_as(flat[i])
@@ -168,7 +188,7 @@ def make_train_step(model: LM, *, lr: float = 3e-4, warmup: int = 100,
             loss, grads = accum_grads(state.params, batch)
         else:
             loss, grads = single_grads(state.params, batch)
-        grads = mean_over_data(grads)
+        grads = mean_over_data(grads, specs)
         if compression is not None:
             compressed, _ = gc.compress_tree(grads, compression, specs)
             grads = gc.decompress_tree(compressed)

@@ -53,6 +53,24 @@ def test_cell_argument_bytes_are_the_local_blocks(results):
     assert got["entries"]["flash_attention_fwd_lse"][0] == 4
 
 
+def test_fsdp_cell_splits_the_params_over_data(results):
+    """The same cell through ``build_cell(rules={"fsdp": "data"},
+    microbatches=2)``: the walk's argument bytes are the fsdp blocks and
+    their optimizer state, every leaf with an ``"fsdp"`` axis 1/16 of its
+    default block (the data axis of 16x16), the norm scales whole; the
+    gathers put bytes on the data axis; two microbatches run the flash
+    backward twice a layer."""
+    got = results["argument_bytes"]["fsdp"]
+    assert got["walk"] == got["params"] + got["opt"] + got["batch"]
+    ratios = got["ratios"]
+    assert ratios["blocks.mlp.w_in"] == ratios["blocks.attn.wq"] == 16
+    assert ratios["embed.table"] == 16
+    assert ratios["blocks.ln1.scale"] == ratios["final_norm.scale"] == 1
+    assert got["params"] < results["argument_bytes"]["params"]
+    assert got["wire"]["data"] > 0
+    assert got["entries"]["flash_attention_bwd"][0] == 4
+
+
 @pytest.mark.parametrize("cell,status,reason", [
     ("zamba2-1.2b/train_4k", "ok", ""),
     ("hubert-xlarge/decode_32k", "skipped", "encoder-only")])

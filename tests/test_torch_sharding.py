@@ -5,7 +5,8 @@ JAX package's ``repro.dist.sharding``, in this process (no ranks).
 ten configs' ``param_axes()`` and ``cache_axes()`` at their published
 widths, on the reference's ``AbstractMesh`` and a shape-only port mesh
 (``MeshShape``), for the production meshes (16, 16) and (2, 16, 16) and
-the test meshes (4, 2), (2, 2) and (1, 4).  ``LM.param_axes()``,
+the test meshes (4, 2), (2, 2) and (1, 4), the params also under the
+``"fsdp"`` rule.  ``LM.param_axes()``,
 ``cache_axes()`` and ``opt_state_axes`` are the reference's trees.  The
 port's own placement (``LM.param_specs``) departs from the reference
 only where a split would cut a head; the tests name those leaves.  On a
@@ -55,12 +56,30 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _ctxs(shape):
+def _ctxs(shape, rules=None):
+    """The reference's and the port's contexts on ``shape``, under the
+    default rules with ``rules`` over them."""
     names = MESHES[shape]
     return (jax_sharding.ShardingCtx(mesh=AbstractMesh(shape, names),
-                                     rules=jax_sharding.DEFAULT_RULES),
+                                     rules={**jax_sharding.DEFAULT_RULES,
+                                            **(rules or {})}),
             ShardingCtx(mesh=MeshShape(shape, names),
-                        rules=sharding.DEFAULT_RULES))
+                        rules={**sharding.DEFAULT_RULES, **(rules or {})}))
+
+
+# the "fsdp" rule as the reference's dry-run would pass it: over the data
+# axis, and over both data axes of a pod mesh
+FSDP_RULES = {"fsdp_data": {"fsdp": "data"},
+              "fsdp_pod_data": {"fsdp": ("pod", "data")}}
+
+
+def _with_rules(archs):
+    """(arch, rules) cases: each arch under the default rules (its id the
+    arch alone), then under each of FSDP_RULES."""
+    cases = [(a, None) for a in archs] + [
+        (a, r) for r in FSDP_RULES.values() for a in archs]
+    ids = list(archs) + [f"{a}-{n}" for n in FSDP_RULES for a in archs]
+    return pytest.mark.parametrize("arch,rules", cases, ids=ids)
 
 
 _SHAPES = {}
@@ -74,8 +93,8 @@ def _jax_param_shapes(arch):
     return _SHAPES[arch]
 
 
-def _specs_equal(axes_tree, jax_shapes, port_shapes, shape):
-    jctx, pctx = _ctxs(shape)
+def _specs_equal(axes_tree, jax_shapes, port_shapes, shape, rules=None):
+    jctx, pctx = _ctxs(shape, rules)
     axes = _flat(axes_tree)
     assert set(axes) == set(jax_shapes) == set(port_shapes)
     for path, ax in axes.items():
@@ -87,16 +106,17 @@ def _specs_equal(axes_tree, jax_shapes, port_shapes, shape):
     return len(axes)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_param_specs_resolve_as_the_reference(arch):
+@_with_rules(ARCHS)
+def test_param_specs_resolve_as_the_reference(arch, rules):
     """resolve_spec of every param leaf, on the five meshes, equals the
-    reference's; the port's shapes (a meta-device init) equal the
-    reference's eval_shape."""
+    reference's, under the default rules and under the ``"fsdp"`` rule
+    (over data, and over pod and data); the port's shapes (a meta-device
+    init) equal the reference's eval_shape."""
     model = LM(get_config(arch), device="cpu")
     port_shapes = _flat(model.param_shapes())
     for shape in MESHES:
         assert _specs_equal(model.param_axes(), _jax_param_shapes(arch),
-                            port_shapes, shape) > 0
+                            port_shapes, shape, rules) > 0
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -134,13 +154,13 @@ def test_axes_trees_are_the_reference(arch):
     assert opt_state_axes(axes) == jax_opt.opt_state_axes(axes)
 
 
-def _deviations(arch, shape, reduced=False):
+def _deviations(arch, shape, reduced=False, rules=None):
     """{leaf: (the reference's spec, the port's)} where the port's
     placement departs from resolve_spec."""
     cfg = get_config(arch)
     cfg = cfg.reduced() if reduced else cfg
     model = LM(cfg, device="cpu")
-    ctx = _ctxs(shape)[1]
+    ctx = _ctxs(shape, rules)[1]
     specs = _flat(model.param_specs(ctx))
     shapes = _flat(model.param_shapes())
     axes = _flat(model.param_axes())
@@ -232,30 +252,43 @@ def test_head_alignment_deviations_reduced(arch, shape):
         assert ref == (None, None, "model") and spec == ()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_head_alignment_deviations_listed(arch):
+def _without(spec, axes) -> tuple:
+    """``spec`` with ``axes`` taken out of it (trailing Nones dropped)."""
+    out = [None if e is not None and set(sharding.spec_axes((e,))) <= set(
+        axes) else e for e in spec]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+@_with_rules(ARCHS)
+def test_head_alignment_deviations_listed(arch, rules):
     """The leaves (``DEVIATIONS``) where the port's placement departs from
-    the reference's on the five meshes: in the transformer families each
+    the reference's on the five meshes, under the default rules and
+    under the ``"fsdp"`` rule (which the port places as the reference
+    does, so the same leaves depart): in the transformer families each
     is an attention projection or bias whose split would cut a head,
-    replicated instead; in the recurrent families each is one of
-    ``RECURRENT_DEPARTURES``."""
+    replicated on the model axis instead; in the recurrent families each
+    is one of ``RECURRENT_DEPARTURES``."""
     cfg = get_config(arch)
     recurrent = cfg.family in ("hybrid", "ssm")
     hd = cfg.resolved_head_dim
     full = _flat(LM(cfg, device="cpu").param_shapes())
     for shape in MESHES:
-        dev = _deviations(arch, shape)
+        dev = _deviations(arch, shape, rules=rules)
+        fsdp = _ctxs(shape, rules)[1].mesh_axes_for("fsdp")
         assert set(dev) == DEVIATIONS.get(arch, {}).get(shape, set()), (
             shape, sorted(dev))
         for path, (ref, spec) in dev.items():
             if recurrent:
                 leaf = path.split(".mixer.")[-1].split(".cell.")[-1]
                 want = RECURRENT_DEPARTURES[cfg.family][leaf]
-                assert (spec == ()) == (want == "replicated"), (path, spec)
+                assert (_without(spec, fsdp) == ()) == (
+                    want == "replicated"), (path, spec)
                 continue
             cut = list(ref).index("model")
             assert (full[path][cut] // hd) % shape[-1], path
-            assert spec == ()
+            assert spec == _without(ref, ("model",))
 
 
 def _cuts_no_head(spec, shape, units, size) -> bool:

@@ -74,7 +74,42 @@ def argument_bytes() -> dict:
     return {"walk": walk.argument_bytes, "params": params, "opt": opt,
             "batch": batch, "chips": meta["chips"],
             "entries": {k: list(v) for k, v in walk.entry_counts().items()},
-            "peak": walk.peak_bytes, "temp": walk.temp_bytes}
+            "peak": walk.peak_bytes, "temp": walk.temp_bytes,
+            "fsdp": fsdp_cell(over, cfg, local, opt - 3 * _nbytes(local, 4),
+                              batch)}
+
+
+def fsdp_cell(over: dict, cfg, default_local, step_bytes: int,
+              batch: int) -> dict:
+    """The same cell under ``rules={"fsdp": "data"}`` in 2 microbatches:
+    the walk's argument bytes, the local blocks' (each leaf's bytes
+    against its default block's), the wire bytes by mesh axis."""
+    from repro_torch.dist.sharding import shard_tree, use_sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import LM
+    rules = {"fsdp": "data"}
+    walk, _ = dryrun.build_cell("h2o-danube-1.8b", "train_4k", False,
+                                overrides=over, rules=rules, microbatches=2)
+    model = LM(cfg, device="meta")
+    with use_sharding(dryrun.production_mesh(False), rules):
+        local = shard_tree(model.init(None), model.param_specs())
+
+    def ratios(a, b, prefix=""):
+        out = {}
+        for k in a:
+            if isinstance(a[k], dict):
+                out.update(ratios(a[k], b[k], f"{prefix}{k}."))
+            else:
+                out[prefix + k] = _nbytes(b[k]) // _nbytes(a[k])
+        return out
+
+    by_axis = {}
+    for op in walk.collectives.ops:
+        by_axis[op.line] = by_axis.get(op.line, 0.0) + op.wire_bytes
+    return {"walk": walk.argument_bytes, "params": _nbytes(local),
+            "opt": 3 * _nbytes(local, 4) + step_bytes, "batch": batch,
+            "ratios": ratios(local, default_local), "wire": by_axis,
+            "entries": {k: list(v) for k, v in walk.entry_counts().items()}}
 
 
 def cells(results: str) -> dict:

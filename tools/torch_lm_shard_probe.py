@@ -7,9 +7,10 @@ script when only the sharded model path changed.
     python3 tools/torch_lm_shard_probe.py --phase 24 [--rehearse]
 
 Builds every kernel (as the script does), holds the forward with LSE and
-K1 at the phase's per-rank shapes (22: 22a's and 22b's, and the forward
-at 22c's; 24: zamba2's shared block at 24a's, 24b's and 24f's, the
-single device's references, and flash decode at 24c's) against their
+K1 at the phase's per-rank shapes (22: 22a's and 22b's on (2, 2), 22f's
+on (4, 1), the forward at 22c's and flash decode at 22f's; 24: zamba2's
+shared block at 24a's, 24b's and 24f's, the single device's references,
+and flash decode at 24c's) against their
 plain versions, timed beside SDPA, then runs the phase's four gloo
 ranks.  ``--rehearse`` skips the build and the kernel checks and runs the
 phase's drives at the reduced widths on the CPU.  Prints the card's name
@@ -78,6 +79,14 @@ def kernel_checks(phase: int) -> None:
             for _ in range(2))
     cs.check_flash_attention(q, k, v, True, None, peaks_,
                              "shard_qwen3_forward_f32")
+    b, _, n = cs.LM_SHARD_FSDP_DECODE
+    for label, rows, h, kvh in (("shard_danube_fsdp_decode_f32", b // 2, 16,
+                                 4),
+                                ("danube_fsdp_single_decode_f32", b, 32, 8)):
+        q = torch.randn(rows, h, 80, device=cs.DEVICE, generator=gen)
+        kc, vc = (torch.randn(rows, n, kvh, 80, device=cs.DEVICE,
+                              generator=gen) for _ in range(2))
+        cs.check_flash_decode(q, kc, vc, n, peaks_, label)
 
 
 def main() -> int:

@@ -6,10 +6,20 @@ card.  No card, no storage: seconds on the CPU.
 
     PYTHONPATH=src python3 tools/torch_shard_bytes.py \\
         --arch zamba2-1.2b --layers 7 --batch 4 --seq 512 --mesh 2,2
+    PYTHONPATH=src python3 tools/torch_shard_bytes.py \\
+        --arch h2o-danube-1.8b --layers 2 --batch 4 --seq 2048 --mesh 4,1 \\
+        --rules '{"fsdp": "data"}'
 
-Prints one JSON object: the arch, the mesh, and ``BYTES`` after the step
-(``on_model``: the tensor-parallel collectives, ``on_data``: the
-gradient mean).
+``--rules`` (a JSON object) overrides the placement rules, as
+``use_sharding(mesh, rules=...)`` does; ``--reduced`` takes the arch's
+reduced widths; ``--mesh`` takes three sizes for a (pod, data, model)
+mesh; ``--state-only`` skips the step.  Prints one JSON object: the arch,
+the mesh, the rules, the train state's bytes a rank (``state_bytes``:
+the params' blocks, their f32 master weights and moments) and ``BYTES``
+after the step (``on_model``: the tensor-parallel
+collectives, ``on_data``: the gradient mean, and under ``"fsdp"`` the
+blocks' gathers and their gradients' reduce-scatters, which gloo runs as
+all-reduces and this counts as such).
 """
 
 from __future__ import annotations
@@ -17,6 +27,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import sys
 from pathlib import Path
 
@@ -30,7 +41,15 @@ def main() -> int:
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=512)
-    ap.add_argument("--mesh", default="2,2", help="data,model")
+    ap.add_argument("--mesh", default="2,2",
+                    help="data,model or pod,data,model sizes")
+    ap.add_argument("--rules", default=None,
+                    help='placement rules over the defaults, JSON, e.g. '
+                         '\'{"fsdp": "data"}\'')
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's reduced widths")
+    ap.add_argument("--state-only", action="store_true",
+                    help="the train state's bytes a rank, no step")
     args = ap.parse_args()
 
     import torch
@@ -42,33 +61,45 @@ def main() -> int:
     from repro_torch.models import LM
     from repro_torch.train import (TrainState, adamw_init, make_train_step,
                                    require_grad)
+    from repro_torch.train.optimizer import leaves
+
+    def nbytes(tree) -> int:
+        return sum(x.numel() * x.element_size() for x in leaves(tree))
 
     shape = tuple(int(x) for x in args.mesh.split(","))
-    world = shape[0] * shape[1]
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                         "model")
+    world = math.prod(shape)
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=world)
     try:
         mesh = DeviceMesh("cpu", torch.arange(world).reshape(shape),
-                          mesh_dim_names=("data", "model"))
+                          mesh_dim_names=names)
         cfg = get_config(args.arch)
+        cfg = cfg.reduced() if args.reduced else cfg
         cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers,
                                   dtype=args.dtype)
         model = LM(cfg, device="meta")
-        with sharding.use_sharding(mesh):
+        rules = json.loads(args.rules) if args.rules else None
+        with sharding.use_sharding(mesh, rules):
             params = require_grad(sharding.shard_tree(model.init(None),
                                                       model.param_specs()))
             state = TrainState(params, adamw_init(params), torch.Generator())
+            held = {"params": nbytes(state.params),
+                    "master_m_v": sum(nbytes(getattr(state.opt, k))
+                                      for k in ("master", "m", "v"))}
             tokens = torch.zeros(args.batch, args.seq, dtype=torch.int64,
                                  device="meta")
             sharding.reset_bytes()
-            make_train_step(model)(state, {"tokens": tokens})
-            nbytes = dict(sharding.BYTES)
+            if not args.state_only:
+                make_train_step(model)(state, {"tokens": tokens})
+            wire = dict(sharding.BYTES)
     finally:
         dist.destroy_process_group()
     print(json.dumps({"arch": cfg.name, "n_layers": cfg.n_layers,
                       "dtype": cfg.dtype, "batch": args.batch,
                       "seq": args.seq, "mesh": list(shape),
-                      "bytes": nbytes}))
+                      "rules": rules, "state_bytes": held, "bytes": wire}))
     return 0
 
 
