@@ -203,10 +203,11 @@ CUDA toolkit.  Phases, each of which raises on failure:
     d. hubert-xlarge's encoder (48 layers, full attention) over 8 x 1024
        frames; an f32 cut of 4 layers on the card against the same cut
        on the CPU (the plain versions).
-18. the hybrid and ssm families at published widths and depths, bf16,
-    seconds of each part and its peak memory:
-    a. zamba2-1.2b (38 Mamba2 layers; the shared attention + MLP block
-       after each of 6 groups of 6): a forward over 8 x 2048 tokens (the
+18. the hybrid and ssm families at published widths, bf16, cut to
+    RECUR_SERVE_LAYERS, seconds of each part and its peak memory:
+    a. zamba2-1.2b (14 of its 38 Mamba2 layers: the shared attention + MLP
+       block after each of 2 groups of 6, and the tail of 2): a forward
+       over 8 x 2048 tokens (the
        chunked SSD scan, one flash_attention a group), cold and warm;
        the ServeEngine on 8 prompts of 256 tokens prefilled token by
        token, then 32 greedy steps (one flash_decode a group a step);
@@ -217,8 +218,9 @@ CUDA toolkit.  Phases, each of which raises on failure:
        of 1) at B = 2: the prefill's and every step's logits against
        forward over the 288 tokens, and the card's forward against the
        CPU's on the same weights;
-    b. xlstm-350m (3 groups of 7 mLSTM blocks and an sLSTM block; no
-       attention, so no flash kernel): the same drive, split into mLSTM,
+    b. xlstm-350m (1 of its 3 groups of 7 mLSTM blocks and an sLSTM
+       block; no attention, so no flash kernel): the same drive, split
+       into mLSTM,
        sLSTM and head; its f32 cut of 8 layers (one group).
 19. the training path:
     a. h2o-danube-1.8b at full width and depth in bf16 (remat "block"),
@@ -232,16 +234,16 @@ CUDA toolkit.  Phases, each of which raises on failure:
        bf16 peak, and one more step split by the profiler (forward
        blocks, head + cross-entropy forward and backward, recompute, K1,
        the rest of the backward, optimizer);
-    b. each family's f32 cut (danube 2 layers at B = 2, S = 1024;
-       qwen2-moe 2 layers at S = 520, past the dense-safe capacity;
-       paligemma and hubert 2 layers at phase 17's cuts' batches, hubert
+    b. each family's f32 cut (danube 1 layer at B = 2, S = 1024;
+       qwen2-moe 1 layer at S = 520, past the dense-safe capacity;
+       paligemma and hubert 1 layer at phase 17's cuts' batches, hubert
        at S = 1024; zamba2 and xlstm as phase 18's) takes one step on the
        card: its loss within 1e-4
        relative and every gradient leaf within MAIN_TOL of its largest
        entry of the same cut's on the CPU, the flash launches counted.
 20. the training driver, ``repro_torch.launch.train.train``, with
     checkpoints and supervised restarts, on h2o-danube-1.8b at its
-    published widths in bf16 cut to 4 layers (B = 4, S = 4096), in a
+    published widths in bf16 cut to CKPT_LAYERS (B = 4, S = 4096), in a
     temporary directory whose free space is checked first:
     a. 8 steps, no checkpoints; then the costs of a checkpoint of the
        end state: the caller's staging, the writer's gather, encode with
@@ -278,7 +280,15 @@ CUDA toolkit.  Phases, each of which raises on failure:
        holds every gathered view against the single-device engine and
        re-evaluation (MAIN_TOL); ms an update (four ranks sharing one
        card: no scaling figure); the phase's seconds and each rank's peak
-       memory.
+       memory;
+    c. the drift sentinel on the four ranks (matrix powers at
+       SHARD_SENTINEL_N, probed every second firing): P4 shifted on every
+       rank's rows after a firing, the next firing's probe finds the same
+       drifts on every rank (each rank's rows' squares summed over the
+       ranks) and recovers the drifted views on the mesh in their row
+       layout; one more probe and recovery heal the view the first left
+       drifted (P16, consistent with the drifted P8), and a probe after
+       finds none; the gathered views against re-evaluation (MAIN_TOL).
 22. the LM half of the sharded dist/ (``repro_torch.dist.sharding``:
     explicit tensor, expert and data parallelism, and the fsdp rule) on
     four gloo ranks in spawned processes sharing the card, over (2, 2),
@@ -312,7 +322,27 @@ CUDA toolkit.  Phases, each of which raises on failure:
        meanwhile), the state's bytes and the peak a rank; the (2, 2)
        params saved and restored under the default rules, bit for bit;
        an f32 decode of LM_SHARD_FSDP_DECODE on (2, 2) within the
-       serving bound, greedy tokens equal.
+       serving bound, greedy tokens equal;
+    g. the cache_seq rule, ``{"cache_seq": "model"}`` on (1, 4) (each rank
+       a quarter of the decode cache's slots with every KV head; the
+       decode kernel's LSE instance on the rank's valid slots, the
+       partials merged by their log-sum-exp): the cut in f32 prefilled
+       with fewer positions than one rank's slots and decoded past them,
+       every step's logits within LM_SHARD_CSEQ_TOL of the single
+       device's; in bf16 at LM_SHARD_CSEQ_BF16 (a 4096-slot ring, 1024 a
+       rank), fed the same tokens, its logits within
+       LM_SHARD_CSEQ_BF16_TOL of the same mesh's under the default rules
+       and of the single
+       device's, the greedy tokens that agree counted, ms a step beside
+       the default rules', a step's bytes the meta walk's;
+    h. the seq_sp rule, ``{"seq_sp": "model"}`` on (2, 2) (the residual
+       stream split over the sequence between blocks, gathered before
+       attention and the MLP, their row-parallel outputs reduce-scattered):
+       a's gradients within LM_SHARD_SEQ_GRAD_TOL of each leaf's largest
+       entry and the loss within LM_SHARD_SEQ_LOSS_TOL of a's single
+       device; b's first LM_SHARD_FSDP_STEPS steps, losses within
+       LM_SHARD_SEQ_BF16_TOL of b's single device, bytes the meta walk's,
+       ms and peak beside b's.
 23. the roofline walk (``repro_torch.roofline``: every aten op's FLOPs by
     ``torch.utils.flop_counter``'s formulas and bytes by storage, each
     kernel entry by its own formula) and the dry-run:
@@ -370,7 +400,8 @@ The last two lines of standard output are the ``{"kernels": [...]}``
 record (``rank_update_batched``'s with its launches over phases 4-9,
 12-16 and 21 by K = T*k; the rank-update entries' by M's columns p, and the
 dense entries' on the skinny tile by K; the forward with LSE and K1 at
-phase 19's danube shape; phase 23's flash launches among the rest) and
+phase 19's danube shape; the decode kernel's LSE instance at 22g's
+per-rank shape; phase 23's flash launches among the rest) and
 ``{"ok": true, "device":
 {...}}``.  Without CUDA,
 or outside a checkout, the script prints no result and exits non-zero.
@@ -489,12 +520,15 @@ AUDIO_ARCH, AUDIO_BATCH, AUDIO_FRAMES, AUDIO_CUT_BATCH = "hubert-xlarge", \
     8, 1024, 2
 
 # phase 18: the recurrent families at published widths, bf16.  18a serves
-# zamba2-1.2b (arXiv:2411.15242), 18b xlstm-350m (arXiv:2405.04517), both
-# at full depth: a forward over RECUR_BATCH x RECUR_FWD_SEQ tokens, then
-# the ServeEngine on RECUR_BATCH prompts of RECUR_PROMPT tokens stepped
-# token by token (host-bound: a decode step each) and RECUR_NEW greedy
-# steps in a cache of RECUR_MAX_SEQ slots
+# zamba2-1.2b (arXiv:2411.15242), 18b xlstm-350m (arXiv:2405.04517), each
+# cut to RECUR_SERVE_LAYERS (zamba2 two groups of 6 and its tail of 2,
+# xlstm one group of 7 + 1; full depth until the script's time limit
+# asked for a cut, PERF.md §6, PR 37): a forward over RECUR_BATCH x
+# RECUR_FWD_SEQ tokens, then the ServeEngine on RECUR_BATCH prompts of
+# RECUR_PROMPT tokens stepped token by token (host-bound: a decode step
+# each) and RECUR_NEW greedy steps in a cache of RECUR_MAX_SEQ slots
 ZAMBA_ARCH, XLSTM_ARCH = "zamba2-1.2b", "xlstm-350m"
+RECUR_SERVE_LAYERS = {ZAMBA_ARCH: 14, XLSTM_ARCH: 8}
 RECUR_BATCH, RECUR_FWD_SEQ, RECUR_PROMPT, RECUR_NEW, RECUR_MAX_SEQ = \
     8, 2048, 256, 32, 512
 # their f32 cuts at the same widths: zamba2 at 7 layers (one group of 6
@@ -507,6 +541,12 @@ RECUR_CUT_SEQ = RECUR_PROMPT + RECUR_NEW
 # updates, then one batch of SHARD_BATCH; a rank that does not report in
 # SHARD_TIMEOUT_S fails the phase
 SHARD_WORLD, SHARD_SINGLE, SHARD_BATCH, SHARD_TIMEOUT_S = 4, 3, 16, 600
+# 21c: the drift sentinel on a four-rank engine, matrix powers A^16 at
+# SHARD_SENTINEL_N probed every second firing (tolerance 5e-3); after the
+# first firing SHARD_SENTINEL_SHIFT is added to every entry of P4 on every
+# rank; the second firing's probe must find it and its recovery, with one
+# more probe and recovery for the descendant it leaves drifted, heal it
+SHARD_SENTINEL_N, SHARD_SENTINEL_SHIFT = 4096, 0.05
 # phase 22: the LM half of the sharded dist/ on LM_SHARD_WORLD gloo ranks
 # sharing the card, over (2, 2) and (1, 4) meshes: danube at full width
 # cut to LM_SHARD_LAYERS, one f32 step at LM_SHARD_EXACT's (B, S) (22a),
@@ -520,7 +560,9 @@ LM_SHARD_WORLD, LM_SHARD_LAYERS, LM_SHARD_TIMEOUT_S = 4, 2, 600
 LM_SHARD_EXACT, LM_SHARD_STEP, LM_SHARD_MOE = (4, 512), (4, 2048, 3), \
     (2, 256)
 LM_SHARD_DRIVER_STEPS = 3
-LM_SHARD_REHEARSE = {"exact": (4, 32), "step": (4, 32, 2), "moe": (2, 32)}
+LM_SHARD_REHEARSE = {"exact": (4, 32), "step": (4, 32, 2), "moe": (2, 32),
+                     "cseq_f32": (4, 64, 12, 40),
+                     "cseq_bf16": (4, 64, 12, 24)}
 # 22c's logits against the single device, of max(|logits|, 1): the
 # reference test's bound (tests/test_distributed.py:158)
 LM_SHARD_LOGIT_TOL = 5e-3
@@ -546,6 +588,41 @@ LM_SHARD_FSDP_RULES = {"fsdp": "data"}
 LM_SHARD_FSDP_CLIP, LM_SHARD_FSDP_LR = 1e-6, 1e-2
 LM_SHARD_FSDP_STEPS = 2
 LM_SHARD_FSDP_DECODE = (4, 4, 8)
+# 22g: the "cache_seq" rule on (1, 4): the same danube cut, each rank
+# holding a quarter of the decode cache's slots with every KV head.
+# LM_SHARD_CSEQ_F32's (B, max_seq, prompt positions, last position): an
+# f32 prefill of fewer positions than one rank's slots (the other ranks
+# hold none valid), then steps past one rank's slots, fed the same
+# tokens, each step's logits within LM_SHARD_CSEQ_TOL of the single
+# device's (of the largest logit, at least 1); LM_SHARD_CSEQ_BF16's the
+# bf16 serving decode (a 4096-slot ring, 1024 a rank, decoded past the
+# first rank's), fed the same tokens: its logits within
+# LM_SHARD_CSEQ_BF16_TOL of the same mesh's under the default rules (the
+# cache whole on every rank) and of the single device's, the greedy
+# tokens that agree counted (bf16 rounds the activations on both sides
+# after sums taken in other orders, so a near-tie may flip, and a greedy
+# run fed its own tokens then diverges: the f32 run is the exactness
+# check), its ms a step beside the default rules', one step's bytes the
+# meta walk's.
+LM_SHARD_CSEQ_RULES = {"cache_seq": "model"}
+LM_SHARD_CSEQ_F32 = (4, 64, 12, 40)
+LM_SHARD_CSEQ_BF16 = (8, 4096, 1000, 1040)
+LM_SHARD_CSEQ_TOL = 1e-5
+# 22g's bf16 logits against the default rules' and the single device's, of
+# the largest logit (at least 1): bf16 rounds every activation to 2^-9 of
+# itself, and the two sides round after sums taken in other orders; the
+# reduced cut on the CPU moved them by 0.6 % (default rules) and 1.5 %
+# (single device) of the largest logit (PERF.md §6, PR 37), 5e-2 leaves 3x
+LM_SHARD_CSEQ_BF16_TOL = 5e-2
+# 22h: the "seq_sp" rule on (2, 2): 22a's f32 gradients, each leaf within
+# LM_SHARD_SEQ_GRAD_TOL of its largest entry and the loss within
+# LM_SHARD_SEQ_LOSS_TOL (relative) of the single device's; then 22b's
+# first LM_SHARD_FSDP_STEPS bf16 steps, their losses within
+# LM_SHARD_SEQ_BF16_TOL (relative) of 22b's single device's, their bytes
+# the meta walk's, their ms and peak beside 22b's.
+LM_SHARD_SEQ_RULES = {"seq_sp": "model"}
+LM_SHARD_SEQ_GRAD_TOL, LM_SHARD_SEQ_LOSS_TOL = 1e-5, 1e-6
+LM_SHARD_SEQ_BF16_TOL = 1e-4
 # phase 24: the recurrent families and compression on a model axis, on
 # LM_SHARD_WORLD gloo ranks sharing the card over (2, 2) and (1, 4), both
 # families at published widths cut to ZAMBA_CUT_LAYERS / XLSTM_CUT_LAYERS:
@@ -595,6 +672,7 @@ SOURCES = {
     "flash_attention_bwd":
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
+    "flash_decode_lse": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "rank_update_batched_out": "src/repro_torch/kernels/csrc/rank_update.cu",
     "select_commit": "src/repro_torch/kernels/csrc/select_commit.cu"}
 # the bf16 prefill kernel's name in csrc/flash_attention.cu, as the
@@ -613,6 +691,10 @@ REPLACES = {
     # reference's training path
     "flash_attention_bwd": "src/repro/models/attention.py:99",
     "flash_decode": "src/repro/kernels/flash_decode.py:69",
+    # the same Pallas kernel, also writing its row statistics (which it
+    # computes and its wrapper drops): a rank's partial of a cache split
+    # over ranks ("cache_seq")
+    "flash_decode_lse": "src/repro/kernels/flash_decode.py:69",
     # both TPU entries, out of place: every apply of a guarded firing
     "rank_update_batched_out": "src/repro/kernels/rank_update.py:84",
     # no Pallas kernel: the reference's fused jnp.where select-commit
@@ -822,6 +904,8 @@ def check_grad_refusal() -> dict:
             f(1, 8, 2, 64, grad=g), torch.zeros(1, 2, 8, device=DEVICE)),
         "flash_decode": lambda g: cuda_fd.flash_decode(
             f(1, 2, 64), f(1, 8, 2, 64, grad=g), f(1, 8, 2, 64), 8),
+        "flash_decode_lse": lambda g: cuda_fd.flash_decode_lse(
+            f(1, 2, 64, grad=g), f(1, 8, 2, 64), f(1, 8, 2, 64), 8),
         "select_commit": lambda g: cuda_sel.select_commit(
             torch.zeros(1, dtype=torch.int32, device=DEVICE),
             f(4, 4, grad=g), f(4, 4))}
@@ -1313,6 +1397,73 @@ def check_flash_decode(q, kc, vc, n_valid, peaks_, label,
     return rec
 
 
+def check_flash_decode_lse(q, kc, vc, n_valid, peaks_, label,
+                           timed=True) -> dict:
+    """The flash-decode kernel's LSE instance (flash_decode_fwd_lse, the
+    cache_seq decode's per-rank partial) against ref.flash_decode_lse,
+    n_valid a device tensor as the decode step gives it: out (f32,
+    unrounded) and lse within the f32 kernel tolerance whatever the
+    caches' type (the scores' products are exact in f32 and p carries
+    about 24 bits); at n_valid 0 out 0 and lse -inf exactly; the output
+    rounded to the caches' type flash_decode's bit for bit; two calls
+    bit for bit.  Timed (n_valid > 0) against the plain version and SDPA
+    over the valid slots (which gives the output, not its statistics):
+    CUDA events, and the profiler's kernel time."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as cuda_fd
+    from repro_torch.kernels import ref
+    b, h, hd = q.shape
+    dtype = str(q.dtype).replace("torch.", "")
+    n_t = torch.tensor(n_valid, dtype=torch.int32, device=q.device)
+    out, lse = cuda_fd.flash_decode_lse(q, kc, vc, n_t)
+    want, want_lse = ref.flash_decode_lse(q, kc, vc, n_valid)
+    torch.cuda.synchronize()
+    if n_valid == 0:
+        if not (torch.equal(out, torch.zeros_like(out))
+                and torch.isneginf(lse).all()):
+            raise AssertionError(f"flash_decode_lse {label}: n_valid 0 "
+                                 "gave other than out 0 and lse -inf")
+        err = 0.0
+    else:
+        err = max(check_close(f"flash_decode_lse {label} out", out, want),
+                  check_close(f"flash_decode_lse {label} lse", lse,
+                              want_lse))
+        if not torch.equal(out.to(q.dtype),
+                           cuda_fd.flash_decode(q, kc, vc, n_t)):
+            raise AssertionError(f"flash_decode_lse {label}: its rounded "
+                                 "output is not flash_decode's")
+    again = cuda_fd.flash_decode_lse(q, kc, vc, n_t)
+    if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+        raise AssertionError(f"flash_decode_lse {label}: two calls differ")
+    del out, lse, want, want_lse, again
+    if not timed:
+        return {"case": label, "max_abs_err": err}
+    shape = {"b": b, "L": kc.shape[1], "h": h, "kvh": kc.shape[2], "hd": hd,
+             "n_valid": n_valid, "case": label}
+
+    def kernel():
+        return cuda_fd.flash_decode_lse(q, kc, vc, n_t)
+
+    qt = q[:, :, None]
+    kt, vt = (x[:, :n_valid].transpose(1, 2) for x in (kc, vc))
+    ms = time_ms(kernel)
+    plain_ms = time_ms(lambda: ref.flash_decode_lse(q, kc, vc, n_t))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True))
+    nbytes = (q.numel() * q.element_size() + 4 * b * h * (hd + 1)
+              + 2 * b * n_valid * kc.shape[2] * hd * kc.element_size())
+    flops = 4.0 * b * h * hd * n_valid
+    rec = attention_record("flash_decode_lse", shape, err, ms, plain_ms,
+                           lib_ms, nbytes, flops, dtype, *peaks_,
+                           log_it=False)
+    busy, summed = device_ms_per_call(kernel, "flash_decode")
+    rec.update({"device_ms": busy, "kernel_sum_ms": summed,
+                "host_us": host_us(kernel)})
+    log("kernel " + json.dumps(rec))
+    return rec
+
+
 def check_flash_kernels(peaks_) -> dict:
     """Phase 3's flash cases: danube's prefill (B=8, S=4096, H=32, KV=8,
     hd=80, its 4096 window) in bf16 and, at phase 11's ragged 4128, in
@@ -1336,7 +1487,10 @@ def check_flash_kernels(peaks_) -> dict:
     decode at B=8, L=n_valid=4096.  Phase 22c's per-rank shape: qwen3-moe's
     16 query heads and one KV head a rank (B=2, S=256, hd 128) in f32;
     22f's decode (danube's 16 query and 4 KV heads a rank of (2, 2), and
-    the single device's, over a cache of 8 slots) in f32."""
+    the single device's, over a cache of 8 slots) in f32.  The decode
+    kernel's LSE instance (flash_decode_lse) at 22g's per-rank shapes
+    (danube's heads over a quarter of its bf16 ring, full and with no
+    valid slot; the f32 cut's) and at the single device's ring."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(1)
 
@@ -1344,7 +1498,7 @@ def check_flash_kernels(peaks_) -> dict:
         return torch.randn(*shape, device=DEVICE, generator=gen).to(dtype)
 
     bf16, f32 = torch.bfloat16, torch.float32
-    out = {"flash_attention": [], "flash_decode": []}
+    out = {"flash_attention": [], "flash_decode": [], "flash_decode_lse": []}
     # (label, b, s, h, kvh, hd, window, dtype, causal, prefix)
     for label, b, s, h, kvh, hd, window, dt, causal, prefix in [
             ("danube_prefill_bf16", 8, 4096, 32, 8, 80, 4096, bf16, True, 0),
@@ -1455,6 +1609,25 @@ def check_flash_kernels(peaks_) -> dict:
         kc, vc = (randn(b, L, kvh, hd, dtype=dt) for _ in range(2))
         out["flash_decode"].append(check_flash_decode(
             q, kc, vc, n_valid, peaks_, label))
+        del q, kc, vc
+    # the LSE instance: 22g's per-rank shape (danube's heads over a quarter
+    # of its bf16 decode ring, full, and past every valid slot: n_valid
+    # 0), the single device's ring, and 22g's f32 cut
+    b22, slots22, _, _ = LM_SHARD_CSEQ_BF16
+    bf32, slots32, _, _ = LM_SHARD_CSEQ_F32
+    for label, b, L, h, kvh, hd, n_valid, dt in [
+            ("danube_cseq_rank_bf16", b22, slots22 // 4, 32, 8, 80,
+             slots22 // 4, bf16),
+            ("danube_cseq_rank_bf16_n0", b22, slots22 // 4, 32, 8, 80, 0,
+             bf16),
+            ("danube_decode_lse_bf16_wrapped", 8, 4096, 32, 8, 80, 4096,
+             bf16),
+            ("danube_cseq_rank_f32", bf32, slots32 // 4, 32, 8, 80,
+             slots32 // 4, f32)]:
+        q = randn(b, h, hd, dtype=dt)
+        kc, vc = (randn(b, L, kvh, hd, dtype=dt) for _ in range(2))
+        out["flash_decode_lse"].append(check_flash_decode_lse(
+            q, kc, vc, n_valid, peaks_, label, timed=n_valid > 0))
         del q, kc, vc
     torch.cuda.empty_cache()
     return out
@@ -5082,13 +5255,14 @@ def recurrent_step_bytes(model, params, cache, n_valid: float) -> int:
 
 
 def recurrent_serve(arch: str, peaks_, parts, seed: int) -> list:
-    """18a / 18b: ``arch`` at full width and depth in bf16: a forward over
-    RECUR_BATCH x RECUR_FWD_SEQ tokens (cold, then warm); the ServeEngine
-    with RECUR_PROMPT tokens prefilled token by token and RECUR_NEW greedy
-    steps; one more step split by the profiler over ``parts``."""
+    """18a / 18b: ``arch`` at full width in bf16, cut to
+    RECUR_SERVE_LAYERS: a forward over RECUR_BATCH x RECUR_FWD_SEQ tokens
+    (cold, then warm); the ServeEngine with RECUR_PROMPT tokens prefilled
+    token by token and RECUR_NEW greedy steps; one more step split by the
+    profiler over ``parts``."""
     import torch
     from repro_torch.serve import ServeEngine
-    model, params = family_lm(arch)
+    model, params = family_lm(arch, n_layers=RECUR_SERVE_LAYERS[arch])
     cfg = model.cfg
     label = f"{cfg.family}_{arch}_full"
     groups = attention_groups(cfg)
@@ -5270,11 +5444,12 @@ TRAIN_STEPS, TRAIN_LR = 4, 3e-6
 # gradient leaf to MAIN_TOL of its
 # largest entry (fp32 sums in other orders over up to 4096-token
 # batches; a wrong mask, group sum or scale moves a leaf by far more).
-# The transformer cuts take 2 layers, not phase 11's 4: every leaf kind
+# The transformer cuts take 1 layer, not phase 11's 4: every leaf kind
 # and kernel call of a block is in each layer, and the CPU sides (81 s of
-# the H100 machine's host at 4 layers) are most of the phase
+# the H100 machine's host at 4 layers, 66 s at 2 in PR 37's slow calls)
+# are most of the phase
 TRAIN_LOSS_RTOL = 1e-4
-TRAIN_CUT_LAYERS = 2
+TRAIN_CUT_LAYERS = 1
 TRAIN_CUTS = [(SERVE_ARCH, TRAIN_CUT_LAYERS, 2, CUT_TRAIN_SEQ),
               (MOE_ARCH, TRAIN_CUT_LAYERS, MOE_CUT_BATCH, MOE_TRAIN_SEQ),
               (VLM_ARCH, TRAIN_CUT_LAYERS, VLM_CUT_BATCH,
@@ -5567,14 +5742,15 @@ def phase_train(peaks_) -> list:
 
 # h2o-danube-1.8b at its published widths in bf16 (remat "block", its
 # config's) through repro_torch.launch.train, cut to CKPT_LAYERS of its 24
-# layers: 441.7 M params, so a full checkpoint of the TrainState is 7.07
+# layers: 302.8 M params, so a full checkpoint of the TrainState is 4.84
 # GB on disk (params stored as f32, as the reference stores bf16, plus f32
-# master, m and v) and the staged copy 6.2 GB on the card; at full depth a
-# checkpoint would take 29 GB and the phase writes several.  B x S is
+# master, m and v); at full depth a checkpoint would take 29 GB and the
+# phase writes several (4 layers, 7.07 GB, until the script's time limit
+# asked for a cut: PERF.md §6, PR 37).  B x S is
 # phase 19a's microbatch.  CKPT_STEPS steps, a checkpoint every
 # CKPT_SAVE_EVERY; 20b's host 1 goes silent after CKPT_SILENT_AFTER steps;
 # the learning rate keeps the loss finite (phase 19a's).
-CKPT_LAYERS, CKPT_BATCH, CKPT_SEQ = 4, TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ
+CKPT_LAYERS, CKPT_BATCH, CKPT_SEQ = 2, TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ
 CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_SILENT_AFTER, CKPT_LR = 8, 4, 6, TRAIN_LR
 # steps timed without a save, then with one in flight
 CKPT_TIMED_STEPS = 5
@@ -6330,6 +6506,73 @@ def shard_rank_ols(rank: int, mesh) -> dict:
     return out, [counts]
 
 
+def shard_rank_sentinel(rank: int, mesh) -> dict:
+    """21c: the drift sentinel on the four-rank engine (in place, so its
+    firings launch the dense kernel once an apply): a firing, P4 shifted
+    on every rank's rows, a firing whose probe finds the drift (the same
+    drifts on every rank: the squares are summed over the rows' ranks)
+    and recovers the views it finds, on the mesh in their row layout; a
+    second probe and recovery (the recovered P8 leaves P16 drifted); a
+    probe after finds none; on rank 0 the gathered views against
+    re-evaluation (MAIN_TOL)."""
+    import torch
+    from repro_torch.apps import MatrixPowers
+    from repro_torch.core import IncrementalEngine, ReevalEngine
+    from repro_torch.core.iterative import matrix_powers
+    from repro_torch.guard import GuardConfig, SentinelConfig
+    n = SHARD_SENTINEL_N
+    label = f"shard_rank{rank}_sentinel_n{n}_k16"
+    inputs = MatrixPowers.synthesize(n, seed=0)
+    ups = shard_stream(n, n, seed=23)[:2]
+    config = SentinelConfig(probe_every=2, seed=7)
+    eng = IncrementalEngine(matrix_powers(k=16, n=n, model="exp"),
+                            mesh=mesh, guard=GuardConfig(
+                                sentinel=config, transactional=False))
+    eng.initialize(inputs)
+    torch.cuda.synchronize()
+    reset_launches()
+    eng.apply_update("A", *ups[0], block=True)
+    eng.views["P4"].add_(SHARD_SENTINEL_SHIFT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.apply_update("A", *ups[1], block=True)
+    torch.cuda.synchronize()
+    out = {"firing_with_probe_ms": (time.perf_counter() - t0) * 1e3}
+    counts = kernel_counts()
+    check_launches(label, counts["launches"],
+                   {"rank_update_batched": eng.stats.lowrank_applies})
+    sentinel = eng.guard.sentinel
+    out.update(lowrank_applies=eng.stats.lowrank_applies,
+               probes=sentinel.probes, recoveries=sentinel.recoveries,
+               drift=dict(sentinel.last_drift),
+               local_rows=int(eng.views["P4"].shape[0]))
+    # a view consistent with a drifted parent (P16 with P8) drifts once
+    # the parent is recovered: the next probe finds it, as the
+    # reference's sentinel would at its next cadence
+    t0 = time.perf_counter()
+    out["second"] = sentinel.probe(eng)
+    out["probe_ms"] = (time.perf_counter() - t0) * 1e3
+    out["second_recovered"] = sentinel.recover(eng,
+                                               sentinel.drifted_views())
+    out["after"] = sentinel.probe(eng)
+    drifted = sorted(k for k, d in out["drift"].items() if d > config.tol)
+    if sentinel.recoveries < 1 or "P4" not in drifted \
+            or max(out["after"].values()) > config.tol \
+            or out["local_rows"] != n // SHARD_WORLD:
+        raise AssertionError(f"{label}: the sentinel did not find and heal "
+                             f"the drift: {out}")
+    wants = {}
+    if rank == 0:
+        ree = ReevalEngine(matrix_powers(k=16, n=n, model="exp"),
+                           device=DEVICE)
+        ree.initialize(inputs)
+        for u, v in ups:
+            ree.apply_update("A", u, v)
+        wants = {"reeval": (ree.views, MAIN_TOL)}
+    out["rel_err"] = shard_compare(label, eng, wants)
+    return out, [counts]
+
+
 def shard_rank(rank: int, world: int, store: str, results) -> None:
     """One of 21b's ranks, in a spawned process: join the gloo world
     through the file store ``store`` on ``cuda:(rank % device_count)``,
@@ -6354,7 +6597,8 @@ def shard_rank(rank: int, world: int, store: str, results) -> None:
                    "backend": dist.get_backend(mesh.get_group("rows"))}
             rec["counts"] = []
             for key, body in (("powers", shard_rank_powers),
-                              ("ols", shard_rank_ols)):
+                              ("ols", shard_rank_ols),
+                              ("sentinel", shard_rank_sentinel)):
                 rec[key], counts = body(rank, mesh)
                 rec["counts"] += counts
                 gc.collect()
@@ -6426,10 +6670,15 @@ def phase_shard_four_ranks() -> dict:
                 raise AssertionError(f"{label}: rank {rank}'s replicated "
                                      f"{app} blocks differ from rank 0's")
     applies = sum(r[app]["lowrank_applies"] for r in recs.values()
-                  for app in ("powers", "ols")) + sum(
+                  for app in ("powers", "ols", "sentinel")) + sum(
         f["lowrank_applies"] for r in recs.values()
         for f in r["powers"]["planned_firings"])
     check_launches(label, got, {"rank_update_batched": applies})
+    drifts = [[r["sentinel"][k] for k in ("drift", "second", "after")]
+              for _, r in sorted(recs.items())]
+    if any(d != drifts[0] for d in drifts):
+        raise AssertionError(f"{label}: the ranks' sentinels read other "
+                             f"drifts: {drifts}")
     rec = {"phase": label, "world": SHARD_WORLD,
            "note": "the ranks time-share one card: times are no scaling "
                    "figure",
@@ -6442,7 +6691,8 @@ def phase_shard_four_ranks() -> dict:
 
 def phase_shard() -> list:
     """21: the row-sharded engine (21a one NCCL rank, 21b four gloo ranks
-    on one card); its seconds and each rank's peak memory."""
+    on one card, 21c the drift sentinel on them); its seconds and each
+    rank's peak memory."""
     import torch
     t0 = time.perf_counter()
     one = phase_shard_one_rank()
@@ -6459,6 +6709,8 @@ def phase_shard() -> list:
                 f"firing {[f['bytes'] for f in r[app]['firings']]}")
         log(f"shard rank {rank} reeval matmul of two {POWERS_N}^2 views: "
             f"{r['powers']['reeval_matmul']}")
+        log(f"shard rank {rank} 21c sentinel at n = {SHARD_SENTINEL_N}: "
+            f"{json.dumps(r['sentinel'])}")
     peak = [round(r["peak_mem_gib"], 2) for _, r in sorted(
         four["ranks"].items())]
     log(f"phase 21: {time.perf_counter() - t0:.1f} s; peak GiB: one rank "
@@ -7057,6 +7309,250 @@ def lm22_fsdp(rank: int, mesh22, mesh41, counts: Lm22Counts,
     return out
 
 
+def lm22_decode_run(model, mesh, rules, tokens, max_seq: int, prompt: int,
+                    seed: int, greedy: bool):
+    """A batched prefill of ``prompt`` positions of ``tokens`` and one
+    decode step a position after it up to ``tokens``' last, on ``mesh``
+    under ``rules`` (each rank its blocks of the params and of the cache
+    placed by ``LM.cache_specs``), or on one device without a mesh;
+    ``greedy`` feeds each step the last step's argmax, else the next of
+    ``tokens``.  Returns (the prefill's last logits and each step's,
+    gathered whole, (steps + 1, B, V); the greedy tokens (B, steps + 1);
+    the ms of each decode step; one step's collective bytes, read before
+    the logits' gathers; the cache block's shape)."""
+    import torch
+    from repro_torch.dist import sharding
+    from repro_torch.train.train_step import data_rows
+    placed = (sharding.use_sharding(mesh, rules) if mesh is not None
+              else contextlib.nullcontext())
+    with torch.no_grad(), placed:
+        ctx = sharding.current_ctx()
+        params = model.init(lm22_gen(model.device, seed))
+        specs = None
+        if mesh is not None:
+            params = sharding.shard_tree(params, model.param_specs())
+            specs = model.cache_specs(tokens.shape[0], max_seq)
+
+        def rows(t):
+            return data_rows({"t": t}, model.device)["t"] if specs else t
+
+        def whole(x):
+            if specs is None:
+                return x
+            if x.shape[-1] != model.cfg.vocab:
+                x = sharding.gather(x, -1, sharding.MODEL)
+            return sharding.gather(x, 0, ctx.batch_axes)
+
+        logits, cache = model.prefill(
+            params, {"tokens": rows(tokens[:, :prompt])}, max_seq,
+            specs=specs)
+        out = [whole(logits[:, -1])]
+        toks = [out[-1].argmax(-1)]
+        ms, step_bytes = [], None
+        for i in range(prompt, tokens.shape[1]):
+            nxt = toks[-1][:, None] if greedy else tokens[:, i:i + 1]
+            sharding.reset_bytes()
+            lm22_sync(model.device)
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache, rows(nxt), i,
+                                              specs)
+            if step_bytes is None:
+                step_bytes = dict(sharding.BYTES)
+            out.append(whole(logits[:, 0]))
+            lm22_sync(model.device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(out[-1].argmax(-1))
+        shape = tuple(cache["kv"]["k"].shape)
+    return torch.stack(out), torch.stack(toks, dim=1), ms, step_bytes, shape
+
+
+def lm22_cache_seq(rank: int, mesh, counts: Lm22Counts,
+                   rehearse: bool) -> dict:
+    """22g: danube at full width cut to LM_SHARD_LAYERS under
+    ``{"cache_seq": "model"}`` on (1, 4).  f32 (LM_SHARD_CSEQ_F32, the
+    same tokens fed each step): on rank 0 every step's logits against
+    the single device's.  bf16 (LM_SHARD_CSEQ_BF16, the same tokens fed
+    each step): the logits against the same mesh's under the default
+    rules and, on rank 0, the single device's (:func:`lm22_bf16_agreement`),
+    the ms a step of both mesh runs, one step's bytes (checked against
+    the meta walk by the phase)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import LM
+    out = {}
+    cfg = lm22_cfg(SERVE_ARCH, LM_SHARD_LAYERS, "float32", rehearse)
+    b, max_seq, prompt, last = (LM_SHARD_REHEARSE["cseq_f32"] if rehearse
+                                else LM_SHARD_CSEQ_F32)
+    model = LM(cfg, device=counts.device)
+    tokens = lm22_tokens(cfg, b, last, 78).to(model.device)
+    steps = last - prompt
+    layers_ = attention_layers(cfg)
+    expect = {"flash_attention": layers_,
+              "flash_decode_lse": layers_ * steps}
+    logits, _, ms, _, shape = counts.drive(
+        lambda: lm22_decode_run(model, mesh, LM_SHARD_CSEQ_RULES, tokens,
+                                max_seq, prompt, 79, greedy=False), expect)
+    f32 = {"batch": b, "max_seq": max_seq, "prompt": prompt, "steps": steps,
+           "cache_block": list(shape), "ms_a_step": ms}
+    if rank == 0:
+        want = lm22_decode_run(model, None, None, tokens, max_seq, prompt,
+                               79, greedy=False)[0]
+        diff = float((logits - want).abs().max())
+        f32["max_abs_err"] = diff
+        f32["limit"] = LM_SHARD_CSEQ_TOL * max(float(want.abs().max()), 1.0)
+        if not torch.isfinite(logits).all() or diff > f32["limit"]:
+            raise AssertionError(f"22g: f32 decode under cache_seq against "
+                                 f"the single device: {f32}")
+        del want
+    out["f32"] = f32
+    del logits
+    gc.collect()
+    dist.barrier()
+    cfg = lm22_cfg(SERVE_ARCH, LM_SHARD_LAYERS, "bfloat16", rehearse)
+    b, max_seq, prompt, last = (LM_SHARD_REHEARSE["cseq_bf16"] if rehearse
+                                else LM_SHARD_CSEQ_BF16)
+    model = LM(cfg, device=counts.device)
+    tokens = lm22_tokens(cfg, b, last, 80).to(model.device)
+    steps = last - prompt
+    runs = {}
+    for key, rules, entry in (("cache_seq", LM_SHARD_CSEQ_RULES,
+                               "flash_decode_lse"),
+                              ("default", None, "flash_decode")):
+        logits, toks, ms, nbytes, shape = counts.drive(
+            lambda: lm22_decode_run(model, mesh, rules, tokens, max_seq,
+                                    prompt, 81, greedy=False),
+            {"flash_attention": layers_, entry: layers_ * steps})
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"22g: bf16 {key} logits are not finite")
+        runs[key] = {"logits": logits, "toks": toks, "ms": ms,
+                     "bytes": nbytes, "cache_block": list(shape)}
+    if rank == 0:
+        logits, toks = lm22_decode_run(model, None, None, tokens, max_seq,
+                                       prompt, 81, greedy=False)[:2]
+        runs["single"] = {"logits": logits, "toks": toks}
+    bf16 = {"batch": b, "max_seq": max_seq, "prompt": prompt,
+            "steps": steps,
+            **{f"{k}_{f}": runs[k][f] for k in ("cache_seq", "default")
+               for f in ("ms", "cache_block")},
+            "bytes": runs["cache_seq"]["bytes"],
+            "default_bytes": runs["default"]["bytes"]}
+    got = runs["cache_seq"]
+    for key in ("default", "single"):
+        if key not in runs:
+            continue
+        bf16[key] = lm22_bf16_agreement(got["logits"], got["toks"],
+                                        runs[key]["logits"],
+                                        runs[key]["toks"])
+        if bf16[key]["excess"] > 0:
+            raise AssertionError(f"22g: bf16 logits under cache_seq against "
+                                 f"the {key}'s: {bf16[key]}")
+    out["bf16"] = bf16
+    del runs, got
+    gc.collect()
+    dist.barrier()
+    return out
+
+
+def lm22_bf16_agreement(logits, toks, want, want_toks) -> dict:
+    """bf16 decode logits (steps, B, V) against ``want``'s, fed the same
+    tokens: the largest difference, its excess over
+    LM_SHARD_CSEQ_BF16_TOL of the largest logit (at least 1), and the
+    greedy tokens (each step's argmax) that agree, with the largest
+    top-two margin of ``want`` where they do not (a flip needs a margin
+    within twice the difference)."""
+    diff = float((logits - want).abs().max())
+    limit = LM_SHARD_CSEQ_BF16_TOL * max(float(want.abs().max()), 1.0)
+    same = toks == want_toks
+    top2 = want.float().topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).T          # (B, steps + 1)
+    return {"max_abs_err": diff, "limit": limit, "excess": diff - limit,
+            "greedy_equal": int(same.sum()), "greedy_of": same.numel(),
+            "flip_margin_max": float(margin[~same].max()) if (~same).any()
+            else 0.0,
+            "margin_min": float(margin.min())}
+
+
+def lm22_seq_sp(rank: int, mesh, counts: Lm22Counts, rehearse: bool,
+                single, single_loss) -> dict:
+    """22h: 22a's f32 gradients under ``{"seq_sp": "model"}`` on (2, 2),
+    on rank 0 against 22a's single device (``single``: its loss and
+    gradients; LM_SHARD_SEQ_GRAD_TOL of each leaf's largest entry,
+    LM_SHARD_SEQ_LOSS_TOL on the loss); then 22b's first
+    LM_SHARD_FSDP_STEPS bf16 steps under the rule, each timed with its
+    bytes and the peak, their losses against 22b's single device's
+    (``single_loss``)."""
+    import torch.distributed as dist
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import gather_tree, shard_tree
+    from repro_torch.models import LM
+    from repro_torch.train import (init_train_state, make_train_step,
+                                   require_grad)
+    out = {}
+    cfg = lm22_cfg(SERVE_ARCH, LM_SHARD_LAYERS, "float32", rehearse)
+    b, s = LM_SHARD_REHEARSE["exact"] if rehearse else LM_SHARD_EXACT
+    model = LM(cfg, device=counts.device)
+    batch = {"tokens": lm22_tokens(cfg, b, s, 71)}
+    t0 = time.perf_counter()
+    with sharding.use_sharding(mesh, LM_SHARD_SEQ_RULES):
+        specs = model.param_specs()
+        params = require_grad(shard_tree(
+            model.init(lm22_gen(model.device, 61)), specs))
+        loss, grads = counts.drive(lambda: lm22_grads(model, params, batch),
+                                   lm22_train_launches(cfg))
+        whole = gather_tree(grads, specs)
+    grad = {"batch": b, "seq": s, "loss": float(loss),
+            "seconds": time.perf_counter() - t0}
+    if rank == 0:
+        want_loss, want = single
+        grad["loss_rel_err"] = abs(float(loss) - float(want_loss)) / abs(
+            float(want_loss))
+        grad["grad_worst_rel_err"], grad["grad_worst_leaf"] = lm22_worst(
+            dict(flat_params(whole)), want)
+        if grad["loss_rel_err"] > LM_SHARD_SEQ_LOSS_TOL \
+                or grad["grad_worst_rel_err"] > LM_SHARD_SEQ_GRAD_TOL:
+            raise AssertionError(f"22h: seq_sp against the single device: "
+                                 f"{grad}")
+    out["grads"] = grad
+    del params, grads, whole
+    gc.collect()
+    dist.barrier()
+    cfg = lm22_cfg(SERVE_ARCH, LM_SHARD_LAYERS, "bfloat16", rehearse)
+    b, s, _ = LM_SHARD_REHEARSE["step"] if rehearse else LM_SHARD_STEP
+    model = LM(cfg, device=counts.device)
+    batch = {"tokens": lm22_tokens(cfg, b, s, 72)}
+    rec = {"batch": b, "seq": s, "ms": [], "bytes": [], "loss": []}
+    with sharding.use_sharding(mesh, LM_SHARD_SEQ_RULES):
+        base = lm22_peak_reset(model.device)
+        state = init_train_state(model, lm22_gen(model.device, 62))
+        step = make_train_step(model)
+        for _ in range(LM_SHARD_FSDP_STEPS):
+            sharding.reset_bytes()
+            lm22_sync(model.device)
+            t0 = time.perf_counter()
+            state, metrics = counts.drive(lambda: step(state, batch),
+                                          lm22_train_launches(cfg))
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["bytes"].append(dict(sharding.BYTES))
+            rec["loss"].append(float(metrics["loss"]))
+    rec.update(lm22_peak(model.device, base))
+    if rank == 0:
+        rec["loss_worst_rel_err"] = max(
+            abs(x - y) / abs(y) for x, y in zip(rec["loss"], single_loss))
+        # rehearsed at 4 x 32 tokens, 22b's limit (its bf16 noise scales as
+        # 1 / sqrt(B S))
+        rec["loss_tol"] = (LM_SHARD_BF16_LOSS_C / math.sqrt(b * s)
+                           if rehearse else LM_SHARD_SEQ_BF16_TOL)
+        if not rec["loss_worst_rel_err"] <= rec["loss_tol"]:
+            raise AssertionError(f"22h: bf16 losses {rec['loss']} under "
+                                 f"seq_sp against the single device's "
+                                 f"{single_loss}")
+    out["steps"] = rec
+    del state
+    gc.collect()
+    dist.barrier()
+    return out
+
+
 def lm22_moe(rank: int, mesh, counts: Lm22Counts, rehearse: bool) -> dict:
     """22c: qwen3-moe at full width cut to 1 layer, f32, forward on
     (1, 4): each rank draws the whole params in turn (one whole model on
@@ -7269,9 +7765,9 @@ def lm_shard_rank(rank: int, world: int, store: str, results,
     """One of phase 22's ranks, in a spawned process: join the gloo world
     through the file store ``store`` on ``cuda:(rank % device_count)``
     (the CPU when rehearsing), build the (2, 2), (1, 4) and (4, 1)
-    meshes, run 22a, 22b, 22d, 22f and 22c on them, leave the group, run
-    22e, and put ``(rank, record)`` — or ``(rank, traceback)`` — on
-    ``results``."""
+    meshes, run 22a, 22b, 22d, 22f, 22h, 22g and 22c on them, leave the
+    group, run 22e, and put ``(rank, record)`` — or ``(rank, traceback)``
+    — on ``results``."""
     try:
         device, counts, mesh22, mesh14 = gloo_rank_join(rank, world, store,
                                                         rehearse)
@@ -7319,7 +7815,26 @@ def lm_shard_rank(rank: int, world: int, store: str, results,
             if rank == 0:
                 log(f"lm shard rank 0 22f ({parts['22f']:.1f} s): "
                     f"{json.dumps(rec['22f'])}")
+            gc.collect()
+            if not rehearse:
+                torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            rec["22h"] = lm22_seq_sp(rank, mesh22, counts, rehearse, single,
+                                     rec["22b"].get("single_loss"))
+            parts["22h"] = time.perf_counter() - t1
+            if rank == 0:
+                log(f"lm shard rank 0 22h ({parts['22h']:.1f} s): "
+                    f"{json.dumps(rec['22h'])}")
             del single
+            gc.collect()
+            if not rehearse:
+                torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            rec["22g"] = lm22_cache_seq(rank, mesh14, counts, rehearse)
+            parts["22g"] = time.perf_counter() - t1
+            if rank == 0:
+                log(f"lm shard rank 0 22g ({parts['22g']:.1f} s): "
+                    f"{json.dumps(rec['22g'])}")
             gc.collect()
             if not rehearse:
                 torch.cuda.empty_cache()
@@ -7352,24 +7867,45 @@ def lm_shard_rank(rank: int, world: int, store: str, results,
 
 
 def lm22_fsdp_bytes_start(rehearse: bool) -> dict:
-    """22f's bytes predicted on meta: ``tools/torch_shard_bytes.py`` on
-    22b's step under LM_SHARD_FSDP_RULES on (2, 2) and (4, 1), each in a
-    process of its own on the CPU (no card), started together."""
+    """The bytes of 22f's, 22h's and 22g's drives predicted on meta:
+    ``tools/torch_shard_bytes.py`` on 22b's step under
+    LM_SHARD_FSDP_RULES on (2, 2) and (4, 1) and under LM_SHARD_SEQ_RULES
+    on (2, 2), and on one decode step of 22g's bf16 decode under
+    LM_SHARD_CSEQ_RULES on (1, 4), each in a process of its own on the
+    CPU (no card), started together."""
     b, s, _ = LM_SHARD_REHEARSE["step"] if rehearse else LM_SHARD_STEP
+    db, dseq, dpos, _ = (LM_SHARD_REHEARSE["cseq_bf16"] if rehearse
+                         else LM_SHARD_CSEQ_BF16)
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
     tool = Path(__file__).resolve().parent / "tools" / "torch_shard_bytes.py"
+    cells = {"22f_22": ("2,2", LM_SHARD_FSDP_RULES, b, s, []),
+             "22f_41": ("4,1", LM_SHARD_FSDP_RULES, b, s, []),
+             "22h": ("2,2", LM_SHARD_SEQ_RULES, b, s, []),
+             "22g": ("1,4", LM_SHARD_CSEQ_RULES, db, dseq,
+                     ["--decode", str(dpos)])}
     return {key: subprocess.Popen(
         [sys.executable, str(tool), "--arch", SERVE_ARCH, "--layers",
-         str(LM_SHARD_LAYERS), "--batch", str(b), "--seq", str(s), "--mesh",
-         mesh, "--rules", json.dumps(LM_SHARD_FSDP_RULES)]
+         str(LM_SHARD_LAYERS), "--batch", str(bb), "--seq", str(ss),
+         "--mesh", mesh, "--rules", json.dumps(rules)] + extra
         + (["--reduced"] if rehearse else []),
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for key, mesh in (("22", "2,2"), ("41", "4,1"))}
+        for key, (mesh, rules, bb, ss, extra) in cells.items()}
+
+
+def lm22_meta_records(key: str, r: dict) -> list:
+    """A rank's byte records that the meta walk ``key`` predicts: each of
+    22f's bf16 steps on a mesh, each of 22h's, 22g's first bf16 decode
+    step under the rule."""
+    if key.startswith("22f_"):
+        return r["22f"]["steps"][key[4:]]["bytes"]
+    if key == "22h":
+        return r["22h"]["steps"]["bytes"]
+    return [r["22g"]["bf16"]["bytes"]]
 
 
 def lm22_fsdp_bytes_check(procs: dict, recs: dict) -> dict:
-    """Every rank's bytes by kind and axis in each of 22f's bf16 steps
-    against the meta walk's (:func:`lm22_fsdp_bytes_start`), equal."""
+    """Every rank's bytes by kind and axis in each drive the meta walks
+    predict (:func:`lm22_fsdp_bytes_start`) against theirs, equal."""
     keys = ("all_reduce", "all_gather", "calls", "on_data", "on_model")
     out = {}
     for key, proc in procs.items():
@@ -7379,15 +7915,15 @@ def lm22_fsdp_bytes_check(procs: dict, recs: dict) -> dict:
             if proc.poll() is None:
                 proc.kill()
         if proc.returncode:
-            raise AssertionError(f"22f: torch_shard_bytes.py exited "
+            raise AssertionError(f"{key}: torch_shard_bytes.py exited "
                                  f"{proc.returncode}:\n{stderr[-2000:]}")
         want = json.loads(stdout.strip().splitlines()[-1])["bytes"]
         for rank, r in sorted(recs.items()):
-            for i, got in enumerate(r["22f"]["steps"][key]["bytes"]):
+            for i, got in enumerate(lm22_meta_records(key, r)):
                 bad = {k: (got.get(k, 0), want.get(k, 0)) for k in keys
                        if got.get(k, 0) != want.get(k, 0)}
                 if bad:
-                    raise AssertionError(f"22f {key}: rank {rank} step {i} "
+                    raise AssertionError(f"{key}: rank {rank} record {i} "
                                          f"bytes against the meta walk: "
                                          f"{bad}")
         out[key] = {k: want.get(k, 0) for k in keys}
@@ -7398,10 +7934,11 @@ def phase_lm_shard(rehearse: bool = False) -> dict:
     """Phase 22: LM_SHARD_WORLD gloo ranks in spawned processes, all on
     this card (NCCL takes one rank a card), each running
     :func:`lm_shard_rank`: explicit tensor, expert and data parallelism
-    of the transformer families, the fsdp rule, the elastic re-mesh and
-    the training driver's ``--mesh local``.  Every rank's flash launches
-    must equal what its drives predict (:func:`gloo_ranks`), and 22f's
-    bytes the meta walk's.  ``rehearse`` runs the same drives at the
+    of the transformer families, the fsdp rule, the seq_sp rule (22h), the
+    cache_seq decode (22g), the elastic re-mesh and the training driver's
+    ``--mesh local``.  Every rank's flash launches must equal what its
+    drives predict (:func:`gloo_ranks`), and 22f's, 22h's and 22g's bytes
+    the meta walk's.  ``rehearse`` runs the same drives at the
     reduced widths on the CPU (no kernel, no launch check)."""
     label = f"lm_shard_{LM_SHARD_WORLD}_ranks_gloo_one_card"
     t_phase = time.perf_counter()
@@ -7434,10 +7971,24 @@ def phase_lm_shard(rehearse: bool = False) -> dict:
             log(f"lm shard rank {rank} 22f fsdp on {key}: step ms {f['ms']}"
                 f"; bytes a step {f['bytes'][-1]}; state bytes "
                 f"{f['state_bytes']}; peak GiB {f.get('peak_gib')}")
+        h, g = r["22h"]["steps"], r["22g"]["bf16"]
+        log(f"lm shard rank {rank} 22h seq_sp on (2, 2): step ms {h['ms']} "
+            f"(22b {b['ms']}); bytes a step {h['bytes'][-1]} (meta "
+            f"{fsdp_bytes['22h']}); peak GiB {h.get('peak_gib')} (22b "
+            f"{b.get('peak_gib')})")
+        log(f"lm shard rank {rank} 22g cache_seq on (1, 4), bf16 {g['batch']}"
+            f" x {g['max_seq']} slots, cache block {g['cache_seq_cache_block']}"
+            f" (default {g['default_cache_block']}): ms a step "
+            f"{g['cache_seq_ms']} (default rules {g['default_ms']}); bytes a "
+            f"step {g['bytes']} (meta {fsdp_bytes['22g']}; default rules "
+            f"{g['default_bytes']}); against the default rules "
+            f"{g['default']}" + (f", the single device {g['single']}"
+                                 if "single" in g else ""))
     log(f"phase 22: {time.perf_counter() - t_phase:.1f} s; 22a {recs[0]['22a']}"
         f"; 22c {recs[0]['22c']}; 22d {recs[0]['22d']}; 22e "
-        f"{recs[0]['22e']}; 22f parts {recs[0]['22f']['part_s']}; 22f "
-        f"meta bytes {fsdp_bytes}; peak GiB "
+        f"{recs[0]['22e']}; 22f parts {recs[0]['22f']['part_s']}; 22g f32 "
+        f"{recs[0]['22g']['f32']}; 22h grads {recs[0]['22h']['grads']}; meta "
+        f"bytes {fsdp_bytes}; parts {recs[0]['part_s']}; peak GiB "
         f"{[round(r.get('peak_mem_gib', 0.0), 2) for _, r in sorted(recs.items())]}")
     return rec
 
@@ -8368,6 +8919,7 @@ def main() -> int:
                 "flash_attention_fwd_lse": "danube_train_bf16",
                 "flash_attention_bwd": "danube_train_bf16",
                 "flash_decode": "danube_decode_bf16_wrapped",
+                "flash_decode_lse": "danube_cseq_rank_bf16",
                 "rank_update_batched_out": (10000, 10000, 1, 16),
                 "select_commit": "clean"}
     # rank_update_batched's launches over phases 4-9, 12-16 and 21 by K, so that

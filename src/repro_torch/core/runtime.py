@@ -49,7 +49,9 @@ its mesh axis divides is kept row-sharded, and every firing runs through
 the row-sharded trigger (:mod:`repro_torch.dist.ivm_shard`): each rank
 sweeps its own rows with the rank-k kernel, and the factor chain moves
 skinny blocks between the ranks.  Every rank makes the same calls with
-the same updates; ``output`` and ``views_numpy`` gather whole views.
+the same updates; ``output`` and ``views_numpy`` gather whole views.  A
+guard's drift sentinel probes the row blocks and sums the residuals over
+the ranks (:mod:`repro_torch.guard.sentinel`).
 """
 
 from __future__ import annotations
@@ -303,9 +305,6 @@ class IncrementalEngine:
                 guard = GuardConfig()
             self.guard = EngineGuard(guard, self)
             self._out_of_place = guard.transactional
-            if mesh is not None and self.guard.sentinel is not None:
-                raise ValueError("the drift sentinel probes whole views; "
-                                 "an engine on a mesh holds row blocks")
         # planned execution state (repro_torch.plan)
         self.plan = None
         self.planner = None

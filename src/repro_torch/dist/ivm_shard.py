@@ -328,6 +328,107 @@ def evaluate(e, env: Dict[str, _V], binding: Dict[str, int], sh: Shards,
         del go   # break the closure's self-reference (see codegen.evaluate)
 
 
+def matvec(e, env: Dict[str, _V], binding: Dict[str, int], sh: Shards,
+           x: _V) -> _V:
+    """``e @ x`` for a skinny probe block ``x`` without materialising
+    ``e``: :func:`repro_torch.guard.sentinel.expr_matvec` on a mesh, the
+    products by :meth:`Shards.matmul`'s rules (a row block times the
+    replicated probe is local; a transposed read an all-reduce of a
+    skinny partial; a skinny right operand gathered whole)."""
+    if isinstance(e, ex.Var):
+        return sh.matmul(env[e.name], x)
+    if isinstance(e, ex.Identity):
+        return x
+    if isinstance(e, ex.Zero):
+        return _zeros((_dim(e.shape[0], binding), x.t.shape[1]), sh)
+    if isinstance(e, ex.MatMul):
+        return matvec(e.lhs, env, binding, sh,
+                      matvec(e.rhs, env, binding, sh, x))
+    if isinstance(e, ex.Add):
+        kind, terms = _combine([matvec(t, env, binding, sh, x)
+                                for t in e.terms], sh)
+        return _V(kind, functools.reduce(torch.add, terms))
+    if isinstance(e, ex.Scale):
+        return _scaled(e, env, binding, sh, matvec(e.operand, env, binding,
+                                                   sh, x))
+    if isinstance(e, ex.Transpose):
+        return rmatvec(e.operand, env, binding, sh, x)
+    if isinstance(e, ex.Inverse):
+        return _solve(e, env, binding, sh, x, transpose=False)
+    return sh.matmul(evaluate(e, env, binding, sh), x)
+
+
+def rmatvec(e, env: Dict[str, _V], binding: Dict[str, int], sh: Shards,
+            x: _V) -> _V:
+    """``eᵀ @ x`` by the dual recursion (:func:`matvec`)."""
+    if isinstance(e, ex.Identity):
+        return x
+    if isinstance(e, ex.Zero):
+        return _zeros((_dim(e.shape[1], binding), x.t.shape[1]), sh)
+    if isinstance(e, ex.MatMul):
+        return rmatvec(e.rhs, env, binding, sh,
+                       rmatvec(e.lhs, env, binding, sh, x))
+    if isinstance(e, ex.Add):
+        kind, terms = _combine([rmatvec(t, env, binding, sh, x)
+                                for t in e.terms], sh)
+        return _V(kind, functools.reduce(torch.add, terms))
+    if isinstance(e, ex.Scale):
+        return _scaled(e, env, binding, sh, rmatvec(e.operand, env, binding,
+                                                    sh, x))
+    if isinstance(e, ex.Transpose):
+        return matvec(e.operand, env, binding, sh, x)
+    if isinstance(e, ex.Inverse):
+        return _solve(e, env, binding, sh, x, transpose=True)
+    v = env[e.name] if isinstance(e, ex.Var) else evaluate(e, env, binding,
+                                                           sh)
+    return sh.matmul(_V({R: T, T: R, REP: REP}[v.kind],
+                        v.t.T if v.kind == REP else v.t), x)
+
+
+def _zeros(shape, sh: Shards) -> _V:
+    kind = sh.kind_of(shape)
+    return _V(kind, torch.zeros(sh.block_shape(shape), dtype=torch.float32,
+                                device=sh.device))
+
+
+def _scaled(e, env, binding, sh: Shards, o: _V) -> _V:
+    f = sh.rep(evaluate(e.factor, env, binding, sh)).t
+    if f.dim() == 2:
+        f = f[0, 0]
+    return _V(o.kind, f * o.t)
+
+
+def _solve(e, env, binding, sh: Shards, x: _V, transpose: bool) -> _V:
+    """``inv(a) @ x`` (``inv(a)ᵀ @ x``) by a solve against the replicated
+    operand ``a``."""
+    a = sh.rep(evaluate(e.operand, env, binding, sh)).t
+    x = sh.rep(x).t
+    if a.shape == (1, 1):
+        return _V(REP, x / a)
+    return _V(REP, torch.linalg.solve_ex(a.T if transpose else a, x).result)
+
+
+def probe_sums(expr, view: _V, env: Dict[str, _V], binding: Dict[str, int],
+               sh: Shards, x: torch.Tensor) -> Tuple[float, float]:
+    """The drift sentinel's residual on a mesh, for one view with
+    defining statement ``expr``: (‖expr·x‖², ‖expr·x − view·x‖²), the
+    squares summed over the rank's rows and then over the ranks (one
+    all-reduce) for a row-sharded view, local for a replicated one, so
+    every rank reads the same pair.  ``x`` is the replicated probe."""
+    xv = _V(REP, x)
+    want = matvec(expr, env, binding, sh, xv)
+    got = sh.matmul(view, xv)
+    if view.kind == R:
+        want, got = sh.local(want), got.t
+    else:
+        want, got = sh.rep(want).t, sh.rep(got).t
+    sums = torch.stack([(want * want).sum(), ((want - got) ** 2).sum()])
+    if view.kind == R:
+        sums = sh.all_reduce(sums)
+    den, num = sums.tolist()
+    return den, num
+
+
 # ---------------------------------------------------------------------------
 # placement
 # ---------------------------------------------------------------------------
@@ -382,7 +483,8 @@ def view_kind(kinds: Dict[str, str], name: str) -> str:
     return kinds.get(name, REP)
 
 
-def _tagged(views: Env, kinds: Dict[str, str]) -> Dict[str, _V]:
+def tagged(views: Env, kinds: Dict[str, str]) -> Dict[str, _V]:
+    """The local ``views`` tagged with their layouts (``kinds``)."""
     return {name: _V(view_kind(kinds, name), t) for name, t in views.items()}
 
 
@@ -392,7 +494,7 @@ def _factor_env(trigger: Trigger, assigns, views: Env, u: torch.Tensor,
     """The layout-tagged values of a firing: the local views, the whole
     update factors (replicated) and every factor block of ``assigns``,
     evaluated in order against the views as they stand."""
-    env = _tagged(views, kinds)
+    env = tagged(views, kinds)
     env[trigger.u_var.name] = _V(REP, u)
     env[trigger.v_var.name] = _V(REP, v)
     cache: Dict[int, _V] = {}
@@ -408,7 +510,7 @@ def recompute(statements, views: Env, binding: Dict[str, int], sh: Shards,
     each result lands in its own layout (``kinds``) as storage of its
     own."""
     cache: Dict[int, _V] = {}
-    env = _tagged(views, kinds)
+    env = tagged(views, kinds)
     for st in statements:
         name = st.target.name
         kind = view_kind(kinds, name)

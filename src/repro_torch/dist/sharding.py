@@ -670,6 +670,15 @@ def copy_to_model(x: torch.Tensor,
     return x if ctx.tp == 1 else _CopyToModel.apply(x, ctx, cols)
 
 
+def params_to_model(params: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """Each of a block's replicated ``params`` entering the model region
+    (:func:`copy_to_model`): where every rank reads them on its part of
+    the work only (its positions under the ``"seq_sp"`` rule), their
+    gradients are summed over the model ranks."""
+    return {name: copy_to_model(w) for name, w in params.items()}
+
+
 def sum_over_model(x: torch.Tensor) -> torch.Tensor:
     """The sum of the model ranks' ``x``, which each rank reads only in
     part (see :class:`_SumOverModel`; the identity without a model
@@ -728,6 +737,164 @@ def gather_from_data(x: torch.Tensor, dim: int,
     if ctx.size(axes) == 1:
         return x
     return _GatherFromData.apply(x, dim % x.dim(), axes, ctx)
+
+
+# -- the sequence axes: "cache_seq" (decode) and "seq_sp" (training) ----------
+
+
+def merge_decode_partials(out: torch.Tensor, lse: torch.Tensor,
+                          axes: Union[str, Sequence[str]]) -> torch.Tensor:
+    """One decode step's attention from every rank's partial over its
+    slots of a cache split along ``axes`` (the ``"cache_seq"`` rule's):
+    ``out`` (B, H, hd) f32 and ``lse`` (B, H), as
+    :func:`repro_torch.kernels.ops.flash_decode_lse` gives them.  One
+    all-gather of both (packed), then the merge in rank order: M = max_r
+    lse_r, w_r = exp(lse_r - M) (0 for a rank with no valid slot, lse
+    -inf), out = sum_r w_r out_r / sum_r w_r.  Every rank gets the whole
+    merge.  Forward only: a decode step takes no gradient."""
+    ctx = current_ctx()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if ctx.size(axes) == 1:
+        return out
+    packed = torch.cat([out, lse[..., None]], dim=-1)[None]
+    parts = gather(packed, 0, axes, ctx)          # (n, B, H, hd + 1)
+    return merge_partials(parts[..., :-1], parts[..., -1])
+
+
+def merge_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """The merge of :func:`merge_decode_partials` on stacked partials,
+    outs (n, ..., hd) and lses (n, ...), summed in their order; rows with
+    no valid slot anywhere give 0."""
+    top = lses.max(dim=0).values
+    w = torch.exp(lses - torch.where(torch.isfinite(top), top, 0.0))
+    num, den = w[0, ..., None] * outs[0], w[0]
+    for r in range(1, outs.shape[0]):
+        num = num + w[r, ..., None] * outs[r]
+        den = den + w[r]
+    return torch.where(den[..., None] > 0, num / den[..., None], 0.0)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, axes: Tuple[str, ...],
+                    ctx: ShardingCtx) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes``, of which this rank
+    keeps its block along ``dim``: gloo has no reduce-scatter, so an
+    all-reduce (counted as one, under each axis) and the rank's slice,
+    as :class:`_GatherFromData`'s backward."""
+    summed = all_reduce(x.contiguous().clone(), axes, ctx)
+    width = x.shape[dim] // ctx.size(axes)
+    return summed.narrow(dim, ctx.coord(axes) * width,
+                         width).contiguous()
+
+
+def _own_block(x: torch.Tensor, dim: int, axes: Tuple[str, ...],
+               ctx: ShardingCtx) -> torch.Tensor:
+    width = x.shape[dim] // ctx.size(axes)
+    return x.narrow(dim, ctx.coord(axes) * width, width).contiguous()
+
+
+class _ScatterToSeq(torch.autograd.Function):
+    """The rank's block along ``dim`` forward, all-gather backward: where
+    a whole sequence, the same on every rank, splits over the ``seq_sp``
+    axes (the residual stream entering the first block)."""
+
+    @staticmethod
+    def forward(fctx, x, dim, axes, ctx):
+        fctx.dim, fctx.axes, fctx.ctx = dim, axes, ctx
+        return _own_block(x, dim, axes, ctx)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return gather(grad, fctx.dim, fctx.axes, fctx.ctx), None, None, None
+
+
+class _GatherFromSeq(torch.autograd.Function):
+    """All-gather forward along ``dim``; backward a reduce-scatter when
+    the ranks' gradients are partial (``summed``: a sequence entering a
+    tensor-parallel region, whose ranks each send back their part), else
+    the rank's slice (the gradient is whole and the same on every rank:
+    the sequence gathered after the last block)."""
+
+    @staticmethod
+    def forward(fctx, x, dim, axes, ctx, summed):
+        fctx.dim, fctx.axes, fctx.ctx, fctx.summed = dim, axes, ctx, summed
+        return gather(x, dim, axes, ctx)
+
+    @staticmethod
+    def backward(fctx, grad):
+        take = _reduce_scatter if fctx.summed else _own_block
+        return (take(grad, fctx.dim, fctx.axes, fctx.ctx), None, None, None,
+                None)
+
+
+class _ReduceScatterToSeq(torch.autograd.Function):
+    """Reduce-scatter forward along ``dim`` (the ranks' partial outputs
+    of a row-parallel product summed, each rank keeping its block of the
+    sequence), all-gather backward."""
+
+    @staticmethod
+    def forward(fctx, x, dim, axes, ctx):
+        fctx.dim, fctx.axes, fctx.ctx = dim, axes, ctx
+        return _reduce_scatter(x, dim, axes, ctx)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return gather(grad, fctx.dim, fctx.axes, fctx.ctx), None, None, None
+
+
+def seq_block(x: torch.Tensor, dim: int,
+              axes: Union[str, Sequence[str]] = MODEL) -> torch.Tensor:
+    """This rank's block along ``dim`` of a sequence every rank computed
+    whole (a sub-block that the model axis does not split), by a plain
+    slice: its gradient is zero outside the block, so each rank's
+    gradient upstream is its part, summed where the sequence was
+    gathered (:func:`gather_from_seq`)."""
+    axes, ctx = _seq(axes)
+    if ctx.size(axes) == 1:
+        return x
+    width = x.shape[dim] // ctx.size(axes)
+    return x.narrow(dim, ctx.coord(axes) * width, width)
+
+
+def _seq(axes) -> Tuple[Tuple[str, ...], ShardingCtx]:
+    ctx = current_ctx()
+    return ((axes,) if isinstance(axes, str) else tuple(axes)), ctx
+
+
+def scatter_to_seq(x: torch.Tensor, dim: int,
+                   axes: Union[str, Sequence[str]] = MODEL) -> torch.Tensor:
+    """This rank's block along ``dim`` of a sequence whole on every rank,
+    split over ``axes`` (the ``"seq_sp"`` rule's); its gradient is
+    gathered whole (see :class:`_ScatterToSeq`)."""
+    axes, ctx = _seq(axes)
+    if ctx.size(axes) == 1:
+        return x
+    return _ScatterToSeq.apply(x, dim % x.dim(), axes, ctx)
+
+
+def gather_from_seq(x: torch.Tensor, dim: int,
+                    axes: Union[str, Sequence[str]] = MODEL,
+                    summed: bool = True) -> torch.Tensor:
+    """The whole sequence from every rank's block along ``dim`` (split
+    over ``axes``).  Its gradient: reduce-scattered when ``summed`` (the
+    ranks' gradients are partial sums, as where the sequence enters a
+    tensor-parallel block), else the rank's slice (see
+    :class:`_GatherFromSeq`)."""
+    axes, ctx = _seq(axes)
+    if ctx.size(axes) == 1:
+        return x
+    return _GatherFromSeq.apply(x, dim % x.dim(), axes, ctx, summed)
+
+
+def reduce_scatter_to_seq(x: torch.Tensor, dim: int,
+                          axes: Union[str, Sequence[str]] = MODEL
+                          ) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` (a row-parallel output) over
+    ``axes``, this rank keeping its block of the sequence along ``dim``;
+    its gradient gathered whole (see :class:`_ReduceScatterToSeq`)."""
+    axes, ctx = _seq(axes)
+    if ctx.size(axes) == 1:
+        return x
+    return _ReduceScatterToSeq.apply(x, dim % x.dim(), axes, ctx)
 
 
 class _BatchMean(torch.autograd.Function):

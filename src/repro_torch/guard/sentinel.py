@@ -33,6 +33,14 @@ is needed.  Recoveries are also reported to the engine's
 :class:`~repro_torch.plan.AdaptivePlanner` (when one is attached) as a
 re-planning signal: a view that keeps drifting is a view whose
 incremental strategy is numerically too aggressive.
+
+On a mesh engine (``IncrementalEngine(mesh=...)``, views row-sharded)
+every rank draws the same probes from the seeded stream; each rank
+evaluates ``f(parents)·x`` and ``A·x`` on its row block
+(:func:`repro_torch.dist.ivm_shard.probe_sums`) and the squared norms
+are summed over the row axis before the ratio, so every rank reads the
+same drift.  Recovery re-evaluates on the mesh and keeps the row layout
+(``engine._recompute``); a replicated view is probed whole.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ import numpy as np
 import torch
 
 from ..core import expr as ex
-from ..core.codegen import evaluate, recompute
+from ..core.codegen import evaluate
 from ..core.cost import shape_of
 
 
@@ -102,6 +110,10 @@ class DriftSentinel:
         — they are *known* stale and recomputed on read)."""
         drifts: Dict[str, float] = {}
         views = engine.views
+        env = None
+        if engine.mesh is not None:
+            from ..dist import ivm_shard
+            env = ivm_shard.tagged(views, engine._kinds)
         for st in self.program.statements:
             name = st.target.name
             if name in engine._stale or name not in views:
@@ -110,10 +122,15 @@ class DriftSentinel:
             x = torch.from_numpy(self._rng.standard_normal(
                 (m, self.config.n_probes)).astype(np.float32)).to(
                     views[name].device)
-            ref = expr_matvec(st.expr, views, self.binding, x)
-            cur = views[name] @ x
-            denom = float(torch.linalg.norm(ref))
-            num = float(torch.linalg.norm(ref - cur))
+            if env is not None:
+                den2, num2 = ivm_shard.probe_sums(
+                    st.expr, env[name], env, self.binding, engine._shards, x)
+                denom, num = float(np.sqrt(den2)), float(np.sqrt(num2))
+            else:
+                ref = expr_matvec(st.expr, views, self.binding, x)
+                cur = views[name] @ x
+                denom = float(torch.linalg.norm(ref))
+                num = float(torch.linalg.norm(ref - cur))
             drift = num / max(denom, 1e-30)
             if not np.isfinite(drift):
                 drift = float("inf")
@@ -134,11 +151,12 @@ class DriftSentinel:
         views, in program order, against the engine's current store —
         ancestors first, so a drifted chain heals in one pass.  Each
         recovered view gets storage of its own
-        (:func:`~repro_torch.core.codegen.recompute`)."""
+        (:func:`~repro_torch.core.codegen.recompute`; on a mesh the
+        sharded re-evaluation, each view in its row layout)."""
         todo = set(names)
         statements = [st for st in self.program.statements
                       if st.target.name in todo]
-        recompute(statements, engine.views, self.binding, engine.device)
+        engine._recompute(statements)
         recovered = [st.target.name for st in statements]
         for name in recovered:
             engine._accum_rank[name] = 0

@@ -8,6 +8,13 @@
 //     -> entry flash_decode_fwd.  The reference model computes the same
 //     function with a masked grouped einsum in decode_attention
 //     (src/repro/models/attention.py:260), which this kernel serves.
+//   * the same kernel's row statistics, which flash_decode_pallas returns
+//     as (acc, m, l) and its wrapper drops (src/repro/kernels/ops.py:214)
+//     -> entry flash_decode_fwd_lse: the output unrounded in f32 and the
+//     row log-sum-exp, for a cache split by slots over ranks (the
+//     reference's "cache_seq" rule, where GSPMD splits the softmax over
+//     the shards: src/repro/models/attention.py:251), whose partials the
+//     caller merges by their LSE.  Only the merge differs (WRITE_LSE).
 //
 // Layout: q (B, H, HD), caches (B, L, KV, HD), out (B, H, HD), contiguous.
 // Slots 0 .. n_valid-1 are valid (a sliding-window ring is full once it has
@@ -79,6 +86,8 @@
 // side.
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -181,13 +190,18 @@ __device__ void write_partial(const float* bacc, const float* bml,
 // out = sum_i w_i acc_i / sum_i w_i l_i with w_i = 2^(m_i - M) (0 where
 // l_i = 0).  Launched as a programmatic dependent of the split pass: its
 // blocks are placed while the split pass drains and wait here for its
-// results.
+// results.  With WRITE_LSE (T = float) the thread of dimension 0 also
+// writes its row's log-sum-exp of the scaled scores, lse (b, h) =
+// (M + log2 den) ln 2 (M is in log2 units), and -inf for a row with no
+// valid slot, whose out is 0.  lse is the last parameter, so the serving
+// instances (WRITE_LSE false) keep their code.
 constexpr int MERGE_THREADS = 256;
 
-template <typename T>
+template <typename T, bool WRITE_LSE>
 __global__ void __launch_bounds__(MERGE_THREADS)
 flash_decode_merge(const float* __restrict__ ws, T* __restrict__ out, int b,
-                   int h, int kvh, int hd, int nsplit) {
+                   int h, int kvh, int hd, int nsplit,
+                   float* __restrict__ lse) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int64_t idx = (int64_t)blockIdx.x * MERGE_THREADS + threadIdx.x;
   if (idx >= (int64_t)b * h * hd) return;
@@ -213,6 +227,11 @@ flash_decode_merge(const float* __restrict__ ws, T* __restrict__ out, int b,
     den = fmaf(w, l, den);
   }
   out[idx] = attn::from_f32<T>(den > 0.f ? num / den : 0.f);
+  if constexpr (WRITE_LSE) {
+    if (d == 0)
+      lse[row] = den > 0.f ? (mx + log2f(den)) * 0.69314718055994531f
+                           : -INFINITY;
+  }
 }
 
 // This block's tiles of the valid slots: split s takes tiles s,
@@ -855,6 +874,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* lse;    // null: the serving entry
   float* ws;
   const int* n_valid_dev;
   int n_valid;
@@ -863,9 +883,10 @@ struct Args {
   cudaStream_t stream;
 };
 
-// Launch kern over grid (nsplit, groups, b), then the merge; raise its
-// dynamic shared-memory limit once per device first.
-template <typename T, typename... KArgs, typename... Ps>
+// Launch kern over grid (nsplit, groups, b), then the merge into out of
+// type T, writing the row LSE too when WRITE_LSE; raise kern's dynamic
+// shared-memory limit once per device first.
+template <typename T, bool WRITE_LSE, typename... KArgs, typename... Ps>
 int launch(void (*kern)(KArgs...), int threads, int smem, int groups,
            int hd, unsigned long long& raised, const Args& a, Ps... args) {
   int dev = 0;
@@ -890,17 +911,19 @@ int launch(void (*kern)(KArgs...), int threads, int smem, int groups,
   cfg.stream = a.stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, flash_decode_merge<T>,
+  return (int)cudaLaunchKernelEx(&cfg, flash_decode_merge<T, WRITE_LSE>,
                                  (const float*)a.ws, static_cast<T*>(a.out),
-                                 a.b, a.h, a.kvh, hd, a.nsplit);
+                                 a.b, a.h, a.kvh, hd, a.nsplit, a.lse);
 }
 
-template <int HD>
+// The split pass's out argument is never written (its partials go to the
+// workspace), so the LSE entry's f32 out passes through it untyped.
+template <int HD, bool LSE>
 int launch_bf16(const Args& a) {
   static unsigned long long raised = 0;
   int kvb = TC_HEADS;
   while (a.kvh % kvb) kvb /= 2;   // gcd(KV, TC_HEADS): TC_HEADS is 2^k
-  return launch<bf16>(
+  return launch<std::conditional_t<LSE, float, bf16>, LSE>(
       flash_decode_bf16_mma<HD>, TC_THREADS, TcPlan<HD>::SMEM, a.kvh / kvb,
       HD, raised, a, static_cast<const bf16*>(a.q),
       static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
@@ -908,39 +931,56 @@ int launch_bf16(const Args& a) {
       a.kvh, kvb, a.nsplit, a.scale_log2);
 }
 
-template <int HD, int G>
+template <int HD, int G, bool LSE>
 int launch_f32(const Args& a) {
   static unsigned long long raised = 0;
-  return launch<float>(
+  return launch<float, LSE>(
       flash_decode_f32<HD, G>, THREADS, Plan<HD, G>::SMEM, a.kvh, HD, raised,
       a, static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.out), a.ws,
       a.n_valid_dev, a.n_valid, a.L, a.h, a.kvh, a.nsplit, a.scale_log2);
 }
 
-template <int G>
+template <int G, bool LSE>
 int f32_by_head_dim(int hd, const Args& a) {
   switch (hd) {
-    case 32: return launch_f32<32, G>(a);
-    case 64: return launch_f32<64, G>(a);
-    case 80: return launch_f32<80, G>(a);
-    case 96: return launch_f32<96, G>(a);
-    case 128: return launch_f32<128, G>(a);
-    case 256: return launch_f32<256, G>(a);
+    case 32: return launch_f32<32, G, LSE>(a);
+    case 64: return launch_f32<64, G, LSE>(a);
+    case 80: return launch_f32<80, G, LSE>(a);
+    case 96: return launch_f32<96, G, LSE>(a);
+    case 128: return launch_f32<128, G, LSE>(a);
+    case 256: return launch_f32<256, G, LSE>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <bool LSE>
 int bf16_by_head_dim(int hd, const Args& a) {
   switch (hd) {
-    case 32: return launch_bf16<32>(a);
-    case 64: return launch_bf16<64>(a);
-    case 80: return launch_bf16<80>(a);
-    case 96: return launch_bf16<96>(a);
-    case 128: return launch_bf16<128>(a);
-    case 256: return launch_bf16<256>(a);
+    case 32: return launch_bf16<32, LSE>(a);
+    case 64: return launch_bf16<64, LSE>(a);
+    case 80: return launch_bf16<80, LSE>(a);
+    case 96: return launch_bf16<96, LSE>(a);
+    case 128: return launch_bf16<128, LSE>(a);
+    case 256: return launch_bf16<256, LSE>(a);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+bool bad_args(int h, int kvh, int nsplit, int L, const float* ws,
+              const int* n_valid_dev, int n_valid) {
+  return kvh < 1 || h % kvh != 0 || h / kvh > MAX_GROUP || nsplit < 1 ||
+         nsplit > MAX_SPLITS || L < 1 || ws == nullptr ||
+         (n_valid_dev == nullptr && (n_valid < 1 || n_valid > L));
+}
+
+template <bool LSE>
+int dispatch(const Args& a, int hd, int bf16) {
+  if (bf16) return bf16_by_head_dim<LSE>(hd, a);
+  const int g = a.h / a.kvh;
+  if (g <= 4) return f32_by_head_dim<4, LSE>(hd, a);
+  if (g <= 8) return f32_by_head_dim<8, LSE>(hd, a);
+  return f32_by_head_dim<16, LSE>(hd, a);
 }
 
 }  // namespace
@@ -958,15 +998,30 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 const int* n_valid_dev, int n_valid, int b,
                                 int L, int h, int kvh, int hd, int nsplit,
                                 int bf16, float scale, void* stream) {
-  if (kvh < 1 || h % kvh != 0 || h / kvh > MAX_GROUP || nsplit < 1 ||
-      nsplit > MAX_SPLITS || L < 1 || ws == nullptr ||
-      (n_valid_dev == nullptr && (n_valid < 1 || n_valid > L)))
+  if (bad_args(h, kvh, nsplit, L, ws, n_valid_dev, n_valid))
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, out, ws, n_valid_dev, n_valid, b, L, h, kvh, nsplit,
-               scale * 1.4426950408889634f, (cudaStream_t)stream};
-  if (bf16) return bf16_by_head_dim(hd, a);
-  const int g = h / kvh;
-  if (g <= 4) return f32_by_head_dim<4>(hd, a);
-  if (g <= 8) return f32_by_head_dim<8>(hd, a);
-  return f32_by_head_dim<16>(hd, a);
+  const Args a{q, k, v, out, nullptr, ws, n_valid_dev, n_valid, b, L, h,
+               kvh, nsplit, scale * 1.4426950408889634f,
+               (cudaStream_t)stream};
+  return dispatch<false>(a, hd, bf16);
+}
+
+// flash_decode_fwd's attention with its row statistics: out (b, h, hd) in
+// f32 (the merge's quotient unrounded, whatever the cache's type) and lse
+// (b, h) f32, the natural-log log-sum-exp of each query row's scaled
+// scores over its valid slots.  A device n_valid may be 0 (a rank that
+// holds none of the valid slots): every row then gives out 0 and lse
+// -inf.  The other arguments as flash_decode_fwd's.
+extern "C" int flash_decode_fwd_lse(const void* q, const void* k,
+                                    const void* v, float* out, float* lse,
+                                    float* ws, const int* n_valid_dev,
+                                    int n_valid, int b, int L, int h,
+                                    int kvh, int hd, int nsplit, int bf16,
+                                    float scale, void* stream) {
+  if (bad_args(h, kvh, nsplit, L, ws, n_valid_dev, n_valid) ||
+      lse == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, out, lse, ws, n_valid_dev, n_valid, b, L, h, kvh,
+               nsplit, scale * 1.4426950408889634f, (cudaStream_t)stream};
+  return dispatch<true>(a, hd, bf16);
 }

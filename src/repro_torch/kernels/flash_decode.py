@@ -19,6 +19,14 @@ second launch; one call counts once in ``LAUNCHES``.  The entry launches
 on the current CUDA stream, allocates its output and one workspace with
 ``torch.empty``, and never falls back to the plain version.  An operand
 that requires grad under grad mode raises: the kernel has no backward yet.
+
+:func:`flash_decode_lse` is the same attention with its row statistics
+(``flash_decode_fwd_lse``: the same split pass, the merge instantiated
+with ``WRITE_LSE``), for a cache split by slots over ranks: the output in
+f32, unrounded, and each query row's log-sum-exp, so that the ranks'
+partials merge exactly (``dist.sharding.merge_decode_partials``).  A
+device ``n_valid`` may be 0 there: the rank holds no valid slot, and its
+rows give out 0 and lse -inf.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch
 from . import cuda_build
 from .flash_attention import check_attention_operands, check_heads
 
-LAUNCHES: Dict[str, int] = {"flash_decode": 0}
+LAUNCHES: Dict[str, int] = {"flash_decode": 0, "flash_decode_lse": 0}
 
 TILE = 64           # cache slots the split plan counts in
 MAX_GROUP = 16      # query heads per KV head
@@ -45,6 +53,8 @@ BLOCK_KV_HEADS = 4
 BLOCKS_PER_SM = {torch.bfloat16: 1, torch.float32: 2}
 
 _SIGNATURES = {"flash_decode_fwd": [cuda_build.PTR] * 6
+               + [cuda_build.I32] * 8 + [cuda_build.F32, cuda_build.PTR],
+               "flash_decode_fwd_lse": [cuda_build.PTR] * 7
                + [cuda_build.I32] * 8 + [cuda_build.F32, cuda_build.PTR]}
 
 
@@ -85,6 +95,33 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     tensor of shape () or (1,) on q's device (read on the card, clamped to
     [0, L]).  Returns (B, H, hd) in q's type."""
     cuda_build.refuse_grad("flash_decode", q, k_cache, v_cache)
+    out = torch.empty_like(q)
+    _launch("flash_decode", q, k_cache, v_cache, n_valid, out, None)
+    return out
+
+
+def flash_decode_lse(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     n_valid: Union[int, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_decode` with its row statistics: (out (B, H, hd) f32,
+    lse (B, H) f32), out unrounded whatever the caches' type and lse the
+    natural-log log-sum-exp of each query row's scaled scores over the
+    valid slots.  ``n_valid`` as :func:`flash_decode`'s; a device one
+    read as 0 gives out 0 and lse -inf."""
+    cuda_build.refuse_grad("flash_decode_lse", q, k_cache, v_cache)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _launch("flash_decode_lse", q, k_cache, v_cache, n_valid, out, lse)
+    return out, lse
+
+
+def _launch(name: str, q: torch.Tensor, k_cache: torch.Tensor,
+            v_cache: torch.Tensor, n_valid: Union[int, torch.Tensor],
+            out: torch.Tensor, lse) -> None:
+    """Check the operands, then launch entry ``flash_decode_fwd`` (``lse``
+    None) or ``flash_decode_fwd_lse`` into ``out`` (and ``lse``), counted
+    under ``LAUNCHES[name]``."""
     dtype = check_attention_operands(q=q, k_cache=k_cache, v_cache=v_cache)
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
             or k_cache.shape[0] != q.shape[0] \
@@ -112,16 +149,16 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         if not 1 <= n_host <= L:
             raise ValueError(f"n_valid {n_host} outside [1, {L}]")
     nsplit = _splits(q.device, dtype, b, kvh, L)
-    out = torch.empty_like(q)
     ws = torch.empty(b * h * nsplit * (hd + 2), dtype=torch.float32,
                      device=q.device)
     lib = cuda_build.library("flash_decode", _SIGNATURES)
-    args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), ws.data_ptr(), n_ptr, n_host, b, L, h, kvh, hd,
-            nsplit, int(dtype == torch.bfloat16), hd ** -0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            out.data_ptr()) + (() if lse is None else (lse.data_ptr(),))
+    args = ptrs + (ws.data_ptr(), n_ptr, n_host, b, L, h, kvh, hd, nsplit,
+                   int(dtype == torch.bfloat16), hd ** -0.5,
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    entry = "flash_decode_fwd" if lse is None else "flash_decode_fwd_lse"
     with torch.cuda.device(q.device):
-        code = lib.flash_decode_fwd(*args)
-    cuda_build.check_launch("flash_decode_fwd", code)
-    cuda_build.count_launch(LAUNCHES, "flash_decode")
-    return out
+        code = getattr(lib, entry)(*args)
+    cuda_build.check_launch(entry, code)
+    cuda_build.count_launch(LAUNCHES, name)

@@ -202,3 +202,21 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         if _meta(q):
             return torch.empty_like(q)
         return _cuda_fd.flash_decode(q, k_cache, v_cache, n_valid)
+
+
+def flash_decode_lse(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     n_valid: Union[int, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_decode` with its row statistics, for a rank's slots of
+    a cache split over ranks: (out (B, H, hd) f32, unrounded; lse (B, H)
+    f32, each query row's log-sum-exp).  ``n_valid`` may be a device
+    tensor holding 0 (no valid slot: out 0, lse -inf)."""
+    with work.entry("flash_decode_lse", work.flash_decode_lse, q, k_cache,
+                    n_valid):
+        if q.device.type == "cpu":
+            return ref.flash_decode_lse(q, k_cache, v_cache, n_valid)
+        if _meta(q):
+            return (q.new_empty(q.shape, dtype=torch.float32),
+                    q.new_empty(q.shape[:2], dtype=torch.float32))
+        return _cuda_fd.flash_decode_lse(q, k_cache, v_cache, n_valid)

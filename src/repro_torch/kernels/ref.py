@@ -244,3 +244,28 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(scores.masked_fill(~keep, float("-inf")), dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def flash_decode_lse(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     n_valid: Union[int, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernels.flash_decode_lse: :func:`flash_decode`'s
+    attention with its row statistics, (out (B, H, hd) f32, lse (B, H)
+    f32): f32 scores over the slots ``arange(L) < n_valid`` (masked, not
+    sliced), out the softmax-weighted values unrounded and lse the
+    natural-log log-sum-exp of each row's scaled scores.  A row with no
+    valid slot (``n_valid`` 0, as on a rank that holds none of them)
+    gives out 0 and lse -inf."""
+    b, h, hd = q.shape
+    L, kvh = k_cache.shape[1], k_cache.shape[2]
+    qf = q.float().reshape(b, kvh, h // kvh, hd)
+    scores = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float()) \
+        * hd ** -0.5
+    keep = torch.arange(L, device=q.device) < n_valid
+    scores = scores.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)                 # -inf: none kept
+    p = torch.exp(scores - torch.where(torch.isfinite(lse), lse,
+                                       0.0)[..., None])
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(b, h, hd), lse.reshape(b, h)

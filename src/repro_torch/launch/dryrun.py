@@ -23,8 +23,10 @@ other cell walks (``"status": "ok"``), the recurrent families' too.
 ``build_cell`` and ``run_cell`` take the reference's ``rules=`` (placement
 rules over the defaults, e.g. ``{"fsdp": "data"}`` or ``{"fsdp":
 ("pod", "data")}``, which split the params and the optimizer state over
-the data axes too) and ``microbatches=``; as in the reference, the CLI
-sets neither, and a run with rules names its cells by ``tag``.
+the data axes too; ``{"seq_sp": "model"}``, the residual stream over the
+sequence between blocks; ``{"cache_seq": "model"}``, the decode cache's
+slots) and ``microbatches=``; as in the reference, the CLI sets
+neither, and a run with rules names its cells by ``tag``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-32b \\
@@ -136,12 +138,12 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
             step = make_prefill_step(model)
             args = (params, data_rows(make_batch_specs(cfg, shape)))
         else:
-            step = make_serve_step(model)
             long_ctx = shape.seq_len > 100_000
-            cache = shard_tree(
-                model.init_cache(shape.global_batch, shape.seq_len),
-                model.cache_specs(shape.global_batch, shape.seq_len,
-                                  long_context=long_ctx))
+            specs = model.cache_specs(shape.global_batch, shape.seq_len,
+                                      long_context=long_ctx)
+            step = make_serve_step(model, specs)
+            cache = model.init_cache(shape.global_batch, shape.seq_len,
+                                     specs)
             # the rank's rows, as the cache's batch dimension resolves
             rows = shard_tree({"r": torch.empty(shape.global_batch,
                                                 device="meta")},

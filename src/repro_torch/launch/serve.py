@@ -12,6 +12,9 @@
         --device cpu --fleet 2 --fleet-workers 2
     PYTHONPATH=src python -m repro_torch.launch.serve --fivm \
         [--device cpu] [--fivm-features 256 --fivm-capacity 1048576]
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.serve --mesh local --model-parallel 4 \
+        --arch h2o-danube-1.8b --rules '{"cache_seq": "model"}'
 
 Runs on the card unless ``--device cpu`` is given.  Weights are random,
 drawn from ``--seed``.  The recurrent families (zamba2, xlstm) prefill
@@ -25,11 +28,20 @@ fleet's stats.  ``--fivm`` serves the learning views
 (:mod:`repro_torch.fivm`) instead of generating tokens: a gram ring at
 ``order=2`` (ingest banks, each read folds and re-solves), then the same
 ring shape as a fleet tenant with its staleness against the SLO.
+
+``--mesh local`` serves on every rank of the world, ``--model-parallel``
+of them a model group, as ``launch/train.py`` joins it (torchrun's
+environment, or ``--init-method`` with ``--world-size`` and ``--rank``):
+each rank holds its blocks of the params and of the decode cache, under
+``--rules`` (a JSON object over the default placement rules, e.g.
+``{"cache_seq": "model"}``, which splits the cache's slots over the
+model axis), and rank 0 prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import Optional, Sequence
 
@@ -145,7 +157,48 @@ def serve_fivm(args) -> None:
         fleet.stop()
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def serve_mesh(args) -> np.ndarray:
+    """``--mesh local``: the same generation on a mesh of the world's
+    ranks, each holding its blocks of the params and the cache; the
+    tokens, the same on every rank."""
+    import torch.distributed as dist
+    from ..dist.ivm_shard import mesh_device
+    from ..dist.sharding import shard_tree, use_sharding
+    from .train import _join_world
+    mesh = _join_world(args)
+    try:
+        cfg = resolve_config(args)
+        model = LM(cfg, device=mesh_device(mesh))
+        rules = json.loads(args.rules) if args.rules else None
+        max_seq = args.max_seq or args.prompt_len + args.max_new
+        rng = np.random.default_rng(args.seed)
+        prompts = rng.integers(1, cfg.vocab, size=(args.batch,
+                                                   args.prompt_len)
+                               ).astype(np.int32)
+        with use_sharding(mesh, rules):
+            gen = torch.Generator(device=model.device).manual_seed(
+                args.seed)
+            params = shard_tree(model.init(gen), model.param_specs())
+            eng = ServeEngine(model, params, batch_size=args.batch,
+                              max_seq=max_seq, temperature=args.temperature,
+                              seed=args.seed)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = eng.generate(prompts, max_new=args.max_new)
+            dt = time.perf_counter() - t0
+        if dist.get_rank() == 0:
+            print(f"[serve] {cfg.name} on mesh "
+                  f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, rules "
+                  f"{rules}: generated {out.shape} in {dt:.2f}s "
+                  f"({out.size / dt:.1f} tok/s)")
+            print(out[:, :12])
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Optional[np.ndarray]:
+    """The CLI; returns the generated tokens (None for ``--fivm``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="custom-10m")
     ap.add_argument("--reduced", action="store_true")
@@ -180,11 +233,27 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--fivm-capacity", type=int, default=256)
     ap.add_argument("--fivm-bursts", type=int, default=8)
     ap.add_argument("--fivm-burst-size", type=int, default=48)
+    ap.add_argument("--mesh", choices=["none", "local"], default="none",
+                    help="local: every rank of the world, data-major")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks of a model group on --mesh local")
+    ap.add_argument("--rules", default=None,
+                    help="placement rules over the defaults on --mesh "
+                         "local, JSON, e.g. '{\"cache_seq\": \"model\"}'")
+    ap.add_argument("--init-method", default=None,
+                    help="the world's store (file://...); default: "
+                         "torchrun's environment")
+    ap.add_argument("--world-size", type=int, default=1)
+    ap.add_argument("--rank", type=int, default=0)
     args = ap.parse_args(argv)
 
     if args.fivm:
         serve_fivm(args)
         return
+    if args.mesh == "local":
+        if args.logit_view or args.fleet:
+            raise SystemExit("--logit-view and --fleet serve on one device")
+        return serve_mesh(args)
 
     cfg = resolve_config(args)
     model = LM(cfg, device=args.device)
@@ -218,6 +287,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     print(f"[serve] {cfg.name} on {model.device}: generated {out.shape} in "
           f"{dt:.2f}s ({out.size / dt:.1f} tok/s)")
     print(out[:, :12])
+    return out
 
 
 if __name__ == "__main__":

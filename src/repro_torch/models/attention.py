@@ -15,6 +15,16 @@ cut: with fewer of them than model ranks they stay replicated
 (``dist.sharding.aligned_spec``), and a rank's query heads take their KV
 heads by global index (``head // group``).  The decode cache keeps every
 KV head on every rank (the reference's placement).
+
+Under the ``"seq_sp"`` rule (``seq=True``) the block's input is the
+rank's positions of the sequence: it is gathered whole where the model
+region starts (``gather_from_seq``, in place of ``copy_to_model``) and
+``wo``'s partial outputs are reduce-scattered back to the rank's
+positions (``reduce_scatter_to_seq``, in place of the reduce).  Under
+the ``"cache_seq"`` rule the decode cache holds the rank's block of
+slots with every KV head; each rank attends over its valid slots with
+every query head (``flash_decode_lse``) and the partials merge by their
+log-sum-exp over the rule's axes (``merge_decode_partials``).
 """
 
 from __future__ import annotations
@@ -23,7 +33,10 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..dist.sharding import copy_to_model, reduce_from_model, split_offset
+from ..dist.sharding import (MODEL, copy_to_model, current_ctx, gather,
+                             gather_from_seq, merge_decode_partials,
+                             params_to_model, reduce_from_model,
+                             reduce_scatter_to_seq, seq_block, split_offset)
 from ..kernels import ops
 from . import layers
 
@@ -101,44 +114,61 @@ def _rank_kv(k: Tensor, v: Tensor, q_lo: int, heads: int, group: int
 
 def attention_block(params: Dict[str, Tensor], cfg, x: Tensor,
                     positions: Tensor, *, causal: bool = True,
-                    prefix_len: int = 0, return_kv: bool = False):
+                    prefix_len: int = 0, return_kv: bool = False,
+                    seq: bool = False):
     """Full-sequence attention (forward, prefill): x (B,S,D) → (B,S,D).
 
-    ``return_kv=True`` also returns the rope'd (k, v), so a batched
-    prefill fills the decode cache in the same pass.  ``prefix_len`` keys
-    the first positions bidirectionally under the causal mask.
+    ``return_kv=True`` also returns the rope'd (k, v) of every KV head,
+    so a batched prefill fills the decode cache in the same pass.
+    ``prefix_len`` keys the first positions bidirectionally under the
+    causal mask.
 
     On a mesh with the heads split (``wq`` narrower than ``H·hd``) the
     block runs this rank's heads and sums the partial outputs of ``wo``
     over the model axis; replicated ``wk``/``wv`` (and biases) then enter
     the model region too, since each rank reads only its heads' part of
-    them.  ``return_kv`` gives the k/v that the rank's kernel read.
+    them.  ``return_kv`` gathers split k/v over the model axis.
+
+    ``seq``: x (B, S/m, D) is the rank's positions (the ``"seq_sp"``
+    rule), gathered whole on entry, and the output is the rank's
+    positions: ``wo``'s partials reduce-scattered, or, where the heads
+    are not split, the rank's slice of the whole output, the params then
+    entering the model region (each rank's gradient is its positions'
+    part).
     """
     hd = cfg.resolved_head_dim
     heads = params["wq"].shape[1] // hd
     split = heads != cfg.n_heads
+    kv_whole = params["wk"].shape[1] == cfg.n_kv_heads * hd
     if split:
         _, q_lo = split_offset(heads, cfg.n_heads)
-        x = copy_to_model(x)
-        kv_whole = params["wk"].shape[1] == cfg.n_kv_heads * hd
+        x = gather_from_seq(x, 1) if seq else copy_to_model(x)
         if kv_whole:
             params = dict(params, **{
                 name: copy_to_model(params[name])
                 for name in ("wk", "wv", "bk", "bv") if name in params})
+    elif seq:
+        x = gather_from_seq(x, 1)
+        params = params_to_model(params)
     q, k, v = _project_qkv(params, cfg, x)
     cos, sin = layers.rope_angles(positions, hd, cfg.rope_theta)
     q = layers.apply_rope(q, cos, sin)
     k = layers.apply_rope(k, cos, sin)
+    kv = (k, v)
     if split and kv_whole:
         k, v = _rank_kv(k, v, q_lo, heads, cfg.n_heads // cfg.n_kv_heads)
+    elif return_kv and not kv_whole:
+        kv = (gather(k, 2, MODEL), gather(v, 2, MODEL))
     out = ops.flash_attention(q, k, v, causal=causal,
                               window=cfg.sliding_window,
                               prefix_len=prefix_len)
     out = out.reshape(x.shape[0], x.shape[1], -1) @ params["wo"]
     if split:
-        out = reduce_from_model(out)
+        out = reduce_scatter_to_seq(out, 1) if seq else reduce_from_model(out)
+    elif seq:
+        out = seq_block(out, 1)
     if return_kv:
-        return out, (k, v)
+        return out, kv
     return out
 
 
@@ -177,7 +207,8 @@ def cache_slot(cfg, cache_len: int, pos: int) -> Tuple[int, int]:
 
 def decode_attention(params: Dict[str, Tensor], cfg, x: Tensor,
                      cache: Dict[str, Tensor], slot: int, pos: Tensor,
-                     n_valid: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
+                     n_valid: Tensor, seq: Tuple[str, ...] = ()
+                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One-token decode. x (B, 1, D); cache k/v (B, L, KV, hd); ``slot``
     the host int :func:`cache_slot` gives for this position; ``pos`` (1,)
     and ``n_valid`` () int tensors on x's device, made once per step by
@@ -194,6 +225,9 @@ def decode_attention(params: Dict[str, Tensor], cfg, x: Tensor,
     reference's ``cache_axes`` split only its batch): replicated
     ``wk``/``wv`` write all of them and the rank's heads read theirs
     (:func:`_rank_kv`); split ones write and read the rank's own.
+
+    ``seq``: the mesh axes the cache's slots split over (the
+    ``"cache_seq"`` rule): see :func:`_decode_slots`.
     """
     b = x.shape[0]
     hd = cfg.resolved_head_dim
@@ -204,6 +238,13 @@ def decode_attention(params: Dict[str, Tensor], cfg, x: Tensor,
     q = layers.apply_rope(q, cos, sin)
     k = layers.apply_rope(k, cos, sin)
     kc, vc = cache["k"], cache["v"]
+    if seq:
+        out = _decode_slots(q, k, v, kc, vc, cfg, slot, n_valid, seq)
+        if split:
+            _, q_lo = split_offset(heads, cfg.n_heads)
+            out = out[:, q_lo:q_lo + heads]
+        out = out.to(x.dtype).reshape(b, 1, heads * hd) @ params["wo"]
+        return (reduce_from_model(out) if split else out), cache
     if k.shape[2] == cfg.n_kv_heads:
         kc[:, slot] = k[:, 0]
         vc[:, slot] = v[:, 0]
@@ -222,3 +263,30 @@ def decode_attention(params: Dict[str, Tensor], cfg, x: Tensor,
     if split:
         out = reduce_from_model(out)
     return out, cache
+
+
+def _decode_slots(q: Tensor, k: Tensor, v: Tensor, kc: Tensor, vc: Tensor,
+                  cfg, slot: int, n_valid: Tensor, seq: Tuple[str, ...]
+                  ) -> Tensor:
+    """The decode step's attention of every query head over a cache whose
+    slots split over the mesh axes ``seq``: this rank holds the slots
+    ``[r L/n, (r+1) L/n)`` of each (B, L, KV, hd) cache, every KV head.
+    The token's k/v (gathered over the model axis where ``wk``/``wv`` are
+    split) go to the global ``slot`` on the rank that holds it; the
+    rank's query heads are gathered to all H; each rank attends over its
+    valid slots, ``clamp(n_valid - r L/n, 0, L/n)`` (read on the card,
+    0 on a rank past them), and the ranks' partials merge by their
+    log-sum-exp.  Returns (B, H, hd) f32, the same on every rank."""
+    ctx = current_ctx()
+    if k.shape[2] != cfg.n_kv_heads:
+        k, v = gather(k, 2, MODEL), gather(v, 2, MODEL)
+    if q.shape[2] != cfg.n_heads:
+        q = gather(q, 2, MODEL)
+    span = kc.shape[1]
+    lo = ctx.coord(seq) * span
+    if lo <= slot < lo + span:
+        kc[:, slot - lo] = k[:, 0]
+        vc[:, slot - lo] = v[:, 0]
+    local = (n_valid - lo).clamp(0, span)
+    out, lse = ops.flash_decode_lse(q[:, 0].contiguous(), kc, vc, local)
+    return merge_decode_partials(out, lse, seq)

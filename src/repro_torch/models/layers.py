@@ -10,8 +10,9 @@ Under a mesh (``use_sharding``) the params are each rank's local blocks
 and the layers read from their shapes what is split over the ``model``
 axis: the embedding is vocab-parallel, the head leaves its logits
 vocab-sharded, the MLP is column-parallel into ``ff`` and row-parallel
-out of it, with one reduce after, and an RMSNorm over a split width sums
-its squares over the ranks.
+out of it, with one reduce after (a reduce-scatter over the sequence
+under the ``"seq_sp"`` rule), and an RMSNorm over a split width sums its
+squares over the ranks.
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import (copy_to_model, reduce_from_model, split_offset,
+from ..dist.sharding import (copy_to_model, gather_from_seq,
+                             params_to_model, reduce_from_model,
+                             reduce_scatter_to_seq, split_offset,
                              sum_over_model)
 
 Tensor = torch.Tensor
@@ -152,15 +155,23 @@ def axes_mlp(gated: bool) -> Dict:
 
 
 def mlp(params: Dict[str, Tensor], x: Tensor, gated: bool,
-        d_ff: Optional[int] = None) -> Tensor:
+        d_ff: Optional[int] = None, seq: bool = False) -> Tensor:
     """SwiGLU (``gated``) or GeLU MLP.  With ``w_in`` narrower than
     ``d_ff`` (this rank's ``ff`` columns) it runs tensor-parallel: the
     input enters the model region, and the partial outputs of the
-    row-parallel ``w_out`` are summed."""
+    row-parallel ``w_out`` are summed.
+
+    ``seq``: x (B, S/m, D) is the rank's positions (the ``"seq_sp"``
+    rule).  Split, the sequence is gathered whole on entry and the
+    partial outputs reduce-scattered back to the rank's positions; whole,
+    the MLP runs on the rank's positions, its params entering the model
+    region (each rank's gradient is its positions' part)."""
     split = d_ff is not None and params["w_in"].shape[1] != d_ff
     if split:
         split_offset(params["w_in"].shape[1], d_ff)     # checks the block
-        x = copy_to_model(x)
+        x = gather_from_seq(x, 1) if seq else copy_to_model(x)
+    elif seq:
+        params = params_to_model(params)
     h = x @ params["w_in"]
     if gated:
         g = x @ params["w_gate"]
@@ -169,7 +180,9 @@ def mlp(params: Dict[str, Tensor], x: Tensor, gated: bool,
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
     out = h @ params["w_out"]
-    return reduce_from_model(out) if split else out
+    if not split:
+        return out
+    return reduce_scatter_to_seq(out, 1) if seq else reduce_from_model(out)
 
 
 # -- linear frontend projector (VLM patch / audio frame stubs) ------------------

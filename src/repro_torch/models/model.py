@@ -33,7 +33,11 @@ mesh (``dist.sharding``), the recurrent blocks and states by whole heads
 (:meth:`LM.placement`).  Under ``use_sharding`` every method takes each
 rank's local blocks and runs explicit SPMD: tensor and expert
 parallelism on the ``model`` axis, the batch split over the data axes;
-:meth:`LM.loss` gives the global batch's value on every rank.
+:meth:`LM.loss` gives the global batch's value on every rank.  The
+``"seq_sp"`` rule splits the transformer families' residual stream over
+the sequence between blocks (:meth:`LM.backbone`), and the
+``"cache_seq"`` rule the decode cache's slots (:meth:`LM.cache_specs`,
+:meth:`LM.decode_step`).
 """
 
 from __future__ import annotations
@@ -49,7 +53,9 @@ from ..core.runtime import resolve_device
 from ..dist import sharding
 from ..dist.sharding import (MODEL, P, aligned_spec, all_reduce,
                              batch_mean, current_ctx, gather_from_data,
-                             map_axes, reduce_from_model, spec_axes,
+                             gather_from_seq, map_axes, params_to_model,
+                             reduce_from_model, resolve_spec,
+                             scatter_to_seq, shard_tree, spec_axes,
                              split_offset)
 from . import attention, layers, moe, ssm, xlstm
 
@@ -259,15 +265,18 @@ class LM:
         The layers run tensor parallelism on the ``model`` axis, and the
         ``"fsdp"`` rule's dimensions split over its own axes (the data
         axes), which each block gathers whole before it runs
-        (:meth:`_fsdp_plan`).  Raises for a rule that splits a parameter
-        over another axis (``"fsdp"`` on ``model`` too), and for the
-        ``"seq_sp"`` rule, which the port does not yet honour."""
+        (:meth:`_fsdp_plan`).  The ``"seq_sp"`` rule places no param (it
+        splits activations, :meth:`backbone`).  Raises for a rule that
+        splits a parameter over another axis (``"fsdp"`` on ``model``
+        too), and for ``"seq_sp"`` onto another axis than ``model``,
+        whose reduces it turns into reduce-scatters."""
         ctx = ctx or current_ctx()
-        if ctx.mesh_axes_for("seq_sp"):
+        off_model = set(ctx.mesh_axes_for("seq_sp")) - {MODEL}
+        if off_model:
             raise NotImplementedError(
-                f"the seq_sp rule (onto {ctx.mesh_axes_for('seq_sp')}) is "
-                "not yet ported: the port runs every position of a "
-                "sequence on each rank")
+                f"the seq_sp rule onto {sorted(off_model)}: the port splits "
+                "the sequence over the model axis only, where its "
+                "tensor-parallel reduces become reduce-scatters")
         axes, units = self.placement()
         specs = map_axes(lambda ax, shape, unit: aligned_spec(
             ax, shape, unit, ctx), axes, self.param_shapes(), units)
@@ -346,15 +355,14 @@ class LM:
         hold the rank's heads (:func:`.ssm.placement_mamba2_state`,
         :func:`.xlstm.placement_mlstm_state`).  A sharded decode takes
         ``shard_tree(init_cache(batch, max_seq), cache_specs(batch,
-        max_seq))``, as a sharded step takes its params.  Raises for the
-        ``"cache_seq"`` rule, which the port does not yet honour (each
-        rank's decode writes and reads every slot of its cache)."""
+        max_seq))`` (or ``init_cache(batch, max_seq, specs)``, the rank's
+        block alone), as a sharded step takes its params.  Under the
+        ``"cache_seq"`` rule the KV caches' slots split over its axes
+        where they divide them (the reference's decode_32k on ``model``,
+        long_500k on ``("data", "model")`` where a batch of 1 leaves the
+        data axis free); :meth:`prefill` and :meth:`decode_step` then take
+        these specs."""
         ctx = ctx or current_ctx()
-        if ctx.mesh_axes_for("cache_seq"):
-            raise NotImplementedError(
-                f"the cache_seq rule (onto {ctx.mesh_axes_for('cache_seq')})"
-                " is not yet ported: a decode step writes the slot of its "
-                "position and reads every valid slot on each rank")
         axes = self.cache_axes(long_context)
         units = map_axes(lambda ax: (1,) * len(ax), axes)
         cfg = self.cfg
@@ -419,47 +427,81 @@ class LM:
         return wrapped
 
     def _layer(self, bp: Params, x: Tensor, positions: Tensor, causal: bool,
-               prefix_len: int) -> Tuple[Tensor, Optional[Tensor]]:
-        """One transformer block: attention, then :meth:`_block`."""
+               prefix_len: int, seq: bool = False
+               ) -> Tuple[Tensor, Optional[Tensor]]:
+        """One transformer block: attention, then :meth:`_block`; ``seq``:
+        x is the rank's positions (:meth:`backbone`)."""
         a = attention.attention_block(
             bp["attn"], self.cfg,
-            layers.rmsnorm(bp["ln1"], x, self.cfg.norm_eps), positions,
-            causal=causal, prefix_len=prefix_len)
-        return self._block(bp, x, a, return_aux=True)
+            layers.rmsnorm(_norm(bp["ln1"], seq), x, self.cfg.norm_eps),
+            positions, causal=causal, prefix_len=prefix_len, seq=seq)
+        return self._block(bp, x, a, return_aux=True, seq=seq)
 
     def _block(self, bp: Params, h: Tensor, attn_out: Tensor,
-               return_aux: bool = False) -> Tuple[Tensor, Optional[Tensor]]:
+               return_aux: bool = False, seq: bool = False
+               ) -> Tuple[Tensor, Optional[Tensor]]:
         """The residual tail of a block, after its attention output; with
         ``return_aux`` also the block's router loss (None without MoE)."""
         h = h + attn_out
-        hn = layers.rmsnorm(bp["ln2"], h, self.cfg.norm_eps)
+        hn = layers.rmsnorm(_norm(bp["ln2"], seq), h, self.cfg.norm_eps)
         aux = None
         if "moe" in bp:
-            f = moe.moe_block(bp["moe"], self.cfg, hn, return_aux=return_aux)
+            f = moe.moe_block(bp["moe"], self.cfg, hn, return_aux=return_aux,
+                              seq=seq)
             if return_aux:
                 f, aux = f
             h = h + f
         elif "mlp" in bp:
             h = h + layers.mlp(bp["mlp"], hn, self.cfg.mlp_gated,
-                               self.cfg.d_ff)
+                               self.cfg.d_ff, seq=seq)
         return h, aux
+
+    def _seq_split(self, x: Tensor) -> bool:
+        """Whether the ``"seq_sp"`` rule splits the residual stream x (the
+        rank's rows, (B, S, D)) over the sequence: it maps to the model
+        axis (:meth:`param_specs`) and resolves on the global shape, so an
+        S that the axis does not divide stays whole."""
+        ctx = current_ctx()
+        if ctx.size(ctx.mesh_axes_for("seq_sp")) == 1:
+            return False
+        b, s, d = x.shape
+        spec = resolve_spec(("batch", "seq_sp", None),
+                            (b * ctx.size(ctx.batch_axes), s, d), ctx)
+        return len(spec) > 1 and spec_axes(P(spec[1])) == (MODEL,)
 
     def backbone(self, params: Params, x: Tensor, positions: Tensor, *,
                  causal: bool = True, prefix_len: int = 0
                  ) -> Tuple[Tensor, Tensor]:
         """(B, S, D) → (B, S, D); returns (hidden, aux_loss: the blocks'
-        router losses summed, 0 without MoE)."""
+        router losses summed, 0 without MoE).
+
+        Under the ``"seq_sp"`` rule (Megatron's sequence parallelism, the
+        reference's ``shard(h, "batch", "seq_sp", None)`` between the
+        blocks) the transformer families keep the residual stream split
+        over the sequence between blocks: each rank runs the norms and
+        residual adds on its positions, gathers the sequence before
+        attention and the MLP or MoE, and reduce-scatters their
+        row-parallel outputs; remat saves the block's split input, and
+        the fsdp gathers stay inside the region.  The sequence is
+        gathered whole after the last block.  The hybrid and ssm families
+        ignore the rule, as the reference's backbones for them carry no
+        ``seq_sp`` annotation."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "hybrid":
             return self._zamba_backbone(params, x, positions, causal), aux
         if cfg.family == "ssm":
             return self._xlstm_backbone(params, x), aux
+        seq = self._seq_split(x)
+        if seq:
+            x = scatter_to_seq(x, 1)
         layer = self._remat(self._gathering(self._layer, "blocks"))
         for bp in self._blocks(params):
-            x, block_aux = layer(bp, x, positions, causal, prefix_len)
+            x, block_aux = layer(bp, x, positions, causal, prefix_len, seq)
             if block_aux is not None:
                 aux = aux + block_aux
+        if seq:
+            x = gather_from_seq(x, 1, summed=False)
         return x, aux
 
     def _mamba(self, bp: Params, x: Tensor) -> Tensor:
@@ -625,7 +667,8 @@ class LM:
             raise ValueError(f"{self.cfg.name} ({self.cfg.family}) is an "
                              f"encoder: it has no {what}")
 
-    def init_cache(self, batch: int, max_seq: int) -> Params:
+    def init_cache(self, batch: int, max_seq: int,
+                   specs: Optional[Params] = None) -> Params:
         """The zeroed decode cache, leaves stacked as the params are:
 
         - transformer families: {"kv": {"k", "v"}}, (n_layers, B, L, KV,
@@ -636,8 +679,17 @@ class LM:
           tail;
         - ssm: {"mlstm": {"conv", "s", "n", "m"}} (G, per, B, ...) and
           {"slstm": {"c", "n", "h", "m"}} (G, B, D).
+
+        With ``specs`` (:meth:`cache_specs` of the same ``batch`` and
+        ``max_seq``) the rank's block of each leaf alone, zeroed, as
+        ``shard_tree`` would cut the whole cache.
         """
         self._check_decoder("decode cache")
+        if specs is not None:
+            local = shard_tree(LM(self.cfg, device="meta").init_cache(
+                batch, max_seq), specs)
+            return map_axes(lambda _, x: torch.zeros(
+                x.shape, dtype=x.dtype, device=self.device), specs, local)
         cfg, dt, dev = self.cfg, self.dtype, self.device
         if cfg.family == "ssm":
             groups, per = self._xlstm_layout()
@@ -657,12 +709,30 @@ class LM:
             cache["mamba_tail"] = _stacked_zeros(state, (tail,))
         return cache
 
-    def prefill(self, params: Params, batch: Dict, max_seq: int
-                ) -> Tuple[Tensor, Params]:
+    def _cache_seq(self, specs: Optional[Params]) -> Tuple[str, ...]:
+        """The mesh axes the KV caches' slots split over, read from the
+        cache's ``specs`` (:meth:`cache_specs`; a local cache no longer
+        says what divided).  Without them, none; that raises under an
+        active ``"cache_seq"`` rule."""
+        if specs is None:
+            ctx = current_ctx()
+            if ctx.size(ctx.mesh_axes_for("cache_seq")) > 1:
+                raise ValueError(
+                    "the cache_seq rule may split the decode cache's slots: "
+                    "pass the cache's specs (LM.cache_specs)")
+            return ()
+        return _dim_axes(specs["kv"]["k"], 2)
+
+    def prefill(self, params: Params, batch: Dict, max_seq: int,
+                specs: Optional[Params] = None) -> Tuple[Tensor, Params]:
         """One full forward pass that also fills the decode cache
         (bidirectional over a vlm's image prefix).
 
         Returns (logits (B, S, V), cache ready for decode at pos = S).
+        On a mesh ``batch`` holds the rank's rows; with ``specs``
+        (:meth:`cache_specs` of the global batch and ``max_seq``, needed
+        under the ``"cache_seq"`` rule) the cache is the rank's block of
+        them, each rank writing its own slots with every KV head.
         """
         cfg = self.cfg
         self._check_decoder("prefill with a cache")
@@ -673,28 +743,38 @@ class LM:
                 "steps it token by token)")
         x, positions, prefix = self.embed_inputs(params, batch)
         b, s, _ = x.shape
-        cache = self.init_cache(b, max_seq)
+        seq = self._cache_seq(specs)
+        if specs is None:
+            cache = self.init_cache(b, max_seq)
+        else:
+            rows = current_ctx().size(_dim_axes(specs["kv"]["k"], 1))
+            cache = self.init_cache(b * rows, max_seq, specs)
         kc, vc = cache["kv"]["k"], cache["kv"]["v"]
-        cache_len = kc.shape[2]
+        span = kc.shape[2]
+        cache_len = span * current_ctx().size(seq)
         if cfg.sliding_window is not None and s > cache_len:
             raise NotImplementedError(
                 "SWA ring-cache prefill beyond the window: decode the "
                 "overflow stepwise")
         take = min(s, cache_len)
+        # this rank's slots [lo, hi) of the first `take`
+        lo = current_ctx().coord(seq) * span
+        hi = min(take, lo + span)
         for i, bp in enumerate(self._blocks(params)):
             bp = self._gather(bp, "blocks")
             a, (k, v) = attention.attention_block(
                 bp["attn"], cfg, layers.rmsnorm(bp["ln1"], x, cfg.norm_eps),
                 positions, causal=True, prefix_len=prefix, return_kv=True)
             # the rope'd K/V of the last `take` positions, from slot 0
-            kc[i, :, :take] = k[:, s - take:]
-            vc[i, :, :take] = v[:, s - take:]
+            if hi > lo:
+                kc[i, :, :hi - lo] = k[:, s - take + lo:s - take + hi]
+                vc[i, :, :hi - lo] = v[:, s - take + lo:s - take + hi]
             x, _ = self._block(bp, x, a)
         x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return self.logits(params, x), cache
 
-    def decode_step(self, params: Params, cache: Params, token, pos: int
-                    ) -> Tuple[Tensor, Params]:
+    def decode_step(self, params: Params, cache: Params, token, pos: int,
+                    specs: Optional[Params] = None) -> Tuple[Tensor, Params]:
         """One decode step. token (B, 1) ints; pos an int.  Writes the
         token's k/v and the recurrent states into ``cache`` in place, so
         its storage stays fixed from step to step.  Returns (logits
@@ -702,7 +782,10 @@ class LM:
 
         The position and the valid slot count go to the device once per
         step, in one int32 tensor, which every attention layer's rope and
-        flash-decode kernel read there."""
+        flash-decode kernel read there.  ``specs``: the cache's placement
+        (:meth:`cache_specs`), needed under the ``"cache_seq"`` rule, where
+        each rank holds a block of the slots
+        (:func:`.attention._decode_slots`)."""
         cfg = self.cfg
         self._check_decoder("decode step")
         x = self._embed_tokens(params, torch.as_tensor(token,
@@ -712,7 +795,9 @@ class LM:
         else:
             kc, vc = cache["kv"]["k"], cache["kv"]["v"]
             pos = int(pos)
-            slot, n_valid = attention.cache_slot(cfg, kc.shape[2], pos)
+            seq = self._cache_seq(specs)
+            slot, n_valid = attention.cache_slot(
+                cfg, kc.shape[2] * current_ctx().size(seq), pos)
             step = torch.tensor([pos, n_valid], dtype=torch.int32,
                                 device=self.device)
 
@@ -720,7 +805,7 @@ class LM:
                 a, _ = attention.decode_attention(
                     bp["attn"], cfg,
                     layers.rmsnorm(bp["ln1"], x, cfg.norm_eps),
-                    {"k": kc[i], "v": vc[i]}, slot, step[:1], step[1])
+                    {"k": kc[i], "v": vc[i]}, slot, step[:1], step[1], seq)
                 return self._block(bp, x, a)[0]
 
             if cfg.family == "hybrid":
@@ -803,6 +888,19 @@ def _cross_entropy(logits: Tensor, targets: Tensor,
         [torch.exp(logits - top[..., None]).sum(dim=-1),
          true * inside.float()]))
     return torch.log(sums[0]) + top - sums[1]
+
+
+def _norm(params: Params, seq: bool) -> Params:
+    """An RMSNorm's params for a block; under the ``"seq_sp"`` rule
+    (``seq``) each rank reads them on its positions only, so they enter
+    the model region (their gradient summed over its ranks)."""
+    return params_to_model(params) if seq else params
+
+
+def _dim_axes(spec, dim: int) -> Tuple[str, ...]:
+    """The mesh axes a PartitionSpec splits dimension ``dim`` over (()
+    where it leaves it whole, trailing Nones included)."""
+    return spec_axes(P(spec[dim])) if dim < len(spec) else ()
 
 
 def _place(axes: Dict, units: Dict, path: Tuple[str, ...],

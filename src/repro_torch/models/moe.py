@@ -21,7 +21,11 @@ specs.  Either way the combine is ONE reduce over ``model``.  Capacity
 is per data shard (``C_local`` from ``T_local``), and the aux loss is
 each shard's own, averaged over the shards by ``LM.loss``: with data
 parallelism, drops and aux follow the reference's per-shard semantics,
-not the single-device values.
+not the single-device values.  Under the ``"seq_sp"`` rule the block
+takes the rank's positions: it routes them, gathers the sequence and
+its routing for the dispatch, and reduce-scatters the combine back to
+the rank's positions (:func:`_moe_seq`); capacity and aux are the same
+as without the rule.
 
 The reference writes a dropped pair to slot ``E * cap`` and an unfilled
 slot's output to token ``T``, one past the end, under ``mode="drop"``;
@@ -38,7 +42,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import copy_to_model, reduce_from_model, split_offset
+from ..dist.sharding import (MODEL, copy_to_model, gather, gather_from_seq,
+                             params_to_model, reduce_from_model,
+                             reduce_scatter_to_seq, seq_block, split_offset)
 from . import layers
 
 Tensor = torch.Tensor
@@ -150,35 +156,28 @@ def _combine(out_buf: Tensor, tok_of_slot: Tensor, prob_of_slot: Tensor,
     return out[:t]
 
 
+def _shared_product(xt: Tensor, shared: Dict) -> Tensor:
+    """The shared experts' SwiGLU, ungated: (T, D) f32."""
+    h = xt @ shared["w_in"]
+    g = xt @ shared["w_gate"]
+    h = F.silu(g.float()).to(h.dtype) * h
+    return (h @ shared["w_out"]).float()
+
+
 def _shared_expert(xt: Tensor, xt_f32: Tensor, shared: Dict,
                    shared_gate: Tensor, partial: bool = False) -> Tensor:
     """The shared experts' SwiGLU, gated by sigmoid(x · shared_gate): (T,
     D) f32.  ``partial``: this rank's ``shared_d_ff`` columns, so its
     part of a sum; the gate, computed whole, enters the model region."""
-    h = xt @ shared["w_in"]
-    g = xt @ shared["w_gate"]
-    h = F.silu(g.float()).to(h.dtype) * h
-    sh = (h @ shared["w_out"]).float()
     gate = torch.sigmoid(xt_f32 @ shared_gate)
-    return sh * (copy_to_model(gate) if partial else gate)
+    return _shared_product(xt, shared) * (copy_to_model(gate) if partial
+                                          else gate)
 
 
-def moe_block(params: Dict, cfg, x: Tensor, return_aux: bool = False):
-    """x (B, S, D) → (B, S, D) [, the load-balancing loss (f32 scalar)].
-
-    The experts' local shapes say how they are placed: ``w_in`` holding
-    fewer than E experts is this rank's run of them (expert parallel),
-    a narrower ``expert_d_ff`` is this rank's columns of every expert.
-    The parts computed from split weights are partial sums, summed by one
-    reduce; their inputs (the tokens, the routing weights, the shared
-    gate) enter the model region, so that their gradients are summed
-    too."""
-    b, s, d = x.shape
+def _placement(params: Dict, cfg) -> Tuple[int, bool, bool, bool]:
+    """(the rank's first expert, routed experts split, a shared expert,
+    shared expert split) from the local shapes."""
     e = cfg.moe
-    t = b * s
-    xt = x.reshape(t, d)
-    xt_f32 = xt.float()
-    top_p, top_e, probs = _route(xt_f32, params["router"], cfg)
     n_local, ff_local = params["w_in"].shape[0], params["w_in"].shape[2]
     _, offset = split_offset(n_local, e.n_experts)
     split_offset(ff_local, e.expert_d_ff)               # checks the block
@@ -187,6 +186,39 @@ def moe_block(params: Dict, cfg, x: Tensor, return_aux: bool = False):
     shared_split = bool(shared) and shared["w_in"].shape[1] != e.shared_d_ff
     if shared_split:
         split_offset(shared["w_in"].shape[1], e.shared_d_ff)
+    return offset, routed_split, bool(shared), shared_split
+
+
+def _aux(top_e: Tensor, pe: Tensor, cfg) -> Tensor:
+    """The load-balancing loss from the top choices and the mean router
+    probabilities ``pe``."""
+    e = cfg.moe
+    me = F.one_hot(top_e, e.n_experts).float().mean(dim=(0, 1))
+    return e.n_experts * (me * pe).sum() * e.router_aux_loss
+
+
+def moe_block(params: Dict, cfg, x: Tensor, return_aux: bool = False,
+              seq: bool = False):
+    """x (B, S, D) → (B, S, D) [, the load-balancing loss (f32 scalar)].
+
+    The experts' local shapes say how they are placed: ``w_in`` holding
+    fewer than E experts is this rank's run of them (expert parallel),
+    a narrower ``expert_d_ff`` is this rank's columns of every expert.
+    The parts computed from split weights are partial sums, summed by one
+    reduce; their inputs (the tokens, the routing weights, the shared
+    gate) enter the model region, so that their gradients are summed
+    too.  ``seq``: x (B, S/m, D) is the rank's positions (the
+    ``"seq_sp"`` rule, :func:`_moe_seq`)."""
+    if seq:
+        return _moe_seq(params, cfg, x, return_aux)
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    xt_f32 = xt.float()
+    top_p, top_e, probs = _route(xt_f32, params["router"], cfg)
+    n_local = params["w_in"].shape[0]
+    offset, routed_split, _, shared_split = _placement(params, cfg)
+    shared = params.get("shared")
     # one entry into the model region for everything split
     xc = copy_to_model(xt) if routed_split or shared_split else xt
     if routed_split:
@@ -210,6 +242,63 @@ def moe_block(params: Dict, cfg, x: Tensor, return_aux: bool = False):
     out = out.to(x.dtype).view(b, s, d)
     if not return_aux:
         return out
-    me = F.one_hot(top_e, e.n_experts).float().mean(dim=(0, 1))
-    pe = probs.mean(dim=0)
-    return out, e.n_experts * (me * pe).sum() * e.router_aux_loss
+    return out, _aux(top_e, probs.mean(dim=0), cfg)
+
+
+def _moe_seq(params: Dict, cfg, x: Tensor, return_aux: bool):
+    """:func:`moe_block` on the rank's positions x (B, S/m, D) of a
+    sequence split over the model axis.  Each rank routes its positions
+    (the router, read on every rank's own positions, enters the model
+    region); the sequence and its routing weights are gathered whole for
+    the dispatch, whose capacity is the whole sequence's, as without the
+    rule; split experts' partial outputs (and a split shared expert's)
+    are reduce-scattered to the rank's positions, whole ones computed on
+    every rank and sliced.  A whole shared expert and the shared gate run
+    on the rank's positions.  The aux loss takes the gathered choices and
+    the router probabilities summed over the ranks (forward only: each
+    rank's positions send back their own gradient)."""
+    b, s_loc, d = x.shape
+    e = cfg.moe
+    k = e.top_k
+    offset, routed_split, has_shared, shared_split = _placement(params, cfg)
+    n_local = params["w_in"].shape[0]
+    xl = x.reshape(b * s_loc, d)
+    xl_f32 = xl.float()
+    top_p, top_e, probs = _route(xl_f32, copy_to_model(params["router"]),
+                                 cfg)
+    xs = gather_from_seq(x, 1)
+    s = xs.shape[1]
+    t = b * s
+    xt = xs.reshape(t, d)
+    top_p = gather_from_seq(top_p.view(b, s_loc, k), 1).reshape(t, k)
+    top_e = gather(top_e.view(b, s_loc, k), 1, MODEL).reshape(t, k)
+    experts = [params[name] for name in ("w_in", "w_gate", "w_out")]
+    if not routed_split:
+        experts = [copy_to_model(w) for w in experts]
+    buf, tok_of_slot, prob_of_slot = _dispatch(
+        xt, top_p, top_e, n_local, _capacity(t, cfg), offset)
+    out = _combine(_experts(buf, *experts), tok_of_slot, prob_of_slot, t)
+    shared = params.get("shared")
+    gate_w = copy_to_model(params["shared_gate"]) if has_shared else None
+    sh = None
+    if shared_split:
+        gate = gather_from_seq(torch.sigmoid(xl_f32 @ gate_w).view(
+            b, s_loc, 1), 1).reshape(t, 1)
+        sh = _shared_product(xt, shared) * gate
+    if routed_split:
+        if sh is not None:
+            out = out + sh
+        out = reduce_scatter_to_seq(out.view(b, s, d), 1)
+    else:
+        out = seq_block(out.view(b, s, d), 1)
+        if sh is not None:
+            out = reduce_scatter_to_seq(sh.view(b, s, d), 1) + out
+    if has_shared and not shared_split:
+        whole = _shared_product(xl, params_to_model(shared))
+        out = out + (whole * torch.sigmoid(xl_f32 @ gate_w)).view(
+            b, s_loc, d)
+    out = out.to(x.dtype)
+    if not return_aux:
+        return out
+    pe = reduce_from_model(probs.sum(dim=0)) / t
+    return out, _aux(top_e, pe, cfg)

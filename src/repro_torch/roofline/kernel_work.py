@@ -152,3 +152,16 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     return (4.0 * b * h * hd * slots,
             2.0 * _nbytes(q) + 2.0 * b * slots * kvh * hd
             * k_cache.element_size())
+
+
+def flash_decode_lse(q: torch.Tensor, k_cache: torch.Tensor,
+                     n_valid: Union[int, torch.Tensor]) -> Work:
+    """:func:`flash_decode` over a rank's slots with the row statistics:
+    the same FLOPs; q, the valid slots of both local caches read, out
+    (f32) and lse (f32, B H) written."""
+    b, h, hd = q.shape
+    L, kvh = k_cache.shape[1], k_cache.shape[2]
+    slots = int(n_valid) if isinstance(n_valid, int) else L
+    return (4.0 * b * h * hd * slots,
+            _nbytes(q) + 4.0 * b * h * (hd + 1)
+            + 2.0 * b * slots * kvh * hd * k_cache.element_size())

@@ -16,16 +16,26 @@ deltas enter a tenant's update log through admission control, and reads
 serve the tenant's committed snapshot.  :meth:`ServeEngine.save_checkpoint`
 and :meth:`ServeEngine.restore_checkpoint` persist the weights through a
 :class:`repro_torch.dist.checkpoint.CheckpointManager`.
+
+Made under ``use_sharding(mesh, rules)`` with the rank's local params,
+the engine serves on that mesh (it keeps the placement and installs it
+around each call): the cache is the rank's block of
+``LM.cache_specs(batch_size, max_seq)`` (under the ``"cache_seq"`` rule,
+its block of the slots), each rank runs its rows of the global prompts,
+and the logits are gathered whole, so every rank samples the same
+tokens.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..dist import sharding
 from ..models.model import LM, RECURRENT
 from .incremental_views import IncrementalLogitView
 
@@ -51,10 +61,44 @@ class ServeEngine:
     def __post_init__(self):
         if self.model.cfg.encoder_only:
             raise ValueError("encoder-only model has no decode step")
-        self.cache = self.model.init_cache(self.batch_size, self.max_seq)
+        ctx = sharding.current_ctx()
+        self._ctx = ctx if ctx.mesh is not None else None
+        self._specs = None
+        if self._ctx is not None:
+            self._specs = self.model.cache_specs(self.batch_size,
+                                                 self.max_seq)
+            self._row_spec = sharding.resolve_spec(("batch",),
+                                                   (self.batch_size,))
+        self.cache = self._new_cache()
         self._gen = torch.Generator(device=self.model.device)
         self._gen.manual_seed(self.seed)
         self._pos = 0
+
+    def _new_cache(self):
+        return self.model.init_cache(self.batch_size, self.max_seq,
+                                     self._specs)
+
+    def _placed(self):
+        """The engine's placement, installed for the duration (nothing
+        without a mesh)."""
+        if self._ctx is None:
+            return contextlib.nullcontext()
+        return sharding.installed(self._ctx)
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole (B, ...) batch on a mesh."""
+        if self._ctx is None:
+            return x
+        return sharding.local_block(x, self._row_spec, self._ctx)
+
+    def _whole(self, logits: torch.Tensor) -> torch.Tensor:
+        """A mesh rank's (rows, ..., vocab shard) logits gathered whole."""
+        if self._ctx is None:
+            return logits
+        if logits.shape[-1] != self.model.cfg.vocab:
+            logits = sharding.gather(logits, -1, sharding.MODEL, self._ctx)
+        return sharding.gather(logits, 0,
+                               sharding.spec_axes(self._row_spec), self._ctx)
 
     def prefill(self, prompts) -> torch.Tensor:
         """Fill the cache from the prompts.
@@ -71,27 +115,32 @@ class ServeEngine:
         b, s = prompts.shape
         if b != self.batch_size:
             raise ValueError(f"{b} prompts for {self.batch_size} slots")
-        if self.model.cfg.family not in RECURRENT:
-            logits, self.cache = self.model.prefill(
-                self.params, {"tokens": prompts}, max_seq=self.max_seq)
+        tokens = self._rows(torch.as_tensor(prompts, device=self.model.device))
+        with self._placed():
+            if self.model.cfg.family not in RECURRENT:
+                logits, self.cache = self.model.prefill(
+                    self.params, {"tokens": tokens}, max_seq=self.max_seq,
+                    specs=self._specs)
+                self._pos = s
+                return self._whole(logits[:, -1, :])
+            _zero_(self.cache)
+            for t in range(s):
+                logits, self.cache = self.model.decode_step(
+                    self.params, self.cache, tokens[:, t:t + 1], t,
+                    self._specs)
             self._pos = s
-            return logits[:, -1, :]
-        _zero_(self.cache)
-        tokens = torch.as_tensor(prompts, device=self.model.device)
-        for t in range(s):
-            logits, self.cache = self.model.decode_step(
-                self.params, self.cache, tokens[:, t:t + 1], t)
-        self._pos = s
-        return logits[:, 0, :]
+            return self._whole(logits[:, 0, :])
 
     def decode(self, tokens) -> torch.Tensor:
         """One decode step for the whole batch at the current position:
         tokens (B,) → logits (B, V)."""
-        tokens = torch.as_tensor(tokens, device=self.model.device)
-        logits, self.cache = self.model.decode_step(
-            self.params, self.cache, tokens.reshape(-1, 1), self._pos)
-        self._pos += 1
-        return logits[:, 0, :]
+        tokens = self._rows(torch.as_tensor(tokens, device=self.model.device
+                                            ).reshape(-1, 1))
+        with self._placed():
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache, tokens, self._pos, self._specs)
+            self._pos += 1
+            return self._whole(logits[:, 0, :])
 
     def sample(self, logits: torch.Tensor) -> torch.Tensor:
         """(B, V) logits → (B,) int32 tokens: argmax, or a draw from
@@ -252,7 +301,7 @@ class ServeEngine:
         weights; a stale ``hot_swap`` call now raises instead of silently
         diverging)."""
         self.params = manager.restore(self.params, step=step)
-        self.cache = self.model.init_cache(self.batch_size, self.max_seq)
+        self.cache = self._new_cache()
         self._pos = 0
         self._logit_views.clear()
         self._view_guards.clear()
@@ -283,11 +332,12 @@ def _zero_(tree) -> None:
             leaf.zero_()
 
 
-def make_serve_step(model: LM):
-    """The decode entry point: one token for the whole batch."""
+def make_serve_step(model: LM, cache_specs=None):
+    """The decode entry point: one token for the whole batch
+    (``cache_specs``: the cache's placement, :meth:`LM.decode_step`)."""
 
     def serve_step(params, cache, token, pos):
-        return model.decode_step(params, cache, token, pos)
+        return model.decode_step(params, cache, token, pos, cache_specs)
 
     return serve_step
 

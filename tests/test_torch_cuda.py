@@ -818,6 +818,71 @@ def test_flash_decode_replays_in_a_cuda_graph(cuda, dtype):
                                    **ATTN_TOL[dtype])
 
 
+# (b, L, h, kvh, hd, n_valid): danube's heads at 22g's per-rank shape (a
+# quarter of a 4096-slot ring, 8 rows), a rank past every valid slot
+# (n_valid 0), qwen1.5-32b's and command-r-plus-104b's heads, head dim 256
+# and 64, a ragged L and a group of 16
+_DECODE_LSE = [(8, 1024, 32, 8, 80, 1024), (8, 1024, 32, 8, 80, 0),
+               (2, 2048, 40, 40, 128, 1500), (2, 512, 96, 8, 128, 1),
+               (2, 264, 8, 1, 256, 200), (4, 300, 32, 32, 64, 299),
+               (2, 77, 16, 1, 32, 33)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,L,h,kvh,hd,n_valid", _DECODE_LSE)
+def test_flash_decode_lse_kernel_matches_plain(cuda, dtype, b, L, h, kvh, hd,
+                                               n_valid):
+    """The LSE entry (flash_decode_fwd_lse) against ref.flash_decode_lse,
+    n_valid read on the card: out in f32 and lse within 2e-4 (the
+    output is the merge's quotient unrounded: the scores' products are
+    exact in f32, p carries about 24 bits), one launch; n_valid 0 gives
+    out 0 and lse -inf; the output rounded to the cache's type is
+    flash_decode's bit for bit (the same split pass and merge)."""
+    q, k, v = _decode_inputs(cuda, dtype, b, L, h, kvh, hd, L + h + n_valid)
+    n = torch.tensor(n_valid, dtype=torch.int32, device=cuda)
+    before = cuda_fd.LAUNCHES["flash_decode_lse"]
+    out, lse = ops.flash_decode_lse(q, k, v, n)
+    assert cuda_fd.LAUNCHES["flash_decode_lse"] == before + 1
+    assert out.dtype == lse.dtype == torch.float32
+    assert lse.shape == (b, h)
+    want, want_lse = ref.flash_decode_lse(q, k, v, n_valid)
+    if n_valid == 0:
+        assert torch.equal(out, torch.zeros_like(out))
+        assert torch.isneginf(lse).all()
+        return
+    _close(out, want)
+    _close(lse, want_lse)
+    assert torch.equal(out.to(dtype), ops.flash_decode(q, k, v, n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_valid", [1, 1500, 4096])
+def test_cache_seq_decode_on_one_rank_matches_whole(cuda, dtype, n_valid):
+    """The cache_seq decode's arithmetic on one card: danube's 4096-slot
+    ring split in four blocks of slots, as model = 4 splits it, each
+    block's LSE entry over clamp(n_valid - lo, 0, 1024) valid slots (0
+    past them: at n_valid 1 three blocks hold none), merged by
+    dist.sharding.merge_partials in rank order, against flash_decode over
+    the whole cache, 2e-4 in f32 and its bf16 rounding in bf16."""
+    from repro_torch.dist.sharding import merge_partials
+    b, L, h, kvh, hd, ranks = 8, 4096, 32, 8, 80, 4
+    q, k, v = _decode_inputs(cuda, dtype, b, L, h, kvh, hd, 7)
+    n = torch.tensor(n_valid, dtype=torch.int32, device=cuda)
+    span = L // ranks
+    outs, lses = [], []
+    for r in range(ranks):
+        lo = r * span
+        o, l = ops.flash_decode_lse(
+            q, k[:, lo:lo + span].contiguous(),
+            v[:, lo:lo + span].contiguous(), (n - lo).clamp(0, span))
+        outs.append(o)
+        lses.append(l)
+    got = merge_partials(torch.stack(outs), torch.stack(lses))
+    want = ops.flash_decode(q, k, v, n)
+    torch.testing.assert_close(got.to(dtype), want, **ATTN_TOL[dtype])
+    _close(got, ref.flash_decode_lse(q, k, v, n_valid)[0])
+
+
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 8, 4, 80, device=cuda)
     with pytest.raises(TypeError):

@@ -11,9 +11,12 @@ not sum those leaves again.  One spawned world of four ranks
 (4, 1) meshes: every family whose params carry ``"fsdp"`` axes (dense,
 moe, hybrid, ssm) against ``jax.value_and_grad`` and the port's single
 device, a clipped step, compression of leaves split over data and model,
-checkpoints across the rule, a decode, and the gather itself.  The
-``"seq_sp"`` and ``"cache_seq"`` rules are refused at placement.
-Bounds: 1e-5, the port's sharded paths summing in other orders only.
+checkpoints across the rule, a decode, and the gather itself.  The same
+world runs the ``"seq_sp"`` rule (Megatron's sequence parallelism: the
+residual stream split over the sequence between blocks) on (2, 2) and
+(1, 4), against the reference's single device too, and the sequence
+collectives.  Bounds: 1e-5, the port's sharded paths summing in other
+orders only; the seq_sp losses 1e-6.
 """
 
 import json
@@ -115,6 +118,12 @@ def _references(inputs) -> dict:
     compressed, _ = compress_tree(whole, cstate)
     refs["g_hat"] = {k: v.numpy() for k, v in
                      _flat(decompress_tree(compressed))}
+    for label, family, _, positions in w.SEQ_CASES:
+        case = w.seq_case(inputs, family, positions)
+        refs[f"seq_{label}"] = {
+            "jax": _value_and_grad(w.family_cfg(jax_config, family),
+                                   case["params"], case["batch"]),
+            "port": _port_grads(family, case)}
     return refs
 
 
@@ -337,21 +346,112 @@ def _ctx(shape, rules):
     return ShardingCtx(mesh=MeshShape(shape, names), rules=merged)
 
 
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4), (16, 16)])
 @pytest.mark.parametrize("rule", ["seq_sp", "cache_seq"])
-def test_rules_not_yet_ported_are_refused(rule):
-    """``{"seq_sp": ...}`` raises at ``LM.param_specs`` and ``{"cache_seq":
-    ...}`` at ``LM.cache_specs``, before any step or decode runs, each
-    saying that the rule is not yet ported; the default rules and
-    ``{"fsdp": "data"}`` place."""
+def test_sequence_rules_are_placed(rule, shape):
+    """``{"seq_sp": "model"}`` places every param as the default rules do
+    (it splits activations, not params) and raises onto another axis;
+    ``{"cache_seq": "model"}`` puts the KV caches' slots on the model axis
+    where it divides them (64 slots; 30 stay whole), beside the batch on
+    the data axis where that divides it, and the recurrent states of the
+    hybrid keep their placement.  That both rules then run is the world's
+    (``test_seq_sp_*`` here, the cache_seq decode in
+    ``tests/test_torch_lm_shard.py``)."""
     model = LM(get_config("h2o-danube-1.8b").reduced(), device="cpu")
-    ctx = _ctx((2, 2), {rule: "model"})
-    place = (model.param_specs if rule == "seq_sp" else
-             lambda c: model.cache_specs(4, 64, ctx=c))
-    with pytest.raises(NotImplementedError, match=f"{rule} rule .* not yet "
-                       "ported"):
-        place(ctx)
-    for rules in ({}, w.RULES):
-        place(_ctx((2, 2), rules))
+    ctx = _ctx(shape, {rule: "model"})
+    if rule == "seq_sp":
+        assert model.param_specs(ctx) == model.param_specs(_ctx(shape, {}))
+        with pytest.raises(NotImplementedError, match="model axis only"):
+            model.param_specs(_ctx(shape, {rule: "data"}))
+        return
+    data, m = shape
+    for batch, slots in ((4, 64), (4, 30)):
+        spec = model.cache_specs(batch, slots, ctx=ctx)["kv"]["k"]
+        want = (None, "data" if batch % data == 0 else None,
+                "model" if slots % m == 0 else None)
+        while want and want[-1] is None:
+            want = want[:-1]
+        assert tuple(spec) == want, (batch, slots, spec)
+    hybrid = LM(get_config("zamba2-1.2b").reduced(), device="cpu")
+    got = hybrid.cache_specs(4, 64, ctx=ctx)
+    base = hybrid.cache_specs(4, 64, ctx=_ctx(shape, {}))
+    assert got["mamba"] == base["mamba"]
+    assert got["kv"]["k"][3:] == base["kv"]["k"][3:]
+
+
+SEQ_IDS = [case[0] for case in w.SEQ_CASES]
+
+
+def _within_leaf_max(got: dict, want: dict, bound: float) -> None:
+    """Each leaf of ``got`` within ``bound`` of the largest entry of its
+    leaf in ``want``."""
+    got = dict(_flat(got))
+    for k, exp in dict(_flat(want)).items():
+        exp = np.asarray(exp, np.float64)
+        scale = max(float(np.abs(exp).max()), 1e-30)
+        assert float(np.abs(np.asarray(got[k], np.float64) - exp).max()) \
+            <= bound * scale, k
+
+
+@pytest.mark.parametrize("label", SEQ_IDS)
+def test_seq_sp_loss_and_grads_against_the_reference(world, label):
+    """Under ``{"seq_sp": "model"}`` (dense and moe on (2, 2) and (1, 4),
+    the moe with its router loss on (1, 4), 30 positions on (1, 4), the
+    hybrid on (2, 2)): the loss on every rank within 1e-6 of
+    ``jax.value_and_grad``'s, relative, and each gradient leaf, averaged
+    over the data ranks and gathered whole, within 1e-5 of its largest
+    entry."""
+    _, res, _, refs = world
+    loss, grads = refs[f"seq_{label}"]["jax"]
+    for rank in range(w.WORLD):
+        assert abs(res[rank][f"seq_{label}"]["loss"] - loss) \
+            <= 1e-6 * abs(loss)
+    _within_leaf_max(res[0][f"seq_{label}"]["grads"], grads, 1e-5)
+
+
+@pytest.mark.parametrize("label", SEQ_IDS)
+def test_seq_sp_against_single_device_and_its_collectives(world, label):
+    """The same against the port's single device; the sequence's gathers
+    and reduce-scatters add model-axis bytes to the default rules' where
+    the rule splits the sequence, and none where it stays whole (30
+    positions on model = 4) or the backbone ignores it (the hybrid)."""
+    _, res, _, refs = world
+    loss, grads = refs[f"seq_{label}"]["port"]
+    got = res[0][f"seq_{label}"]
+    assert abs(got["loss"] - loss) <= 1e-6 * abs(loss)
+    _within_leaf_max(got["grads"], grads, 1e-5)
+    nbytes, default = got["bytes"], got["default_bytes"]
+    if label in ("dense_14_s30", "hybrid_22"):
+        assert nbytes == default
+    else:
+        assert nbytes["all_gather"] > default["all_gather"]
+        assert nbytes["on_model"] > default["on_model"]
+        assert nbytes.get("on_data") == default.get("on_data")
+
+
+def test_sequence_collectives_forward_and_backward(world):
+    """On (1, 4)'s model axis: scatter_to_seq gives the rank's block and
+    gathers its gradient whole; gather_from_seq the blocks in rank order,
+    its gradient the rank's block of every rank's upstream gradient summed
+    (``summed=False``: of its own); reduce_scatter_to_seq the rank's block
+    of the sum, its gradient gathered."""
+    _, res, _, _ = world
+    j = np.arange(8.0)
+    owner = j // 2
+    for rank in range(w.WORLD):
+        got = res[rank]["seq_collectives"]
+        block = slice(2 * rank, 2 * rank + 2)
+        y, g = got["scatter"]
+        np.testing.assert_array_equal(y[0], j[block] + 10 * rank)
+        np.testing.assert_array_equal(g[0], j * (owner + 1))
+        y, g = got["gather_True"]
+        np.testing.assert_array_equal(y[0], owner + 1)
+        np.testing.assert_array_equal(g[0], j[block] * 10)
+        y, g = got["gather_False"]
+        np.testing.assert_array_equal(g[0], j[block] * (rank + 1))
+        y, g = got["reduce_scatter"]
+        np.testing.assert_array_equal(y[0], j[block] * 10)
+        np.testing.assert_array_equal(g[0], j * (owner + 1))
 
 
 ARCHS = sorted(["h2o-danube-1.8b", "qwen2-moe-a2.7b", "zamba2-1.2b",

@@ -94,8 +94,8 @@ def test_one_rank_mesh_matches_reference(tmp_path, planned):
 
 def test_mesh_device_and_engine_refusals(tmp_path):
     """The mesh picks the device: a disagreeing ``device`` raises, a
-    ``"cuda"`` mesh without a card raises, and no sentinel runs on row
-    blocks."""
+    ``"cuda"`` mesh without a card raises; a drift sentinel is taken (it
+    probes the rank's row blocks)."""
     from repro_torch.guard import GuardConfig, SentinelConfig
 
     class CudaMesh:
@@ -108,9 +108,9 @@ def test_mesh_device_and_engine_refusals(tmp_path):
             IncrementalEngine(prog, mesh=mesh, device="meta")
         assert IncrementalEngine(prog, mesh=mesh,
                                  device="cpu").device.type == "cpu"
-        with pytest.raises(ValueError, match="sentinel"):
-            IncrementalEngine(prog, mesh=mesh, guard=GuardConfig(
-                sentinel=SentinelConfig()))
+        eng = IncrementalEngine(prog, mesh=mesh, guard=GuardConfig(
+            sentinel=SentinelConfig()))
+        assert eng.guard.sentinel is not None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ivm_shard.mesh_device(CudaMesh())
@@ -364,3 +364,41 @@ def test_mesh_keys_and_local_meshes(world4):
     assert res["key"] == ((("rows", 4),), "rows", "cpu", (0, 1, 2, 3))
     assert res["local_mesh"] == res["plan_mesh"]
     assert res["elastic_mesh"] == res["plan_mesh"]
+
+
+@pytest.mark.parametrize("label,n", [("sentinel", w.POWERS_N),
+                                     ("sentinel_ragged", w.RAGGED_N)])
+def test_drift_sentinel_on_four_ranks(world4, label, n):
+    """The drift sentinel on the four-rank engine (row blocks at n = 64;
+    at n = 66 every view replicated, probed whole): every rank reads the
+    same drifts, bit for bit, at every probe, and they are the port's
+    single-device sentinel's within 1e-5 (absolute; the residuals'
+    squares summed over the ranks' rows in another order).  P4 shifted
+    by 0.05 drifts P4 and P8 (whose statement reads P4) past the
+    tolerance on every rank; the recovery re-evaluates both on the mesh
+    in their layout, after which no view drifts and the views match the
+    single device's recovered views and the reference's re-evaluation."""
+    from repro.core import ReevalEngine as JReeval
+    single = w.sentinel_drive(IncrementalEngine(
+        matrix_powers(k=w.POWERS_K, n=n, model="exp"),
+        guard=w.sentinel_guard(), device="cpu"), n)
+    tol = 5e-3                  # SentinelConfig().tol
+    first = world4[0][label]
+    assert first["probes"] == single["probes"] == 2
+    for rank in range(4):
+        got = world4[rank][label]
+        for key in ("stream", "injected", "after"):
+            assert got[key] == first[key], (rank, key)
+            assert set(got[key]) == set(single[key])
+            for view, d in single[key].items():
+                assert abs(got[key][view] - d) <= 1e-5, (rank, key, view)
+        assert got["recovered"] == single["recovered"] == ["P4", "P8"]
+        assert min(got["injected"][v] for v in ("P4", "P8")) > tol
+        assert max(got["after"].values()) < tol
+        rows = n // 4 if n % 4 == 0 else n
+        assert got["local_rows"]["P4"] == got["local_rows"]["P8"] == rows
+    assert max(_rel(first["views"], single["views"]).values()) < SINGLE_TOL
+    ups = w.updates(n, n, 8, seed=1)
+    ree = _jax_reeval(jax_powers(k=w.POWERS_K, n=n, model="exp"),
+                      w.powers_input(n), "A", ups)
+    assert max(_rel(first["views"], _views(ree)).values()) < REEVAL_TOL

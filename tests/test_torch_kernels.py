@@ -16,6 +16,7 @@ import torch
 import repro_torch.core.sherman_morrison as sm
 from repro.kernels import ops as jax_ops
 from repro.kernels.dual_matmul import dual_matmul_pallas
+from repro.kernels.flash_decode import flash_decode_pallas
 from repro.kernels import ref as jax_ref
 from repro.kernels.rank_update_rows import (rank_update_rows_pallas,
                                             rank_update_rows_ref)
@@ -132,6 +133,8 @@ def _entry_call(entry, rng, grad=False):
         "flash_attention_bwd": lambda: cuda_fa.flash_attention_bwd(
             q, q, q, q, q, torch.zeros(1, 2, 8)),
         "flash_decode": lambda: cuda_fd.flash_decode(q[:, 0], q, q, 8),
+        "flash_decode_lse": lambda: cuda_fd.flash_decode_lse(q[:, 0], q, q,
+                                                             8),
         "select_commit": lambda: cuda_sel.select_commit(
             torch.ones(1, dtype=torch.int32), tu, tm[:, :2].contiguous()),
     }
@@ -141,7 +144,7 @@ def _entry_call(entry, rng, grad=False):
 _ENTRIES = ["rank_update", "rank_update_batched", "rank_update_batched_out",
             "rank_update_rows", "dual_matmul", "flash_attention",
             "flash_attention_fwd_lse", "flash_attention_bwd",
-            "flash_decode", "select_commit"]
+            "flash_decode", "flash_decode_lse", "select_commit"]
 # differentiable only through flash_attention's autograd Function
 _RAW_FLASH = ("flash_attention_fwd_lse", "flash_attention_bwd")
 
@@ -403,3 +406,82 @@ def test_sherman_morrison_and_woodbury_match_jax(rng):
     # the delta is the change of the inverse
     assert_close(sm.woodbury(t["w"], t["p"], t["q"]).numpy(),
                  np.linalg.inv(e + p @ q.T), atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the flash-decode kernel's row statistics (kernel 6 with WRITE_LSE)
+# ---------------------------------------------------------------------------
+
+def _pallas_lse(q, k, v, n_valid, chunk):
+    """flash_decode_pallas in interpret mode on one KV head's group:
+    (acc / l, m + log l), the output and row log-sum-exp that its wrapper
+    (src/repro/kernels/ops.py:214) drops to acc / l."""
+    acc, m, l = flash_decode_pallas(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), jnp.int32(n_valid),
+                                    chunk=chunk)
+    return (np.asarray(acc / l), np.asarray(m + jnp.log(l))[:, 0])
+
+
+@pytest.mark.parametrize("g,d,s,chunk,n_valid", [
+    (4, 32, 64, 16, 1), (4, 32, 64, 16, 17), (4, 32, 64, 16, 64),
+    (1, 64, 96, 32, 50), (16, 128, 128, 64, 100)])
+def test_flash_decode_lse_matches_pallas(g, d, s, chunk, n_valid, rng):
+    """ref.flash_decode_lse (the plain version of the CUDA entry
+    flash_decode_fwd_lse) against flash_decode_pallas's (acc / l, m + log
+    l) over ragged valid counts, one KV head's group of g query heads;
+    2e-4 (tests/conftest.py)."""
+    q = rng.normal(size=(g, d)).astype(np.float32)
+    k, v = (rng.normal(size=(s, d)).astype(np.float32) for _ in range(2))
+    out, lse = ops.flash_decode_lse(
+        torch.from_numpy(q)[None], torch.from_numpy(k)[None, :, None],
+        torch.from_numpy(v)[None, :, None],
+        torch.tensor(n_valid, dtype=torch.int32))
+    want_out, want_lse = _pallas_lse(q, k, v, n_valid, chunk)
+    assert out.dtype == lse.dtype == torch.float32
+    assert_close(out[0].numpy(), want_out)
+    assert_close(lse[0].numpy(), want_lse)
+
+
+def test_flash_decode_lse_with_no_valid_slot(rng):
+    """n_valid = 0, as on a rank that holds none of the valid slots: out
+    0 and lse -inf on every row, where the Pallas kernel (whose mask is
+    -1e30, not -inf) has no such row; with one valid slot the same call
+    is that slot's value and score."""
+    q = torch.from_numpy(rng.normal(size=(2, 8, 32)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(2, 16, 2, 32)).astype(
+        np.float32)) for _ in range(2))
+    out, lse = ops.flash_decode_lse(q, k, v, torch.tensor(0,
+                                                          dtype=torch.int32))
+    assert torch.equal(out, torch.zeros_like(out))
+    assert torch.isneginf(lse).all()
+    out, lse = ops.flash_decode_lse(q, k, v, 1)
+    group = q.reshape(2, 2, 4, 32)
+    score = (group * k[:, 0, :, None]).sum(-1).reshape(2, 8) * 32 ** -0.5
+    assert_close(lse.numpy(), score.numpy())
+    assert_close(out.numpy(), v[:, 0].repeat_interleave(4, dim=1).numpy())
+
+
+@pytest.mark.parametrize("n_valid", [3, 40, 64])
+def test_flash_decode_lse_partials_merge_to_the_whole(n_valid, rng):
+    """A cache of 64 slots split in two blocks of 32, as the cache_seq rule
+    splits it over two ranks: each block's (out, lse) over its valid
+    slots, clamp(n_valid - lo, 0, 32) (0 on the second block at 3),
+    merged by their LSE (dist.sharding.merge_partials), against
+    flash_decode_pallas over the whole cache; 2e-4."""
+    from repro_torch.dist.sharding import merge_partials
+    g, d, s = 4, 32, 64
+    q = rng.normal(size=(g, d)).astype(np.float32)
+    k, v = (rng.normal(size=(s, d)).astype(np.float32) for _ in range(2))
+    tq = torch.from_numpy(q)[None]
+    outs, lses = [], []
+    for lo in (0, 32):
+        local = torch.tensor(min(max(n_valid - lo, 0), 32),
+                             dtype=torch.int32)
+        o, l = ops.flash_decode_lse(
+            tq, torch.from_numpy(k[lo:lo + 32])[None, :, None],
+            torch.from_numpy(v[lo:lo + 32])[None, :, None], local)
+        outs.append(o)
+        lses.append(l)
+    got = merge_partials(torch.stack(outs), torch.stack(lses))
+    want, _ = _pallas_lse(q, k, v, n_valid, 16)
+    assert_close(got[0].numpy(), want)

@@ -190,7 +190,32 @@ def _references(inputs) -> dict:
         refs[family] = _value_and_grad(w.family_cfg(jax_config, family),
                                        inputs[family]["params"],
                                        inputs[family]["batch"])
+    for key in ("danube", "qwen2"):
+        for label, k, _, max_seq, prompt, last in w.CACHE_SEQ_CASES:
+            if k == key:
+                refs[f"cache_seq_{key}"] = _jax_decode(
+                    w.cache_seq_cfg(jax_config, key), inputs[key],
+                    max_seq, prompt, last)
+                break
     return refs
+
+
+def _jax_decode(cfg, case, max_seq: int, prompt: int, last: int) -> list:
+    """The reference's single-device prefill of ``prompt`` positions and
+    decode steps up to ``last``: the prefill's last logits, then each
+    step's."""
+    model = jax_build(cfg)
+    params = jax.tree.map(jnp.asarray, case["params"])
+    tokens = jnp.asarray(case["tokens"][:, :last])
+    logits, cache = jax.jit(model.prefill, static_argnums=2)(
+        params, {"tokens": tokens[:, :prompt]}, max_seq)
+    out = [np.asarray(logits[:, -1])]
+    step = jax.jit(model.decode_step)
+    for i in range(prompt, last):
+        logits, cache = step(params, cache, tokens[:, i:i + 1],
+                             jnp.int32(i))
+        out.append(np.asarray(logits[:, 0]))
+    return out
 
 
 # -- the decode step on a mesh ------------------------------------------------
@@ -212,6 +237,78 @@ def test_decode_step_on_a_mesh_matches_single_device(world, key, local_wq,
         got = res[rank][key]
         assert got["local_wq"] == local_wq and got["local_wk"] == local_wk
         assert got["max_diff"] <= 2e-4 * max(got["max_logit"], 1.0)
+
+
+@pytest.mark.parametrize("label", [c[0] for c in w.CACHE_SEQ_CASES])
+def test_cache_seq_decode_matches_the_reference(world, label):
+    """Under ``{"cache_seq": "model"}`` each rank holds a block of the
+    decode cache's slots with every KV head: reduced danube with a
+    16-slot ring on (1, 4) (4 slots a rank) and (2, 2) (8 a rank, two data
+    rows), prefilled with 3 positions (fewer than one rank's slots, so
+    the other ranks hold none valid) and decoded to position 23, past one
+    rank's slots and past the ring's wrap; reduced qwen2-moe's full cache
+    of 12 slots on (1, 4), its KV heads split and gathered for the write.
+    Every step's logits, gathered whole, within 1e-5 of the reference's
+    single-device prefill and ``decode_step`` (of the largest logit, at
+    least 1), greedy tokens equal."""
+    _, res, _, refs = world
+    key = label.split("_")[0]
+    want = refs[f"cache_seq_{key}"]
+    _, _, mesh, max_seq, _, _ = next(c for c in w.CACHE_SEQ_CASES
+                                     if c[0] == label)
+    for rank in range(w.WORLD):
+        got = res[rank][f"cache_seq_{label}"]
+        assert len(got["logits"]) == len(want)
+        for g, e in zip(got["logits"], want):
+            assert np.abs(g - e).max() <= 1e-5 * max(np.abs(e).max(), 1.0)
+            assert np.array_equal(g.argmax(-1), e.argmax(-1))
+        slots = min(max_seq, w.RING_WINDOW) if key == "danube" else max_seq
+        model_ranks = 4 if mesh == "14" else 2
+        assert got["cache_shape"][2] == slots // model_ranks
+        assert got["cache_spec"][2] == "model"
+        # the step's collectives: the merge's all-gather of the partials
+        assert got["step_bytes"]["all_gather"] > 0
+
+
+def test_serve_engine_under_cache_seq(world):
+    """A ServeEngine made under ``{"cache_seq": "model"}`` on (1, 4)
+    serves on the mesh: each rank holds a quarter of the 16-slot ring,
+    and its greedy tokens from 3 prompt positions through 20 new ones
+    (past the ring's wrap) equal the single device's engine's, f32, on
+    every rank; ``launch/serve.py --mesh local --model-parallel 4 --rules
+    '{"cache_seq": "model"}'`` on the four ranks gives the tokens of its
+    single-device run."""
+    from repro_torch.launch import serve as serve_mod
+    _, res, _, _ = world
+    for rank in range(w.WORLD):
+        got = res[rank]["serve"]
+        assert got["cache_block"][2] == w.RING_WINDOW // 4
+        np.testing.assert_array_equal(got["got"], got["want"])
+    want = serve_mod.main(w.serve_cli_args([]))
+    for rank in range(w.WORLD):
+        np.testing.assert_array_equal(res[rank]["serve_cli"], want)
+
+
+@pytest.mark.parametrize("family", sorted(w.FAMILIES))
+def test_vlm_and_audio_under_seq_sp(world, family):
+    """The vlm (an image prefix, attended bidirectionally) and audio (no
+    causal mask) families under ``{"seq_sp": "model"}`` on (2, 2): the
+    loss and gathered gradients against the reference's single device at
+    the default rules' tolerance, and against the default rules' run on
+    the same mesh within 1e-6 (loss, relative) and 1e-5 of each leaf's
+    largest entry."""
+    _, res, _, refs = world
+    loss, grads = refs[family]
+    for rank in range(w.WORLD):
+        got = res[rank][f"{family}_seq_sp"]
+        np.testing.assert_allclose(got["loss"], loss, **TOL)
+        base = res[rank][family]
+        assert abs(got["loss"] - base["loss"]) <= 1e-6 * abs(base["loss"])
+    _assert_tree(res[0][f"{family}_seq_sp"]["grads"], grads, **TOL)
+    flat = dict(_flat(res[0][f"{family}_seq_sp"]["grads"]))
+    for k, want in _flat(res[0][family]["grads"]):
+        scale = max(float(np.abs(want).max()), 1e-30)
+        assert float(np.abs(flat[k] - want).max()) <= 1e-5 * scale, k
 
 
 # -- the danube train step on (2, 2) ----------------------------------------

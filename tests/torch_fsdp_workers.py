@@ -6,7 +6,8 @@ reference's params as numpy arrays and the batches) to a pickle; every
 rank reads it, joins a four-rank gloo group through a file store, runs
 each scenario under ``{"fsdp": "data"}`` on the ``(2, 2)`` and ``(4, 1)``
 meshes of that world (and under ``{"fsdp": ("pod", "data")}`` on a
-``(2, 2, 1)`` one), and puts ``(rank, results)`` on a queue: numpy
+``(2, 2, 1)`` one), then the ``"seq_sp"`` cases (``SEQ_CASES``) on
+``(2, 2)`` and ``(1, 4)``, and puts ``(rank, results)`` on a queue: numpy
 arrays gathered whole, and counters.
 """
 
@@ -26,7 +27,19 @@ TOKENS = (8, 32)
 #: the meshes of the world: (shape, axis names)
 MESHES = {"22": ((2, 2), ("data", "model")),
           "41": ((4, 1), ("data", "model")),
+          "14": ((1, 4), ("data", "model")),
           "pod": ((2, 2, 1), ("pod", "data", "model"))}
+SEQ_RULES = {"seq_sp": "model"}
+#: the seq_sp cases: (label, family, mesh, positions of the batch): the
+#: dense and moe families on both meshes, the moe with its router loss on
+#: (1, 4) (one data shard, so the single device's), 30 positions that
+#: model = 4 does not divide (the sequence stays whole), and the hybrid,
+#: whose backbone ignores the rule
+SEQ_CASES = [("dense_22", "dense", "22", 32), ("dense_14", "dense", "14", 32),
+             ("moe_22", "moe", "22", 32), ("moe_14", "moe", "14", 32),
+             ("moe_aux_14", "moe_aux", "14", 32),
+             ("dense_14_s30", "dense", "14", 30),
+             ("hybrid_22", "hybrid", "22", 32)]
 #: the clipped step: a clip so small that the clipped gradients sit below
 #: AdamW's eps, where the update is linear in the clip scale (so a wrong
 #: global norm moves it), at a learning rate that makes it visible
@@ -40,11 +53,23 @@ def family_cfg(get_config, family: str):
     (each data shard's own by design, ``test_moe_capacity_per_data_shard``,
     so it would not equal the single device's) and with room for every
     pair."""
+    if family == "moe_aux":
+        cfg = get_config(FAMILIES["moe"]).reduced()
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
     cfg = get_config(FAMILIES[family]).reduced()
     if family == "moe":
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, router_aux_loss=0.0, capacity_factor=8.0))
     return cfg
+
+
+def seq_case(inputs, family: str, positions: int):
+    """A seq_sp case's (params, batch): its family's (the moe's for
+    ``moe_aux``), the batch cut to ``positions``."""
+    case = inputs["moe" if family == "moe_aux" else family]
+    return {"params": case["params"], "batch": {
+        "tokens": case["batch"]["tokens"][:, :positions]}}
 
 
 def _np(tree):
@@ -79,10 +104,11 @@ def _params(model, case, specs):
                                    specs))
 
 
-def _grads(inputs, family: str, mesh_key: str, rules) -> dict:
+def _grads(inputs, family: str, mesh_key: str, rules, case=None) -> dict:
     """The family's loss and gradients (averaged over the data ranks and
     gathered whole) under ``rules``, the local shapes of its params, and
-    the bytes by axis."""
+    the bytes by axis; ``case`` (params and batch) in place of the
+    family's inputs."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import (BYTES, gather_tree, reset_bytes,
@@ -90,7 +116,7 @@ def _grads(inputs, family: str, mesh_key: str, rules) -> dict:
     from repro_torch.models import LM
     from repro_torch.train.optimizer import leaves, unflatten
     from repro_torch.train.train_step import data_rows, mean_over_data
-    case = inputs[family]
+    case = case or inputs[family]
     model = LM(family_cfg(get_config, family), device="cpu")
     with use_sharding(_mesh(mesh_key), rules):
         specs = model.param_specs()
@@ -326,7 +352,43 @@ def _scenarios(rank: int, inputs, tmp: str) -> dict:
     out["checkpoint"] = _checkpoint(inputs, tmp)
     out["decode"] = _decode(inputs, "22")
     out["gather"] = _gather_from_data(rank)
+    for label, family, key, positions in SEQ_CASES:
+        case = seq_case(inputs, family, positions)
+        out[f"seq_{label}"] = _grads(inputs, family, key, SEQ_RULES, case)
+        out[f"seq_{label}"]["default_bytes"] = _grads(
+            inputs, family, key, {}, case)["bytes"]
+    out["seq_collectives"] = _seq_collectives(rank)
     dist.barrier()
+    return out
+
+
+def _seq_collectives(rank: int) -> dict:
+    """The sequence collectives on (1, 4)'s model axis, each with a
+    gradient: scatter_to_seq (the rank's block, the gradient gathered
+    whole), gather_from_seq (the blocks in rank order; its gradient the
+    sum of every rank's upstream gradient, the rank's block of it, or
+    with ``summed=False`` the rank's block of its own), and
+    reduce_scatter_to_seq (the sum's block, the gradient gathered)."""
+    import torch
+    from repro_torch.dist import sharding
+    out = {}
+    with sharding.use_sharding(_mesh("14")):
+        w = torch.arange(8.0) * (rank + 1)
+        x = torch.arange(8.0).reshape(1, 8).add(10 * rank)
+        x.requires_grad_(True)
+        y = sharding.scatter_to_seq(x, 1)
+        (y * w[2 * rank:2 * rank + 2]).sum().backward()
+        out["scatter"] = (y.detach().numpy(), x.grad.numpy())
+        for summed in (True, False):
+            x = torch.full((1, 2), float(rank + 1), requires_grad=True)
+            y = sharding.gather_from_seq(x, 1, summed=summed)
+            (y * w).sum().backward()
+            out[f"gather_{summed}"] = (y.detach().numpy(), x.grad.numpy())
+        x = torch.arange(8.0).reshape(1, 8).mul(rank + 1)
+        x.requires_grad_(True)
+        y = sharding.reduce_scatter_to_seq(x, 1)
+        (y * w[2 * rank:2 * rank + 2]).sum().backward()
+        out["reduce_scatter"] = (y.detach().numpy(), x.grad.numpy())
     return out
 
 

@@ -5,9 +5,10 @@ Spawned processes import this module, not the test file, so they load
 ``torch`` and the port only.  The test writes the inputs (the reference's
 params as numpy arrays, tokens, activations, gradients) to a pickle; every
 rank reads it, joins a four-rank gloo group through a file store, runs
-each scenario on the ``(2, 2)`` and ``(1, 4)`` meshes of that world, and
-puts ``(rank, results)`` on a queue: numpy arrays gathered whole and
-counters.  Then each rank leaves the group and runs the training
+each scenario on the ``(2, 2)`` and ``(1, 4)`` meshes of that world (the
+``"cache_seq"`` decodes and the vlm and audio families under
+``"seq_sp"`` among them), and puts ``(rank, results)`` on a queue: numpy
+arrays gathered whole and counters.  Then each rank leaves the group and runs the training
 driver's ``--mesh local`` twice (a run and its resume), each through a
 world of its own.
 """
@@ -49,6 +50,32 @@ def qwen2_cfg(get_config):
     cfg = get_config("qwen2-moe-a2.7b").reduced()
     return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, n_experts=6))
+
+
+#: the decodes under {"cache_seq": "model"}: (label, inputs, mesh, cache
+#: length, prefill positions, last position): danube with a ring of 16
+#: slots (RING_WINDOW; 4 a rank on (1, 4), 8 on (2, 2)), prefilled with
+#: fewer positions than one rank's slots, decoded past one rank's slots
+#: and past the wrap; qwen2-moe's full cache of 12 slots (3 a rank), its
+#: KV heads split over the model axis and gathered for the write
+RING_WINDOW = 16
+#: the mesh ServeEngine's (B, prompt positions) and greedy tokens, and
+#: the serving CLI's --mesh local run: (B, prompt positions, new tokens)
+SERVE_PROMPT, SERVE_NEW = (4, 3), 20
+SERVE_CLI = (4, 8, 8)
+CACHE_SEQ_CASES = [("danube_14", "danube", "14", 64, 3, 24),
+                   ("danube_22", "danube", "22", 64, 3, 24),
+                   ("qwen2_14", "qwen2", "14", 12, 2, 12)]
+CACHE_SEQ_RULES = {"cache_seq": "model"}
+
+
+def cache_seq_cfg(get_config, key: str):
+    """The config of a cache_seq decode: danube's with a window of
+    RING_WINDOW (so its cache is a ring that wraps), qwen2-moe's."""
+    if key == "danube":
+        return dataclasses.replace(danube_cfg(get_config),
+                                   sliding_window=RING_WINDOW)
+    return qwen2_cfg(get_config)
 
 
 #: the families whose loss has its own reduction on a mesh: the vlm's
@@ -295,9 +322,10 @@ def _moe(inputs, mesh, key: str, cfg, grads: bool) -> dict:
     return out
 
 
-def _family(inputs, mesh, family: str) -> dict:
-    """A vlm or audio reduced config on (2, 2): the loss of the global
-    batch and the gradients, averaged over the data ranks and gathered."""
+def _family(inputs, mesh, family: str, rules=None) -> dict:
+    """A vlm or audio reduced config on (2, 2) under ``rules``: the loss
+    of the global batch and the gradients, averaged over the data ranks
+    and gathered."""
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import (gather_tree, shard_tree,
                                            use_sharding)
@@ -305,7 +333,7 @@ def _family(inputs, mesh, family: str) -> dict:
     from repro_torch.train import require_grad
     case = inputs[family]
     model = LM(family_cfg(get_config, family), device="cpu")
-    with use_sharding(mesh):
+    with use_sharding(mesh, rules):
         specs = model.param_specs()
         params = require_grad(shard_tree(
             params_from_numpy(case["params"], "cpu"), specs))
@@ -371,6 +399,75 @@ def _decode(inputs, mesh, key: str, cfg, steps: int = 6) -> dict:
             "max_logit": max(float(w.abs().max()) for w in want),
             "local_wq": tuple(params["blocks"]["attn"]["wq"].shape),
             "local_wk": tuple(params["blocks"]["attn"]["wk"].shape)}
+
+
+def _cache_seq_decode(inputs, mesh, key: str, max_seq: int, prompt: int,
+                      last: int) -> dict:
+    """``inputs[key]``'s tokens under ``{"cache_seq": "model"}``: a batched
+    prefill of the first ``prompt`` positions into the rank's block of
+    the cache's slots, then one decode step a position up to ``last``;
+    the prefill's last logits and each step's, gathered whole, the cache
+    block's shape and spec, and one step's bytes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import (BYTES, MODEL, current_ctx, gather,
+                                           reset_bytes, shard_tree,
+                                           use_sharding)
+    from repro_torch.models import LM, params_from_numpy
+    from repro_torch.train.train_step import data_rows
+    cfg = cache_seq_cfg(get_config, key)
+    model = LM(cfg, device="cpu")
+    tokens = torch.as_tensor(inputs[key]["tokens"][:, :last])
+    out = {"logits": []}
+    with torch.no_grad(), use_sharding(mesh, CACHE_SEQ_RULES):
+        ctx = current_ctx()
+        params = shard_tree(params_from_numpy(inputs[key]["params"], "cpu"),
+                            model.param_specs())
+        specs = model.cache_specs(tokens.shape[0], max_seq)
+        rows = data_rows({"t": tokens})["t"]
+
+        def whole(x):
+            return gather(gather(x, -1, MODEL), 0, ctx.batch_axes)
+
+        logits, cache = model.prefill(params, {"tokens": rows[:, :prompt]},
+                                      max_seq, specs=specs)
+        out["logits"].append(whole(logits[:, -1]).numpy())
+        for i in range(prompt, last):
+            reset_bytes()
+            logits, cache = model.decode_step(params, cache,
+                                              rows[:, i:i + 1], i, specs)
+            out["logits"].append(whole(logits[:, 0]).numpy())
+            if i == prompt:
+                out["step_bytes"] = dict(BYTES)
+        out["cache_shape"] = tuple(cache["kv"]["k"].shape)
+        out["cache_spec"] = tuple(specs["kv"]["k"])
+    return out
+
+
+def _serve(inputs, mesh) -> dict:
+    """A ``ServeEngine`` made under ``{"cache_seq": "model"}`` on ``mesh``
+    (the rank's params, its block of the ring's slots) generating
+    SERVE_NEW greedy tokens from danube's first SERVE_PROMPT tokens,
+    past the ring's wrap, called outside the placement (the engine
+    installs its own); the single device's engine on the same params."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import shard_tree, use_sharding
+    from repro_torch.models import LM, params_from_numpy
+    from repro_torch.serve import ServeEngine
+    model = LM(cache_seq_cfg(get_config, "danube"), device="cpu")
+    whole = params_from_numpy(inputs["danube"]["params"], "cpu")
+    b, s = SERVE_PROMPT
+    prompts = inputs["danube"]["tokens"][:b, :s]
+    with torch.no_grad():
+        single = ServeEngine(model, whole, batch_size=b, max_seq=64)
+        want = single.generate(prompts, max_new=SERVE_NEW)
+        with use_sharding(mesh, CACHE_SEQ_RULES):
+            eng = ServeEngine(model, shard_tree(whole, model.param_specs()),
+                              batch_size=b, max_seq=64)
+        got = eng.generate(prompts, max_new=SERVE_NEW)
+    return {"got": got, "want": want,
+            "cache_block": tuple(eng.cache["kv"]["k"].shape)}
 
 
 def _psum(rank: int, inputs) -> dict:
@@ -443,8 +540,24 @@ def _scenarios(rank: int, inputs, tmp: str) -> dict:
                                      qwen2_cfg(get_config))
     out["psum"] = _psum(rank, inputs)
     out["collectives"] = _collectives(rank, mesh14)
+    meshes = {"14": mesh14, "22": mesh22}
+    for label, key, mesh, max_seq, prompt, last in CACHE_SEQ_CASES:
+        out[f"cache_seq_{label}"] = _cache_seq_decode(
+            inputs, meshes[mesh], key, max_seq, prompt, last)
+    for family in FAMILIES:
+        out[f"{family}_seq_sp"] = _family(inputs, mesh22, family,
+                                          {"seq_sp": "model"})
+    out["serve"] = _serve(inputs, mesh14)
     dist.barrier()
     return out
+
+
+def serve_cli_args(device_args) -> list:
+    """The serving CLI's arguments for reduced danube at SERVE_CLI."""
+    b, prompt, new = SERVE_CLI
+    return ["--arch", "h2o-danube-1.8b", "--reduced", "--device", "cpu",
+            "--batch", str(b), "--prompt-len", str(prompt), "--max-new",
+            str(new)] + device_args
 
 
 def _launch(rank: int, tmp: str) -> list:
@@ -487,6 +600,12 @@ def run_rank(rank: int, world: int, store: str, queue, inputs_path: str
         finally:
             dist.destroy_process_group()
         res["launch"] = _launch(rank, tmp)
+        from repro_torch.launch import serve as serve_mod
+        res["serve_cli"] = serve_mod.main(serve_cli_args([
+            "--mesh", "local", "--model-parallel", str(WORLD), "--rules",
+            '{"cache_seq": "model"}', "--init-method",
+            f"file://{tmp}/serve_store", "--world-size", str(WORLD),
+            "--rank", str(rank)]))
         queue.put((rank, res))
     except BaseException:   # noqa: BLE001 — reported to the parent
         queue.put((rank, traceback.format_exc()))

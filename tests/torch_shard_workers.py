@@ -22,6 +22,10 @@ OLS_SHAPE = (96, 48)
 RAGGED_N = 66        # 66 % 4 != 0: every view replicated
 BYTES_N = 512        # the byte count's matrix powers
 GUARD_RANKS = 2      # the guarded engine's sub-mesh
+#: the drift sentinel's probes on the mesh engine (every 2nd firing) and
+#: the drift injected into P4 after the stream
+SENTINEL = dict(probe_every=2, n_probes=2, seed=5)
+SENTINEL_SHIFT = 0.05
 
 
 def powers_input(n: int, seed: int = 0) -> dict:
@@ -333,6 +337,13 @@ def _scenarios(rank: int, world: int) -> dict:
     out["adaptive"] = adaptive.views_numpy()
     out["adaptive_key"] = adaptive.planner.plan.mesh_key
 
+    # the drift sentinel on the mesh engine: every rank probes its rows,
+    # an injected drift is found on every rank and healed on the mesh
+    for label, size in (("sentinel", n), ("sentinel_ragged", RAGGED_N)):
+        out[label] = sentinel_drive(
+            IncrementalEngine(matrix_powers(k=POWERS_K, n=size, model="exp"),
+                              mesh=mesh, guard=sentinel_guard()), size)
+
     # meshes: keys, the local and the elastic mesh against plan_mesh
     out["key_equal"] = (mesh_cache_key(mesh) == mesh_cache_key(_mesh(world))
                         and hash(mesh_cache_key(mesh)) == hash(
@@ -345,6 +356,32 @@ def _scenarios(rank: int, world: int) -> dict:
                            tuple(elastic.mesh_dim_names))
     out["plan_mesh"] = plan_mesh(world, 2)
     dist.barrier()
+    return out
+
+
+def sentinel_guard():
+    from repro_torch.guard import GuardConfig, SentinelConfig
+    return GuardConfig(sentinel=SentinelConfig(**SENTINEL))
+
+
+def sentinel_drive(eng, n: int) -> dict:
+    """Matrix powers at ``n`` through a sentinel-guarded engine (on a mesh
+    or one device): the stream of :func:`drive` (the sentinel probes at
+    its cadence), then SENTINEL_SHIFT added to every entry of P4, a
+    probe, the recovery of the views it finds drifted, and a probe
+    after; the drifts, the recovered names, the views and their local
+    shapes."""
+    eng.initialize(powers_input(n))
+    drive(eng, "A", updates(n, n, 8, seed=1))
+    eng.guard.sync()
+    sentinel = eng.guard.sentinel
+    out = {"probes": sentinel.probes, "stream": dict(sentinel.last_drift)}
+    eng.views["P4"].add_(SENTINEL_SHIFT)
+    out["injected"] = sentinel.probe(eng)
+    out["recovered"] = sentinel.recover(eng, sentinel.drifted_views())
+    out["after"] = sentinel.probe(eng)
+    out["views"] = eng.views_numpy()
+    out["local_rows"] = {k: int(v.shape[0]) for k, v in eng.views.items()}
     return out
 
 

@@ -1,18 +1,29 @@
-"""The dry-run's train_4k cells under the ``"fsdp"`` rule beside the
-baseline: ``launch/dryrun.py``'s ``run_cell`` at tag ``fsdp`` with
-``rules={"fsdp": "data"}`` on 16x16 and ``{"fsdp": ("pod", "data")}`` on
-2x16x16 (the reference's rule, which the CLI does not set), and at tag
-``baseline`` with the default rules, on meta over a fake world (no card).
+"""The dry-run's cells under placement rules beside the baseline:
+``launch/dryrun.py``'s ``run_cell`` with ``rules=`` (the reference's
+rules, which the CLI does not set), by default ``{"fsdp": "data"}`` on
+16x16 and ``{"fsdp": ("pod", "data")}`` on 2x16x16 at tag ``fsdp`` for
+the train_4k cells, and at tag ``baseline`` with the default rules, on
+meta over a fake world (no card).
 
     PYTHONPATH=src python3 tools/torch_dryrun_fsdp.py
     PYTHONPATH=src python3 tools/torch_dryrun_fsdp.py --archs qwen1.5-32b
     PYTHONPATH=src python3 tools/torch_dryrun_fsdp.py --no-baseline \
         --microbatches 2 --archs command-r-plus-104b
+    PYTHONPATH=src python3 tools/torch_dryrun_fsdp.py --no-baseline \
+        --shape decode_32k --rules '{"cache_seq": "model"}' \
+        --archs qwen1.5-32b command-r-plus-104b
+    PYTHONPATH=src python3 tools/torch_dryrun_fsdp.py --no-baseline \
+        --rules '{"fsdp": "data", "seq_sp": "model"}' --meshes single \
+        --archs command-r-plus-104b
 
-Writes the cells' JSON files to ``results/dryrun_torch/`` (``--results``
-elsewhere) and prints, for each cell, the baseline's and the fsdp run's
-memory a chip (arguments, temp, their sum: the report's mem/chip) and
-roofline terms, then each tag's ``report_md`` tables.
+``--rules`` (JSON) replaces the 16x16 rules; on 2x16x16 an ``"fsdp"``
+onto ``"data"`` becomes ``("pod", "data")``, the other rules as given.
+The tag is the rules' names joined (``fsdp``, ``cache_seq``,
+``fsdp_seq_sp``; ``_mbN`` with microbatches).  Writes the cells' JSON
+files to ``results/dryrun_torch/`` (``--results`` elsewhere) and prints,
+for each cell, the baseline's and the rules' memory a chip (arguments,
+temp, their sum: the report's mem/chip) and roofline terms, then each
+tag's ``report_md`` tables.
 """
 
 from __future__ import annotations
@@ -27,7 +38,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 ARCHS = ("command-r-plus-104b", "qwen1.5-32b", "qwen3-moe-235b-a22b",
          "starcoder2-7b", "h2o-danube-1.8b")
-RULES = {False: {"fsdp": "data"}, True: {"fsdp": ("pod", "data")}}
+FSDP = {"fsdp": "data"}
+
+
+def pod_rules(rules: dict) -> dict:
+    """The 16x16 ``rules`` on 2x16x16: ``"fsdp"`` onto ``"data"`` also
+    over the pods, as the reference's rule for the multi-pod mesh."""
+    return {k: (("pod", "data") if k == "fsdp" and v == "data" else v)
+            for k, v in rules.items()}
 
 
 def summary(res: dict) -> dict:
@@ -55,23 +73,34 @@ def main() -> int:
     ap.add_argument("--no-baseline", action="store_true",
                     help="walk the fsdp cells only")
     ap.add_argument("--microbatches", type=int, default=1,
-                    help="split the fsdp cells' batch (tag fsdp_mbN)")
+                    help="split the rules' cells' batch (tag ..._mbN)")
+    ap.add_argument("--rules", default=json.dumps(FSDP),
+                    help="the 16x16 placement rules, JSON (default "
+                         "'{\"fsdp\": \"data\"}')")
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--meshes", choices=["single", "multi", "both"],
+                    default="both")
     args = ap.parse_args()
     t0 = time.perf_counter()
-    tag = ("fsdp" if args.microbatches == 1
-           else f"fsdp_mb{args.microbatches}")
+    rules = json.loads(args.rules)
+    tag = "_".join(sorted(rules)) + (
+        "" if args.microbatches == 1 else f"_mb{args.microbatches}")
+    multis = {"single": (False,), "multi": (True,),
+              "both": (False, True)}[args.meshes]
     rows = []
     try:
-        for multi in (False, True):       # mesh by mesh: one fake world each
+        for multi in multis:              # mesh by mesh: one fake world each
+            placed = pod_rules(rules) if multi else rules
             for arch in args.archs:
-                row = {"arch": arch, "mesh": "2x16x16" if multi else "16x16",
-                       "rules": RULES[multi]}
+                row = {"arch": arch, "shape": args.shape,
+                       "mesh": "2x16x16" if multi else "16x16",
+                       "rules": placed}
                 if not args.no_baseline:
                     row["baseline"] = summary(dryrun.run_cell(
-                        arch, "train_4k", multi, force=True,
+                        arch, args.shape, multi, force=True,
                         results_dir=args.results, verbose=False))
                 row[tag] = summary(dryrun.run_cell(
-                    arch, "train_4k", multi, force=True, rules=RULES[multi],
+                    arch, args.shape, multi, force=True, rules=placed,
                     tag=tag, microbatches=args.microbatches,
                     results_dir=args.results, verbose=False))
                 print(json.dumps(row), flush=True)
@@ -82,9 +111,9 @@ def main() -> int:
             dist.destroy_process_group()
     for t in ("baseline", tag):
         cells = [r for r in report_md.load(args.results, t)
-                 if r["shape"] == "train_4k" and r["arch"] in args.archs]
+                 if r["shape"] == args.shape and r["arch"] in args.archs]
         for mesh in ("16x16", "2x16x16"):
-            print(f"\n### train_4k, mesh {mesh} ({t})\n")
+            print(f"\n### {args.shape}, mesh {mesh} ({t})\n")
             print(report_md.render(cells, mesh))
     print(f"\n[dryrun_fsdp] {len(rows)} rows in "
           f"{time.perf_counter() - t0:.1f} s")

@@ -3,6 +3,7 @@
 one GPU.
 
     python3 tools/torch_flash_decode_variants.py [--slots L] [VARIANT ...]
+    python3 tools/torch_flash_decode_variants.py --sass ROOT
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit.  Each variant is ``src/repro_torch/kernels/csrc/
@@ -23,6 +24,17 @@ same two caches.  Each output is held against the plain version at the
 bf16 tolerance (rtol 1e-2, atol 1e-3), except the probes' (``PROBES``),
 which drop the arithmetic, the loads or the epilogue to show what each
 costs.  A variant whose text no longer matches the source raises.
+
+``--sass ROOT`` times nothing: it builds ``flash_decode.cu`` of this
+checkout and of the checkout under ROOT (e.g. the parent commit unpacked
+with ``git archive`` into the git-ignored ``_parent/``), reads every
+kernel instance's SASS with ``cuobjdump -sass`` and prints, for each of
+this checkout's instances, whether it is ROOT's instruction for
+instruction (``identical``, ``different``, or ``new`` where ROOT has no
+such instance: the merge's ``WRITE_LSE`` instances), then one
+``sass_check`` line; a merge instance with ``WRITE_LSE`` false goes by
+its name from before the flag.  It exits 1 when an instance ROOT has is
+missing or different.
 """
 
 from __future__ import annotations
@@ -137,6 +149,73 @@ def build(tmp: Path, names) -> dict:
     return entries
 
 
+def _short(mangled: str) -> str:
+    """A kernel instance's mangled name without its anonymous namespace
+    and parameter list; a trailing ``WRITE_LSE = false`` argument
+    dropped, so that the serving merge matches its name before the
+    flag."""
+    name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", mangled)
+    name = name.split("EEv")[0]
+    return name[:-4] if name.endswith("Lb0E") else name
+
+
+def _sass(so: Path) -> dict:
+    """Every kernel's SASS in ``so`` by short name: its instructions
+    without addresses or encodings."""
+    from repro_torch.kernels import cuda_build
+    tool = Path(cuda_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(so)], check=True,
+                          capture_output=True, text=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            fn = _short(found.group(1))
+            out[fn] = []
+        elif fn:
+            ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?);", line)
+            if ins:
+                out[fn].append(ins.group(1).strip())
+    return out
+
+
+def sass_check(root: str) -> int:
+    """This checkout's flash_decode.cu against ROOT's, instance by
+    instance (see the module docstring)."""
+    import json
+    from repro_torch.kernels import cuda_build
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name, src in (("checkout", cuda_build.CSRC / "flash_decode.cu"),
+                          ("parent", Path(root) / "src" / "repro_torch" /
+                           "kernels" / "csrc" / "flash_decode.cu")):
+            procs[name] = subprocess.Popen(
+                [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+                 str(src.parent), "-o", str(Path(tmp) / f"{name}.so"),
+                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+        for name, proc in procs.items():
+            log = proc.communicate()[0]
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        mine = _sass(Path(tmp) / "checkout.so")
+        base = _sass(Path(tmp) / "parent.so")
+    counts = {"identical": [], "different": [], "new": []}
+    for fn, ins in sorted(mine.items()):
+        kind = ("new" if fn not in base else
+                "identical" if base[fn] == ins else "different")
+        counts[kind].append(fn)
+        print(f"sass {fn}: {len(ins)} / {len(base.get(fn, []))} "
+              f"instructions, {kind}", flush=True)
+    missing = sorted(set(base) - set(mine))
+    print("sass_check " + json.dumps(
+        {"library": "flash_decode", "base": root, "missing": missing,
+         "new_instances": counts["new"],
+         "different_instances": counts["different"],
+         **{k: len(v) for k, v in counts.items()}}), flush=True)
+    return 1 if missing or counts["different"] else 0
+
+
 def events_ms(fn, reps: int = 50) -> float:
     import torch
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -156,6 +235,11 @@ def main() -> int:
         print("torch_flash_decode_variants: no CUDA device", file=sys.stderr)
         return 1
     args = sys.argv[1:]
+    if args[:1] == ["--sass"]:
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip(), flush=True)
+        return sass_check(args[1])
     slots = L
     if args[:1] == ["--slots"]:
         slots, args = int(args[1]), args[2:]

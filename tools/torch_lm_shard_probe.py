@@ -1,20 +1,21 @@
-"""Phase 22 or 24 of ``chip_smoke.py`` alone, with phase 3's checks of
-the flash kernels at its per-rank shapes: a quicker run than the whole
-script when only the sharded model path changed.
+"""Phase 21, 22 or 24 of ``chip_smoke.py`` alone, with phase 3's checks
+of the flash kernels at its per-rank shapes: a quicker run than the whole
+script when only the sharded path changed.
 
     python3 tools/torch_lm_shard_probe.py            # on the H100
     python3 tools/torch_lm_shard_probe.py --rehearse # on the CPU, reduced
     python3 tools/torch_lm_shard_probe.py --phase 24 [--rehearse]
+    python3 tools/torch_lm_shard_probe.py --phase 21 # on the H100
 
 Builds every kernel (as the script does), holds the forward with LSE and
 K1 at the phase's per-rank shapes (22: 22a's and 22b's on (2, 2), 22f's
-on (4, 1), the forward at 22c's and flash decode at 22f's; 24: zamba2's
-shared block at 24a's, 24b's and 24f's, the single device's references,
-and flash decode at 24c's) against their
+on (4, 1), the forward at 22c's, flash decode at 22f's and its LSE
+instance at 22g's; 24: zamba2's shared block at 24a's, 24b's and 24f's,
+the single device's references, and flash decode at 24c's) against their
 plain versions, timed beside SDPA, then runs the phase's four gloo
 ranks.  ``--rehearse`` skips the build and the kernel checks and runs the
-phase's drives at the reduced widths on the CPU.  Prints the card's name
-and power limit first; exits non-zero if a check fails.
+phase's drives at the reduced widths on the CPU (22 and 24).  Prints the
+card's name and power limit first; exits non-zero if a check fails.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ K1_LABELS = {22: ("shard_danube_",),
 
 def kernel_checks(phase: int) -> None:
     import torch
+    if phase == 21:
+        return
     kind = torch.cuda.get_device_name(0)
     _, flops_peak, bytes_peak, bf16_peak, tf32_peak = cs.peaks(kind)
     peaks_ = (bytes_peak, flops_peak, bf16_peak, tf32_peak)
@@ -87,15 +90,28 @@ def kernel_checks(phase: int) -> None:
         kc, vc = (torch.randn(rows, n, kvh, 80, device=cs.DEVICE,
                               generator=gen) for _ in range(2))
         cs.check_flash_decode(q, kc, vc, n, peaks_, label)
+    for (b, slots, _, _), dtype in ((cs.LM_SHARD_CSEQ_BF16, torch.bfloat16),
+                                    (cs.LM_SHARD_CSEQ_F32, torch.float32)):
+        q = torch.randn(b, 32, 80, device=cs.DEVICE,
+                        generator=gen).to(dtype)
+        kc, vc = (torch.randn(b, slots // 4, 8, 80, device=cs.DEVICE,
+                              generator=gen).to(dtype) for _ in range(2))
+        for n_valid in (slots // 4, 0):
+            cs.check_flash_decode_lse(q, kc, vc, n_valid, peaks_,
+                                      f"danube_cseq_rank_{dtype}_{n_valid}",
+                                      timed=n_valid > 0)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse", action="store_true")
-    ap.add_argument("--phase", type=int, choices=(22, 24), default=22)
+    ap.add_argument("--phase", type=int, choices=(21, 22, 24), default=22)
     args = ap.parse_args()
-    phase = {22: cs.phase_lm_shard, 24: cs.phase_recur_shard}[args.phase]
+    phase = {21: cs.phase_shard, 22: cs.phase_lm_shard,
+             24: cs.phase_recur_shard}[args.phase]
     if args.rehearse:
+        if args.phase == 21:
+            raise SystemExit("phase 21 runs on the card only")
         phase(rehearse=True)
         return 0
     import torch

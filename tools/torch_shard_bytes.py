@@ -13,7 +13,11 @@ card.  No card, no storage: seconds on the CPU.
 ``--rules`` (a JSON object) overrides the placement rules, as
 ``use_sharding(mesh, rules=...)`` does; ``--reduced`` takes the arch's
 reduced widths; ``--mesh`` takes three sizes for a (pod, data, model)
-mesh; ``--state-only`` skips the step.  Prints one JSON object: the arch,
+mesh; ``--state-only`` skips the step.  ``--decode POS`` walks one decode
+step at position POS instead, over a cache of ``--seq`` slots for a
+global batch of ``--batch`` placed by ``LM.cache_specs`` (under
+``{"cache_seq": "model"}`` each rank's block of the slots).  Prints one
+JSON object: the arch,
 the mesh, the rules, the train state's bytes a rank (``state_bytes``:
 the params' blocks, their f32 master weights and moments) and ``BYTES``
 after the step (``on_model``: the tensor-parallel
@@ -34,6 +38,28 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 
+class _Done(Exception):
+    """The decode walk has its bytes: leave the placement."""
+
+
+def decode_bytes(model, args) -> dict:
+    """``sharding.BYTES`` of one decode step at position ``args.decode``
+    under the active placement, on meta: the rank's params and its block
+    of the cache, its rows of the token batch."""
+    import torch
+    from repro_torch.dist import sharding
+    from repro_torch.train.train_step import data_rows
+    params = sharding.shard_tree(model.init(None), model.param_specs())
+    specs = model.cache_specs(args.batch, args.seq)
+    cache = model.init_cache(args.batch, args.seq, specs)
+    token = data_rows({"t": torch.zeros(args.batch, 1, dtype=torch.int64,
+                                        device="meta")})["t"]
+    sharding.reset_bytes()
+    with torch.no_grad():
+        model.decode_step(params, cache, token, args.decode, specs)
+    return dict(sharding.BYTES)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -50,6 +76,9 @@ def main() -> int:
                     help="the arch's reduced widths")
     ap.add_argument("--state-only", action="store_true",
                     help="the train state's bytes a rank, no step")
+    ap.add_argument("--decode", type=int, default=None, metavar="POS",
+                    help="one decode step at position POS over a cache of "
+                         "--seq slots, in place of the train step")
     args = ap.parse_args()
 
     import torch
@@ -82,6 +111,10 @@ def main() -> int:
         model = LM(cfg, device="meta")
         rules = json.loads(args.rules) if args.rules else None
         with sharding.use_sharding(mesh, rules):
+            if args.decode is not None:
+                wire = decode_bytes(model, args)
+                held = {}
+                raise _Done
             params = require_grad(sharding.shard_tree(model.init(None),
                                                       model.param_specs()))
             state = TrainState(params, adamw_init(params), torch.Generator())
@@ -94,6 +127,8 @@ def main() -> int:
             if not args.state_only:
                 make_train_step(model)(state, {"tokens": tokens})
             wire = dict(sharding.BYTES)
+    except _Done:
+        pass
     finally:
         dist.destroy_process_group()
     print(json.dumps({"arch": cfg.name, "n_layers": cfg.n_layers,
