@@ -37,7 +37,9 @@ CUDA toolkit.  Phases, each of which raises on failure:
    a second call bit for bit, the forward with the row log-sum-exp giving
    the forward's out bit for bit, each timed beside the plain versions
    and SDPA's forward and backward (its backend named), with the bound of
-   the five products;
+   the five products; each flash forward record names the kernel the
+   binding took (``kernel``: bf16 at head dims 64, 80 and 128 the wgmma
+   one) and its time over SDPA's (``x_sdpa``);
    then every CUDA entry but flash_attention, given an operand that
    requires grad, raises (no backward yet; the forward with LSE and K1:
    not differentiable) and launches nothing;
@@ -399,9 +401,11 @@ made.
 The last two lines of standard output are the ``{"kernels": [...]}``
 record (``rank_update_batched``'s with its launches over phases 4-9,
 12-16 and 21 by K = T*k; the rank-update entries' by M's columns p, and the
-dense entries' on the skinny tile by K; the forward with LSE and K1 at
-phase 19's danube shape; the decode kernel's LSE instance at 22g's
-per-rank shape; phase 23's flash launches among the rest) and
+dense entries' on the skinny tile by K; the flash forward entries'
+launches by kernel, ``launches_by_kernel``, and the kernel of their
+headline shape; the forward with LSE and K1 at phase 19's danube shape;
+the decode kernel's LSE instance at 22g's per-rank shape; phase 23's
+flash launches among the rest) and
 ``{"ok": true, "device":
 {...}}``.  Without CUDA,
 or outside a checkout, the script prints no result and exits non-zero.
@@ -675,9 +679,10 @@ SOURCES = {
     "flash_decode_lse": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "rank_update_batched_out": "src/repro_torch/kernels/csrc/rank_update.cu",
     "select_commit": "src/repro_torch/kernels/csrc/select_commit.cu"}
-# the bf16 prefill kernel's name in csrc/flash_attention.cu, as the
-# profiler lists it
-FLASH_BF16_KERNEL = "flash_attention_bf16_mma"
+# the bf16 prefill kernel danube's head dim 80 takes in
+# csrc/flash_attention.cu (the wgmma one; head dims 32, 96 and 256 take
+# flash_attention_bf16_mma), as the profiler lists it
+FLASH_BF16_KERNEL = "flash_attention_bf16_wgmma"
 REPLACES = {
     "rank_update_batched": "src/repro/kernels/rank_update.py:84",
     "rank_update": "src/repro/kernels/rank_update.py:40",
@@ -783,9 +788,12 @@ def reset_launches() -> None:
 OUT_RANKS: dict = {}
 BY_P: dict = {}
 SKINNY_K: dict = {}
+# the flash forward entries' launches by the kernel each took
+FLASH_BY_KERNEL: dict = {}
 
 
 def launches() -> dict:
+    from repro_torch.kernels import flash_attention as cuda_fa
     from repro_torch.kernels import rank_update, rank_update_rows
     out = {}
     for mod in kernel_modules():
@@ -794,7 +802,8 @@ def launches() -> dict:
         OUT_RANKS[K] = OUT_RANKS.get(K, 0) + count
     for counters, into in ((rank_update.COLS, BY_P),
                            (rank_update_rows.COLS, BY_P),
-                           (rank_update.SKINNY_RANKS, SKINNY_K)):
+                           (rank_update.SKINNY_RANKS, SKINNY_K),
+                           (cuda_fa.BY_KERNEL, FLASH_BY_KERNEL)):
         for entry, counter in counters.items():
             tally = into.setdefault(entry, {})
             for key, count in counter.items():
@@ -1307,8 +1316,13 @@ def check_flash_attention(q, k, v, causal, window, peaks_, label,
     item = q.element_size()
     nbytes = item * (2 * q.numel() + 2 * k.numel())
     flops = 4.0 * b * h * hd * attention_pairs(s, causal, window, prefix)
-    return attention_record("flash_attention", shape, err, ms, plain_ms,
-                            lib_ms, nbytes, flops, dtype, *peaks_)
+    rec = attention_record("flash_attention", shape, err, ms, plain_ms,
+                           lib_ms, nbytes, flops, dtype, *peaks_,
+                           log_it=False)
+    rec.update({"kernel": cuda_fa.kernel_of(q.dtype, hd),
+                "x_sdpa": ms / lib_ms})
+    log("kernel " + json.dumps(rec))
+    return rec
 
 
 def host_us(fn, reps: int = 200) -> float:
@@ -1464,6 +1478,63 @@ def check_flash_decode_lse(q, kc, vc, n_valid, peaks_, label,
     return rec
 
 
+# phase 3's flash-attention forward cases (check_flash_kernels): (label,
+# b, s, h, kvh, hd, window, dtype, causal, prefix)
+FLASH_CASES = [
+    ("danube_prefill_bf16", 8, 4096, 32, 8, 80, 4096, "bfloat16", True, 0),
+    ("danube_prefill_bf16_s4128", 8, 4128, 32, 8, 80, 4096, "bfloat16",
+     True, 0),
+    ("danube_prefill_f32_s4128", 8, 4128, 32, 8, 80, 4096, "float32",
+     True, 0),
+    ("starcoder2_bf16", 2, 4096, 36, 4, 128, None, "bfloat16", True, 0),
+    ("window1024_bf16", 2, 4096, 32, 8, 80, 1024, "bfloat16", True, 0),
+    ("ragged_s1000_bf16", 2, 1000, 32, 8, 80, None, "bfloat16", True, 0),
+    ("paligemma_prefill_bf16", VLM_BATCH, VLM_PATCHES + VLM_TEXT, 8,
+     1, 256, None, "bfloat16", True, VLM_PATCHES),
+    ("paligemma_prefill_f32", VLM_BATCH, VLM_PATCHES + VLM_TEXT, 8,
+     1, 256, None, "float32", True, VLM_PATCHES),
+    ("hubert_prefill_bf16", AUDIO_BATCH, AUDIO_FRAMES, 16, 16, 80,
+     None, "bfloat16", False, 0),
+    ("qwen2_moe_prefill_bf16", MOE_BATCH, MOE_PROMPT, 16, 16, 128,
+     None, "bfloat16", True, 0),
+    ("qwen3_moe_prefill_bf16", QWEN3_BATCH, QWEN3_PROMPT, 64, 4,
+     128, None, "bfloat16", True, 0),
+    ("qwen2_moe_cut_prefill_f32", MOE_CUT_BATCH, MOE_CUT_PROMPT, 16,
+     16, 128, None, "float32", True, 0),
+    ("qwen2_moe_cut_forward_f32", MOE_CUT_BATCH,
+     MOE_CUT_PROMPT + MOE_NEW, 16, 16, 128, None, "float32", True, 0),
+    ("paligemma_cut_forward_f32", VLM_CUT_BATCH,
+     VLM_PATCHES + VLM_CUT_TEXT + VLM_NEW, 8, 1, 256, None, "float32",
+     True, VLM_PATCHES),
+    ("hubert_cut_f32", AUDIO_CUT_BATCH, AUDIO_FRAMES, 16, 16, 80,
+     None, "float32", False, 0),
+    ("zamba2_forward_bf16", RECUR_BATCH, RECUR_FWD_SEQ, 32, 32, 64,
+     None, "bfloat16", True, 0),
+    ("zamba2_cut_forward_f32", RECUR_CUT_BATCH, RECUR_CUT_SEQ, 32,
+     32, 64, None, "float32", True, 0),
+    # two dense configs no phase serves: command-r-plus-104b (a
+    # group of 12) and qwen1.5-32b (H = KV = 40), hd 128
+    ("command_r_prefill_bf16", 2, 2048, 96, 8, 128, None, "bfloat16",
+     True, 0),
+    ("command_r_prefill_f32", 2, 2048, 96, 8, 128, None, "float32", True,
+     0),
+    ("qwen15_32b_prefill_bf16", 2, 2048, 40, 40, 128, None, "bfloat16",
+     True, 0),
+    ("qwen15_32b_prefill_f32", 2, 2048, 40, 40, 128, None, "float32",
+     True, 0),
+    # phase 22c's per-rank shape: qwen3-moe's 16 query heads and
+    # one KV head a rank of (1, 4)
+    ("shard_qwen3_forward_f32", LM_SHARD_MOE[0], LM_SHARD_MOE[1], 16,
+     1, 128, None, "float32", True, 0),
+    # phase 24's per-rank shapes: zamba2's shared block, 16 of its
+    # 32 heads a rank of (2, 2), two data rows a rank (24a f32, 24b
+    # bf16)
+    ("shard_zamba2_exact_f32", RECUR_SHARD_EXACT[0] // 2,
+     RECUR_SHARD_EXACT[1], 16, 16, 64, None, "float32", True, 0),
+    ("shard_zamba2_step_bf16", RECUR_SHARD_STEP[0] // 2,
+     RECUR_SHARD_STEP[1], 16, 16, 64, None, "bfloat16", True, 0)]
+
+
 def check_flash_kernels(peaks_) -> dict:
     """Phase 3's flash cases: danube's prefill (B=8, S=4096, H=32, KV=8,
     hd=80, its 4096 window) in bf16 and, at phase 11's ragged 4128, in
@@ -1499,60 +1570,8 @@ def check_flash_kernels(peaks_) -> dict:
 
     bf16, f32 = torch.bfloat16, torch.float32
     out = {"flash_attention": [], "flash_decode": [], "flash_decode_lse": []}
-    # (label, b, s, h, kvh, hd, window, dtype, causal, prefix)
-    for label, b, s, h, kvh, hd, window, dt, causal, prefix in [
-            ("danube_prefill_bf16", 8, 4096, 32, 8, 80, 4096, bf16, True, 0),
-            ("danube_prefill_bf16_s4128", 8, 4128, 32, 8, 80, 4096, bf16,
-             True, 0),
-            ("danube_prefill_f32_s4128", 8, 4128, 32, 8, 80, 4096, f32,
-             True, 0),
-            ("starcoder2_bf16", 2, 4096, 36, 4, 128, None, bf16, True, 0),
-            ("window1024_bf16", 2, 4096, 32, 8, 80, 1024, bf16, True, 0),
-            ("ragged_s1000_bf16", 2, 1000, 32, 8, 80, None, bf16, True, 0),
-            ("paligemma_prefill_bf16", VLM_BATCH, VLM_PATCHES + VLM_TEXT, 8,
-             1, 256, None, bf16, True, VLM_PATCHES),
-            ("paligemma_prefill_f32", VLM_BATCH, VLM_PATCHES + VLM_TEXT, 8,
-             1, 256, None, f32, True, VLM_PATCHES),
-            ("hubert_prefill_bf16", AUDIO_BATCH, AUDIO_FRAMES, 16, 16, 80,
-             None, bf16, False, 0),
-            ("qwen2_moe_prefill_bf16", MOE_BATCH, MOE_PROMPT, 16, 16, 128,
-             None, bf16, True, 0),
-            ("qwen3_moe_prefill_bf16", QWEN3_BATCH, QWEN3_PROMPT, 64, 4,
-             128, None, bf16, True, 0),
-            ("qwen2_moe_cut_prefill_f32", MOE_CUT_BATCH, MOE_CUT_PROMPT, 16,
-             16, 128, None, f32, True, 0),
-            ("qwen2_moe_cut_forward_f32", MOE_CUT_BATCH,
-             MOE_CUT_PROMPT + MOE_NEW, 16, 16, 128, None, f32, True, 0),
-            ("paligemma_cut_forward_f32", VLM_CUT_BATCH,
-             VLM_PATCHES + VLM_CUT_TEXT + VLM_NEW, 8, 1, 256, None, f32,
-             True, VLM_PATCHES),
-            ("hubert_cut_f32", AUDIO_CUT_BATCH, AUDIO_FRAMES, 16, 16, 80,
-             None, f32, False, 0),
-            ("zamba2_forward_bf16", RECUR_BATCH, RECUR_FWD_SEQ, 32, 32, 64,
-             None, bf16, True, 0),
-            ("zamba2_cut_forward_f32", RECUR_CUT_BATCH, RECUR_CUT_SEQ, 32,
-             32, 64, None, f32, True, 0),
-            # two dense configs no phase serves: command-r-plus-104b (a
-            # group of 12) and qwen1.5-32b (H = KV = 40), hd 128
-            ("command_r_prefill_bf16", 2, 2048, 96, 8, 128, None, bf16,
-             True, 0),
-            ("command_r_prefill_f32", 2, 2048, 96, 8, 128, None, f32, True,
-             0),
-            ("qwen15_32b_prefill_bf16", 2, 2048, 40, 40, 128, None, bf16,
-             True, 0),
-            ("qwen15_32b_prefill_f32", 2, 2048, 40, 40, 128, None, f32,
-             True, 0),
-            # phase 22c's per-rank shape: qwen3-moe's 16 query heads and
-            # one KV head a rank of (1, 4)
-            ("shard_qwen3_forward_f32", LM_SHARD_MOE[0], LM_SHARD_MOE[1], 16,
-             1, 128, None, f32, True, 0),
-            # phase 24's per-rank shapes: zamba2's shared block, 16 of its
-            # 32 heads a rank of (2, 2), two data rows a rank (24a f32, 24b
-            # bf16)
-            ("shard_zamba2_exact_f32", RECUR_SHARD_EXACT[0] // 2,
-             RECUR_SHARD_EXACT[1], 16, 16, 64, None, f32, True, 0),
-            ("shard_zamba2_step_bf16", RECUR_SHARD_STEP[0] // 2,
-             RECUR_SHARD_STEP[1], 16, 16, 64, None, bf16, True, 0)]:
+    for label, b, s, h, kvh, hd, window, dt, causal, prefix in FLASH_CASES:
+        dt = getattr(torch, dt)
         q = randn(b, s, h, hd, dtype=dt)
         k, v = randn(b, s, kvh, hd, dtype=dt), randn(b, s, kvh, hd, dtype=dt)
         out["flash_attention"].append(check_flash_attention(
@@ -1731,9 +1750,14 @@ def check_flash_bwd(q, k, v, dout, causal, window, peaks_, label,
     item = q.element_size()
     pairs = attention_pairs(s, causal, window, prefix)
     nbytes = item * (2 * q.numel() + 2 * k.numel()) + 4 * b * h * s
-    recs.append(attention_record(
+    fwd_rec = attention_record(
         "flash_attention_fwd_lse", shape, fwd_err, fwd_ms, fwd_plain,
-        fwd_lib, nbytes, 4.0 * b * h * hd * pairs, dtype, *peaks_))
+        fwd_lib, nbytes, 4.0 * b * h * hd * pairs, dtype, *peaks_,
+        log_it=False)
+    fwd_rec.update({"kernel": cuda_fa.kernel_of(q.dtype, hd),
+                    "x_sdpa": fwd_ms / fwd_lib})
+    log("kernel " + json.dumps(fwd_rec))
+    recs.append(fwd_rec)
     bwd_ms = time_ms(lambda: cuda_fa.flash_attention_bwd(q, k, v, out, dout,
                                                          lse, **opts))
     bwd_plain = time_ms(lambda: ref.flash_attention_bwd(q, k, v, out, dout,
@@ -6202,14 +6226,17 @@ def kernel_counts() -> dict:
     """Every kernel module's launch counters since the last reset, and
     the rank-update entries' by K, by p and on the skinny tile by K, as
     plain dicts (a spawned rank sends them to the parent)."""
+    from repro_torch.kernels import flash_attention as cuda_fa
     from repro_torch.kernels import rank_update, rank_update_rows
-    out = {"launches": {}, "ranks": {}, "cols": {}, "skinny": {}}
+    out = {"launches": {}, "ranks": {}, "cols": {}, "skinny": {},
+           "flash_kernels": {}}
     for mod in kernel_modules():
         out["launches"].update(mod.LAUNCHES)
     for key, counters in (("ranks", rank_update.RANKS),
                           ("cols", rank_update.COLS),
                           ("cols", rank_update_rows.COLS),
-                          ("skinny", rank_update.SKINNY_RANKS)):
+                          ("skinny", rank_update.SKINNY_RANKS),
+                          ("flash_kernels", cuda_fa.BY_KERNEL)):
         for entry, counter in counters.items():
             out[key][entry] = dict(counter)
     return out
@@ -6217,11 +6244,13 @@ def kernel_counts() -> dict:
 
 def merge_counts(total: dict, counts: dict) -> None:
     """Add a main-path drive's ``kernel_counts()`` (a spawned rank's) to
-    ``total`` and to the kernels record's tallies by p, by skinny K and
-    the out-of-place entry's by K, as ``launches()`` adds the parent's."""
+    ``total`` and to the kernels record's tallies by p, by skinny K, the
+    out-of-place entry's by K and the flash forward's by kernel, as
+    ``launches()`` adds the parent's."""
     for entry, count in counts["launches"].items():
         total[entry] = total.get(entry, 0) + count
-    for key, into in (("cols", BY_P), ("skinny", SKINNY_K)):
+    for key, into in (("cols", BY_P), ("skinny", SKINNY_K),
+                      ("flash_kernels", FLASH_BY_KERNEL)):
         for entry, counter in counts[key].items():
             tally = into.setdefault(entry, {})
             for k, count in counter.items():
@@ -8966,6 +8995,22 @@ def main() -> int:
             if SKINNY_K.get(entry):
                 kernels[-1]["skinny_launches_by_K"] = dict(
                     sorted(SKINNY_K[entry].items()))
+        if entry in ("flash_attention", "flash_attention_fwd_lse"):
+            # the kernel the headline shape takes, and the main path's
+            # launches by kernel (by head dim and type)
+            kernels[-1]["kernel"] = head["kernel"]
+            kernels[-1]["launches_by_kernel"] = dict(sorted(
+                FLASH_BY_KERNEL.get(entry, {}).items()))
+            if sum(kernels[-1]["launches_by_kernel"].values()) \
+                    != kernels[-1]["launches"]:
+                raise AssertionError(
+                    f"{entry}: launches by kernel "
+                    f"{kernels[-1]['launches_by_kernel']} do not sum to its "
+                    f"{kernels[-1]['launches']} launches")
+            if not kernels[-1]["launches_by_kernel"].get(
+                    "flash_attention_bf16_wgmma"):
+                raise AssertionError(f"{entry}: the main path launched no "
+                                     "flash_attention_bf16_wgmma")
         if entry == "rank_update_batched":
             kernels[-1]["launches_by_K"] = dict(sorted(by_k.items()))
         if entry == "rank_update_batched_out":

@@ -27,10 +27,62 @@
 // square included) FLOPs (two products) against reading q, k, v once and
 // writing out once.  At S = 4096
 // it is FLOP-bound by far (~0.69 TFLOP per danube layer at B = 8).  The
-// entry takes one of two kernels by the input type:
+// entry takes one of three kernels by the input type and, for bf16, by
+// the head dim (tc::dispatch's switch):
 //
-// bf16 -> flash_attention_bf16_mma, on the bf16 tensor cores
-// (mma.sync.m16n8k16, the FlashAttention-2 design):
+// bf16, head dims 64, 80 and 128 -> wg::flash_attention_bf16_wgmma, on
+// the bf16 tensor cores by Hopper's wgmma, fed by TMA:
+//   * one block of 3 warpgroups per (query tile of 128 rows, head, batch),
+//     query tiles launched last-first.  Warpgroup 0 is the producer: one
+//     thread issues every copy (cp.async.bulk.tensor, 4-d tensor maps over
+//     (hd, heads, S, B), so positions past S arrive as zeros), and the
+//     warpgroup hands its registers to the consumers (setmaxnreg 24 /
+//     240).  Warpgroups 1 and 2 are the consumers, 64 query rows each;
+//   * the Q tile once, then K and V tiles of 128 keys (64 at head dim 64
+//     up to S = 256, SHORT_S) through a ring of 3 stages (2 at head dim
+//     128) with full (K, V apart) and empty mbarriers: a stage is
+//     refilled once both consumers have released it; key tiles wholly
+//     past the block's last key limit or before its window are never
+//     loaded;
+//   * shared tiles are TMA's swizzled boxes, the layouts wgmma reads: 64
+//     columns at a time with 128-byte rows and the 128-byte swizzle, and
+//     at head dim 80 the last 16 columns as a box of their own with
+//     32-byte rows and the 32-byte swizzle (no padding: Q K^T takes it as
+//     a fifth k16 step, P V as an n16 product beside the n64 one);
+//   * S = Q K^T: wgmma m64n128k16 (n64 on 64-key tiles), Q and K both
+//     K-major from shared memory by descriptor (a k16 step moves the
+//     start address 32 bytes inside a swizzle atom), f32 accumulators;
+//   * the online softmax on the accumulators, as in the mma.sync kernel
+//     below (each warp's 16 rows hold the m16n8 layout): exp2 with m in
+//     the same units, m = -inf for a row with nothing kept so far, l
+//     summed from the f32 p;
+//   * O += P V with P in registers as two bf16 terms (hi, lo): the
+//     accumulators of n8 tiles 2 kk and 2 kk + 1 are the A fragment of k16
+//     step kk; two register-sourced wgmmas a step on one V descriptor (V
+//     is [key][hd], MN-major: the transposed B that bf16 wgmma takes);
+//     wgmma.fence before each product group, whose accumulator and P
+//     registers the softmax wrote, commit and wait before they are read;
+//   * each consumer issues tile i's P V and tile i + 1's S back to back,
+//     waits for the P V (its stage is released), then for the S and runs
+//     its softmax; on 128-key tiles the two consumers take turns to
+//     issue (named barriers 1 and 2), so one's softmax runs beside the
+//     other's products.  S, P (both terms) and O are live at
+//     once: up to 216 registers a thread at head dim 128.  (FA3's order,
+//     tile i + 1's S issued with tile i's P V and its softmax run under
+//     that P V, was tried: no faster);
+//   * the mask only on tiles a warpgroup's rows cut; a warpgroup computes
+//     every tile the block loads (one wholly masked for its rows adds p =
+//     0 and alpha = 1);
+//   * O / l rounded to bf16 and written from the accumulators (4 bytes a
+//     thread, a quad covers 16 bytes of a row); rows past S are not
+//     written; LSE under WRITE_LSE.
+//   A launch the kernel refuses (a tensor map the driver will not encode,
+//   too much shared memory) returns its error; nothing falls back.
+//   cuTensorMapEncodeTiled is found through
+//   cudaGetDriverEntryPointByVersion, so the library links no libcuda.
+//
+// bf16, head dims 32, 96 and 256 -> tc::flash_attention_bf16_mma, on the
+// bf16 tensor cores (mma.sync.m16n8k16, the FlashAttention-2 design):
 //   * one block of 8 warps per (query tile of 128 rows, head, batch); each
 //     warp owns one m16 strip of 16 query rows.  The grid puts the query
 //     tile in its slowest dimension, last tile first, so the long causal
@@ -128,7 +180,9 @@
 //   * O / l is written from the accumulators as float2 stores (each row's
 //     32-byte runs whole); rows past S are not written.
 
+#include <cuda.h>
 #include <math.h>
+#include <string.h>
 
 #include "attention_common.cuh"
 
@@ -151,7 +205,678 @@ __device__ __forceinline__ void store_lse(float* lse, int64_t row0, int s,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core kernel
+// bf16 at head dims 64, 80 and 128: the Hopper kernel (TMA + wgmma)
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+using attn::exp2_approx;
+using attn::pack_bf16;
+using attn::smem_addr;
+using attn::split_bf16;
+
+constexpr int BQ = 128;        // query rows a block, 64 a consumer warpgroup
+constexpr int THREADS = 384;   // the producer warpgroup, then two consumers
+// registers a thread after setmaxnreg: the launch gives each of the 384
+// threads 168 (65536 / 384, rounded down to a multiple of 8); the
+// producer, which only issues copies, hands all but 24 to the consumers,
+// 128 * 24 + 256 * 240 = 128 * 3 * 168 (their S, P and O take up to 216
+// at head dim 128)
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+
+// Shared memory of one block.  A tile of R rows x HD columns is stored as
+// HD / 64 parts of R rows x 64 columns (128-byte rows, TMA's 128-byte
+// swizzle) and, at head dim 80, a tail of R rows x 16 columns (32-byte
+// rows, its 32-byte swizzle): the swizzle atoms wgmma reads, each part
+// one TMA box.  Every part starts on a 1024-byte boundary.  K and V
+// tiles hold BK keys.
+template <int HD, int BK_ = 128>
+struct Geo {
+  static constexpr int PARTS = HD / 64;    // 64-column parts
+  static constexpr int TAIL = HD % 64;     // 0, or 16 columns
+  static_assert(TAIL == 0 || TAIL == 16, "head dims 64, 80 and 128");
+  static constexpr int BK = BK_;
+  static constexpr int KSTEPS = HD / 16;   // k16 steps of Q K^T
+  static constexpr int STAGES = HD <= 80 ? 3 : 2;   // the K / V ring
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;      // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // barriers: Q full, then K full, V full and empty for each stage
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
+};
+
+// The tensor maps of one launch: q, k and v over (hd, heads, S, B), boxes
+// of 64 columns (128-byte swizzle) and, at head dim 80, of the 16 columns
+// past them (32-byte swizzle); passed by value as a __grid_constant__.
+struct Maps {
+  CUtensorMap q, k, v;
+  CUtensorMap q_tail, k_tail, v_tail;
+};
+
+// -- mbarriers and TMA ------------------------------------------------------
+
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// One box of `map` at (col, head, pos, b) into shared memory at dst; its
+// bytes complete a transaction of barrier `bar`.  Rows past S are zeros.
+__device__ __forceinline__ void tma_load(const CUtensorMap& map, uint32_t dst,
+                                         uint32_t bar, int col, int head,
+                                         int pos, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar),
+         "r"(col), "r"(head), "r"(pos), "r"(b)
+      : "memory");
+}
+
+// Rows pos .. pos + ROWS - 1 of head `head` of batch element b, all HD
+// columns, into the parts of a tile at dst.
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_tile(const CUtensorMap& map,
+                                          const CUtensorMap& tail,
+                                          uint32_t dst, uint32_t bar,
+                                          int head, int pos, int b) {
+  using G = Geo<HD>;
+#pragma unroll
+  for (int p = 0; p < G::PARTS; ++p)
+    tma_load(map, dst + p * ROWS * 128, bar, 64 * p, head, pos, b);
+  if constexpr (G::TAIL > 0)
+    tma_load(tail, dst + G::PARTS * ROWS * 128, bar, 64 * G::PARTS, head,
+             pos, b);
+}
+
+// -- wgmma ------------------------------------------------------------------
+
+// A shared-memory matrix descriptor: start address, leading and stride
+// byte offsets, and the swizzle (1: 128-byte, 3: 32-byte).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, uint64_t swizzle) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (swizzle << 62);
+}
+
+// K-major operand (Q or K: rows of HD columns, the contraction along
+// them) of a tile of R rows at `tile`, first row `row0`, k16 step kk.  A
+// 128-byte-swizzled part has rows 128 bytes apart, 8-row groups 1024; a
+// k16 step inside it moves the start by its 32 bytes.  The tail has
+// 32-byte rows, groups 256 bytes apart, and is one k16 step.
+template <int HD, int R>
+__device__ __forceinline__ uint64_t k_major(uint32_t tile, int row0, int kk) {
+  using G = Geo<HD>;
+  if (kk < 4 * G::PARTS)
+    return desc(tile + (kk / 4) * R * 128 + row0 * 128 + (kk % 4) * 32, 16,
+                1024, 1);
+  return desc(tile + G::PARTS * R * 128 + row0 * 32, 16, 256, 3);
+}
+
+__device__ __forceinline__ void mma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void mma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of an accumulator
+// register across the asynchronous products that own it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (+)= A B, m64nNk16 (N = 2 R: 64 or 128): A and B both from shared
+// memory by descriptor, both K-major; d is overwritten where scale_d is
+// 0.
+template <int R>
+__device__ __forceinline__ void mma_ss(float (&d)[R], uint64_t da,
+                                       uint64_t db, int scale_d) {
+  static_assert(R == 32 || R == 64, "n64 or n128");
+  if constexpr (R == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
+// d += A B, m64n16k16: A from registers (a warp's m16k16
+// fragment), B from shared memory by descriptor, MN-major (transposed).
+__device__ __forceinline__ void mma_rs(float (&d)[8],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B, m64n64k16: A from registers (a warp's m16k16
+// fragment), B from shared memory by descriptor, MN-major (transposed).
+__device__ __forceinline__ void mma_rs(float (&d)[32],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B, m64n128k16: A from registers (a warp's m16k16
+// fragment), B from shared memory by descriptor, MN-major (transposed).
+__device__ __forceinline__ void mma_rs(float (&d)[64],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// -- the consumers' steps ---------------------------------------------------
+
+// Named barriers 1 and 2: consumer warpgroup w issues its products only
+// after the other has issued its own and arrived on barrier 1 + w, so
+// that one's products run on the tensor cores while the other's softmax
+// runs on the other pipes.
+__device__ __forceinline__ void turn_wait(int wgi) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(1 + wgi) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wgi) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(2 - wgi) : "memory");
+}
+
+// Issue S = Q K^T for the warpgroup's 64 rows (the Q tile's rows from
+// row0) against a tile of 2 NS keys: m64 n(2 NS) k16 steps, both
+// operands K-major in shared memory.
+template <int HD, int NS>
+__device__ __forceinline__ void issue_s(float (&sc)[NS], uint32_t q_tile,
+                                        int row0, uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < Geo<HD>::KSTEPS; ++kk)
+    mma_ss(sc, k_major<HD, BQ>(q_tile, row0, kk),
+           k_major<HD, 2 * NS>(k_tile, 0, kk), kk > 0);
+}
+
+// Issue O += P V: P from registers as its two bf16 terms, V ([key][hd],
+// MN-major) by descriptor; lo then hi on each of the tile's NK k16
+// steps.
+template <int HD, int OW, int TW, int NK>
+__device__ __forceinline__ void issue_pv(float (&o)[OW / 2], float (&ot)[TW],
+                                         const uint32_t (&hi)[NK][4],
+                                         const uint32_t (&lo)[NK][4],
+                                         uint32_t v_tile) {
+  using G = Geo<HD>;
+  constexpr int BK = 16 * NK;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t dv = desc(v_tile + kk * 16 * 128, BK * 128, 1024, 1);
+    mma_rs(o, lo[kk], dv);
+    mma_rs(o, hi[kk], dv);
+    if constexpr (G::TAIL > 0) {
+      const uint64_t dt =
+          desc(v_tile + G::PARTS * BK * 128 + kk * 16 * 32, 256, 256, 3);
+      mma_rs(ot, lo[kk], dt);
+      mma_rs(ot, hi[kk], dt);
+    }
+  }
+}
+
+// The softmax of one tile of S on the accumulators, in place: the mask
+// (on tiles the warpgroup's rows qw .. qw + 63 cut only), the running
+// max m (log2 units) and sum l of rows r0 and r0 + 8 updated, sc turned
+// into p; returns in alpha each row's rescale of O.
+template <int NS, int BK = 2 * NS>
+__device__ __forceinline__ void softmax(float (&sc)[NS], float (&m)[2],
+                                        float (&l)[2], float (&alpha)[2],
+                                        int k0, int qw, int r0, int t, int s,
+                                        int causal, int window, int prefix,
+                                        float scale_log2) {
+  const bool interior = k0 + BK <= s &&
+                        (!causal || k0 + BK - 1 <= key_limit(qw, prefix)) &&
+                        (window <= 0 || k0 > qw + 63 - window);
+  if (!interior) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + 8 * j + 2 * t + (e & 1);
+        const int qp = r0 + 8 * (e >> 1);
+        const bool keep = kp < s &&
+                          (!causal || kp <= key_limit(qp, prefix)) &&
+                          (window <= 0 || kp > qp - window);
+        if (!keep) sc[4 * j + e] = -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  float neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = attn::group_max<4>(mx[r]);
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    // a row with no kept key yet keeps m = -inf: its p = exp2(-inf) = 0
+    // and alpha = 0 leave its zero state as it is
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = exp2_approx(m[r] - m_use);
+    m[r] = m_new;
+    neg_m[r] = -m_use;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * j + e] =
+          exp2_approx(fmaf(sc[4 * j + e], scale_log2, neg_m[e >> 1]));
+      rs[e >> 1] += sc[4 * j + e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+}
+
+// O's accumulator rows r0 (e = 0, 1) and r0 + 8 (e = 2, 3) times alpha.
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+// P as two bf16 terms (hi + lo) in the A fragment of each k16 step: the
+// accumulators of n8 tiles 2 kk and 2 kk + 1 (the m16n8k16 layout).
+template <int NS, int BK = 2 * NS>
+__device__ __forceinline__ void split_p(const float (&sc)[NS],
+                                        uint32_t (&hi)[BK / 16][4],
+                                        uint32_t (&lo)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1], hi[kk][e],
+                 lo[kk][e]);
+}
+
+// -- the kernel -------------------------------------------------------------
+
+template <int HD, int BK, bool WRITE_LSE>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_bf16_wgmma(const __grid_constant__ Maps maps,
+                           bf16* __restrict__ out, int s, int h, int kvh,
+                           int causal, int window, int prefix,
+                           float scale_log2, float* __restrict__ lse) {
+  using G = Geo<HD, BK>;
+  constexpr int OW = 64 * G::PARTS;          // O's columns, wide products
+  constexpr int TW = G::TAIL ? G::TAIL / 2 : 1;   // the tail's accumulators
+  constexpr int ST = G::STAGES;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_tile = base;
+  const uint32_t k_tiles = base + G::K_OFF;
+  const uint32_t v_tiles = base + G::V_OFF;
+  const uint32_t q_full = base + G::BAR_OFF;
+  const uint32_t k_full = q_full + 8;             // + 8 * stage
+  const uint32_t v_full = k_full + 8 * ST;
+  const uint32_t empty = v_full + 8 * ST;
+
+  const int head = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int kv_head = head / (h / kvh);
+
+  // live key tiles: not wholly past the key limit of the block's last row,
+  // not wholly before the window of its first row
+  const int q_last = min(q0 + BQ, s) - 1;
+  int kt_end = (s + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, key_limit(q_last, prefix) / BK + 1);
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  const int tiles = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      bar_init(k_full + 8 * i, 1);
+      bar_init(v_full + 8 * i, 1);
+      bar_init(empty + 8 * i, 2 * 128);   // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup's role, read from lane 0 so that the compiler sees a
+  // warp-uniform branch (and gives each side its setmaxnreg budget)
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {
+    // the producer: one thread issues every copy; a stage is refilled
+    // once both consumer warpgroups have released it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      bar_expect(q_full, G::Q_BYTES);
+      load_tile<HD, BQ>(maps.q, maps.q_tail, q_tile, q_full, head, q0, b);
+      for (int i = 0; i < tiles; ++i) {
+        const int st = i % ST;
+        if (i >= ST) bar_wait(empty + 8 * st, (i / ST - 1) & 1);
+        const int pos = (kt_begin + i) * BK;
+        bar_expect(k_full + 8 * st, G::KV_BYTES);
+        load_tile<HD, BK>(maps.k, maps.k_tail, k_tiles + st * G::KV_BYTES,
+                          k_full + 8 * st, kv_head, pos, b);
+        bar_expect(v_full + 8 * st, G::KV_BYTES);
+        load_tile<HD, BK>(maps.v, maps.v_tail, v_tiles + st * G::KV_BYTES,
+                          v_full + 8 * st, kv_head, pos, b);
+      }
+    }
+  } else {
+    // a consumer warpgroup: 64 query rows over every tile the producer
+    // loads.  Tile i's P V and tile i + 1's S go out back to back, in
+    // turns with the other consumer's products, and the softmax of that S
+    // runs while the other warpgroup's products do.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(CONSUMER_REGS));
+    const int tid = threadIdx.x - 128;
+    const int wgi = role - 1;            // consumer warpgroup 0 or 1
+    const int warp = (tid >> 5) & 3;     // its warps own 16 rows each
+    const int lane = tid & 31;
+    const int t = lane & 3;              // accumulator column pair
+    const int qw = q0 + 64 * wgi;        // the warpgroup's first row
+    const int r0 = qw + 16 * warp + (lane >> 2);   // rows r0, r0 + 8
+
+    float o[OW / 2];                     // O, columns 0 .. OW - 1
+    float ot[TW];                        // O, the tail's 16 columns
+#pragma unroll
+    for (int i = 0; i < OW / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < TW; ++i) ot[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};   // rows r0 and r0 + 8, log2 units
+    float l[2] = {0.f, 0.f};               // this thread's columns only
+    float alpha[2];
+    float sc[BK / 2];                      // S, then P: n8 tile j, e = 0..3
+    uint32_t hi[BK / 16][4], lo[BK / 16][4];   // P's A fragments
+
+    // the turns pay on 128-key tiles; in the short calls' blocks of
+    // 64-key tiles they only delay the second warpgroup
+    constexpr bool turns = BK == 128;
+    if (turns && wgi == 1) turn_pass(wgi);   // warpgroup 0 issues first
+    bar_wait(q_full, 0);
+    bar_wait(k_full, 0);
+    if (turns) turn_wait(wgi);
+    fence_regs(sc);
+    mma_fence();
+    issue_s<HD>(sc, q_tile, 64 * wgi, k_tiles);
+    mma_commit();
+    if (turns) turn_pass(wgi);
+    mma_wait<0>();
+    fence_regs(sc);
+    softmax(sc, m, l, alpha, kt_begin * BK, qw, r0, t, s, causal, window,
+            prefix, scale_log2);
+    split_p(sc, hi, lo);
+
+    for (int i = 0; i < tiles; ++i) {
+      const int st = i % ST, next = (i + 1) % ST;
+      const bool more = i + 1 < tiles;
+      bar_wait(v_full + 8 * st, (i / ST) & 1);
+      if (turns) turn_wait(wgi);
+      fence_regs(o);
+      fence_regs(ot);
+      fence_regs(sc);
+      mma_fence();
+      issue_pv<HD, OW, TW>(o, ot, hi, lo, v_tiles + st * G::KV_BYTES);
+      mma_commit();
+      if (more) {
+        bar_wait(k_full + 8 * next, ((i + 1) / ST) & 1);
+        issue_s<HD>(sc, q_tile, 64 * wgi, k_tiles + next * G::KV_BYTES);
+        mma_commit();
+      }
+      // every turn_wait of both warpgroups is matched: warpgroup 1 passed
+      // once before its first
+      if (turns && (more || wgi == 0)) turn_pass(wgi);
+      if (more) {
+        mma_wait<1>();   // tile i's P V is done; tile i + 1's S may run on
+      } else {
+        mma_wait<0>();
+      }
+      fence_regs(o);
+      fence_regs(ot);
+      bar_arrive(empty + 8 * st);
+      if (more) {
+        mma_wait<0>();
+        fence_regs(sc);
+        softmax(sc, m, l, alpha, (kt_begin + i + 1) * BK, qw, r0, t, s,
+                causal, window, prefix, scale_log2);
+        rescale(o, alpha);
+        rescale(ot, alpha);
+        split_p(sc, hi, lo);
+      }
+    }
+
+    // epilogue: O / l in bf16 from the accumulators; rows past S are not
+    // written
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lr = attn::group_sum<4>(l[r]);
+      inv[r] = 1.f / fmaxf(lr, 1e-30f);
+      if constexpr (WRITE_LSE) store_lse(lse, (int64_t)b * h + head, s,
+                                         r0 + 8 * r, t, m[r], lr);
+    }
+    const int64_t q_row = (int64_t)h * HD;
+    bf16* ob = out + ((int64_t)b * s * h + head) * HD + 2 * t;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (r0 + 8 * r >= s) continue;
+      bf16* row = ob + (r0 + 8 * r) * q_row;
+#pragma unroll
+      for (int j = 0; j < OW / 8; ++j)
+        *reinterpret_cast<uint32_t*>(row + 8 * j) =
+            pack_bf16(o[4 * j + 2 * r] * inv[r],
+                      o[4 * j + 2 * r + 1] * inv[r]);
+#pragma unroll
+      for (int j = 0; j < G::TAIL / 8; ++j)
+        *reinterpret_cast<uint32_t*>(row + OW + 8 * j) = pack_bf16(
+            ot[4 * j + 2 * r] * inv[r], ot[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+// -- the launch -------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled (its CUDA 12.0 form), found once
+// through the runtime (the library links no libcuda); null if the driver
+// has none.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map of the bf16 tensor at ptr as (hd, heads, S, B), boxes of `cols`
+// columns x `rows` positions of one head and one batch element; positions
+// past S read as zeros.
+bool encode(CUtensorMap* map, const void* ptr, int hd, int heads, int s,
+            int b, int cols, int rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)s * heads * hd * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elems[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elems, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, int BK, bool WRITE_LSE>
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b, int s, int h, int kvh, int causal, int window,
+           int prefix, float scale, cudaStream_t stream) {
+  using G = Geo<HD, BK>;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  const CUtensorMapSwizzle wide = CU_TENSOR_MAP_SWIZZLE_128B;
+  bool ok = encode(&maps.q, q, HD, h, s, b, 64, BQ, wide) &&
+            encode(&maps.k, k, HD, kvh, s, b, 64, G::BK, wide) &&
+            encode(&maps.v, v, HD, kvh, s, b, 64, G::BK, wide);
+  if (G::TAIL > 0) {
+    const CUtensorMapSwizzle narrow = CU_TENSOR_MAP_SWIZZLE_32B;
+    ok = ok && encode(&maps.q_tail, q, HD, h, s, b, G::TAIL, BQ, narrow) &&
+         encode(&maps.k_tail, k, HD, kvh, s, b, G::TAIL, G::BK, narrow) &&
+         encode(&maps.v_tail, v, HD, kvh, s, b, G::TAIL, G::BK, narrow);
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  auto kern = flash_attention_bf16_wgmma<HD, BK, WRITE_LSE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(h, b, (s + BQ - 1) / BQ);
+  kern<<<grid, THREADS, G::SMEM, stream>>>(
+      maps, static_cast<bf16*>(out), s, h, kvh, causal, window, prefix,
+      scale * 1.4426950408889634f, lse);
+  return (int)cudaGetLastError();
+}
+
+// Head dim 64 up to this S takes 64-key tiles: its blocks hold few tiles,
+// and smaller ones start the math sooner.  Every other call, 128 keys.
+constexpr int SHORT_S = 256;
+
+int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
+             float* lse, int b, int s, int h, int kvh, int causal,
+             int window, int prefix, float scale, cudaStream_t stream) {
+#define FA_LAUNCH(D, K)                                                     \
+  (lse ? launch<D, K, true>(q, k, v, out, lse, b, s, h, kvh, causal,       \
+                            window, prefix, scale, stream)                 \
+       : launch<D, K, false>(q, k, v, out, lse, b, s, h, kvh, causal,      \
+                             window, prefix, scale, stream))
+  switch (hd) {
+    case 64: return s <= SHORT_S ? FA_LAUNCH(64, 64) : FA_LAUNCH(64, 128);
+    case 80: return FA_LAUNCH(80, 128);
+    case 128: return FA_LAUNCH(128, 128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FA_LAUNCH
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
+// bf16 at head dims 32, 96 and 256: the mma.sync kernel
 
 namespace tc {
 
@@ -458,12 +1183,16 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
                          prefix, scale, stream)                            \
        : launch<D, false>(q, k, v, out, lse, b, s, h, kvh, causal, window, \
                           prefix, scale, stream))
+  // the route by head dim: 64, 80 and 128 to the Hopper kernel (wg::),
+  // 32, 96 and 256 to flash_attention_bf16_mma
   switch (hd) {
     case 32: return FA_LAUNCH(32);
-    case 64: return FA_LAUNCH(64);
-    case 80: return FA_LAUNCH(80);
+    case 64:
+    case 80:
+    case 128:
+      return wg::dispatch(hd, q, k, v, out, lse, b, s, h, kvh, causal,
+                          window, prefix, scale, stream);
     case 96: return FA_LAUNCH(96);
-    case 128: return FA_LAUNCH(128);
     case 256: return FA_LAUNCH(256);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -9,10 +9,14 @@ and computes the reference model's ``blockwise_attention``: causal,
 prefix-LM (bidirectional over the first ``prefix_len`` positions, causal
 after) or full attention, an optional sliding window, grouped-query heads
 read in place.
-bf16 inputs run on the tensor cores (``mma.sync``, with p carried into
-P V as two bf16 terms); f32 inputs run on the TF32 tensor cores with
-split operands (each operand as two TF32 terms, three ``mma.sync``
-products for each, which keeps the f32 path's 2e-4 tolerance).
+bf16 inputs run on the tensor cores, with p carried into P V as two bf16
+terms, by a route that depends on the head dim (:func:`kernel_of`): 64,
+80 and 128 on Hopper's ``wgmma`` fed by TMA
+(``flash_attention_bf16_wgmma``), 32, 96 and 256 on ``mma.sync``
+(``flash_attention_bf16_mma``); f32 inputs run on the TF32 tensor cores
+with split operands (each operand as two TF32 terms, three ``mma.sync``
+products for each, which keeps the f32 path's 2e-4 tolerance;
+``flash_attention_3xtf32``).
 
 Under grad mode, with an operand that requires grad, :func:`flash_attention`
 runs :class:`FlashAttention`: its forward launches
@@ -33,12 +37,14 @@ order.
 Each entry launches on the current CUDA stream, allocates only its outputs
 (and the backward its row scratch and the split's workspace) and never
 falls back to the plain version: anything a kernel does not take raises.
-``LAUNCHES`` counts each entry's launches by name.
+``LAUNCHES`` counts each entry's launches by name, ``BY_KERNEL`` the
+forward entries' launches by the kernel each took.
 """
 
 from __future__ import annotations
 
 import functools
+from collections import Counter
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -51,8 +57,14 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0,
                             "flash_attention_fwd_lse": 0,
                             "flash_attention_bwd": 0}
 
+#: the forward entries' launches by the kernel each took (:func:`kernel_of`)
+BY_KERNEL: Dict[str, Counter] = {"flash_attention": Counter(),
+                                 "flash_attention_fwd_lse": Counter()}
+
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+#: bf16 head dims the forward takes on wgmma (csrc's tc::dispatch)
+WGMMA_HEAD_DIMS = (64, 80, 128)
 
 _FWD_SIGNATURES = {
     "flash_attention_fwd": [cuda_build.PTR] * 4 + [cuda_build.I32] * 9
@@ -87,6 +99,18 @@ _RAW = "this entry is not differentiable (flash_attention is)"
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in BY_KERNEL.values():
+        counts.clear()
+
+
+def kernel_of(dtype: torch.dtype, hd: int) -> str:
+    """The CUDA kernel the forward launches for operands of ``dtype`` at
+    head dim ``hd`` (the switch of csrc's ``tc::dispatch``)."""
+    if dtype == torch.float32:
+        return "flash_attention_3xtf32"
+    if hd in WGMMA_HEAD_DIMS:
+        return "flash_attention_bf16_wgmma"
+    return "flash_attention_bf16_mma"
 
 
 def check_attention_operands(**tensors: torch.Tensor) -> torch.dtype:
@@ -171,7 +195,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             h, kvh, hd, int(causal), window or 0, prefix_len,
             int(dtype == torch.bfloat16), hd ** -0.5, _stream(q))
     cuda_build.check_launch("flash_attention_fwd", code)
-    cuda_build.count_launch(LAUNCHES, "flash_attention")
+    cuda_build.count_launch(LAUNCHES, "flash_attention",
+                            extra=((BY_KERNEL, kernel_of(dtype, hd)),))
     return out
 
 
@@ -200,7 +225,8 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
             prefix_len, int(dtype == torch.bfloat16), hd ** -0.5,
             _stream(q))
     cuda_build.check_launch("flash_attention_fwd_lse", code)
-    cuda_build.count_launch(LAUNCHES, "flash_attention_fwd_lse")
+    cuda_build.count_launch(LAUNCHES, "flash_attention_fwd_lse",
+                            extra=((BY_KERNEL, kernel_of(dtype, hd)),))
     return out, lse
 
 

@@ -506,9 +506,10 @@ _FLASH_BOTH = [
     (2, 288, 32, 32, 64, True, None),   # zamba2's f32 cut: hd 64, group 1
     (1, 1000, 96, 8, 128, True, None),  # command-r-plus-104b: group 12
     (1, 1000, 40, 40, 128, True, None)]  # qwen1.5-32b: H = KV = 40
-# bf16 only: the tensor-core kernel's tiles (128 query rows, 64 keys) at
-# every head dim, lengths inside, at and across a tile, windows of 1 and
-# shorter than a key tile, full attention, groups 1, 4 and 9
+# bf16 only: the tensor-core kernels' tiles (128 query rows; 64 keys on
+# mma.sync, 128 on wgmma, 64 at its head dim 64 up to S = 256) at every
+# head dim, lengths inside, at and across a tile, windows of 1 and shorter
+# than a key tile, full attention, groups 1, 4 and 9
 _FLASH_BF16 = [
     (1, 200, 4, 1, 32, True, None),     # hd 32, group 4
     (1, 200, 8, 2, 64, True, None),     # hd 64
@@ -544,6 +545,40 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh, hd,
     torch.testing.assert_close(
         got, ref.flash_attention(q, k, v, causal=causal, window=window),
         **ATTN_TOL[dtype])
+
+
+# bf16 at head dims 64, 80 and 128: the wgmma kernel, both instances, under
+# each mask (causal, a window, the prefix, full), groups of 1, 8 and 16 and
+# ragged lengths: (b, s, h, kvh, hd, causal, window, prefix)
+_FLASH_WGMMA = [
+    (1, 384, 8, 8, 64, True, None, 0),      # causal, group 1
+    (2, 1000, 16, 2, 80, True, None, 0),    # ragged S, group 8
+    (1, 700, 16, 1, 128, True, 200, 0),     # a window, group 16
+    (2, 600, 8, 1, 80, True, None, 256),    # the prefix, group 8
+    (1, 500, 16, 1, 64, False, None, 0),    # full, group 16
+    (1, 520, 16, 2, 128, False, 100, 0),    # full under a window
+    (1, 333, 16, 16, 80, True, 64, 100),    # window and prefix, group 1
+    (4, 200, 16, 1, 64, True, 50, 70)]      # 64-key tiles (S <= 256)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd,causal,window,prefix", _FLASH_WGMMA)
+def test_flash_attention_wgmma_kernel_matches_plain(cuda, b, s, h, kvh, hd,
+                                                    causal, window, prefix):
+    g = torch.Generator(device=cuda).manual_seed(s + h + hd + prefix)
+    q, k, v = (torch.randn(b, s, n, hd, device=cuda, generator=g
+                           ).to(torch.bfloat16) for n in (h, kvh, kvh))
+    opts = dict(causal=causal, window=window, prefix_len=prefix)
+    wgmma = "flash_attention_bf16_wgmma"
+    before = {entry: counts[wgmma]
+              for entry, counts in cuda_fa.BY_KERNEL.items()}
+    got = cuda_fa.flash_attention(q, k, v, **opts)
+    out, lse = cuda_fa.flash_attention_fwd_lse(q, k, v, **opts)
+    assert {entry: counts[wgmma] for entry, counts in
+            cuda_fa.BY_KERNEL.items()} == {e: n + 1 for e, n in before.items()}
+    want, want_lse = ref.flash_attention_lse(q, k, v, **opts)
+    torch.testing.assert_close(got, want, **ATTN_TOL[torch.bfloat16])
+    assert torch.equal(out, got)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-4, atol=2e-4)
 
 
 # f32 only: the split-TF32 kernel's two geometries (blocks of 128 query

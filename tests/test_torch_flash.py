@@ -80,19 +80,47 @@ def test_flash_decode_matches_the_models_decode_einsum(rng):
     assert_close(got.numpy(), want.reshape(b, h, d), **TOL)
 
 
-@pytest.mark.parametrize("s,hd,causal,bq,bk", [
-    (256, 64, True, 128, 128), (512, 32, True, 256, 128),
-    (256, 64, False, 64, 256), (384, 128, True, 128, 128),
-    (256, 80, True, 128, 128)])
-def test_flash_attention_matches_pallas(s, hd, causal, bq, bk, rng):
-    q, k, v = (_normal(rng, s, hd) for _ in range(3))
-    got = ops.flash_attention(*(torch.from_numpy(x)[None, :, None]
-                                for x in (q, k, v)), causal=causal)
-    got = got[0, :, 0].numpy()
-    assert_close(got, flash_attention_pallas(q, k, v, bq=bq, bk=bk,
-                                             causal=causal, interpret=True),
-                 **TOL)
-    assert_close(got, jax_ref.flash_attention(q, k, v, causal=causal), **TOL)
+def _pallas_case(s, hd, causal, bq, bk, h=1, kvh=1):
+    return pytest.param(s, hd, causal, bq, bk, h, kvh,
+                        id="-".join(map(str, (s, hd, causal, bq, bk)))
+                        + (f"-h{h}-kv{kvh}" if h > 1 else ""))
+
+
+# single heads; then head dim 80 under a group of 16 query heads on one KV
+# head at an S that is no multiple of the card kernel's 128-row tiles
+@pytest.mark.parametrize("s,hd,causal,bq,bk,h,kvh", [
+    _pallas_case(256, 64, True, 128, 128),
+    _pallas_case(512, 32, True, 256, 128),
+    _pallas_case(256, 64, False, 64, 256),
+    _pallas_case(384, 128, True, 128, 128),
+    _pallas_case(256, 80, True, 128, 128),
+    _pallas_case(136, 80, True, 68, 68, h=16, kvh=1)])
+def test_flash_attention_matches_pallas(s, hd, causal, bq, bk, h, kvh, rng):
+    q = _normal(rng, 1, s, h, hd)
+    k, v = _normal(rng, 1, s, kvh, hd), _normal(rng, 1, s, kvh, hd)
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal).numpy()
+    # the Pallas kernel takes one (batch, head) at a time: each query head
+    # against its group's KV head
+    for head in range(h):
+        qh, kh, vh = q[0, :, head], k[0, :, head // (h // kvh)], \
+            v[0, :, head // (h // kvh)]
+        assert_close(got[0, :, head], flash_attention_pallas(
+            qh, kh, vh, bq=bq, bk=bk, causal=causal, interpret=True), **TOL)
+        assert_close(got[0, :, head],
+                     jax_ref.flash_attention(qh, kh, vh, causal=causal),
+                     **TOL)
+
+
+def test_flash_attention_routes_by_head_dim():
+    """bf16 at head dims 64, 80 and 128 takes the wgmma kernel, the other
+    bf16 head dims the mma.sync one, f32 the split-TF32 one."""
+    for hd in cuda_fa.HEAD_DIMS:
+        assert cuda_fa.kernel_of(torch.bfloat16, hd) == (
+            "flash_attention_bf16_wgmma" if hd in (64, 80, 128)
+            else "flash_attention_bf16_mma")
+        assert cuda_fa.kernel_of(torch.float32, hd) == \
+            "flash_attention_3xtf32"
 
 
 # (b, s, h, kvh, hd, causal, window): the reference test's multi-head case,

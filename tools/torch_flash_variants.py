@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Side-by-side timing of build variants of the flash-attention kernels on
-one GPU: the prefill entry's f32 kernel (split TF32) and bf16 kernel
-(tensor cores), and the backward entry (K1: bf16 on the tensor cores, f32
-on the TF32 tensor cores with split operands).
+one GPU: the prefill entry's f32 kernel (split TF32) and bf16 kernels
+(wgmma fed by TMA at head dims 64, 80 and 128; mma.sync at 32, 96 and
+256), and the backward entry (K1: bf16 on the tensor cores, f32 on the
+TF32 tensor cores with split operands).
 
     python3 tools/torch_flash_variants.py [--parent ROOT]
         [--entries fwd,bwd] [--dtypes f32,bf16] [--rounds N] [VARIANT ...]
@@ -22,12 +23,15 @@ and new kernels run in one call.  Without variant names the script runs
 
 For each variant the script prints every kernel instance's registers and
 spills (``ptxas``), then, from ``cuobjdump -sass``, each instance's
-tensor-core and arithmetic instructions by kind (``HMMA.1688.F32.TF32``
-is the split-TF32 product, ``HMMA.16816.F32.BF16`` the bf16 one) and
-whether each instance's SASS is the first variant's instruction for
-instruction (with ``--parent``: the parent's; instances the first variant
-lacks are ``new``), and a ``sass_check`` line per library: the instances
-identical, different and new.  Then it times each entry asked for
+tensor-core, copy and arithmetic instructions by kind
+(``HMMA.1688.F32.TF32`` is the split-TF32 product, ``HMMA.16816.F32.BF16``
+the mma.sync bf16 one, ``HGMMA`` the wgmma one, ``UTMALDG`` a TMA load;
+the mma.sync bf16 instances are not listed) and whether each instance's
+SASS is the first variant's instruction for instruction (with
+``--parent``: the parent's; instances the first variant lacks are
+``new``, instances only the first variant has are ``gone``), and a
+``sass_check`` line per library: the instances identical, different,
+new and gone.  Then it times each entry asked for
 (``--entries``, ``fwd`` by default) at every shape of its dtypes in rounds
 (``--rounds``, 4 by default; variants in turn, then in reverse: parent,
 change, change, parent), each by CUDA events over a run of launches after
@@ -36,13 +40,19 @@ warm-ups (``ms``) and by ``torch.profiler``, the kernels alone
 kernel's share by name).
 
 The forward (``F32_SHAPES``: every f32 shape of ``chip_smoke.py``'s
-phase 3; ``BF16_SHAPES``): beside the variants, once a shape, SDPA's
-time (its fused kernels where it takes one: an explicit keep-mask for a
-window or the prefix, with the heads expanded), the plain version's, the
-bound (f32: the split-TF32 rate, 495 / 3 TFLOP/s, and the FMA peak, 67;
-bf16: 989; 3.35 TB/s) and each output held against the plain version at
-the entry's tolerance (f32 rtol = atol = 2e-4; bf16 rtol 1e-2, atol
-1e-3) and, bit for bit, against the first variant's.  A variant that must
+phase 3; ``bf16_shapes()``: every bf16 one, its serving cases
+``FLASH_CASES`` through the entry without the row log-sum-exp and K1's
+cases ``K1_CASES`` through the one with it, labelled ``_lse``): beside
+the variants, once a shape, SDPA's time (its fused kernels where it
+takes one: an explicit keep-mask for a window or the prefix, with the
+heads expanded), the plain version's, the bound (f32: the split-TF32
+rate, 495 / 3 TFLOP/s, and the FMA peak, 67; bf16: 989; 3.35 TB/s) and
+each output held against the plain version at the entry's tolerance
+(f32 rtol = atol = 2e-4; bf16 rtol 1e-2, atol 1e-3; the log-sum-exp
+within 2e-4) and, bit for bit, against the first variant's.  Each timed
+record gives TFLOP/s of the function's work and of the work the kernel
+issues (bf16: 1.5 times, P V's second term) and the ratio of its device
+time to SDPA's (``x_sdpa``).  A variant that must
 fail the tolerance (``one_tf32``) raises if it does not, and so do
 ``checkout`` and ``parent`` if they fail it.
 
@@ -91,26 +101,59 @@ BWD_PART = "namespace tc {"       # where K1's bf16 kernels' code begins
 # bf16 alone)
 SPLIT_TAKES_F32 = "int prefix, int is_bf16, float scale, int bk"
 
-# -- the bf16 kernel's variants ----------------------------------------------
+# -- the bf16 kernels' variants ----------------------------------------------
 _SPLIT_PV = """\
         mma_bf16(o[2 * np], lo, bf[0], bf[1]);
         mma_bf16(o[2 * np], hi, bf[0], bf[1]);
         mma_bf16(o[2 * np + 1], lo, bf[2], bf[3]);
         mma_bf16(o[2 * np + 1], hi, bf[2], bf[3]);"""
+# the wgmma kernel's (head dims 64, 80, 128) P V: lo, then hi
+_WG_PV = """\
+    mma_rs(o, lo[kk], dv);
+    mma_rs(o, hi[kk], dv);"""
+_WG_PV_TAIL = """\
+      mma_rs(ot, lo[kk], dt);
+      mma_rs(ot, hi[kk], dt);"""
+_WG_STAGES = ("  static constexpr int STAGES = HD <= 80 ? 3 : 2;   "
+              "// the K / V ring")
+_WG_SHORT = "constexpr int SHORT_S = 256;"
 _MIN_BLOCKS = "constexpr int MIN_BLOCKS = HD <= 80 ? 2 : 1;"
 # Q's fragments re-read from shared memory at every k16 step of every tile
 # at every head dim (the kernel does so above head dim 128 only)
 _Q_SMEM = [("constexpr bool Q_IN_REGS = HD <= 128;",
             "constexpr bool Q_IN_REGS = false;")]
 VARIANTS_BF16 = {
-    # p as one bf16 term, as the reference rounds it: fails the tolerance
+    # p as one bf16 term, as the reference rounds it, in both kernels:
+    # fails the tolerance
     "single_p": [(_SPLIT_PV, """\
         mma_bf16(o[2 * np], hi, bf[0], bf[1]);
-        mma_bf16(o[2 * np + 1], hi, bf[2], bf[3]);""")],
-    "libm_exp2f": [("alpha[r] = exp2_approx(", "alpha[r] = exp2f("),
-                   ("sc[j][e] = exp2_approx(", "sc[j][e] = exp2f(")],
-    "one_block_hd80": [(_MIN_BLOCKS,
-                        "constexpr int MIN_BLOCKS = HD <= 64 ? 2 : 1;")],
+        mma_bf16(o[2 * np + 1], hi, bf[2], bf[3]);"""),
+                 (_WG_PV, "    mma_rs(o, hi[kk], dv);"),
+                 (_WG_PV_TAIL, "      mma_rs(ot, hi[kk], dt);")],
+    "libm_exp2f": [("\n      alpha[r] = exp2_approx(",
+                    "\n      alpha[r] = exp2f("),
+                   ("sc[j][e] = exp2_approx(", "sc[j][e] = exp2f("),
+                   ("\n    alpha[r] = exp2_approx(",
+                    "\n    alpha[r] = exp2f("),
+                   ("      sc[4 * j + e] =\n          exp2_approx(",
+                    "      sc[4 * j + e] =\n          exp2f(")],
+    # the wgmma kernel's K / V ring: 2 or 3 stages at every head dim (3
+    # at 128 fills 224 KB of shared memory); head dim 64 on 64-key tiles
+    # at every S, or on 128-key tiles at every S
+    "wg_stages2": [(_WG_STAGES, _WG_STAGES.replace("HD <= 80 ? 3 : 2",
+                                                   "2"))],
+    "wg_stages3": [(_WG_STAGES, _WG_STAGES.replace("HD <= 80 ? 3 : 2",
+                                                   "3"))],
+    "wg_hd64_short": [(_WG_SHORT, _WG_SHORT.replace("256", "1 << 30"))],
+    "wg_hd64_long": [(_WG_SHORT, _WG_SHORT.replace("256", "0"))],
+    # the consumers issue without taking turns (no ping-pong) at any
+    # length, or take them in every block
+    "wg_no_turns": [(f'  asm volatile("bar.{op} %0, 256;\\n" :: "r"({arg}) '
+                     ': "memory");\n', "")
+                    for op, arg in (("sync", "1 + wgi"),
+                                    ("arrive", "2 - wgi"))],
+    "wg_turns_always": [("constexpr bool turns = BK == 128;",
+                         "constexpr bool turns = true;")],
     "four_warps_bf16": [("constexpr int WARPS = 8;",
                          "constexpr int WARPS = 4;")],
     "q_smem": _Q_SMEM,
@@ -362,12 +405,33 @@ F32_SHAPES = [
     ("zamba2_cut_forward_f32", 2, 288, 32, 32, 64, None, True, 0),
     ("command_r_prefill_f32", 2, 2048, 96, 8, 128, None, True, 0),
     ("qwen15_32b_prefill_f32", 2, 2048, 40, 40, 128, None, True, 0)]
-# danube's prefill, starcoder2's heads and a ragged S, all causal
-BF16_SHAPES = [
-    ("danube_prefill_bf16", 8, 4096, 32, 8, 80, 4096, True, 0),
-    ("starcoder2_bf16", 2, 4096, 36, 4, 128, None, True, 0),
-    ("ragged_s1000_bf16", 2, 1000, 32, 8, 80, None, True, 0)]
-SHAPES = {"f32": F32_SHAPES, "bf16": BF16_SHAPES}
+
+
+def bf16_shapes() -> list:
+    """Every bf16 forward shape of chip_smoke.py's phase 3, as (label, b,
+    s, h, kvh, hd, window, causal, prefix, lse): its serving cases
+    (``FLASH_CASES``, the entry without the row log-sum-exp) and, under
+    the label ``<case>_lse``, K1's (``K1_CASES``, the forward with it)."""
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))
+    import chip_smoke
+    out = []
+    for cases, lse in ((chip_smoke.FLASH_CASES, False),
+                       (chip_smoke.K1_CASES, True)):
+        for label, b, s, h, kvh, hd, window, dt, causal, prefix in cases:
+            if dt == "bfloat16":
+                out.append((label + ("_lse" if lse else ""), b, s, h, kvh,
+                            hd, window, causal, prefix, lse))
+    return out
+
+
+def shapes(dtype: str) -> list:
+    """The forward shapes of a dtype, each ending in whether it runs the
+    entry with the row log-sum-exp."""
+    if dtype == "f32":
+        return [(*shape, False) for shape in F32_SHAPES]
+    return bf16_shapes()
+
 TOL = {"f32": (2e-4, 2e-4), "bf16": (1e-2, 1e-3)}
 # H100 SXM data sheet, 700 W: TF32 and bf16 tensor cores (dense), fp32
 # FMA, memory
@@ -506,7 +570,8 @@ def report_sass(tmp: Path, names) -> None:
         codes = {name: sass(tmp / name / lib) for name in names}
         base = codes[names[0]]
         for name in names:
-            counts = {"identical": [], "different": [], "new": []}
+            counts = {"identical": [], "different": [], "new": [],
+                      "gone": sorted(set(base) - set(codes[name]))}
             for fn, ins in sorted(codes[name].items()):
                 if name != names[0]:
                     same = ("new" if fn not in base else
@@ -521,8 +586,9 @@ def report_sass(tmp: Path, names) -> None:
                 for i in ins:
                     op = i.split()[0] if not i.startswith("@") \
                         else i.split()[1]
-                    if op.startswith(("HMMA", "FFMA", "MUFU", "LDS",
-                                      "LDGSTS", "F2F", "FADD", "LDSM")):
+                    if op.startswith(("HMMA", "HGMMA", "UTMALDG", "FFMA",
+                                      "MUFU", "LDS", "LDGSTS", "F2F",
+                                      "FADD", "LDSM")):
                         kinds[op] = kinds.get(op, 0) + 1
                 print(f"sass {name} {fn}: {len(ins)} instructions, "
                       + json.dumps(dict(sorted(kinds.items()))), flush=True)
@@ -530,7 +596,8 @@ def report_sass(tmp: Path, names) -> None:
                 print("sass_check " + json.dumps(
                     {"variant": name, "base": names[0], "library": lib,
                      **{k: len(v) for k, v in counts.items()},
-                     "different_instances": counts["different"]}),
+                     "different_instances": counts["different"],
+                    "gone_instances": counts["gone"]}),
                     flush=True)
 
 
@@ -593,16 +660,20 @@ def run_shapes(dtype, names, rounds, entries, results) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     rtol, atol = TOL[dtype]
     tdt = torch.float32 if dtype == "f32" else torch.bfloat16
-    for label, b, s, h, kvh, hd, window, causal, prefix in SHAPES[dtype]:
+    for label, b, s, h, kvh, hd, window, causal, prefix, with_lse in \
+            shapes(dtype):
         q, k, v = (torch.randn(b, s, n, hd, device="cuda", generator=gen
                                ).to(tdt) for n in (h, kvh, kvh))
         opts = dict(causal=causal, window=window, prefix_len=prefix)
-        want = ref.flash_attention(q, k, v, **opts).float()
+        want, want_lse = ref.flash_attention_lse(q, k, v, **opts)
+        want = want.float()
         flops = 4.0 * b * h * hd * attention_pairs(s, causal, window,
                                                     prefix)
-        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) \
+            + (4 * b * h * s if with_lse else 0)
         peak = TF32_TFLOPS / 3 if dtype == "f32" else BF16_TFLOPS
-        meta = {"flops": flops,
+        meta = {"flops": flops, "hd": hd, "lse": with_lse,
+                "issued_flops": flops * (1.5 if dtype == "bf16" else 1.0),
                 "bound_ms": max(nbytes / TBS / 1e9, flops / peak / 1e9),
                 "bound_fp32_ms": max(nbytes / TBS / 1e9,
                                      flops / FP32_TFLOPS / 1e9)}
@@ -629,11 +700,14 @@ def run_shapes(dtype, names, rounds, entries, results) -> None:
                 max(3, reps // 10))
             del qt, kt, vt, mask
         out = torch.empty_like(q)
+        lse = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+        lse_ptr = (lse.data_ptr(),) if with_lse else ()
 
-        def launch(fn):
+        def launch(name):
+            fn = entries[name]["fwd_lse" if with_lse else "fwd"]
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), b, s, h, kvh, hd, int(causal),
-                      window or 0, prefix, int(dtype == "bf16"),
+                      out.data_ptr(), *lse_ptr, b, s, h, kvh, hd,
+                      int(causal), window or 0, prefix, int(dtype == "bf16"),
                       hd ** -0.5, stream)
             if code:
                 raise RuntimeError(f"launch failed with {code}")
@@ -641,9 +715,8 @@ def run_shapes(dtype, names, rounds, entries, results) -> None:
         firsts = {}
         for rnd, order in enumerate(orders(names, max(rounds, 1))):
             for name in order:
-                fn = entries[name]["fwd"]
                 try:   # a variant may not fit a head dim in shared memory
-                    launch(fn)
+                    launch(name)
                 except RuntimeError as err:
                     print(json.dumps({"variant": name, "case": label,
                                       "refused": str(err)}), flush=True)
@@ -653,6 +726,11 @@ def run_shapes(dtype, names, rounds, entries, results) -> None:
                 excess = float(((got - want).abs() - rtol * want.abs()
                                 ).max())
                 within = excess <= atol
+                if with_lse:
+                    # the row log-sum-exp: the kernel tolerance (f32's)
+                    lse_err = float(((lse - want_lse).abs()
+                                     - 2e-4 * want_lse.abs()).max())
+                    within = within and lse_err <= 2e-4
                 if name in MUST_FAIL and within:
                     raise AssertionError(f"{name} {label} is within the "
                                          "tolerance it must fail")
@@ -665,16 +743,23 @@ def run_shapes(dtype, names, rounds, entries, results) -> None:
                        "within_tolerance": within,
                        "same_bits": bool(torch.equal(
                            got, firsts.get(names[0], got)))}
+                if with_lse:
+                    rec["lse_excess"] = lse_err
                 if rounds:
-                    rec["ms"] = time_ms(lambda: launch(fn), reps)
-                    rec["device_ms"] = device_ms(lambda: launch(fn),
+                    rec["ms"] = time_ms(lambda: launch(name), reps)
+                    rec["device_ms"] = device_ms(lambda: launch(name),
                                                  min(reps, 20))
                     rec["tflops"] = flops / rec["device_ms"] / 1e9
+                    rec["issued_tflops"] = meta["issued_flops"] \
+                        / rec["device_ms"] / 1e9
+                    if "sdpa_device_ms" in meta:
+                        rec["x_sdpa"] = rec["device_ms"] \
+                            / meta["sdpa_device_ms"]
                     slot = results.setdefault(label, {"_meta": meta})
                     slot.setdefault(name, []).append(
                         {k: rec[k] for k in ("ms", "device_ms")})
                 print(json.dumps({**rec, **meta}), flush=True)
-        del q, k, v, want, out, firsts
+        del q, k, v, want, want_lse, out, lse, firsts
         torch.cuda.empty_cache()
 
 
