@@ -401,9 +401,9 @@ made.
 The last two lines of standard output are the ``{"kernels": [...]}``
 record (``rank_update_batched``'s with its launches over phases 4-9,
 12-16 and 21 by K = T*k; the rank-update entries' by M's columns p, and the
-dense entries' on the skinny tile by K; the flash forward entries'
-launches by kernel, ``launches_by_kernel``, and the kernel of their
-headline shape; the forward with LSE and K1 at phase 19's danube shape;
+dense entries' on the skinny tile by K; the flash entries' launches by
+kernel, ``launches_by_kernel`` (K1's by the route of its kernels), and
+the kernel of their headline shape; the forward with LSE and K1 at phase 19's danube shape;
 the decode kernel's LSE instance at 22g's per-rank shape; phase 23's
 flash launches among the rest) and
 ``{"ok": true, "device":
@@ -1676,7 +1676,9 @@ def check_flash_bwd(q, k, v, dout, causal, window, peaks_, label,
     forward and backward (``enable_gqa``; the expanded heads and an
     explicit mask where the mask needs one), naming the backend SDPA ran;
     the backward's record counts the split plan's entries (``splits``, 0:
-    unsplit).  Returns the (forward with LSE, backward) records."""
+    unsplit), the route of its kernels (``kernel``) and its time over
+    SDPA's (``x_sdpa``; ``x_cudnn`` where SDPA ran cuDNN's).  Returns the
+    (forward with LSE, backward) records."""
     import torch
     import torch.nn.functional as F
     from flash_bounds import flash_attention_bwd_bf16_bound
@@ -1773,6 +1775,9 @@ def check_flash_bwd(q, k, v, dout, causal, window, peaks_, label,
     rec.update({"errs_dq_dk_dv": errs, "tflops": flops / bwd_ms / 1e9,
                 "library": f"sdpa backward ({backend})",
                 "library_kernel": backend,
+                "kernel": cuda_fa.bwd_kernel_of(q.dtype, hd),
+                "x_sdpa": bwd_ms / bwd_lib,
+                "x_cudnn": bwd_ms / bwd_lib if backend == "cudnn" else None,
                 "splits": cuda_fa.bwd_splits(q, k, **opts)})
     log("kernel " + json.dumps(rec))
     recs.append(rec)
@@ -5604,6 +5609,7 @@ def phase_train_full(peaks_) -> dict:
     layer a microbatch: the forward and the recompute; K1 once); then one
     more step under the profiler."""
     import torch
+    from repro_torch.kernels import flash_attention as cuda_fa
     from repro_torch.train import (TrainState, adamw_init, make_train_step,
                                    require_grad)
     label = "train_danube_full"
@@ -5643,6 +5649,12 @@ def phase_train_full(peaks_) -> dict:
     n_att = attention_layers(cfg) * TRAIN_MICRO * TRAIN_STEPS
     check_launches(label, got, {"flash_attention_fwd_lse": 2 * n_att,
                                 "flash_attention_bwd": n_att})
+    # K1's launches by the route of its kernels: bf16 at danube's head
+    # dim 80 takes the wgmma kernels every time
+    k1_by_kernel = dict(cuda_fa.BY_KERNEL["flash_attention_bwd"])
+    if k1_by_kernel != {"flash_bwd_wgmma": n_att}:
+        raise AssertionError(f"{label}: K1 launched {k1_by_kernel}, not "
+                             f"flash_bwd_wgmma {n_att} times")
     moved = sum(1 for name, leaf in flat_params(state.opt.master)
                 if not torch.equal(leaf.flatten()[:1024], first[name]))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -5658,8 +5670,8 @@ def phase_train_full(peaks_) -> dict:
            "grad_norms": norms, "step_ms": [1e3 * s for s in step_s],
            "tokens_per_s_median": tokens / median_s,
            "params_moved": moved, "params": len(first),
-           "launches": got, "peak_mem_gib": peak,
-           "model_flops_per_step": flops,
+           "launches": got, "k1_launches_by_kernel": k1_by_kernel,
+           "peak_mem_gib": peak, "model_flops_per_step": flops,
            "model_flops_share_of_bf16_peak": flops / median_s / bf16_peak,
            "profiled_step": split}
     log(f"train: model FLOPs {flops:.4e} a step, "
@@ -8995,9 +9007,11 @@ def main() -> int:
             if SKINNY_K.get(entry):
                 kernels[-1]["skinny_launches_by_K"] = dict(
                     sorted(SKINNY_K[entry].items()))
-        if entry in ("flash_attention", "flash_attention_fwd_lse"):
+        if entry in ("flash_attention", "flash_attention_fwd_lse",
+                     "flash_attention_bwd"):
             # the kernel the headline shape takes, and the main path's
-            # launches by kernel (by head dim and type)
+            # launches by kernel (by head dim and type; K1's by the route
+            # of its kernels)
             kernels[-1]["kernel"] = head["kernel"]
             kernels[-1]["launches_by_kernel"] = dict(sorted(
                 FLASH_BY_KERNEL.get(entry, {}).items()))
@@ -9007,10 +9021,11 @@ def main() -> int:
                     f"{entry}: launches by kernel "
                     f"{kernels[-1]['launches_by_kernel']} do not sum to its "
                     f"{kernels[-1]['launches']} launches")
-            if not kernels[-1]["launches_by_kernel"].get(
-                    "flash_attention_bf16_wgmma"):
+            wgmma = "flash_bwd_wgmma" if entry == "flash_attention_bwd" \
+                else "flash_attention_bf16_wgmma"
+            if not kernels[-1]["launches_by_kernel"].get(wgmma):
                 raise AssertionError(f"{entry}: the main path launched no "
-                                     "flash_attention_bf16_wgmma")
+                                     f"{wgmma}")
         if entry == "rank_update_batched":
             kernels[-1]["launches_by_K"] = dict(sorted(by_k.items()))
         if entry == "rank_update_batched_out":

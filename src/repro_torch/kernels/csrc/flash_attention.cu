@@ -185,6 +185,7 @@
 #include <string.h>
 
 #include "attention_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -256,217 +257,7 @@ struct Maps {
   CUtensorMap q_tail, k_tail, v_tail;
 };
 
-// -- mbarriers and TMA ------------------------------------------------------
-
-__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// One box of `map` at (col, head, pos, b) into shared memory at dst; its
-// bytes complete a transaction of barrier `bar`.  Rows past S are zeros.
-__device__ __forceinline__ void tma_load(const CUtensorMap& map, uint32_t dst,
-                                         uint32_t bar, int col, int head,
-                                         int pos, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar),
-         "r"(col), "r"(head), "r"(pos), "r"(b)
-      : "memory");
-}
-
-// Rows pos .. pos + ROWS - 1 of head `head` of batch element b, all HD
-// columns, into the parts of a tile at dst.
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(const CUtensorMap& map,
-                                          const CUtensorMap& tail,
-                                          uint32_t dst, uint32_t bar,
-                                          int head, int pos, int b) {
-  using G = Geo<HD>;
-#pragma unroll
-  for (int p = 0; p < G::PARTS; ++p)
-    tma_load(map, dst + p * ROWS * 128, bar, 64 * p, head, pos, b);
-  if constexpr (G::TAIL > 0)
-    tma_load(tail, dst + G::PARTS * ROWS * 128, bar, 64 * G::PARTS, head,
-             pos, b);
-}
-
-// -- wgmma ------------------------------------------------------------------
-
-// A shared-memory matrix descriptor: start address, leading and stride
-// byte offsets, and the swizzle (1: 128-byte, 3: 32-byte).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo, uint64_t swizzle) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (swizzle << 62);
-}
-
-// K-major operand (Q or K: rows of HD columns, the contraction along
-// them) of a tile of R rows at `tile`, first row `row0`, k16 step kk.  A
-// 128-byte-swizzled part has rows 128 bytes apart, 8-row groups 1024; a
-// k16 step inside it moves the start by its 32 bytes.  The tail has
-// 32-byte rows, groups 256 bytes apart, and is one k16 step.
-template <int HD, int R>
-__device__ __forceinline__ uint64_t k_major(uint32_t tile, int row0, int kk) {
-  using G = Geo<HD>;
-  if (kk < 4 * G::PARTS)
-    return desc(tile + (kk / 4) * R * 128 + row0 * 128 + (kk % 4) * 32, 16,
-                1024, 1);
-  return desc(tile + G::PARTS * R * 128 + row0 * 32, 16, 256, 3);
-}
-
-__device__ __forceinline__ void mma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void mma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void mma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// Keeps the compiler from moving reads or writes of an accumulator
-// register across the asynchronous products that own it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// d (+)= A B, m64nNk16 (N = 2 R: 64 or 128): A and B both from shared
-// memory by descriptor, both K-major; d is overwritten where scale_d is
-// 0.
-template <int R>
-__device__ __forceinline__ void mma_ss(float (&d)[R], uint64_t da,
-                                       uint64_t db, int scale_d) {
-  static_assert(R == 32 || R == 64, "n64 or n128");
-  if constexpr (R == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-}
-
-// d += A B, m64n16k16: A from registers (a warp's m16k16
-// fragment), B from shared memory by descriptor, MN-major (transposed).
-__device__ __forceinline__ void mma_rs(float (&d)[8],
-                                       const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A B, m64n64k16: A from registers (a warp's m16k16
-// fragment), B from shared memory by descriptor, MN-major (transposed).
-__device__ __forceinline__ void mma_rs(float (&d)[32],
-                                       const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A B, m64n128k16: A from registers (a warp's m16k16
-// fragment), B from shared memory by descriptor, MN-major (transposed).
-__device__ __forceinline__ void mma_rs(float (&d)[64],
-                                       const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+using namespace hopper;
 
 // -- the consumers' steps ---------------------------------------------------
 
@@ -580,20 +371,6 @@ __device__ __forceinline__ void rescale(float (&o)[N],
                                         const float (&alpha)[2]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) o[i] *= alpha[(i >> 1) & 1];
-}
-
-// P as two bf16 terms (hi + lo) in the A fragment of each k16 step: the
-// accumulators of n8 tiles 2 kk and 2 kk + 1 (the m16n8k16 layout).
-template <int NS, int BK = 2 * NS>
-__device__ __forceinline__ void split_p(const float (&sc)[NS],
-                                        uint32_t (&hi)[BK / 16][4],
-                                        uint32_t (&lo)[BK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      split_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1], hi[kk][e],
-                 lo[kk][e]);
 }
 
 // -- the kernel -------------------------------------------------------------
@@ -781,48 +558,6 @@ flash_attention_bf16_wgmma(const __grid_constant__ Maps maps,
 
 // -- the launch -------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled (its CUDA 12.0 form), found once
-// through the runtime (the library links no libcuda); null if the driver
-// has none.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A map of the bf16 tensor at ptr as (hd, heads, S, B), boxes of `cols`
-// columns x `rows` positions of one head and one batch element; positions
-// past S read as zeros.
-bool encode(CUtensorMap* map, const void* ptr, int hd, int heads, int s,
-            int b, int cols, int rows, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
-                              (cuuint64_t)s, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
-                                 (cuuint64_t)heads * hd * 2,
-                                 (cuuint64_t)s * heads * hd * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elems[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elems, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD, int BK, bool WRITE_LSE>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int b, int s, int h, int kvh, int causal, int window,
@@ -831,7 +566,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
   Maps maps;
   memset(&maps, 0, sizeof(maps));
   const CUtensorMapSwizzle wide = CU_TENSOR_MAP_SWIZZLE_128B;
-  bool ok = encode(&maps.q, q, HD, h, s, b, 64, BQ, wide) &&
+  bool ok = bind_device(q) &&
+            encode(&maps.q, q, HD, h, s, b, 64, BQ, wide) &&
             encode(&maps.k, k, HD, kvh, s, b, 64, G::BK, wide) &&
             encode(&maps.v, v, HD, kvh, s, b, 64, G::BK, wide);
   if (G::TAIL > 0) {

@@ -37,9 +37,56 @@
 // and dq, dk, dv written once: at danube's training shape (B = 4, S =
 // 4096, H = 32, KV = 8, HD = 80) FLOP-bound by far.
 //
-// bf16 -> flash_bwd_dq_mma, flash_bwd_dkdv_mma (namespace tc), a
-// FlashAttention-2 backward on the bf16 tensor cores (mma.sync.m16n8k16,
-// f32 accumulators), built on the forward's helpers (attention_common.cuh):
+// bf16, head dims 80 and 128 -> flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma
+// (namespace wg), the same backward on Hopper's wgmma fed by TMA, built
+// on the forward's building blocks (wgmma_common.cuh).  The templates
+// take head dim 64 too, but there they ran slower than tc's kernels at
+// zamba2's shapes (group 1, short walks), so 64 stays on mma.sync:
+//   * blocks of 3 warpgroups: warpgroup 0 the producer (one thread issues
+//     every cp.async.bulk.tensor copy through full / empty mbarrier rings;
+//     setmaxnreg 24), warpgroups 1 and 2 the consumers (setmaxnreg 240),
+//     each on 64 rows of the block's tile, issuing its products as soon
+//     as their operands are in (the forward's turns between the consumers
+//     ran slower here);
+//   * shared tiles are TMA's swizzled boxes: 64 columns with the 128-byte
+//     swizzle and, at head dim 80, the last 16 columns as a box of their
+//     own with the 32-byte swizzle (a fifth k16 step of the products over
+//     the head dim, an n16 product beside the n64 one for those that
+//     produce it; no padding); rows past S arrive as zeros;
+//   * dQ kernel: 128 query rows a block (query tiles launched last-first);
+//     Q and dO once, then K and V tiles of 64 keys through a ring of 3
+//     stages, key tiles wholly masked for the block never loaded.  A
+//     consumer first writes delta = rowsum(dO * O) of its rows in f32
+//     (from global memory, while the copies land); then for each key
+//     tile S = Q K^T and dP = dO V^T (wgmma m64n64k16 from shared memory,
+//     both operands K-major), P and dS / scale on the accumulators, and
+//     dQ / scale += dS K register-sourced, dS as two bf16 terms, K read
+//     MN-major from the same tile by a second descriptor.  Tile i's dQ
+//     product and tile i + 1's S and dP go out back to back (the
+//     forward's order);
+//   * dK / dV kernel: 128 keys a block (64 a consumer); K and V once, then
+//     the walk's Q and dO tiles (64 query rows a step, 32 at head dim 128)
+//     through a ring of 3 stages, the next step's lse and delta read from
+//     global memory into registers while a step's last products run (a
+//     TMA box of them would start off 16 bytes where S is no multiple of
+//     4, which the copy refuses).  For each step S^T = K Q^T and dP^T = V
+//     dO^T from shared memory, P^T and dS^T / scale on the accumulators,
+//     then dV += P^T dO and dK / scale += dS^T Q register-sourced, two
+//     bf16 terms each, dO and Q MN-major (dV's products issued before dS^T
+//     is split).  dK and dV sum in f32 registers (64 + 64 a
+//     thread at head dim 128) and are rounded to bf16 once, or written as
+//     f32 partials for flash_bwd_dkdv_sum under a plan (the same split on
+//     this kernel's tiles);
+//   * every consumer computes every tile its block loads (a tile wholly
+//     masked for its rows adds P = 0); the mask predicate only on tiles
+//     its rows cut.
+//   A launch the kernels refuse (a tensor map the driver will not encode,
+//   too much shared memory) returns its error; nothing falls back.
+//
+// bf16, head dims 32, 64, 96 and 256 -> flash_bwd_dq_mma, flash_bwd_dkdv_mma
+// (namespace tc), a FlashAttention-2 backward on the bf16 tensor cores
+// (mma.sync.m16n8k16, f32 accumulators), built on the forward's helpers
+// (attention_common.cuh):
 //   * operands stay bf16 in shared memory, rows HD + 8 elements apart (the
 //     eight 16-byte rows of an ldmatrix phase on distinct bank groups),
 //     filled by cp.async.cg in double-buffered rings (rows past S zero-
@@ -88,8 +135,9 @@
 //     dK / dV to a workspace, and flash_bwd_dkdv_sum, a programmatic
 //     dependent launch, sums each key tile's partials in split order and
 //     rounds them to bf16: the same bits from call to call.
-//   Work issued: S and dP in both kernels and two products for each of
-//   dV, dK and dQ, 10 bf16 product units against the 5 of the bound.
+//   Work issued, on either route: S and dP in both kernels and two
+//   products for each of dV, dK and dQ, 10 bf16 product units against the
+//   5 of the bound.
 //
 // f32 -> flash_bwd_dq_3xtf32, flash_bwd_dkdv_3xtf32 (namespace tf32x3),
 // the same backward on the TF32 tensor cores with split operands, as the
@@ -131,8 +179,10 @@
 //   495 / 3 TFLOP/s).
 
 #include <math.h>
+#include <string.h>
 
 #include "attention_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -192,14 +242,99 @@ struct Args {
   cudaStream_t stream;
 };
 
+// The split's sums run SUM_THREADS threads a block on every route.
+constexpr int SUM_THREADS = 256;
+
+// The sum of a split's partials, ksum (KV x B x SUM_PARTS blocks of
+// SUM_THREADS threads for each of `tiles` key tiles), as a programmatic
+// dependent launch on a.stream; returns its cudaError_t.
+template <int SUM_PARTS, typename T, typename KSUM>
+int launch_sum(const Args<T>& a, int tiles, KSUM ksum) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.kvh, a.b, tiles * SUM_PARTS);
+  cfg.blockDim = dim3(SUM_THREADS);
+  cfg.stream = a.stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, ksum, (const float*)a.ws,
+                                 a.plan + 4 * a.nplan, a.dk, a.dv, a.s,
+                                 a.kvh);
+}
+
+// Four sums of dK or dV stored as the output type: bf16 rounded once, f32
+// as they are.
+__device__ __forceinline__ void store4(bf16* dst, float4 v) {
+  uint2 packed;
+  packed.x = attn::pack_bf16(v.x, v.y);
+  packed.y = attn::pack_bf16(v.z, v.w);
+  *reinterpret_cast<uint2*>(dst) = packed;
+}
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
+__device__ __forceinline__ void add_slot(float4& acc, const float* src) {
+  const float4 x = *reinterpret_cast<const float4*>(src);
+  acc.x += x.x;
+  acc.y += x.y;
+  acc.z += x.z;
+  acc.w += x.w;
+}
+
+// The body of every route's flash_bwd_dkdv_sum: dK and dV of rows of key
+// tile z / PARTS (the part z % PARTS of its BK rows) from its splits' f32
+// partials, summed in split order (the same bits at every call) and
+// stored as T.  Grid (KV, B, key tiles x PARTS) of SUM_THREADS threads;
+// tiles[2 kt] is key tile kt's first workspace slot, tiles[2 kt + 1] its
+// number of slots.  Launched as a programmatic dependent of the dK / dV
+// kernel: it waits here for that grid's writes.  UNROLL4 unrolls the walk
+// over the slots by 4; without it the compiler chooses.
+template <int BK, int HD, int PARTS, bool UNROLL4, typename T>
+__device__ __forceinline__ void dkdv_sum(const float* __restrict__ ws,
+                                         const int* __restrict__ tiles,
+                                         T* __restrict__ dk,
+                                         T* __restrict__ dv, int s, int kvh) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  constexpr int ROWS = BK / PARTS;   // rows a block sums
+  constexpr int Q4 = HD / 4;         // float4 columns a row
+  const int kv_head = blockIdx.x, b = blockIdx.y;
+  const int kt = blockIdx.z / PARTS;
+  const int row0 = blockIdx.z % PARTS * ROWS;
+  const int first = tiles[2 * kt], count = tiles[2 * kt + 1];
+  const int64_t slot_stride = (int64_t)gridDim.y * kvh * 2 * BK * HD;
+  const float* part =
+      ws + (((int64_t)first * gridDim.y + b) * kvh + kv_head) * 2 * BK * HD;
+  const int64_t kv_row = (int64_t)kvh * HD;
+  const int64_t kvoff = ((int64_t)b * s * kvh + kv_head) * HD;
+  for (int e = threadIdx.x; e < 2 * ROWS * Q4; e += SUM_THREADS) {
+    const int which = e / (ROWS * Q4);   // 0: dK, 1: dV
+    const int row = row0 + (e / Q4) % ROWS;
+    const int col = (e % Q4) * 4;
+    const int pos = kt * BK + row;
+    if (pos >= s) continue;
+    const float* src = part + which * BK * HD + row * HD + col;
+    float4 acc = *reinterpret_cast<const float4*>(src);
+    if constexpr (UNROLL4) {
+#pragma unroll 4
+      for (int sp = 1; sp < count; ++sp) add_slot(acc, src + sp * slot_stride);
+    } else {
+      for (int sp = 1; sp < count; ++sp) add_slot(acc, src + sp * slot_stride);
+    }
+    store4((which ? dv : dk) + kvoff + pos * kv_row + col, acc);
+  }
+}
+
 // K1's launches on a.stream: the dQ kernel kq (grid H x B x query tiles of
 // Q::BQ rows), the dK / dV kernel kkv (KV x B x key tiles of KV::BK keys,
 // or x plan entries) and, with a plan, ksum (KV x B x SUM_PARTS blocks of
 // SUM_THREADS threads a key tile), which sums the partials, as a
 // programmatic dependent launch.  Returns the first failing launch's
 // cudaError_t.
-template <typename Q, typename KV, int SUM_THREADS, int SUM_PARTS,
-          typename T, typename KQ, typename KKV, typename KSUM>
+template <typename Q, typename KV, int SUM_PARTS, typename T, typename KQ,
+          typename KKV, typename KSUM>
 int launch_k1(const Args<T>& a, KQ kq, KKV kkv, KSUM ksum) {
   cudaError_t err = allow_smem(kq, Q::SMEM);
   if (err == cudaSuccess) err = allow_smem(kkv, KV::SMEM);
@@ -216,22 +351,711 @@ int launch_k1(const Args<T>& a, KQ kq, KKV kkv, KSUM ksum) {
                     a.kvh, a.causal, a.window, a.prefix, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.plan == nullptr) return (int)err;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.kvh, a.b, tiles * SUM_PARTS);
-  cfg.blockDim = dim3(SUM_THREADS);
-  cfg.stream = a.stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, ksum, (const float*)a.ws,
-                                 a.plan + 4 * a.nplan, a.dk, a.dv, a.s,
-                                 a.kvh);
+  return launch_sum<SUM_PARTS>(a, tiles, ksum);
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core kernels
+// bf16 at head dims 80 and 128: the Hopper kernels (TMA + wgmma)
+
+namespace wg {
+
+using namespace hopper;
+using attn::exp2_approx;
+using attn::pack_bf16;
+using attn::smem_addr;
+
+constexpr int THREADS = 384;   // the producer warpgroup, then two consumers
+// registers a thread after setmaxnreg, as the forward's: 128 * 24 + 256 *
+// 240 = 384 * 168, the launch's whole register file
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+
+// The dQ kernel's tiles: BQ query rows a block (64 a consumer warpgroup),
+// K and V tiles of BK keys through a ring of STAGES.  Shared memory: the
+// Q and dO tiles, the ring's K tiles, its V tiles, then the barriers (Q
+// and dO full; K full, V full and empty for each stage); every tile
+// starts on a 1024-byte boundary.
+template <int HD>
+struct DqGeo {
+  static constexpr int BQ = 128;
+  static constexpr int BK = 64;
+  static constexpr int STAGES = 3;
+  static constexpr int Q_BYTES = BQ * HD * 2;    // the Q or the dO tile
+  static constexpr int KV_BYTES = BK * HD * 2;   // one K or V tile
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
+};
+
+// The dK / dV kernel's tiles: BK keys a block (64 a consumer warpgroup),
+// the walk's Q and dO tiles of BQ query rows through a ring of STAGES.
+// At head dim 128 the steps take 32 rows: dK and dV hold 128 registers a
+// thread, and S^T, dP^T and their two bf16 terms at 64 rows would spill.
+// kernels/flash_attention.py's BWD_TILES[torch.bfloat16] mirrors (BK, BQ)
+// at head dims 80 and 128; flash_attention_bwd_split refuses a plan made
+// for others.  Shared memory: the K and V tiles, the ring's Q tiles,
+// its dO tiles, then the barriers (K and V full; full and empty for each
+// stage).
+template <int HD>
+struct DkvGeo {
+  static constexpr int BK = 128;
+  static constexpr int BQ = HD <= 80 ? 64 : 32;
+  static constexpr int STAGES = 3;
+  static constexpr int KV_BYTES = BK * HD * 2;   // the K or the V tile
+  static constexpr int Q_BYTES = BQ * HD * 2;    // one Q or dO tile
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * Q_BYTES;
+  static constexpr int BAR_OFF = DO_OFF + STAGES * Q_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// The tensor maps of the dQ launch (q and dout in boxes of its BQ rows, k
+// and v of its BK) and of the dK / dV launch (k and v in boxes of its
+// BK, q and dout of its BQ): boxes of 64 columns (128-byte swizzle) and,
+// at head dim 80, of the 16 columns past them (32-byte swizzle); passed
+// by value as __grid_constant__s.
+struct DqMaps {
+  CUtensorMap q, dout, k, v;
+  CUtensorMap q_tail, dout_tail, k_tail, v_tail;
+};
+struct DkvMaps {
+  CUtensorMap k, v, q, dout;
+  CUtensorMap k_tail, v_tail, q_tail, dout_tail;
+};
+
+// Issue X Y^T for the warpgroup's 64 rows of a tile of R rows (from row
+// row0) against the 2 N rows of a tile of 2 N rows: m64 n(2 N) k16 steps
+// over the head dim, both operands K-major in shared memory.  S = Q K^T
+// and dP = dO V^T in the dQ kernel, S^T = K Q^T and dP^T = V dO^T in the
+// dK / dV kernel.
+template <int HD, int R, int N>
+__device__ __forceinline__ void issue_xyt(float (&d)[N], uint32_t x_tile,
+                                          int row0, uint32_t y_tile) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    mma_ss(d, k_major<HD, R>(x_tile, row0, kk),
+           k_major<HD, 2 * N>(y_tile, 0, kk), kk > 0);
+}
+
+// Issue d += A B over NK k16 steps: A from registers as its two bf16 terms
+// (lo, then hi, on each step), B a tile of 16 NK rows x HD columns whose
+// rows are the contraction (MN-major: the transposed B that bf16 wgmma
+// takes), n(64 parts) into d and, at head dim 80, n16 into dt.  dQ += dS
+// K, dV += P^T dO and dK += dS^T Q.
+template <int HD, int NK, int W, int TW>
+__device__ __forceinline__ void issue_rs(float (&d)[W], float (&dt)[TW],
+                                         const uint32_t (&hi)[NK][4],
+                                         const uint32_t (&lo)[NK][4],
+                                         uint32_t tile) {
+  constexpr int R = 16 * NK;
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    const uint64_t db = desc(tile + kk * 16 * 128, R * 128, 1024, 1);
+    mma_rs(d, lo[kk], db);
+    mma_rs(d, hi[kk], db);
+    if constexpr (tail_cols(HD) > 0) {
+      const uint64_t dbt =
+          desc(tile + parts(HD) * R * 128 + kk * 16 * 32, 256, 256, 3);
+      mma_rs(dt, lo[kk], dbt);
+      mma_rs(dt, hi[kk], dbt);
+    }
+  }
+}
+
+// P and dS / scale of one key tile on the dQ kernel's accumulators, in
+// place in sc: rows r0 (e = 0, 1) and r0 + 8 (e = 2, 3) with lse (log2
+// units) l2 and delta dl, columns k0 + 8 j + 2 t + (e & 1); the mask on
+// tiles the warpgroup's rows qw .. qw + 63 cut only (a select, so that a
+// masked entry's exp never reaches dS).
+template <int N>
+__device__ __forceinline__ void dq_grads(float (&sc)[N], const float (&dp)[N],
+                                         const float (&l2)[2],
+                                         const float (&dl)[2], int k0,
+                                         int qw, int r0, int t, int s,
+                                         int causal, int window, int prefix,
+                                         float scale_log2) {
+  constexpr int BK = 2 * N;
+  const bool interior = k0 + BK <= s &&
+                        (!causal || k0 + BK - 1 <= key_limit(qw, prefix)) &&
+                        (window <= 0 || k0 > qw + 63 - window);
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2_approx(fmaf(sc[4 * j + e], scale_log2, -l2[e >> 1]));
+      if (!interior && !kept(r0 + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1),
+                             s, causal, window, prefix))
+        p = 0.f;
+      sc[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]);
+    }
+}
+
+// The lse (log2 units) and delta of query columns q0 + 8 j + 2 t + c
+// (index 2 j + c) of head row `row` (its (b, h) row of S) into l2 and dl
+// from global memory; columns past S read as 0 (they are masked).
+template <int NC>
+__device__ __forceinline__ void load_stats(float (&l2)[NC], float (&dl)[NC],
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           int64_t row, int q0, int t,
+                                           int s) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int col = q0 + 8 * (c / 2) + 2 * t + (c & 1);
+    l2[c] = col < s ? __ldg(lse + row + col) * LOG2E : 0.f;
+    dl[c] = col < s ? __ldg(delta + row + col) : 0.f;
+  }
+}
+
+// P^T and dS^T / scale of one query tile on the dK / dV kernel's
+// accumulators, in place (sT becomes P^T, dpT dS^T): keys kr (e = 0, 1)
+// and kr + 8 (e = 2, 3), query columns q0 + 8 j + 2 t + (e & 1), whose
+// lse (log2 units) and delta are l2 and dl at 2 j + (e & 1); the mask on
+// tiles the warpgroup's keys kw .. kw + 63 cut only (columns past S are
+// masked there).
+template <int N>
+__device__ __forceinline__ void dkv_grads(float (&sT)[N], float (&dpT)[N],
+                                          const float (&l2)[N / 2],
+                                          const float (&dl)[N / 2], int q0,
+                                          int kw, int kr, int t, int s,
+                                          int causal, int window, int prefix,
+                                          float scale_log2) {
+  constexpr int BQ = 2 * N;
+  const bool interior =
+      kw + 63 < s && q0 + BQ <= s &&
+      (!causal || kw + 63 <= key_limit(q0, prefix)) &&
+      (window <= 0 || kw > q0 + BQ - 1 - window);
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 2 * j + (e & 1);
+      float p = exp2_approx(fmaf(sT[4 * j + e], scale_log2, -l2[c]));
+      if (!interior && !kept(q0 + 8 * j + 2 * t + (e & 1), kr + 8 * (e >> 1),
+                             s, causal, window, prefix))
+        p = 0.f;
+      dpT[4 * j + e] = p * (dpT[4 * j + e] - dl[c]);
+      sT[4 * j + e] = p;
+    }
+}
+
+// An accumulator tile (the warp's rows r and r + 8 of a warpgroup's 64,
+// n8 tiles of W / 4 columns, then the tail's) times `scale`, rounded to
+// bf16 and stored at rows row and row + 8 of dst (rows ld elements
+// apart); rows at or past `limit` are not written.
+template <int W, int TW, int TAIL>
+__device__ __forceinline__ void store_bf16(bf16* dst, int64_t ld, int row,
+                                           int limit, int t,
+                                           const float (&d)[W],
+                                           const float (&dt)[TW],
+                                           float scale) {
+  constexpr int OW = 2 * W;   // the wide products' columns
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= limit) continue;
+    bf16* out = dst + (row + 8 * r) * ld + 2 * t;
+#pragma unroll
+    for (int j = 0; j < OW / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) = pack_bf16(
+          d[4 * j + 2 * r] * scale, d[4 * j + 2 * r + 1] * scale);
+#pragma unroll
+    for (int j = 0; j < TAIL / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + OW + 8 * j) = pack_bf16(
+          dt[4 * j + 2 * r] * scale, dt[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+// dQ, and delta for the dK / dV kernel.  Grid (H, B, query tiles of BQ
+// rows), query tiles launched last-first.
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ DqMaps maps,
+                   const bf16* __restrict__ out,
+                   const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ delta,
+                   bf16* __restrict__ dq, int s, int h, int kvh, int causal,
+                   int window, int prefix, float scale) {
+  using G = DqGeo<HD>;
+  constexpr int BQ = G::BQ, BK = G::BK, ST = G::STAGES;
+  constexpr int TAIL = tail_cols(HD);
+  constexpr int OW = 64 * parts(HD);   // dQ's columns, wide products
+  constexpr int TW = TAIL ? TAIL / 2 : 1;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_tile = base, do_tile = base + G::DO_OFF;
+  const uint32_t k_tiles = base + G::K_OFF, v_tiles = base + G::V_OFF;
+  const uint32_t qd_full = base + G::BAR_OFF;
+  const uint32_t k_full = qd_full + 8;   // + 8 * stage
+  const uint32_t v_full = k_full + 8 * ST;
+  const uint32_t empty = v_full + 8 * ST;
+
+  const int head = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // long rows first
+  const int kv_head = head / (h / kvh);
+
+  // the live key tiles: the forward's
+  const int q_last = min(q0 + BQ, s) - 1;
+  int kt_end = (s + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, key_limit(q_last, prefix) / BK + 1);
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  const int tiles = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+    bar_init(qd_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      bar_init(k_full + 8 * i, 1);
+      bar_init(v_full + 8 * i, 1);
+      bar_init(empty + 8 * i, 2 * 128);   // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup's role, read from lane 0 so that the compiler sees a
+  // warp-uniform branch (and gives each side its setmaxnreg budget)
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {
+    // the producer: one thread issues every copy; a stage is refilled
+    // once both consumer warpgroups have released it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      bar_expect(qd_full, 2 * G::Q_BYTES);
+      load_tile<HD, BQ>(maps.q, maps.q_tail, q_tile, qd_full, head, q0, b);
+      load_tile<HD, BQ>(maps.dout, maps.dout_tail, do_tile, qd_full, head,
+                        q0, b);
+      for (int i = 0; i < tiles; ++i) {
+        const int st = i % ST;
+        if (i >= ST) bar_wait(empty + 8 * st, (i / ST - 1) & 1);
+        const int pos = (kt_begin + i) * BK;
+        bar_expect(k_full + 8 * st, G::KV_BYTES);
+        load_tile<HD, BK>(maps.k, maps.k_tail, k_tiles + st * G::KV_BYTES,
+                          k_full + 8 * st, kv_head, pos, b);
+        bar_expect(v_full + 8 * st, G::KV_BYTES);
+        load_tile<HD, BK>(maps.v, maps.v_tail, v_tiles + st * G::KV_BYTES,
+                          v_full + 8 * st, kv_head, pos, b);
+      }
+    }
+    return;
+  }
+  // a consumer warpgroup: 64 query rows over every key tile the producer
+  // loads.  Tile i's dQ product and tile i + 1's S and dP go out back to
+  // back; the gradients of that S and dP run while the other warpgroup's
+  // products do.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(CONSUMER_REGS));
+  const int tid = threadIdx.x - 128;
+  const int wgi = role - 1;            // consumer warpgroup 0 or 1
+  const int warp = (tid >> 5) & 3;     // its warps own 16 rows each
+  const int lane = tid & 31;
+  const int t = lane & 3;              // accumulator column pair
+  const int qw = q0 + 64 * wgi;        // the warpgroup's first row
+  const int r0 = qw + 16 * warp + (lane >> 2);   // rows r0, r0 + 8
+  const int64_t q_row = (int64_t)h * HD;
+  const int64_t qoff = ((int64_t)b * s * h + head) * HD;
+  const int64_t rowstat = ((int64_t)b * h + head) * s;   // lse, delta
+  const float scale_log2 = scale * LOG2E;
+
+  // delta = rowsum(dO * O) of the warp's 16 rows in f32 (from global
+  // memory, while the producer's copies land); the lane keeps rows r0 and
+  // r0 + 8's, with their lse in log2 units (+inf past S, so that p = 0
+  // there; a row inside S keeps its own key, so its lse is finite)
+  float dl[2] = {0.f, 0.f}, l2[2];
+#pragma unroll 4
+  for (int r = 0; r < 16; ++r) {
+    const int pos = qw + 16 * warp + r;
+    float acc = 0.f;
+    if (pos < s) {
+      const __nv_bfloat162* orow = reinterpret_cast<const __nv_bfloat162*>(
+          out + qoff + pos * q_row);
+      const __nv_bfloat162* drow = reinterpret_cast<const __nv_bfloat162*>(
+          dout + qoff + pos * q_row);
+      for (int c = lane; c < HD / 2; c += 32) {
+        const float2 o2 = __bfloat1622float2(orow[c]);
+        const float2 d2 = __bfloat1622float2(drow[c]);
+        acc = fmaf(d2.y, o2.y, fmaf(d2.x, o2.x, acc));
+      }
+    }
+    acc = attn::group_sum<32>(acc);
+    if (lane == 0 && pos < s) delta[rowstat + pos] = acc;
+    if (r == (lane >> 2)) dl[0] = acc;
+    if (r == (lane >> 2) + 8) dl[1] = acc;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pos = r0 + 8 * i;
+    l2[i] = pos < s ? lse[rowstat + pos] * LOG2E : INFINITY;
+  }
+
+  float acc[OW / 2];   // dQ / scale, columns 0 .. OW - 1
+  float acct[TW];      // dQ / scale, the tail's 16 columns
+#pragma unroll
+  for (int i = 0; i < OW / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < TW; ++i) acct[i] = 0.f;
+  float sc[BK / 2], dp[BK / 2];   // S, then dS / scale; dP
+  uint32_t hi[BK / 16][4], lo[BK / 16][4];   // dS's A fragments
+  // S = Q K^T and dP = dO V^T against the key tile of stage st
+  auto issue_sdp = [&](int st) {
+    issue_xyt<HD, BQ>(sc, q_tile, 64 * wgi, k_tiles + st * G::KV_BYTES);
+    issue_xyt<HD, BQ>(dp, do_tile, 64 * wgi, v_tiles + st * G::KV_BYTES);
+  };
+
+  bar_wait(qd_full, 0);
+  bar_wait(k_full, 0);
+  bar_wait(v_full, 0);
+  fence_regs(sc);
+  fence_regs(dp);
+  mma_fence();
+  issue_sdp(0);
+  mma_commit();
+  mma_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+  dq_grads(sc, dp, l2, dl, kt_begin * BK, qw, r0, t, s, causal, window,
+           prefix, scale_log2);
+  split_p(sc, hi, lo);
+
+  for (int i = 0; i < tiles; ++i) {
+    const int st = i % ST, next = (i + 1) % ST;
+    const bool more = i + 1 < tiles;
+    fence_regs(acc);
+    fence_regs(acct);
+    fence_regs(sc);
+    fence_regs(dp);
+    mma_fence();
+    issue_rs<HD>(acc, acct, hi, lo, k_tiles + st * G::KV_BYTES);
+    mma_commit();
+    if (more) {
+      const int parity = ((i + 1) / ST) & 1;
+      bar_wait(k_full + 8 * next, parity);
+      bar_wait(v_full + 8 * next, parity);
+      issue_sdp(next);
+      mma_commit();
+    }
+    if (more) {
+      mma_wait<1>();   // tile i's dQ product is done; i + 1's S may run on
+    } else {
+      mma_wait<0>();
+    }
+    fence_regs(acc);
+    fence_regs(acct);
+    bar_arrive(empty + 8 * st);
+    if (more) {
+      mma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      dq_grads(sc, dp, l2, dl, (kt_begin + i + 1) * BK, qw, r0, t, s, causal,
+               window, prefix, scale_log2);
+      split_p(sc, hi, lo);
+    }
+  }
+
+  // dQ in bf16 from the accumulators; rows past S are not written
+  store_bf16<OW / 2, TW, TAIL>(dq + qoff, q_row, r0, s, t, acc, acct, scale);
+}
+
+// dK and dV of one key tile, summed over the group's query heads.  Grid
+// (KV, B, key tiles of BK keys), or (KV, B, plan entries) with a plan:
+// entry z = {key tile, first item, end item, workspace slot} of the
+// tile's walk (item i = head i / nq of the group, query tile i % nq), and
+// then the block writes f32 partials to ws[(slot, b, kv head)][dK,
+// dV][BK][HD].
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ DkvMaps maps,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, const int4* __restrict__ plan,
+                     float* __restrict__ ws, int s, int h, int kvh,
+                     int causal, int window, int prefix, float scale) {
+  using G = DkvGeo<HD>;
+  constexpr int BK = G::BK, BQ = G::BQ, ST = G::STAGES;
+  constexpr int TAIL = tail_cols(HD);
+  constexpr int OW = 64 * parts(HD);   // dK's and dV's wide columns
+  constexpr int TW = TAIL ? TAIL / 2 : 1;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t k_tile = base, v_tile = base + G::V_OFF;
+  const uint32_t q_tiles = base + G::Q_OFF, do_tiles = base + G::DO_OFF;
+  const uint32_t kv_full = base + G::BAR_OFF;
+  const uint32_t full = kv_full + 8;   // + 8 * stage
+  const uint32_t empty = full + 8 * ST;
+
+  const int kv_head = blockIdx.x, b = blockIdx.y;
+  const int group = h / kvh;
+  int kt = blockIdx.z, i_begin = 0, i_end = -1, slot = 0;
+  if (plan != nullptr) {
+    const int4 e = plan[blockIdx.z];
+    kt = e.x;
+    i_begin = e.y;
+    i_end = e.z;
+    slot = e.w;
+  }
+  const int k0 = kt * BK;
+
+  // the query rows that keep one of the tile's keys, in query tiles
+  const int k_last = min(k0 + BK, s) - 1;
+  const int q_begin = causal && k0 >= prefix ? k0 : 0;
+  const int q_end = window > 0 ? min(s, k_last + window) : s;
+  const int qt0 = q_begin / BQ;
+  const int nq = (q_end + BQ - 1) / BQ - qt0;
+  if (plan == nullptr) i_end = group * nq;
+  const int items = i_end - i_begin;
+
+  if (threadIdx.x == 0) {
+    bar_init(kv_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      bar_init(full + 8 * i, 1);
+      bar_init(empty + 8 * i, 2 * 128);   // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 0) {
+    // the producer: K and V once, then each item's Q and dO
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      bar_expect(kv_full, 2 * G::KV_BYTES);
+      load_tile<HD, BK>(maps.k, maps.k_tail, k_tile, kv_full, kv_head, k0,
+                        b);
+      load_tile<HD, BK>(maps.v, maps.v_tail, v_tile, kv_full, kv_head, k0,
+                        b);
+      for (int n = 0; n < items; ++n) {
+        const int st = n % ST, i = i_begin + n;
+        if (n >= ST) bar_wait(empty + 8 * st, (n / ST - 1) & 1);
+        const int head = kv_head * group + i / nq;
+        const int q0 = (qt0 + i % nq) * BQ;
+        const uint32_t bar = full + 8 * st;
+        bar_expect(bar, 2 * G::Q_BYTES);
+        load_tile<HD, BQ>(maps.q, maps.q_tail, q_tiles + st * G::Q_BYTES,
+                          bar, head, q0, b);
+        load_tile<HD, BQ>(maps.dout, maps.dout_tail,
+                          do_tiles + st * G::Q_BYTES, bar, head, q0, b);
+      }
+    }
+    return;
+  }
+  // a consumer warpgroup: 64 keys over every item of the walk.  Each
+  // item's S^T and dP^T, then its dV and dK products; its gradients run
+  // while the other warpgroup's products do.  The next item's lse and
+  // delta are read from global memory while this item's dV and dK
+  // products run (issued before them, the loads would hold up the
+  // products' wgmma.fence).
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(CONSUMER_REGS));
+  const int tid = threadIdx.x - 128;
+  const int wgi = role - 1;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int t = lane & 3;
+  const int kw = k0 + 64 * wgi;                 // the warpgroup's first key
+  const int kr = kw + 16 * warp + (lane >> 2);   // keys kr, kr + 8
+  const float scale_log2 = scale * LOG2E;
+
+  float dka[OW / 2], dkt[TW], dva[OW / 2], dvt[TW];   // dK / scale, dV
+#pragma unroll
+  for (int i = 0; i < OW / 2; ++i) dka[i] = dva[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < TW; ++i) dkt[i] = dvt[i] = 0.f;
+  float sT[BQ / 2], dpT[BQ / 2];   // S^T, then P^T; dP^T, then dS^T
+  float l2[BQ / 4], dl[BQ / 4];    // the item's columns' lse, delta
+  uint32_t ph[BQ / 16][4], pl[BQ / 16][4];   // P^T's A fragments
+  uint32_t sh[BQ / 16][4], sl[BQ / 16][4];   // dS^T's
+
+  // the lse and delta of item i's query columns
+  auto stats = [&](int i) {
+    load_stats(l2, dl, lse, delta,
+               ((int64_t)b * h + kv_head * group + i / nq) * s,
+               (qt0 + i % nq) * BQ, t, s);
+  };
+  if (items > 0) stats(i_begin);
+  bar_wait(kv_full, 0);
+  for (int n = 0; n < items; ++n) {
+    const int st = n % ST, i = i_begin + n;
+    const int q0 = (qt0 + i % nq) * BQ;
+    const uint32_t q_st = q_tiles + st * G::Q_BYTES;
+    const uint32_t do_st = do_tiles + st * G::Q_BYTES;
+    bar_wait(full + 8 * st, (n / ST) & 1);
+    fence_regs(sT);
+    fence_regs(dpT);
+    mma_fence();
+    issue_xyt<HD, BK>(sT, k_tile, 64 * wgi, q_st);
+    issue_xyt<HD, BK>(dpT, v_tile, 64 * wgi, do_st);
+    mma_commit();
+    mma_wait<0>();
+    fence_regs(sT);
+    fence_regs(dpT);
+    dkv_grads(sT, dpT, l2, dl, q0, kw, kr, t, s, causal, window, prefix,
+              scale_log2);
+    // dV's products go out before dS^T is split, which runs beside them
+    split_p(sT, ph, pl);
+    fence_regs(dva);
+    fence_regs(dvt);
+    mma_fence();
+    issue_rs<HD>(dva, dvt, ph, pl, do_st);
+    mma_commit();
+    split_p(dpT, sh, sl);
+    fence_regs(dka);
+    fence_regs(dkt);
+    mma_fence();
+    issue_rs<HD>(dka, dkt, sh, sl, q_st);
+    mma_commit();
+    if (n + 1 < items) stats(i + 1);
+    mma_wait<0>();
+    fence_regs(dka);
+    fence_regs(dkt);
+    fence_regs(dva);
+    fence_regs(dvt);
+    bar_arrive(empty + 8 * st);
+  }
+
+  const int64_t kv_row = (int64_t)kvh * HD;
+  const int64_t kvoff = ((int64_t)b * s * kvh + kv_head) * HD;
+  if (ws == nullptr) {
+    // bf16 from the accumulators; keys past S are not written
+    store_bf16<OW / 2, TW, TAIL>(dk + kvoff, kv_row, kr, s, t, dka, dkt,
+                                 scale);
+    store_bf16<OW / 2, TW, TAIL>(dv + kvoff, kv_row, kr, s, t, dva, dvt,
+                                 1.f);
+    return;
+  }
+  // f32 partials, summed by flash_bwd_dkdv_sum
+  float* part =
+      ws + (((int64_t)slot * gridDim.y + b) * kvh + kv_head) * 2 * BK * HD;
+  const int row = kr - k0;   // the lane's rows row, row + 8 of the tile
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* pk = part + (row + 8 * r) * HD + 2 * t;
+    float* pv = pk + BK * HD;
+#pragma unroll
+    for (int j = 0; j < OW / 8; ++j) {
+      *reinterpret_cast<float2*>(pk + 8 * j) = make_float2(
+          dka[4 * j + 2 * r] * scale, dka[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<float2*>(pv + 8 * j) =
+          make_float2(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+    }
+#pragma unroll
+    for (int j = 0; j < TAIL / 8; ++j) {
+      *reinterpret_cast<float2*>(pk + OW + 8 * j) = make_float2(
+          dkt[4 * j + 2 * r] * scale, dkt[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<float2*>(pv + OW + 8 * j) =
+          make_float2(dvt[4 * j + 2 * r], dvt[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// Blocks a key tile's partials are summed by: its 128 rows split
+// SUM_PARTS ways, as the f32 kernels' sum, so that a small grid's sum
+// runs on more SMs than it has key tiles.
+constexpr int SUM_PARTS = 8;
+
+// dK and dV of a split from its f32 partials, rounded to bf16 (dkdv_sum).
+template <int HD>
+__global__ void __launch_bounds__(SUM_THREADS)
+flash_bwd_dkdv_sum(const float* __restrict__ ws, const int* __restrict__ tiles,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int s,
+                   int kvh) {
+  dkdv_sum<DkvGeo<HD>::BK, HD, SUM_PARTS, true>(ws, tiles, dk, dv, s, kvh);
+}
+
+// Both launches' tensor maps for a call at head dim HD, or false if the
+// driver will not encode one (or q is no device memory).
+template <int HD>
+bool encode_maps(const Args<bf16>& a, DqMaps* dm, DkvMaps* km) {
+  using Q = DqGeo<HD>;
+  using KV = DkvGeo<HD>;
+  constexpr int TAIL = tail_cols(HD);
+  const CUtensorMapSwizzle wide = CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUtensorMapSwizzle narrow = CU_TENSOR_MAP_SWIZZLE_32B;
+  memset(dm, 0, sizeof(*dm));
+  memset(km, 0, sizeof(*km));
+  if (!bind_device(a.q)) return false;
+  // (map, tail, tensor, heads, box rows) of every tiled map
+  struct Tiled {
+    CUtensorMap *map, *tail;
+    const void* ptr;
+    int heads, rows;
+  } tiled[8] = {{&dm->q, &dm->q_tail, a.q, a.h, Q::BQ},
+                {&dm->dout, &dm->dout_tail, a.dout, a.h, Q::BQ},
+                {&dm->k, &dm->k_tail, a.k, a.kvh, Q::BK},
+                {&dm->v, &dm->v_tail, a.v, a.kvh, Q::BK},
+                {&km->q, &km->q_tail, a.q, a.h, KV::BQ},
+                {&km->dout, &km->dout_tail, a.dout, a.h, KV::BQ},
+                {&km->k, &km->k_tail, a.k, a.kvh, KV::BK},
+                {&km->v, &km->v_tail, a.v, a.kvh, KV::BK}};
+  for (const Tiled& m : tiled) {
+    if (!encode(m.map, m.ptr, HD, m.heads, a.s, a.b, 64, m.rows, wide))
+      return false;
+    if (TAIL > 0 && !encode(m.tail, m.ptr, HD, m.heads, a.s, a.b, TAIL,
+                            m.rows, narrow))
+      return false;
+  }
+  return true;
+}
+
+// K1's launches on a.stream: the dQ kernel (grid H x B x query tiles), the
+// dK / dV kernel (KV x B x key tiles, or x plan entries) and, with a plan,
+// the sum of its partials.  A tensor map the driver will not encode
+// returns cudaErrorInvalidValue; otherwise the first failing launch's
+// cudaError_t.
+template <int HD>
+int launch(const Args<bf16>& a) {
+  using Q = DqGeo<HD>;
+  using KV = DkvGeo<HD>;
+  DqMaps dm;
+  DkvMaps km;
+  if (!encode_maps<HD>(a, &dm, &km)) return (int)cudaErrorInvalidValue;
+  auto kq = flash_bwd_dq_wgmma<HD>;
+  auto kkv = flash_bwd_dkdv_wgmma<HD>;
+  cudaError_t err = allow_smem(kq, Q::SMEM);
+  if (err == cudaSuccess) err = allow_smem(kkv, KV::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kq<<<dim3(a.h, a.b, (a.s + Q::BQ - 1) / Q::BQ), THREADS, Q::SMEM,
+       a.stream>>>(dm, a.out, a.dout, a.lse, a.delta, a.dq, a.s, a.h, a.kvh,
+                   a.causal, a.window, a.prefix, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (a.s + KV::BK - 1) / KV::BK;
+  kkv<<<dim3(a.kvh, a.b, a.plan ? a.nplan : tiles), THREADS, KV::SMEM,
+        a.stream>>>(km, a.lse, a.delta, a.dk, a.dv,
+                    reinterpret_cast<const int4*>(a.plan), a.ws, a.s, a.h,
+                    a.kvh, a.causal, a.window, a.prefix, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.plan == nullptr) return (int)err;
+  return launch_sum<SUM_PARTS>(a, tiles, flash_bwd_dkdv_sum<HD>);
+}
+
+// The head dim's launch, or cudaErrorInvalidValue for a head dim the
+// kernels do not take (or, with bk > 0, for dK / dV tiles (bk, bq) that
+// are not its own).
+int dispatch(int hd, const Args<bf16>& a, int bk, int bq) {
+#define WG_CASE(D)                                                         \
+  case D:                                                                  \
+    return bk > 0 && (bk != DkvGeo<D>::BK || bq != DkvGeo<D>::BQ)          \
+               ? (int)cudaErrorInvalidValue                                \
+               : launch<D>(a);
+  switch (hd) {
+    WG_CASE(80)
+    WG_CASE(128)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WG_CASE
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
+// bf16 at head dims 32, 64, 96 and 256: the mma.sync kernels
 
 namespace tc {
 
@@ -775,55 +1599,19 @@ flash_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-constexpr int SUM_THREADS = 256;
-
-// dK and dV of key tile z from its splits' f32 partials, summed in split
-// order (the same bits at every call) and rounded to bf16.  Grid (KV, B,
-// key tiles); tiles[2 z] is the tile's first workspace slot, tiles[2 z +
-// 1] its number of slots.  Launched as a programmatic dependent of the
-// dK / dV kernel: it waits here for that grid's writes.
+// dK and dV of a split from its f32 partials, rounded to bf16: one block
+// a key tile (dkdv_sum).
 template <int HD>
 __global__ void __launch_bounds__(SUM_THREADS)
 flash_bwd_dkdv_sum(const float* __restrict__ ws, const int* __restrict__ tiles,
                    bf16* __restrict__ dk, bf16* __restrict__ dv, int s,
                    int kvh) {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  constexpr int BK = DkvPlan<HD>::BK;
-  constexpr int Q4 = HD / 4;   // float4 columns a row
-  const int kv_head = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
-  const int first = tiles[2 * kt], count = tiles[2 * kt + 1];
-  const int64_t slot_stride = (int64_t)gridDim.y * kvh * 2 * BK * HD;
-  const float* part =
-      ws + (((int64_t)first * gridDim.y + b) * kvh + kv_head) * 2 * BK * HD;
-  const int64_t kv_row = (int64_t)kvh * HD;
-  const int64_t kvoff = ((int64_t)b * s * kvh + kv_head) * HD;
-  for (int e = threadIdx.x; e < 2 * BK * Q4; e += SUM_THREADS) {
-    const int which = e / (BK * Q4);   // 0: dK, 1: dV
-    const int row = (e / Q4) % BK;
-    const int col = (e % Q4) * 4;
-    const int pos = kt * BK + row;
-    if (pos >= s) continue;
-    const float* src = part + which * BK * HD + row * HD + col;
-    float4 acc = *reinterpret_cast<const float4*>(src);
-    for (int sp = 1; sp < count; ++sp) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(src + sp * slot_stride);
-      acc.x += x.x;
-      acc.y += x.y;
-      acc.z += x.z;
-      acc.w += x.w;
-    }
-    uint2 packed;
-    packed.x = pack_bf16(acc.x, acc.y);
-    packed.y = pack_bf16(acc.z, acc.w);
-    *reinterpret_cast<uint2*>((which ? dv : dk) + kvoff + pos * kv_row +
-                              col) = packed;
-  }
+  dkdv_sum<DkvPlan<HD>::BK, HD, 1, false>(ws, tiles, dk, dv, s, kvh);
 }
 
 template <int HD>
 int launch(const Args<bf16>& a) {
-  return launch_k1<DqPlan<HD>, DkvPlan<HD>, SUM_THREADS, 1>(
+  return launch_k1<DqPlan<HD>, DkvPlan<HD>, 1>(
       a, flash_bwd_dq_mma<HD>, flash_bwd_dkdv_mma<HD>, flash_bwd_dkdv_sum<HD>);
 }
 
@@ -841,9 +1629,7 @@ int dispatch(int hd, const Args<bf16>& a, int bk, int bq) {
   switch (hd) {
     TC_CASE(32)
     TC_CASE(64)
-    TC_CASE(80)
     TC_CASE(96)
-    TC_CASE(128)
     TC_CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
@@ -851,6 +1637,14 @@ int dispatch(int hd, const Args<bf16>& a, int bk, int bq) {
 }
 
 }  // namespace tc
+
+// bf16 by head dim: 80 and 128 to the Hopper kernels (wg::), 32, 64, 96
+// and 256 to the mma.sync ones (tc::; at head dim 64 the wgmma kernels
+// ran slower than these at zamba2's shapes).
+int dispatch_bf16(int hd, const Args<bf16>& a, int bk, int bq) {
+  if (hd == 80 || hd == 128) return wg::dispatch(hd, a, bk, bq);
+  return tc::dispatch(hd, a, bk, bq);
+}
 
 // ---------------------------------------------------------------------------
 // f32: the split-TF32 tensor-core kernels
@@ -1399,55 +2193,18 @@ flash_bwd_dkdv_3xtf32(const float* __restrict__ q,
 // (paligemma's f32 cut: KV x B x key tiles = 16, 17 slots a tile).
 constexpr int SUM_PARTS = 8;
 
-// dK and dV of rows of key tile z / SUM_PARTS (the part z % SUM_PARTS of
-// its BK rows) from its splits' f32 partials, summed in split order (the
-// same bits at every call).  Grid (KV, B, key tiles x SUM_PARTS); tiles[2
-// kt] is key tile kt's first workspace slot, tiles[2 kt + 1] its number of
-// slots.  Launched as a programmatic dependent of the dK / dV kernel: it
-// waits here for that grid's writes.
+// dK and dV of a split from its f32 partials (dkdv_sum).
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(SUM_THREADS)
 flash_bwd_dkdv_sum(const float* __restrict__ ws, const int* __restrict__ tiles,
                    float* __restrict__ dk, float* __restrict__ dv, int s,
                    int kvh) {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  constexpr int BK = DkvPlan<HD>::BK;
-  constexpr int ROWS = BK / SUM_PARTS;   // rows a block sums
-  constexpr int Q4 = HD / 4;             // float4 columns a row
-  const int kv_head = blockIdx.x, b = blockIdx.y;
-  const int kt = blockIdx.z / SUM_PARTS;
-  const int row0 = blockIdx.z % SUM_PARTS * ROWS;
-  const int first = tiles[2 * kt], count = tiles[2 * kt + 1];
-  const int64_t slot_stride = (int64_t)gridDim.y * kvh * 2 * BK * HD;
-  const float* part =
-      ws + (((int64_t)first * gridDim.y + b) * kvh + kv_head) * 2 * BK * HD;
-  const int64_t kv_row = (int64_t)kvh * HD;
-  const int64_t kvoff = ((int64_t)b * s * kvh + kv_head) * HD;
-  for (int e = threadIdx.x; e < 2 * ROWS * Q4; e += THREADS) {
-    const int which = e / (ROWS * Q4);   // 0: dK, 1: dV
-    const int row = row0 + (e / Q4) % ROWS;
-    const int col = (e % Q4) * 4;
-    const int pos = kt * BK + row;
-    if (pos >= s) continue;
-    const float* src = part + which * BK * HD + row * HD + col;
-    float4 acc = *reinterpret_cast<const float4*>(src);
-#pragma unroll 4
-    for (int sp = 1; sp < count; ++sp) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(src + sp * slot_stride);
-      acc.x += x.x;
-      acc.y += x.y;
-      acc.z += x.z;
-      acc.w += x.w;
-    }
-    *reinterpret_cast<float4*>((which ? dv : dk) + kvoff + pos * kv_row +
-                               col) = acc;
-  }
+  dkdv_sum<DkvPlan<HD>::BK, HD, SUM_PARTS, true>(ws, tiles, dk, dv, s, kvh);
 }
 
 template <int HD>
 int launch(const Args<float>& a) {
-  return launch_k1<DqPlan<HD>, DkvPlan<HD>, THREADS, SUM_PARTS>(
+  return launch_k1<DqPlan<HD>, DkvPlan<HD>, SUM_PARTS>(
       a, flash_bwd_dq_3xtf32<HD>, flash_bwd_dkdv_3xtf32<HD>,
       flash_bwd_dkdv_sum<HD>);
 }
@@ -1510,10 +2267,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    void* stream) {
   if (prefix < 0) return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return tc::dispatch(hd, args<bf16>(q, k, v, out, dout, lse, delta, dq,
-                                       dk, dv, b, s, h, kvh, causal, window,
-                                       prefix, scale, nullptr, 0, nullptr,
-                                       stream), 0, 0);
+    return dispatch_bf16(hd, args<bf16>(q, k, v, out, dout, lse, delta, dq,
+                                        dk, dv, b, s, h, kvh, causal, window,
+                                        prefix, scale, nullptr, 0, nullptr,
+                                        stream), 0, 0);
   return tf32x3::dispatch(hd, args<float>(q, k, v, out, dout, lse, delta,
                                           dq, dk, dv, b, s, h, kvh, causal,
                                           window, prefix, scale, nullptr, 0,
@@ -1537,10 +2294,10 @@ extern "C" int flash_attention_bwd_split(
       ws == nullptr || bk < 1)
     return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return tc::dispatch(hd, args<bf16>(q, k, v, out, dout, lse, delta, dq,
-                                       dk, dv, b, s, h, kvh, causal, window,
-                                       prefix, scale, plan, nplan, ws,
-                                       stream), bk, bq);
+    return dispatch_bf16(hd, args<bf16>(q, k, v, out, dout, lse, delta, dq,
+                                        dk, dv, b, s, h, kvh, causal, window,
+                                        prefix, scale, plan, nplan, ws,
+                                        stream), bk, bq);
   return tf32x3::dispatch(hd, args<float>(q, k, v, out, dout, lse, delta,
                                           dq, dk, dv, b, s, h, kvh, causal,
                                           window, prefix, scale, plan, nplan,

@@ -24,8 +24,10 @@ runs :class:`FlashAttention`: its forward launches
 log-sum-exp) and its backward :func:`flash_attention_bwd` (K1: dQ, dK and
 dV, the GQA sum inside the kernel; bf16 on the tensor cores with P and dS
 carried as two bf16 terms, f32 on the TF32 tensor cores with split
-operands, three products for each of the five).  Otherwise (serving) it
-launches the forward alone, as before.
+operands, three products for each of the five; bf16 at head dims 80 and
+128 on ``wgmma`` fed by TMA, ``flash_bwd_wgmma``, at 32, 64, 96 and 256 on
+``mma.sync``, ``flash_bwd_mma``: :func:`bwd_kernel_of`).  Otherwise
+(serving) it launches the forward alone, as before.
 
 Where K1's dK / dV grid (KV heads x batch x key tiles, by the type's tiles
 :data:`BWD_TILES`) is under :data:`BWD_BLOCKS_PER_SM` blocks an SM,
@@ -37,8 +39,8 @@ order.
 Each entry launches on the current CUDA stream, allocates only its outputs
 (and the backward its row scratch and the split's workspace) and never
 falls back to the plain version: anything a kernel does not take raises.
-``LAUNCHES`` counts each entry's launches by name, ``BY_KERNEL`` the
-forward entries' launches by the kernel each took.
+``LAUNCHES`` counts each entry's launches by name, ``BY_KERNEL`` each
+entry's launches by the kernel (K1: the kernels' route) each took.
 """
 
 from __future__ import annotations
@@ -57,14 +59,19 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0,
                             "flash_attention_fwd_lse": 0,
                             "flash_attention_bwd": 0}
 
-#: the forward entries' launches by the kernel each took (:func:`kernel_of`)
+#: each entry's launches by the kernel each took (:func:`kernel_of`; K1's
+#: by the route of its kernels, :func:`bwd_kernel_of`)
 BY_KERNEL: Dict[str, Counter] = {"flash_attention": Counter(),
-                                 "flash_attention_fwd_lse": Counter()}
+                                 "flash_attention_fwd_lse": Counter(),
+                                 "flash_attention_bwd": Counter()}
 
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 #: bf16 head dims the forward takes on wgmma (csrc's tc::dispatch)
 WGMMA_HEAD_DIMS = (64, 80, 128)
+#: bf16 head dims K1 takes on wgmma (csrc's dispatch_bf16; at 64 its
+#: wgmma kernels ran slower than the mma.sync ones)
+BWD_WGMMA_HEAD_DIMS = (80, 128)
 
 _FWD_SIGNATURES = {
     "flash_attention_fwd": [cuda_build.PTR] * 4 + [cuda_build.I32] * 9
@@ -80,12 +87,13 @@ _BWD_SIGNATURES = {
                                cuda_build.I32, cuda_build.PTR,
                                cuda_build.PTR]}
 
-#: K1's dK / dV tiles by type and head dim (csrc's tc::DkvPlan for bf16,
+#: K1's dK / dV tiles by type and head dim (csrc's wg::DkvGeo for bf16 at
+#: head dims 80 and 128, tc::DkvPlan for the other bf16 ones,
 #: tf32x3::DkvPlan for f32): (keys a block, query rows a step of its
 #: walk); the split entry refuses others
 BWD_TILES = {
-    torch.bfloat16: {32: (64, 64), 64: (64, 64), 80: (64, 64), 96: (64, 32),
-                     128: (64, 32), 256: (64, 32)},
+    torch.bfloat16: {32: (64, 64), 64: (64, 64), 80: (128, 64),
+                     96: (64, 32), 128: (128, 32), 256: (64, 32)},
     torch.float32: {32: (64, 64), 64: (64, 64), 80: (64, 64), 96: (64, 64),
                     128: (64, 64), 256: (64, 16)}}
 #: K1's dK / dV blocks an SM should have: a smaller grid is split
@@ -111,6 +119,17 @@ def kernel_of(dtype: torch.dtype, hd: int) -> str:
     if hd in WGMMA_HEAD_DIMS:
         return "flash_attention_bf16_wgmma"
     return "flash_attention_bf16_mma"
+
+
+def bwd_kernel_of(dtype: torch.dtype, hd: int) -> str:
+    """The route of the kernels K1 launches for operands of ``dtype`` at
+    head dim ``hd`` (csrc's ``dispatch_bf16``): its dQ and dK / dV kernels
+    are ``flash_bwd_dq_<route>`` and ``flash_bwd_dkdv_<route>``."""
+    if dtype == torch.float32:
+        return "flash_bwd_3xtf32"
+    if hd in BWD_WGMMA_HEAD_DIMS:
+        return "flash_bwd_wgmma"
+    return "flash_bwd_mma"
 
 
 def check_attention_operands(**tensors: torch.Tensor) -> torch.dtype:
@@ -277,7 +296,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 *args, bk, bq, plan.data_ptr(), entries, ws.data_ptr(),
                 _stream(q))
     cuda_build.check_launch("flash_attention_bwd", code)
-    cuda_build.count_launch(LAUNCHES, "flash_attention_bwd")
+    cuda_build.count_launch(LAUNCHES, "flash_attention_bwd",
+                            extra=((BY_KERNEL, bwd_kernel_of(dtype, hd)),))
     return dq, dk, dv
 
 

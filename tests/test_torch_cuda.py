@@ -569,12 +569,12 @@ def test_flash_attention_wgmma_kernel_matches_plain(cuda, b, s, h, kvh, hd,
                            ).to(torch.bfloat16) for n in (h, kvh, kvh))
     opts = dict(causal=causal, window=window, prefix_len=prefix)
     wgmma = "flash_attention_bf16_wgmma"
-    before = {entry: counts[wgmma]
-              for entry, counts in cuda_fa.BY_KERNEL.items()}
+    fwd = ("flash_attention", "flash_attention_fwd_lse")
+    before = {entry: cuda_fa.BY_KERNEL[entry][wgmma] for entry in fwd}
     got = cuda_fa.flash_attention(q, k, v, **opts)
     out, lse = cuda_fa.flash_attention_fwd_lse(q, k, v, **opts)
-    assert {entry: counts[wgmma] for entry, counts in
-            cuda_fa.BY_KERNEL.items()} == {e: n + 1 for e, n in before.items()}
+    assert {entry: cuda_fa.BY_KERNEL[entry][wgmma] for entry in fwd} == \
+        {e: n + 1 for e, n in before.items()}
     want, want_lse = ref.flash_attention_lse(q, k, v, **opts)
     torch.testing.assert_close(got, want, **ATTN_TOL[torch.bfloat16])
     assert torch.equal(out, got)
@@ -624,7 +624,12 @@ def test_flash_attention_f32_kernel_matches_plain_and_repeats(
 # (b, s, h, kvh, hd, causal, window, prefix): K1 at every head dim, the
 # causal mask, windows (shorter than a key tile, and danube's 4096 at S =
 # 4128), the prefix (inside and past a tile, under a window, at hd 256),
-# full attention, groups 1, 2, 4, 12 and 16, ragged S
+# full attention, groups 1, 2, 4, 12 and 16, ragged S; then at each of
+# head dims 64, 80 and 128 (bf16 at 80 and 128 on the wgmma kernels' 64-key
+# dQ and 128-key dK / dV tiles, at 64 on mma.sync): the causal mask with
+# groups of 1 at an S no multiple of 64, a window shorter than a tile with
+# groups of 8, danube's window at S = 4128, a prefix inside a tile (group
+# 12) and one past it under a window (group 16), full attention
 _FLASH_BWD = [
     (2, 200, 4, 4, 32, True, None, 0),
     (1, 300, 8, 2, 64, True, 40, 0),
@@ -636,6 +641,15 @@ _FLASH_BWD = [
     (1, 97, 4, 4, 64, False, 9, 0),
     (1, 512, 64, 4, 128, True, None, 0),
     (1, 4128, 8, 2, 80, True, 4096, 0)]
+_FLASH_BWD += [case for case in (
+    (b, s, h, kvh, hd, causal, window, prefix) for hd in (64, 80, 128)
+    for b, s, h, kvh, causal, window, prefix in [
+        (2, 333, 4, 4, True, None, 0),
+        (1, 300, 16, 2, True, 40, 0),
+        (1, 4128, 8, 2, True, 4096, 0),
+        (1, 190, 12, 1, True, None, 70),
+        (1, 257, 16, 1, True, 33, 200),
+        (1, 150, 16, 2, False, None, 0)]) if case not in _FLASH_BWD]
 
 
 @pytest.mark.parametrize(
@@ -647,7 +661,8 @@ def test_flash_attention_bwd_matches_plain(cuda, dtype, b, s, h, kvh, hd,
     ref.flash_attention on the same card tensors: f32 at 2e-4; bf16
     within flash_attention_bwd_bf16_bound, derived from the rounding
     of the inputs and outputs.  The forward with the row log-sum-exp gives
-    flash_attention_fwd's out bit for bit, and its lse is ref's."""
+    flash_attention_fwd's out bit for bit, and its lse is ref's.  The
+    launch is counted under the route bwd_kernel_of names."""
     g = torch.Generator(device=cuda).manual_seed(s + h + hd + prefix)
     q, k, v, dout = (torch.randn(b, s, n, hd, device=cuda, generator=g
                                  ).to(dtype) for n in (h, kvh, kvh, h))
@@ -659,9 +674,12 @@ def test_flash_attention_bwd_matches_plain(cuda, dtype, b, s, h, kvh, hd,
                                rtol=2e-4, atol=2e-4)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     before = dict(cuda_fa.LAUNCHES)
+    route = cuda_fa.bwd_kernel_of(dtype, hd)
+    routed = cuda_fa.BY_KERNEL["flash_attention_bwd"][route]
     ops.flash_attention(*leaves, **opts).backward(dout)
     assert cuda_fa.LAUNCHES["flash_attention_bwd"] == \
         before["flash_attention_bwd"] + 1
+    assert cuda_fa.BY_KERNEL["flash_attention_bwd"][route] == routed + 1
     got = [x.grad for x in leaves]
     plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
     ref.flash_attention(*plain, **opts).backward(dout)
@@ -682,15 +700,62 @@ def test_flash_attention_bwd_matches_plain(cuda, dtype, b, s, h, kvh, hd,
         assert torch.equal(a, b_)
 
 
+
+@pytest.mark.parametrize("hd", [80, 128])
+def test_flash_attention_wgmma_launches_from_a_thread_without_a_context(
+        cuda, hd):
+    """The wgmma routes (the forward with LSE and K1) launch from a thread
+    that has made no CUDA call, as autograd's backward thread is when the
+    caching allocator serves all its tensors: the tensor-map encoder is a
+    driver call and needs a current context, which each launch binds
+    (hopper::bind_device).  The thread's results are the main thread's
+    bit for bit."""
+    import threading
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q, k, v, dout = (torch.randn(1, 256, n, hd, device=cuda, generator=g
+                                 ).bfloat16() for n in (4, 2, 2, 4))
+    opts = dict(causal=True, window=None, prefix_len=0)
+    out, lse = cuda_fa.flash_attention_fwd_lse(q, k, v, **opts)
+    want = cuda_fa.flash_attention_bwd(q, k, v, out, dout, lse, **opts)
+    # the same tensors once more, freed: the thread's come from the cache
+    spare = (cuda_fa.flash_attention_fwd_lse(q, k, v, **opts),
+             cuda_fa.flash_attention_bwd(q, k, v, out, dout, lse, **opts))
+    torch.cuda.synchronize()
+    del spare
+    got = {}
+
+    def run():
+        try:
+            got["fwd"] = cuda_fa.flash_attention_fwd_lse(q, k, v, **opts)
+            got["bwd"] = cuda_fa.flash_attention_bwd(q, k, v, out, dout,
+                                                     lse, **opts)
+        except Exception as e:   # raised again on the test's thread
+            got["error"] = e
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    if "error" in got:
+        raise got["error"]
+    torch.cuda.synchronize()
+    assert torch.equal(got["fwd"][0], out) and torch.equal(got["fwd"][1], lse)
+    for a, b_ in zip(got["bwd"], want):
+        assert torch.equal(a, b_)
+
 @pytest.mark.parametrize("b,s,h,kvh,hd,prefix,split", [
     (1, 545, 8, 1, 256, 256, True), (20, 1024, 4, 1, 64, 0, False),
-    (4, 1024, 8, 1, 256, 256, True), (2, 1000, 32, 8, 80, 0, True)])
+    (4, 1024, 8, 1, 256, 256, True), (2, 1000, 32, 8, 80, 0, True),
+    (1, 700, 16, 2, 64, 0, True), (2, 2048, 32, 4, 128, 0, True),
+    (1, 545, 16, 1, 128, 200, True), (5, 1024, 16, 8, 80, 0, False)])
 def test_flash_attention_bwd_bf16_split_is_taken_on_small_grids(
         cuda, b, s, h, kvh, hd, prefix, split):
     """K1's bf16 dK / dV walk is split where KV x B x key tiles is under
-    two blocks an SM (MQA at hd 256, paligemma's prefill, a ragged S) and
-    not where the grid is large enough: the split and the unsplit kernels
-    both hold the bf16 bound, and a split call repeats bit for bit."""
+    two blocks an SM (MQA at hd 256, paligemma's prefill, a ragged S; on
+    the wgmma kernels' 128-key tiles phase 22's shard shape at hd 128 and
+    a prefix past a tile at a ragged S; hd 64 on a small batch) and not
+    where the grid is
+    large enough: the split and the unsplit kernels both hold the bf16
+    bound, and a split call repeats bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(s + hd)
     q, k, v, dout = (torch.randn(b, s, n, hd, device=cuda, generator=g
                                  ).bfloat16() for n in (h, kvh, kvh, h))

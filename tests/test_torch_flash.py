@@ -113,14 +113,62 @@ def test_flash_attention_matches_pallas(s, hd, causal, bq, bk, h, kvh, rng):
 
 
 def test_flash_attention_routes_by_head_dim():
-    """bf16 at head dims 64, 80 and 128 takes the wgmma kernel, the other
-    bf16 head dims the mma.sync one, f32 the split-TF32 one."""
+    """bf16 at head dims 64, 80 and 128 takes the forward's wgmma kernel,
+    at 80 and 128 K1's wgmma kernels (its dQ and dK / dV kernels' route),
+    the other bf16 head dims the mma.sync ones, f32 the split-TF32 ones."""
     for hd in cuda_fa.HEAD_DIMS:
         assert cuda_fa.kernel_of(torch.bfloat16, hd) == (
             "flash_attention_bf16_wgmma" if hd in (64, 80, 128)
             else "flash_attention_bf16_mma")
         assert cuda_fa.kernel_of(torch.float32, hd) == \
             "flash_attention_3xtf32"
+        assert cuda_fa.bwd_kernel_of(torch.bfloat16, hd) == (
+            "flash_bwd_wgmma" if hd in (80, 128) else "flash_bwd_mma")
+        assert cuda_fa.bwd_kernel_of(torch.float32, hd) == "flash_bwd_3xtf32"
+
+
+def _constexpr(body: str, name: str, hd: int) -> int:
+    """The value at head dim ``hd`` of ``static constexpr int <name> =
+    <expr>;`` in a C++ struct body, where expr is a number or ``HD <= n ?
+    a : b`` (nested)."""
+    import re
+    expr = re.search(rf"static constexpr int {name} = ([^;]+);",
+                     body).group(1).strip()
+    while True:
+        num = re.fullmatch(r"\d+", expr)
+        if num:
+            return int(expr)
+        cond = re.fullmatch(r"HD (<=|<|==) (\d+) \? (\d+) : (.+)", expr)
+        assert cond, f"{name} = {expr}: not a form this reader takes"
+        op, n, a, rest = cond.groups()
+        if {"<=": hd <= int(n), "<": hd < int(n), "==": hd == int(n)}[op]:
+            return int(a)
+        expr = rest.strip()
+
+
+def test_bwd_tiles_mirror_the_kernels():
+    """BWD_TILES[bfloat16] (the split plan's tiles) at head dims 80 and 128
+    are the wgmma dK / dV kernel's (BK, BQ) in csrc's wg::DkvGeo, and at
+    32, 64, 96 and 256 the mma.sync one's in tc::DkvPlan (BK = 16
+    STRIPS)."""
+    import re
+    from pathlib import Path
+    src = (Path(cuda_fa.__file__).parent / "csrc"
+           / "flash_attention_bwd.cu").read_text()
+
+    def body(struct: str, namespace: str) -> str:
+        part = src.split(f"namespace {namespace} {{", 1)[1]
+        return re.search(rf"struct {struct} {{(.*?)\n}};", part,
+                         re.S).group(1)
+
+    wg, tc = body("DkvGeo", "wg"), body("DkvPlan", "tc")
+    for hd in cuda_fa.HEAD_DIMS:
+        if hd in cuda_fa.BWD_WGMMA_HEAD_DIMS:
+            want = (_constexpr(wg, "BK", hd), _constexpr(wg, "BQ", hd))
+        else:
+            want = (16 * _constexpr(tc, "STRIPS", hd),
+                    _constexpr(tc, "BQ", hd))
+        assert cuda_fa.BWD_TILES[torch.bfloat16][hd] == want, hd
 
 
 # (b, s, h, kvh, hd, causal, window): the reference test's multi-head case,
@@ -658,15 +706,17 @@ def test_card_f32_tolerance_does_not_admit_a_one_tf32_k1(rng):
 
 # (bkv, s, group, hd, causal, window, prefix, sms): paligemma's prefill
 # (B = 4, MQA, prefix 256, hd 256), qwen3-moe's (group 16), a ragged S, a
-# window, full attention with a window on a small card, and danube's
-# training shape, whose grid is large enough unsplit
+# window, full attention with a window on a small card, danube's
+# training shape, whose grid is large enough unsplit, and an S that is no
+# multiple of the bf16 wgmma kernel's 128-key tiles under a window
 @pytest.mark.parametrize("bkv,s,group,hd,causal,window,prefix,sms", [
     (4, 1024, 8, 256, True, None, 256, 132),
     (16, 512, 16, 128, True, None, 0, 132),
     (16, 1000, 4, 80, True, None, 0, 132),
     (2, 700, 4, 64, True, 100, 0, 132),
     (1, 300, 2, 32, False, 50, 0, 16),
-    (32, 4096, 4, 80, True, 4096, 0, 132)])
+    (32, 4096, 4, 80, True, 4096, 0, 132),
+    (4, 2100, 4, 128, True, 700, 0, 132)])
 def test_bwd_split_plan_covers_each_walk_once(bkv, s, group, hd, causal,
                                               window, prefix, sms):
     """K1's dK / dV split plan, for the bf16 kernels' tiles and the f32

@@ -2,17 +2,19 @@
 """Side-by-side timing of build variants of the flash-attention kernels on
 one GPU: the prefill entry's f32 kernel (split TF32) and bf16 kernels
 (wgmma fed by TMA at head dims 64, 80 and 128; mma.sync at 32, 96 and
-256), and the backward entry (K1: bf16 on the tensor cores, f32 on the
-TF32 tensor cores with split operands).
+256), and the backward entry (K1: bf16 on wgmma fed by TMA at head dims
+80 and 128 and on mma.sync at 32, 64, 96 and 256, f32 on the TF32 tensor
+cores with split operands).
 
     python3 tools/torch_flash_variants.py [--parent ROOT]
         [--entries fwd,bwd] [--dtypes f32,bf16] [--rounds N] [VARIANT ...]
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit.  Each variant is ``src/repro_torch/kernels/csrc/
-flash_attention.cu``, ``flash_attention_bwd.cu`` and the header they share,
-``attention_common.cuh`` (whose split-TF32 products both f32 paths use),
-with a few lines of their text replaced (``VARIANTS`` below; ``checkout``
+flash_attention.cu``, ``flash_attention_bwd.cu`` and the headers they
+share, ``attention_common.cuh`` (whose split-TF32 products both f32 paths
+use) and ``wgmma_common.cuh`` (the wgmma kernels' TMA, barriers and
+products), with a few lines of their text replaced (``VARIANTS`` below; ``checkout``
 is the files as they are), each compiled with the port's own ``nvcc``
 flags into a temporary directory, all builds started together.
 ``--parent ROOT`` adds the variant ``parent``: the same libraries built
@@ -31,7 +33,10 @@ SASS is the first variant's instruction for instruction (with
 ``--parent``: the parent's; instances the first variant lacks are
 ``new``, instances only the first variant has are ``gone``), and a
 ``sass_check`` line per library: the instances identical, different,
-new and gone.  Then it times each entry asked for
+new and gone.  For the backward library a ``wgmma_check`` line counts
+each wgmma instance's ``HGMMA``, ``UTMALDG`` and ``HMMA`` instructions
+(it raises if one has no ``HGMMA`` or ``UTMALDG``, or any ``HMMA``).
+Then it times each entry asked for
 (``--entries``, ``fwd`` by default) at every shape of its dtypes in rounds
 (``--rounds``, 4 by default; variants in turn, then in reverse: parent,
 change, change, parent), each by CUDA events over a run of launches after
@@ -94,9 +99,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 CSRC = Path("src/repro_torch/kernels/csrc")
 SOURCE, HEADER = "flash_attention.cu", "attention_common.cuh"
+WG_HEADER = "wgmma_common.cuh"
 BWD_SOURCE = "flash_attention_bwd.cu"
 F32_PART = "namespace tf32x3 {"   # where the f32 kernels' code begins
-BWD_PART = "namespace tc {"       # where K1's bf16 kernels' code begins
+BWD_WG_PART = "namespace wg {"    # where K1's wgmma kernels' code begins
+BWD_PART = "namespace tc {"       # where K1's mma.sync kernels' code begins
 # the split entry of a K1 source that takes f32 too (an older one took
 # bf16 alone)
 SPLIT_TAKES_F32 = "int prefix, int is_bf16, float scale, int bk"
@@ -323,6 +330,18 @@ VARIANTS_BWD = {
   c0[0] += __uint_as_float(hi[0] ^ lo[1] ^ bf[0] ^ bf[1]);
   c1[0] += __uint_as_float(hi[2] ^ lo[3] ^ bf[2] ^ bf[3]);""")],
 }
+# -- K1's wgmma kernels' variants (flash_attention_bwd.cu, from BWD_WG_PART)
+_WG_BWD_RS = """\
+    mma_rs(d, lo[kk], db);
+    mma_rs(d, hi[kk], db);"""
+_WG_BWD_RS_TAIL = """\
+      mma_rs(dt, lo[kk], dbt);
+      mma_rs(dt, hi[kk], dbt);"""
+VARIANTS_BWD_WG = {
+    # P and dS as one bf16 term each: fails the bound
+    "bwd_wg_one_term": [(_WG_BWD_RS, "    mma_rs(d, hi[kk], db);"),
+                        (_WG_BWD_RS_TAIL, "      mma_rs(dt, hi[kk], dbt);")],
+}
 # -- K1's f32 kernels' variants (flash_attention_bwd.cu, from F32_PART) ----
 _BWD_F32_SECOND = "        mma_split(part, xb[r], xs[r], bp[0], bp[LD]);"
 VARIANTS_BWD_F32 = {
@@ -348,8 +367,7 @@ __device__ __forceinline__ void mma_split(float (&c)[4],
     # in turn
     "bwd_f32_sum_whole": [("constexpr int SUM_PARTS = 8;",
                            "constexpr int SUM_PARTS = 1;"),
-                          ("#pragma unroll 4\n    for (int sp = 1;",
-                           "    for (int sp = 1;")],
+                          ("SUM_PARTS, true>(ws", "SUM_PARTS, false>(ws")],
     # probes (wrong results): no tile copies (the loads' share); no dQ, dK
     # and dV products, their B pairs read but neither split nor multiplied
     # (the second products' share); one product of the raw operands, B
@@ -371,23 +389,56 @@ __device__ __forceinline__ void mma_split(float (&c)[4],
 }
 # K1's checkout kernels launched unsplit at every shape
 UNSPLIT = "unsplit"
-# dK / dV tiles (keys, query rows) of the variants whose tiles are not
-# BWD_TILES[dtype][hd]: the split plan is made for them
-BWD_TILES_OF = {"bwd_bq32": lambda hd, tiles: (tiles[0], 32),
-                "bwd_dkdv_8strips": lambda hd, tiles: (
-                    128 if hd <= 128 else 64, tiles[1]),
-                "bwd_f32_hsplit128": lambda hd, tiles: (
-                    (64, 16) if hd == 128 else tiles)}
+# f32 dK / dV tiles (keys, query rows) of the variants whose tiles are
+# not BWD_TILES[float32][hd]: the split plan is made for them (a bf16
+# variant's are read from its source, bf16_tiles)
+BWD_TILES_OF = {"bwd_f32_hsplit128": lambda hd, tiles: (
+    (64, 16) if hd == 128 else tiles)}
+
+
+def _constexpr(body: str, name: str, hd: int) -> int:
+    """The value at head dim ``hd`` of ``static constexpr int <name> =
+    <expr>;`` in a struct's body: a number, or ``HD <= n ? a : <expr>``."""
+    expr = re.search(rf"static constexpr int {name} = ([^;]+);",
+                     body).group(1).strip()
+    while not expr.isdigit():
+        cond = re.fullmatch(r"HD (<=|<|==) (\d+) \? (\d+) : (.+)", expr)
+        if cond is None:
+            raise ValueError(f"{name} = {expr}: not a form this reads")
+        op, n, a, rest = cond.groups()
+        if {"<=": hd <= int(n), "<": hd < int(n), "==": hd == int(n)}[op]:
+            return int(a)
+        expr = rest.strip()
+    return int(expr)
+
+
+def bf16_tiles(text: str, hd: int) -> tuple:
+    """K1's bf16 dK / dV tiles (keys, query rows) at head dim ``hd`` in the
+    K1 source ``text``: its wgmma kernel's (wg::DkvGeo) where its dispatch
+    sends the head dim there (``WG_CASE``), else its mma.sync one's
+    (tc::DkvPlan, 16 STRIPS keys)."""
+    def body(struct: str, namespace: str) -> str:
+        part = text.split(f"namespace {namespace} {{", 1)[1]
+        return re.search(rf"struct {struct} {{(.*?)\n}};", part,
+                         re.S).group(1)
+    if f"WG_CASE({hd})" in text:
+        geo = body("DkvGeo", "wg")
+        return _constexpr(geo, "BK", hd), _constexpr(geo, "BQ", hd)
+    plan = body("DkvPlan", "tc")
+    return 16 * _constexpr(plan, "STRIPS", hd), _constexpr(plan, "BQ", hd)
 VARIANTS = {"checkout": [], UNSPLIT: [], **VARIANTS_F32, **VARIANTS_BF16,
-            **VARIANTS_BWD, **VARIANTS_BWD_F32}
-MUST_FAIL = {"one_tf32", "single_p", "bwd_one_term", "bwd_f32_one_tf32"}
+            **VARIANTS_BWD_WG, **VARIANTS_BWD, **VARIANTS_BWD_F32}
+MUST_FAIL = {"one_tf32", "single_p", "bwd_one_term", "bwd_wg_one_term",
+             "bwd_f32_one_tf32"}
 OWN = {"f32": VARIANTS_F32, "bf16": VARIANTS_BF16}
-OWN_BWD = {"f32": VARIANTS_BWD_F32, "bf16": VARIANTS_BWD}
+OWN_BWD = {"f32": VARIANTS_BWD_F32,
+           "bf16": {**VARIANTS_BWD_WG, **VARIANTS_BWD}}
 # the parts of the sources (``sources``) each kind of variant edits: the
 # f32 forward's variants edit its part and the header's split-TF32
 # products, which K1's f32 kernels share
 PARTS = {**{n: ("f32", "common") for n in VARIANTS_F32},
          **{n: ("bf16",) for n in VARIANTS_BF16},
+         **{n: ("bwd_wg",) for n in VARIANTS_BWD_WG},
          **{n: ("bwd",) for n in VARIANTS_BWD},
          **{n: ("bwd_f32",) for n in VARIANTS_BWD_F32}}
 
@@ -439,19 +490,23 @@ TF32_TFLOPS, BF16_TFLOPS, FP32_TFLOPS, TBS = 495.0, 989.0, 67.0, 3.35
 
 
 def sources(name: str) -> dict:
-    """The texts of ``flash_attention.cu``, ``flash_attention_bwd.cu`` and
-    ``attention_common.cuh`` in variant ``name``, by file name; ``a+b`` is
-    variant a's edits, then b's.  Each edit replaces a text that occurs
-    exactly once in the parts its kind edits (``PARTS``): the forward's
-    f32 kernel (from ``F32_PART`` on) and the header, the forward's bf16
-    kernel (the rest), K1's bf16 kernels (from ``BWD_PART`` to
-    ``F32_PART``) or K1's f32 kernels (from ``F32_PART`` on)."""
+    """The texts of ``flash_attention.cu``, ``flash_attention_bwd.cu``,
+    ``attention_common.cuh`` and ``wgmma_common.cuh`` in variant ``name``,
+    by file name; ``a+b`` is variant a's edits, then b's.  Each edit
+    replaces a text that occurs exactly once in the parts its kind edits
+    (``PARTS``): the forward's f32 kernel (from ``F32_PART`` on) and the
+    header, the forward's bf16 kernels (the rest), K1's wgmma kernels
+    (from ``BWD_WG_PART`` to ``BWD_PART``), its mma.sync kernels (from
+    ``BWD_PART`` to ``F32_PART``) or its f32 kernels (from ``F32_PART``
+    on)."""
     head, sep, tail = (ROOT / CSRC / SOURCE).read_text().partition(F32_PART)
-    bhead, bsep, btail = (ROOT / CSRC / BWD_SOURCE).read_text().partition(
-        BWD_PART)
+    bhead, wsep, btail = (ROOT / CSRC / BWD_SOURCE).read_text().partition(
+        BWD_WG_PART)
+    bwg, bsep, btail = btail.partition(BWD_PART)
     btc, fsep, bf32 = btail.partition(F32_PART)
     parts = {"common": (ROOT / CSRC / HEADER).read_text(), "bf16": head,
-             "f32": sep + tail, "bwd": bsep + btc, "bwd_f32": fsep + bf32}
+             "f32": sep + tail, "bwd_wg": wsep + bwg, "bwd": bsep + btc,
+             "bwd_f32": fsep + bf32}
     for part in name.split("+"):
         for old, new in VARIANTS[part]:
             found = [key for key in PARTS[part] if old in parts[key]]
@@ -460,8 +515,10 @@ def sources(name: str) -> dict:
                                  f"the parts {PARTS[part]}:\n{old}")
             parts[found[0]] = parts[found[0]].replace(old, new)
     return {SOURCE: parts["bf16"] + parts["f32"],
-            BWD_SOURCE: bhead + parts["bwd"] + parts["bwd_f32"],
-            HEADER: parts["common"]}
+            BWD_SOURCE: bhead + parts["bwd_wg"] + parts["bwd"]
+            + parts["bwd_f32"],
+            HEADER: parts["common"],
+            WG_HEADER: (ROOT / CSRC / WG_HEADER).read_text()}
 
 
 def _entry(lib, name: str, argtypes):
@@ -483,13 +540,15 @@ def build(tmp: Path, names, parent) -> dict:
     for name in names:
         d = tmp / name
         d.mkdir()
+        # a parent from before the wgmma header has none
         texts = ({f: (Path(parent) / CSRC / f).read_text()
-                  for f in (SOURCE, BWD_SOURCE, HEADER)}
+                  for f in (SOURCE, BWD_SOURCE, HEADER, WG_HEADER)
+                  if (Path(parent) / CSRC / f).exists()}
                  if name == "parent" else sources(name))
         takes_f32[name] = SPLIT_TAKES_F32 in texts[BWD_SOURCE]
         for f, text in texts.items():
             (d / f).write_text(text)
-            if f == HEADER:
+            if f in (HEADER, WG_HEADER):
                 continue
             procs[name, f] = subprocess.Popen(
                 [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
@@ -517,6 +576,7 @@ def build(tmp: Path, names, parent) -> dict:
                               [P] * 5 + [I] * 9 + [F, P]),
             "bwd": _entry(bwd, "flash_attention_bwd",
                           [P] * 10 + [I] * 9 + [F, P])}
+        entries[name]["bwd_text"] = (tmp / name / BWD_SOURCE).read_text()
         if hasattr(bwd, "flash_attention_bwd_split") and name != UNSPLIT:
             entries[name]["split_f32"] = takes_f32[name]
             entries[name]["bwd_split"] = _entry(
@@ -592,6 +652,8 @@ def report_sass(tmp: Path, names) -> None:
                         kinds[op] = kinds.get(op, 0) + 1
                 print(f"sass {name} {fn}: {len(ins)} instructions, "
                       + json.dumps(dict(sorted(kinds.items()))), flush=True)
+            if lib == "libflash_attention_bwd.so":
+                wgmma_check(name, codes[name])
             if name != names[0]:
                 print("sass_check " + json.dumps(
                     {"variant": name, "base": names[0], "library": lib,
@@ -599,6 +661,26 @@ def report_sass(tmp: Path, names) -> None:
                      "different_instances": counts["different"],
                     "gone_instances": counts["gone"]}),
                     flush=True)
+
+
+def wgmma_check(name: str, code: dict) -> None:
+    """Each wgmma instance of K1 in ``code`` (SASS by instance): its
+    ``HGMMA``, ``UTMALDG`` and ``HMMA`` instructions, printed as a
+    ``wgmma_check`` line; raises if one has no ``HGMMA`` or ``UTMALDG``,
+    or any ``HMMA``."""
+    counts = {}
+    for fn, ins in sorted(code.items()):
+        if "wgmma" not in fn:
+            continue
+        ops = [i.split()[1] if i.startswith("@") else i.split()[0]
+               for i in ins]
+        counts[fn] = {kind: sum(op.startswith(kind) for op in ops)
+                      for kind in ("HGMMA", "UTMALDG", "HMMA")}
+        c = counts[fn]
+        if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]:
+            raise AssertionError(f"{name} {fn}: {c}")
+    print("wgmma_check " + json.dumps({"variant": name,
+                                       "instances": counts}), flush=True)
 
 
 def attention_pairs(s, causal, window, prefix) -> int:
@@ -765,27 +847,29 @@ def run_shapes(dtype, names, rounds, entries, results) -> None:
 
 def kernel_ms(fn, reps: int) -> dict:
     """Mean ms a call of each kernel ``fn`` launches, by name (the
-    template arguments dropped), by torch.profiler over ``reps`` calls."""
+    template arguments dropped), by torch.profiler over ``reps`` calls (a
+    further window, up to three, where it recorded none)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out: dict = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            found = re.search(r"(\w+)<", e.key) or \
-                re.search(r"(\w+)\(", e.key)
-            name = found.group(1) if found else e.key
-            out[name] = out.get(name, 0.0) + \
-                e.self_device_time_total / 1e3 / reps
-    if not out:
-        raise RuntimeError("the profiler recorded no kernel")
-    return out
+    for _ in range(3):   # another window if the profiler recorded none
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out: dict = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                found = re.search(r"(\w+)<", e.key) or \
+                    re.search(r"(\w+)\(", e.key)
+                name = found.group(1) if found else e.key
+                out[name] = out.get(name, 0.0) + \
+                    e.self_device_time_total / 1e3 / reps
+        if out:
+            return out
+    raise RuntimeError("the profiler recorded no kernel")
 
 
 def run_bwd_shapes(dtypes, names, rounds, entries, results) -> None:
@@ -838,10 +922,13 @@ def run_bwd_shapes(dtypes, names, rounds, entries, results) -> None:
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common)
         splits = {}
         for name in names:
-            tiles = cuda_fa.BWD_TILES[tdt][hd]
-            for part in name.split("+"):
-                if part in BWD_TILES_OF:
-                    tiles = BWD_TILES_OF[part](hd, tiles)
+            if bf16:
+                tiles = bf16_tiles(entries[name]["bwd_text"], hd)
+            else:
+                tiles = cuda_fa.BWD_TILES[tdt][hd]
+                for part in name.split("+"):
+                    if part in BWD_TILES_OF:
+                        tiles = BWD_TILES_OF[part](hd, tiles)
             made = cuda_fa.bwd_split_plan(b * kvh, s, h // kvh, *tiles,
                                           causal, window, prefix, sms)
             if made is not None and "bwd_split" in entries[name] and (
@@ -882,9 +969,13 @@ def run_bwd_shapes(dtypes, names, rounds, entries, results) -> None:
             meta["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd(
                 q, k, v, out, dout, lse, **opts), 3)
             del qt, kt, vt, mask, lq, lk, lv, lib_out
-        # a dtype's shapes run the parent, the checkout, unsplit and its
-        # own kernels' variants
+        # a dtype's shapes run the parent, the checkout, unsplit and the
+        # variants of the kernels the shape's head dim takes (bf16: the
+        # wgmma ones at 80 and 128, the mma.sync ones at the others)
         own = OWN_BWD["bf16" if bf16 else "f32"]
+        if bf16:
+            own = (VARIANTS_BWD_WG if hd in cuda_fa.BWD_WGMMA_HEAD_DIMS
+                   else VARIANTS_BWD)
         mine = [n for n in names if n in ("parent", "checkout", UNSPLIT)
                 or all(part in own for part in n.split("+"))]
         for rnd, order in enumerate(orders(mine, max(rounds, 1))):
